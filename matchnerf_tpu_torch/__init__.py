@@ -1,0 +1,22 @@
+"""matchnerf_tpu_torch: the PyTorch + CUDA port of matchnerf_tpu.
+
+The module tree mirrors `matchnerf_tpu/` (camera, ops, models/gmflow,
+models/decoder, models/matchnerf, renderer) so each function has an obvious
+JAX counterpart, and public functions keep the JAX package's array layouts
+([B,P,2,h,w,C] encoder outputs, [V,B,R,S,2] sampling grids, ...). Inside, it
+is ordinary PyTorch: `nn.Module`s whose `state_dict` keys are the reference
+checkpoint's names, functions on tensors with an explicit device, and
+explicit `torch.Generator`s.
+
+Hand-written CUDA kernels (`csrc/`, built by `kernels.py` on first use)
+replace the Pallas kernels of the evaluation render:
+
+- `ops/window_attention.py`  <- ops/pallas_attention.py::flash_window_attention
+- `ops/cosine_prior.py`      <- ops/pallas_banded.py::banded_cosine_scale
+- `ops/decoder.py`           <- ops/pallas_decoder.py::cond_nerf_decode
+
+Each keeps a plain PyTorch version beside it; a CPU tensor takes the plain
+version, a CUDA tensor the kernel. The package never imports jax, yaml or PIL.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,112 @@
+"""GMFlow multi-view matching encoder (counterpart of
+matchnerf_tpu/models/gmflow/gmflow.py).
+
+ImageNet normalisation, the shared CNN backbone over all views, the
+C(V,2) ordered-pair expansion, per-window sine position embedding, the
+feature transformer and the two-branch upsampler. `extract_pair_features`
+returns per-scale [B,P,2,h,w,C] stacks (raw 1/8 scale first, then the
+upsampled scale) as the JAX package does.
+
+bf16 policy (gmflow.py:110-114,195-196): with compute_dtype=bfloat16 the
+weights are cast per call (ops/nn.py) and activations run in bf16, norm and
+softmax statistics in f32, and the outputs are cast back to f32.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...ops.attention import shift_region_ids
+from ...ops.cosine_prior import pair_index_lists
+from ...ops.posenc import sine_position_embedding_2d
+from ...ops.resize import resize_bilinear_align_corners
+from .backbone import CNNEncoder
+from .superres import UpSampler
+from .transformer import FeatureTransformer
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+__all__ = ["GMFlow", "extract_pair_features", "pair_index_lists",
+           "normalize_images"]
+
+
+def normalize_images(images: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, 3] in [0,1] -> ImageNet-normalised (gmflow.py:33)."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=images.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=images.device)
+    return (images - mean) / std
+
+
+class GMFlow(nn.Module):
+    def __init__(self, feature_channels: int = 128, num_transformer_layers: int = 6,
+                 ffn_dim_expansion: int = 4, feature_upsampler: str = "network",
+                 upsample_factor: int = 2):
+        super().__init__()
+        self.feature_channels = feature_channels
+        self.backbone = CNNEncoder(output_dim=feature_channels)
+        self.transformer = FeatureTransformer(num_layers=num_transformer_layers,
+                                              d_model=feature_channels,
+                                              ffn_dim_expansion=ffn_dim_expansion)
+        if feature_upsampler != "network":
+            raise NotImplementedError(f"feature_upsampler {feature_upsampler!r}")
+        self.featup_net = UpSampler(n_feat=feature_channels,
+                                    upsample_factor=upsample_factor)
+
+
+def _add_position(feat: torch.Tensor, attn_splits: int, channels: int):
+    """Add the DETR sine embedding per attention window ([B,h,w,C])."""
+    b, h, w, c = feat.shape
+    pos = sine_position_embedding_2d(h // attn_splits, w // attn_splits,
+                                     channels // 2, device=feat.device)
+    pos = pos.repeat(attn_splits, attn_splits, 1)
+    return feat + pos[None].to(feat.dtype)
+
+
+def extract_pair_features(enc: GMFlow, images: torch.Tensor, attn_splits_list,
+                          n_views: int, wo_self_attn: bool = False,
+                          compute_dtype=None, kernel: bool = True):
+    """images [B,V,H,W,3] in [0,1] -> list over scales of [B,P,2,h,w,C] f32.
+
+    kernel=False runs the plain window attention even on CUDA tensors."""
+    b, v, img_h, img_w, _ = images.shape
+    assert v == n_views
+    pairs = pair_index_lists(n_views)
+    n_pairs = len(pairs)
+    C = enc.feature_channels
+    cd = compute_dtype if compute_dtype not in (None, torch.float32) else None
+
+    if img_h == 756 and img_w == 1008:       # ibrnet inference size (gmflow.py:120)
+        flat = resize_bilinear_align_corners(images.reshape(b * v, img_h, img_w, 3),
+                                             768, 1024)
+        img_h, img_w = 768, 1024
+        images = flat.reshape(b, v, img_h, img_w, 3)
+
+    net_in = normalize_images(images).reshape(b * v, img_h, img_w, 3)
+    net_in = net_in.permute(0, 3, 1, 2).contiguous()
+    if cd is not None:
+        net_in = net_in.to(cd)
+    feat = enc.backbone(net_in)                                   # [BV,C,h,w]
+    _, _, h, w = feat.shape
+    feat = feat.permute(0, 2, 3, 1).reshape(b, v, h, w, C)
+
+    out_scales = []
+    for attn_splits in attn_splits_list:
+        if attn_splits < 2:
+            raise NotImplementedError("attention without window splits is not ported")
+        idx0 = [p[0] for p in pairs]
+        idx1 = [p[1] for p in pairs]
+        feat0 = _add_position(feat[:, idx0].reshape(b * n_pairs, h, w, C), attn_splits, C)
+        feat1 = _add_position(feat[:, idx1].reshape(b * n_pairs, h, w, C), attn_splits, C)
+        rid = shift_region_ids(h, w, attn_splits, device=feat.device)
+        feat0, feat1 = enc.transformer(feat0, feat1, attn_splits, region_ids=rid,
+                                       wo_self_attn=wo_self_attn, kernel=kernel)
+        out_scales.append(torch.stack([feat0, feat1], dim=1)
+                          .reshape(b, n_pairs, 2, h, w, C))
+        merged = torch.cat([feat0, feat1], dim=0).permute(0, 3, 1, 2)
+        up = enc.featup_net(merged).permute(0, 2, 3, 1)
+        up0, up1 = torch.chunk(up, 2, dim=0)
+        uh, uw = up0.shape[1:3]
+        out_scales.append(torch.stack([up0, up1], dim=1)
+                          .reshape(b, n_pairs, 2, uh, uw, C))
+    return [f.float() for f in out_scales]
