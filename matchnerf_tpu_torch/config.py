@@ -1,17 +1,18 @@
-"""The eval slice's configuration as a Python dict.
+"""The eval render's configuration as a Python dict.
 
-`dtu_eval_slice_config()` is configs/base.yaml overlaid with
-configs/test.yaml, with `precision.block_kernel: false` (the per-ray path
-that the three ported kernels cover), restricted to the keys the eval render
-reads. It exists so the port runs where PyYAML is not installed; a CPU test
-holds it equal to what `matchnerf_tpu.config` loads from the YAML files.
+`dtu_eval_config()` is configs/base.yaml overlaid with configs/test.yaml as
+shipped (`precision.block_kernel` and `precision.color_block_kernel` on),
+restricted to the keys the eval render reads. `dtu_eval_per_ray_config()`
+is the same with `precision.block_kernel: false`: the per-ray cosine-prior
+path. Both exist so the port runs where PyYAML is not installed; a CPU test
+holds them equal to what `matchnerf_tpu.config` loads from the YAML files.
 """
 from __future__ import annotations
 
-from matchnerf_tpu.utils.containers import DotDict
+from .utils.containers import DotDict
 
 
-def dtu_eval_slice_config() -> DotDict:
+def dtu_eval_config() -> DotDict:
     return DotDict({
         "n_src_views": 3,
         "batch_size": 1,
@@ -47,10 +48,17 @@ def dtu_eval_slice_config() -> DotDict:
             "cond_sample_dtype": "int8",
             "color_sample_dtype": "uint8",
             "banded_kernel": True,
-            "block_kernel": False,
+            "block_kernel": True,
             "decoder_kernel": True,
+            "color_block_kernel": True,
         },
     })
+
+
+def dtu_eval_per_ray_config() -> DotDict:
+    cfg = dtu_eval_config()
+    cfg.precision.block_kernel = False
+    return cfg
 
 
 # every key the eval render reads, as dotted paths
@@ -67,4 +75,5 @@ SLICE_KEYS = [
     "precision.encoder_compute_dtype", "precision.cond_sample_dtype",
     "precision.color_sample_dtype", "precision.banded_kernel",
     "precision.block_kernel", "precision.decoder_kernel",
+    "precision.color_block_kernel",
 ]

@@ -1,0 +1,248 @@
+// Kernel D: grouped-cosine matching prior of one feature scale, from one
+// dilated union of table rows shared by each 8-ray block.
+//
+// Replaces matchnerf_tpu/ops/pallas_block_banded.py::block_banded_cosine_scale
+// (the block-banded Pallas kernel of the eval render). Plain version, union
+// build and wrapper: matchnerf_tpu_torch/ops/block_cosine_prior.py.
+//
+// Output as Kernel B (csrc/cosine_prior.cu): for each sample n and each of
+// the V = 3 views, the bilinear sample (align corners, border clamp) of the
+// view's unpacked int8 table [V,H,W,2C] (C = 128), times the per-(view,
+// channel) dequantisation scale; for each pair (i, j) in (0,1), (0,2), (1,2)
+// the grouped cosine of view i's chunk j-1 against view j's chunk i (eps
+// 1e-8 on each norm), averaged over the pairs. out[n, g], f32.
+//
+// Inputs besides the table: grids [V,Rp,S,2] f32 (Rp = 8*NB, the tail rays
+// edge-padded) and unions [V*NB, ut] int32: per (view, 8-ray block) the
+// sorted unique cells y0*W+x0 of the block's samples dilated by
+// {c, c+1, c+W, c+W+1}, -1 padded. The dilation holds every bilinear tap
+// of every sample of the block, border-clamped taps included.
+//
+// What bounds it: Kernel B gathers 4 taps x 3 views x 256 channels per
+// sample from L2. Adjacent rays of a block cross nearly the same table
+// rows, so here one block of 512 threads owns one 8-ray block. A prologue
+// finds, once per (sample, view) and one thread each, the union rows of the
+// sample's four bilinear taps by binary search in the sorted union in
+// shared memory (this replaces the TPU kernel's one-hot matmul and sublane
+// rolls) and keeps them as four uint16 rows plus the two f32 fractions.
+// Then, for each pair, the block copies the two 128-channel chunks the pair
+// needs (view i chunk j-1, view j chunk i) of its <= ut union rows into
+// shared memory once (<= 2 x 512 x 128 B = 128 KB, dynamic shared memory;
+// a zero row after them stands for a tap missing from an overflowed union)
+// and gathers the taps from there: table bytes read per block fall from
+// ~3 MB to 768 B x ut. A half warp (16 lanes x 8 channels) owns one sample,
+// as in Kernel B; interpolation and dequantisation are f32 in registers
+// (the TPU kernel rounds its stencil to bf16), the group sums reduce by
+// shuffles, and the per-sample sum over pairs stays in shared memory
+// ([8*S, G] f32) until the block writes [8, S, G] once. The tap
+// coordinates are computed with round-to-nearest intrinsics (no FMA
+// contraction) so they equal the torch ops that built the unions bit for
+// bit.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+#include <limits.h>
+
+namespace {
+
+constexpr int V = 3;
+constexpr int C = 128;          // channels per pair chunk
+constexpr int CC = 2 * C;       // channels per view table row
+constexpr int LANES = C / 8;    // lanes per sample (8 channels each)
+constexpr int THREADS = 512;
+constexpr int GROUPS = THREADS / LANES;   // samples in flight per block
+constexpr int BLOCK_RAYS = 8;
+constexpr int MAX_UT = 512;
+constexpr int MAX_SMEM = 232448;          // 227 KB, the sm_90 per-block limit
+
+__device__ __forceinline__ void load8_i8(const int8_t* p, float* f) {
+  const int2 raw = *reinterpret_cast<const int2*>(p);
+  const int w[2] = {raw.x, raw.y};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[h * 4 + b] = (float)(int8_t)((w[h] >> (8 * b)) & 0xff);
+}
+
+// index of `key` in the ascending union u[0..ut) (INT_MAX padded), or
+// `ut` (the zero row) when it is missing
+__device__ __forceinline__ int find_row(const int* u, int ut, int key) {
+  int lo = 0, hi = ut;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (u[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  return (lo < ut && u[lo] == key) ? lo : ut;
+}
+
+// 8 channels (this lane's) of one view's chunk at one sample: taps from the
+// staged rows, weights rebuilt from the fractions as
+// ops/grid_sample.py::grid_sample_2d forms them, then the dequant scale
+__device__ __forceinline__ void interp8(const int8_t* rows, uint2 pos, float2 fr,
+                                        int o, const float* scale, float* f) {
+  const float wx1 = fr.x, wy1 = fr.y;
+  const float wx0 = __fsub_rn(1.f, wx1), wy0 = __fsub_rn(1.f, wy1);
+  const float w00 = __fmul_rn(wy0, wx0), w01 = __fmul_rn(wy0, wx1);
+  const float w10 = __fmul_rn(wy1, wx0), w11 = __fmul_rn(wy1, wx1);
+  float a[8], b[8], c[8], d[8];
+  load8_i8(rows + (pos.x & 0xffff) * C + o, a);
+  load8_i8(rows + (pos.x >> 16) * C + o, b);
+  load8_i8(rows + (pos.y & 0xffff) * C + o, c);
+  load8_i8(rows + (pos.y >> 16) * C + o, d);
+  const float4 s0 = *reinterpret_cast<const float4*>(scale + o);
+  const float4 s1 = *reinterpret_cast<const float4*>(scale + o + 4);
+  const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    f[e] = (a[e] * w00 + b[e] * w01 + c[e] * w10 + d[e] * w11) * sc[e];
+}
+
+__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+struct Layout {           // dynamic shared memory, in bytes from its start
+  size_t rows, taps, fracs, unions, acc, total;
+  __host__ __device__ Layout(int ut, int S, int G) {
+    const size_t samples = (size_t)BLOCK_RAYS * S;
+    rows = 0;                                              // [2][ut+1][C] int8
+    taps = align16(rows + (size_t)2 * (ut + 1) * C);       // [V][8S] uint2
+    fracs = taps + (size_t)V * samples * sizeof(uint2);    // [V][8S] float2
+    unions = fracs + (size_t)V * samples * sizeof(float2); // [V][ut] int
+    acc = align16(unions + (size_t)V * ut * sizeof(int));  // [8S][G] f32
+    total = acc + samples * G * sizeof(float);
+  }
+};
+
+__global__ void __launch_bounds__(THREADS)
+block_cosine_prior_kernel(const int8_t* __restrict__ table,
+                          const float* __restrict__ grids,
+                          const float* __restrict__ scales,
+                          const int* __restrict__ unions,
+                          float* __restrict__ out,
+                          int H, int W, int G, int R, int S, int NB, int ut) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(ut, S, G);
+  int8_t* rows = reinterpret_cast<int8_t*>(smem + L.rows);
+  uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
+  float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
+  int* u_s = reinterpret_cast<int*>(smem + L.unions);
+  float* acc = reinterpret_cast<float*>(smem + L.acc);
+
+  const int blk = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % LANES;
+  const int grp = tid / LANES;
+  const int o = lane * 8;
+  const int samples = BLOCK_RAYS * S;
+  const int Rp = NB * BLOCK_RAYS;
+  const int lanes_per_group = LANES / G;   // G in {1,2,4,8,16}
+
+  for (int i = tid; i < V * ut; i += THREADS) {
+    const int v = i / ut, r = i % ut;
+    const int c = unions[((size_t)v * NB + blk) * ut + r];
+    u_s[i] = c < 0 ? INT_MAX : c;          // ascending with the padding last
+  }
+  __syncthreads();
+  // prologue: each (view, sample)'s four tap rows and its two fractions,
+  // clip then floor as ops/grid_sample.py::bilinear_taps computes them
+  for (int t = tid; t < V * samples; t += THREADS) {
+    const int v = t / samples, nl = t % samples;
+    const size_t g = (((size_t)v * Rp + blk * BLOCK_RAYS + nl / S) * S + nl % S) * 2;
+    const float x = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(grids[g], 1.f), 0.5f),
+                                          (float)(W - 1)), 0.f), (float)(W - 1));
+    const float y = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(grids[g + 1], 1.f), 0.5f),
+                                          (float)(H - 1)), 0.f), (float)(H - 1));
+    const float x0f = floorf(x), y0f = floorf(y);
+    const int x0 = (int)x0f, y0 = (int)y0f;
+    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
+    const int* u = u_s + v * ut;
+    const int p00 = find_row(u, ut, y0 * W + x0), p01 = find_row(u, ut, y0 * W + x1);
+    const int p10 = find_row(u, ut, y1 * W + x0), p11 = find_row(u, ut, y1 * W + x1);
+    taps[t] = make_uint2((unsigned)p00 | ((unsigned)p01 << 16),
+                         (unsigned)p10 | ((unsigned)p11 << 16));
+    fracs[t] = make_float2(__fsub_rn(x, x0f), __fsub_rn(y, y0f));
+  }
+
+#pragma unroll 1
+  for (int p = 0; p < 3; ++p) {
+    const int vi = p == 2 ? 1 : 0, vj = p == 0 ? 1 : 2;   // (0,1), (0,2), (1,2)
+    const int ca = vj - 1, cb = vi;        // view i's chunk j-1, view j's chunk i
+    __syncthreads();                       // prologue / previous pair done
+    // stage both chunks of the union rows, 16 bytes a thread; row ut is zero
+    for (int i = tid; i < 2 * (ut + 1) * (C / 16); i += THREADS) {
+      const int side = i / ((ut + 1) * (C / 16));
+      const int rem = i % ((ut + 1) * (C / 16));
+      const int r = rem / (C / 16), part = rem % (C / 16);
+      const int v = side ? vj : vi;
+      const int chunk = side ? cb : ca;
+      const int cell = r < ut ? u_s[v * ut + r] : INT_MAX;
+      int4 val = make_int4(0, 0, 0, 0);
+      if (cell != INT_MAX)
+        val = *reinterpret_cast<const int4*>(
+            table + ((size_t)v * H * W + cell) * CC + chunk * C + part * 16);
+      *reinterpret_cast<int4*>(rows + ((size_t)side * (ut + 1) + r) * C + part * 16) = val;
+    }
+    __syncthreads();
+
+    const int8_t* rows_a = rows;
+    const int8_t* rows_b = rows + (size_t)(ut + 1) * C;
+    for (int base = 0; base < samples; base += GROUPS) {
+      const int nl_raw = base + grp;
+      const bool active = nl_raw < samples;
+      const int nl = active ? nl_raw : samples - 1;   // all lanes reach the shuffles
+      float fa[8], fb[8];
+      interp8(rows_a, taps[vi * samples + nl], fracs[vi * samples + nl], o,
+              scales + vi * CC + ca * C, fa);
+      interp8(rows_b, taps[vj * samples + nl], fracs[vj * samples + nl], o,
+              scales + vj * CC + cb * C, fb);
+      float dot = 0.f, na2 = 0.f, nb2 = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        dot = fmaf(fa[e], fb[e], dot);
+        na2 = fmaf(fa[e], fa[e], na2);
+        nb2 = fmaf(fb[e], fb[e], nb2);
+      }
+      for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        na2 += __shfl_xor_sync(0xffffffffu, na2, off);
+        nb2 += __shfl_xor_sync(0xffffffffu, nb2, off);
+      }
+      const float cosv = dot / (fmaxf(sqrtf(na2), 1e-8f) * fmaxf(sqrtf(nb2), 1e-8f));
+      if (active && lane % lanes_per_group == 0) {
+        float* a = acc + nl * G + lane / lanes_per_group;
+        *a = p == 0 ? cosv : *a + cosv;    // the same thread owns it every pair
+      }
+    }
+  }
+  __syncthreads();
+  const int valid = min(BLOCK_RAYS, R - blk * BLOCK_RAYS) * S * G;
+  float* ob = out + (size_t)blk * BLOCK_RAYS * S * G;
+  for (int i = tid; i < valid; i += THREADS) ob[i] = acc[i] / 3.f;
+}
+
+}  // namespace
+
+extern "C" int block_cosine_prior_i8(const void* table, const void* grids,
+                                     const void* scales, const void* unions,
+                                     void* out, int views, int H, int W,
+                                     int channels, int G, int R, int S, int NB,
+                                     int ut, void* stream) {
+  if (views != V || channels != C || H <= 0 || W <= 0 || R <= 0 || S <= 0 ||
+      NB * BLOCK_RAYS < R || ut <= 0 || ut > MAX_UT ||
+      !(G == 1 || G == 2 || G == 4 || G == 8 || G == 16))
+    return (int)cudaErrorInvalidValue;
+  const Layout L(ut, S, G);
+  if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      block_cosine_prior_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (R + BLOCK_RAYS - 1) / BLOCK_RAYS;
+  block_cosine_prior_kernel<<<blocks, THREADS, L.total,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(table), static_cast<const float*>(grids),
+      static_cast<const float*>(scales), static_cast<const int*>(unions),
+      static_cast<float*>(out), H, W, G, R, S, NB, ut);
+  return (int)cudaGetLastError();
+}

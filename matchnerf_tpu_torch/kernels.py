@@ -43,14 +43,25 @@ SIGNATURES = {
     # out, N, S, Gf, V, act, maskfill, wo_render_interval, setbg, stream
     "cond_nerf_decode_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # table, grids, scales, unions, out, V, H, W, C, G, R, S, NB, ut, stream
+    "block_cosine_prior_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _P],
+    # colors_sc, grids, unions, out, V, Hs, Ws, img_h, img_w, R, S, NB, ut,
+    # stream
+    "supercell_color_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P],
 }
 
 
 class LaunchCounter:
-    """Launches of one kernel, and calls of its plain version on CUDA."""
+    """Launches of one kernel, and calls of its plain version on CUDA.
+    `source` is the kernel's CUDA file and `replaces` the TPU kernel
+    (file:line) it ports, both as paths in the repo."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, source: str = "", replaces: str = ""):
         self.name = name
+        self.source = source
+        self.replaces = replaces
         self.launches = 0
         self.plain_on_cuda = 0
 

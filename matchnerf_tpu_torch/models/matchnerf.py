@@ -8,6 +8,12 @@ render: `encode`, `sample_depth`, `prepare_sampling_tables`,
 True calls the kernel wrappers, which launch the CUDA kernels on CUDA
 tensors and run the plain versions on CPU tensors; False calls the plain
 versions everywhere (the all-plain reference render on the card).
+
+The cond query follows the per-pose route the renderer measured
+(`Renderer.pose_prep`): a scale whose block-union bucket `block_ut[s]` is
+set takes Kernel D (ops/block_cosine_prior.py), the others Kernel B; the
+colours take Kernel E (ops/supercell_color.py) when `color_ut` is set and
+the supercell table exists, the gather otherwise.
 """
 from __future__ import annotations
 
@@ -16,14 +22,16 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from matchnerf_tpu.utils.containers import effective_precision
-
 from .. import camera
+from ..ops.block_cosine_prior import block_cosine_prior, block_cosine_prior_plain
 from ..ops.cosine_prior import (cosine_prior, cosine_prior_plain,
                                 pair_index_lists)
 from ..ops.decoder import cond_nerf_decode, cond_nerf_decode_plain
 from ..ops.grid_sample import grid_sample_2d, in_frustum_mask
 from ..ops.nn import reset_parameters
+from ..ops.supercell_color import (build_supercell_colors, supercell_color_sample,
+                                   supercell_color_sample_plain)
+from ..utils.containers import effective_precision
 from .decoder.cond_nerf import CondNeRF
 from .gmflow.gmflow import GMFlow, extract_pair_features
 
@@ -84,17 +92,23 @@ def sample_depth(cfg, near_far: torch.Tensor, batch_size: int, num_rays: int):
 def prepare_sampling_tables(cfg, pair_feats, ref_images, feat_dtype=None,
                             color_dtype=None):
     """Per-view feature tables and the colour table, built once per image set
-    (matchnerf.py:94), UNPACKED (no 2x2 taps per row).
+    (matchnerf.py:94), UNPACKED (no 2x2 taps per row): they are the JAX
+    package's `view_feats_unpacked`, which the block kernel reads as well.
 
     View v's table concatenates, in pair order, the pair-side features it
     contributes: [B,V,h,w,(V-1)C]. feat_dtype=torch.int8 quantises per
     (view, channel): abs-max / 127, round half to even, clip at +-127; the
     scale is applied after interpolation. color_dtype=torch.uint8 stores
     round(clip(img,0,1)*255) and the sampled colours are multiplied by 1/255.
+    On the block path (`precision.block_kernel`) it also builds the
+    supercell colour table of Kernel E when the colours are uint8,
+    `precision.color_block_kernel` is on (its default) and B == 1 (JAX
+    matchnerf.py:183-196).
 
     Returns {'view_feats': [per scale [B,V,h,w,(V-1)C]],
              'view_feat_scales': [per scale [B,V,(V-1)C] or None],
-             'colors': [B,V,H,W,3], 'color_scale': float or None}."""
+             'colors': [B,V,H,W,3], 'color_scale': float or None,
+             'colors_sc': [B,V,Hs,Ws,80] uint8 or None}."""
     n_views = cfg.n_src_views
     pairs = pair_index_lists(n_views)
     view_feats, view_scales = [], []
@@ -116,12 +130,19 @@ def prepare_sampling_tables(cfg, pair_feats, ref_images, feat_dtype=None,
             view_scales.append(None)
         view_feats.append(stacked.contiguous())
     color_scale = None
+    colors_sc = None
     colors = ref_images
     if color_dtype == torch.uint8:
         colors = torch.round(torch.clamp(ref_images, 0.0, 1.0) * 255.0).to(torch.uint8)
         color_scale = 1.0 / 255.0
+        B, V, H, W, _ = colors.shape
+        if (B == 1 and bool(_precision_get(cfg, "block_kernel", False))
+                and bool(_precision_get(cfg, "color_block_kernel", True))):
+            colors_sc = build_supercell_colors(colors.reshape(B * V, H, W, 3))
+            colors_sc = colors_sc.reshape(B, V, *colors_sc.shape[1:])
     return {"view_feats": view_feats, "view_feat_scales": view_scales,
-            "colors": colors.contiguous(), "color_scale": color_scale}
+            "colors": colors.contiguous(), "color_scale": color_scale,
+            "colors_sc": colors_sc}
 
 
 def project_to_views(pts_3d, ref_w2c, ref_intr, ref_near_far, img_h: int,
@@ -137,12 +158,18 @@ def project_to_views(pts_3d, ref_w2c, ref_intr, ref_near_far, img_h: int,
 
 
 def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
-                    img_h: int, img_w: int, kernel: bool = True):
+                    img_h: int, img_w: int, kernel: bool = True,
+                    block_ut: Optional[tuple] = None,
+                    color_ut: Optional[int] = None):
     """Decoder conditioning from the source views (matchnerf.py:221).
 
-    pts_3d [B,R,S,3] world points; ref_* [B,V,...]. Returns (cond dict with
-    feat_info [B,R,S,sum(G)], color_info [B,R,S,3V], mask_info [B,R,S,V],
-    all contiguous f32) and the view-0 NDC coordinates [B,R,S,3]."""
+    pts_3d [B,R,S,3] world points; ref_* [B,V,...]. block_ut: per-scale
+    block-union buckets (None, or None at a scale, for Kernel B); color_ut:
+    the supercell-union bucket (None for the colour gather); both from
+    `Renderer.pose_prep` for this pose, and only for B == 1 with the rays of
+    consecutive 8-pixel blocks. Returns (cond dict with feat_info
+    [B,R,S,sum(G)], color_info [B,R,S,3V], mask_info [B,R,S,V], all
+    contiguous f32) and the view-0 NDC coordinates [B,R,S,3]."""
     if int(cfg.encoder.feature_sample_local_radius) > 0:
         raise NotImplementedError("feature_sample_local_radius > 0 is not ported")
     B, R, S = pts_3d.shape[:3]
@@ -153,21 +180,40 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
     ndc_all = project_to_views(pts_3d, ref_w2c, ref_intr, ref_near_far, img_h, img_w)
     grids = ndc_all[..., :2] * 2.0 - 1.0                          # [V,B,R,S,2]
 
-    colors = torch.stack([grid_sample_2d(tables["colors"][:, v], grids[v])
-                          for v in range(V)], dim=0)              # [V,B,R,S,3]
-    if tables.get("color_scale") is not None:
-        colors = colors * tables["color_scale"]
+    colors_sc = tables.get("colors_sc")
+    if color_ut is not None and colors_sc is not None and B == 1:
+        # Kernel E: supercell union per 8-ray block -> [R,S,3V] on 0-255
+        sample = supercell_color_sample if kernel else supercell_color_sample_plain
+        color_info = sample(colors_sc[0], grids[:, 0].contiguous(), img_h, img_w,
+                            color_ut)[None]
+        if tables.get("color_scale") is not None:
+            color_info = color_info * tables["color_scale"]
+    else:
+        colors = torch.stack([grid_sample_2d(tables["colors"][:, v], grids[v])
+                              for v in range(V)], dim=0)          # [V,B,R,S,3]
+        if tables.get("color_scale") is not None:
+            colors = colors * tables["color_scale"]
+        color_info = colors.permute(1, 2, 3, 0, 4).reshape(B, R, S, V * 3)
+    color_info = color_info.contiguous()
     masks = in_frustum_mask(grids)                                # [V,B,R,S]
-    color_info = colors.permute(1, 2, 3, 0, 4).reshape(B, R, S, V * 3).contiguous()
     mask_info = masks.permute(1, 2, 3, 0).contiguous()
 
-    # matching prior per scale: Kernel B when precision.banded_kernel is on
-    use_kernel = kernel and bool(_precision_get(cfg, "banded_kernel", False))
+    # matching prior per scale: Kernel D where the pose's union fits a bucket
+    # (int8 tables), else Kernel B when precision.banded_kernel or
+    # block_kernel is on, else the plain direct path
+    use_kernel = kernel and (bool(_precision_get(cfg, "banded_kernel", False))
+                             or bool(_precision_get(cfg, "block_kernel", False)))
     prior = cosine_prior if use_kernel else cosine_prior_plain
+    block_prior = block_cosine_prior if kernel else block_cosine_prior_plain
     feat_chunks = []
     for scale_idx, vfeats in enumerate(tables["view_feats"]):
         G = cos_n_group[scale_idx]
         scales = tables["view_feat_scales"][scale_idx]
+        ut = block_ut[scale_idx] if block_ut is not None else None
+        if ut is not None and B == 1 and vfeats.dtype == torch.int8:
+            feat_chunks.append(block_prior(vfeats[0], grids[:, 0].contiguous(),
+                                           scales[0], G, ut)[None])
+            continue
         per_b = [prior(vfeats[b], grids[:, b].contiguous(),
                        None if scales is None else scales[b], G)
                  for b in range(B)]
@@ -179,9 +225,11 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
 
 def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
                 ref_w2c, ref_intr, ref_near_far, tables: dict, img_h: int,
-                img_w: int, kernel: bool = True):
-    """Render rays [B,R,2] of target pixels (matchnerf.py:422). Returns
-    dict(rgb [B,R,3], depth [B,R,1], opacity [B,R,1])."""
+                img_w: int, kernel: bool = True,
+                block_ut: Optional[tuple] = None, color_ut: Optional[int] = None):
+    """Render rays [B,R,2] of target pixels (matchnerf.py:422); block_ut
+    and color_ut as in `query_cond_info`. Returns dict(rgb [B,R,3], depth
+    [B,R,1], opacity [B,R,1])."""
     B, R = pix_xy.shape[:2]
     center, ray = camera.get_center_and_ray(pix_xy, tgt_intr, tgt_c2w)
     depth_samples = sample_depth(cfg, tgt_near_far, B, R)
@@ -189,7 +237,8 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
                                              multi_samples=True)
     cond_info, ndc_view0 = query_cond_info(cfg, pts_3d, ref_w2c, ref_intr,
                                            ref_near_far, tables, img_h, img_w,
-                                           kernel=kernel)
+                                           kernel=kernel, block_ut=block_ut,
+                                           color_ut=color_ut)
     # reference-frame unit rays, shared by every sample of a ray
     ray_unit = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
     R0 = ref_w2c[:, 0, :3, :3]

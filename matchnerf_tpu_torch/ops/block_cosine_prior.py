@@ -1,0 +1,219 @@
+"""Kernel D: the grouped-cosine matching prior from one dilated union of
+table rows shared by each 8-ray block.
+
+Replaces matchnerf_tpu/ops/pallas_block_banded.py::block_banded_cosine_scale
+(the eval render's block-banded Pallas kernel). The CUDA source is
+csrc/block_cosine_prior.cu; `block_cosine_prior_plain` is the same function
+in plain PyTorch, along the same union route.
+
+It computes what Kernel B (ops/cosine_prior.py) computes: for every sample
+the bilinear sample (align corners, border clamp) of each view's unpacked
+table [V,h,w,(V-1)C], the per-(view, channel) dequantisation scale after the
+interpolation, and the grouped cosine of pair (i, j) (view i's chunk j-1
+against view j's chunk i, eps 1e-8 on each norm) averaged over the pairs.
+Output [R,S,G] f32. The difference is the route to the taps: the rays of a
+slice are adjacent pixels, so the 8 rays of a block share most table rows.
+Per block and view the union of the samples' (y0, x0) cells, dilated by
+{c, c+1, c+W, c+W+1} (every bilinear tap of every sample), is built with
+torch ops as sorted unique cells padded with -1 (`block_union_cells`); the
+kernel stages those rows in shared memory once per block and finds each tap
+by binary search in the sorted union. Tap weights stay exact f32 (the TPU
+kernel rounds its stencil to bf16).
+
+The helpers below are the counterparts of pallas_block_banded.py's
+`_cells_weights4` (its cells), `_unique_compact`, `block_union_cells`,
+`block_union_size_raw` and `bucket_ut`; their integer results equal the
+JAX ones exactly. `ut`, the union bucket, comes from the renderer's pose
+measurement (`Renderer.pose_prep`).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import kernels
+from .cosine_prior import pair_cosine_mean
+from .grid_sample import bilinear_taps
+
+COUNTER = kernels.LaunchCounter(
+    "block_cosine_prior", source="matchnerf_tpu_torch/csrc/block_cosine_prior.cu",
+    replaces="matchnerf_tpu/ops/pallas_block_banded.py:413")
+
+BLOCK_RAYS = 8
+UT_BUCKETS = (64, 96, 128, 160, 192, 256, 320, 384, 512)
+
+
+def bucket_ut(n: int) -> Optional[int]:
+    """A measured block-union size rounded up to its bucket; None when the
+    union is too wide for the block kernel (pallas_block_banded.py:54)."""
+    for b in UT_BUCKETS:
+        if n <= b:
+            return b
+    return None
+
+
+def base_cells(grid, H: int, W: int):
+    """grid [...,2] -> [...] int32 cell y0*W + x0 of each sample's (y0, x0)
+    tap, clip then floor (the cells of pallas_block_banded.py:63
+    `_cells_weights4`); the unions are built from them."""
+    (y0, x0, _, _), _ = bilinear_taps(grid, H, W)
+    return (y0 * W + x0).to(torch.int32)
+
+
+def first_of_runs(sorted_vals, sentinel: int):
+    """sorted_vals [NB, L] ascending -> [NB, L] bool, True at the first of
+    each run of equal values below `sentinel`: the row's distinct values."""
+    keep = sorted_vals < sentinel
+    keep[:, 1:] &= sorted_vals[:, 1:] != sorted_vals[:, :-1]
+    return keep
+
+
+def unique_compact(sorted_vals, cap: int, sentinel: int):
+    """sorted_vals [NB, L] ascending -> [NB, min(cap, L)] sorted unique values
+    below `sentinel`, unused slots -1 (pallas_block_banded.py:104)."""
+    keep = first_of_runs(sorted_vals, sentinel)
+    vals = torch.sort(torch.where(keep, sorted_vals, sentinel), dim=-1).values[:, :cap]
+    return torch.where(vals < sentinel, vals, -1)
+
+
+def _dilate(cells, W: int, sentinel: int):
+    return torch.cat([cells, torch.clamp_max(cells + 1, sentinel),
+                      torch.clamp_max(cells + W, sentinel),
+                      torch.clamp_max(cells + W + 1, sentinel)], dim=-1)
+
+
+def block_union_cells(cells, block_rays: int, ut: int, H: int, W: int):
+    """cells [R', L] per-ray cells -> [R'/block_rays, <=ut] sorted unique
+    dilated block unions, -1 padded (pallas_block_banded.py:122). The
+    dilation {c, c+1, c+W, c+W+1} holds every bilinear tap of every sample;
+    the sentinel H*W stands for cells past the table."""
+    NB = cells.shape[0] // block_rays
+    sentinel = H * W
+    blk = cells.reshape(NB, -1)
+    u1 = unique_compact(torch.sort(blk, dim=-1).values, ut, sentinel)
+    u1s = torch.where(u1 < 0, sentinel, u1)
+    dil = _dilate(u1s, W, sentinel)
+    return unique_compact(torch.sort(dil, dim=-1).values, ut, sentinel)
+
+
+def block_union_max(grids_v, H: int, W: int, block_rays: int = BLOCK_RAYS):
+    """`block_union_size_raw` as a 0-d device tensor (no host sync): the
+    distinct values of each block's dilated raw cells, uncapped, counted
+    after one sort (pallas_block_banded.py:141 `_dilated_union_max`)."""
+    cell = base_cells(grids_v, H, W)
+    dil = _dilate(cell.reshape(-1, block_rays * cell.shape[-1]), W, H * W)
+    return first_of_runs(torch.sort(dil, dim=-1).values, H * W).sum(dim=-1).max()
+
+
+def block_union_size_raw(grids_v, H: int, W: int, block_rays: int = BLOCK_RAYS) -> int:
+    """Max over blocks of the exact dilated union size of the raw per-sample
+    cells (pallas_block_banded.py:172). grids_v [R,S,2] or [V,R,S,2]; R a
+    multiple of block_rays."""
+    return int(block_union_max(grids_v, H, W, block_rays))
+
+
+def pad_rays(grids, block_rays: int = BLOCK_RAYS):
+    """[V,R,S,2] -> [V,Rp,S,2] contiguous, Rp the next multiple of block_rays,
+    the tail rays repeating the last (edge padding, pallas_block_banded.py:437)."""
+    pad = (-grids.shape[1]) % block_rays
+    if pad:
+        grids = torch.cat([grids, grids[:, -1:].expand(-1, pad, -1, -1)], dim=1)
+    return grids.contiguous()
+
+
+def block_unions(grids_p, H: int, W: int, ut: int):
+    """Padded grids [V,Rp,S,2] -> the per-(view, block) unions [V*NB, ut]
+    int32 (view-major, -1 padded to exactly ut columns)."""
+    V, Rp, S = grids_p.shape[:3]
+    cell = base_cells(grids_p, H, W)
+    u = block_union_cells(cell.reshape(V * Rp, S), BLOCK_RAYS, ut, H, W)
+    if u.shape[1] < ut:
+        u = torch.nn.functional.pad(u, (0, ut - u.shape[1]), value=-1)
+    return u.contiguous()
+
+
+def union_positions(unions, cells, sentinel: int):
+    """Row of each cell in its block's sorted union: unions [NB, ut] (-1
+    padded), cells [NB, L] -> (pos [NB, L] int64 clamped to the union,
+    found [NB, L] bool)."""
+    keys = torch.where(unions < 0, sentinel, unions)
+    pos = torch.searchsorted(keys, cells.to(keys.dtype).contiguous())
+    pos = torch.clamp_max(pos, keys.shape[1] - 1)
+    return pos, torch.gather(keys, 1, pos) == cells
+
+
+def block_cosine_prior_plain(table, grids, scales, n_groups: int, ut: int):
+    """table [V,h,w,(V-1)C] (int8 or f32); grids [V,R,S,2] f32; scales
+    [V,(V-1)C] f32 or None; ut the union bucket -> [R,S,G] f32.
+
+    The union route in torch ops: gather each block's union rows, find each
+    tap by `searchsorted`, interpolate in f32 one tap and one view at a time
+    (the [V,R,S,4,(V-1)C] f32 taps of a 20480-ray slice would be ~32 GB).
+    A tap missing from a union (only when a union overflows `ut`) adds 0."""
+    if table.is_cuda:
+        COUNTER.plain_on_cuda += 1
+    V, H, W, Cc = table.shape
+    R, S = grids.shape[1:3]
+    gp = pad_rays(grids)
+    NB = gp.shape[1] // BLOCK_RAYS
+    unions = block_unions(gp, H, W, ut).view(V, NB, ut)
+    blocks = torch.arange(NB, device=table.device)[:, None]
+    sampled = []
+    for v in range(V):
+        rows = table[v].reshape(H * W, Cc)[torch.clamp_min(unions[v], 0).long()]
+        (y0, x0, y1, x1), (wy0, wx0, wy1, wx1) = bilinear_taps(gp[v], H, W)
+        acc = None
+        for yi, xi, w in ((y0, x0, wy0 * wx0), (y0, x1, wy0 * wx1),
+                          (y1, x0, wy1 * wx0), (y1, x1, wy1 * wx1)):
+            cells = (yi * W + xi).reshape(NB, BLOCK_RAYS * S)
+            pos, found = union_positions(unions[v], cells, H * W)
+            w = torch.where(found, w.reshape(NB, -1), 0.0)
+            tap = rows[blocks, pos].float() * w[..., None]          # [NB,8S,Cc]
+            acc = tap if acc is None else acc + tap
+        acc = acc.reshape(NB * BLOCK_RAYS, S, Cc)[:R]
+        if scales is not None:
+            acc = acc * scales[v]
+        sampled.append(acc)
+    return pair_cosine_mean(sampled, n_groups)
+
+
+def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
+    """The kernel on CUDA tensors (int8 tables [3,h,w,256], f32 scales), the
+    plain version on CPU tensors."""
+    if table.device.type == "cpu":
+        return block_cosine_prior_plain(table, grids, scales, n_groups, ut)
+    if not table.is_cuda:
+        raise ValueError(f"block_cosine_prior: unsupported device {table.device}")
+    if table.dtype != torch.int8:
+        raise ValueError(f"block_cosine_prior: table dtype {table.dtype}, the kernel "
+                         "takes int8 tables")
+    if table.dim() != 4 or table.shape[0] != 3 or table.shape[-1] != 256:
+        raise ValueError(f"block_cosine_prior: table {tuple(table.shape)}, kernel takes "
+                         "[3,h,w,256]")
+    V, H, W, Cc = table.shape
+    if n_groups not in (1, 2, 4, 8, 16):
+        raise ValueError(f"block_cosine_prior: n_groups={n_groups}, kernel takes 1, 2, "
+                         "4, 8 or 16")
+    if ut not in UT_BUCKETS:
+        raise ValueError(f"block_cosine_prior: ut={ut}, kernel takes one of {UT_BUCKETS}")
+    if (grids.dtype != torch.float32 or grids.dim() != 4 or grids.shape[0] != V
+            or grids.shape[-1] != 2 or grids.device != table.device):
+        raise ValueError(f"block_cosine_prior: grids {tuple(grids.shape)} {grids.dtype}, "
+                         f"kernel takes f32 [{V},R,S,2] on {table.device}")
+    if (scales is None or scales.dtype != torch.float32
+            or tuple(scales.shape) != (V, Cc) or scales.device != table.device):
+        raise ValueError(f"block_cosine_prior: the kernel takes f32 scales [{V},{Cc}]")
+    if not (table.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("block_cosine_prior: table and scales must be contiguous")
+    R, S = grids.shape[1:3]
+    gp = pad_rays(grids)
+    NB = gp.shape[1] // BLOCK_RAYS
+    unions = block_unions(gp, H, W, ut)
+    out = torch.empty(R, S, n_groups, dtype=torch.float32, device=table.device)
+    if R == 0:
+        return out
+    kernels.launch(COUNTER, "block_cosine_prior_i8", table.data_ptr(), gp.data_ptr(),
+                   scales.data_ptr(), unions.data_ptr(), out.data_ptr(), V, H, W,
+                   Cc // (V - 1), n_groups, R, S, NB, ut)
+    return out

@@ -22,7 +22,9 @@ import torch
 from .. import kernels
 from .grid_sample import grid_sample_2d
 
-COUNTER = kernels.LaunchCounter("cosine_prior")
+COUNTER = kernels.LaunchCounter(
+    "cosine_prior", source="matchnerf_tpu_torch/csrc/cosine_prior.cu",
+    replaces="matchnerf_tpu/ops/pallas_banded.py:267")
 
 
 def pair_index_lists(n_views: int):
@@ -41,19 +43,11 @@ def grouped_cosine(a, b, n_groups: int, eps: float = 1e-8):
     return dot / (na * nb)
 
 
-def cosine_prior_plain(table, grids, scales, n_groups: int):
-    """table [V,h,w,(V-1)C] (int8/f32/bf16); grids [V,R,S,2] f32; scales
-    [V,(V-1)C] f32 or None -> [R,S,G] f32."""
-    if table.is_cuda:
-        COUNTER.plain_on_cuda += 1
-    V = table.shape[0]
-    C = table.shape[-1] // (V - 1)
-    sampled = []
-    for v in range(V):
-        s = grid_sample_2d(table[v:v + 1], grids[v:v + 1])[0]       # [R,S,(V-1)C]
-        if scales is not None:
-            s = s * scales[v]
-        sampled.append(s)
+def pair_cosine_mean(sampled, n_groups: int):
+    """Per-view sampled features [V x [...,(V-1)C]] -> [...,G]: for each pair
+    (i, j), view i's chunk j-1 against view j's chunk i, averaged."""
+    V = len(sampled)
+    C = sampled[0].shape[-1] // (V - 1)
     pairs = pair_index_lists(V)
     total = None
     for (i, j) in pairs:
@@ -62,6 +56,20 @@ def cosine_prior_plain(table, grids, scales, n_groups: int):
                              sampled[j][..., cb * C:(cb + 1) * C], n_groups)
         total = cos if total is None else total + cos
     return total / len(pairs)
+
+
+def cosine_prior_plain(table, grids, scales, n_groups: int):
+    """table [V,h,w,(V-1)C] (int8/f32/bf16); grids [V,R,S,2] f32; scales
+    [V,(V-1)C] f32 or None -> [R,S,G] f32."""
+    if table.is_cuda:
+        COUNTER.plain_on_cuda += 1
+    sampled = []
+    for v in range(table.shape[0]):
+        s = grid_sample_2d(table[v:v + 1], grids[v:v + 1])[0]       # [R,S,(V-1)C]
+        if scales is not None:
+            s = s * scales[v]
+        sampled.append(s)
+    return pair_cosine_mean(sampled, n_groups)
 
 
 def cosine_prior(table, grids, scales, n_groups: int):

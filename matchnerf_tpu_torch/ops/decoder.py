@@ -22,7 +22,9 @@ from ..models.decoder.cond_nerf import (CondNeRF, apply_cond_nerf, composite,
                                         raytrans_act_name)
 from .posenc import ray_sinusoid_table
 
-COUNTER = kernels.LaunchCounter("cond_nerf_decode")
+COUNTER = kernels.LaunchCounter(
+    "cond_nerf_decode", source="matchnerf_tpu_torch/csrc/cond_nerf_decode.cu",
+    replaces="matchnerf_tpu/ops/pallas_decoder.py:59")
 _ACT_IDS = {"ReLU": 0, "ELU": 1}
 
 

@@ -18,7 +18,9 @@ import torch
 
 from .. import kernels
 
-COUNTER = kernels.LaunchCounter("window_attention")
+COUNTER = kernels.LaunchCounter(
+    "window_attention", source="matchnerf_tpu_torch/csrc/window_attention.cu",
+    replaces="matchnerf_tpu/ops/pallas_attention.py:44")
 
 
 def window_attention_plain(q, k, v, region_ids=None):

@@ -5,22 +5,37 @@ the sampling tables, and renders the full target image in slices of
 `nerf.rand_rays_test` rays (capped at `nerf.max_rays_per_slice`, default
 8192, off the CPU — renderer.py:597-602). PyTorch runs eagerly, so slices are
 plain Python iterations with a ragged last slice; the JAX package's
-`slices_per_dispatch` scan and its per-pose `kt`/`ut` bucket machinery
-(dispatch and gather savings on the TPU) are not carried.
+`slices_per_dispatch` scan is not carried.
+
+With `precision.block_kernel` (configs/test.yaml as shipped) the cond query
+takes the block path: once per target pose, `pose_prep` measures over the
+whole image the z-safety of the depth endpoints, the exact largest dilated
+block union of each feature scale and the largest supercell union, and
+picks the same per-scale route and buckets as the JAX `_pose_prep`: Kernel
+D where a scale's union fits a bucket, Kernel B where it overflows, Kernel
+E for the colours where their union fits, the colour gather where not. The
+per-ray `kt` buckets of the JAX package are not carried (Kernel B reads its
+taps directly).
 """
 from __future__ import annotations
 
+import logging
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from matchnerf_tpu.utils.containers import effective_precision
-
 from . import camera
 from .models.matchnerf import (MatchNeRF, encode, prepare_sampling_tables,
-                               render_rays)
+                               project_to_views, render_rays, sample_depth)
+from .ops.block_cosine_prior import BLOCK_RAYS, block_union_max, bucket_ut
+from .ops.supercell_color import bucket_color_ut, color_union_max
+from .utils.containers import effective_precision
+
+log = logging.getLogger(__name__)
+
+POSE_PREP_CHUNK = 8192        # rays per measurement chunk (renderer.py:505)
 
 
 def cond_sample_dtype(cfg):
@@ -41,6 +56,14 @@ def color_sample_dtype(cfg):
     return torch.uint8 if name in ("u8", "uint8") else None
 
 
+def block_path(cfg) -> bool:
+    """precision.block_kernel: the cond query takes the block path (Kernels
+    D and E, per-pose fallback to Kernel B and the colour gather;
+    renderer.py:62 `banded_impl` == 'block')."""
+    prec = effective_precision(cfg)
+    return hasattr(prec, "get") and bool(prec.get("block_kernel", False))
+
+
 def extract_poses(batch: Dict) -> Dict:
     """Split the (V+1)-view batch into target (last) and reference poses
     (renderer.py:175). Host-side numpy."""
@@ -54,17 +77,32 @@ def extract_poses(batch: Dict) -> Dict:
     }
 
 
+def index_batch(tree, b: int):
+    """Batch element [b:b+1] of every array leaf of a poses/tables tree;
+    scalars and None pass through (renderer.py:161)."""
+    if isinstance(tree, dict):
+        return {k: index_batch(v, b) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(index_batch(v, b) for v in tree)
+    if getattr(tree, "ndim", 0) >= 1:
+        return tree[b:b + 1]
+    return tree
+
+
 class Renderer:
-    """Eval renderer of one model on one device.
+    """Eval renderer of one model on one device (the card unless the caller
+    asks for the CPU).
 
     kernel=False renders with every kernel replaced by its plain version
-    (same precision settings) — the reference the kernel path is held to."""
+    (same precision settings and the same per-pose route) — the reference
+    the kernel path is held to."""
 
-    def __init__(self, cfg, model: MatchNeRF, device, kernel: bool = True):
+    def __init__(self, cfg, model: MatchNeRF, device="cuda", kernel: bool = True):
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
         self.kernel = kernel
+        self.last_route: Optional[Dict] = None
 
     def tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
@@ -92,27 +130,122 @@ class Renderer:
             R = min(R, int(cap))
         return R
 
+    def _pose_tensors(self, poses):
+        """(tgt_intr [1,3,3], tgt c2w [1,3,4], tgt near/far [1,2], ref w2c
+        [1,V,3,4], ref intrinsics, ref near/fars) on the device."""
+        tgt = poses["tgt"]
+        return (self.tensor(tgt["intrinsics"]),
+                self.tensor(self.prepare_target(np.asarray(tgt["extrinsics"]))),
+                self.tensor(np.asarray(tgt["near_fars"]).reshape(-1, 2)),
+                self.tensor(np.asarray(poses["ref"]["extrinsics"])[..., :3, :]),
+                self.tensor(poses["ref"]["intrinsics"]),
+                self.tensor(poses["ref"]["near_fars"]))
+
     @torch.no_grad()
-    def render_by_slices(self, poses, tables: dict, img_h: int, img_w: int) -> Dict:
-        """Full image in ray slices -> dict of [B, H*W, *] tensors."""
+    def pose_prep(self, poses, scale_hws, img_h: int, img_w: int,
+                  measure_color: bool = False):
+        """The block path's route for one target pose (B == 1), measured
+        over the whole image (renderer.py:396 `_get_pose_prep_fn` and :492
+        `_pose_prep`): -> (block_ut, color_ut).
+
+        block_ut is None when the pose is not z-safe (a depth endpoint at or
+        behind a source camera) or no scale's union fits a bucket; else a
+        tuple with, per scale of `scale_hws` ((h, w) per feature scale), the
+        bucket of the exact largest dilated 8-ray block union, or None
+        where it overflows (that scale takes Kernel B). color_ut is the
+        bucket of the largest supercell union (None: overflow, not z-safe,
+        or not measured). The 8-ray blocks are the absolute 8-pixel
+        partition of the image, measured in chunks of 8192 rays with the
+        tail padded by the last pixel, as the render slices pad it."""
         cfg = self.cfg
-        B = tables["colors"].shape[0]
-        R = self.rays_per_slice(B)
+        S = int(cfg.nerf.sample_intvs)
+        n_pix = img_h * img_w
+        R = POSE_PREP_CHUNK
+        n_chunks = (n_pix + R - 1) // R
         grid = camera.pixel_grid(img_h, img_w, legacy=cfg.nerf.legacy_coord,
                                  device=self.device)
-        tgt = poses["tgt"]
-        c2w = self.tensor(self.prepare_target(np.asarray(tgt["extrinsics"])))
-        tgt_intr = self.tensor(tgt["intrinsics"])
-        tgt_nf = self.tensor(tgt["near_fars"])
-        ref_w2c = self.tensor(np.asarray(poses["ref"]["extrinsics"])[..., :3, :])
-        ref_intr = self.tensor(poses["ref"]["intrinsics"])
-        ref_nf = self.tensor(poses["ref"]["near_fars"])
+        idx = torch.clamp_max(torch.arange(n_chunks * R, device=self.device), n_pix - 1)
+        pix_all = grid[idx]
+        tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = self._pose_tensors(poses)
+
+        # z-safety at the sample endpoints: z is affine in depth, so z > 0 at
+        # both ends means z > 0 along the whole ray (monotone projection)
+        center, ray = camera.get_center_and_ray(pix_all[None], tgt_intr, c2w)
+        depth = sample_depth(cfg, tgt_nf, 1, pix_all.shape[0])
+        ends = torch.cat([depth[:, :, :1], depth[:, :, S - 1:S]], dim=2)
+        ep = camera.get_3d_points_from_depth(center, ray, ends,
+                                             multi_samples=True).reshape(-1, 3)
+        zmin = torch.stack([(ep @ ref_w2c[0, v, :, :3].T + ref_w2c[0, v, :, 3])[:, 2].min()
+                            for v in range(ref_w2c.shape[1])]).min()
+
+        # per chunk: the exact largest unions, kept on the device (one host
+        # sync per pose)
+        sizes = None
+        for c in range(n_chunks):
+            pix = pix_all[c * R:(c + 1) * R][None]
+            center, ray = camera.get_center_and_ray(pix, tgt_intr, c2w)
+            pts = camera.get_3d_points_from_depth(center, ray,
+                                                  sample_depth(cfg, tgt_nf, 1, R),
+                                                  multi_samples=True)
+            grids = (project_to_views(pts, ref_w2c, ref_intr, ref_nf, img_h, img_w)
+                     [:, 0, ..., :2] * 2.0 - 1.0)                     # [V,R,S,2]
+            now = [block_union_max(grids, h, w) for (h, w) in scale_hws]
+            if measure_color:
+                now.append(color_union_max(grids, img_h, img_w))
+            now = torch.stack(now)
+            sizes = now if sizes is None else torch.maximum(sizes, now)
+        sizes = sizes.tolist()
+        if not float(zmin) > 1e-6:
+            return None, None
+        color_ut = bucket_color_ut(sizes[-1]) if measure_color else None
+        uts = tuple(bucket_ut(n) for n in sizes[:len(scale_hws)])
+        return (None if all(u is None for u in uts) else uts), color_ut
+
+    @torch.no_grad()
+    def render_by_slices(self, poses, tables: dict, img_h: int, img_w: int,
+                         timings: Optional[Dict] = None) -> Dict:
+        """Full image in ray slices -> dict of [B, H*W, *] tensors. With a
+        `timings` dict, the seconds of the block path's pose_prep (device
+        synchronised) are added under "pose_prep"."""
+        cfg = self.cfg
+        B = tables["colors"].shape[0]
+        block = block_path(cfg)
+        if B > 1 and block:
+            # the block path needs one pose per render: split the batch
+            # (renderer.py:582-596); each element renders as a B == 1 call
+            per = [self.render_by_slices(index_batch(poses, b), index_batch(tables, b),
+                                         img_h, img_w, timings) for b in range(B)]
+            return {k: torch.cat([o[k] for o in per], dim=0) for k in per[0]}
+        R = self.rays_per_slice(B)
+        block_ut = color_ut = None
+        if block:
+            if R % BLOCK_RAYS == 0:
+                # slices start at multiples of R, so their 8-ray blocks are
+                # the absolute 8-pixel partition that pose_prep measured
+                scale_hws = [(v.shape[2], v.shape[3]) for v in tables["view_feats"]]
+                t0 = time.perf_counter()
+                block_ut, color_ut = self.pose_prep(
+                    poses, scale_hws, img_h, img_w,
+                    measure_color=tables.get("colors_sc") is not None)
+                if timings is not None:      # pose_prep ends in a host sync
+                    timings["pose_prep"] = (timings.get("pose_prep", 0.0)
+                                            + time.perf_counter() - t0)
+                log.info("block path route: block_ut %s (None: Kernel B), "
+                         "color_ut %s (None: colour gather)", block_ut, color_ut)
+            else:
+                log.info("block kernels unavailable (ray slice %d not %d-aligned); "
+                         "Kernel B and the colour gather take the pose", R, BLOCK_RAYS)
+        self.last_route = {"block_ut": block_ut, "color_ut": color_ut}
+        grid = camera.pixel_grid(img_h, img_w, legacy=cfg.nerf.legacy_coord,
+                                 device=self.device)
+        tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = self._pose_tensors(poses)
         outs: Dict[str, list] = {}
         for s0 in range(0, img_h * img_w, R):
             pix = grid[s0:s0 + R][None].expand(B, -1, 2)
             ret = render_rays(self.model, cfg, pix, tgt_intr, c2w, tgt_nf,
                               ref_w2c, ref_intr, ref_nf, tables, img_h, img_w,
-                              kernel=self.kernel)
+                              kernel=self.kernel, block_ut=block_ut,
+                              color_ut=color_ut)
             for k, v in ret.items():
                 outs.setdefault(k, []).append(v)
         return {k: torch.cat(v, dim=1) for k, v in outs.items()}
@@ -126,7 +259,9 @@ class Renderer:
         [B,V+1,2]. Returns rgb [B,H*W,3], depth and opacity [B,H*W,1].
 
         timings: if a dict is given, the device is synchronised after each
-        phase and its wall seconds are stored under encode/tables/render."""
+        phase and its wall seconds are stored under encode/tables/render;
+        the block path's pose_prep seconds, part of render, also stand
+        under pose_prep."""
         if mode != "test":
             raise NotImplementedError(f"mode {mode!r}: the port renders eval images only")
         V = self.cfg.n_src_views
@@ -149,6 +284,6 @@ class Renderer:
         t0 = mark("encode", t0)
         tables = self.build_tables(ref_images, pair_feats)
         t0 = mark("tables", t0)
-        out = self.render_by_slices(extract_poses(batch), tables, H, W)
+        out = self.render_by_slices(extract_poses(batch), tables, H, W, timings)
         mark("render", t0)
         return out

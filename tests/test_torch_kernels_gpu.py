@@ -5,7 +5,10 @@ available, as on a CPU-only host. On a GPU machine run them with
 `python -m pytest tests/test_torch_kernels_gpu.py -q`; chip_smoke.py
 covers the same kernels at the full DTU shapes.
 Tolerances: f32 kernels 1e-5 (summation order only), the bf16 window
-attention 2e-2 (the plain version rounds P to bf16 before P.V).
+attention 2e-2 (the plain version rounds P to bf16 before P.V). The
+block-union cosine prior (D) and the supercell colour sample (E) run at
+small shapes, at the largest union each takes (512 and 320 rows: the most
+dynamic shared memory), and with a ragged R and samples on the border.
 """
 import pytest
 import torch
@@ -13,8 +16,10 @@ import torch
 import __graft_entry__ as ge
 from matchnerf_tpu.utils import DotDict
 from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+from matchnerf_tpu_torch.ops import block_cosine_prior as kd
 from matchnerf_tpu_torch.ops import cosine_prior as kb
 from matchnerf_tpu_torch.ops import decoder as kc
+from matchnerf_tpu_torch.ops import supercell_color as ke
 from matchnerf_tpu_torch.ops import window_attention as ka
 from matchnerf_tpu_torch.ops.attention import shift_region_ids
 
@@ -82,3 +87,81 @@ def test_cond_nerf_decode_kernel(dev, variant):
         ref = kc.cond_nerf_decode_plain(*args)
     for a, b, tol in zip(got, ref, (1e-5, 1e-4, 1e-5)):
         torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+def _block_grids(g, dev, V, R, S, spread):
+    """Grids whose 8-ray blocks share their neighbourhood: one random start
+    per block, a small jitter per ray, straight segments of `spread`."""
+    nb = (R + 7) // 8
+    start = torch.rand(V, nb, 1, 2, generator=g, device=dev) * 2.2 - 1.1
+    start = (start + torch.randn(V, nb, 8, 2, generator=g, device=dev) * 0.01)
+    start = start.reshape(V, nb * 8, 2)[:, :R]
+    step = (torch.rand(V, R, 2, generator=g, device=dev) - 0.5) * spread
+    t = torch.linspace(0, 1, S, device=dev)[None, None, :, None]
+    return (start[:, :, None] + step[:, :, None] * t).contiguous()
+
+
+def _int8_table(g, dev, h, w):
+    table = torch.randint(-127, 128, (3, h, w, 256), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+    scales = torch.rand(3, 256, generator=g, device=dev) * 0.02 + 1e-3
+    return table, scales
+
+
+@pytest.mark.parametrize("G", [2, 8])
+@pytest.mark.parametrize("case", ["small", "cap_512", "ragged_border"])
+def test_block_cosine_prior_kernel(dev, case, G):
+    g = torch.Generator(device=dev).manual_seed(4)
+    if case == "small":
+        table, scales = _int8_table(g, dev, 20, 24)
+        grids = _block_grids(g, dev, 3, 40, 48, 0.3)
+    elif case == "cap_512":
+        # random cells in a wide table: ~4 x 8 x 15 dilated rows per block
+        table, scales = _int8_table(g, dev, 64, 80)
+        grids = torch.rand(3, 16, 15, 2, generator=g, device=dev) * 2 - 1
+    else:
+        table, scales = _int8_table(g, dev, 16, 16)
+        grids = _block_grids(g, dev, 3, 13, 32, 0.5)
+        grids[:, :, :4] = torch.clamp(grids[:, :, :4] * 3.0, -1.0, 1.0)
+        grids[:, -1, -2:] = 1.0                               # the last cell
+    h, w = table.shape[1:3]
+    ut = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), h, w))
+    if case == "cap_512":
+        assert ut == 512
+    before = kd.COUNTER.launches
+    got = kd.block_cosine_prior(table, grids, scales, G, ut)
+    torch.cuda.synchronize()
+    assert kd.COUNTER.launches == before + 1
+    ref = kd.block_cosine_prior_plain(table, grids, scales, G, ut)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    if case != "cap_512":
+        # the same function as Kernel B
+        torch.testing.assert_close(got, kb.cosine_prior(table, grids, scales, G),
+                                   atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["small", "cap_320", "ragged_border"])
+def test_supercell_color_kernel(dev, case):
+    g = torch.Generator(device=dev).manual_seed(5)
+    V, img_h, img_w = 3, 50, 66
+    if case == "cap_320":
+        img_h, img_w = 200, 240
+        grids = torch.rand(V, 16, 40, 2, generator=g, device=dev) * 2 - 1
+    elif case == "small":
+        grids = _block_grids(g, dev, V, 24, 48, 0.4)
+    else:
+        grids = _block_grids(g, dev, V, 13, 32, 0.5)
+        grids[:, :, :4] = torch.clamp(grids[:, :, :4] * 3.0, -1.0, 1.0)
+        grids[:, -1, -2:] = 1.0
+    images = torch.randint(0, 256, (V, img_h, img_w, 3), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.uint8)
+    table = ke.build_supercell_colors(images)
+    ut = ke.bucket_color_ut(ke.color_union_size(kd.pad_rays(grids), img_h, img_w))
+    if case == "cap_320":
+        assert ut == 320
+    before = ke.COUNTER.launches
+    got = ke.supercell_color_sample(table, grids, img_h, img_w, ut)
+    torch.cuda.synchronize()
+    assert ke.COUNTER.launches == before + 1
+    ref = ke.supercell_color_sample_plain(table, grids, img_h, img_w, ut)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)

@@ -5,13 +5,19 @@ same JAX PRNG(0) weights and the same numpy scene.
 (a) the slice's kernel settings (banded_kernel, decoder_kernel, no
     block_kernel) with f32 tables, so the JAX banded and decoder Pallas
     kernels run in interpret mode;
-(b) int8 feature and uint8 colour tables, against the JAX direct path.
+(b) int8 feature and uint8 colour tables, against the JAX direct path;
+(c) the precision of configs/test.yaml as shipped (block_kernel and
+    color_block_kernel on: Kernels D and E, their plain versions here),
+    against the JAX block-path render (its block and supercell Pallas
+    kernels in interpret mode) and against the JAX direct int8 path.
 
-Both use the f32 encoder (a bf16 encoder rounds at other places in the two
+All use the f32 encoder (a bf16 encoder rounds at other places in the two
 frameworks). Required agreement: PSNR >= 60 dB on rgb, the repo's budget
-for reassociation. Also: the config dict that chip_smoke.py renders with
-equals configs/test.yaml (block_kernel off) on every key the slice reads,
-and the port imports without jax, yaml or PIL.
+for reassociation. Also: the port's per-pose route (`Renderer.pose_prep`)
+equals the JAX `_pose_prep`'s, an overflowing union falls back to Kernel B
+and the colour gather without changing the image (>= 90 dB: the same
+function by another route), the config dicts equal configs/test.yaml, and
+the port imports nothing of jax, yaml, PIL or the JAX package.
 """
 import os
 import subprocess
@@ -26,7 +32,8 @@ import __graft_entry__ as ge
 from matchnerf_tpu.models.matchnerf import init_matchnerf as jax_init
 from matchnerf_tpu.renderer import Renderer as JaxRenderer
 from matchnerf_tpu.utils import DotDict
-from matchnerf_tpu_torch.config import SLICE_KEYS, dtu_eval_slice_config
+from matchnerf_tpu_torch.config import (SLICE_KEYS, dtu_eval_config,
+                                       dtu_eval_per_ray_config)
 from matchnerf_tpu_torch.models.matchnerf import MatchNeRF
 from matchnerf_tpu_torch.renderer import Renderer
 from matchnerf_tpu_torch.weights import state_dict_from_jax
@@ -57,10 +64,42 @@ SLICE_F32 = {"encoder_compute_dtype": "float32", "cond_sample_dtype": "float32",
              "block_kernel": False, "decoder_kernel": True}
 SLICE_INT8 = dict(SLICE_F32, cond_sample_dtype="int8", color_sample_dtype="uint8")
 JAX_DIRECT_INT8 = dict(SLICE_INT8, banded_kernel=False, decoder_kernel=False)
+# configs/test.yaml's precision as shipped, with the f32 encoder
+SHIPPED = dict(dtu_eval_config().precision, encoder_compute_dtype="float32")
 
 
-@pytest.mark.parametrize("case", ["a_kernels_f32_tables", "b_int8_vs_direct"])
+def _scale_hws(tables):
+    return [(v.shape[2], v.shape[3]) for v in tables["view_feats"]]
+
+
+def _jax_tables(jr, params, batch):
+    from matchnerf_tpu.renderer import extract_poses as jax_poses
+    imgs = jax.numpy.asarray(batch["images"][:, :3])
+    tables = jr.build_tables(imgs, jr.encode(params, imgs))
+    return jax_poses(batch), tables
+
+
+@pytest.mark.parametrize("case", ["a_kernels_f32_tables", "b_int8_vs_direct",
+                                  "c_shipped_block_path"])
 def test_render_matches_jax(case):
+    if case.startswith("c"):
+        cfg, params, model, batch = _setup(SHIPPED)
+        jr = JaxRenderer(cfg)
+        # the JAX side must take its block and supercell kernels
+        poses, tables = _jax_tables(jr, params, batch)
+        _, block_ut, color_ut = jr._pose_prep(poses, poses["tgt"], _scale_hws(tables),
+                                              H, W, measure_color=True)
+        assert block_ut is not None and color_ut is not None
+        renderer = Renderer(cfg, model, "cpu")
+        out = renderer.forward(batch, mode="test")
+        assert renderer.last_route == {"block_ut": block_ut, "color_ut": color_ut}
+        jcfg = DotDict(dict(cfg))
+        jcfg.precision = DotDict(JAX_DIRECT_INT8)
+        for ref in (jr.forward(params, batch, mode="test"),
+                    JaxRenderer(jcfg).forward(params, batch, mode="test")):
+            psnr = _psnr(out["rgb"].numpy(), ref["rgb"])
+            assert psnr >= 60.0, f"agreement PSNR {psnr:.1f} dB < 60"
+        return
     port_prec = SLICE_F32 if case.startswith("a") else SLICE_INT8
     jax_prec = SLICE_F32 if case.startswith("a") else JAX_DIRECT_INT8
     cfg, params, model, batch = _setup(port_prec)
@@ -84,11 +123,75 @@ def test_render_matches_jax(case):
     assert float(ref["opacity"].max()) > 0.01      # the scene is not empty
 
 
-def test_chip_smoke_config_matches_yaml():
+def test_pose_prep_matches_jax():
+    cfg, params, model, batch = _setup(SHIPPED)
+    jr = JaxRenderer(cfg)
+    poses, tables = _jax_tables(jr, params, batch)
+    want = jr._pose_prep(poses, poses["tgt"], _scale_hws(tables), H, W,
+                         measure_color=True)[1:]
+    from matchnerf_tpu_torch.renderer import extract_poses
+    got = Renderer(cfg, model, "cpu").pose_prep(extract_poses(batch), _scale_hws(tables),
+                                                H, W, measure_color=True)
+    assert got == want == ((64, 64), 48)
+
+
+def test_overflowing_union_falls_back(monkeypatch):
+    """Buckets patched below the measured unions (9 and 14 rows at the two
+    scales, 8 supercells): scale 1 and the colours overflow and take Kernel
+    B's plain version and the colour gather, scale 0 keeps Kernel D."""
+    import matchnerf_tpu_torch.models.matchnerf as mm
+    from matchnerf_tpu_torch.ops import block_cosine_prior as kd
+    from matchnerf_tpu_torch.ops import supercell_color as ke
+    cfg, params, model, batch = _setup(SHIPPED)
+    base = Renderer(cfg, model, "cpu")
+    ref = base.forward(batch, mode="test")
+    assert base.last_route == {"block_ut": (64, 64), "color_ut": 48}
+
+    calls = []
+    for name in ("cosine_prior", "block_cosine_prior", "supercell_color_sample"):
+        fn = getattr(mm, name)
+        monkeypatch.setattr(mm, name, lambda *a, _f=fn, _n=name: calls.append(_n) or _f(*a))
+    monkeypatch.setattr(kd, "UT_BUCKETS", (10,))
+    monkeypatch.setattr(ke, "COLOR_UT_BUCKETS", (4,))
+    patched = Renderer(cfg, model, "cpu")
+    out = patched.forward(batch, mode="test")
+    assert patched.last_route == {"block_ut": (10, None), "color_ut": None}
+    n_slices = H * W // int(cfg.nerf.rand_rays_test)
+    assert sorted(calls) == sorted(["cosine_prior", "block_cosine_prior"] * n_slices)
+    psnr = _psnr(out["rgb"].numpy(), ref["rgb"].numpy())
+    assert psnr >= 90.0, f"fallback changed the image: {psnr:.1f} dB"
+
+
+def test_batched_block_path_splits_per_pose():
+    """B = 2 on the block path renders each pose on its own (no supercell
+    table at B > 1, as in the JAX package): each element equals a B = 1
+    render of that pose."""
+    import __graft_entry__ as ge2
+    cfg, params, model, _ = _setup(SHIPPED)
+    d = ge2._synthetic_inputs(cfg, 2, H, W, R=16)
+    batch = {"images": d["images"], "extrinsics": d["poses"],
+             "intrinsics": d["intr"], "near_fars": d["near_fars"]}
+    renderer = Renderer(cfg, model, "cpu")
+    out = renderer.forward(batch, mode="test")
+    assert renderer.last_route["block_ut"] is not None
+    assert renderer.last_route["color_ut"] is None
+    for b in range(2):
+        one = Renderer(cfg, model, "cpu").forward(
+            {k: v[b:b + 1] for k, v in batch.items()}, mode="test")
+        for k in ("rgb", "depth", "opacity"):
+            np.testing.assert_allclose(out[k][b].numpy(), one[k][0].numpy(),
+                                       atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["shipped", "per_ray"])
+def test_chip_smoke_config_matches_yaml(variant):
     from matchnerf_tpu.config import load_options
     opt = load_options(os.path.join(REPO, "configs", "test.yaml"))
-    opt.precision.block_kernel = False
-    mine = dtu_eval_slice_config()
+    if variant == "per_ray":
+        opt.precision.block_kernel = False
+        mine = dtu_eval_per_ray_config()
+    else:
+        mine = dtu_eval_config()
     for key in SLICE_KEYS:
         a, b = opt, mine
         for part in key.split("."):
@@ -98,16 +201,20 @@ def test_chip_smoke_config_matches_yaml():
 
 
 def test_port_imports_without_jax_yaml_pil():
+    """Every module of the port imports with jax, yaml, PIL and the JAX
+    package blocked, and chip_smoke.py names no file or module of the JAX
+    package."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'yaml', 'PIL'):\n"
+        "for m in ('jax', 'yaml', 'PIL', 'matchnerf_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import matchnerf_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'matchnerf_tpu_torch.renderer' in names\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'yaml', 'PIL')\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'yaml', 'PIL', 'matchnerf_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
@@ -116,4 +223,8 @@ def test_port_imports_without_jax_yaml_pil():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 25
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        smoke = f.read()
+    assert "matchnerf_tpu/" not in smoke and "matchnerf_tpu." not in smoke
+    assert "import jax" not in smoke and "from jax" not in smoke
