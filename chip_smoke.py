@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (matchnerf_tpu_torch): the DTU eval
-render of configs/test.yaml on one NVIDIA card, through the five
-hand-written CUDA kernels.
+render of configs/test.yaml and the training step of configs/train.yaml and
+configs/train_fast.yaml on one NVIDIA card, through the hand-written CUDA
+kernels.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -32,14 +33,34 @@ Phases, any failure ends the run with a non-zero exit:
    plain version must agree at >= 50 dB PSNR.
 5. per-ray path, block_kernel off: the same view through A, B and C, which
    must each launch; it must agree with the block path at >= 60 dB.
-Every launch count is reset just before a path and read just after it.
-With --profile, one more warm render of each path runs under
-torch.profiler and prints the device time by kernel, the device busy time
-and the wall time.
+6. training kernels at training shapes, each against autograd through its
+   plain version, on the scene's real training rays (1024 random pixels,
+   or 128 8-pixel strips for D'), stratified depths and the f32 tables of
+   the bf16 training encoder: A' (window attention forward with logsumexp
+   and backward, bf16 and f32, shifted and not; library yardstick SDPA
+   with the float mask, its backward alone and forward + backward), the B'
+   table gradient per scale (and Kernel B's f32 forward at these shapes),
+   D' f32 forward and backward per scale (also held against B and B', the
+   same function; the largest training union is printed against its
+   bucket).
+7. configs/train.yaml step (`Coach.train_iteration`) on the 640x512 scene
+   at full width, 1024 rays, S=128: a first step from one set of weights,
+   rays and jitter through the kernels and all-plain (loss and per-tensor
+   gradient error), with the recipe's bf16 policy and with the f32 policy;
+   then 7 steps: finite losses, moving parameters, 12 A' forward, 12 A'
+   backward, 2 B forward and 2 B' backward launches in each step and no
+   plain version on CUDA tensors; ms per warm step and peak memory.
+8. configs/train_fast.yaml step: the same, with the pose's route through D'
+   at both scales (2 D' forward and 2 D' backward launches per step).
+Every launch count is reset just before a path (a step, in 7 and 8) and
+read just after it. With --profile, one more warm render of each eval path
+and one warm step of each training recipe run under torch.profiler and
+print the device time by kernel, the device busy time and the wall time.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 import argparse
+import copy
 import json
 import math
 import os
@@ -53,6 +74,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H, W = 512, 640
 DTU_NEAR_FAR = (2.125, 4.525)
 SLICE_RAYS = 20480
+TRAIN_RAYS = 1024
+TRAIN_STEPS = 7                    # steps per recipe; the first is warm-up
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, f32 without tensor cores
@@ -117,15 +140,15 @@ def psnr(a, b):
     return 999.0 if mse == 0.0 else -10.0 * math.log10(mse)
 
 
-def profile_render(torch, name, renderer, batch, top=12):
-    """One warm Renderer.forward under torch.profiler: device time by
-    kernel (top `top`), summed device time, and the wall time around it."""
+def profile_call(torch, name, fn, top=12):
+    """One warm call of `fn` under torch.profiler: device time by kernel
+    (top `top`), summed device time, and the wall time around it."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        renderer.forward(batch, mode="test")
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -135,17 +158,322 @@ def profile_render(torch, name, renderer, batch, top=12):
                 for e in prof.key_averages() if e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    n_ops = sum(r[2] for r in rows)
     log(f"profile {name}: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
-        f"({100.0 * (1.0 - busy / (wall * 1e3)):.1f} % idle)")
+        f"({100.0 * (1.0 - busy / (wall * 1e3)):.1f} % idle), {n_ops} device operations")
     for key, ms, count in rows[:top]:
         log(f"profile {name}:   {ms:9.2f} ms  {count:5d}x  {key[:100]}")
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy, "device_ops": n_ops,
             "top": [[k[:100], ms, c] for k, ms, c in rows[:top]]}
 
 
 def check_close(name, err, tol):
     if not err <= tol:
         raise AssertionError(f"{name}: max|d| {err} > {tol}")
+
+
+def max_abs(a, b):
+    return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+def grad_errors(model_a, model_b):
+    """Per parameter tensor, ||grad_a - grad_b|| / ||grad_b|| in float64,
+    the denominator floored at 1e-3 of the largest gradient norm."""
+    pairs = [(n, pa.grad.double(), pb.grad.double())
+             for (n, pa), (_, pb) in zip(model_a.named_parameters(), model_b.named_parameters())]
+    floor = 1e-3 * max(float(gb.norm()) for _, _, gb in pairs)
+    return {n: float((ga - gb).norm()) / max(float(gb.norm()), floor) for n, ga, gb in pairs}
+
+
+def train_kernel_phase(torch, F, dev, batch, seed, block_ut, res):
+    """Phase 6: A', B' and D' at the training shapes against autograd
+    through their plain versions."""
+    from matchnerf_tpu_torch import camera
+    from matchnerf_tpu_torch.config import dtu_train_config
+    from matchnerf_tpu_torch.models.matchnerf import (encode, init_matchnerf,
+                                                      prepare_sampling_tables,
+                                                      project_to_views, sample_depth)
+    from matchnerf_tpu_torch.ops import block_cosine_prior as kd
+    from matchnerf_tpu_torch.ops import cosine_prior as kb
+    from matchnerf_tpu_torch.ops import window_attention as ka
+    from matchnerf_tpu_torch.ops.attention import shift_region_ids
+    from matchnerf_tpu_torch.renderer import Renderer, extract_poses
+    from matchnerf_tpu_torch.train_step import sample_ray_indices
+
+    grad = torch.autograd.grad
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    # A': 24 windows (2 streams x 3 pairs x 2x2 splits) of the 1/8-scale map
+    h8, w8 = H // 8, W // 8
+    BW, L = 24, h8 * w8 // 4
+    rid = shift_region_ids(h8, w8, 2, device=dev)
+    rows = rid[torch.arange(BW, device=dev) % rid.shape[0]]
+    res["A_bwd"] = {}
+    prod = 2 * BW * L * L * 128                  # flops of one score-sized product
+    for dt, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        name = str(dt).replace("torch.", "")
+        for shift in (False, True):
+            r = rid if shift else None
+            q, k, v, do = (torch.randn(BW, L, 128, generator=gen, device=dev).to(dt)
+                           for _ in range(4))
+            qk = [t.clone().requires_grad_() for t in (q, k, v)]
+            qp = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = ka.window_attention(*qk, r)
+            outp = ka.window_attention_plain(*qp, r)
+            gk = grad(out, qk, do, retain_graph=True)
+            gp = grad(outp, qp, do, retain_graph=True)
+            torch.cuda.synchronize()
+            err = max(max_abs(a, b) for a, b in zip(gk, gp))
+            tol_abs = tol * max(float(b.float().abs().max()) for b in gp)
+            err_out = max_abs(out, outp)
+            fwd_ms = cuda_ms(torch, lambda: ka.window_attention(*qk, r), 10)
+            ms = cuda_ms(torch, lambda: grad(out, qk, do, retain_graph=True), 10)
+            plain_ms = cuda_ms(torch, lambda: grad(outp, qp, do, retain_graph=True), 5)
+            ql = [t[:, None].detach().clone().requires_grad_() for t in (q, k, v)]
+            mask = None
+            if shift:
+                mask = torch.where(rows[:, :, None] != rows[:, None, :], -100.0, 0.0)
+                mask = mask[:, None].to(dt)
+            outl = F.scaled_dot_product_attention(*ql, attn_mask=mask)
+            gl = grad(outl, ql, do[:, None], retain_graph=True)
+            lib_err = max(max_abs(a[:, 0], b) for a, b in zip(gl, gp))
+            lib_ms = cuda_ms(torch, lambda: grad(outl, ql, do[:, None], retain_graph=True), 10)
+            # forward + backward together, the kernels' and the library's
+            fb_ms = cuda_ms(torch, lambda: grad(ka.window_attention(*qk, r), qk, do), 10)
+            lib_fb_ms = cuda_ms(torch, lambda: grad(
+                F.scaled_dot_product_attention(*ql, attn_mask=mask), ql, do[:, None]), 10)
+            lse = torch.empty(BW, L, device=dev)
+            b_ms, b_by = bound(nbytes(q, k, v, out, do, lse, *gk), 5 * prod, name)
+            tag = f"{name}_{'shift' if shift else 'noshift'}"
+            log(f"kernel A' window_attention backward {name} [{BW},{L},128] "
+                f"{'shift-masked' if shift else 'unmasked'}: max|d| dq/dk/dv {err:.3e} "
+                f"(tol {tol_abs:.3e}), out {err_out:.3e}; forward with logsumexp "
+                f"{fwd_ms:.3f} ms; backward {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+                f"library SDPA backward {lib_ms:.3f} ms (max|d| {lib_err:.3e}); forward + "
+                f"backward {fb_ms:.3f} ms vs SDPA {lib_fb_ms:.3f} ms; bound "
+                f"{b_ms:.4f} ms ({b_by}, 5 products)")
+            check_close(f"window_attention backward {tag}", err, tol_abs)
+            res["A_bwd"][tag] = dict(max_abs_err=err, tol=tol_abs, ms=ms, fwd_ms=fwd_ms,
+                                     plain_ms=plain_ms, library_ms=lib_ms,
+                                     library_max_abs_err=lib_err, fwd_bwd_ms=fb_ms,
+                                     library_fwd_bwd_ms=lib_fb_ms, bound_ms=b_ms,
+                                     bound_by=b_by)
+            del q, k, v, do, qk, qp, out, outp, gk, gp, ql, outl, gl, mask
+
+    # B' and D' on the scene's training rays with the training f32 tables
+    tcfg = dtu_train_config()
+    tmodel = init_matchnerf(tcfg, torch.Generator().manual_seed(seed)).to(dev)
+    r0 = Renderer(tcfg, tmodel, dev)
+    ref_images = r0.tensor(batch["images"][:, :3])
+    with torch.no_grad():
+        ttables = prepare_sampling_tables(tcfg, encode(tmodel, tcfg, ref_images), ref_images)
+    poses = extract_poses(batch)
+    tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = r0._pose_tensors(poses)
+    R = TRAIN_RAYS
+
+    def train_grids(patches):
+        idx = sample_ray_indices(H * W, R, patches, dev, gen)
+        pix = torch.stack([(idx % W).float(), (idx // W).float()], -1)[None]
+        center, ray = camera.get_center_and_ray(pix, tgt_intr, c2w)
+        depth = sample_depth(tcfg, tgt_nf, 1, R, stratified=True, generator=gen)
+        pts = camera.get_3d_points_from_depth(center, ray, depth, multi_samples=True)
+        return (project_to_views(pts, ref_w2c, ref_intr, ref_nf, H, W)[..., :2]
+                * 2.0 - 1.0)[:, 0].contiguous()
+
+    grids_ray, grids_strip = train_grids(False), train_grids(True)
+    S = grids_ray.shape[2]
+    N = R * S
+    for key in ("B_f32", "B_bwd", "D_f32", "D_bwd"):
+        res[key] = []
+    for s, G in enumerate(tcfg.encoder.cos_n_group):
+        table = ttables["view_feats"][s][0]
+        h, w = table.shape[1:3]
+        gcot = torch.randn(R, S, G, generator=gen, device=dev)
+        fwd_flops = N * (3 * 256 * 8 + 3 * 128 * 6)
+        bwd_flops = N * (3 * 256 * 16 + 3 * 128 * 12)
+        bwd_bound = bound(2 * nbytes(table) + nbytes(grids_ray, gcot), bwd_flops)
+
+        def backward_pair(fn_k, fn_p, grids):
+            tk = table.clone().requires_grad_()
+            tp = table.clone().requires_grad_()
+            ok, op = fn_k(tk, grids), fn_p(tp, grids)
+            dk, dp = grad(ok, tk, gcot, retain_graph=True)[0], grad(op, tp, gcot,
+                                                                  retain_graph=True)[0]
+            torch.cuda.synchronize()
+            err = max_abs(dk, dp)
+            tol = 1e-5 * float(dp.abs().max())
+            ms = cuda_ms(torch, lambda: grad(ok, tk, gcot, retain_graph=True), 10)
+            plain_ms = cuda_ms(torch, lambda: grad(op, tp, gcot, retain_graph=True), 3)
+            return dk, err, tol, ms, plain_ms
+
+        # Kernel B's f32 forward at the training shapes (the forward of B')
+        with torch.no_grad():
+            fb = lambda: kb.cosine_prior(table, grids_ray, None, G)
+            fbp = lambda: kb.cosine_prior_plain(table, grids_ray, None, G)
+            out_b = fb()
+            err = max_abs(out_b, fbp())
+            b_ms, b_by = bound(nbytes(table, grids_ray, out_b), fwd_flops)
+            res["B_f32"].append(dict(scale=s, max_abs_err=err, ms=cuda_ms(torch, fb, 10),
+                                     plain_ms=cuda_ms(torch, fbp, 3), bound_ms=b_ms,
+                                     bound_by=b_by))
+        check_close(f"B f32 forward scale {s}", err, 1e-5)
+        dk_b, err, tol, ms, plain_ms = backward_pair(
+            lambda t, g_: kb.cosine_prior(t, g_, None, G),
+            lambda t, g_: kb.cosine_prior_plain(t, g_, None, G), grids_ray)
+        log(f"kernel B cosine_prior f32 forward scale {s} table {list(table.shape)} G={G} "
+            f"R={R} S={S}: max|d| {res['B_f32'][-1]['max_abs_err']:.3e} (tol 1e-5), "
+            f"{res['B_f32'][-1]['ms']:.3f} ms vs plain {res['B_f32'][-1]['plain_ms']:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        log(f"kernel B' cosine_prior backward scale {s}: max|d| d_table {err:.3e} (tol "
+            f"{tol:.3e}), {ms:.3f} ms vs plain {plain_ms:.3f} ms, bound "
+            f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+        check_close(f"B' scale {s}", err, tol)
+        res["B_bwd"].append(dict(scale=s, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bwd_bound[0], bound_by=bwd_bound[1]))
+
+        # D' on the 8-pixel strips: the pose's bucket, the training union
+        ut = block_ut[s]
+        if not kd.takes_f32(ut, S, G):
+            raise AssertionError(f"D' does not take ut={ut} G={G} S={S}")
+        gp = kd.pad_rays(grids_strip)
+        union = kd.block_union_size_raw(gp, h, w)
+        with torch.no_grad():
+            fd = lambda: kd.block_cosine_prior(table, grids_strip, None, G, ut)
+            fdp = lambda: kd.block_cosine_prior_plain(table, grids_strip, None, G, ut)
+            out_d = fd()
+            err = max_abs(out_d, fdp())
+            err_b = max_abs(out_d, kb.cosine_prior(table, grids_strip, None, G))
+            d_ms, d_by = bound(nbytes(table, grids_strip, out_d), fwd_flops)
+            entry = dict(scale=s, max_abs_err=err, max_abs_err_vs_kernel_b=err_b,
+                         ms=cuda_ms(torch, fd, 10), plain_ms=cuda_ms(torch, fdp, 3),
+                         union_ms=cuda_ms(torch, lambda: kd.block_unions(gp, h, w, ut), 10),
+                         bound_ms=d_ms, bound_by=d_by, ut=ut, train_union_size=union)
+        log(f"kernel D' block_cosine_prior f32 forward scale {s} G={G} R={R} S={S} (strips): "
+            f"training union {union} rows vs bucket {ut} (pose_prep, eval-spaced "
+            f"depths){' OVERFLOW: missing taps add 0' if union > ut else ''}; max|d| "
+            f"{err:.3e} (tol 1e-5), vs kernel B {err_b:.3e} (tol 1e-5), {entry['ms']:.3f} ms "
+            f"(union build {entry['union_ms']:.3f} ms of it) vs plain {entry['plain_ms']:.3f} "
+            f"ms, bound {d_ms:.4f} ms ({d_by})")
+        check_close(f"D' forward scale {s}", err, 1e-5)
+        check_close(f"D' vs B forward scale {s}", err_b, 1e-5)
+        res["D_f32"].append(entry)
+        dk_d, err, tol, ms, plain_ms = backward_pair(
+            lambda t, g_: kd.block_cosine_prior(t, g_, None, G, ut),
+            lambda t, g_: kd.block_cosine_prior_plain(t, g_, None, G, ut), grids_strip)
+        tk = table.clone().requires_grad_()
+        dk_b = grad(kb.cosine_prior(tk, grids_strip, None, G), tk, gcot)[0]
+        err_b = max_abs(dk_d, dk_b) if union <= ut else None
+        log(f"kernel D' block_cosine_prior backward scale {s}: max|d| d_table {err:.3e} "
+            f"(tol {tol:.3e}), vs kernel B' {err_b if err_b is None else f'{err_b:.3e}'}, "
+            f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bwd_bound[0]:.4f} ms "
+            f"({bwd_bound[1]})")
+        check_close(f"D' backward scale {s}", err, tol)
+        if err_b is not None:
+            check_close(f"D' vs B' backward scale {s}", err_b, tol)
+        res["D_bwd"].append(dict(scale=s, max_abs_err=err, tol=tol, max_abs_err_vs_kernel_b=err_b,
+                                 ms=ms, plain_ms=plain_ms, bound_ms=bwd_bound[0],
+                                 bound_by=bwd_bound[1]))
+        del table, out_b, out_d, dk_b, dk_d
+    del tmodel, ttables
+
+
+def first_step_check(torch, dev, cfg, batch, seed, label, tol):
+    """One step's loss and gradients from one set of weights, rays and
+    jitter, through the kernels and all-plain; tol = (loss rtol, worst and
+    median per-tensor gradient error)."""
+    from matchnerf_tpu_torch.engine import Coach
+    from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+    from matchnerf_tpu_torch.train_step import sample_ray_indices
+    model_k = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    model_p = copy.deepcopy(model_k)
+    coaches = []
+    for m, kern in ((model_k, True), (model_p, False)):
+        c = Coach(cfg, m, dev, kernel=kern)
+        c.setup_optimizer(TRAIN_STEPS)
+        coaches.append(c)
+    route = coaches[0].train_route(batch)
+    bt = coaches[0].batch_tensors(batch)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    patches = bool(cfg.nerf.get("train_ray_patches", False))
+    S = int(cfg.nerf.sample_intvs)
+    idx = sample_ray_indices(H * W, TRAIN_RAYS, patches, dev, gen)
+    rand = torch.rand((1, TRAIN_RAYS, S, 1), generator=gen, device=dev)
+    losses = []
+    for c in coaches:
+        loss, _ = c.step.loss(bt, route, idx, rand)
+        loss.backward()
+        losses.append(float(loss.detach()))
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    errs = grad_errors(model_k, model_p)
+    worst = max(errs, key=errs.get)
+    med = float(np.median(list(errs.values())))
+    log(f"{label}: first step kernels vs all-plain: loss {losses[0]:.7f} vs {losses[1]:.7f} "
+        f"(rel {loss_rel:.3e}, tol {tol[0]:g}); gradient error per tensor: worst "
+        f"{errs[worst]:.3e} ({worst}), median {med:.3e} (tol {tol[1]:g} / {tol[2]:g}), "
+        f"{len(errs)} tensors")
+    if not (loss_rel <= tol[0] and errs[worst] <= tol[1] and med <= tol[2]):
+        raise AssertionError(f"{label}: kernel step disagrees with the all-plain step")
+    return {"loss_rel": loss_rel, "grad_err_worst": errs[worst], "grad_err_worst_tensor": worst,
+            "grad_err_median": med, "tol": list(tol)}
+
+
+def train_path(torch, dev, cfg, batch, seed, label, counters, must, profile):
+    """Phases 7 and 8: TRAIN_STEPS steps of `Coach.train_iteration`; counts
+    reset before and read after each step."""
+    from matchnerf_tpu_torch.engine import Coach
+    from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+    model = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    coach = Coach(cfg, model, dev)
+    coach.setup_optimizer(1000)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, launches, plain, events = [], [], [], []
+    t0 = None
+    for i in range(TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        for c in counters.values():
+            c.reset()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss = coach.train_iteration(batch)
+        e1.record()
+        launches.append({k: c.launches for k, c in counters.items()})
+        plain.append({k: c.plain_on_cuda for k, c in counters.items()})
+        losses.append(loss["all"])
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(l) for l in losses]
+    log(f"{label}: route {coach.last_route} (None: Kernel B'), losses "
+        f"{[round(l, 6) for l in losses]}")
+    log(f"{label}: ms per step (CUDA events) {[round(t, 3) for t in step_ms]}, warm mean "
+        f"{float(np.mean(step_ms[1:])):.3f} ms, host wall {wall_ms:.3f} ms per warm step, "
+        f"peak device memory {peak_gib:.2f} GiB")
+    log(f"{label}: launches per step {launches[-1]}, plain versions on CUDA {plain[-1]}")
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    for group in ("feat_enc", "nerf_dec"):
+        if not any(not torch.equal(p.detach(), start[n]) for n, p in model.named_parameters()
+                   if n.startswith(group)):
+            raise AssertionError(f"{label}: {group} parameters did not move")
+    for i, (l, pc) in enumerate(zip(launches, plain)):
+        for k, want in must.items():
+            if l[k] != want:
+                raise AssertionError(f"{label} step {i}: {k} launched {l[k]} times, "
+                                     f"expected {want}")
+        if any(pc.values()):
+            raise AssertionError(f"{label} step {i}: plain versions ran on CUDA: {pc}")
+    out = {"step_ms": step_ms, "warm_step_ms": float(np.mean(step_ms[1:])),
+           "wall_ms_per_warm_step": wall_ms, "peak_gib": peak_gib, "losses": losses,
+           "route": coach.last_route, "launches_per_step": launches[-1],
+           "launches_total": {k: sum(l[k] for l in launches) for k in counters}}
+    if profile:
+        out["profile"] = profile_call(torch, label, lambda: coach.train_iteration(batch))
+    return out
 
 
 def main():
@@ -382,7 +710,10 @@ def main():
     # ---- 4. the block path (configs/test.yaml as shipped), then 5. per-ray
     counters = {"window_attention": ka.COUNTER, "cosine_prior": kb.COUNTER,
                 "cond_nerf_decode": kc.COUNTER, "block_cosine_prior": kd.COUNTER,
-                "supercell_color": ke.COUNTER}
+                "supercell_color": ke.COUNTER, "window_attention_bwd": ka.BWD_COUNTER,
+                "cosine_prior_bwd": kb.BWD_COUNTER,
+                "block_cosine_prior_f32": kd.F32_COUNTER,
+                "block_cosine_prior_bwd": kd.BWD_COUNTER}
     n_rays = H * W
 
     def drive(name, r, must_launch):
@@ -446,31 +777,86 @@ def main():
     if not vs_ray >= 60.0:
         raise AssertionError(f"block vs per-ray PSNR {vs_ray:.2f} dB < 60")
 
-    def entry(name, key, launches, extra=None):
+    # ---- 6. training kernels at training shapes, then 7. and 8. the steps
+    from matchnerf_tpu_torch.config import dtu_train_config, dtu_train_fast_config
+    del out, ray_out
+    torch.cuda.empty_cache()
+    train_kernel_phase(torch, F, dev, batch, args.seed, block_ut, res)
+    none = {k: 0 for k in counters}
+    recipes = (
+        ("train", dtu_train_config, dict(none, window_attention=12, window_attention_bwd=12,
+                                         cosine_prior=2, cosine_prior_bwd=2)),
+        ("train_fast", dtu_train_fast_config,
+         dict(none, window_attention=12, window_attention_bwd=12, block_cosine_prior_f32=2,
+              block_cosine_prior_bwd=2)))
+    train = {}
+    for label, make_cfg, must in recipes:
+        checks = {"bf16": first_step_check(torch, dev, make_cfg(), batch, args.seed,
+                                           f"{label}.yaml bf16 policy", (1e-2, 0.5, 0.1))}
+        cfg32 = make_cfg()
+        cfg32.precision.encoder_compute_dtype = "float32"
+        cfg32.precision.decoder_compute_dtype = "float32"
+        checks["f32"] = first_step_check(torch, dev, cfg32, batch, args.seed,
+                                         f"{label}.yaml f32 policy", (1e-4, 1e-3, 1e-4))
+        torch.cuda.empty_cache()
+        train[label] = train_path(torch, dev, make_cfg(), batch, args.seed, f"{label}.yaml",
+                                  counters, must, args.profile)
+        train[label]["first_step"] = checks
+        torch.cuda.empty_cache()
+    route = train["train_fast"]["route"]
+    if route is None or None in route:
+        raise AssertionError(f"train_fast.yaml: the pose must take D' at both scales: {route}")
+
+    def per_scale(entries):
+        return {"max_abs_err": max(e["max_abs_err"] for e in entries),
+                "ms": sum(e["ms"] for e in entries),
+                "plain_ms": sum(e["plain_ms"] for e in entries),
+                "bound_ms": sum(e["bound_ms"] for e in entries),
+                "bound_by": entries[0]["bound_by"], "scales": entries}
+
+    def entry(name, r, launches, by_path, extra=None):
         c = counters[name]
-        r = res[key] if isinstance(res[key], dict) else {
-            "max_abs_err": max(s["max_abs_err"] for s in res[key]),
-            "ms": sum(s["ms"] for s in res[key]),
-            "plain_ms": sum(s["plain_ms"] for s in res[key]),
-            "bound_ms": sum(s["bound_ms"] for s in res[key]),
-            "bound_by": res[key][0]["bound_by"], "scales": res[key]}
         e = {"name": name, "route": "cuda", "source": c.source, "replaces": c.replaces,
-             "launches": launches,
-             "launches_by_path": {"block": block_launches[name],
-                                  "per_ray": ray_launches[name]},
-             "library_ms": None}
-        e.update(r)
+             "launches": launches, "launches_by_path": by_path, "library_ms": None}
+        e.update(r if "ms" in r else per_scale(r))
         e.update(extra or {})
         return e
 
+    def eval_paths(name):
+        return {"block": block_launches[name], "per_ray": ray_launches[name]}
+
+    def train_paths(name):
+        return {f"{k}_{TRAIN_STEPS}_steps": v["launches_total"][name] for k, v in train.items()}
+
+    a_bwd = res["A_bwd"]
     report = {"kernels": [
-        entry("window_attention", "A_bfloat16", block_launches["window_attention"],
-              {"f32": res["A_float32"]}),
-        entry("cosine_prior", "B", ray_launches["cosine_prior"]),
-        entry("cond_nerf_decode", "C", block_launches["cond_nerf_decode"]),
-        entry("block_cosine_prior", "D", block_launches["block_cosine_prior"],
+        entry("window_attention", res["A_bfloat16"], block_launches["window_attention"],
+              dict(eval_paths("window_attention"), **train_paths("window_attention")),
+              {"f32": res["A_float32"],
+               "training_forward_ms": {k: v["fwd_ms"] for k, v in a_bwd.items()}}),
+        entry("window_attention_bwd", a_bwd["bfloat16_shift"],
+              train["train"]["launches_total"]["window_attention_bwd"],
+              train_paths("window_attention_bwd"), {"variants": a_bwd}),
+        entry("cosine_prior", res["B"], ray_launches["cosine_prior"],
+              dict(eval_paths("cosine_prior"), **train_paths("cosine_prior")),
+              {"f32_training_shapes": per_scale(res["B_f32"])}),
+        entry("cosine_prior_bwd", res["B_bwd"],
+              train["train"]["launches_total"]["cosine_prior_bwd"],
+              train_paths("cosine_prior_bwd")),
+        entry("cond_nerf_decode", res["C"], block_launches["cond_nerf_decode"],
+              eval_paths("cond_nerf_decode")),
+        entry("block_cosine_prior", res["D"], block_launches["block_cosine_prior"],
+              eval_paths("block_cosine_prior"),
               {"union_ms": sum(s["union_ms"] for s in res["D"])}),
-        entry("supercell_color", "E", block_launches["supercell_color"]),
+        entry("block_cosine_prior_f32", res["D_f32"],
+              train["train_fast"]["launches_total"]["block_cosine_prior_f32"],
+              train_paths("block_cosine_prior_f32"),
+              {"union_ms": sum(s["union_ms"] for s in res["D_f32"])}),
+        entry("block_cosine_prior_bwd", res["D_bwd"],
+              train["train_fast"]["launches_total"]["block_cosine_prior_bwd"],
+              train_paths("block_cosine_prior_bwd")),
+        entry("supercell_color", res["E"], block_launches["supercell_color"],
+              eval_paths("supercell_color")),
     ], "paths": {
         "block": {"encode_s": timings["encode"], "tables_s": timings["tables"],
                   "render_s": timings["render"],
@@ -480,11 +866,16 @@ def main():
                   "peak_gib": peak_gib},
         "per_ray": {"encode_s": ray_t["encode"], "render_s": ray_t["render"],
                     "rays_per_s_render": n_rays / ray_t["render"],
-                    "psnr_vs_block_db": vs_ray}}}
+                    "psnr_vs_block_db": vs_ray},
+        "train": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
+                  for k, v in train.items()}}}
     if args.profile:
-        report["profile"] = {"block": profile_render(torch, "block", renderer, batch),
-                             "per_ray": profile_render(torch, "per-ray", per_ray_renderer,
-                                                       batch)}
+        report["profile"] = {"train": train["train"]["profile"],
+                             "train_fast": train["train_fast"]["profile"]}
+        report["profile"].update({
+            "block": profile_call(torch, "block", lambda: renderer.forward(batch, mode="test")),
+            "per_ray": profile_call(torch, "per-ray",
+                                    lambda: per_ray_renderer.forward(batch, mode="test"))})
     log(card_line())
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

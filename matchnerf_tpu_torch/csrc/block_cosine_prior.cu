@@ -1,9 +1,12 @@
-// Kernel D: grouped-cosine matching prior of one feature scale, from one
-// dilated union of table rows shared by each 8-ray block.
+// Kernel D / D': grouped-cosine matching prior of one feature scale, from one
+// dilated union of table rows shared by each 8-ray block; D' is its f32
+// forward and backward for training.
 //
 // Replaces matchnerf_tpu/ops/pallas_block_banded.py::block_banded_cosine_scale
-// (the block-banded Pallas kernel of the eval render). Plain version, union
-// build and wrapper: matchnerf_tpu_torch/ops/block_cosine_prior.py.
+// (the block-banded Pallas kernel of the eval render) and
+// ::block_banded_cosine_scale_trainable (its custom VJP on f32 tables).
+// Plain version, union build, autograd Function and wrappers:
+// matchnerf_tpu_torch/ops/block_cosine_prior.py.
 //
 // Output as Kernel B (csrc/cosine_prior.cu): for each sample n and each of
 // the V = 3 views, the bilinear sample (align corners, border clamp) of the
@@ -221,7 +224,373 @@ block_cosine_prior_kernel(const int8_t* __restrict__ table,
   for (int i = tid; i < valid; i += THREADS) ob[i] = acc[i] / 3.f;
 }
 
+// ------------------------------------------------- D': f32 tables, training
+//
+// The same block, unions and prologue as above, on f32 tables [V,H,W,2C] with
+// no dequantisation scale. f32 union rows are 4x the int8 bytes: the two
+// 128-channel chunks of 321 rows (ut 320) would take 321 KB, over the 227 KB
+// a block may have. So each pair is staged in passes of CP channels (128,
+// 64 or 32; the host picks the widest that fits, see
+// ops/block_cosine_prior.py::f32_channels_per_pass), fewer channels per
+// pass, the rows unchanged. A cosine group must lie inside one pass
+// (G * CP >= 128), so each pass finishes its groups; the sum over pairs
+// accumulates in `out` itself (the same thread owns an output in every
+// pair and pass), which frees the [8S, G] shared accumulator.
+//
+// Backward: per pair and pass the block stages the rows as the forward does
+// plus an f32 gradient row of the same width per union row (d_acc, zeroed),
+// recomputes each sample's interpolation and group sums, forms the
+// grouped-cosine backward (pallas_banded.py::_grouped_cosine_bwd, no
+// gradient through a norm clamped at eps), and adds the gradient times each
+// bilinear weight into the tap's union row with shared-memory atomics: the
+// counterpart of the TPU kernel's per-block d_acc. Each union row then goes
+// to d_table once per block with float4 global atomics, so global atomics
+// fall by the union's reuse factor (8 rays x S samples x 4 taps per view
+// onto <= ut rows). Each (view, chunk) is one side of exactly one pair, so
+// every row and channel is flushed once per block. A tap missing from an
+// overflowed union (the zero row) adds nothing.
+
+struct LayoutF32 {        // dynamic shared memory, in bytes from its start
+  size_t rows, dacc, taps, fracs, unions, total;
+  __host__ __device__ LayoutF32(int ut, int S, int CP, bool bwd) {
+    const size_t samples = (size_t)BLOCK_RAYS * S;
+    const size_t side = (size_t)(ut + 1) * CP * sizeof(float);
+    rows = 0;                                              // [2][ut+1][CP] f32
+    dacc = rows + 2 * side;                                // [2][ut+1][CP] f32 (bwd)
+    taps = dacc + (bwd ? 2 * side : 0);                    // [V][8S] uint2
+    fracs = taps + (size_t)V * samples * sizeof(uint2);    // [V][8S] float2
+    unions = fracs + (size_t)V * samples * sizeof(float2); // [V][ut] int
+    total = unions + (size_t)V * ut * sizeof(int);
+  }
+};
+
+// the unions into shared memory (INT_MAX padded) and the prologue: each
+// (view, sample)'s four tap rows and two fractions, as the int8 kernel
+__device__ __forceinline__ void block_prologue(const float* __restrict__ grids,
+                                               const int* __restrict__ unions,
+                                               int* u_s, uint2* taps, float2* fracs,
+                                               int H, int W, int S, int NB, int ut,
+                                               int blk, int tid) {
+  const int samples = BLOCK_RAYS * S;
+  const int Rp = NB * BLOCK_RAYS;
+  for (int i = tid; i < V * ut; i += THREADS) {
+    const int v = i / ut, r = i % ut;
+    const int c = unions[((size_t)v * NB + blk) * ut + r];
+    u_s[i] = c < 0 ? INT_MAX : c;
+  }
+  __syncthreads();
+  for (int t = tid; t < V * samples; t += THREADS) {
+    const int v = t / samples, nl = t % samples;
+    const size_t g = (((size_t)v * Rp + blk * BLOCK_RAYS + nl / S) * S + nl % S) * 2;
+    const float x = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(grids[g], 1.f), 0.5f),
+                                          (float)(W - 1)), 0.f), (float)(W - 1));
+    const float y = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(grids[g + 1], 1.f), 0.5f),
+                                          (float)(H - 1)), 0.f), (float)(H - 1));
+    const float x0f = floorf(x), y0f = floorf(y);
+    const int x0 = (int)x0f, y0 = (int)y0f;
+    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
+    const int* u = u_s + v * ut;
+    const int p00 = find_row(u, ut, y0 * W + x0), p01 = find_row(u, ut, y0 * W + x1);
+    const int p10 = find_row(u, ut, y1 * W + x0), p11 = find_row(u, ut, y1 * W + x1);
+    taps[t] = make_uint2((unsigned)p00 | ((unsigned)p01 << 16),
+                         (unsigned)p10 | ((unsigned)p11 << 16));
+    fracs[t] = make_float2(__fsub_rn(x, x0f), __fsub_rn(y, y0f));
+  }
+}
+
+// stage CP channels (from channel c0 of the chunk) of both sides' union rows;
+// row ut is zero. With `dacc`, zero the gradient rows too.
+__device__ __forceinline__ void stage_f32(const float* __restrict__ table, const int* u_s,
+                                          float* rows, float* dacc, int H, int W, int ut,
+                                          int CP, int vi, int vj, int ca, int cb, int c0,
+                                          int tid) {
+  const int per_side = (ut + 1) * (CP / 4);
+  for (int i = tid; i < 2 * per_side; i += THREADS) {
+    const int side = i / per_side, rem = i % per_side;
+    const int r = rem / (CP / 4), part = rem % (CP / 4);
+    const int v = side ? vj : vi;
+    const int chunk = side ? cb : ca;
+    const int cell = r < ut ? u_s[v * ut + r] : INT_MAX;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (cell != INT_MAX)
+      val = *reinterpret_cast<const float4*>(
+          table + ((size_t)v * H * W + cell) * CC + chunk * C + c0 + part * 4);
+    const size_t off = ((size_t)side * (ut + 1) + r) * CP + part * 4;
+    *reinterpret_cast<float4*>(rows + off) = val;
+    if (dacc) *reinterpret_cast<float4*>(dacc + off) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+__device__ __forceinline__ void weights4(float2 fr, float* w) {
+  const float wx1 = fr.x, wy1 = fr.y;
+  const float wx0 = __fsub_rn(1.f, wx1), wy0 = __fsub_rn(1.f, wy1);
+  w[0] = __fmul_rn(wy0, wx0); w[1] = __fmul_rn(wy0, wx1);
+  w[2] = __fmul_rn(wy1, wx0); w[3] = __fmul_rn(wy1, wx1);
+}
+
+__device__ __forceinline__ int tap_row(uint2 pos, int t) {
+  const unsigned h = t < 2 ? pos.x : pos.y;
+  return (t & 1) ? (int)(h >> 16) : (int)(h & 0xffff);
+}
+
+// CPL channels (this lane's, from o) of one side at one sample
+template <int CPL>
+__device__ __forceinline__ void interp_f32(const float* rows, int CP, uint2 pos, float2 fr,
+                                           int o, float* f) {
+  float w[4];
+  weights4(fr, w);
+  const float* a = rows + tap_row(pos, 0) * CP + o;
+  const float* b = rows + tap_row(pos, 1) * CP + o;
+  const float* c = rows + tap_row(pos, 2) * CP + o;
+  const float* d = rows + tap_row(pos, 3) * CP + o;
+#pragma unroll
+  for (int e = 0; e < CPL; ++e) f[e] = a[e] * w[0] + b[e] * w[1] + c[e] * w[2] + d[e] * w[3];
+}
+
+template <int CPL>
+__global__ void __launch_bounds__(THREADS)
+block_cosine_prior_f32_kernel(const float* __restrict__ table,
+                              const float* __restrict__ grids,
+                              const int* __restrict__ unions, float* __restrict__ out,
+                              int H, int W, int G, int R, int S, int NB, int ut) {
+  constexpr int CP = CPL * LANES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const LayoutF32 L(ut, S, CP, false);
+  float* rows = reinterpret_cast<float*>(smem + L.rows);
+  uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
+  float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
+  int* u_s = reinterpret_cast<int*>(smem + L.unions);
+
+  const int blk = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % LANES;
+  const int grp = tid / LANES;
+  const int o = lane * CPL;
+  const int samples = BLOCK_RAYS * S;
+  const int valid = min(BLOCK_RAYS, R - blk * BLOCK_RAYS) * S;
+  const int gsize = C / G;                     // channels per group
+  const int lanes_per_group = gsize / CPL;     // <= LANES: G * CP >= C
+  block_prologue(grids, unions, u_s, taps, fracs, H, W, S, NB, ut, blk, tid);
+  float* ob = out + (size_t)blk * BLOCK_RAYS * S * G;
+
+#pragma unroll 1
+  for (int p = 0; p < 3; ++p) {
+    const int vi = p == 2 ? 1 : 0, vj = p == 0 ? 1 : 2;
+    const int ca = vj - 1, cb = vi;
+#pragma unroll 1
+    for (int c0 = 0; c0 < C; c0 += CP) {
+      __syncthreads();                     // prologue / previous pass done
+      stage_f32(table, u_s, rows, nullptr, H, W, ut, CP, vi, vj, ca, cb, c0, tid);
+      __syncthreads();
+      const float* rows_a = rows;
+      const float* rows_b = rows + (size_t)(ut + 1) * CP;
+      const int group = (c0 + o) / gsize;
+      for (int base = 0; base < samples; base += GROUPS) {
+        const int nl_raw = base + grp;
+        const int nl = nl_raw < samples ? nl_raw : samples - 1;
+        float fa[CPL], fb[CPL];
+        interp_f32<CPL>(rows_a, CP, taps[vi * samples + nl], fracs[vi * samples + nl], o, fa);
+        interp_f32<CPL>(rows_b, CP, taps[vj * samples + nl], fracs[vj * samples + nl], o, fb);
+        float dot = 0.f, na2 = 0.f, nb2 = 0.f;
+#pragma unroll
+        for (int e = 0; e < CPL; ++e) {
+          dot = fmaf(fa[e], fb[e], dot);
+          na2 = fmaf(fa[e], fa[e], na2);
+          nb2 = fmaf(fb[e], fb[e], nb2);
+        }
+        for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          na2 += __shfl_xor_sync(0xffffffffu, na2, off);
+          nb2 += __shfl_xor_sync(0xffffffffu, nb2, off);
+        }
+        const float cosv = dot / (fmaxf(sqrtf(na2), 1e-8f) * fmaxf(sqrtf(nb2), 1e-8f));
+        if (nl_raw < valid && lane % lanes_per_group == 0) {
+          float* a = ob + (size_t)nl * G + group;
+          *a = p == 0 ? cosv : (p == 1 ? *a + cosv : (*a + cosv) / 3.f);
+        }
+      }
+    }
+  }
+}
+
+template <int CPL>
+__global__ void __launch_bounds__(THREADS)
+block_cosine_prior_bwd_kernel(const float* __restrict__ table,
+                              const float* __restrict__ grids,
+                              const int* __restrict__ unions, const float* __restrict__ gout,
+                              float* __restrict__ d_table, int H, int W, int G, int R,
+                              int S, int NB, int ut) {
+  constexpr int CP = CPL * LANES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const LayoutF32 L(ut, S, CP, true);
+  float* rows = reinterpret_cast<float*>(smem + L.rows);
+  float* dacc = reinterpret_cast<float*>(smem + L.dacc);
+  uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
+  float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
+  int* u_s = reinterpret_cast<int*>(smem + L.unions);
+
+  const int blk = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % LANES;
+  const int grp = tid / LANES;
+  const int o = lane * CPL;
+  const int samples = BLOCK_RAYS * S;
+  const int valid = min(BLOCK_RAYS, R - blk * BLOCK_RAYS) * S;
+  const int gsize = C / G;
+  const int lanes_per_group = gsize / CPL;
+  const float eps = 1e-8f;
+  block_prologue(grids, unions, u_s, taps, fracs, H, W, S, NB, ut, blk, tid);
+  const float* gb = gout + (size_t)blk * BLOCK_RAYS * S * G;
+
+#pragma unroll 1
+  for (int p = 0; p < 3; ++p) {
+    const int vi = p == 2 ? 1 : 0, vj = p == 0 ? 1 : 2;
+    const int ca = vj - 1, cb = vi;
+#pragma unroll 1
+    for (int c0 = 0; c0 < C; c0 += CP) {
+      __syncthreads();                     // prologue / previous flush done
+      stage_f32(table, u_s, rows, dacc, H, W, ut, CP, vi, vj, ca, cb, c0, tid);
+      __syncthreads();
+      const float* rows_a = rows;
+      const float* rows_b = rows + (size_t)(ut + 1) * CP;
+      float* dacc_a = dacc;
+      float* dacc_b = dacc + (size_t)(ut + 1) * CP;
+      const int group = (c0 + o) / gsize;
+      for (int base = 0; base < samples; base += GROUPS) {
+        const int nl_raw = base + grp;
+        const bool active = nl_raw < valid;  // padded rays carry no cotangent
+        const int nl = nl_raw < samples ? nl_raw : samples - 1;
+        const uint2 ta = taps[vi * samples + nl], tb = taps[vj * samples + nl];
+        const float2 fra = fracs[vi * samples + nl], frb = fracs[vj * samples + nl];
+        float fa[CPL], fb[CPL];
+        interp_f32<CPL>(rows_a, CP, ta, fra, o, fa);
+        interp_f32<CPL>(rows_b, CP, tb, frb, o, fb);
+        float dot = 0.f, na2 = 0.f, nb2 = 0.f;
+#pragma unroll
+        for (int e = 0; e < CPL; ++e) {
+          dot = fmaf(fa[e], fb[e], dot);
+          na2 = fmaf(fa[e], fa[e], na2);
+          nb2 = fmaf(fb[e], fb[e], nb2);
+        }
+        for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          na2 += __shfl_xor_sync(0xffffffffu, na2, off);
+          nb2 += __shfl_xor_sync(0xffffffffu, nb2, off);
+        }
+        if (!active) continue;
+        const float dcos = gb[(size_t)nl * G + group] * (1.f / 3.f);
+        const float sna = sqrtf(na2), snb = sqrtf(nb2);
+        const float na = fmaxf(sna, eps), nb = fmaxf(snb, eps);
+        const float inv_ab = 1.f / (na * nb);
+        const float d_dot = dcos * inv_ab;
+        const float d_na2 = sna > eps ? -dcos * dot * inv_ab / na * (0.5f / na) : 0.f;
+        const float d_nb2 = snb > eps ? -dcos * dot * inv_ab / nb * (0.5f / nb) : 0.f;
+        float wa[4], wb[4];
+        weights4(fra, wa);
+        weights4(frb, wb);
+#pragma unroll
+        for (int e = 0; e < CPL; ++e) {
+          const float dfa = d_dot * fb[e] + 2.f * d_na2 * fa[e];
+          const float dfb = d_dot * fa[e] + 2.f * d_nb2 * fb[e];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            atomicAdd(dacc_a + tap_row(ta, t) * CP + o + e, dfa * wa[t]);
+            atomicAdd(dacc_b + tap_row(tb, t) * CP + o + e, dfb * wb[t]);
+          }
+        }
+      }
+      __syncthreads();
+      // flush: every union row of both sides, once, into d_table
+      const int per_side = ut * (CP / 4);
+      for (int i = tid; i < 2 * per_side; i += THREADS) {
+        const int side = i / per_side, rem = i % per_side;
+        const int r = rem / (CP / 4), part = rem % (CP / 4);
+        const int v = side ? vj : vi;
+        const int cell = u_s[v * ut + r];
+        if (cell == INT_MAX) continue;
+        const float4 val = *reinterpret_cast<const float4*>(
+            dacc + ((size_t)side * (ut + 1) + r) * CP + part * 4);
+        float* dst = d_table + ((size_t)v * H * W + cell) * CC + (side ? cb : ca) * C + c0 +
+                     part * 4;
+#if (__CUDACC_VER_MAJOR__ > 12) || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 4)
+        atomicAdd(reinterpret_cast<float4*>(dst), val);
+#else
+        atomicAdd(dst, val.x); atomicAdd(dst + 1, val.y);
+        atomicAdd(dst + 2, val.z); atomicAdd(dst + 3, val.w);
+#endif
+      }
+    }
+  }
+}
+
+bool f32_args_ok(int views, int channels, int H, int W, int R, int S, int NB, int ut,
+                 int G, int CP) {
+  return views == V && channels == C && H > 0 && W > 0 && R > 0 && S > 0 &&
+         NB * BLOCK_RAYS >= R && ut > 0 && ut <= MAX_UT &&
+         (G == 1 || G == 2 || G == 4 || G == 8 || G == 16) &&
+         (CP == 32 || CP == 64 || CP == 128) && G * CP >= C && G * CP <= C * LANES;
+}
+
+template <int CPL>
+int launch_f32(bool bwd, const void* table, const void* grids, const void* unions,
+               const void* gout, void* out, int H, int W, int G, int R, int S, int NB,
+               int ut, cudaStream_t stream) {
+  const LayoutF32 L(ut, S, CPL * LANES, bwd);
+  if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int blocks = (R + BLOCK_RAYS - 1) / BLOCK_RAYS;
+  cudaError_t err;
+  if (bwd) {
+    err = cudaFuncSetAttribute(block_cosine_prior_bwd_kernel<CPL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+    if (err != cudaSuccess) return (int)err;
+    block_cosine_prior_bwd_kernel<CPL><<<blocks, THREADS, L.total, stream>>>(
+        static_cast<const float*>(table), static_cast<const float*>(grids),
+        static_cast<const int*>(unions), static_cast<const float*>(gout),
+        static_cast<float*>(out), H, W, G, R, S, NB, ut);
+  } else {
+    err = cudaFuncSetAttribute(block_cosine_prior_f32_kernel<CPL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+    if (err != cudaSuccess) return (int)err;
+    block_cosine_prior_f32_kernel<CPL><<<blocks, THREADS, L.total, stream>>>(
+        static_cast<const float*>(table), static_cast<const float*>(grids),
+        static_cast<const int*>(unions), static_cast<float*>(out), H, W, G, R, S, NB, ut);
+  }
+  return (int)cudaGetLastError();
+}
+
+int dispatch_f32(bool bwd, const void* table, const void* grids, const void* unions,
+                 const void* gout, void* out, int views, int H, int W, int channels, int G,
+                 int R, int S, int NB, int ut, int CP, void* stream) {
+  if (!f32_args_ok(views, channels, H, W, R, S, NB, ut, G, CP))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (CP == 128)
+    return launch_f32<8>(bwd, table, grids, unions, gout, out, H, W, G, R, S, NB, ut, st);
+  if (CP == 64)
+    return launch_f32<4>(bwd, table, grids, unions, gout, out, H, W, G, R, S, NB, ut, st);
+  return launch_f32<2>(bwd, table, grids, unions, gout, out, H, W, G, R, S, NB, ut, st);
+}
+
 }  // namespace
+
+// D' forward: out [R,S,G] f32; CP channels staged per pass
+extern "C" int block_cosine_prior_f32(const void* table, const void* grids,
+                                      const void* unions, void* out, int views, int H,
+                                      int W, int channels, int G, int R, int S, int NB,
+                                      int ut, int CP, void* stream) {
+  return dispatch_f32(false, table, grids, unions, nullptr, out, views, H, W, channels,
+                      G, R, S, NB, ut, CP, stream);
+}
+
+// D' backward: g [R,S,G] f32 cotangent; d_table [V,H,W,2C] f32, zeroed by the caller
+extern "C" int block_cosine_prior_bwd_f32(const void* table, const void* grids,
+                                          const void* unions, const void* g, void* d_table,
+                                          int views, int H, int W, int channels, int G,
+                                          int R, int S, int NB, int ut, int CP,
+                                          void* stream) {
+  return dispatch_f32(true, table, grids, unions, g, d_table, views, H, W, channels, G,
+                      R, S, NB, ut, CP, stream);
+}
 
 extern "C" int block_cosine_prior_i8(const void* table, const void* grids,
                                      const void* scales, const void* unions,

@@ -1,8 +1,11 @@
-// Kernel B: grouped-cosine matching prior of one feature scale.
+// Kernel B / B': grouped-cosine matching prior of one feature scale, and
+// the gradient of its f32 form with respect to the table.
 //
 // Replaces matchnerf_tpu/ops/pallas_banded.py::banded_cosine_scale (the
-// per-ray banded Pallas kernel of the eval render). Plain version and
-// wrapper: matchnerf_tpu_torch/ops/cosine_prior.py.
+// per-ray banded Pallas kernel of the eval render) and, with the backward
+// below, ::banded_cosine_scale_trainable (its custom VJP for training). Plain
+// version, autograd Function and wrappers:
+// matchnerf_tpu_torch/ops/cosine_prior.py.
 //
 // For each sample n and each of the V = 3 views: bilinear sample (align
 // corners, border clamp) of the view's unpacked table [V,H,W,2C] (C = 128,
@@ -140,7 +143,137 @@ int launch(const void* table, const void* grids, const void* scales, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- backward
+//
+// d_table of the f32 prior (no dequantisation scales): per sample, the same
+// half warp recomputes the four-tap interpolation of every view (the
+// forward's tap rule: clip, floor, border-clamped x1/y1), runs the pair-mean
+// grouped-cosine backward exactly as pallas_banded.py::_grouped_cosine_bwd
+// (no gradient through a norm clamped at eps), and adds the view's gradient
+// times each bilinear weight into the four tap rows of d_table
+// [V,H,W,2C] f32 (zeroed by the wrapper). Each (view, chunk) is one side of
+// exactly one pair, so a lane's 8-channel gradient of it is final before
+// the scatter. What bounds it: the scatter, 4 taps x 3 views x 256 channels
+// of f32 atomic adds per sample (~4e8 per scale at 1024 rays x 128
+// samples), issued as float4 vector atomics (sm_90) into the L2-resident
+// table gradient. Merging consecutive samples of a ray that share a cell
+// before the atomic is not done yet.
+
+__device__ __forceinline__ void atomic_add8(float* p, const float* v, float w) {
+#if (__CUDACC_VER_MAJOR__ > 12) || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 4)
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0] * w, v[1] * w, v[2] * w, v[3] * w));
+  atomicAdd(reinterpret_cast<float4*>(p + 4),
+            make_float4(v[4] * w, v[5] * w, v[6] * w, v[7] * w));
+#else
+#pragma unroll
+  for (int e = 0; e < 8; ++e) atomicAdd(p + e, v[e] * w);
+#endif
+}
+
+__global__ void __launch_bounds__(THREADS)
+cosine_prior_bwd_kernel(const float* __restrict__ table, const float* __restrict__ grids,
+                        const float* __restrict__ g, float* __restrict__ d_table,
+                        int H, int W, int G, int N) {
+  const int lane = threadIdx.x % LANES;
+  const int n_raw = blockIdx.x * SAMPLES_PER_BLOCK + threadIdx.x / LANES;
+  const int n = min(n_raw, N - 1);
+  const int o = lane * 8;
+
+  float f[V][2][8];
+  const float* row[V][4];
+  float wt[V][4];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const float gx = grids[((size_t)v * N + n) * 2 + 0];
+    const float gy = grids[((size_t)v * N + n) * 2 + 1];
+    const float x = fminf(fmaxf((gx + 1.f) * 0.5f * (float)(W - 1), 0.f), (float)(W - 1));
+    const float y = fminf(fmaxf((gy + 1.f) * 0.5f * (float)(H - 1), 0.f), (float)(H - 1));
+    const float x0f = floorf(x), y0f = floorf(y);
+    const float wx1 = x - x0f, wy1 = y - y0f;
+    const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
+    const int x0 = (int)x0f, y0 = (int)y0f;
+    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
+    wt[v][0] = wy0 * wx0; wt[v][1] = wy0 * wx1; wt[v][2] = wy1 * wx0; wt[v][3] = wy1 * wx1;
+    const size_t tv = (size_t)v * H * W;
+    row[v][0] = table + (tv + (size_t)y0 * W + x0) * CC;
+    row[v][1] = table + (tv + (size_t)y0 * W + x1) * CC;
+    row[v][2] = table + (tv + (size_t)y1 * W + x0) * CC;
+    row[v][3] = table + (tv + (size_t)y1 * W + x1) * CC;
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+      const int c0 = ch * C + o;
+      float a[8], b[8], c[8], d[8];
+      load8(row[v][0] + c0, a);
+      load8(row[v][1] + c0, b);
+      load8(row[v][2] + c0, c);
+      load8(row[v][3] + c0, d);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        f[v][ch][e] = a[e] * wt[v][0] + b[e] * wt[v][1] + c[e] * wt[v][2] + d[e] * wt[v][3];
+    }
+  }
+
+  const int lanes_per_group = LANES / G;
+  const float dcos = g[(size_t)n * G + lane / lanes_per_group] * (1.f / 3.f);
+  const float eps = 1e-8f;
+  float df[V][2][8];
+  constexpr int PI[3] = {0, 0, 1}, PJ[3] = {1, 2, 2};
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const int vi = PI[p], vj = PJ[p], ca = vj - 1, cb = vi;
+    const float* fa = f[vi][ca];
+    const float* fb = f[vj][cb];
+    float dot = 0.f, na2 = 0.f, nb2 = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      dot = fmaf(fa[e], fb[e], dot);
+      na2 = fmaf(fa[e], fa[e], na2);
+      nb2 = fmaf(fb[e], fb[e], nb2);
+    }
+    for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      na2 += __shfl_xor_sync(0xffffffffu, na2, off);
+      nb2 += __shfl_xor_sync(0xffffffffu, nb2, off);
+    }
+    const float sna = sqrtf(na2), snb = sqrtf(nb2);
+    const float na = fmaxf(sna, eps), nb = fmaxf(snb, eps);
+    const float inv_ab = 1.f / (na * nb);
+    const float d_dot = dcos * inv_ab;
+    const float d_na2 = sna > eps ? -dcos * dot * inv_ab / na * (0.5f / na) : 0.f;
+    const float d_nb2 = snb > eps ? -dcos * dot * inv_ab / nb * (0.5f / nb) : 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      df[vi][ca][e] = d_dot * fb[e] + 2.f * d_na2 * fa[e];
+      df[vj][cb][e] = d_dot * fa[e] + 2.f * d_nb2 * fb[e];
+    }
+  }
+  if (n_raw >= N) return;              // after the last shuffle
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      float* dr = d_table + (row[v][t] - table);
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) atomic_add8(dr + ch * C + o, df[v][ch], wt[v][t]);
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int cosine_prior_bwd_f32(const void* table, const void* grids,
+                                    const void* g, void* d_table, int views, int H,
+                                    int W, int channels, int G, int N, void* stream) {
+  if (views != V || channels != C || H <= 0 || W <= 0 || N < 0 ||
+      !(G == 1 || G == 2 || G == 4 || G == 8 || G == 16))
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaGetLastError();
+  const int blocks = (N + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK;
+  cosine_prior_bwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(table), static_cast<const float*>(grids),
+      static_cast<const float*>(g), static_cast<float*>(d_table), H, W, G, N);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int cosine_prior_i8(const void* table, const void* grids,
                                const void* scales, void* out, int views, int H,

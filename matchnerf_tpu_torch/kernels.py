@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-All `csrc/*.cu` sources compile with `nvcc` into ONE shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers: a build takes
-seconds, not minutes). The library lands in `build/kernels/` at the repo root
+Each `csrc/*.cu` source compiles with its own `nvcc` process, all started
+together, and the objects link into ONE shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers: a build takes seconds, not
+minutes). The library lands in `build/kernels/` at the repo root
 (gitignored), named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is reused. Nothing is built at import time:
 `library()` builds on the first kernel launch.
@@ -26,19 +27,26 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 # C signatures of every exported launcher; each returns cudaGetLastError()
 SIGNATURES = {
-    # q, k, v, region_ids (or NULL), out, BW, L, C, n_region_rows, stream
-    "window_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "window_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, region_ids (or NULL), out, lse (or NULL), BW, L, C,
+    # n_region_rows, stream
+    "window_attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "window_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, region_ids (or NULL), out, dout, lse, dsum scratch, dq, dk,
+    # dv, BW, L, C, n_region_rows, stream
+    "window_attention_bwd_f32": [_P] * 11 + [_I] * 4 + [_P],
+    "window_attention_bwd_bf16": [_P] * 11 + [_I] * 4 + [_P],
     # table, grids, scales, out, V, H, W, C, G, N, stream
     "cosine_prior_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cosine_prior_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # table, grids, g, d_table, V, H, W, C, G, N, stream
+    "cosine_prior_bwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # pts, ray_unit, feat, color, mask, depth, ray, weights, postab (or NULL),
     # out, N, S, Gf, V, act, maskfill, wo_render_interval, setbg, stream
     "cond_nerf_decode_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -46,6 +54,10 @@ SIGNATURES = {
     # table, grids, scales, unions, out, V, H, W, C, G, R, S, NB, ut, stream
     "block_cosine_prior_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P],
+    # table, grids, unions, out, V, H, W, C, G, R, S, NB, ut, CP, stream
+    "block_cosine_prior_f32": [_P] * 4 + [_I] * 10 + [_P],
+    # table, grids, unions, g, d_table, V, H, W, C, G, R, S, NB, ut, CP, stream
+    "block_cosine_prior_bwd_f32": [_P] * 5 + [_I] * 10 + [_P],
     # colors_sc, grids, unions, out, V, Hs, Ws, img_h, img_w, R, S, NB, ut,
     # stream
     "supercell_color_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -102,16 +114,34 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        out = BUILD_DIR / f"libmatchnerf_kernels-{_source_hash()}.so"
+        tag = _source_hash()
+        out = BUILD_DIR / f"libmatchnerf_kernels-{tag}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            nvcc = _nvcc()
+            jobs = []
+            for src in sorted(CSRC_DIR.glob("*.cu")):
+                obj = BUILD_DIR / f"{src.stem}-{tag}.{os.getpid()}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                jobs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            for cmd, _, proc in jobs:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    for _, _, other in jobs:
+                        other.kill()
+                        other.wait()
+                    raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
+                        proc.returncode, " ".join(cmd), err[-8000:]))
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            sources = sorted(str(p) for p in CSRC_DIR.glob("*.cu"))
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *(str(obj) for _, obj, _ in jobs)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
+                raise RuntimeError("nvcc link failed (%d):\n%s\n%s" % (
                     proc.returncode, " ".join(cmd), proc.stderr[-8000:]))
+            for _, obj, _ in jobs:
+                obj.unlink()
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         for name, argtypes in SIGNATURES.items():

@@ -15,6 +15,7 @@ from torch import nn
 
 from ...ops.nn import ACTIVATIONS, Activation, Linear, relu
 from ...ops.posenc import nerf_posenc, nerf_posenc_legacy, ray_sinusoid_table
+from ...utils.containers import effective_precision
 from .ray_transformer import RayAttention
 
 
@@ -51,23 +52,41 @@ class CondNeRF(nn.Module):
         self.rgb_linear = Linear(W // 2, 3)
 
 
+def decoder_compute_dtype(cfg):
+    """precision.decoder_compute_dtype: bf16 or None (f32)."""
+    prec = effective_precision(cfg)
+    name = prec.get("decoder_compute_dtype") if hasattr(prec, "get") else None
+    return torch.bfloat16 if str(name) in ("bf16", "bfloat16") else None
+
+
 def apply_cond_nerf(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info):
     """rgb [B,R,S,3] and density [B,R,S] at the samples (cond_nerf.py:71).
 
     points_3d: [B,R,S,3] view-0 NDC coordinates; ray_unit: [B,R,S,3]
     reference-frame unit directions; cond_info: feat_info [B,R,S,G],
-    color_info [B,R,S,3V], mask_info [B,R,S,V]."""
+    color_info [B,R,S,3V], mask_info [B,R,S,V].
+
+    precision.decoder_compute_dtype bfloat16 (the training recipes) is the
+    JAX policy of cond_nerf.py:83-112: the width-W layers (pts_bias,
+    pts_linears, feature_linear, views_linears) run in bf16, their f32
+    master weights cast per call (`ops.nn.Linear`, gradients flow back
+    through the cast); the 16-d density head, the ray attention, the rgb
+    head and every output stay f32 (the layers that read a bf16 activation
+    with f32 weights widen it, as JAX's type promotion does)."""
     skip = set(cfg.decoder.skip)
+    cd = decoder_compute_dtype(cfg)
+    cast = (lambda x: x.to(cd)) if cd is not None else (lambda x: x)
     enc_fn = nerf_posenc_legacy if cfg.nerf.legacy_coord else nerf_posenc
     posenc = cfg.decoder.posenc
     if posenc:
         points_enc = torch.cat([points_3d, enc_fn(points_3d, posenc.L_3D)], dim=-1)
     else:
         points_enc = points_3d
+    points_enc = cast(points_enc)
     input_feats = torch.cat([cond_info["feat_info"], cond_info["color_info"],
                              cond_info["mask_info"]], dim=-1)
     h = points_enc
-    bias = dec.pts_bias(input_feats)
+    bias = dec.pts_bias(cast(input_feats))
     for i, lin in enumerate(dec.pts_linears):
         h = relu(lin(h) * bias)
         if i in skip:
@@ -80,7 +99,7 @@ def apply_cond_nerf(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info):
 
     act = ACTIVATIONS[raytrans_act_name(cfg)]
     B, R, S = h.shape[:3]
-    raw_alpha = act(dec.alpha_linear(h))                          # [B,R,S,16]
+    raw_alpha = act(dec.alpha_linear(h.float()))                  # [B,R,S,16]
     if cfg.decoder.raytrans_posenc:
         raw_alpha = raw_alpha + ray_sinusoid_table(16, S, device=h.device)
     nv = cond_info["mask_info"].sum(dim=-1, keepdim=True).reshape(B * R, S, 1)
@@ -92,10 +111,10 @@ def apply_cond_nerf(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info):
     density = alpha.reshape(B, R, S)
 
     feature = dec.feature_linear(h)
-    hv = torch.cat([feature, ray_enc], dim=-1)
+    hv = torch.cat([feature, cast(ray_enc)], dim=-1)
     for lin in dec.views_linears:
         hv = relu(lin(hv))
-    rgb = torch.sigmoid(dec.rgb_linear(hv))
+    rgb = torch.sigmoid(dec.rgb_linear(hv.float()))
     return rgb, density
 
 

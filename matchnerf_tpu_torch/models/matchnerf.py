@@ -1,19 +1,22 @@
 """MatchNeRF: encoder + matching prior + conditional NeRF renderer
-(counterpart of matchnerf_tpu/models/matchnerf.py, eval path).
+(counterpart of matchnerf_tpu/models/matchnerf.py, eval and training paths).
 
 `MatchNeRF` is the module tree (`feat_enc`, `nerf_dec`) whose state_dict
-keys are the reference checkpoint's; the functions below are the eval
-render: `encode`, `sample_depth`, `prepare_sampling_tables`,
-`query_cond_info` and `render_rays`. Each takes `kernel` (default True):
-True calls the kernel wrappers, which launch the CUDA kernels on CUDA
-tensors and run the plain versions on CPU tensors; False calls the plain
-versions everywhere (the all-plain reference render on the card).
+keys are the reference checkpoint's; the functions below are the render:
+`encode`, `sample_depth`, `prepare_sampling_tables`, `query_cond_info` and
+`render_rays`. Each takes `kernel` (default True): True calls the kernel
+wrappers, which launch the CUDA kernels on CUDA tensors and run the plain
+versions on CPU tensors; False calls the plain versions everywhere (the
+all-plain reference on the card). Everything stays differentiable: with f32
+tables and autograd recording (the training step), the wrappers take the
+kernels' backward too (A', B', D').
 
 The cond query follows the per-pose route the renderer measured
 (`Renderer.pose_prep`): a scale whose block-union bucket `block_ut[s]` is
-set takes Kernel D (ops/block_cosine_prior.py), the others Kernel B; the
-colours take Kernel E (ops/supercell_color.py) when `color_ut` is set and
-the supercell table exists, the gather otherwise.
+set takes Kernel D on int8 tables or D' on f32 tables where it fits
+(ops/block_cosine_prior.py), the others Kernel B; the colours take Kernel
+E (ops/supercell_color.py) when `color_ut` is set and the supercell table
+exists, the gather otherwise.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import torch
 from torch import nn
 
 from .. import camera
-from ..ops.block_cosine_prior import block_cosine_prior, block_cosine_prior_plain
+from ..ops.block_cosine_prior import (block_cosine_prior, block_cosine_prior_plain,
+                                      takes_f32)
 from ..ops.cosine_prior import (cosine_prior, cosine_prior_plain,
                                 pair_index_lists)
 from ..ops.decoder import cond_nerf_decode, cond_nerf_decode_plain
@@ -32,7 +36,7 @@ from ..ops.nn import reset_parameters
 from ..ops.supercell_color import (build_supercell_colors, supercell_color_sample,
                                    supercell_color_sample_plain)
 from ..utils.containers import effective_precision
-from .decoder.cond_nerf import CondNeRF
+from .decoder.cond_nerf import CondNeRF, apply_cond_nerf, composite
 from .gmflow.gmflow import GMFlow, extract_pair_features
 
 
@@ -70,15 +74,25 @@ def encode(model: MatchNeRF, cfg, ref_images: torch.Tensor,
         compute_dtype=cd, kernel=kernel)
 
 
-def sample_depth(cfg, near_far: torch.Tensor, batch_size: int, num_rays: int):
-    """[B,R,S,1] evenly spaced depths (matchnerf.py:72); legacy: no shift and
-    an S-1 denominator. Eval only: no stratified jitter."""
+def sample_depth(cfg, near_far: torch.Tensor, batch_size: int, num_rays: int,
+                 stratified: bool = False, generator: Optional[torch.Generator] = None,
+                 rand: Optional[torch.Tensor] = None):
+    """[B,R,S,1] depths (matchnerf.py:72); legacy: no shift and an S-1
+    denominator. Evenly spaced, or with `stratified` a uniform jitter in
+    [0, 1) per sample: drawn from `generator` (a torch.Generator on the
+    device), or `rand` [B,R,S,1] when the caller supplies the draw."""
     S = cfg.nerf.sample_intvs
     legacy = cfg.nerf.legacy_coord
     rand_shift = 0.0 if legacy else 0.5
     denom = (S - 1) if legacy else S
-    rand = torch.full((batch_size, num_rays, S, 1), rand_shift,
-                      dtype=torch.float32, device=near_far.device)
+    shape = (batch_size, num_rays, S, 1)
+    if not stratified:
+        rand = torch.full(shape, rand_shift, dtype=torch.float32, device=near_far.device)
+    elif rand is None:
+        rand = torch.rand(shape, generator=generator, dtype=torch.float32,
+                          device=near_far.device)
+    elif tuple(rand.shape) != shape:
+        raise ValueError(f"sample_depth: rand {tuple(rand.shape)}, expected {shape}")
     rand = rand + torch.arange(S, dtype=torch.float32,
                                device=near_far.device)[None, None, :, None]
     dmin = near_far[:, :1].reshape(batch_size, 1, 1, 1)
@@ -98,7 +112,8 @@ def prepare_sampling_tables(cfg, pair_feats, ref_images, feat_dtype=None,
     View v's table concatenates, in pair order, the pair-side features it
     contributes: [B,V,h,w,(V-1)C]. feat_dtype=torch.int8 quantises per
     (view, channel): abs-max / 127, round half to even, clip at +-127; the
-    scale is applied after interpolation. color_dtype=torch.uint8 stores
+    scale is applied after interpolation. With neither dtype (training),
+    the tables are f32 and differentiable. color_dtype=torch.uint8 stores
     round(clip(img,0,1)*255) and the sampled colours are multiplied by 1/255.
     On the block path (`precision.block_kernel`) it also builds the
     supercell colour table of Kernel E when the colours are uint8,
@@ -199,8 +214,9 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
     mask_info = masks.permute(1, 2, 3, 0).contiguous()
 
     # matching prior per scale: Kernel D where the pose's union fits a bucket
-    # (int8 tables), else Kernel B when precision.banded_kernel or
-    # block_kernel is on, else the plain direct path
+    # (int8 tables; D' on f32 tables where its staging fits), else Kernel B
+    # when precision.banded_kernel or block_kernel is on, else the plain
+    # direct path
     use_kernel = kernel and (bool(_precision_get(cfg, "banded_kernel", False))
                              or bool(_precision_get(cfg, "block_kernel", False)))
     prior = cosine_prior if use_kernel else cosine_prior_plain
@@ -210,9 +226,13 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
         G = cos_n_group[scale_idx]
         scales = tables["view_feat_scales"][scale_idx]
         ut = block_ut[scale_idx] if block_ut is not None else None
-        if ut is not None and B == 1 and vfeats.dtype == torch.int8:
+        if ut is not None and B == 1 and (
+                vfeats.dtype == torch.int8
+                or (vfeats.dtype == torch.float32 and scales is None
+                    and takes_f32(ut, S, G))):
             feat_chunks.append(block_prior(vfeats[0], grids[:, 0].contiguous(),
-                                           scales[0], G, ut)[None])
+                                           None if scales is None else scales[0],
+                                           G, ut)[None])
             continue
         per_b = [prior(vfeats[b], grids[:, b].contiguous(),
                        None if scales is None else scales[b], G)
@@ -226,13 +246,17 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
 def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
                 ref_w2c, ref_intr, ref_near_far, tables: dict, img_h: int,
                 img_w: int, kernel: bool = True,
-                block_ut: Optional[tuple] = None, color_ut: Optional[int] = None):
+                block_ut: Optional[tuple] = None, color_ut: Optional[int] = None,
+                stratified: bool = False, generator: Optional[torch.Generator] = None,
+                depth_rand: Optional[torch.Tensor] = None):
     """Render rays [B,R,2] of target pixels (matchnerf.py:422); block_ut
-    and color_ut as in `query_cond_info`. Returns dict(rgb [B,R,3], depth
-    [B,R,1], opacity [B,R,1])."""
+    and color_ut as in `query_cond_info`; stratified, generator and
+    depth_rand as `sample_depth`'s stratified, generator and rand. Returns
+    dict(rgb [B,R,3], depth [B,R,1], opacity [B,R,1])."""
     B, R = pix_xy.shape[:2]
     center, ray = camera.get_center_and_ray(pix_xy, tgt_intr, tgt_c2w)
-    depth_samples = sample_depth(cfg, tgt_near_far, B, R)
+    depth_samples = sample_depth(cfg, tgt_near_far, B, R, stratified=stratified,
+                                 generator=generator, rand=depth_rand)
     pts_3d = camera.get_3d_points_from_depth(center, ray, depth_samples,
                                              multi_samples=True)
     cond_info, ndc_view0 = query_cond_info(cfg, pts_3d, ref_w2c, ref_intr,
@@ -245,8 +269,16 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
     ray_unit_ref = (ray_unit @ R0.transpose(-1, -2))[:, :, None, :] \
         .expand(*pts_3d.shape[:3], 3).contiguous()
 
-    use_kernel = kernel and bool(_precision_get(cfg, "decoder_kernel", False))
-    decode = cond_nerf_decode if use_kernel else cond_nerf_decode_plain
-    rgb, depth, opacity = decode(model.nerf_dec, cfg, ndc_view0.contiguous(),
-                                 ray_unit_ref, cond_info, depth_samples, ray)
+    if bool(_precision_get(cfg, "decoder_kernel", False)) and not torch.is_grad_enabled():
+        # Kernel C, or its plain version in the all-plain reference
+        decode = cond_nerf_decode if kernel else cond_nerf_decode_plain
+        rgb, depth, opacity = decode(model.nerf_dec, cfg, ndc_view0.contiguous(),
+                                     ray_unit_ref, cond_info, depth_samples, ray)
+    else:
+        # the plain decoder: Kernel C is forward-only, so a step that
+        # differentiates (training) takes this path whatever the config says,
+        # as the JAX training step does
+        rgb_s, den_s = apply_cond_nerf(model.nerf_dec, cfg, ndc_view0, ray_unit_ref,
+                                       cond_info)
+        rgb, depth, opacity, _ = composite(cfg, ray, rgb_s, den_s, depth_samples)
     return {"rgb": rgb, "depth": depth, "opacity": opacity}

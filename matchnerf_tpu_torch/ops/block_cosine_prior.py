@@ -1,10 +1,16 @@
-"""Kernel D: the grouped-cosine matching prior from one dilated union of
-table rows shared by each 8-ray block.
+"""Kernels D and D': the grouped-cosine matching prior from one dilated
+union of table rows shared by each 8-ray block.
 
 Replaces matchnerf_tpu/ops/pallas_block_banded.py::block_banded_cosine_scale
-(the eval render's block-banded Pallas kernel). The CUDA source is
+(the eval render's block-banded Pallas kernel, int8 tables: Kernel D) and
+::block_banded_cosine_scale_trainable (its custom VJP on f32 tables: D', an
+f32 forward and a backward that sums each union row's gradient over the
+block in shared memory before one global add per row). The CUDA source is
 csrc/block_cosine_prior.cu; `block_cosine_prior_plain` is the same function
-in plain PyTorch, along the same union route.
+in plain PyTorch, along the same union route, and its autograd is the plain
+backward. f32 union rows are staged in passes of `f32_channels_per_pass`
+channels; a (ut, G) that no pass width fits (`takes_f32` False) takes
+Kernel B' instead.
 
 It computes what Kernel B (ops/cosine_prior.py) computes: for every sample
 the bilinear sample (align corners, border clamp) of each view's unpacked
@@ -36,12 +42,39 @@ from .. import kernels
 from .cosine_prior import pair_cosine_mean
 from .grid_sample import bilinear_taps
 
+SOURCE = "matchnerf_tpu_torch/csrc/block_cosine_prior.cu"
 COUNTER = kernels.LaunchCounter(
-    "block_cosine_prior", source="matchnerf_tpu_torch/csrc/block_cosine_prior.cu",
+    "block_cosine_prior", source=SOURCE,
     replaces="matchnerf_tpu/ops/pallas_block_banded.py:413")
+F32_COUNTER = kernels.LaunchCounter(
+    "block_cosine_prior_f32", source=SOURCE,
+    replaces="matchnerf_tpu/ops/pallas_block_banded.py:311")
+BWD_COUNTER = kernels.LaunchCounter(
+    "block_cosine_prior_bwd", source=SOURCE,
+    replaces="matchnerf_tpu/ops/pallas_block_banded.py:311")
 
 BLOCK_RAYS = 8
 UT_BUCKETS = (64, 96, 128, 160, 192, 256, 320, 384, 512)
+MAX_SMEM = 232448                 # bytes of shared memory a block may have (sm_90)
+
+
+def f32_channels_per_pass(ut: int, S: int, n_groups: int, backward: bool) -> Optional[int]:
+    """Channels per staging pass of the f32 kernels (csrc LayoutF32): the
+    widest of 128, 64, 32 whose shared memory fits, with each cosine group
+    inside one pass; None when none does."""
+    for cp in (128, 64, 32):
+        if not 128 <= n_groups * cp <= 2048:
+            continue
+        side = (ut + 1) * cp * 4
+        total = side * (4 if backward else 2) + 3 * BLOCK_RAYS * S * 16 + 3 * ut * 4
+        if total <= MAX_SMEM:
+            return cp
+    return None
+
+
+def takes_f32(ut: int, S: int, n_groups: int) -> bool:
+    """Whether D' (forward and backward) takes f32 tables at this bucket."""
+    return all(f32_channels_per_pass(ut, S, n_groups, b) is not None for b in (False, True))
 
 
 def bucket_ut(n: int) -> Optional[int]:
@@ -179,15 +212,43 @@ def block_cosine_prior_plain(table, grids, scales, n_groups: int, ut: int):
 
 
 def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
-    """The kernel on CUDA tensors (int8 tables [3,h,w,256], f32 scales), the
-    plain version on CPU tensors."""
+    """The kernel on CUDA tensors (int8 tables [3,h,w,256] with f32 scales:
+    Kernel D; f32 tables without scales: D', with its backward when autograd
+    records), the plain version on CPU tensors."""
     if table.device.type == "cpu":
         return block_cosine_prior_plain(table, grids, scales, n_groups, ut)
     if not table.is_cuda:
         raise ValueError(f"block_cosine_prior: unsupported device {table.device}")
+    if table.dtype == torch.float32 and scales is None:
+        if torch.is_grad_enabled() and table.requires_grad:
+            return BlockCosinePriorFn.apply(table, grids, n_groups, ut)
+        return _forward_f32(table, grids, n_groups, ut)[0]
     if table.dtype != torch.int8:
         raise ValueError(f"block_cosine_prior: table dtype {table.dtype}, the kernel "
-                         "takes int8 tables")
+                         "takes int8 tables with scales or f32 tables without")
+    _check_common(table, grids, n_groups, ut)
+    if (scales is None or scales.dtype != torch.float32
+            or tuple(scales.shape) != (table.shape[0], table.shape[-1])
+            or scales.device != table.device):
+        raise ValueError(f"block_cosine_prior: the kernel takes f32 scales "
+                         f"[{table.shape[0]},{table.shape[-1]}]")
+    if not scales.is_contiguous():
+        raise ValueError("block_cosine_prior: scales must be contiguous")
+    V, H, W, Cc = table.shape
+    R, S = grids.shape[1:3]
+    gp = pad_rays(grids)
+    NB = gp.shape[1] // BLOCK_RAYS
+    unions = block_unions(gp, H, W, ut)
+    out = torch.empty(R, S, n_groups, dtype=torch.float32, device=table.device)
+    if R == 0:
+        return out
+    kernels.launch(COUNTER, "block_cosine_prior_i8", table.data_ptr(), gp.data_ptr(),
+                   scales.data_ptr(), unions.data_ptr(), out.data_ptr(), V, H, W,
+                   Cc // (V - 1), n_groups, R, S, NB, ut)
+    return out
+
+
+def _check_common(table, grids, n_groups: int, ut: int):
     if table.dim() != 4 or table.shape[0] != 3 or table.shape[-1] != 256:
         raise ValueError(f"block_cosine_prior: table {tuple(table.shape)}, kernel takes "
                          "[3,h,w,256]")
@@ -201,19 +262,52 @@ def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
             or grids.shape[-1] != 2 or grids.device != table.device):
         raise ValueError(f"block_cosine_prior: grids {tuple(grids.shape)} {grids.dtype}, "
                          f"kernel takes f32 [{V},R,S,2] on {table.device}")
-    if (scales is None or scales.dtype != torch.float32
-            or tuple(scales.shape) != (V, Cc) or scales.device != table.device):
-        raise ValueError(f"block_cosine_prior: the kernel takes f32 scales [{V},{Cc}]")
-    if not (table.is_contiguous() and scales.is_contiguous()):
-        raise ValueError("block_cosine_prior: table and scales must be contiguous")
+    if not table.is_contiguous():
+        raise ValueError("block_cosine_prior: table must be contiguous")
+
+
+def _forward_f32(table, grids, n_groups: int, ut: int):
+    """D' forward -> (out [R,S,G], padded grids, unions)."""
+    _check_common(table, grids, n_groups, ut)
+    V, H, W, Cc = table.shape
     R, S = grids.shape[1:3]
+    if not takes_f32(ut, S, n_groups):
+        raise ValueError(f"block_cosine_prior: f32 tables at ut={ut}, S={S}, "
+                         f"G={n_groups} exceed the block's shared memory")
     gp = pad_rays(grids)
     NB = gp.shape[1] // BLOCK_RAYS
     unions = block_unions(gp, H, W, ut)
     out = torch.empty(R, S, n_groups, dtype=torch.float32, device=table.device)
-    if R == 0:
+    if R > 0:
+        kernels.launch(F32_COUNTER, "block_cosine_prior_f32", table.data_ptr(),
+                       gp.data_ptr(), unions.data_ptr(), out.data_ptr(), V, H, W,
+                       Cc // (V - 1), n_groups, R, S, NB, ut,
+                       f32_channels_per_pass(ut, S, n_groups, backward=False))
+    return out, gp, unions
+
+
+class BlockCosinePriorFn(torch.autograd.Function):
+    """D' forward and backward on a CUDA f32 table; saves the table, the
+    padded grids and the unions the forward built."""
+
+    @staticmethod
+    def forward(ctx, table, grids, n_groups: int, ut: int):
+        out, gp, unions = _forward_f32(table, grids, n_groups, ut)
+        ctx.save_for_backward(table, gp, unions)
+        ctx.shape = (grids.shape[1], grids.shape[2], n_groups, ut)
         return out
-    kernels.launch(COUNTER, "block_cosine_prior_i8", table.data_ptr(), gp.data_ptr(),
-                   scales.data_ptr(), unions.data_ptr(), out.data_ptr(), V, H, W,
-                   Cc // (V - 1), n_groups, R, S, NB, ut)
-    return out
+
+    @staticmethod
+    def backward(ctx, g):
+        table, gp, unions = ctx.saved_tensors
+        R, S, G, ut = ctx.shape
+        V, H, W, Cc = table.shape
+        g = g.contiguous()
+        d_table = torch.zeros_like(table)
+        if R > 0:
+            kernels.launch(BWD_COUNTER, "block_cosine_prior_bwd_f32", table.data_ptr(),
+                           gp.data_ptr(), unions.data_ptr(), g.data_ptr(),
+                           d_table.data_ptr(), V, H, W, Cc // (V - 1), G, R, S,
+                           gp.shape[1] // BLOCK_RAYS, ut,
+                           f32_channels_per_pass(ut, S, G, backward=True))
+        return d_table, None, None, None

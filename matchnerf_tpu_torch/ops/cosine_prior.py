@@ -1,10 +1,15 @@
-"""Kernel B: the grouped-cosine matching prior of one feature scale.
+"""Kernels B and B': the grouped-cosine matching prior of one feature scale.
 
 Replaces matchnerf_tpu/ops/pallas_banded.py::banded_cosine_scale (the
-per-ray banded Pallas kernel of the eval path). The CUDA source is
-csrc/cosine_prior.cu; `cosine_prior_plain` is the same function in plain
-PyTorch (the JAX direct path: `grid_sample` on each view, then
-`_grouped_cosine`, matchnerf.py:389-402).
+per-ray banded Pallas kernel of the eval path) and
+::banded_cosine_scale_trainable (its custom VJP on f32 training tables).
+The CUDA source is csrc/cosine_prior.cu; `cosine_prior_plain` is the same
+function in plain PyTorch (the JAX direct path: `grid_sample` on each view,
+then `_grouped_cosine`, matchnerf.py:389-402), and its autograd is the
+plain backward. On a CUDA f32 table that requires grad, `cosine_prior`
+goes through `CosinePriorFn`: Kernel B forward, then the B' backward
+kernel, which scatters the table gradient with atomics; the sample grids
+get no gradient (the JAX VJP returns zeros for them).
 
 For every sample and every view it bilinearly samples the view's unpacked
 table [V,h,w,(V-1)*C] (align_corners, border clamp), multiplies by the
@@ -22,9 +27,11 @@ import torch
 from .. import kernels
 from .grid_sample import grid_sample_2d
 
+SOURCE = "matchnerf_tpu_torch/csrc/cosine_prior.cu"
 COUNTER = kernels.LaunchCounter(
-    "cosine_prior", source="matchnerf_tpu_torch/csrc/cosine_prior.cu",
-    replaces="matchnerf_tpu/ops/pallas_banded.py:267")
+    "cosine_prior", source=SOURCE, replaces="matchnerf_tpu/ops/pallas_banded.py:267")
+BWD_COUNTER = kernels.LaunchCounter(
+    "cosine_prior_bwd", source=SOURCE, replaces="matchnerf_tpu/ops/pallas_banded.py:484")
 
 
 def pair_index_lists(n_views: int):
@@ -73,12 +80,22 @@ def cosine_prior_plain(table, grids, scales, n_groups: int):
 
 
 def cosine_prior(table, grids, scales, n_groups: int):
-    """The kernel on CUDA tensors (V=3, C=128, int8 or f32 tables), the plain
+    """The kernel on CUDA tensors (V=3, C=128, int8 or f32 tables; with the
+    B' backward when autograd records through an f32 table), the plain
     version on CPU tensors."""
     if table.device.type == "cpu":
         return cosine_prior_plain(table, grids, scales, n_groups)
     if not table.is_cuda:
         raise ValueError(f"cosine_prior: unsupported device {table.device}")
+    if torch.is_grad_enabled() and table.requires_grad:
+        if scales is not None or table.dtype != torch.float32:
+            raise ValueError("cosine_prior: the backward takes f32 tables without "
+                             "dequantisation scales")
+        return CosinePriorFn.apply(table, grids, n_groups)
+    return _forward(table, grids, scales, n_groups)
+
+
+def _forward(table, grids, scales, n_groups: int):
     if table.dtype not in (torch.int8, torch.float32):
         raise ValueError(f"cosine_prior: table dtype {table.dtype} (int8 or f32)")
     if table.dim() != 4 or table.shape[0] != 3 or table.shape[-1] != 256:
@@ -107,3 +124,26 @@ def cosine_prior(table, grids, scales, n_groups: int):
                    scales.data_ptr(), out.data_ptr(), V, H, W, C, n_groups,
                    R * S)
     return out
+
+
+class CosinePriorFn(torch.autograd.Function):
+    """Kernel B forward and the B' backward on a CUDA f32 table; saves the
+    table and the grids."""
+
+    @staticmethod
+    def forward(ctx, table, grids, n_groups: int):
+        ctx.save_for_backward(table, grids)
+        ctx.n_groups = n_groups
+        return _forward(table, grids, None, n_groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, grids = ctx.saved_tensors
+        V, H, W, Cc = table.shape
+        R, S = grids.shape[1:3]
+        g = g.contiguous()
+        d_table = torch.zeros_like(table)
+        kernels.launch(BWD_COUNTER, "cosine_prior_bwd_f32", table.data_ptr(),
+                       grids.data_ptr(), g.data_ptr(), d_table.data_ptr(), V, H, W,
+                       Cc // (V - 1), ctx.n_groups, R * S)
+        return d_table, None, None

@@ -9,6 +9,13 @@ attention 2e-2 (the plain version rounds P to bf16 before P.V). The
 block-union cosine prior (D) and the supercell colour sample (E) run at
 small shapes, at the largest union each takes (512 and 320 rows: the most
 dynamic shared memory), and with a ragged R and samples on the border.
+
+The training kernels against autograd through the plain versions: A'
+(window attention backward; f32 1e-4 and bf16 3e-2 of the largest
+gradient, the plain backward rounding dA and A to bf16 where the kernel
+keeps f32), B' (cosine-prior table gradient, atomics in any order: 1e-5 of
+the largest gradient) and D' (f32 block forward 1e-5, and its table
+gradient 1e-5 of the largest, also against B', the same function).
 """
 import pytest
 import torch
@@ -165,3 +172,103 @@ def test_supercell_color_kernel(dev, case):
     assert ke.COUNTER.launches == before + 1
     ref = ke.supercell_color_sample_plain(table, grids, img_h, img_w, ut)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+def _grad_close(got, ref, rel):
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=rel * float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("shift", [False, True])
+def test_window_attention_backward_kernel(dev, dtype, tol, shift):
+    g = torch.Generator(device=dev).manual_seed(6)
+    # L = 160: two full 64-row tiles and a ragged one
+    q, k, v, do = (torch.randn(8, 160, 128, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    rid = shift_region_ids(16, 40, 2, device=dev) if shift else None
+    grads = []
+    for fn in (ka.window_attention, ka.window_attention_plain):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        before = (ka.COUNTER.launches, ka.BWD_COUNTER.launches)
+        out = fn(qq, kk, vv, rid)
+        out.backward(do)
+        torch.cuda.synchronize()
+        if fn is ka.window_attention:
+            assert (ka.COUNTER.launches, ka.BWD_COUNTER.launches) == \
+                (before[0] + 1, before[1] + 1)
+        grads.append((out.detach(), qq.grad, kk.grad, vv.grad))
+    for a, b in zip(*grads):
+        assert a.dtype == dtype
+        _grad_close(a, b, tol)
+
+
+def _f32_table(g, dev, h, w):
+    return torch.randn(3, h, w, 256, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("G", [2, 8])
+def test_cosine_prior_backward_kernel(dev, G):
+    g = torch.Generator(device=dev).manual_seed(7)
+    table = _f32_table(g, dev, 20, 24)
+    grids = _block_grids(g, dev, 3, 37, 48, 0.4)
+    grids[:, :3, :4] = torch.clamp(grids[:, :3, :4] * 3.0, -1.0, 1.0)
+    gcot = torch.randn(37, 48, G, generator=g, device=dev)
+    grads = []
+    for fn in (kb.cosine_prior, kb.cosine_prior_plain):
+        t = table.clone().requires_grad_()
+        before = kb.BWD_COUNTER.launches
+        fn(t, grids, None, G).backward(gcot)
+        torch.cuda.synchronize()
+        if fn is kb.cosine_prior:
+            assert kb.BWD_COUNTER.launches == before + 1
+        grads.append(t.grad)
+    _grad_close(grads[0], grads[1], 1e-5)
+
+
+@pytest.mark.parametrize("G,case", [(2, "small"), (8, "small"), (2, "ragged_border"),
+                                    (8, "ut_320")])
+def test_block_cosine_prior_f32_kernels(dev, G, case):
+    g = torch.Generator(device=dev).manual_seed(8)
+    if case == "ut_320":
+        # wide segments in a 64 x 80 table at S = 128: the widest union D'
+        # stages at G = 8 (bucket 256 or 320, 32-channel backward passes)
+        table = _f32_table(g, dev, 64, 80)
+        for spread in (1.2, 1.0, 0.8, 0.6, 0.5, 0.4):
+            grids = _block_grids(g, dev, 3, 24, 128, spread)
+            if kd.block_union_size_raw(kd.pad_rays(grids), 64, 80) <= 320:
+                break
+    elif case == "small":
+        table = _f32_table(g, dev, 20, 24)
+        grids = _block_grids(g, dev, 3, 40, 48, 0.3)
+    else:
+        table = _f32_table(g, dev, 16, 16)
+        grids = _block_grids(g, dev, 3, 13, 32, 0.5)
+        grids[:, :, :4] = torch.clamp(grids[:, :, :4] * 3.0, -1.0, 1.0)
+        grids[:, -1, -2:] = 1.0
+    h, w = table.shape[1:3]
+    R, S = grids.shape[1:3]
+    ut = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), h, w))
+    assert kd.takes_f32(ut, S, G), (ut, S, G)
+    if case == "ut_320":
+        assert ut >= 192, ut
+    gcot = torch.randn(R, S, G, generator=g, device=dev)
+    outs, grads = [], []
+    for fn in (kd.block_cosine_prior, kd.block_cosine_prior_plain,
+               lambda t, gr, sc, G_, ut_: kb.cosine_prior(t, gr, sc, G_)):
+        t = table.clone().requires_grad_()
+        before = (kd.F32_COUNTER.launches, kd.BWD_COUNTER.launches)
+        out = fn(t, grids, None, G, ut)
+        out.backward(gcot)
+        torch.cuda.synchronize()
+        if fn is kd.block_cosine_prior:
+            assert (kd.F32_COUNTER.launches, kd.BWD_COUNTER.launches) == \
+                (before[0] + 1, before[1] + 1)
+        outs.append(out.detach())
+        grads.append(t.grad)
+    with torch.no_grad():           # the forward alone, as the eval path calls it
+        torch.testing.assert_close(kd.block_cosine_prior(table, grids, None, G, ut), outs[1],
+                                   atol=1e-5, rtol=0)
+    for i in (1, 2):                # vs the plain twin, and vs Kernels B and B'
+        torch.testing.assert_close(outs[0], outs[i], atol=1e-5, rtol=0)
+        _grad_close(grads[0], grads[i], 1e-5)

@@ -32,8 +32,9 @@ import __graft_entry__ as ge
 from matchnerf_tpu.models.matchnerf import init_matchnerf as jax_init
 from matchnerf_tpu.renderer import Renderer as JaxRenderer
 from matchnerf_tpu.utils import DotDict
-from matchnerf_tpu_torch.config import (SLICE_KEYS, dtu_eval_config,
-                                       dtu_eval_per_ray_config)
+from matchnerf_tpu_torch.config import (SLICE_KEYS, TRAIN_SLICE_KEYS, dtu_eval_config,
+                                       dtu_eval_per_ray_config, dtu_train_config,
+                                       dtu_train_fast_config)
 from matchnerf_tpu_torch.models.matchnerf import MatchNeRF
 from matchnerf_tpu_torch.renderer import Renderer
 from matchnerf_tpu_torch.weights import state_dict_from_jax
@@ -183,9 +184,21 @@ def test_batched_block_path_splits_per_pose():
                                        atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("variant", ["shipped", "per_ray"])
+@pytest.mark.parametrize("variant", ["shipped", "per_ray", "train", "train_fast"])
 def test_chip_smoke_config_matches_yaml(variant):
     from matchnerf_tpu.config import load_options
+    if variant.startswith("train"):
+        # every key the training step reads; absent on both sides reads as
+        # the default
+        opt = load_options(os.path.join(REPO, "configs", f"{variant}.yaml"))
+        mine = dtu_train_config() if variant == "train" else dtu_train_fast_config()
+        for key in TRAIN_SLICE_KEYS:
+            a, b = opt, mine
+            for part in key.split("."):
+                a, b = a.get(part), b.get(part)
+            assert a == b, f"{key}: yaml {a!r} vs dict {b!r}"
+        assert bool(mine.nerf.get("train_ray_patches")) == (variant == "train_fast")
+        return
     opt = load_options(os.path.join(REPO, "configs", "test.yaml"))
     if variant == "per_ray":
         opt.precision.block_kernel = False
@@ -201,9 +214,9 @@ def test_chip_smoke_config_matches_yaml(variant):
 
 
 def test_port_imports_without_jax_yaml_pil():
-    """Every module of the port imports with jax, yaml, PIL and the JAX
-    package blocked, and chip_smoke.py names no file or module of the JAX
-    package."""
+    """Every module of the port (the training step and engine included)
+    imports with jax, yaml, PIL and the JAX package blocked, and
+    chip_smoke.py names no file or module of the JAX package."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'yaml', 'PIL', 'matchnerf_tpu'):\n"
@@ -212,7 +225,8 @@ def test_port_imports_without_jax_yaml_pil():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert 'matchnerf_tpu_torch.renderer' in names\n"
+        "for m in ('renderer', 'train_step', 'engine'):\n"
+        "    assert 'matchnerf_tpu_torch.' + m in names, m\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'yaml', 'PIL', 'matchnerf_tpu')\n"
         "       and sys.modules[m] is not None]\n"
