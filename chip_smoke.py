@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (matchnerf_tpu_torch): the DTU eval
-render of configs/test.yaml and the training step of configs/train.yaml and
+render of configs/test.yaml, its fused-cosine route, the video entry of
+configs/demo_own.yaml and the training step of configs/train.yaml and
 configs/train_fast.yaml on one NVIDIA card, through the hand-written CUDA
 kernels.
 
@@ -24,7 +25,11 @@ Phases, any failure ends the run with a non-zero exit:
    slice built from the encoder's real tables and the pose's real unions,
    the per-ray cosine prior (B), the block-union cosine prior (D, also held
    against B) and the supercell colour sample (E) with their union sizes
-   and buckets, and the decoder (C).
+   and buckets, and the decoder (C); on the first 8192 rays (one chunk of
+   the fused route), the fused interp + grouped cosine (F) on the tap rows
+   of the int8 tables at both scales (also held against B) and of bf16 and
+   f32 tables built from the same features, with the row gather timed
+   apart.
 4. block path, configs/test.yaml as shipped: `Renderer.forward(batch,
    mode="test")` renders the full 640x512 target at S=128. The pose must
    take Kernel D at both scales and Kernel E for the colours; A, C, D and E
@@ -33,7 +38,17 @@ Phases, any failure ends the run with a non-zero exit:
    plain version must agree at >= 50 dB PSNR.
 5. per-ray path, block_kernel off: the same view through A, B and C, which
    must each launch; it must agree with the block path at >= 60 dB.
-6. training kernels at training shapes, each against autograd through its
+6. fused path, configs/test.yaml with precision.fused_cosine: the same
+   view with every feature scale through F (2 launches per slice), B and D
+   never launched; it must agree with the block path at >= 60 dB.
+7. video, configs/demo_own.yaml with precision.fused_cosine (the IBR
+   decoder variant, S=128) at 256x160 on 3 source cameras of the synthetic
+   scene: `Coach.test_model_video` renders the 24 frames of the interpolate
+   path and writes them under build/chip_smoke/. A, C and F must launch (E
+   on the frames whose colour union fits its bucket), B and D not, no plain
+   version on CUDA; frames finite with rgb in [0,1]; frame 0 must agree
+   with the all-plain frame at >= 50 dB. Prints frames/s and rays/s.
+8. training kernels at training shapes, each against autograd through its
    plain version, on the scene's real training rays (1024 random pixels,
    or 128 8-pixel strips for D'), stratified depths and the f32 tables of
    the bf16 training encoder: A' (window attention forward with logsumexp
@@ -43,16 +58,16 @@ Phases, any failure ends the run with a non-zero exit:
    D' f32 forward and backward per scale (also held against B and B', the
    same function; the largest training union is printed against its
    bucket).
-7. configs/train.yaml step (`Coach.train_iteration`) on the 640x512 scene
+9. configs/train.yaml step (`Coach.train_iteration`) on the 640x512 scene
    at full width, 1024 rays, S=128: a first step from one set of weights,
    rays and jitter through the kernels and all-plain (loss and per-tensor
    gradient error), with the recipe's bf16 policy and with the f32 policy;
    then 7 steps: finite losses, moving parameters, 12 A' forward, 12 A'
    backward, 2 B forward and 2 B' backward launches in each step and no
    plain version on CUDA tensors; ms per warm step and peak memory.
-8. configs/train_fast.yaml step: the same, with the pose's route through D'
-   at both scales (2 D' forward and 2 D' backward launches per step).
-Every launch count is reset just before a path (a step, in 7 and 8) and
+10. configs/train_fast.yaml step: the same, with the pose's route through
+   D' at both scales (2 D' forward and 2 D' backward launches per step).
+Every launch count is reset just before a path (a step, in 9 and 10) and
 read just after it. With --profile, one more warm render of each eval path
 and one warm step of each training recipe run under torch.profiler and
 print the device time by kernel, the device busy time and the wall time.
@@ -76,6 +91,7 @@ DTU_NEAR_FAR = (2.125, 4.525)
 SLICE_RAYS = 20480
 TRAIN_RAYS = 1024
 TRAIN_STEPS = 7                    # steps per recipe; the first is warm-up
+VIDEO_FRAMES = 24                  # configs/demo_own.yaml nerf.video_n_frames
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, f32 without tensor cores
@@ -476,6 +492,168 @@ def train_path(torch, dev, cfg, batch, seed, label, counters, must, profile):
     return out
 
 
+def fused_kernel_phase(torch, cfg, feats, ref_images, tables, grids, res):
+    """Phase 3, Kernel F: on the first FUSED_CHUNK_RAYS rays of `grids` (one
+    chunk of the fused route), the tap rows of the int8 tables (also held
+    against Kernel B) and of bf16 and f32 tables from the same features."""
+    from matchnerf_tpu_torch.models.matchnerf import (FUSED_CHUNK_RAYS, gather_tap_rows,
+                                                      prepare_sampling_tables)
+    from matchnerf_tpu_torch.ops import cosine_prior as kb
+    from matchnerf_tpu_torch.ops import fused_cosine as kf
+    R = FUSED_CHUNK_RAYS
+    g = grids[:, :R].contiguous()
+    S = g.shape[2]
+    N = R * S
+    by_dtype = [("int8", tables)]
+    for dt in (torch.bfloat16, None):
+        by_dtype.append((str(dt or torch.float32).replace("torch.", ""),
+                         prepare_sampling_tables(cfg, feats, ref_images, feat_dtype=dt)))
+    res["F"] = {}
+    for name, tabs in by_dtype:
+        res["F"][name] = []
+        for s, G in enumerate(cfg.encoder.cos_n_group):
+            table = tabs["view_feats"][s][0]
+            scales = tabs["view_feat_scales"][s]
+            scales = None if scales is None else scales[0]
+            rows, wts = gather_tap_rows(table, g)
+            fn = lambda: kf.fused_interp_grouped_cosine(rows, wts, G, scales)
+            plain = lambda: kf.fused_interp_grouped_cosine_plain(rows, wts, G, scales)
+            got = fn()
+            err = max_abs(got, plain())
+            torch.cuda.synchronize()
+            # per (view, channel) 9 flops to lerp 4 taps (+1 to dequantise);
+            # per (pair, chunk channel) 6 for the dot product and two norms
+            flops = N * (3 * 256 * (9 + (scales is not None)) + 3 * 128 * 6)
+            b_ms, b_by = bound(nbytes(rows, wts, got, *([scales] if scales is not None
+                                                          else [])), flops)
+            entry = dict(scale=s, max_abs_err=err, ms=cuda_ms(torch, fn, 10),
+                         plain_ms=cuda_ms(torch, plain, 3), bound_ms=b_ms, bound_by=b_by,
+                         gather_ms=cuda_ms(torch, lambda: gather_tap_rows(table, g), 5),
+                         rows_gb=nbytes(rows) / 1e9)
+            extra = ""
+            if name == "int8":
+                entry["max_abs_err_vs_kernel_b"] = max_abs(
+                    got, kb.cosine_prior(table, g, scales, G).reshape(N, G))
+                extra = f", max|d| vs kernel B {entry['max_abs_err_vs_kernel_b']:.3e} (tol 1e-5)"
+            log(f"kernel F fused_cosine scale {s} {name} rows [3,{N},{rows.shape[2]}] "
+                f"({entry['rows_gb']:.2f} GB) G={G} R={R} S={S}: max|d| {err:.3e} (tol 1e-5)"
+                f"{extra}, {entry['ms']:.3f} ms vs plain {entry['plain_ms']:.3f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}); the torch row gather {entry['gather_ms']:.3f} ms")
+            check_close(f"F {name} scale {s}", err, 1e-5)
+            if name == "int8":
+                check_close(f"F vs B scale {s}", entry["max_abs_err_vs_kernel_b"], 1e-5)
+            res["F"][name].append(entry)
+            del rows, wts, got
+        del tabs
+    torch.cuda.empty_cache()
+
+
+def make_video_sample(seed, img_w, img_h):
+    """The synthetic scene as a COLMAP-style sample: 3 source cameras and a
+    target, near/far by the demo's nf_mode minmax."""
+    from matchnerf_tpu_torch.data import synth
+    from matchnerf_tpu_torch.data.common import make_near_fars
+    rng = np.random.default_rng(seed + 5)
+    eyes = [np.asarray(e) + rng.uniform(-0.02, 0.02, 3) for e in synth.DEFAULT_EYES]
+    views = synth.make_scene_views(img_w, img_h, eyes=eyes)
+    return {"images": views["images"], "extrinsics": views["w2cs"],
+            "intrinsics": views["intrinsics"],
+            "near_fars": make_near_fars(list(views["near_fars"]), 4, "minmax"),
+            "view_ids": np.arange(4), "scene": "synth",
+            "img_wh": np.array([img_w, img_h]), "c2ws_all": views["c2ws"][:3]}
+
+
+def plain_frame0(cfg, model, dev, sample):
+    """Frame 0 of the sample's interpolate path, every kernel replaced by
+    its plain version: dict of [1, H*W, *]."""
+    from matchnerf_tpu_torch.data.loader import collate
+    from matchnerf_tpu_torch.renderer import Renderer, extract_poses
+    plain = Renderer(cfg, model, dev, kernel=False)
+    batch = collate([sample])
+    poses = extract_poses(batch)
+    frame0 = plain.get_video_rendering_path(poses, "interpolate", VIDEO_FRAMES, batch)[0]
+    ref_images = plain.tensor(batch["images"][:, :3])
+    tables = plain.build_tables(ref_images, plain.encode(ref_images))
+    vw, vh = (int(x) for x in sample["img_wh"])
+    return plain.render_by_slices({"tgt": frame0, "ref": poses["ref"]}, tables, vh, vw)
+
+
+def video_phase(torch, dev, seed, counters, profile):
+    """Phase 7: `Coach.test_model_video` of configs/demo_own.yaml with the
+    fused cosine on the synthetic scene; launches counted around it; frame
+    0 against the all-plain frame."""
+    from matchnerf_tpu_torch.config import demo_own_config
+    from matchnerf_tpu_torch.data.loader import DataLoader
+    from matchnerf_tpu_torch.engine import Coach
+    cfg = demo_own_config()
+    cfg.precision.fused_cosine = True
+    cfg.load = None
+    cfg.nerf.video_n_frames = VIDEO_FRAMES
+    cfg.output_root = os.path.join(REPO, "build", "chip_smoke")
+    vw, vh = cfg.data_test.colmap.img_wh
+    sample = make_video_sample(seed, vw, vh)
+
+    class SceneSet:
+        def __len__(self):
+            return 1
+
+        def __getitem__(self, i):
+            return sample
+
+        def get_name(self):
+            return "colmap"
+
+    coach = Coach(cfg, device=dev)
+    coach.test_loaders = [DataLoader(SceneSet())]
+    coach.build_networks()
+    coach.restore_checkpoint_if_needed()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    videos = coach.test_model_video()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    plain_cuda = {k: c.plain_on_cuda for k, c in counters.items()}
+    routes = coach.renderer.frame_routes
+    n_slices = math.ceil(vw * vh / coach.renderer.rays_per_slice(1))
+    n_color = sum(r["color_ut"] is not None for r in routes)
+    frames_s = VIDEO_FRAMES / wall
+    log(f"video path (demo_own.yaml, fused_cosine) Coach.test_model_video {vw}x{vh} "
+        f"S={cfg.nerf.sample_intvs}, {VIDEO_FRAMES} frames, {n_slices} slices per frame: "
+        f"{wall:.4f} s, {frames_s:.3f} frames/s, {frames_s * vw * vh:.0f} rays/s "
+        f"(encode, tables, every frame's pose_prep and render, writing); colour union "
+        f"in its bucket on {n_color} of {VIDEO_FRAMES} frames; routes of frames 0 and "
+        f"{VIDEO_FRAMES - 1}: {routes[0]}, {routes[-1]}")
+    log(f"video path: launches {launches}, plain versions on CUDA {plain_cuda}")
+    frames = n_slices * VIDEO_FRAMES
+    want = dict({k: 0 for k in counters}, window_attention=12, cond_nerf_decode=frames,
+                fused_cosine=2 * frames, supercell_color=n_slices * n_color)
+    if launches != want:
+        raise AssertionError(f"video path launches {launches}, expected {want}")
+    if any(plain_cuda.values()):
+        raise AssertionError(f"plain versions ran on CUDA tensors: {plain_cuda}")
+    video = videos[0]
+    if video.shape != (VIDEO_FRAMES, vh, vw, 3) or not np.isfinite(video).all():
+        raise AssertionError(f"video frames {video.shape}, finite {np.isfinite(video).all()}")
+    if not (video.min() >= -1e-6 and video.max() <= 1.0 + 1e-6):
+        raise AssertionError(f"video rgb outside [0,1]: {video.min()} {video.max()}")
+    agreement = psnr(torch.as_tensor(video[0]).reshape(1, -1, 3),
+                     plain_frame0(cfg, coach.model, dev, sample)["rgb"].cpu())
+    log(f"video path: frame 0 kernels vs all-plain PSNR {agreement:.2f} dB (need >= 50), "
+        f"rgb mean {float(video.mean()):.4f}; outputs in {coach.output_path}")
+    if not agreement >= 50.0:
+        raise AssertionError(f"video frame 0 agreement PSNR {agreement:.2f} dB < 50")
+    out = {"seconds": wall, "frames_per_s": frames_s, "rays_per_s": frames_s * vw * vh,
+           "frames": VIDEO_FRAMES, "img_wh": [vw, vh], "slices_per_frame": n_slices,
+           "color_ut_frames": n_color, "frame0_psnr_vs_plain_db": agreement,
+           "launches": launches}
+    if profile:
+        out["profile"] = profile_call(torch, "video", coach.test_model_video)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -499,6 +677,7 @@ def main():
     from matchnerf_tpu_torch.ops import block_cosine_prior as kd
     from matchnerf_tpu_torch.ops import cosine_prior as kb
     from matchnerf_tpu_torch.ops import decoder as kc
+    from matchnerf_tpu_torch.ops import fused_cosine as kf
     from matchnerf_tpu_torch.ops import supercell_color as ke
     from matchnerf_tpu_torch.ops import window_attention as ka
     from matchnerf_tpu_torch.ops.attention import shift_region_ids
@@ -705,12 +884,15 @@ def main():
             check_close(f"cond_nerf_decode {name}", err, tol)
         res["C"] = dict(max_abs_err=max(c_errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, max_abs_err_rgb_depth_opacity=c_errs)
-        del feats, tables, got, ref, cond, grids, pts
+        del got, ref, cond, pts
+        fused_kernel_phase(torch, cfg, feats, ref_images, tables, grids, res)
+        del feats, tables, grids
 
-    # ---- 4. the block path (configs/test.yaml as shipped), then 5. per-ray
+    # ---- 4. the block path (configs/test.yaml as shipped), 5. per-ray, 6. fused
     counters = {"window_attention": ka.COUNTER, "cosine_prior": kb.COUNTER,
                 "cond_nerf_decode": kc.COUNTER, "block_cosine_prior": kd.COUNTER,
-                "supercell_color": ke.COUNTER, "window_attention_bwd": ka.BWD_COUNTER,
+                "supercell_color": ke.COUNTER, "fused_cosine": kf.COUNTER,
+                "window_attention_bwd": ka.BWD_COUNTER,
                 "cosine_prior_bwd": kb.BWD_COUNTER,
                 "block_cosine_prior_f32": kd.F32_COUNTER,
                 "block_cosine_prior_bwd": kd.BWD_COUNTER}
@@ -777,9 +959,31 @@ def main():
     if not vs_ray >= 60.0:
         raise AssertionError(f"block vs per-ray PSNR {vs_ray:.2f} dB < 60")
 
-    # ---- 6. training kernels at training shapes, then 7. and 8. the steps
+    fused_cfg = dtu_eval_config()
+    fused_cfg.precision.fused_cosine = True
+    fused_renderer = Renderer(fused_cfg, model, dev)
+    fused_out, fused_t, fused_launches = drive(
+        "fused", fused_renderer, ["window_attention", "cond_nerf_decode", "fused_cosine"])
+    n_slices = math.ceil(n_rays / fused_renderer.rays_per_slice(1))
+    if (fused_launches["fused_cosine"] != 2 * n_slices or fused_launches["cosine_prior"]
+            or fused_launches["block_cosine_prior"]):
+        raise AssertionError(f"fused path: F {fused_launches['fused_cosine']} launches "
+                             f"(expected {2 * n_slices}), B {fused_launches['cosine_prior']} "
+                             f"and D {fused_launches['block_cosine_prior']} (expected 0)")
+    vs_fused = psnr(out["rgb"], fused_out["rgb"])
+    log(f"fused path vs block path: PSNR {vs_fused:.2f} dB (need >= 60); render rays/s: "
+        f"fused {n_rays / fused_t['render']:.0f}, block {n_rays / timings['render']:.0f}, "
+        f"per-ray {n_rays / ray_t['render']:.0f}")
+    if not vs_fused >= 60.0:
+        raise AssertionError(f"fused vs block PSNR {vs_fused:.2f} dB < 60")
+    del out, ray_out, fused_out
+    torch.cuda.empty_cache()
+
+    # ---- 7. the video entry (configs/demo_own.yaml, fused cosine)
+    video = video_phase(torch, dev, args.seed, counters, args.profile)
+
+    # ---- 8. training kernels at training shapes, then 9. and 10. the steps
     from matchnerf_tpu_torch.config import dtu_train_config, dtu_train_fast_config
-    del out, ray_out
     torch.cuda.empty_cache()
     train_kernel_phase(torch, F, dev, batch, args.seed, block_ut, res)
     none = {k: 0 for k in counters}
@@ -823,7 +1027,9 @@ def main():
         return e
 
     def eval_paths(name):
-        return {"block": block_launches[name], "per_ray": ray_launches[name]}
+        return {"block": block_launches[name], "per_ray": ray_launches[name],
+                "fused": fused_launches[name],
+                f"video_{VIDEO_FRAMES}_frames": video["launches"][name]}
 
     def train_paths(name):
         return {f"{k}_{TRAIN_STEPS}_steps": v["launches_total"][name] for k, v in train.items()}
@@ -857,6 +1063,13 @@ def main():
               train_paths("block_cosine_prior_bwd")),
         entry("supercell_color", res["E"], block_launches["supercell_color"],
               eval_paths("supercell_color")),
+        entry("fused_cosine", res["F"]["int8"], video["launches"]["fused_cosine"],
+              eval_paths("fused_cosine"),
+              {"bfloat16": per_scale(res["F"]["bfloat16"]),
+               "float32": per_scale(res["F"]["float32"]),
+               "gather_ms": sum(e["gather_ms"] for e in res["F"]["int8"]),
+               "max_abs_err_vs_kernel_b": max(e["max_abs_err_vs_kernel_b"]
+                                              for e in res["F"]["int8"])}),
     ], "paths": {
         "block": {"encode_s": timings["encode"], "tables_s": timings["tables"],
                   "render_s": timings["render"],
@@ -867,15 +1080,22 @@ def main():
         "per_ray": {"encode_s": ray_t["encode"], "render_s": ray_t["render"],
                     "rays_per_s_render": n_rays / ray_t["render"],
                     "psnr_vs_block_db": vs_ray},
+        "fused": {"encode_s": fused_t["encode"], "render_s": fused_t["render"],
+                  "rays_per_s_render": n_rays / fused_t["render"],
+                  "pose_prep_s": fused_t["pose_prep"], "psnr_vs_block_db": vs_fused},
+        "video": {k: v for k, v in video.items() if k not in ("profile", "launches")},
         "train": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
                   for k, v in train.items()}}}
     if args.profile:
         report["profile"] = {"train": train["train"]["profile"],
-                             "train_fast": train["train_fast"]["profile"]}
+                             "train_fast": train["train_fast"]["profile"],
+                             "video": video["profile"]}
         report["profile"].update({
             "block": profile_call(torch, "block", lambda: renderer.forward(batch, mode="test")),
             "per_ray": profile_call(torch, "per-ray",
-                                    lambda: per_ray_renderer.forward(batch, mode="test"))})
+                                    lambda: per_ray_renderer.forward(batch, mode="test")),
+            "fused": profile_call(torch, "fused",
+                                  lambda: fused_renderer.forward(batch, mode="test"))})
     log(card_line())
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

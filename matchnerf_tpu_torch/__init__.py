@@ -9,11 +9,16 @@ checkpoint's names, functions on tensors with an explicit device, and
 explicit `torch.Generator`s.
 
 Hand-written CUDA kernels (`csrc/`, built by `kernels.py` on first use)
-replace the Pallas kernels of the evaluation render:
+replace every Pallas kernel of the JAX package:
 
-- `ops/window_attention.py`  <- ops/pallas_attention.py::flash_window_attention
-- `ops/cosine_prior.py`      <- ops/pallas_banded.py::banded_cosine_scale
+- `ops/window_attention.py`  <- ops/pallas_attention.py::flash_window_attention,
+                                ops/pallas_window_attention.py::fused_window_attention
+- `ops/cosine_prior.py`      <- ops/pallas_banded.py::banded_cosine_scale(_trainable)
 - `ops/decoder.py`           <- ops/pallas_decoder.py::cond_nerf_decode
+- `ops/block_cosine_prior.py` <- ops/pallas_block_banded.py::block_banded_cosine_scale,
+                                ::block_banded_cosine_scale_trainable
+- `ops/supercell_color.py`   <- ops/pallas_color.py::supercell_color_sample
+- `ops/fused_cosine.py`      <- ops/pallas_cond.py::fused_interp_grouped_cosine
 
 Each keeps a plain PyTorch version beside it; a CPU tensor takes the plain
 version, a CUDA tensor the kernel. The package never imports jax, yaml or PIL.

@@ -1,9 +1,10 @@
 """Camera / pose / projection math on torch tensors.
 
-Counterpart of matchnerf_tpu/camera.py (the eval render's subset).
-Conventions are the same: a pose is a [..., 3, 4] world-to-camera [R|t];
-`legacy` pixel grids have no +0.5 centre offset, and the legacy target-pose
-inverse is taken host-side in float64 (`pose_inverse_legacy_np`).
+Counterpart of matchnerf_tpu/camera.py (the eval render's subset, and the
+host-side video trajectories in numpy and scipy). Conventions are the same:
+a pose is a [..., 3, 4] world-to-camera [R|t]; `legacy` pixel grids have no
++0.5 centre offset, and the legacy target-pose inverse is taken host-side
+in float64 (`pose_inverse_legacy_np`).
 """
 from __future__ import annotations
 
@@ -82,3 +83,84 @@ def get_coord_ref_ndc(extr_ref, intr_ref, pts_3d, inv_scale, near_far):
     z = (pix[..., 2] - near) / (far - near)
     out = torch.cat([xy, z[..., None]], dim=-1)
     return out.reshape(bs, n_rays, n_samples, 3)
+
+
+# ---------------------------------------------------------------------------
+# host-side render-path generators (camera.py:218-292); numpy and scipy
+# ---------------------------------------------------------------------------
+
+
+def get_interpolate_render_path(c2ws: np.ndarray, n_views: int = 30) -> np.ndarray:
+    """Euler-angle interpolation between source camera poses (camera.py:218).
+    c2ws: [N,3or4,4] camera-to-world. Returns [n,4,4] float64."""
+    from scipy.spatial.transform import Rotation
+
+    N = len(c2ws)
+    rotvec, positions = [], []
+    rotvec_interp, positions_interp = [], []
+    weight = np.linspace(1.0, 0.0, max(1, n_views // 3),
+                         endpoint=False).reshape(-1, 1)
+    for i in range(N):
+        euler = Rotation.from_matrix(c2ws[i, :3, :3]).as_euler("xyz", degrees=True).reshape(1, 3)
+        if i:
+            mask = np.abs(euler - rotvec[0]) > 180
+            euler[mask] += 360.0
+        rotvec.append(euler)
+        positions.append(c2ws[i, :3, 3:].reshape(1, 3))
+        if i:
+            rotvec_interp.append(weight * rotvec[i - 1] + (1.0 - weight) * rotvec[i])
+            positions_interp.append(weight * positions[i - 1] + (1.0 - weight) * positions[i])
+    rotvec_interp.append(weight * rotvec[-1] + (1.0 - weight) * rotvec[0])
+    positions_interp.append(weight * positions[-1] + (1.0 - weight) * positions[0])
+
+    out = []
+    for rv, pos in zip(np.concatenate(rotvec_interp), np.concatenate(positions_interp)):
+        c2w = np.eye(4)
+        c2w[:3, :3] = Rotation.from_euler("xyz", rv, degrees=True).as_matrix()
+        c2w[:3, 3:] = pos.reshape(3, 1)
+        out.append(c2w)
+    return np.stack(out)
+
+
+def _normalize_np(x):
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def viewmatrix(z, up, pos):
+    vec2 = _normalize_np(z)
+    vec0 = _normalize_np(np.cross(up, vec2))
+    vec1 = _normalize_np(np.cross(vec2, vec0))
+    m = np.eye(4)
+    m[:3] = np.stack([vec0, vec1, vec2, pos], 1)
+    return m
+
+
+def poses_avg(poses):
+    center = poses[:, :3, 3].mean(0)
+    vec2 = _normalize_np(poses[:, :3, 2].sum(0))
+    up = poses[:, :3, 1].sum(0)
+    return viewmatrix(vec2, up, center)
+
+
+def render_path_spiral(c2w, up, rads, focal, zrate, n_rots=2, n_frames=120):
+    render_poses = []
+    rads = np.array(list(rads) + [1.0])
+    for theta in np.linspace(0.0, 2.0 * np.pi * n_rots, n_frames + 1)[:-1]:
+        c = np.dot(c2w[:3, :4],
+                   np.array([np.cos(theta), -np.sin(theta), -np.sin(theta * zrate), 1.0]) * rads)
+        z = _normalize_np(c - np.dot(c2w[:3, :4], np.array([0, 0, -focal, 1.0])))
+        render_poses.append(viewmatrix(z, up, c))
+    return render_poses
+
+
+def get_spiral_render_path(c2ws_all, near_far, rads_scale=0.5, n_frames=120):
+    """LLFF spiral path around the average camera (camera.py:283). Returns
+    [n_frames,4,4] float64."""
+    c2w = poses_avg(c2ws_all)
+    up = _normalize_np(c2ws_all[:, :3, 1].sum(0))
+    close_depth, inf_depth = near_far
+    dt = 0.75
+    focal = 1.0 / ((1.0 - dt) / close_depth + dt / inf_depth)
+    tt = c2ws_all[:, :3, 3] - c2w[:3, 3][None]
+    rads = np.percentile(np.abs(tt), 70, 0) * rads_scale
+    return np.stack(render_path_spiral(c2w, up, rads, focal, zrate=0.5, n_frames=n_frames))

@@ -1,4 +1,5 @@
-"""The eval render's and the training step's configurations as Python dicts.
+"""The eval render's, the demo entry's and the training step's
+configurations as Python dicts, and the entry's `--key=value` overrides.
 
 `dtu_eval_config()` is configs/base.yaml overlaid with configs/test.yaml as
 shipped (`precision.block_kernel` and `precision.color_block_kernel` on),
@@ -11,11 +12,20 @@ strips, the block route). They exist so the port runs where PyYAML is not
 installed; a CPU test holds them equal to what `matchnerf_tpu.config` loads
 from the YAML files. `encoder.attention_backend` and
 `encoder.conv_data_format` are TPU backend and layout knobs: carried as
-keys, they change nothing here.
+keys, they change nothing here. `demo_own_config()` is configs/base.yaml +
+configs/test.yaml + configs/demo_own.yaml (the IBR decoder variant on the
+in-repo COLMAP printer scene, video mode), restricted to the keys the
+entry (`matchnerf_tpu_torch/test.py`) reads; `precision.fused_cosine` stays
+as base.yaml sets it (off) and the entry's override turns it on.
 """
 from __future__ import annotations
 
+import logging
+from typing import Dict, List, Optional
+
 from .utils.containers import DotDict
+
+log = logging.getLogger(__name__)
 
 
 def dtu_eval_config() -> DotDict:
@@ -170,3 +180,100 @@ TRAIN_SLICE_KEYS = [
     "optim.sched.div_factor", "optim.sched.final_div_factor",
     "freq.scalar",
 ]
+
+
+def demo_own_config() -> DotDict:
+    cfg = dtu_eval_config()
+    cfg.update({"name": "test_video/demo", "seed": 0,
+                "load": "configs/pretrained_models/matchnerf_3v_ibr.pth",
+                "output_root": "outputs", "vis_depth": False, "separate_save": False})
+    cfg.decoder.update({"raytrans_posenc": True, "density_maskfill": True,
+                        "raytrans_act": "ELU"})
+    cfg.nerf.update({"render_video": True, "save_frames": False, "save_gif": True,
+                     "video_n_frames": 24, "video_rads_scale": 0.3,
+                     "video_pts_rates": 2.0})
+    cfg.precision.fused_cosine = False
+    cfg.data_test = {"colmap": {
+        "root_dir": "docs/demo_data", "dataset_name": "colmap", "img_wh": [256, 160],
+        "num_workers": 4, "max_len": -1, "scene_list": ["printer"],
+        "test_views_method": "fixed", "render_path_mode": "interpolate",
+        "nf_mode": "minmax"}}
+    return cfg
+
+
+# every key the eval and video entry reads, as dotted paths
+DEMO_KEYS = SLICE_KEYS + [
+    "name", "seed", "load", "output_root", "vis_depth", "separate_save",
+    "nerf.render_video", "nerf.save_frames", "nerf.save_gif", "nerf.video_n_frames",
+    "nerf.video_rads_scale", "nerf.video_pts_rates", "precision.fused_cosine",
+    "data_test.colmap",
+]
+
+CONFIGS = {"demo_own": demo_own_config}
+
+
+def _parse_value(text: Optional[str]):
+    """A command-line value as the JAX package's YAML parse reads the common
+    cases: empty -> None, true/false/null, int, float, `a,b,` -> a list
+    (digit items as int), anything else a string."""
+    if text is None or text == "":
+        return None
+    low = text.lower()
+    if low in ("true", "yes", "on"):
+        return True
+    if low in ("false", "no", "off"):
+        return False
+    if low in ("null", "none", "~"):
+        return None
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            pass
+    if "," in text:
+        return [int(x) if x.isdigit() else x for x in text.split(",") if x.strip()]
+    return text
+
+
+def parse_arguments(args: List[str]) -> DotDict:
+    """`--a.b=value`, `--a.b value`, `--flag` (True) and `--flag!` (False)
+    -> a nested dict of overrides (config.py:38)."""
+    out: Dict = {}
+    i = 0
+    while i < len(args):
+        arg = args[i]
+        if not arg.startswith("--"):
+            raise ValueError(f"arguments must start with '--': {arg}")
+        if "=" in arg:
+            key, value = arg[2:].split("=", 1)
+            value = _parse_value(value)
+        elif arg.endswith("!"):
+            key, value = arg[2:-1], False
+        elif i + 1 < len(args) and not args[i + 1].startswith("--"):
+            key, value = arg[2:], _parse_value(args[i + 1])
+            i += 1
+        else:
+            key, value = arg[2:], True
+        sub = out
+        parts = key.split(".")
+        for k in parts[:-1]:
+            sub = sub.setdefault(k, {})
+        if parts[-1] in sub:
+            raise ValueError(f"duplicate command-line key: {key}")
+        sub[parts[-1]] = value
+        i += 1
+    return DotDict(out)
+
+
+def override_options(cfg: DotDict, over, key_stack=()) -> DotDict:
+    """Merge `over` into `cfg` (config.py:87); a key the config does not
+    have is added with a warning."""
+    for key, value in over.items():
+        if isinstance(value, dict) and isinstance(cfg.get(key), dict):
+            override_options(cfg[key], value, (*key_stack, key))
+            continue
+        if key not in cfg:
+            log.warning('"%s" not found in the configuration, adding it',
+                        ".".join((*key_stack, key)))
+        cfg[key] = value
+    return cfg

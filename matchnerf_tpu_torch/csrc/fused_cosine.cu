@@ -1,0 +1,171 @@
+// Kernel F: bilinear interpolation and grouped cosine on gathered tap rows.
+//
+// Replaces matchnerf_tpu/ops/pallas_cond.py::fused_interp_grouped_cosine,
+// the forward-only kernel of `precision.fused_cosine` (eval and video
+// renders). Plain version and wrapper: matchnerf_tpu_torch/ops/fused_cosine.py.
+//
+// Input: rows [V,N,4*2C] (V = 3, C = 128; int8, bf16 or f32), per view and
+// sample the four bilinear taps y0x0, y0x1, y1x0, y1x1 of the view's table
+// row, each 2C channels; weights [V,N,2] f32 (wx, wy); scales [V,2C] f32 or
+// NULL (per-(view, channel) dequantisation, applied after interpolation).
+// Per sample and view: the nested lerp
+//   (t00 (1-wx) + t01 wx) (1-wy) + (t10 (1-wx) + t11 wx) wy
+// in f32 (pallas_cond.py:54-55), times the scale; then for each pair (i, j)
+// in (0,1), (0,2), (1,2) the grouped cosine of view i's chunk j-1 against
+// view j's chunk i (eps 1e-8 on each norm), averaged over the pairs.
+// Output out[n, g], f32.
+//
+// What bounds it: bytes. Each sample reads 3 views x 1024 row elements (3 KB
+// in int8, 6 KB in bf16, 12 KB in f32) once and does ~10 K flops, so at 1 M
+// samples per slice and scale it needs ~1 ms (int8) to ~4 ms (f32) of
+// device-memory time against ~0.15 ms of f32 arithmetic. Design: one
+// streaming pass, nothing staged. Half a warp (16 lanes) owns one sample,
+// each lane 8 channels of both chunks of every view, so each tap's chunk of
+// a row is read as 16 lanes x 8 elements, coalesced, with streaming loads
+// (the rows are read once). Interpolation and dequantisation are f32 in
+// registers; the per-group dot products and norms reduce with shuffles
+// inside the group's lanes. Only [N, G] f32 is written.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int V = 3;
+constexpr int C = 128;          // channels per pair chunk
+constexpr int CC = 2 * C;       // channels per view
+constexpr int ROW = 4 * CC;     // elements per tap row
+constexpr int LANES = C / 8;    // lanes per sample (8 channels each)
+constexpr int THREADS = 256;
+constexpr int SAMPLES_PER_BLOCK = THREADS / LANES;
+
+__device__ __forceinline__ void load8(const int8_t* p, float* f) {
+  const int2 raw = __ldcs(reinterpret_cast<const int2*>(p));
+  const int w[2] = {raw.x, raw.y};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[h * 4 + b] = (float)(int8_t)((w[h] >> (8 * b)) & 0xff);
+}
+
+// bf16 stored as its 16 bits: the f32 with the same upper half
+__device__ __forceinline__ void load8(const uint16_t* p, float* f) {
+  const uint4 raw = __ldcs(reinterpret_cast<const uint4*>(p));
+  const unsigned int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    f[2 * h] = __uint_as_float(w[h] << 16);
+    f[2 * h + 1] = __uint_as_float(w[h] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldcs(reinterpret_cast<const float4*>(p + 4));
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fused_cosine_kernel(const T* __restrict__ rows, const float* __restrict__ weights,
+                    const float* __restrict__ scales, float* __restrict__ out,
+                    int G, int N) {
+  const int lane = threadIdx.x % LANES;
+  const int n_raw = blockIdx.x * SAMPLES_PER_BLOCK + threadIdx.x / LANES;
+  // out-of-range samples still run (clamped) so every shuffle has all lanes
+  const int n = min(n_raw, N - 1);
+  const int o = lane * 8;
+
+  float f[V][2][8];   // [view][chunk][channel] interpolated, dequantised
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const size_t vn = (size_t)v * N + n;
+    const float wx = weights[vn * 2 + 0];
+    const float wy = weights[vn * 2 + 1];
+    const float wx0 = 1.f - wx, wy0 = 1.f - wy;
+    const T* r = rows + vn * ROW;
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+      const int c0 = ch * C + o;
+      float a[8], b[8], c[8], d[8];
+      load8(r + 0 * CC + c0, a);
+      load8(r + 1 * CC + c0, b);
+      load8(r + 2 * CC + c0, c);
+      load8(r + 3 * CC + c0, d);
+      float sc[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+      if (scales != nullptr) {
+        const float4 s0 = *reinterpret_cast<const float4*>(scales + v * CC + c0);
+        const float4 s1 = *reinterpret_cast<const float4*>(scales + v * CC + c0 + 4);
+        sc[0] = s0.x; sc[1] = s0.y; sc[2] = s0.z; sc[3] = s0.w;
+        sc[4] = s1.x; sc[5] = s1.y; sc[6] = s1.z; sc[7] = s1.w;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        f[v][ch][e] = ((a[e] * wx0 + b[e] * wx) * wy0 + (c[e] * wx0 + d[e] * wx) * wy) * sc[e];
+    }
+  }
+
+  const int lanes_per_group = LANES / G;   // G in {1,2,4,8,16}
+  float total = 0.f;
+  // pair (i, j): view i's chunk j-1 against view j's chunk i
+  constexpr int PI[3] = {0, 0, 1}, PJ[3] = {1, 2, 2};
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const float* fa = f[PI[p]][PJ[p] - 1];
+    const float* fb = f[PJ[p]][PI[p]];
+    float dot = 0.f, na2 = 0.f, nb2 = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      dot = fmaf(fa[e], fb[e], dot);
+      na2 = fmaf(fa[e], fa[e], na2);
+      nb2 = fmaf(fb[e], fb[e], nb2);
+    }
+    for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      na2 += __shfl_xor_sync(0xffffffffu, na2, off);
+      nb2 += __shfl_xor_sync(0xffffffffu, nb2, off);
+    }
+    total += dot / (fmaxf(sqrtf(na2), 1e-8f) * fmaxf(sqrtf(nb2), 1e-8f));
+  }
+  if (n_raw < N && lane % lanes_per_group == 0)
+    out[(size_t)n * G + lane / lanes_per_group] = total / 3.f;
+}
+
+template <typename T>
+int launch(const void* rows, const void* weights, const void* scales, void* out,
+           int views, int channels, int G, int N, cudaStream_t stream) {
+  if (views != V || channels != C || N < 0 ||
+      !(G == 1 || G == 2 || G == 4 || G == 8 || G == 16))
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaGetLastError();
+  const int blocks = (N + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK;
+  fused_cosine_kernel<T><<<blocks, THREADS, 0, stream>>>(
+      static_cast<const T*>(rows), static_cast<const float*>(weights),
+      static_cast<const float*>(scales), static_cast<float*>(out), G, N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int fused_cosine_i8(const void* rows, const void* weights, const void* scales,
+                               void* out, int views, int channels, int G, int N,
+                               void* stream) {
+  return launch<int8_t>(rows, weights, scales, out, views, channels, G, N,
+                        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fused_cosine_bf16(const void* rows, const void* weights, const void* scales,
+                                 void* out, int views, int channels, int G, int N,
+                                 void* stream) {
+  return launch<uint16_t>(rows, weights, scales, out, views, channels, G, N,
+                          static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fused_cosine_f32(const void* rows, const void* weights, const void* scales,
+                                void* out, int views, int channels, int G, int N,
+                                void* stream) {
+  return launch<float>(rows, weights, scales, out, views, channels, G, N,
+                       static_cast<cudaStream_t>(stream));
+}

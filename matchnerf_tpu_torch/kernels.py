@@ -62,6 +62,10 @@ SIGNATURES = {
     # stream
     "supercell_color_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P],
+    # rows, weights, scales (or NULL), out, V, C, G, N, stream
+    "fused_cosine_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fused_cosine_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fused_cosine_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

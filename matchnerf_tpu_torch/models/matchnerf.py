@@ -16,7 +16,10 @@ The cond query follows the per-pose route the renderer measured
 set takes Kernel D on int8 tables or D' on f32 tables where it fits
 (ops/block_cosine_prior.py), the others Kernel B; the colours take Kernel
 E (ops/supercell_color.py) when `color_ut` is set and the supercell table
-exists, the gather otherwise.
+exists, the gather otherwise. With `fused_cosine` (precision.fused_cosine,
+eval and video renders, B == 1) every feature scale takes Kernel F
+(ops/fused_cosine.py) on the gathered tap rows instead, before the block
+and per-ray routes, as matchnerf.py:311-334 does.
 """
 from __future__ import annotations
 
@@ -31,7 +34,9 @@ from ..ops.block_cosine_prior import (block_cosine_prior, block_cosine_prior_pla
 from ..ops.cosine_prior import (cosine_prior, cosine_prior_plain,
                                 pair_index_lists)
 from ..ops.decoder import cond_nerf_decode, cond_nerf_decode_plain
-from ..ops.grid_sample import grid_sample_2d, in_frustum_mask
+from ..ops.fused_cosine import (fused_interp_grouped_cosine,
+                                fused_interp_grouped_cosine_plain)
+from ..ops.grid_sample import grid_sample_2d, in_frustum_mask, tap_rows_and_weights
 from ..ops.nn import reset_parameters
 from ..ops.supercell_color import (build_supercell_colors, supercell_color_sample,
                                    supercell_color_sample_plain)
@@ -172,17 +177,47 @@ def project_to_views(pts_3d, ref_w2c, ref_intr, ref_near_far, img_h: int,
                         for v in range(V)], dim=0)
 
 
+FUSED_CHUNK_RAYS = 8192    # rays per row gather of the fused route
+
+
+def gather_tap_rows(table, grids):
+    """Kernel F's inputs: table [V,h,w,Cc]; grids [V,r,S,2] -> the tap rows
+    of every view [V,r*S,4Cc] in the table's dtype, and weights [V,r*S,2]."""
+    V, r, S = grids.shape[:3]
+    Cc = table.shape[-1]
+    rows = torch.empty(V, r * S, 4 * Cc, dtype=table.dtype, device=table.device)
+    weights = torch.stack([tap_rows_and_weights(table[v], grids[v], out=rows[v])[1]
+                           for v in range(V)], dim=0)
+    return rows, weights
+
+
+def fused_cosine_scale(table, grids, scales, n_groups: int, kernel: bool = True):
+    """The fused route of one scale: table [V,h,w,Cc]; grids [V,R,S,2];
+    scales [V,Cc] or None -> [R,S,G] f32. The tap rows are gathered for at
+    most FUSED_CHUNK_RAYS rays at a time (3.2 GB of int8 rows at S = 128),
+    then reduced by Kernel F (or its plain version)."""
+    fn = fused_interp_grouped_cosine if kernel else fused_interp_grouped_cosine_plain
+    S = grids.shape[2]
+    outs = []
+    for r0 in range(0, grids.shape[1], FUSED_CHUNK_RAYS):
+        rows, weights = gather_tap_rows(table, grids[:, r0:r0 + FUSED_CHUNK_RAYS])
+        outs.append(fn(rows, weights, n_groups, scales).reshape(-1, S, n_groups))
+        del rows
+    return torch.cat(outs, dim=0)
+
+
 def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
                     img_h: int, img_w: int, kernel: bool = True,
                     block_ut: Optional[tuple] = None,
-                    color_ut: Optional[int] = None):
+                    color_ut: Optional[int] = None, fused_cosine: bool = False):
     """Decoder conditioning from the source views (matchnerf.py:221).
 
     pts_3d [B,R,S,3] world points; ref_* [B,V,...]. block_ut: per-scale
     block-union buckets (None, or None at a scale, for Kernel B); color_ut:
     the supercell-union bucket (None for the colour gather); both from
     `Renderer.pose_prep` for this pose, and only for B == 1 with the rays of
-    consecutive 8-pixel blocks. Returns (cond dict with feat_info
+    consecutive 8-pixel blocks. fused_cosine: every feature scale takes
+    Kernel F when B == 1 (matchnerf.py:311). Returns (cond dict with feat_info
     [B,R,S,sum(G)], color_info [B,R,S,3V], mask_info [B,R,S,V], all
     contiguous f32) and the view-0 NDC coordinates [B,R,S,3]."""
     if int(cfg.encoder.feature_sample_local_radius) > 0:
@@ -213,10 +248,11 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
     masks = in_frustum_mask(grids)                                # [V,B,R,S]
     mask_info = masks.permute(1, 2, 3, 0).contiguous()
 
-    # matching prior per scale: Kernel D where the pose's union fits a bucket
-    # (int8 tables; D' on f32 tables where its staging fits), else Kernel B
-    # when precision.banded_kernel or block_kernel is on, else the plain
-    # direct path
+    # matching prior per scale: Kernel F on the fused route; else Kernel D
+    # where the pose's union fits a bucket (int8 tables; D' on f32 tables
+    # where its staging fits), else Kernel B when precision.banded_kernel or
+    # block_kernel is on, else the plain direct path
+    fused = bool(fused_cosine) and B == 1
     use_kernel = kernel and (bool(_precision_get(cfg, "banded_kernel", False))
                              or bool(_precision_get(cfg, "block_kernel", False)))
     prior = cosine_prior if use_kernel else cosine_prior_plain
@@ -226,6 +262,11 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
         G = cos_n_group[scale_idx]
         scales = tables["view_feat_scales"][scale_idx]
         ut = block_ut[scale_idx] if block_ut is not None else None
+        if fused:
+            feat_chunks.append(fused_cosine_scale(
+                vfeats[0], grids[:, 0], None if scales is None else scales[0], G,
+                kernel)[None])
+            continue
         if ut is not None and B == 1 and (
                 vfeats.dtype == torch.int8
                 or (vfeats.dtype == torch.float32 and scales is None
@@ -248,11 +289,11 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
                 img_w: int, kernel: bool = True,
                 block_ut: Optional[tuple] = None, color_ut: Optional[int] = None,
                 stratified: bool = False, generator: Optional[torch.Generator] = None,
-                depth_rand: Optional[torch.Tensor] = None):
-    """Render rays [B,R,2] of target pixels (matchnerf.py:422); block_ut
-    and color_ut as in `query_cond_info`; stratified, generator and
-    depth_rand as `sample_depth`'s stratified, generator and rand. Returns
-    dict(rgb [B,R,3], depth [B,R,1], opacity [B,R,1])."""
+                depth_rand: Optional[torch.Tensor] = None, fused_cosine: bool = False):
+    """Render rays [B,R,2] of target pixels (matchnerf.py:422); block_ut,
+    color_ut and fused_cosine as in `query_cond_info`; stratified,
+    generator and depth_rand as `sample_depth`'s stratified, generator and
+    rand. Returns dict(rgb [B,R,3], depth [B,R,1], opacity [B,R,1])."""
     B, R = pix_xy.shape[:2]
     center, ray = camera.get_center_and_ray(pix_xy, tgt_intr, tgt_c2w)
     depth_samples = sample_depth(cfg, tgt_near_far, B, R, stratified=stratified,
@@ -262,7 +303,7 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
     cond_info, ndc_view0 = query_cond_info(cfg, pts_3d, ref_w2c, ref_intr,
                                            ref_near_far, tables, img_h, img_w,
                                            kernel=kernel, block_ut=block_ut,
-                                           color_ut=color_ut)
+                                           color_ut=color_ut, fused_cosine=fused_cosine)
     # reference-frame unit rays, shared by every sample of a ray
     ray_unit = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
     R0 = ref_w2c[:, 0, :3, :3]

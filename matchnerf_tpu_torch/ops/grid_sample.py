@@ -4,9 +4,14 @@ matchnerf_tpu/ops/grid_sample.py::grid_sample_2d.
 
 Tables are sampled UNPACKED ([B,H,W,C], four gathers per point). The JAX
 package's `pack_2x2` (four taps in one row, 4x the bytes) is a TPU trade of
-bytes for fewer gather indices and is not carried into the port.
+bytes for fewer gather indices and is not carried into the port: the fused
+cosine route (Kernel F) gathers the four taps of each sample from the
+unpacked table into the row a packed table would give
+(`tap_rows_and_weights`), for the samples of one slice only.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -44,6 +49,38 @@ def grid_sample_2d(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
            + tap(y1, x0) * (wy1 * wx0)[..., None]
            + tap(y1, x1) * (wy1 * wx1)[..., None])
     return out.reshape(*grid.shape[:-1], C)
+
+
+def tap_rows_and_weights(table: torch.Tensor, grid: torch.Tensor,
+                         out: Optional[torch.Tensor] = None):
+    """The `pack_2x2` row of each grid point and its bilinear weights
+    (grid_sample.py:95 `packed_rows_and_weights` on `pack_2x2(table)`),
+    from the unpacked table.
+
+    table [H,W,C] (any dtype); grid [...,2] -> rows [N,4C] in the table's
+    dtype, the taps y0x0, y0x1, y1x0, y1x1 concatenated with edge
+    replication (x1 = min(x0+1, W-1), y1 = min(y0+1, H-1)), and weights
+    [N,2] f32 (wx, wy), N = prod(grid.shape[:-1]). `out`, if given, is a
+    contiguous [N,4C] tensor of the table's dtype that receives the rows."""
+    H, W, C = table.shape
+    g = grid.reshape(-1, 2)
+    x = ((g[:, 0] + 1.0) * 0.5 * (W - 1.0)).clamp(0.0, W - 1.0)
+    y = ((g[:, 1] + 1.0) * 0.5 * (H - 1.0)).clamp(0.0, H - 1.0)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    weights = torch.stack([x - x0, y - y0], dim=-1)
+    x0i = x0.long()
+    y0i = y0.long()
+    x1i = (x0i + 1).clamp(max=W - 1)
+    y1i = (y0i + 1).clamp(max=H - 1)
+    idx = torch.stack([y0i * W + x0i, y0i * W + x1i, y1i * W + x0i, y1i * W + x1i],
+                      dim=-1).reshape(-1)
+    N = g.shape[0]
+    flat = table.reshape(H * W, C)
+    if out is None:
+        return flat.index_select(0, idx).reshape(N, 4 * C), weights
+    torch.index_select(flat, 0, idx, out=out.view(N * 4, C))
+    return out, weights
 
 
 def in_frustum_mask(grid: torch.Tensor) -> torch.Tensor:

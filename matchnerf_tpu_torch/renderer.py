@@ -1,4 +1,5 @@
-"""Evaluation renderer (counterpart of matchnerf_tpu/renderer.py, test mode).
+"""Evaluation and video renderer (counterpart of matchnerf_tpu/renderer.py,
+test mode).
 
 `Renderer.forward(batch, mode="test")` encodes the source views once, builds
 the sampling tables, and renders the full target image in slices of
@@ -15,7 +16,15 @@ picks the same per-scale route and buckets as the JAX `_pose_prep`: Kernel
 D where a scale's union fits a bucket, Kernel B where it overflows, Kernel
 E for the colours where their union fits, the colour gather where not. The
 per-ray `kt` buckets of the JAX package are not carried (Kernel B reads its
-taps directly).
+taps directly). With `precision.fused_cosine` (read through
+`effective_precision`, so `strict` turns it off) every feature scale takes
+Kernel F instead (renderer.py:281-291, :337-338); the colours still follow
+the pose's route.
+
+`forward(batch, render_video=True, render_path_mode=...)` renders a
+trajectory of `nerf.video_n_frames` target poses (interpolated between the
+source cameras, or an LLFF spiral) from one encode and one table build,
+one `render_by_slices` per frame (renderer.py:689-757).
 """
 from __future__ import annotations
 
@@ -54,6 +63,12 @@ def color_sample_dtype(cfg):
     """uint8 colour table when precision.color_sample_dtype is uint8."""
     name = str(effective_precision(cfg).get("color_sample_dtype", "float32"))
     return torch.uint8 if name in ("u8", "uint8") else None
+
+
+def fused_cosine(cfg) -> bool:
+    """precision.fused_cosine: every feature scale takes Kernel F."""
+    prec = effective_precision(cfg)
+    return hasattr(prec, "get") and bool(prec.get("fused_cosine", False))
 
 
 def block_path(cfg) -> bool:
@@ -95,7 +110,8 @@ class Renderer:
 
     kernel=False renders with every kernel replaced by its plain version
     (same precision settings and the same per-pose route) — the reference
-    the kernel path is held to."""
+    the kernel path is held to. `last_route` is the route of the last
+    rendered pose, `frame_routes` that of each frame of the last video."""
 
     def __init__(self, cfg, model: MatchNeRF, device="cuda", kernel: bool = True):
         self.cfg = cfg
@@ -103,6 +119,7 @@ class Renderer:
         self.device = torch.device(device)
         self.kernel = kernel
         self.last_route: Optional[Dict] = None
+        self.frame_routes: List[Dict] = []
 
     def tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
@@ -239,24 +256,60 @@ class Renderer:
         grid = camera.pixel_grid(img_h, img_w, legacy=cfg.nerf.legacy_coord,
                                  device=self.device)
         tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = self._pose_tensors(poses)
+        fused = fused_cosine(cfg)
         outs: Dict[str, list] = {}
         for s0 in range(0, img_h * img_w, R):
             pix = grid[s0:s0 + R][None].expand(B, -1, 2)
             ret = render_rays(self.model, cfg, pix, tgt_intr, c2w, tgt_nf,
                               ref_w2c, ref_intr, ref_nf, tables, img_h, img_w,
                               kernel=self.kernel, block_ut=block_ut,
-                              color_ut=color_ut)
+                              color_ut=color_ut, fused_cosine=fused)
             for k, v in ret.items():
                 outs.setdefault(k, []).append(v)
         return {k: torch.cat(v, dim=1) for k, v in outs.items()}
 
+    def get_video_rendering_path(self, poses, mode: str, n_frames: int,
+                                 batch: Optional[Dict] = None) -> List[Dict]:
+        """Per-frame target-pose dicts (extrinsics [B,3,4] w2c, the target's
+        intrinsics and near/fars) along the interpolated path between the
+        source cameras or, with mode "spiral", the LLFF spiral around
+        `batch["c2ws_all"]` (renderer.py:689). Host-side numpy."""
+        src_extr = np.asarray(poses["ref"]["extrinsics"])          # [B,V,3,4]
+        per_batch_w2cs = []
+        for b in range(src_extr.shape[0]):
+            if mode == "interpolate":
+                c2ws = camera.pose_inverse_legacy_np(src_extr[b])
+                sq = np.repeat(np.eye(4, dtype=np.float32)[None], len(c2ws), 0)
+                sq[:, :3, :] = c2ws
+                path = camera.get_interpolate_render_path(sq, n_frames)
+            elif mode == "spiral":
+                if batch is None or "c2ws_all" not in batch:
+                    raise ValueError("the spiral path needs batch['c2ws_all']")
+                near_far = np.asarray(poses["tgt"]["near_fars"][b]).tolist()
+                rads_scale = float(self.cfg.nerf.get("video_rads_scale", 0.1))
+                path = camera.get_spiral_render_path(np.asarray(batch["c2ws_all"][b]),
+                                                     near_far, rads_scale=rads_scale,
+                                                     n_frames=n_frames)
+            else:
+                raise ValueError(f"Unknown video rendering path mode {mode}")
+            per_batch_w2cs.append(np.linalg.inv(path)[:, :3].astype(np.float32))
+        w2cs_all = np.stack(per_batch_w2cs)                         # [B,n,3,4]
+        return [{"extrinsics": w2cs_all[:, f],
+                 "intrinsics": np.asarray(poses["tgt"]["intrinsics"]),
+                 "near_fars": np.asarray(poses["tgt"]["near_fars"])}
+                for f in range(n_frames)]
+
     @torch.no_grad()
-    def forward(self, batch: Dict, mode: str = "test",
+    def forward(self, batch: Dict, mode: str = "test", render_video: bool = False,
+                render_path_mode: str = "interpolate",
                 timings: Optional[Dict] = None) -> Dict:
         """Encode once, build the tables, render the target image
         (renderer.py:728, mode "test"). batch: numpy images [B,V+1,H,W,3],
         extrinsics [B,V+1,3|4,4], intrinsics [B,V+1,3,3], near_fars
         [B,V+1,2]. Returns rgb [B,H*W,3], depth and opacity [B,H*W,1].
+        With render_video, the `nerf.video_n_frames` frames of the
+        `render_path_mode` trajectory instead, concatenated frame-major:
+        [n_frames*B, H*W, *].
 
         timings: if a dict is given, the device is synchronised after each
         phase and its wall seconds are stored under encode/tables/render;
@@ -284,6 +337,20 @@ class Renderer:
         t0 = mark("encode", t0)
         tables = self.build_tables(ref_images, pair_feats)
         t0 = mark("tables", t0)
-        out = self.render_by_slices(extract_poses(batch), tables, H, W, timings)
+        poses = extract_poses(batch)
+        if render_video:
+            frames = self.get_video_rendering_path(
+                poses, render_path_mode, int(self.cfg.nerf.video_n_frames), batch)
+            self.frame_routes = []
+            outs: Dict[str, list] = {}
+            for fp in frames:
+                ret = self.render_by_slices({"tgt": fp, "ref": poses["ref"]}, tables,
+                                            H, W, timings)
+                self.frame_routes.append(self.last_route)
+                for k, v in ret.items():
+                    outs.setdefault(k, []).append(v)
+            out = {k: torch.cat(v, dim=0) for k, v in outs.items()}
+        else:
+            out = self.render_by_slices(poses, tables, H, W, timings)
         mark("render", t0)
         return out

@@ -10,6 +10,11 @@ block-union cosine prior (D) and the supercell colour sample (E) run at
 small shapes, at the largest union each takes (512 and 320 rows: the most
 dynamic shared memory), and with a ragged R and samples on the border.
 
+The fused interp + grouped cosine (F) on tap rows of int8, bf16 and f32,
+with and without dequantisation scales, at G = 2 and 8 and a ragged N:
+1e-5 (summation order; on int8 rows gathered from a table also against
+Kernel B, the same function by another route).
+
 The training kernels against autograd through the plain versions: A'
 (window attention backward; f32 1e-4 and bf16 3e-2 of the largest
 gradient, the plain backward rounding dA and A to bf16 where the kernel
@@ -26,9 +31,11 @@ from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
 from matchnerf_tpu_torch.ops import block_cosine_prior as kd
 from matchnerf_tpu_torch.ops import cosine_prior as kb
 from matchnerf_tpu_torch.ops import decoder as kc
+from matchnerf_tpu_torch.ops import fused_cosine as kf
 from matchnerf_tpu_torch.ops import supercell_color as ke
 from matchnerf_tpu_torch.ops import window_attention as ka
 from matchnerf_tpu_torch.ops.attention import shift_region_ids
+from matchnerf_tpu_torch.ops.grid_sample import tap_rows_and_weights
 
 pytestmark = pytest.mark.gpu
 
@@ -94,6 +101,41 @@ def test_cond_nerf_decode_kernel(dev, variant):
         ref = kc.cond_nerf_decode_plain(*args)
     for a, b, tol in zip(got, ref, (1e-5, 1e-4, 1e-5)):
         torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_scales", [False, True])
+@pytest.mark.parametrize("G", [2, 8])
+def test_fused_cosine_kernel(dev, dtype, with_scales, G):
+    g = torch.Generator(device=dev).manual_seed(9)
+    N = 1237                                     # not a multiple of 16 samples per block
+    if dtype == torch.int8:
+        rows = torch.randint(-127, 128, (3, N, 1024), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+    else:
+        rows = torch.randn(3, N, 1024, generator=g, device=dev).to(dtype)
+    weights = torch.rand(3, N, 2, generator=g, device=dev)
+    scales = (torch.rand(3, 256, generator=g, device=dev) * 0.02 + 1e-3
+              if with_scales else None)
+    before = kf.COUNTER.launches
+    got = kf.fused_interp_grouped_cosine(rows, weights, G, scales)
+    torch.cuda.synchronize()
+    assert kf.COUNTER.launches == before + 1
+    ref = kf.fused_interp_grouped_cosine_plain(rows, weights, G, scales)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("G", [2, 8])
+def test_fused_cosine_matches_cosine_prior(dev, G):
+    g = torch.Generator(device=dev).manual_seed(10)
+    table, scales = _int8_table(g, dev, 20, 24)
+    grids = torch.rand(3, 37, 48, 2, generator=g, device=dev) * 2.4 - 1.2
+    taps = [tap_rows_and_weights(table[v], grids[v]) for v in range(3)]
+    rows = torch.stack([t[0] for t in taps])
+    weights = torch.stack([t[1] for t in taps])
+    got = kf.fused_interp_grouped_cosine(rows, weights, G, scales).reshape(37, 48, G)
+    torch.testing.assert_close(got, kb.cosine_prior(table, grids, scales, G), atol=1e-5,
+                               rtol=0)
 
 
 def _block_grids(g, dev, V, R, S, spread):
