@@ -13,15 +13,22 @@
 //
 // What bounds it: at the DTU shape (24 windows, L = 1280, C = 128) the two
 // forward products take 2 * 24 * 1280^2 * 128 * 2 = 20 GFLOP against 24 MB of
-// q/k/v, so it is bound by arithmetic, not by bytes; the risk is the [BW, L, L]
-// score matrix (157 MB in f32) that the plain version writes and reads back.
-// Forward design: flash-style online softmax. One block owns 64 queries of
-// one window and streams 64-key tiles of K and V through shared memory; the
-// 64x64 score tile lives in registers (4x4 per thread) and in a transposed
-// shared tile for the P.V product, so the score matrix never reaches device
-// memory. With a non-null `lse` it also writes the per-row logsumexp of the
-// masked, scaled scores (f32 [BW, L]), all the backward keeps besides q, k,
-// v and out (the TPU kernel saves the whole [BW, L, L] attention instead).
+// q/k/v, so it is bound by arithmetic, not by bytes (0.020 ms at the bf16
+// tensor-core peak); the risk is the [BW, L, L] score matrix (157 MB in f32)
+// that the plain version writes and reads back. Both forwards use a
+// flash-style online softmax: one block owns 64 queries of one window and
+// streams 64-key tiles of K and V through shared memory, so the score matrix
+// never reaches device memory. With a non-null `lse` they also write the
+// per-row logsumexp of the masked, scaled scores (f32 [BW, L]), all the
+// backward keeps besides q, k, v and out (the TPU kernel saves the whole
+// [BW, L, L] attention instead).
+// - bf16 (the eval and training encoder): on tensor cores, FlashAttention-2
+//   style (see "forward on tensor cores" at the end): Q fragments in
+//   registers, K/V tiles double-buffered by cp.async, both products as
+//   mma.sync with ldmatrix operands, scores and P never leave registers.
+// - f32 (the f32 policy only): CUDA-core FP32 FMAs; the 64x64 score tile
+//   lives in registers (4x4 per thread) and in a transposed shared tile for
+//   the P.V product. It is bound by the 67 TFLOP/s of the CUDA cores.
 //
 // Backward design (flash-style, two launches, no atomics):
 //  1. dq kernel: one block owns 64 queries. Its prologue forms
@@ -38,9 +45,8 @@
 // memory, softmax and accumulation f32, register-blocked CUDA-core FMAs.
 // bf16 inputs (the training encoder): the same two launches on tensor cores
 // (mma.sync m16n8k16, f32 accumulation; see "backward on tensor cores"
-// below), P and dS rounded to bf16 as the TPU kernel rounds them. The
-// forward stays CUDA-core FMAs for both dtypes; wgmma and TMA pipelining
-// are left for a later change.
+// below), P and dS rounded to bf16 as the TPU kernel rounds them. wgmma and
+// TMA are left for a later change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,13 +66,7 @@ constexpr size_t SMEM_BYTES =
     sizeof(float) * (2 * C * T_STRIDE + BK * V_STRIDE + BK * P_STRIDE);
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -521,7 +521,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* rid,
 // recomputed S and dP stay in the accumulator registers; P and dS are
 // rounded to bf16 where they become the A operand of the next product (the
 // TPU kernel rounds them the same way), their f32 accumulator layout being
-// the A fragment layout of two adjacent 8-column tiles.
+// the A fragment layout of two adjacent 8-column tiles. Its operands are
+// 32-bit shared loads, not ldmatrix, and its tiles load synchronously: it
+// has not been given the forward's design yet.
 
 constexpr int MMA_THREADS = 128;
 constexpr int RS = C + 8;           // [64][RS] bf16 row-major tiles
@@ -817,6 +819,266 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* rid,
   return (int)cudaGetLastError();
 }
 
+// -------------------------------------------- forward on tensor cores (bf16)
+//
+// FlashAttention-2 style. A block of 4 warps owns 64 queries of one window;
+// each warp owns 16 query rows, whose Q fragments it loads once with
+// ldmatrix and keeps in registers. 64-key tiles of K and V (bf16, rows
+// padded to 272 bytes, so the 8 row addresses of every ldmatrix fall on
+// distinct banks) and the tile's 64 key region ids are double-buffered with
+// cp.async: the next tile loads while this one computes. S = Q K^T runs as
+// mma.sync m16n8k16 (K's B fragments by ldmatrix from its row-major tile)
+// and stays in the f32 accumulators; the online softmax works there, in
+// base-2 units (scores times log2(e)), with the row max reduced over the 4
+// lanes of a row by shuffles and the row sum kept per lane until the end.
+// P is rounded to bf16 in registers, its accumulator layout being the A
+// fragment of O += P V, whose B fragments come from the row-major V tile by
+// ldmatrix.trans. The epilogue divides by the row sum, stages the warp's
+// 16 output rows in its rows of the Q tile and stores them with 16-byte
+// stores; with a non-null lse it writes m + log(l) per row.
+
+constexpr int FWD_THREADS = 128;
+constexpr int FS = C + 8;                        // [64][FS] bf16 tiles
+constexpr int FWD_TILE = 64 * FS;
+constexpr size_t FWD_SMEM = sizeof(__nv_bfloat16) * 5 * FWD_TILE + sizeof(int) * 2 * 64;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, asynchronous; zeros where !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 64 rows from r0 of a [L][C] bf16 window into a [64][FS] tile; rows past L zero
+__device__ __forceinline__ void cp_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                                        int L, int tid) {
+#pragma unroll
+  for (int i = tid; i < 64 * (C / 8); i += FWD_THREADS) {
+    const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
+    const bool ok = r0 + r < L;
+    cp_async16(dst + r * FS + c8, src + (ok ? (size_t)(r0 + r) * C + c8 : 0), ok);
+  }
+}
+
+__global__ void __launch_bounds__(FWD_THREADS, 2)
+window_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                const int* __restrict__ rid, __nv_bfloat16* __restrict__ out,
+                                float* __restrict__ lse, int L, int n_rid) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [64][FS] Q, then O
+  __nv_bfloat16* ks = qs + FWD_TILE;                                 // [2][64][FS]
+  __nv_bfloat16* vs = ks + 2 * FWD_TILE;                             // [2][64][FS]
+  int* rs = reinterpret_cast<int*>(vs + 2 * FWD_TILE);               // [2][64] key regions
+
+  const int w = blockIdx.y;
+  const int q0 = blockIdx.x * 64;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const size_t base = (size_t)w * L * C;
+  const int* rw = rid ? rid + (size_t)(w % n_rid) * L : nullptr;
+  const int n_tiles = (L + 63) / 64;
+  const float scale = LOG2E / sqrtf((float)C);     // scores in base-2 units
+  const float mask = -100.f * LOG2E;
+
+  auto load_tile = [&](int tile) {
+    const int k0 = tile * 64, st = tile & 1;
+    cp_rows(ks + st * FWD_TILE, k + base, k0, L, tid);
+    cp_rows(vs + st * FWD_TILE, v + base, k0, L, tid);
+    if (rw && tid < 64) cp_async4(rs + st * 64 + tid, rw + min(k0 + tid, L - 1), k0 + tid < L);
+  };
+  cp_rows(qs, q + base, q0, L, tid);
+  cp_async_commit();
+  load_tile(0);
+  cp_async_commit();
+
+  int rq[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + warp * 16 + g + 8 * h;
+    rq[h] = (rw && qi < L) ? rw[qi] : 0;
+  }
+  cp_async_wait<1>();                   // the Q tile
+  __syncthreads();
+  uint32_t qf[C / 16][4];               // the warp's 16 x C Q rows as A fragments
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk)
+    ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * FS + kk * 16 + (lane >> 4) * 8);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[C / 8][4];
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) load_tile(tile + 1);
+    cp_async_commit();
+    cp_async_wait<1>();                 // this tile
+    __syncthreads();
+    const __nv_bfloat16* kt = ks + (tile & 1) * FWD_TILE;
+    const __nv_bfloat16* vt = vs + (tile & 1) * FWD_TILE;
+    const int* rk = rs + (tile & 1) * 64;
+    const int k0 = tile * 64;
+
+    // S = Q K^T: 8 column tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b[4];
+        ldsm_x4(b, kt + ((2 * jp + (lane >> 4)) * 8 + (lane & 7)) * FS + kk * 16 +
+                       ((lane >> 3) & 1) * 8);
+        mma16816(s[2 * jp], qf[kk], b[0], b[1]);
+        mma16816(s[2 * jp + 1], qf[kk], b[2], b[3]);
+      }
+
+    // scale, then the region mask; keys past L get -inf
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2, kl = j * 8 + 2 * t + (e & 1);
+        float x = -INFINITY;
+        if (k0 + kl < L) x = s[j][e] * scale + ((rw && rk[kl] != rq[h]) ? mask : 0.f);
+        s[j][e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);    // finite: key k0 < L is valid
+      corr[h] = ex2(m[h] - m_new);                // 0 on the first tile
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(s[j][e] - m[e / 2]);
+        s[j][e] = p;
+        l[e / 2] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+
+    // O += P V: P's accumulator layout is the A fragment of 16 keys
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t a[4] = {pack_bf16(s[2 * i][0], s[2 * i][1]),
+                             pack_bf16(s[2 * i][2], s[2 * i][3]),
+                             pack_bf16(s[2 * i + 1][0], s[2 * i + 1][1]),
+                             pack_bf16(s[2 * i + 1][2], s[2 * i + 1][3])};
+#pragma unroll
+      for (int np = 0; np < C / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, vt + (i * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * FS +
+                         (2 * np + (lane >> 4)) * 8);
+        mma16816(acc[2 * np], a, b[0], b[1]);
+        mma16816(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();                    // this stage is free for tile + 2
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.f / l[h];
+  }
+  __nv_bfloat16* os = qs + warp * 16 * FS;        // the warp's own Q rows
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(os + (g + 8 * h) * FS + n * 8 + 2 * t) =
+          pack_bf16(acc[n][2 * h] * inv[h], acc[n][2 * h + 1] * inv[h]);
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * (C / 8); i += 32) {
+    const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
+    const int qi = q0 + warp * 16 + r;
+    if (qi < L)
+      *reinterpret_cast<int4*>(out + base + (size_t)qi * C + c8) =
+          *reinterpret_cast<const int4*>(os + r * FS + c8);
+  }
+  if (lse && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + warp * 16 + g + 8 * h;
+      if (qi < L) lse[(size_t)w * L + qi] = m[h] / LOG2E + logf(l[h]);
+    }
+  }
+}
+
+int launch_fwd_mma(const void* q, const void* k, const void* v, const void* rid, void* out,
+                   void* lse, int BW, int L, int channels, int n_rid, cudaStream_t stream) {
+  if (channels != C || BW <= 0 || L <= 0 || (rid && n_rid <= 0) ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(window_attention_fwd_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  using bf = __nv_bfloat16;
+  dim3 grid((L + 63) / 64, BW);
+  window_attention_fwd_mma_kernel<<<grid, FWD_THREADS, FWD_SMEM, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const int*>(rid), static_cast<bf*>(out), static_cast<float*>(lse), L, n_rid);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // lse may be NULL (the eval forward)
@@ -830,8 +1092,8 @@ extern "C" int window_attention_f32(const void* q, const void* k, const void* v,
 extern "C" int window_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* rid, void* out, void* lse, int BW,
                                      int L, int channels, int n_rid, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, rid, out, lse, BW, L, channels, n_rid,
-                               static_cast<cudaStream_t>(stream));
+  return launch_fwd_mma(q, k, v, rid, out, lse, BW, L, channels, n_rid,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // dsum: f32 [BW, L] scratch for D = rowsum(dO o O); dq, dk, dv in the input dtype

@@ -58,10 +58,8 @@ SIGNATURES = {
     "block_cosine_prior_f32": [_P] * 4 + [_I] * 10 + [_P],
     # table, grids, unions, g, d_table, V, H, W, C, G, R, S, NB, ut, CP, stream
     "block_cosine_prior_bwd_f32": [_P] * 5 + [_I] * 10 + [_P],
-    # colors_sc, grids, unions, out, V, Hs, Ws, img_h, img_w, R, S, NB, ut,
-    # stream
-    "supercell_color_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _P],
+    # colors_sc, grids, out, V, Hs, Ws, img_h, img_w, N (= R*S), stream
+    "supercell_color_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # rows, weights, scales (or NULL), out, V, C, G, N, stream
     "fused_cosine_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fused_cosine_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

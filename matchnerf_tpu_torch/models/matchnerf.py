@@ -232,10 +232,9 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
 
     colors_sc = tables.get("colors_sc")
     if color_ut is not None and colors_sc is not None and B == 1:
-        # Kernel E: supercell union per 8-ray block -> [R,S,3V] on 0-255
+        # Kernel E: colours from the supercell table -> [R,S,3V] on 0-255
         sample = supercell_color_sample if kernel else supercell_color_sample_plain
-        color_info = sample(colors_sc[0], grids[:, 0].contiguous(), img_h, img_w,
-                            color_ut)[None]
+        color_info = sample(colors_sc[0], grids[:, 0].contiguous(), img_h, img_w)[None]
         if tables.get("color_scale") is not None:
             color_info = color_info * tables["color_scale"]
     else:

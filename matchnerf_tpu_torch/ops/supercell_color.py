@@ -1,27 +1,29 @@
 """Kernel E: per-sample bilinear source colours from a table of 4x4-pixel
-supercells, through one union of supercells shared by each 8-ray block.
+supercells.
 
 Replaces matchnerf_tpu/ops/pallas_color.py::supercell_color_sample (the eval
 render's supercell colour Pallas kernel). The CUDA source is
 csrc/supercell_color.cu; `supercell_color_sample_plain` is the same function
-in plain PyTorch, along the same union route.
+in plain PyTorch.
 
 The table (`build_supercell_colors`) holds one row per 4x4 supercell: its
 5x5 pixel window (every bilinear tap of every sample that falls in the
 supercell, the +1 taps included), edge-padded past the image border, uint8
 RGB in the layout ch = a*16 + b*3 + c (window row a, column b, colour c;
-slot 15 of each window row is zero), 80 bytes a row. Per block of 8 rays
-and per view, the sorted unique supercells of its samples form the union
-(no dilation: the window covers the taps); the kernel stages the union rows
-in shared memory once per block, finds each sample's supercell by binary
-search, and interpolates with the clip-then-floor stencil of
-ops/grid_sample.py in the y-then-x association of the TPU kernel
-(pallas_color.py:160-172). Output [R,S,3V] f32 on the 0-255 scale, channel
-3v+c: the layout of the decoder's colour input; the caller applies the
-1/255 dequantisation, as the JAX package does.
+slot 15 of each window row is zero), 80 bytes a row. Each sample reads the
+two window rows it needs from its own supercell's row and interpolates with
+the clip-then-floor stencil of ops/grid_sample.py in the y-then-x
+association of the TPU kernel (pallas_color.py:160-172). The TPU kernel
+first gathers the union of supercells of each 8-ray block (to feed a
+one-hot MXU product); the port needs no union, so it takes any grids, and
+equals the union route wherever the union fits its bucket. Output [R,S,3V]
+f32 on the 0-255 scale, channel 3v+c: the layout of the decoder's colour
+input; the caller applies the 1/255 dequantisation, as the JAX package does.
 
 `build_supercell_colors`, `supercell_cells_weights`, `color_union_size` and
-`bucket_color_ut` are the counterparts of pallas_color.py's helpers.
+`bucket_color_ut` are the counterparts of pallas_color.py's helpers; the
+union size and its bucket only decide the route (`Renderer.pose_prep`), as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -30,8 +32,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from .block_cosine_prior import (BLOCK_RAYS, first_of_runs, pad_rays,
-                                 union_positions, unique_compact)
+from .block_cosine_prior import BLOCK_RAYS, first_of_runs
 from .grid_sample import bilinear_taps
 
 COUNTER = kernels.LaunchCounter(
@@ -103,59 +104,36 @@ def color_union_size(grids_v, img_h: int, img_w: int,
     return int(color_union_max(grids_v, img_h, img_w, block_rays))
 
 
-def color_unions(grids_p, img_h: int, img_w: int, ut: int):
-    """Padded grids [V,Rp,S,2] -> per-(view, block) supercell unions
-    [V*NB, ut] int32 (view-major, -1 padded to exactly ut columns)."""
-    V, Rp, S = grids_p.shape[:3]
-    Hs, Ws = supercell_grid(img_h, img_w)
-    cell = supercell_cells_weights(grids_p, img_h, img_w)[0]
-    blk = torch.sort(cell.reshape(V * Rp // BLOCK_RAYS, BLOCK_RAYS * S), dim=-1).values
-    u = unique_compact(blk, ut, Hs * Ws)
-    if u.shape[1] < ut:
-        u = torch.nn.functional.pad(u, (0, ut - u.shape[1]), value=-1)
-    return u.contiguous()
-
-
-def supercell_color_sample_plain(colors_sc, grids, img_h: int, img_w: int, ut: int):
+def supercell_color_sample_plain(colors_sc, grids, img_h: int, img_w: int):
     """colors_sc [V,Hs,Ws,80] uint8; grids [V,R,S,2] f32; img_h, img_w the
-    true image size; ut the union bucket -> [R,S,3V] f32 on the 0-255 scale.
+    true image size -> [R,S,3V] f32 on the 0-255 scale.
 
-    The union route in torch ops, one view at a time: gather the block's
-    union rows, `searchsorted` for each sample's supercell, then the window
-    rows ty, ty+1 blended by fy and the columns tx, tx+1 by fx. A sample
-    whose supercell is missing from the union (only when a union overflows
-    `ut`) gets 0."""
+    One view at a time: gather each sample's 80-byte supercell row, take its
+    window rows ty, ty+1 blended by fy, then the columns tx, tx+1 blended
+    by fx."""
     if colors_sc.is_cuda:
         COUNTER.plain_on_cuda += 1
     V, Hs, Ws, _ = colors_sc.shape
     R, S = grids.shape[1:3]
-    gp = pad_rays(grids)
-    NB = gp.shape[1] // BLOCK_RAYS
-    unions = color_unions(gp, img_h, img_w, ut).view(V, NB, ut)
-    cell, ty, tx, fy, fx = supercell_cells_weights(gp, img_h, img_w)
-    blocks = torch.arange(NB, device=colors_sc.device)[:, None]
-    n = torch.arange(NB * BLOCK_RAYS * S, device=colors_sc.device)
+    cell, ty, tx, fy, fx = supercell_cells_weights(grids, img_h, img_w)
     rgb = torch.arange(3, device=colors_sc.device)
     out = []
     for v in range(V):
-        rows = colors_sc[v].reshape(Hs * Ws, ROW_CH)[torch.clamp_min(unions[v], 0).long()]
-        pos, found = union_positions(unions[v], cell[v].reshape(NB, -1), Hs * Ws)
-        win = rows[blocks, pos].float().reshape(-1, WIN, 16)        # [N,5,16]
-        tyv, txv = ty[v].reshape(-1).long(), tx[v].reshape(-1).long()
+        win = colors_sc[v].reshape(Hs * Ws, WIN, 16)[cell[v].reshape(-1).long()]   # [N,5,16]
+        tyv = ty[v].reshape(-1, 1, 1).long().expand(-1, 1, 16)
         fyv, fxv = fy[v].reshape(-1, 1), fx[v].reshape(-1, 1)
-        t = win[n, tyv] * (1.0 - fyv) + win[n, tyv + 1] * fyv        # [N,16]
-        c0 = t[n[:, None], txv[:, None] * 3 + rgb]                    # [N,3]
-        c1 = t[n[:, None], (txv[:, None] + 1) * 3 + rgb]
-        col = c0 * (1.0 - fxv) + c1 * fxv
-        col = torch.where(found.reshape(-1, 1), col, 0.0)
-        out.append(col.reshape(NB * BLOCK_RAYS, S, 3)[:R])
+        t = (torch.gather(win, 1, tyv)[:, 0].float() * (1.0 - fyv)
+             + torch.gather(win, 1, tyv + 1)[:, 0].float() * fyv)          # [N,16]
+        col = tx[v].reshape(-1, 1).long() * 3 + rgb                          # [N,3]
+        c = torch.gather(t, 1, col) * (1.0 - fxv) + torch.gather(t, 1, col + 3) * fxv
+        out.append(c.reshape(R, S, 3))
     return torch.cat(out, dim=-1)
 
 
-def supercell_color_sample(colors_sc, grids, img_h: int, img_w: int, ut: int):
+def supercell_color_sample(colors_sc, grids, img_h: int, img_w: int):
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if colors_sc.device.type == "cpu":
-        return supercell_color_sample_plain(colors_sc, grids, img_h, img_w, ut)
+        return supercell_color_sample_plain(colors_sc, grids, img_h, img_w)
     if not colors_sc.is_cuda:
         raise ValueError(f"supercell_color_sample: unsupported device {colors_sc.device}")
     V, Hs, Ws = colors_sc.shape[:3]
@@ -166,21 +144,15 @@ def supercell_color_sample(colors_sc, grids, img_h: int, img_w: int, ut: int):
         raise ValueError(f"supercell_color_sample: colors_sc {tuple(colors_sc.shape)} "
                          f"{colors_sc.dtype}, kernel takes contiguous uint8 "
                          f"[1..4,{supercell_grid(img_h, img_w)},{ROW_CH}]")
-    if ut not in COLOR_UT_BUCKETS:
-        raise ValueError(f"supercell_color_sample: ut={ut}, kernel takes one of "
-                         f"{COLOR_UT_BUCKETS}")
     if (grids.dtype != torch.float32 or grids.dim() != 4 or grids.shape[0] != V
-            or grids.shape[-1] != 2 or grids.device != colors_sc.device):
+            or grids.shape[-1] != 2 or grids.device != colors_sc.device
+            or not grids.is_contiguous()):
         raise ValueError(f"supercell_color_sample: grids {tuple(grids.shape)} "
-                         f"{grids.dtype}, kernel takes f32 [{V},R,S,2]")
+                         f"{grids.dtype}, kernel takes contiguous f32 [{V},R,S,2]")
     R, S = grids.shape[1:3]
-    gp = pad_rays(grids)
-    NB = gp.shape[1] // BLOCK_RAYS
-    unions = color_unions(gp, img_h, img_w, ut)
     out = torch.empty(R, S, 3 * V, dtype=torch.float32, device=colors_sc.device)
-    if R == 0:
+    if R * S == 0:
         return out
-    kernels.launch(COUNTER, "supercell_color_u8", colors_sc.data_ptr(), gp.data_ptr(),
-                   unions.data_ptr(), out.data_ptr(), V, Hs, Ws, img_h, img_w, R, S,
-                   NB, ut)
+    kernels.launch(COUNTER, "supercell_color_u8", colors_sc.data_ptr(), grids.data_ptr(),
+                   out.data_ptr(), V, Hs, Ws, img_h, img_w, R * S)
     return out

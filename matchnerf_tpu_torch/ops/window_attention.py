@@ -36,10 +36,8 @@ BWD_COUNTER = kernels.LaunchCounter(
     replaces="matchnerf_tpu/ops/pallas_window_attention.py:243")
 
 
-def window_attention_plain(q, k, v, region_ids=None):
-    """[BW,L,C] -> [BW,L,C]; materialises the [BW,L,L] scores."""
-    if q.is_cuda:
-        COUNTER.plain_on_cuda += 1
+def attention_scores_plain(q, k, region_ids=None):
+    """[BW,L,C] -> the masked, scaled scores [BW,L,L] f32."""
     bw, L, c = q.shape
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(c)
     if region_ids is not None:
@@ -47,7 +45,14 @@ def window_attention_plain(q, k, v, region_ids=None):
         rid = region_ids[torch.arange(bw, device=q.device) % n]        # [BW,L]
         scores = scores + torch.where(rid[:, :, None] != rid[:, None, :],
                                       -100.0, 0.0)
-    attn = torch.softmax(scores, dim=-1).to(v.dtype)
+    return scores
+
+
+def window_attention_plain(q, k, v, region_ids=None):
+    """[BW,L,C] -> [BW,L,C]; materialises the [BW,L,L] scores."""
+    if q.is_cuda:
+        COUNTER.plain_on_cuda += 1
+    attn = torch.softmax(attention_scores_plain(q, k, region_ids), dim=-1).to(v.dtype)
     return torch.matmul(attn, v)
 
 
@@ -79,7 +84,10 @@ def _suffix(t):
     return "f32" if t.dtype == torch.float32 else "bf16"
 
 
-def _forward(q, k, v, region_ids, with_lse: bool):
+def window_attention_forward(q, k, v, region_ids=None, with_lse: bool = False):
+    """The forward kernel alone on CUDA tensors: (out, lse), lse the per-row
+    logsumexp f32 [BW,L] of the masked, scaled scores (None unless
+    `with_lse`)."""
     n_rid = _check(q, k, v, region_ids)
     bw, L, c = q.shape
     out = torch.empty_like(q)
@@ -95,7 +103,7 @@ class WindowAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, region_ids):
-        out, lse = _forward(q, k, v, region_ids, with_lse=True)
+        out, lse = window_attention_forward(q, k, v, region_ids, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.region_ids = region_ids
         return out
@@ -125,4 +133,4 @@ def window_attention(q, k, v, region_ids=None):
         raise ValueError(f"window_attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return WindowAttentionFn.apply(q, k, v, region_ids)
-    return _forward(q, k, v, region_ids, with_lse=False)[0]
+    return window_attention_forward(q, k, v, region_ids)[0]

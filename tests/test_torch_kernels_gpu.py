@@ -5,10 +5,17 @@ available, as on a CPU-only host. On a GPU machine run them with
 `python -m pytest tests/test_torch_kernels_gpu.py -q`; chip_smoke.py
 covers the same kernels at the full DTU shapes.
 Tolerances: f32 kernels 1e-5 (summation order only), the bf16 window
-attention 2e-2 (the plain version rounds P to bf16 before P.V). The
-block-union cosine prior (D) and the supercell colour sample (E) run at
-small shapes, at the largest union each takes (512 and 320 rows: the most
-dynamic shared memory), and with a ragged R and samples on the border.
+attention 2e-2 (the plain version rounds the normalised P to bf16 before
+P.V, the kernel the unnormalised one), also at the DTU shape [24,1280,128];
+the forward's logsumexp against torch.logsumexp of the plain masked scores,
+1e-3 for f32 and 2e-2 for bf16 inputs, at L = 160 (a ragged last key tile)
+and L = 1280. The block-union cosine prior (D) runs at small shapes, at the
+largest union it takes (512 rows: the most dynamic shared memory), and with
+a ragged R and samples on the border. The supercell colour sample (E) reads
+no union: it runs at small shapes, on a 320-supercell union, with a ragged
+R and samples on the border, and on grids spread over the whole image whose
+union overflows every bucket, where it is also held to the direct gather
+on the uint8 image (1e-3 on the 0-255 scale).
 
 The fused interp + grouped cosine (F) on tap rows of int8, bf16 and f32,
 with and without dequantisation scales, at G = 2 and 8 and a ragged N:
@@ -35,7 +42,7 @@ from matchnerf_tpu_torch.ops import fused_cosine as kf
 from matchnerf_tpu_torch.ops import supercell_color as ke
 from matchnerf_tpu_torch.ops import window_attention as ka
 from matchnerf_tpu_torch.ops.attention import shift_region_ids
-from matchnerf_tpu_torch.ops.grid_sample import tap_rows_and_weights
+from matchnerf_tpu_torch.ops.grid_sample import grid_sample_2d, tap_rows_and_weights
 
 pytestmark = pytest.mark.gpu
 
@@ -60,6 +67,33 @@ def test_window_attention_kernel(dev, dtype, tol, shift):
     assert ka.COUNTER.launches == before + 1
     ref = ka.window_attention_plain(q, k, v, rid)
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
+
+
+def test_window_attention_kernel_dtu_shape(dev):
+    """bf16, shift-masked, at the encoder's eval shape (6 streams x 2x2
+    windows of the 64x80 1/8-scale map)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(24, 1280, 128, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    rid = shift_region_ids(64, 80, 2, device=dev)
+    got = ka.window_attention(q, k, v, rid)
+    ref = ka.window_attention_plain(q, k, v, rid)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hw", [(16, 40), (64, 80)])
+def test_window_attention_forward_lse(dev, dtype, tol, hw):
+    g = torch.Generator(device=dev).manual_seed(12)
+    rid = shift_region_ids(*hw, 2, device=dev)
+    L = rid.shape[1]
+    q, k, v = (torch.randn(8, L, 128, generator=g, device=dev).to(dtype) for _ in range(3))
+    out, lse = ka.window_attention_forward(q, k, v, rid, with_lse=True)
+    ref = torch.logsumexp(ka.attention_scores_plain(q, k, rid), dim=-1)
+    assert lse.shape == (8, L) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, ref, atol=tol, rtol=0)
+    torch.testing.assert_close(out.float(), ka.window_attention_plain(q, k, v, rid).float(),
+                               atol=1e-5 if dtype == torch.float32 else 2e-2, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
@@ -189,7 +223,7 @@ def test_block_cosine_prior_kernel(dev, case, G):
                                    atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["small", "cap_320", "ragged_border"])
+@pytest.mark.parametrize("case", ["small", "cap_320", "ragged_border", "overflow"])
 def test_supercell_color_kernel(dev, case):
     g = torch.Generator(device=dev).manual_seed(5)
     V, img_h, img_w = 3, 50, 66
@@ -198,6 +232,9 @@ def test_supercell_color_kernel(dev, case):
         grids = torch.rand(V, 16, 40, 2, generator=g, device=dev) * 2 - 1
     elif case == "small":
         grids = _block_grids(g, dev, V, 24, 48, 0.4)
+    elif case == "overflow":
+        img_h, img_w = 200, 240
+        grids = torch.rand(V, 21, 64, 2, generator=g, device=dev) * 2.1 - 1.05
     else:
         grids = _block_grids(g, dev, V, 13, 32, 0.5)
         grids[:, :, :4] = torch.clamp(grids[:, :, :4] * 3.0, -1.0, 1.0)
@@ -208,12 +245,19 @@ def test_supercell_color_kernel(dev, case):
     ut = ke.bucket_color_ut(ke.color_union_size(kd.pad_rays(grids), img_h, img_w))
     if case == "cap_320":
         assert ut == 320
+    if case == "overflow":
+        assert ut is None
     before = ke.COUNTER.launches
-    got = ke.supercell_color_sample(table, grids, img_h, img_w, ut)
+    got = ke.supercell_color_sample(table, grids, img_h, img_w)
     torch.cuda.synchronize()
     assert ke.COUNTER.launches == before + 1
-    ref = ke.supercell_color_sample_plain(table, grids, img_h, img_w, ut)
+    ref = ke.supercell_color_sample_plain(table, grids, img_h, img_w)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    if case == "overflow":
+        R, S = grids.shape[1:3]
+        direct = torch.stack([grid_sample_2d(images[v:v + 1], grids[v:v + 1])[0]
+                              for v in range(V)], dim=2).reshape(R, S, 3 * V)
+        torch.testing.assert_close(got, direct, atol=1e-3, rtol=0)
 
 
 def _grad_close(got, ref, rel):

@@ -5,12 +5,14 @@ package, on the CPU.
   not multiples of the supercell, so the edge padding shows).
 - `supercell_cells_weights` and `color_union_size` give the JAX integers
   exactly; `bucket_color_ut` the same buckets.
-- The plain Kernel E vs JAX `supercell_color_sample` (Pallas, interpret
-  mode): atol 2e-2 on the 0-255 scale, the JAX test's own bound
-  (tests/test_pallas_color.py:87); R = 60 exercises the ray padding.
+- The plain Kernel E (no union) vs JAX `supercell_color_sample` (Pallas,
+  interpret mode, through the union at the fitting bucket): atol 2e-2 on the
+  0-255 scale, the JAX test's own bound (tests/test_pallas_color.py:87);
+  R = 60 is not a multiple of the 8-ray block.
 - The plain Kernel E vs the port's direct gather on the uint8 image: atol
   1e-3 on the 0-255 scale (the same taps and weights, y-then-x association
-  instead of four weighted taps: f32 rounding of values <= 255).
+  instead of four weighted taps: f32 rounding of values <= 255), also on
+  grids whose union overflows every bucket.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -72,29 +74,49 @@ def test_plain_kernel_e_matches_jax_and_gather(R):
     assert ut is not None and n == int(jpc.color_union_size(jnp.asarray(gp), H, W))
 
     tab = ke.build_supercell_colors(torch.tensor(img))
-    got = ke.supercell_color_sample(tab, torch.tensor(grids), H, W, ut)
+    got = ke.supercell_color_sample(tab, torch.tensor(grids), H, W)
     assert got.shape == (R, S, 3 * V) and got.dtype == torch.float32
     ref = jpc.supercell_color_sample(jpc.build_supercell_colors(jnp.asarray(img))[None],
                                      jnp.asarray(grids)[:, None], H, W, ut=ut)
     ref = np.moveaxis(np.asarray(ref)[:, 0], 0, 2).reshape(R, S, 3 * V)
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-2, rtol=0)
 
-    direct = torch.stack([grid_sample_2d(torch.tensor(img[v:v + 1]),
-                                         torch.tensor(grids[v:v + 1]))[0]
-                          for v in range(V)], dim=2).reshape(R, S, 3 * V)
-    np.testing.assert_allclose(got.numpy(), direct.numpy(), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got.numpy(), _direct(img, grids).numpy(), atol=1e-3, rtol=0)
+
+
+def _direct(img, grids):
+    """The port's direct gather on the uint8 image, [R,S,3V]."""
+    V, R, S = grids.shape[:3]
+    return torch.stack([grid_sample_2d(torch.tensor(img[v:v + 1]),
+                                       torch.tensor(grids[v:v + 1]))[0]
+                        for v in range(V)], dim=2).reshape(R, S, 3 * V)
 
 
 def test_plain_kernel_e_tiny_union():
-    """All rays in one supercell: the smallest bucket, unused union slots
-    contribute nothing."""
+    """All samples near the image centre, a few supercells per view: every
+    sample reads its own supercell's window, whose four interior taps cover
+    the centre pixels."""
     rng = np.random.default_rng(3)
     V, H, W, R, S = 2, 32, 32, 8, 8
     img = rng.integers(0, 256, (V, H, W, 3), dtype=np.uint8)
     grids = rng.uniform(-0.02, 0.02, (V, R, S, 2)).astype(np.float32)
     got = ke.supercell_color_sample(ke.build_supercell_colors(torch.tensor(img)),
-                                    torch.tensor(grids), H, W, 48)
-    direct = torch.stack([grid_sample_2d(torch.tensor(img[v:v + 1]),
-                                         torch.tensor(grids[v:v + 1]))[0]
-                          for v in range(V)], dim=2).reshape(R, S, 3 * V)
-    np.testing.assert_allclose(got.numpy(), direct.numpy(), atol=1e-3, rtol=0)
+                                    torch.tensor(grids), H, W)
+    np.testing.assert_allclose(got.numpy(), _direct(img, grids).numpy(), atol=1e-3, rtol=0)
+
+
+def test_plain_kernel_e_overflowing_union():
+    """Samples spread over the whole image, past its border too, R not a
+    multiple of 8: the union of an 8-ray block overflows every bucket (the
+    route would take the gather), and the union-free plain E still equals
+    the direct gather."""
+    rng = np.random.default_rng(4)
+    V, H, W, R, S = 3, 96, 130, 21, 64
+    img = rng.integers(0, 256, (V, H, W, 3), dtype=np.uint8)
+    grids = rng.uniform(-1.05, 1.05, (V, R, S, 2)).astype(np.float32)
+    gp = np.concatenate([grids, np.repeat(grids[:, -1:], (-R) % 8, axis=1)], axis=1)
+    assert ke.bucket_color_ut(ke.color_union_size(torch.tensor(gp), H, W)) is None
+    got = ke.supercell_color_sample(ke.build_supercell_colors(torch.tensor(img)),
+                                    torch.tensor(grids), H, W)
+    assert got.shape == (R, S, 3 * V)
+    np.testing.assert_allclose(got.numpy(), _direct(img, grids).numpy(), atol=1e-3, rtol=0)
