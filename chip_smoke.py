@@ -59,7 +59,10 @@ Phases, any failure ends the run with a non-zero exit:
    table gradient per scale (and Kernel B's f32 forward at these shapes),
    D' f32 forward and backward per scale (also held against B and B', the
    same function; the largest training union is printed against its
-   bucket).
+   bucket). The A' backward also prints its TFLOP/s, counted as the
+   function's 5 products (the kernels do 7); SDPA's backward, a call whose
+   host work through autograd outlasts its kernels, is timed on the device
+   (torch.profiler) beside its CUDA-event time.
 9. configs/train.yaml step (`Coach.train_iteration`) on the 640x512 scene
    at full width, 1024 rays, S=128: a first step from one set of weights,
    rays and jitter through the kernels and all-plain (loss and per-tensor
@@ -72,7 +75,8 @@ Phases, any failure ends the run with a non-zero exit:
 Every launch count is reset just before a path (a step, in 9 and 10) and
 read just after it. With --profile, one more warm render of each eval path
 and one warm step of each training recipe run under torch.profiler and
-print the device time by kernel, the device busy time and the wall time.
+print the device time by kernel (the A' backward's dq and dkv kernels
+always by name), the device busy time and the wall time.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -125,6 +129,23 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters):
+    """Mean device milliseconds per call: the summed time of the kernels
+    `fn` launches (torch.profiler), after two warm-up calls. For a call
+    whose host work outlasts its kernels, where CUDA events around a run of
+    calls measure the host."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_time_total > 0) / 1e3 / iters
+
+
 def bound(nbytes, flops, dtype="float32"):
     """(bound ms, 'bytes' or 'operations'): the least time for the work."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -158,9 +179,10 @@ def psnr(a, b):
     return 999.0 if mse == 0.0 else -10.0 * math.log10(mse)
 
 
-def profile_call(torch, name, fn, top=12):
+def profile_call(torch, name, fn, top=12, keep=()):
     """One warm call of `fn` under torch.profiler: device time by kernel
-    (top `top`), summed device time, and the wall time around it."""
+    (top `top`, and every kernel whose name contains one of `keep`), summed
+    device time, and the wall time around it."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -179,10 +201,11 @@ def profile_call(torch, name, fn, top=12):
     n_ops = sum(r[2] for r in rows)
     log(f"profile {name}: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
         f"({100.0 * (1.0 - busy / (wall * 1e3)):.1f} % idle), {n_ops} device operations")
-    for key, ms, count in rows[:top]:
+    shown = rows[:top] + [r for r in rows[top:] if any(k in r[0] for k in keep)]
+    for key, ms, count in shown:
         log(f"profile {name}:   {ms:9.2f} ms  {count:5d}x  {key[:100]}")
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy, "device_ops": n_ops,
-            "top": [[k[:100], ms, c] for k, ms, c in rows[:top]]}
+            "top": [[k[:100], ms, c] for k, ms, c in shown]}
 
 
 def check_close(name, err, tol):
@@ -244,7 +267,11 @@ def train_kernel_phase(torch, F, dev, batch, seed, block_ut, res):
             tol_abs = tol * max(float(b.float().abs().max()) for b in gp)
             err_out = max_abs(out, outp)
             fwd_ms = cuda_ms(torch, lambda: ka.window_attention(*qk, r), 10)
-            ms = cuda_ms(torch, lambda: grad(out, qk, do, retain_graph=True), 10)
+            # the backward kernels timed alone; through autograd the host's
+            # own time per call comes near the kernels' and is timed apart
+            o, lse = out.detach(), ka.window_attention_forward(q, k, v, r, with_lse=True)[1]
+            ms = cuda_ms(torch, lambda: ka.window_attention_backward(q, k, v, o, lse, do, r), 20)
+            autograd_ms = cuda_ms(torch, lambda: grad(out, qk, do, retain_graph=True), 10)
             plain_ms = cuda_ms(torch, lambda: grad(outp, qp, do, retain_graph=True), 5)
             ql = [t[:, None].detach().clone().requires_grad_() for t in (q, k, v)]
             mask = None
@@ -254,28 +281,37 @@ def train_kernel_phase(torch, F, dev, batch, seed, block_ut, res):
             outl = F.scaled_dot_product_attention(*ql, attn_mask=mask)
             gl = grad(outl, ql, do[:, None], retain_graph=True)
             lib_err = max(max_abs(a[:, 0], b) for a, b in zip(gl, gp))
-            lib_ms = cuda_ms(torch, lambda: grad(outl, ql, do[:, None], retain_graph=True), 10)
+            # the library's backward through autograd: the host's time per
+            # call is near its kernels', so its device time is the yardstick
+            lib_bwd = lambda: grad(outl, ql, do[:, None], retain_graph=True)
+            lib_ms = device_ms(torch, lib_bwd, 10)
+            lib_events_ms = cuda_ms(torch, lib_bwd, 10)
             # forward + backward together, the kernels' and the library's
-            fb_ms = cuda_ms(torch, lambda: grad(ka.window_attention(*qk, r), qk, do), 10)
-            lib_fb_ms = cuda_ms(torch, lambda: grad(
+            fb_ms = cuda_ms(torch, lambda: ka.window_attention_backward(
+                q, k, v, *ka.window_attention_forward(q, k, v, r, with_lse=True), do, r), 20)
+            lib_fb_ms = device_ms(torch, lambda: grad(
                 F.scaled_dot_product_attention(*ql, attn_mask=mask), ql, do[:, None]), 10)
-            lse = torch.empty(BW, L, device=dev)
             b_ms, b_by = bound(nbytes(q, k, v, out, do, lse, *gk), 5 * prod, name)
             tag = f"{name}_{'shift' if shift else 'noshift'}"
+            tflops = 5 * prod / ms / 1e9             # the function's 5 products
             log(f"kernel A' window_attention backward {name} [{BW},{L},128] "
                 f"{'shift-masked' if shift else 'unmasked'}: max|d| dq/dk/dv {err:.3e} "
                 f"(tol {tol_abs:.3e}), out {err_out:.3e}; forward with logsumexp "
-                f"{fwd_ms:.3f} ms; backward {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
-                f"library SDPA backward {lib_ms:.3f} ms (max|d| {lib_err:.3e}); forward + "
-                f"backward {fb_ms:.3f} ms vs SDPA {lib_fb_ms:.3f} ms; bound "
+                f"{fwd_ms:.3f} ms; backward {ms:.4f} ms ({tflops:.1f} TFLOP/s, 5 products; "
+                f"through autograd {autograd_ms:.4f} ms) vs plain {plain_ms:.3f} ms, "
+                f"library SDPA backward {lib_ms:.4f} ms on the device (CUDA events around "
+                f"the autograd call {lib_events_ms:.4f} ms; max|d| {lib_err:.3e}); forward + "
+                f"backward {fb_ms:.3f} ms vs SDPA {lib_fb_ms:.3f} ms on the device; bound "
                 f"{b_ms:.4f} ms ({b_by}, 5 products)")
             check_close(f"window_attention backward {tag}", err, tol_abs)
-            res["A_bwd"][tag] = dict(max_abs_err=err, tol=tol_abs, ms=ms, fwd_ms=fwd_ms,
+            res["A_bwd"][tag] = dict(max_abs_err=err, tol=tol_abs, ms=ms, tflops=tflops,
+                                     autograd_ms=autograd_ms, fwd_ms=fwd_ms,
                                      plain_ms=plain_ms, library_ms=lib_ms,
+                                     library_events_ms=lib_events_ms,
                                      library_max_abs_err=lib_err, fwd_bwd_ms=fb_ms,
                                      library_fwd_bwd_ms=lib_fb_ms, bound_ms=b_ms,
                                      bound_by=b_by)
-            del q, k, v, do, qk, qp, out, outp, gk, gp, ql, outl, gl, mask
+            del q, k, v, do, qk, qp, out, outp, gk, gp, ql, outl, gl, mask, o, lse, lib_bwd
 
     # B' and D' on the scene's training rays with the training f32 tables
     tcfg = dtu_train_config()
@@ -490,7 +526,9 @@ def train_path(torch, dev, cfg, batch, seed, label, counters, must, profile):
            "route": coach.last_route, "launches_per_step": launches[-1],
            "launches_total": {k: sum(l[k] for l in launches) for k in counters}}
     if profile:
-        out["profile"] = profile_call(torch, label, lambda: coach.train_iteration(batch))
+        # the A' backward's two kernels by name, whatever their rank
+        out["profile"] = profile_call(torch, label, lambda: coach.train_iteration(batch),
+                                      keep=("window_attention_dq", "window_attention_dkv"))
     return out
 
 

@@ -30,23 +30,27 @@
 //   lives in registers (4x4 per thread) and in a transposed shared tile for
 //   the P.V product. It is bound by the 67 TFLOP/s of the CUDA cores.
 //
-// Backward design (flash-style, two launches, no atomics):
-//  1. dq kernel: one block owns 64 queries. Its prologue forms
-//     D_i = dO_i . O_i (= rowsum(P o dP)) and writes it for launch 2; then it
-//     streams 64-key tiles, recomputes S = Q K^T, P = exp(S / sqrt(C) + mask
-//     - lse) and dP = dO V^T, forms dS = P o (dP - D) / sqrt(C) and
-//     accumulates dQ = dS K in registers.
+// Backward design (flash-style, two launches, no atomics, so dq, dk and dv
+// are the same bits from run to run):
+//  1. dq kernel: one block owns 64 queries. It forms D_i = dO_i . O_i
+//     (= rowsum(P o dP)) and writes it for launch 2; then it streams 64-key
+//     tiles, recomputes S = Q K^T, P = exp(S / sqrt(C) + mask - lse) and
+//     dP = dO V^T, forms dS = P o (dP - D) and accumulates
+//     dQ = dS K / sqrt(C) in registers.
 //  2. dkv kernel: one block owns 64 keys and streams 64-query tiles,
 //     recomputing P^T and dP^T the same way, and accumulates dV = P^T dO and
-//     dK = dS^T Q in registers.
+//     dK = dS^T Q / sqrt(C) in registers.
 // Each recomputes the two score-sized products (7 products in all against
 // the 5 a saved attention needs) and keeps every [L, L] tile on chip; dq,
-// dk, dv are written in the input dtype. f32 inputs: operands f32 in shared
-// memory, softmax and accumulation f32, register-blocked CUDA-core FMAs.
-// bf16 inputs (the training encoder): the same two launches on tensor cores
-// (mma.sync m16n8k16, f32 accumulation; see "backward on tensor cores"
-// below), P and dS rounded to bf16 as the TPU kernel rounds them. wgmma and
-// TMA are left for a later change.
+// dk, dv are written in the input dtype.
+// - bf16 (the training encoder): on tensor cores with the forward's operand
+//   path (see "backward on tensor cores" at the end): mma.sync with ldmatrix
+//   fragments from row-major tiles, streaming tiles in a three-stage
+//   cp.async ring, the block's own Q and dO (dq) or K and V (dkv) fragments
+//   in registers, dkv split over 8 warps with P^T and dS^T through shared
+//   memory; P and dS rounded to bf16 as the TPU kernel rounds them.
+// - f32 (the f32 policy only): operands f32 in shared memory, softmax and
+//   accumulation f32, register-blocked CUDA-core FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -511,31 +515,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* rid,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------- backward on tensor cores (bf16)
-//
-// The bf16 backward runs its products as warp-level mma.sync m16n8k16
-// (bf16 operands, f32 accumulation), the same two launches and the same
-// recomputation as the CUDA-core kernels above. Tiles are bf16 in shared
-// memory, padded so that the 32-bit fragment loads of a warp fall on
-// distinct banks; each of the 4 warps owns 16 rows of the block's 64. The
-// recomputed S and dP stay in the accumulator registers; P and dS are
-// rounded to bf16 where they become the A operand of the next product (the
-// TPU kernel rounds them the same way), their f32 accumulator layout being
-// the A fragment layout of two adjacent 8-column tiles. Its operands are
-// 32-bit shared loads, not ldmatrix, and its tiles load synchronously: it
-// has not been given the forward's design yet.
-
-constexpr int MMA_THREADS = 128;
-constexpr int RS = C + 8;           // [64][RS] bf16 row-major tiles
-constexpr int TSB = 64 + 8;         // [C][TSB] bf16 transposed tiles
-constexpr size_t DQ_MMA_SMEM = sizeof(__nv_bfloat16) * (4 * 64 * RS + C * TSB) +
-                               sizeof(int) * 64;
-constexpr size_t DKV_MMA_SMEM = sizeof(__nv_bfloat16) * (4 * 64 * RS + 2 * C * TSB) +
-                                sizeof(float) * 2 * 64 + sizeof(int) * 64;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// ------------------------------------------------- tensor-core helpers (bf16)
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -551,272 +531,6 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 64 rows from r0 of a [L][C] bf16 window into a [64][RS] tile and,
-// optionally, its transpose [C][TSB]; rows past L are zero
-__device__ __forceinline__ void load_bf16(__nv_bfloat16* dst, __nv_bfloat16* dst_t,
-                                          const __nv_bfloat16* src, int r0, int L, int tid) {
-  for (int i = tid; i < 64 * (C / 8); i += MMA_THREADS) {
-    const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (r0 + r < L) val = *reinterpret_cast<const int4*>(src + (size_t)(r0 + r) * C + c8);
-    *reinterpret_cast<int4*>(dst + r * RS + c8) = val;
-    if (dst_t) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst_t[(c8 + j) * TSB + r] = e[j];
-    }
-  }
-}
-
-// acc[j] (j = 0..7: 8-column tiles of the 64 columns) += rows m0.. of A
-// ([64][RS], K = C) times the B rows ([64][RS], one per output column)
-__device__ __forceinline__ void mma_rows_x_rows(float acc[8][4], const __nv_bfloat16* A,
-                                                const __nv_bfloat16* B, int m0, int g,
-                                                int t) {
-#pragma unroll
-  for (int kk = 0; kk < C; kk += 16) {
-    uint32_t a[4];
-    a[0] = ld32(A + (m0 + g) * RS + kk + 2 * t);
-    a[1] = ld32(A + (m0 + g + 8) * RS + kk + 2 * t);
-    a[2] = ld32(A + (m0 + g) * RS + kk + 8 + 2 * t);
-    a[3] = ld32(A + (m0 + g + 8) * RS + kk + 8 + 2 * t);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      mma16816(acc[j], a, ld32(B + (j * 8 + g) * RS + kk + 2 * t),
-               ld32(B + (j * 8 + g) * RS + kk + 8 + 2 * t));
-  }
-}
-
-// out[n] (n = 0..15: 8-channel tiles of C) += X (the 16 x 64 f32 tile in
-// accumulator layout, rounded to bf16) times Bt ([C][TSB], K = the 64 columns)
-__device__ __forceinline__ void mma_tile_x_t(float out[16][4], const float x[8][4],
-                                             const __nv_bfloat16* Bt, int g, int t) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t a[4] = {pack_bf16(x[2 * i][0], x[2 * i][1]),
-                           pack_bf16(x[2 * i][2], x[2 * i][3]),
-                           pack_bf16(x[2 * i + 1][0], x[2 * i + 1][1]),
-                           pack_bf16(x[2 * i + 1][2], x[2 * i + 1][3])};
-#pragma unroll
-    for (int n = 0; n < 16; ++n)
-      mma16816(out[n], a, ld32(Bt + (n * 8 + g) * TSB + i * 16 + 2 * t),
-               ld32(Bt + (n * 8 + g) * TSB + i * 16 + 8 + 2 * t));
-  }
-}
-
-__global__ void __launch_bounds__(MMA_THREADS)
-window_attention_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
-                               const int* __restrict__ rid,
-                               const __nv_bfloat16* __restrict__ out,
-                               const __nv_bfloat16* __restrict__ dout,
-                               const float* __restrict__ lse, float* __restrict__ dsum,
-                               __nv_bfloat16* __restrict__ dq, int L, int n_rid) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [64][RS]
-  __nv_bfloat16* dos = qs + 64 * RS;                                 // [64][RS]
-  __nv_bfloat16* ks = dos + 64 * RS;                                 // [64][RS]
-  __nv_bfloat16* vs = ks + 64 * RS;                                  // [64][RS]
-  __nv_bfloat16* kt = vs + 64 * RS;                                  // [C][TSB]
-  int* r_s = reinterpret_cast<int*>(kt + C * TSB);                   // [64] key regions
-
-  const int w = blockIdx.y;
-  const int q0 = blockIdx.x * 64;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int m0 = warp * 16;
-  const size_t base = (size_t)w * L * C;
-  const int* rw = rid ? rid + (size_t)(w % n_rid) * L : nullptr;
-  const float sqrt_c = sqrtf((float)C);
-
-  load_bf16(qs, nullptr, q + base, q0, L, tid);
-  load_bf16(dos, nullptr, dout + base, q0, L, tid);
-  // D of this thread's two rows (m0+g, m0+g+8): the 4 lanes of a row split C
-  float lq[2], dq_row[2];
-  int rq[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int qi = q0 + m0 + g + 8 * h;
-    float d = 0.f;
-    if (qi < L) {
-      const size_t off = base + (size_t)qi * C + t * 32;
-      for (int c = 0; c < 32; ++c)
-        d = fmaf(__bfloat162float(dout[off + c]), __bfloat162float(out[off + c]), d);
-    }
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    d += __shfl_xor_sync(0xffffffffu, d, 2);
-    if (t == 0 && qi < L) dsum[(size_t)w * L + qi] = d;
-    dq_row[h] = d;
-    lq[h] = qi < L ? lse[(size_t)w * L + qi] : 0.f;
-    rq[h] = (rw && qi < L) ? rw[qi] : 0;
-  }
-  float acc[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += 64) {
-    __syncthreads();     // the previous key tile is no longer read
-    load_bf16(ks, kt, k + base, k0, L, tid);
-    load_bf16(vs, nullptr, v + base, k0, L, tid);
-    if (tid < 64) r_s[tid] = (rw && k0 + tid < L) ? rw[k0 + tid] : 0;
-    __syncthreads();
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_rows_x_rows(s, qs, ks, m0, g, t);     // S = Q K^T
-    mma_rows_x_rows(dp, dos, vs, m0, g, t);   // dP = dO V^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2, kl = j * 8 + 2 * t + (e & 1);
-        float p, ds;
-        p_ds(s[j][e], dp[j][e], lq[h], dq_row[h], rw && r_s[kl] != rq[h],
-             k0 + kl < L && q0 + m0 + g + 8 * h < L, sqrt_c, p, ds);
-        dp[j][e] = ds;
-      }
-    mma_tile_x_t(acc, dp, kt, g, t);          // dQ += dS K
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int qi = q0 + m0 + g + 8 * h;
-    if (qi >= L) continue;
-    __nv_bfloat16* o = dq + base + (size_t)qi * C;
-#pragma unroll
-    for (int n = 0; n < 16; ++n)
-      *reinterpret_cast<uint32_t*>(o + n * 8 + 2 * t) = pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]);
-  }
-}
-
-__global__ void __launch_bounds__(MMA_THREADS)
-window_attention_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k,
-                                const __nv_bfloat16* __restrict__ v,
-                                const int* __restrict__ rid,
-                                const __nv_bfloat16* __restrict__ dout,
-                                const float* __restrict__ lse,
-                                const float* __restrict__ dsum,
-                                __nv_bfloat16* __restrict__ dk,
-                                __nv_bfloat16* __restrict__ dv, int L, int n_rid) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [64][RS]
-  __nv_bfloat16* vs = ks + 64 * RS;                                  // [64][RS]
-  __nv_bfloat16* qs = vs + 64 * RS;                                  // [64][RS]
-  __nv_bfloat16* dos = qs + 64 * RS;                                 // [64][RS]
-  __nv_bfloat16* qt = dos + 64 * RS;                                 // [C][TSB]
-  __nv_bfloat16* dot = qt + C * TSB;                                 // [C][TSB]
-  float* l_s = reinterpret_cast<float*>(dot + C * TSB);              // [64]
-  float* d_s = l_s + 64;                                             // [64]
-  int* r_s = reinterpret_cast<int*>(d_s + 64);                       // [64] query regions
-
-  const int w = blockIdx.y;
-  const int k0 = blockIdx.x * 64;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int m0 = warp * 16;
-  const size_t base = (size_t)w * L * C;
-  const int* rw = rid ? rid + (size_t)(w % n_rid) * L : nullptr;
-  const float sqrt_c = sqrtf((float)C);
-
-  load_bf16(ks, nullptr, k + base, k0, L, tid);
-  load_bf16(vs, nullptr, v + base, k0, L, tid);
-  int rk[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = k0 + m0 + g + 8 * h;
-    rk[h] = (rw && key < L) ? rw[key] : 0;
-  }
-  float acc_v[16][4], acc_k[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_v[n][e] = acc_k[n][e] = 0.f;
-
-  for (int q0 = 0; q0 < L; q0 += 64) {
-    __syncthreads();     // the previous query tile is no longer read
-    load_bf16(qs, qt, q + base, q0, L, tid);
-    load_bf16(dos, dot, dout + base, q0, L, tid);
-    if (tid < 64) {
-      const bool ok = q0 + tid < L;
-      l_s[tid] = ok ? lse[(size_t)w * L + q0 + tid] : 0.f;
-      d_s[tid] = ok ? dsum[(size_t)w * L + q0 + tid] : 0.f;
-      r_s[tid] = (rw && ok) ? rw[q0 + tid] : 0;
-    }
-    __syncthreads();
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_rows_x_rows(s, ks, qs, m0, g, t);     // S^T = K Q^T
-    mma_rows_x_rows(dp, vs, dos, m0, g, t);   // dP^T = V dO^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2, ql = j * 8 + 2 * t + (e & 1);
-        float p, ds;
-        p_ds(s[j][e], dp[j][e], l_s[ql], d_s[ql], rw && r_s[ql] != rk[h],
-             q0 + ql < L && k0 + m0 + g + 8 * h < L, sqrt_c, p, ds);
-        s[j][e] = p;
-        dp[j][e] = ds;
-      }
-    mma_tile_x_t(acc_v, s, dot, g, t);        // dV += P^T dO
-    mma_tile_x_t(acc_k, dp, qt, g, t);        // dK += dS^T Q
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = k0 + m0 + g + 8 * h;
-    if (key >= L) continue;
-    __nv_bfloat16* ok = dk + base + (size_t)key * C;
-    __nv_bfloat16* ov = dv + base + (size_t)key * C;
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      *reinterpret_cast<uint32_t*>(ok + n * 8 + 2 * t) =
-          pack_bf16(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(ov + n * 8 + 2 * t) =
-          pack_bf16(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
-    }
-  }
-}
-
-int launch_bwd_mma(const void* q, const void* k, const void* v, const void* rid,
-                   const void* out, const void* dout, const void* lse, void* dsum,
-                   void* dq, void* dk, void* dv, int BW, int L, int channels, int n_rid,
-                   cudaStream_t stream) {
-  if (channels != C || BW <= 0 || L <= 0 || (rid && n_rid <= 0) || !lse || !dsum)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(window_attention_dq_mma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)DQ_MMA_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(window_attention_dkv_mma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_MMA_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  using bf = __nv_bfloat16;
-  dim3 grid((L + 63) / 64, BW);
-  window_attention_dq_mma_kernel<<<grid, MMA_THREADS, DQ_MMA_SMEM, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const int*>(rid), static_cast<const bf*>(out),
-      static_cast<const bf*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(dsum), static_cast<bf*>(dq), L, n_rid);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  window_attention_dkv_mma_kernel<<<grid, MMA_THREADS, DKV_MMA_SMEM, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const int*>(rid), static_cast<const bf*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<bf*>(dk),
-      static_cast<bf*>(dv), L, n_rid);
-  return (int)cudaGetLastError();
 }
 
 // -------------------------------------------- forward on tensor cores (bf16)
@@ -881,11 +595,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// 64 rows from r0 of a [L][C] bf16 window into a [64][FS] tile; rows past L zero
+// 64 rows from r0 of a [L][C] bf16 window into a [64][FS] tile by NT threads;
+// rows past L zero
+template <int NT = FWD_THREADS>
 __device__ __forceinline__ void cp_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
                                         int L, int tid) {
 #pragma unroll
-  for (int i = tid; i < 64 * (C / 8); i += FWD_THREADS) {
+  for (int i = tid; i < 64 * (C / 8); i += NT) {
     const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
     const bool ok = r0 + r < L;
     cp_async16(dst + r * FS + c8, src + (ok ? (size_t)(r0 + r) * C + c8 : 0), ok);
@@ -1076,6 +792,486 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, const void* rid,
   window_attention_fwd_mma_kernel<<<grid, FWD_THREADS, FWD_SMEM, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
       static_cast<const int*>(rid), static_cast<bf*>(out), static_cast<float*>(lse), L, n_rid);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------- backward on tensor cores (bf16)
+//
+// Replaces the backward of matchnerf_tpu/ops/pallas_window_attention.py::
+// fused_window_attention (its bwd pallas_call, which reads the saved
+// [BW, L, L] attention). What bounds it: at [24, 1280, 128] the function is
+// 5 score-sized products (the S recompute, dP, dV, dQ and dK: 50.3 GFLOP)
+// against ~40 MB of inputs and gradients, so operations bound it: 0.0509 ms
+// at the bf16 tensor-core peak. Two launches and no atomics (dq, dk and dv
+// are the same bits from run to run) cost 7 products, since each launch
+// recomputes S and dP.
+//
+// What the design does about it: every product takes the forward's operand
+// path, mma.sync m16n8k16 (bf16 operands, f32 accumulation) fed by
+// ldmatrix, and shared-memory reads per mma are kept low, since they, more
+// than the tensor cores, set the pace of such a kernel. Every tile is bf16
+// and row-major in 272-byte rows, so the 8 row addresses of each ldmatrix
+// fall on distinct banks, and no tile is transposed in shared memory: B
+// fragments come by ldmatrix where a product reads a tile's rows along its
+// K dimension (K and V in S = Q K^T and dP = dO V^T, Q and dO in
+// S^T = K Q^T and dP^T = V dO^T) and by ldmatrix.trans where it reads
+// columns (K in dQ += dS K, dO and Q in dV += P^T dO and dK += dS^T Q).
+// Streaming tiles run in a ring of three stages filled by cp.async,
+// zero-filled past L: a tile loads two tiles ahead of its use, and one
+// barrier a tile both publishes it and frees the stage it overwrites (the
+// third stage first holds the block's own rows, which go to registers).
+// P and dS are rounded to bf16 where they become an A operand, as the TPU
+// kernel rounds its attention and dS; the softmax is recomputed in base-2
+// units (ex2) from the natural-log lse, converted once per row.
+//  1. dq: 4 warps x 16 queries, 2 blocks per SM. The warp's Q and dO
+//     fragments stay in registers for the whole key loop. While the first
+//     tiles load, two lanes per row form D_i = dO_i . O_i from 16-byte
+//     loads and write it for launch 2. Per 64-key tile (K, V and the key
+//     region ids) and per 32-key half: S and dP in the accumulators,
+//     dS = P o (dP - D) in place, whose accumulator layout is the A
+//     fragment of dQ += dS K.
+//  2. dkv: 8 warps per 64 keys, 1 block per SM; warp w keeps the K and V
+//     fragments of keys 16 (w % 4) .. in registers. Per 64-query tile (Q,
+//     dO, and the queries' lse, D and region ids) it forms S^T and dP^T for
+//     those keys x queries 32 (w / 4) .. and writes P^T and dS^T to shared
+//     memory as bf16; after a barrier it accumulates dV += P^T dO and
+//     dK += dS^T Q for keys 32 (w % 2) .. x channels 32 (w / 2) .., so each
+//     dO and Q fragment feeds two 16-key row tiles: 64 f32 accumulators a
+//     thread, and nothing spills.
+// 1/sqrt(C) of dQ and dK is applied in the epilogues, which stage the
+// gradients in shared memory for 16-byte stores. wgmma, TMA and warp
+// specialisation are left for a later change.
+
+constexpr int DQ_THREADS = 128;
+constexpr size_t DQ_SMEM = sizeof(__nv_bfloat16) * 6 * FWD_TILE + sizeof(int) * 3 * 64;
+constexpr int DKV_THREADS = 256;
+constexpr int PS = 64 + 8;                       // [64][PS] bf16 P^T, dS^T: 144-byte rows
+constexpr size_t DKV_SMEM = sizeof(__nv_bfloat16) * (6 * FWD_TILE + 2 * 64 * PS) +
+                            (2 * sizeof(float) + sizeof(int)) * 3 * 64;
+
+__global__ void __launch_bounds__(DQ_THREADS, 2)
+window_attention_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const int* __restrict__ rid,
+                               const __nv_bfloat16* __restrict__ out,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse, float* __restrict__ dsum,
+                               __nv_bfloat16* __restrict__ dq, int L, int n_rid) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // three stages of K and V tiles; the third holds Q and dO until their
+  // fragments are in registers, and dQ at the end
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [64][FS] Q, dQ
+  __nv_bfloat16* dos = qs + FWD_TILE;                                // [64][FS] dO
+  __nv_bfloat16* ks = dos + FWD_TILE;                                // [2][64][FS]
+  __nv_bfloat16* vs = ks + 2 * FWD_TILE;                             // [2][64][FS]
+  int* rs = reinterpret_cast<int*>(vs + 2 * FWD_TILE);               // [3][64] key regions
+  auto k_st = [&](int st) { return st < 2 ? ks + st * FWD_TILE : qs; };
+  auto v_st = [&](int st) { return st < 2 ? vs + st * FWD_TILE : dos; };
+
+  const int w = blockIdx.y;
+  const int q0 = blockIdx.x * 64;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const size_t base = (size_t)w * L * C;
+  const int* rw = rid ? rid + (size_t)(w % n_rid) * L : nullptr;
+  const int n_tiles = (L + 63) / 64;
+  const float scale = LOG2E / sqrtf((float)C);     // scores in base-2 units
+  const float mask = -100.f * LOG2E;
+
+  auto load_tile = [&](int tile) {
+    const int k0 = tile * 64, st = tile % 3;
+    cp_rows<DQ_THREADS>(k_st(st), k + base, k0, L, tid);
+    cp_rows<DQ_THREADS>(v_st(st), v + base, k0, L, tid);
+    if (rw && tid < 64) cp_async4(rs + st * 64 + tid, rw + min(k0 + tid, L - 1), k0 + tid < L);
+  };
+  cp_rows<DQ_THREADS>(qs, q + base, q0, L, tid);
+  cp_rows<DQ_THREADS>(dos, dout + base, q0, L, tid);
+  cp_async_commit();
+  load_tile(0);
+  cp_async_commit();
+  if (n_tiles > 1) load_tile(1);
+  cp_async_commit();
+
+  // D_i = dO_i . O_i: lanes 2r and 2r+1 take 64 channels each of the warp's
+  // own query row r, with 16-byte loads
+  float d = 0.f;
+  {
+    const int qi = q0 + tid / 2;
+    if (qi < L) {
+      const size_t off = base + (size_t)qi * C + (tid & 1) * 64;
+      const int4* po = reinterpret_cast<const int4*>(out + off);
+      const int4* pd = reinterpret_cast<const int4*>(dout + off);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int4 a = po[i], b = pd[i];
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 fa = __bfloat1622float2(a2[j]), fb = __bfloat1622float2(b2[j]);
+          d = fmaf(fa.x, fb.x, d);
+          d = fmaf(fa.y, fb.y, d);
+        }
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if ((tid & 1) == 0 && qi < L) dsum[(size_t)w * L + qi] = d;
+  }
+  // this thread's rows m0+g and m0+g+8: D, lse in base-2 units, region
+  float dr[2], lr[2];
+  int rq[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + warp * 16 + g + 8 * h;
+    dr[h] = __shfl_sync(0xffffffffu, d, 2 * g + 16 * h);
+    lr[h] = qi < L ? lse[(size_t)w * L + qi] * LOG2E : 0.f;
+    rq[h] = (rw && qi < L) ? rw[qi] : 0;
+  }
+
+  cp_async_wait<2>();                   // the Q and dO tiles
+  __syncthreads();
+  uint32_t qf[C / 16][4], df[C / 16][4];  // the warp's 16 rows of Q and dO as A fragments
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk) {
+    const int off = (warp * 16 + (lane & 15)) * FS + kk * 16 + (lane >> 4) * 8;
+    ldsm_x4(qf[kk], qs + off);
+    ldsm_x4(df[kk], dos + off);
+  }
+
+  float acc[C / 8][4];
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<1>();                 // this tile
+    // one barrier a tile: this tile is visible, and every warp is done with
+    // the stage that tile + 2 overwrites (tile - 1's, or Q and dO)
+    __syncthreads();
+    if (tile + 2 < n_tiles) load_tile(tile + 2);
+    cp_async_commit();
+    const __nv_bfloat16* kt = k_st(tile % 3);
+    const __nv_bfloat16* vt = v_st(tile % 3);
+    const int* rk = rs + (tile % 3) * 64;
+    const int k0 = tile * 64;
+
+#pragma unroll
+    for (int kh = 0; kh < 64; kh += 32) {          // 32 keys at a time
+      // S = Q K^T and dP = dO V^T: 4 column tiles of 8 keys each
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          const int off = (kh + (2 * jp + (lane >> 4)) * 8 + (lane & 7)) * FS + kk * 16 +
+                          ((lane >> 3) & 1) * 8;
+          uint32_t b[4];
+          ldsm_x4(b, kt + off);
+          mma16816(s[2 * jp], qf[kk], b[0], b[1]);
+          mma16816(s[2 * jp + 1], qf[kk], b[2], b[3]);
+          ldsm_x4(b, vt + off);
+          mma16816(dp[2 * jp], df[kk], b[0], b[1]);
+          mma16816(dp[2 * jp + 1], df[kk], b[2], b[3]);
+        }
+
+      // dS = P o (dP - D), P = 2^(S scale + mask - lse); keys past L give 0
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kl = kh + j * 8 + 2 * t;
+        const int2 r2 = rw ? *reinterpret_cast<const int2*>(rk + kl) : make_int2(0, 0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2;
+          const int rkey = (e & 1) ? r2.y : r2.x;
+          float p = 0.f;
+          if (k0 + kl + (e & 1) < L)
+            p = ex2(s[j][e] * scale + ((rw && rkey != rq[h]) ? mask : 0.f) - lr[h]);
+          s[j][e] = p * (dp[j][e] - dr[h]);
+        }
+      }
+
+      // dQ += dS K: dS's accumulator layout is the A fragment of 16 keys;
+      // K's B fragments by ldmatrix.trans from its row-major tile
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t a[4] = {pack_bf16(s[2 * i][0], s[2 * i][1]),
+                               pack_bf16(s[2 * i][2], s[2 * i][3]),
+                               pack_bf16(s[2 * i + 1][0], s[2 * i + 1][1]),
+                               pack_bf16(s[2 * i + 1][2], s[2 * i + 1][3])};
+#pragma unroll
+        for (int np = 0; np < C / 16; ++np) {
+          uint32_t b[4];
+          ldsm_x4_t(b, kt + (kh + i * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * FS +
+                           (2 * np + (lane >> 4)) * 8);
+          mma16816(acc[2 * np], a, b[0], b[1]);
+          mma16816(acc[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+  __syncthreads();                      // the third stage may hold the last tile
+
+  // dQ / sqrt(C), staged in the warp's own rows of the Q tile
+  const float inv_sqrt_c = 1.f / sqrtf((float)C);
+  __nv_bfloat16* os = qs + warp * 16 * FS;
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(os + (g + 8 * h) * FS + n * 8 + 2 * t) =
+          pack_bf16(acc[n][2 * h] * inv_sqrt_c, acc[n][2 * h + 1] * inv_sqrt_c);
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * (C / 8); i += 32) {
+    const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
+    const int qi = q0 + warp * 16 + r;
+    if (qi < L)
+      *reinterpret_cast<int4*>(dq + base + (size_t)qi * C + c8) =
+          *reinterpret_cast<const int4*>(os + r * FS + c8);
+  }
+}
+
+__global__ void __launch_bounds__(DKV_THREADS, 1)
+window_attention_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                const int* __restrict__ rid,
+                                const __nv_bfloat16* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ dsum,
+                                __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int L, int n_rid) {
+  // three stages of Q and dO tiles; the third holds K and V until their
+  // fragments are in registers, and dK and dV at the end
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [64][FS] K, dK
+  __nv_bfloat16* vs = ks + FWD_TILE;                                 // [64][FS] V, dV
+  __nv_bfloat16* qs = vs + FWD_TILE;                                 // [2][64][FS]
+  __nv_bfloat16* dos = qs + 2 * FWD_TILE;                            // [2][64][FS]
+  __nv_bfloat16* pt = dos + 2 * FWD_TILE;                            // [64][PS] P^T
+  __nv_bfloat16* dst = pt + 64 * PS;                                 // [64][PS] dS^T
+  float* ls = reinterpret_cast<float*>(dst + 64 * PS);               // [3][64] queries' lse
+  float* dss = ls + 3 * 64;                                          // [3][64] queries' D
+  int* rs = reinterpret_cast<int*>(dss + 3 * 64);                    // [3][64] query regions
+  auto q_st = [&](int st) { return st < 2 ? qs + st * FWD_TILE : ks; };
+  auto do_st = [&](int st) { return st < 2 ? dos + st * FWD_TILE : vs; };
+
+  const int w = blockIdx.y;
+  const int k0 = blockIdx.x * 64;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  // S^T and dP^T: keys m0 .. m0+15 x queries 32 half ..;
+  // dK and dV: keys 32 kp .. x channels 32 cq ..
+  const int m0 = (warp & 3) * 16, half = warp >> 2;
+  const int kp = warp & 1, cq = warp >> 1;
+  const size_t base = (size_t)w * L * C;
+  const int* rw = rid ? rid + (size_t)(w % n_rid) * L : nullptr;
+  const int n_tiles = (L + 63) / 64;
+  const float scale = LOG2E / sqrtf((float)C);
+  const float mask = -100.f * LOG2E;
+
+  auto load_tile = [&](int tile) {
+    const int q0 = tile * 64, st = tile % 3;
+    cp_rows<DKV_THREADS>(q_st(st), q + base, q0, L, tid);
+    cp_rows<DKV_THREADS>(do_st(st), dout + base, q0, L, tid);
+    const int r = tid & 63;
+    const bool ok = q0 + r < L;
+    const size_t qi = (size_t)min(q0 + r, L - 1);
+    if (tid < 64)
+      cp_async4(ls + st * 64 + r, lse + (size_t)w * L + qi, ok);
+    else if (tid < 128)
+      cp_async4(dss + st * 64 + r, dsum + (size_t)w * L + qi, ok);
+    else if (rw && tid < 192)
+      cp_async4(rs + st * 64 + r, rw + qi, ok);
+  };
+  cp_rows<DKV_THREADS>(ks, k + base, k0, L, tid);
+  cp_rows<DKV_THREADS>(vs, v + base, k0, L, tid);
+  cp_async_commit();
+  load_tile(0);
+  cp_async_commit();
+  if (n_tiles > 1) load_tile(1);
+  cp_async_commit();
+
+  int rk[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + m0 + g + 8 * h;
+    rk[h] = (rw && key < L) ? rw[key] : 0;
+  }
+  cp_async_wait<2>();                   // the K and V tiles
+  __syncthreads();
+  uint32_t kf[C / 16][4], vf[C / 16][4];  // the warp's 16 keys of K and V as A fragments
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk) {
+    const int off = (m0 + (lane & 15)) * FS + kk * 16 + (lane >> 4) * 8;
+    ldsm_x4(kf[kk], ks + off);
+    ldsm_x4(vf[kk], vs + off);
+  }
+  float acc_k[2][4][4], acc_v[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[mt][n][e] = acc_v[mt][n][e] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<1>();                 // this tile
+    // this tile is visible, and every warp is done with tile - 1: its stage,
+    // which tile + 2 overwrites (or K and V), and P^T and dS^T
+    __syncthreads();
+    if (tile + 2 < n_tiles) load_tile(tile + 2);
+    cp_async_commit();
+    const int st = tile % 3;
+    const __nv_bfloat16* qt = q_st(st);
+    const __nv_bfloat16* dot = do_st(st);
+    const float* lt = ls + st * 64;
+    const float* dt = dss + st * 64;
+    const int* rt = rs + st * 64;
+
+    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x 32 queries
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        const int boff = (half * 32 + (2 * jp + (lane >> 4)) * 8 + (lane & 7)) * FS + kk * 16 +
+                         ((lane >> 3) & 1) * 8;
+        uint32_t b[4];
+        ldsm_x4(b, qt + boff);
+        mma16816(s[2 * jp], kf[kk], b[0], b[1]);
+        mma16816(s[2 * jp + 1], kf[kk], b[2], b[3]);
+        ldsm_x4(b, dot + boff);
+        mma16816(dp[2 * jp], vf[kk], b[0], b[1]);
+        mma16816(dp[2 * jp + 1], vf[kk], b[2], b[3]);
+      }
+
+    // P^T = 2^(S^T scale + mask - lse) and dS^T = P^T o (dP^T - D), as bf16
+    // in shared memory. Query rows past L were zero-filled (Q, dO, lse, D),
+    // so they add nothing below.
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ql = half * 32 + j * 8 + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + ql);
+      const float2 d2 = *reinterpret_cast<const float2*>(dt + ql);
+      const int2 r2 = rw ? *reinterpret_cast<const int2*>(rt + ql) : make_int2(0, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = ex2(s[j][2 * h] * scale + ((rw && r2.x != rk[h]) ? mask : 0.f) -
+                             l2.x * LOG2E);
+        const float p1 = ex2(s[j][2 * h + 1] * scale + ((rw && r2.y != rk[h]) ? mask : 0.f) -
+                             l2.y * LOG2E);
+        const int off = (m0 + g + 8 * h) * PS + ql;
+        *reinterpret_cast<uint32_t*>(pt + off) = pack_bf16(p0, p1);
+        *reinterpret_cast<uint32_t*>(dst + off) =
+            pack_bf16(p0 * (dp[j][2 * h] - d2.x), p1 * (dp[j][2 * h + 1] - d2.y));
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q: the warp's 32 keys x 32 channels, K =
+    // the tile's 64 queries; dO and Q B fragments by ldmatrix.trans, each
+    // feeding both 16-key row tiles
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t ap[2][4], ad[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int aoff = (kp * 32 + mt * 16 + (lane & 15)) * PS + i * 16 + (lane >> 4) * 8;
+        ldsm_x4(ap[mt], pt + aoff);
+        ldsm_x4(ad[mt], dst + aoff);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int boff = (i * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * FS + cq * 32 +
+                         (2 * np + (lane >> 4)) * 8;
+        uint32_t b[4];
+        ldsm_x4_t(b, dot + boff);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma16816(acc_v[mt][2 * np], ap[mt], b[0], b[1]);
+          mma16816(acc_v[mt][2 * np + 1], ap[mt], b[2], b[3]);
+        }
+        ldsm_x4_t(b, qt + boff);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma16816(acc_k[mt][2 * np], ad[mt], b[0], b[1]);
+          mma16816(acc_k[mt][2 * np + 1], ad[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+  __syncthreads();                      // the third stage may hold the last tile
+
+  // dK / sqrt(C) and dV, staged in the K and V tiles (read no more)
+  const float inv_sqrt_c = 1.f / sqrtf((float)C);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int off = (kp * 32 + mt * 16 + g + 8 * h) * FS + cq * 32 + n * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(ks + off) = pack_bf16(
+            acc_k[mt][n][2 * h] * inv_sqrt_c, acc_k[mt][n][2 * h + 1] * inv_sqrt_c);
+        *reinterpret_cast<uint32_t*>(vs + off) =
+            pack_bf16(acc_v[mt][n][2 * h], acc_v[mt][n][2 * h + 1]);
+      }
+  __syncthreads();
+#pragma unroll
+  for (int i = tid; i < 64 * (C / 8); i += DKV_THREADS) {
+    const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
+    if (k0 + r < L) {
+      const size_t o = base + (size_t)(k0 + r) * C + c8;
+      *reinterpret_cast<int4*>(dk + o) = *reinterpret_cast<const int4*>(ks + r * FS + c8);
+      *reinterpret_cast<int4*>(dv + o) = *reinterpret_cast<const int4*>(vs + r * FS + c8);
+    }
+  }
+}
+
+int launch_bwd_mma(const void* q, const void* k, const void* v, const void* rid,
+                   const void* out, const void* dout, const void* lse, void* dsum,
+                   void* dq, void* dk, void* dv, int BW, int L, int channels, int n_rid,
+                   cudaStream_t stream) {
+  const uintptr_t addr_bits =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
+      reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+      reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
+  if (channels != C || BW <= 0 || L <= 0 || (rid && n_rid <= 0) || !lse || !dsum ||
+      addr_bits % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(window_attention_dq_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(window_attention_dkv_mma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  using bf = __nv_bfloat16;
+  dim3 grid((L + 63) / 64, BW);
+  window_attention_dq_mma_kernel<<<grid, DQ_THREADS, DQ_SMEM, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const int*>(rid), static_cast<const bf*>(out),
+      static_cast<const bf*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(dsum), static_cast<bf*>(dq), L, n_rid);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  window_attention_dkv_mma_kernel<<<grid, DKV_THREADS, DKV_SMEM, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
+      static_cast<const int*>(rid), static_cast<const bf*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<bf*>(dk),
+      static_cast<bf*>(dv), L, n_rid);
   return (int)cudaGetLastError();
 }
 

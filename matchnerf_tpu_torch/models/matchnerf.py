@@ -292,7 +292,21 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
     """Render rays [B,R,2] of target pixels (matchnerf.py:422); block_ut,
     color_ut and fused_cosine as in `query_cond_info`; stratified,
     generator and depth_rand as `sample_depth`'s stratified, generator and
-    rand. Returns dict(rgb [B,R,3], depth [B,R,1], opacity [B,R,1])."""
+    rand. Returns dict(rgb [B,R,3], depth [B,R,1], opacity [B,R,1]).
+
+    On the eval decoder route (precision.decoder_kernel, autograd not
+    recording) `precision.decoder_matmul_dtype: bf16` raises
+    NotImplementedError: the JAX package then rounds the decoder's wide
+    matmul operands to bf16, which neither Kernel C nor its plain version
+    does."""
+    eval_decoder = (bool(_precision_get(cfg, "decoder_kernel", False))
+                    and not torch.is_grad_enabled())
+    if eval_decoder and str(_precision_get(cfg, "decoder_matmul_dtype", "")) in (
+            "bf16", "bfloat16"):
+        raise NotImplementedError(
+            "precision.decoder_matmul_dtype: bf16 is not ported: it would have to match "
+            "matchnerf_tpu/ops/pallas_decoder.py::cond_nerf_decode with matmul_dtype=bf16; "
+            "use float32")
     B, R = pix_xy.shape[:2]
     center, ray = camera.get_center_and_ray(pix_xy, tgt_intr, tgt_c2w)
     depth_samples = sample_depth(cfg, tgt_near_far, B, R, stratified=stratified,
@@ -309,7 +323,7 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
     ray_unit_ref = (ray_unit @ R0.transpose(-1, -2))[:, :, None, :] \
         .expand(*pts_3d.shape[:3], 3).contiguous()
 
-    if bool(_precision_get(cfg, "decoder_kernel", False)) and not torch.is_grad_enabled():
+    if eval_decoder:
         # Kernel C, or its plain version in the all-plain reference
         decode = cond_nerf_decode if kernel else cond_nerf_decode_plain
         rgb, depth, opacity = decode(model.nerf_dec, cfg, ndc_view0.contiguous(),

@@ -16,8 +16,11 @@ w % (K*K)) — the reference order, mask after scaling. Softmax in f32.
 On CUDA tensors, `window_attention` launches the forward kernel alone when
 autograd is not recording (eval), and otherwise goes through
 `WindowAttentionFn`: the forward kernel also writes the per-row
-logsumexp, and the backward kernels recompute the attention from it
-(dq, dk, dv in the input dtype).
+logsumexp, and the backward kernels (`window_attention_backward`)
+recompute the attention from it (dq, dk, dv in the input dtype; two
+launches, no atomics, so the gradients are the same bits from run to run).
+The bf16 kernels run on tensor cores and take only 16-byte-aligned
+tensors: their launchers refuse others, and the wrapper then raises.
 """
 from __future__ import annotations
 
@@ -98,6 +101,22 @@ def window_attention_forward(q, k, v, region_ids=None, with_lse: bool = False):
     return out, lse
 
 
+def window_attention_backward(q, k, v, out, lse, dout, region_ids=None):
+    """The backward kernels alone on CUDA tensors: (dq, dk, dv) in q's dtype
+    from the forward's inputs, its output and logsumexp (f32 [BW,L]) and
+    the output gradient."""
+    dout = dout.to(q.dtype).contiguous()
+    bw, L, c = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dsum = torch.empty(bw, L, dtype=torch.float32, device=q.device)
+    kernels.launch(BWD_COUNTER, f"window_attention_bwd_{_suffix(q)}", q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), kernels.ptr(region_ids), out.data_ptr(),
+                   dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), bw, L, c,
+                   0 if region_ids is None else region_ids.shape[0])
+    return dq, dk, dv
+
+
 class WindowAttentionFn(torch.autograd.Function):
     """Kernel A' on CUDA tensors: saves q, k, v, out and the logsumexp."""
 
@@ -111,17 +130,7 @@ class WindowAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        rid = ctx.region_ids
-        dout = dout.to(q.dtype).contiguous()
-        bw, L, c = q.shape
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        dsum = torch.empty(bw, L, dtype=torch.float32, device=q.device)
-        kernels.launch(BWD_COUNTER, f"window_attention_bwd_{_suffix(q)}", q.data_ptr(),
-                       k.data_ptr(), v.data_ptr(), kernels.ptr(rid), out.data_ptr(),
-                       dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-                       dk.data_ptr(), dv.data_ptr(), bw, L, c,
-                       0 if rid is None else rid.shape[0])
-        return dq, dk, dv, None
+        return (*window_attention_backward(q, k, v, out, lse, dout, ctx.region_ids), None)
 
 
 def window_attention(q, k, v, region_ids=None):

@@ -25,8 +25,10 @@ Kernel B, the same function by another route).
 The training kernels against autograd through the plain versions: A'
 (window attention backward; f32 1e-4 and bf16 3e-2 of the largest
 gradient, the plain backward rounding dA and A to bf16 where the kernel
-keeps f32), B' (cosine-prior table gradient, atomics in any order: 1e-5 of
-the largest gradient) and D' (f32 block forward 1e-5, and its table
+keeps f32; the bf16 backward also at the training shape [24,1280,128], at
+a ragged L = 100 and with fewer region rows than windows, and bit-equal
+from run to run), B' (cosine-prior table gradient, atomics in any order:
+1e-5 of the largest gradient) and D' (f32 block forward 1e-5, and its table
 gradient 1e-5 of the largest, also against B', the same function).
 """
 import pytest
@@ -287,6 +289,59 @@ def test_window_attention_backward_kernel(dev, dtype, tol, shift):
     for a, b in zip(*grads):
         assert a.dtype == dtype
         _grad_close(a, b, tol)
+
+
+def _window_grads(fn, q, k, v, do, rid):
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fn(qq, kk, vv, rid)
+    out.backward(do)
+    torch.cuda.synchronize()
+    return out.detach(), qq.grad, kk.grad, vv.grad
+
+
+@pytest.mark.parametrize("case", ["dtu_unmasked", "dtu_shift", "ragged_L100_unmasked",
+                                  "ragged_L100_shift", "n_rid_3_of_7"])
+def test_window_attention_backward_bf16_cases(dev, case):
+    """The bf16 backward against autograd through the plain version, 3e-2 of
+    the largest gradient: at the training shape [24,1280,128] (2x2 windows
+    of the 64x80 1/8-scale map), at L = 100 (not a multiple of 16: one
+    partial tile of keys and of queries), and with 3 region rows for 7
+    windows (window w takes row w % 3)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    if case.startswith("dtu"):
+        bw, hw = 24, (64, 80)
+    elif case.startswith("ragged"):
+        bw, hw = 8, (20, 20)
+    else:
+        bw, hw = 7, (16, 40)
+    rid = shift_region_ids(*hw, 2, device=dev)
+    L = rid.shape[1]
+    if case == "n_rid_3_of_7":
+        rid = torch.randint(0, 4, (3, L), generator=g, device=dev, dtype=torch.int32)
+    elif case.endswith("unmasked"):
+        rid = None
+    q, k, v, do = (torch.randn(bw, L, 128, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    before = ka.BWD_COUNTER.launches
+    got = _window_grads(ka.window_attention, q, k, v, do, rid)
+    assert ka.BWD_COUNTER.launches == before + 1
+    ref = _window_grads(ka.window_attention_plain, q, k, v, do, rid)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+        _grad_close(a, b, 3e-2)
+
+
+def test_window_attention_backward_bf16_deterministic(dev):
+    """Two launches and no atomics: the same inputs give dq, dk and dv bit
+    for bit."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    rid = shift_region_ids(64, 80, 2, device=dev)
+    q, k, v, do = (torch.randn(24, 1280, 128, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    first = _window_grads(ka.window_attention, q, k, v, do, rid)[1:]
+    second = _window_grads(ka.window_attention, q, k, v, do, rid)[1:]
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _f32_table(g, dev, h, w):

@@ -163,6 +163,43 @@ def test_overflowing_union_falls_back(monkeypatch):
     assert psnr >= 90.0, f"fallback changed the image: {psnr:.1f} dB"
 
 
+def _port_setup(precision):
+    """The tiny config with seeded port weights (no JAX weights needed)."""
+    from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+    cfg = DotDict(dict(ge._tiny_cfg(n_layers=1, sample_intvs=16)))
+    cfg.precision = DotDict(precision)
+    model = init_matchnerf(cfg, torch.Generator().manual_seed(0))
+    d = ge._synthetic_inputs(cfg, 1, H, W, R=16)
+    batch = {"images": d["images"], "extrinsics": d["poses"],
+             "intrinsics": d["intr"], "near_fars": d["near_fars"]}
+    return cfg, model, batch
+
+
+@pytest.mark.parametrize("value,kernel", [("bf16", True), ("bfloat16", True),
+                                          ("bf16", False)])
+def test_decoder_matmul_dtype_bf16_is_refused(value, kernel):
+    """precision.decoder_matmul_dtype: bf16 on the eval decoder route (the
+    JAX Pallas decoder with bf16 operands, not ported) raises, on the kernel
+    path and in the all-plain reference alike."""
+    cfg, model, batch = _port_setup(dict(SLICE_F32, decoder_matmul_dtype=value))
+    with pytest.raises(NotImplementedError, match="pallas_decoder.py::cond_nerf_decode"):
+        Renderer(cfg, model, "cpu", kernel=kernel).forward(batch, mode="test")
+
+
+def test_decoder_matmul_dtype_float32_renders_as_before():
+    """float32 renders the image the absent key renders; under
+    precision.strict the key reads float32 and the render goes through."""
+    cfg, model, batch = _port_setup(SLICE_F32)
+    ref = Renderer(cfg, model, "cpu").forward(batch, mode="test")
+    cfg.precision = DotDict(dict(SLICE_F32, decoder_matmul_dtype="float32"))
+    out = Renderer(cfg, model, "cpu").forward(batch, mode="test")
+    for k in ("rgb", "depth", "opacity"):
+        torch.testing.assert_close(out[k], ref[k], atol=0, rtol=0)
+    cfg.precision = DotDict(dict(SLICE_F32, decoder_matmul_dtype="bf16", strict=True))
+    out = Renderer(cfg, model, "cpu").forward(batch, mode="test")
+    assert all(bool(torch.isfinite(out[k]).all()) for k in ("rgb", "depth", "opacity"))
+
+
 def test_batched_block_path_splits_per_pose():
     """B = 2 on the block path renders each pose on its own (no supercell
     table at B > 1, as in the JAX package): each element equals a B = 1
