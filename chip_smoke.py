@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (matchnerf_tpu_torch): the DTU eval
-render of configs/test.yaml, its fused-cosine route, the video entry of
-configs/demo_own.yaml and the training step of configs/train.yaml and
-configs/train_fast.yaml on one NVIDIA card, through the hand-written CUDA
-kernels.
+render of configs/test.yaml, its fused-cosine route and its bf16 decoder
+route, the video entry of configs/demo_own.yaml and of
+configs/test_video_own.yaml, and the training step of configs/train.yaml
+and configs/train_fast.yaml on one NVIDIA card, through the hand-written
+CUDA kernels.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -19,27 +20,39 @@ Phases, any failure ends the run with a non-zero exit:
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, with max |d|, tolerance, CUDA-event times, the bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate of the
-   input type) and, for Kernels A and E, one PyTorch library call computing
-   the same function (scaled_dot_product_attention, grid_sample): window
-   attention on 24 x 1280 x 128 windows (bf16 and f32), timed with and
-   without the training forward's logsumexp, which is held against
+   input type; for Kernel C the wide products over its route's tensor-core
+   rate, split TF32 at 495/3 TFLOP/s or bf16 at 989, plus the rest over the
+   67 TFLOP/s of f32) and, for Kernels A and E, one PyTorch library call
+   computing the same function (scaled_dot_product_attention, grid_sample):
+   window attention on 24 x 1280 x 128 windows (bf16 and f32), timed with
+   and without the training forward's logsumexp, which is held against
    torch.logsumexp of the plain masked scores; on a 20480-ray slice built
    from the encoder's real tables and the pose's real unions, the per-ray
    cosine prior (B), the block-union cosine prior (D, also held against B,
    with its union sizes and buckets), the supercell colour sample (E, which
-   reads no union), and the decoder (C); on the first 8192 rays (one chunk of
-   the fused route), the fused interp + grouped cosine (F) on the tap rows
-   of the int8 tables at both scales (also held against B) and of bf16 and
-   f32 tables built from the same features, with the row gather timed
-   apart.
+   reads no union), and the decoder (C) on both operand routes (split TF32
+   against the f32 plain version at 1e-4 / 1e-3 / 1e-4 for rgb / depth /
+   opacity; bf16 against the bf16 plain twin at 1e-2 / 1e-2 / 1e-3, with
+   its mean |d| under a tenth of the mean gap between the two twins: a sum
+   in another order flips the bf16 rounding of an activation now and
+   then, and the rays that meet one set the max), and again
+   at S=256 on a 5012-ray slice with configs/test_video_own.yaml's decoder;
+   on the first 8192 rays (one chunk of the fused route), the fused interp
+   + grouped cosine (F) on the tap rows of the int8 tables at both scales
+   (also held against B) and of bf16 and f32 tables built from the same
+   features, with the row gather timed apart.
 4. block path, configs/test.yaml as shipped: `Renderer.forward(batch,
    mode="test")` renders the full 640x512 target at S=128. The pose must
    take Kernel D at both scales and Kernel E for the colours; A, C, D and E
    must launch and no plain version may run on CUDA tensors; outputs
    finite, rgb in [0,1]; the same view with every kernel replaced by its
    plain version must agree at >= 50 dB PSNR.
-5. per-ray path, block_kernel off: the same view through A, B and C, which
-   must each launch; it must agree with the block path at >= 60 dB.
+5. per-ray path, block_kernel off: the same view through A, B and C (its
+   f32 route only), which must each launch; it must agree with the block
+   path at >= 60 dB. Then the same path with
+   precision.decoder_matmul_dtype: bf16: C's bf16 route (only) must launch,
+   and the image must agree with the all-plain bf16 render at >= 50 dB; its
+   PSNR against the f32 image is printed.
 6. fused path, configs/test.yaml with precision.fused_cosine: the same
    view with every feature scale through F (2 launches per slice), B and D
    never launched; it must agree with the block path at >= 60 dB.
@@ -50,7 +63,12 @@ Phases, any failure ends the run with a non-zero exit:
    on the frames whose colour union fits its bucket), B and D not, no plain
    version on CUDA; frames finite with rgb in [0,1]; frame 0 must agree
    with the all-plain frame at >= 50 dB. Prints frames/s and rays/s.
-8. training kernels at training shapes, each against autograd through its
+8. video, configs/test_video_own.yaml (S=256, 5012-ray slices) at 960x640
+   on the synthetic scene (the card cannot decode the printer JPEGs): 3
+   frames; A, B (2 per slice) and C (1 per slice) must launch and nothing
+   else, no plain version on CUDA; frames finite with rgb in [0,1]; the
+   first 2 slices of frame 0 must agree with all-plain at >= 50 dB.
+9. training kernels at training shapes, each against autograd through its
    plain version, on the scene's real training rays (1024 random pixels,
    or 128 8-pixel strips for D'), stratified depths and the f32 tables of
    the bf16 training encoder: A' (window attention forward with logsumexp
@@ -63,20 +81,21 @@ Phases, any failure ends the run with a non-zero exit:
    function's 5 products (the kernels do 7); SDPA's backward, a call whose
    host work through autograd outlasts its kernels, is timed on the device
    (torch.profiler) beside its CUDA-event time.
-9. configs/train.yaml step (`Coach.train_iteration`) on the 640x512 scene
+10. configs/train.yaml step (`Coach.train_iteration`) on the 640x512 scene
    at full width, 1024 rays, S=128: a first step from one set of weights,
    rays and jitter through the kernels and all-plain (loss and per-tensor
    gradient error), with the recipe's bf16 policy and with the f32 policy;
    then 7 steps: finite losses, moving parameters, 12 A' forward, 12 A'
    backward, 2 B forward and 2 B' backward launches in each step and no
    plain version on CUDA tensors; ms per warm step and peak memory.
-10. configs/train_fast.yaml step: the same, with the pose's route through
+11. configs/train_fast.yaml step: the same, with the pose's route through
    D' at both scales (2 D' forward and 2 D' backward launches per step).
-Every launch count is reset just before a path (a step, in 9 and 10) and
+Every launch count is reset just before a path (a step, in 10 and 11) and
 read just after it. With --profile, one more warm render of each eval path
-and one warm step of each training recipe run under torch.profiler and
-print the device time by kernel (the A' backward's dq and dkv kernels
-always by name), the device busy time and the wall time.
+(the bf16 decoder path too) and of each video, and one warm step of each
+training recipe run under torch.profiler and print the device time by
+kernel (the A' backward's dq and dkv kernels always by name), the device
+busy time and the wall time.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -101,6 +120,11 @@ VIDEO_FRAMES = 24                  # configs/demo_own.yaml nerf.video_n_frames
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, f32 without tensor cores
+# Kernel C's wide products on tensor cores: bf16 at the bf16 peak; split TF32
+# takes three TF32 products (495 TFLOP/s) for each f32 one
+DECODER_TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+OWN_FRAMES = 3                     # frames of the configs/test_video_own.yaml phase
+OWN_PLAIN_SLICES = 2               # slices of its frame 0 held to all-plain
 
 
 def log(msg):
@@ -226,8 +250,85 @@ def grad_errors(model_a, model_b):
     return {n: float((ga - gb).norm()) / max(float(gb.norm()), floor) for n, ga, gb in pairs}
 
 
+def decoder_flops(dec, S):
+    """Kernel C's operations per sample: (the wide products, 2 per weight of
+    pts_bias, the pts_linears, alpha_linear, feature_linear, views_linears.0
+    and rgb_linear; the f32 remainder, 2 per weight of w_qs, w_ks, w_vs, fc
+    and out_alpha_linear, the ray attention's QK and PV over S samples and
+    the 60 sin/cos of the encoding)."""
+    wide = [dec.pts_bias, *dec.pts_linears, dec.alpha_linear[0], dec.feature_linear,
+            dec.views_linears[0], dec.rgb_linear]
+    ra = dec.ray_attention
+    rest = [ra.w_qs, ra.w_ks, ra.w_vs, ra.fc, dec.out_alpha_linear[0], dec.out_alpha_linear[2]]
+    return (2 * sum(m.weight.numel() for m in wide),
+            2 * sum(m.weight.numel() for m in rest) + 4 * S * 16 + 60)
+
+
+def decoder_bound(nbytes_, dec, N, S, route):
+    """Kernel C's bound on one route for N samples on rays of S: the wide
+    products over the route's tensor-core rate plus the remainder over the
+    f32 CUDA-core rate, against the bytes over the memory rate."""
+    wide, rest = decoder_flops(dec, S)
+    t_ops = (N * wide / DECODER_TC_FLOPS[route] + N * rest / PEAK_FLOPS["float32"]) * 1e3
+    t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def decoder_case(torch, kc, dev, args, label):
+    """Kernel C on both operand routes against its plain twins on one slice:
+    max |d| per output and tolerance, for bf16 also the mean |d| against a
+    tenth of the mean gap between the f32 and bf16 twins; CUDA-event times
+    and the per-route bound."""
+    dec = args[0]
+    R, S = args[2].shape[1], args[2].shape[2]
+    N = R * S                                   # samples
+    ins = [args[2], args[3], *args[4].values(), args[5], args[6]]
+    out = {}
+    with torch.no_grad():
+        twins = {r: kc.cond_nerf_decode_plain(*args, matmul_dtype=getattr(torch, r))
+                 for r in ("float32", "bfloat16")}
+        gap = float(torch.cat([(a - b).abs().flatten() for a, b in
+                               zip(twins["float32"], twins["bfloat16"])]).mean())
+        # bf16: a product summed in another order than the twin's rounds an
+        # activation to the neighbouring bf16 value now and then; the few
+        # rays that meet such flips set the max, the mean |d| (held under a
+        # tenth of the twins' gap) shows the function
+        for route, tols in (("float32", (1e-4, 1e-3, 1e-4)), ("bfloat16", (1e-2, 1e-2, 1e-3))):
+            md = getattr(torch, route)
+            got = kc.cond_nerf_decode(*args, matmul_dtype=md)
+            ref = twins[route]
+            torch.cuda.synchronize()
+            errs = [max_abs(g, r) for g, r in zip(got, ref)]
+            diffs = torch.cat([(g - r).abs().flatten() for g, r in zip(got, ref)])
+            mean_err = float(diffs.mean())
+            n_over = int((diffs > 1e-3).sum())
+            ms = cuda_ms(torch, lambda: kc.cond_nerf_decode(*args, matmul_dtype=md), 10)
+            plain_ms = cuda_ms(torch, lambda: kc.cond_nerf_decode_plain(*args, matmul_dtype=md), 3)
+            small, frag = kc.kernel_weights(dec, md, dev)
+            wide, rest = decoder_flops(dec, S)
+            b_ms, b_by = decoder_bound(nbytes(*ins, *got, small, frag), dec, N, S, route)
+            log(f"kernel C cond_nerf_decode {label} R={R} S={S} {route} route: max|d| rgb "
+                f"{errs[0]:.3e} depth {errs[1]:.3e} opacity {errs[2]:.3e} (tol {tols}), {n_over} "
+                f"of {diffs.numel()} above 1e-3, mean|d| {mean_err:.3e} (f32 vs bf16 twins "
+                f"{gap:.3e}), {ms:.3f} ms vs plain "
+                f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}: {N * wide / 1e12:.3f} TFLOP "
+                f"of wide products at {DECODER_TC_FLOPS[route] / 1e12:.0f} TFLOP/s + "
+                f"{N * rest / 1e12:.4f} TFLOP at 67)")
+            for name, err, tol in zip(("rgb", "depth", "opacity"), errs, tols):
+                check_close(f"cond_nerf_decode {label} {route} {name}", err, tol)
+            if route == "bfloat16" and not mean_err < 0.1 * gap:
+                raise AssertionError(f"cond_nerf_decode {label} bf16: mean|d| {mean_err} is not "
+                                     f"under a tenth of the f32-bf16 gap {gap}")
+            out[route] = dict(R=R, S=S, max_abs_err=max(errs), max_abs_err_rgb_depth_opacity=errs,
+                              tol=list(tols), mean_abs_err=mean_err, n_above_1e3=n_over,
+                              twin_gap_mean=gap, ms=ms,
+                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            del got
+    return out
+
+
 def train_kernel_phase(torch, F, dev, batch, seed, block_ut, res):
-    """Phase 6: A', B' and D' at the training shapes against autograd
+    """Phase 9: A', B' and D' at the training shapes against autograd
     through their plain versions."""
     from matchnerf_tpu_torch import camera
     from matchnerf_tpu_torch.config import dtu_train_config
@@ -471,7 +572,7 @@ def first_step_check(torch, dev, cfg, batch, seed, label, tol):
 
 
 def train_path(torch, dev, cfg, batch, seed, label, counters, must, profile):
-    """Phases 7 and 8: TRAIN_STEPS steps of `Coach.train_iteration`; counts
+    """Phases 10 and 11: TRAIN_STEPS steps of `Coach.train_iteration`; counts
     reset before and read after each step."""
     from matchnerf_tpu_torch.engine import Coach
     from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
@@ -603,32 +704,50 @@ def make_video_sample(seed, img_w, img_h):
             "img_wh": np.array([img_w, img_h]), "c2ws_all": views["c2ws"][:3]}
 
 
-def plain_frame0(cfg, model, dev, sample):
+def plain_frame0(cfg, model, dev, sample, n_slices=None):
     """Frame 0 of the sample's interpolate path, every kernel replaced by
-    its plain version: dict of [1, H*W, *]."""
+    its plain version: dict of [1, H*W, *], or of the first n_slices ray
+    slices only."""
+    import torch
+    from matchnerf_tpu_torch import camera
     from matchnerf_tpu_torch.data.loader import collate
+    from matchnerf_tpu_torch.models.matchnerf import render_rays
     from matchnerf_tpu_torch.renderer import Renderer, extract_poses
     plain = Renderer(cfg, model, dev, kernel=False)
     batch = collate([sample])
     poses = extract_poses(batch)
-    frame0 = plain.get_video_rendering_path(poses, "interpolate", VIDEO_FRAMES, batch)[0]
+    n_frames = int(cfg.nerf.video_n_frames)
+    frame0 = plain.get_video_rendering_path(poses, "interpolate", n_frames, batch)[0]
     ref_images = plain.tensor(batch["images"][:, :3])
     tables = plain.build_tables(ref_images, plain.encode(ref_images))
     vw, vh = (int(x) for x in sample["img_wh"])
-    return plain.render_by_slices({"tgt": frame0, "ref": poses["ref"]}, tables, vh, vw)
+    pose = {"tgt": frame0, "ref": poses["ref"]}
+    if n_slices is None:
+        return plain.render_by_slices(pose, tables, vh, vw)
+    R = plain.rays_per_slice(1)
+    grid = camera.pixel_grid(vh, vw, legacy=cfg.nerf.legacy_coord, device=plain.device)
+    outs = []
+    with torch.no_grad():
+        for s0 in range(0, n_slices * R, R):
+            outs.append(render_rays(plain.model, cfg, grid[s0:s0 + R][None],
+                                    *plain._pose_tensors(pose), tables, vh, vw,
+                                    kernel=False)["rgb"])
+    return {"rgb": torch.cat(outs, dim=1)}
 
 
-def video_phase(torch, dev, seed, counters, profile):
-    """Phase 7: `Coach.test_model_video` of configs/demo_own.yaml with the
-    fused cosine on the synthetic scene; launches counted around it; frame
-    0 against the all-plain frame."""
-    from matchnerf_tpu_torch.config import demo_own_config
+def video_phase(torch, dev, seed, counters, profile, name, n_frames, plain_slices=None):
+    """Phases 7 and 8: `Coach.test_model_video` of configs/<name>.yaml on the
+    synthetic scene (demo_own with the fused cosine); launches counted
+    around it; frame 0 (its first plain_slices ray slices, if given) against
+    the all-plain render."""
+    from matchnerf_tpu_torch.config import CONFIGS
     from matchnerf_tpu_torch.data.loader import DataLoader
     from matchnerf_tpu_torch.engine import Coach
-    cfg = demo_own_config()
-    cfg.precision.fused_cosine = True
+    cfg = CONFIGS[name]()
+    fused = name == "demo_own"
+    cfg.precision.fused_cosine = fused
     cfg.load = None
-    cfg.nerf.video_n_frames = VIDEO_FRAMES
+    cfg.nerf.video_n_frames = n_frames
     cfg.output_root = os.path.join(REPO, "build", "chip_smoke")
     vw, vh = cfg.data_test.colmap.img_wh
     sample = make_video_sample(seed, vw, vh)
@@ -659,38 +778,46 @@ def video_phase(torch, dev, seed, counters, profile):
     routes = coach.renderer.frame_routes
     n_slices = math.ceil(vw * vh / coach.renderer.rays_per_slice(1))
     n_color = sum(r["color_ut"] is not None for r in routes)
-    frames_s = VIDEO_FRAMES / wall
-    log(f"video path (demo_own.yaml, fused_cosine) Coach.test_model_video {vw}x{vh} "
-        f"S={cfg.nerf.sample_intvs}, {VIDEO_FRAMES} frames, {n_slices} slices per frame: "
-        f"{wall:.4f} s, {frames_s:.3f} frames/s, {frames_s * vw * vh:.0f} rays/s "
-        f"(encode, tables, every frame's pose_prep and render, writing); colour union "
-        f"in its bucket on {n_color} of {VIDEO_FRAMES} frames; routes of frames 0 and "
-        f"{VIDEO_FRAMES - 1}: {routes[0]}, {routes[-1]}")
-    log(f"video path: launches {launches}, plain versions on CUDA {plain_cuda}")
-    frames = n_slices * VIDEO_FRAMES
-    want = dict({k: 0 for k in counters}, window_attention=12, cond_nerf_decode=frames,
-                fused_cosine=2 * frames, supercell_color=n_slices * n_color)
+    frames_s = n_frames / wall
+    S = cfg.nerf.sample_intvs
+    log(f"video path ({name}.yaml{', fused_cosine' if fused else ''}) Coach.test_model_video "
+        f"{vw}x{vh} S={S}, {n_frames} frames, {n_slices} slices of "
+        f"{coach.renderer.rays_per_slice(1)} rays per frame: {wall:.4f} s, {frames_s:.3f} "
+        f"frames/s, {frames_s * vw * vh:.0f} rays/s (encode, tables, every frame's pose_prep "
+        f"and render, writing); colour union in its bucket on {n_color} of {n_frames} frames; "
+        f"routes of frames 0 and {n_frames - 1}: {routes[0]}, {routes[-1]}")
+    log(f"video path {name}: launches {launches}, plain versions on CUDA {plain_cuda}")
+    frames = n_slices * n_frames
+    if fused:
+        want = dict({k: 0 for k in counters}, window_attention=12, cond_nerf_decode=frames,
+                    fused_cosine=2 * frames, supercell_color=n_slices * n_color)
+    else:
+        # ray slices that are not 8-aligned: Kernel B and the colour gather
+        want = dict({k: 0 for k in counters}, window_attention=12, cond_nerf_decode=frames,
+                    cosine_prior=2 * frames)
     if launches != want:
-        raise AssertionError(f"video path launches {launches}, expected {want}")
+        raise AssertionError(f"video path {name} launches {launches}, expected {want}")
     if any(plain_cuda.values()):
         raise AssertionError(f"plain versions ran on CUDA tensors: {plain_cuda}")
     video = videos[0]
-    if video.shape != (VIDEO_FRAMES, vh, vw, 3) or not np.isfinite(video).all():
+    if video.shape != (n_frames, vh, vw, 3) or not np.isfinite(video).all():
         raise AssertionError(f"video frames {video.shape}, finite {np.isfinite(video).all()}")
     if not (video.min() >= -1e-6 and video.max() <= 1.0 + 1e-6):
         raise AssertionError(f"video rgb outside [0,1]: {video.min()} {video.max()}")
-    agreement = psnr(torch.as_tensor(video[0]).reshape(1, -1, 3),
-                     plain_frame0(cfg, coach.model, dev, sample)["rgb"].cpu())
-    log(f"video path: frame 0 kernels vs all-plain PSNR {agreement:.2f} dB (need >= 50), "
+    ref = plain_frame0(cfg, coach.model, dev, sample, plain_slices)["rgb"].cpu()
+    agreement = psnr(torch.as_tensor(video[0]).reshape(1, -1, 3)[:, :ref.shape[1]], ref)
+    what = "frame 0" if plain_slices is None else f"frame 0's first {ref.shape[1]} rays"
+    log(f"video path {name}: {what}, kernels vs all-plain PSNR {agreement:.2f} dB (need >= 50), "
         f"rgb mean {float(video.mean()):.4f}; outputs in {coach.output_path}")
     if not agreement >= 50.0:
-        raise AssertionError(f"video frame 0 agreement PSNR {agreement:.2f} dB < 50")
+        raise AssertionError(f"video {name} {what} agreement PSNR {agreement:.2f} dB < 50")
     out = {"seconds": wall, "frames_per_s": frames_s, "rays_per_s": frames_s * vw * vh,
-           "frames": VIDEO_FRAMES, "img_wh": [vw, vh], "slices_per_frame": n_slices,
-           "color_ut_frames": n_color, "frame0_psnr_vs_plain_db": agreement,
+           "frames": n_frames, "img_wh": [vw, vh], "samples_per_ray": S,
+           "slices_per_frame": n_slices, "color_ut_frames": n_color,
+           "frame0_psnr_vs_plain_db": agreement, "frame0_rays_compared": int(ref.shape[1]),
            "launches": launches}
     if profile:
-        out["profile"] = profile_call(torch, "video", coach.test_model_video)
+        out["profile"] = profile_call(torch, f"video {name}", coach.test_model_video)
     return out
 
 
@@ -709,7 +836,8 @@ def main():
     import torch.nn.functional as F
 
     from matchnerf_tpu_torch import camera, kernels
-    from matchnerf_tpu_torch.config import dtu_eval_config, dtu_eval_per_ray_config
+    from matchnerf_tpu_torch.config import (dtu_eval_config, dtu_eval_per_ray_config,
+                                            test_video_own_config)
     from matchnerf_tpu_torch.models.matchnerf import (init_matchnerf,
                                                       project_to_views,
                                                       query_cond_info,
@@ -721,7 +849,6 @@ def main():
     from matchnerf_tpu_torch.ops import supercell_color as ke
     from matchnerf_tpu_torch.ops import window_attention as ka
     from matchnerf_tpu_torch.ops.attention import shift_region_ids
-    from matchnerf_tpu_torch.ops.nn import Linear
     from matchnerf_tpu_torch.renderer import Renderer, extract_poses
 
     # ---- 1. device
@@ -905,29 +1032,29 @@ def main():
         ray_unit = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
         ray_ref = (ray_unit @ ref_w2c[:, 0, :3, :3].transpose(-1, -2))[:, :, None] \
             .expand(*pts.shape[:3], 3).contiguous()
-        ndc0 = ndc0.contiguous()
-        dec_args = (model.nerf_dec, cfg, ndc0, ray_ref, cond, depth, ray)
-        got = kc.cond_nerf_decode(*dec_args)
-        ref = kc.cond_nerf_decode_plain(*dec_args)
-        torch.cuda.synchronize()
-        c_tols = (1e-4, 1e-3, 1e-4)
-        c_errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
-        ms = cuda_ms(torch, lambda: kc.cond_nerf_decode(*dec_args), 5)
-        plain_ms = cuda_ms(torch, lambda: kc.cond_nerf_decode_plain(*dec_args), 3)
-        # per sample: every linear layer (2 flops per weight) and the 4-head
-        # d=4 ray attention (QK and PV over S samples)
-        lin = sum(m.weight.numel() for m in model.nerf_dec.modules() if isinstance(m, Linear))
-        flops = N * (2 * lin + 4 * S * 16)
-        b_ms, b_by = bound(nbytes(ndc0, ray_ref, *cond.values(), depth, ray, *got), flops)
-        log(f"kernel C cond_nerf_decode R={R} S={S} f32: max|d| rgb "
-            f"{c_errs[0]:.3e} depth {c_errs[1]:.3e} opacity {c_errs[2]:.3e} "
-            f"(tol {c_tols}), {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({b_by}, {flops / 1e12:.3f} TFLOP)")
-        for name, err, tol in zip(("rgb", "depth", "opacity"), c_errs, c_tols):
-            check_close(f"cond_nerf_decode {name}", err, tol)
-        res["C"] = dict(max_abs_err=max(c_errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, max_abs_err_rgb_depth_opacity=c_errs)
-        del got, ref, cond, pts
+        res["C"] = decoder_case(torch, kc, dev, (model.nerf_dec, cfg, ndc0.contiguous(), ray_ref,
+                                                 cond, depth, ray), "DTU slice")
+        del cond, pts
+        # configs/test_video_own.yaml's decoder (ELU, maskfill, posenc) at S=256
+        # on one 5012-ray slice of the view, through Kernel B and the colour gather
+        own = test_video_own_config()
+        vcfg = copy.deepcopy(cfg)
+        vcfg.decoder.update({k: own.decoder[k] for k in ("raytrans_posenc", "density_maskfill",
+                                                         "raytrans_act")})
+        vcfg.nerf.sample_intvs = own.nerf.sample_intvs
+        Rv = int(own.nerf.rand_rays_test)
+        vray = ray[:, :Rv]
+        vdepth = sample_depth(vcfg, tgt_nf, 1, Rv)
+        vpts = camera.get_3d_points_from_depth(center[:, :Rv], vray, vdepth, multi_samples=True)
+        vcond, vndc0 = query_cond_info(vcfg, vpts, ref_w2c, ref_intr, ref_nf, tables, H, W)
+        vref = ray_ref[:, :Rv, :1].expand(*vpts.shape[:3], 3).contiguous()
+        # the decoder built for the variant (out_alpha_linear's activation
+        # is part of the module)
+        vdec = init_matchnerf(vcfg, torch.Generator().manual_seed(args.seed)).nerf_dec
+        vdec = vdec.to(dev).eval()
+        res["C_S256"] = decoder_case(torch, kc, dev, (vdec, vcfg, vndc0.contiguous(), vref,
+                                                      vcond, vdepth, vray), "test_video_own")
+        del vcond, vpts, vndc0, vref, vdec
         fused_kernel_phase(torch, cfg, feats, ref_images, tables, grids, res)
         del feats, tables, grids
 
@@ -997,10 +1124,33 @@ def main():
 
     ray_out, ray_t, ray_launches = drive(
         "per-ray", per_ray_renderer, ["window_attention", "cosine_prior", "cond_nerf_decode"])
+    if kc.COUNTER.by_entry != {"cond_nerf_decode_f32": ray_launches["cond_nerf_decode"]}:
+        raise AssertionError(f"per-ray path: Kernel C routes {kc.COUNTER.by_entry}")
     vs_ray = psnr(out["rgb"], ray_out["rgb"])
     log(f"block path vs per-ray path: PSNR {vs_ray:.2f} dB (need >= 60)")
     if not vs_ray >= 60.0:
         raise AssertionError(f"block vs per-ray PSNR {vs_ray:.2f} dB < 60")
+
+    # the per-ray path with precision.decoder_matmul_dtype: bf16 (Kernel C's
+    # bf16 route), against its all-plain render (the bf16 plain twin)
+    bf_cfg = dtu_eval_per_ray_config()
+    bf_cfg.precision.decoder_matmul_dtype = "bf16"
+    bf_renderer = Renderer(bf_cfg, model, dev)
+    bf_out, bf_t, bf_launches = drive(
+        "per-ray bf16 decoder", bf_renderer, ["window_attention", "cosine_prior",
+                                              "cond_nerf_decode"])
+    bf_routes = dict(kc.COUNTER.by_entry)
+    if bf_routes != {"cond_nerf_decode_bf16": bf_launches["cond_nerf_decode"]}:
+        raise AssertionError(f"bf16 decoder path: Kernel C routes {bf_routes}")
+    bf_plain = Renderer(bf_cfg, model, dev, kernel=False).forward(batch, mode="test")
+    bf_vs_plain = psnr(bf_out["rgb"], bf_plain["rgb"])
+    bf_vs_f32 = psnr(bf_out["rgb"], ray_out["rgb"])
+    log(f"per-ray bf16 decoder path: agreement PSNR kernels vs all-plain (bf16 twin) "
+        f"{bf_vs_plain:.2f} dB (need >= 50); vs the f32 per-ray render {bf_vs_f32:.2f} dB; "
+        f"Kernel C launches by route {bf_routes}")
+    if not bf_vs_plain >= 50.0:
+        raise AssertionError(f"bf16 decoder agreement PSNR {bf_vs_plain:.2f} dB < 50")
+    del bf_plain
 
     fused_cfg = dtu_eval_config()
     fused_cfg.precision.fused_cosine = True
@@ -1019,13 +1169,18 @@ def main():
         f"per-ray {n_rays / ray_t['render']:.0f}")
     if not vs_fused >= 60.0:
         raise AssertionError(f"fused vs block PSNR {vs_fused:.2f} dB < 60")
-    del out, ray_out, fused_out
+    del out, ray_out, fused_out, bf_out
     torch.cuda.empty_cache()
 
-    # ---- 7. the video entry (configs/demo_own.yaml, fused cosine)
-    video = video_phase(torch, dev, args.seed, counters, args.profile)
+    # ---- 7. the video entry: configs/demo_own.yaml (fused cosine), then
+    # 8. configs/test_video_own.yaml (S = 256, 960x640)
+    video = video_phase(torch, dev, args.seed, counters, args.profile, "demo_own", VIDEO_FRAMES)
+    torch.cuda.empty_cache()
+    video_own = video_phase(torch, dev, args.seed, counters, args.profile, "test_video_own",
+                            OWN_FRAMES, OWN_PLAIN_SLICES)
+    torch.cuda.empty_cache()
 
-    # ---- 8. training kernels at training shapes, then 9. and 10. the steps
+    # ---- 9. training kernels at training shapes, then 10. and 11. the steps
     from matchnerf_tpu_torch.config import dtu_train_config, dtu_train_fast_config
     torch.cuda.empty_cache()
     train_kernel_phase(torch, F, dev, batch, args.seed, block_ut, res)
@@ -1071,8 +1226,9 @@ def main():
 
     def eval_paths(name):
         return {"block": block_launches[name], "per_ray": ray_launches[name],
-                "fused": fused_launches[name],
-                f"video_{VIDEO_FRAMES}_frames": video["launches"][name]}
+                "per_ray_bf16_decoder": bf_launches[name], "fused": fused_launches[name],
+                f"video_{VIDEO_FRAMES}_frames": video["launches"][name],
+                f"test_video_own_{OWN_FRAMES}_frames": video_own["launches"][name]}
 
     def train_paths(name):
         return {f"{k}_{TRAIN_STEPS}_steps": v["launches_total"][name] for k, v in train.items()}
@@ -1092,8 +1248,9 @@ def main():
         entry("cosine_prior_bwd", res["B_bwd"],
               train["train"]["launches_total"]["cosine_prior_bwd"],
               train_paths("cosine_prior_bwd")),
-        entry("cond_nerf_decode", res["C"], block_launches["cond_nerf_decode"],
-              eval_paths("cond_nerf_decode")),
+        entry("cond_nerf_decode", res["C"]["float32"], block_launches["cond_nerf_decode"],
+              eval_paths("cond_nerf_decode"),
+              {"routes": {"S128": res["C"], "S256_test_video_own": res["C_S256"]}}),
         entry("block_cosine_prior", res["D"], block_launches["block_cosine_prior"],
               eval_paths("block_cosine_prior"),
               {"union_ms": sum(s["union_ms"] for s in res["D"])}),
@@ -1123,20 +1280,28 @@ def main():
         "per_ray": {"encode_s": ray_t["encode"], "render_s": ray_t["render"],
                     "rays_per_s_render": n_rays / ray_t["render"],
                     "psnr_vs_block_db": vs_ray},
+        "per_ray_bf16_decoder": {"render_s": bf_t["render"],
+                                 "rays_per_s_render": n_rays / bf_t["render"],
+                                 "agreement_psnr_db": bf_vs_plain, "psnr_vs_f32_db": bf_vs_f32},
         "fused": {"encode_s": fused_t["encode"], "render_s": fused_t["render"],
                   "rays_per_s_render": n_rays / fused_t["render"],
                   "pose_prep_s": fused_t["pose_prep"], "psnr_vs_block_db": vs_fused},
         "video": {k: v for k, v in video.items() if k not in ("profile", "launches")},
+        "test_video_own": {k: v for k, v in video_own.items()
+                           if k not in ("profile", "launches")},
         "train": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
                   for k, v in train.items()}}}
     if args.profile:
         report["profile"] = {"train": train["train"]["profile"],
                              "train_fast": train["train_fast"]["profile"],
-                             "video": video["profile"]}
+                             "video": video["profile"],
+                             "test_video_own": video_own["profile"]}
         report["profile"].update({
             "block": profile_call(torch, "block", lambda: renderer.forward(batch, mode="test")),
             "per_ray": profile_call(torch, "per-ray",
                                     lambda: per_ray_renderer.forward(batch, mode="test")),
+            "per_ray_bf16_decoder": profile_call(
+                torch, "per-ray bf16 decoder", lambda: bf_renderer.forward(batch, mode="test")),
             "fused": profile_call(torch, "fused",
                                   lambda: fused_renderer.forward(batch, mode="test"))})
     log(card_line())

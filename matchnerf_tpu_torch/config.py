@@ -17,6 +17,9 @@ configs/test.yaml + configs/demo_own.yaml (the IBR decoder variant on the
 in-repo COLMAP printer scene, video mode), restricted to the keys the
 entry (`matchnerf_tpu_torch/test.py`) reads; `precision.fused_cosine` stays
 as base.yaml sets it (off) and the entry's override turns it on.
+`test_video_own_config()` adds configs/test_video_own.yaml (S = 256,
+5012-ray slices, 960x640). `precision.decoder_matmul_dtype`, absent from
+the YAML files, reads as float32; bf16 picks Kernel C's bf16 route.
 """
 from __future__ import annotations
 
@@ -91,7 +94,7 @@ SLICE_KEYS = [
     "precision.encoder_compute_dtype", "precision.cond_sample_dtype",
     "precision.color_sample_dtype", "precision.banded_kernel",
     "precision.block_kernel", "precision.decoder_kernel",
-    "precision.color_block_kernel",
+    "precision.color_block_kernel", "precision.decoder_matmul_dtype",
 ]
 
 
@@ -201,6 +204,19 @@ def demo_own_config() -> DotDict:
     return cfg
 
 
+def test_video_own_config() -> DotDict:
+    """configs/base.yaml + configs/test.yaml + configs/test_video_own.yaml:
+    the IBR decoder variant at S = 256 on 5012-ray slices, 72 frames of the
+    printer scene at 960x640."""
+    cfg = demo_own_config()
+    cfg.name = "test_video/colmap_own"
+    cfg.encoder.attn_splits_list = [4]
+    cfg.nerf.update({"sample_intvs": 256, "rand_rays_test": 5012, "video_n_frames": 72,
+                     "video_pts_rates": 1.0})
+    cfg.data_test.colmap.img_wh = [960, 640]
+    return cfg
+
+
 # every key the eval and video entry reads, as dotted paths
 DEMO_KEYS = SLICE_KEYS + [
     "name", "seed", "load", "output_root", "vis_depth", "separate_save",
@@ -209,7 +225,7 @@ DEMO_KEYS = SLICE_KEYS + [
     "data_test.colmap",
 ]
 
-CONFIGS = {"demo_own": demo_own_config}
+CONFIGS = {"demo_own": demo_own_config, "test_video_own": test_video_own_config}
 
 
 def _parse_value(text: Optional[str]):

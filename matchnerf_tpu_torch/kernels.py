@@ -9,9 +9,10 @@ rebuilds and an unchanged one is reused. Nothing is built at import time:
 `library()` builds on the first kernel launch.
 
 Each kernel module owns a `LaunchCounter`: its wrapper adds one to
-`launches` right after a launch that the CUDA runtime accepted, and its plain
-version adds one to `plain_on_cuda` whenever it runs on CUDA tensors, so a
-caller can show which path a render really took.
+`launches` (and to `by_entry` under the C launcher's name, which tells a
+kernel's routes apart) right after a launch that the CUDA runtime accepted,
+and its plain version adds one to `plain_on_cuda` whenever it runs on CUDA
+tensors, so a caller can show which path a render really took.
 """
 from __future__ import annotations
 
@@ -47,10 +48,11 @@ SIGNATURES = {
     "cosine_prior_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # table, grids, g, d_table, V, H, W, C, G, N, stream
     "cosine_prior_bwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # pts, ray_unit, feat, color, mask, depth, ray, weights, postab (or NULL),
-    # out, N, S, Gf, V, act, maskfill, wo_render_interval, setbg, stream
-    "cond_nerf_decode_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # pts, ray_unit, feat, color, mask, depth, ray, small, fragments, postab
+    # (or NULL), out, fragment 16-byte units, N, S, Gf, V, act, maskfill,
+    # wo_render_interval, setbg, stream
+    "cond_nerf_decode_f32": [_P] * 11 + [_I] * 9 + [_P],
+    "cond_nerf_decode_bf16": [_P] * 11 + [_I] * 9 + [_P],
     # table, grids, scales, unions, out, V, H, W, C, G, R, S, NB, ut, stream
     "block_cosine_prior_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P],
@@ -78,10 +80,12 @@ class LaunchCounter:
         self.replaces = replaces
         self.launches = 0
         self.plain_on_cuda = 0
+        self.by_entry = {}
 
     def reset(self):
         self.launches = 0
         self.plain_on_cuda = 0
+        self.by_entry = {}
 
 
 _lock = threading.Lock()
@@ -164,6 +168,7 @@ def launch(counter: LaunchCounter, fn_name: str, *args) -> None:
         raise RuntimeError(f"{fn_name}: CUDA error {err} "
                            f"({torch.cuda.get_device_name()})")
     counter.launches += 1
+    counter.by_entry[fn_name] = counter.by_entry.get(fn_name, 0) + 1
 
 
 def ptr(t) -> int:

@@ -11,6 +11,7 @@ against.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...ops.nn import ACTIVATIONS, Activation, Linear, relu
@@ -59,23 +60,44 @@ def decoder_compute_dtype(cfg):
     return torch.bfloat16 if str(name) in ("bf16", "bfloat16") else None
 
 
-def apply_cond_nerf(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info):
+def _wide_linear(matmul_dtype):
+    """The eval kernel's wide product: operands rounded to `matmul_dtype`,
+    product and bias in f32 (the JAX kernel's `mm(..., wide=True)`)."""
+    if matmul_dtype == torch.float32:
+        return lambda m, x: m(x)
+
+    def lin(m, x):
+        return F.linear(x.to(matmul_dtype).float(), m.weight.to(matmul_dtype).float(),
+                        m.bias)
+    return lin
+
+
+def apply_cond_nerf(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info,
+                    matmul_dtype=None):
     """rgb [B,R,S,3] and density [B,R,S] at the samples (cond_nerf.py:71).
 
     points_3d: [B,R,S,3] view-0 NDC coordinates; ray_unit: [B,R,S,3]
     reference-frame unit directions; cond_info: feat_info [B,R,S,G],
     color_info [B,R,S,3V], mask_info [B,R,S,V].
 
-    precision.decoder_compute_dtype bfloat16 (the training recipes) is the
-    JAX policy of cond_nerf.py:83-112: the width-W layers (pts_bias,
-    pts_linears, feature_linear, views_linears) run in bf16, their f32
-    master weights cast per call (`ops.nn.Linear`, gradients flow back
-    through the cast); the 16-d density head, the ray attention, the rgb
-    head and every output stay f32 (the layers that read a bf16 activation
-    with f32 weights widen it, as JAX's type promotion does)."""
+    With matmul_dtype None, precision.decoder_compute_dtype bfloat16 (the
+    training recipes) is the JAX policy of cond_nerf.py:83-112: the width-W
+    layers (pts_bias, pts_linears, feature_linear, views_linears) run in
+    bf16, their f32 master weights cast per call (`ops.nn.Linear`, gradients
+    flow back through the cast); the 16-d density head, the ray attention,
+    the rgb head and every output stay f32 (the layers that read a bf16
+    activation with f32 weights widen it, as JAX's type promotion does).
+
+    With matmul_dtype torch.float32 or torch.bfloat16 it is instead the eval
+    decoder kernel's function (Kernel C, pallas_decoder.py's matmul_dtype):
+    the training policy is not read, activations stay f32, and the wide
+    products (pts_bias, pts_linears, alpha_linear, feature_linear,
+    views_linears.0, rgb_linear) round both operands to matmul_dtype and
+    accumulate in f32."""
     skip = set(cfg.decoder.skip)
-    cd = decoder_compute_dtype(cfg)
+    cd = decoder_compute_dtype(cfg) if matmul_dtype is None else None
     cast = (lambda x: x.to(cd)) if cd is not None else (lambda x: x)
+    wide = _wide_linear(matmul_dtype or torch.float32)
     enc_fn = nerf_posenc_legacy if cfg.nerf.legacy_coord else nerf_posenc
     posenc = cfg.decoder.posenc
     if posenc:
@@ -86,9 +108,9 @@ def apply_cond_nerf(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info):
     input_feats = torch.cat([cond_info["feat_info"], cond_info["color_info"],
                              cond_info["mask_info"]], dim=-1)
     h = points_enc
-    bias = dec.pts_bias(cast(input_feats))
+    bias = wide(dec.pts_bias, cast(input_feats))
     for i, lin in enumerate(dec.pts_linears):
-        h = relu(lin(h) * bias)
+        h = relu(wide(lin, h) * bias)
         if i in skip:
             h = torch.cat([points_enc, h], dim=-1)
 
@@ -99,7 +121,7 @@ def apply_cond_nerf(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info):
 
     act = ACTIVATIONS[raytrans_act_name(cfg)]
     B, R, S = h.shape[:3]
-    raw_alpha = act(dec.alpha_linear(h.float()))                  # [B,R,S,16]
+    raw_alpha = act(wide(dec.alpha_linear[0], h.float()))          # [B,R,S,16]
     if cfg.decoder.raytrans_posenc:
         raw_alpha = raw_alpha + ray_sinusoid_table(16, S, device=h.device)
     nv = cond_info["mask_info"].sum(dim=-1, keepdim=True).reshape(B * R, S, 1)
@@ -110,11 +132,11 @@ def apply_cond_nerf(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info):
         alpha = torch.where(nv < 1, 0.0, alpha)
     density = alpha.reshape(B, R, S)
 
-    feature = dec.feature_linear(h)
+    feature = wide(dec.feature_linear, h)
     hv = torch.cat([feature, cast(ray_enc)], dim=-1)
     for lin in dec.views_linears:
-        hv = relu(lin(hv))
-    rgb = torch.sigmoid(dec.rgb_linear(hv.float()))
+        hv = relu(wide(lin, hv))
+    rgb = torch.sigmoid(wide(dec.rgb_linear, hv.float()))
     return rgb, density
 
 

@@ -33,7 +33,7 @@ from ..ops.block_cosine_prior import (block_cosine_prior, block_cosine_prior_pla
                                       takes_f32)
 from ..ops.cosine_prior import (cosine_prior, cosine_prior_plain,
                                 pair_index_lists)
-from ..ops.decoder import cond_nerf_decode, cond_nerf_decode_plain
+from ..ops.decoder import cond_nerf_decode, cond_nerf_decode_plain, decoder_matmul_dtype
 from ..ops.fused_cosine import (fused_interp_grouped_cosine,
                                 fused_interp_grouped_cosine_plain)
 from ..ops.grid_sample import grid_sample_2d, in_frustum_mask, tap_rows_and_weights
@@ -295,18 +295,11 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
     rand. Returns dict(rgb [B,R,3], depth [B,R,1], opacity [B,R,1]).
 
     On the eval decoder route (precision.decoder_kernel, autograd not
-    recording) `precision.decoder_matmul_dtype: bf16` raises
-    NotImplementedError: the JAX package then rounds the decoder's wide
-    matmul operands to bf16, which neither Kernel C nor its plain version
-    does."""
+    recording) precision.decoder_matmul_dtype picks Kernel C's operand route
+    (bf16: the wide products' operands rounded to bf16, as the JAX Pallas
+    decoder's matmul_dtype); training ignores the key, as the JAX step does."""
     eval_decoder = (bool(_precision_get(cfg, "decoder_kernel", False))
                     and not torch.is_grad_enabled())
-    if eval_decoder and str(_precision_get(cfg, "decoder_matmul_dtype", "")) in (
-            "bf16", "bfloat16"):
-        raise NotImplementedError(
-            "precision.decoder_matmul_dtype: bf16 is not ported: it would have to match "
-            "matchnerf_tpu/ops/pallas_decoder.py::cond_nerf_decode with matmul_dtype=bf16; "
-            "use float32")
     B, R = pix_xy.shape[:2]
     center, ray = camera.get_center_and_ray(pix_xy, tgt_intr, tgt_c2w)
     depth_samples = sample_depth(cfg, tgt_near_far, B, R, stratified=stratified,
@@ -327,7 +320,8 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
         # Kernel C, or its plain version in the all-plain reference
         decode = cond_nerf_decode if kernel else cond_nerf_decode_plain
         rgb, depth, opacity = decode(model.nerf_dec, cfg, ndc_view0.contiguous(),
-                                     ray_unit_ref, cond_info, depth_samples, ray)
+                                     ray_unit_ref, cond_info, depth_samples, ray,
+                                     matmul_dtype=decoder_matmul_dtype(cfg))
     else:
         # the plain decoder: Kernel C is forward-only, so a step that
         # differentiates (training) takes this path whatever the config says,

@@ -17,6 +17,14 @@ R and samples on the border, and on grids spread over the whole image whose
 union overflows every bucket, where it is also held to the direct gather
 on the uint8 image (1e-3 on the 0-255 scale).
 
+The decoder (C) on both operand routes at S = 48, 128, 200 and 256 (one and
+two 128-sample tiles) on 149 rays, flagship and demo_own variants: split
+TF32 1e-5 (rgb, opacity) and 1e-4 (depth) against the f32 plain version;
+bf16 against the bf16 plain twin at 1e-3 and 1e-2, with its mean |d| under
+a tenth of the mean gap between the f32 and bf16 twins (the tensor cores
+sum the bf16 products in another order, which flips the bf16 rounding of
+an activation now and then); S above the kernel's limit raises.
+
 The fused interp + grouped cosine (F) on tap rows of int8, bf16 and f32,
 with and without dequantisation scales, at G = 2 and 8 and a ragged N:
 1e-5 (summation order; on int8 rows gathered from a table also against
@@ -114,15 +122,14 @@ def test_cosine_prior_kernel(dev, dtype, G):
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("variant", ["flagship", "demo_own"])
-def test_cond_nerf_decode_kernel(dev, variant):
-    cfg = DotDict(dict(ge._tiny_cfg(n_layers=1, sample_intvs=48)))
+def _decode_args(dev, variant, R, S):
+    cfg = DotDict(dict(ge._tiny_cfg(n_layers=1, sample_intvs=S)))
     if variant == "demo_own":
         cfg.decoder = DotDict({**cfg.decoder, "raytrans_act": "ELU",
                                "density_maskfill": True, "raytrans_posenc": True})
     model = init_matchnerf(cfg, torch.Generator().manual_seed(2)).to(dev).eval()
     g = torch.Generator(device=dev).manual_seed(3)
-    B, R, S = 1, 50, 48
+    B = 1
     rnd = lambda *s: torch.rand(*s, generator=g, device=dev)
     ray = torch.randn(B, R, 3, generator=g, device=dev)
     unit = (ray / ray.norm(dim=-1, keepdim=True))[:, :, None].expand(B, R, S, 3).contiguous()
@@ -131,12 +138,48 @@ def test_cond_nerf_decode_kernel(dev, variant):
     cond = {"feat_info": rnd(B, R, S, 10) * 2 - 1, "color_info": rnd(B, R, S, 9),
             "mask_info": mask}
     depth = torch.sort(rnd(B, R, S) * 2.4 + 2.1, dim=-1).values[..., None].contiguous()
-    args = (model.nerf_dec, cfg, rnd(B, R, S, 3) * 2 - 1, unit, cond, depth, ray)
+    return (model.nerf_dec, cfg, rnd(B, R, S, 3) * 2 - 1, unit, cond, depth, ray)
+
+
+@pytest.mark.parametrize("variant", ["flagship", "demo_own"])
+def test_cond_nerf_decode_kernel(dev, variant):
+    args = _decode_args(dev, variant, 50, 48)
     with torch.no_grad():
         got = kc.cond_nerf_decode(*args)
         ref = kc.cond_nerf_decode_plain(*args)
     for a, b, tol in zip(got, ref, (1e-5, 1e-4, 1e-5)):
         torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("route", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [48, 128, 200, 256])
+@pytest.mark.parametrize("variant", ["flagship", "demo_own"])
+def test_cond_nerf_decode_kernel_routes(dev, variant, S, route):
+    """Both operand routes against their plain twins, at S across the
+    kernel's 128-sample tiles, on 149 rays (more rays than SMs: blocks take
+    two rays, and no tile size divides it). bf16: max |d| 1e-3 (rgb,
+    opacity) and 1e-2 (depth), and a mean |d| under a tenth of the mean
+    |d| between the f32 and bf16 twins."""
+    md = getattr(torch, route)
+    args = _decode_args(dev, variant, 149, S)
+    with torch.no_grad():
+        got = kc.cond_nerf_decode(*args, matmul_dtype=md)
+        ref = kc.cond_nerf_decode_plain(*args, matmul_dtype=md)
+        other = kc.cond_nerf_decode_plain(
+            *args, matmul_dtype=torch.float32 if route == "bfloat16" else torch.bfloat16)
+    tols = (1e-5, 1e-4, 1e-5) if route == "float32" else (1e-3, 1e-2, 1e-3)
+    for a, b, tol in zip(got, ref, tols):
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+    if route == "bfloat16":
+        d = torch.cat([(a - b).abs().flatten() for a, b in zip(got, ref)]).mean()
+        gap = torch.cat([(a - b).abs().flatten() for a, b in zip(other, ref)]).mean()
+        assert float(d) < 0.1 * float(gap), (float(d), float(gap))
+
+
+def test_cond_nerf_decode_kernel_sample_limit(dev):
+    args = _decode_args(dev, "flagship", 3, kc.S_MAX + 1)
+    with torch.no_grad(), pytest.raises(ValueError, match=f"S <= {kc.S_MAX}"):
+        kc.cond_nerf_decode(*args)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])

@@ -175,15 +175,38 @@ def _port_setup(precision):
     return cfg, model, batch
 
 
+_JAX_BF16 = {}
+
+
+def _jax_bf16_render(value):
+    """The JAX renderer with precision.decoder_matmul_dtype = value (its
+    Pallas decoder with matmul_dtype=bfloat16, interpret mode), and the
+    same render with float32, once per value."""
+    if value not in _JAX_BF16:
+        cfg, params, model, batch = _setup(dict(SLICE_F32, decoder_matmul_dtype=value))
+        f32 = DotDict(dict(cfg))
+        f32.precision = DotDict(SLICE_F32)
+        _JAX_BF16[value] = (cfg, model, batch,
+                            JaxRenderer(cfg).forward(params, batch, mode="test"),
+                            JaxRenderer(f32).forward(params, batch, mode="test"))
+    return _JAX_BF16[value]
+
+
 @pytest.mark.parametrize("value,kernel", [("bf16", True), ("bfloat16", True),
                                           ("bf16", False)])
-def test_decoder_matmul_dtype_bf16_is_refused(value, kernel):
-    """precision.decoder_matmul_dtype: bf16 on the eval decoder route (the
-    JAX Pallas decoder with bf16 operands, not ported) raises, on the kernel
-    path and in the all-plain reference alike."""
-    cfg, model, batch = _port_setup(dict(SLICE_F32, decoder_matmul_dtype=value))
-    with pytest.raises(NotImplementedError, match="pallas_decoder.py::cond_nerf_decode"):
-        Renderer(cfg, model, "cpu", kernel=kernel).forward(batch, mode="test")
+def test_decoder_matmul_dtype_bf16_matches_jax(value, kernel):
+    """precision.decoder_matmul_dtype: bf16 on the eval decoder route renders
+    the JAX renderer's image with the same key at >= 60 dB, through the
+    kernel wrapper (Kernel C's bf16 route; its plain twin on the CPU) and in
+    the all-plain reference, and is closer to it than to the f32 image."""
+    cfg, model, batch, ref, ref_f32 = _jax_bf16_render(value)
+    out = Renderer(cfg, model, "cpu", kernel=kernel).forward(batch, mode="test")
+    for k in ("rgb", "depth", "opacity"):
+        assert tuple(out[k].shape) == ref[k].shape and torch.isfinite(out[k]).all()
+    psnr = _psnr(out["rgb"].numpy(), ref["rgb"])
+    assert psnr >= 60.0, f"agreement PSNR {psnr:.1f} dB < 60"
+    assert psnr > _psnr(out["rgb"].numpy(), ref_f32["rgb"]) + 10.0
+    assert float(ref["opacity"].max()) > 0.01
 
 
 def test_decoder_matmul_dtype_float32_renders_as_before():
@@ -244,8 +267,8 @@ def test_chip_smoke_config_matches_yaml(variant):
         mine = dtu_eval_config()
     for key in SLICE_KEYS:
         a, b = opt, mine
-        for part in key.split("."):
-            a, b = a[part], b[part]
+        for part in key.split("."):       # absent on both sides reads as the default
+            a, b = a.get(part), b.get(part)
         assert a == b, f"{key}: yaml {a!r} vs dict {b!r}"
     assert "max_rays_per_slice" not in opt.nerf and "max_rays_per_slice" not in mine.nerf
 

@@ -15,8 +15,10 @@
   at 64x32, video (3 frames) and test modes: the outputs are written, the
   checkpoint given with --load is the one rendered, and the reported PSNR
   and SSIM equal the JAX `metrics` on the same prediction within 1e-6;
-- `demo_own_config()` equals configs/demo_own.yaml on `DEMO_KEYS`, and the
-  port's metrics equal the JAX ones.
+- `demo_own_config()` and `test_video_own_config()` equal
+  configs/demo_own.yaml and configs/test_video_own.yaml on `DEMO_KEYS`, the
+  `test_video_own` entry runs at a tiny size on the CPU, and the port's
+  metrics equal the JAX ones.
 """
 import os
 
@@ -33,7 +35,8 @@ from matchnerf_tpu.models.matchnerf import init_matchnerf as jax_init
 from matchnerf_tpu.renderer import Renderer as JaxRenderer
 from matchnerf_tpu.utils import DotDict
 from matchnerf_tpu_torch import camera, metrics
-from matchnerf_tpu_torch.config import DEMO_KEYS, demo_own_config
+from matchnerf_tpu_torch import config as tconfig
+from matchnerf_tpu_torch.config import CONFIGS, DEMO_KEYS, demo_own_config
 from matchnerf_tpu_torch.data.colmap import COLMAPDataset
 from matchnerf_tpu_torch.data.loader import collate
 from matchnerf_tpu_torch.models.matchnerf import MatchNeRF, init_matchnerf
@@ -201,13 +204,40 @@ def test_metrics_match_jax():
             assert abs(got[k] - want[k]) <= 1e-6
 
 
-def test_demo_own_config_matches_yaml():
+def _assert_matches_yaml(name, mine):
     from matchnerf_tpu.config import load_options
-    opt = load_options(os.path.join(REPO, "configs", "demo_own.yaml"))
-    mine = demo_own_config()
+    opt = load_options(os.path.join(REPO, "configs", f"{name}.yaml"))
     for key in DEMO_KEYS:
         a, b = opt, mine
-        for part in key.split("."):
-            a, b = a[part], b[part]
+        for part in key.split("."):       # absent on both sides reads as the default
+            a, b = a.get(part), b.get(part)
         assert a == b, f"{key}: yaml {a!r} vs dict {b!r}"
+
+
+def test_demo_own_config_matches_yaml():
+    mine = demo_own_config()
+    _assert_matches_yaml("demo_own", mine)
     assert mine.precision.fused_cosine is False
+
+
+def test_video_own_config_matches_yaml():
+    mine = tconfig.test_video_own_config()
+    _assert_matches_yaml("test_video_own", mine)
+    assert mine.nerf.sample_intvs == 256 and mine.nerf.rand_rays_test == 5012
+    assert mine.data_test.colmap.img_wh == [960, 640] and mine.precision.fused_cosine is False
+    assert CONFIGS["test_video_own"] is tconfig.test_video_own_config
+
+
+def test_entry_test_video_own(tmp_path):
+    """`python -m matchnerf_tpu_torch.test --config test_video_own --cpu
+    --load=` at a tiny size (S = 256 kept, 64x32): 5012-ray slices are not
+    8-aligned, so the pose takes Kernel B's and the colour gather's plain
+    versions, as on the card."""
+    from matchnerf_tpu_torch.test import main
+    videos = main(["--config", "test_video_own", "--cpu", "--load=",
+                   f"--output_root={tmp_path}", "--data_test.colmap.img_wh=64,32",
+                   "--nerf.video_n_frames=2", "--encoder.num_transformer_layers=1"])
+    assert len(videos) == 1 and videos[0].shape == (2, 32, 64, 3)
+    assert np.isfinite(videos[0]).all() and 0.0 <= videos[0].min() <= videos[0].max() <= 1.0
+    out_dir = os.path.join(tmp_path, "test_video", "colmap_own", "test_videos", "colmap")
+    assert any(f.startswith("printer_view00") for f in os.listdir(out_dir))
