@@ -2,9 +2,10 @@
 """GPU smoke test of the PyTorch port (matchnerf_tpu_torch): the DTU eval
 render of configs/test.yaml, its fused-cosine route and its bf16 decoder
 route, the video entry of configs/demo_own.yaml and of
-configs/test_video_own.yaml, and the training step of configs/train.yaml
-and configs/train_fast.yaml on one NVIDIA card, through the hand-written
-CUDA kernels.
+configs/test_video_own.yaml, and the training step and the training loop
+(`python -m matchnerf_tpu_torch.train`) of configs/train.yaml and
+configs/train_fast.yaml on one NVIDIA card, through the hand-written CUDA
+kernels.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -40,7 +41,10 @@ Phases, any failure ends the run with a non-zero exit:
    on the first 8192 rays (one chunk of the fused route), the fused interp
    + grouped cosine (F) on the tap rows of the int8 tables at both scales
    (also held against B) and of bf16 and f32 tables built from the same
-   features, with the row gather timed apart.
+   features, with the row gather timed apart; Kernels B and D on bf16
+   tables built from the same features (configs/train.yaml's validation
+   and test renders), at the eval slice and at the 4096-ray validation
+   slice, against their plain twins at 1e-4 and D against B.
 4. block path, configs/test.yaml as shipped: `Renderer.forward(batch,
    mode="test")` renders the full 640x512 target at S=128. The pose must
    take Kernel D at both scales and Kernel E for the colours; A, C, D and E
@@ -90,8 +94,31 @@ Phases, any failure ends the run with a non-zero exit:
    plain version on CUDA tensors; ms per warm step and peak memory.
 11. configs/train_fast.yaml step: the same, with the pose's route through
    D' at both scales (2 D' forward and 2 D' backward launches per step).
-Every launch count is reset just before a path (a step, in 10 and 11) and
-read just after it. With --profile, one more warm render of each eval path
+12. the training loop: a synthetic DTU tree (6 views of the scene at
+   640x512, PNGs written without PIL with each row's filter chosen as
+   encoders choose it, so rows mix Up, Sub and Paeth, cameras with
+   depth_min 425 and interval 2.5, 1200x1600 depth maps, its own meta
+   dir); then per recipe (train.yaml, train_fast.yaml) the training CLI's
+   `build_coach` and `train_model` for 4 steps of one epoch, validation and
+   the mid-epoch checkpoint every 2 steps, the DTU test view and the epoch
+   checkpoint; steps/s outside the hooks beside the loader's own seconds
+   per sample: finite losses, `latest.ckpt` and `ep1_it4.ckpt`, PSNR and SSIM in
+   scalars.jsonl, the table gradient through B' (train.yaml) or D'
+   (train_fast.yaml) twice a step, no plain version on CUDA; one more
+   validation image
+   with its launches counted: Kernel D's bf16 form where the pose takes
+   the block route (Kernel B's where a scale does not), no other table
+   type; for train.yaml that image against the all-plain render (>= 50
+   dB) and through Kernel B's bf16 form (block_kernel off) against the
+   block route (>= 60 dB). Then `python -m matchnerf_tpu_torch.train` in a
+   subprocess gets SIGTERM once its first mid-epoch checkpoint is on disk:
+   exit 143 and `latest.ckpt` at an iteration inside the epoch; the resumed
+   run (`--resume`) restores the model and the AdamW and schedule state
+   bit for bit, starts at that iteration, skips the loaded batches and ends
+   at the epoch's last. Steps per second (outside the hooks), validation
+   seconds and peak memory are printed with the card's name and limit.
+Every launch count is reset just before a path (a step, in 10 and 11; a
+training run and a validation image, in 12) and read just after it. With --profile, one more warm render of each eval path
 (the bf16 decoder path too) and of each video, and one warm step of each
 training recipe run under torch.profiler and print the device time by
 kernel (the A' backward's dq and dkv kernels always by name), the device
@@ -104,6 +131,7 @@ import copy
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -114,6 +142,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H, W = 512, 640
 DTU_NEAR_FAR = (2.125, 4.525)
 SLICE_RAYS = 20480
+VAL_RAYS = 4096                    # configs/train.yaml nerf.rand_rays_test (val and test renders)
 TRAIN_RAYS = 1024
 TRAIN_STEPS = 7                    # steps per recipe; the first is warm-up
 VIDEO_FRAMES = 24                  # configs/demo_own.yaml nerf.video_n_frames
@@ -125,6 +154,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, f32 without tenso
 DECODER_TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 OWN_FRAMES = 3                     # frames of the configs/test_video_own.yaml phase
 OWN_PLAIN_SLICES = 2               # slices of its frame 0 held to all-plain
+LOOP_STEPS = 4                     # training steps per recipe in the loop phase
+PREEMPT_STEPS = 8                  # steps of the run that is sent SIGTERM
 
 
 def log(msg):
@@ -175,6 +206,14 @@ def bound(nbytes, flops, dtype="float32"):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def prior_flops(n_samples, scaled):
+    """Operations of Kernel B / D's function: 7 flops per (sample, view,
+    channel) for the four bilinear taps (4 multiplies, 3 adds), one more to
+    dequantise rows that carry a scale (int8), and 6 per (sample, pair,
+    chunk channel) for the grouped cosine."""
+    return n_samples * (3 * 256 * (7 + bool(scaled)) + 3 * 128 * 6)
 
 
 def nbytes(*tensors):
@@ -443,7 +482,7 @@ def train_kernel_phase(torch, F, dev, batch, seed, block_ut, res):
         table = ttables["view_feats"][s][0]
         h, w = table.shape[1:3]
         gcot = torch.randn(R, S, G, generator=gen, device=dev)
-        fwd_flops = N * (3 * 256 * 8 + 3 * 128 * 6)
+        fwd_flops = prior_flops(N, scaled=False)          # f32 tables
         bwd_flops = N * (3 * 256 * 16 + 3 * 128 * 12)
         bwd_bound = bound(2 * nbytes(table) + nbytes(grids_ray, gcot), bwd_flops)
 
@@ -689,6 +728,59 @@ def fused_kernel_phase(torch, cfg, feats, ref_images, tables, grids, res):
     torch.cuda.empty_cache()
 
 
+def bf16_kernel_phase(torch, cfg, feats, ref_images, grids, block_ut, res):
+    """Phase 3, Kernels B and D on bf16 tables (base.yaml's
+    cond_sample_dtype, the eval renders of configs/train.yaml) built from
+    the same features: each scale at the eval slice (20480 rays) and the
+    validation slice of configs/train.yaml (nerf.rand_rays_test, 4096 rays)
+    against its plain twin (1e-4, as on int8 tables), D also against B."""
+    from matchnerf_tpu_torch.models.matchnerf import prepare_sampling_tables
+    from matchnerf_tpu_torch.ops import block_cosine_prior as kd
+    from matchnerf_tpu_torch.ops import cosine_prior as kb
+    tables = prepare_sampling_tables(cfg, feats, ref_images, feat_dtype=torch.bfloat16)
+    res["B_bf16"], res["D_bf16"] = [], []
+    for R in (SLICE_RAYS, VAL_RAYS):
+        g = grids[:, :R].contiguous()
+        S = g.shape[2]
+        N = R * S
+        for s, G in enumerate(cfg.encoder.cos_n_group):
+            table = tables["view_feats"][s][0]
+            ut = block_ut[s]
+            out_b = kb.cosine_prior(table, g, None, G)
+            flops = prior_flops(N, scaled=False)          # bf16 rows have no scales
+            b_ms, b_by = bound(nbytes(table, g, out_b), flops)
+            for key, fn, plain in (
+                    ("B", lambda: kb.cosine_prior(table, g, None, G),
+                     lambda: kb.cosine_prior_plain(table, g, None, G)),
+                    ("D", lambda: kd.block_cosine_prior(table, g, None, G, ut),
+                     lambda: kd.block_cosine_prior_plain(table, g, None, G, ut))):
+                got = fn()
+                err = max_abs(got, plain())
+                torch.cuda.synchronize()
+                entry = dict(scale=s, R=R, max_abs_err=err, ms=cuda_ms(torch, fn, 10),
+                             plain_ms=cuda_ms(torch, plain, 3), bound_ms=b_ms, bound_by=b_by)
+                extra = ""
+                if key == "D":
+                    entry["ut"] = ut
+                    entry["channels_per_pass"] = kd.channels_per_pass(ut, S, G, False, 2)
+                    entry["max_abs_err_vs_kernel_b"] = max_abs(got, out_b)
+                    extra = (f", bucket {ut}, {entry['channels_per_pass']} channels a pass, "
+                             f"max|d| vs kernel B {entry['max_abs_err_vs_kernel_b']:.3e}")
+                log(f"kernel {key} {'block_' if key == 'D' else ''}cosine_prior bf16 scale {s} "
+                    f"table {list(table.shape)} G={G} R={R} S={S}: max|d| {err:.3e} (tol "
+                    f"1e-4), {entry['ms']:.4f} ms vs plain {entry['plain_ms']:.3f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by}){extra}")
+                check_close(f"{key} bf16 scale {s} R={R}", err, 1e-4)
+                if key == "D":
+                    check_close(f"D vs B bf16 scale {s} R={R}",
+                                entry["max_abs_err_vs_kernel_b"], 1e-4)
+                res[f"{key}_bf16"].append(entry)
+                del got
+            del out_b
+    del tables
+    torch.cuda.empty_cache()
+
+
 def make_video_sample(seed, img_w, img_h):
     """The synthetic scene as a COLMAP-style sample: 3 source cameras and a
     target, near/far by the demo's nf_mode minmax."""
@@ -818,6 +910,236 @@ def video_phase(torch, dev, seed, counters, profile, name, n_frames, plain_slice
            "launches": launches}
     if profile:
         out["profile"] = profile_call(torch, f"video {name}", coach.test_model_video)
+    return out
+
+
+def timed_hook(torch, fn, times):
+    """`fn` with its synchronised wall seconds appended to `times`."""
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn(*a, **k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return r
+    return run
+
+
+def loop_args(label, name, runs, root, meta, max_len, **over):
+    """The training CLI's arguments for one run on the synthetic DTU tree
+    (the DTU test split only: the port has no LLFF or Blender loader)."""
+    args = {"name": name, "output_root": runs, "max_epoch": 1, "tb": "false",
+            "encoder.pretrain_weight": "", "freq.scalar": 1, "freq.val_it": 0.5,
+            "freq.ckpt_it": 0.5, "data_train.max_len": max_len, "data_val.max_len": 1,
+            "data_test.dtu.max_len": 1, "data_test.llff": "", "data_test.blender": ""}
+    for block in ("data_train", "data_val", "data_test.dtu"):
+        args[f"{block}.root_dir"] = root
+        args[f"{block}.meta_dir"] = meta
+    args.update(over)
+    return ["--config", label] + [f"--{k}={v}" for k, v in args.items()]
+
+
+def loop_phase(torch, dev, counters):
+    """Phase 12: the training loop of configs/train.yaml and train_fast.yaml
+    (`python -m matchnerf_tpu_torch.train`'s `build_coach` and `train_model`)
+    on a synthetic 640x512 DTU tree: 4 steps, validation every 2 (4096-ray
+    slices on bf16 tables through Kernels A, C, D and E), a mid-epoch
+    checkpoint every 2, the DTU test view and the epoch checkpoint; then
+    SIGTERM to a run in a subprocess after its first checkpoint, and the
+    resume."""
+    import tempfile
+
+    from matchnerf_tpu_torch.data import png, synth
+    from matchnerf_tpu_torch.ops import block_cosine_prior as kd
+    from matchnerf_tpu_torch.ops import cosine_prior as kb
+    from matchnerf_tpu_torch.renderer import Renderer
+    from matchnerf_tpu_torch.train import build_coach
+    from matchnerf_tpu_torch.utils.checkpoint import load_checkpoint
+    work = tempfile.mkdtemp(prefix="chip_smoke_dtu_", dir=os.path.join(REPO, "build"))
+    root, meta, runs = (os.path.join(work, d) for d in ("DTU", "meta", "runs"))
+    t0 = time.perf_counter()
+    synth.write_dtu_scene(root, meta)
+    rect = os.path.join(root, "Rectified", "scan1_train")
+    filters = np.bincount(np.concatenate([
+        png._read_filtered(os.path.join(rect, f))[1] for f in sorted(os.listdir(rect))]),
+        minlength=5)
+    log(f"loop phase: synthetic DTU tree {H}x{W}, views {list(synth.DTU_SCENE_VIEW_IDS)} "
+        f"(val/test 24) in {time.perf_counter() - t0:.1f} s under {work}; PNG rows by filter "
+        f"(None, Sub, Up, Average, Paeth) {filters.tolist()}")
+    if np.count_nonzero(filters[[1, 3, 4]]) == 0:
+        raise AssertionError(f"the tree's PNGs use no filter with a left neighbour: {filters}")
+    out = {}
+    for label in ("train", "train_fast"):
+        coach = build_coach(loop_args(label, f"loop_{label}", runs, root, meta, LOOP_STEPS))
+        timed = {"validate_s": [], "test_s": []}
+        coach.validate_model = timed_hook(torch, coach.validate_model, timed["validate_s"])
+        coach.test_model = timed_hook(torch, coach.test_model, timed["test_s"])
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        coach.train_model()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_launches = {k: c.launches for k, c in counters.items()}
+        plain_cuda = {k: c.plain_on_cuda for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with open(coach.scalars_path) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["loss_render"] for r in recs if r["split"] == "train"]
+        vals = [r for r in recs if r["split"] == "val"]
+        mdir = os.path.join(coach.output_path, "models")
+        ckpts = sorted(os.listdir(mdir))
+        hooks_s = sum(timed["validate_s"]) + sum(timed["test_s"])
+        steps_per_s = LOOP_STEPS / (wall - hooks_s)
+        # the loader alone: seconds to read one training sample (4 PNGs
+        # decoded, cameras) on this thread, the most steps/s it can feed
+        data = coach.train_loader.dataset
+        t0 = time.perf_counter()
+        for i in range(LOOP_STEPS):
+            data[i]
+        sample_s = (time.perf_counter() - t0) / LOOP_STEPS
+        log(f"loop {label}.yaml: {LOOP_STEPS} steps in {wall:.3f} s with {len(vals)} "
+            f"validations ({[round(t, 3) for t in timed['validate_s']]} s) and "
+            f"{len(timed['test_s'])} test ({[round(t, 3) for t in timed['test_s']]} s): "
+            f"{steps_per_s:.3f} steps/s outside them; the loader alone {sample_s:.4f} s a "
+            f"sample ({1 / sample_s:.3f} samples/s); losses {[round(x, 6) for x in losses]}; "
+            f"checkpoints {ckpts}; peak device memory {peak:.2f} GiB; {card_line()}")
+        log(f"loop {label}.yaml: launches {run_launches}, plain versions on CUDA {plain_cuda}, "
+            f"B by route {kb.COUNTER.by_entry}, D by route {kd.COUNTER.by_entry}")
+        if len(losses) != LOOP_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"loop {label}: losses {losses}")
+        if ckpts != ["ep1_it%d.ckpt" % LOOP_STEPS, "latest.ckpt"]:
+            raise AssertionError(f"loop {label}: checkpoints {ckpts}")
+        if len(vals) != 2 or not all(math.isfinite(r["PSNR"]) and math.isfinite(r["SSIM"])
+                                     for r in vals):
+            raise AssertionError(f"loop {label}: validation scalars {vals}")
+        if any(plain_cuda.values()):
+            raise AssertionError(f"loop {label}: plain versions ran on CUDA: {plain_cuda}")
+        # the steps' table gradient: B' on train.yaml's iid rays, D' on
+        # train_fast.yaml's strips (the tree's training poses fit its staging)
+        bwd = "cosine_prior_bwd" if label == "train" else "block_cosine_prior_bwd"
+        if run_launches[bwd] != 2 * LOOP_STEPS:
+            raise AssertionError(f"loop {label}: {bwd} launched {run_launches[bwd]} times")
+
+        # one validation image alone: its launches, seconds, and its render
+        # (kept) against the all-plain one
+        renders = []
+        forward = coach.renderer.forward
+        coach.renderer.forward = lambda *a, **k: renders.append(forward(*a, **k)) or renders[-1]
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coach.validate_model(iteration=coach.it)
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+        coach.renderer.forward = forward
+        val_launches = {k: c.launches for k, c in counters.items()}
+        routes = {"B": dict(kb.COUNTER.by_entry), "D": dict(kd.COUNTER.by_entry)}
+        route = coach.renderer.last_route
+        log(f"loop {label}.yaml: training route {coach.last_route} (None: B'); one validation "
+            f"image {val_s:.4f} s, route {route}, launches "
+            f"{val_launches}, B {routes['B']}, D {routes['D']}")
+        n_block = sum(u is not None for u in route["block_ut"] or ())
+        if n_block and routes["D"].get("block_cosine_prior_bf16", 0) <= 0:
+            raise AssertionError(f"loop {label}: Kernel D's bf16 form did not launch")
+        if n_block < 2 and routes["B"].get("cosine_prior_bf16", 0) <= 0:
+            raise AssertionError(f"loop {label}: Kernel B's bf16 form did not launch")
+        if set(routes["B"]) - {"cosine_prior_bf16"} or set(routes["D"]) - {
+                "block_cosine_prior_bf16"}:
+            raise AssertionError(f"loop {label}: tables other than bf16 in validation {routes}")
+        entry = {"steps": LOOP_STEPS, "wall_s": wall, "steps_per_s": steps_per_s,
+                 "loader_sample_s": sample_s, "png_rows_by_filter": filters.tolist(),
+                 "validate_s": timed["validate_s"][:-1], "test_s": timed["test_s"],
+                 "validation_image_s": val_s, "peak_gib": peak, "losses": losses,
+                 "checkpoints": ckpts, "launches": run_launches,
+                 "validation_launches": val_launches, "validation_routes": routes,
+                 "route": route, "val_psnr": [r["PSNR"] for r in vals],
+                 "val_ssim": [r["SSIM"] for r in vals]}
+        if label == "train":
+            batch = next(iter(coach.val_loader))
+            kern = renders[0]["rgb"]
+            plain = Renderer(coach.cfg, coach.model, dev, kernel=False).forward(
+                batch, mode="val")["rgb"]
+            entry["psnr_vs_plain_db"] = psnr(kern, plain)
+            # the same view with every scale through Kernel B (block_kernel off)
+            ray_cfg = copy.deepcopy(coach.cfg)
+            ray_cfg.precision.block_kernel = False
+            before = kb.COUNTER.by_entry.get("cosine_prior_bf16", 0)
+            ray = Renderer(ray_cfg, coach.model, dev).forward(batch, mode="val")["rgb"]
+            entry["per_ray_b_bf16_launches"] = kb.COUNTER.by_entry["cosine_prior_bf16"] - before
+            entry["per_ray_psnr_vs_block_db"] = psnr(ray, kern)
+            log(f"loop {label}.yaml: validation image kernels vs all-plain PSNR "
+                f"{entry['psnr_vs_plain_db']:.2f} dB (need >= 50); through Kernel B's bf16 "
+                f"form ({entry['per_ray_b_bf16_launches']} launches) vs the block route "
+                f"{entry['per_ray_psnr_vs_block_db']:.2f} dB (need >= 60)")
+            if not entry["psnr_vs_plain_db"] >= 50.0:
+                raise AssertionError(f"loop validation PSNR {entry['psnr_vs_plain_db']} < 50")
+            if not (entry["per_ray_b_bf16_launches"] > 0
+                    and entry["per_ray_psnr_vs_block_db"] >= 60.0):
+                raise AssertionError(f"loop validation through Kernel B: {entry}")
+            del kern, plain, ray
+        out[label] = entry
+        del coach
+        torch.cuda.empty_cache()
+
+    # preemption: SIGTERM to a training run once its first mid-epoch
+    # checkpoint is on disk, then the resume
+    args = loop_args("train", "loop_preempt", runs, root, meta, PREEMPT_STEPS,
+                     **{"freq.ckpt_it": 2 / PREEMPT_STEPS, "freq.val_it": -1,
+                        "freq.test_ep": -1, "freq.scalar": 0})
+    latest = os.path.join(runs, "loop_preempt", "models", "latest.ckpt")
+    log_path = os.path.join(work, "preempt.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen([sys.executable, "-m", "matchnerf_tpu_torch.train", *args],
+                                cwd=REPO, stdout=log_file, stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None and not os.path.exists(latest):
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("preemption run wrote no checkpoint in 300 s")
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ckpt = load_checkpoint(latest)
+    with open(log_path) as f:
+        tail = f.read()[-2000:]
+    log(f"loop preemption: SIGTERM after the first checkpoint, exit code {code} after "
+        f"{time.perf_counter() - t0:.1f} s, latest.ckpt at epoch {ckpt['epoch']} iteration "
+        f"{ckpt['iter']} of {PREEMPT_STEPS}")
+    if code != 128 + signal.SIGTERM or not 0 < ckpt["iter"] < PREEMPT_STEPS:
+        raise AssertionError(f"preemption: exit {code}, iteration {ckpt['iter']}; log:\n{tail}")
+    coach = build_coach(args + ["--resume"])
+    if (coach.epoch_start, coach.iter_start) != (ckpt["epoch"], ckpt["iter"]):
+        raise AssertionError(f"resume at {coach.epoch_start}, {coach.iter_start}")
+    model_equal = all(torch.equal(v.cpu(), ckpt["model"][k])
+                      for k, v in coach.model.state_dict().items())
+    opt = coach.opt.state_dict()
+    adam, adam_ckpt = opt["adamw"]["state"], ckpt["optim"]["adamw"]["state"]
+    opt_equal = (opt["count"] == ckpt["optim"]["count"] and adam.keys() == adam_ckpt.keys()
+                 and all(torch.equal(adam[i][k].cpu(), adam_ckpt[i][k])
+                         for i in adam for k in adam[i]))
+    steps = []
+    step = coach.step
+    coach.step = lambda *a, **k: steps.append(1) or step(*a, **k)
+    coach.train_model()
+    log(f"loop resume: from iteration {coach.iter_start}, model bit-equal {model_equal}, "
+        f"AdamW and schedule state bit-equal {opt_equal}, {len(steps)} steps taken (the "
+        f"{coach.iter_start} loaded batches skipped), ending at iteration {coach.it}")
+    if not (model_equal and opt_equal and len(steps) == PREEMPT_STEPS - ckpt["iter"]
+            and coach.it == PREEMPT_STEPS):
+        raise AssertionError("resume did not continue from the checkpoint")
+    out["preempt"] = {"exit_code": code, "iter": ckpt["iter"], "steps": PREEMPT_STEPS,
+                      "resumed_steps": len(steps), "model_bit_equal": model_equal,
+                      "optimizer_bit_equal": opt_equal}
+    del coach
+    torch.cuda.empty_cache()
     return out
 
 
@@ -962,9 +1284,7 @@ def main():
             table = tables["view_feats"][s][0]
             scales = tables["view_feat_scales"][s][0]
             out_b = kb.cosine_prior(table, grids, scales, G)
-            # 8 flops per (view, channel) to interpolate 4 taps and dequantise,
-            # 6 per (pair, chunk channel) for the dot product and two norms
-            flops = N * (3 * 256 * 8 + 3 * 128 * 6)
+            flops = prior_flops(N, scaled=True)
             b_ms, b_by = bound(nbytes(table, grids, scales, out_b), flops)
             for key, fn, plain in (
                     ("B", lambda: kb.cosine_prior(table, grids, scales, G),
@@ -1056,6 +1376,7 @@ def main():
                                                       vcond, vdepth, vray), "test_video_own")
         del vcond, vpts, vndc0, vref, vdec
         fused_kernel_phase(torch, cfg, feats, ref_images, tables, grids, res)
+        bf16_kernel_phase(torch, cfg, feats, ref_images, grids, block_ut, res)
         del feats, tables, grids
 
     # ---- 4. the block path (configs/test.yaml as shipped), 5. per-ray, 6. fused
@@ -1209,6 +1530,9 @@ def main():
     if route is None or None in route:
         raise AssertionError(f"train_fast.yaml: the pose must take D' at both scales: {route}")
 
+    # ---- 12. the training loop (train.yaml, train_fast.yaml), preemption, resume
+    loop = loop_phase(torch, dev, counters)
+
     def per_scale(entries):
         return {"max_abs_err": max(e["max_abs_err"] for e in entries),
                 "ms": sum(e["ms"] for e in entries),
@@ -1223,6 +1547,25 @@ def main():
         e.update(r if "ms" in r else per_scale(r))
         e.update(extra or {})
         return e
+
+    def bf16_entry(key, c_entry):
+        """The bf16 form at the eval slice and the validation slice, and its
+        launches per validation image (loop phase) and in the per-ray
+        validation render."""
+        by_r = {R: per_scale([e for e in res[f"{key}_bf16"] if e["R"] == R])
+                for R in (SLICE_RAYS, VAL_RAYS)}
+        name = "cosine_prior" if key == "B" else "block_cosine_prior"
+        out = dict(by_r[SLICE_RAYS], **{f"R{VAL_RAYS}": by_r[VAL_RAYS]})
+        out["launches_per_validation_image"] = {
+            k: v["validation_routes"][key].get(c_entry, 0) for k, v in loop.items()
+            if k != "preempt"}
+        out["launches"] = max(out["launches_per_validation_image"].values())
+        if key == "B":
+            out["launches_per_ray_validation_image"] = loop["train"]["per_ray_b_bf16_launches"]
+            out["launches"] = max(out["launches"], out["launches_per_ray_validation_image"])
+        out.update(name=f"{name}_bf16", route="cuda", source=counters[name].source,
+                   replaces=counters[name].replaces, library_ms=None)
+        return out
 
     def eval_paths(name):
         return {"block": block_launches[name], "per_ray": ray_launches[name],
@@ -1244,7 +1587,8 @@ def main():
               train_paths("window_attention_bwd"), {"variants": a_bwd}),
         entry("cosine_prior", res["B"], ray_launches["cosine_prior"],
               dict(eval_paths("cosine_prior"), **train_paths("cosine_prior")),
-              {"f32_training_shapes": per_scale(res["B_f32"])}),
+              {"f32_training_shapes": per_scale(res["B_f32"]),
+               "bfloat16": bf16_entry("B", "cosine_prior_bf16")}),
         entry("cosine_prior_bwd", res["B_bwd"],
               train["train"]["launches_total"]["cosine_prior_bwd"],
               train_paths("cosine_prior_bwd")),
@@ -1253,7 +1597,8 @@ def main():
               {"routes": {"S128": res["C"], "S256_test_video_own": res["C_S256"]}}),
         entry("block_cosine_prior", res["D"], block_launches["block_cosine_prior"],
               eval_paths("block_cosine_prior"),
-              {"union_ms": sum(s["union_ms"] for s in res["D"])}),
+              {"union_ms": sum(s["union_ms"] for s in res["D"]),
+               "bfloat16": bf16_entry("D", "block_cosine_prior_bf16")}),
         entry("block_cosine_prior_f32", res["D_f32"],
               train["train_fast"]["launches_total"]["block_cosine_prior_f32"],
               train_paths("block_cosine_prior_f32"),
@@ -1290,7 +1635,8 @@ def main():
         "test_video_own": {k: v for k, v in video_own.items()
                            if k not in ("profile", "launches")},
         "train": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
-                  for k, v in train.items()}}}
+                  for k, v in train.items()},
+        "loop": loop}}
     if args.profile:
         report["profile"] = {"train": train["train"]["profile"],
                              "train_fast": train["train_fast"]["profile"],

@@ -1,30 +1,42 @@
-"""The eval render's, the demo entry's and the training step's
-configurations as Python dicts, and the entry's `--key=value` overrides.
+"""The eval render's, the demo entry's and the training run's
+configurations as Python dicts, the entries' `--key=value` overrides and
+the run directory (`process_options`).
 
 `dtu_eval_config()` is configs/base.yaml overlaid with configs/test.yaml as
 shipped (`precision.block_kernel` and `precision.color_block_kernel` on),
 restricted to the keys the eval render reads. `dtu_eval_per_ray_config()`
 is the same with `precision.block_kernel: false`: the per-ray cosine-prior
-path. `dtu_train_config()` is configs/base.yaml overlaid with
-configs/train.yaml (iid rays), restricted to the keys the training step
-reads; `dtu_train_fast_config()` adds configs/train_fast.yaml (8-pixel ray
-strips, the block route). They exist so the port runs where PyYAML is not
-installed; a CPU test holds them equal to what `matchnerf_tpu.config` loads
-from the YAML files. `encoder.attention_backend` and
-`encoder.conv_data_format` are TPU backend and layout knobs: carried as
-keys, they change nothing here. `demo_own_config()` is configs/base.yaml +
-configs/test.yaml + configs/demo_own.yaml (the IBR decoder variant on the
-in-repo COLMAP printer scene, video mode), restricted to the keys the
-entry (`matchnerf_tpu_torch/test.py`) reads; `precision.fused_cosine` stays
-as base.yaml sets it (off) and the entry's override turns it on.
+path. `base_config()` is configs/base.yaml, every key;
+`dtu_train_config()` (CONFIGS["train"]) overlays configs/train.yaml and
+`dtu_train_fast_config()` (CONFIGS["train_fast"]) configs/train_fast.yaml
+(8-pixel ray strips, the block route): every key, as the JAX package's
+`build_options` resolves them, for the training step and the loop around
+it (its validation and test renders take bf16 tables). They exist so the
+port runs where PyYAML is not installed; CPU tests hold them equal to what
+`matchnerf_tpu.config` loads from the YAML files.
+`encoder.attention_backend` and `encoder.conv_data_format` are TPU backend
+and layout knobs: carried as keys, they change nothing here.
+`demo_own_config()` is configs/base.yaml + configs/test.yaml +
+configs/demo_own.yaml (the IBR decoder variant on the in-repo COLMAP
+printer scene, video mode), restricted to the keys the entry
+(`matchnerf_tpu_torch/test.py`) reads; `precision.fused_cosine` stays as
+base.yaml sets it (off) and the entry's override turns it on.
 `test_video_own_config()` adds configs/test_video_own.yaml (S = 256,
 5012-ray slices, 960x640). `precision.decoder_matmul_dtype`, absent from
 the YAML files, reads as float32; bf16 picks Kernel C's bf16 route.
 """
 from __future__ import annotations
 
+import json
 import logging
+import os
+import random
+import string
+import sys
+import time
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from .utils.containers import DotDict
 
@@ -98,25 +110,23 @@ SLICE_KEYS = [
 ]
 
 
-def dtu_train_config() -> DotDict:
+def base_config() -> DotDict:
+    """configs/base.yaml as the JAX package loads it, every key."""
     return DotDict({
-        "seed": 0,
-        "n_src_views": 3,
-        "batch_size": 1,
-        "max_epoch": 12,
-        "sync_loss_every_step": False,
-        "data_train": {"img_wh": [640, 512]},
+        "name": None, "yaml": None, "model": "matchnerf", "seed": 0, "load": None,
+        "n_src_views": 3, "batch_size": 1, "max_epoch": 12,
+        "sync_loss_every_step": False, "resume": False, "output_root": "outputs",
+        "vis_depth": False, "separate_save": False,
         "encoder": {
             "attn_splits_list": [2],
             "cos_n_group": [2, 8],
+            "pretrain_weight": "configs/pretrained_models/gmflow_sintel-0c07dcb3.pth",
             "num_transformer_layers": 6,
             "feature_upsampler": "network",
             "upsample_factor": 2,
             "wo_self_attn": False,
             "feature_sample_local_radius": 0,
             "feature_sample_local_dilation": 1,
-            "attention_backend": "fused",
-            "conv_data_format": "NCHW",
         },
         "decoder": {
             "net_width": 128,
@@ -134,55 +144,80 @@ def dtu_train_config() -> DotDict:
             "depth": {"param": "metric"},
             "sample_intvs": 128,
             "sample_stratified": True,
-            "rand_rays_train": 1024,
+            "density_noise_reg": None,
+            "render_video": False,
+        },
+        "parallel": {
+            "mesh_axes": ["data"], "data_parallel": -1, "multihost": False,
+            "coordinator_address": None, "num_processes": None, "process_id": None,
+            "shard_encoder_streams": True, "shard_encoder_streams_eval": True,
         },
         "precision": {
-            "encoder_compute_dtype": "bfloat16",
-            "decoder_compute_dtype": "bfloat16",
-            "banded_kernel": True,
-            "block_kernel": True,
+            "cond_sample_dtype": "bfloat16",
+            "encoder_compute_dtype": "float32",
+            "remat_encoder": False,
+            "fused_cosine": False,
+            "banded_gather": False,
+            "banded_kernel": False,
+            "block_kernel": False,
+            "decoder_kernel": False,
+            "color_sample_dtype": "float32",
         },
-        "loss_weight": {"render": 1},
+        "tb": None,
+    })
+
+
+def _dtu_data(max_len: int) -> dict:
+    return {"root_dir": "data/DTU", "dataset_name": "dtu", "img_wh": [640, 512],
+            "num_workers": 4, "max_len": max_len}
+
+
+def dtu_train_config() -> DotDict:
+    """configs/base.yaml + configs/train.yaml, every key (CONFIGS["train"]):
+    the training step, and the loop around it with its validation and test
+    renders, which take bf16 feature tables (base.yaml's
+    cond_sample_dtype), uint8 colours and the block, banded and decoder
+    kernels."""
+    cfg = override_options(base_config(), {
+        "yaml": "train",
+        "tb": True, "batch_size": 1, "max_epoch": 12, "sanity_check": False,
+        "save_test_image": False,
+        "nerf": {"rand_rays_train": 1024, "rand_rays_val": 4096, "rand_rays_test": 4096},
+        "data_train": _dtu_data(-1),
+        "data_val": _dtu_data(5),
+        "data_test": {
+            "dtu": _dtu_data(-1),
+            "llff": {"root_dir": "data/nerf_llff_data", "dataset_name": "llff",
+                     "img_wh": [960, 640], "num_workers": 4, "max_len": -1},
+            "blender": {"root_dir": "data/nerf_synthetic", "dataset_name": "blender",
+                        "img_wh": [800, 800], "num_workers": 4, "max_len": -1},
+        },
+        "precision": {"encoder_compute_dtype": "bfloat16", "block_kernel": True,
+                      "decoder_kernel": True, "color_sample_dtype": "uint8",
+                      "banded_kernel": True, "decoder_compute_dtype": "bfloat16"},
+        "encoder": {"attention_backend": "fused", "conv_data_format": "NCHW"},
+        "loss_weight": {"render": 1, "render_fine": None},
         "optim": {
             "lr_enc": 5e-5,
             "lr_dec": 5e-4,
             "clip_enc": 1.0,
             "algo": {"type": "AdamW", "weight_decay": 1e-4},
-            "sched": {"type": "OneCycleLR", "pct_start": 0.05},
+            "sched": {"type": "OneCycleLR", "pct_start": 0.05, "cycle_momentum": False,
+                      "anneal_strategy": "cos"},
         },
-        "freq": {"scalar": 20},
-    })
-
-
-def dtu_train_fast_config() -> DotDict:
-    cfg = dtu_train_config()
-    cfg.nerf.train_ray_patches = True
+        "freq": {"scalar": 20, "log_ep": 1, "ckpt_ep": 1, "ckpt_it": 0.1, "val_ep": -1,
+                 "val_it": 0.5, "test_ep": 1, "test_ep_start": 0, "test_it": -1},
+    }, warn=False)
     return cfg
 
 
-# every key the training step reads, as dotted paths (a key absent from a
-# config reads as its default)
-TRAIN_SLICE_KEYS = [
-    "seed", "n_src_views", "batch_size", "max_epoch", "sync_loss_every_step",
-    "data_train.img_wh",
-    "encoder.attn_splits_list", "encoder.cos_n_group",
-    "encoder.num_transformer_layers", "encoder.feature_upsampler",
-    "encoder.upsample_factor", "encoder.wo_self_attn",
-    "encoder.feature_sample_local_radius", "encoder.attention_backend",
-    "encoder.conv_data_format",
-    "decoder.net_width", "decoder.net_depth", "decoder.skip", "decoder.posenc",
-    "decoder.raytrans_posenc", "decoder.density_maskfill", "decoder.raytrans_act",
-    "nerf.legacy_coord", "nerf.wo_render_interval", "nerf.view_dep",
-    "nerf.depth", "nerf.sample_intvs", "nerf.sample_stratified",
-    "nerf.rand_rays_train", "nerf.train_ray_patches", "nerf.train_ray_sampler",
-    "precision.encoder_compute_dtype", "precision.decoder_compute_dtype",
-    "precision.banded_kernel", "precision.block_kernel", "precision.strict",
-    "loss_weight.render",
-    "optim.lr_enc", "optim.lr_dec", "optim.clip_enc", "optim.algo.type",
-    "optim.algo.weight_decay", "optim.sched.type", "optim.sched.pct_start",
-    "optim.sched.div_factor", "optim.sched.final_div_factor",
-    "freq.scalar",
-]
+def dtu_train_fast_config() -> DotDict:
+    """... + configs/train_fast.yaml (CONFIGS["train_fast"]): 8-pixel ray
+    strips, the block route."""
+    cfg = dtu_train_config()
+    cfg.yaml = "train_fast"
+    cfg.nerf.train_ray_patches = True
+    return cfg
 
 
 def demo_own_config() -> DotDict:
@@ -225,7 +260,8 @@ DEMO_KEYS = SLICE_KEYS + [
     "data_test.colmap",
 ]
 
-CONFIGS = {"demo_own": demo_own_config, "test_video_own": test_video_own_config}
+CONFIGS = {"demo_own": demo_own_config, "test_video_own": test_video_own_config,
+           "train": dtu_train_config, "train_fast": dtu_train_fast_config}
 
 
 def _parse_value(text: Optional[str]):
@@ -281,15 +317,52 @@ def parse_arguments(args: List[str]) -> DotDict:
     return DotDict(out)
 
 
-def override_options(cfg: DotDict, over, key_stack=()) -> DotDict:
+def override_options(cfg: DotDict, over, key_stack=(), warn: bool = True) -> DotDict:
     """Merge `over` into `cfg` (config.py:87); a key the config does not
-    have is added with a warning."""
+    have is added, with a warning unless `warn` is False (a YAML child
+    adding keys to its parent)."""
     for key, value in over.items():
         if isinstance(value, dict) and isinstance(cfg.get(key), dict):
-            override_options(cfg[key], value, (*key_stack, key))
+            override_options(cfg[key], value, (*key_stack, key), warn)
             continue
-        if key not in cfg:
+        if warn and key not in cfg:
             log.warning('"%s" not found in the configuration, adding it',
                         ".".join((*key_stack, key)))
         cfg[key] = value
     return cfg
+
+
+def process_options(cfg: DotDict) -> DotDict:
+    """The run's name and directory (config.py:98): a timestamp when no name
+    is given; a name with `_debug` cuts the data to 20 / 1 / 1 samples and
+    the run to 2 epochs; seed != 0 adds `_seed{seed}`, no seed a random
+    suffix; python's and numpy's global generators take the seed. Creates
+    `output_path` = <output_root>/<name> and writes the options there as
+    options.json (the port reads no YAML) and the command to run.bash."""
+    if cfg.get("name") is None:
+        cfg.name = time.strftime("%b%d_%H%M%S").lower()
+    if "_debug" in str(cfg.name):
+        if cfg.get("data_train"):
+            cfg.data_train.max_len = 20
+        if cfg.get("data_val"):
+            cfg.data_val.max_len = 1
+        for data_cfg in (cfg.get("data_test") or {}).values():
+            if data_cfg:
+                data_cfg.max_len = 1
+        cfg.max_epoch = 2
+    if cfg.get("seed") is not None:
+        random.seed(int(cfg.seed))
+        np.random.seed(int(cfg.seed))
+        if cfg.seed != 0:
+            cfg.name = f"{cfg.name}_seed{cfg.seed}"
+    else:
+        cfg.name = f"{cfg.name}_" + "".join(random.choice(string.ascii_uppercase)
+                                             for _ in range(4))
+    cfg.output_path = os.path.join(str(cfg.get("output_root") or "outputs"), str(cfg.name))
+    os.makedirs(cfg.output_path, exist_ok=True)
+    with open(os.path.join(cfg.output_path, "run.bash"), "a+") as f:
+        f.write("python %s\n" % " ".join(sys.argv))
+    with open(os.path.join(cfg.output_path, "options.json"), "w") as f:
+        json.dump(cfg, f, indent=2, sort_keys=True)
+    return cfg
+

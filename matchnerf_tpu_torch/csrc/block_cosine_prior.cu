@@ -224,15 +224,19 @@ block_cosine_prior_kernel(const int8_t* __restrict__ table,
   for (int i = tid; i < valid; i += THREADS) ob[i] = acc[i] / 3.f;
 }
 
-// ------------------------------------------------- D': f32 tables, training
+// ------------------------------ D': f32 tables, training; D on bf16 tables
 //
-// The same block, unions and prologue as above, on f32 tables [V,H,W,2C] with
-// no dequantisation scale. f32 union rows are 4x the int8 bytes: the two
-// 128-channel chunks of 321 rows (ut 320) would take 321 KB, over the 227 KB
-// a block may have. So each pair is staged in passes of CP channels (128,
-// 64 or 32; the host picks the widest that fits, see
-// ops/block_cosine_prior.py::f32_channels_per_pass), fewer channels per
-// pass, the rows unchanged. A cosine group must lie inside one pass
+// The same block, unions and prologue as above, on f32 or bf16 tables
+// [V,H,W,2C] with no dequantisation scale. f32 union rows are 4x the int8
+// bytes: the two 128-channel chunks of 321 rows (ut 320) would take 321 KB,
+// over the 227 KB a block may have. So each pair is staged in passes of CP
+// channels (128, 64 or 32; the host picks the widest that fits, see
+// ops/block_cosine_prior.py::channels_per_pass), fewer channels per pass,
+// the rows unchanged. bf16 union rows (the eval renders of
+// configs/train.yaml, whose cond_sample_dtype defaults to bfloat16) are
+// staged as bf16, half the f32 bytes, so a pass is twice as wide for the
+// same shared memory (CP = 128 up to ut 320 at S = 128, 64 above), and
+// widened to f32 in registers; the forward is the same template. A cosine group must lie inside one pass
 // (G * CP >= 128), so each pass finishes its groups; the sum over pairs
 // accumulates in `out` itself (the same thread owns an output in every
 // pair and pass), which frees the [8S, G] shared accumulator.
@@ -250,13 +254,13 @@ block_cosine_prior_kernel(const int8_t* __restrict__ table,
 // every row and channel is flushed once per block. A tap missing from an
 // overflowed union (the zero row) adds nothing.
 
-struct LayoutF32 {        // dynamic shared memory, in bytes from its start
+struct LayoutPass {       // dynamic shared memory, in bytes from its start
   size_t rows, dacc, taps, fracs, unions, total;
-  __host__ __device__ LayoutF32(int ut, int S, int CP, bool bwd) {
+  __host__ __device__ LayoutPass(int ut, int S, int CP, bool bwd, int esize) {
     const size_t samples = (size_t)BLOCK_RAYS * S;
-    const size_t side = (size_t)(ut + 1) * CP * sizeof(float);
-    rows = 0;                                              // [2][ut+1][CP] f32
-    dacc = rows + 2 * side;                                // [2][ut+1][CP] f32 (bwd)
+    const size_t side = (size_t)(ut + 1) * CP * esize;
+    rows = 0;                                              // [2][ut+1][CP] table type
+    dacc = rows + 2 * side;                                // [2][ut+1][CP] f32 (bwd, f32)
     taps = dacc + (bwd ? 2 * side : 0);                    // [V][8S] uint2
     fracs = taps + (size_t)V * samples * sizeof(uint2);    // [V][8S] float2
     unions = fracs + (size_t)V * samples * sizeof(float2); // [V][ut] int
@@ -298,27 +302,37 @@ __device__ __forceinline__ void block_prologue(const float* __restrict__ grids,
   }
 }
 
-// stage CP channels (from channel c0 of the chunk) of both sides' union rows;
-// row ut is zero. With `dacc`, zero the gradient rows too.
-__device__ __forceinline__ void stage_f32(const float* __restrict__ table, const int* u_s,
-                                          float* rows, float* dacc, int H, int W, int ut,
-                                          int CP, int vi, int vj, int ca, int cb, int c0,
-                                          int tid) {
-  const int per_side = (ut + 1) * (CP / 4);
+// stage CP channels (from channel c0 of the chunk) of both sides' union rows,
+// 16 bytes a thread; row ut is zero. With `dacc` (f32 tables), zero the
+// gradient rows too.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ table, const int* u_s,
+                                           T* rows, float* dacc, int H, int W, int ut,
+                                           int CP, int vi, int vj, int ca, int cb, int c0,
+                                           int tid) {
+  constexpr int EL = 16 / sizeof(T);           // elements per 16 bytes
+  const int per_side = (ut + 1) * (CP / EL);
   for (int i = tid; i < 2 * per_side; i += THREADS) {
     const int side = i / per_side, rem = i % per_side;
-    const int r = rem / (CP / 4), part = rem % (CP / 4);
+    const int r = rem / (CP / EL), part = rem % (CP / EL);
     const int v = side ? vj : vi;
     const int chunk = side ? cb : ca;
     const int cell = r < ut ? u_s[v * ut + r] : INT_MAX;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (cell != INT_MAX)
-      val = *reinterpret_cast<const float4*>(
-          table + ((size_t)v * H * W + cell) * CC + chunk * C + c0 + part * 4);
-    const size_t off = ((size_t)side * (ut + 1) + r) * CP + part * 4;
-    *reinterpret_cast<float4*>(rows + off) = val;
+      val = *reinterpret_cast<const uint4*>(
+          table + ((size_t)v * H * W + cell) * CC + chunk * C + c0 + part * EL);
+    const size_t off = ((size_t)side * (ut + 1) + r) * CP + part * EL;
+    *reinterpret_cast<uint4*>(rows + off) = val;
     if (dacc) *reinterpret_cast<float4*>(dacc + off) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+}
+
+// one staged element as f32: bf16 is stored as its 16 bits (uint16_t), the
+// f32 with the same upper half, so widening is exact
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(uint16_t x) {
+  return __uint_as_float((unsigned int)x << 16);
 }
 
 __device__ __forceinline__ void weights4(float2 fr, float* w) {
@@ -333,30 +347,31 @@ __device__ __forceinline__ int tap_row(uint2 pos, int t) {
   return (t & 1) ? (int)(h >> 16) : (int)(h & 0xffff);
 }
 
-// CPL channels (this lane's, from o) of one side at one sample
-template <int CPL>
-__device__ __forceinline__ void interp_f32(const float* rows, int CP, uint2 pos, float2 fr,
-                                           int o, float* f) {
+// CPL channels (this lane's, from o) of one side at one sample, in f32
+template <typename T, int CPL>
+__device__ __forceinline__ void interp_rows(const T* rows, int CP, uint2 pos, float2 fr,
+                                            int o, float* f) {
   float w[4];
   weights4(fr, w);
-  const float* a = rows + tap_row(pos, 0) * CP + o;
-  const float* b = rows + tap_row(pos, 1) * CP + o;
-  const float* c = rows + tap_row(pos, 2) * CP + o;
-  const float* d = rows + tap_row(pos, 3) * CP + o;
+  const T* a = rows + tap_row(pos, 0) * CP + o;
+  const T* b = rows + tap_row(pos, 1) * CP + o;
+  const T* c = rows + tap_row(pos, 2) * CP + o;
+  const T* d = rows + tap_row(pos, 3) * CP + o;
 #pragma unroll
-  for (int e = 0; e < CPL; ++e) f[e] = a[e] * w[0] + b[e] * w[1] + c[e] * w[2] + d[e] * w[3];
+  for (int e = 0; e < CPL; ++e)
+    f[e] = widen(a[e]) * w[0] + widen(b[e]) * w[1] + widen(c[e]) * w[2] + widen(d[e]) * w[3];
 }
 
-template <int CPL>
+template <typename T, int CPL>
 __global__ void __launch_bounds__(THREADS)
-block_cosine_prior_f32_kernel(const float* __restrict__ table,
-                              const float* __restrict__ grids,
-                              const int* __restrict__ unions, float* __restrict__ out,
-                              int H, int W, int G, int R, int S, int NB, int ut) {
+block_cosine_prior_pass_kernel(const T* __restrict__ table,
+                               const float* __restrict__ grids,
+                               const int* __restrict__ unions, float* __restrict__ out,
+                               int H, int W, int G, int R, int S, int NB, int ut) {
   constexpr int CP = CPL * LANES;
   extern __shared__ __align__(16) unsigned char smem[];
-  const LayoutF32 L(ut, S, CP, false);
-  float* rows = reinterpret_cast<float*>(smem + L.rows);
+  const LayoutPass L(ut, S, CP, false, sizeof(T));
+  T* rows = reinterpret_cast<T*>(smem + L.rows);
   uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
   float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
   int* u_s = reinterpret_cast<int*>(smem + L.unions);
@@ -380,17 +395,19 @@ block_cosine_prior_f32_kernel(const float* __restrict__ table,
 #pragma unroll 1
     for (int c0 = 0; c0 < C; c0 += CP) {
       __syncthreads();                     // prologue / previous pass done
-      stage_f32(table, u_s, rows, nullptr, H, W, ut, CP, vi, vj, ca, cb, c0, tid);
+      stage_rows<T>(table, u_s, rows, nullptr, H, W, ut, CP, vi, vj, ca, cb, c0, tid);
       __syncthreads();
-      const float* rows_a = rows;
-      const float* rows_b = rows + (size_t)(ut + 1) * CP;
+      const T* rows_a = rows;
+      const T* rows_b = rows + (size_t)(ut + 1) * CP;
       const int group = (c0 + o) / gsize;
       for (int base = 0; base < samples; base += GROUPS) {
         const int nl_raw = base + grp;
         const int nl = nl_raw < samples ? nl_raw : samples - 1;
         float fa[CPL], fb[CPL];
-        interp_f32<CPL>(rows_a, CP, taps[vi * samples + nl], fracs[vi * samples + nl], o, fa);
-        interp_f32<CPL>(rows_b, CP, taps[vj * samples + nl], fracs[vj * samples + nl], o, fb);
+        interp_rows<T, CPL>(rows_a, CP, taps[vi * samples + nl], fracs[vi * samples + nl], o,
+                            fa);
+        interp_rows<T, CPL>(rows_b, CP, taps[vj * samples + nl], fracs[vj * samples + nl], o,
+                            fb);
         float dot = 0.f, na2 = 0.f, nb2 = 0.f;
 #pragma unroll
         for (int e = 0; e < CPL; ++e) {
@@ -422,7 +439,7 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
                               int S, int NB, int ut) {
   constexpr int CP = CPL * LANES;
   extern __shared__ __align__(16) unsigned char smem[];
-  const LayoutF32 L(ut, S, CP, true);
+  const LayoutPass L(ut, S, CP, true, sizeof(float));
   float* rows = reinterpret_cast<float*>(smem + L.rows);
   float* dacc = reinterpret_cast<float*>(smem + L.dacc);
   uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
@@ -449,7 +466,7 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
 #pragma unroll 1
     for (int c0 = 0; c0 < C; c0 += CP) {
       __syncthreads();                     // prologue / previous flush done
-      stage_f32(table, u_s, rows, dacc, H, W, ut, CP, vi, vj, ca, cb, c0, tid);
+      stage_rows<float>(table, u_s, rows, dacc, H, W, ut, CP, vi, vj, ca, cb, c0, tid);
       __syncthreads();
       const float* rows_a = rows;
       const float* rows_b = rows + (size_t)(ut + 1) * CP;
@@ -463,8 +480,8 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
         const uint2 ta = taps[vi * samples + nl], tb = taps[vj * samples + nl];
         const float2 fra = fracs[vi * samples + nl], frb = fracs[vj * samples + nl];
         float fa[CPL], fb[CPL];
-        interp_f32<CPL>(rows_a, CP, ta, fra, o, fa);
-        interp_f32<CPL>(rows_b, CP, tb, frb, o, fb);
+        interp_rows<float, CPL>(rows_a, CP, ta, fra, o, fa);
+        interp_rows<float, CPL>(rows_b, CP, tb, frb, o, fb);
         float dot = 0.f, na2 = 0.f, nb2 = 0.f;
 #pragma unroll
         for (int e = 0; e < CPL; ++e) {
@@ -523,20 +540,21 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
   }
 }
 
-bool f32_args_ok(int views, int channels, int H, int W, int R, int S, int NB, int ut,
-                 int G, int CP) {
+bool pass_args_ok(int views, int channels, int H, int W, int R, int S, int NB, int ut,
+                  int G, int CP) {
   return views == V && channels == C && H > 0 && W > 0 && R > 0 && S > 0 &&
          NB * BLOCK_RAYS >= R && ut > 0 && ut <= MAX_UT &&
          (G == 1 || G == 2 || G == 4 || G == 8 || G == 16) &&
          (CP == 32 || CP == 64 || CP == 128) && G * CP >= C && G * CP <= C * LANES;
 }
 
-template <int CPL>
-int launch_f32(bool bwd, const void* table, const void* grids, const void* unions,
-               const void* gout, void* out, int H, int W, int G, int R, int S, int NB,
-               int ut, cudaStream_t stream) {
-  const LayoutF32 L(ut, S, CPL * LANES, bwd);
-  if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+template <typename T, int CPL>
+int launch_pass(bool bwd, const void* table, const void* grids, const void* unions,
+                const void* gout, void* out, int H, int W, int G, int R, int S, int NB,
+                int ut, cudaStream_t stream) {
+  const LayoutPass L(ut, S, CPL * LANES, bwd, sizeof(T));
+  if (L.total > (size_t)MAX_SMEM || (bwd && sizeof(T) != sizeof(float)))
+    return (int)cudaErrorInvalidValue;
   const int blocks = (R + BLOCK_RAYS - 1) / BLOCK_RAYS;
   cudaError_t err;
   if (bwd) {
@@ -548,27 +566,30 @@ int launch_f32(bool bwd, const void* table, const void* grids, const void* union
         static_cast<const int*>(unions), static_cast<const float*>(gout),
         static_cast<float*>(out), H, W, G, R, S, NB, ut);
   } else {
-    err = cudaFuncSetAttribute(block_cosine_prior_f32_kernel<CPL>,
+    err = cudaFuncSetAttribute(block_cosine_prior_pass_kernel<T, CPL>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     if (err != cudaSuccess) return (int)err;
-    block_cosine_prior_f32_kernel<CPL><<<blocks, THREADS, L.total, stream>>>(
-        static_cast<const float*>(table), static_cast<const float*>(grids),
+    block_cosine_prior_pass_kernel<T, CPL><<<blocks, THREADS, L.total, stream>>>(
+        static_cast<const T*>(table), static_cast<const float*>(grids),
         static_cast<const int*>(unions), static_cast<float*>(out), H, W, G, R, S, NB, ut);
   }
   return (int)cudaGetLastError();
 }
 
-int dispatch_f32(bool bwd, const void* table, const void* grids, const void* unions,
-                 const void* gout, void* out, int views, int H, int W, int channels, int G,
-                 int R, int S, int NB, int ut, int CP, void* stream) {
-  if (!f32_args_ok(views, channels, H, W, R, S, NB, ut, G, CP))
+// T = float (f32 tables, forward or backward) or uint16_t (bf16 tables,
+// forward only)
+template <typename T>
+int dispatch_pass(bool bwd, const void* table, const void* grids, const void* unions,
+                  const void* gout, void* out, int views, int H, int W, int channels, int G,
+                  int R, int S, int NB, int ut, int CP, void* stream) {
+  if (!pass_args_ok(views, channels, H, W, R, S, NB, ut, G, CP))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (CP == 128)
-    return launch_f32<8>(bwd, table, grids, unions, gout, out, H, W, G, R, S, NB, ut, st);
+    return launch_pass<T, 8>(bwd, table, grids, unions, gout, out, H, W, G, R, S, NB, ut, st);
   if (CP == 64)
-    return launch_f32<4>(bwd, table, grids, unions, gout, out, H, W, G, R, S, NB, ut, st);
-  return launch_f32<2>(bwd, table, grids, unions, gout, out, H, W, G, R, S, NB, ut, st);
+    return launch_pass<T, 4>(bwd, table, grids, unions, gout, out, H, W, G, R, S, NB, ut, st);
+  return launch_pass<T, 2>(bwd, table, grids, unions, gout, out, H, W, G, R, S, NB, ut, st);
 }
 
 }  // namespace
@@ -578,8 +599,18 @@ extern "C" int block_cosine_prior_f32(const void* table, const void* grids,
                                       const void* unions, void* out, int views, int H,
                                       int W, int channels, int G, int R, int S, int NB,
                                       int ut, int CP, void* stream) {
-  return dispatch_f32(false, table, grids, unions, nullptr, out, views, H, W, channels,
-                      G, R, S, NB, ut, CP, stream);
+  return dispatch_pass<float>(false, table, grids, unions, nullptr, out, views, H, W,
+                              channels, G, R, S, NB, ut, CP, stream);
+}
+
+// D on bf16 tables (no scales), forward only: out [R,S,G] f32; CP channels
+// staged per pass
+extern "C" int block_cosine_prior_bf16(const void* table, const void* grids,
+                                       const void* unions, void* out, int views, int H,
+                                       int W, int channels, int G, int R, int S, int NB,
+                                       int ut, int CP, void* stream) {
+  return dispatch_pass<uint16_t>(false, table, grids, unions, nullptr, out, views, H, W,
+                                 channels, G, R, S, NB, ut, CP, stream);
 }
 
 // D' backward: g [R,S,G] f32 cotangent; d_table [V,H,W,2C] f32, zeroed by the caller
@@ -588,8 +619,8 @@ extern "C" int block_cosine_prior_bwd_f32(const void* table, const void* grids,
                                           int views, int H, int W, int channels, int G,
                                           int R, int S, int NB, int ut, int CP,
                                           void* stream) {
-  return dispatch_f32(true, table, grids, unions, g, d_table, views, H, W, channels, G,
-                      R, S, NB, ut, CP, stream);
+  return dispatch_pass<float>(true, table, grids, unions, g, d_table, views, H, W,
+                              channels, G, R, S, NB, ut, CP, stream);
 }
 
 extern "C" int block_cosine_prior_i8(const void* table, const void* grids,

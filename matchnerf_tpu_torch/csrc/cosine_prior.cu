@@ -9,17 +9,18 @@
 //
 // For each sample n and each of the V = 3 views: bilinear sample (align
 // corners, border clamp) of the view's unpacked table [V,H,W,2C] (C = 128,
-// int8 or f32) at grids[v, n], times the per-(view, channel) dequantisation
-// scale; then for each pair (i, j) in (0,1), (0,2), (1,2) the grouped cosine
+// int8, bf16 or f32; bf16 and f32 forward take ones for the scales) at
+// grids[v, n], times the per-(view, channel) dequantisation scale; then for each pair (i, j) in (0,1), (0,2), (1,2) the grouped cosine
 // of view i's chunk j-1 against view j's chunk i (eps 1e-8 on each norm),
 // averaged over the pairs. out[n, g], f32.
 //
 // What bounds it: gathers. Each sample reads 4 taps x 3 views x 256 channels
-// (3 KB with int8 tables, 12 KB with f32) for ~10 K flops, so it is bound by
-// bytes moved through L2, not by arithmetic. Design: no dedup, no host
-// buckets. Half a warp (16 lanes) owns one sample, each lane 8 channels of
-// both chunks of every view, so a tap row of 256 int8 channels is read as
-// 16 lanes x 8 bytes per chunk, coalesced. Both DTU tables (3.9 MB and
+// (3 KB with int8 tables, 6 KB with bf16, 12 KB with f32) for ~10 K flops,
+// so it is bound by bytes moved through L2, not by arithmetic. Design: no
+// dedup, no host buckets. Half a warp (16 lanes) owns one sample, each
+// lane 8 channels of both chunks of every view, so a tap row of 256 int8
+// channels is read as 16 lanes x 8 bytes per chunk (16 bytes in bf16),
+// coalesced. Both DTU tables (3.9 MB and
 // 15.7 MB in int8 for 3 views) fit in the 50 MB L2 together, and the
 // neighbouring samples of a ray hit neighbouring cells, so most tap reads
 // are L2 hits. Interpolation and dequantisation are f32 in registers; the
@@ -47,6 +48,18 @@ __device__ __forceinline__ void load8(const int8_t* p, float* f) {
 #pragma unroll
     for (int b = 0; b < 4; ++b)
       f[h * 4 + b] = (float)(int8_t)((w[h] >> (8 * b)) & 0xff);
+}
+
+// bf16 stored as its 16 bits (uint16_t): the f32 with the same upper half,
+// so widening is exact
+__device__ __forceinline__ void load8(const uint16_t* p, float* f) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const unsigned int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    f[2 * h] = __uint_as_float(w[h] << 16);
+    f[2 * h + 1] = __uint_as_float(w[h] & 0xffff0000u);
+  }
 }
 
 __device__ __forceinline__ void load8(const float* p, float* f) {
@@ -280,6 +293,15 @@ extern "C" int cosine_prior_i8(const void* table, const void* grids,
                                int W, int channels, int G, int N, void* stream) {
   return launch<int8_t>(table, grids, scales, out, views, H, W, channels, G, N,
                         static_cast<cudaStream_t>(stream));
+}
+
+// bf16 tables (the eval renders of configs/train.yaml: precision.
+// cond_sample_dtype defaults to bfloat16), forward only
+extern "C" int cosine_prior_bf16(const void* table, const void* grids,
+                                 const void* scales, void* out, int views, int H,
+                                 int W, int channels, int G, int N, void* stream) {
+  return launch<uint16_t>(table, grids, scales, out, views, H, W, channels, G, N,
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cosine_prior_f32(const void* table, const void* grids,

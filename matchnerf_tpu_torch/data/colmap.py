@@ -138,5 +138,3 @@ class COLMAPDataset(MVSDatasetBase):
         view_ids = [src_views[i] for i in range(self.n_views)] + [target_view]
         return self._assemble(scene, view_ids, train_views)
 
-
-DATASETS = {"colmap": COLMAPDataset}

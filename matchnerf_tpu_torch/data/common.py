@@ -1,7 +1,8 @@
 """Shared host-side data helpers (counterpart of matchnerf_tpu/data/common.py,
-the parts the COLMAP loader uses: no pose re-centring, no alpha blending,
-no per-view near/far). numpy only; PIL is imported inside
-`load_image`, the one function that decodes images.
+the parts the COLMAP and DTU loaders use: no pose re-centring, no alpha
+blending). numpy only: PNGs decode with `data/png.py`; PIL is imported
+inside `load_images` only for other formats and for resizing, which the
+card's machine (no PIL) cannot do.
 
 A sample is a dict of numpy arrays, target view LAST:
 
@@ -17,9 +18,12 @@ A sample is a dict of numpy arrays, target view LAST:
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+import re
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from .png import read_pngs
 
 IMAGE_EXTENSIONS = (".jpg", ".JPG", ".jpeg", ".JPEG", ".png", ".PNG", ".ppm",
                     ".PPM", ".bmp", ".BMP", ".tif", ".TIF", ".tiff", ".TIFF")
@@ -33,16 +37,100 @@ def list_all_images(root_dir: str) -> List[str]:
     return sorted(f for f in os.listdir(root_dir) if f.endswith(IMAGE_EXTENSIONS))
 
 
-def load_image(path: str, img_wh) -> np.ndarray:
-    """Load an image, LANCZOS-resize it to img_wh -> [H,W,3] float32 in
-    [0,1] (common.py:40)."""
-    from PIL import Image
-    img = Image.open(path)
-    img = img.resize(tuple(int(x) for x in img_wh), Image.LANCZOS)
-    arr = np.asarray(img, np.float32) / 255.0
-    if arr.ndim == 2:
-        arr = np.repeat(arr[..., None], 3, axis=-1)
-    return arr[..., :3]
+def load_images(paths: Sequence[str], img_wh, resample: str = "lanczos") -> List[np.ndarray]:
+    """Load images and resize each to img_wh with PIL's LANCZOS or BILINEAR
+    filter -> [H,W,3] float32 in [0,1] each (common.py:40). PNGs decode
+    without PIL (`png.read_pngs`, bit-equal to PIL's decode, those of one
+    shape together) and, when img_wh is their size (PIL's resize then
+    returns a copy), need no PIL at all; any other format, or a PNG to be
+    resized, needs PIL."""
+    wh = tuple(int(x) for x in img_wh)
+    is_png = [p.lower().endswith(".png") for p in paths]
+    decoded = iter(read_pngs([p for p, ok in zip(paths, is_png) if ok]))
+    out = []
+    for path, ok in zip(paths, is_png):
+        arr = next(decoded) if ok else None
+        if arr is None or (arr.shape[1], arr.shape[0]) != wh:
+            try:
+                from PIL import Image
+            except ImportError as e:
+                raise RuntimeError(
+                    f"{path}: decoding this format or resizing to {wh} needs PIL, which is "
+                    "not installed (the PNG decoder resizes nothing: give img_wh equal to "
+                    "the image's size)") from e
+            img = Image.open(path) if arr is None else Image.fromarray(arr)
+            filt = {"lanczos": Image.LANCZOS, "bilinear": Image.BILINEAR}[resample]
+            arr = np.asarray(img.resize(wh, filt))
+        arr = arr.astype(np.float32) / 255.0
+        if arr.ndim == 2:
+            arr = np.repeat(arr[..., None], 3, axis=-1)
+        out.append(arr[..., :3])
+    return out
+
+
+def load_image(path: str, img_wh, resample: str = "lanczos") -> np.ndarray:
+    """One image of `load_images`."""
+    return load_images([path], img_wh, resample)[0]
+
+
+def read_pfm(filename: str):
+    """Portable float map -> (data [H,W] or [H,W,3] float32, scale)
+    (common.py:57)."""
+    with open(filename, "rb") as f:
+        header = f.readline().decode("utf-8").rstrip()
+        if header == "PF":
+            color = True
+        elif header == "Pf":
+            color = False
+        else:
+            raise ValueError("Not a PFM file.")
+        dim_match = re.match(r"^(\d+)\s(\d+)\s$", f.readline().decode("utf-8"))
+        if not dim_match:
+            raise ValueError("Malformed PFM header.")
+        width, height = map(int, dim_match.groups())
+        scale = float(f.readline().rstrip())
+        endian = "<" if scale < 0 else ">"
+        scale = abs(scale)
+        data = np.fromfile(f, endian + "f")
+    shape = (height, width, 3) if color else (height, width)
+    return np.flipud(data.reshape(shape)), scale
+
+
+def load_pairs_file(path: str) -> Dict:
+    """The MVSNeRF `pairs.th` view-split file (a torch-serialised dict of
+    lists and numpy arrays), or a .npz (common.py:79)."""
+    if path.endswith(".npz"):
+        return dict(np.load(path, allow_pickle=True))
+    import torch
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def read_mvsnet_cam_file(filename: str):
+    """MVSNet cam file -> (intrinsic [3,3] f32, extrinsic [4,4] f32, the
+    depth line's numbers) (common.py:156); each number parses to float64,
+    then rounds to float32, as np.fromstring does."""
+    with open(filename) as f:
+        lines = [line.rstrip() for line in f.readlines()]
+
+    def floats(text, shape):
+        return np.array([float(x) for x in text.split()], np.float64) \
+            .astype(np.float32).reshape(shape)
+
+    extrinsic = floats(" ".join(lines[1:5]), (4, 4))
+    intrinsic = floats(" ".join(lines[7:10]), (3, 3))
+    depth_tokens = [float(x) for x in lines[11].split()]
+    return intrinsic, extrinsic, depth_tokens
+
+
+def resize_nearest(a: np.ndarray, f: float) -> np.ndarray:
+    """`cv2.resize(a, None, fx=f, fy=f, interpolation=cv2.INTER_NEAREST)` as
+    numpy indexing: the output is round(size * f) on each axis and takes
+    source index min(floor(i / f), size - 1)."""
+    def index(n):
+        m = int(np.rint(n * f))
+        return np.minimum(np.floor(np.arange(m) * (1.0 / f)).astype(np.int64), n - 1)
+
+    return a[index(a.shape[0])][:, index(a.shape[1])]
 
 
 def sort_nearest_views(cam2worlds: Dict, train_views, target_view,

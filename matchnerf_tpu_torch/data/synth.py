@@ -4,13 +4,23 @@ The port's own copy of matchnerf_tpu/data/synth.py (numpy only, the same
 arithmetic, so the same arguments give bit-identical images, w2cs and
 intrinsics). It produces geometrically consistent multi-view scenes
 (spheres + box + checker plane + sky) with OpenCV-convention cameras;
-chip_smoke.py renders its scene from them.
+chip_smoke.py renders its scene from them. `write_dtu_tree` lays such
+views out as a DTU (MVSNet) directory tree with its own meta directory;
+`write_dtu_scene` writes the scene's six-view DTU scan.
 """
+import math
+import os
+import shutil
 from typing import Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["look_at_opencv", "render_scene", "make_scene_views"]
+from .png import write_png
+
+__all__ = ["look_at_opencv", "render_scene", "make_scene_views", "write_dtu_tree",
+           "write_dtu_scene", "DTU_SCENE_VIEW_IDS"]
+
+DTU_SCENE_VIEW_IDS = (20, 21, 22, 23, 24, 25)     # the views of `write_dtu_scene`
 
 
 def _normalize(v):
@@ -147,3 +157,95 @@ def make_scene_views(W: int, H: int, focal: float = None,
             "w2cs": np.stack(w2cs), "intrinsics": np.stack(intrs),
             "near_fars": np.asarray(nfs, np.float32),
             "depths": np.stack(depths)}
+
+
+def write_pfm(path: str, data: np.ndarray):
+    """A greyscale little-endian PFM file (rows bottom to top)."""
+    h, w = data.shape
+    with open(path, "wb") as f:
+        f.write(f"Pf\n{w} {h}\n-1.0\n".encode())
+        f.write(np.flipud(data).astype("<f4").tobytes())
+
+
+def write_dtu_tree(root: str, meta_dir: str, images: np.ndarray, w2cs: np.ndarray,
+                   intrinsics: np.ndarray, view_ids: Sequence[int], val_view: int,
+                   depths: np.ndarray = None, scan: str = "scan1",
+                   depth_min: float = 425.0, depth_interval: float = 2.5):
+    """Write N posed views as one DTU scan the DTU loader reads
+    (data/dtu.py): images [N,H,W,3] uint8 (H, W = 512, 640 as DTU's), w2cs
+    [N,4,4] and intrinsics [N,3,3] in the loader's units (the files hold
+    translations x200 and intrinsics /4), under DTU view ids `view_ids`.
+
+    - Rectified/{scan}_train/rect_{id+1:03d}_{light}_r5000.png for the 7
+      lights (one image each; each PNG row with the filter an encoder's
+      adaptive choice gives it, `png.write_png`'s default);
+    - Cameras/train/{id:08d}_cam.txt with `depth_min depth_interval` (near =
+      depth_min / 200, far = near + 192 * depth_interval / 200);
+    - Depths/{scan}/depth_map_{id:04d}.pfm at 1200x1600 (0 where `depths`
+      [N,H,W] is not finite, or everywhere without it), which the loader
+      halves and crops back to the image;
+    - meta_dir/dtu_meta/{train,val}_all.txt naming the scan, view_pairs.txt
+      with every view a reference and the others its sources by distance,
+      and meta_dir/pairs.th with `val_view` the test target and the others
+      its candidates. `val_view` must be 24, DTU's validation view."""
+    import torch
+    images = np.asarray(images)
+    N, H, W = images.shape[:3]
+    if (H, W) != (512, 640):
+        raise ValueError(f"DTU images are 512x640, got {H}x{W}")
+    rect = os.path.join(root, "Rectified", f"{scan}_train")
+    cams = os.path.join(root, "Cameras", "train")
+    dep = os.path.join(root, "Depths", scan)
+    for d in (rect, cams, dep, os.path.join(meta_dir, "dtu_meta")):
+        os.makedirs(d, exist_ok=True)
+    centers = np.stack([np.linalg.inv(np.asarray(e, np.float64))[:3, 3] for e in w2cs])
+    for n, vid in enumerate(view_ids):
+        first = os.path.join(rect, f"rect_{vid + 1:03d}_0_r5000.png")
+        write_png(first, images[n])
+        for light in range(1, 7):
+            shutil.copyfile(first, os.path.join(rect, f"rect_{vid + 1:03d}_{light}_r5000.png"))
+        extr = np.asarray(w2cs[n], np.float64).copy()
+        extr[:3, 3] *= 200.0
+        intr = np.asarray(intrinsics[n], np.float64) / 4.0
+        intr[2, 2] = 1.0
+        with open(os.path.join(cams, f"{vid:08d}_cam.txt"), "w") as f:
+            f.write("extrinsic\n")
+            f.writelines(" ".join(repr(float(v)) for v in row) + "\n" for row in extr)
+            f.write("\nintrinsic\n")
+            f.writelines(" ".join(repr(float(v)) for v in row) + "\n" for row in intr)
+            f.write(f"\n{depth_min} {depth_interval}\n")
+        big = np.zeros((1200, 1600), np.float32)
+        if depths is not None:
+            d = np.where(np.isfinite(depths[n]), depths[n] * 200.0, 0.0)
+            big[88:88 + 2 * H:2, 160:160 + 2 * W:2] = d
+        write_pfm(os.path.join(dep, f"depth_map_{vid:04d}.pfm"), big)
+    for name in ("train_all.txt", "val_all.txt"):
+        with open(os.path.join(meta_dir, "dtu_meta", name), "w") as f:
+            f.write(f"{scan}\n")
+    with open(os.path.join(meta_dir, "dtu_meta", "view_pairs.txt"), "w") as f:
+        f.write(f"{N}\n")
+        for n, vid in enumerate(view_ids):
+            dist = np.abs(centers - centers[n]).sum(-1)
+            order = [m for m in np.argsort(dist, kind="stable") if m != n]
+            f.write(f"{vid}\n{len(order)} "
+                    + " ".join(f"{view_ids[m]} {100.0 - dist[m]:.3f}" for m in order) + "\n")
+    if val_view not in view_ids:
+        raise ValueError(f"val_view {val_view} is not among the views {list(view_ids)}")
+    torch.save({"dtu_train": [int(v) for v in view_ids if v != val_view],
+                "dtu_test": [int(val_view)]}, os.path.join(meta_dir, "pairs.th"))
+
+
+def write_dtu_scene(root: str, meta_dir: str):
+    """Six views of the scene at 640x512 on an arc, as scan1 of a DTU tree
+    (DTU view ids 20-25; 24, in the middle, is the validation and test
+    target; 20, the first reference view of the training metas, is next to
+    it) with depth_min 425 and interval 2.5 (near / far 2.125 / 4.525), its
+    own meta dir and depth maps (0 on the sky)."""
+    W, H = 640, 512
+    radius = 3.7
+    angles = np.deg2rad([-4.0, -12.0, 4.0, 12.0, 0.0, -20.0])
+    eyes = [(radius * math.sin(a), -1.0, -radius * math.cos(a)) for a in angles]
+    views = make_scene_views(W, H, focal=1.8 * W, eyes=eyes)
+    images = np.round(views["images"] * 255.0).astype(np.uint8)
+    write_dtu_tree(root, meta_dir, images, views["w2cs"], views["intrinsics"],
+                   DTU_SCENE_VIEW_IDS, val_view=24, depths=views["depths"])

@@ -1,41 +1,56 @@
 """The orchestrator (counterpart of `Coach` in matchnerf_tpu/engine.py):
-the eval and video entry and the training iteration.
+the training loop, the eval and video entry.
 
-Eval (engine.py:81-214, :544-684): `load_dataset(["test"])` for the COLMAP
-scenes, `build_networks` (weights from the config's seed),
-`restore_checkpoint_if_needed` (a reference `.pth`), `test_model` (images
-and PSNR / SSIM / LPIPS per view, summed up per scene and dataset) and
+Data (engine.py:81): `load_dataset` builds the train, val and test loaders
+of the config's data_* blocks (DTU and COLMAP; LLFF, Blender and T&T raise
+`NotImplementedError`, so the training CLI takes `--data_test.llff=
+--data_test.blender=`), the training loader shuffled per epoch.
+
+Training (engine.py:180-545), the call order of train.py:
+`build_networks`, `setup_optimizer` (total steps from the loader's length),
+`restore_checkpoint_if_needed` (`resume`: the model, AdamW and schedule
+state, epoch and iteration of `models/latest.ckpt`; `load`: weights only),
+`setup_visualizer` (tensorboard where importable, and always
+`scalars.jsonl`), then `train_model`: epochs of `train_epoch`, which on
+resume skips the batches before the restored iteration, and
+`train_iteration`: one step (the per-pose route of the cond query; a step
+never takes Kernel C), then the hooks every `ceil(freq.x_it * len(loader))`
+iterations: scalars, the asynchronous mid-epoch checkpoint, `validate_model`
+and `test_model`; per epoch the log line, validation, test and the
+checkpoint with its weights-only backup. SIGTERM or SIGINT saves
+`latest.ckpt` at the last finished step and exits. The step's random draws
+restart from the seed in every `train_model`, as the JAX step key does.
+
+Eval (engine.py:544-684): `test_model` (images and PSNR / SSIM / LPIPS per
+view, summed up per scene and dataset; DTU masks pixels without depth) and
 `test_model_video` (a trajectory per batch, written as video), with the JAX
 package's output names.
-
-Training (engine.py:399-500): optimizer set-up, the per-pose route of the
-cond query, one step per batch, the iteration count and the loss read back
-only every `freq.scalar` steps.
-
-Not ported yet: the DTU, LLFF, Blender and T&T loaders, checkpoints of the
-port's own training, validation inside training, the preemption handler
-and the training CLI.
 """
 from __future__ import annotations
 
+import json
 import logging
 import math
 import os
 import re
+import signal
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from .data.colmap import DATASETS
+from .data import DATASETS
 from .data.loader import DataLoader
 from .metrics import EvalTools, summarize_metrics
 from .models.matchnerf import MatchNeRF, init_matchnerf
 from .ops.block_cosine_prior import takes_f32
 from .renderer import Renderer, extract_poses
 from .train_step import build_optimizer, make_train_step
+from .utils.checkpoint import CheckpointWriter, load_checkpoint
 from .utils.containers import effective_precision
+from .utils.logging import loss_train, update_timer
 from .utils.visualize import save_image, visualize_depth, write_gif, write_video
 
 log = logging.getLogger(__name__)
@@ -52,7 +67,8 @@ class Coach:
     [1,V+1,H,W,3], extrinsics, intrinsics, near_fars as `Renderer.forward`
     takes them) and returns {'render', 'all'}: device scalars, or floats
     (checked finite) on every `freq.scalar`-th iteration or with
-    sync_loss_every_step."""
+    sync_loss_every_step. Its hooks run once `train_model` has set their
+    periods; called alone it only steps."""
 
     def __init__(self, cfg, model: Optional[MatchNeRF] = None, device="cuda",
                  kernel: bool = True):
@@ -65,13 +81,33 @@ class Coach:
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(cfg.get("seed") or 0))
         self.it = 0
+        self.ep = 0
+        self.epoch_start = 0
+        self.iter_start = 0
         self.opt = None
         self.step = None
         self.last_route: Optional[tuple] = None
         self._route_cache: Dict[bytes, Optional[tuple]] = {}
+        self.train_loader: Optional[DataLoader] = None
+        self.val_loader: Optional[DataLoader] = None
+        self.test_loaders: List[DataLoader] = []
+        self.checkpoints = CheckpointWriter()
+        self.timer: Optional[Dict] = None
+        self.val_it = self.test_it = self.ckpt_it = None     # set by train_model
+        self._tb = None
+        self._in_step = False
+        self._stop_signal: Optional[int] = None
 
-    def setup_optimizer(self, total_steps: int):
+    # ------------------------------ training --------------------------------
+
+    def setup_optimizer(self, total_steps: Optional[int] = None):
+        """AdamW and the step; total_steps defaults to the training loader's
+        length times max_epoch (engine.py:180)."""
         cfg = self.cfg
+        if total_steps is None:
+            if self.train_loader is None:
+                raise RuntimeError("load the training data first (or give total_steps)")
+            total_steps = len(self.train_loader) * int(cfg.max_epoch)
         W, H = cfg.data_train.img_wh
         n_rays = int(cfg.nerf.rand_rays_train) // max(int(cfg.batch_size), 1)
         self.train_hw = (int(H), int(W), n_rays)
@@ -127,19 +163,179 @@ class Coach:
     def train_iteration(self, batch: Dict) -> Dict:
         if self.step is None:
             raise RuntimeError("call setup_optimizer first")
+        if self.timer is not None:
+            self.timer["it_start"] = time.time()
         route = self.train_route(batch)
         self.last_route = route
-        loss = self.step(self.batch_tensors(batch), block_ut=route)
-        self.it += 1
-        freq = self.cfg.get("freq") or {}
+        self._in_step = True          # a stop signal waits for the step to finish
+        try:
+            loss = self.step(self.batch_tensors(batch), block_ut=route)
+            self.it += 1
+        finally:
+            self._in_step = False
+        if self._stop_signal is not None:
+            self._save_and_exit()
+        cfg = self.cfg
+        freq = cfg.get("freq") or {}
+        if self.timer is not None:
+            self.timer["it_end"] = time.time()
+            update_timer(self.timer, int(cfg.max_epoch), self.ep, len(self.train_loader))
         scalar = int(freq.get("scalar", 0) or 0)
-        if bool(self.cfg.get("sync_loss_every_step", False)) or (
+        if bool(cfg.get("sync_loss_every_step", False)) or (
                 scalar > 0 and self.it % scalar == 0):
             loss = {k: float(v) for k, v in loss.items()}
             for k, v in loss.items():
                 if not math.isfinite(v):
                     raise FloatingPointError(f"loss {k} is {v} at iteration {self.it}")
+        if scalar > 0 and self.it % scalar == 0:
+            self.log_scalars(loss=loss, lrates=self.get_cur_lrates(), step=self.it,
+                             split="train")
+        if self.ckpt_it and self.ckpt_it > 0 and self.it % self.ckpt_it == 0:
+            self.save_checkpoint_now(ep=self.ep, it=self.it, backup_ckpt=False,
+                                     async_write=True)
+        if self.val_it and self.val_it > 0 and self.it % self.val_it == 0:
+            self.validate_model(iteration=self.it)
+        if self.test_it and self.test_it > 0 and self.it % self.test_it == 0:
+            self.test_model(ep=self.ep, save_images=bool(cfg.get("save_test_image", False)))
         return loss
+
+    def train_model(self):
+        """Train from `epoch_start` / `iter_start` to max_epoch (engine.py:333)."""
+        cfg = self.cfg
+        log.info("TRAINING START")
+        previous = self._install_preemption_handler()
+        try:
+            self.timer = {"start": time.time(), "it_mean": None}
+            self.it = self.iter_start
+            self.ep = self.epoch_start
+            n_loader = len(self.train_loader)
+            freq = cfg.freq
+
+            def period(x):
+                return math.ceil(x * n_loader) if x > 0 else x
+
+            self.val_it, self.test_it, self.ckpt_it = (
+                period(freq.val_it), period(freq.test_it), period(freq.ckpt_it))
+            # the step's draws restart from the seed, as the JAX step key does
+            # on every train_model, resumed or not (engine.py:353)
+            self.generator.manual_seed(int(cfg.get("seed") or 0))
+            if cfg.get("sanity_check") and self.it == 0:
+                if self.val_it and self.val_it > 0 and self.val_loader is not None:
+                    self.validate_model(iteration=self.it, is_sanity_check=True)
+                if freq.test_ep > 0 and self.test_loaders:
+                    self.test_model(ep=0, save_images=False, is_sanity_check=True)
+            for self.ep in range(self.epoch_start, int(cfg.max_epoch)):
+                self.train_epoch()
+            if self._tb is not None:
+                self._tb.flush()
+            log.info("TRAINING DONE")
+        finally:
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
+            self.checkpoints.wait()
+
+    def train_epoch(self):
+        """One pass over the training loader (engine.py:375); on resume the
+        batches before `iter_start` are loaded and skipped."""
+        cfg = self.cfg
+        freq = cfg.freq
+        self.train_loader.set_epoch(self.ep)
+        n_loader = len(self.train_loader)
+        last_loss = None
+        for batch_idx, batch in enumerate(self.train_loader):
+            if cfg.get("resume") and self.ep * n_loader + batch_idx < self.iter_start:
+                continue
+            last_loss = self.train_iteration(batch)
+        if freq.log_ep > 0 and (self.ep + 1) % freq.log_ep == 0 and last_loss:
+            loss_train(log, cfg.max_epoch, self.ep + 1, self.get_cur_lrates(),
+                       float(last_loss["all"]), self.timer)
+        if freq.val_ep > 0 and (self.ep + 1) % freq.val_ep == 0:
+            self.validate_model(iteration=self.it)
+        if (self.ep >= freq.test_ep_start and freq.test_ep > 0
+                and (self.ep + 1) % freq.test_ep == 0):
+            self.test_model(ep=self.ep + 1, save_images=bool(cfg.get("save_test_image", False)))
+        if freq.ckpt_ep > 0 and (self.ep + 1) % freq.ckpt_ep == 0:
+            self.save_checkpoint_now(ep=self.ep + 1, it=self.it, backup_ckpt=True)
+
+    def _install_preemption_handler(self) -> Dict:
+        """SIGTERM and SIGINT save `latest.ckpt` and exit with 128 + signal
+        (engine.py:316): at once between steps, or when the running step has
+        finished, so the file never holds a half-updated model. Returns the
+        handlers it replaced."""
+        def handler(signum, frame):
+            self._stop_signal = signum
+            if not self._in_step:
+                self._save_and_exit()
+
+        previous = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous[sig] = signal.signal(sig, handler)
+            except ValueError:            # not the main thread
+                pass
+        return previous
+
+    def _save_and_exit(self):
+        signum, self._stop_signal = self._stop_signal, None
+        log.warning("received signal %d; saving a checkpoint at iteration %d before exit",
+                    signum, self.it)
+        self.save_checkpoint_now(ep=self.ep, it=self.it, backup_ckpt=False)
+        raise SystemExit(128 + signum)
+
+    # -------------------------- checkpoints, logging --------------------------
+
+    def save_checkpoint_now(self, ep: int, it: int, backup_ckpt: bool = True,
+                            async_write: bool = False):
+        """`models/latest.ckpt` (+ `ep{ep}_it{it}.ckpt`, weights only) under
+        the output path (engine.py:235); async_write for the mid-epoch saves."""
+        ckpt = {"model": self.model.state_dict()}
+        if self.opt is not None:
+            ckpt["optim"] = self.opt.state_dict()
+        self.checkpoints.save(self.output_path, ckpt, ep=ep, it=it,
+                              backup_ckpt=backup_ckpt, async_write=async_write)
+
+    @property
+    def scalars_path(self) -> str:
+        return os.path.join(self.output_path, "scalars.jsonl")
+
+    def setup_visualizer(self):
+        """A tensorboard writer with cfg.tb where tensorboard is importable
+        (engine.py:251); scalars.jsonl is written either way."""
+        if self.cfg.get("tb"):
+            try:
+                from torch.utils import tensorboard
+            except ImportError:
+                log.warning("tensorboard unavailable; scalars.jsonl only")
+                return
+            self._tb = tensorboard.SummaryWriter(log_dir=self.output_path, flush_secs=10)
+
+    def log_scalars(self, loss=None, metric=None, lrates=None, step=0, split="train"):
+        """One JSON line per call in scalars.jsonl, and the same scalars to
+        tensorboard (engine.py:260)."""
+        record = {"step": int(step), "split": split, "time": time.time()}
+        for k, v in (loss or {}).items():
+            if k != "all":
+                record[f"loss_{k}"] = float(v)
+        for k, v in (metric or {}).items():
+            record[k] = float(np.mean(np.asarray(v, np.float64)))
+        for k, v in (lrates or {}).items():
+            record[f"lr_{k}"] = float(v)
+        os.makedirs(self.output_path, exist_ok=True)
+        with open(self.scalars_path, "a") as f:
+            f.write(json.dumps(record) + "\n")
+        if self._tb is not None:
+            for k, v in record.items():
+                if k not in ("step", "split", "time"):
+                    self._tb.add_scalar(f"{split}/{k}", v, step)
+
+    def get_cur_lrates(self) -> Dict[str, float]:
+        """Each group's scheduled rate at the current iteration (engine.py:282)."""
+        out = {}
+        for name in ("enc", "dec"):
+            sched = self.opt.schedules.get(name) if self.opt is not None else None
+            base = float(self.cfg.optim.get(f"lr_{name}", 0.0))
+            out[name] = float(sched(self.it)) if (sched and base > 0) else base
+        return out
 
     # ------------------------------ eval entry ------------------------------
 
@@ -149,42 +345,81 @@ class Coach:
         return os.path.join(str(self.cfg.output_root), str(self.cfg.name))
 
     def load_dataset(self, splits: List[str]):
-        """Test loaders of every dataset under data_test (engine.py:81); the
-        port has the COLMAP loader only."""
+        """The loaders of the data_train, data_val and every data_test block
+        (engine.py:81); the training loader shuffles per epoch."""
+        seed = int(self.cfg.get("seed") or 0)
         for split in splits:
-            if split != "test":
-                raise NotImplementedError(f"the port loads the test split only, not {split}")
-            self.test_loaders = []
-            for data_cfg in (self.cfg.get("data_test") or {}).values():
+            if not self.cfg.get(f"data_{split}"):
+                continue
+            if split == "test":
+                data_cfgs = list(self.cfg.data_test.values())
+                self.test_loaders = []
+            else:
+                data_cfgs = [self.cfg.get(f"data_{split}")]
+            for data_cfg in data_cfgs:
                 if data_cfg is None:
                     continue
-                if data_cfg.dataset_name not in DATASETS:
+                name = data_cfg.dataset_name
+                if name not in DATASETS:
                     raise NotImplementedError(
-                        f"dataset {data_cfg.dataset_name} is not ported (COLMAP only)")
-                dataset = DATASETS[data_cfg.dataset_name](
+                        f"the {name} loader (matchnerf_tpu/data/) is not ported; the port "
+                        f"has {sorted(DATASETS)} (drop a test set with --data_test.{name}=)")
+                dataset = DATASETS[name](
                     data_cfg.root_dir, split, n_views=self.n_src_views,
                     img_wh=tuple(data_cfg.img_wh), max_len=data_cfg.get("max_len", -1),
                     scene_list=data_cfg.get("scene_list"),
                     test_views_method=data_cfg.get("test_views_method", "nearest"),
-                    nf_mode=data_cfg.get("nf_mode", "avg"))
-                self.test_loaders.append(DataLoader(dataset, int(self.cfg.batch_size)))
-                log.info("loaded test set of %s (%d samples)", data_cfg.dataset_name,
-                         len(dataset))
+                    nf_mode=data_cfg.get("nf_mode", "avg"),
+                    n_add_train_views=data_cfg.get("n_add_train_views", 2),
+                    meta_dir=data_cfg.get("meta_dir"))
+                loader = DataLoader(dataset, int(self.cfg.batch_size),
+                                    shuffle=(split == "train"), seed=seed)
+                if split == "test":
+                    self.test_loaders.append(loader)
+                else:
+                    setattr(self, f"{split}_loader", loader)
+                log.info("loaded %s set of %s (%d samples)", split, name, len(dataset))
 
     def build_networks(self):
-        """The model with weights from the config's seed (engine.py:123)."""
-        gen = torch.Generator().manual_seed(int(self.cfg.get("seed") or 0))
-        self.model = init_matchnerf(self.cfg, gen).to(self.device).eval()
+        """The model with weights from the config's seed (engine.py:123).
+        The JAX package then loads encoder.pretrain_weight (GMFlow weights)
+        into the encoder when that file exists and neither load nor resume
+        is set; the port does not carry that import yet, so it raises there
+        (`--encoder.pretrain_weight=` starts from the seeded weights) and,
+        like the JAX package, only warns when the file is absent."""
+        cfg = self.cfg
+        gen = torch.Generator().manual_seed(int(cfg.get("seed") or 0))
+        self.model = init_matchnerf(cfg, gen).to(self.device).eval()
         self.renderer.model = self.model
+        pretrain = (cfg.get("encoder") or {}).get("pretrain_weight")
+        if pretrain and not cfg.get("load") and not cfg.get("resume"):
+            if os.path.isfile(pretrain):
+                raise NotImplementedError(
+                    f"{pretrain}: the GMFlow-filtered encoder init (import_torch.py:131) is "
+                    "not ported; pass --encoder.pretrain_weight= to start from the seed")
+            log.warning("pretrain weight %s not found; the encoder starts from the seed",
+                        pretrain)
 
     def restore_checkpoint_if_needed(self):
-        """Weights from `load`, a reference `.pth` (engine.py:194): its
-        "model" entry (or the whole file), "module." prefixes stripped, into
-        the model with strict key matching, the port's key names being the
-        reference's."""
+        """With `resume`, the model, the optimizer and schedule state, epoch
+        and iteration of `<output_path>/models/latest.ckpt` (engine.py:194;
+        none there: from scratch). Else the weights of `load`: a checkpoint
+        of the port's, or a reference `.pth`: its "model" entry (or the
+        whole file), "module." prefixes stripped, into the model with strict
+        key matching, the port's key names being the reference's."""
         path = self.cfg.get("load")
         if self.cfg.get("resume"):
-            raise NotImplementedError("resume: the port has no training checkpoints yet")
+            ckpt_path = os.path.join(self.output_path, "models", "latest.ckpt")
+            if not os.path.isfile(ckpt_path):
+                log.warning("no checkpoint at %s: training starts from scratch", ckpt_path)
+                return
+            log.info("resuming from %s", ckpt_path)
+            ckpt = load_checkpoint(ckpt_path)
+            self.model.load_state_dict(ckpt["model"], strict=True)
+            if self.opt is not None and "optim" in ckpt:
+                self.opt.load_state_dict(ckpt["optim"])
+            self.epoch_start, self.iter_start = int(ckpt["epoch"]), int(ckpt["iter"])
+            return
         if not path:
             log.info("no checkpoint to load: the weights stay those of the seed")
             return
@@ -203,14 +438,57 @@ class Coach:
     def _out_name(self, batch, b: int, ep=None, it=True) -> str:
         src_ids = "_".join(f"{x:02d}" for x in batch["view_ids"][b][: self.n_src_views])
         name = f"{batch['scene'][b]}_view{batch['view_ids'][b][-1]:02d}_src{src_ids}"
-        if it and self.it:
+        if it and self.timer is not None:      # inside training (train_model)
             name = f"it{self.it}_{name}"
         return name if ep is None else f"ep{ep}_{name}"
 
-    def test_model(self, ep=None, save_images=True, separate_save=False) -> Dict:
+    def validate_model(self, iteration=None, is_sanity_check=False) -> Dict:
+        """Render every validation view (mode "val"), save depth | pred | gt
+        as `validation/{scene}_view{id}_it{iteration}.jpg` (PNG bytes), score
+        it (DTU: pixels without depth masked) and log the mean metrics
+        (engine.py:504); returns the per-view metric lists."""
+        if self.val_loader is None:
+            raise RuntimeError("load the validation data first")
+        out_dir = os.path.join(self.output_path, "validation")
+        os.makedirs(out_dir, exist_ok=True)
+        eval_tools = EvalTools()
+        metrics: Dict[str, list] = {k: [] for k in eval_tools.support_metrics}
+        dtu = self.val_loader.dataset.get_name().startswith("dtu")
+        for batch_idx, batch in enumerate(self.val_loader):
+            if is_sanity_check and batch_idx > 0:
+                break
+            ret = self.renderer.forward(batch, mode="val")
+            W, H = (int(x) for x in batch["img_wh"][0])
+            B = batch["images"].shape[0]
+            pred_rgb = ret["rgb"].cpu().numpy().reshape(B, H, W, 3)
+            pred_depth = ret["depth"].cpu().numpy().reshape(B, H, W)
+            for b in range(B):
+                gt_rgb = np.asarray(batch["images"][b, -1])
+                minmax = np.asarray(batch["near_fars"][b, -1]).tolist()
+                img_vis = np.concatenate(
+                    [visualize_depth(pred_depth[b], minmax),
+                     (pred_rgb[b] * 255).astype(np.uint8), (gt_rgb * 255).astype(np.uint8)],
+                    axis=1)
+                save_image(os.path.join(out_dir, f"{batch['scene'][b]}_view"
+                                        f"{batch['view_ids'][b][-1]}_it{iteration}.jpg"),
+                           img_vis)
+                mask = None
+                if dtu:
+                    if "depth" not in batch:
+                        raise KeyError("DTU validation needs the samples' 'depth'")
+                    mask = np.asarray(batch["depth"][b]) == 0
+                eval_tools.set_inputs(pred_rgb[b], gt_rgb, mask)
+                for k, v in eval_tools.get_metrics().items():
+                    metrics[k].append(v)
+        self.log_scalars(metric=metrics, step=iteration or 0, split="val")
+        return metrics
+
+    def test_model(self, ep=None, save_images=True, separate_save=False,
+                   is_sanity_check=False) -> Dict:
         """Render every test view, save pred | gt (engine.py:544), score it
-        (80 % centre crop: the COLMAP scenes have no depth mask) and write
-        `0results_{dataset}.txt`; returns the per-dataset metric lists."""
+        (pixels without depth masked where the samples carry depth, else
+        an 80 % centre crop), write `0results_{dataset}.txt` and log each
+        dataset's mean metrics; returns the per-dataset metric lists."""
         cfg = self.cfg
         test_outroot = os.path.join(self.output_path, "test")
         os.makedirs(test_outroot, exist_ok=True)
@@ -221,7 +499,9 @@ class Coach:
             metrics_dict[dataname] = OrderedDict()
             data_outdir = os.path.join(test_outroot, dataname)
             os.makedirs(data_outdir, exist_ok=True)
-            for batch in data_loader:
+            for batch_idx, batch in enumerate(data_loader):
+                if is_sanity_check and batch_idx > 0:
+                    break
                 ret = self.renderer.forward(batch, mode="test")
                 W, H = (int(x) for x in batch["img_wh"][0])
                 B = batch["images"].shape[0]
@@ -247,7 +527,8 @@ class Coach:
                         else:
                             img_vis = np.concatenate([pred_u8, gt_u8], axis=1)
                         save_image(os.path.join(data_outdir, f"{out_name}.png"), img_vis)
-                    eval_tools.set_inputs(pred_rgb[b], gt_rgb)
+                    mask = np.asarray(batch["depth"][b]) == 0 if "depth" in batch else None
+                    eval_tools.set_inputs(pred_rgb[b], gt_rgb, mask)
                     view = f"{batch['scene'][b]}_{batch['view_ids'][b][-1]:03d}"
                     metrics_dict[dataname][view] = eval_tools.get_metrics()
         sum_dict = summarize_metrics(metrics_dict, test_outroot, ep=ep)
@@ -257,6 +538,7 @@ class Coach:
             log.info("%s: PSNR %.2f, SSIM %.3f, LPIPS %.3f", dataname.upper(),
                      avg.get("PSNR", float("nan")), avg.get("SSIM", float("nan")),
                      avg.get("LPIPS", float("nan")))
+            self.log_scalars(metric=avg, step=ep or 0, split=dataname)
         return sum_dict
 
     def test_model_video(self, ep=None) -> List[np.ndarray]:

@@ -46,6 +46,7 @@ SIGNATURES = {
     # table, grids, scales, out, V, H, W, C, G, N, stream
     "cosine_prior_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cosine_prior_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "cosine_prior_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # table, grids, g, d_table, V, H, W, C, G, N, stream
     "cosine_prior_bwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # pts, ray_unit, feat, color, mask, depth, ray, small, fragments, postab
@@ -58,6 +59,7 @@ SIGNATURES = {
                               _I, _I, _I, _P],
     # table, grids, unions, out, V, H, W, C, G, R, S, NB, ut, CP, stream
     "block_cosine_prior_f32": [_P] * 4 + [_I] * 10 + [_P],
+    "block_cosine_prior_bf16": [_P] * 4 + [_I] * 10 + [_P],
     # table, grids, unions, g, d_table, V, H, W, C, G, R, S, NB, ut, CP, stream
     "block_cosine_prior_bwd_f32": [_P] * 5 + [_I] * 10 + [_P],
     # colors_sc, grids, out, V, Hs, Ws, img_h, img_w, N (= R*S), stream

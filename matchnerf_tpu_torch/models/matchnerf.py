@@ -13,8 +13,8 @@ kernels' backward too (A', B', D').
 
 The cond query follows the per-pose route the renderer measured
 (`Renderer.pose_prep`): a scale whose block-union bucket `block_ut[s]` is
-set takes Kernel D on int8 tables or D' on f32 tables where it fits
-(ops/block_cosine_prior.py), the others Kernel B; the colours take Kernel
+set takes Kernel D on int8 and bf16 tables or D' on f32 tables where it
+fits (ops/block_cosine_prior.py::takes_table), the others Kernel B; the colours take Kernel
 E (ops/supercell_color.py) when `color_ut` is set and the supercell table
 exists, the gather otherwise. With `fused_cosine` (precision.fused_cosine,
 eval and video renders, B == 1) every feature scale takes Kernel F
@@ -30,7 +30,7 @@ from torch import nn
 
 from .. import camera
 from ..ops.block_cosine_prior import (block_cosine_prior, block_cosine_prior_plain,
-                                      takes_f32)
+                                      takes_table)
 from ..ops.cosine_prior import (cosine_prior, cosine_prior_plain,
                                 pair_index_lists)
 from ..ops.decoder import cond_nerf_decode, cond_nerf_decode_plain, decoder_matmul_dtype
@@ -248,9 +248,10 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
     mask_info = masks.permute(1, 2, 3, 0).contiguous()
 
     # matching prior per scale: Kernel F on the fused route; else Kernel D
-    # where the pose's union fits a bucket (int8 tables; D' on f32 tables
-    # where its staging fits), else Kernel B when precision.banded_kernel or
-    # block_kernel is on, else the plain direct path
+    # where the pose's union fits a bucket (int8 tables; bf16 tables and D'
+    # on f32 tables where their staging fits: `takes_table`), else Kernel B
+    # when precision.banded_kernel or block_kernel is on, else the plain
+    # direct path
     fused = bool(fused_cosine) and B == 1
     use_kernel = kernel and (bool(_precision_get(cfg, "banded_kernel", False))
                              or bool(_precision_get(cfg, "block_kernel", False)))
@@ -266,10 +267,7 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
                 vfeats[0], grids[:, 0], None if scales is None else scales[0], G,
                 kernel)[None])
             continue
-        if ut is not None and B == 1 and (
-                vfeats.dtype == torch.int8
-                or (vfeats.dtype == torch.float32 and scales is None
-                    and takes_f32(ut, S, G))):
+        if ut is not None and B == 1 and takes_table(vfeats, scales, ut, S, G):
             feat_chunks.append(block_prior(vfeats[0], grids[:, 0].contiguous(),
                                            None if scales is None else scales[0],
                                            G, ut)[None])

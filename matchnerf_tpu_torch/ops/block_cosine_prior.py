@@ -2,15 +2,17 @@
 union of table rows shared by each 8-ray block.
 
 Replaces matchnerf_tpu/ops/pallas_block_banded.py::block_banded_cosine_scale
-(the eval render's block-banded Pallas kernel, int8 tables: Kernel D) and
+(the eval render's block-banded Pallas kernel: Kernel D, on int8 tables
+with scales and on bf16 tables without) and
 ::block_banded_cosine_scale_trainable (its custom VJP on f32 tables: D', an
 f32 forward and a backward that sums each union row's gradient over the
-block in shared memory before one global add per row). The CUDA source is
-csrc/block_cosine_prior.cu; `block_cosine_prior_plain` is the same function
-in plain PyTorch, along the same union route, and its autograd is the plain
-backward. f32 union rows are staged in passes of `f32_channels_per_pass`
-channels; a (ut, G) that no pass width fits (`takes_f32` False) takes
-Kernel B' instead.
+block in shared memory before one global add per row; the JAX package
+also reaches it on bf16 eval tables, whose forward is Kernel D's). The
+CUDA source is csrc/block_cosine_prior.cu; `block_cosine_prior_plain` is
+the same function in plain PyTorch, along the same union route, and its
+autograd is the plain backward. f32 and bf16 union rows are staged in
+passes of `channels_per_pass` channels; a (ut, G) that no pass width fits
+(`takes_f32` / `takes_bf16` False) takes Kernel B (B') instead.
 
 It computes what Kernel B (ops/cosine_prior.py) computes: for every sample
 the bilinear sample (align corners, border clamp) of each view's unpacked
@@ -58,14 +60,16 @@ UT_BUCKETS = (64, 96, 128, 160, 192, 256, 320, 384, 512)
 MAX_SMEM = 232448                 # bytes of shared memory a block may have (sm_90)
 
 
-def f32_channels_per_pass(ut: int, S: int, n_groups: int, backward: bool) -> Optional[int]:
-    """Channels per staging pass of the f32 kernels (csrc LayoutF32): the
-    widest of 128, 64, 32 whose shared memory fits, with each cosine group
-    inside one pass; None when none does."""
+def channels_per_pass(ut: int, S: int, n_groups: int, backward: bool,
+                      itemsize: int = 4) -> Optional[int]:
+    """Channels per staging pass of the f32 (itemsize 4) and bf16 (itemsize
+    2, forward only) kernels (csrc LayoutPass): the widest of 128, 64, 32
+    whose shared memory fits, with each cosine group inside one pass; None
+    when none does."""
     for cp in (128, 64, 32):
         if not 128 <= n_groups * cp <= 2048:
             continue
-        side = (ut + 1) * cp * 4
+        side = (ut + 1) * cp * itemsize
         total = side * (4 if backward else 2) + 3 * BLOCK_RAYS * S * 16 + 3 * ut * 4
         if total <= MAX_SMEM:
             return cp
@@ -74,7 +78,30 @@ def f32_channels_per_pass(ut: int, S: int, n_groups: int, backward: bool) -> Opt
 
 def takes_f32(ut: int, S: int, n_groups: int) -> bool:
     """Whether D' (forward and backward) takes f32 tables at this bucket."""
-    return all(f32_channels_per_pass(ut, S, n_groups, b) is not None for b in (False, True))
+    return all(channels_per_pass(ut, S, n_groups, b) is not None for b in (False, True))
+
+
+def takes_bf16(ut: int, S: int, n_groups: int) -> bool:
+    """Whether Kernel D's staging of bf16 union rows fits at this bucket
+    (every bucket at S = 128)."""
+    return channels_per_pass(ut, S, n_groups, False, itemsize=2) is not None
+
+
+def takes_table(table, scales, ut: int, S: int, n_groups: int) -> bool:
+    """The route of one scale whose pose measured the union bucket `ut`:
+    True for Kernel D (D'), False for Kernel B (B'). The JAX package takes
+    its block kernel at every bucket (matchnerf.py:336-376: int8 tables with
+    scales through `block_banded_cosine_scale`, f32 and bf16 tables without
+    through `block_banded_cosine_scale_trainable`); here the f32 and bf16
+    forms take it where their staging fits the block's shared memory (bf16:
+    every bucket at S = 128; f32: `takes_f32`), Kernel B elsewhere."""
+    if table.dtype == torch.int8:
+        return True
+    if scales is not None:
+        return False
+    if table.dtype == torch.bfloat16:
+        return takes_bf16(ut, S, n_groups)
+    return table.dtype == torch.float32 and takes_f32(ut, S, n_groups)
 
 
 def bucket_ut(n: int) -> Optional[int]:
@@ -177,7 +204,7 @@ def union_positions(unions, cells, sentinel: int):
 
 
 def block_cosine_prior_plain(table, grids, scales, n_groups: int, ut: int):
-    """table [V,h,w,(V-1)C] (int8 or f32); grids [V,R,S,2] f32; scales
+    """table [V,h,w,(V-1)C] (int8, bf16 or f32); grids [V,R,S,2] f32; scales
     [V,(V-1)C] f32 or None; ut the union bucket -> [R,S,G] f32.
 
     The union route in torch ops: gather each block's union rows, find each
@@ -212,9 +239,9 @@ def block_cosine_prior_plain(table, grids, scales, n_groups: int, ut: int):
 
 
 def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
-    """The kernel on CUDA tensors (int8 tables [3,h,w,256] with f32 scales:
-    Kernel D; f32 tables without scales: D', with its backward when autograd
-    records), the plain version on CPU tensors."""
+    """The kernel on CUDA tensors (int8 tables [3,h,w,256] with f32 scales
+    and bf16 tables without: Kernel D; f32 tables without scales: D', with
+    its backward when autograd records), the plain version on CPU tensors."""
     if table.device.type == "cpu":
         return block_cosine_prior_plain(table, grids, scales, n_groups, ut)
     if not table.is_cuda:
@@ -222,10 +249,12 @@ def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
     if table.dtype == torch.float32 and scales is None:
         if torch.is_grad_enabled() and table.requires_grad:
             return BlockCosinePriorFn.apply(table, grids, n_groups, ut)
-        return _forward_f32(table, grids, n_groups, ut)[0]
+        return _forward_pass(table, grids, n_groups, ut)[0]
+    if table.dtype == torch.bfloat16 and scales is None:
+        return _forward_pass(table, grids, n_groups, ut)[0]
     if table.dtype != torch.int8:
         raise ValueError(f"block_cosine_prior: table dtype {table.dtype}, the kernel "
-                         "takes int8 tables with scales or f32 tables without")
+                         "takes int8 tables with scales or f32 and bf16 tables without")
     _check_common(table, grids, n_groups, ut)
     if (scales is None or scales.dtype != torch.float32
             or tuple(scales.shape) != (table.shape[0], table.shape[-1])
@@ -266,23 +295,26 @@ def _check_common(table, grids, n_groups: int, ut: int):
         raise ValueError("block_cosine_prior: table must be contiguous")
 
 
-def _forward_f32(table, grids, n_groups: int, ut: int):
-    """D' forward -> (out [R,S,G], padded grids, unions)."""
+def _forward_pass(table, grids, n_groups: int, ut: int):
+    """The staged-pass forward on an f32 table (D') or a bf16 table (Kernel
+    D) -> (out [R,S,G], padded grids, unions)."""
     _check_common(table, grids, n_groups, ut)
     V, H, W, Cc = table.shape
     R, S = grids.shape[1:3]
-    if not takes_f32(ut, S, n_groups):
-        raise ValueError(f"block_cosine_prior: f32 tables at ut={ut}, S={S}, "
+    bf16 = table.dtype == torch.bfloat16
+    if not (takes_bf16 if bf16 else takes_f32)(ut, S, n_groups):
+        raise ValueError(f"block_cosine_prior: {table.dtype} tables at ut={ut}, S={S}, "
                          f"G={n_groups} exceed the block's shared memory")
     gp = pad_rays(grids)
     NB = gp.shape[1] // BLOCK_RAYS
     unions = block_unions(gp, H, W, ut)
     out = torch.empty(R, S, n_groups, dtype=torch.float32, device=table.device)
     if R > 0:
-        kernels.launch(F32_COUNTER, "block_cosine_prior_f32", table.data_ptr(),
-                       gp.data_ptr(), unions.data_ptr(), out.data_ptr(), V, H, W,
-                       Cc // (V - 1), n_groups, R, S, NB, ut,
-                       f32_channels_per_pass(ut, S, n_groups, backward=False))
+        counter, fn = (COUNTER, "block_cosine_prior_bf16") if bf16 else \
+            (F32_COUNTER, "block_cosine_prior_f32")
+        kernels.launch(counter, fn, table.data_ptr(), gp.data_ptr(), unions.data_ptr(),
+                       out.data_ptr(), V, H, W, Cc // (V - 1), n_groups, R, S, NB, ut,
+                       channels_per_pass(ut, S, n_groups, False, table.element_size()))
     return out, gp, unions
 
 
@@ -292,7 +324,7 @@ class BlockCosinePriorFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, grids, n_groups: int, ut: int):
-        out, gp, unions = _forward_f32(table, grids, n_groups, ut)
+        out, gp, unions = _forward_pass(table, grids, n_groups, ut)
         ctx.save_for_backward(table, gp, unions)
         ctx.shape = (grids.shape[1], grids.shape[2], n_groups, ut)
         return out
@@ -309,5 +341,5 @@ class BlockCosinePriorFn(torch.autograd.Function):
                            gp.data_ptr(), unions.data_ptr(), g.data_ptr(),
                            d_table.data_ptr(), V, H, W, Cc // (V - 1), G, R, S,
                            gp.shape[1] // BLOCK_RAYS, ut,
-                           f32_channels_per_pass(ut, S, G, backward=True))
+                           channels_per_pass(ut, S, G, backward=True))
         return d_table, None, None, None

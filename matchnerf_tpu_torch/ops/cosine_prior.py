@@ -9,7 +9,10 @@ then `_grouped_cosine`, matchnerf.py:389-402), and its autograd is the
 plain backward. On a CUDA f32 table that requires grad, `cosine_prior`
 goes through `CosinePriorFn`: Kernel B forward, then the B' backward
 kernel, which scatters the table gradient with atomics; the sample grids
-get no gradient (the JAX VJP returns zeros for them).
+get no gradient (the JAX VJP returns zeros for them). On bf16 tables (the
+eval renders of configs/train.yaml) the JAX package reaches the
+`_trainable` wrapper too, whose forward is the same kernel: here Kernel B's
+bf16 forward.
 
 For every sample and every view it bilinearly samples the view's unpacked
 table [V,h,w,(V-1)*C] (align_corners, border clamp), multiplies by the
@@ -32,6 +35,10 @@ COUNTER = kernels.LaunchCounter(
     "cosine_prior", source=SOURCE, replaces="matchnerf_tpu/ops/pallas_banded.py:267")
 BWD_COUNTER = kernels.LaunchCounter(
     "cosine_prior_bwd", source=SOURCE, replaces="matchnerf_tpu/ops/pallas_banded.py:484")
+# the forward's C launcher per table dtype; bf16 tables (the eval renders of
+# configs/train.yaml) take ones for the scales, as the TPU kernel does
+ENTRIES = {torch.int8: "cosine_prior_i8", torch.bfloat16: "cosine_prior_bf16",
+           torch.float32: "cosine_prior_f32"}
 
 
 def pair_index_lists(n_views: int):
@@ -80,8 +87,8 @@ def cosine_prior_plain(table, grids, scales, n_groups: int):
 
 
 def cosine_prior(table, grids, scales, n_groups: int):
-    """The kernel on CUDA tensors (V=3, C=128, int8 or f32 tables; with the
-    B' backward when autograd records through an f32 table), the plain
+    """The kernel on CUDA tensors (V=3, C=128, int8, bf16 or f32 tables; with
+    the B' backward when autograd records through an f32 table), the plain
     version on CPU tensors."""
     if table.device.type == "cpu":
         return cosine_prior_plain(table, grids, scales, n_groups)
@@ -96,8 +103,8 @@ def cosine_prior(table, grids, scales, n_groups: int):
 
 
 def _forward(table, grids, scales, n_groups: int):
-    if table.dtype not in (torch.int8, torch.float32):
-        raise ValueError(f"cosine_prior: table dtype {table.dtype} (int8 or f32)")
+    if table.dtype not in ENTRIES:
+        raise ValueError(f"cosine_prior: table dtype {table.dtype} (int8, bf16 or f32)")
     if table.dim() != 4 or table.shape[0] != 3 or table.shape[-1] != 256:
         raise ValueError(f"cosine_prior: table {tuple(table.shape)}, kernel takes [3,h,w,256]")
     V, H, W, Cc = table.shape
@@ -119,8 +126,7 @@ def _forward(table, grids, scales, n_groups: int):
             raise ValueError(f"cosine_prior: {name} is not contiguous")
     R, S = grids.shape[1:3]
     out = torch.empty(R, S, n_groups, dtype=torch.float32, device=table.device)
-    fn = "cosine_prior_i8" if table.dtype == torch.int8 else "cosine_prior_f32"
-    kernels.launch(COUNTER, fn, table.data_ptr(), grids.data_ptr(),
+    kernels.launch(COUNTER, ENTRIES[table.dtype], table.data_ptr(), grids.data_ptr(),
                    scales.data_ptr(), out.data_ptr(), V, H, W, C, n_groups,
                    R * S)
     return out

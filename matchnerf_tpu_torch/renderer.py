@@ -1,5 +1,5 @@
 """Evaluation and video renderer (counterpart of matchnerf_tpu/renderer.py,
-test mode).
+test and val modes).
 
 `Renderer.forward(batch, mode="test")` encodes the source views once, builds
 the sampling tables, and renders the full target image in slices of
@@ -304,7 +304,8 @@ class Renderer:
                 render_path_mode: str = "interpolate",
                 timings: Optional[Dict] = None) -> Dict:
         """Encode once, build the tables, render the target image
-        (renderer.py:728, mode "test"). batch: numpy images [B,V+1,H,W,3],
+        (renderer.py:728). Modes "test" and "val" render alike, as in the
+        JAX package: the whole image in slices of nerf.rand_rays_test rays. batch: numpy images [B,V+1,H,W,3],
         extrinsics [B,V+1,3|4,4], intrinsics [B,V+1,3,3], near_fars
         [B,V+1,2]. Returns rgb [B,H*W,3], depth and opacity [B,H*W,1].
         With render_video, the `nerf.video_n_frames` frames of the
@@ -315,8 +316,9 @@ class Renderer:
         phase and its wall seconds are stored under encode/tables/render;
         the block path's pose_prep seconds, part of render, also stand
         under pose_prep."""
-        if mode != "test":
-            raise NotImplementedError(f"mode {mode!r}: the port renders eval images only")
+        if mode not in ("test", "val"):
+            raise NotImplementedError(f"mode {mode!r}: the port renders eval images only "
+                                      "(training rays go through train_step)")
         V = self.cfg.n_src_views
         images = np.asarray(batch["images"])
         H, W = images.shape[2:4]

@@ -105,6 +105,17 @@ class TrainOptimizer:
         for g in grads:
             g.copy_(torch.where(norm < self.clip_enc, g, g / norm * self.clip_enc))
 
+    def state_dict(self) -> Dict:
+        """AdamW's state and the schedules' step count (what a resumed run
+        restores)."""
+        return {"adamw": None if self.opt is None else self.opt.state_dict(),
+                "count": self.count}
+
+    def load_state_dict(self, state: Dict):
+        if self.opt is not None:
+            self.opt.load_state_dict(state["adamw"])
+        self.count = int(state["count"])
+
     def step(self):
         if "enc" in self.schedules:
             self.clip_encoder()

@@ -1,43 +1,28 @@
 """Image and video output (counterpart of matchnerf_tpu/utils/visualize.py)
-that needs no imaging package: PNG through the standard library (zlib and
-struct); mp4 and GIF through imageio only where it is importable, and
-otherwise the frames as one uint8 `.npy` stack.
+that needs no imaging package: PNG through `data/png.py` (numpy and zlib);
+mp4 and GIF through imageio only where it is importable, and otherwise the
+frames as one uint8 `.npy` stack; the depth colour map as a table equal to
+cv2's JET.
 """
 from __future__ import annotations
 
 import logging
 import os
-import struct
-import zlib
 from typing import List, Optional
 
 import numpy as np
 
+from ..data.png import write_png
+
 log = logging.getLogger(__name__)
 
 
-def _png_bytes(img: np.ndarray) -> bytes:
-    """uint8 RGB [H,W,3] -> the bytes of a PNG file (8-bit truecolour, each
-    row with filter type 0)."""
-    img = np.ascontiguousarray(img)
+def save_image(path: str, img: np.ndarray):
+    """Write a uint8 RGB image [H,W,3] as PNG (whatever the extension)."""
+    img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"save_image takes uint8 [H,W,3], got {img.dtype} {img.shape}")
-    h, w, _ = img.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
-
-
-def save_image(path: str, img: np.ndarray):
-    """Write a uint8 RGB image as PNG."""
-    with open(path, "wb") as f:
-        f.write(_png_bytes(img))
+    write_png(path, img, ftype=0)
 
 
 def write_video(out_path: str, frames: List[np.ndarray], pts_rate: float = 2.0) -> str:
@@ -71,8 +56,28 @@ def write_gif(out_path: str, frames: List[np.ndarray], fps: int = 12) -> Optiona
     return out_path
 
 
+def jet_colormap() -> np.ndarray:
+    """cv2's COLORMAP_JET as a [256, 3] uint8 RGB table: piecewise linear,
+    4 levels per index, with cv2's rounding of entry 159's blue."""
+    i = np.arange(256)
+    lut = np.stack([np.minimum(4 * i - 382, 1148 - 4 * i),
+                    np.minimum(4 * i - 128, 892 - 4 * i),
+                    np.minimum(4 * i + 128, 638 - 4 * i)], axis=1)
+    lut = np.clip(lut, 0, 255).astype(np.uint8)
+    lut[159, 2] = 1
+    return lut
+
+
 def visualize_depth(depth: np.ndarray, minmax=None) -> np.ndarray:
-    """The JAX package colours depth with cv2's JET map; cv2 is not among
-    the port's dependencies."""
-    raise NotImplementedError("vis_depth needs cv2's colormap, which the port does "
-                              "not carry; run without vis_depth")
+    """depth [H,W] -> JET-coloured uint8 [H,W,3] (visualize.py:17): scaled
+    to [0, 1] by minmax (default: the smallest positive and the largest
+    depth), then cv2's JET table."""
+    x = np.nan_to_num(np.asarray(depth))
+    if minmax is None:
+        positive = x[x > 0]
+        mi = np.min(positive) if positive.size else 0.0
+        ma = np.max(x)
+    else:
+        mi, ma = minmax
+    x = (x - mi) / (ma - mi + 1e-8)
+    return jet_colormap()[(255 * np.clip(x, 0, 1)).astype(np.uint8)]

@@ -10,6 +10,11 @@ package, on the CPU.
   one-hot matmul vs direct f32 interpolation, summation order only).
 - The plain Kernel D vs the port's plain Kernel B on the same int8 tables:
   atol 1e-5, the same taps and f32 weights reached by another route.
+- On bf16 tables (configs/train.yaml's eval renders, which the JAX package
+  sends through `block_banded_cosine_scale_trainable`, whose forward is
+  `block_banded_cosine_scale`): the JAX kernel at atol 1e-2 (its bf16
+  stencil), the port's plain Kernel B at atol 1e-5; the bf16 staging fits
+  every bucket at S = 128 and the route (`takes_table`) follows the dtype.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -108,6 +113,43 @@ def test_plain_kernel_d_int8_matches_jax_and_kernel_b(case):
     plain_b = kb.cosine_prior_plain(torch.tensor(q), torch.tensor(grids),
                                     torch.tensor(scale), G)
     np.testing.assert_allclose(got.numpy(), plain_b.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["coherent", "ragged_border"])
+def test_plain_kernel_d_bf16_matches_jax_and_kernel_b(case):
+    rng = np.random.default_rng(14)
+    H, W, C, R, S, G = (24, 32, 16, 24, 32, 4) if case == "coherent" \
+        else (16, 16, 8, 11, 16, 2)
+    feat = rng.normal(0, 1, (V, H, W, 2 * C)).astype(np.float32)
+    grids = _coherent_grids(rng, R, S) if case == "coherent" else _border_grids(rng, R, S)
+    ut = _ut(grids, H, W)
+    tb = torch.tensor(feat).to(torch.bfloat16)
+    ref = jbb.block_banded_cosine_scale(
+        jnp.asarray(feat).astype(jnp.bfloat16)[None], jnp.asarray(grids)[:, None], kt=S,
+        ut=ut, n_groups=G, pairs=pair_index_lists(V))
+    got = kd.block_cosine_prior(tb, torch.tensor(grids), None, G, ut)
+    assert got.shape == (R, S, G) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref)[0], atol=1e-2)
+    plain_b = kb.cosine_prior_plain(tb, torch.tensor(grids), None, G)
+    np.testing.assert_allclose(got.numpy(), plain_b.numpy(), atol=1e-5, rtol=0)
+
+
+def test_block_route_by_table_dtype():
+    """Kernel D takes int8 and bf16 tables at every bucket at S = 128 (bf16
+    stages 128 channels a pass up to ut 320, 64 above), f32 tables where
+    D' fits (`takes_f32`); otherwise, and with scales on a float table,
+    Kernel B."""
+    t = {dt: torch.zeros(3, 4, 4, 8, dtype=dt)
+         for dt in (torch.int8, torch.bfloat16, torch.float32)}
+    for ut in kd.UT_BUCKETS:
+        for G in (2, 8):
+            assert kd.takes_table(t[torch.int8], torch.ones(3, 8), ut, 128, G)
+            assert kd.takes_table(t[torch.bfloat16], None, ut, 128, G)
+            assert kd.takes_table(t[torch.float32], None, ut, 128, G) == kd.takes_f32(ut, 128, G)
+            assert not kd.takes_table(t[torch.bfloat16], torch.ones(3, 8), ut, 128, G)
+    assert kd.channels_per_pass(320, 128, 8, False, itemsize=2) == 128
+    assert kd.channels_per_pass(384, 128, 8, False, itemsize=2) == 64
+    assert not kd.takes_bf16(512, 512, 2)
 
 
 def test_plain_kernel_d_f32_matches_jax():

@@ -8,6 +8,10 @@ package, on the CPU.
 - On int8 tables it matches `banded_cosine_scale` at atol 1e-2, the bound
   tests/test_pallas_banded.py sets for that kernel's bf16 bilinear weights,
   and the JAX direct packed-gather path at atol 2e-5.
+- On bf16 tables (configs/train.yaml's eval renders) the same: the JAX
+  kernel at atol 1e-2 (it reaches it through `banded_cosine_scale_trainable`,
+  whose forward is `banded_cosine_scale`), the direct path at atol 2e-5;
+  the port's bf16 tables equal the JAX `view_feats_unpacked` bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -107,6 +111,40 @@ def test_plain_kernel_b_int8_matches_banded_and_direct():
                            torch.tensor(scale.astype(np.float32)), G).numpy()
     np.testing.assert_allclose(got, np.asarray(ref_kernel)[0], atol=1e-2)
     np.testing.assert_allclose(got, ref_direct, atol=2e-5, rtol=1e-5)
+
+
+def test_plain_kernel_b_bf16_matches_banded_and_direct():
+    rng = np.random.default_rng(4)
+    feat = rng.normal(0, 1, (V, H, W, 2 * C)).astype(np.float32)
+    grids = _coherent_grids(rng)
+    tb = torch.tensor(feat).to(torch.bfloat16)
+    jb = jnp.asarray(feat).astype(jnp.bfloat16)
+    np.testing.assert_array_equal(tb.view(torch.int16).numpy(),
+                                  np.asarray(jb).view(np.int16))
+    packed = _packed(jb)
+    ref_kernel = banded_cosine_scale(packed, jnp.asarray(grids)[:, None], kt=48,
+                                     n_groups=G, pairs=pair_index_lists(V))
+    ref_direct = _jax_direct(packed, grids, None)
+    got = tcp.cosine_prior(tb, torch.tensor(grids), None, G).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref_kernel)[0], atol=1e-2)
+    np.testing.assert_allclose(got, ref_direct, atol=2e-5, rtol=1e-5)
+
+
+def test_bf16_tables_bit_exact():
+    cfg = ge._tiny_cfg(n_layers=1)
+    rng = np.random.default_rng(5)
+    feats = [rng.normal(0, 1.5, (1, 3, 2, h, w, 8)).astype(np.float32)
+             for (h, w) in ((4, 6), (8, 12))]
+    imgs = rng.uniform(0, 1, (1, 3, 16, 24, 3)).astype(np.float32)
+    ref = jax_prepare_tables(cfg, [jnp.asarray(f) for f in feats], jnp.asarray(imgs),
+                             feat_dtype=jnp.bfloat16, keep_unpacked=True)
+    got = torch_prepare_tables(cfg, [torch.tensor(f) for f in feats], torch.tensor(imgs),
+                               feat_dtype=torch.bfloat16)
+    for s in range(2):
+        assert got["view_feats"][s].dtype == torch.bfloat16
+        assert got["view_feat_scales"][s] is None and ref["view_feat_scales"][s] is None
+        np.testing.assert_array_equal(got["view_feats"][s].view(torch.int16).numpy(),
+                                      np.asarray(ref["view_feats_unpacked"][s]).view(np.int16))
 
 
 @pytest.mark.parametrize("n_groups", [1, 8])

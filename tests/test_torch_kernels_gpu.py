@@ -11,7 +11,8 @@ the forward's logsumexp against torch.logsumexp of the plain masked scores,
 1e-3 for f32 and 2e-2 for bf16 inputs, at L = 160 (a ragged last key tile)
 and L = 1280. The block-union cosine prior (D) runs at small shapes, at the
 largest union it takes (512 rows: the most dynamic shared memory), and with
-a ragged R and samples on the border. The supercell colour sample (E) reads
+a ragged R and samples on the border, on int8 tables and on bf16 tables;
+the cosine prior (B) on int8, bf16 and f32 tables. The supercell colour sample (E) reads
 no union: it runs at small shapes, on a 320-supercell union, with a ragged
 R and samples on the border, and on grids spread over the whole image whose
 union overflows every bucket, where it is also held to the direct gather
@@ -106,7 +107,7 @@ def test_window_attention_forward_lse(dev, dtype, tol, hw):
                                atol=1e-5 if dtype == torch.float32 else 2e-2, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G", [2, 8])
 def test_cosine_prior_kernel(dev, dtype, G):
     g = torch.Generator(device=dev).manual_seed(1)
@@ -114,7 +115,7 @@ def test_cosine_prior_kernel(dev, dtype, G):
         table = torch.randint(-127, 128, (3, 20, 24, 256), generator=g, device=dev,
                               dtype=torch.int32).to(torch.int8)
     else:
-        table = torch.randn(3, 20, 24, 256, generator=g, device=dev)
+        table = torch.randn(3, 20, 24, 256, generator=g, device=dev).to(dtype)
     scales = torch.rand(3, 256, generator=g, device=dev) * 0.02 + 1e-3
     grids = torch.rand(3, 37, 48, 2, generator=g, device=dev) * 2.4 - 1.2
     got = kb.cosine_prior(table, grids, scales, G)
@@ -265,6 +266,36 @@ def test_block_cosine_prior_kernel(dev, case, G):
     if case != "cap_512":
         # the same function as Kernel B
         torch.testing.assert_close(got, kb.cosine_prior(table, grids, scales, G),
+                                   atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("G", [2, 8])
+@pytest.mark.parametrize("case", ["small", "cap_512", "ragged_border"])
+def test_block_cosine_prior_bf16_kernel(dev, case, G):
+    """Kernel D on bf16 tables (no scales): the staged-pass kernel at
+    CP = 128 or, for ut 512, 64 channels a pass; against its plain version
+    and Kernel B's bf16 form."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    h, w = {"small": (20, 24), "cap_512": (64, 80), "ragged_border": (16, 16)}[case]
+    table = torch.randn(3, h, w, 256, generator=g, device=dev).to(torch.bfloat16)
+    if case == "small":
+        grids = _block_grids(g, dev, 3, 40, 48, 0.3)
+    elif case == "cap_512":
+        grids = torch.rand(3, 16, 15, 2, generator=g, device=dev) * 2 - 1
+    else:
+        grids = _block_grids(g, dev, 3, 13, 32, 0.5)
+        grids[:, :, :4] = torch.clamp(grids[:, :, :4] * 3.0, -1.0, 1.0)
+        grids[:, -1, -2:] = 1.0
+    ut = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), h, w))
+    assert kd.takes_bf16(ut, grids.shape[2], G)
+    before = kd.COUNTER.by_entry.get("block_cosine_prior_bf16", 0)
+    got = kd.block_cosine_prior(table, grids, None, G, ut)
+    torch.cuda.synchronize()
+    assert kd.COUNTER.by_entry["block_cosine_prior_bf16"] == before + 1
+    ref = kd.block_cosine_prior_plain(table, grids, None, G, ut)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    if case != "cap_512":
+        torch.testing.assert_close(got, kb.cosine_prior(table, grids, None, G),
                                    atol=1e-5, rtol=0)
 
 

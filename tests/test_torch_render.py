@@ -19,6 +19,7 @@ and the colour gather without changing the image (>= 90 dB: the same
 function by another route), the config dicts equal configs/test.yaml, and
 the port imports nothing of jax, yaml, PIL or the JAX package.
 """
+import json
 import os
 import subprocess
 import sys
@@ -32,7 +33,7 @@ import __graft_entry__ as ge
 from matchnerf_tpu.models.matchnerf import init_matchnerf as jax_init
 from matchnerf_tpu.renderer import Renderer as JaxRenderer
 from matchnerf_tpu.utils import DotDict
-from matchnerf_tpu_torch.config import (SLICE_KEYS, TRAIN_SLICE_KEYS, dtu_eval_config,
+from matchnerf_tpu_torch.config import (SLICE_KEYS, dtu_eval_config,
                                        dtu_eval_per_ray_config, dtu_train_config,
                                        dtu_train_fast_config)
 from matchnerf_tpu_torch.models.matchnerf import MatchNeRF
@@ -248,15 +249,11 @@ def test_batched_block_path_splits_per_pose():
 def test_chip_smoke_config_matches_yaml(variant):
     from matchnerf_tpu.config import load_options
     if variant.startswith("train"):
-        # every key the training step reads; absent on both sides reads as
-        # the default
+        # every key of the YAML files (the command line sets `yaml`)
         opt = load_options(os.path.join(REPO, "configs", f"{variant}.yaml"))
         mine = dtu_train_config() if variant == "train" else dtu_train_fast_config()
-        for key in TRAIN_SLICE_KEYS:
-            a, b = opt, mine
-            for part in key.split("."):
-                a, b = a.get(part), b.get(part)
-            assert a == b, f"{key}: yaml {a!r} vs dict {b!r}"
+        assert mine.pop("yaml") == variant and opt.pop("yaml") is None
+        assert json.loads(json.dumps(mine)) == json.loads(json.dumps(opt))
         assert bool(mine.nerf.get("train_ray_patches")) == (variant == "train_fast")
         return
     opt = load_options(os.path.join(REPO, "configs", "test.yaml"))

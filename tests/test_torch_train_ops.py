@@ -170,9 +170,9 @@ def test_block_cosine_prior_table_grad_matches_jax(R):
 def test_f32_block_staging_fits_the_training_buckets():
     """D' takes the buckets of the DTU training pose (160 rows at G=2, 320 at
     G=8, S=128) and declines what no staging pass width fits."""
-    assert kd.f32_channels_per_pass(160, 128, 2, backward=False) == 128
-    assert kd.f32_channels_per_pass(160, 128, 2, backward=True) == 64
-    assert kd.f32_channels_per_pass(320, 128, 8, backward=False) == 64
-    assert kd.f32_channels_per_pass(320, 128, 8, backward=True) == 32
+    assert kd.channels_per_pass(160, 128, 2, backward=False) == 128
+    assert kd.channels_per_pass(160, 128, 2, backward=True) == 64
+    assert kd.channels_per_pass(320, 128, 8, backward=False) == 64
+    assert kd.channels_per_pass(320, 128, 8, backward=True) == 32
     assert kd.takes_f32(160, 128, 2) and kd.takes_f32(320, 128, 8)
     assert not kd.takes_f32(320, 128, 2) and not kd.takes_f32(512, 128, 8)
