@@ -21,13 +21,15 @@ Phases, any failure ends the run with a non-zero exit:
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes, with max |d|, tolerance, CUDA-event times, the bound (the
    larger of bytes over 3.35 TB/s and operations over the peak rate of the
-   input type; for Kernel C the wide products over its route's tensor-core
-   rate, split TF32 at 495/3 TFLOP/s or bf16 at 989, plus the rest over the
-   67 TFLOP/s of f32) and, for Kernels A and E, one PyTorch library call
-   computing the same function (scaled_dot_product_attention, grid_sample):
-   window attention on 24 x 1280 x 128 windows (bf16 and f32), timed with
-   and without the training forward's logsumexp, which is held against
-   torch.logsumexp of the plain masked scores; on a 20480-ray slice built
+   input type; for the tensor-core kernels the route's tensor-core rate,
+   split TF32 at 495/3 TFLOP/s or bf16 at 989: Kernels A and A', and Kernel
+   C's wide products plus its rest over the 67 TFLOP/s of f32) and, for
+   Kernels A and E, one PyTorch library call computing the same function
+   (scaled_dot_product_attention, grid_sample): window attention on 24 x
+   1280 x 128 windows (bf16 and f32), timed with and without the training
+   forward's logsumexp, which is held against torch.logsumexp of the plain
+   masked scores, beside SDPA's time, its max |d| against the plain version
+   and the names of its kernels (torch.profiler); on a 20480-ray slice built
    from the encoder's real tables and the pose's real unions, the per-ray
    cosine prior (B), the block-union cosine prior (D, also held against B,
    with its union sizes and buckets), the supercell colour sample (E, which
@@ -59,7 +61,11 @@ Phases, any failure ends the run with a non-zero exit:
    PSNR against the f32 image is printed.
 6. fused path, configs/test.yaml with precision.fused_cosine: the same
    view with every feature scale through F (2 launches per slice), B and D
-   never launched; it must agree with the block path at >= 60 dB.
+   never launched; it must agree with the block path at >= 60 dB. Then
+   the f32 encoder of configs/test_strict.yaml (precision.strict): the
+   scene's source views encoded through Kernel A's f32 route (12 launches
+   of it and nothing else) and through the plain encoder, features within
+   1e-4 (of the largest, at least 1), encode seconds of both.
 7. video, configs/demo_own.yaml with precision.fused_cosine (the IBR
    decoder variant, S=128) at 256x160 on 3 source cameras of the synthetic
    scene: `Coach.test_model_video` renders the 24 frames of the interpolate
@@ -77,11 +83,11 @@ Phases, any failure ends the run with a non-zero exit:
    or 128 8-pixel strips for D'), stratified depths and the f32 tables of
    the bf16 training encoder: A' (window attention forward with logsumexp
    and backward, bf16 and f32, shifted and not; library yardstick SDPA
-   with the float mask, its backward alone and forward + backward), the B'
-   table gradient per scale (and Kernel B's f32 forward at these shapes),
-   D' f32 forward and backward per scale (also held against B and B', the
-   same function; the largest training union is printed against its
-   bucket). The A' backward also prints its TFLOP/s, counted as the
+   with the float mask, its backward alone and forward + backward, with the
+   names of its backward kernels), the B' table gradient per scale (and
+   Kernel B's f32 forward at these shapes), D' f32 forward and backward
+   per scale (also held against B and B', the same function; the largest
+   training union is printed against its bucket). The A' backward also prints its TFLOP/s, counted as the
    function's 5 products (the kernels do 7); SDPA's backward, a call whose
    host work through autograd outlasts its kernels, is timed on the device
    (torch.profiler) beside its CUDA-event time.
@@ -91,7 +97,9 @@ Phases, any failure ends the run with a non-zero exit:
    gradient error), with the recipe's bf16 policy and with the f32 policy;
    then 7 steps: finite losses, moving parameters, 12 A' forward, 12 A'
    backward, 2 B forward and 2 B' backward launches in each step and no
-   plain version on CUDA tensors; ms per warm step and peak memory.
+   plain version on CUDA tensors; ms per warm step and peak memory. After
+   phase 11, 7 more train.yaml steps under the f32 policy (A and A' on
+   their f32 route), checked and timed the same way.
 11. configs/train_fast.yaml step: the same, with the pose's route through
    D' at both scales (2 D' forward and 2 D' backward launches per step).
 12. the training loop: a synthetic DTU tree (6 views of the scene at
@@ -149,9 +157,10 @@ VIDEO_FRAMES = 24                  # configs/demo_own.yaml nerf.video_n_frames
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, f32 without tensor cores
-# Kernel C's wide products on tensor cores: bf16 at the bf16 peak; split TF32
-# takes three TF32 products (495 TFLOP/s) for each f32 one
-DECODER_TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+# the tensor-core rate of a kernel's operand route (Kernel C's wide products,
+# Kernels A and A'): bf16 at the bf16 peak; split TF32 takes three TF32
+# products (495 TFLOP/s) for each f32 one
+TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 OWN_FRAMES = 3                     # frames of the configs/test_video_own.yaml phase
 OWN_PLAIN_SLICES = 2               # slices of its frame 0 held to all-plain
 LOOP_STEPS = 4                     # training steps per recipe in the loop phase
@@ -201,10 +210,24 @@ def device_ms(torch, fn, iters):
                if e.device_time_total > 0) / 1e3 / iters
 
 
-def bound(nbytes, flops, dtype="float32"):
-    """(bound ms, 'bytes' or 'operations'): the least time for the work."""
+def kernel_names(torch, fn, iters=3):
+    """The names of the device kernels `fn` runs (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:120] for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and e.device_time_total > 0})
+
+
+def bound(nbytes, flops, dtype="float32", rates=PEAK_FLOPS):
+    """(bound ms, 'bytes' or 'operations'): the least time for the work,
+    its operations at rates[dtype]."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / rates[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -308,7 +331,7 @@ def decoder_bound(nbytes_, dec, N, S, route):
     products over the route's tensor-core rate plus the remainder over the
     f32 CUDA-core rate, against the bytes over the memory rate."""
     wide, rest = decoder_flops(dec, S)
-    t_ops = (N * wide / DECODER_TC_FLOPS[route] + N * rest / PEAK_FLOPS["float32"]) * 1e3
+    t_ops = (N * wide / TC_FLOPS[route] + N * rest / PEAK_FLOPS["float32"]) * 1e3
     t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -351,7 +374,7 @@ def decoder_case(torch, kc, dev, args, label):
                 f"of {diffs.numel()} above 1e-3, mean|d| {mean_err:.3e} (f32 vs bf16 twins "
                 f"{gap:.3e}), {ms:.3f} ms vs plain "
                 f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}: {N * wide / 1e12:.3f} TFLOP "
-                f"of wide products at {DECODER_TC_FLOPS[route] / 1e12:.0f} TFLOP/s + "
+                f"of wide products at {TC_FLOPS[route] / 1e12:.0f} TFLOP/s + "
                 f"{N * rest / 1e12:.4f} TFLOP at 67)")
             for name, err, tol in zip(("rgb", "depth", "opacity"), errs, tols):
                 check_close(f"cond_nerf_decode {label} {route} {name}", err, tol)
@@ -426,12 +449,13 @@ def train_kernel_phase(torch, F, dev, batch, seed, block_ut, res):
             lib_bwd = lambda: grad(outl, ql, do[:, None], retain_graph=True)
             lib_ms = device_ms(torch, lib_bwd, 10)
             lib_events_ms = cuda_ms(torch, lib_bwd, 10)
+            lib_kernels = kernel_names(torch, lib_bwd)
             # forward + backward together, the kernels' and the library's
             fb_ms = cuda_ms(torch, lambda: ka.window_attention_backward(
                 q, k, v, *ka.window_attention_forward(q, k, v, r, with_lse=True), do, r), 20)
             lib_fb_ms = device_ms(torch, lambda: grad(
                 F.scaled_dot_product_attention(*ql, attn_mask=mask), ql, do[:, None]), 10)
-            b_ms, b_by = bound(nbytes(q, k, v, out, do, lse, *gk), 5 * prod, name)
+            b_ms, b_by = bound(nbytes(q, k, v, out, do, lse, *gk), 5 * prod, name, TC_FLOPS)
             tag = f"{name}_{'shift' if shift else 'noshift'}"
             tflops = 5 * prod / ms / 1e9             # the function's 5 products
             log(f"kernel A' window_attention backward {name} [{BW},{L},128] "
@@ -442,13 +466,15 @@ def train_kernel_phase(torch, F, dev, batch, seed, block_ut, res):
                 f"library SDPA backward {lib_ms:.4f} ms on the device (CUDA events around "
                 f"the autograd call {lib_events_ms:.4f} ms; max|d| {lib_err:.3e}); forward + "
                 f"backward {fb_ms:.3f} ms vs SDPA {lib_fb_ms:.3f} ms on the device; bound "
-                f"{b_ms:.4f} ms ({b_by}, 5 products)")
+                f"{b_ms:.4f} ms ({b_by}, 5 products at {TC_FLOPS[name] / 1e12:.0f} TFLOP/s); "
+                f"SDPA's backward kernels {lib_kernels}")
             check_close(f"window_attention backward {tag}", err, tol_abs)
             res["A_bwd"][tag] = dict(max_abs_err=err, tol=tol_abs, ms=ms, tflops=tflops,
                                      autograd_ms=autograd_ms, fwd_ms=fwd_ms,
                                      plain_ms=plain_ms, library_ms=lib_ms,
                                      library_events_ms=lib_events_ms,
-                                     library_max_abs_err=lib_err, fwd_bwd_ms=fb_ms,
+                                     library_max_abs_err=lib_err, library_kernels=lib_kernels,
+                                     fwd_bwd_ms=fb_ms,
                                      library_fwd_bwd_ms=lib_fb_ms, bound_ms=b_ms,
                                      bound_by=b_by)
             del q, k, v, do, qk, qp, out, outp, gk, gp, ql, outl, gl, mask, o, lse, lib_bwd
@@ -670,6 +696,53 @@ def train_path(torch, dev, cfg, batch, seed, label, counters, must, profile):
         out["profile"] = profile_call(torch, label, lambda: coach.train_iteration(batch),
                                       keep=("window_attention_dq", "window_attention_dkv"))
     return out
+
+
+def strict_encode_phase(torch, model, cfg, ref_images, counters):
+    """Phase 6, the f32 encode of configs/test_strict.yaml (precision.strict
+    makes the encoder f32): one warm encode of the scene's source views
+    through Kernel A's f32 route, counted, and through the plain encoder;
+    the features against the plain ones and the encode seconds (host clock
+    around a synchronised call, mean of 3)."""
+    from matchnerf_tpu_torch.models.matchnerf import encode
+    from matchnerf_tpu_torch.ops import window_attention as ka
+
+    def run(kernel, n=3):
+        seconds = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                feats = encode(model, cfg, ref_images, kernel=kernel)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        return feats, float(np.mean(seconds))
+
+    run(True, 1)                                   # warm
+    for c in counters.values():
+        c.reset()
+    feats, enc_s = run(True, 1)
+    routes = dict(ka.COUNTER.by_entry)
+    launches = {k: c.launches for k, c in counters.items()}
+    plain_cuda = {k: c.plain_on_cuda for k, c in counters.items()}
+    _, enc_s = run(True)
+    ref, plain_s = run(False)
+    err = max(max_abs(a, b) for a, b in zip(feats, ref))
+    tol = 1e-4 * max(1.0, max(float(r.abs().max()) for r in ref))
+    log(f"strict f32 encode (configs/test_strict.yaml, encoder f32): {enc_s:.4f} s through "
+        f"the kernels vs {plain_s:.4f} s plain; Kernel A launches by route {routes}; max|d| "
+        f"features vs plain {err:.3e} (tol {tol:.3e}); scales "
+        f"{[list(f.shape) for f in feats]}")
+    if routes != {"window_attention_f32": 12} or sum(launches.values()) != 12:
+        raise AssertionError(f"strict f32 encode: launches {launches}, Kernel A routes {routes}; "
+                             "expected 12 f32 launches of Kernel A and nothing else")
+    if any(plain_cuda.values()):
+        raise AssertionError(f"strict f32 encode: plain versions ran on CUDA: {plain_cuda}")
+    if not all(bool(torch.isfinite(f).all()) for f in feats):
+        raise AssertionError("strict f32 encode: non-finite features")
+    check_close("strict f32 encode features", err, tol)
+    return {"encode_s": enc_s, "plain_encode_s": plain_s, "max_abs_err": err, "tol": tol,
+            "launches": routes}
 
 
 def fused_kernel_phase(torch, cfg, feats, ref_images, tables, grids, res):
@@ -1231,20 +1304,23 @@ def main():
                                                          v[:, None], attn_mask=mask)
             lib_err = float((lib()[:, 0].float() - ref.float()).abs().max())
             lib_ms = cuda_ms(torch, lib, 50)
+            lib_kernels = kernel_names(torch, lib)
             del mask
             name = str(dt).replace("torch.", "")
             flops = 4 * 24 * 1280 * 1280 * 128
-            b_ms, b_by = bound(nbytes(q, k, v, got, rid), flops, name)
+            b_ms, b_by = bound(nbytes(q, k, v, got, rid), flops, name, TC_FLOPS)
             log(f"kernel A window_attention {name} [24,1280,128] shift-masked: "
                 f"max|d| {err:.3e} (tol {tol_abs:.3e}), {ms:.4f} ms ({flops / ms / 1e9:.1f} "
                 f"TFLOP/s); with the logsumexp {lse_ms:.4f} ms, lse max|d| {lse_err:.3e} (tol "
                 f"{lse_tol:g}); plain {plain_ms:.3f} ms, library SDPA {lib_ms:.4f} ms (max|d| "
-                f"{lib_err:.3e}), bound {b_ms:.4f} ms ({b_by})")
+                f"{lib_err:.3e}), bound {b_ms:.4f} ms ({b_by}, at {TC_FLOPS[name] / 1e12:.0f} "
+                f"TFLOP/s); SDPA's kernels {lib_kernels}")
             check_close(f"window_attention {name}", err, tol_abs)
             check_close(f"window_attention {name} logsumexp", lse_err, lse_tol)
             res[f"A_{name}"] = dict(max_abs_err=err, ms=ms, lse_ms=lse_ms, lse_max_abs_err=lse_err,
                                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                    library_ms=lib_ms)
+                                    library_ms=lib_ms, library_max_abs_err=lib_err,
+                                    library_kernels=lib_kernels)
             del q, k, v, got, ref, lse
 
         # B, D, E and C on the first 20480 rays of the target view, real tables
@@ -1490,6 +1566,12 @@ def main():
         f"per-ray {n_rays / ray_t['render']:.0f}")
     if not vs_fused >= 60.0:
         raise AssertionError(f"fused vs block PSNR {vs_fused:.2f} dB < 60")
+
+    # the f32 encoder of configs/test_strict.yaml
+    strict_cfg = dtu_eval_config()
+    strict_cfg.precision.strict = True
+    strict = strict_encode_phase(torch, model, strict_cfg,
+                                 renderer.tensor(batch["images"][:, :3]), counters)
     del out, ray_out, fused_out, bf_out
     torch.cuda.empty_cache()
 
@@ -1526,6 +1608,14 @@ def main():
                                   counters, must, args.profile)
         train[label]["first_step"] = checks
         torch.cuda.empty_cache()
+    # warm train.yaml steps under the f32 policy (Kernel A and A' in f32)
+    cfg32 = dtu_train_config()
+    cfg32.precision.encoder_compute_dtype = "float32"
+    cfg32.precision.decoder_compute_dtype = "float32"
+    train["train_f32_policy"] = train_path(torch, dev, cfg32, batch, args.seed,
+                                           "train.yaml f32 policy", counters, recipes[0][2],
+                                           args.profile)
+    torch.cuda.empty_cache()
     route = train["train_fast"]["route"]
     if route is None or None in route:
         raise AssertionError(f"train_fast.yaml: the pose must take D' at both scales: {route}")
@@ -1631,6 +1721,7 @@ def main():
         "fused": {"encode_s": fused_t["encode"], "render_s": fused_t["render"],
                   "rays_per_s_render": n_rays / fused_t["render"],
                   "pose_prep_s": fused_t["pose_prep"], "psnr_vs_block_db": vs_fused},
+        "strict_f32_encode": strict,
         "video": {k: v for k, v in video.items() if k not in ("profile", "launches")},
         "test_video_own": {k: v for k, v in video_own.items()
                            if k not in ("profile", "launches")},

@@ -13,44 +13,50 @@
 //
 // What bounds it: at the DTU shape (24 windows, L = 1280, C = 128) the two
 // forward products take 2 * 24 * 1280^2 * 128 * 2 = 20 GFLOP against 24 MB of
-// q/k/v, so it is bound by arithmetic, not by bytes (0.020 ms at the bf16
-// tensor-core peak); the risk is the [BW, L, L] score matrix (157 MB in f32)
-// that the plain version writes and reads back. Both forwards use a
-// flash-style online softmax: one block owns 64 queries of one window and
-// streams 64-key tiles of K and V through shared memory, so the score matrix
-// never reaches device memory. With a non-null `lse` they also write the
-// per-row logsumexp of the masked, scaled scores (f32 [BW, L]), all the
-// backward keeps besides q, k, v and out (the TPU kernel saves the whole
-// [BW, L, L] attention instead).
-// - bf16 (the eval and training encoder): on tensor cores, FlashAttention-2
-//   style (see "forward on tensor cores" at the end): Q fragments in
-//   registers, K/V tiles double-buffered by cp.async, both products as
-//   mma.sync with ldmatrix operands, scores and P never leave registers.
-// - f32 (the f32 policy only): CUDA-core FP32 FMAs; the 64x64 score tile
-//   lives in registers (4x4 per thread) and in a transposed shared tile for
-//   the P.V product. It is bound by the 67 TFLOP/s of the CUDA cores.
+// q/k/v, so it is bound by arithmetic, not by bytes; the risk is the
+// [BW, L, L] score matrix (157 MB in f32) that the plain version writes and
+// reads back. Every kernel here is flash-style: the score tiles never leave
+// the chip. With a non-null `lse` the forwards also write the per-row
+// logsumexp of the masked, scaled scores (f32 [BW, L]), all the backward
+// keeps besides q, k, v and out (the TPU kernel saves the whole [BW, L, L]
+// attention instead).
 //
-// Backward design (flash-style, two launches, no atomics, so dq, dk and dv
-// are the same bits from run to run):
-//  1. dq kernel: one block owns 64 queries. It forms D_i = dO_i . O_i
-//     (= rowsum(P o dP)) and writes it for launch 2; then it streams 64-key
+// Backward (two launches, no atomics, so dq, dk and dv are the same bits
+// from run to run):
+//  1. dq kernel: a block owns a run of queries. It forms D_i = dO_i . O_i
+//     (= rowsum(P o dP)) and writes it for launch 2; then it streams key
 //     tiles, recomputes S = Q K^T, P = exp(S / sqrt(C) + mask - lse) and
 //     dP = dO V^T, forms dS = P o (dP - D) and accumulates
 //     dQ = dS K / sqrt(C) in registers.
-//  2. dkv kernel: one block owns 64 keys and streams 64-query tiles,
+//  2. dkv kernel: a block owns a run of keys and streams query tiles,
 //     recomputing P^T and dP^T the same way, and accumulates dV = P^T dO and
 //     dK = dS^T Q / sqrt(C) in registers.
-// Each recomputes the two score-sized products (7 products in all against
-// the 5 a saved attention needs) and keeps every [L, L] tile on chip; dq,
-// dk, dv are written in the input dtype.
-// - bf16 (the training encoder): on tensor cores with the forward's operand
-//   path (see "backward on tensor cores" at the end): mma.sync with ldmatrix
-//   fragments from row-major tiles, streaming tiles in a three-stage
-//   cp.async ring, the block's own Q and dO (dq) or K and V (dkv) fragments
-//   in registers, dkv split over 8 warps with P^T and dS^T through shared
-//   memory; P and dS rounded to bf16 as the TPU kernel rounds them.
-// - f32 (the f32 policy only): operands f32 in shared memory, softmax and
-//   accumulation f32, register-blocked CUDA-core FMAs.
+// The function is 5 score-sized products (50.3 GFLOP at the DTU shape);
+// the two launches do 7, since each recomputes S and dP.
+//
+// Two operand types, both on tensor cores with f32 accumulation, softmax
+// and logsumexp:
+// - bf16 (the eval and training encoder): mma.sync m16n8k16 on bf16
+//   operands fed by ldmatrix (see "forward on tensor cores" and "backward
+//   on tensor cores" below); P and dS rounded to bf16 as the TPU kernel
+//   rounds them. Bound: 0.020 ms forward, 0.051 ms backward at the bf16
+//   peak (989 TFLOP/s).
+// - f32 (configs/base.yaml's encoder, precision.strict, the f32 training
+//   policy): split TF32 (see "f32 on tensor cores" at the end). On CUDA
+//   cores the f32 products are bound by the card's 67 TFLOP/s of FP32 FMAs
+//   (0.30 ms forward, 0.75 ms backward); a single TF32 product keeps 10
+//   mantissa bits (2e-4 to 9e-4 off in the output, against a 1e-5
+//   tolerance: tests/test_torch_window_attention.py emulates both), so
+//   each f32 product is three TF32 products, hi*hi + hi*lo + lo*hi, on the
+//   495 TFLOP/s of the TF32 tensor cores: bound 0.122 ms forward, 0.305 ms
+//   backward (5 products). mma.sync and not wgmma: wgmma reads TF32
+//   operands from shared memory, so each streamed tile would need hi and
+//   lo copies, and transposed ones for the half of the products that read
+//   B across rows (wgmma transposes 16-bit types only); they do not fit
+//   beside the block's own rows. mma.sync runs TF32 at about two thirds
+//   of 495 on this card (profile_attention --mma-peak), and splitting and
+//   fragment loads compete with it for instruction slots: that, not the
+//   bound, sets the pace.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,461 +65,7 @@
 
 namespace {
 
-constexpr int BQ = 64;              // queries per block
-constexpr int BK = 64;              // keys per tile
 constexpr int C = 128;              // channels (the encoder's width)
-constexpr int THREADS = 256;
-constexpr int T_STRIDE = BQ + 4;    // transposed Q / K tiles: [C][T_STRIDE]
-constexpr int V_STRIDE = C + 4;     // V tile: [BK][V_STRIDE]
-constexpr int P_STRIDE = BQ + 4;    // transposed P tile: [BK][P_STRIDE]
-constexpr size_t SMEM_BYTES =
-    sizeof(float) * (2 * C * T_STRIDE + BK * V_STRIDE + BK * P_STRIDE);
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ rid,
-                        T* __restrict__ out, float* __restrict__ lse, int L,
-                        int n_rid) {
-  extern __shared__ float smem[];
-  float* qt = smem;                   // [C][T_STRIDE]   Q tile, transposed
-  float* kt = qt + C * T_STRIDE;      // [C][T_STRIDE]   K tile, transposed
-  float* vs = kt + C * T_STRIDE;      // [BK][V_STRIDE]  V tile
-  float* pt = vs + BK * V_STRIDE;     // [BK][P_STRIDE]  probabilities, transposed
-
-  const int w = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;            // query rows ty*4 .. ty*4+3
-  const int tx = tid % 16;            // score cols tx*4 .. +3, output cols tx*8 .. +7
-  const size_t base = (size_t)w * L * C;
-  const int* rw = rid ? rid + (size_t)(w % n_rid) * L : nullptr;
-  const float sqrt_c = sqrtf((float)C);
-
-  for (int i = tid; i < BQ * C; i += THREADS) {
-    const int r = i / C, c = i % C;
-    qt[c * T_STRIDE + r] = (q0 + r < L) ? load_f(q + base + (size_t)(q0 + r) * C + c) : 0.f;
-  }
-  int rq[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    rq[i] = (rw && qi < L) ? rw[qi] : 0;
-  }
-
-  float m[4], l[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    __syncthreads();   // the previous tile's K, V and P are no longer read
-    for (int i = tid; i < BK * C; i += THREADS) {
-      const int r = i / C, c = i % C;
-      const bool ok = k0 + r < L;
-      const size_t off = base + (size_t)(k0 + r) * C + c;
-      kt[c * T_STRIDE + r] = ok ? load_f(k + off) : 0.f;
-      vs[r * V_STRIDE + c] = ok ? load_f(v + off) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < C; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(&qt[c * T_STRIDE + ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&kt[c * T_STRIDE + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx * 4 + j;
-        float sc = -INFINITY;
-        if (key < L) {
-          sc = s[i][j] / sqrt_c;
-          if (rw && rw[key] != rq[i]) sc += -100.f;
-        }
-        s[i][j] = sc;
-        mx = fmaxf(mx, sc);
-      }
-      // the 16 threads of a query row are 16 consecutive lanes
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float scale = expf(m[i] - m_new);   // 0 on the first tile
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        s[i][j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * scale + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= scale;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) pt[(tx * 4 + j) * P_STRIDE + ty * 4 + i] = s[i][j];
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 p = *reinterpret_cast<const float4*>(&pt[kk * P_STRIDE + ty * 4]);
-      const float4 v0 = *reinterpret_cast<const float4*>(&vs[kk * V_STRIDE + tx * 8]);
-      const float4 v1 = *reinterpret_cast<const float4*>(&vs[kk * V_STRIDE + tx * 8 + 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-      const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= L) continue;
-    const float inv = 1.f / l[i];
-    T* o = out + base + (size_t)qi * C + tx * 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) store_f(o + j, acc[i][j] * inv);
-    if (lse && tx == 0) lse[(size_t)w * L + qi] = m[i] + logf(l[i]);
-  }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* rid,
-           void* out, void* lse, int BW, int L, int channels, int n_rid,
-           cudaStream_t stream) {
-  if (channels != C || BW <= 0 || L <= 0 || (rid && n_rid <= 0))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      window_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + BQ - 1) / BQ, BW);
-  window_attention_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(rid),
-      static_cast<T*>(out), static_cast<float*>(lse), L, n_rid);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------- backward
-
-constexpr int R_STRIDE = C + 4;     // row-major [rows][R_STRIDE] tiles; 33 float4
-                                    // per row, so 8 consecutive rows hit 8 bank groups
-constexpr size_t BWD_SMEM_BYTES =
-    sizeof(float) * (2 * C * T_STRIDE + 2 * 64 * R_STRIDE + 64 * P_STRIDE + 4 * 64);
-constexpr size_t DKV_SMEM_BYTES =
-    sizeof(float) * (2 * C * T_STRIDE + 2 * 64 * R_STRIDE + 2 * 64 * P_STRIDE + 4 * 64);
-
-// s[i][j] += sum_c At[c][ty*4+i] * Bs[tx+16j][c]: A transposed ([C][T_STRIDE]),
-// B row-major ([64][R_STRIDE]); the 16 threads of a row read B rows tx, tx+16,
-// tx+32, tx+48, so a quarter warp's float4 loads fall on distinct banks
-__device__ __forceinline__ void tile_dot(const float* At, const float* Bs, int ty,
-                                         int tx, float s[4][4]) {
-#pragma unroll 2
-  for (int c = 0; c < C; c += 4) {
-    float a[4][4], b[4][4];
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const float4 t = *reinterpret_cast<const float4*>(&At[(c + cc) * T_STRIDE + ty * 4]);
-      a[cc][0] = t.x; a[cc][1] = t.y; a[cc][2] = t.z; a[cc][3] = t.w;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 t = *reinterpret_cast<const float4*>(&Bs[(tx + 16 * j) * R_STRIDE + c]);
-      b[j][0] = t.x; b[j][1] = t.y; b[j][2] = t.z; b[j][3] = t.w;
-    }
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[cc][i], b[j][cc], s[i][j]);
-  }
-}
-
-// acc[i][j] += sum_kk Pt[kk][ty*4+i] * Bs[kk][tx*8+j], kk over a 64-row tile
-__device__ __forceinline__ void tile_acc(const float* Pt, const float* Bs, int ty,
-                                         int tx, float acc[4][8]) {
-#pragma unroll 4
-  for (int kk = 0; kk < 64; ++kk) {
-    const float4 p = *reinterpret_cast<const float4*>(&Pt[kk * P_STRIDE + ty * 4]);
-    const float4 v0 = *reinterpret_cast<const float4*>(&Bs[kk * R_STRIDE + tx * 8]);
-    const float4 v1 = *reinterpret_cast<const float4*>(&Bs[kk * R_STRIDE + tx * 8 + 4]);
-    const float pv[4] = {p.x, p.y, p.z, p.w};
-    const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-  }
-}
-
-// rows r0 .. r0+63 of a [L][C] window into a transposed [C][T_STRIDE] tile
-__device__ __forceinline__ void load_t(float* dst, const float* src, int r0, int L, int tid) {
-  for (int i = tid; i < 64 * C; i += THREADS) {
-    const int r = i / C, c = i % C;
-    dst[c * T_STRIDE + r] = (r0 + r < L) ? src[(size_t)(r0 + r) * C + c] : 0.f;
-  }
-}
-
-// the same rows into a row-major [64][R_STRIDE] tile
-__device__ __forceinline__ void load_r(float* dst, const float* src, int r0, int L, int tid) {
-  for (int i = tid; i < 64 * C; i += THREADS) {
-    const int r = i / C, c = i % C;
-    dst[r * R_STRIDE + c] = (r0 + r < L) ? src[(size_t)(r0 + r) * C + c] : 0.f;
-  }
-}
-
-// P and dS of one score element from its two recomputed products
-__device__ __forceinline__ void p_ds(float s, float dp, float lse_q, float d_q,
-                                     bool masked, bool valid, float sqrt_c,
-                                     float& p, float& ds) {
-  float sc = s / sqrt_c;
-  if (masked) sc += -100.f;
-  p = valid ? expf(sc - lse_q) : 0.f;
-  ds = p * (dp - d_q) / sqrt_c;
-}
-
-__global__ void __launch_bounds__(THREADS)
-window_attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const int* __restrict__ rid,
-                           const float* __restrict__ out, const float* __restrict__ dout,
-                           const float* __restrict__ lse, float* __restrict__ dsum,
-                           float* __restrict__ dq, int L, int n_rid) {
-  extern __shared__ float smem[];
-  float* qt = smem;                   // [C][T_STRIDE]  Q tile, transposed
-  float* dot = qt + C * T_STRIDE;     // [C][T_STRIDE]  dO tile, transposed
-  float* ks = dot + C * T_STRIDE;     // [64][R_STRIDE] K tile
-  float* vs = ks + 64 * R_STRIDE;     // [64][R_STRIDE] V tile
-  float* dst = vs + 64 * R_STRIDE;    // [64][P_STRIDE] dS, [key][query]
-  float* d_s = dst + 64 * P_STRIDE;   // [64] D of the block's queries
-
-  const int w = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const size_t base = (size_t)w * L * C;
-  const int* rw = rid ? rid + (size_t)(w % n_rid) * L : nullptr;
-  const float sqrt_c = sqrtf((float)C);
-
-  load_t(qt, q + base, q0, L, tid);
-  load_t(dot, dout + base, q0, L, tid);
-  // D_i = dO_i . O_i, 4 threads per query row
-  {
-    const int r = tid / 4, part = tid % 4;
-    float d = 0.f;
-    if (q0 + r < L) {
-      const size_t off = base + (size_t)(q0 + r) * C + part * 32;
-      for (int c = 0; c < 32; ++c) d = fmaf(dout[off + c], out[off + c], d);
-    }
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    d += __shfl_xor_sync(0xffffffffu, d, 2);
-    if (part == 0) {
-      d_s[r] = d;
-      if (q0 + r < L) dsum[(size_t)w * L + q0 + r] = d;
-    }
-  }
-  __syncthreads();
-  float lq[4], dq_row[4];
-  int rq[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    lq[i] = qi < L ? lse[(size_t)w * L + qi] : 0.f;
-    dq_row[i] = d_s[ty * 4 + i];
-    rq[i] = (rw && qi < L) ? rw[qi] : 0;
-  }
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    __syncthreads();   // the previous tile's K, V and dS are no longer read
-    load_r(ks, k + base, k0, L, tid);
-    load_r(vs, v + base, k0, L, tid);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_dot(qt, ks, ty, tx, s);
-    tile_dot(dot, vs, ty, tx, dp);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + tx + 16 * j;
-      const int rk = (rw && key < L) ? rw[key] : 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float p, ds;
-        p_ds(s[i][j], dp[i][j], lq[i], dq_row[i], rw && rk != rq[i],
-             key < L && q0 + ty * 4 + i < L, sqrt_c, p, ds);
-        dst[(tx + 16 * j) * P_STRIDE + ty * 4 + i] = ds;
-      }
-    }
-    __syncthreads();
-    tile_acc(dst, ks, ty, tx, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= L) continue;
-    float* o = dq + base + (size_t)qi * C + tx * 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = acc[i][j];
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-window_attention_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const int* __restrict__ rid,
-                            const float* __restrict__ dout, const float* __restrict__ lse,
-                            const float* __restrict__ dsum, float* __restrict__ dk,
-                            float* __restrict__ dv, int L, int n_rid) {
-  extern __shared__ float smem[];
-  float* kt = smem;                   // [C][T_STRIDE]  K tile, transposed
-  float* vt = kt + C * T_STRIDE;      // [C][T_STRIDE]  V tile, transposed
-  float* qs = vt + C * T_STRIDE;      // [64][R_STRIDE] Q tile
-  float* dos = qs + 64 * R_STRIDE;    // [64][R_STRIDE] dO tile
-  float* pq = dos + 64 * R_STRIDE;    // [64][P_STRIDE] P, [query][key]
-  float* dsq = pq + 64 * P_STRIDE;    // [64][P_STRIDE] dS, [query][key]
-  float* l_s = dsq + 64 * P_STRIDE;   // [64] lse of the tile's queries
-  float* d_s = l_s + 64;              // [64] D of the tile's queries
-
-  const int w = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const size_t base = (size_t)w * L * C;
-  const int* rw = rid ? rid + (size_t)(w % n_rid) * L : nullptr;
-  const float sqrt_c = sqrtf((float)C);
-
-  load_t(kt, k + base, k0, L, tid);
-  load_t(vt, v + base, k0, L, tid);
-  int rk[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    rk[i] = (rw && key < L) ? rw[key] : 0;
-  }
-  float acc_k[4][8], acc_v[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < L; q0 += BQ) {
-    __syncthreads();   // the previous tile's Q, dO, P and dS are no longer read
-    load_r(qs, q + base, q0, L, tid);
-    load_r(dos, dout + base, q0, L, tid);
-    if (tid < 64) {
-      const bool ok = q0 + tid < L;
-      l_s[tid] = ok ? lse[(size_t)w * L + q0 + tid] : 0.f;
-      d_s[tid] = ok ? dsum[(size_t)w * L + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_dot(kt, qs, ty, tx, s);      // S^T: rows are keys, columns queries
-    tile_dot(vt, dos, ty, tx, dp);    // dP^T
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ql = tx + 16 * j, qi = q0 + ql;
-      const int rq = (rw && qi < L) ? rw[qi] : 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float p, ds;
-        p_ds(s[i][j], dp[i][j], l_s[ql], d_s[ql], rw && rq != rk[i],
-             qi < L && k0 + ty * 4 + i < L, sqrt_c, p, ds);
-        pq[ql * P_STRIDE + ty * 4 + i] = p;
-        dsq[ql * P_STRIDE + ty * 4 + i] = ds;
-      }
-    }
-    __syncthreads();
-    tile_acc(pq, dos, ty, tx, acc_v);
-    tile_acc(dsq, qs, ty, tx, acc_k);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    if (key >= L) continue;
-    float* ok = dk + base + (size_t)key * C + tx * 8;
-    float* ov = dv + base + (size_t)key * C + tx * 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      ok[j] = acc_k[i][j];
-      ov[j] = acc_v[i][j];
-    }
-  }
-}
-
-int launch_bwd(const void* q, const void* k, const void* v, const void* rid,
-               const void* out, const void* dout, const void* lse, void* dsum,
-               void* dq, void* dk, void* dv, int BW, int L, int channels, int n_rid,
-               cudaStream_t stream) {
-  if (channels != C || BW <= 0 || L <= 0 || (rid && n_rid <= 0) || !lse || !dsum)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      window_attention_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)BWD_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      window_attention_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)DKV_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + 63) / 64, BW);
-  window_attention_dq_kernel<<<grid, THREADS, BWD_SMEM_BYTES, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(rid),
-      static_cast<const float*>(out), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(dsum), static_cast<float*>(dq),
-      L, n_rid);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  window_attention_dkv_kernel<<<grid, THREADS, DKV_SMEM_BYTES, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(rid),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dsum), static_cast<float*>(dk), static_cast<float*>(dv), L,
-      n_rid);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------- tensor-core helpers (bf16)
 
@@ -1275,14 +827,632 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* rid,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------- f32 on tensor cores (split TF32)
+//
+// Kernel A's f32 forward and Kernel A''s f32 backward. Every product runs as
+// mma.sync m16n8k8 on TF32 operands, split: x = hi + lo with hi = x rounded
+// to TF32 (as cvt.rna) and lo = x - hi, whose low 13 bits the tensor core
+// drops; each f32 product is hi*hi + hi*lo + lo*hi (lo*lo, ~2^-22 of the
+// product, is left out). The tensor core truncates as it accumulates, so
+// products are summed in zeroed tiles (the small products first) and added
+// to the f32 accumulators with f32 adds: per 32-deep group (four k8 steps,
+// twelve MMAs) where the contraction runs over the channels, per streamed
+// tile (32 or 64 rows) where it runs over keys or queries.
+//
+// Operands. Tiles stay f32, row-major in 528-byte rows ([rows][TS]), so 8
+// consecutive rows start on 8 distinct 4-bank groups. Two kinds of product:
+// - contraction over the 128 channels (S = Q K^T, dP = dO V^T, S^T = K Q^T,
+//   dP^T = V dO^T): both operands read along their rows, A and B fragments
+//   by ldmatrix on 32-bit words (a non-transposing ldmatrix of a K-major
+//   f32 tile is a TF32 fragment);
+// - contraction over keys or queries (O += P V, dQ += dS K, dV += P^T dO,
+//   dK += dS^T Q): A is P or dS straight from the accumulators, with the
+//   k-permutation of Kernel C (A slot t <-> column 2t, slot t + 4 <-> column
+//   2t + 1), and the B rows are read in the same permuted order; the n8
+//   tiles 2m and 2m + 1 take the even and odd channels of 16m .. 16m + 15,
+//   so one 8-byte load gives both tiles' B value (8t + 2g spreads a warp's
+//   loads over 32 banks), and each row's results leave as 16-byte stores.
+// Each warp splits the fragments it loads (3 full-rate instructions a
+// value). Splitting the streamed tiles once per block into shared hi and lo
+// copies instead leaves room for one stage of them only, doubles the
+// fragment loads and spills registers: it ran slower.
+//
+// Shapes: 8 warps, each owning 16 rows, so a block owns 128 queries (A,
+// dq) or 128 keys (dkv), kept in shared memory for the whole launch, and
+// streams the other side's tiles through two cp.async stages, zero-filled
+// past L: 64 keys a tile in the forward, 32 rows in the backward (its
+// block holds two 128-row operands). ~198 KB of shared memory, one block
+// per SM. The softmax is online and in base 2 as in the bf16 forward; the
+// backward recomputes P from the logsumexp, and dkv sees query rows past L
+// zero-filled (Q, dO, lse, D), so they add nothing.
+
+constexpr int TS = C + 4;               // [rows][TS] f32 tiles: 528-byte rows
+constexpr int TC_THREADS = 256;         // 8 warps x 16 rows
+constexpr int TC_ROWS = 128;            // the block's own rows
+constexpr int TC_FK = 64;               // forward key tile
+constexpr int TC_BK = 32;               // backward streaming tile
+constexpr size_t TC_FWD_SMEM =
+    sizeof(float) * (TC_ROWS + 4 * TC_FK) * TS + sizeof(int) * 2 * TC_FK;
+constexpr size_t TC_DQ_SMEM =
+    sizeof(float) * (2 * TC_ROWS + 4 * TC_BK) * TS + sizeof(int) * 2 * TC_BK;
+constexpr size_t TC_DKV_SMEM = sizeof(float) * (2 * TC_ROWS + 4 * TC_BK) * TS +
+                               (2 * sizeof(float) + sizeof(int)) * 2 * TC_BK;
+
+// x rounded to TF32, to nearest with ties away from zero: the bits of
+// cvt.rna.tf32.f32 from an integer add and a mask, which run at the full
+// ALU rate (the conversion does not, and splitting is a third of the
+// instructions here)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// d (+)= a * b for one 16x8x8 tile: a 4 regs (16x8 row-major), b 2 regs
+// (8x8 column-major), d 4 f32 (16x8)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// A operand of two k8 steps (16 of the contraction); per step a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+struct APair {
+  uint32_t hi[2][4], lo[2][4];
+  __device__ __forceinline__ void set(int s, const float (&x)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(x[i], hi[s][i], lo[s][i]);
+  }
+};
+
+// t (=, when first, else +=) A B over two k8 steps, small products first;
+// b[s] = {b0 (k = t, n = g), b1 (k = t + 4, n = g)} of step s, raw f32
+__device__ __forceinline__ void mma_group_into(float (&t)[4], const APair& a,
+                                               const float (&b)[2][2], bool first) {
+  uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) split(b[s][r], bh[s][r], bl[s][r]);
+  if (first)
+    mma_tf32_zero(t, a.lo[0], bh[0][0], bh[0][1]);
+  else
+    mma_tf32(t, a.lo[0], bh[0][0], bh[0][1]);
+  mma_tf32(t, a.hi[0], bl[0][0], bl[0][1]);
+  mma_tf32(t, a.lo[1], bh[1][0], bh[1][1]);
+  mma_tf32(t, a.hi[1], bl[1][0], bl[1][1]);
+  mma_tf32(t, a.hi[0], bh[0][0], bh[0][1]);
+  mma_tf32(t, a.hi[1], bh[1][0], bh[1][1]);
+}
+
+// ldmatrix on f32 tiles: each 8x8 b16 matrix is 8 rows of four 32-bit
+// words, lane l getting word l % 4 of row l / 4, a TF32 fragment
+__device__ __forceinline__ void ldsm_x4_f32(uint32_t (&r)[4], const float* p) {
+  ldsm_x4(r, reinterpret_cast<const __nv_bfloat16*>(p));
+}
+
+// acc[j] += rows r0 .. r0+15 of A times rows n0 + 8j .. n0 + 8j + 7 of B,
+// contracted over the C channels (A, B [rows][TS] f32 tiles); each 32-deep
+// group's twelve products go into a zeroed tile, added to acc[j] once
+template <int NT>
+__device__ __forceinline__ void prod_c(float (&acc)[NT][4], const float* A, int r0,
+                                       const float* B, int n0, int lane) {
+#pragma unroll 1
+  for (int c0 = 0; c0 < C; c0 += 32) {
+    APair a[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        uint32_t x[4];
+        ldsm_x4_f32(x, A + (r0 + (lane & 15)) * TS + c0 + 16 * h + 8 * s + 4 * (lane >> 4));
+        const float f[4] = {__uint_as_float(x[0]), __uint_as_float(x[1]),
+                            __uint_as_float(x[2]), __uint_as_float(x[3])};
+        a[h].set(s, f);
+      }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float t[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t x[4];
+        ldsm_x4_f32(x, B + (n0 + 8 * j + (lane & 7)) * TS + c0 + 16 * h + 4 * (lane >> 3));
+        const float b[2][2] = {{__uint_as_float(x[0]), __uint_as_float(x[1])},
+                               {__uint_as_float(x[2]), __uint_as_float(x[3])}};
+        mma_group_into(t, a[h], b, h == 0);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += t[e];
+    }
+  }
+}
+
+// acc += P B, contracted over the 16 NP rows of P's accumulator tiles
+// (p[j]: columns 8j .. 8j + 7) against rows 0 .. 16 NP - 1 of the [rows][TS]
+// tile B; acc[2m + e] holds channels 16m + 2n + e (n the accumulator
+// column). P is split once; per pair of n8 tiles the 6 NP products go
+// into two zeroed tiles, added to acc once.
+template <int NP>
+__device__ __forceinline__ void prod_r(float (&acc)[C / 8][4], const float (&p)[2 * NP][4],
+                                       const float* B, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  APair a[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float (&c)[4] = p[2 * i + s];
+      const float f[4] = {c[0], c[2], c[1], c[3]};
+      a[i].set(s, f);
+    }
+  const float* b0 = B + 2 * t * TS + 2 * g;
+#pragma unroll
+  for (int m = 0; m < C / 16; ++m) {
+    float te[4], to[4];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      float2 x[2][2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          x[s][r] = *reinterpret_cast<const float2*>(b0 + (16 * i + 8 * s + r) * TS + 16 * m);
+      const float be[2][2] = {{x[0][0].x, x[0][1].x}, {x[1][0].x, x[1][1].x}};
+      const float bo[2][2] = {{x[0][0].y, x[0][1].y}, {x[1][0].y, x[1][1].y}};
+      mma_group_into(te, a[i], be, i == 0);
+      mma_group_into(to, a[i], bo, i == 0);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * m][e] += te[e];
+      acc[2 * m + 1][e] += to[e];
+    }
+  }
+}
+
+// prod_r's accumulators of rows r0 + g (h = 0) and r0 + g + 8 (h = 1), times
+// mul[h], to a [L][C] f32 array: one 16-byte store per row and 16 channels
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[C / 8][4], int r0,
+                                           int L, const float (&mul)[2], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row >= L) continue;
+#pragma unroll
+    for (int m = 0; m < C / 16; ++m)
+      *reinterpret_cast<float4*>(dst + (size_t)row * C + 16 * m + 4 * t) =
+          make_float4(acc[2 * m][2 * h] * mul[h], acc[2 * m + 1][2 * h] * mul[h],
+                      acc[2 * m][2 * h + 1] * mul[h], acc[2 * m + 1][2 * h + 1] * mul[h]);
+  }
+}
+
+template <int NC>
+__device__ __forceinline__ void zero(float (&a)[NC][4]) {
+#pragma unroll
+  for (int i = 0; i < NC; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
+}
+
+// n rows from r0 of a [L][C] f32 window into a [n][TS] tile; rows past L zero
+__device__ __forceinline__ void cp_rows_f32(float* dst, const float* src, int r0, int n, int L,
+                                            int tid) {
+  for (int i = tid; i < n * (C / 4); i += TC_THREADS) {
+    const int r = i / (C / 4), c4 = (i % (C / 4)) * 4;
+    const bool ok = r0 + r < L;
+    cp_async16(dst + r * TS + c4, src + (ok ? (size_t)(r0 + r) * C + c4 : 0), ok);
+  }
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+window_attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const int* __restrict__ rid,
+                                 float* __restrict__ out, float* __restrict__ lse, int L,
+                                 int n_rid) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);            // [128][TS] Q
+  float* ks = qs + TC_ROWS * TS;                             // [2][64][TS]
+  float* vs = ks + 2 * TC_FK * TS;                           // [2][64][TS]
+  int* rs = reinterpret_cast<int*>(vs + 2 * TC_FK * TS);     // [2][64] key regions
+
+  const int w = blockIdx.y;
+  const int q0 = blockIdx.x * TC_ROWS;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const size_t base = (size_t)w * L * C;
+  const int* rw = rid ? rid + (size_t)(w % n_rid) * L : nullptr;
+  const int n_tiles = (L + TC_FK - 1) / TC_FK;
+  const float scale = LOG2E / sqrtf((float)C);     // scores in base-2 units
+  const float mask = -100.f * LOG2E;
+
+  auto load_tile = [&](int tile) {
+    const int k0 = tile * TC_FK, st = tile & 1;
+    cp_rows_f32(ks + st * TC_FK * TS, k + base, k0, TC_FK, L, tid);
+    cp_rows_f32(vs + st * TC_FK * TS, v + base, k0, TC_FK, L, tid);
+    if (rw && tid < TC_FK)
+      cp_async4(rs + st * TC_FK + tid, rw + min(k0 + tid, L - 1), k0 + tid < L);
+  };
+  cp_rows_f32(qs, q + base, q0, TC_ROWS, L, tid);
+  cp_async_commit();
+  load_tile(0);
+  cp_async_commit();
+
+  int rq[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + warp * 16 + g + 8 * h;
+    rq[h] = (rw && qi < L) ? rw[qi] : 0;
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[C / 8][4];
+  zero(acc);
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) load_tile(tile + 1);
+    cp_async_commit();
+    cp_async_wait<1>();                 // Q and this tile
+    __syncthreads();
+    const float* kt = ks + (tile & 1) * TC_FK * TS;
+    const float* vt = vs + (tile & 1) * TC_FK * TS;
+    const int* rk = rs + (tile & 1) * TC_FK;
+    const int k0 = tile * TC_FK;
+
+    float s[8][4];
+    zero(s);
+    prod_c<8>(s, qs, warp * 16, kt, 0, lane);
+
+    // scale, then the region mask; keys past L get -inf
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2, kl = j * 8 + 2 * t + (e & 1);
+        float x = -INFINITY;
+        if (k0 + kl < L) x = s[j][e] * scale + ((rw && rk[kl] != rq[h]) ? mask : 0.f);
+        s[j][e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);    // finite: key k0 < L is valid
+      corr[h] = ex2(m[h] - m_new);                // 0 on the first tile
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(s[j][e] - m[e / 2]);
+        s[j][e] = p;
+        l[e / 2] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e / 2];
+
+    prod_r<4>(acc, s, vt, lane);        // O += P V
+    __syncthreads();                    // this stage is free for tile + 2
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.f / l[h];
+  }
+  store_rows(out + base, acc, q0 + warp * 16, L, inv, lane);
+  if (lse && t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = q0 + warp * 16 + g + 8 * h;
+      if (qi < L) lse[(size_t)w * L + qi] = m[h] / LOG2E + logf(l[h]);
+    }
+  }
+}
+
+int launch_fwd_tf32(const void* q, const void* k, const void* v, const void* rid, void* out,
+                    void* lse, int BW, int L, int channels, int n_rid, cudaStream_t stream) {
+  if (channels != C || BW <= 0 || L <= 0 || (rid && n_rid <= 0) ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(window_attention_fwd_tf32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)TC_FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((L + TC_ROWS - 1) / TC_ROWS, BW);
+  window_attention_fwd_tf32_kernel<<<grid, TC_THREADS, TC_FWD_SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(rid), static_cast<float*>(out), static_cast<float*>(lse), L,
+      n_rid);
+  return (int)cudaGetLastError();
+}
+
+// dq: 8 warps x 16 queries; Q and dO stay in shared memory, 32-key tiles of
+// K, V and the key region ids stream. Per tile: S and dP in the
+// accumulators, dS = P o (dP - D) in place, dQ += dS K.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+window_attention_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const int* __restrict__ rid,
+                                const float* __restrict__ out, const float* __restrict__ dout,
+                                const float* __restrict__ lse, float* __restrict__ dsum,
+                                float* __restrict__ dq, int L, int n_rid) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);            // [128][TS] Q
+  float* dos = qs + TC_ROWS * TS;                            // [128][TS] dO
+  float* ks = dos + TC_ROWS * TS;                            // [2][32][TS]
+  float* vs = ks + 2 * TC_BK * TS;                           // [2][32][TS]
+  int* rs = reinterpret_cast<int*>(vs + 2 * TC_BK * TS);     // [2][32] key regions
+
+  const int w = blockIdx.y;
+  const int q0 = blockIdx.x * TC_ROWS;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const size_t base = (size_t)w * L * C;
+  const int* rw = rid ? rid + (size_t)(w % n_rid) * L : nullptr;
+  const int n_tiles = (L + TC_BK - 1) / TC_BK;
+  const float scale = LOG2E / sqrtf((float)C);
+  const float mask = -100.f * LOG2E;
+
+  auto load_tile = [&](int tile) {
+    const int k0 = tile * TC_BK, st = tile & 1;
+    cp_rows_f32(ks + st * TC_BK * TS, k + base, k0, TC_BK, L, tid);
+    cp_rows_f32(vs + st * TC_BK * TS, v + base, k0, TC_BK, L, tid);
+    if (rw && tid < TC_BK)
+      cp_async4(rs + st * TC_BK + tid, rw + min(k0 + tid, L - 1), k0 + tid < L);
+  };
+  cp_rows_f32(qs, q + base, q0, TC_ROWS, L, tid);
+  cp_rows_f32(dos, dout + base, q0, TC_ROWS, L, tid);
+  cp_async_commit();
+  load_tile(0);
+  cp_async_commit();
+
+  // D_i = dO_i . O_i: lanes 2r and 2r+1 take 64 channels each of the warp's
+  // own query row r, with 16-byte loads
+  float d = 0.f;
+  {
+    const int qi = q0 + tid / 2;
+    if (qi < L) {
+      const size_t off = base + (size_t)qi * C + (tid & 1) * 64;
+      const float4* po = reinterpret_cast<const float4*>(out + off);
+      const float4* pd = reinterpret_cast<const float4*>(dout + off);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float4 a = po[i], b = pd[i];
+        d = fmaf(a.x, b.x, d);
+        d = fmaf(a.y, b.y, d);
+        d = fmaf(a.z, b.z, d);
+        d = fmaf(a.w, b.w, d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if ((tid & 1) == 0 && qi < L) dsum[(size_t)w * L + qi] = d;
+  }
+  // this thread's rows: D, lse in base-2 units, region
+  float dr[2], lr[2];
+  int rq[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + warp * 16 + g + 8 * h;
+    dr[h] = __shfl_sync(0xffffffffu, d, 2 * g + 16 * h);
+    lr[h] = qi < L ? lse[(size_t)w * L + qi] * LOG2E : 0.f;
+    rq[h] = (rw && qi < L) ? rw[qi] : 0;
+  }
+  float acc[C / 8][4];
+  zero(acc);
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) load_tile(tile + 1);
+    cp_async_commit();
+    cp_async_wait<1>();                 // Q, dO and this tile
+    __syncthreads();
+    const float* kt = ks + (tile & 1) * TC_BK * TS;
+    const float* vt = vs + (tile & 1) * TC_BK * TS;
+    const int* rk = rs + (tile & 1) * TC_BK;
+    const int k0 = tile * TC_BK;
+
+    float s[4][4], dp[4][4];
+    zero(s);
+    zero(dp);
+    prod_c<4>(s, qs, warp * 16, kt, 0, lane);
+    prod_c<4>(dp, dos, warp * 16, vt, 0, lane);
+
+    // dS = P o (dP - D), P = 2^(S scale + mask - lse); keys past L give 0
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kl = j * 8 + 2 * t;
+      const int2 r2 = rw ? *reinterpret_cast<const int2*>(rk + kl) : make_int2(0, 0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const int rkey = (e & 1) ? r2.y : r2.x;
+        float p = 0.f;
+        if (k0 + kl + (e & 1) < L)
+          p = ex2(s[j][e] * scale + ((rw && rkey != rq[h]) ? mask : 0.f) - lr[h]);
+        s[j][e] = p * (dp[j][e] - dr[h]);
+      }
+    }
+    prod_r<2>(acc, s, kt, lane);        // dQ += dS K
+    __syncthreads();                    // this stage is free for tile + 2
+  }
+
+  const float inv_sqrt_c = 1.f / sqrtf((float)C);
+  const float mul[2] = {inv_sqrt_c, inv_sqrt_c};
+  store_rows(dq + base, acc, q0 + warp * 16, L, mul, lane);
+}
+
+// dkv: 8 warps x 16 keys; K and V stay in shared memory, 32-query tiles of
+// Q, dO and the queries' lse, D and region ids stream. Per tile: S^T and
+// dP^T in the accumulators, P^T and dS^T in place, dV += P^T dO and
+// dK += dS^T Q (128 f32 accumulators a thread).
+__global__ void __launch_bounds__(TC_THREADS, 1)
+window_attention_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const int* __restrict__ rid,
+                                 const float* __restrict__ dout, const float* __restrict__ lse,
+                                 const float* __restrict__ dsum, float* __restrict__ dk,
+                                 float* __restrict__ dv, int L, int n_rid) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);            // [128][TS] K
+  float* vs = ks + TC_ROWS * TS;                             // [128][TS] V
+  float* qs = vs + TC_ROWS * TS;                             // [2][32][TS]
+  float* dos = qs + 2 * TC_BK * TS;                          // [2][32][TS]
+  float* ls = dos + 2 * TC_BK * TS;                          // [2][32] queries' lse
+  float* dss = ls + 2 * TC_BK;                               // [2][32] queries' D
+  int* rs = reinterpret_cast<int*>(dss + 2 * TC_BK);         // [2][32] query regions
+
+  const int w = blockIdx.y;
+  const int k0 = blockIdx.x * TC_ROWS;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const size_t base = (size_t)w * L * C;
+  const int* rw = rid ? rid + (size_t)(w % n_rid) * L : nullptr;
+  const int n_tiles = (L + TC_BK - 1) / TC_BK;
+  const float scale = LOG2E / sqrtf((float)C);
+  const float mask = -100.f * LOG2E;
+
+  auto load_tile = [&](int tile) {
+    const int q0 = tile * TC_BK, st = tile & 1;
+    cp_rows_f32(qs + st * TC_BK * TS, q + base, q0, TC_BK, L, tid);
+    cp_rows_f32(dos + st * TC_BK * TS, dout + base, q0, TC_BK, L, tid);
+    const int r = tid % TC_BK;
+    const bool ok = q0 + r < L;
+    const size_t qi = (size_t)min(q0 + r, L - 1);
+    if (tid < TC_BK)
+      cp_async4(ls + st * TC_BK + r, lse + (size_t)w * L + qi, ok);
+    else if (tid < 2 * TC_BK)
+      cp_async4(dss + st * TC_BK + r, dsum + (size_t)w * L + qi, ok);
+    else if (rw && tid < 3 * TC_BK)
+      cp_async4(rs + st * TC_BK + r, rw + qi, ok);
+  };
+  cp_rows_f32(ks, k + base, k0, TC_ROWS, L, tid);
+  cp_rows_f32(vs, v + base, k0, TC_ROWS, L, tid);
+  cp_async_commit();
+  load_tile(0);
+  cp_async_commit();
+
+  int rk[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + warp * 16 + g + 8 * h;
+    rk[h] = (rw && key < L) ? rw[key] : 0;
+  }
+  float acc_k[C / 8][4], acc_v[C / 8][4];
+  zero(acc_k);
+  zero(acc_v);
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) load_tile(tile + 1);
+    cp_async_commit();
+    cp_async_wait<1>();                 // K, V and this tile
+    __syncthreads();
+    const int st = tile & 1;
+    const float* qt = qs + st * TC_BK * TS;
+    const float* dot = dos + st * TC_BK * TS;
+    const float* lt = ls + st * TC_BK;
+    const float* dt = dss + st * TC_BK;
+    const int* rt = rs + st * TC_BK;
+
+    float s[4][4], dp[4][4];            // S^T and dP^T: the warp's 16 keys x 32 queries
+    zero(s);
+    zero(dp);
+    prod_c<4>(s, ks, warp * 16, qt, 0, lane);
+    prod_c<4>(dp, vs, warp * 16, dot, 0, lane);
+
+    // P^T = 2^(S^T scale + mask - lse) and dS^T = P^T o (dP^T - D), in place
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ql = j * 8 + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + ql);
+      const float2 d2 = *reinterpret_cast<const float2*>(dt + ql);
+      const int2 r2 = rw ? *reinterpret_cast<const int2*>(rt + ql) : make_int2(0, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = ex2(s[j][2 * h] * scale + ((rw && r2.x != rk[h]) ? mask : 0.f) -
+                             l2.x * LOG2E);
+        const float p1 = ex2(s[j][2 * h + 1] * scale + ((rw && r2.y != rk[h]) ? mask : 0.f) -
+                             l2.y * LOG2E);
+        s[j][2 * h] = p0;
+        s[j][2 * h + 1] = p1;
+        dp[j][2 * h] = p0 * (dp[j][2 * h] - d2.x);
+        dp[j][2 * h + 1] = p1 * (dp[j][2 * h + 1] - d2.y);
+      }
+    }
+    prod_r<2>(acc_v, s, dot, lane);     // dV += P^T dO
+    prod_r<2>(acc_k, dp, qt, lane);     // dK += dS^T Q
+    __syncthreads();                    // this stage is free for tile + 2
+  }
+
+  const float inv_sqrt_c = 1.f / sqrtf((float)C);
+  const float mul_k[2] = {inv_sqrt_c, inv_sqrt_c}, mul_v[2] = {1.f, 1.f};
+  store_rows(dk + base, acc_k, k0 + warp * 16, L, mul_k, lane);
+  store_rows(dv + base, acc_v, k0 + warp * 16, L, mul_v, lane);
+}
+
+int launch_bwd_tf32(const void* q, const void* k, const void* v, const void* rid,
+                    const void* out, const void* dout, const void* lse, void* dsum, void* dq,
+                    void* dk, void* dv, int BW, int L, int channels, int n_rid,
+                    cudaStream_t stream) {
+  const uintptr_t addr_bits =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
+      reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+      reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
+  if (channels != C || BW <= 0 || L <= 0 || (rid && n_rid <= 0) || !lse || !dsum ||
+      addr_bits % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(window_attention_dq_tf32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)TC_DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(window_attention_dkv_tf32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TC_DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((L + TC_ROWS - 1) / TC_ROWS, BW);
+  window_attention_dq_tf32_kernel<<<grid, TC_THREADS, TC_DQ_SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(rid), static_cast<const float*>(out),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(dsum), static_cast<float*>(dq), L, n_rid);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  window_attention_dkv_tf32_kernel<<<grid, TC_THREADS, TC_DKV_SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(rid), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dsum), static_cast<float*>(dk),
+      static_cast<float*>(dv), L, n_rid);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // lse may be NULL (the eval forward)
 extern "C" int window_attention_f32(const void* q, const void* k, const void* v,
                                     const void* rid, void* out, void* lse, int BW,
                                     int L, int channels, int n_rid, void* stream) {
-  return launch<float>(q, k, v, rid, out, lse, BW, L, channels, n_rid,
-                       static_cast<cudaStream_t>(stream));
+  return launch_fwd_tf32(q, k, v, rid, out, lse, BW, L, channels, n_rid,
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int window_attention_bf16(const void* q, const void* k, const void* v,
@@ -1298,8 +1468,8 @@ extern "C" int window_attention_bwd_f32(const void* q, const void* k, const void
                                         const void* dout, const void* lse, void* dsum,
                                         void* dq, void* dk, void* dv, int BW, int L,
                                         int channels, int n_rid, void* stream) {
-  return launch_bwd(q, k, v, rid, out, dout, lse, dsum, dq, dk, dv, BW, L, channels, n_rid,
-                    static_cast<cudaStream_t>(stream));
+  return launch_bwd_tf32(q, k, v, rid, out, dout, lse, dsum, dq, dk, dv, BW, L, channels,
+                         n_rid, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int window_attention_bwd_bf16(const void* q, const void* k, const void* v,

@@ -19,8 +19,13 @@ autograd is not recording (eval), and otherwise goes through
 logsumexp, and the backward kernels (`window_attention_backward`)
 recompute the attention from it (dq, dk, dv in the input dtype; two
 launches, no atomics, so the gradients are the same bits from run to run).
-The bf16 kernels run on tensor cores and take only 16-byte-aligned
-tensors: their launchers refuse others, and the wrapper then raises.
+Both types run every product on tensor cores, with f32 accumulation,
+softmax and logsumexp: bf16 on bf16 operands; f32 as split TF32, each f32
+product three TF32 products (hi*hi + hi*lo + lo*hi, hi the operand rounded
+to TF32 and lo the rest), for all of them: Q K^T and P V in the forward,
+S, dP and dS K in the dq kernel, S^T, dP^T, P^T dO and dS^T Q in the dkv
+kernel. The kernels take only 16-byte-aligned tensors: their launchers
+refuse others, and the wrapper then raises.
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ available, as on a CPU-only host. On a GPU machine run them with
 covers the same kernels at the full DTU shapes.
 Tolerances: f32 kernels 1e-5 (summation order only), the bf16 window
 attention 2e-2 (the plain version rounds the normalised P to bf16 before
-P.V, the kernel the unnormalised one), also at the DTU shape [24,1280,128];
+P.V, the kernel the unnormalised one), both also at the DTU shape
+[24,1280,128] (f32 on split-TF32 tensor cores: 1e-5 still holds);
 the forward's logsumexp against torch.logsumexp of the plain masked scores,
 1e-3 for f32 and 2e-2 for bf16 inputs, at L = 160 (a ragged last key tile)
 and L = 1280. The block-union cosine prior (D) runs at small shapes, at the
@@ -34,8 +35,8 @@ Kernel B, the same function by another route).
 The training kernels against autograd through the plain versions: A'
 (window attention backward; f32 1e-4 and bf16 3e-2 of the largest
 gradient, the plain backward rounding dA and A to bf16 where the kernel
-keeps f32; the bf16 backward also at the training shape [24,1280,128], at
-a ragged L = 100 and with fewer region rows than windows, and bit-equal
+keeps f32; both types also at the training shape [24,1280,128], at a
+ragged L = 100 and with fewer region rows than windows, and bit-equal
 from run to run), B' (cosine-prior table gradient, atomics in any order:
 1e-5 of the largest gradient) and D' (f32 block forward 1e-5, and its table
 gradient 1e-5 of the largest, also against B', the same function).
@@ -80,16 +81,17 @@ def test_window_attention_kernel(dev, dtype, tol, shift):
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
 
 
-def test_window_attention_kernel_dtu_shape(dev):
-    """bf16, shift-masked, at the encoder's eval shape (6 streams x 2x2
-    windows of the 64x80 1/8-scale map)."""
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+def test_window_attention_kernel_dtu_shape(dev, dtype, tol):
+    """Shift-masked, at the encoder's eval shape (6 streams x 2x2 windows of
+    the 64x80 1/8-scale map): bf16, and f32 on split-TF32 tensor cores."""
     g = torch.Generator(device=dev).manual_seed(11)
-    q, k, v = (torch.randn(24, 1280, 128, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (torch.randn(24, 1280, 128, generator=g, device=dev).to(dtype)
                for _ in range(3))
     rid = shift_region_ids(64, 80, 2, device=dev)
     got = ka.window_attention(q, k, v, rid)
     ref = ka.window_attention_plain(q, k, v, rid)
-    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 2e-2)])
@@ -373,14 +375,15 @@ def _window_grads(fn, q, k, v, do, rid):
     return out.detach(), qq.grad, kk.grad, vv.grad
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("case", ["dtu_unmasked", "dtu_shift", "ragged_L100_unmasked",
                                   "ragged_L100_shift", "n_rid_3_of_7"])
-def test_window_attention_backward_bf16_cases(dev, case):
-    """The bf16 backward against autograd through the plain version, 3e-2 of
-    the largest gradient: at the training shape [24,1280,128] (2x2 windows
-    of the 64x80 1/8-scale map), at L = 100 (not a multiple of 16: one
-    partial tile of keys and of queries), and with 3 region rows for 7
-    windows (window w takes row w % 3)."""
+def test_window_attention_backward_bf16_cases(dev, case, dtype, tol):
+    """The bf16 and f32 backward against autograd through the plain version,
+    3e-2 (bf16) and 1e-4 (f32) of the largest gradient: at the training
+    shape [24,1280,128] (2x2 windows of the 64x80 1/8-scale map), at L = 100
+    (not a multiple of 16: one partial tile of keys and of queries), and
+    with 3 region rows for 7 windows (window w takes row w % 3)."""
     g = torch.Generator(device=dev).manual_seed(13)
     if case.startswith("dtu"):
         bw, hw = 24, (64, 80)
@@ -394,23 +397,24 @@ def test_window_attention_backward_bf16_cases(dev, case):
         rid = torch.randint(0, 4, (3, L), generator=g, device=dev, dtype=torch.int32)
     elif case.endswith("unmasked"):
         rid = None
-    q, k, v, do = (torch.randn(bw, L, 128, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v, do = (torch.randn(bw, L, 128, generator=g, device=dev).to(dtype)
                    for _ in range(4))
     before = ka.BWD_COUNTER.launches
     got = _window_grads(ka.window_attention, q, k, v, do, rid)
     assert ka.BWD_COUNTER.launches == before + 1
     ref = _window_grads(ka.window_attention_plain, q, k, v, do, rid)
     for a, b in zip(got, ref):
-        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
-        _grad_close(a, b, 3e-2)
+        assert a.dtype == dtype and bool(torch.isfinite(a).all())
+        _grad_close(a, b, tol)
 
 
-def test_window_attention_backward_bf16_deterministic(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_window_attention_backward_bf16_deterministic(dev, dtype):
     """Two launches and no atomics: the same inputs give dq, dk and dv bit
-    for bit."""
+    for bit, bf16 and f32."""
     g = torch.Generator(device=dev).manual_seed(14)
     rid = shift_region_ids(64, 80, 2, device=dev)
-    q, k, v, do = (torch.randn(24, 1280, 128, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v, do = (torch.randn(24, 1280, 128, generator=g, device=dev).to(dtype)
                    for _ in range(4))
     first = _window_grads(ka.window_attention, q, k, v, do, rid)[1:]
     second = _window_grads(ka.window_attention, q, k, v, do, rid)[1:]

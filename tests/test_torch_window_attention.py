@@ -8,7 +8,8 @@ Windows have L = 8 x 16 = 128 tokens and C = 128, so the flash kernel
 engages instead of its L < 128 XLA fallback. Tolerance atol 2e-5, as
 tests/test_pallas_attention.py uses for the flash kernel (online-softmax
 reassociation). The CUDA kernel itself is compared with the plain version
-on the card by chip_smoke.py.
+on the card by chip_smoke.py. The error model of the kernels' f32 route
+(split TF32 on tensor cores) is emulated on the CPU at the end.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -64,3 +65,90 @@ def test_window_attention_rejects_unsupported_devices():
     q = torch.zeros(1, 4, 128, device="meta")
     with pytest.raises(ValueError):
         twa.window_attention(q, q, q)
+
+
+# ---- the error model of Kernel A / A''s f32 route (split TF32), on the CPU
+#
+# The f32 kernels run every product on TF32 tensor cores. A tensor core
+# reads 19 bits of each f32 operand (it drops the low 13). The kernels split
+# each operand x into hi = x rounded to nearest at 19 bits (ties away) and
+# lo = x - hi, which the tensor core truncates, and take hi*hi + hi*lo +
+# lo*hi for each f32 product. Here the same products are emulated in torch
+# (sums in float64, so the tensor core's accumulation is not modelled),
+# through the forward and, by autograd, the backward, and held to the GPU
+# tests' f32 tolerances (1e-5 on the output, 1e-4 of the largest gradient)
+# against float64 attention on the same inputs. A single TF32 product per
+# f32 product misses the forward tolerance: the kernels need all three.
+
+def _tf32_rna(x):
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tc_matmul(a, b, split):
+    """a @ b with f32 operands as the tensor cores read them, in float64."""
+    a, b = a.float(), b.float()
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    out = ah.double() @ bh.double()
+    if split:
+        al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+        out = out + ah.double() @ bl.double() + al.double() @ bh.double()
+    return out
+
+
+class _TcMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, split):
+        ctx.save_for_backward(a, b)
+        ctx.split = split
+        return _tc_matmul(a, b, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return (_tc_matmul(g, b.transpose(-1, -2), ctx.split),
+                _tc_matmul(a.transpose(-1, -2), g, ctx.split), None)
+
+
+def _attention_f64(q, k, v, bias, mm):
+    """float64 attention with the -100 bias after scaling; mm(a, b) is the
+    matrix product."""
+    s = mm(q, k.transpose(-1, -2)) / np.sqrt(q.shape[-1]) + bias
+    return mm(torch.softmax(s, dim=-1), v)
+
+
+def _emulated_errors(shape, hw, split):
+    """Max |d| of the output and the largest gradient error over the largest
+    gradient, emulated products against float64, shift-masked."""
+    bw, L, c = shape
+    rng = np.random.default_rng(L)
+    q, k, v, do = (torch.tensor(rng.standard_normal(shape).astype(np.float32))
+                   for _ in range(4))
+    rid = tattn.shift_region_ids(*hw, 2)
+    rows = rid[torch.arange(bw) % rid.shape[0]]
+    bias = torch.where(rows[:, :, None] != rows[:, None, :], -100.0, 0.0).double()
+    results = []
+    for mm in (torch.matmul, lambda a, b: _TcMatmul.apply(a, b, split)):
+        leaves = [t.double().requires_grad_() for t in (q, k, v)]
+        out = _attention_f64(*leaves, bias, mm)
+        results.append((out.detach(), torch.autograd.grad(out, leaves, do.double())))
+    (ref, ref_grads), (got, grads) = results
+    gmax = max(float(g.abs().max()) for g in ref_grads)
+    return (float((got - ref).abs().max()),
+            max(float((a - b).abs().max()) for a, b in zip(grads, ref_grads)) / gmax)
+
+
+@pytest.mark.parametrize("shape,hw", [((8, 160, 128), (16, 40)), ((2, 1280, 128), (64, 80))])
+def test_split_tf32_holds_the_f32_tolerances(shape, hw):
+    out_err, grad_err = _emulated_errors(shape, hw, split=True)
+    assert out_err <= 1e-5, out_err
+    assert grad_err <= 1e-4, grad_err
+
+
+@pytest.mark.parametrize("shape,hw", [((8, 160, 128), (16, 40)), ((2, 1280, 128), (64, 80))])
+def test_one_tf32_product_misses_the_f32_tolerance(shape, hw):
+    out_err, _ = _emulated_errors(shape, hw, split=False)
+    assert out_err > 1e-5, out_err
