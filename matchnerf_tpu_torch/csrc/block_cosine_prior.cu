@@ -5,69 +5,97 @@
 // Replaces matchnerf_tpu/ops/pallas_block_banded.py::block_banded_cosine_scale
 // (the block-banded Pallas kernel of the eval render) and
 // ::block_banded_cosine_scale_trainable (its custom VJP on f32 tables).
-// Plain version, union build, autograd Function and wrappers:
+// Plain version, autograd Function and wrappers:
 // matchnerf_tpu_torch/ops/block_cosine_prior.py.
 //
 // Output as Kernel B (csrc/cosine_prior.cu): for each sample n and each of
 // the V = 3 views, the bilinear sample (align corners, border clamp) of the
-// view's unpacked int8 table [V,H,W,2C] (C = 128), times the per-(view,
-// channel) dequantisation scale; for each pair (i, j) in (0,1), (0,2), (1,2)
-// the grouped cosine of view i's chunk j-1 against view j's chunk i (eps
-// 1e-8 on each norm), averaged over the pairs. out[n, g], f32.
+// view's unpacked table [V,H,W,2C] (C = 128; int8 with a per-(view,
+// channel) dequantisation scale after the interpolation, bf16 or f32
+// without); for each pair (i, j) in (0,1), (0,2), (1,2) the grouped cosine
+// of view i's chunk j-1 against view j's chunk i (eps 1e-8 on each norm),
+// averaged over the pairs. out[n, g], f32. grids [V,R,S,2] f32; the tail
+// block repeats the last ray (the edge padding of the plain version).
 //
-// Inputs besides the table: grids [V,Rp,S,2] f32 (Rp = 8*NB, the tail rays
-// edge-padded) and unions [V*NB, ut] int32: per (view, 8-ray block) the
-// sorted unique cells y0*W+x0 of the block's samples dilated by
-// {c, c+1, c+W, c+W+1}, -1 padded. The dilation holds every bilinear tap
-// of every sample of the block, border-clamped taps included.
+// What bounds it: instruction issue in the sample loops (three quarters of
+// a block's cycles at the eval buckets; the union build and the staging
+// take the rest: python -m matchnerf_tpu_torch.profile_prior --phases).
+// Kernel B gathers 4 taps x 3 views x 256 channels per sample from L2 and,
+// on int8 tables, converts each one. Adjacent rays of a block cross nearly
+// the same table rows, so one block of 512 threads owns one 8-ray block and
+// works from the block's union of table rows, where a tap element costs a
+// shared-memory load share, a widening and a multiply-add:
 //
-// What bounds it: Kernel B gathers 4 taps x 3 views x 256 channels per
-// sample from L2. Adjacent rays of a block cross nearly the same table
-// rows, so here one block of 512 threads owns one 8-ray block. A prologue
-// finds, once per (sample, view) and one thread each, the union rows of the
-// sample's four bilinear taps by binary search in the sorted union in
-// shared memory (this replaces the TPU kernel's one-hot matmul and sublane
-// rolls) and keeps them as four uint16 rows plus the two f32 fractions.
-// Then, for each pair, the block copies the two 128-channel chunks the pair
-// needs (view i chunk j-1, view j chunk i) of its <= ut union rows into
-// shared memory once (<= 2 x 512 x 128 B = 128 KB, dynamic shared memory;
-// a zero row after them stands for a tap missing from an overflowed union)
-// and gathers the taps from there: table bytes read per block fall from
-// ~3 MB to 768 B x ut. A half warp (16 lanes x 8 channels) owns one sample,
-// as in Kernel B; interpolation and dequantisation are f32 in registers
-// (the TPU kernel rounds its stencil to bf16), the group sums reduce by
-// shuffles, and the per-sample sum over pairs stays in shared memory
-// ([8*S, G] f32) until the block writes [8, S, G] once. The tap
-// coordinates are computed with round-to-nearest intrinsics (no FMA
-// contraction) so they equal the torch ops that built the unions bit for
-// bit.
+// 1. Union, in the kernel (what ops/block_cosine_prior.py::block_union_cells
+//    builds with torch sorts, for the plain version). Per view a bitmap of
+//    the table's H*W cells takes the base cell y0*W + x0 of each of the 8*S
+//    samples; a block-wide scan of the words' popcounts ranks the set bits,
+//    so the first ut of them in ascending order are the capped sorted
+//    unique cells. Those are dilated by {c, c+1, c+W, c+W+1} (below H*W)
+//    into a fresh bitmap, ranked again, and its first ut cells are the
+//    union. A sample's tap is found by its bit and its rank (prefix count
+//    plus the popcount below it in its word): no search. A tap whose cell
+//    is missing or ranks at ut or later (an overflowed union) reads the
+//    zero row ut and adds 0, as in the plain version. The coordinates use
+//    round-to-nearest intrinsics (no FMA contraction), so the cells equal
+//    the plain version's bit for bit. The bitmaps and scan live in the
+//    staging area until the first pass overwrites them. With `unions_out`
+//    (D''s forward) the union is written to [V*NB, ut] int32, -1 padded,
+//    for D''s backward.
+// 2. Staging, once per pair and pass: the CP channels (128, 64 or 32; the
+//    host picks the widest that fits, ops/block_cosine_prior.py::
+//    channels_per_pass) of the pair's two chunks of the <= ut union rows go
+//    to shared memory as 16-bit bf16 (int8 and bf16 tables) or f32 (f32
+//    tables). bf16 and f32 rows arrive by cp.async, 16 bytes a copy; int8
+//    rows pass through registers and are converted there, exactly
+//    (int8_exact.cuh: a byte permute and a subtract, no int-to-float
+//    instruction), once per staged element instead of once per tap (8 rays
+//    x 128 samples x 4 taps against <= ut rows). A bf16 element widens to
+//    f32 with a shift or a mask on the integer pipe.
+// 3. Per sample, eight lanes (CP/8 channels each, in the slots of
+//    pair_cosine8 below, so the 8 lanes of a slot read one 128-byte run of a
+//    staged row: no bank conflicts) interpolate both sides from the staged
+//    rows in f32 (the TPU kernel rounds its stencil to bf16), dequantise
+//    int8 rows by the scale after the interpolation, reduce each cosine
+//    group by shuffles (a group lies inside one pass: G * CP >= 128) and add
+//    its cosine into `out` itself (the same lane owns an output in every
+//    pair and pass; it fetches the pair sum so far one sample ahead).
+//    Eight lanes, not sixteen, pay the per-sample work that every lane
+//    repeats (tap rows, weights, reductions, the norms' reciprocal square
+//    roots) half as often.
+//
+// Shared memory (LayoutFwd), at the eval pose's buckets and S = 128: rows
+// 2 x (ut+1) x CP x 2 B (ut 320, CP 128: 164,352 B; at ut 160 82,432 B),
+// taps [V][8S] uint2 (24,576 B: four 16-bit union rows each), fractions
+// [V][8S] float2 (24,576 B), the union [V][ut] int32 (3,840 B at ut 320):
+// 217,344 B of the 232,448 a block may have at ut 320, one block per SM.
+// Wider unions stage 64 channels a pass. The union scratch needs
+// (2 V ceil(H*W/32) + 32) x 4 B (15,488 B for a 128 x 160 table) and takes
+// the larger of the two in the rows' place.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include <limits.h>
 
+#include "int8_exact.cuh"
+
 namespace {
 
 constexpr int V = 3;
 constexpr int C = 128;          // channels per pair chunk
 constexpr int CC = 2 * C;       // channels per view table row
-constexpr int LANES = C / 8;    // lanes per sample (8 channels each)
+constexpr int LANES = 8;        // forward: lanes per sample (pair_cosine8)
+constexpr int BWD_LANES = 16;   // backward: lanes per sample, CP/16 channels each
 constexpr int THREADS = 512;
-constexpr int GROUPS = THREADS / LANES;   // samples in flight per block
+constexpr int WARPS = THREADS / 32;
+constexpr int GROUPS = THREADS / LANES;           // samples in flight per block
+constexpr int BWD_GROUPS = THREADS / BWD_LANES;
 constexpr int BLOCK_RAYS = 8;
 constexpr int MAX_UT = 512;
 constexpr int MAX_SMEM = 232448;          // 227 KB, the sm_90 per-block limit
 
-__device__ __forceinline__ void load8_i8(const int8_t* p, float* f) {
-  const int2 raw = *reinterpret_cast<const int2*>(p);
-  const int w[2] = {raw.x, raw.y};
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      f[h * 4 + b] = (float)(int8_t)((w[h] >> (8 * b)) & 0xff);
-}
+__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 // index of `key` in the ascending union u[0..ut) (INT_MAX padded), or
 // `ut` (the zero row) when it is missing
@@ -80,196 +108,536 @@ __device__ __forceinline__ int find_row(const int* u, int ut, int key) {
   return (lo < ut && u[lo] == key) ? lo : ut;
 }
 
-// 8 channels (this lane's) of one view's chunk at one sample: taps from the
-// staged rows, weights rebuilt from the fractions as
-// ops/grid_sample.py::grid_sample_2d forms them, then the dequant scale
-__device__ __forceinline__ void interp8(const int8_t* rows, uint2 pos, float2 fr,
-                                        int o, const float* scale, float* f) {
-  const float wx1 = fr.x, wy1 = fr.y;
-  const float wx0 = __fsub_rn(1.f, wx1), wy0 = __fsub_rn(1.f, wy1);
-  const float w00 = __fmul_rn(wy0, wx0), w01 = __fmul_rn(wy0, wx1);
-  const float w10 = __fmul_rn(wy1, wx0), w11 = __fmul_rn(wy1, wx1);
-  float a[8], b[8], c[8], d[8];
-  load8_i8(rows + (pos.x & 0xffff) * C + o, a);
-  load8_i8(rows + (pos.x >> 16) * C + o, b);
-  load8_i8(rows + (pos.y & 0xffff) * C + o, c);
-  load8_i8(rows + (pos.y >> 16) * C + o, d);
-  const float4 s0 = *reinterpret_cast<const float4*>(scale + o);
-  const float4 s1 = *reinterpret_cast<const float4*>(scale + o + 4);
-  const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    f[e] = (a[e] * w00 + b[e] * w01 + c[e] * w10 + d[e] * w11) * sc[e];
+// a sample's pixel coordinates, clip then floor as
+// ops/grid_sample.py::bilinear_taps computes them, rounded step by step
+__device__ __forceinline__ void sample_xy(const float* __restrict__ grids, size_t g, int H,
+                                          int W, float& x, float& y) {
+  x = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(grids[g], 1.f), 0.5f), (float)(W - 1)), 0.f),
+            (float)(W - 1));
+  y = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(grids[g + 1], 1.f), 0.5f), (float)(H - 1)),
+                  0.f), (float)(H - 1));
 }
 
-__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+__device__ __forceinline__ void weights4(float2 fr, float* w) {
+  const float wx1 = fr.x, wy1 = fr.y;
+  const float wx0 = __fsub_rn(1.f, wx1), wy0 = __fsub_rn(1.f, wy1);
+  w[0] = __fmul_rn(wy0, wx0); w[1] = __fmul_rn(wy0, wx1);
+  w[2] = __fmul_rn(wy1, wx0); w[3] = __fmul_rn(wy1, wx1);
+}
 
-struct Layout {           // dynamic shared memory, in bytes from its start
-  size_t rows, taps, fracs, unions, acc, total;
-  __host__ __device__ Layout(int ut, int S, int G) {
-    const size_t samples = (size_t)BLOCK_RAYS * S;
-    rows = 0;                                              // [2][ut+1][C] int8
-    taps = align16(rows + (size_t)2 * (ut + 1) * C);       // [V][8S] uint2
-    fracs = taps + (size_t)V * samples * sizeof(uint2);    // [V][8S] float2
-    unions = fracs + (size_t)V * samples * sizeof(float2); // [V][ut] int
-    acc = align16(unions + (size_t)V * ut * sizeof(int));  // [8S][G] f32
-    total = acc + samples * G * sizeof(float);
+__device__ __forceinline__ int tap_row(uint2 pos, int t) {
+  const unsigned h = t < 2 ? pos.x : pos.y;
+  return (t & 1) ? (int)(h >> 16) : (int)(h & 0xffff);
+}
+
+// The grouped cosine of one pair at one sample, eight lanes a sample.
+//
+// Slot layout: lane l (0-7, the sample's lanes are 8-aligned in the warp)
+// holds NS slots of SW consecutive channels; slot k holds channels
+// k*8*SW + l*SW .. +SW-1 of the CP = 8*NS*SW channels in hand, so the 8
+// lanes of one slot read 8*SW consecutive channels of a row together (one
+// 128-byte run of 16-byte loads, or 64 bytes of 8-byte ones). Groups are
+// C/G consecutive channels (C = 128): a group narrower than a slot row spans
+// gsize/SW lanes of one slot, which reduce by xor shuffles; a wider one
+// spans gsize/(8*SW) slots of every lane, which sum first. The group's first
+// lane and slot own its cosine (slot_group), the same lane and slot at every
+// call. tests/test_torch_block_cosine_prior.py emulates this layout in numpy.
+template <int SW>
+struct SlotGroups {
+  int gsize, spg, lpg;     // channels, slots and lanes per group
+  __device__ __forceinline__ explicit SlotGroups(int G)
+      : gsize(C / G), spg(C / G > 8 * SW ? C / G / (8 * SW) : 1),
+        lpg(C / G > 8 * SW ? 8 : C / G / SW) {}
+  // the group slot k of this lane owns at chunk channel c0, or -1
+  __device__ __forceinline__ int slot_group(int k, int lane, int c0) const {
+    return lane % lpg == 0 && k % spg == 0 ? (c0 + k * 8 * SW + lane * SW) / gsize : -1;
   }
 };
 
-__global__ void __launch_bounds__(THREADS)
-block_cosine_prior_kernel(const int8_t* __restrict__ table,
-                          const float* __restrict__ grids,
-                          const float* __restrict__ scales,
-                          const int* __restrict__ unions,
-                          float* __restrict__ out,
-                          int H, int W, int G, int R, int S, int NB, int ut) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(ut, S, G);
-  int8_t* rows = reinterpret_cast<int8_t*>(smem + L.rows);
-  uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
-  float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
-  int* u_s = reinterpret_cast<int*>(smem + L.unions);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);
-
-  const int blk = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid % LANES;
-  const int grp = tid / LANES;
-  const int o = lane * 8;
-  const int samples = BLOCK_RAYS * S;
-  const int Rp = NB * BLOCK_RAYS;
-  const int lanes_per_group = LANES / G;   // G in {1,2,4,8,16}
-
-  for (int i = tid; i < V * ut; i += THREADS) {
-    const int v = i / ut, r = i % ut;
-    const int c = unions[((size_t)v * NB + blk) * ut + r];
-    u_s[i] = c < 0 ? INT_MAX : c;          // ascending with the padding last
-  }
-  __syncthreads();
-  // prologue: each (view, sample)'s four tap rows and its two fractions,
-  // clip then floor as ops/grid_sample.py::bilinear_taps computes them
-  for (int t = tid; t < V * samples; t += THREADS) {
-    const int v = t / samples, nl = t % samples;
-    const size_t g = (((size_t)v * Rp + blk * BLOCK_RAYS + nl / S) * S + nl % S) * 2;
-    const float x = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(grids[g], 1.f), 0.5f),
-                                          (float)(W - 1)), 0.f), (float)(W - 1));
-    const float y = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(grids[g + 1], 1.f), 0.5f),
-                                          (float)(H - 1)), 0.f), (float)(H - 1));
-    const float x0f = floorf(x), y0f = floorf(y);
-    const int x0 = (int)x0f, y0 = (int)y0f;
-    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
-    const int* u = u_s + v * ut;
-    const int p00 = find_row(u, ut, y0 * W + x0), p01 = find_row(u, ut, y0 * W + x1);
-    const int p10 = find_row(u, ut, y1 * W + x0), p11 = find_row(u, ut, y1 * W + x1);
-    taps[t] = make_uint2((unsigned)p00 | ((unsigned)p01 << 16),
-                         (unsigned)p10 | ((unsigned)p11 << 16));
-    fracs[t] = make_float2(__fsub_rn(x, x0f), __fsub_rn(y, y0f));
-  }
-
-#pragma unroll 1
-  for (int p = 0; p < 3; ++p) {
-    const int vi = p == 2 ? 1 : 0, vj = p == 0 ? 1 : 2;   // (0,1), (0,2), (1,2)
-    const int ca = vj - 1, cb = vi;        // view i's chunk j-1, view j's chunk i
-    __syncthreads();                       // prologue / previous pair done
-    // stage both chunks of the union rows, 16 bytes a thread; row ut is zero
-    for (int i = tid; i < 2 * (ut + 1) * (C / 16); i += THREADS) {
-      const int side = i / ((ut + 1) * (C / 16));
-      const int rem = i % ((ut + 1) * (C / 16));
-      const int r = rem / (C / 16), part = rem % (C / 16);
-      const int v = side ? vj : vi;
-      const int chunk = side ? cb : ca;
-      const int cell = r < ut ? u_s[v * ut + r] : INT_MAX;
-      int4 val = make_int4(0, 0, 0, 0);
-      if (cell != INT_MAX)
-        val = *reinterpret_cast<const int4*>(
-            table + ((size_t)v * H * W + cell) * CC + chunk * C + part * 16);
-      *reinterpret_cast<int4*>(rows + ((size_t)side * (ut + 1) + r) * C + part * 16) = val;
-    }
-    __syncthreads();
-
-    const int8_t* rows_a = rows;
-    const int8_t* rows_b = rows + (size_t)(ut + 1) * C;
-    for (int base = 0; base < samples; base += GROUPS) {
-      const int nl_raw = base + grp;
-      const bool active = nl_raw < samples;
-      const int nl = active ? nl_raw : samples - 1;   // all lanes reach the shuffles
-      float fa[8], fb[8];
-      interp8(rows_a, taps[vi * samples + nl], fracs[vi * samples + nl], o,
-              scales + vi * CC + ca * C, fa);
-      interp8(rows_b, taps[vj * samples + nl], fracs[vj * samples + nl], o,
-              scales + vj * CC + cb * C, fb);
-      float dot = 0.f, na2 = 0.f, nb2 = 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        dot = fmaf(fa[e], fb[e], dot);
-        na2 = fmaf(fa[e], fa[e], na2);
-        nb2 = fmaf(fb[e], fb[e], nb2);
-      }
-      for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        na2 += __shfl_xor_sync(0xffffffffu, na2, off);
-        nb2 += __shfl_xor_sync(0xffffffffu, nb2, off);
-      }
-      const float cosv = dot / (fmaxf(sqrtf(na2), 1e-8f) * fmaxf(sqrtf(nb2), 1e-8f));
-      if (active && lane % lanes_per_group == 0) {
-        float* a = acc + nl * G + lane / lanes_per_group;
-        *a = p == 0 ? cosv : *a + cosv;    // the same thread owns it every pair
-      }
-    }
-  }
-  __syncthreads();
-  const int valid = min(BLOCK_RAYS, R - blk * BLOCK_RAYS) * S * G;
-  float* ob = out + (size_t)blk * BLOCK_RAYS * S * G;
-  for (int i = tid; i < valid; i += THREADS) ob[i] = acc[i] / 3.f;
+// dot / (max(|a|, eps) * max(|b|, eps)), eps = 1e-8, as max(|a|^2, eps^2)
+// under a reciprocal square root each (a few ulp from the plain version's
+// divide, and a fraction of its instructions)
+__device__ __forceinline__ float group_cosine(float dot, float na2, float nb2) {
+  return dot * rsqrtf(fmaxf(na2, 1e-16f)) * rsqrtf(fmaxf(nb2, 1e-16f));
 }
 
-// ------------------------------ D': f32 tables, training; D on bf16 tables
-//
-// The same block, unions and prologue as above, on f32 or bf16 tables
-// [V,H,W,2C] with no dequantisation scale. f32 union rows are 4x the int8
-// bytes: the two 128-channel chunks of 321 rows (ut 320) would take 321 KB,
-// over the 227 KB a block may have. So each pair is staged in passes of CP
-// channels (128, 64 or 32; the host picks the widest that fits, see
-// ops/block_cosine_prior.py::channels_per_pass), fewer channels per pass,
-// the rows unchanged. bf16 union rows (the eval renders of
-// configs/train.yaml, whose cond_sample_dtype defaults to bfloat16) are
-// staged as bf16, half the f32 bytes, so a pass is twice as wide for the
-// same shared memory (CP = 128 up to ut 320 at S = 128, 64 above), and
-// widened to f32 in registers; the forward is the same template. A cosine group must lie inside one pass
-// (G * CP >= 128), so each pass finishes its groups; the sum over pairs
-// accumulates in `out` itself (the same thread owns an output in every
-// pair and pass), which frees the [8S, G] shared accumulator.
-//
-// Backward: per pair and pass the block stages the rows as the forward does
-// plus an f32 gradient row of the same width per union row (d_acc, zeroed),
-// recomputes each sample's interpolation and group sums, forms the
-// grouped-cosine backward (pallas_banded.py::_grouped_cosine_bwd, no
-// gradient through a norm clamped at eps), and adds the gradient times each
-// bilinear weight into the tap's union row with shared-memory atomics: the
-// counterpart of the TPU kernel's per-block d_acc. Each union row then goes
-// to d_table once per block with float4 global atomics, so global atomics
-// fall by the union's reuse factor (8 rays x S samples x 4 taps per view
-// onto <= ut rows). Each (view, chunk) is one side of exactly one pair, so
-// every row and channel is flushed once per block. A tap missing from an
-// overflowed union (the zero row) adds nothing.
+// fa, fb: [NS*SW] this lane's channels of the pair's two sides -> cosv[k],
+// the cosine of the group slot k owns (meaningless where it owns none);
+// every lane of the warp calls it
+template <int NS, int SW>
+__device__ __forceinline__ void pair_cosine8(const float* fa, const float* fb,
+                                             const SlotGroups<SW>& sg, float* cosv) {
+  float d[NS], a[NS], b[NS];
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    d[k] = 0.f; a[k] = 0.f; b[k] = 0.f;
+#pragma unroll
+    for (int e = 0; e < SW; ++e) {
+      const float x = fa[k * SW + e], y = fb[k * SW + e];
+      d[k] = fmaf(x, y, d[k]);
+      a[k] = fmaf(x, x, a[k]);
+      b[k] = fmaf(y, y, b[k]);
+    }
+  }
+#pragma unroll
+  for (int s = 1; s < NS; s <<= 1) {
+    if (s < sg.spg) {
+      float td[NS], ta[NS], tb[NS];
+#pragma unroll
+      for (int k = 0; k < NS; ++k) {
+        td[k] = d[k] + d[k ^ s]; ta[k] = a[k] + a[k ^ s]; tb[k] = b[k] + b[k ^ s];
+      }
+#pragma unroll
+      for (int k = 0; k < NS; ++k) { d[k] = td[k]; a[k] = ta[k]; b[k] = tb[k]; }
+    }
+  }
+  for (int off = sg.lpg / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      d[k] += __shfl_xor_sync(0xffffffffu, d[k], off);
+      a[k] += __shfl_xor_sync(0xffffffffu, a[k], off);
+      b[k] += __shfl_xor_sync(0xffffffffu, b[k], off);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < NS; ++k) cosv[k] = group_cosine(d[k], a[k], b[k]);
+}
 
-struct LayoutPass {       // dynamic shared memory, in bytes from its start
-  size_t rows, dacc, taps, fracs, unions, total;
-  __host__ __device__ LayoutPass(int ut, int S, int CP, bool bwd, int esize) {
+// ------------------------------------------------- D and D''s forward
+struct LayoutFwd {        // dynamic shared memory, in bytes from its start
+  size_t rows, taps, fracs, unions, total;
+  __host__ __device__ LayoutFwd(int ut, int S, int CP, int esize, int HW) {
     const size_t samples = (size_t)BLOCK_RAYS * S;
-    const size_t side = (size_t)(ut + 1) * CP * esize;
-    rows = 0;                                              // [2][ut+1][CP] table type
-    dacc = rows + 2 * side;                                // [2][ut+1][CP] f32 (bwd, f32)
-    taps = dacc + (bwd ? 2 * side : 0);                    // [V][8S] uint2
+    const size_t staged = (size_t)2 * (ut + 1) * CP * esize;   // [2][ut+1][CP]
+    const size_t scratch = ((size_t)2 * V * ((HW + 31) / 32) + 32) * sizeof(int);
+    rows = 0;
+    taps = align16(staged > scratch ? staged : scratch);   // [V][8S] uint2
     fracs = taps + (size_t)V * samples * sizeof(uint2);    // [V][8S] float2
     unions = fracs + (size_t)V * samples * sizeof(float2); // [V][ut] int
     total = unions + (size_t)V * ut * sizeof(int);
   }
 };
 
-// the unions into shared memory (INT_MAX padded) and the prologue: each
-// (view, sample)'s four tap rows and two fractions, as the int8 kernel
+// exclusive prefix sums of popc(bits[i]), i < M, into pre[i]; every thread
+// of the block calls it; it ends synchronised
+__device__ __forceinline__ void scan_popc(const unsigned* bits, int* pre, int M, int* wsum,
+                                          int tid) {
+  const int per = (M + THREADS - 1) / THREADS;
+  const int lo = min(tid * per, M), hi = min(lo + per, M);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += __popc(bits[i]);
+  const int lane = tid & 31, warp = tid >> 5;
+  int x = s;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int y = lane < WARPS ? wsum[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int z = __shfl_up_sync(0xffffffffu, y, off);
+      if (lane >= off) y += z;
+    }
+    if (lane < WARPS) wsum[lane] = y;
+  }
+  __syncthreads();
+  int base = (warp ? wsum[warp - 1] : 0) + x - s;
+  for (int i = lo; i < hi; ++i) {
+    pre[i] = base;
+    base += __popc(bits[i]);
+  }
+  __syncthreads();
+}
+
+// set bits per view, after a scan: min(ut, count) in n[v]; the first ut
+// cells of each view, ascending, into u[v * ut + rank]
+__device__ __forceinline__ void take_first(const unsigned* bits, const int* pre, int nw,
+                                           int ut, int* u, int* n, int tid) {
+  const int M = V * nw;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int end = v + 1 < V ? pre[(v + 1) * nw] : pre[M - 1] + __popc(bits[M - 1]);
+    n[v] = min(ut, end - pre[v * nw]);
+  }
+  for (int i = tid; i < M; i += THREADS) {
+    unsigned word = bits[i];
+    if (!word) continue;
+    const int v = i / nw;
+    int rank = pre[i] - pre[v * nw];
+    const int c0 = (i - v * nw) * 32;
+    while (word && rank < ut) {
+      u[v * ut + rank++] = c0 + __ffs(word) - 1;
+      word &= word - 1;
+    }
+  }
+}
+
+// n[v] with v known only at run time, without a local-memory array
+__device__ __forceinline__ int of_view(const int* n, int v) {
+  return v == 0 ? n[0] : (v == 1 ? n[1] : n[2]);
+}
+
+// the union row of `cell` in view v: its rank among the set bits, or ut
+// (the zero row) when it is not in the first ut
+__device__ __forceinline__ unsigned union_row(const unsigned* bits, const int* pre, int nw,
+                                              int v, int cell, int ut) {
+  const int i = v * nw + (cell >> 5);
+  const unsigned word = bits[i], bit = 1u << (cell & 31);
+  if (!(word & bit)) return ut;
+  const int rank = pre[i] - pre[v * nw] + __popc(word & (bit - 1));
+  return rank < ut ? rank : ut;
+}
+
+// step 1 of the header: the block's union per view into u_s (INT_MAX
+// padded) and, with unions_out, to global memory; each (view, sample)'s four
+// union rows (16 bits each) into taps and its fractions into fracs. Every
+// thread calls it; it ends synchronised.
+__device__ __forceinline__ void build_union(const float* __restrict__ grids,
+                                            int* __restrict__ unions_out, unsigned* bits,
+                                            int* pre, int* wsum, uint2* taps, float2* fracs,
+                                            int* u_s, int H, int W, int R, int S, int ut,
+                                            int blk, int tid) {
+  const int samples = BLOCK_RAYS * S;
+  const int HW = H * W, nw = (HW + 31) / 32, M = V * nw;
+  for (int i = tid; i < M; i += THREADS) bits[i] = 0u;
+  __syncthreads();
+  for (int t = tid; t < V * samples; t += THREADS) {
+    const int v = t / samples, nl = t % samples;
+    const int ray = min(blk * BLOCK_RAYS + nl / S, R - 1);
+    float x, y;
+    sample_xy(grids, (((size_t)v * R + ray) * S + nl % S) * 2, H, W, x, y);
+    const float x0f = floorf(x), y0f = floorf(y);
+    const int cell = (int)y0f * W + (int)x0f;
+    taps[t] = make_uint2((unsigned)cell, 0u);
+    fracs[t] = make_float2(__fsub_rn(x, x0f), __fsub_rn(y, y0f));
+    atomicOr(bits + v * nw + (cell >> 5), 1u << (cell & 31));
+  }
+  __syncthreads();
+  int n[V];
+  scan_popc(bits, pre, M, wsum, tid);
+  take_first(bits, pre, nw, ut, u_s, n, tid);       // the capped base cells
+  __syncthreads();
+  for (int i = tid; i < M; i += THREADS) bits[i] = 0u;
+  __syncthreads();
+  for (int i = tid; i < V * ut; i += THREADS) {
+    const int v = i / ut;
+    if (i - v * ut >= of_view(n, v)) continue;
+    const int c = u_s[i];
+    unsigned* b = bits + v * nw;
+    atomicOr(b + (c >> 5), 1u << (c & 31));
+    if (c + 1 < HW) atomicOr(b + ((c + 1) >> 5), 1u << ((c + 1) & 31));
+    if (c + W < HW) atomicOr(b + ((c + W) >> 5), 1u << ((c + W) & 31));
+    if (c + W + 1 < HW) atomicOr(b + ((c + W + 1) >> 5), 1u << ((c + W + 1) & 31));
+  }
+  __syncthreads();
+  scan_popc(bits, pre, M, wsum, tid);
+  take_first(bits, pre, nw, ut, u_s, n, tid);       // the union
+  for (int i = tid; i < V * ut; i += THREADS)
+    if (i % ut >= of_view(n, i / ut)) u_s[i] = INT_MAX;
+  for (int t = tid; t < V * samples; t += THREADS) {
+    const int v = t / samples, cell = (int)taps[t].x;
+    const int y0 = cell / W, x0 = cell - y0 * W;
+    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
+    taps[t] = make_uint2(union_row(bits, pre, nw, v, cell, ut) |
+                             (union_row(bits, pre, nw, v, y0 * W + x1, ut) << 16),
+                         union_row(bits, pre, nw, v, y1 * W + x0, ut) |
+                             (union_row(bits, pre, nw, v, y1 * W + x1, ut) << 16));
+  }
+  __syncthreads();
+  if (unions_out) {
+    const int NB = gridDim.x;
+    for (int i = tid; i < V * ut; i += THREADS) {
+      const int v = i / ut, c = u_s[i];
+      unions_out[((size_t)v * NB + blk) * ut + i % ut] = c == INT_MAX ? -1 : c;
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// step 2 of the header: CP channels (from channel c0 of the chunk) of both
+// sides' union rows; row ut is zero. TG = TS: cp.async, 16 bytes a copy.
+template <typename TG, typename TS>
+__device__ __forceinline__ void stage_pass(const TG* __restrict__ table, const int* u_s,
+                                           TS* rows, int H, int W, int ut, int CP, int vi,
+                                           int vj, int ca, int cb, int c0, int tid) {
+  constexpr int EL = 16 / sizeof(TG);              // table elements per 16 bytes
+  const int parts = CP / EL;
+  const int per_side = (ut + 1) * parts;
+  if constexpr (sizeof(TG) == sizeof(TS)) {
+    for (int i = tid; i < 2 * per_side; i += THREADS) {
+      const int side = i / per_side, rem = i - side * per_side;
+      const int r = rem / parts, part = rem - r * parts;
+      const int v = side ? vj : vi;
+      const int cell = r < ut ? u_s[v * ut + r] : INT_MAX;
+      const bool valid = cell != INT_MAX;
+      const TG* src = table + ((size_t)v * H * W + (valid ? cell : 0)) * CC +
+                      (side ? cb : ca) * C + c0 + part * EL;
+      cp_async16(rows + ((size_t)side * (ut + 1) + r) * CP + part * EL, src, valid);
+    }
+    cp_async_wait_all();
+  } else {
+    // int8 rows: 16 bytes in, 32 bytes of bf16 out, four loads in flight
+    constexpr int BATCH = 4;
+    for (int i0 = tid; i0 < 2 * per_side; i0 += BATCH * THREADS) {
+      uint4 raw[BATCH];
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k) {
+        const int i = i0 + k * THREADS;
+        raw[k] = make_uint4(0u, 0u, 0u, 0u);
+        if (i >= 2 * per_side) continue;
+        const int side = i / per_side, rem = i - side * per_side;
+        const int r = rem / parts, part = rem - r * parts;
+        const int v = side ? vj : vi;
+        const int cell = r < ut ? u_s[v * ut + r] : INT_MAX;
+        if (cell != INT_MAX)
+          raw[k] = __ldg(reinterpret_cast<const uint4*>(
+              table + ((size_t)v * H * W + cell) * CC + (side ? cb : ca) * C + c0 + part * EL));
+      }
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k) {
+        const int i = i0 + k * THREADS;
+        if (i >= 2 * per_side) continue;
+        const int side = i / per_side, rem = i - side * per_side;
+        const int r = rem / parts, part = rem - r * parts;
+        const uint2 a = int8x4_to_bf16x4(raw[k].x), b = int8x4_to_bf16x4(raw[k].y);
+        const uint2 c = int8x4_to_bf16x4(raw[k].z), d = int8x4_to_bf16x4(raw[k].w);
+        uint4* dst = reinterpret_cast<uint4*>(rows + ((size_t)side * (ut + 1) + r) * CP +
+                                              part * EL);
+        dst[0] = make_uint4(a.x, a.y, b.x, b.y);
+        dst[1] = make_uint4(c.x, c.y, d.x, d.y);
+      }
+    }
+  }
+}
+
+// CPL staged elements as f32: bf16 bits widen by a shift or a mask
+template <int CPL>
+__device__ __forceinline__ void load_row(const uint16_t* p, float* f) {
+  unsigned w[CPL / 2];
+  if constexpr (CPL == 8) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    w[0] = r.x; w[1] = r.y; w[2] = r.z; w[3] = r.w;
+  } else if constexpr (CPL == 4) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    w[0] = r.x; w[1] = r.y;
+  } else {
+    w[0] = *reinterpret_cast<const unsigned*>(p);
+  }
+#pragma unroll
+  for (int h = 0; h < CPL / 2; ++h) {
+    f[2 * h] = __uint_as_float(w[h] << 16);
+    f[2 * h + 1] = __uint_as_float(w[h] & 0xffff0000u);
+  }
+}
+
+template <int CPL>
+__device__ __forceinline__ void load_row(const float* p, float* f) {
+#pragma unroll
+  for (int h = 0; h < CPL; h += 4) {
+    if constexpr (CPL >= 4) {
+      const float4 r = *reinterpret_cast<const float4*>(p + h);
+      f[h] = r.x; f[h + 1] = r.y; f[h + 2] = r.z; f[h + 3] = r.w;
+    } else {
+      const float2 r = *reinterpret_cast<const float2*>(p);
+      f[0] = r.x; f[1] = r.y;
+    }
+  }
+}
+
+// this lane's NS slots of SW channels (pair_cosine8) of one side at one
+// sample, interpolated in f32; the backward's lanes hold one slot of CPL
+// channels
+template <typename TS, int NS, int SW>
+__device__ __forceinline__ void interp_slots(const TS* rows, int CP, uint2 pos, float2 fr,
+                                             int lane, float* f) {
+  float w[4];
+  weights4(fr, w);
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const int off = k * 8 * SW + lane * SW;
+    float a[SW], b[SW], c[SW], d[SW];
+    load_row<SW>(rows + tap_row(pos, 0) * CP + off, a);
+    load_row<SW>(rows + tap_row(pos, 1) * CP + off, b);
+    load_row<SW>(rows + tap_row(pos, 2) * CP + off, c);
+    load_row<SW>(rows + tap_row(pos, 3) * CP + off, d);
+#pragma unroll
+    for (int e = 0; e < SW; ++e)
+      f[k * SW + e] = a[e] * w[0] + b[e] * w[1] + c[e] * w[2] + d[e] * w[3];
+  }
+}
+
+#ifdef KERNEL_D_PHASES
+// Phase timing for matchnerf_tpu_torch/profile_prior.py --phases (built with
+// -DKERNEL_D_PHASES only): thread 0 of every block adds the clock64 cycles
+// since its previous mark to g_phases[k]: 0 the union build, 1 the staging
+// passes (with the wait for the block's slowest warp), 2 its own sample
+// loops; 3 counts the blocks.
+__device__ unsigned long long g_phases[4];
+#define PHASE_START long long phase_t = clock64()
+#define PHASE_MARK(k)                                                        \
+  do {                                                                       \
+    if (threadIdx.x == 0) {                                                  \
+      const long long now = clock64();                                       \
+      atomicAdd(&g_phases[k], (unsigned long long)(now - phase_t));          \
+      phase_t = now;                                                         \
+    }                                                                        \
+  } while (0)
+#else
+#define PHASE_START
+#define PHASE_MARK(k)
+#endif
+
+// TG: the table's element (int8_t, uint16_t for bf16, float); TS: the
+// staged element (uint16_t bf16 bits for int8 and bf16 tables, float)
+template <typename TG, typename TS, int CP>
+__global__ void __launch_bounds__(THREADS)
+block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict__ grids,
+                          const float* __restrict__ scales, int* __restrict__ unions_out,
+                          float* __restrict__ out, int H, int W, int G, int R, int S, int ut) {
+  constexpr int CPL = CP / LANES;                  // channels per lane: 16, 8 or 4
+  constexpr int SW = 16 / (int)sizeof(TS) < CPL ? 16 / (int)sizeof(TS) : CPL;
+  constexpr int NS = CPL / SW;
+  constexpr bool SCALED = sizeof(TG) == 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const LayoutFwd L(ut, S, CP, sizeof(TS), H * W);
+  TS* rows = reinterpret_cast<TS*>(smem + L.rows);
+  uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
+  float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
+  int* u_s = reinterpret_cast<int*>(smem + L.unions);
+  const int nw = (H * W + 31) / 32;
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + L.rows);   // until the first pass
+  int* pre = reinterpret_cast<int*>(bits + V * nw);
+  int* wsum = pre + V * nw;
+
+  const int blk = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % LANES;
+  const int grp = tid / LANES;
+  const int samples = BLOCK_RAYS * S;
+  const int valid = min(BLOCK_RAYS, R - blk * BLOCK_RAYS) * S;
+  const SlotGroups<SW> sg(G);
+  PHASE_START;
+  build_union(grids, unions_out, bits, pre, wsum, taps, fracs, u_s, H, W, R, S, ut, blk, tid);
+  PHASE_MARK(0);
+  float* ob = out + (size_t)blk * BLOCK_RAYS * S * G;
+
+#pragma unroll 1
+  for (int p = 0; p < 3; ++p) {
+    const int vi = p == 2 ? 1 : 0, vj = p == 0 ? 1 : 2;   // (0,1), (0,2), (1,2)
+    const int ca = vj - 1, cb = vi;        // view i's chunk j-1, view j's chunk i
+#pragma unroll 1
+    for (int c0 = 0; c0 < C; c0 += CP) {
+      __syncthreads();                     // the union / the previous pass done
+      stage_pass<TG, TS>(table, u_s, rows, H, W, ut, CP, vi, vj, ca, cb, c0, tid);
+      __syncthreads();
+      PHASE_MARK(1);
+      float sa[CPL], sb[CPL];             // dequantisation scales (int8 tables)
+      if constexpr (SCALED) {
+#pragma unroll
+        for (int k = 0; k < NS; ++k)
+#pragma unroll
+          for (int e = 0; e < SW; ++e) {
+            const int ch = c0 + k * 8 * SW + lane * SW + e;
+            sa[k * SW + e] = scales[vi * CC + ca * C + ch];
+            sb[k * SW + e] = scales[vj * CC + cb * C + ch];
+          }
+      }
+      const TS* rows_a = rows;
+      const TS* rows_b = rows + (size_t)(ut + 1) * CP;
+      // the outputs this lane owns, and their pair sums so far, fetched one
+      // sample ahead so that the load's latency hides behind a sample's work
+      int owned[NS];
+#pragma unroll
+      for (int k = 0; k < NS; ++k) owned[k] = sg.slot_group(k, lane, c0);
+      float sum[NS], next[NS];
+      auto fetch = [&](int nl, float* dst) {
+#pragma unroll
+        for (int k = 0; k < NS; ++k)
+          dst[k] = p > 0 && owned[k] >= 0 && nl < valid ? ob[(size_t)nl * G + owned[k]] : 0.f;
+      };
+      fetch(grp, sum);
+      for (int base = 0; base < samples; base += GROUPS) {
+        const int nl_raw = base + grp;
+        const int nl = nl_raw < samples ? nl_raw : samples - 1;   // all lanes shuffle
+        fetch(nl_raw + GROUPS, next);
+        float fa[CPL], fb[CPL], cosv[NS];
+        interp_slots<TS, NS, SW>(rows_a, CP, taps[vi * samples + nl],
+                                 fracs[vi * samples + nl], lane, fa);
+        interp_slots<TS, NS, SW>(rows_b, CP, taps[vj * samples + nl],
+                                 fracs[vj * samples + nl], lane, fb);
+        if constexpr (SCALED) {
+#pragma unroll
+          for (int e = 0; e < CPL; ++e) {
+            fa[e] *= sa[e];
+            fb[e] *= sb[e];
+          }
+        }
+        pair_cosine8<NS, SW>(fa, fb, sg, cosv);
+#pragma unroll
+        for (int k = 0; k < NS; ++k) {
+          if (owned[k] >= 0 && nl_raw < valid) {
+            const float t = sum[k] + cosv[k];
+            ob[(size_t)nl * G + owned[k]] = p == 2 ? t * (1.f / 3.f) : t;
+          }
+          sum[k] = next[k];
+        }
+      }
+      PHASE_MARK(2);
+    }
+  }
+#ifdef KERNEL_D_PHASES
+  if (tid == 0) atomicAdd(&g_phases[3], 1ull);
+#endif
+}
+
+// ------------------------------------------------------- D''s backward
+//
+// Per pair and pass of CP channels (ops/block_cosine_prior.py::
+// channels_per_pass with backward=True) the block stages the f32 union rows
+// of the union its forward wrote, plus an f32 gradient row of the same
+// width per union row (d_acc, zeroed), recomputes each sample's
+// interpolation and group sums, forms the grouped-cosine backward
+// (pallas_banded.py::_grouped_cosine_bwd, no gradient through a norm
+// clamped at eps), and adds the gradient times each bilinear weight into
+// the tap's union row with shared-memory atomics: the counterpart of the
+// TPU kernel's per-block d_acc. Each union row then goes to d_table once
+// per block with float4 global atomics, so global atomics fall by the
+// union's reuse factor (8 rays x S samples x 4 taps per view onto <= ut
+// rows). Each (view, chunk) is one side of exactly one pair, so every row
+// and channel is flushed once per block. A tap missing from an overflowed
+// union (the zero row) adds nothing. grids here are [V,8*NB,S,2], the tail
+// rays edge-padded.
+
+struct LayoutPass {       // dynamic shared memory, in bytes from its start
+  size_t rows, dacc, taps, fracs, unions, total;
+  __host__ __device__ LayoutPass(int ut, int S, int CP) {
+    const size_t samples = (size_t)BLOCK_RAYS * S;
+    const size_t side = (size_t)(ut + 1) * CP * sizeof(float);
+    rows = 0;                                              // [2][ut+1][CP] f32
+    dacc = rows + 2 * side;                                // [2][ut+1][CP] f32
+    taps = dacc + 2 * side;                                // [V][8S] uint2
+    fracs = taps + (size_t)V * samples * sizeof(uint2);    // [V][8S] float2
+    unions = fracs + (size_t)V * samples * sizeof(float2); // [V][ut] int
+    total = unions + (size_t)V * ut * sizeof(int);
+  }
+};
+
+// the backward's prologue: the unions its forward wrote, into shared memory
+// (INT_MAX padded), and each (view, sample)'s four tap rows, found by binary
+// search, and two fractions
 __device__ __forceinline__ void block_prologue(const float* __restrict__ grids,
                                                const int* __restrict__ unions,
                                                int* u_s, uint2* taps, float2* fracs,
@@ -286,10 +654,8 @@ __device__ __forceinline__ void block_prologue(const float* __restrict__ grids,
   for (int t = tid; t < V * samples; t += THREADS) {
     const int v = t / samples, nl = t % samples;
     const size_t g = (((size_t)v * Rp + blk * BLOCK_RAYS + nl / S) * S + nl % S) * 2;
-    const float x = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(grids[g], 1.f), 0.5f),
-                                          (float)(W - 1)), 0.f), (float)(W - 1));
-    const float y = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(grids[g + 1], 1.f), 0.5f),
-                                          (float)(H - 1)), 0.f), (float)(H - 1));
+    float x, y;
+    sample_xy(grids, g, H, W, x, y);
     const float x0f = floorf(x), y0f = floorf(y);
     const int x0 = (int)x0f, y0 = (int)y0f;
     const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
@@ -302,15 +668,13 @@ __device__ __forceinline__ void block_prologue(const float* __restrict__ grids,
   }
 }
 
-// stage CP channels (from channel c0 of the chunk) of both sides' union rows,
-// 16 bytes a thread; row ut is zero. With `dacc` (f32 tables), zero the
-// gradient rows too.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ table, const int* u_s,
-                                           T* rows, float* dacc, int H, int W, int ut,
+// stage CP channels (from channel c0 of the chunk) of both sides' f32 union
+// rows, 16 bytes a thread; row ut is zero; zero the gradient rows too
+__device__ __forceinline__ void stage_rows(const float* __restrict__ table, const int* u_s,
+                                           float* rows, float* dacc, int H, int W, int ut,
                                            int CP, int vi, int vj, int ca, int cb, int c0,
                                            int tid) {
-  constexpr int EL = 16 / sizeof(T);           // elements per 16 bytes
+  constexpr int EL = 4;                        // elements per 16 bytes
   const int per_side = (ut + 1) * (CP / EL);
   for (int i = tid; i < 2 * per_side; i += THREADS) {
     const int side = i / per_side, rem = i % per_side;
@@ -324,109 +688,7 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ table, const in
           table + ((size_t)v * H * W + cell) * CC + chunk * C + c0 + part * EL);
     const size_t off = ((size_t)side * (ut + 1) + r) * CP + part * EL;
     *reinterpret_cast<uint4*>(rows + off) = val;
-    if (dacc) *reinterpret_cast<float4*>(dacc + off) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// one staged element as f32: bf16 is stored as its 16 bits (uint16_t), the
-// f32 with the same upper half, so widening is exact
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(uint16_t x) {
-  return __uint_as_float((unsigned int)x << 16);
-}
-
-__device__ __forceinline__ void weights4(float2 fr, float* w) {
-  const float wx1 = fr.x, wy1 = fr.y;
-  const float wx0 = __fsub_rn(1.f, wx1), wy0 = __fsub_rn(1.f, wy1);
-  w[0] = __fmul_rn(wy0, wx0); w[1] = __fmul_rn(wy0, wx1);
-  w[2] = __fmul_rn(wy1, wx0); w[3] = __fmul_rn(wy1, wx1);
-}
-
-__device__ __forceinline__ int tap_row(uint2 pos, int t) {
-  const unsigned h = t < 2 ? pos.x : pos.y;
-  return (t & 1) ? (int)(h >> 16) : (int)(h & 0xffff);
-}
-
-// CPL channels (this lane's, from o) of one side at one sample, in f32
-template <typename T, int CPL>
-__device__ __forceinline__ void interp_rows(const T* rows, int CP, uint2 pos, float2 fr,
-                                            int o, float* f) {
-  float w[4];
-  weights4(fr, w);
-  const T* a = rows + tap_row(pos, 0) * CP + o;
-  const T* b = rows + tap_row(pos, 1) * CP + o;
-  const T* c = rows + tap_row(pos, 2) * CP + o;
-  const T* d = rows + tap_row(pos, 3) * CP + o;
-#pragma unroll
-  for (int e = 0; e < CPL; ++e)
-    f[e] = widen(a[e]) * w[0] + widen(b[e]) * w[1] + widen(c[e]) * w[2] + widen(d[e]) * w[3];
-}
-
-template <typename T, int CPL>
-__global__ void __launch_bounds__(THREADS)
-block_cosine_prior_pass_kernel(const T* __restrict__ table,
-                               const float* __restrict__ grids,
-                               const int* __restrict__ unions, float* __restrict__ out,
-                               int H, int W, int G, int R, int S, int NB, int ut) {
-  constexpr int CP = CPL * LANES;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const LayoutPass L(ut, S, CP, false, sizeof(T));
-  T* rows = reinterpret_cast<T*>(smem + L.rows);
-  uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
-  float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
-  int* u_s = reinterpret_cast<int*>(smem + L.unions);
-
-  const int blk = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid % LANES;
-  const int grp = tid / LANES;
-  const int o = lane * CPL;
-  const int samples = BLOCK_RAYS * S;
-  const int valid = min(BLOCK_RAYS, R - blk * BLOCK_RAYS) * S;
-  const int gsize = C / G;                     // channels per group
-  const int lanes_per_group = gsize / CPL;     // <= LANES: G * CP >= C
-  block_prologue(grids, unions, u_s, taps, fracs, H, W, S, NB, ut, blk, tid);
-  float* ob = out + (size_t)blk * BLOCK_RAYS * S * G;
-
-#pragma unroll 1
-  for (int p = 0; p < 3; ++p) {
-    const int vi = p == 2 ? 1 : 0, vj = p == 0 ? 1 : 2;
-    const int ca = vj - 1, cb = vi;
-#pragma unroll 1
-    for (int c0 = 0; c0 < C; c0 += CP) {
-      __syncthreads();                     // prologue / previous pass done
-      stage_rows<T>(table, u_s, rows, nullptr, H, W, ut, CP, vi, vj, ca, cb, c0, tid);
-      __syncthreads();
-      const T* rows_a = rows;
-      const T* rows_b = rows + (size_t)(ut + 1) * CP;
-      const int group = (c0 + o) / gsize;
-      for (int base = 0; base < samples; base += GROUPS) {
-        const int nl_raw = base + grp;
-        const int nl = nl_raw < samples ? nl_raw : samples - 1;
-        float fa[CPL], fb[CPL];
-        interp_rows<T, CPL>(rows_a, CP, taps[vi * samples + nl], fracs[vi * samples + nl], o,
-                            fa);
-        interp_rows<T, CPL>(rows_b, CP, taps[vj * samples + nl], fracs[vj * samples + nl], o,
-                            fb);
-        float dot = 0.f, na2 = 0.f, nb2 = 0.f;
-#pragma unroll
-        for (int e = 0; e < CPL; ++e) {
-          dot = fmaf(fa[e], fb[e], dot);
-          na2 = fmaf(fa[e], fa[e], na2);
-          nb2 = fmaf(fb[e], fb[e], nb2);
-        }
-        for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-          na2 += __shfl_xor_sync(0xffffffffu, na2, off);
-          nb2 += __shfl_xor_sync(0xffffffffu, nb2, off);
-        }
-        const float cosv = dot / (fmaxf(sqrtf(na2), 1e-8f) * fmaxf(sqrtf(nb2), 1e-8f));
-        if (nl_raw < valid && lane % lanes_per_group == 0) {
-          float* a = ob + (size_t)nl * G + group;
-          *a = p == 0 ? cosv : (p == 1 ? *a + cosv : (*a + cosv) / 3.f);
-        }
-      }
-    }
+    *reinterpret_cast<float4*>(dacc + off) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -437,9 +699,9 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
                               const int* __restrict__ unions, const float* __restrict__ gout,
                               float* __restrict__ d_table, int H, int W, int G, int R,
                               int S, int NB, int ut) {
-  constexpr int CP = CPL * LANES;
+  constexpr int CP = CPL * BWD_LANES;
   extern __shared__ __align__(16) unsigned char smem[];
-  const LayoutPass L(ut, S, CP, true, sizeof(float));
+  const LayoutPass L(ut, S, CP);
   float* rows = reinterpret_cast<float*>(smem + L.rows);
   float* dacc = reinterpret_cast<float*>(smem + L.dacc);
   uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
@@ -448,8 +710,8 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
 
   const int blk = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid % LANES;
-  const int grp = tid / LANES;
+  const int lane = tid % BWD_LANES;
+  const int grp = tid / BWD_LANES;
   const int o = lane * CPL;
   const int samples = BLOCK_RAYS * S;
   const int valid = min(BLOCK_RAYS, R - blk * BLOCK_RAYS) * S;
@@ -466,22 +728,22 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
 #pragma unroll 1
     for (int c0 = 0; c0 < C; c0 += CP) {
       __syncthreads();                     // prologue / previous flush done
-      stage_rows<float>(table, u_s, rows, dacc, H, W, ut, CP, vi, vj, ca, cb, c0, tid);
+      stage_rows(table, u_s, rows, dacc, H, W, ut, CP, vi, vj, ca, cb, c0, tid);
       __syncthreads();
       const float* rows_a = rows;
       const float* rows_b = rows + (size_t)(ut + 1) * CP;
       float* dacc_a = dacc;
       float* dacc_b = dacc + (size_t)(ut + 1) * CP;
       const int group = (c0 + o) / gsize;
-      for (int base = 0; base < samples; base += GROUPS) {
+      for (int base = 0; base < samples; base += BWD_GROUPS) {
         const int nl_raw = base + grp;
         const bool active = nl_raw < valid;  // padded rays carry no cotangent
         const int nl = nl_raw < samples ? nl_raw : samples - 1;
         const uint2 ta = taps[vi * samples + nl], tb = taps[vj * samples + nl];
         const float2 fra = fracs[vi * samples + nl], frb = fracs[vj * samples + nl];
         float fa[CPL], fb[CPL];
-        interp_rows<float, CPL>(rows_a, CP, ta, fra, o, fa);
-        interp_rows<float, CPL>(rows_b, CP, tb, frb, o, fb);
+        interp_slots<float, 1, CPL>(rows_a, CP, ta, fra, lane, fa);
+        interp_slots<float, 1, CPL>(rows_b, CP, tb, frb, lane, fb);
         float dot = 0.f, na2 = 0.f, nb2 = 0.f;
 #pragma unroll
         for (int e = 0; e < CPL; ++e) {
@@ -540,109 +802,122 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
   }
 }
 
-bool pass_args_ok(int views, int channels, int H, int W, int R, int S, int NB, int ut,
-                  int G, int CP) {
-  return views == V && channels == C && H > 0 && W > 0 && R > 0 && S > 0 &&
-         NB * BLOCK_RAYS >= R && ut > 0 && ut <= MAX_UT &&
-         (G == 1 || G == 2 || G == 4 || G == 8 || G == 16) &&
-         (CP == 32 || CP == 64 || CP == 128) && G * CP >= C && G * CP <= C * LANES;
-}
 
-template <typename T, int CPL>
-int launch_pass(bool bwd, const void* table, const void* grids, const void* unions,
-                const void* gout, void* out, int H, int W, int G, int R, int S, int NB,
-                int ut, cudaStream_t stream) {
-  const LayoutPass L(ut, S, CPL * LANES, bwd, sizeof(T));
-  if (L.total > (size_t)MAX_SMEM || (bwd && sizeof(T) != sizeof(float)))
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (R + BLOCK_RAYS - 1) / BLOCK_RAYS;
-  cudaError_t err;
-  if (bwd) {
-    err = cudaFuncSetAttribute(block_cosine_prior_bwd_kernel<CPL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-    if (err != cudaSuccess) return (int)err;
-    block_cosine_prior_bwd_kernel<CPL><<<blocks, THREADS, L.total, stream>>>(
-        static_cast<const float*>(table), static_cast<const float*>(grids),
-        static_cast<const int*>(unions), static_cast<const float*>(gout),
-        static_cast<float*>(out), H, W, G, R, S, NB, ut);
-  } else {
-    err = cudaFuncSetAttribute(block_cosine_prior_pass_kernel<T, CPL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-    if (err != cudaSuccess) return (int)err;
-    block_cosine_prior_pass_kernel<T, CPL><<<blocks, THREADS, L.total, stream>>>(
-        static_cast<const T*>(table), static_cast<const float*>(grids),
-        static_cast<const int*>(unions), static_cast<float*>(out), H, W, G, R, S, NB, ut);
-  }
+template <int CPL>
+int launch_bwd(const void* table, const void* grids, const void* unions, const void* g,
+               void* d_table, int H, int W, int G, int R, int S, int NB, int ut,
+               cudaStream_t stream) {
+  const LayoutPass L(ut, S, CPL * BWD_LANES);
+  if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      block_cosine_prior_bwd_kernel<CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  block_cosine_prior_bwd_kernel<CPL><<<(R + BLOCK_RAYS - 1) / BLOCK_RAYS, THREADS, L.total,
+                                       stream>>>(
+      static_cast<const float*>(table), static_cast<const float*>(grids),
+      static_cast<const int*>(unions), static_cast<const float*>(g),
+      static_cast<float*>(d_table), H, W, G, R, S, NB, ut);
   return (int)cudaGetLastError();
 }
 
-// T = float (f32 tables, forward or backward) or uint16_t (bf16 tables,
-// forward only)
-template <typename T>
-int dispatch_pass(bool bwd, const void* table, const void* grids, const void* unions,
-                  const void* gout, void* out, int views, int H, int W, int channels, int G,
-                  int R, int S, int NB, int ut, int CP, void* stream) {
-  if (!pass_args_ok(views, channels, H, W, R, S, NB, ut, G, CP))
+bool args_ok(int views, int channels, int H, int W, int R, int S, int ut, int G, int CP) {
+  return views == V && channels == C && H > 0 && W > 0 && R > 0 && S > 0 && ut > 0 &&
+         ut <= MAX_UT && (G == 1 || G == 2 || G == 4 || G == 8 || G == 16) &&
+         (CP == 32 || CP == 64 || CP == 128) && G * CP >= C && G * CP <= C * BWD_LANES;
+}
+
+template <typename TG, typename TS, int CP>
+int launch_fwd(const void* table, const void* grids, const void* scales, void* unions_out,
+               void* out, int H, int W, int G, int R, int S, int ut, cudaStream_t stream) {
+  const LayoutFwd L(ut, S, CP, sizeof(TS), H * W);
+  if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  auto kernel = block_cosine_prior_kernel<TG, TS, CP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(R + BLOCK_RAYS - 1) / BLOCK_RAYS, THREADS, L.total, stream>>>(
+      static_cast<const TG*>(table), static_cast<const float*>(grids),
+      static_cast<const float*>(scales), static_cast<int*>(unions_out),
+      static_cast<float*>(out), H, W, G, R, S, ut);
+  return (int)cudaGetLastError();
+}
+
+// TG: the table's element type, TS: the staged one; scales only with int8
+template <typename TG, typename TS>
+int dispatch_fwd(const void* table, const void* grids, const void* scales, void* unions_out,
+                 void* out, int views, int H, int W, int channels, int G, int R, int S,
+                 int ut, int CP, void* stream) {
+  if (!args_ok(views, channels, H, W, R, S, ut, G, CP) ||
+      (sizeof(TG) == 1) != (scales != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (CP == 128)
-    return launch_pass<T, 8>(bwd, table, grids, unions, gout, out, H, W, G, R, S, NB, ut, st);
+    return launch_fwd<TG, TS, 128>(table, grids, scales, unions_out, out, H, W, G, R, S, ut,
+                                   st);
   if (CP == 64)
-    return launch_pass<T, 4>(bwd, table, grids, unions, gout, out, H, W, G, R, S, NB, ut, st);
-  return launch_pass<T, 2>(bwd, table, grids, unions, gout, out, H, W, G, R, S, NB, ut, st);
+    return launch_fwd<TG, TS, 64>(table, grids, scales, unions_out, out, H, W, G, R, S, ut,
+                                  st);
+  return launch_fwd<TG, TS, 32>(table, grids, scales, unions_out, out, H, W, G, R, S, ut, st);
 }
 
 }  // namespace
 
-// D' forward: out [R,S,G] f32; CP channels staged per pass
-extern "C" int block_cosine_prior_f32(const void* table, const void* grids,
-                                      const void* unions, void* out, int views, int H,
-                                      int W, int channels, int G, int R, int S, int NB,
-                                      int ut, int CP, void* stream) {
-  return dispatch_pass<float>(false, table, grids, unions, nullptr, out, views, H, W,
-                              channels, G, R, S, NB, ut, CP, stream);
+// The forward entries: table [V,H,W,2C], grids [V,R,S,2] f32, scales [V,2C]
+// f32 (int8 tables) or NULL, unions_out [V*ceil(R/8), ut] int32 or NULL,
+// out [R,S,G] f32; CP channels staged per pass.
+
+// Kernel D on int8 tables (configs/test.yaml's eval render)
+extern "C" int block_cosine_prior_i8(const void* table, const void* grids, const void* scales,
+                                     void* unions_out, void* out, int views, int H, int W,
+                                     int channels, int G, int R, int S, int ut, int CP,
+                                     void* stream) {
+  return dispatch_fwd<int8_t, uint16_t>(table, grids, scales, unions_out, out, views, H, W,
+                                        channels, G, R, S, ut, CP, stream);
 }
 
-// D on bf16 tables (no scales), forward only: out [R,S,G] f32; CP channels
-// staged per pass
+// Kernel D on bf16 tables (the eval renders of configs/train.yaml)
 extern "C" int block_cosine_prior_bf16(const void* table, const void* grids,
-                                       const void* unions, void* out, int views, int H,
-                                       int W, int channels, int G, int R, int S, int NB,
-                                       int ut, int CP, void* stream) {
-  return dispatch_pass<uint16_t>(false, table, grids, unions, nullptr, out, views, H, W,
-                                 channels, G, R, S, NB, ut, CP, stream);
+                                       const void* scales, void* unions_out, void* out,
+                                       int views, int H, int W, int channels, int G, int R,
+                                       int S, int ut, int CP, void* stream) {
+  return dispatch_fwd<uint16_t, uint16_t>(table, grids, scales, unions_out, out, views, H, W,
+                                          channels, G, R, S, ut, CP, stream);
 }
 
-// D' backward: g [R,S,G] f32 cotangent; d_table [V,H,W,2C] f32, zeroed by the caller
+// D''s forward on f32 tables, with the union for its backward
+extern "C" int block_cosine_prior_f32(const void* table, const void* grids,
+                                      const void* scales, void* unions_out, void* out,
+                                      int views, int H, int W, int channels, int G, int R,
+                                      int S, int ut, int CP, void* stream) {
+  return dispatch_fwd<float, float>(table, grids, scales, unions_out, out, views, H, W,
+                                    channels, G, R, S, ut, CP, stream);
+}
+
+#ifdef KERNEL_D_PHASES
+// Copies the 4 phase counters to dst (host memory) and zeroes them.
+extern "C" int block_cosine_prior_phases(void* dst) {
+  cudaError_t err = cudaMemcpyFromSymbol(dst, g_phases, sizeof(g_phases));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zeros[4] = {};
+  return (int)cudaMemcpyToSymbol(g_phases, zeros, sizeof(g_phases));
+}
+#endif
+
+// D''s backward: grids [V,8*NB,S,2] (edge-padded), the forward's unions
+// [V*NB, ut], g [R,S,G] f32 cotangent; d_table [V,H,W,2C] f32, zeroed by
+// the caller
 extern "C" int block_cosine_prior_bwd_f32(const void* table, const void* grids,
                                           const void* unions, const void* g, void* d_table,
                                           int views, int H, int W, int channels, int G,
                                           int R, int S, int NB, int ut, int CP,
                                           void* stream) {
-  return dispatch_pass<float>(true, table, grids, unions, g, d_table, views, H, W,
-                              channels, G, R, S, NB, ut, CP, stream);
-}
-
-extern "C" int block_cosine_prior_i8(const void* table, const void* grids,
-                                     const void* scales, const void* unions,
-                                     void* out, int views, int H, int W,
-                                     int channels, int G, int R, int S, int NB,
-                                     int ut, void* stream) {
-  if (views != V || channels != C || H <= 0 || W <= 0 || R <= 0 || S <= 0 ||
-      NB * BLOCK_RAYS < R || ut <= 0 || ut > MAX_UT ||
-      !(G == 1 || G == 2 || G == 4 || G == 8 || G == 16))
+  if (!args_ok(views, channels, H, W, R, S, ut, G, CP) || NB * BLOCK_RAYS < R)
     return (int)cudaErrorInvalidValue;
-  const Layout L(ut, S, G);
-  if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      block_cosine_prior_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (R + BLOCK_RAYS - 1) / BLOCK_RAYS;
-  block_cosine_prior_kernel<<<blocks, THREADS, L.total,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(table), static_cast<const float*>(grids),
-      static_cast<const float*>(scales), static_cast<const int*>(unions),
-      static_cast<float*>(out), H, W, G, R, S, NB, ut);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (CP == 128)
+    return launch_bwd<8>(table, grids, unions, g, d_table, H, W, G, R, S, NB, ut, st);
+  if (CP == 64)
+    return launch_bwd<4>(table, grids, unions, g, d_table, H, W, G, R, S, NB, ut, st);
+  return launch_bwd<2>(table, grids, unions, g, d_table, H, W, G, R, S, NB, ut, st);
 }

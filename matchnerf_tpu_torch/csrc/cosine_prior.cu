@@ -9,64 +9,146 @@
 //
 // For each sample n and each of the V = 3 views: bilinear sample (align
 // corners, border clamp) of the view's unpacked table [V,H,W,2C] (C = 128,
-// int8, bf16 or f32; bf16 and f32 forward take ones for the scales) at
-// grids[v, n], times the per-(view, channel) dequantisation scale; then for each pair (i, j) in (0,1), (0,2), (1,2) the grouped cosine
-// of view i's chunk j-1 against view j's chunk i (eps 1e-8 on each norm),
-// averaged over the pairs. out[n, g], f32.
+// int8, bf16 or f32) at grids[v, n], times the per-(view, channel)
+// dequantisation scale where scales are given (int8 tables; NULL for bf16
+// and f32); then for each pair (i, j) in (0,1), (0,2), (1,2) the grouped
+// cosine of view i's chunk j-1 against view j's chunk i (eps 1e-8 on each
+// norm), averaged over the pairs. out[n, g], f32.
 //
-// What bounds it: gathers. Each sample reads 4 taps x 3 views x 256 channels
-// (3 KB with int8 tables, 6 KB with bf16, 12 KB with f32) for ~10 K flops,
-// so it is bound by bytes moved through L2, not by arithmetic. Design: no
-// dedup, no host buckets. Half a warp (16 lanes) owns one sample, each
-// lane 8 channels of both chunks of every view, so a tap row of 256 int8
-// channels is read as 16 lanes x 8 bytes per chunk (16 bytes in bf16),
-// coalesced. Both DTU tables (3.9 MB and
-// 15.7 MB in int8 for 3 views) fit in the 50 MB L2 together, and the
-// neighbouring samples of a ray hit neighbouring cells, so most tap reads
-// are L2 hits. Interpolation and dequantisation are f32 in registers; the
-// per-group dot products and norms reduce with shuffles inside the group's
-// lanes. Only [N, G] f32 is written.
+// What bounds it: instruction issue. Each sample reads 4 taps x 3 views x
+// 256 channels (3 KB with int8 tables, 6 KB with bf16, 12 KB with f32) for
+// ~10 K flops; both DTU tables (3.9 MB and 15.7 MB in int8 for 3 views) fit
+// in the 50 MB L2 and neighbouring samples of a ray hit neighbouring cells,
+// so the taps come from L1 and L2, and the SMs' issue slots run out first:
+// per tap element a widening and a multiply-add (an int-to-float
+// conversion of int8 cost about two issue slots), and per sample and lane
+// the three views' coordinates, weights and row addresses, the loads and
+// the group reductions. Design: on int8 and bf16 rows eight lanes own one
+// sample, each 16 consecutive channels of every (view, chunk), so the
+// per-sample work that every lane repeats is paid 8 times, not 16 (f32 rows
+// keep 16 lanes of 8 channels); a lane reads its channels of a tap row as
+// one 16-byte load (int8), two (bf16, f32), the sample's lanes one
+// contiguous run. int8 taps are converted on the integer pipe, exactly
+// (int8_exact.cuh: a byte permute and a subtract, no int-to-float
+// instruction); bf16 widen by a shift or a mask. Each (view, chunk) enters
+// exactly one pair, so a pair's two sides are interpolated (f32 weights and
+// sums, as the plain version), dequantised, reduced and dropped before the
+// next pair; the pair sum stays in registers. Group sums reduce with
+// shuffles inside the group's lanes (on 16 channels a lane at G = 16, each
+// 8-channel half is a group). Only [N, G] f32 is written.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "int8_exact.cuh"
 
 namespace {
 
 constexpr int V = 3;
 constexpr int C = 128;          // channels per pair chunk
 constexpr int CC = 2 * C;       // channels per view table row
-constexpr int LANES = C / 8;    // lanes per sample (8 channels each)
 constexpr int THREADS = 256;
+constexpr int LANES = C / 8;    // backward: lanes per sample, 8 channels each
 constexpr int SAMPLES_PER_BLOCK = THREADS / LANES;
 
-__device__ __forceinline__ void load8(const int8_t* p, float* f) {
-  const int2 raw = *reinterpret_cast<const int2*>(p);
-  const int w[2] = {raw.x, raw.y};
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      f[h * 4 + b] = (float)(int8_t)((w[h] >> (8 * b)) & 0xff);
+// the forward's channels per lane: 16 on int8 and bf16 rows (8 lanes a
+// sample), 8 on f32 rows (16 lanes: 64 bytes of a tap row a lane were
+// slower than the 16-lane design's 32)
+template <typename T>
+__host__ __device__ constexpr int lane_channels() { return sizeof(T) == 4 ? 8 : 16; }
+
+// N consecutive table elements as f32
+template <int N>
+__device__ __forceinline__ void load_run(const int8_t* p, float* f) {
+  static_assert(N == 16, "int8 runs are 16 elements");
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  int8x4_to_f32(raw.x, f);
+  int8x4_to_f32(raw.y, f + 4);
+  int8x4_to_f32(raw.z, f + 8);
+  int8x4_to_f32(raw.w, f + 12);
 }
 
 // bf16 stored as its 16 bits (uint16_t): the f32 with the same upper half,
 // so widening is exact
-__device__ __forceinline__ void load8(const uint16_t* p, float* f) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const unsigned int w[4] = {raw.x, raw.y, raw.z, raw.w};
+template <int N>
+__device__ __forceinline__ void load_run(const uint16_t* p, float* f) {
 #pragma unroll
-  for (int h = 0; h < 4; ++h) {
-    f[2 * h] = __uint_as_float(w[h] << 16);
-    f[2 * h + 1] = __uint_as_float(w[h] & 0xffff0000u);
+  for (int q = 0; q < N / 8; ++q) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + q);
+    const unsigned int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      f[8 * q + 2 * h] = __uint_as_float(w[h] << 16);
+      f[8 * q + 2 * h + 1] = __uint_as_float(w[h] & 0xffff0000u);
+    }
   }
 }
 
-__device__ __forceinline__ void load8(const float* p, float* f) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+template <int N>
+__device__ __forceinline__ void load_run(const float* p, float* f) {
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p) + q);
+    f[4 * q] = a.x; f[4 * q + 1] = a.y; f[4 * q + 2] = a.z; f[4 * q + 3] = a.w;
+  }
+}
+
+// one view's bilinear taps at one sample: the four rows (element offsets
+// into the table) and their weights, the plain version's rule (clip, floor,
+// border-clamped x1/y1)
+struct Taps {
+  size_t row[4];
+  float w[4];
+};
+
+__device__ __forceinline__ Taps view_taps(const float* __restrict__ grids, int v, int n, int N,
+                                          int H, int W) {
+  const float gx = grids[((size_t)v * N + n) * 2 + 0];
+  const float gy = grids[((size_t)v * N + n) * 2 + 1];
+  const float x = fminf(fmaxf((gx + 1.f) * 0.5f * (float)(W - 1), 0.f), (float)(W - 1));
+  const float y = fminf(fmaxf((gy + 1.f) * 0.5f * (float)(H - 1), 0.f), (float)(H - 1));
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float wx1 = x - x0f, wy1 = y - y0f;
+  const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
+  const int x0 = (int)x0f, y0 = (int)y0f;
+  const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
+  const size_t tv = (size_t)v * H * W;
+  Taps t;
+  t.row[0] = (tv + (size_t)y0 * W + x0) * CC;
+  t.row[1] = (tv + (size_t)y0 * W + x1) * CC;
+  t.row[2] = (tv + (size_t)y1 * W + x0) * CC;
+  t.row[3] = (tv + (size_t)y1 * W + x1) * CC;
+  t.w[0] = wy0 * wx0; t.w[1] = wy0 * wx1; t.w[2] = wy1 * wx0; t.w[3] = wy1 * wx1;
+  return t;
+}
+
+// this lane's N channels (from channel c0 of the row) of one view at one
+// sample, interpolated and, with scales, dequantised
+template <int N, typename T>
+__device__ __forceinline__ void interp_run(const T* __restrict__ table, const Taps& t, int c0,
+                                           const float* __restrict__ scale, float* f) {
+  float a[N], b[N], c[N], d[N];
+  load_run<N>(table + t.row[0] + c0, a);
+  load_run<N>(table + t.row[1] + c0, b);
+  load_run<N>(table + t.row[2] + c0, c);
+  load_run<N>(table + t.row[3] + c0, d);
+#pragma unroll
+  for (int k = 0; k < N; ++k) f[k] = a[k] * t.w[0] + b[k] * t.w[1] + c[k] * t.w[2] + d[k] * t.w[3];
+  if (scale) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 s = __ldg(reinterpret_cast<const float4*>(scale + c0) + q);
+      f[4 * q] *= s.x; f[4 * q + 1] *= s.y; f[4 * q + 2] *= s.z; f[4 * q + 3] *= s.w;
+    }
+  }
+}
+
+// dot / (max(|a|, eps) * max(|b|, eps)), eps = 1e-8, as max(|a|^2, eps^2)
+// under a reciprocal square root each (a few ulp from the plain version's
+// divide, and a fraction of its instructions)
+__device__ __forceinline__ float cosine(float dot, float na2, float nb2) {
+  return dot * rsqrtf(fmaxf(na2, 1e-16f)) * rsqrtf(fmaxf(nb2, 1e-16f));
 }
 
 template <typename T>
@@ -74,71 +156,66 @@ __global__ void __launch_bounds__(THREADS)
 cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids,
                     const float* __restrict__ scales, float* __restrict__ out,
                     int H, int W, int G, int N) {
-  const int lane = threadIdx.x % LANES;
-  const int n_raw = blockIdx.x * SAMPLES_PER_BLOCK + threadIdx.x / LANES;
+  constexpr int CPL = lane_channels<T>();
+  constexpr int SAMPLE_LANES = C / CPL, SAMPLES = THREADS / SAMPLE_LANES;
+  constexpr int HALVES = CPL / 8;        // 8-channel halves: the groups at G = 16
+  const int lane = threadIdx.x % SAMPLE_LANES;
+  const int n_raw = blockIdx.x * SAMPLES + threadIdx.x / SAMPLE_LANES;
   // out-of-range samples still run (clamped) so every shuffle has all lanes
   const int n = min(n_raw, N - 1);
-  const int o = lane * 8;
+  const int o = lane * CPL;
+  Taps taps[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) taps[v] = view_taps(grids, v, n, N, H, W);
 
-  float f[V][2][8];   // [view][chunk][channel] interpolated, dequantised
+  // G * CPL <= 128: the lanes_per_group lanes of a group reduce by shuffles;
+  // G = 16 with 16 channels a lane: each half of a lane's channels is a group
+  const bool by_half = HALVES == 2 && G == 16;
+  const int lanes_per_group = by_half ? 1 : C / G / CPL;
+  float total[HALVES];
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const float gx = grids[((size_t)v * N + n) * 2 + 0];
-    const float gy = grids[((size_t)v * N + n) * 2 + 1];
-    const float x = fminf(fmaxf((gx + 1.f) * 0.5f * (float)(W - 1), 0.f), (float)(W - 1));
-    const float y = fminf(fmaxf((gy + 1.f) * 0.5f * (float)(H - 1), 0.f), (float)(H - 1));
-    const float x0f = floorf(x), y0f = floorf(y);
-    const float wx1 = x - x0f, wy1 = y - y0f;
-    const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
-    const int x0 = (int)x0f, y0 = (int)y0f;
-    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
-    const float w00 = wy0 * wx0, w01 = wy0 * wx1, w10 = wy1 * wx0, w11 = wy1 * wx1;
-    const T* tv = table + (size_t)v * H * W * CC;
-    const T* r00 = tv + ((size_t)y0 * W + x0) * CC;
-    const T* r01 = tv + ((size_t)y0 * W + x1) * CC;
-    const T* r10 = tv + ((size_t)y1 * W + x0) * CC;
-    const T* r11 = tv + ((size_t)y1 * W + x1) * CC;
-#pragma unroll
-    for (int ch = 0; ch < 2; ++ch) {
-      const int c0 = ch * C + o;
-      float a[8], b[8], c[8], d[8];
-      load8(r00 + c0, a);
-      load8(r01 + c0, b);
-      load8(r10 + c0, c);
-      load8(r11 + c0, d);
-      const float4 s0 = *reinterpret_cast<const float4*>(scales + v * CC + c0);
-      const float4 s1 = *reinterpret_cast<const float4*>(scales + v * CC + c0 + 4);
-      const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        f[v][ch][e] = (a[e] * w00 + b[e] * w01 + c[e] * w10 + d[e] * w11) * sc[e];
-    }
-  }
-
-  const int lanes_per_group = LANES / G;   // G in {1,2,4,8,16}
-  float total = 0.f;
+  for (int h = 0; h < HALVES; ++h) total[h] = 0.f;
   // pair (i, j): view i's chunk j-1 against view j's chunk i
   constexpr int PI[3] = {0, 0, 1}, PJ[3] = {1, 2, 2};
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
-    const float* fa = f[PI[p]][PJ[p] - 1];
-    const float* fb = f[PJ[p]][PI[p]];
-    float dot = 0.f, na2 = 0.f, nb2 = 0.f;
+    const int vi = PI[p], vj = PJ[p], ca = vj - 1, cb = vi;
+    float fa[CPL], fb[CPL];
+    interp_run<CPL>(table, taps[vi], ca * C + o, scales ? scales + vi * CC : nullptr, fa);
+    interp_run<CPL>(table, taps[vj], cb * C + o, scales ? scales + vj * CC : nullptr, fb);
+    float dot[HALVES], na2[HALVES], nb2[HALVES];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      dot = fmaf(fa[e], fb[e], dot);
-      na2 = fmaf(fa[e], fa[e], na2);
-      nb2 = fmaf(fb[e], fb[e], nb2);
+    for (int h = 0; h < HALVES; ++h) {
+      dot[h] = 0.f; na2[h] = 0.f; nb2[h] = 0.f;
+#pragma unroll
+      for (int e = 8 * h; e < 8 * h + 8; ++e) {
+        dot[h] = fmaf(fa[e], fb[e], dot[h]);
+        na2[h] = fmaf(fa[e], fa[e], na2[h]);
+        nb2[h] = fmaf(fb[e], fb[e], nb2[h]);
+      }
     }
-    for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
-      dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      na2 += __shfl_xor_sync(0xffffffffu, na2, off);
-      nb2 += __shfl_xor_sync(0xffffffffu, nb2, off);
+    if (by_half) {
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h) total[h] += cosine(dot[h], na2[h], nb2[h]);
+    } else {
+      float d = dot[0], a = na2[0], b = nb2[0];
+#pragma unroll
+      for (int h = 1; h < HALVES; ++h) { d += dot[h]; a += na2[h]; b += nb2[h]; }
+      for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
+        d += __shfl_xor_sync(0xffffffffu, d, off);
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+        b += __shfl_xor_sync(0xffffffffu, b, off);
+      }
+      total[0] += cosine(d, a, b);
     }
-    total += dot / (fmaxf(sqrtf(na2), 1e-8f) * fmaxf(sqrtf(nb2), 1e-8f));
   }
-  if (n_raw < N && lane % lanes_per_group == 0)
-    out[(size_t)n * G + lane / lanes_per_group] = total / 3.f;
+  if (n_raw >= N) return;
+  if (by_half) {
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) out[(size_t)n * G + HALVES * lane + h] = total[h] / 3.f;
+  } else if (lane % lanes_per_group == 0) {
+    out[(size_t)n * G + lane / lanes_per_group] = total[0] / 3.f;
+  }
 }
 
 template <typename T>
@@ -149,11 +226,20 @@ int launch(const void* table, const void* grids, const void* scales, void* out,
       !(G == 1 || G == 2 || G == 4 || G == 8 || G == 16))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
-  const int blocks = (N + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK;
+  const int blocks = (N + THREADS / (C / lane_channels<T>()) - 1) /
+                     (THREADS / (C / lane_channels<T>()));
   cosine_prior_kernel<T><<<blocks, THREADS, 0, stream>>>(
       static_cast<const T*>(table), static_cast<const float*>(grids),
       static_cast<const float*>(scales), static_cast<float*>(out), H, W, G, N);
   return (int)cudaGetLastError();
+}
+
+// the backward's 8 channels of an f32 row
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
 // ---------------------------------------------------------------- backward

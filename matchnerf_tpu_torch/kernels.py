@@ -43,7 +43,7 @@ SIGNATURES = {
     # dv, BW, L, C, n_region_rows, stream
     "window_attention_bwd_f32": [_P] * 11 + [_I] * 4 + [_P],
     "window_attention_bwd_bf16": [_P] * 11 + [_I] * 4 + [_P],
-    # table, grids, scales, out, V, H, W, C, G, N, stream
+    # table, grids, scales (or NULL), out, V, H, W, C, G, N, stream
     "cosine_prior_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cosine_prior_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cosine_prior_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -54,12 +54,11 @@ SIGNATURES = {
     # wo_render_interval, setbg, stream
     "cond_nerf_decode_f32": [_P] * 11 + [_I] * 9 + [_P],
     "cond_nerf_decode_bf16": [_P] * 11 + [_I] * 9 + [_P],
-    # table, grids, scales, unions, out, V, H, W, C, G, R, S, NB, ut, stream
-    "block_cosine_prior_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _P],
-    # table, grids, unions, out, V, H, W, C, G, R, S, NB, ut, CP, stream
-    "block_cosine_prior_f32": [_P] * 4 + [_I] * 10 + [_P],
-    "block_cosine_prior_bf16": [_P] * 4 + [_I] * 10 + [_P],
+    # table, grids, scales (or NULL), unions_out (or NULL), out, V, H, W, C,
+    # G, R, S, ut, CP, stream
+    "block_cosine_prior_i8": [_P] * 5 + [_I] * 9 + [_P],
+    "block_cosine_prior_f32": [_P] * 5 + [_I] * 9 + [_P],
+    "block_cosine_prior_bf16": [_P] * 5 + [_I] * 9 + [_P],
     # table, grids, unions, g, d_table, V, H, W, C, G, R, S, NB, ut, CP, stream
     "block_cosine_prior_bwd_f32": [_P] * 5 + [_I] * 10 + [_P],
     # colors_sc, grids, out, V, Hs, Ws, img_h, img_w, N (= R*S), stream

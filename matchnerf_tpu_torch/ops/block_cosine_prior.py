@@ -10,9 +10,9 @@ block in shared memory before one global add per row; the JAX package
 also reaches it on bf16 eval tables, whose forward is Kernel D's). The
 CUDA source is csrc/block_cosine_prior.cu; `block_cosine_prior_plain` is
 the same function in plain PyTorch, along the same union route, and its
-autograd is the plain backward. f32 and bf16 union rows are staged in
-passes of `channels_per_pass` channels; a (ut, G) that no pass width fits
-(`takes_f32` / `takes_bf16` False) takes Kernel B (B') instead.
+autograd is the plain backward. Union rows are staged in passes of
+`channels_per_pass` channels (int8 rows as bf16); a (ut, G) that no pass
+width fits (`takes_bf16` / `takes_f32` False) takes Kernel B (B') instead.
 
 It computes what Kernel B (ops/cosine_prior.py) computes: for every sample
 the bilinear sample (align corners, border clamp) of each view's unpacked
@@ -21,12 +21,15 @@ interpolation, and the grouped cosine of pair (i, j) (view i's chunk j-1
 against view j's chunk i, eps 1e-8 on each norm) averaged over the pairs.
 Output [R,S,G] f32. The difference is the route to the taps: the rays of a
 slice are adjacent pixels, so the 8 rays of a block share most table rows.
-Per block and view the union of the samples' (y0, x0) cells, dilated by
-{c, c+1, c+W, c+W+1} (every bilinear tap of every sample), is built with
-torch ops as sorted unique cells padded with -1 (`block_union_cells`); the
-kernel stages those rows in shared memory once per block and finds each tap
-by binary search in the sorted union. Tap weights stay exact f32 (the TPU
-kernel rounds its stencil to bf16).
+Per block and view the union of the samples' (y0, x0) cells, capped at ut,
+dilated by {c, c+1, c+W, c+W+1} (every bilinear tap of every sample) and
+capped at ut again, as sorted unique cells padded with -1
+(`block_union_cells`): the plain version builds it with torch sorts, the
+kernel in shared memory with bitmaps and popcount ranks (the same cells;
+tests/test_torch_block_cosine_prior.py emulates it in numpy), and stages
+those rows once per block and pass. A tap missing from an overflowed union
+adds 0. Tap weights stay exact f32 (the TPU kernel rounds its stencil to
+bf16).
 
 The helpers below are the counterparts of pallas_block_banded.py's
 `_cells_weights4` (its cells), `_unique_compact`, `block_union_cells`,
@@ -45,6 +48,9 @@ from .cosine_prior import pair_cosine_mean
 from .grid_sample import bilinear_taps
 
 SOURCE = "matchnerf_tpu_torch/csrc/block_cosine_prior.cu"
+# the forward's C launcher per table dtype
+ENTRIES = {torch.int8: "block_cosine_prior_i8", torch.bfloat16: "block_cosine_prior_bf16",
+           torch.float32: "block_cosine_prior_f32"}
 COUNTER = kernels.LaunchCounter(
     "block_cosine_prior", source=SOURCE,
     replaces="matchnerf_tpu/ops/pallas_block_banded.py:413")
@@ -60,31 +66,49 @@ UT_BUCKETS = (64, 96, 128, 160, 192, 256, 320, 384, 512)
 MAX_SMEM = 232448                 # bytes of shared memory a block may have (sm_90)
 
 
+def fwd_smem(ut: int, S: int, cp: int, itemsize: int, hw: int = 0) -> int:
+    """Bytes of the forward kernel's dynamic shared memory (csrc LayoutFwd):
+    the two sides' staged rows, or the union build's bitmaps and prefix
+    counts of an hw-cell table where they are larger, then the taps, the
+    fractions and the union."""
+    staged = 2 * (ut + 1) * cp * itemsize
+    scratch = (2 * 3 * ((hw + 31) // 32) + 32) * 4
+    return -(-max(staged, scratch) // 16) * 16 + 3 * BLOCK_RAYS * S * 16 + 3 * ut * 4
+
+
 def channels_per_pass(ut: int, S: int, n_groups: int, backward: bool,
-                      itemsize: int = 4) -> Optional[int]:
-    """Channels per staging pass of the f32 (itemsize 4) and bf16 (itemsize
-    2, forward only) kernels (csrc LayoutPass): the widest of 128, 64, 32
-    whose shared memory fits, with each cosine group inside one pass; None
-    when none does."""
+                      itemsize: int = 4, hw: int = 0) -> Optional[int]:
+    """Channels per staging pass of the forward kernel (itemsize 4: f32
+    rows; 2: bf16 rows, which int8 tables stage as too; csrc LayoutFwd,
+    whose union build needs room for bitmaps of the table's hw cells) and of
+    D''s backward (f32, csrc LayoutPass, which reads the forward's union):
+    the widest of 128, 64, 32 whose shared memory fits, with each cosine
+    group inside one pass; None when none does."""
     for cp in (128, 64, 32):
         if not 128 <= n_groups * cp <= 2048:
             continue
-        side = (ut + 1) * cp * itemsize
-        total = side * (4 if backward else 2) + 3 * BLOCK_RAYS * S * 16 + 3 * ut * 4
+        if backward:
+            total = 4 * (ut + 1) * cp * itemsize + 3 * BLOCK_RAYS * S * 16 + 3 * ut * 4
+        else:
+            total = fwd_smem(ut, S, cp, itemsize, hw)
         if total <= MAX_SMEM:
             return cp
     return None
 
 
-def takes_f32(ut: int, S: int, n_groups: int) -> bool:
-    """Whether D' (forward and backward) takes f32 tables at this bucket."""
-    return all(channels_per_pass(ut, S, n_groups, b) is not None for b in (False, True))
+def takes_f32(ut: int, S: int, n_groups: int, hw: int = 0) -> bool:
+    """Whether D' (forward and backward) takes f32 tables of hw cells at
+    this bucket."""
+    return (channels_per_pass(ut, S, n_groups, False, hw=hw) is not None
+            and channels_per_pass(ut, S, n_groups, True) is not None)
 
 
-def takes_bf16(ut: int, S: int, n_groups: int) -> bool:
-    """Whether Kernel D's staging of bf16 union rows fits at this bucket
-    (every bucket at S = 128)."""
-    return channels_per_pass(ut, S, n_groups, False, itemsize=2) is not None
+def takes_bf16(ut: int, S: int, n_groups: int, hw: int = 0) -> bool:
+    """Whether Kernel D's staging of 16-bit rows (bf16 tables, and int8
+    tables, whose rows it stages as bf16) and its union build over hw cells
+    fit at this bucket. At G >= 2 and S = 128 every bucket fits; at G = 1
+    (one 128-channel pass) ut >= 384 does not."""
+    return channels_per_pass(ut, S, n_groups, False, itemsize=2, hw=hw) is not None
 
 
 def takes_table(table, scales, ut: int, S: int, n_groups: int) -> bool:
@@ -92,16 +116,25 @@ def takes_table(table, scales, ut: int, S: int, n_groups: int) -> bool:
     True for Kernel D (D'), False for Kernel B (B'). The JAX package takes
     its block kernel at every bucket (matchnerf.py:336-376: int8 tables with
     scales through `block_banded_cosine_scale`, f32 and bf16 tables without
-    through `block_banded_cosine_scale_trainable`); here the f32 and bf16
-    forms take it where their staging fits the block's shared memory (bf16:
-    every bucket at S = 128; f32: `takes_f32`), Kernel B elsewhere."""
+    through `block_banded_cosine_scale_trainable`); here each table type
+    takes it where the kernel's shared memory holds its staging and the
+    union build's bitmaps of the table's h*w cells (int8 and bf16:
+    `takes_bf16`; f32: `takes_f32`), Kernel B elsewhere. The bitmaps bound
+    the table to about 236k cells at S = 128 and 170k at S = 256 (ut 512).
+
+    int8 tables take Kernel D wherever its earlier int8 staging (one byte a
+    row element, an [8S, G] f32 accumulator) fit, except at G = 1 with
+    (S = 128, ut 384 and 512) and (S = 256, ut 256 to 384), where the bf16
+    staging does not fit and Kernel B runs; every configuration in configs/
+    has G = 2 and 8 (`cos_n_group`)."""
+    hw = table.shape[1] * table.shape[2]
     if table.dtype == torch.int8:
-        return True
+        return takes_bf16(ut, S, n_groups, hw)
     if scales is not None:
         return False
     if table.dtype == torch.bfloat16:
-        return takes_bf16(ut, S, n_groups)
-    return table.dtype == torch.float32 and takes_f32(ut, S, n_groups)
+        return takes_bf16(ut, S, n_groups, hw)
+    return table.dtype == torch.float32 and takes_f32(ut, S, n_groups, hw)
 
 
 def bucket_ut(n: int) -> Optional[int]:
@@ -241,7 +274,9 @@ def block_cosine_prior_plain(table, grids, scales, n_groups: int, ut: int):
 def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
     """The kernel on CUDA tensors (int8 tables [3,h,w,256] with f32 scales
     and bf16 tables without: Kernel D; f32 tables without scales: D', with
-    its backward when autograd records), the plain version on CPU tensors."""
+    its backward when autograd records), the plain version on CPU tensors.
+    The kernel builds each block's union itself: the wrapper launches
+    nothing but the kernel."""
     if table.device.type == "cpu":
         return block_cosine_prior_plain(table, grids, scales, n_groups, ut)
     if not table.is_cuda:
@@ -249,39 +284,22 @@ def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
     if table.dtype == torch.float32 and scales is None:
         if torch.is_grad_enabled() and table.requires_grad:
             return BlockCosinePriorFn.apply(table, grids, n_groups, ut)
-        return _forward_pass(table, grids, n_groups, ut)[0]
-    if table.dtype == torch.bfloat16 and scales is None:
-        return _forward_pass(table, grids, n_groups, ut)[0]
-    if table.dtype != torch.int8:
-        raise ValueError(f"block_cosine_prior: table dtype {table.dtype}, the kernel "
-                         "takes int8 tables with scales or f32 and bf16 tables without")
-    _check_common(table, grids, n_groups, ut)
-    if (scales is None or scales.dtype != torch.float32
-            or tuple(scales.shape) != (table.shape[0], table.shape[-1])
-            or scales.device != table.device):
-        raise ValueError(f"block_cosine_prior: the kernel takes f32 scales "
-                         f"[{table.shape[0]},{table.shape[-1]}]")
-    if not scales.is_contiguous():
-        raise ValueError("block_cosine_prior: scales must be contiguous")
-    V, H, W, Cc = table.shape
-    R, S = grids.shape[1:3]
-    gp = pad_rays(grids)
-    NB = gp.shape[1] // BLOCK_RAYS
-    unions = block_unions(gp, H, W, ut)
-    out = torch.empty(R, S, n_groups, dtype=torch.float32, device=table.device)
-    if R == 0:
-        return out
-    kernels.launch(COUNTER, "block_cosine_prior_i8", table.data_ptr(), gp.data_ptr(),
-                   scales.data_ptr(), unions.data_ptr(), out.data_ptr(), V, H, W,
-                   Cc // (V - 1), n_groups, R, S, NB, ut)
-    return out
+        return _forward(table, grids, None, n_groups, ut)[0]
+    if (table.dtype == torch.bfloat16 and scales is None) or (
+            table.dtype == torch.int8 and scales is not None):
+        return _forward(table, grids, scales, n_groups, ut)[0]
+    raise ValueError(f"block_cosine_prior: table dtype {table.dtype}, the kernel takes int8 "
+                     "tables with scales or f32 and bf16 tables without")
 
 
-def _check_common(table, grids, n_groups: int, ut: int):
+def _forward(table, grids, scales, n_groups: int, ut: int, with_unions: bool = False):
+    """Kernel D (int8, bf16 tables) or D''s forward (f32) -> (out [R,S,G],
+    the union [V*ceil(R/8), ut] int32 the kernel built, or None)."""
     if table.dim() != 4 or table.shape[0] != 3 or table.shape[-1] != 256:
         raise ValueError(f"block_cosine_prior: table {tuple(table.shape)}, kernel takes "
                          "[3,h,w,256]")
     V, H, W, Cc = table.shape
+    R, S = grids.shape[1:3]
     if n_groups not in (1, 2, 4, 8, 16):
         raise ValueError(f"block_cosine_prior: n_groups={n_groups}, kernel takes 1, 2, "
                          "4, 8 or 16")
@@ -291,52 +309,52 @@ def _check_common(table, grids, n_groups: int, ut: int):
             or grids.shape[-1] != 2 or grids.device != table.device):
         raise ValueError(f"block_cosine_prior: grids {tuple(grids.shape)} {grids.dtype}, "
                          f"kernel takes f32 [{V},R,S,2] on {table.device}")
-    if not table.is_contiguous():
-        raise ValueError("block_cosine_prior: table must be contiguous")
-
-
-def _forward_pass(table, grids, n_groups: int, ut: int):
-    """The staged-pass forward on an f32 table (D') or a bf16 table (Kernel
-    D) -> (out [R,S,G], padded grids, unions)."""
-    _check_common(table, grids, n_groups, ut)
-    V, H, W, Cc = table.shape
-    R, S = grids.shape[1:3]
-    bf16 = table.dtype == torch.bfloat16
-    if not (takes_bf16 if bf16 else takes_f32)(ut, S, n_groups):
-        raise ValueError(f"block_cosine_prior: {table.dtype} tables at ut={ut}, S={S}, "
-                         f"G={n_groups} exceed the block's shared memory")
-    gp = pad_rays(grids)
-    NB = gp.shape[1] // BLOCK_RAYS
-    unions = block_unions(gp, H, W, ut)
+    if scales is not None and (scales.dtype != torch.float32
+                               or tuple(scales.shape) != (V, Cc)
+                               or scales.device != table.device):
+        raise ValueError(f"block_cosine_prior: the kernel takes f32 scales [{V},{Cc}]")
+    for name, t in (("table", table), ("grids", grids), ("scales", scales)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"block_cosine_prior: {name} must be contiguous")
+    if table.data_ptr() % 16:
+        raise ValueError("block_cosine_prior: the table must be 16-byte aligned")
+    itemsize = 4 if table.dtype == torch.float32 else 2      # int8 rows stage as bf16
+    cp = channels_per_pass(ut, S, n_groups, False, itemsize, H * W)
+    if cp is None:
+        raise ValueError(f"block_cosine_prior: {table.dtype} tables of {H}x{W} cells at "
+                         f"ut={ut}, S={S}, G={n_groups} exceed the block's shared memory")
     out = torch.empty(R, S, n_groups, dtype=torch.float32, device=table.device)
+    NB = -(-R // BLOCK_RAYS)
+    unions = (torch.empty(V * NB, ut, dtype=torch.int32, device=table.device)
+              if with_unions else None)
     if R > 0:
-        counter, fn = (COUNTER, "block_cosine_prior_bf16") if bf16 else \
-            (F32_COUNTER, "block_cosine_prior_f32")
-        kernels.launch(counter, fn, table.data_ptr(), gp.data_ptr(), unions.data_ptr(),
-                       out.data_ptr(), V, H, W, Cc // (V - 1), n_groups, R, S, NB, ut,
-                       channels_per_pass(ut, S, n_groups, False, table.element_size()))
-    return out, gp, unions
+        counter = F32_COUNTER if table.dtype == torch.float32 else COUNTER
+        kernels.launch(counter, ENTRIES[table.dtype], table.data_ptr(), grids.data_ptr(),
+                       kernels.ptr(scales), kernels.ptr(unions), out.data_ptr(), V, H, W,
+                       Cc // (V - 1), n_groups, R, S, ut, cp)
+    return out, unions
 
 
 class BlockCosinePriorFn(torch.autograd.Function):
     """D' forward and backward on a CUDA f32 table; saves the table, the
-    padded grids and the unions the forward built."""
+    grids and the union the forward kernel built."""
 
     @staticmethod
     def forward(ctx, table, grids, n_groups: int, ut: int):
-        out, gp, unions = _forward_pass(table, grids, n_groups, ut)
-        ctx.save_for_backward(table, gp, unions)
+        out, unions = _forward(table, grids, None, n_groups, ut, with_unions=True)
+        ctx.save_for_backward(table, grids, unions)
         ctx.shape = (grids.shape[1], grids.shape[2], n_groups, ut)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        table, gp, unions = ctx.saved_tensors
+        table, grids, unions = ctx.saved_tensors
         R, S, G, ut = ctx.shape
         V, H, W, Cc = table.shape
         g = g.contiguous()
         d_table = torch.zeros_like(table)
         if R > 0:
+            gp = pad_rays(grids)
             kernels.launch(BWD_COUNTER, "block_cosine_prior_bwd_f32", table.data_ptr(),
                            gp.data_ptr(), unions.data_ptr(), g.data_ptr(),
                            d_table.data_ptr(), V, H, W, Cc // (V - 1), G, R, S,

@@ -36,7 +36,7 @@ COUNTER = kernels.LaunchCounter(
 BWD_COUNTER = kernels.LaunchCounter(
     "cosine_prior_bwd", source=SOURCE, replaces="matchnerf_tpu/ops/pallas_banded.py:484")
 # the forward's C launcher per table dtype; bf16 tables (the eval renders of
-# configs/train.yaml) take ones for the scales, as the TPU kernel does
+# configs/train.yaml) come without scales, as the TPU kernel takes them
 ENTRIES = {torch.int8: "cosine_prior_i8", torch.bfloat16: "cosine_prior_bf16",
            torch.float32: "cosine_prior_f32"}
 
@@ -115,20 +115,18 @@ def _forward(table, grids, scales, n_groups: int):
             or grids.shape[-1] != 2 or grids.device != table.device):
         raise ValueError(f"cosine_prior: grids {tuple(grids.shape)} {grids.dtype}, "
                          f"kernel takes f32 [{V},R,S,2] on {table.device}")
-    if scales is None:
-        scales = torch.ones(V, Cc, dtype=torch.float32, device=table.device)
-    if (scales.dtype != torch.float32 or tuple(scales.shape) != (V, Cc)
-            or scales.device != table.device):
+    if scales is not None and (scales.dtype != torch.float32
+                               or tuple(scales.shape) != (V, Cc)
+                               or scales.device != table.device):
         raise ValueError(f"cosine_prior: scales {tuple(scales.shape)} {scales.dtype}, "
                          f"kernel takes f32 [{V},{Cc}]")
     for name, t in (("table", table), ("grids", grids), ("scales", scales)):
-        if not t.is_contiguous():
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"cosine_prior: {name} is not contiguous")
     R, S = grids.shape[1:3]
     out = torch.empty(R, S, n_groups, dtype=torch.float32, device=table.device)
     kernels.launch(COUNTER, ENTRIES[table.dtype], table.data_ptr(), grids.data_ptr(),
-                   scales.data_ptr(), out.data_ptr(), V, H, W, C, n_groups,
-                   R * S)
+                   kernels.ptr(scales), out.data_ptr(), V, H, W, C, n_groups, R * S)
     return out
 
 

@@ -1,0 +1,305 @@
+"""Kernels B and D on the card, against another build of their sources.
+
+    python -m matchnerf_tpu_torch.profile_prior [--against DIR] [--sass] [--phases]
+
+Times the cosine prior of both feature scales at the DTU eval render's
+shapes: the first 20480 rays (one render slice) and the first 4096 rays
+(configs/train.yaml's validation slice) of chip_smoke.py's target pose
+(640x512, S=128, the same cameras, without the raytraced images), with the
+pose's own union buckets from `Renderer.pose_prep`, on random tables of the
+eval shapes ([3,64,80,256] and [3,128,160,256]): Kernel B and Kernel D on
+int8 tables with scales and on bf16 tables, and Kernel B on f32 tables at
+1024 random pixels (the training forward). Each is the whole wrapper call,
+timed with CUDA events over 20 calls after two warm-up calls, and held
+against its plain twin (max |d|). The plain twin's torch union build
+(`block_unions`, which Kernel D's wrappers called before the union moved
+into the kernel) is timed on its own.
+
+With `--against DIR`, the cosine_prior.cu and block_cosine_prior.cu of DIR
+(for example another commit's, from `git archive REV
+matchnerf_tpu_torch/csrc`; their C entries must take this tree's
+arguments) are built into build/kernels/ with the same flags and timed in
+the same process, in turns (other, this, this, other). With `--sass`,
+`cuobjdump -sass` counts each prior kernel's instructions by opcode
+(static counts: where one thread runs one sample's channels of every view
+and chunk, as in Kernel B, a count is per sample and lane). With `--phases`, Kernel D is built once more with
+-DKERNEL_D_PHASES (clock64 marks of thread 0; the kernel the port runs has
+none) and prints the mean cycles per block of its union build, its staging
+passes and its sample loops at the 20480-ray slice. Prints the card's name
+and power limit and, as its last line, one JSON object with every number.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import json
+import math
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+from . import kernels
+from .profile_attention import card_line
+
+H, W = 512, 640
+DTU_NEAR_FAR = (2.125, 4.525)
+SLICE_RAYS, VAL_RAYS, TRAIN_RAYS = 20480, 4096, 1024
+ITERS = 20
+SOURCES = ("cosine_prior.cu", "block_cosine_prior.cu")
+OPCODES = ("I2F", "I2FP", "F2F", "PRMT", "SGXT", "SHF", "LOP3", "IMAD", "FFMA", "FMUL",
+           "FADD", "LDG", "LDS", "STS", "LDGSTS", "BAR", "SHFL")
+
+
+def build_lib(sources, name: str, include: Path, flags=()) -> ctypes.CDLL:
+    """Build `sources` into build/kernels/<name>.so with the port's flags
+    (and `flags`), their headers from `include`."""
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = kernels.BUILD_DIR / f"{name}.so"
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *flags, "-I", str(include), "-shared",
+           "-o", str(out), *(str(s) for s in sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {sources}:\n{proc.stderr[-8000:]}")
+    return ctypes.CDLL(str(out))
+
+
+def bind(lib):
+    for name, sig in kernels.SIGNATURES.items():
+        if "cosine_prior" in name and hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = sig
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def sass_counts(lib_path: str) -> dict:
+    """{kernel function: {opcode: count}} for the cosine-prior kernels."""
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed:\n{proc.stderr[-4000:]}")
+    counts, fn = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "cosine_prior" in m.group(1) else None
+            if fn:
+                counts[fn] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if fn and m:
+            counts[fn][m.group(1)] += 1
+            counts[fn]["total"] += 1
+    return {k: {op: v[op] for op in (*OPCODES, "total")} for k, v in counts.items()}
+
+
+def d_phases(torch, kd, cases, block_ut) -> list:
+    """Kernel D built with -DKERNEL_D_PHASES: thread 0's mean cycles per
+    block in the union build, the staging passes (with the wait for the
+    block's slowest warp) and its own sample loops, one call per case."""
+    lib = build_lib([kernels.CSRC_DIR / SOURCES[1]], "libprior_phases", kernels.CSRC_DIR,
+                    ["-DKERNEL_D_PHASES"])
+    bind(lib)
+    lib.block_cosine_prior_phases.argtypes = [ctypes.c_void_p]
+    lib.block_cosine_prior_phases.restype = ctypes.c_int
+    counts = (ctypes.c_ulonglong * 4)()
+    saved, kernels._lib = kernels._lib, lib
+    rows = []
+    try:
+        for _, dt, s, R, table, g, scales, G in cases:
+            kd.block_cosine_prior(table, g, scales, G, block_ut[s])
+            torch.cuda.synchronize()
+            lib.block_cosine_prior_phases(counts)       # zero after the warm call
+            kd.block_cosine_prior(table, g, scales, G, block_ut[s])
+            torch.cuda.synchronize()
+            if lib.block_cosine_prior_phases(counts) != 0:
+                raise RuntimeError("block_cosine_prior_phases failed")
+            blocks = counts[3]
+            per = [counts[k] / blocks for k in range(3)]
+            rows.append({"dtype": dt, "scale": s, "R": R, "blocks": blocks,
+                         "union_build": per[0], "staging": per[1], "samples": per[2]})
+            print(f"D {dt} scale {s} R={R} phases, cycles per block (thread 0): union "
+                  f"build {per[0]:.0f}, staging {per[1]:.0f}, sample loops {per[2]:.0f} "
+                  f"({blocks} blocks)", flush=True)
+    finally:
+        kernels._lib = saved
+    return rows
+
+
+def scene_grids(torch, dev):
+    """The target pose of chip_smoke.py's scene: its eval grids [V,R,S,2]
+    for the first SLICE_RAYS rays, grids at TRAIN_RAYS random pixels, and
+    the pose's union buckets per feature scale."""
+    from . import camera
+    from .config import dtu_eval_config
+    from .data.synth import look_at_opencv
+    from .models.matchnerf import project_to_views, sample_depth
+    from .renderer import Renderer
+    rng = np.random.default_rng(0)
+    angles = np.deg2rad([-16.0, 0.0, 16.0, 8.0]) + rng.uniform(-0.02, 0.02, 4)
+    w2cs = []
+    for a in angles:
+        c2w = np.eye(4)
+        c2w[:3] = look_at_opencv((3.7 * math.sin(a), -1.0, -3.7 * math.cos(a)),
+                                 (0.0, 0.1, 0.0))
+        w2cs.append(np.linalg.inv(c2w).astype(np.float32))
+    w2cs = np.stack(w2cs)[None]
+    focal = 1.8 * W
+    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]], np.float32)
+    intr = np.tile(K, (1, 4, 1, 1))
+    nf = np.tile(np.asarray(DTU_NEAR_FAR, np.float32), (1, 4, 1))
+    poses = {"tgt": {"extrinsics": w2cs[:, -1, :3], "intrinsics": intr[:, -1],
+                     "near_fars": nf[:, -1]},
+             "ref": {"extrinsics": w2cs[:, :-1, :3], "intrinsics": intr[:, :-1],
+                     "near_fars": nf[:, :-1]}}
+    cfg = dtu_eval_config()
+    r = Renderer(cfg, None, dev)
+    block_ut, _ = r.pose_prep(poses, [(H // 8, W // 8), (H // 4, W // 4)], H, W)
+    tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = r._pose_tensors(poses)
+
+    def grids_at(pix):
+        center, ray = camera.get_center_and_ray(pix[None], tgt_intr, c2w)
+        depth = sample_depth(cfg, tgt_nf, 1, pix.shape[0])
+        pts = camera.get_3d_points_from_depth(center, ray, depth, multi_samples=True)
+        return (project_to_views(pts, ref_w2c, ref_intr, ref_nf, H, W)[..., :2]
+                * 2.0 - 1.0)[:, 0].contiguous()
+
+    pix = camera.pixel_grid(H, W, legacy=True, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    train_pix = pix[torch.randperm(H * W, generator=gen, device=dev)[:TRAIN_RAYS]]
+    return grids_at(pix[:SLICE_RAYS]), grids_at(train_pix), block_ut
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", type=Path, default=None,
+                    help="a directory holding another cosine_prior.cu and "
+                         "block_cosine_prior.cu to time beside this tree's")
+    ap.add_argument("--sass", action="store_true", help="count the kernels' SASS opcodes")
+    ap.add_argument("--phases", action="store_true",
+                    help="Kernel D's cycles per block in its union build, staging and "
+                         "sample loops (a build with -DKERNEL_D_PHASES)")
+    args = ap.parse_args(argv)
+    import torch
+
+    from .ops import block_cosine_prior as kd
+    from .ops import cosine_prior as kb
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_prior: needs a CUDA device")
+    dev = torch.device("cuda")
+    card = card_line()
+    print(card, flush=True)
+    result = {"card": card}
+    this_lib = kernels.library()
+    libs = {}
+    if args.against is not None:
+        libs["other"] = bind(build_lib([args.against / s for s in SOURCES],
+                                       "libprior_against", args.against))
+    if args.sass:
+        result["sass"] = {"this": sass_counts(this_lib._name)}
+        for key, lib in libs.items():
+            result["sass"][key] = sass_counts(lib._name)
+        for key, per_fn in result["sass"].items():
+            for fn, c in per_fn.items():
+                print(f"sass {key} {fn}: " + ", ".join(f"{op} {n}" for op, n in c.items()
+                                                       if n), flush=True)
+
+    def events_ms(fn):
+        for _ in range(2):
+            fn()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        for _ in range(ITERS):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / ITERS
+
+    def call(lib, name, *a):
+        err = getattr(lib, name)(*a, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
+    def b_lib(lib, table, grids, scales, G):
+        V, h, w, _ = table.shape
+        R, S = grids.shape[1:3]
+        out = torch.empty(R, S, G, device=dev)
+        call(lib, kb.ENTRIES[table.dtype], table.data_ptr(), grids.data_ptr(),
+             kernels.ptr(scales), out.data_ptr(), V, h, w, 128, G, R * S)
+        return out
+
+    def d_lib(lib, table, grids, scales, G, ut):
+        """Another source's Kernel D, called as its wrapper calls it."""
+        V, h, w, _ = table.shape
+        R, S = grids.shape[1:3]
+        cp = kd.channels_per_pass(ut, S, G, False, 2, h * w)   # rows staged as bf16
+        out = torch.empty(R, S, G, device=dev)
+        call(lib, kd.ENTRIES[table.dtype], table.data_ptr(), grids.data_ptr(),
+             kernels.ptr(scales), None, out.data_ptr(), V, h, w, 128, G, R, S, ut, cp)
+        return out
+
+    grids_all, grids_train, block_ut = scene_grids(torch, dev)
+    print(f"pose buckets {block_ut}", flush=True)
+    result["block_ut"] = list(block_ut)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = []
+    for s, (h, w, G) in enumerate(((H // 8, W // 8, 2), (H // 4, W // 4, 8))):
+        q = torch.randint(-127, 128, (3, h, w, 256), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+        scales = torch.rand(3, 256, generator=gen, device=dev) * 0.02 + 1e-3
+        fb = torch.randn(3, h, w, 256, generator=gen, device=dev)
+        for R in (SLICE_RAYS, VAL_RAYS):
+            g = grids_all[:, :R].contiguous()
+            cases.append(("B", "int8", s, R, q, g, scales, G))
+            cases.append(("D", "int8", s, R, q, g, scales, G))
+            cases.append(("B", "bf16", s, R, fb.to(torch.bfloat16), g, None, G))
+            cases.append(("D", "bf16", s, R, fb.to(torch.bfloat16), g, None, G))
+        cases.append(("B", "f32", s, TRAIN_RAYS, fb, grids_train, None, G))
+    result["cases"] = []
+    fmt = lambda xs: " / ".join(f"{x:.4f}" for x in xs)
+    for kernel, dt, s, R, table, g, scales, G in cases:
+        ut = block_ut[s]
+        h, w = table.shape[1:3]
+        if kernel == "B":
+            fns = {"this": lambda: kb.cosine_prior(table, g, scales, G)}
+            fns.update({k: (lambda lib=lib: b_lib(lib, table, g, scales, G))
+                        for k, lib in libs.items()})
+            ref = kb.cosine_prior_plain(table, g, scales, G)
+        else:
+            fns = {"this": lambda: kd.block_cosine_prior(table, g, scales, G, ut)}
+            if "other" in libs:
+                fns["other"] = lambda: d_lib(libs["other"], table, g, scales, G, ut)
+            ref = kd.block_cosine_prior_plain(table, g, scales, G, ut)
+        errs = {k: float((fn() - ref).abs().max()) for k, fn in fns.items()}
+        order = [k for k in ("other", "this") if k in fns]
+        times = {k: [] for k in order}
+        for k in order + order[::-1]:
+            times[k].append(events_ms(fns[k]))
+        entry = {"kernel": kernel, "dtype": dt, "scale": s, "R": R, "G": G, "ms": times,
+                 "max_abs_err": errs}
+        line = f"{kernel} {dt} scale {s} R={R} G={G}"
+        if kernel == "D":
+            gp = kd.pad_rays(g)
+            entry["ut"] = ut
+            entry["union_build_ms"] = events_ms(lambda: kd.block_unions(gp, h, w, ut))
+            line += f" ut={ut}, the plain twin's union build {entry['union_build_ms']:.4f} ms"
+        print(line + ": " + "; ".join(f"{k} {fmt(t)} ms (max|d| {errs[k]:.2e})"
+                                      for k, t in times.items()), flush=True)
+        result["cases"].append(entry)
+        del ref
+    if args.phases:
+        result["phases"] = d_phases(torch, kd, [c for c in cases if c[0] == "D"
+                                                and c[3] == SLICE_RAYS], block_ut)
+    print(card_line(), flush=True)
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

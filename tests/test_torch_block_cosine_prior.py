@@ -25,6 +25,7 @@ from matchnerf_tpu.models.gmflow.gmflow import pair_index_lists
 from matchnerf_tpu.ops import pallas_block_banded as jbb
 from matchnerf_tpu_torch.ops import block_cosine_prior as kd
 from matchnerf_tpu_torch.ops import cosine_prior as kb
+from matchnerf_tpu_torch.ops.grid_sample import bilinear_taps
 
 V = 3
 
@@ -152,6 +153,79 @@ def test_block_route_by_table_dtype():
     assert not kd.takes_bf16(512, 512, 2)
 
 
+def _largest_rows(fits, W):
+    """The most table rows of width W that `fits(h * W)` accepts."""
+    lo, hi = 1, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid * W) else (lo, mid - 1)
+    return lo
+
+
+@pytest.mark.parametrize("S", [128, 256])
+def test_block_route_table_size(S):
+    """The kernel's union build holds two bitmaps of the table's h*w cells
+    in shared memory, so `takes_table` sends a table too large for them to
+    Kernel B (B'): True at the largest h (W = 1024) that fits, False one row
+    past it, for every table type. The DTU eval tables are far inside."""
+    W = 1024
+    for G in (2, 8):
+        for ut in kd.UT_BUCKETS:
+            for dt, fits in ((torch.int8, lambda hw: kd.takes_bf16(ut, S, G, hw)),
+                             (torch.bfloat16, lambda hw: kd.takes_bf16(ut, S, G, hw)),
+                             (torch.float32, lambda hw: kd.takes_f32(ut, S, G, hw))):
+                scales = torch.ones(3, 256) if dt == torch.int8 else None
+                if not fits(0):
+                    assert not kd.takes_table(torch.empty(3, 64, 80, 256, dtype=dt,
+                                                          device="meta"), scales, ut, S, G)
+                    continue
+                h = _largest_rows(fits, W)
+                tables = [torch.empty(3, n, W, 256, dtype=dt, device="meta")
+                          for n in (h, h + 1)]
+                assert kd.takes_table(tables[0], scales, ut, S, G), (dt, ut, G)
+                assert not kd.takes_table(tables[1], scales, ut, S, G), (dt, ut, G)
+                itemsize = 4 if dt == torch.float32 else 2
+                cp = kd.channels_per_pass(ut, S, G, False, itemsize)
+                assert kd.fwd_smem(ut, S, cp, itemsize, (h + 1) * W) > kd.MAX_SMEM
+                for hw in ((64, 80), (128, 160)):
+                    assert kd.takes_table(torch.empty(3, *hw, 256, dtype=dt, device="meta"),
+                                          scales, ut, S, G)
+    hmax = _largest_rows(lambda hw: kd.takes_bf16(512, S, 8, hw), W)
+    assert (hmax * W) // 1000 == {128: 235, 256: 169}[S]
+
+
+def _earlier_int8_smem(ut, S, G):
+    """Shared memory of Kernel D's int8 form before the union moved into the
+    kernel: int8 rows [2][ut+1][128], taps and fractions [3][8S] 8 B each,
+    the unions [3][ut] int32 and an [8S][G] f32 accumulator; it raised where
+    this passed the block's limit."""
+    a16 = lambda n: -(-n // 16) * 16
+    return a16(a16(2 * (ut + 1) * 128) + 3 * 8 * S * 16 + 3 * ut * 4) + 8 * S * G * 4
+
+
+def test_int8_block_route_against_earlier_kernel():
+    """int8 tables took Kernel D at every bucket (raising where its int8
+    staging passed the block's shared memory); now they take it where the
+    bf16 staging fits. Every configuration has G = 2 and 8 (base.yaml
+    `cos_n_group`), where the route is unchanged wherever the earlier
+    kernel launched; at G = 1 five (S, ut) went to Kernel B."""
+    scales = torch.ones(3, 256)
+    lost, gained = set(), set()
+    for S in (128, 256):
+        table = torch.empty(3, 128, 160, 256, dtype=torch.int8, device="meta")
+        for G in (1, 2, 4, 8, 16):
+            for ut in kd.UT_BUCKETS:
+                earlier = _earlier_int8_smem(ut, S, G) <= kd.MAX_SMEM
+                now = kd.takes_table(table, scales, ut, S, G)
+                if earlier and not now:
+                    lost.add((S, G, ut))
+                if now and not earlier:
+                    gained.add((S, G, ut))
+    assert lost == {(128, 1, 384), (128, 1, 512), (256, 1, 256), (256, 1, 320),
+                    (256, 1, 384)}
+    assert all(G in (4, 8, 16) for _, G, _ in gained) and (256, 8, 512) in gained
+
+
 def test_plain_kernel_d_f32_matches_jax():
     rng = np.random.default_rng(12)
     H, W, C, R, S, G = 24, 32, 16, 16, 32, 4
@@ -179,3 +253,155 @@ def test_plain_kernel_d_overflowed_union_drops_taps():
     full = kd.block_cosine_prior(*args, _ut(grids, H, W))
     assert bool(torch.isfinite(small).all())
     assert float((small - full).abs().max()) > 1e-3
+
+
+def _popc(words):
+    return np.array([bin(int(w)).count("1") for w in words], np.int64)
+
+
+def kernel_union(cells, ut, H, W):
+    """numpy emulation of csrc/block_cosine_prior.cu's union build for one
+    8-ray block: cells [V, L] base cells per view -> (unions [V, ut] -1
+    padded, row(v, cell) -> the union row of a tap, ut when it is missing).
+    One bitmap word array for the V views; an exclusive scan of the words'
+    popcounts ranks each set bit (prefix minus the view's first prefix plus
+    the popcount below it); the first ut set bits, ascending, are the capped
+    cells; those dilated by {c, c+1, c+W, c+W+1} below H*W fill a fresh
+    bitmap, and its first ut set bits are the union."""
+    nw = (H * W + 31) // 32
+
+    def bitmap(per_view):
+        words = np.zeros(V * nw, np.uint32)
+        for v, cs in enumerate(per_view):
+            cs = np.asarray(cs, np.int64)
+            np.bitwise_or.at(words, v * nw + (cs >> 5), np.left_shift(
+                np.uint32(1), (cs & 31).astype(np.uint32)))
+        return words, np.concatenate([[0], np.cumsum(_popc(words))[:-1]])
+
+    def take_first(words, pre):
+        out = []
+        for v in range(V):
+            cells_v = [32 * (i - v * nw) + b for i in range(v * nw, (v + 1) * nw)
+                       for b in range(32) if (int(words[i]) >> b) & 1]
+            ranks = [pre[(32 * v * nw + c) // 32] - pre[v * nw]
+                     + int(_popc([int(words[v * nw + c // 32]) & ((1 << (c % 32)) - 1)])[0])
+                     for c in cells_v]
+            assert ranks == list(range(len(cells_v)))            # the scan ranks them
+            out.append(cells_v[:ut])
+        return out
+
+    first = take_first(*bitmap(cells))
+    dil = [[d for c in cs for d in (c, c + 1, c + W, c + W + 1) if d < H * W] for cs in first]
+    words, pre = bitmap(dil)
+    union = take_first(words, pre)
+
+    def row(v, cell):
+        i = v * nw + cell // 32
+        if not (int(words[i]) >> (cell % 32)) & 1:
+            return ut
+        rank = pre[i] - pre[v * nw] + int(_popc([int(words[i]) & ((1 << (cell % 32)) - 1)])[0])
+        return rank if rank < ut else ut
+
+    unions = np.full((V, ut), -1, np.int64)
+    for v, u in enumerate(union):
+        unions[v, :len(u)] = u
+    return unions, row
+
+
+@pytest.mark.parametrize("case,cap", [("coherent", None), ("coherent", 32),
+                                      ("ragged_border", None), ("wide", 96)])
+def test_kernel_union_build_matches_sorts(case, cap):
+    """The kernel's bitmap union equals `block_union_cells` (torch sorts)
+    and the JAX `block_union_cells` block by block, at the pose's bucket
+    and at a cap below the true union (the first ut cells kept at both
+    steps); each tap's union row equals `union_positions`', missing taps
+    (only past the cap) pointing at the zero row ut."""
+    rng = np.random.default_rng(15)
+    H, W, R, S = (16, 16, 11, 16) if case == "ragged_border" else (24, 32, 24, 32)
+    if case == "coherent":
+        grids = _coherent_grids(rng, R, S)
+    elif case == "wide":
+        grids = _coherent_grids(rng, R, S, spread=1.2)
+    else:
+        grids = _border_grids(rng, R, S)
+    gp = _pad_np(grids)
+    n = kd.block_union_size_raw(torch.tensor(gp), H, W)
+    ut = cap or kd.bucket_ut(n)
+    assert (n > ut) == (cap is not None), (n, ut)
+    cells = kd.base_cells(torch.tensor(gp), H, W)                   # [V, Rp, S]
+    NB = gp.shape[1] // 8
+    torch_u = kd.block_union_cells(cells.reshape(V * gp.shape[1], S), 8, ut, H, W)
+    jax_u = np.asarray(jbb.block_union_cells(jnp.asarray(cells.numpy().reshape(-1, S)), 8,
+                                             ut, H, W))
+    (y0, x0, y1, x1), _ = bilinear_taps(torch.tensor(gp), H, W)
+    for blk in range(NB):
+        blk_cells = cells[:, blk * 8:(blk + 1) * 8].reshape(V, -1).numpy()
+        unions, row = kernel_union(blk_cells, ut, H, W)
+        for v in range(V):
+            want = np.full(ut, -1)
+            tu = torch_u[v * NB + blk].numpy()
+            want[:len(tu)] = tu
+            np.testing.assert_array_equal(unions[v], want)
+            np.testing.assert_array_equal(jax_u[v * NB + blk][:ut], want[:jax_u.shape[1]])
+            taps = torch.stack([(yy * W + xx)[v, blk * 8:(blk + 1) * 8].reshape(-1)
+                                for yy, xx in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))], 1)
+            pos, found = kd.union_positions(torch.tensor(want)[None].int(),
+                                            taps.reshape(1, -1), H * W)
+            want_rows = torch.where(found, pos, ut)[0].numpy()
+            np.testing.assert_array_equal(
+                [row(v, int(c)) for c in taps.reshape(-1)], want_rows)
+
+
+def pair_cosine8(a, b, c0, SW, G):
+    """pair_cosine8 of csrc/block_cosine_prior.cu in numpy: a, b [n, CP] the CP channels from c0
+    in hand; lane l (of 8) slot k holds channels k*8*SW + l*SW .. +SW-1.
+    Slots of one group sum by an xor butterfly, lanes of one group by xor
+    shuffles -> {group: cosine [n]} from the lanes and slots that emit."""
+    n, CP = a.shape
+    NS = CP // (8 * SW)
+    idx = np.array([[k * 8 * SW + l * SW + np.arange(SW) for k in range(NS)]
+                    for l in range(8)])                               # [8, NS, SW]
+    d, p, q = ((x[:, idx] * y[:, idx]).sum(-1) for x, y in ((a, b), (a, a), (b, b)))
+    gsize, span = 128 // G, 8 * SW
+    spg = gsize // span if gsize > span else 1
+    lpg = 8 if gsize > span else gsize // SW
+    s_ = 1
+    while s_ < NS:
+        if s_ < spg:
+            swap = np.arange(NS) ^ s_
+            d, p, q = d + d[:, :, swap], p + p[:, :, swap], q + q[:, :, swap]
+        s_ *= 2
+    off = lpg // 2
+    while off:
+        lanes = np.arange(8) ^ off
+        d, p, q = d + d[:, lanes], p + p[:, lanes], q + q[:, lanes]
+        off //= 2
+    out = {}
+    for lane in range(0, 8, lpg):
+        for k in range(0, NS, spg):
+            g = (c0 + k * span + lane * SW) // gsize
+            assert g not in out                     # each group emitted once
+            out[g] = d[:, lane, k] / (np.maximum(np.sqrt(p[:, lane, k]), 1e-8)
+                                      * np.maximum(np.sqrt(q[:, lane, k]), 1e-8))
+    return out
+
+
+@pytest.mark.parametrize("n_groups,SW,CP", [
+    (g, sw, cp) for g in (1, 2, 4, 8, 16)
+    for sw, cp in ((8, 128), (8, 64), (4, 128), (4, 64), (4, 32))
+    if g * cp >= 128])              # a cosine group lies inside one pass
+def test_pair_cosine_slot_layout(n_groups, SW, CP):
+    """Kernel D's eight-lane slot layout (staged bf16 rows: slots of 8
+    channels, of 4 in 32-channel passes; f32 rows: 4; passes of 128, 64 or
+    32 channels), emulated in numpy: every group of every pass is emitted
+    once and equals the grouped cosine."""
+    rng = np.random.default_rng(4)
+    a = rng.normal(0, 1, (5, 128)).astype(np.float32)
+    b = rng.normal(0, 1, (5, 128)).astype(np.float32)
+    ref = kb.grouped_cosine(torch.tensor(a), torch.tensor(b), n_groups).numpy()
+    gsize = 128 // n_groups
+    for c0 in range(0, 128, CP):
+        got = pair_cosine8(a[:, c0:c0 + CP], b[:, c0:c0 + CP], c0, SW, n_groups)
+        assert sorted(got) == list(range(c0 // gsize, (c0 + CP) // gsize))
+        for g, cos in got.items():
+            np.testing.assert_allclose(cos, ref[:, g], atol=1e-6, rtol=1e-5)

@@ -156,3 +156,72 @@ def test_grouped_cosine_matches_jax(n_groups):
     ref = _grouped_cosine(jnp.asarray(a), jnp.asarray(b), n_groups)
     got = tcp.grouped_cosine(torch.tensor(a), torch.tensor(b), n_groups)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6, rtol=1e-6)
+
+
+def byte_perm(x, y, s):
+    """CUDA's __byte_perm on uint32 arrays: byte n of the result is byte
+    (s >> 4n) & 7 of the eight bytes of x (0-3) and y (4-7)."""
+    xy = (np.asarray(y, np.uint64) << np.uint64(32)) | np.asarray(x, np.uint64)
+    out = np.zeros(np.shape(xy), np.uint64)
+    for n in range(4):
+        sel = np.uint64((s >> (4 * n)) & 7)
+        out |= ((xy >> (np.uint64(8) * sel)) & np.uint64(0xFF)) << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def int8x4_to_f32(words):
+    """csrc/int8_exact.cuh's int8x4_to_f32 on uint32 words -> [n, 4] f32:
+    each byte, sign bit flipped, into the low byte of 0x4B000000, minus
+    8388736.0f, all in f32."""
+    x = np.asarray(words, np.uint32) ^ np.uint32(0x80808080)
+    return np.stack([byte_perm(x, 0x4B000000, 0x7650 + b).view(np.float32)
+                     - np.float32(8388736.0) for b in range(4)], axis=-1)
+
+
+def test_int8_integer_pipe_conversion_exact():
+    """Kernels B and D convert int8 without an int-to-float instruction: a
+    byte permute and an f32 subtract give every one of the 256 values
+    exactly, and Kernel D's staging packs them as exact bf16 pairs."""
+    vals = np.arange(-128, 128).astype(np.int8)
+    words = vals.view(np.uint8).reshape(-1, 4).copy().view("<u4").ravel()
+    got = int8x4_to_f32(words)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.ravel(), vals.astype(np.float32))
+    bits = got.view(np.uint32)
+    pairs = np.stack([byte_perm(bits[:, 0], bits[:, 1], 0x7632),
+                      byte_perm(bits[:, 2], bits[:, 3], 0x7632)], axis=-1)   # bf16 x2
+    halves = np.stack([pairs & 0xFFFF, pairs >> 16], axis=-1).astype(np.uint32)
+    np.testing.assert_array_equal((halves << 16).view(np.float32).ravel(),
+                                  vals.astype(np.float32))
+
+
+@pytest.mark.parametrize("n_groups", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("cpl", [16, 8])
+def test_kernel_b_lane_layout(n_groups, cpl):
+    """Kernel B's reduction layout: 128/cpl lanes a sample (8 lanes of 16
+    channels on int8 and bf16 rows, 16 of 8 on f32 rows), lane l owning
+    channels cpl*l .. cpl*l+cpl-1 of a chunk with a partial sum per 8-channel
+    half; the halves sum and the 128/G/cpl lanes of a group reduce by xor
+    shuffles, the group's first lane writing it; at G = 16 with 16 channels
+    a lane, each half is a group. Emulated in numpy, equal to the grouped
+    cosine."""
+    rng = np.random.default_rng(4)
+    a = rng.normal(0, 1, (5, 128)).astype(np.float32)
+    b = rng.normal(0, 1, (5, 128)).astype(np.float32)
+    lanes = 128 // cpl
+    part = lambda x, y: (x * y).reshape(5, lanes, cpl // 8, 8).sum(-1)   # [n, lane, half]
+    dot, na2, nb2 = part(a, b), part(a, a), part(b, b)
+    cos = lambda d, p, q: d / (np.maximum(np.sqrt(p), 1e-8) * np.maximum(np.sqrt(q), 1e-8))
+    if cpl == 16 and n_groups == 16:
+        got = cos(dot, na2, nb2).reshape(5, 16)
+    else:
+        lpg = 128 // n_groups // cpl
+        d, p, q = (t.sum(-1) for t in (dot, na2, nb2))           # [n, lane]
+        off = lpg // 2
+        while off:
+            swap = np.arange(lanes) ^ off
+            d, p, q = d + d[:, swap], p + p[:, swap], q + q[:, swap]
+            off //= 2
+        got = cos(d, p, q)[:, ::lpg]
+    ref = tcp.grouped_cosine(torch.tensor(a), torch.tensor(b), n_groups).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-6, rtol=1e-5)

@@ -13,7 +13,12 @@ the forward's logsumexp against torch.logsumexp of the plain masked scores,
 and L = 1280. The block-union cosine prior (D) runs at small shapes, at the
 largest union it takes (512 rows: the most dynamic shared memory), and with
 a ragged R and samples on the border, on int8 tables and on bf16 tables;
-the cosine prior (B) on int8, bf16 and f32 tables. The supercell colour sample (E) reads
+also at the eval pose's buckets (160 rows at G = 2, 320 at G = 8, S = 128)
+on 1003 rays, and with a bucket below the true unions (the union it builds
+overflows: against the plain version at the same ut); the union the kernel
+builds equals the plain version's torch build cell for cell. The cosine
+prior (B) on int8, bf16 and f32 tables, and on int8 rows that hold every
+value -128..127 (its integer-pipe conversion). The supercell colour sample (E) reads
 no union: it runs at small shapes, on a 320-supercell union, with a ragged
 R and samples on the border, and on grids spread over the whole image whose
 union overflows every bucket, where it is also held to the direct gather
@@ -299,6 +304,126 @@ def test_block_cosine_prior_bf16_kernel(dev, case, G):
     if case != "cap_512":
         torch.testing.assert_close(got, kb.cosine_prior(table, grids, None, G),
                                    atol=1e-5, rtol=0)
+
+
+def _d_table(g, dev, dtype, h, w):
+    if dtype == torch.int8:
+        return _int8_table(g, dev, h, w)
+    return torch.randn(3, h, w, 256, generator=g, device=dev).to(dtype), None
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("G", [2, 8])
+def test_block_cosine_prior_overflowed_union(dev, dtype, G):
+    """Kernel D with a bucket below the blocks' true unions: the kernel's
+    union keeps the first ut cells in ascending order at both capping steps,
+    a tap outside them adds 0, as in the plain version at the same ut."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    table, scales = _d_table(g, dev, dtype, 64, 80)
+    grids = _block_grids(g, dev, 3, 45, 64, 1.2)
+    true = kd.block_union_size_raw(kd.pad_rays(grids), 64, 80)
+    ut = 128
+    assert true > ut, true
+    got = kd.block_cosine_prior(table, grids, scales, G, ut)
+    ref = kd.block_cosine_prior_plain(table, grids, scales, G, ut)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    full = kd.block_cosine_prior_plain(table, grids, scales, G, kd.bucket_ut(true))
+    assert float((got - full).abs().max()) > 1e-3       # the overflow dropped taps
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("hw,G,ut", [((64, 80), 2, 160), ((128, 160), 8, 320)])
+def test_block_cosine_prior_eval_buckets(dev, dtype, hw, G, ut):
+    """Kernel D at the eval pose's buckets and group counts (160 rows at
+    G = 2 on the 1/8-scale table, 320 at G = 8 on the 1/4-scale one), S =
+    128, on 1003 rays (not a multiple of 8: the tail block repeats the last
+    ray), unions that fill the bucket without overflowing it."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    table, scales = _d_table(g, dev, dtype, *hw)
+    fits = []                          # the widest spread whose union fits
+    for spread in (0.1, 0.15, 0.2, 0.3, 0.4, 0.5, 0.7, 0.9, 1.2):
+        cand = _block_grids(g, dev, 3, 1003, 128, spread)
+        n = kd.block_union_size_raw(kd.pad_rays(cand), *hw)
+        if n <= ut:
+            fits.append((n, cand))
+    n, grids = max(fits, key=lambda f: f[0])
+    assert n > ut // 4, n
+    before = kd.COUNTER.by_entry.get(kd.ENTRIES[dtype], 0)
+    got = kd.block_cosine_prior(table, grids, scales, G, ut)
+    torch.cuda.synchronize()
+    assert kd.COUNTER.by_entry[kd.ENTRIES[dtype]] == before + 1
+    torch.testing.assert_close(got, kd.block_cosine_prior_plain(table, grids, scales, G, ut),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(got, kb.cosine_prior(table, grids, scales, G), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("case", ["fits", "overflow", "ragged_border"])
+def test_block_union_built_in_kernel(dev, case):
+    """The union D''s forward kernel writes for its backward equals the
+    plain version's torch build (`block_unions`) cell for cell, -1 padded,
+    also where it overflows the bucket."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    h, w = (16, 16) if case == "ragged_border" else (64, 80)
+    table = _f32_table(g, dev, h, w)
+    if case == "ragged_border":
+        grids = _block_grids(g, dev, 3, 13, 32, 0.5)
+        grids[:, :, :4] = torch.clamp(grids[:, :, :4] * 3.0, -1.0, 1.0)
+        grids[:, -1, -2:] = 1.0
+    else:
+        grids = _block_grids(g, dev, 3, 37, 48, 1.2 if case == "overflow" else 0.3)
+    gp = kd.pad_rays(grids)
+    true = kd.block_union_size_raw(gp, h, w)
+    ut = 64 if case == "overflow" else kd.bucket_ut(true)
+    assert (true > ut) == (case == "overflow"), (true, ut)
+    _, unions = kd._forward(table, grids, None, 2, ut, with_unions=True)
+    torch.testing.assert_close(unions, kd.block_unions(gp, h, w, ut), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_block_cosine_prior_table_size_limit(dev, dtype):
+    """Kernel D's union build keeps bitmaps of the table's h*w cells in
+    shared memory. At the largest table that `takes_table` sends to it (S =
+    128, ut 512, G = 8, W = 1024) the kernel matches its plain version; one
+    row more and the route is Kernel B, which matches its own, while Kernel
+    D refuses the table."""
+    G, ut, W, S = 8, 512, 1024, 128
+    h = 1
+    while kd.takes_bf16(ut, S, G, (h + 1) * W):
+        h += 1
+    g = torch.Generator(device=dev).manual_seed(17)
+    grids = _block_grids(g, dev, 3, 21, S, 0.4)
+    for rows, block in ((h, True), (h + 1, False)):
+        table, scales = _d_table(g, dev, dtype, rows, W)
+        assert kd.takes_table(table, scales, ut, S, G) == block
+        if block:
+            got = kd.block_cosine_prior(table, grids, scales, G, ut)
+            ref = kd.block_cosine_prior_plain(table, grids, scales, G, ut)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                kd.block_cosine_prior(table, grids, scales, G, ut)
+            got = kb.cosine_prior(table, grids, scales, G)
+            ref = kb.cosine_prior_plain(table, grids, scales, G)
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+        del table
+
+
+@pytest.mark.parametrize("G", [2, 8, 16])
+def test_cosine_prior_kernel_every_int8(dev, G):
+    """Kernel B on an int8 table whose rows hold every value -128..127, so
+    that its integer-pipe conversion is checked on all 256, against the
+    plain version."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    vals = torch.arange(-128, 128, device=dev, dtype=torch.int32)
+    idx = torch.stack([torch.randperm(256, generator=g, device=dev)
+                       for _ in range(3 * 20 * 24)])
+    table = vals[idx].reshape(3, 20, 24, 256).to(torch.int8).contiguous()
+    scales = torch.rand(3, 256, generator=g, device=dev) * 0.02 + 1e-3
+    grids = torch.rand(3, 37, 48, 2, generator=g, device=dev) * 2.4 - 1.2
+    grids[:, :, :6] = torch.round(grids[:, :, :6] * 10) / 10   # taps on cell corners
+    got = kb.cosine_prior(table, grids, scales, G)
+    torch.testing.assert_close(got, kb.cosine_prior_plain(table, grids, scales, G), atol=1e-5,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("case", ["small", "cap_320", "ragged_border", "overflow"])
