@@ -78,6 +78,7 @@
 #include <stdint.h>
 #include <limits.h>
 
+#include "cosine_bwd.cuh"
 #include "int8_exact.cuh"
 
 namespace {
@@ -86,11 +87,9 @@ constexpr int V = 3;
 constexpr int C = 128;          // channels per pair chunk
 constexpr int CC = 2 * C;       // channels per view table row
 constexpr int LANES = 8;        // forward: lanes per sample (pair_cosine8)
-constexpr int BWD_LANES = 16;   // backward: lanes per sample, CP/16 channels each
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int GROUPS = THREADS / LANES;           // samples in flight per block
-constexpr int BWD_GROUPS = THREADS / BWD_LANES;
 constexpr int BLOCK_RAYS = 8;
 constexpr int MAX_UT = 512;
 constexpr int MAX_SMEM = 232448;          // 227 KB, the sm_90 per-block limit
@@ -608,18 +607,53 @@ block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict_
 // Per pair and pass of CP channels (ops/block_cosine_prior.py::
 // channels_per_pass with backward=True) the block stages the f32 union rows
 // of the union its forward wrote, plus an f32 gradient row of the same
-// width per union row (d_acc, zeroed), recomputes each sample's
-// interpolation and group sums, forms the grouped-cosine backward
-// (pallas_banded.py::_grouped_cosine_bwd, no gradient through a norm
-// clamped at eps), and adds the gradient times each bilinear weight into
-// the tap's union row with shared-memory atomics: the counterpart of the
-// TPU kernel's per-block d_acc. Each union row then goes to d_table once
-// per block with float4 global atomics, so global atomics fall by the
-// union's reuse factor (8 rays x S samples x 4 taps per view onto <= ut
-// rows). Each (view, chunk) is one side of exactly one pair, so every row
-// and channel is flushed once per block. A tap missing from an overflowed
-// union (the zero row) adds nothing. grids here are [V,8*NB,S,2], the tail
-// rays edge-padded.
+// width per union row (d_acc), recomputes each sample's interpolation and
+// group sums, forms the grouped-cosine backward (pallas_banded.py::
+// _grouped_cosine_bwd, no gradient through a norm clamped at eps), and sums
+// the gradient times each bilinear weight into the tap's union row: the
+// counterpart of the TPU kernel's per-block d_acc. Each union row then goes
+// to d_table once per block with float4 global atomics. Each (view, chunk)
+// is one side of exactly one pair, so every row and channel is flushed once
+// per block. A tap missing from an overflowed union (the zero row ut) adds
+// nothing. grids here are [V,8*NB,S,2], the tail rays edge-padded; padded
+// rays carry no cotangent.
+//
+// What bounds it: the sums into d_acc. sm_90 has no shared-memory f32 add:
+// atomicAdd on shared memory is a compare-and-swap loop (ATOMS.CAST.SPIN,
+// profile_prior --sass), and one per (sample, side, tap, channel), 3,072 a
+// sample, paced the earlier design at one block per SM. So:
+//
+// 1. Walks. The block's 8 rays are adjacent pixels of a strip: at one depth
+//    they sit in the same cell or the next. A sample group of BL lanes (16
+//    at CP 64 and 128, 8 at CP 32; CPL = CP / BL channels each) walks a band
+//    of ceil(S / (512 / BL)) consecutive depths across all 8 rays,
+//    serpentine (depth d over rays 0..7, depth d+1 over rays 7..0), so
+//    consecutive samples of a walk are neighbouring pixels or neighbouring
+//    depths, and the 32 or 64 groups in flight sit at different depths.
+// 2. Parity slots, as in B' (csrc/cosine_prior.cu): a 2x2 footprint holds
+//    one cell of each (row parity, column parity), so slot 2*py + px of a
+//    side holds the tap of those parities; the prologue stores each
+//    sample's four union rows in slot order (16 bits each, the rows' parity
+//    bits in bit 15 of the first two), rows past the border (weight 0) and
+//    missing rows as the zero row ut. A lane sums each slot's CPL channels
+//    in registers while its row stays the same and adds them to d_acc only
+//    when the row changes and at the end of the walk; the zero row is never
+//    added. The walks' runs cut the shared adds 6-10x at the training pose
+//    (profile_prior --backward).
+// 3. Each add is one 128-bit compare-and-swap loop per 4 channels
+//    (atom.shared.cas.b128), cheaper than two 64-bit ones, so CPL is at
+//    least 4: at CP 32 a group is 8 lanes, not 16 with 2 channels each
+//    (fewer lane compare-and-swaps, and fewer lanes repeating each sample's
+//    tap decode and cosine, for 15 % more run ends).
+// 4. Overlap: d_acc is zeroed once; after a pass's loop each thread adds
+//    its d_acc entries to d_table and zeroes them while the next pass's rows
+//    arrive by cp.async into the rows the loop has finished with.
+//
+// Shared memory (LayoutPass) at the training pose's buckets and S = 128:
+// ut 160, CP 64 (G = 2): rows 2 x 161 x 64 x 4 B = 82,432 B, d_acc the
+// same, taps and fractions [V][8S] 49,152 B, union 1,920 B: 215,936 B; ut
+// 320, CP 32 (G = 8): 82,176 B twice, 49,152 B, 3,840 B: 217,344 B. One
+// block per SM.
 
 struct LayoutPass {       // dynamic shared memory, in bytes from its start
   size_t rows, dacc, taps, fracs, unions, total;
@@ -636,8 +670,10 @@ struct LayoutPass {       // dynamic shared memory, in bytes from its start
 };
 
 // the backward's prologue: the unions its forward wrote, into shared memory
-// (INT_MAX padded), and each (view, sample)'s four tap rows, found by binary
-// search, and two fractions
+// (INT_MAX padded), and each (view, sample)'s four union rows in parity-slot
+// order (binary search; ut for a cell past the border or missing), with
+// the base cell's row and column parities in bit 15 of rows 0 and 1, and
+// its two fractions
 __device__ __forceinline__ void block_prologue(const float* __restrict__ grids,
                                                const int* __restrict__ unions,
                                                int* u_s, uint2* taps, float2* fracs,
@@ -658,48 +694,148 @@ __device__ __forceinline__ void block_prologue(const float* __restrict__ grids,
     sample_xy(grids, g, H, W, x, y);
     const float x0f = floorf(x), y0f = floorf(y);
     const int x0 = (int)x0f, y0 = (int)y0f;
-    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
     const int* u = u_s + v * ut;
-    const int p00 = find_row(u, ut, y0 * W + x0), p01 = find_row(u, ut, y0 * W + x1);
-    const int p10 = find_row(u, ut, y1 * W + x0), p11 = find_row(u, ut, y1 * W + x1);
-    taps[t] = make_uint2((unsigned)p00 | ((unsigned)p01 << 16),
-                         (unsigned)p10 | ((unsigned)p11 << 16));
+    unsigned row[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int yy = y0 + ((s >> 1) ^ (y0 & 1)), xx = x0 + ((s & 1) ^ (x0 & 1));
+      row[s] = yy < H && xx < W ? (unsigned)find_row(u, ut, yy * W + xx) : (unsigned)ut;
+    }
+    taps[t] = make_uint2(row[0] | ((unsigned)(y0 & 1) << 15) | (row[1] << 16) |
+                             ((unsigned)(x0 & 1) << 31),
+                         row[2] | (row[3] << 16));
     fracs[t] = make_float2(__fsub_rn(x, x0f), __fsub_rn(y, y0f));
   }
 }
 
-// stage CP channels (from channel c0 of the chunk) of both sides' f32 union
-// rows, 16 bytes a thread; row ut is zero; zero the gradient rows too
-__device__ __forceinline__ void stage_rows(const float* __restrict__ table, const int* u_s,
-                                           float* rows, float* dacc, int H, int W, int ut,
-                                           int CP, int vi, int vj, int ca, int cb, int c0,
-                                           int tid) {
-  constexpr int EL = 4;                        // elements per 16 bytes
-  const int per_side = (ut + 1) * (CP / EL);
-  for (int i = tid; i < 2 * per_side; i += THREADS) {
-    const int side = i / per_side, rem = i % per_side;
-    const int r = rem / (CP / EL), part = rem % (CP / EL);
-    const int v = side ? vj : vi;
-    const int chunk = side ? cb : ca;
-    const int cell = r < ut ? u_s[v * ut + r] : INT_MAX;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (cell != INT_MAX)
-      val = *reinterpret_cast<const uint4*>(
-          table + ((size_t)v * H * W + cell) * CC + chunk * C + c0 + part * EL);
-    const size_t off = ((size_t)side * (ut + 1) + r) * CP + part * EL;
-    *reinterpret_cast<uint4*>(rows + off) = val;
-    *reinterpret_cast<float4*>(dacc + off) = make_float4(0.f, 0.f, 0.f, 0.f);
+// a sample's four slot rows (decoded from the prologue's taps) and weights
+struct SlotTaps {
+  int row[4];
+  float w[4];
+};
+
+__device__ __forceinline__ SlotTaps slot_taps(uint2 t, float2 fr) {
+  SlotTaps st;
+  st.row[0] = (int)(t.x & 0x7fffu);
+  st.row[1] = (int)((t.x >> 16) & 0x7fffu);
+  st.row[2] = (int)(t.y & 0xffffu);
+  st.row[3] = (int)(t.y >> 16);
+  const bool oy = (t.x >> 15) & 1u, ox = t.x >> 31;
+  const float wx1 = fr.x, wy1 = fr.y;
+  const float wx0 = __fsub_rn(1.f, wx1), wy0 = __fsub_rn(1.f, wy1);
+  // slot (py, px) holds tap (py ^ oy, px ^ ox)
+  const float wyp[2] = {oy ? wy1 : wy0, oy ? wy0 : wy1};
+  const float wxp[2] = {ox ? wx1 : wx0, ox ? wx0 : wx1};
+#pragma unroll
+  for (int s = 0; s < 4; ++s) st.w[s] = __fmul_rn(wyp[s >> 1], wxp[s & 1]);
+  return st;
+}
+
+template <int CPL>
+__device__ __forceinline__ void interp_rows(const float* rows, int CP, const SlotTaps& st,
+                                            int o, float* f) {
+  float r[4][CPL];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) load_row<CPL>(rows + st.row[s] * CP + o, r[s]);
+#pragma unroll
+  for (int e = 0; e < CPL; ++e)
+    f[e] = r[0][e] * st.w[0] + r[1][e] * st.w[1] + r[2][e] * st.w[2] + r[3][e] * st.w[3];
+}
+
+// four adjacent shared-memory floats (16-byte aligned) += v in one 128-bit
+// compare-and-swap loop (atom.shared.cas.b128, sm_90): sm_90 has no shared
+// f32 add, and atomicAdd(float*) there is a 32-bit compare-and-swap loop per
+// float
+__device__ __forceinline__ void shared_add4(float* p, float4 v) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
+  ulonglong2 seen = *reinterpret_cast<const ulonglong2*>(p);
+  while (true) {
+    const unsigned long long lo =
+        (unsigned long long)__float_as_uint(__uint_as_float((unsigned)seen.x) + v.x) |
+        ((unsigned long long)__float_as_uint(__uint_as_float((unsigned)(seen.x >> 32)) + v.y)
+         << 32);
+    const unsigned long long hi =
+        (unsigned long long)__float_as_uint(__uint_as_float((unsigned)seen.y) + v.z) |
+        ((unsigned long long)__float_as_uint(__uint_as_float((unsigned)(seen.y >> 32)) + v.w)
+         << 32);
+    unsigned long long olo, ohi;
+    asm volatile(
+        "{\n\t.reg .b128 cmp, val, old;\n\t"
+        "mov.b128 cmp, {%2, %3};\n\t"
+        "mov.b128 val, {%4, %5};\n\t"
+        "atom.shared.cas.b128 old, [%6], cmp, val;\n\t"
+        "mov.b128 {%0, %1}, old;\n\t}"
+        : "=l"(olo), "=l"(ohi)
+        : "l"(seen.x), "l"(seen.y), "l"(lo), "l"(hi), "r"(addr)
+        : "memory");
+    if (olo == seen.x && ohi == seen.y) return;
+    seen = make_ulonglong2(olo, ohi);
+  }
+}
+
+// a slot's CPL channels (a multiple of 4) into its d_acc row
+template <int CPL>
+__device__ __forceinline__ void slot_add(float* dst, const float (&v)[CPL]) {
+#pragma unroll
+  for (int e = 0; e < CPL; e += 4)
+    shared_add4(dst + e, make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]));
+}
+
+// one side's slots after one more sample of a walk (B''s slot_update on
+// union rows): a slot whose row changed adds its sum to d_acc, unless it
+// held the zero row, and restarts; only the add branches
+template <int CPL>
+__device__ __forceinline__ void slot_update(float (&acc)[4][CPL], int (&key)[4],
+                                            const SlotTaps& st, const float* df, float* dacc,
+                                            int CP, int o, int ut) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const bool changed = st.row[s] != key[s];
+    if (changed && key[s] != ut) slot_add<CPL>(dacc + key[s] * CP + o, acc[s]);
+    key[s] = st.row[s];
+#pragma unroll
+    for (int e = 0; e < CPL; ++e) acc[s][e] = fmaf(st.w[s], df[e], changed ? 0.f : acc[s][e]);
   }
 }
 
 template <int CPL>
+__device__ __forceinline__ void slot_flush(const float (&acc)[4][CPL], const int (&key)[4],
+                                           float* dacc, int CP, int o, int ut) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    if (key[s] != ut) slot_add<CPL>(dacc + key[s] * CP + o, acc[s]);
+}
+
+// CP channels (from channel c0 of the chunk) of both sides' f32 union rows
+// by cp.async, 16 bytes a copy, row ut zero; committed, not waited for
+__device__ __forceinline__ void issue_rows(const float* __restrict__ table, const int* u_s,
+                                           float* rows, int H, int W, int ut, int CP, int p,
+                                           int c0, int tid) {
+  const int vi = p == 2 ? 1 : 0, vj = p == 0 ? 1 : 2, ca = vj - 1, cb = vi;
+  const int parts = CP / 4;
+  const int per_side = (ut + 1) * parts;
+  for (int i = tid; i < 2 * per_side; i += THREADS) {
+    const int side = i / per_side, rem = i - side * per_side;
+    const int r = rem / parts, part = rem - r * parts;
+    const int v = side ? vj : vi;
+    const int cell = r < ut ? u_s[v * ut + r] : INT_MAX;
+    const bool valid = cell != INT_MAX;
+    const float* src = table + ((size_t)v * H * W + (valid ? cell : 0)) * CC +
+                       (side ? cb : ca) * C + c0 + part * 4;
+    cp_async16(rows + ((size_t)side * (ut + 1) + r) * CP + part * 4, src, valid);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int CPL, int BL>
 __global__ void __launch_bounds__(THREADS)
 block_cosine_prior_bwd_kernel(const float* __restrict__ table,
                               const float* __restrict__ grids,
                               const int* __restrict__ unions, const float* __restrict__ gout,
                               float* __restrict__ d_table, int H, int W, int G, int R,
                               int S, int NB, int ut) {
-  constexpr int CP = CPL * BWD_LANES;
+  constexpr int CP = CPL * BL;
+  constexpr int WALKS = THREADS / BL;                   // sample groups, one walk each
   extern __shared__ __align__(16) unsigned char smem[];
   const LayoutPass L(ut, S, CP);
   float* rows = reinterpret_cast<float*>(smem + L.rows);
@@ -710,15 +846,25 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
 
   const int blk = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid % BWD_LANES;
-  const int grp = tid / BWD_LANES;
+  const int lane = tid % BL;
+  const int grp = tid / BL;
+  // a group's BL lanes shuffle among themselves only: the walks of a warp
+  // branch apart at their flushes and ends
+  const unsigned mask = ((1u << BL) - 1u) << (tid & (32 - BL));
   const int o = lane * CPL;
   const int samples = BLOCK_RAYS * S;
-  const int valid = min(BLOCK_RAYS, R - blk * BLOCK_RAYS) * S;
   const int gsize = C / G;
   const int lanes_per_group = gsize / CPL;
-  const float eps = 1e-8f;
+  // this group's walk (item 1 of the header): depths lo .. lo + nd - 1 of
+  // the block's rays that are not padding
+  const int seg = (S + WALKS - 1) / WALKS;
+  const int lo = grp * seg, nd = max(0, min(S, lo + seg) - lo);
+  const int rays = min(BLOCK_RAYS, R - blk * BLOCK_RAYS);
   block_prologue(grids, unions, u_s, taps, fracs, H, W, S, NB, ut, blk, tid);
+  for (int i = tid; i < 2 * (ut + 1) * CP / 4; i += THREADS)
+    reinterpret_cast<float4*>(dacc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();                         // the union, for the first staging
+  issue_rows(table, u_s, rows, H, W, ut, CP, 0, 0, tid);
   const float* gb = gout + (size_t)blk * BLOCK_RAYS * S * G;
 
 #pragma unroll 1
@@ -727,23 +873,32 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
     const int ca = vj - 1, cb = vi;
 #pragma unroll 1
     for (int c0 = 0; c0 < C; c0 += CP) {
-      __syncthreads();                     // prologue / previous flush done
-      stage_rows(table, u_s, rows, dacc, H, W, ut, CP, vi, vj, ca, cb, c0, tid);
-      __syncthreads();
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();                     // rows staged, d_acc zero
       const float* rows_a = rows;
       const float* rows_b = rows + (size_t)(ut + 1) * CP;
       float* dacc_a = dacc;
       float* dacc_b = dacc + (size_t)(ut + 1) * CP;
       const int group = (c0 + o) / gsize;
-      for (int base = 0; base < samples; base += BWD_GROUPS) {
-        const int nl_raw = base + grp;
-        const bool active = nl_raw < valid;  // padded rays carry no cotangent
-        const int nl = nl_raw < samples ? nl_raw : samples - 1;
-        const uint2 ta = taps[vi * samples + nl], tb = taps[vj * samples + nl];
-        const float2 fra = fracs[vi * samples + nl], frb = fracs[vj * samples + nl];
+      float acc[2][4][CPL];
+      int key[2][4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        key[0][s] = key[1][s] = ut;
+#pragma unroll
+        for (int e = 0; e < CPL; ++e) acc[0][s][e] = acc[1][s][e] = 0.f;
+      }
+#pragma unroll 1
+      for (int i = 0; i < nd * BLOCK_RAYS; ++i) {
+        const int d = i / BLOCK_RAYS, j = i % BLOCK_RAYS;
+        const int ray = d & 1 ? BLOCK_RAYS - 1 - j : j;       // serpentine
+        if (ray >= rays) continue;
+        const int nl = ray * S + lo + d;
+        const SlotTaps ta = slot_taps(taps[vi * samples + nl], fracs[vi * samples + nl]);
+        const SlotTaps tb = slot_taps(taps[vj * samples + nl], fracs[vj * samples + nl]);
         float fa[CPL], fb[CPL];
-        interp_slots<float, 1, CPL>(rows_a, CP, ta, fra, lane, fa);
-        interp_slots<float, 1, CPL>(rows_b, CP, tb, frb, lane, fb);
+        interp_rows<CPL>(rows_a, CP, ta, o, fa);
+        interp_rows<CPL>(rows_b, CP, tb, o, fb);
         float dot = 0.f, na2 = 0.f, nb2 = 0.f;
 #pragma unroll
         for (int e = 0; e < CPL; ++e) {
@@ -752,45 +907,40 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
           nb2 = fmaf(fb[e], fb[e], nb2);
         }
         for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-          na2 += __shfl_xor_sync(0xffffffffu, na2, off);
-          nb2 += __shfl_xor_sync(0xffffffffu, nb2, off);
+          dot += __shfl_xor_sync(mask, dot, off);
+          na2 += __shfl_xor_sync(mask, na2, off);
+          nb2 += __shfl_xor_sync(mask, nb2, off);
         }
-        if (!active) continue;
-        const float dcos = gb[(size_t)nl * G + group] * (1.f / 3.f);
-        const float sna = sqrtf(na2), snb = sqrtf(nb2);
-        const float na = fmaxf(sna, eps), nb = fmaxf(snb, eps);
-        const float inv_ab = 1.f / (na * nb);
-        const float d_dot = dcos * inv_ab;
-        const float d_na2 = sna > eps ? -dcos * dot * inv_ab / na * (0.5f / na) : 0.f;
-        const float d_nb2 = snb > eps ? -dcos * dot * inv_ab / nb * (0.5f / nb) : 0.f;
-        float wa[4], wb[4];
-        weights4(fra, wa);
-        weights4(frb, wb);
+        float d_dot, d_na2, d_nb2;
+        cosine_bwd(gb[(size_t)nl * G + group] * (1.f / 3.f), dot, na2, nb2, d_dot, d_na2,
+                   d_nb2);
+        float dfa[CPL], dfb[CPL];
 #pragma unroll
         for (int e = 0; e < CPL; ++e) {
-          const float dfa = d_dot * fb[e] + 2.f * d_na2 * fa[e];
-          const float dfb = d_dot * fa[e] + 2.f * d_nb2 * fb[e];
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            atomicAdd(dacc_a + tap_row(ta, t) * CP + o + e, dfa * wa[t]);
-            atomicAdd(dacc_b + tap_row(tb, t) * CP + o + e, dfb * wb[t]);
-          }
+          dfa[e] = d_dot * fb[e] + 2.f * d_na2 * fa[e];
+          dfb[e] = d_dot * fa[e] + 2.f * d_nb2 * fb[e];
         }
+        slot_update<CPL>(acc[0], key[0], ta, dfa, dacc_a, CP, o, ut);
+        slot_update<CPL>(acc[1], key[1], tb, dfb, dacc_b, CP, o, ut);
       }
-      __syncthreads();
-      // flush: every union row of both sides, once, into d_table
-      const int per_side = ut * (CP / 4);
+      slot_flush<CPL>(acc[0], key[0], dacc_a, CP, o, ut);
+      slot_flush<CPL>(acc[1], key[1], dacc_b, CP, o, ut);
+      __syncthreads();                     // d_acc complete, rows free
+      const int next_p = c0 + CP < C ? p : p + 1, next_c0 = c0 + CP < C ? c0 + CP : 0;
+      if (next_p < 3) issue_rows(table, u_s, rows, H, W, ut, CP, next_p, next_c0, tid);
+      // flush: every union row of both sides, once, into d_table; zero d_acc
+      const int per_side = (ut + 1) * (CP / 4);
       for (int i = tid; i < 2 * per_side; i += THREADS) {
         const int side = i / per_side, rem = i % per_side;
         const int r = rem / (CP / 4), part = rem % (CP / 4);
-        const int v = side ? vj : vi;
-        const int cell = u_s[v * ut + r];
+        float4* src = reinterpret_cast<float4*>(dacc + ((size_t)side * (ut + 1) + r) * CP +
+                                                part * 4);
+        const float4 val = *src;
+        *src = make_float4(0.f, 0.f, 0.f, 0.f);
+        const int cell = r < ut ? u_s[(side ? vj : vi) * ut + r] : INT_MAX;
         if (cell == INT_MAX) continue;
-        const float4 val = *reinterpret_cast<const float4*>(
-            dacc + ((size_t)side * (ut + 1) + r) * CP + part * 4);
-        float* dst = d_table + ((size_t)v * H * W + cell) * CC + (side ? cb : ca) * C + c0 +
-                     part * 4;
+        float* dst = d_table + ((size_t)(side ? vj : vi) * H * W + cell) * CC +
+                     (side ? cb : ca) * C + c0 + part * 4;
 #if (__CUDACC_VER_MAJOR__ > 12) || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 4)
         atomicAdd(reinterpret_cast<float4*>(dst), val);
 #else
@@ -803,18 +953,18 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
 }
 
 
-template <int CPL>
+template <int CPL, int BL>
 int launch_bwd(const void* table, const void* grids, const void* unions, const void* g,
                void* d_table, int H, int W, int G, int R, int S, int NB, int ut,
                cudaStream_t stream) {
-  const LayoutPass L(ut, S, CPL * BWD_LANES);
+  const LayoutPass L(ut, S, CPL * BL);
   if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      block_cosine_prior_bwd_kernel<CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      block_cosine_prior_bwd_kernel<CPL, BL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L.total);
   if (err != cudaSuccess) return (int)err;
-  block_cosine_prior_bwd_kernel<CPL><<<(R + BLOCK_RAYS - 1) / BLOCK_RAYS, THREADS, L.total,
-                                       stream>>>(
+  block_cosine_prior_bwd_kernel<CPL, BL><<<(R + BLOCK_RAYS - 1) / BLOCK_RAYS, THREADS,
+                                           L.total, stream>>>(
       static_cast<const float*>(table), static_cast<const float*>(grids),
       static_cast<const int*>(unions), static_cast<const float*>(g),
       static_cast<float*>(d_table), H, W, G, R, S, NB, ut);
@@ -824,7 +974,7 @@ int launch_bwd(const void* table, const void* grids, const void* unions, const v
 bool args_ok(int views, int channels, int H, int W, int R, int S, int ut, int G, int CP) {
   return views == V && channels == C && H > 0 && W > 0 && R > 0 && S > 0 && ut > 0 &&
          ut <= MAX_UT && (G == 1 || G == 2 || G == 4 || G == 8 || G == 16) &&
-         (CP == 32 || CP == 64 || CP == 128) && G * CP >= C && G * CP <= C * BWD_LANES;
+         (CP == 32 || CP == 64 || CP == 128) && G * CP >= C && G * CP <= 16 * C;
 }
 
 template <typename TG, typename TS, int CP>
@@ -916,8 +1066,8 @@ extern "C" int block_cosine_prior_bwd_f32(const void* table, const void* grids,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (CP == 128)
-    return launch_bwd<8>(table, grids, unions, g, d_table, H, W, G, R, S, NB, ut, st);
+    return launch_bwd<8, 16>(table, grids, unions, g, d_table, H, W, G, R, S, NB, ut, st);
   if (CP == 64)
-    return launch_bwd<4>(table, grids, unions, g, d_table, H, W, G, R, S, NB, ut, st);
-  return launch_bwd<2>(table, grids, unions, g, d_table, H, W, G, R, S, NB, ut, st);
+    return launch_bwd<4, 16>(table, grids, unions, g, d_table, H, W, G, R, S, NB, ut, st);
+  return launch_bwd<4, 8>(table, grids, unions, g, d_table, H, W, G, R, S, NB, ut, st);
 }

@@ -41,6 +41,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cosine_bwd.cuh"
 #include "int8_exact.cuh"
 
 namespace {
@@ -49,8 +50,7 @@ constexpr int V = 3;
 constexpr int C = 128;          // channels per pair chunk
 constexpr int CC = 2 * C;       // channels per view table row
 constexpr int THREADS = 256;
-constexpr int LANES = C / 8;    // backward: lanes per sample, 8 channels each
-constexpr int SAMPLES_PER_BLOCK = THREADS / LANES;
+constexpr int LANES = C / 8;    // backward: lanes per sample and pair, 8 channels each
 
 // the forward's channels per lane: 16 on int8 and bf16 rows (8 lanes a
 // sample), 8 on f32 rows (16 lanes: 64 bytes of a tap row a lane were
@@ -234,94 +234,157 @@ int launch(const void* table, const void* grids, const void* scales, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- backward
+//
+// B': d_table of the f32 prior (no dequantisation scales), zeroed by the
+// wrapper. Per sample and pair the same 16 lanes recompute the four-tap
+// interpolation of the pair's two sides (the forward's tap rule: clip,
+// floor, border-clamped x1/y1), run the pair-mean grouped-cosine backward
+// exactly as pallas_banded.py::_grouped_cosine_bwd (no gradient through a
+// norm clamped at eps) and owe each side's gradient times each bilinear
+// weight to its four tap rows. Each (view, chunk) is one side of exactly one
+// pair, so the pairs' gradients touch disjoint columns of d_table.
+//
+// What bounds it: the scatter into d_table. Added one tap at a time it is
+// 3 views x 4 taps x 64 float4 atomics a sample (1.0e8 a launch at 1024
+// rays x 128 samples), and the 16 samples of a block, consecutive samples
+// of one ray, hit the same few cells at once. A ray's consecutive samples
+// mostly stay in a cell, so the design sums on chip first, as the JAX VJP's
+// per-ray dedup did with its kt buckets:
+//
+// 1. A block is 8 walks of 16 lanes, all on one pair (blockIdx.y), so a
+//    lane holds 8 channels of each of the pair's two sides. A walk takes
+//    WALK consecutive samples (flat n = ray * S + s: a ray's samples are
+//    contiguous) in order, so the walks in flight at one time lie on
+//    different rays, or far apart on one.
+// 2. Parity slots: a 2x2 footprint holds exactly one cell of each (row
+//    parity, column parity), so slot 2*py + px of a side holds the cell of
+//    parities (py, px) and a cell that stays in the footprint stays in its
+//    slot. A lane keeps each slot's 8-channel sum in registers while the
+//    slot's cell stays the same from sample to sample, and adds it to
+//    d_table, two float4 atomics, when the cell changes and at the end of
+//    the walk: one atomic per (run, cell, 4 channels), not per (sample,
+//    tap). No rule assumes monotone rays: a cell that leaves and comes back
+//    opens a new run, and any jump flushes every slot.
+// 3. Borders: where x0 = W-1 the tap x1 is clamped onto x0 with weight
+//    wx1 = x - x0 = 0 exactly (likewise y), so the slot of the cell past
+//    the border (x = W) reads the clamped row with weight 0 and is never
+//    flushed (key -1); the other slot holds x0 with its full weight.
+//
+// f32 throughout; the result differs from the plain twin only in the order
+// of summation. python -m matchnerf_tpu_torch.profile_prior --backward
+// counts the atomics for the training grids.
+
+constexpr int BWD_THREADS = 128;
+constexpr int BWD_WALKS = BWD_THREADS / LANES;    // walks per block
+constexpr int WALK = 64;                           // consecutive samples per walk
+
 // the backward's 8 channels of an f32 row
 __device__ __forceinline__ void load8(const float* p, float* f) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
   f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// ---------------------------------------------------------------- backward
-//
-// d_table of the f32 prior (no dequantisation scales): per sample, the same
-// half warp recomputes the four-tap interpolation of every view (the
-// forward's tap rule: clip, floor, border-clamped x1/y1), runs the pair-mean
-// grouped-cosine backward exactly as pallas_banded.py::_grouped_cosine_bwd
-// (no gradient through a norm clamped at eps), and adds the view's gradient
-// times each bilinear weight into the four tap rows of d_table
-// [V,H,W,2C] f32 (zeroed by the wrapper). Each (view, chunk) is one side of
-// exactly one pair, so a lane's 8-channel gradient of it is final before
-// the scatter. What bounds it: the scatter, 4 taps x 3 views x 256 channels
-// of f32 atomic adds per sample (~4e8 per scale at 1024 rays x 128
-// samples), issued as float4 vector atomics (sm_90) into the L2-resident
-// table gradient. Merging consecutive samples of a ray that share a cell
-// before the atomic is not done yet.
-
-__device__ __forceinline__ void atomic_add8(float* p, const float* v, float w) {
+__device__ __forceinline__ void atomic_add8(float* p, const float* v) {
 #if (__CUDACC_VER_MAJOR__ > 12) || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 4)
-  atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0] * w, v[1] * w, v[2] * w, v[3] * w));
-  atomicAdd(reinterpret_cast<float4*>(p + 4),
-            make_float4(v[4] * w, v[5] * w, v[6] * w, v[7] * w));
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  atomicAdd(reinterpret_cast<float4*>(p + 4), make_float4(v[4], v[5], v[6], v[7]));
 #else
 #pragma unroll
-  for (int e = 0; e < 8; ++e) atomicAdd(p + e, v[e] * w);
+  for (int e = 0; e < 8; ++e) atomicAdd(p + e, v[e]);
 #endif
 }
 
-__global__ void __launch_bounds__(THREADS)
+// one view's footprint at one sample in parity slots (item 2 above): the
+// table row of each slot's cell (clamped at the border), its key (the same
+// row, or -1 for a cell past the border) and its bilinear weight
+struct Foot {
+  int row[4], key[4];
+  float w[4];
+};
+
+__device__ __forceinline__ Foot footprint(const float* __restrict__ grids, int v, int n, int N,
+                                          int H, int W) {
+  const float gx = grids[((size_t)v * N + n) * 2 + 0];
+  const float gy = grids[((size_t)v * N + n) * 2 + 1];
+  const float x = fminf(fmaxf((gx + 1.f) * 0.5f * (float)(W - 1), 0.f), (float)(W - 1));
+  const float y = fminf(fmaxf((gy + 1.f) * 0.5f * (float)(H - 1), 0.f), (float)(H - 1));
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float wx[2] = {1.f - (x - x0f), x - x0f}, wy[2] = {1.f - (y - y0f), y - y0f};
+  const int x0 = (int)x0f, y0 = (int)y0f;
+  Foot f;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int a = (s >> 1) ^ (y0 & 1), b = (s & 1) ^ (x0 & 1);   // tap (y0 + a, x0 + b)
+    const int yy = y0 + a, xx = x0 + b;
+    f.row[s] = (v * H + min(yy, H - 1)) * W + min(xx, W - 1);
+    f.key[s] = yy < H && xx < W ? f.row[s] : -1;
+    f.w[s] = (a ? wy[1] : wy[0]) * (b ? wx[1] : wx[0]);
+  }
+  return f;
+}
+
+// 8 channels (from channel c0 of the row) of one side, interpolated
+__device__ __forceinline__ void interp8(const float* __restrict__ table, const Foot& f, int c0,
+                                        float* out) {
+  float r[4][8];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) load8(table + (size_t)f.row[s] * CC + c0, r[s]);
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    out[e] = r[0][e] * f.w[0] + r[1][e] * f.w[1] + r[2][e] * f.w[2] + r[3][e] * f.w[3];
+}
+
+// one side's slots after one more sample: a slot whose cell changed adds its
+// sum to d_table (at column c0 of its row) and restarts with this sample's
+// weight times df; a slot that keeps its cell accumulates. Only the add
+// branches: the two walks of a warp rarely flush together.
+__device__ __forceinline__ void slot_update(float (&acc)[4][8], int (&key)[4], const Foot& f,
+                                            const float* df, float* __restrict__ d_table,
+                                            int c0) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const bool changed = f.key[s] != key[s];
+    if (changed && key[s] >= 0) atomic_add8(d_table + (size_t)key[s] * CC + c0, acc[s]);
+    key[s] = f.key[s];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[s][e] = fmaf(f.w[s], df[e], changed ? 0.f : acc[s][e]);
+  }
+}
+
+__global__ void __launch_bounds__(BWD_THREADS)
 cosine_prior_bwd_kernel(const float* __restrict__ table, const float* __restrict__ grids,
                         const float* __restrict__ g, float* __restrict__ d_table,
                         int H, int W, int G, int N) {
-  const int lane = threadIdx.x % LANES;
-  const int n_raw = blockIdx.x * SAMPLES_PER_BLOCK + threadIdx.x / LANES;
-  const int n = min(n_raw, N - 1);
-  const int o = lane * 8;
-
-  float f[V][2][8];
-  const float* row[V][4];
-  float wt[V][4];
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const float gx = grids[((size_t)v * N + n) * 2 + 0];
-    const float gy = grids[((size_t)v * N + n) * 2 + 1];
-    const float x = fminf(fmaxf((gx + 1.f) * 0.5f * (float)(W - 1), 0.f), (float)(W - 1));
-    const float y = fminf(fmaxf((gy + 1.f) * 0.5f * (float)(H - 1), 0.f), (float)(H - 1));
-    const float x0f = floorf(x), y0f = floorf(y);
-    const float wx1 = x - x0f, wy1 = y - y0f;
-    const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
-    const int x0 = (int)x0f, y0 = (int)y0f;
-    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
-    wt[v][0] = wy0 * wx0; wt[v][1] = wy0 * wx1; wt[v][2] = wy1 * wx0; wt[v][3] = wy1 * wx1;
-    const size_t tv = (size_t)v * H * W;
-    row[v][0] = table + (tv + (size_t)y0 * W + x0) * CC;
-    row[v][1] = table + (tv + (size_t)y0 * W + x1) * CC;
-    row[v][2] = table + (tv + (size_t)y1 * W + x0) * CC;
-    row[v][3] = table + (tv + (size_t)y1 * W + x1) * CC;
-#pragma unroll
-    for (int ch = 0; ch < 2; ++ch) {
-      const int c0 = ch * C + o;
-      float a[8], b[8], c[8], d[8];
-      load8(row[v][0] + c0, a);
-      load8(row[v][1] + c0, b);
-      load8(row[v][2] + c0, c);
-      load8(row[v][3] + c0, d);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        f[v][ch][e] = a[e] * wt[v][0] + b[e] * wt[v][1] + c[e] * wt[v][2] + d[e] * wt[v][3];
-    }
-  }
-
-  const int lanes_per_group = LANES / G;
-  const float dcos = g[(size_t)n * G + lane / lanes_per_group] * (1.f / 3.f);
-  const float eps = 1e-8f;
-  float df[V][2][8];
   constexpr int PI[3] = {0, 0, 1}, PJ[3] = {1, 2, 2};
+  const int p = blockIdx.y;
+  const int vi = PI[p], vj = PJ[p], ca = (vj - 1) * C, cb = vi * C;
+  const int lane = threadIdx.x % LANES;
+  const int walk = blockIdx.x * BWD_WALKS + threadIdx.x / LANES;
+  // the walk's 16 lanes shuffle among themselves only: the two walks of a
+  // warp branch apart at their flushes and ends
+  const unsigned mask = 0xffffu << (threadIdx.x & 16);
+  const int o = lane * 8;
+  const int lanes_per_group = LANES / G;
+  const int group = lane / lanes_per_group;
+
+  float acc[2][4][8];
+  int key[2][4];
 #pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    const int vi = PI[p], vj = PJ[p], ca = vj - 1, cb = vi;
-    const float* fa = f[vi][ca];
-    const float* fb = f[vj][cb];
+  for (int s = 0; s < 4; ++s) {
+    key[0][s] = key[1][s] = -1;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[0][s][e] = acc[1][s][e] = 0.f;
+  }
+  const int n_end = min(N, (walk + 1) * WALK);
+#pragma unroll 1
+  for (int n = walk * WALK; n < n_end; ++n) {
+    const Foot ta = footprint(grids, vi, n, N, H, W), tb = footprint(grids, vj, n, N, H, W);
+    float fa[8], fb[8];
+    interp8(table, ta, ca + o, fa);
+    interp8(table, tb, cb + o, fb);
     float dot = 0.f, na2 = 0.f, nb2 = 0.f;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -330,31 +393,25 @@ cosine_prior_bwd_kernel(const float* __restrict__ table, const float* __restrict
       nb2 = fmaf(fb[e], fb[e], nb2);
     }
     for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
-      dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      na2 += __shfl_xor_sync(0xffffffffu, na2, off);
-      nb2 += __shfl_xor_sync(0xffffffffu, nb2, off);
+      dot += __shfl_xor_sync(mask, dot, off);
+      na2 += __shfl_xor_sync(mask, na2, off);
+      nb2 += __shfl_xor_sync(mask, nb2, off);
     }
-    const float sna = sqrtf(na2), snb = sqrtf(nb2);
-    const float na = fmaxf(sna, eps), nb = fmaxf(snb, eps);
-    const float inv_ab = 1.f / (na * nb);
-    const float d_dot = dcos * inv_ab;
-    const float d_na2 = sna > eps ? -dcos * dot * inv_ab / na * (0.5f / na) : 0.f;
-    const float d_nb2 = snb > eps ? -dcos * dot * inv_ab / nb * (0.5f / nb) : 0.f;
+    float d_dot, d_na2, d_nb2;
+    cosine_bwd(g[(size_t)n * G + group] * (1.f / 3.f), dot, na2, nb2, d_dot, d_na2, d_nb2);
+    float dfa[8], dfb[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      df[vi][ca][e] = d_dot * fb[e] + 2.f * d_na2 * fa[e];
-      df[vj][cb][e] = d_dot * fa[e] + 2.f * d_nb2 * fb[e];
+      dfa[e] = d_dot * fb[e] + 2.f * d_na2 * fa[e];
+      dfb[e] = d_dot * fa[e] + 2.f * d_nb2 * fb[e];
     }
+    slot_update(acc[0], key[0], ta, dfa, d_table, ca + o);
+    slot_update(acc[1], key[1], tb, dfb, d_table, cb + o);
   }
-  if (n_raw >= N) return;              // after the last shuffle
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      float* dr = d_table + (row[v][t] - table);
-#pragma unroll
-      for (int ch = 0; ch < 2; ++ch) atomic_add8(dr + ch * C + o, df[v][ch], wt[v][t]);
-    }
+  for (int s = 0; s < 4; ++s) {
+    if (key[0][s] >= 0) atomic_add8(d_table + (size_t)key[0][s] * CC + ca + o, acc[0][s]);
+    if (key[1][s] >= 0) atomic_add8(d_table + (size_t)key[1][s] * CC + cb + o, acc[1][s]);
   }
 }
 
@@ -367,8 +424,9 @@ extern "C" int cosine_prior_bwd_f32(const void* table, const void* grids,
       !(G == 1 || G == 2 || G == 4 || G == 8 || G == 16))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
-  const int blocks = (N + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK;
-  cosine_prior_bwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int walks = (N + WALK - 1) / WALK;
+  const dim3 blocks((walks + BWD_WALKS - 1) / BWD_WALKS, 3);
+  cosine_prior_bwd_kernel<<<blocks, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), static_cast<const float*>(grids),
       static_cast<const float*>(g), static_cast<float*>(d_table), H, W, G, N);
   return (int)cudaGetLastError();

@@ -6,7 +6,9 @@ Replaces matchnerf_tpu/ops/pallas_block_banded.py::block_banded_cosine_scale
 with scales and on bf16 tables without) and
 ::block_banded_cosine_scale_trainable (its custom VJP on f32 tables: D', an
 f32 forward and a backward that sums each union row's gradient over the
-block in shared memory before one global add per row; the JAX package
+block in shared memory, each walk's consecutive samples (a band of depths
+across the block's 8 rays) merged in registers first, before one global
+add per row; the JAX package
 also reaches it on bf16 eval tables, whose forward is Kernel D's). The
 CUDA source is csrc/block_cosine_prior.cu; `block_cosine_prior_plain` is
 the same function in plain PyTorch, along the same union route, and its

@@ -8,8 +8,11 @@ function in plain PyTorch (the JAX direct path: `grid_sample` on each view,
 then `_grouped_cosine`, matchnerf.py:389-402), and its autograd is the
 plain backward. On a CUDA f32 table that requires grad, `cosine_prior`
 goes through `CosinePriorFn`: Kernel B forward, then the B' backward
-kernel, which scatters the table gradient with atomics; the sample grids
-get no gradient (the JAX VJP returns zeros for them). On bf16 tables (the
+kernel, which walks each ray's consecutive samples in order and adds a
+tap cell's summed gradient to the table gradient once per run of samples
+that keep the cell (float4 atomics; the JAX VJP's per-ray dedup, done in
+the kernel); the sample grids get no gradient (the JAX VJP returns zeros
+for them). On bf16 tables (the
 eval renders of configs/train.yaml) the JAX package reaches the
 `_trainable` wrapper too, whose forward is the same kernel: here Kernel B's
 bf16 forward.
@@ -19,9 +22,8 @@ table [V,h,w,(V-1)*C] (align_corners, border clamp), multiplies by the
 per-(view, channel) dequantisation scale after interpolation, then for each
 pair (i, j) of `pair_index_lists` takes the grouped cosine of view i's chunk
 j-1 against view j's chunk i (eps 1e-8 on each norm) and averages over the
-pairs. Output [R,S,G] f32. The JAX package's run-length dedup (`kt`
-buckets) and 2x2 packing only existed to save TPU gathers and are not
-carried.
+pairs. Output [R,S,G] f32. The JAX package's `kt` buckets and 2x2
+packing only existed to save TPU gathers and are not carried.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Kernels B and D on the card, against another build of their sources.
 
     python -m matchnerf_tpu_torch.profile_prior [--against DIR] [--sass] [--phases]
+    python -m matchnerf_tpu_torch.profile_prior --backward [--against DIR] [--sass]
 
 Times the cosine prior of both feature scales at the DTU eval render's
 shapes: the first 20480 rays (one render slice) and the first 4096 rays
@@ -27,6 +28,26 @@ and chunk, as in Kernel B, a count is per sample and lane). With `--phases`, Ker
 none) and prints the mean cycles per block of its union build, its staging
 passes and its sample loops at the 20480-ray slice. Prints the card's name
 and power limit and, as its last line, one JSON object with every number.
+
+With `--backward` it times the training prior's table gradient instead:
+the B' kernel (`cosine_prior_bwd_f32`) on 1024 iid rays of the pose
+(configs/train.yaml) and D''s backward (`block_cosine_prior_bwd_f32`) on 128
+strips of 8 pixels (configs/train_fast.yaml), S = 128 with stratified
+depths, on random f32 tables of the training shapes ([3,64,80,256] at G = 2,
+[3,128,160,256] at G = 8) at the pose's union buckets. Each kernel is called
+alone on a zeroed gradient and held to autograd through its plain twin
+(max |d| against 1e-5 of the largest gradient), then timed with CUDA events
+over 20 launches (the gradient accumulates: the zeroing is not timed), in
+turns with `--against`. Beside the times it counts, on the host, the
+atomics each design issues for these grids: B''s float4 global atomics, one
+per (sample, view, tap, 4 channels) before its redesign, one per run of
+consecutive samples of a walk that keep a cell after it, for walks of 32,
+64 and 128 consecutive samples (the reuse factor is the quotient); D''s
+shared-memory f32 atomics, one per (sample, side, tap, channel) before its
+redesign, one f32 add per run of a walk and channel after it (a band of
+depths across the block's 8 rays; 4 channels a 128-bit compare-and-swap),
+and its float4 global atomics, one per (block, union row, 4
+channels). `--sass` adds each kernel's atomic instructions by full mnemonic.
 """
 from __future__ import annotations
 
@@ -77,7 +98,9 @@ def bind(lib):
 
 
 def sass_counts(lib_path: str) -> dict:
-    """{kernel function: {opcode: count}} for the cosine-prior kernels."""
+    """{kernel function: {opcode: count}} for the cosine-prior kernels, and
+    under "atomics" each atomic instruction's full mnemonic (ATOMS.CAST.SPIN
+    is a compare-and-swap loop's, RED.E.ADD.F32x4 a float4 reduction's)."""
     cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
     proc = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True,
                           text=True)
@@ -90,12 +113,17 @@ def sass_counts(lib_path: str) -> dict:
             fn = m.group(1) if "cosine_prior" in m.group(1) else None
             if fn:
                 counts[fn] = collections.Counter()
+                counts[fn]["atomics"] = collections.Counter()
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\S*)",
+                     line)
         if fn and m:
             counts[fn][m.group(1)] += 1
             counts[fn]["total"] += 1
-    return {k: {op: v[op] for op in (*OPCODES, "total")} for k, v in counts.items()}
+            if m.group(1).startswith(("ATOM", "RED")):
+                counts[fn]["atomics"][m.group(1) + m.group(2)] += 1
+    return {k: {**{op: v[op] for op in (*OPCODES, "total")}, "atomics": dict(v["atomics"])}
+            for k, v in counts.items()}
 
 
 def d_phases(torch, kd, cases, block_ut) -> list:
@@ -131,15 +159,9 @@ def d_phases(torch, kd, cases, block_ut) -> list:
     return rows
 
 
-def scene_grids(torch, dev):
-    """The target pose of chip_smoke.py's scene: its eval grids [V,R,S,2]
-    for the first SLICE_RAYS rays, grids at TRAIN_RAYS random pixels, and
-    the pose's union buckets per feature scale."""
-    from . import camera
-    from .config import dtu_eval_config
+def scene_poses():
+    """chip_smoke.py's cameras (seed 0): 3 source views and the target."""
     from .data.synth import look_at_opencv
-    from .models.matchnerf import project_to_views, sample_depth
-    from .renderer import Renderer
     rng = np.random.default_rng(0)
     angles = np.deg2rad([-16.0, 0.0, 16.0, 8.0]) + rng.uniform(-0.02, 0.02, 4)
     w2cs = []
@@ -153,10 +175,21 @@ def scene_grids(torch, dev):
     K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]], np.float32)
     intr = np.tile(K, (1, 4, 1, 1))
     nf = np.tile(np.asarray(DTU_NEAR_FAR, np.float32), (1, 4, 1))
-    poses = {"tgt": {"extrinsics": w2cs[:, -1, :3], "intrinsics": intr[:, -1],
-                     "near_fars": nf[:, -1]},
-             "ref": {"extrinsics": w2cs[:, :-1, :3], "intrinsics": intr[:, :-1],
-                     "near_fars": nf[:, :-1]}}
+    return {"tgt": {"extrinsics": w2cs[:, -1, :3], "intrinsics": intr[:, -1],
+                    "near_fars": nf[:, -1]},
+            "ref": {"extrinsics": w2cs[:, :-1, :3], "intrinsics": intr[:, :-1],
+                    "near_fars": nf[:, :-1]}}
+
+
+def scene_grids(torch, dev):
+    """The target pose of chip_smoke.py's scene: its eval grids [V,R,S,2]
+    for the first SLICE_RAYS rays, grids at TRAIN_RAYS random pixels, and
+    the pose's union buckets per feature scale."""
+    from . import camera
+    from .config import dtu_eval_config
+    from .models.matchnerf import project_to_views, sample_depth
+    from .renderer import Renderer
+    poses = scene_poses()
     cfg = dtu_eval_config()
     r = Renderer(cfg, None, dev)
     block_ut, _ = r.pose_prep(poses, [(H // 8, W // 8), (H // 4, W // 4)], H, W)
@@ -175,6 +208,214 @@ def scene_grids(torch, dev):
     return grids_at(pix[:SLICE_RAYS]), grids_at(train_pix), block_ut
 
 
+def train_grids(torch, dev, patches: bool, seed: int):
+    """Grids [3,1024,128,2] of configs/train.yaml's training rays at the pose
+    of `scene_grids` (its cameras, 640x512): 1024 iid pixels, or with
+    `patches` 128 strips of 8 pixels (train_fast.yaml); stratified depths
+    as `TrainStep` draws them."""
+    from . import camera
+    from .config import dtu_train_config
+    from .models.matchnerf import project_to_views, sample_depth
+    from .renderer import Renderer
+    from .train_step import sample_ray_indices
+    cfg = dtu_train_config()
+    r = Renderer(cfg, None, dev)
+    tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = r._pose_tensors(scene_poses())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = sample_ray_indices(H * W, TRAIN_RAYS, patches, dev, gen)
+    pix = torch.stack([(idx % W).float(), (idx // W).float()], -1)[None]
+    center, ray = camera.get_center_and_ray(pix, tgt_intr, c2w)
+    depth = sample_depth(cfg, tgt_nf, 1, TRAIN_RAYS, stratified=True, generator=gen)
+    pts = camera.get_3d_points_from_depth(center, ray, depth, multi_samples=True)
+    return (project_to_views(pts, ref_w2c, ref_intr, ref_nf, H, W)[..., :2]
+            * 2.0 - 1.0)[:, 0].contiguous()
+
+
+def slot_cells(torch, grids, h: int, w: int):
+    """grids [V,R,S,2] -> the cell each of a sample's four parity slots holds
+    (slot (py, px) holds the footprint cell whose row and column have those
+    parities; a 2x2 footprint has one cell of each): (keys [V,R,S,4], unique
+    over the table widened by one row and column, real [V,R,S,4], False
+    where the cell lies past the border (a clamped tap, weight 0), and the
+    clamped cell y*w + x [V,R,S,4])."""
+    from .ops.grid_sample import bilinear_taps
+    (y0, x0, _, _), _ = bilinear_taps(grids, h, w)
+    keys, real, cells = [], [], []
+    for py in (0, 1):
+        for px in (0, 1):
+            y = y0 + ((y0 & 1) ^ py)
+            x = x0 + ((x0 & 1) ^ px)
+            keys.append(y * (w + 1) + x)
+            real.append((y < h) & (x < w))
+            cells.append(torch.clamp_max(y, h - 1) * w + torch.clamp_max(x, w - 1))
+    return torch.stack(keys, -1), torch.stack(real, -1), torch.stack(cells, -1)
+
+
+def run_starts(torch, keys, live, order, first) -> int:
+    """Slots a walk flushes: keys, live [M, 4] per sample (flat index);
+    `order` [K] the samples in walk order, `first` [K] True where a walk
+    starts. A slot flushes once per run of consecutive walk samples that
+    keep its cell, where the cell is live."""
+    k, lv = keys[order], live[order]
+    new = torch.ones_like(lv)
+    new[1:] = k[1:] != k[:-1]
+    new[first] = True
+    return int((new & lv).sum())
+
+
+def d_walks(cp: int) -> int:
+    """D''s sample groups (walks) per block at CP channels a pass: 512
+    threads, 8 lanes a group at CP 32, 16 at CP 64 and 128."""
+    return 64 if cp == 32 else 32
+
+
+def d_walk_order(torch, dev, R_pad: int, S: int, walks: int):
+    """D''s walks: in each 8-ray block `walks` sample groups, group k on
+    depths k * ceil(S / walks) onwards, each depth across the 8 rays,
+    serpentine (even depths over rays 0..7, odd ones back). -> (order [K]
+    flat sample indices, first [K])."""
+    seg = -(-S // walks)
+    order, first = [], []
+    for k in range(walks):
+        depths = torch.arange(k * seg, min(S, (k + 1) * seg), device=dev)
+        if depths.numel() == 0:
+            continue
+        rays = torch.arange(8, device=dev)[None].expand(depths.numel(), 8).clone()
+        rays[1::2] = rays[1::2].flip(-1)
+        walk = (rays * S + depths[:, None]).reshape(-1)            # [seg * 8] in the block
+        blocks = torch.arange(R_pad // 8, device=dev)[:, None] * (8 * S)
+        order.append((blocks + walk[None]).reshape(-1))
+        f = torch.zeros(R_pad // 8, walk.numel(), dtype=torch.bool, device=dev)
+        f[:, 0] = True
+        first.append(f.reshape(-1))
+    return torch.cat(order), torch.cat(first)
+
+
+def atomic_counts(torch, dev, grids_ray, grids_strip, h: int, w: int, ut: int,
+                  cp: int) -> dict:
+    """What B' and D''s backward issue for these grids, before and after
+    their redesign (see the module's docstring)."""
+    from .ops import block_cosine_prior as kd
+    V, R, S = grids_ray.shape[:3]
+    N = R * S
+    keys, real, _ = slot_cells(torch, grids_ray, h, w)
+    out = {"b_float4_per_tap": N * V * 4 * 64}
+    for walk in (32, 64, 128):
+        n = torch.arange(N, device=dev)
+        out[f"b_float4_walk{walk}"] = sum(
+            run_starts(torch, keys[v].reshape(N, 4), real[v].reshape(N, 4), n, n % walk == 0)
+            for v in range(V)) * 64
+    out["b_reuse"] = {k: out["b_float4_per_tap"] / v for k, v in out.items()
+                      if k.startswith("b_float4_walk")}
+    gp = kd.pad_rays(grids_strip)
+    Rp = gp.shape[1]
+    unions = kd.block_unions(gp, h, w, ut).view(V, Rp // 8, ut)
+    keys, real, cells = slot_cells(torch, gp, h, w)
+    order, first = d_walk_order(torch, dev, Rp, S, d_walks(cp))
+    ray_ok = (torch.arange(Rp, device=dev) < R)[:, None, None].expand(Rp, S, 4)
+    shared = 0
+    for v in range(V):
+        _, found = kd.union_positions(unions[v], cells[v].reshape(Rp // 8, 8 * S * 4), h * w)
+        live = real[v] & found.reshape(Rp, S, 4) & ray_ok
+        shared += run_starts(torch, keys[v].reshape(-1, 4), live.reshape(-1, 4), order, first)
+    out["d_shared_f32_per_tap"] = N * 3 * 2 * 4 * 128
+    out["d_shared_f32_walks"] = shared * 256
+    out["d_reuse"] = out["d_shared_f32_per_tap"] / out["d_shared_f32_walks"]
+    out["d_shared_cas128"] = shared * 64
+    out["d_global_float4"] = int((unions >= 0).sum()) * 64
+    return out
+
+
+def backward(torch, dev, libs, block_ut, result):
+    """The B' and D' backward kernels alone at the training shapes (see the
+    module's docstring), this tree's and `libs`' in turns."""
+    from .ops import block_cosine_prior as kd
+    from .ops import cosine_prior as kb
+    this = kernels.library()
+    grids_ray = train_grids(torch, dev, False, 3)
+    grids_strip = train_grids(torch, dev, True, 4)
+    R, S = grids_ray.shape[1:3]
+    N = R * S
+    gen = torch.Generator(device=dev).manual_seed(5)
+    result["backward"] = []
+    for s, (h, w, G) in enumerate(((H // 8, W // 8, 2), (H // 4, W // 4, 8))):
+        ut = block_ut[s]
+        table = torch.randn(3, h, w, 256, generator=gen, device=dev)
+        gcot = torch.randn(R, S, G, generator=gen, device=dev)
+        cp = kd.channels_per_pass(ut, S, G, backward=True)
+        counts = atomic_counts(torch, dev, grids_ray, grids_strip, h, w, ut, cp)
+        print(f"scale {s} {h}x{w} G={G} ut={ut} atomics: " + ", ".join(
+            f"{k} {v}" if not isinstance(v, float) else f"{k} {v:.3f}"
+            for k, v in counts.items()), flush=True)
+
+        def plain_grad(fn, grids):
+            t = table.clone().requires_grad_()
+            fn(t, grids).backward(gcot)
+            return t.grad
+
+        _, unions = kd._forward(table, grids_strip, None, G, ut, with_unions=True)
+        gp = kd.pad_rays(grids_strip)
+        args = {
+            "B'": ("cosine_prior_bwd_f32", grids_ray,
+                   lambda d: (table.data_ptr(), grids_ray.data_ptr(), gcot.data_ptr(),
+                              d.data_ptr(), 3, h, w, 128, G, N),
+                   plain_grad(lambda t, g: kb.cosine_prior_plain(t, g, None, G), grids_ray)),
+            "D'": ("block_cosine_prior_bwd_f32", grids_strip,
+                   lambda d: (table.data_ptr(), gp.data_ptr(), unions.data_ptr(),
+                              gcot.data_ptr(), d.data_ptr(), 3, h, w, 128, G, R, S,
+                              gp.shape[1] // 8, ut, cp),
+                   plain_grad(lambda t, g: kd.block_cosine_prior_plain(t, g, None, G, ut),
+                              grids_strip))}
+        for kernel, (entry, _, kargs, ref) in args.items():
+            d = torch.zeros_like(table)
+            fns, errs = {}, {}
+            for key, lib in (("this", this), *libs.items()):
+                d.zero_()
+                call(torch, lib, entry, *kargs(d))
+                torch.cuda.synchronize()
+                errs[key] = float((d - ref).abs().max())
+                fns[key] = lambda lib=lib: call(torch, lib, entry, *kargs(d))
+            order = [k for k in ("other", "this") if k in fns]
+            times = {k: [] for k in order}
+            for k in order + order[::-1]:
+                times[k].append(events_ms(torch, fns[k]))
+            tol = 1e-5 * float(ref.abs().max())
+            line = f"{kernel} backward scale {s} R={R} S={S} G={G}"
+            line += f" ut={ut} CP={cp}: " if kernel == "D'" else ": "
+            print(line + "; ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in ts)
+                                   + f" ms (max|d| {errs[k]:.2e}, tol {tol:.2e})"
+                                   for k, ts in times.items()), flush=True)
+            result["backward"].append({"kernel": kernel, "scale": s, "R": R, "S": S, "G": G,
+                                       "ut": ut, "cp": cp, "ms": times, "max_abs_err": errs,
+                                       "tol": tol, "atomics": counts})
+            if errs["this"] > tol:
+                raise AssertionError(f"{kernel} scale {s}: max|d| {errs['this']:.2e} over "
+                                     f"{tol:.2e}")
+        del table, unions, d
+
+
+def events_ms(torch, fn):
+    """Mean milliseconds per call: CUDA events over ITERS calls after two
+    warm-up calls."""
+    for _ in range(2):
+        fn()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(ITERS):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / ITERS
+
+
+def call(torch, lib, name, *a):
+    """One C launcher of `lib` on the current stream; raise on a CUDA error."""
+    err = getattr(lib, name)(*a, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, default=None,
@@ -184,6 +425,9 @@ def main(argv=None):
     ap.add_argument("--phases", action="store_true",
                     help="Kernel D's cycles per block in its union build, staging and "
                          "sample loops (a build with -DKERNEL_D_PHASES)")
+    ap.add_argument("--backward", action="store_true",
+                    help="time B' and D''s backward kernels at the training shapes "
+                         "instead, with their atomic counts")
     args = ap.parse_args(argv)
     import torch
 
@@ -210,28 +454,11 @@ def main(argv=None):
                 print(f"sass {key} {fn}: " + ", ".join(f"{op} {n}" for op, n in c.items()
                                                        if n), flush=True)
 
-    def events_ms(fn):
-        for _ in range(2):
-            fn()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        e0.record()
-        for _ in range(ITERS):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / ITERS
-
-    def call(lib, name, *a):
-        err = getattr(lib, name)(*a, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{name}: CUDA error {err}")
-
     def b_lib(lib, table, grids, scales, G):
         V, h, w, _ = table.shape
         R, S = grids.shape[1:3]
         out = torch.empty(R, S, G, device=dev)
-        call(lib, kb.ENTRIES[table.dtype], table.data_ptr(), grids.data_ptr(),
+        call(torch, lib, kb.ENTRIES[table.dtype], table.data_ptr(), grids.data_ptr(),
              kernels.ptr(scales), out.data_ptr(), V, h, w, 128, G, R * S)
         return out
 
@@ -241,13 +468,18 @@ def main(argv=None):
         R, S = grids.shape[1:3]
         cp = kd.channels_per_pass(ut, S, G, False, 2, h * w)   # rows staged as bf16
         out = torch.empty(R, S, G, device=dev)
-        call(lib, kd.ENTRIES[table.dtype], table.data_ptr(), grids.data_ptr(),
+        call(torch, lib, kd.ENTRIES[table.dtype], table.data_ptr(), grids.data_ptr(),
              kernels.ptr(scales), None, out.data_ptr(), V, h, w, 128, G, R, S, ut, cp)
         return out
 
     grids_all, grids_train, block_ut = scene_grids(torch, dev)
     print(f"pose buckets {block_ut}", flush=True)
     result["block_ut"] = list(block_ut)
+    if args.backward:
+        backward(torch, dev, libs, block_ut, result)
+        print(card_line(), flush=True)
+        print(json.dumps(result), flush=True)
+        return 0
     gen = torch.Generator(device=dev).manual_seed(2)
     cases = []
     for s, (h, w, G) in enumerate(((H // 8, W // 8, 2), (H // 4, W // 4, 8))):
@@ -281,14 +513,14 @@ def main(argv=None):
         order = [k for k in ("other", "this") if k in fns]
         times = {k: [] for k in order}
         for k in order + order[::-1]:
-            times[k].append(events_ms(fns[k]))
+            times[k].append(events_ms(torch, fns[k]))
         entry = {"kernel": kernel, "dtype": dt, "scale": s, "R": R, "G": G, "ms": times,
                  "max_abs_err": errs}
         line = f"{kernel} {dt} scale {s} R={R} G={G}"
         if kernel == "D":
             gp = kd.pad_rays(g)
             entry["ut"] = ut
-            entry["union_build_ms"] = events_ms(lambda: kd.block_unions(gp, h, w, ut))
+            entry["union_build_ms"] = events_ms(torch, lambda: kd.block_unions(gp, h, w, ut))
             line += f" ut={ut}, the plain twin's union build {entry['union_build_ms']:.4f} ms"
         print(line + ": " + "; ".join(f"{k} {fmt(t)} ms (max|d| {errs[k]:.2e})"
                                       for k, t in times.items()), flush=True)

@@ -16,10 +16,12 @@ package, on the CPU.
   stencil), the port's plain Kernel B at atol 1e-5; the bf16 staging fits
   every bucket at S = 128 and the route (`takes_table`) follows the dtype.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_cosine_prior import _cosine_bwd, _edge_grids, _slot_footprint
 
 from matchnerf_tpu.models.gmflow.gmflow import pair_index_lists
 from matchnerf_tpu.ops import pallas_block_banded as jbb
@@ -405,3 +407,143 @@ def test_pair_cosine_slot_layout(n_groups, SW, CP):
         assert sorted(got) == list(range(c0 // gsize, (c0 + CP) // gsize))
         for g, cos in got.items():
             np.testing.assert_allclose(cos, ref[:, g], atol=1e-6, rtol=1e-5)
+
+
+# --------------------------------------------------------- D''s backward walks
+PAIRS = pair_index_lists(V)
+
+
+def d_prime_walks(table, grids, g, n_groups, ut, walks):
+    """csrc/block_cosine_prior.cu's D' backward in numpy, per 8-ray block:
+    each sample's four taps in parity slots as rows of the block's union
+    (the zero row ut past the border or missing from an overflowed union);
+    `walks` walks (32, or 64 at 32 channels a pass), walk k on depths
+    k * ceil(S / walks) onwards, each depth across the block's rays,
+    serpentine (even depths rays 0..7, odd ones back), padded rays skipped;
+    per pair each
+    side's slots sum their row's gradient while the row stays and add it to
+    the block's d_acc when it changes and at the walk's end (never the zero
+    row); then each union row of d_acc goes to d_table once. -> (d_table,
+    the number of slot adds into d_acc)."""
+    Vv, h, w, Cc = table.shape
+    C = Cc // 2
+    R, S = grids.shape[1:3]
+    gp = _pad_np(grids)
+    NB = gp.shape[1] // 8
+    unions = kd.block_unions(torch.tensor(gp), h, w, ut).numpy().reshape(Vv, NB, ut)
+    rows = table.reshape(Vv, h * w, Cc).astype(np.float64)
+    d = np.zeros_like(rows)
+    seg = -(-S // walks)
+    adds = 0
+    for b in range(NB):
+        slots = []
+        for v in range(Vv):
+            cells, keys, wts = _slot_footprint(gp[v, 8 * b:8 * b + 8].reshape(-1, 2), h, w)
+            u = np.where(unions[v, b] < 0, h * w, unions[v, b])
+            pos = np.minimum(np.searchsorted(u, cells), ut - 1)
+            slots.append((np.where((keys >= 0) & (u[pos] == cells), pos, ut), wts))
+        for (i, j) in PAIRS:
+            sides = ((i, (j - 1) * C), (j, i * C))
+            staged = [np.concatenate([np.where(unions[v, b, :, None] >= 0,
+                                               rows[v, np.maximum(unions[v, b], 0), c0:c0 + C],
+                                               0.0), np.zeros((1, C))]) for v, c0 in sides]
+            dacc = np.zeros((2, ut + 1, C))
+            for k in range(walks):
+                keys, acc = [[ut] * 4, [ut] * 4], np.zeros((2, 4, C))
+                walk = [(ray if d % 2 == 0 else 7 - ray, pos)
+                        for d, pos in enumerate(range(k * seg, min(S, (k + 1) * seg)))
+                        for ray in range(8)]
+                for ray, pos in walk:
+                    if 8 * b + ray >= R:
+                        continue
+                    nl = ray * S + pos
+                    f = [(slots[v][1][nl][:, None] * staged[side][slots[v][0][nl]]).sum(0)
+                         for side, (v, _) in enumerate(sides)]
+                    dfs = _cosine_bwd(f[0], f[1], g[8 * b + ray, pos].astype(np.float64) / 3.0,
+                                      n_groups)
+                    for side, (v, _) in enumerate(sides):
+                        for s in range(4):
+                            new, wt = slots[v][0][nl][s], slots[v][1][nl][s]
+                            if new != keys[side][s]:
+                                if keys[side][s] != ut:
+                                    dacc[side, keys[side][s]] += acc[side, s]
+                                    adds += 1
+                                keys[side][s], acc[side, s] = new, wt * dfs[side]
+                            else:
+                                acc[side, s] += wt * dfs[side]
+                for side in range(2):
+                    for s in range(4):
+                        if keys[side][s] != ut:
+                            dacc[side, keys[side][s]] += acc[side, s]
+                            adds += 1
+            for side, (v, c0) in enumerate(sides):
+                for r in np.nonzero(unions[v, b] >= 0)[0]:
+                    d[v, unions[v, b, r], c0:c0 + C] += dacc[side, r]
+    return d.reshape(table.shape), adds
+
+
+@pytest.mark.parametrize("n_groups,R,S,overflow,walks", [
+    (1, 16, 24, False, 32), (2, 13, 30, False, 32), (4, 16, 24, True, 64),
+    (8, 11, 24, False, 64), (8, 11, 70, False, 64), (16, 16, 28, False, 32)])
+def test_d_prime_walks_match_plain_jax_and_b_prime(n_groups, R, S, overflow, walks):
+    """D''s walks give the plain twin's table gradient, on rays that stay in
+    one cell, run along the borders and revisit a cell, a ragged R (padded
+    rays walk nothing) and S not a multiple of the walks (short bands, and
+    at S = 70 of 64 walks bands of 2 depths and walks with none); without
+    overflow also the JAX custom VJP's and B''s plain gradient (the same
+    function); with a bucket below the union, taps missing from it add
+    nothing, as in the plain twin. Fewer adds into d_acc than one per
+    (sample, side, tap), even on these unrelated rays."""
+    rng = np.random.default_rng(23)
+    h, w, Cc = 12, 14, 64                              # 2 channels a group at G = 16
+    feat = rng.normal(0, 1, (V, h, w, Cc)).astype(np.float32)
+    grids = _edge_grids(rng, R, S)
+    gcot = rng.normal(0, 1, (R, S, n_groups)).astype(np.float32)
+    raw = kd.block_union_size_raw(torch.tensor(_pad_np(grids)), h, w)
+    ut = 64 if overflow else kd.bucket_ut(raw)
+    assert (raw > ut) == overflow, (raw, ut)
+    got, adds = d_prime_walks(feat, grids, gcot, n_groups, ut, walks)
+
+    def plain_grad(fn):
+        t = torch.tensor(feat, requires_grad=True)
+        fn(t, torch.tensor(grids)).backward(torch.tensor(gcot))
+        return t.grad.numpy()
+
+    ref = plain_grad(lambda t, gr: kd.block_cosine_prior_plain(t, gr, None, n_groups, ut))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    assert adds < 3 * 2 * 4 * R * S, adds
+    if overflow:
+        return
+    ref_b = plain_grad(lambda t, gr: kb.cosine_prior_plain(t, gr, None, n_groups))
+    np.testing.assert_allclose(got, ref_b, rtol=0, atol=1e-5 * np.abs(ref_b).max())
+    gp = _pad_np(grids)
+    pad = gp.shape[1] - R
+    _, vjp = jax.vjp(lambda vf: jbb.block_banded_cosine_scale_trainable(
+        vf, jnp.asarray(gp)[:, None], 4 * S, ut, n_groups, PAIRS, 8), jnp.asarray(feat)[None])
+    (jg,) = vjp(jnp.asarray(np.pad(gcot, ((0, pad), (0, 0), (0, 0))))[None])
+    np.testing.assert_allclose(got, np.asarray(jg)[0], atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("walks", [32, 64])
+def test_d_prime_walks_merge_a_strip(walks):
+    """On 8-pixel strips (adjacent rays an eighth of a cell apart, one
+    direction per strip, as configs/train_fast.yaml draws them) the
+    serpentine walks add to d_acc at most once per 4 (sample, side, tap),
+    and the table gradient is the plain twin's."""
+    rng = np.random.default_rng(24)
+    h, w, Cc, R, S = 12, 14, 64, 16, 64
+    start = rng.uniform(-0.8, 0.0, (V, R // 8, 1, 1, 2))
+    step = rng.uniform(-0.4, 0.4, (V, R // 8, 1, 1, 2))
+    ray = np.arange(8)[None, None, :, None, None] * np.array([2.0 / (w - 1) / 8, 0.0])
+    depth = np.linspace(0, 1, S)[None, None, None, :, None]
+    grids = (start + ray + step * depth).reshape(V, R, S, 2).astype(np.float32)
+    feat = rng.normal(0, 1, (V, h, w, Cc)).astype(np.float32)
+    gcot = rng.normal(0, 1, (R, S, 2)).astype(np.float32)
+    ut = kd.bucket_ut(kd.block_union_size_raw(torch.tensor(_pad_np(grids)), h, w))
+    got, adds = d_prime_walks(feat, grids, gcot, 2, ut, walks)
+    t = torch.tensor(feat, requires_grad=True)
+    kd.block_cosine_prior_plain(t, torch.tensor(grids), None, 2, ut).backward(
+        torch.tensor(gcot))
+    ref = t.grad.numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    assert adds <= 3 * 2 * 4 * R * S // 4, adds

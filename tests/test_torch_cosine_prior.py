@@ -25,7 +25,7 @@ from matchnerf_tpu.models.matchnerf import _grouped_cosine
 from matchnerf_tpu.models.matchnerf import \
     prepare_sampling_tables as jax_prepare_tables
 from matchnerf_tpu.ops.grid_sample import grid_sample_2d_packed, pack_2x2
-from matchnerf_tpu.ops.pallas_banded import banded_cosine_scale
+from matchnerf_tpu.ops.pallas_banded import banded_cosine_scale, banded_cosine_scale_trainable
 from matchnerf_tpu_torch.models.matchnerf import \
     prepare_sampling_tables as torch_prepare_tables
 from matchnerf_tpu_torch.ops import cosine_prior as tcp
@@ -225,3 +225,165 @@ def test_kernel_b_lane_layout(n_groups, cpl):
         got = cos(d, p, q)[:, ::lpg]
     ref = tcp.grouped_cosine(torch.tensor(a), torch.tensor(b), n_groups).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-6, rtol=1e-5)
+
+
+# ----------------------------------------------------------------- B' walks
+PAIRS3 = pair_index_lists(3)
+
+
+def _edge_grids(rng, R, S):
+    """[V,R,S,2] rays of every kind B''s and D''s walks must handle: rays
+    0-1 stay inside one cell (the longest run), 2-4 run along the right
+    border, the bottom border and into the corner (clamped taps, where one
+    cell takes two weights of one sample, one of them 0), 5-6 leave a cell
+    and come back (a zigzag, not monotone), the rest straight segments."""
+    t = np.linspace(0, 1, S)[None, :, None]
+    starts = rng.uniform(-0.9, 0.3, (V, R, 1, 2))
+    g = starts + rng.uniform(0.05, 0.6, (V, R, 1, 2)) * t[None]
+    g[:, 0:2] = starts[:, 0:2] + rng.uniform(0, 1e-3, (V, 2, S, 2))
+    g[:, 2, :, 0], g[:, 2, :, 1] = 1.0, np.linspace(-0.8, 0.7, S)
+    g[:, 3, :, 0], g[:, 3, :, 1] = np.linspace(-0.5, 0.9, S), 1.3
+    g[:, 4] = np.linspace(0.8, 1.2, S)[:, None]
+    zig = np.abs(((np.arange(S) / 3.0) % 2.0) - 1.0)[None, :, None]
+    g[:, 5:7] = starts[:, 5:7] + 0.4 * zig[None]
+    return g.astype(np.float32)
+
+
+def _slot_footprint(grid, h, w):
+    """grid [M,2] -> (rows [M,4] clamped cells, keys [M,4] (-1 past the
+    border), weights [M,4]) of the parity slots, in the kernels' f32
+    arithmetic: slot 2*py + px holds the footprint cell whose row and column
+    have parities (py, px)."""
+    f = np.float32
+    x = np.clip((grid[:, 0] + f(1)) * f(0.5) * f(w - 1), f(0), f(w - 1))
+    y = np.clip((grid[:, 1] + f(1)) * f(0.5) * f(h - 1), f(0), f(h - 1))
+    x0f, y0f = np.floor(x), np.floor(y)
+    wx = (f(1) - (x - x0f), x - x0f)
+    wy = (f(1) - (y - y0f), y - y0f)
+    x0, y0 = x0f.astype(np.int64), y0f.astype(np.int64)
+    rows, keys, wts = [], [], []
+    for s in range(4):
+        a, b = (s >> 1) ^ (y0 & 1), (s & 1) ^ (x0 & 1)
+        yy, xx = y0 + a, x0 + b
+        row = np.minimum(yy, h - 1) * w + np.minimum(xx, w - 1)
+        rows.append(row)
+        keys.append(np.where((yy < h) & (xx < w), row, -1))
+        wts.append(np.where(a == 1, wy[1], wy[0]) * np.where(b == 1, wx[1], wx[0]))
+    return np.stack(rows, 1), np.stack(keys, 1), np.stack(wts, 1)
+
+
+def _cosine_bwd(fa, fb, dcos, n_groups, eps=1e-8):
+    """pallas_banded.py::_grouped_cosine_bwd of one sample and pair: the
+    gradients of both sides, none through a norm clamped at eps."""
+    a, b = fa.reshape(n_groups, -1), fb.reshape(n_groups, -1)
+    dot, na2, nb2 = (a * b).sum(-1), (a * a).sum(-1), (b * b).sum(-1)
+    sna, snb = np.sqrt(na2), np.sqrt(nb2)
+    na, nb = np.maximum(sna, eps), np.maximum(snb, eps)
+    inv = 1.0 / (na * nb)
+    d_dot = dcos * inv
+    d_na2 = np.where(sna > eps, -dcos * dot * inv / na * (0.5 / na), 0.0)
+    d_nb2 = np.where(snb > eps, -dcos * dot * inv / nb * (0.5 / nb), 0.0)
+    return ((d_dot[:, None] * b + 2 * d_na2[:, None] * a).reshape(-1),
+            (d_dot[:, None] * a + 2 * d_nb2[:, None] * b).reshape(-1))
+
+
+def b_prime_walks(table, grids, g, n_groups, walk):
+    """csrc/cosine_prior.cu's B' backward in numpy: per pair, walks of
+    `walk` consecutive flat samples; each side's four parity slots sum
+    their cell's gradient while the cell stays and add it to d_table when it
+    changes and at the walk's end (never a cell past the border). ->
+    (d_table [V,h,w,2C], the number of slot flushes)."""
+    Vv, h, w, Cc = table.shape
+    C = Cc // 2
+    N = grids.shape[1] * grids.shape[2]
+    rows = table.reshape(Vv, h * w, Cc).astype(np.float64)
+    feet = [_slot_footprint(grids[v].reshape(N, 2), h, w) for v in range(Vv)]
+    gg = g.reshape(N, n_groups).astype(np.float64)
+    d = np.zeros_like(rows)
+    flushes = 0
+    for (i, j) in PAIRS3:
+        sides = ((i, (j - 1) * C), (j, i * C))
+        for w0 in range(0, N, walk):
+            state = [([-1] * 4, np.zeros((4, C))) for _ in sides]
+            for n in range(w0, min(N, w0 + walk)):
+                f = [(feet[v][2][n][:, None] * rows[v, feet[v][0][n], c0:c0 + C]).sum(0)
+                     for v, c0 in sides]
+                dfs = _cosine_bwd(f[0], f[1], gg[n] / 3.0, n_groups)
+                for (v, c0), (key, acc), df in zip(sides, state, dfs):
+                    for s in range(4):
+                        new, wt = feet[v][1][n][s], feet[v][2][n][s]
+                        if new != key[s]:
+                            if key[s] >= 0:
+                                d[v, key[s], c0:c0 + C] += acc[s]
+                                flushes += 1
+                            key[s], acc[s] = new, wt * df
+                        else:
+                            acc[s] += wt * df
+            for (v, c0), (key, acc) in zip(sides, state):
+                for s in range(4):
+                    if key[s] >= 0:
+                        d[v, key[s], c0:c0 + C] += acc[s]
+                        flushes += 1
+    return d.reshape(table.shape), flushes
+
+
+def _fold_packed_grad(gp, Cc):
+    """The transpose of pack_2x2: JAX's packed table gradient [V,h,w,4Cc]
+    folded onto the unpacked table [V,h,w,Cc]."""
+    acc = gp[..., :Cc].copy()
+    acc[:, :, 1:] += gp[:, :, :-1, Cc:2 * Cc]
+    acc[:, :, -1] += gp[:, :, -1, Cc:2 * Cc]
+    acc[:, 1:] += gp[:, :-1, :, 2 * Cc:3 * Cc]
+    acc[:, -1] += gp[:, -1, :, 2 * Cc:3 * Cc]
+    acc[:, 1:, 1:] += gp[:, :-1, :-1, 3 * Cc:]
+    acc[:, 1:, -1] += gp[:, :-1, -1, 3 * Cc:]
+    acc[:, -1, 1:] += gp[:, -1, :-1, 3 * Cc:]
+    acc[:, -1, -1] += gp[:, -1, -1, 3 * Cc:]
+    return acc
+
+
+@pytest.mark.parametrize("n_groups,walk", [(1, 64), (2, 64), (4, 7), (8, 64), (16, 5)])
+def test_b_prime_walks_match_plain_and_jax(n_groups, walk):
+    """B''s walks (parity slots, a flush per run) give the plain twin's
+    table gradient and the JAX custom VJP's on rays that stay in one cell,
+    run along the borders, revisit a cell and cross walk boundaries (13
+    rays x 24 samples: 312, not a multiple of the walk), and flush fewer
+    rows than one per (sample, view, tap)."""
+    rng = np.random.default_rng(21)
+    h, w, Cc, Rr, Ss = 12, 14, 64, 13, 24        # 2 channels a group at G = 16
+    feat = rng.normal(0, 1, (V, h, w, Cc)).astype(np.float32)
+    grids = _edge_grids(rng, Rr, Ss)
+    gcot = rng.normal(0, 1, (Rr, Ss, n_groups)).astype(np.float32)
+    got, flushes = b_prime_walks(feat, grids, gcot, n_groups, walk)
+
+    t = torch.tensor(feat, requires_grad=True)
+    tcp.cosine_prior_plain(t, torch.tensor(grids), None, n_groups).backward(torch.tensor(gcot))
+    ref = t.grad.numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+    jgrids = jnp.asarray(grids)[:, None]
+    _, vjp = jax.vjp(lambda vf: banded_cosine_scale_trainable(vf, jgrids, 96, n_groups,
+                                                              PAIRS3, 8), _packed(feat))
+    (jg,) = vjp(jnp.asarray(gcot)[None])
+    np.testing.assert_allclose(got, _fold_packed_grad(np.asarray(jg)[0], Cc),
+                               atol=1e-4, rtol=1e-3)
+    assert flushes < 3 * 2 * 4 * Rr * Ss // 2, flushes
+
+
+def test_b_prime_walk_one_cell_flushes_once():
+    """A ray that never leaves its cell flushes each real slot once per walk
+    and side; in the bottom-right corner cell the three slots past the
+    border never flush."""
+    rng = np.random.default_rng(22)
+    h, w, Cc, Ss = 10, 12, 16, 64
+    feat = rng.normal(0, 1, (V, h, w, Cc)).astype(np.float32)
+    inner = np.full((V, 1, Ss, 2), -0.2, np.float32) + rng.uniform(0, 1e-3, (V, 1, Ss, 2))
+    corner = np.full((V, 1, Ss, 2), 1.0, np.float32)
+    gcot = rng.normal(0, 1, (1, Ss, 2)).astype(np.float32)
+    for grids, per_side in ((inner, 4), (corner, 1)):
+        got, flushes = b_prime_walks(feat, grids.astype(np.float32), gcot, 2, 64)
+        assert flushes == 3 * 2 * per_side
+        t = torch.tensor(feat, requires_grad=True)
+        tcp.cosine_prior_plain(t, torch.tensor(grids), None, 2).backward(torch.tensor(gcot))
+        np.testing.assert_allclose(got, t.grad.numpy(), rtol=0,
+                                   atol=1e-5 * np.abs(t.grad.numpy()).max())

@@ -551,13 +551,55 @@ def _f32_table(g, dev, h, w):
     return torch.randn(3, h, w, 256, generator=g, device=dev)
 
 
-@pytest.mark.parametrize("G", [2, 8])
-def test_cosine_prior_backward_kernel(dev, G):
+def _edge_rays(g, dev, grids):
+    """Overwrite rays 0-6 of grids [3,R,S,2] with the walks' edge cases: 0-1
+    inside one cell (the longest run), 2 along the right border, 3 past the
+    bottom border, 4 into the bottom-right corner (coincident taps), 5-6 a
+    zigzag that leaves a cell and comes back."""
+    S = grids.shape[2]
+    t = torch.linspace(0, 1, S, device=dev)
+    grids[:, 0:2] = grids[:, 0:2, :1] + torch.rand(3, 2, S, 2, generator=g, device=dev) * 1e-3
+    grids[:, 2, :, 0], grids[:, 2, :, 1] = 1.0, t * 1.5 - 0.8
+    grids[:, 3, :, 0], grids[:, 3, :, 1] = t * 1.4 - 0.5, 1.3
+    grids[:, 4] = (t * 0.4 + 0.8)[:, None]
+    zig = ((torch.arange(S, device=dev) / 3.0) % 2.0 - 1.0).abs()
+    grids[:, 5:7] = grids[:, 5:7, :1] + 0.4 * zig[None, None, :, None]
+    return grids.contiguous()
+
+
+def _train_rays(g, dev, R, S, strips):
+    """R training rays of S samples: iid straight segments, or with `strips`
+    8-ray blocks that start together, as the 8-pixel strips of
+    configs/train_fast.yaml."""
+    if strips:
+        return _block_grids(g, dev, 3, R, S, 0.4)
+    start = torch.rand(3, R, 1, 2, generator=g, device=dev) * 2.0 - 1.0
+    step = (torch.rand(3, R, 1, 2, generator=g, device=dev) - 0.5) * 0.8
+    return (start + step * torch.linspace(0, 1, S, device=dev)[None, None, :, None]).contiguous()
+
+
+@pytest.mark.parametrize("G,case", [(2, "small"), (8, "small"), (1, "edge"), (2, "edge"),
+                                    (4, "edge"), (8, "edge"), (16, "edge"),
+                                    (2, "train_64x80"), (8, "train_128x160")])
+def test_cosine_prior_backward_kernel(dev, G, case):
+    """B' against autograd through the plain twin, 1e-5 of the largest
+    gradient: rays that stay in one cell, run along the borders and revisit
+    a cell, 37 x 48 = 1776 samples (not a multiple of a walk or a block),
+    and the training shapes (1024 iid rays x 128 on 64x80 and 128x160
+    tables)."""
     g = torch.Generator(device=dev).manual_seed(7)
-    table = _f32_table(g, dev, 20, 24)
-    grids = _block_grids(g, dev, 3, 37, 48, 0.4)
-    grids[:, :3, :4] = torch.clamp(grids[:, :3, :4] * 3.0, -1.0, 1.0)
-    gcot = torch.randn(37, 48, G, generator=g, device=dev)
+    if case.startswith("train"):
+        h, w = (64, 80) if case == "train_64x80" else (128, 160)
+        table = _f32_table(g, dev, h, w)
+        grids = _train_rays(g, dev, 1024, 128, strips=False)
+    else:
+        table = _f32_table(g, dev, 20, 24)
+        grids = _block_grids(g, dev, 3, 37, 48, 0.4)
+        grids[:, :3, :4] = torch.clamp(grids[:, :3, :4] * 3.0, -1.0, 1.0)
+        if case == "edge":
+            grids = _edge_rays(g, dev, grids)
+    R, S = grids.shape[1:3]
+    gcot = torch.randn(R, S, G, generator=g, device=dev)
     grads = []
     for fn in (kb.cosine_prior, kb.cosine_prior_plain):
         t = table.clone().requires_grad_()
@@ -571,8 +613,17 @@ def test_cosine_prior_backward_kernel(dev, G):
 
 
 @pytest.mark.parametrize("G,case", [(2, "small"), (8, "small"), (2, "ragged_border"),
-                                    (8, "ut_320")])
+                                    (8, "ut_320"), (1, "edge"), (2, "edge"), (4, "edge"),
+                                    (8, "edge"), (16, "edge"), (2, "train_64x80"),
+                                    (8, "train_128x160"), (2, "overflow"), (8, "overflow")])
 def test_block_cosine_prior_f32_kernels(dev, G, case):
+    """D''s forward (1e-5) and backward (1e-5 of the largest gradient)
+    against autograd through the plain twin and, where the union holds every
+    tap, through Kernels B and B' (the same function): small and ragged
+    blocks; the widest union at G = 8; rays that stay in one cell, run along
+    the borders and revisit a cell in a ragged block (37 rays); the training
+    shapes (1024 rays x 128 in 8-ray strips on 64x80 and 128x160 tables);
+    and a bucket below the union (taps missing from it add nothing)."""
     g = torch.Generator(device=dev).manual_seed(8)
     if case == "ut_320":
         # wide segments in a 64 x 80 table at S = 128: the widest union D'
@@ -582,9 +633,22 @@ def test_block_cosine_prior_f32_kernels(dev, G, case):
             grids = _block_grids(g, dev, 3, 24, 128, spread)
             if kd.block_union_size_raw(kd.pad_rays(grids), 64, 80) <= 320:
                 break
-    elif case == "small":
+    elif case.startswith("train"):
+        h, w = (64, 80) if case == "train_64x80" else (128, 160)
+        table = _f32_table(g, dev, h, w)
+        for spread in (0.4, 0.3, 0.2, 0.1):
+            grids = _block_grids(g, dev, 3, 1024, 128, spread)
+            ut = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), h, w))
+            if ut is not None and kd.takes_f32(ut, 128, G):
+                break
+    elif case in ("small", "overflow"):
         table = _f32_table(g, dev, 20, 24)
-        grids = _block_grids(g, dev, 3, 40, 48, 0.3)
+        grids = _block_grids(g, dev, 3, 40, 48, 0.3 if case == "small" else 1.5)
+    elif case == "edge":
+        # G = 1 stages 128 channels a pass: a union of <= 96 rows at S = 16
+        h, w, S = (16, 16, 16) if G == 1 else (20, 24, 48)
+        table = _f32_table(g, dev, h, w)
+        grids = _edge_rays(g, dev, _block_grids(g, dev, 3, 37, S, 0.2 if G == 1 else 0.4))
     else:
         table = _f32_table(g, dev, 16, 16)
         grids = _block_grids(g, dev, 3, 13, 32, 0.5)
@@ -592,8 +656,10 @@ def test_block_cosine_prior_f32_kernels(dev, G, case):
         grids[:, -1, -2:] = 1.0
     h, w = table.shape[1:3]
     R, S = grids.shape[1:3]
-    ut = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), h, w))
+    union = kd.block_union_size_raw(kd.pad_rays(grids), h, w)
+    ut = 64 if case == "overflow" else kd.bucket_ut(union)
     assert kd.takes_f32(ut, S, G), (ut, S, G)
+    assert (union > ut) == (case == "overflow"), (union, ut)
     if case == "ut_320":
         assert ut >= 192, ut
     gcot = torch.randn(R, S, G, generator=g, device=dev)
@@ -613,6 +679,29 @@ def test_block_cosine_prior_f32_kernels(dev, G, case):
     with torch.no_grad():           # the forward alone, as the eval path calls it
         torch.testing.assert_close(kd.block_cosine_prior(table, grids, None, G, ut), outs[1],
                                    atol=1e-5, rtol=0)
-    for i in (1, 2):                # vs the plain twin, and vs Kernels B and B'
+    for i in (1, 2) if union <= ut else (1,):   # vs the plain twin, and vs Kernels B and B'
         torch.testing.assert_close(outs[0], outs[i], atol=1e-5, rtol=0)
         _grad_close(grads[0], grads[i], 1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["B'", "D'"])
+def test_prior_backward_runs_agree(dev, kernel):
+    """Two runs of B' and of D''s backward at the training shape of scale 1
+    (1024 rays x 128, 128x160 table, G = 8) agree within 1e-5 of the largest
+    gradient: their float atomics add in another order each run."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    table = _f32_table(g, dev, 128, 160)
+    grids = _train_rays(g, dev, 1024, 128, strips=kernel == "D'")
+    gcot = torch.randn(1024, 128, 8, generator=g, device=dev)
+    if kernel == "B'":
+        fn = lambda t: kb.cosine_prior(t, grids, None, 8)
+    else:
+        ut = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), 128, 160))
+        assert kd.takes_f32(ut, 128, 8), ut
+        fn = lambda t: kd.block_cosine_prior(t, grids, None, 8, ut)
+    runs = []
+    for _ in range(2):
+        t = table.clone().requires_grad_()
+        fn(t).backward(gcot)
+        runs.append(t.grad)
+    _grad_close(runs[0], runs[1], 1e-5)

@@ -176,3 +176,41 @@ def test_f32_block_staging_fits_the_training_buckets():
     assert kd.channels_per_pass(320, 128, 8, backward=True) == 32
     assert kd.takes_f32(160, 128, 2) and kd.takes_f32(320, 128, 8)
     assert not kd.takes_f32(320, 128, 2) and not kd.takes_f32(512, 128, 8)
+
+
+@pytest.mark.parametrize("failure", ["launch", "build"])
+@pytest.mark.parametrize("kernel", ["B'", "D'"])
+def test_prior_backward_raises_without_fallback(monkeypatch, kernel, failure):
+    """On the card a failed launch (the C entry returns a CUDA error) or a
+    failed build of B' or D''s backward raises out of the autograd
+    Function's backward: neither falls back to its plain twin. Driven here
+    with a stand-in library on CPU tensors."""
+    from matchnerf_tpu_torch import kernels
+
+    class FailingLib:
+        def __getattr__(self, name):
+            return lambda *args: 700          # cudaErrorIllegalAddress
+
+    def no_build():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(kernels, "library", (lambda: FailingLib()) if failure == "launch"
+                        else no_build)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: type("Stream", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "stand-in")
+    table = torch.zeros(3, 8, 8, 256)
+    grids = torch.zeros(3, 8, 4, 2)
+    ctx = type("Ctx", (), {})()
+    if kernel == "B'":
+        ctx.saved_tensors, ctx.n_groups = (table, grids), 2
+        fn, counter = kb.CosinePriorFn, kb.BWD_COUNTER
+    else:
+        ctx.saved_tensors = (table, grids, torch.zeros(3, 64, dtype=torch.int32))
+        ctx.shape = (8, 4, 2, 64)
+        fn, counter = kd.BlockCosinePriorFn, kd.BWD_COUNTER
+    before = (counter.launches, kb.COUNTER.plain_on_cuda, kd.COUNTER.plain_on_cuda)
+    with pytest.raises(RuntimeError, match="CUDA error 700" if failure == "launch"
+                       else "nvcc failed"):
+        fn.backward(ctx, torch.zeros(8, 4, 2))
+    assert (counter.launches, kb.COUNTER.plain_on_cuda, kd.COUNTER.plain_on_cuda) == before
