@@ -2,10 +2,12 @@
 """GPU smoke test of the PyTorch port (matchnerf_tpu_torch): the DTU eval
 render of configs/test.yaml, its fused-cosine route and its bf16 decoder
 route, the video entry of configs/demo_own.yaml and of
-configs/test_video_own.yaml, and the training step and the training loop
+configs/test_video_own.yaml, the training step and the training loop
 (`python -m matchnerf_tpu_torch.train`) of configs/train.yaml and
-configs/train_fast.yaml on one NVIDIA card, through the hand-written CUDA
-kernels.
+configs/train_fast.yaml, and the eval entry (`python -m
+matchnerf_tpu_torch.test`) of configs/test.yaml, test_video.yaml and
+test_strict.yaml over DTU, LLFF and Blender test sets, on one NVIDIA card,
+through the hand-written CUDA kernels.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -128,8 +130,30 @@ Phases, any failure ends the run with a non-zero exit:
    bit for bit, starts at that iteration, skips the loaded batches and ends
    at the epoch's last. Steps per second (outside the hooks), validation
    seconds and peak memory are printed with the card's name and limit.
+13. the eval entry: synthetic DTU (640x512), LLFF (960x640, eval_mode
+   mvsnerf, forward-facing cameras) and Blender (800x800, RGBA with a real
+   alpha) test trees, one target view each, written by data/synth.py with
+   their own meta dirs; then `matchnerf_tpu_torch.test.main(["--config",
+   "test", "--load=", "--data_test.tnt=", ...])` in this process at full
+   width (6 transformer layers, decoder 128 x 6, S=128, seeded weights):
+   per set A, C, D and E must launch (B too where a scale's union
+   overflows its bucket, printed with the pose and scale), Kernel C with
+   setbg on every Blender launch and nowhere else, no plain version on
+   CUDA, rgb finite in [0,1], the whole image >= 50 dB against the
+   all-plain render, the JAX package's output files; the render seconds,
+   rays/s, route per scale, launches, and each eval kernel's device ms and
+   launches in one more (profiled) render of the set (Kernel A's windows
+   are L = 1280, 2400 and 2500 tokens; D's scale-1 tables 160x128,
+   240x160 and 200x200 cells). Then `--config test_video` (3 frames) on
+   the LLFF tree (the spiral) and the Blender tree (interpolated, white
+   background), frame 0 >= 50 dB against all-plain; then `--config
+   test_strict` on the DTU tree: Kernel A's f32 route (12 launches), the
+   cond query and decoder in torch ops (their plain versions on CUDA, as
+   precision.strict asks), finite, its PSNR against the shipped-config
+   render printed. The T&T set is left out: its JPEGs need PIL.
 Every launch count is reset just before a path (a step, in 10 and 11; a
-training run and a validation image, in 12) and read just after it. With --profile, one more warm render of each eval path
+training run and a validation image, in 12; each test set's render, in
+13) and read just after it. With --profile, one more warm render of each eval path
 (the bf16 decoder path too) and of each video, and one warm step of each
 training recipe run under torch.profiler and print the device time by
 kernel (the A' backward's dq and dkv kernels always by name), the device
@@ -142,6 +166,7 @@ import copy
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -168,6 +193,7 @@ OWN_FRAMES = 3                     # frames of the configs/test_video_own.yaml p
 OWN_PLAIN_SLICES = 2               # slices of its frame 0 held to all-plain
 LOOP_STEPS = 4                     # training steps per recipe in the loop phase
 PREEMPT_STEPS = 8                  # steps of the run that is sent SIGTERM
+PROFILE_PAD_S = 0.005              # idle host seconds at each end of a kernel trace
 
 
 def log(msg):
@@ -213,23 +239,35 @@ def device_ms(torch, fn, iters):
                if e.device_time_total > 0) / 1e3 / iters
 
 
-def kernel_names(torch, fn, iters=3):
-    """The names of the device kernels `fn` runs (torch.profiler)."""
+def kernel_names(torch, fn, iters=3, attempts=3):
+    """The names of the device kernels `fn` runs (torch.profiler). The calls
+    sit inside the traced window with PROFILE_PAD_S of idle host time at
+    both ends, and a trace that recorded no device kernel at all is taken
+    again, up to `attempts` times: the profiler can come back empty for a
+    window that holds only a kernel or two of well under a millisecond."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sorted({e.key[:120] for e in prof.key_averages()
-                   if e.device_type.name == "CUDA" and e.device_time_total > 0})
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        names = sorted({e.key[:120] for e in prof.key_averages()
+                        if e.device_type.name == "CUDA" and e.device_time_total > 0})
+        if names:
+            return names
+        log(f"torch.profiler recorded no device kernel in trace {attempt} of {attempts}")
+    return []
 
 
 def only_kernel(torch, fn, name):
-    """The device kernels one call of `fn` runs; fails unless every one is
-    the named kernel (a wrapper that launches nothing but its kernel)."""
-    names = kernel_names(torch, fn, iters=1)
+    """The device kernels three calls of `fn` run; fails unless there is one
+    and every one is the named kernel (a wrapper that launches nothing but
+    its kernel)."""
+    names = kernel_names(torch, fn)
     if not names or any(name not in k for k in names):
         raise AssertionError(f"{name}: the call ran {names}, not only its kernel")
     return names
@@ -884,23 +922,23 @@ def make_video_sample(seed, img_w, img_h):
             "img_wh": np.array([img_w, img_h]), "c2ws_all": views["c2ws"][:3]}
 
 
-def plain_frame0(cfg, model, dev, sample, n_slices=None):
-    """Frame 0 of the sample's interpolate path, every kernel replaced by
-    its plain version: dict of [1, H*W, *], or of the first n_slices ray
-    slices only."""
+def plain_frame0(cfg, model, dev, batch, n_slices=None, mode="interpolate", setbg=False):
+    """Frame 0 of the batch's `mode` path (interpolate, or the LLFF spiral),
+    every kernel replaced by its plain version, onto a white background
+    with setbg: dict of [1, H*W, *], or of the first n_slices ray slices
+    only."""
     import torch
     from matchnerf_tpu_torch import camera
-    from matchnerf_tpu_torch.data.loader import collate
     from matchnerf_tpu_torch.models.matchnerf import render_rays
     from matchnerf_tpu_torch.renderer import Renderer, extract_poses
     plain = Renderer(cfg, model, dev, kernel=False)
-    batch = collate([sample])
+    plain.setbg_opaque = setbg
     poses = extract_poses(batch)
     n_frames = int(cfg.nerf.video_n_frames)
-    frame0 = plain.get_video_rendering_path(poses, "interpolate", n_frames, batch)[0]
+    frame0 = plain.get_video_rendering_path(poses, mode, n_frames, batch)[0]
     ref_images = plain.tensor(batch["images"][:, :3])
     tables = plain.build_tables(ref_images, plain.encode(ref_images))
-    vw, vh = (int(x) for x in sample["img_wh"])
+    vw, vh = (int(x) for x in batch["img_wh"][0])
     pose = {"tgt": frame0, "ref": poses["ref"]}
     if n_slices is None:
         return plain.render_by_slices(pose, tables, vh, vw)
@@ -911,7 +949,7 @@ def plain_frame0(cfg, model, dev, sample, n_slices=None):
         for s0 in range(0, n_slices * R, R):
             outs.append(render_rays(plain.model, cfg, grid[s0:s0 + R][None],
                                     *plain._pose_tensors(pose), tables, vh, vw,
-                                    kernel=False)["rgb"])
+                                    kernel=False, setbg_opaque=setbg)["rgb"])
     return {"rgb": torch.cat(outs, dim=1)}
 
 
@@ -921,7 +959,7 @@ def video_phase(torch, dev, seed, counters, profile, name, n_frames, plain_slice
     around it; frame 0 (its first plain_slices ray slices, if given) against
     the all-plain render."""
     from matchnerf_tpu_torch.config import CONFIGS
-    from matchnerf_tpu_torch.data.loader import DataLoader
+    from matchnerf_tpu_torch.data.loader import DataLoader, collate
     from matchnerf_tpu_torch.engine import Coach
     cfg = CONFIGS[name]()
     fused = name == "demo_own"
@@ -984,7 +1022,7 @@ def video_phase(torch, dev, seed, counters, profile, name, n_frames, plain_slice
         raise AssertionError(f"video frames {video.shape}, finite {np.isfinite(video).all()}")
     if not (video.min() >= -1e-6 and video.max() <= 1.0 + 1e-6):
         raise AssertionError(f"video rgb outside [0,1]: {video.min()} {video.max()}")
-    ref = plain_frame0(cfg, coach.model, dev, sample, plain_slices)["rgb"].cpu()
+    ref = plain_frame0(cfg, coach.model, dev, collate([sample]), plain_slices)["rgb"].cpu()
     agreement = psnr(torch.as_tensor(video[0]).reshape(1, -1, 3)[:, :ref.shape[1]], ref)
     what = "frame 0" if plain_slices is None else f"frame 0's first {ref.shape[1]} rays"
     log(f"video path {name}: {what}, kernels vs all-plain PSNR {agreement:.2f} dB (need >= 50), "
@@ -1227,6 +1265,252 @@ def loop_phase(torch, dev, counters):
                       "resumed_steps": len(steps), "model_bit_equal": model_equal,
                       "optimizer_bit_equal": opt_equal}
     del coach
+    torch.cuda.empty_cache()
+    return out
+
+
+EVAL_SETS = {"dtu": (640, 512), "llff": (960, 640), "blender": (800, 800)}
+ENTRY_FRAMES = 3                   # frames of the test_video runs of phase 13
+# the device kernels of the eval path, by the start of their __global__'s name
+KERNEL_NAMES = {"window_attention": "window_attention_fwd", "cosine_prior": "cosine_prior_kernel",
+                "cond_nerf_decode": "cond_nerf_decode_kernel",
+                "block_cosine_prior": "block_cosine_prior_kernel",
+                "supercell_color": "supercell_color_kernel"}
+KERNEL_RES = {k: re.compile(r"\b" + v) for k, v in KERNEL_NAMES.items()}
+
+
+def kernel_device_ms(torch, fn):
+    """One warm call of `fn` under torch.profiler -> {kernel: (device ms,
+    launches)} for the eval kernels of KERNEL_NAMES."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for name, pattern in KERNEL_RES.items():
+            if e.device_time_total > 0 and pattern.search(e.key):
+                ms, n = out.get(name, (0.0, 0))
+                out[name] = (ms + e.device_time_total / 1e3, n + e.count)
+    return out
+
+
+def write_eval_trees(work):
+    """Synthetic DTU (640x512), LLFF (960x640) and Blender (800x800) test
+    trees, one target view each, with their own meta dirs -> the entry's
+    --data_test.<set>.root_dir / meta_dir arguments per set."""
+    from matchnerf_tpu_torch.data import synth
+    writers = {"dtu": synth.write_dtu_scene, "llff": synth.write_llff_tree,
+               "blender": synth.write_blender_tree}
+    args = {}
+    for name, (w, h) in EVAL_SETS.items():
+        root, meta = os.path.join(work, name), os.path.join(work, f"{name}_meta")
+        writers[name](root, meta, w, h)
+        args[name] = [f"--data_test.{name}.root_dir={root}",
+                      f"--data_test.{name}.meta_dir={meta}", f"--data_test.{name}.max_len=1"]
+    return args
+
+
+def run_entry(torch, counters, argv):
+    """`matchnerf_tpu_torch.test.main(argv)` in this process, with every
+    `Renderer.forward` it makes (one per test set) recorded: the counts set
+    to 0 just before it and read just after, its timings, route, background
+    and output -> (main's result, the records)."""
+    from matchnerf_tpu_torch import test as entry
+    from matchnerf_tpu_torch.ops import decoder as kc
+    from matchnerf_tpu_torch.renderer import Renderer
+    records = []
+    forward = Renderer.forward
+
+    def recorded(self, batch, *a, **k):
+        for c in counters.values():
+            c.reset()
+        t = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward(self, batch, *a, timings=t, **k)
+        torch.cuda.synchronize()
+        records.append({
+            "renderer": self, "batch": batch, "out": out, "kwargs": k,
+            "seconds": time.perf_counter() - t0, "timings": t,
+            "launches": {n: c.launches for n, c in counters.items()},
+            "plain_cuda": {n: c.plain_on_cuda for n, c in counters.items()},
+            "routes": {n: dict(c.by_entry) for n, c in counters.items() if c.by_entry},
+            "setbg_launches": kc.COUNTER.by_variant.get("setbg", 0),
+            "setbg": self.setbg_opaque, "route": self.last_route,
+            "frame_routes": list(self.frame_routes)})
+        return out
+    Renderer.forward = recorded
+    try:
+        result = entry.main(argv)
+    finally:
+        Renderer.forward = forward
+    return result, records
+
+
+def check_entry_record(name, rec, must, label):
+    """The checks every set's render passes: the kernels of `must` launched,
+    none of the plain versions on CUDA, Kernel C with setbg on Blender (every
+    launch) and nowhere else, rgb finite in [0, 1]."""
+    launches, out = rec["launches"], rec["out"]
+    for k in must:
+        if launches[k] <= 0:
+            raise AssertionError(f"{label} {name}: kernel {k} was not launched: {launches}")
+    if any(rec["plain_cuda"].values()):
+        raise AssertionError(f"{label} {name}: plain versions ran on CUDA: {rec['plain_cuda']}")
+    want_bg = launches["cond_nerf_decode"] if name == "blender" else 0
+    if rec["setbg"] != (name == "blender") or rec["setbg_launches"] != want_bg:
+        raise AssertionError(f"{label} {name}: setbg {rec['setbg']}, {rec['setbg_launches']} "
+                             f"Kernel C launches with setbg of {launches['cond_nerf_decode']}")
+    for k, v in out.items():
+        if not bool(v.isfinite().all()):
+            raise AssertionError(f"{label} {name}: non-finite {k}")
+    rgb = out["rgb"]
+    if not (float(rgb.min()) >= -1e-6 and float(rgb.max()) <= 1.0 + 1e-6):
+        raise AssertionError(f"{label} {name}: rgb outside [0,1]: {float(rgb.min())} "
+                             f"{float(rgb.max())}")
+
+
+def eval_entry_phase(torch, dev, seed):
+    """Phase 13: `python -m matchnerf_tpu_torch.test --config test` (its
+    `main`, in this process, on the card) over synthetic DTU, LLFF and
+    Blender test trees at configs/test.yaml's sizes, full width, seeded
+    weights; then `--config test_video` (3 frames) on the LLFF and Blender
+    trees and `--config test_strict` on the DTU tree."""
+    import tempfile
+
+    from matchnerf_tpu_torch.ops import block_cosine_prior as kd
+    from matchnerf_tpu_torch.ops import cosine_prior as kb
+    from matchnerf_tpu_torch.ops import decoder as kc
+    from matchnerf_tpu_torch.ops import fused_cosine as kf
+    from matchnerf_tpu_torch.ops import supercell_color as ke
+    from matchnerf_tpu_torch.ops import window_attention as ka
+    from matchnerf_tpu_torch.renderer import Renderer
+    counters = {"window_attention": ka.COUNTER, "cosine_prior": kb.COUNTER,
+                "cond_nerf_decode": kc.COUNTER, "block_cosine_prior": kd.COUNTER,
+                "supercell_color": ke.COUNTER, "fused_cosine": kf.COUNTER}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_", dir=os.path.join(REPO, "build"))
+    t0 = time.perf_counter()
+    trees = write_eval_trees(work)
+    log(f"eval entry: synthetic test trees {EVAL_SETS} (one target view each) in "
+        f"{time.perf_counter() - t0:.1f} s under {work}")
+    runs = os.path.join(work, "runs")
+    common = ["--load=", f"--output_root={runs}", f"--seed={seed}", "--data_test.tnt="]
+    card = card_line()
+    out = {"sets": {}, "card": card}
+
+    # configs/test.yaml: DTU, LLFF and Blender
+    argv = ["--config", "test", "--name=test", *common] + sum(trees.values(), [])
+    t0 = time.perf_counter()
+    sums, records = run_entry(torch, counters, argv)
+    wall = time.perf_counter() - t0
+    if len(records) != len(EVAL_SETS):
+        raise AssertionError(f"eval entry: {len(records)} renders for {list(EVAL_SETS)}")
+    test_dir = os.path.join(runs, "test", "test")
+    for name, rec in zip(EVAL_SETS, records):
+        w, h = EVAL_SETS[name]
+        check_entry_record(name, rec, ["window_attention", "cond_nerf_decode",
+                                       "block_cosine_prior", "supercell_color"], "eval entry")
+        renderer, route = rec["renderer"], rec["route"]
+        overflow = [i for i, u in enumerate(route["block_ut"] or ()) if u is None]
+        if rec["launches"]["cosine_prior"]:
+            log(f"eval entry {name}: Kernel B took scale(s) {overflow} of the target pose "
+                f"(view {int(rec['batch']['view_ids'][0][-1])}): its block union overflowed "
+                f"the buckets, route {route}")
+        plain = Renderer(renderer.cfg, renderer.model, dev, kernel=False)
+        plain.setbg_opaque = rec["setbg"]
+        plain_t = {}
+        ref = plain.forward(rec["batch"], mode="test", timings=plain_t)
+        agreement = psnr(rec["out"]["rgb"], ref["rgb"])
+        del ref
+        files = sorted(os.listdir(os.path.join(test_dir, name)))
+        if not (files and os.path.isfile(os.path.join(test_dir, f"0results_{name}.txt"))):
+            raise AssertionError(f"eval entry {name}: outputs {files} in {test_dir}")
+        kms = kernel_device_ms(torch, lambda: renderer.forward(rec["batch"], mode="test"))
+        t = rec["timings"]
+        n_rays = w * h
+        # Kernel A's windows: 6 streams x 2x2 windows of the 1/8-scale map,
+        # bf16 operands; its bound as in phase 3 (4 BW L^2 C operations)
+        L = (h // 16) * (w // 16)
+        a_bound, a_by = bound(4 * 24 * L * 128 * 2, 4 * 24 * L * L * 128, "bfloat16",
+                              TC_FLOPS)
+        entry = {"img_wh": [w, h], "render_s": t["render"], "encode_s": t["encode"],
+                 "tables_s": t["tables"], "pose_prep_s": t.get("pose_prep", 0.0),
+                 "rays_per_s_render": n_rays / t["render"], "forward_s": rec["seconds"],
+                 "plain_render_s": plain_t["render"], "psnr_vs_plain_db": agreement,
+                 "route": route, "setbg": rec["setbg"], "setbg_launches": rec["setbg_launches"],
+                 "launches": rec["launches"], "launches_by_route": rec["routes"],
+                 "kernel_device_ms": {k: {"ms": ms, "launches": n, "ms_per_launch": ms / n}
+                                      for k, (ms, n) in kms.items()},
+                 "window_attention_shape": {"BW": 24, "L": L, "C": 128, "bound_ms": a_bound,
+                                            "bound_by": a_by},
+                 "psnr_vs_gt": sums[name]["PSNR"], "outputs": files}
+        out["sets"][name] = entry
+        log(f"eval entry {name} {w}x{h} S={renderer.cfg.nerf.sample_intvs}: render "
+            f"{t['render']:.4f} s (pose_prep {entry['pose_prep_s']:.4f}), encode "
+            f"{t['encode']:.4f}, tables {t['tables']:.4f}, {entry['rays_per_s_render']:.0f} "
+            f"rays/s (render); route per scale {route['block_ut']} (None: Kernel B), colour "
+            f"{route['color_ut']}; setbg {rec['setbg']} ({rec['setbg_launches']} C launches); "
+            f"launches {rec['launches']}; kernels vs all-plain PSNR {agreement:.2f} dB "
+            f"(need >= 50; plain render {plain_t['render']:.3f} s); device ms (launches) "
+            + ", ".join(f"{k} {ms:.3f} ({n})" for k, (ms, n) in sorted(kms.items()))
+            + f"; Kernel A at [24,{L},128] bf16, bound {a_bound:.4f} ms ({a_by}); {card}")
+        if not agreement >= 50.0:
+            raise AssertionError(f"eval entry {name}: agreement PSNR {agreement:.2f} dB < 50")
+    out["wall_s"] = wall
+    dtu_rgb = records[0]["out"]["rgb"]
+    del records
+    torch.cuda.empty_cache()
+
+    # configs/test_video.yaml: the LLFF spiral and Blender's interpolated path
+    argv = (["--config", "test_video", "--name=test_video", *common, "--data_test.dtu=",
+             f"--nerf.video_n_frames={ENTRY_FRAMES}"] + trees["llff"] + trees["blender"])
+    videos, records = run_entry(torch, counters, argv)
+    out["video"] = {}
+    for name, rec, video in zip(("llff", "blender"), records, videos):
+        check_entry_record(name, rec, ["window_attention", "cond_nerf_decode"], "eval video")
+        mode = rec["kwargs"]["render_path_mode"]
+        if mode != ("spiral" if name == "llff" else "interpolate"):
+            raise AssertionError(f"eval video {name}: path mode {mode}")
+        renderer = rec["renderer"]
+        ref = plain_frame0(renderer.cfg, renderer.model, dev, rec["batch"], mode=mode,
+                           setbg=rec["setbg"])["rgb"]
+        agreement = psnr(rec["out"]["rgb"][:1], ref)
+        log(f"eval video {name} ({mode}, {ENTRY_FRAMES} frames): {rec['seconds']:.3f} s, "
+            f"frame routes {[r['block_ut'] for r in rec['frame_routes']]}, launches "
+            f"{rec['launches']}, setbg {rec['setbg']} ({rec['setbg_launches']} C launches); "
+            f"frame 0 vs all-plain PSNR {agreement:.2f} dB (need >= 50); {card}")
+        if video.shape[0] != ENTRY_FRAMES or not agreement >= 50.0:
+            raise AssertionError(f"eval video {name}: {video.shape[0]} frames, frame 0 "
+                                 f"agreement {agreement:.2f} dB")
+        out["video"][name] = {"mode": mode, "seconds": rec["seconds"],
+                              "psnr_vs_plain_db": agreement, "launches": rec["launches"],
+                              "setbg_launches": rec["setbg_launches"]}
+    del records
+    torch.cuda.empty_cache()
+
+    # configs/test_strict.yaml on the DTU tree: Kernel A's f32 route, the cond
+    # query and the decoder in torch ops (precision.strict)
+    argv = (["--config", "test_strict", "--name=test_strict", *common, "--data_test.llff=",
+             "--data_test.blender="] + trees["dtu"])
+    _, records = run_entry(torch, counters, argv)
+    rec = records[0]
+    rgb = rec["out"]["rgb"]
+    finite = all(bool(v.isfinite().all()) for v in rec["out"].values())
+    vs_shipped = psnr(rgb, dtu_rgb)
+    log(f"eval strict dtu (configs/test_strict.yaml): render {rec['timings']['render']:.4f} s, "
+        f"encode {rec['timings']['encode']:.4f} s; Kernel A by route {rec['routes']}, launches "
+        f"{rec['launches']}, plain versions on CUDA (the strict cond query) "
+        f"{rec['plain_cuda']}; finite {finite}; vs the shipped-config render PSNR "
+        f"{vs_shipped:.2f} dB; {card}")
+    if rec["routes"].get("window_attention") != {"window_attention_f32": 12} or not finite:
+        raise AssertionError(f"eval strict: Kernel A routes {rec['routes']}, finite {finite}")
+    out["strict"] = {"render_s": rec["timings"]["render"], "encode_s": rec["timings"]["encode"],
+                     "launches": rec["launches"], "routes": rec["routes"],
+                     "psnr_vs_shipped_db": vs_shipped}
+    del records, dtu_rgb
     torch.cuda.empty_cache()
     return out
 
@@ -1641,6 +1925,11 @@ def main():
 
     # ---- 12. the training loop (train.yaml, train_fast.yaml), preemption, resume
     loop = loop_phase(torch, dev, counters)
+    torch.cuda.empty_cache()
+
+    # ---- 13. the eval entry: configs/test.yaml over DTU, LLFF and Blender,
+    # test_video.yaml, test_strict.yaml
+    test_entry = eval_entry_phase(torch, dev, args.seed)
 
     def per_scale(entries):
         return {"max_abs_err": max(e["max_abs_err"] for e in entries),
@@ -1680,7 +1969,19 @@ def main():
         return {"block": block_launches[name], "per_ray": ray_launches[name],
                 "per_ray_bf16_decoder": bf_launches[name], "fused": fused_launches[name],
                 f"video_{VIDEO_FRAMES}_frames": video["launches"][name],
-                f"test_video_own_{OWN_FRAMES}_frames": video_own["launches"][name]}
+                f"test_video_own_{OWN_FRAMES}_frames": video_own["launches"][name],
+                **{f"test_entry_{k}": v["launches"][name] for k, v in test_entry["sets"].items()},
+                **{f"test_video_{k}_{ENTRY_FRAMES}_frames": v["launches"][name]
+                   for k, v in test_entry["video"].items()},
+                "test_strict_dtu": test_entry["strict"]["launches"][name]}
+
+    def by_test_set(name):
+        """Device ms per launch and launches per image of one eval kernel
+        in each test set's render of the eval entry (phase 13), with Kernel
+        A's window shape and bound."""
+        return {"test_entry": {k: dict(v["kernel_device_ms"].get(name) or {}, **(
+            v["window_attention_shape"] if name == "window_attention" else {}))
+            for k, v in test_entry["sets"].items()}}
 
     def train_paths(name):
         return {f"{k}_{TRAIN_STEPS}_steps": v["launches_total"][name] for k, v in train.items()}
@@ -1690,24 +1991,28 @@ def main():
         entry("window_attention", res["A_bfloat16"], block_launches["window_attention"],
               dict(eval_paths("window_attention"), **train_paths("window_attention")),
               {"f32": res["A_float32"],
-               "training_forward_ms": {k: v["fwd_ms"] for k, v in a_bwd.items()}}),
+               "training_forward_ms": {k: v["fwd_ms"] for k, v in a_bwd.items()},
+               **by_test_set("window_attention")}),
         entry("window_attention_bwd", a_bwd["bfloat16_shift"],
               train["train"]["launches_total"]["window_attention_bwd"],
               train_paths("window_attention_bwd"), {"variants": a_bwd}),
         entry("cosine_prior", res["B"], ray_launches["cosine_prior"],
               dict(eval_paths("cosine_prior"), **train_paths("cosine_prior")),
               {"f32_training_shapes": per_scale(res["B_f32"]),
-               "bfloat16": bf16_entry("B", "cosine_prior_bf16")}),
+               "bfloat16": bf16_entry("B", "cosine_prior_bf16"), **by_test_set("cosine_prior")}),
         entry("cosine_prior_bwd", res["B_bwd"],
               train["train"]["launches_total"]["cosine_prior_bwd"],
               train_paths("cosine_prior_bwd")),
         entry("cond_nerf_decode", res["C"]["float32"], block_launches["cond_nerf_decode"],
               eval_paths("cond_nerf_decode"),
-              {"routes": {"S128": res["C"], "S256_test_video_own": res["C_S256"]}}),
+              {"routes": {"S128": res["C"], "S256_test_video_own": res["C_S256"]},
+               "setbg_launches_blender": test_entry["sets"]["blender"]["setbg_launches"],
+               **by_test_set("cond_nerf_decode")}),
         entry("block_cosine_prior", res["D"], block_launches["block_cosine_prior"],
               eval_paths("block_cosine_prior"),
               {"plain_union_ms": sum(s["plain_union_ms"] for s in res["D"]),
-               "bfloat16": bf16_entry("D", "block_cosine_prior_bf16")}),
+               "bfloat16": bf16_entry("D", "block_cosine_prior_bf16"),
+               **by_test_set("block_cosine_prior")}),
         entry("block_cosine_prior_f32", res["D_f32"],
               train["train_fast"]["launches_total"]["block_cosine_prior_f32"],
               train_paths("block_cosine_prior_f32"),
@@ -1716,7 +2021,7 @@ def main():
               train["train_fast"]["launches_total"]["block_cosine_prior_bwd"],
               train_paths("block_cosine_prior_bwd")),
         entry("supercell_color", res["E"], block_launches["supercell_color"],
-              eval_paths("supercell_color")),
+              eval_paths("supercell_color"), by_test_set("supercell_color")),
         entry("fused_cosine", res["F"]["int8"], video["launches"]["fused_cosine"],
               eval_paths("fused_cosine"),
               {"bfloat16": per_scale(res["F"]["bfloat16"]),
@@ -1746,7 +2051,8 @@ def main():
                            if k not in ("profile", "launches")},
         "train": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
                   for k, v in train.items()},
-        "loop": loop}}
+        "loop": loop,
+        "test_entry": test_entry}}
     if args.profile:
         report["profile"] = {"train": train["train"]["profile"],
                              "train_fast": train["train_fast"]["profile"],

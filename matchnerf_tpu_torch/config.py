@@ -2,11 +2,14 @@
 configurations as Python dicts, the entries' `--key=value` overrides and
 the run directory (`process_options`).
 
-`dtu_eval_config()` is configs/base.yaml overlaid with configs/test.yaml as
-shipped (`precision.block_kernel` and `precision.color_block_kernel` on),
-restricted to the keys the eval render reads. `dtu_eval_per_ray_config()`
-is the same with `precision.block_kernel: false`: the per-ray cosine-prior
-path. `base_config()` is configs/base.yaml, every key;
+`dtu_eval_config()` (CONFIGS["test"]) is configs/base.yaml overlaid with
+configs/test.yaml as shipped (`precision.block_kernel` and
+`precision.color_block_kernel` on), every key, with its DTU, LLFF, Blender
+and T&T test sets; CONFIGS["test_strict"], ["test_video"] and
+["test_tnt"] are configs/test_strict.yaml, test_video.yaml and
+test_tnt.yaml. `dtu_eval_per_ray_config()` is CONFIGS["test"] with
+`precision.block_kernel: false`: the per-ray cosine-prior path.
+`base_config()` is configs/base.yaml, every key;
 `dtu_train_config()` (CONFIGS["train"]) overlays configs/train.yaml and
 `dtu_train_fast_config()` (CONFIGS["train_fast"]) configs/train_fast.yaml
 (8-pixel ray strips, the block route): every key, as the JAX package's
@@ -16,11 +19,11 @@ port runs where PyYAML is not installed; CPU tests hold them equal to what
 `matchnerf_tpu.config` loads from the YAML files.
 `encoder.attention_backend` and `encoder.conv_data_format` are TPU backend
 and layout knobs: carried as keys, they change nothing here.
-`demo_own_config()` is configs/base.yaml + configs/test.yaml +
-configs/demo_own.yaml (the IBR decoder variant on the in-repo COLMAP
-printer scene, video mode), restricted to the keys the entry
-(`matchnerf_tpu_torch/test.py`) reads; `precision.fused_cosine` stays as
-base.yaml sets it (off) and the entry's override turns it on.
+`demo_own_config()` is CONFIGS["test"] with the keys of
+configs/demo_own.yaml that the entry (`matchnerf_tpu_torch/test.py`)
+reads (the IBR decoder variant on the in-repo COLMAP printer scene, video
+mode); `precision.fused_cosine` stays as base.yaml sets it (off) and the
+entry's override turns it on.
 `test_video_own_config()` adds configs/test_video_own.yaml (S = 256,
 5012-ray slices, 960x640). `precision.decoder_matmul_dtype`, absent from
 the YAML files, reads as float32; bf16 picks Kernel C's bf16 route.
@@ -41,55 +44,6 @@ import numpy as np
 from .utils.containers import DotDict
 
 log = logging.getLogger(__name__)
-
-
-def dtu_eval_config() -> DotDict:
-    return DotDict({
-        "n_src_views": 3,
-        "batch_size": 1,
-        "encoder": {
-            "attn_splits_list": [2],
-            "cos_n_group": [2, 8],
-            "num_transformer_layers": 6,
-            "feature_upsampler": "network",
-            "upsample_factor": 2,
-            "wo_self_attn": False,
-            "feature_sample_local_radius": 0,
-            "feature_sample_local_dilation": 1,
-        },
-        "decoder": {
-            "net_width": 128,
-            "net_depth": 6,
-            "skip": [4],
-            "posenc": {"L_3D": 10, "L_view": 0},
-            "raytrans_posenc": False,
-            "density_maskfill": False,
-            "raytrans_act": "ReLU",
-        },
-        "nerf": {
-            "legacy_coord": True,
-            "wo_render_interval": True,
-            "view_dep": True,
-            "depth": {"param": "metric"},
-            "sample_intvs": 128,
-            "rand_rays_test": 20480,
-        },
-        "precision": {
-            "encoder_compute_dtype": "bfloat16",
-            "cond_sample_dtype": "int8",
-            "color_sample_dtype": "uint8",
-            "banded_kernel": True,
-            "block_kernel": True,
-            "decoder_kernel": True,
-            "color_block_kernel": True,
-        },
-    })
-
-
-def dtu_eval_per_ray_config() -> DotDict:
-    cfg = dtu_eval_config()
-    cfg.precision.block_kernel = False
-    return cfg
 
 
 # every key the eval render reads, as dotted paths
@@ -167,9 +121,84 @@ def base_config() -> DotDict:
     })
 
 
-def _dtu_data(max_len: int) -> dict:
-    return {"root_dir": "data/DTU", "dataset_name": "dtu", "img_wh": [640, 512],
-            "num_workers": 4, "max_len": max_len}
+def _data(name: str, root: str, img_wh, **extra) -> dict:
+    """One data_* block of the YAML files (max_len -1 unless given)."""
+    return {"root_dir": root, "dataset_name": name, "img_wh": img_wh, "num_workers": 4,
+            "max_len": -1, **extra}
+
+
+def _dtu_data(max_len: int = -1) -> dict:
+    return _data("dtu", "data/DTU", [640, 512], max_len=max_len)
+
+
+def dtu_eval_config() -> DotDict:
+    """configs/base.yaml + configs/test.yaml, every key (CONFIGS["test"]):
+    the eval render as shipped (bf16 encoder, int8 feature and uint8 colour
+    tables, the block, banded and decoder kernels) over the DTU, LLFF,
+    Blender and T&T test sets."""
+    return override_options(base_config(), {
+        "yaml": "test", "tb": False, "batch_size": 1,
+        "load": "configs/pretrained_models/matchnerf_3v.pth",
+        "nerf": {"rand_rays_test": 20480},
+        "precision": {"encoder_compute_dtype": "bfloat16", "cond_sample_dtype": "int8",
+                      "color_sample_dtype": "uint8", "banded_kernel": True,
+                      "block_kernel": True, "decoder_kernel": True,
+                      "color_block_kernel": True},
+        "data_test": {
+            "dtu": dict(_dtu_data(), test_views_method="nearest"),
+            "llff": _data("llff", "data/nerf_llff_data", [960, 640], scene_list=None,
+                               test_views_method="nearest"),
+            "blender": _data("blender", "data/nerf_synthetic", [800, 800],
+                                  scene_list=None, test_views_method="nearest"),
+            "tnt": _data("tnt", "data/tnt_data", [960, 640], scene_list=None,
+                              test_views_method="nearest", eval_mode="mvsnerf",
+                              nf_mode="minmax"),
+        },
+    }, warn=False)
+
+
+def dtu_eval_per_ray_config() -> DotDict:
+    """CONFIGS["test"] with `precision.block_kernel: false`: the per-ray
+    cosine-prior path."""
+    cfg = dtu_eval_config()
+    cfg.precision.block_kernel = False
+    return cfg
+
+
+def strict_eval_config() -> DotDict:
+    """... + configs/test_strict.yaml (CONFIGS["test_strict"]):
+    `precision.strict`, which `effective_precision` resolves to f32 tables,
+    encoder and decoder and no kernel but Kernel A's f32 route."""
+    cfg = dtu_eval_config()
+    cfg.yaml = "test_strict"
+    cfg.precision.strict = True
+    return cfg
+
+
+def video_eval_config() -> DotDict:
+    """... + configs/test_video.yaml (CONFIGS["test_video"]): 60-frame videos
+    of every test set, LLFF's target fixed."""
+    cfg = dtu_eval_config()
+    cfg.yaml = "test_video"
+    cfg.nerf.update({"rand_rays_test": 20480, "render_video": True, "video_n_frames": 60,
+                     "video_rads_scale": 0.3})
+    cfg.data_test.llff.test_views_method = "fixed"
+    return cfg
+
+
+def tnt_eval_config() -> DotDict:
+    """configs/base.yaml + configs/test_tnt.yaml (CONFIGS["test_tnt"]; its
+    parent is base.yaml, so the precision is base.yaml's): the T&T test set
+    alone, with 3 source views, each prediction, ground truth and source
+    saved apart for `score_preds`."""
+    return override_options(base_config(), {
+        "yaml": "test_tnt", "tb": False, "batch_size": 1,
+        "load": "configs/pretrained_models/matchnerf_3v.pth", "separate_save": True,
+        "nerf": {"rand_rays_test": 20480},
+        "data_test": {"tnt": _data("tnt", "data/tnt_data", [960, 640], scene_list=None,
+                                        test_views_method="nearest", eval_mode="mvsnerf",
+                                        nf_mode="minmax", n_views=3)},
+    }, warn=False)
 
 
 def dtu_train_config() -> DotDict:
@@ -183,15 +212,11 @@ def dtu_train_config() -> DotDict:
         "tb": True, "batch_size": 1, "max_epoch": 12, "sanity_check": False,
         "save_test_image": False,
         "nerf": {"rand_rays_train": 1024, "rand_rays_val": 4096, "rand_rays_test": 4096},
-        "data_train": _dtu_data(-1),
+        "data_train": _dtu_data(),
         "data_val": _dtu_data(5),
-        "data_test": {
-            "dtu": _dtu_data(-1),
-            "llff": {"root_dir": "data/nerf_llff_data", "dataset_name": "llff",
-                     "img_wh": [960, 640], "num_workers": 4, "max_len": -1},
-            "blender": {"root_dir": "data/nerf_synthetic", "dataset_name": "blender",
-                        "img_wh": [800, 800], "num_workers": 4, "max_len": -1},
-        },
+        "data_test": {"dtu": _dtu_data(),
+                      "llff": _data("llff", "data/nerf_llff_data", [960, 640]),
+                      "blender": _data("blender", "data/nerf_synthetic", [800, 800])},
         "precision": {"encoder_compute_dtype": "bfloat16", "block_kernel": True,
                       "decoder_kernel": True, "color_sample_dtype": "uint8",
                       "banded_kernel": True, "decoder_compute_dtype": "bfloat16"},
@@ -222,7 +247,7 @@ def dtu_train_fast_config() -> DotDict:
 
 def demo_own_config() -> DotDict:
     cfg = dtu_eval_config()
-    cfg.update({"name": "test_video/demo", "seed": 0,
+    cfg.update({"yaml": "demo_own", "name": "test_video/demo", "seed": 0,
                 "load": "configs/pretrained_models/matchnerf_3v_ibr.pth",
                 "output_root": "outputs", "vis_depth": False, "separate_save": False})
     cfg.decoder.update({"raytrans_posenc": True, "density_maskfill": True,
@@ -260,7 +285,9 @@ DEMO_KEYS = SLICE_KEYS + [
     "data_test.colmap",
 ]
 
-CONFIGS = {"demo_own": demo_own_config, "test_video_own": test_video_own_config,
+CONFIGS = {"test": dtu_eval_config, "test_strict": strict_eval_config,
+           "test_video": video_eval_config, "test_tnt": tnt_eval_config,
+           "demo_own": demo_own_config, "test_video_own": test_video_own_config,
            "train": dtu_train_config, "train_fast": dtu_train_fast_config}
 
 

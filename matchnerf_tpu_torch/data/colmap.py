@@ -1,10 +1,9 @@
 """Own-data COLMAP scenes (counterpart of matchnerf_tpu/data/llff.py's
-`gen_colmap_pairs` and `COLMAPDataset` with the parts of `_LLFFBase` it
-uses; datasets/colmap.py of the reference): poses_bounds.npy metadata from
-LLFF's imgs2poses, no pose centring (relative coordinates), scale 0.47,
-auto-generated pairs ranked by distance to the centroid camera with every
-6th as a test view, near/far by `nf_mode`. The LLFF and IBRNet datasets,
-which share `_LLFFBase` in the JAX package, are not ported.
+`gen_colmap_pairs` and `COLMAPDataset`; datasets/colmap.py of the
+reference), on the LLFF loader's `_LLFFBase`: poses_bounds.npy metadata
+from LLFF's imgs2poses, no pose centring (relative coordinates), scale
+0.47, auto-generated pairs ranked by distance to the centroid camera with
+every 6th as a test view, near/far by `nf_mode`.
 """
 from __future__ import annotations
 
@@ -13,8 +12,8 @@ from glob import glob
 
 import numpy as np
 
-from .common import (MVSDatasetBase, list_all_images, llff_intrinsic, load_image,
-                     load_llff_poses, make_near_fars, sort_nearest_views)
+from .common import sort_nearest_views
+from .llff import _LLFFBase
 
 
 def gen_colmap_pairs(root_dir, n_select=20, n_interval=6):
@@ -48,10 +47,11 @@ def gen_colmap_pairs(root_dir, n_select=20, n_interval=6):
     return pairs
 
 
-class COLMAPDataset(MVSDatasetBase):
+class COLMAPDataset(_LLFFBase):
     """The test split of own-data scenes (llff.py:197); test_views_method
     "fixed" keeps one anchor target per scene (video rendering)."""
 
+    center = False                           # relative coordinates (colmap.py:95)
     scale_mult = 0.47058824                  # colmap.py:102
 
     def __init__(self, root_dir, split, n_views=3, img_wh=None, max_len=-1,
@@ -86,55 +86,3 @@ class COLMAPDataset(MVSDatasetBase):
 
     def get_name(self):
         return "colmap"
-
-    def num_samples(self):
-        return len(self.metas)
-
-    def _scene_camera_info(self, scene, scene_dir, id_list):
-        poses, bounds, hwf = load_llff_poses(
-            os.path.join(scene_dir, "poses_bounds.npy"), self.scale_mult)
-        images_list = list_all_images(os.path.join(scene_dir, "images"))
-        for vid in id_list:
-            key = f"{scene}_{vid}"
-            self.intrinsics[key] = llff_intrinsic(hwf[vid], self.img_wh)
-            c2w = np.eye(4)
-            c2w[:3] = poses[vid]
-            self.cam2worlds[key] = c2w
-            self.world2cams[key] = np.linalg.inv(c2w.astype(np.float32))
-            self.near_fars[key] = bounds[vid]
-            self.imgs_paths[key] = images_list[vid]
-            self.scene_dirs[scene] = scene_dir
-
-    def _init_dicts(self):
-        self.metas = []
-        self.intrinsics, self.world2cams, self.cam2worlds = {}, {}, {}
-        self.near_fars, self.imgs_paths, self.scene_dirs = {}, {}, {}
-
-    def _assemble(self, scene, view_ids, train_views):
-        img_wh = np.array(self.img_wh).astype("int")
-        imgs, intrinsics, w2cs, near_fars = [], [], [], []
-        for vid in view_ids:
-            key = f"{scene}_{vid}"
-            imgs.append(load_image(
-                os.path.join(self.scene_dirs[scene], "images", self.imgs_paths[key]), img_wh))
-            intrinsics.append(self.intrinsics[key])
-            w2cs.append(self.world2cams[key])
-            near_fars.append(self.near_fars[key])
-        sample = {
-            "images": np.stack(imgs).astype(np.float32),
-            "extrinsics": np.stack(w2cs).astype(np.float32),
-            "intrinsics": np.stack(intrinsics).astype(np.float32),
-            "near_fars": make_near_fars(near_fars, len(view_ids), self.nf_mode),
-            "view_ids": np.array([int(v) for v in view_ids]),
-            "scene": scene,
-            "img_wh": img_wh,
-            "c2ws_all": np.stack([self.cam2worlds[f"{scene}_{x}"]
-                                  for x in train_views]).astype(np.float32),
-        }
-        return sample
-
-    def __getitem__(self, idx):
-        scene, target_view, src_views, train_views = self.metas[idx]
-        view_ids = [src_views[i] for i in range(self.n_views)] + [target_view]
-        return self._assemble(scene, view_ids, train_views)
-

@@ -1,8 +1,10 @@
-"""Shared host-side data helpers (counterpart of matchnerf_tpu/data/common.py,
-the parts the COLMAP and DTU loaders use: no pose re-centring, no alpha
-blending). numpy only: PNGs decode with `data/png.py`; PIL is imported
-inside `load_images` only for other formats and for resizing, which the
-card's machine (no PIL) cannot do.
+"""Shared host-side data helpers (counterpart of matchnerf_tpu/data/common.py):
+image loading with Blender's alpha blend onto white, the image size, PFM
+and MVSNet camera files, view ranking, LLFF poses_bounds.npy with or
+without re-centring, near/far modes. numpy only: PNGs decode with
+`data/png.py` and their size comes from the header; PIL is imported inside
+`load_images` and `image_size` only for other formats (JPEG) and for
+resizing, which the card's machine (no PIL) cannot do.
 
 A sample is a dict of numpy arrays, target view LAST:
 
@@ -23,7 +25,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .png import read_pngs
+from .png import png_size, read_pngs
 
 IMAGE_EXTENSIONS = (".jpg", ".JPG", ".jpeg", ".JPEG", ".png", ".PNG", ".ppm",
                     ".PPM", ".bmp", ".BMP", ".tif", ".TIF", ".tiff", ".TIFF")
@@ -37,13 +39,15 @@ def list_all_images(root_dir: str) -> List[str]:
     return sorted(f for f in os.listdir(root_dir) if f.endswith(IMAGE_EXTENSIONS))
 
 
-def load_images(paths: Sequence[str], img_wh, resample: str = "lanczos") -> List[np.ndarray]:
+def load_images(paths: Sequence[str], img_wh, resample: str = "lanczos",
+                blend_alpha_white: bool = False) -> List[np.ndarray]:
     """Load images and resize each to img_wh with PIL's LANCZOS or BILINEAR
     filter -> [H,W,3] float32 in [0,1] each (common.py:40). PNGs decode
     without PIL (`png.read_pngs`, bit-equal to PIL's decode, those of one
     shape together) and, when img_wh is their size (PIL's resize then
     returns a copy), need no PIL at all; any other format, or a PNG to be
-    resized, needs PIL."""
+    resized, needs PIL. blend_alpha_white composites an RGBA image onto
+    white after the resize, rgb * a + (1 - a) in f32 (Blender)."""
     wh = tuple(int(x) for x in img_wh)
     is_png = [p.lower().endswith(".png") for p in paths]
     decoded = iter(read_pngs([p for p, ok in zip(paths, is_png) if ok]))
@@ -62,15 +66,33 @@ def load_images(paths: Sequence[str], img_wh, resample: str = "lanczos") -> List
             filt = {"lanczos": Image.LANCZOS, "bilinear": Image.BILINEAR}[resample]
             arr = np.asarray(img.resize(wh, filt))
         arr = arr.astype(np.float32) / 255.0
-        if arr.ndim == 2:
+        if blend_alpha_white and arr.ndim == 3 and arr.shape[-1] == 4:
+            rgb, a = arr[..., :3], arr[..., 3:]
+            arr = rgb * a + (1.0 - a)
+        elif arr.ndim == 2:
             arr = np.repeat(arr[..., None], 3, axis=-1)
         out.append(arr[..., :3])
     return out
 
 
-def load_image(path: str, img_wh, resample: str = "lanczos") -> np.ndarray:
+def load_image(path: str, img_wh, resample: str = "lanczos",
+               blend_alpha_white: bool = False) -> np.ndarray:
     """One image of `load_images`."""
-    return load_images([path], img_wh, resample)[0]
+    return load_images([path], img_wh, resample, blend_alpha_white)[0]
+
+
+def image_size(path: str):
+    """(width, height) of an image file: a PNG's from its header, any other
+    format's through PIL (tnt.py:87-91 opens the file for it)."""
+    if path.lower().endswith(".png"):
+        return png_size(path)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(f"{path}: reading this format's size needs PIL, which is not "
+                           "installed") from e
+    with Image.open(path) as im:
+        return im.size
 
 
 def read_pfm(filename: str):
@@ -150,15 +172,43 @@ def sort_nearest_views(cam2worlds: Dict, train_views, target_view,
     raise ValueError(f"Unknown test_views_method [{method}]")
 
 
-def load_llff_poses(meta_filepath: str, scale_mult: float):
+def average_poses(poses: np.ndarray) -> np.ndarray:
+    """[N,3,4] c2w -> the average pose [3,4] (common.py:108): the mean
+    centre, the normalised mean z axis, x = y_mean x z, y = z x x."""
+    center = poses[..., 3].mean(0)
+    z = poses[..., 2].mean(0)
+    z = z / np.linalg.norm(z)
+    y_ = poses[..., 1].mean(0)
+    x = np.cross(y_, z)
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+    return np.stack([x, y, z, center], 1)
+
+
+def center_poses(poses: np.ndarray, blender2opencv: np.ndarray = BLENDER2OPENCV) -> np.ndarray:
+    """c2w poses [N,3,4] re-centred at their average pose, then in OpenCV
+    axes (common.py:121)."""
+    pose_avg_homo = np.eye(4)
+    pose_avg_homo[:3] = average_poses(poses)
+    last_row = np.tile(np.array([0, 0, 0, 1]), (len(poses), 1, 1))
+    poses_homo = np.concatenate([poses, last_row], 1)
+    centered = np.linalg.inv(pose_avg_homo) @ poses_homo
+    return (centered @ blender2opencv)[:, :3]
+
+
+def load_llff_poses(meta_filepath: str, center: bool = True, scale_mult: float = 0.75):
     """poses_bounds.npy -> (poses [N,3,4] c2w OpenCV, bounds [N,2], hwf
-    [N,3]), scaled so the nearest depth is ~1/scale_mult (common.py:130,
-    without re-centring: the COLMAP loader keeps relative coordinates)."""
+    [N,3]), re-centred at the average pose with `center` (LLFF; the COLMAP
+    loader keeps relative coordinates), scaled so the nearest depth is
+    ~1/scale_mult (common.py:130)."""
     poses_bounds = np.load(meta_filepath)
     raw = poses_bounds[:, :15].copy().reshape(-1, 3, 5)
     hwf = raw[:, :, 4].copy()
     poses = np.concatenate([raw[..., 1:2], -raw[..., :1], raw[..., 2:4]], -1)
-    poses = poses @ BLENDER2OPENCV
+    if center:
+        poses = center_poses(poses, BLENDER2OPENCV)
+    else:
+        poses = poses @ BLENDER2OPENCV
     bounds = poses_bounds[:, -2:].copy()
     scale_factor = bounds.min() * scale_mult
     bounds = bounds / scale_factor

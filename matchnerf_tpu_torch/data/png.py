@@ -1,7 +1,7 @@
 """PNG decoding and encoding with numpy and zlib (no PIL: the card's machine
 has none).
 
-`read_png` decodes 8-bit, non-interlaced greyscale (colour type 0), RGB (2)
+`png_size` reads the image size from the header alone. `read_png` decodes 8-bit, non-interlaced greyscale (colour type 0), RGB (2)
 and RGBA (6) images with any of the five row filters, and raises
 `ValueError` on anything else (other bit depths, palettes, grey + alpha,
 interlacing); `read_pngs` decodes several at once in worker processes.
@@ -133,6 +133,16 @@ def _read_filtered(path: str):
                          f"{height * stride}")
     rows = buf.reshape(height, stride)
     return rows[:, 1:].reshape(height, width, bpp), rows[:, 0]
+
+
+def png_size(path: str):
+    """(width, height) from a PNG's IHDR chunk, the first after the
+    signature, without decoding the image."""
+    with open(path, "rb") as f:
+        head = f.read(len(SIGNATURE) + 16)
+    if not head.startswith(SIGNATURE) or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file with its IHDR first")
+    return struct.unpack(">II", head[16:24])
 
 
 def read_png(path: str) -> np.ndarray:

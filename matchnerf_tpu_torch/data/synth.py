@@ -6,8 +6,13 @@ intrinsics). It produces geometrically consistent multi-view scenes
 (spheres + box + checker plane + sky) with OpenCV-convention cameras;
 chip_smoke.py renders its scene from them. `write_dtu_tree` lays such
 views out as a DTU (MVSNet) directory tree with its own meta directory;
-`write_dtu_scene` writes the scene's six-view DTU scan.
+`write_dtu_scene` writes the scene's six-view DTU scan. `write_llff_tree`,
+`write_blender_tree` and `write_tnt_tree` write the scene as an LLFF,
+Blender (NeRF-synthetic) or Tanks-and-Temples test set, each with the
+`pairs.th` of its own meta directory; LLFF and Blender as PNGs (no PIL),
+T&T as the JPEGs its loader names (PIL needed).
 """
+import json
 import math
 import os
 import shutil
@@ -15,10 +20,12 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from .common import BLENDER2OPENCV
 from .png import write_png
 
 __all__ = ["look_at_opencv", "render_scene", "make_scene_views", "write_dtu_tree",
-           "write_dtu_scene", "DTU_SCENE_VIEW_IDS"]
+           "write_dtu_scene", "DTU_SCENE_VIEW_IDS", "forward_facing_eyes", "write_llff_tree",
+           "write_blender_tree", "write_tnt_tree"]
 
 DTU_SCENE_VIEW_IDS = (20, 21, 22, 23, 24, 25)     # the views of `write_dtu_scene`
 
@@ -172,9 +179,10 @@ def write_dtu_tree(root: str, meta_dir: str, images: np.ndarray, w2cs: np.ndarra
                    depths: np.ndarray = None, scan: str = "scan1",
                    depth_min: float = 425.0, depth_interval: float = 2.5):
     """Write N posed views as one DTU scan the DTU loader reads
-    (data/dtu.py): images [N,H,W,3] uint8 (H, W = 512, 640 as DTU's), w2cs
-    [N,4,4] and intrinsics [N,3,3] in the loader's units (the files hold
-    translations x200 and intrinsics /4), under DTU view ids `view_ids`.
+    (data/dtu.py): images [N,H,W,3] uint8 (H, W = 512, 640 as DTU's, or
+    smaller multiples of 32 for tests), w2cs [N,4,4] and intrinsics [N,3,3]
+    in the loader's units (the files hold translations x200 and intrinsics
+    /4), under DTU view ids `view_ids`.
 
     - Rectified/{scan}_train/rect_{id+1:03d}_{light}_r5000.png for the 7
       lights (one image each; each PNG row with the filter an encoder's
@@ -183,7 +191,8 @@ def write_dtu_tree(root: str, meta_dir: str, images: np.ndarray, w2cs: np.ndarra
       depth_min / 200, far = near + 192 * depth_interval / 200);
     - Depths/{scan}/depth_map_{id:04d}.pfm at 1200x1600 (0 where `depths`
       [N,H,W] is not finite, or everywhere without it), which the loader
-      halves and crops back to the image;
+      halves and crops back to the image; for a smaller image, at
+      (2H + 88) x (2W + 160), which the same crop takes to H x W;
     - meta_dir/dtu_meta/{train,val}_all.txt naming the scan, view_pairs.txt
       with every view a reference and the others its sources by distance,
       and meta_dir/pairs.th with `val_view` the test target and the others
@@ -191,8 +200,9 @@ def write_dtu_tree(root: str, meta_dir: str, images: np.ndarray, w2cs: np.ndarra
     import torch
     images = np.asarray(images)
     N, H, W = images.shape[:3]
-    if (H, W) != (512, 640):
-        raise ValueError(f"DTU images are 512x640, got {H}x{W}")
+    if (H, W) != (512, 640) and (H > 512 or W > 640 or H % 32 or W % 32):
+        raise ValueError(f"DTU images are 512x640 (or smaller multiples of 32), got {H}x{W}")
+    depth_hw = (1200, 1600) if (H, W) == (512, 640) else (2 * H + 88, 2 * W + 160)
     rect = os.path.join(root, "Rectified", f"{scan}_train")
     cams = os.path.join(root, "Cameras", "train")
     dep = os.path.join(root, "Depths", scan)
@@ -214,7 +224,7 @@ def write_dtu_tree(root: str, meta_dir: str, images: np.ndarray, w2cs: np.ndarra
             f.write("\nintrinsic\n")
             f.writelines(" ".join(repr(float(v)) for v in row) + "\n" for row in intr)
             f.write(f"\n{depth_min} {depth_interval}\n")
-        big = np.zeros((1200, 1600), np.float32)
+        big = np.zeros(depth_hw, np.float32)
         if depths is not None:
             d = np.where(np.isfinite(depths[n]), depths[n] * 200.0, 0.0)
             big[88:88 + 2 * H:2, 160:160 + 2 * W:2] = d
@@ -235,13 +245,12 @@ def write_dtu_tree(root: str, meta_dir: str, images: np.ndarray, w2cs: np.ndarra
                 "dtu_test": [int(val_view)]}, os.path.join(meta_dir, "pairs.th"))
 
 
-def write_dtu_scene(root: str, meta_dir: str):
-    """Six views of the scene at 640x512 on an arc, as scan1 of a DTU tree
-    (DTU view ids 20-25; 24, in the middle, is the validation and test
-    target; 20, the first reference view of the training metas, is next to
-    it) with depth_min 425 and interval 2.5 (near / far 2.125 / 4.525), its
-    own meta dir and depth maps (0 on the sky)."""
-    W, H = 640, 512
+def write_dtu_scene(root: str, meta_dir: str, W: int = 640, H: int = 512):
+    """Six views of the scene at 640x512 (or W x H) on an arc, as scan1 of
+    a DTU tree (DTU view ids 20-25; 24, in the middle, is the validation
+    and test target; 20, the first reference view of the training metas,
+    is next to it) with depth_min 425 and interval 2.5 (near / far 2.125 /
+    4.525), its own meta dir and depth maps (0 on the sky)."""
     radius = 3.7
     angles = np.deg2rad([-4.0, -12.0, 4.0, 12.0, 0.0, -20.0])
     eyes = [(radius * math.sin(a), -1.0, -radius * math.cos(a)) for a in angles]
@@ -249,3 +258,124 @@ def write_dtu_scene(root: str, meta_dir: str):
     images = np.round(views["images"] * 255.0).astype(np.uint8)
     write_dtu_tree(root, meta_dir, images, views["w2cs"], views["intrinsics"],
                    DTU_SCENE_VIEW_IDS, val_view=24, depths=views["depths"])
+
+
+def forward_facing_eyes(n: int, spread: float = 0.9):
+    """n camera centres on a 2-row grid in a plane in front of the scene,
+    as a hand-held forward-facing capture (LLFF, T&T) places them."""
+    cols = (n + 1) // 2
+    xs = np.linspace(-spread / 2, spread / 2, cols)
+    return [(float(xs[i % cols]) + 0.05 * (i // cols), -1.0 + 0.3 * (i // cols), -3.7)
+            for i in range(n)]
+
+
+def _u8(views) -> np.ndarray:
+    return np.round(views["images"] * 255.0).astype(np.uint8)
+
+
+def _save_pairs(meta_dir: str, prefix: str, train_views, test_views):
+    import torch
+    os.makedirs(meta_dir, exist_ok=True)
+    torch.save({f"{prefix}_train": [int(v) for v in train_views],
+                f"{prefix}_val": [int(v) for v in test_views]},
+               os.path.join(meta_dir, "pairs.th"))
+
+
+def _split(n: int, test_views: Sequence[int]):
+    test = [int(v) for v in test_views]
+    return [v for v in range(n) if v not in test], test
+
+
+def write_llff_tree(root: str, meta_dir: str, W: int, H: int, n_views: int = 5,
+                    test_views: Sequence[int] = (2,), scene: str = "fern"):
+    """The scene seen from `forward_facing_eyes(n_views)` as one LLFF scene
+    the LLFF loader reads (data/llff.py): `{scene}/images/{i:03d}.png` at
+    W x H, so no resize is needed, and `{scene}/poses_bounds.npy` (LLFF's
+    [down, right, back] camera axes, the image's h, w, focal, and each
+    view's near/far from its hit depths); meta_dir/pairs.th with
+    `test_views` the targets of eval_mode mvsnerf and the other views their
+    candidates. eval_mode gpnr holds out every 8th image instead."""
+    views = make_scene_views(W, H, eyes=forward_facing_eyes(n_views))
+    images = _u8(views)
+    img_dir = os.path.join(root, scene, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    raw = np.zeros((n_views, 3, 5))
+    for i in range(n_views):
+        write_png(os.path.join(img_dir, f"{i:03d}.png"), images[i])
+        c2w = views["c2ws"][i].astype(np.float64)
+        # OpenCV [right, down, forward] -> LLFF [down, right, back]
+        raw[i, :, :4] = np.stack([c2w[:3, 1], c2w[:3, 0], -c2w[:3, 2], c2w[:3, 3]], axis=1)
+        raw[i, :, 4] = [H, W, views["intrinsics"][i][0, 0]]
+    poses_bounds = np.concatenate([raw.reshape(n_views, 15),
+                                   views["near_fars"].astype(np.float64)], axis=1)
+    np.save(os.path.join(root, scene, "poses_bounds.npy"), poses_bounds)
+    _save_pairs(meta_dir, scene, *_split(n_views, test_views))
+
+
+def write_blender_tree(root: str, meta_dir: str, W: int, H: int, n_train: int = 4,
+                       n_test: int = 1, scene: str = "lego", radius: float = 3.7):
+    """The scene on an arc of n_train + n_test cameras as one Blender scene
+    the Blender loader reads (data/blender.py), RGBA PNGs at W x H: alpha 1
+    up to depth 5.5 and fading to 0 at 6 (the loader's far; the sky is 0),
+    so images have a real alpha to blend onto white. transforms_train.json
+    holds the train views' frames (`./train/r_i`) and then the test views'
+    (`./test/r_j`), transforms_test.json the test views'; meta_dir/pairs.th
+    names frames n_train.. of transforms_train.json the targets of
+    eval_mode mvsnerf. eval_mode gpnr reads train/ and test/."""
+    n = n_train + n_test
+    angles = np.deg2rad(np.linspace(-24.0, 24.0, n))
+    order = [i for i in range(n) if i != n // 2] + [n // 2]      # a test view in the middle
+    eyes = [(radius * math.sin(angles[i]), -1.0, -radius * math.cos(angles[i])) for i in order]
+    views = make_scene_views(W, H, eyes=eyes)
+    rgb = _u8(views)
+    t = views["depths"]
+    alpha = np.round(np.clip((6.0 - np.where(np.isfinite(t), t, np.inf)) / 0.5, 0.0, 1.0)
+                     * 255.0).astype(np.uint8)
+    focal = float(views["intrinsics"][0][0, 0])
+    frames = {"train": [], "test": []}
+    for i in range(n):
+        split, j = ("train", i) if i < n_train else ("test", i - n_train)
+        os.makedirs(os.path.join(root, scene, split), exist_ok=True)
+        write_png(os.path.join(root, scene, split, f"r_{j}.png"),
+                  np.concatenate([rgb[i], alpha[i][..., None]], axis=-1))
+        # OpenCV camera-to-world -> Blender's (the flip is its own inverse)
+        c2w = views["c2ws"][i].astype(np.float64) @ BLENDER2OPENCV
+        frames[split].append({"file_path": f"./{split}/r_{j}",
+                              "transform_matrix": c2w.tolist()})
+    angle_x = 2.0 * math.atan(0.5 * W / focal)
+    for name, frame_list in (("train", frames["train"] + frames["test"]),
+                             ("test", frames["test"])):
+        with open(os.path.join(root, scene, f"transforms_{name}.json"), "w") as f:
+            json.dump({"camera_angle_x": angle_x, "frames": frame_list}, f)
+    _save_pairs(meta_dir, scene, range(n_train), range(n_train, n))
+
+
+def write_tnt_tree(root: str, meta_dir: str, W: int, H: int, n_views: int = 5,
+                   test_views: Sequence[int] = (2,), scene: str = "Truck",
+                   depth_scale: float = 500.0):
+    """The scene from `forward_facing_eyes(n_views)` as one Tanks-and-
+    Temples scene the T&T loader reads (data/tnt.py): `{scene}/images/
+    {i:08d}.jpg` at W x H (written with PIL, which must be installed) and
+    `{scene}/cams_1/{i:08d}_cam.txt` with the world-to-camera translation
+    and the depth bounds divided by `depth_scale` (the loader multiplies
+    them back) and the intrinsics at W x H; meta_dir/pairs.th with
+    `test_views` the targets."""
+    from PIL import Image
+    views = make_scene_views(W, H, eyes=forward_facing_eyes(n_views))
+    images = _u8(views)
+    img_dir, cam_dir = (os.path.join(root, scene, d) for d in ("images", "cams_1"))
+    for d in (img_dir, cam_dir):
+        os.makedirs(d, exist_ok=True)
+    for i in range(n_views):
+        Image.fromarray(images[i]).save(os.path.join(img_dir, f"{i:08d}.jpg"), quality=95)
+        extr = views["w2cs"][i].astype(np.float64).copy()
+        extr[:3, 3] /= depth_scale
+        near, far = (float(x) / depth_scale for x in views["near_fars"][i])
+        with open(os.path.join(cam_dir, f"{i:08d}_cam.txt"), "w") as f:
+            f.write("extrinsic\n")
+            f.writelines(" ".join(repr(float(v)) for v in row) + "\n" for row in extr)
+            f.write("\nintrinsic\n")
+            f.writelines(" ".join(repr(float(v)) for v in row) + "\n"
+                         for row in views["intrinsics"][i].astype(np.float64))
+            f.write(f"\n{near!r} {(far - near) / 192.0!r} 192 {far!r}\n")
+    _save_pairs(meta_dir, f"TNT_{scene}", *_split(n_views, test_views))

@@ -2,9 +2,8 @@
 the training loop, the eval and video entry.
 
 Data (engine.py:81): `load_dataset` builds the train, val and test loaders
-of the config's data_* blocks (DTU and COLMAP; LLFF, Blender and T&T raise
-`NotImplementedError`, so the training CLI takes `--data_test.llff=
---data_test.blender=`), the training loader shuffled per epoch.
+of the config's data_* blocks (DTU, LLFF, Blender, T&T and COLMAP; IBRNet
+raises `NotImplementedError`), the training loader shuffled per epoch.
 
 Training (engine.py:180-545), the call order of train.py:
 `build_networks`, `setup_optimizer` (total steps from the loader's length),
@@ -22,9 +21,12 @@ checkpoint with its weights-only backup. SIGTERM or SIGINT saves
 restart from the seed in every `train_model`, as the JAX step key does.
 
 Eval (engine.py:544-684): `test_model` (images and PSNR / SSIM / LPIPS per
-view, summed up per scene and dataset; DTU masks pixels without depth) and
-`test_model_video` (a trajectory per batch, written as video), with the JAX
-package's output names.
+view, with `data_test.<set>.report_full_scores` also over the whole image,
+summed up per scene and dataset; DTU masks pixels without depth; Blender
+renders onto a white background) and `test_model_video` (a trajectory per
+batch, written as video: DTU and Blender interpolate between the source
+cameras, Blender onto white, LLFF takes the spiral, COLMAP its
+`render_path_mode`), with the JAX package's output names.
 """
 from __future__ import annotations
 
@@ -363,13 +365,14 @@ class Coach:
                 if name not in DATASETS:
                     raise NotImplementedError(
                         f"the {name} loader (matchnerf_tpu/data/) is not ported; the port "
-                        f"has {sorted(DATASETS)} (drop a test set with --data_test.{name}=)")
+                        f"has {sorted(DATASETS)}")
                 dataset = DATASETS[name](
                     data_cfg.root_dir, split, n_views=self.n_src_views,
                     img_wh=tuple(data_cfg.img_wh), max_len=data_cfg.get("max_len", -1),
                     scene_list=data_cfg.get("scene_list"),
                     test_views_method=data_cfg.get("test_views_method", "nearest"),
                     nf_mode=data_cfg.get("nf_mode", "avg"),
+                    eval_mode=data_cfg.get("eval_mode", "mvsnerf"),
                     n_add_train_views=data_cfg.get("n_add_train_views", 2),
                     meta_dir=data_cfg.get("meta_dir"))
                 loader = DataLoader(dataset, int(self.cfg.batch_size),
@@ -487,8 +490,11 @@ class Coach:
                    is_sanity_check=False) -> Dict:
         """Render every test view, save pred | gt (engine.py:544), score it
         (pixels without depth masked where the samples carry depth, else
-        an 80 % centre crop), write `0results_{dataset}.txt` and log each
-        dataset's mean metrics; returns the per-dataset metric lists."""
+        an 80 % centre crop; with the set's `report_full_scores` the whole
+        image too), write `0results_{dataset}.txt` and log each dataset's
+        mean metrics; returns the per-dataset metric lists. Blender's views
+        render onto a white background (the renderer's `setbg_opaque`, set
+        for that set only)."""
         cfg = self.cfg
         test_outroot = os.path.join(self.output_path, "test")
         os.makedirs(test_outroot, exist_ok=True)
@@ -499,6 +505,9 @@ class Coach:
             metrics_dict[dataname] = OrderedDict()
             data_outdir = os.path.join(test_outroot, dataname)
             os.makedirs(data_outdir, exist_ok=True)
+            report_full = bool(((cfg.get("data_test") or {}).get(dataname) or {}).get(
+                "report_full_scores", False))
+            self.renderer.setbg_opaque = dataname == "blender"
             for batch_idx, batch in enumerate(data_loader):
                 if is_sanity_check and batch_idx > 0:
                     break
@@ -530,7 +539,9 @@ class Coach:
                     mask = np.asarray(batch["depth"][b]) == 0 if "depth" in batch else None
                     eval_tools.set_inputs(pred_rgb[b], gt_rgb, mask)
                     view = f"{batch['scene'][b]}_{batch['view_ids'][b][-1]:03d}"
-                    metrics_dict[dataname][view] = eval_tools.get_metrics()
+                    metrics_dict[dataname][view] = eval_tools.get_metrics(
+                        return_full=report_full)
+            self.renderer.setbg_opaque = False
         sum_dict = summarize_metrics(metrics_dict, test_outroot, ep=ep)
         for dataname, data_metric in sum_dict.items():
             avg = {k: float(np.nanmean(vv)) for k, v in data_metric.items()
@@ -544,8 +555,12 @@ class Coach:
     def test_model_video(self, ep=None) -> List[np.ndarray]:
         """Render each batch's trajectory and write it (engine.py:628): the
         video (`write_video`), the GIF with nerf.save_gif, the frames with
-        nerf.save_frames, and the source views side by side. Returns the
-        rendered rgb of every batch element, [n_frames,H,W,3] f32 each."""
+        nerf.save_frames, and the source views side by side. The path and
+        background go by dataset (engine.py:636): DTU and Blender
+        interpolate between the source cameras, Blender onto white; LLFF
+        takes the spiral around the train views; COLMAP the set's
+        `render_path_mode`; any other set (T&T) raises. Returns the rendered
+        rgb of every batch element, [n_frames,H,W,3] f32 each."""
         cfg = self.cfg
         out_root = os.path.join(self.output_path, "test_videos")
         os.makedirs(out_root, exist_ok=True)
@@ -554,7 +569,15 @@ class Coach:
             dataname = data_loader.dataset.get_name()
             data_outdir = os.path.join(out_root, dataname)
             os.makedirs(data_outdir, exist_ok=True)
-            mode = cfg.data_test[dataname].get("render_path_mode", "interpolate")
+            self.renderer.setbg_opaque = dataname == "blender"
+            if "dtu" in dataname or dataname == "blender":
+                mode = "interpolate"
+            elif dataname == "llff":
+                mode = "spiral"
+            elif dataname == "colmap":
+                mode = cfg.data_test.colmap.get("render_path_mode", "interpolate")
+            else:
+                raise ValueError(f"Unknown dataset for rendering video {dataname}")
             for batch in data_loader:
                 ret = self.renderer.forward(batch, mode="test", render_video=True,
                                             render_path_mode=mode)
@@ -581,4 +604,5 @@ class Coach:
                         [(np.asarray(batch["images"][b, i]) * 255).astype(np.uint8)
                          for i in range(self.n_src_views)], axis=1)
                     save_image(os.path.join(data_outdir, f"{out_name}.png"), srcs)
+        self.renderer.setbg_opaque = False
         return videos

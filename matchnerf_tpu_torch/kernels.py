@@ -10,7 +10,9 @@ rebuilds and an unchanged one is reused. Nothing is built at import time:
 
 Each kernel module owns a `LaunchCounter`: its wrapper adds one to
 `launches` (and to `by_entry` under the C launcher's name, which tells a
-kernel's routes apart) right after a launch that the CUDA runtime accepted,
+kernel's routes apart, and to `by_variant` under a flag the launch was
+given, such as Kernel C's `setbg`) right after a launch that the CUDA
+runtime accepted,
 and its plain version adds one to `plain_on_cuda` whenever it runs on CUDA
 tensors, so a caller can show which path a render really took.
 """
@@ -82,11 +84,13 @@ class LaunchCounter:
         self.launches = 0
         self.plain_on_cuda = 0
         self.by_entry = {}
+        self.by_variant = {}
 
     def reset(self):
         self.launches = 0
         self.plain_on_cuda = 0
         self.by_entry = {}
+        self.by_variant = {}
 
 
 _lock = threading.Lock()
@@ -159,8 +163,9 @@ def library() -> ctypes.CDLL:
         return lib
 
 
-def launch(counter: LaunchCounter, fn_name: str, *args) -> None:
-    """Call one launcher on the current stream; raise on a CUDA error."""
+def launch(counter: LaunchCounter, fn_name: str, *args, variant: str = "") -> None:
+    """Call one launcher on the current stream; raise on a CUDA error.
+    A non-empty `variant` is counted under `counter.by_variant` too."""
     import torch
     fn = getattr(library(), fn_name)
     stream = torch.cuda.current_stream().cuda_stream
@@ -170,6 +175,8 @@ def launch(counter: LaunchCounter, fn_name: str, *args) -> None:
                            f"({torch.cuda.get_device_name()})")
     counter.launches += 1
     counter.by_entry[fn_name] = counter.by_entry.get(fn_name, 0) + 1
+    if variant:
+        counter.by_variant[variant] = counter.by_variant.get(variant, 0) + 1
 
 
 def ptr(t) -> int:

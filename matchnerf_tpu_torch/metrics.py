@@ -77,11 +77,14 @@ def lpips_vgg(pred: np.ndarray, gt: np.ndarray) -> Optional[float]:
 
 class EvalTools:
     """Per-image metrics with the reference's preprocessing (metrics.py:109):
-    a mask zeroes the excluded pixels; without one, a centre crop to 80 %."""
+    a mask zeroes the excluded pixels; without one, a centre crop to 80 %.
+    `get_metrics(return_full=True)` adds each metric of the whole,
+    unmasked image as `<metric>_Full`."""
 
     support_metrics = ("PSNR", "SSIM", "LPIPS")
 
     def set_inputs(self, pred_img, gt_img, img_mask=None):
+        self.full_pred, self.full_gt = pred_img, gt_img
         self.img_mask = img_mask
         if img_mask is not None:
             self.proc_pred = pred_img.copy()
@@ -103,13 +106,16 @@ class EvalTools:
             return float("nan") if v is None else v
         raise ValueError(metric)
 
-    def get_metrics(self, metrics=None) -> "OrderedDict[str, float]":
+    def get_metrics(self, metrics=None, return_full=False) -> "OrderedDict[str, float]":
         out = OrderedDict()
         for metric in metrics or self.support_metrics:
             if metric not in self.support_metrics:
                 raise ValueError(f"unknown metric {metric}")
             out[metric] = self._compute(metric, self.proc_pred, self.proc_gt,
                                         use_mask=self.img_mask is not None)
+            if return_full:
+                out[f"{metric}_Full"] = self._compute(metric, self.full_pred, self.full_gt,
+                                                      use_mask=False)
         return out
 
 

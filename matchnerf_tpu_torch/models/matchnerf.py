@@ -286,11 +286,13 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
                 img_w: int, kernel: bool = True,
                 block_ut: Optional[tuple] = None, color_ut: Optional[int] = None,
                 stratified: bool = False, generator: Optional[torch.Generator] = None,
-                depth_rand: Optional[torch.Tensor] = None, fused_cosine: bool = False):
+                depth_rand: Optional[torch.Tensor] = None, fused_cosine: bool = False,
+                setbg_opaque: bool = False):
     """Render rays [B,R,2] of target pixels (matchnerf.py:422); block_ut,
     color_ut and fused_cosine as in `query_cond_info`; stratified,
     generator and depth_rand as `sample_depth`'s stratified, generator and
-    rand. Returns dict(rgb [B,R,3], depth [B,R,1], opacity [B,R,1]).
+    rand; setbg_opaque composites onto a white background (Blender).
+    Returns dict(rgb [B,R,3], depth [B,R,1], opacity [B,R,1]).
 
     On the eval decoder route (precision.decoder_kernel, autograd not
     recording) precision.decoder_matmul_dtype picks Kernel C's operand route
@@ -319,6 +321,7 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
         decode = cond_nerf_decode if kernel else cond_nerf_decode_plain
         rgb, depth, opacity = decode(model.nerf_dec, cfg, ndc_view0.contiguous(),
                                      ray_unit_ref, cond_info, depth_samples, ray,
+                                     setbg_opaque=setbg_opaque,
                                      matmul_dtype=decoder_matmul_dtype(cfg))
     else:
         # the plain decoder: Kernel C is forward-only, so a step that
@@ -326,5 +329,6 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
         # as the JAX training step does
         rgb_s, den_s = apply_cond_nerf(model.nerf_dec, cfg, ndc_view0, ray_unit_ref,
                                        cond_info)
-        rgb, depth, opacity, _ = composite(cfg, ray, rgb_s, den_s, depth_samples)
+        rgb, depth, opacity, _ = composite(cfg, ray, rgb_s, den_s, depth_samples,
+                                           setbg_opaque=setbg_opaque)
     return {"rgb": rgb, "depth": depth, "opacity": opacity}

@@ -253,6 +253,7 @@ def cond_nerf_decode(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info,
         ray.data_ptr(), small.data_ptr(), frag.data_ptr(), kernels.ptr(postab),
         out.data_ptr(), frag.numel() // 16, N, S, Gf, V,
         _ACT_IDS[raytrans_act_name(cfg)], int(bool(cfg.decoder.density_maskfill)),
-        int(bool(cfg.nerf.wo_render_interval)), int(bool(setbg_opaque)))
+        int(bool(cfg.nerf.wo_render_interval)), int(bool(setbg_opaque)),
+        variant="setbg" if setbg_opaque else "")
     out = out.reshape(B, R, 5)
     return out[..., 0:3], out[..., 3:4], out[..., 4:5]

@@ -111,13 +111,17 @@ class Renderer:
     kernel=False renders with every kernel replaced by its plain version
     (same precision settings and the same per-pose route) — the reference
     the kernel path is held to. `last_route` is the route of the last
-    rendered pose, `frame_routes` that of each frame of the last video."""
+    rendered pose, `frame_routes` that of each frame of the last video.
+    `setbg_opaque` composites every render onto a white background (the
+    JAX renderer's `nerf_setbg_opaque`, which the eval entry sets for
+    Blender), through Kernel C's `setbg` or the plain composite."""
 
     def __init__(self, cfg, model: MatchNeRF, device="cuda", kernel: bool = True):
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
         self.kernel = kernel
+        self.setbg_opaque = False
         self.last_route: Optional[Dict] = None
         self.frame_routes: List[Dict] = []
 
@@ -263,7 +267,8 @@ class Renderer:
             ret = render_rays(self.model, cfg, pix, tgt_intr, c2w, tgt_nf,
                               ref_w2c, ref_intr, ref_nf, tables, img_h, img_w,
                               kernel=self.kernel, block_ut=block_ut,
-                              color_ut=color_ut, fused_cosine=fused)
+                              color_ut=color_ut, fused_cosine=fused,
+                              setbg_opaque=self.setbg_opaque)
             for k, v in ret.items():
                 outs.setdefault(k, []).append(v)
         return {k: torch.cat(v, dim=1) for k, v in outs.items()}

@@ -1,16 +1,23 @@
 """Evaluation and video entry of the port (counterpart of test.py).
 
-    python -m matchnerf_tpu_torch.test --config demo_own \\
-        [--precision.fused_cosine=true] [--nerf.video_n_frames=N] \\
-        [--load=PATH | --load=] [--output_root=DIR] [--cpu] [--key.sub=value ...]
+    python -m matchnerf_tpu_torch.test --config test \\
+        [--data_test.dtu.root_dir=DIR --data_test.dtu.meta_dir=DIR ...] \\
+        [--data_test.tnt=] [--load=PATH | --load=] [--output_root=DIR] [--cpu] \\
+        [--key.sub=value ...]
 
-`--config` names a configuration of `config.CONFIGS` (demo_own: the
-COLMAP printer scene of configs/demo_own.yaml); every other `--key=value`
-overrides it as the JAX entry's YAML overrides do (`--flag` is true,
-`--flag!` false, `--key=` None: `--load=` keeps the seeded weights). With
-`nerf.render_video` it renders the trajectory video (`Coach.test_model_video`),
-otherwise the test views with their metrics (`Coach.test_model`), under
-`<output_root>/<name>/`. It runs on the card unless given `--cpu`.
+`--config` names a configuration of `config.CONFIGS`: test
+(configs/test.yaml: the DTU, LLFF, Blender and T&T test sets), test_strict,
+test_video, test_tnt, demo_own (the COLMAP printer scene of
+configs/demo_own.yaml), test_video_own, train, train_fast. Every other
+`--key=value` overrides it as the JAX entry's YAML overrides do (`--flag`
+is true, `--flag!` false, `--key=` None: `--load=` keeps the seeded
+weights, `--data_test.llff=` leaves a test set out). A set's
+`meta_dir` names the directory of its `pairs.th` (default: configs/). With
+`nerf.render_video` it renders the trajectory video
+(`Coach.test_model_video`), otherwise the test views with their metrics
+(`Coach.test_model`), under `<output_root>/<name>/`. It runs on the card
+unless given `--cpu`. T&T's images are JPEGs, which only PIL decodes here:
+where PIL is not installed, leave that set out with `--data_test.tnt=`.
 """
 from __future__ import annotations
 

@@ -30,7 +30,9 @@ TF32 1e-5 (rgb, opacity) and 1e-4 (depth) against the f32 plain version;
 bf16 against the bf16 plain twin at 1e-3 and 1e-2, with its mean |d| under
 a tenth of the mean gap between the f32 and bf16 twins (the tensor cores
 sum the bf16 products in another order, which flips the bf16 rounding of
-an activation now and then); S above the kernel's limit raises.
+an activation now and then); with the opaque white background (setbg, on
+rays left partly transparent) on both routes at the same tolerances; S
+above the kernel's limit raises.
 
 The fused interp + grouped cosine (F) on tap rows of int8, bf16 and f32,
 with and without dequantisation scales, at G = 2 and 8 and a ragged N:
@@ -182,6 +184,31 @@ def test_cond_nerf_decode_kernel_routes(dev, variant, S, route):
         d = torch.cat([(a - b).abs().flatten() for a, b in zip(got, ref)]).mean()
         gap = torch.cat([(a - b).abs().flatten() for a, b in zip(other, ref)]).mean()
         assert float(d) < 0.1 * float(gap), (float(d), float(gap))
+
+
+@pytest.mark.parametrize("route", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["flagship", "demo_own"])
+def test_cond_nerf_decode_kernel_setbg(dev, variant, route):
+    """The opaque (white) background of Blender's renders (setbg = 1) on
+    both operand routes, at the tolerances of the routes' cases above, with
+    a density head that leaves the rays partly transparent so the
+    background shows; the launch counts under `by_variant["setbg"]`."""
+    md = getattr(torch, route)
+    args = _decode_args(dev, variant, 149, 128)
+    head = args[0].out_alpha_linear[2]
+    with torch.no_grad():                  # densities ~0.005: opacity ~0.5 over 128 samples
+        head.weight.mul_(0.001)
+        head.bias.fill_(0.005)
+        before = kc.COUNTER.by_variant.get("setbg", 0)
+        got = kc.cond_nerf_decode(*args, setbg_opaque=True, matmul_dtype=md)
+        assert kc.COUNTER.by_variant["setbg"] == before + 1
+        ref = kc.cond_nerf_decode_plain(*args, setbg_opaque=True, matmul_dtype=md)
+        black = kc.cond_nerf_decode_plain(*args, matmul_dtype=md)
+    tols = (1e-5, 1e-4, 1e-5) if route == "float32" else (1e-3, 1e-2, 1e-3)
+    for a, b, tol in zip(got, ref, tols):
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+    assert float((1.0 - ref[2]).mean()) > 0.1
+    torch.testing.assert_close(ref[0], black[0] + (1.0 - black[2]), atol=1e-5, rtol=0)
 
 
 def test_cond_nerf_decode_kernel_sample_limit(dev):
