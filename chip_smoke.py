@@ -4,9 +4,10 @@ render of configs/test.yaml, its fused-cosine route and its bf16 decoder
 route, the video entry of configs/demo_own.yaml and of
 configs/test_video_own.yaml, the training step and the training loop
 (`python -m matchnerf_tpu_torch.train`) of configs/train.yaml and
-configs/train_fast.yaml, and the eval entry (`python -m
+configs/train_fast.yaml, the eval entry (`python -m
 matchnerf_tpu_torch.test`) of configs/test.yaml, test_video.yaml and
-test_strict.yaml over DTU, LLFF and Blender test sets, on one NVIDIA card,
+test_strict.yaml over DTU, LLFF and Blender test sets, and the training
+entry of configs/train_ibrnet.yaml at 1008x756, on one NVIDIA card,
 through the hand-written CUDA kernels.
 
     python3 chip_smoke.py [--seed 0] [--profile]
@@ -151,9 +152,30 @@ Phases, any failure ends the run with a non-zero exit:
    cond query and decoder in torch ops (their plain versions on CUDA, as
    precision.strict asks), finite, its PSNR against the shipped-config
    render printed. The T&T set is left out: its JPEGs need PIL.
+14. configs/train_ibrnet.yaml: a synthetic IBRNet tree (two groups of one
+   scene, 8 forward-facing views each, PNGs at 1008x756) and an LLFF tree
+   of its second scene, written by a process started after the kernel
+   build, and a synthetic GMFlow checkpoint (a seeded encoder under
+   `module.`, a 7th transformer layer, the flow upsampler and refinement);
+   `train.build_coach` + `train_model` with `--encoder.pretrain_weight` on
+   it (the backbone and transformer from the checkpoint, featup_net and the
+   decoder from the seed): the sanity validation and LLFF gpnr test, 6
+   steps (A and A' at [96,768,128]: the encoder resizes to 768x1024; B' at
+   both scales), validation, test and the epoch checkpoint, losses finite,
+   no plain version on CUDA; the resume, bit-equal; one validation and one
+   test image alone: 94 slices of 8192 rays (the card caps the recipe's
+   23552), A 12, C 94, D 188 on bf16 tables (or B where a scale
+   overflows), E 94 launches, the first 2 slices >= 50 dB against
+   all-plain, each kernel's device ms; C, D and E on one 23552-ray slice
+   and B' on the 96x128 / 192x256 f32 tables against their plain twins;
+   the first step against all-plain (bf16-policy tolerances) and the warm
+   step's ms, peak memory and launches with remat_encoder off and on (24
+   A launches a step with it); A and A' bf16 at [96,768,128], unmasked and
+   shifted, against their plain versions beside SDPA, with their bounds.
 Every launch count is reset just before a path (a step, in 10 and 11; a
 training run and a validation image, in 12; each test set's render, in
-13) and read just after it. With --profile, one more warm render of each eval path
+13; the training run, each image and the timed steps, in 14) and read
+just after it. With --profile, one more warm render of each eval path
 (the bf16 decoder path too) and of each video, and one warm step of each
 training recipe run under torch.profiler and print the device time by
 kernel (the A' backward's dq and dkv kernels always by name), the device
@@ -648,10 +670,10 @@ def train_kernel_phase(torch, F, dev, batch, seed, block_ut, res):
     del tmodel, ttables
 
 
-def first_step_check(torch, dev, cfg, batch, seed, label, tol):
+def first_step_check(torch, dev, cfg, batch, seed, label, tol, img_hw=(H, W)):
     """One step's loss and gradients from one set of weights, rays and
-    jitter, through the kernels and all-plain; tol = (loss rtol, worst and
-    median per-tensor gradient error)."""
+    jitter, through the kernels and all-plain, on an img_hw image; tol =
+    (loss rtol, worst and median per-tensor gradient error)."""
     from matchnerf_tpu_torch.engine import Coach
     from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
     from matchnerf_tpu_torch.train_step import sample_ray_indices
@@ -667,7 +689,7 @@ def first_step_check(torch, dev, cfg, batch, seed, label, tol):
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     patches = bool(cfg.nerf.get("train_ray_patches", False))
     S = int(cfg.nerf.sample_intvs)
-    idx = sample_ray_indices(H * W, TRAIN_RAYS, patches, dev, gen)
+    idx = sample_ray_indices(img_hw[0] * img_hw[1], TRAIN_RAYS, patches, dev, gen)
     rand = torch.rand((1, TRAIN_RAYS, S, 1), generator=gen, device=dev)
     losses = []
     for c in coaches:
@@ -927,30 +949,12 @@ def plain_frame0(cfg, model, dev, batch, n_slices=None, mode="interpolate", setb
     every kernel replaced by its plain version, onto a white background
     with setbg: dict of [1, H*W, *], or of the first n_slices ray slices
     only."""
-    import torch
-    from matchnerf_tpu_torch import camera
-    from matchnerf_tpu_torch.models.matchnerf import render_rays
     from matchnerf_tpu_torch.renderer import Renderer, extract_poses
-    plain = Renderer(cfg, model, dev, kernel=False)
-    plain.setbg_opaque = setbg
     poses = extract_poses(batch)
-    n_frames = int(cfg.nerf.video_n_frames)
-    frame0 = plain.get_video_rendering_path(poses, mode, n_frames, batch)[0]
-    ref_images = plain.tensor(batch["images"][:, :3])
-    tables = plain.build_tables(ref_images, plain.encode(ref_images))
-    vw, vh = (int(x) for x in batch["img_wh"][0])
-    pose = {"tgt": frame0, "ref": poses["ref"]}
-    if n_slices is None:
-        return plain.render_by_slices(pose, tables, vh, vw)
-    R = plain.rays_per_slice(1)
-    grid = camera.pixel_grid(vh, vw, legacy=cfg.nerf.legacy_coord, device=plain.device)
-    outs = []
-    with torch.no_grad():
-        for s0 in range(0, n_slices * R, R):
-            outs.append(render_rays(plain.model, cfg, grid[s0:s0 + R][None],
-                                    *plain._pose_tensors(pose), tables, vh, vw,
-                                    kernel=False, setbg_opaque=setbg)["rgb"])
-    return {"rgb": torch.cat(outs, dim=1)}
+    frame0 = Renderer(cfg, model, dev, kernel=False).get_video_rendering_path(
+        poses, mode, int(cfg.nerf.video_n_frames), batch)[0]
+    return plain_render(cfg, model, dev, batch, n_slices, {"tgt": frame0, "ref": poses["ref"]},
+                        setbg)
 
 
 def video_phase(torch, dev, seed, counters, profile, name, n_frames, plain_slices=None):
@@ -1515,6 +1519,542 @@ def eval_entry_phase(torch, dev, seed):
     return out
 
 
+IBR_WH = (1008, 756)               # configs/train_ibrnet.yaml img_wh
+IBR_STEPS = 6                      # training steps of the train_ibrnet phase
+IBR_SLICE = 23552                  # its nerf.rand_rays_val and rand_rays_test
+IBR_TIMED_STEPS = 3                # warm steps timed with and without remat
+
+
+def write_ibrnet_trees(work):
+    """A synthetic IBRNet tree (two groups of one scene, 8 forward-facing
+    views each at 1008x756) and an LLFF tree holding a copy of its second
+    scene (eval_mode gpnr: view 0 the target, the other 7 its candidates;
+    the validation image is the first scene's view 0) under `work` ->
+    (IBRNet root, LLFF root, seconds)."""
+    import shutil
+    from matchnerf_tpu_torch.data import synth
+    t0 = time.perf_counter()
+    ibr, llff = os.path.join(work, "IBRNet"), os.path.join(work, "nerf_llff_data")
+    synth.write_ibrnet_tree(ibr, *IBR_WH)
+    shutil.copytree(os.path.join(ibr, "real_iconic_noface", "scene1"),
+                    os.path.join(llff, "scene1"))
+    return ibr, llff, time.perf_counter() - t0
+
+
+def start_ibrnet_trees():
+    """Phase 14's trees, written by one spawned process while the phases
+    before it run -> (the process pool, the future of write_ibrnet_trees).
+    The caller shuts the pool down once it has the result."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ibrnet_", dir=os.path.join(REPO, "build"))
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(write_ibrnet_trees, work)
+
+
+def write_gmflow_checkpoint(torch, cfg, seed, path):
+    """A GMFlow flow checkpoint as the reference saves it, from an encoder
+    of `cfg` with weights from the seed: its backbone and transformer under
+    `module.`, one transformer layer more than the model has, the flow
+    upsampler and the flow refinement (none of which the model loads), no
+    featup_net -> the encoder's state_dict."""
+    from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+    enc = init_matchnerf(cfg, torch.Generator().manual_seed(seed + 7)).feat_enc
+    state = enc.state_dict()
+    sd = {f"module.{k}": v for k, v in state.items() if not k.startswith("featup_net.")}
+    n = len(enc.transformer.layers)
+    last = f"transformer.layers.{n - 1}."
+    sd.update({f"module.transformer.layers.{n}.{k[len(last):]}": v + 1.0
+               for k, v in state.items() if k.startswith(last)})
+    gen = torch.Generator().manual_seed(seed + 8)
+    sd["module.upsampler.0.weight"] = torch.randn(256, 129, 3, 3, generator=gen)
+    sd["module.upsampler.0.bias"] = torch.randn(256, generator=gen)
+    sd["module.feature_flow_attn.q_proj.weight"] = torch.randn(128, 128, generator=gen)
+    torch.save({"model": sd}, path)
+    return state
+
+
+def ibrnet_attention(torch, F, dev, seed):
+    """Kernels A and A' at the encoder's shape at 1008x756: [96,768,128]
+    bf16 (6 streams x 4x4 windows of 24 x 32 tokens), unmasked and shifted,
+    each against its plain version, beside SDPA with the float mask."""
+    from matchnerf_tpu_torch.ops import window_attention as ka
+    from matchnerf_tpu_torch.ops.attention import shift_region_ids
+    grad = torch.autograd.grad
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    BW, L, C = 96, 768, 128
+    rid = shift_region_ids(96, 128, 4, device=dev)
+    rows = rid[torch.arange(BW, device=dev) % rid.shape[0]]
+    prod = 2 * BW * L * L * C                    # flops of one score-sized product
+    out = {"A": {}, "A_bwd": {}}
+    for shift in (False, True):
+        tag = "shift" if shift else "noshift"
+        r = rid if shift else None
+        q, k, v, do = (torch.randn(BW, L, C, generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        mask = None
+        if shift:
+            mask = torch.where(rows[:, :, None] != rows[:, None, :], -100.0, 0.0)
+            mask = mask[:, None].to(torch.bfloat16)
+        with torch.no_grad():
+            got = ka.window_attention(q, k, v, r)
+            ref = ka.window_attention_plain(q, k, v, r)
+            torch.cuda.synchronize()
+            err = max_abs(got, ref)
+            tol = 3e-2 * max(1.0, float(ref.float().abs().max()))
+            lib = lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None],
+                                                         attn_mask=mask)
+            b_ms, b_by = bound(nbytes(q, k, v, got), 2 * prod, "bfloat16", TC_FLOPS)
+            a = dict(shape=[BW, L, C], max_abs_err=err, tol=tol,
+                     ms=cuda_ms(torch, lambda: ka.window_attention(q, k, v, r), 50),
+                     plain_ms=cuda_ms(torch, lambda: ka.window_attention_plain(q, k, v, r), 5),
+                     library_ms=cuda_ms(torch, lib, 50),
+                     library_max_abs_err=max_abs(lib()[:, 0], ref), bound_ms=b_ms,
+                     bound_by=b_by)
+        log(f"train_ibrnet kernel A window_attention bf16 [{BW},{L},{C}] {tag}: max|d| "
+            f"{err:.3e} (tol {tol:.3e}), {a['ms']:.4f} ms vs plain {a['plain_ms']:.3f} ms, "
+            f"library SDPA {a['library_ms']:.4f} ms (max|d| {a['library_max_abs_err']:.3e}), "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        check_close(f"train_ibrnet window_attention {tag}", err, tol)
+        out["A"][tag] = a
+        qk = [t.clone().requires_grad_() for t in (q, k, v)]
+        qp = [t.clone().requires_grad_() for t in (q, k, v)]
+        o_k = ka.window_attention(*qk, r)
+        gk = grad(o_k, qk, do, retain_graph=True)
+        gp = grad(ka.window_attention_plain(*qp, r), qp, do)
+        torch.cuda.synchronize()
+        err = max(max_abs(x, y) for x, y in zip(gk, gp))
+        tol = 3e-2 * max(float(y.float().abs().max()) for y in gp)
+        o, lse = ka.window_attention_forward(q, k, v, r, with_lse=True)
+        ql = [t[:, None].detach().clone().requires_grad_() for t in (q, k, v)]
+        ol = F.scaled_dot_product_attention(*ql, attn_mask=mask)
+        lib_bwd = lambda: grad(ol, ql, do[:, None], retain_graph=True)
+        b_ms, b_by = bound(nbytes(q, k, v, o, do, lse, *gk), 5 * prod, "bfloat16", TC_FLOPS)
+        ab = dict(shape=[BW, L, C], max_abs_err=err, tol=tol,
+                  ms=cuda_ms(torch, lambda: ka.window_attention_backward(q, k, v, o, lse, do, r),
+                             20),
+                  fwd_ms=cuda_ms(torch, lambda: ka.window_attention_forward(q, k, v, r, True),
+                                 20),
+                  plain_ms=cuda_ms(torch, lambda: grad(
+                      ka.window_attention_plain(*qp, r), qp, do), 5),
+                  library_ms=device_ms(torch, lib_bwd, 10),
+                  library_max_abs_err=max(max_abs(x[:, 0], y) for x, y in
+                                          zip(lib_bwd(), gp)),
+                  bound_ms=b_ms, bound_by=b_by)
+        log(f"train_ibrnet kernel A' window_attention backward bf16 [{BW},{L},{C}] {tag}: "
+            f"max|d| dq/dk/dv {err:.3e} (tol {tol:.3e}), {ab['ms']:.4f} ms (forward with the "
+            f"logsumexp {ab['fwd_ms']:.4f} ms) vs plain {ab['plain_ms']:.3f} ms, library SDPA "
+            f"backward {ab['library_ms']:.4f} ms on the device (max|d| "
+            f"{ab['library_max_abs_err']:.3e}), bound {b_ms:.4f} ms ({b_by}, 5 products)")
+        check_close(f"train_ibrnet window_attention backward {tag}", err, tol)
+        out["A_bwd"][tag] = ab
+        del q, k, v, do, qk, qp, gk, gp, o, lse, ql, ol, mask, got, ref
+    return out
+
+
+def ibrnet_train_tables(torch, dev, cfg, model, batch, seed):
+    """B' at the step's f32 tables (96x128 and 192x256 cells at 1008x756)
+    on 1024 iid training rays of the sample, S = 128, stratified: the
+    forward and the table gradient against autograd through the plain
+    twin."""
+    from matchnerf_tpu_torch import camera
+    from matchnerf_tpu_torch.models.matchnerf import (encode, prepare_sampling_tables,
+                                                      project_to_views, sample_depth)
+    from matchnerf_tpu_torch.ops import cosine_prior as kb
+    from matchnerf_tpu_torch.renderer import Renderer, extract_poses
+    from matchnerf_tpu_torch.train_step import sample_ray_indices
+    grad = torch.autograd.grad
+    W_, H_ = IBR_WH
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    r0 = Renderer(cfg, model, dev)
+    ref_images = r0.tensor(batch["images"][:, :3])
+    with torch.no_grad():
+        tables = prepare_sampling_tables(cfg, encode(model, cfg, ref_images), ref_images)
+    tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = r0._pose_tensors(extract_poses(batch))
+    R = TRAIN_RAYS
+    idx = sample_ray_indices(H_ * W_, R, False, dev, gen)
+    pix = torch.stack([(idx % W_).float(), (idx // W_).float()], -1)[None]
+    center, ray = camera.get_center_and_ray(pix, tgt_intr, c2w)
+    depth = sample_depth(cfg, tgt_nf, 1, R, stratified=True, generator=gen)
+    pts = camera.get_3d_points_from_depth(center, ray, depth, multi_samples=True)
+    grids = (project_to_views(pts, ref_w2c, ref_intr, ref_nf, H_, W_)[..., :2]
+             * 2.0 - 1.0)[:, 0].contiguous()
+    S = grids.shape[2]
+    N = R * S
+    out = []
+    for s, G in enumerate(cfg.encoder.cos_n_group):
+        table = tables["view_feats"][s][0]
+        gcot = torch.randn(R, S, G, generator=gen, device=dev)
+        tk, tp = table.clone().requires_grad_(), table.clone().requires_grad_()
+        ok, op = kb.cosine_prior(tk, grids, None, G), kb.cosine_prior_plain(tp, grids, None, G)
+        dk = grad(ok, tk, gcot, retain_graph=True)[0]
+        dp = grad(op, tp, gcot, retain_graph=True)[0]
+        torch.cuda.synchronize()
+        fwd_err, err = max_abs(ok, op), max_abs(dk, dp)
+        tol = 1e-5 * float(dp.abs().max())
+        b_ms, b_by = bound(2 * nbytes(table) + nbytes(grids, gcot),
+                           N * (3 * 256 * 16 + 3 * 128 * 12))
+        e = dict(scale=s, table=list(table.shape), G=G, R=R, S=S, forward_max_abs_err=fwd_err,
+                 max_abs_err=err, tol=tol,
+                 ms=cuda_ms(torch, lambda: grad(ok, tk, gcot, retain_graph=True), 10),
+                 plain_ms=cuda_ms(torch, lambda: grad(op, tp, gcot, retain_graph=True), 3),
+                 bound_ms=b_ms, bound_by=b_by)
+        log(f"train_ibrnet kernel B' cosine_prior backward scale {s} table {e['table']} f32 "
+            f"G={G} R={R} S={S}: forward max|d| {fwd_err:.3e} (tol 1e-5), d_table max|d| "
+            f"{err:.3e} (tol {tol:.3e}), {e['ms']:.3f} ms vs plain {e['plain_ms']:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        check_close(f"train_ibrnet B forward scale {s}", fwd_err, 1e-5)
+        check_close(f"train_ibrnet B' scale {s}", err, tol)
+        out.append(e)
+        del tk, tp, ok, op, dk, dp, gcot
+    if [e["table"][1:3] for e in out] != [[96, 128], [192, 256]]:
+        raise AssertionError(f"train_ibrnet training tables {[e['table'] for e in out]}")
+    return out
+
+
+def ibrnet_eval_slice(torch, dev, cfg, renderer, batch):
+    """C, D and E on one 23552-ray slice (nerf.rand_rays_val) of the
+    validation pose, with the validation render's bf16 tables, its route
+    and the IBR decoder, each against its plain twin; D also against B."""
+    from matchnerf_tpu_torch import camera
+    from matchnerf_tpu_torch.models.matchnerf import (project_to_views, query_cond_info,
+                                                      sample_depth)
+    from matchnerf_tpu_torch.ops import block_cosine_prior as kd
+    from matchnerf_tpu_torch.ops import cosine_prior as kb
+    from matchnerf_tpu_torch.ops import decoder as kc
+    from matchnerf_tpu_torch.ops import supercell_color as ke
+    from matchnerf_tpu_torch.renderer import extract_poses
+    W_, H_ = IBR_WH
+    out = {"D": []}
+    with torch.no_grad():
+        ref_images = renderer.tensor(batch["images"][:, :3])
+        tables = renderer.build_tables(ref_images, renderer.encode(ref_images))
+        poses = extract_poses(batch)
+        scale_hws = [(t.shape[2], t.shape[3]) for t in tables["view_feats"]]
+        block_ut, color_ut = renderer.pose_prep(poses, scale_hws, H_, W_, measure_color=True)
+        R = IBR_SLICE
+        pix = camera.pixel_grid(H_, W_, legacy=True, device=dev)[:R][None]
+        tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = renderer._pose_tensors(poses)
+        center, ray = camera.get_center_and_ray(pix, tgt_intr, c2w)
+        depth = sample_depth(cfg, tgt_nf, 1, R)
+        pts = camera.get_3d_points_from_depth(center, ray, depth, multi_samples=True)
+        grids = (project_to_views(pts, ref_w2c, ref_intr, ref_nf, H_, W_)[..., :2]
+                 * 2.0 - 1.0)[:, 0].contiguous()
+        S = grids.shape[2]
+        for s, G in enumerate(cfg.encoder.cos_n_group):
+            ut = (block_ut or (None, None))[s]
+            if ut is None:
+                continue
+            table = tables["view_feats"][s][0]
+            fn = lambda: kd.block_cosine_prior(table, grids, None, G, ut)
+            plain = lambda: kd.block_cosine_prior_plain(table, grids, None, G, ut)
+            got = fn()
+            err, err_b = max_abs(got, plain()), max_abs(got, kb.cosine_prior(table, grids, None, G))
+            b_ms, b_by = bound(nbytes(table, grids, got), prior_flops(R * S, scaled=False))
+            e = dict(scale=s, table=list(table.shape), dtype=str(table.dtype), R=R, ut=ut,
+                     max_abs_err=err, max_abs_err_vs_kernel_b=err_b, ms=cuda_ms(torch, fn, 10),
+                     plain_ms=cuda_ms(torch, plain, 3), bound_ms=b_ms, bound_by=b_by)
+            log(f"train_ibrnet kernel D block_cosine_prior scale {s} table {e['table']} "
+                f"{e['dtype']} G={G} R={R} S={S} bucket {ut}: max|d| {err:.3e} (tol 1e-4), vs "
+                f"kernel B {err_b:.3e}, {e['ms']:.3f} ms vs plain {e['plain_ms']:.3f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by})")
+            check_close(f"train_ibrnet D scale {s}", err, 1e-4)
+            check_close(f"train_ibrnet D vs B scale {s}", err_b, 1e-4)
+            out["D"].append(e)
+            del got
+        if color_ut is not None and tables.get("colors_sc") is not None:
+            csc = tables["colors_sc"][0]
+            e_fn = lambda: ke.supercell_color_sample(csc, grids, H_, W_)
+            e_plain = lambda: ke.supercell_color_sample_plain(csc, grids, H_, W_)
+            got = e_fn()
+            err = max_abs(got, e_plain())
+            b_ms, b_by = bound(nbytes(csc, grids, got), R * S * 3 * 3 * 9)
+            out["E"] = dict(R=R, max_abs_err=err, ms=cuda_ms(torch, e_fn, 20),
+                            plain_ms=cuda_ms(torch, e_plain, 3), bound_ms=b_ms, bound_by=b_by)
+            log(f"train_ibrnet kernel E supercell_color R={R} S={S}: max|d| {err:.3e} (tol "
+                f"1e-5), {out['E']['ms']:.4f} ms vs plain {out['E']['plain_ms']:.3f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by})")
+            check_close("train_ibrnet supercell_color", err, 1e-5)
+            del got
+        cond, ndc0 = query_cond_info(cfg, pts, ref_w2c, ref_intr, ref_nf, tables, H_, W_,
+                                     block_ut=block_ut, color_ut=color_ut)
+        ray_unit = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
+        ray_ref = (ray_unit @ ref_w2c[:, 0, :3, :3].transpose(-1, -2))[:, :, None] \
+            .expand(*pts.shape[:3], 3).contiguous()
+        out["C"] = decoder_case(torch, kc, dev, (renderer.model.nerf_dec, cfg, ndc0.contiguous(),
+                                                 ray_ref, cond, depth, ray),
+                                f"train_ibrnet {R}-ray slice")
+        out["route"] = {"block_ut": block_ut, "color_ut": color_ut}
+        del cond, ndc0, pts, grids, tables
+    return out
+
+
+def plain_render(cfg, model, dev, batch, n_slices=None, pose=None, setbg=False):
+    """The batch's target (or `pose`) with every kernel replaced by its
+    plain version, onto a white background with setbg: dict of [1, H*W, *],
+    or {"rgb": [1, rays, 3]} of the first n_slices ray slices only."""
+    import torch
+    from matchnerf_tpu_torch import camera
+    from matchnerf_tpu_torch.models.matchnerf import render_rays
+    from matchnerf_tpu_torch.renderer import Renderer, extract_poses
+    plain = Renderer(cfg, model, dev, kernel=False)
+    plain.setbg_opaque = setbg
+    pose = pose or extract_poses(batch)
+    ref_images = plain.tensor(batch["images"][:, :3])
+    tables = plain.build_tables(ref_images, plain.encode(ref_images))
+    vw, vh = (int(x) for x in batch["img_wh"][0])
+    if n_slices is None:
+        return plain.render_by_slices(pose, tables, vh, vw)
+    R = plain.rays_per_slice(1)
+    grid = camera.pixel_grid(vh, vw, legacy=cfg.nerf.legacy_coord, device=plain.device)
+    outs = []
+    with torch.no_grad():
+        for s0 in range(0, n_slices * R, R):
+            outs.append(render_rays(plain.model, cfg, grid[s0:s0 + R][None],
+                                    *plain._pose_tensors(pose), tables, vh, vw,
+                                    kernel=False, setbg_opaque=setbg)["rgb"])
+    return {"rgb": torch.cat(outs, dim=1)}
+
+
+def ibrnet_phase(torch, F, dev, seed, counters, trees):
+    """Phase 14: `python -m matchnerf_tpu_torch.train --config train_ibrnet`
+    (`train.build_coach` and `train_model`) at 1008x756 on synthetic IBRNet
+    and LLFF trees with the encoder from a synthetic GMFlow checkpoint: the
+    sanity validation and test, IBR_STEPS steps, validation, the LLFF test
+    and the checkpoint, then the resume; one validation and one test image
+    with their launches, the first slices of each against all-plain, the
+    eval kernels' device ms; the first-step check with and without remat,
+    the warm step's ms and peak memory with and without remat; A and A' at
+    [96,768,128], B' at the 96x128 and 192x256 f32 tables, and C, D and E
+    on a 23552-ray slice, each against its plain twin. `trees` is the
+    future of `write_ibrnet_trees` (`start_ibrnet_trees`)."""
+    t_phase = time.perf_counter()
+    from matchnerf_tpu_torch.config import ibrnet_train_config
+    from matchnerf_tpu_torch.engine import Coach
+    from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+    from matchnerf_tpu_torch.ops import block_cosine_prior as kd
+    from matchnerf_tpu_torch.ops import cosine_prior as kb
+    from matchnerf_tpu_torch.train import build_coach
+    from matchnerf_tpu_torch.utils.checkpoint import load_checkpoint
+    W_, H_ = IBR_WH
+    card = card_line()
+    out = {"card": card, "img_wh": [W_, H_], "steps": IBR_STEPS}
+    t0 = time.perf_counter()
+    ibr, llff, out["trees_s"] = trees.result()
+    out["trees_wait_s"] = time.perf_counter() - t0
+    work = os.path.dirname(ibr)
+    pth = os.path.join(work, "gmflow_synthetic.pth")
+    src = write_gmflow_checkpoint(torch, ibrnet_train_config(), seed, pth)
+    log(f"train_ibrnet: synthetic IBRNet tree (2 scenes x 8 views) and LLFF gpnr tree at "
+        f"{W_}x{H_} written in {out['trees_s']:.1f} s by a process started before phase 1 "
+        f"(waited {out['trees_wait_s']:.1f} s for it), GMFlow checkpoint under {work}")
+    args = ["--config", "train_ibrnet", "--name=ibrnet", f"--output_root={work}/runs",
+            f"--encoder.pretrain_weight={pth}", f"--data_train.root_dir={ibr}",
+            f"--data_val.root_dir={ibr}", f"--data_test.llff.root_dir={llff}", "--max_epoch=1",
+            f"--data_train.max_len={IBR_STEPS}", "--data_val.max_len=1",
+            "--data_test.llff.max_len=1", "--freq.test_ep=1", "--freq.ckpt_ep=1",
+            "--freq.scalar=1", "--tb=false"]
+    coach = build_coach(args)
+    state = coach.model.state_dict()
+    seeded = init_matchnerf(coach.cfg, torch.Generator().manual_seed(0)).state_dict()
+    loaded = all(torch.equal(state[f"feat_enc.{k}"].cpu(), v) for k, v in src.items()
+                 if not k.startswith("featup_net."))
+    kept = all(torch.equal(v.cpu(), seeded[k]) for k, v in state.items()
+               if k.startswith(("feat_enc.featup_net.", "nerf_dec.")))
+    log(f"train_ibrnet: encoder from the GMFlow checkpoint {loaded}, featup_net and decoder "
+        f"from the seed {kept}")
+    if not (loaded and kept):
+        raise AssertionError("train_ibrnet: the GMFlow encoder init did not load as it should")
+
+    # the run: sanity validation and test, the steps, validation, test, checkpoint
+    timed = {"validate_s": [], "test_s": []}
+    coach.validate_model = timed_hook(torch, coach.validate_model, timed["validate_s"])
+    coach.test_model = timed_hook(torch, coach.test_model, timed["test_s"])
+    events = []
+    step = coach.step
+
+    def timed_step(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        r = step(*a, **k)
+        e1.record()
+        events.append((e0, e1))
+        return r
+    coach.step = timed_step
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coach.train_model()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_launches = {k: c.launches for k, c in counters.items()}
+    plain_cuda = {k: c.plain_on_cuda for k, c in counters.items()}
+    coach.step = step
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    with open(coach.scalars_path) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss_render"] for r in recs if r["split"] == "train"]
+    vals = [r for r in recs if r["split"] == "val"]
+    tests = [r for r in recs if r["split"] == "llff"]
+    mdir = os.path.join(coach.output_path, "models")
+    ckpts = sorted(os.listdir(mdir))
+    log(f"train_ibrnet loop: {IBR_STEPS} steps in {wall:.3f} s with validations "
+        f"{[round(t, 3) for t in timed['validate_s']]} s and LLFF tests "
+        f"{[round(t, 3) for t in timed['test_s']]} s (the sanity check first); step ms (CUDA "
+        f"events) {[round(t, 2) for t in step_ms]}; losses {[round(x, 6) for x in losses]}; "
+        f"val PSNR {[round(r['PSNR'], 3) for r in vals]}, LLFF PSNR "
+        f"{[round(r['PSNR'], 3) for r in tests]}; checkpoints {ckpts}; route "
+        f"{coach.last_route} (None: B'); launches {run_launches}; {card}")
+    if len(losses) != IBR_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_ibrnet: losses {losses}")
+    if ckpts != [f"ep1_it{IBR_STEPS}.ckpt", "latest.ckpt"]:
+        raise AssertionError(f"train_ibrnet: checkpoints {ckpts}")
+    if len(vals) != 2 or len(tests) != 2 or not all(
+            math.isfinite(r["PSNR"]) and math.isfinite(r["SSIM"]) for r in vals + tests):
+        raise AssertionError(f"train_ibrnet: validation {vals}, test {tests}")
+    if any(plain_cuda.values()):
+        raise AssertionError(f"train_ibrnet: plain versions ran on CUDA: {plain_cuda}")
+    # 12 A' launches a step and 12 A launches an encode (2 validations, 2 tests);
+    # B' at both scales (iid rays)
+    want = {"window_attention": 12 * (IBR_STEPS + 4), "window_attention_bwd": 12 * IBR_STEPS,
+            "cosine_prior_bwd": 2 * IBR_STEPS}
+    if any(run_launches[k] != v for k, v in want.items()) or not run_launches["cond_nerf_decode"]:
+        raise AssertionError(f"train_ibrnet: launches {run_launches}, expected {want} and C")
+    out.update(loop_wall_s=wall, step_ms=step_ms,
+               warm_step_ms=float(np.mean(step_ms[1:])), losses=losses,
+               validate_s=list(timed["validate_s"]), test_s=list(timed["test_s"]),
+               val_psnr=[r["PSNR"] for r in vals], llff_psnr=[r["PSNR"] for r in tests],
+               checkpoints=ckpts, launches=run_launches)
+
+    # the resume: the model, Adam(W) and schedule state, epoch and iteration
+    ckpt = load_checkpoint(os.path.join(mdir, "latest.ckpt"))
+    resumed = build_coach(args + ["--resume"])
+    model_equal = all(torch.equal(v.cpu(), ckpt["model"][k])
+                      for k, v in resumed.model.state_dict().items())
+    opt, opt_ckpt = resumed.opt.state_dict(), ckpt["optim"]
+    adam, adam_ckpt = opt["adamw"]["state"], opt_ckpt["adamw"]["state"]
+    opt_equal = (opt["count"] == opt_ckpt["count"] == IBR_STEPS
+                 and adam.keys() == adam_ckpt.keys()
+                 and all(torch.equal(adam[i][k].cpu(), adam_ckpt[i][k])
+                         for i in adam for k in adam[i]))
+    at = (resumed.epoch_start, resumed.iter_start)
+    log(f"train_ibrnet resume: at epoch {at[0]} iteration {at[1]}, model bit-equal "
+        f"{model_equal}, optimizer and schedule state bit-equal {opt_equal}")
+    if not (model_equal and opt_equal and at == (1, IBR_STEPS)):
+        raise AssertionError("train_ibrnet: the resume did not restore the checkpoint")
+    out["resume"] = {"epoch": at[0], "iter": at[1], "model_bit_equal": model_equal,
+                     "optimizer_bit_equal": opt_equal}
+    del resumed, ckpt
+
+    # one validation image and one LLFF test image alone: launches, seconds,
+    # the first 2 slices against all-plain, the eval kernels' device ms
+    renderer = coach.renderer
+    n_slices = math.ceil(W_ * H_ / renderer.rays_per_slice(1))
+    images = {}
+    for name, run in (("validation", lambda: coach.validate_model(iteration=coach.it)),
+                      ("llff_test", lambda: coach.test_model(ep=1, save_images=False))):
+        renders = []
+        forward = renderer.forward
+        renderer.forward = lambda *a, **k: renders.append((a, forward(*a, **k))) or renders[-1][1]
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        renderer.forward = forward
+        launches = {k: c.launches for k, c in counters.items()}
+        routes = {"B": dict(kb.COUNTER.by_entry), "D": dict(kd.COUNTER.by_entry)}
+        route = renderer.last_route
+        (batch, *_), rendered = renders[0]
+        mode = "val" if name == "validation" else "test"
+        ref = plain_render(coach.cfg, coach.model, dev, batch, 2)["rgb"]
+        agreement = psnr(rendered["rgb"][:, :ref.shape[1]], ref)
+        kms = kernel_device_ms(torch, lambda: renderer.forward(batch, mode=mode))
+        n_block = sum(u is not None for u in route["block_ut"] or ())
+        log(f"train_ibrnet {name} image {W_}x{H_}: {seconds:.4f} s, {n_slices} slices of "
+            f"{renderer.rays_per_slice(1)} rays, route {route}, launches {launches}, B "
+            f"{routes['B']}, D {routes['D']}; first 2 slices vs all-plain PSNR {agreement:.2f} dB "
+            f"(need >= 50); device ms (launches) "
+            + ", ".join(f"{k} {ms:.3f} ({n})" for k, (ms, n) in sorted(kms.items()))
+            + f"; {card}")
+        expect = {"window_attention": 12, "cond_nerf_decode": n_slices,
+                  "block_cosine_prior": n_block * n_slices,
+                  "cosine_prior": (2 - n_block) * n_slices,
+                  "supercell_color": n_slices if route["color_ut"] is not None else 0}
+        if any(launches[k] != v for k, v in expect.items()):
+            raise AssertionError(f"train_ibrnet {name}: launches {launches}, expected {expect}")
+        if set(routes["B"]) - {"cosine_prior_bf16"} or set(routes["D"]) - {
+                "block_cosine_prior_bf16"}:
+            raise AssertionError(f"train_ibrnet {name}: tables other than bf16: {routes}")
+        if not agreement >= 50.0 or not bool(rendered["rgb"].isfinite().all()):
+            raise AssertionError(f"train_ibrnet {name}: agreement {agreement:.2f} dB")
+        images[name] = {"seconds": seconds, "slices": n_slices,
+                        "rays_per_slice": renderer.rays_per_slice(1), "route": route,
+                        "launches": launches, "launches_by_route": routes,
+                        "psnr_first_2_slices_vs_plain_db": agreement,
+                        "kernel_device_ms": {k: {"ms": ms, "launches": n, "ms_per_launch": ms / n}
+                                             for k, (ms, n) in kms.items()}}
+        del renders, rendered, ref
+    out["images"] = images
+    val_batch = next(iter(coach.val_loader))
+    train_batch = next(iter(coach.train_loader))
+    out["eval_slice"] = ibrnet_eval_slice(torch, dev, coach.cfg, renderer, val_batch)
+    out["B_bwd"] = ibrnet_train_tables(torch, dev, coach.cfg, coach.model, train_batch, seed)
+    del coach
+    torch.cuda.empty_cache()
+
+    # the first step through the kernels vs all-plain, remat off and on; then
+    # warm steps: ms, peak memory and launches per step
+    cfg = ibrnet_train_config()
+    cfg.encoder.pretrain_weight = None
+    out["first_step"], out["remat"] = {}, {}
+    for remat in (False, True):
+        tag = "remat_on" if remat else "remat_off"
+        rcfg = copy.deepcopy(cfg)
+        rcfg.precision.remat_encoder = remat
+        out["first_step"][tag] = first_step_check(
+            torch, dev, rcfg, train_batch, seed, f"train_ibrnet.yaml bf16 policy, {tag}",
+            (1e-2, 0.5, 0.1), img_hw=(H_, W_))
+        torch.cuda.empty_cache()
+        model = init_matchnerf(rcfg, torch.Generator().manual_seed(seed)).to(dev)
+        c = Coach(rcfg, model, dev)
+        c.setup_optimizer(100)
+        c.train_iteration(train_batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters.values():
+            k.reset()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(IBR_TIMED_STEPS):
+            c.train_iteration(train_batch)
+        e1.record()
+        torch.cuda.synchronize()
+        per_step = {k: v.launches / IBR_TIMED_STEPS for k, v in counters.items()}
+        r = {"warm_step_ms": e0.elapsed_time(e1) / IBR_TIMED_STEPS,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "launches_per_step": per_step}
+        log(f"train_ibrnet step {tag}: {r['warm_step_ms']:.3f} ms per warm step (CUDA events, "
+            f"{IBR_TIMED_STEPS} steps), peak device memory {r['peak_gib']:.3f} GiB, launches per "
+            f"step {per_step}; {card}")
+        must = {"window_attention": 24 if remat else 12, "window_attention_bwd": 12,
+                "cosine_prior": 2, "cosine_prior_bwd": 2}
+        if any(per_step[k] != v for k, v in must.items()):
+            raise AssertionError(f"train_ibrnet step {tag}: launches {per_step}, expected {must}")
+        out["remat"][tag] = r
+        del model, c
+        torch.cuda.empty_cache()
+    out.update(ibrnet_attention(torch, F, dev, seed))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"train_ibrnet phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1556,6 +2096,7 @@ def main():
         "= torch.backends.cudnn.allow_tf32 = False)")
     t0 = time.perf_counter()
     kernels.library()
+    tree_pool, ibr_trees = start_ibrnet_trees()      # phase 14's trees, meanwhile
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(kernels.NVCC_FLAGS)})")
 
@@ -1930,6 +2471,13 @@ def main():
     # ---- 13. the eval entry: configs/test.yaml over DTU, LLFF and Blender,
     # test_video.yaml, test_strict.yaml
     test_entry = eval_entry_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    # ---- 14. configs/train_ibrnet.yaml at 1008x756: the loop, the resume,
+    # the first-step check with and without remat, A / A' / B' / C / D / E
+    # at its shapes
+    ibr = ibrnet_phase(torch, F, dev, args.seed, counters, ibr_trees)
+    tree_pool.shutdown()
 
     def per_scale(entries):
         return {"max_abs_err": max(e["max_abs_err"] for e in entries),
@@ -1986,33 +2534,52 @@ def main():
     def train_paths(name):
         return {f"{k}_{TRAIN_STEPS}_steps": v["launches_total"][name] for k, v in train.items()}
 
+    def ibr_paths(name):
+        """Launches in the train_ibrnet run (phase 14) and in one of its
+        1008x756 validation and LLFF test images."""
+        return {f"train_ibrnet_loop_{IBR_STEPS}_steps": ibr["launches"][name],
+                **{f"train_ibrnet_{k}_image": v["launches"][name]
+                   for k, v in ibr["images"].items()}}
+
+    def ibr_eval(name, slice_entry):
+        """An eval kernel at train_ibrnet's shapes: its 23552-ray slice
+        against the plain twin, and its device ms per launch in the
+        1008x756 images."""
+        return {"train_ibrnet": {"slice_23552": slice_entry, **{
+            f"{k}_image": v["kernel_device_ms"].get(name) for k, v in ibr["images"].items()}}}
+
     a_bwd = res["A_bwd"]
     report = {"kernels": [
         entry("window_attention", res["A_bfloat16"], block_launches["window_attention"],
-              dict(eval_paths("window_attention"), **train_paths("window_attention")),
+              dict(eval_paths("window_attention"), **train_paths("window_attention"),
+                   **ibr_paths("window_attention")),
               {"f32": res["A_float32"],
                "training_forward_ms": {k: v["fwd_ms"] for k, v in a_bwd.items()},
-               **by_test_set("window_attention")}),
+               "train_ibrnet_L768": ibr["A"], **by_test_set("window_attention")}),
         entry("window_attention_bwd", a_bwd["bfloat16_shift"],
               train["train"]["launches_total"]["window_attention_bwd"],
-              train_paths("window_attention_bwd"), {"variants": a_bwd}),
+              dict(train_paths("window_attention_bwd"), **ibr_paths("window_attention_bwd")),
+              {"variants": a_bwd, "train_ibrnet_L768": ibr["A_bwd"]}),
         entry("cosine_prior", res["B"], ray_launches["cosine_prior"],
               dict(eval_paths("cosine_prior"), **train_paths("cosine_prior")),
               {"f32_training_shapes": per_scale(res["B_f32"]),
                "bfloat16": bf16_entry("B", "cosine_prior_bf16"), **by_test_set("cosine_prior")}),
         entry("cosine_prior_bwd", res["B_bwd"],
               train["train"]["launches_total"]["cosine_prior_bwd"],
-              train_paths("cosine_prior_bwd")),
+              dict(train_paths("cosine_prior_bwd"), **ibr_paths("cosine_prior_bwd")),
+              {"train_ibrnet_tables": ibr["B_bwd"]}),
         entry("cond_nerf_decode", res["C"]["float32"], block_launches["cond_nerf_decode"],
-              eval_paths("cond_nerf_decode"),
+              dict(eval_paths("cond_nerf_decode"), **ibr_paths("cond_nerf_decode")),
               {"routes": {"S128": res["C"], "S256_test_video_own": res["C_S256"]},
                "setbg_launches_blender": test_entry["sets"]["blender"]["setbg_launches"],
-               **by_test_set("cond_nerf_decode")}),
+               **by_test_set("cond_nerf_decode"),
+               **ibr_eval("cond_nerf_decode", ibr["eval_slice"]["C"])}),
         entry("block_cosine_prior", res["D"], block_launches["block_cosine_prior"],
-              eval_paths("block_cosine_prior"),
+              dict(eval_paths("block_cosine_prior"), **ibr_paths("block_cosine_prior")),
               {"plain_union_ms": sum(s["plain_union_ms"] for s in res["D"]),
                "bfloat16": bf16_entry("D", "block_cosine_prior_bf16"),
-               **by_test_set("block_cosine_prior")}),
+               **by_test_set("block_cosine_prior"),
+               **ibr_eval("block_cosine_prior", ibr["eval_slice"]["D"])}),
         entry("block_cosine_prior_f32", res["D_f32"],
               train["train_fast"]["launches_total"]["block_cosine_prior_f32"],
               train_paths("block_cosine_prior_f32"),
@@ -2021,7 +2588,9 @@ def main():
               train["train_fast"]["launches_total"]["block_cosine_prior_bwd"],
               train_paths("block_cosine_prior_bwd")),
         entry("supercell_color", res["E"], block_launches["supercell_color"],
-              eval_paths("supercell_color"), by_test_set("supercell_color")),
+              dict(eval_paths("supercell_color"), **ibr_paths("supercell_color")),
+              dict(by_test_set("supercell_color"),
+                   **ibr_eval("supercell_color", ibr["eval_slice"].get("E")))),
         entry("fused_cosine", res["F"]["int8"], video["launches"]["fused_cosine"],
               eval_paths("fused_cosine"),
               {"bfloat16": per_scale(res["F"]["bfloat16"]),
@@ -2052,7 +2621,9 @@ def main():
         "train": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
                   for k, v in train.items()},
         "loop": loop,
-        "test_entry": test_entry}}
+        "test_entry": test_entry,
+        "train_ibrnet": {k: v for k, v in ibr.items()
+                         if k not in ("A", "A_bwd", "B_bwd", "eval_slice")}}}
     if args.profile:
         report["profile"] = {"train": train["train"]["profile"],
                              "train_fast": train["train_fast"]["profile"],

@@ -12,7 +12,9 @@ test_tnt.yaml. `dtu_eval_per_ray_config()` is CONFIGS["test"] with
 `base_config()` is configs/base.yaml, every key;
 `dtu_train_config()` (CONFIGS["train"]) overlays configs/train.yaml and
 `dtu_train_fast_config()` (CONFIGS["train_fast"]) configs/train_fast.yaml
-(8-pixel ray strips, the block route): every key, as the JAX package's
+(8-pixel ray strips, the block route) and `ibrnet_train_config()`
+(CONFIGS["train_ibrnet"]) configs/train_ibrnet.yaml (IBRNet scenes at
+1008x756, the LLFF test set): every key, as the JAX package's
 `build_options` resolves them, for the training step and the loop around
 it (its validation and test renders take bf16 tables). They exist so the
 port runs where PyYAML is not installed; CPU tests hold them equal to what
@@ -245,6 +247,30 @@ def dtu_train_fast_config() -> DotDict:
     return cfg
 
 
+def ibrnet_train_config() -> DotDict:
+    """configs/base.yaml + configs/train_ibrnet.yaml, every key
+    (CONFIGS["train_ibrnet"]): train.yaml's step and policies on the IBRNet
+    scenes at 1008x756 (the encoder resizes them to 768x1024, so its
+    windows at `attn_splits_list: [4]` hold 24 x 32 = 768 tokens), the IBR
+    decoder variant, 23552-ray validation and test slices, a sanity
+    validation and test before the first step, validation once an epoch
+    and the LLFF test set (eval_mode gpnr) every 5."""
+    cfg = dtu_train_config()
+    ibr = lambda **extra: _data("ibrnet", "data/IBRNet", [1008, 756], **extra)
+    override_options(cfg, {
+        "yaml": "train_ibrnet", "max_epoch": 60, "sanity_check": True,
+        "encoder": {"attn_splits_list": [4]},
+        "decoder": {"density_maskfill": True, "raytrans_posenc": True,
+                    "raytrans_act": "ELU"},
+        "nerf": {"rand_rays_val": 23552, "rand_rays_test": 23552},
+        "data_train": ibr(), "data_val": ibr(max_len=4),
+        "freq": {"ckpt_ep": 5, "ckpt_it": -1, "val_it": 1.0, "test_ep": 5},
+    }, warn=False)
+    cfg.data_test = {"llff": _data("llff", "data/nerf_llff_data", [1008, 756],
+                                   eval_mode="gpnr", report_full_scores=True)}
+    return cfg
+
+
 def demo_own_config() -> DotDict:
     cfg = dtu_eval_config()
     cfg.update({"yaml": "demo_own", "name": "test_video/demo", "seed": 0,
@@ -288,7 +314,8 @@ DEMO_KEYS = SLICE_KEYS + [
 CONFIGS = {"test": dtu_eval_config, "test_strict": strict_eval_config,
            "test_video": video_eval_config, "test_tnt": tnt_eval_config,
            "demo_own": demo_own_config, "test_video_own": test_video_own_config,
-           "train": dtu_train_config, "train_fast": dtu_train_fast_config}
+           "train": dtu_train_config, "train_fast": dtu_train_fast_config,
+           "train_ibrnet": ibrnet_train_config}
 
 
 def _parse_value(text: Optional[str]):

@@ -2,10 +2,10 @@
 from .blender import BlenderDataset
 from .colmap import COLMAPDataset
 from .dtu import DTUDataset
-from .llff import LLFFDataset
+from .llff import IBRNetDataset, LLFFDataset
 from .tnt import TNTDataset
 
 # dataset_name of a data_* config block -> dataset class (the JAX package's
-# `datas_dict`); the IBRNet training set is not ported yet
+# `datas_dict`)
 DATASETS = {"blender": BlenderDataset, "colmap": COLMAPDataset, "dtu": DTUDataset,
-            "llff": LLFFDataset, "tnt": TNTDataset}
+            "ibrnet": IBRNetDataset, "llff": LLFFDataset, "tnt": TNTDataset}

@@ -1,20 +1,30 @@
-"""LLFF Real Forward-Facing test set (counterpart of matchnerf_tpu/data/llff.py's
-`_LLFFBase` and `LLFFDataset`; datasets/llff.py of the reference), and the
-camera info and sample assembly that the COLMAP loader (`data/colmap.py`)
-shares with it.
+"""LLFF Real Forward-Facing test set and IBRNet training set (counterpart of
+matchnerf_tpu/data/llff.py's `_LLFFBase`, `LLFFDataset` and
+`IBRNetDataset`; datasets/llff.py and datasets/ibrnet.py of the
+reference), and the camera info and sample assembly that the COLMAP loader
+(`data/colmap.py`) shares with them.
 
 poses_bounds.npy metadata: poses re-centred at their average pose and
 scaled so the nearest depth is ~1/0.75, per-view near/far averaged over the
 sample's views (`nf_mode` "avg", a class attribute: the config's key does
 not reach it, as in the JAX package). Eval splits from `pairs.th`
 (`{scene}_train` / `{scene}_val`, eval_mode "mvsnerf") or every 8th image
-held out (eval_mode "gpnr"). Samples carry `c2ws_all`, the train views'
-camera-to-world, for the spiral video path. The IBRNet training set, the
-third loader on this base in the JAX package, is not ported.
+held out (eval_mode "gpnr"). LLFF samples carry `c2ws_all`, the train
+views' camera-to-world, for the spiral video path.
+
+IBRNet ("ibrnet", llff.py:128): a two-level tree `root/<group>/<scene>/`
+of poses_bounds.npy scenes, the scene named `<group>_<scene>`. Split
+"train" makes every image a target, "val" image 0 only; the candidates
+are the scene's other images by distance. A train sample draws its 3
+sources among the nearest 6 (`np.sort(rng.permutation(6)[:3])`, one draw
+per `__getitem__` from the dataset's own `np.random.default_rng(0)`, so
+the draws follow the order samples are read in); a val sample takes the
+nearest 3. Its samples carry no `c2ws_all`.
 """
 from __future__ import annotations
 
 import os
+from glob import glob
 
 import numpy as np
 
@@ -56,12 +66,12 @@ class _LLFFBase(MVSDatasetBase):
             self.imgs_paths[key] = images_list[vid]
             self.scene_dirs[scene] = scene_dir
 
-    def _assemble(self, scene, view_ids, train_views):
+    def _assemble(self, scene, view_ids, train_views=None):
         img_wh = np.array(self.img_wh).astype("int")
         keys = [f"{scene}_{vid}" for vid in view_ids]
         imgs = load_images([os.path.join(self.scene_dirs[scene], "images",
                                          self.imgs_paths[k]) for k in keys], img_wh)
-        return {
+        sample = {
             "images": np.stack(imgs).astype(np.float32),
             "extrinsics": np.stack([self.world2cams[k] for k in keys]).astype(np.float32),
             "intrinsics": np.stack([self.intrinsics[k] for k in keys]).astype(np.float32),
@@ -70,9 +80,11 @@ class _LLFFBase(MVSDatasetBase):
             "view_ids": np.array([int(v) for v in view_ids]),
             "scene": scene,
             "img_wh": img_wh,
-            "c2ws_all": np.stack([self.cam2worlds[f"{scene}_{x}"]
-                                  for x in train_views]).astype(np.float32),
         }
+        if train_views is not None:
+            sample["c2ws_all"] = np.stack([self.cam2worlds[f"{scene}_{x}"]
+                                           for x in train_views]).astype(np.float32)
+        return sample
 
     def __getitem__(self, idx):
         scene, target_view, src_views, train_views = self.metas[idx]
@@ -121,3 +133,42 @@ class LLFFDataset(_LLFFBase):
 
     def get_name(self):
         return "llff"
+
+
+class IBRNetDataset(_LLFFBase):
+    """The IBRNet training and validation scenes (llff.py:128)."""
+
+    def __init__(self, root_dir, split, n_views=3, img_wh=None, max_len=-1,
+                 test_views_method="nearest", rng=None, **kwargs):
+        if split not in ("train", "val"):
+            raise ValueError('Only support "train" and "val" split for IBRNet dataset!')
+        self.root_dir = root_dir
+        self.split = split
+        self.n_views = n_views
+        self.img_wh = img_wh
+        self.max_len = max_len
+        self.rng = rng or np.random.default_rng(0)
+        self._init_dicts()
+        for subdir in sorted(glob(os.path.join(root_dir, "*/"))):
+            for scene_dir in sorted(glob(os.path.join(subdir, "*/"))):
+                scene = "_".join(scene_dir.strip("/").split("/")[-2:])
+                n = np.load(os.path.join(scene_dir, "poses_bounds.npy")).shape[0]
+                self._scene_camera_info(scene, scene_dir, list(range(n)))
+                for target_view in (range(n) if split == "train" else [0]):
+                    train_views = [x for x in range(n) if x != target_view]
+                    src = sort_nearest_views(self.cam2worlds, train_views, target_view,
+                                             scene=scene, method=test_views_method)
+                    self.metas.append((scene, target_view, src))
+
+    def get_name(self):
+        return "ibrnet"
+
+    def __getitem__(self, idx):
+        scene, target_view, src_views = self.metas[idx]
+        if self.split == "train":
+            # 3 of the nearest 6, in rank order (ibrnet.py:204-205)
+            ids = np.sort(self.rng.permutation(self.n_views + 3)[: self.n_views])
+            view_ids = [src_views[i] for i in ids] + [target_view]
+        else:
+            view_ids = src_views[: self.n_views] + [target_view]
+        return self._assemble(scene, view_ids)

@@ -10,7 +10,8 @@ views out as a DTU (MVSNet) directory tree with its own meta directory;
 `write_blender_tree` and `write_tnt_tree` write the scene as an LLFF,
 Blender (NeRF-synthetic) or Tanks-and-Temples test set, each with the
 `pairs.th` of its own meta directory; LLFF and Blender as PNGs (no PIL),
-T&T as the JPEGs its loader names (PIL needed).
+T&T as the JPEGs its loader names (PIL needed). `write_ibrnet_tree` writes
+IBRNet's two-level training tree of forward-facing scenes (PNGs).
 """
 import json
 import math
@@ -25,7 +26,7 @@ from .png import write_png
 
 __all__ = ["look_at_opencv", "render_scene", "make_scene_views", "write_dtu_tree",
            "write_dtu_scene", "DTU_SCENE_VIEW_IDS", "forward_facing_eyes", "write_llff_tree",
-           "write_blender_tree", "write_tnt_tree"]
+           "write_ibrnet_tree", "write_blender_tree", "write_tnt_tree"]
 
 DTU_SCENE_VIEW_IDS = (20, 21, 22, 23, 24, 25)     # the views of `write_dtu_scene`
 
@@ -286,18 +287,14 @@ def _split(n: int, test_views: Sequence[int]):
     return [v for v in range(n) if v not in test], test
 
 
-def write_llff_tree(root: str, meta_dir: str, W: int, H: int, n_views: int = 5,
-                    test_views: Sequence[int] = (2,), scene: str = "fern"):
-    """The scene seen from `forward_facing_eyes(n_views)` as one LLFF scene
-    the LLFF loader reads (data/llff.py): `{scene}/images/{i:03d}.png` at
-    W x H, so no resize is needed, and `{scene}/poses_bounds.npy` (LLFF's
-    [down, right, back] camera axes, the image's h, w, focal, and each
-    view's near/far from its hit depths); meta_dir/pairs.th with
-    `test_views` the targets of eval_mode mvsnerf and the other views their
-    candidates. eval_mode gpnr holds out every 8th image instead."""
-    views = make_scene_views(W, H, eyes=forward_facing_eyes(n_views))
+def _write_llff_scene(scene_dir: str, views, W: int, H: int):
+    """`views` of make_scene_views as one poses_bounds.npy scene:
+    `images/{i:03d}.png` at W x H and `poses_bounds.npy` (LLFF's [down,
+    right, back] camera axes, the image's h, w, focal, and each view's
+    near/far from its hit depths)."""
     images = _u8(views)
-    img_dir = os.path.join(root, scene, "images")
+    n_views = len(images)
+    img_dir = os.path.join(scene_dir, "images")
     os.makedirs(img_dir, exist_ok=True)
     raw = np.zeros((n_views, 3, 5))
     for i in range(n_views):
@@ -308,8 +305,33 @@ def write_llff_tree(root: str, meta_dir: str, W: int, H: int, n_views: int = 5,
         raw[i, :, 4] = [H, W, views["intrinsics"][i][0, 0]]
     poses_bounds = np.concatenate([raw.reshape(n_views, 15),
                                    views["near_fars"].astype(np.float64)], axis=1)
-    np.save(os.path.join(root, scene, "poses_bounds.npy"), poses_bounds)
+    np.save(os.path.join(scene_dir, "poses_bounds.npy"), poses_bounds)
+
+
+def write_llff_tree(root: str, meta_dir: str, W: int, H: int, n_views: int = 5,
+                    test_views: Sequence[int] = (2,), scene: str = "fern"):
+    """The scene seen from `forward_facing_eyes(n_views)` as one LLFF scene
+    the LLFF loader reads (data/llff.py): `{scene}/images/{i:03d}.png` at
+    W x H, so no resize is needed, and `{scene}/poses_bounds.npy`
+    (`_write_llff_scene`); meta_dir/pairs.th with `test_views` the targets
+    of eval_mode mvsnerf and the other views their candidates. eval_mode
+    gpnr holds out every 8th image instead."""
+    views = make_scene_views(W, H, eyes=forward_facing_eyes(n_views))
+    _write_llff_scene(os.path.join(root, scene), views, W, H)
     _save_pairs(meta_dir, scene, *_split(n_views, test_views))
+
+
+def write_ibrnet_tree(root: str, W: int, H: int, n_views: int = 8,
+                      scenes: Sequence[str] = ("ibrnet_collected_1/scene0",
+                                               "real_iconic_noface/scene1")):
+    """The scene as the IBRNet loader's two-level tree (data/llff.py
+    `IBRNetDataset`): one poses_bounds.npy scene (`_write_llff_scene`) at
+    `root/<group>/<scene>/` per entry of `scenes`, each seen from its own
+    `forward_facing_eyes(n_views)` grid (the i-th scene's spread 0.9 +
+    0.15 i), PNGs at W x H."""
+    for i, name in enumerate(scenes):
+        views = make_scene_views(W, H, eyes=forward_facing_eyes(n_views, 0.9 + 0.15 * i))
+        _write_llff_scene(os.path.join(root, name), views, W, H)
 
 
 def write_blender_tree(root: str, meta_dir: str, W: int, H: int, n_train: int = 4,

@@ -2,12 +2,14 @@
 the training loop, the eval and video entry.
 
 Data (engine.py:81): `load_dataset` builds the train, val and test loaders
-of the config's data_* blocks (DTU, LLFF, Blender, T&T and COLMAP; IBRNet
-raises `NotImplementedError`), the training loader shuffled per epoch.
+of the config's data_* blocks (DTU, IBRNet, LLFF, Blender, T&T and
+COLMAP), the training loader shuffled per epoch.
 
 Training (engine.py:180-545), the call order of train.py:
-`build_networks`, `setup_optimizer` (total steps from the loader's length),
-`restore_checkpoint_if_needed` (`resume`: the model, AdamW and schedule
+`build_networks` (the seeded model, and the GMFlow-pretrained encoder of
+`encoder.pretrain_weight` where that file exists), `setup_optimizer`
+(total steps from the loader's length),
+`restore_checkpoint_if_needed` (`resume`: the model, optimizer and schedule
 state, epoch and iteration of `models/latest.ckpt`; `load`: weights only),
 `setup_visualizer` (tensorboard where importable, and always
 `scalars.jsonl`), then `train_model`: epochs of `train_epoch`, which on
@@ -46,6 +48,7 @@ import torch
 from .data import DATASETS
 from .data.loader import DataLoader
 from .metrics import EvalTools, summarize_metrics
+from .models.gmflow.gmflow import encoder_input_hw
 from .models.matchnerf import MatchNeRF, init_matchnerf
 from .ops.block_cosine_prior import takes_f32
 from .renderer import Renderer, extract_poses
@@ -54,6 +57,7 @@ from .utils.checkpoint import CheckpointWriter, load_checkpoint
 from .utils.containers import effective_precision
 from .utils.logging import loss_train, update_timer
 from .utils.visualize import save_image, visualize_depth, write_gif, write_video
+from .weights import load_gmflow_pretrained
 
 log = logging.getLogger(__name__)
 
@@ -63,8 +67,8 @@ class Coach:
     caller asks for the CPU). kernel=False runs every kernel's plain
     version. `model` may be None until `build_networks`.
 
-    `setup_optimizer(total_steps)` builds the two-group AdamW and the step
-    for the recipe's shape (data_train.img_wh, nerf.rand_rays_train);
+    `setup_optimizer(total_steps)` builds the two-group AdamW (or Adam) and
+    the step for the recipe's shape (data_train.img_wh, nerf.rand_rays_train);
     `train_iteration(batch)` takes one step on a numpy batch (images
     [1,V+1,H,W,3], extrinsics, intrinsics, near_fars as `Renderer.forward`
     takes them) and returns {'render', 'all'}: device scalars, or floats
@@ -103,8 +107,8 @@ class Coach:
     # ------------------------------ training --------------------------------
 
     def setup_optimizer(self, total_steps: Optional[int] = None):
-        """AdamW and the step; total_steps defaults to the training loader's
-        length times max_epoch (engine.py:180)."""
+        """The optimizer and the step; total_steps defaults to the training
+        loader's length times max_epoch (engine.py:180)."""
         cfg = self.cfg
         if total_steps is None:
             if self.train_loader is None:
@@ -133,7 +137,12 @@ class Coach:
         nerf.train_ray_patches and precision.block_kernel and B == 1; a scale
         takes D' where `Renderer.pose_prep` gives a bucket that D' takes on
         f32 tables, B' elsewhere (None everywhere: B' at every scale, which
-        reads its taps directly and needs no per-ray bucket)."""
+        reads its taps directly and needs no per-ray bucket). The unions are
+        measured on the grids of the tables the step builds, 1/8 of the
+        encoder's input (`encoder_input_hw`): at 756x1008 that is 96x128
+        and 192x256, where the JAX package measures on (H // 8, W // 8),
+        94x126 and 188x252, and can pick a bucket the tables' union
+        overflows."""
         cfg = self.cfg
         prec = effective_precision(cfg)
         get = prec.get if hasattr(prec, "get") else (lambda *_: None)
@@ -146,7 +155,8 @@ class Coach:
         if key not in self._route_cache:
             H, W, _ = self.train_hw
             up = int(cfg.encoder.upsample_factor)
-            scale_hws = [(H // 8, W // 8), (H // 8 * up, W // 8 * up)]
+            enc_h, enc_w = encoder_input_hw(H, W)
+            scale_hws = [(enc_h // 8, enc_w // 8), (enc_h // 8 * up, enc_w // 8 * up)]
             block_ut, _ = self.renderer.pose_prep(extract_poses(batch), scale_hws, H, W)
             route = None
             if block_ut is not None:
@@ -384,24 +394,25 @@ class Coach:
                 log.info("loaded %s set of %s (%d samples)", split, name, len(dataset))
 
     def build_networks(self):
-        """The model with weights from the config's seed (engine.py:123).
-        The JAX package then loads encoder.pretrain_weight (GMFlow weights)
-        into the encoder when that file exists and neither load nor resume
-        is set; the port does not carry that import yet, so it raises there
-        (`--encoder.pretrain_weight=` starts from the seeded weights) and,
-        like the JAX package, only warns when the file is absent."""
+        """The model with weights from the config's seed (engine.py:123);
+        then, when encoder.pretrain_weight names a file and neither load
+        nor resume is set, the GMFlow checkpoint's backbone and transformer
+        layers in the encoder (`weights.load_gmflow_pretrained`;
+        `featup_net` and the decoder keep the seed's weights). A named file
+        that is absent only warns, as in the JAX package."""
         cfg = self.cfg
         gen = torch.Generator().manual_seed(int(cfg.get("seed") or 0))
-        self.model = init_matchnerf(cfg, gen).to(self.device).eval()
-        self.renderer.model = self.model
+        self.model = init_matchnerf(cfg, gen)
         pretrain = (cfg.get("encoder") or {}).get("pretrain_weight")
         if pretrain and not cfg.get("load") and not cfg.get("resume"):
             if os.path.isfile(pretrain):
-                raise NotImplementedError(
-                    f"{pretrain}: the GMFlow-filtered encoder init (import_torch.py:131) is "
-                    "not ported; pass --encoder.pretrain_weight= to start from the seed")
-            log.warning("pretrain weight %s not found; the encoder starts from the seed",
-                        pretrain)
+                load_gmflow_pretrained(self.model.feat_enc, pretrain)
+                log.info("loaded the GMFlow pretrained weights %s into the encoder", pretrain)
+            else:
+                log.warning("pretrain weight %s not found; the encoder starts from the seed",
+                            pretrain)
+        self.model = self.model.to(self.device).eval()
+        self.renderer.model = self.model
 
     def restore_checkpoint_if_needed(self):
         """With `resume`, the model, the optimizer and schedule state, epoch

@@ -27,7 +27,7 @@ from .transformer import FeatureTransformer
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
-__all__ = ["GMFlow", "extract_pair_features", "pair_index_lists",
+__all__ = ["GMFlow", "encoder_input_hw", "extract_pair_features", "pair_index_lists",
            "normalize_images"]
 
 
@@ -36,6 +36,13 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=images.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=images.device)
     return (images - mean) / std
+
+
+def encoder_input_hw(img_h: int, img_w: int):
+    """The size the encoder's backbone sees: IBRNet's 756x1008 images are
+    resized to 768x1024 (gmflow.py:120), any other size is its own. The
+    feature tables are 1/8 of it (and the upsampled scale twice that)."""
+    return (768, 1024) if (img_h, img_w) == (756, 1008) else (img_h, img_w)
 
 
 class GMFlow(nn.Module):
@@ -65,10 +72,11 @@ def _add_position(feat: torch.Tensor, attn_splits: int, channels: int):
 
 def extract_pair_features(enc: GMFlow, images: torch.Tensor, attn_splits_list,
                           n_views: int, wo_self_attn: bool = False,
-                          compute_dtype=None, kernel: bool = True):
+                          compute_dtype=None, kernel: bool = True, remat: bool = False):
     """images [B,V,H,W,3] in [0,1] -> list over scales of [B,P,2,h,w,C] f32.
 
-    kernel=False runs the plain window attention even on CUDA tensors."""
+    kernel=False runs the plain window attention even on CUDA tensors;
+    remat recomputes each transformer layer in the backward."""
     b, v, img_h, img_w, _ = images.shape
     assert v == n_views
     pairs = pair_index_lists(n_views)
@@ -76,10 +84,11 @@ def extract_pair_features(enc: GMFlow, images: torch.Tensor, attn_splits_list,
     C = enc.feature_channels
     cd = compute_dtype if compute_dtype not in (None, torch.float32) else None
 
-    if img_h == 756 and img_w == 1008:       # ibrnet inference size (gmflow.py:120)
+    enc_h, enc_w = encoder_input_hw(img_h, img_w)
+    if (enc_h, enc_w) != (img_h, img_w):
         flat = resize_bilinear_align_corners(images.reshape(b * v, img_h, img_w, 3),
-                                             768, 1024)
-        img_h, img_w = 768, 1024
+                                             enc_h, enc_w)
+        img_h, img_w = enc_h, enc_w
         images = flat.reshape(b, v, img_h, img_w, 3)
 
     net_in = normalize_images(images).reshape(b * v, img_h, img_w, 3)
@@ -100,7 +109,7 @@ def extract_pair_features(enc: GMFlow, images: torch.Tensor, attn_splits_list,
         feat1 = _add_position(feat[:, idx1].reshape(b * n_pairs, h, w, C), attn_splits, C)
         rid = shift_region_ids(h, w, attn_splits, device=feat.device)
         feat0, feat1 = enc.transformer(feat0, feat1, attn_splits, region_ids=rid,
-                                       wo_self_attn=wo_self_attn, kernel=kernel)
+                                       wo_self_attn=wo_self_attn, kernel=kernel, remat=remat)
         out_scales.append(torch.stack([feat0, feat1], dim=1)
                           .reshape(b, n_pairs, 2, h, w, C))
         merged = torch.cat([feat0, feat1], dim=0).permute(0, 3, 1, 2)

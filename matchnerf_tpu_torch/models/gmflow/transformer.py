@@ -4,12 +4,18 @@ matchnerf_tpu/models/gmflow/transformer.py).
 Each block runs self-attention then cross-attention + FFN with single-head
 split-window attention, shifted by half a window on odd layers. The two
 views of each pair are stacked on the batch axis, and the partner half is
-swapped after every block (transformer.py:94-139).
+swapped after every block (transformer.py:94-139). With `remat`
+(precision.remat_encoder) each attention layer runs under
+`torch.utils.checkpoint` while autograd records: the backward recomputes
+the layer from its inputs (its window attention through A''s forward
+once more) instead of keeping its activations, as the JAX
+package's `jax.checkpoint` of each layer does (transformer.py:122-126).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import split_window_attention
 from ...ops.nn import Activation, Linear
@@ -67,7 +73,7 @@ class FeatureTransformer(nn.Module):
             [TransformerBlock(d_model, ffn_dim_expansion) for _ in range(num_layers)])
 
     def forward(self, feature0, feature1, num_splits: int, region_ids=None,
-                wo_self_attn: bool = False, kernel: bool = True):
+                wo_self_attn: bool = False, kernel: bool = True, remat: bool = False):
         """feature0/feature1: [B,h,w,C] paired views -> enhanced pair.
         region_ids: `ops.attention.shift_region_ids(h, w, num_splits)`."""
         b, h, w, c = feature0.shape
@@ -75,13 +81,20 @@ class FeatureTransformer(nn.Module):
         f1 = feature1.reshape(b, h * w, c)
         concat0 = torch.cat([f0, f1], dim=0)
         concat1 = torch.cat([f1, f0], dim=0)
+        remat = remat and torch.is_grad_enabled()
+
+        def attn(layer, source, target, with_shift):
+            args = (source, target, h, w, num_splits, with_shift, region_ids, kernel)
+            if remat:
+                return checkpoint(layer, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return layer(*args)
+
         for i, layer in enumerate(self.layers):
             with_shift = i % 2 == 1
             if not wo_self_attn:
-                concat0 = layer.self_attn(concat0, concat0, h, w, num_splits,
-                                          with_shift, region_ids, kernel)
-            concat0 = layer.cross_attn_ffn(concat0, concat1, h, w, num_splits,
-                                           with_shift, region_ids, kernel)
+                concat0 = attn(layer.self_attn, concat0, concat0, with_shift)
+            concat0 = attn(layer.cross_attn_ffn, concat0, concat1, with_shift)
             half0, half1 = torch.chunk(concat0, 2, dim=0)
             concat1 = torch.cat([half1, half0], dim=0)
         f0, f1 = torch.chunk(concat0, 2, dim=0)

@@ -6,11 +6,20 @@
         [--name=RUN] [--resume] [--cpu] [--key.sub=value ...]
 
 `--config` names a configuration of `config.CONFIGS` (train:
-configs/train.yaml, train_fast: configs/train_fast.yaml); every other
-`--key=value` overrides it as the JAX entry's YAML overrides do (`--flag`
-is true, `--flag!` false, `--key=` None). configs/train.yaml tests on DTU,
-LLFF and Blender; the port has the DTU loader only, so `--data_test.llff=
---data_test.blender=` drop the other two. The run writes under
+configs/train.yaml, train_fast: configs/train_fast.yaml, train_ibrnet:
+configs/train_ibrnet.yaml); every other `--key=value` overrides it as the
+JAX entry's YAML overrides do (`--flag` is true, `--flag!` false, `--key=`
+None; `--data_test.llff=` drops a test set). train_ibrnet trains on the
+IBRNet scenes at 1008x756 and tests on LLFF:
+
+    python -m matchnerf_tpu_torch.train --config train_ibrnet \
+        --data_train.root_dir=data/IBRNet --data_val.root_dir=data/IBRNet \
+        --data_test.llff.root_dir=data/nerf_llff_data
+
+`--encoder.pretrain_weight=<file>` (base.yaml names
+configs/pretrained_models/gmflow_sintel-0c07dcb3.pth) starts the encoder
+from a GMFlow checkpoint where that file exists (`--encoder.pretrain_weight=`
+from the seed). The run writes under
 `<output_root>/<name>/`: `models/latest.ckpt` (resumable) and
 `ep{E}_it{I}.ckpt` (weights), `validation/`, `test/`, `scalars.jsonl` and
 `options.json`. `--resume` continues the run of that name from its

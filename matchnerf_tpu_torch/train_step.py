@@ -3,18 +3,23 @@ matchnerf_tpu/train_step.py).
 
 One step is encode -> f32 sampling tables -> `render_rays` on `n_rays`
 random target pixels with stratified depths -> render_w * MSE -> backward
--> AdamW in two parameter groups (`feat_enc`, `nerf_dec`) with OneCycle
-schedules and global-norm clipping of the encoder group.
+-> AdamW (or Adam) in two parameter groups (`feat_enc`, `nerf_dec`) with
+OneCycle (or ExponentialLR) schedules and global-norm clipping of the
+encoder group.
 
 - `make_schedule` is optax.cosine_onecycle_schedule as the JAX package
-  builds it (not torch's OneCycleLR, whose phase boundaries differ),
-  evaluated in float32 in optax's operation order.
+  builds it (not torch's OneCycleLR, whose phase boundaries differ), or
+  optax.exponential_decay(peak, transition_steps=1, decay_rate=gamma) for
+  ExponentialLR (a decay per step, not per epoch as torch's), evaluated in
+  float32 in optax's operation order.
 - `build_optimizer` returns a `TrainOptimizer`: torch AdamW (b1 0.9, b2
-  0.999, eps 1e-8, decoupled weight decay on every parameter) per active
-  group; a group with lr <= 0 is frozen (optax.set_to_zero: no update, no
-  decay); the encoder group is clipped first with optax's
-  clip_by_global_norm (scale by max_norm / norm only when norm >= max_norm).
-  Update k (from 0) uses the schedules' value at step k.
+  0.999, eps 1e-8, decoupled weight decay on every parameter), or for
+  `algo.type: Adam` torch Adam with the same moments and eps and no weight
+  decay whatever `weight_decay` says (optax.adam), per active group; a
+  group with lr <= 0 is frozen (optax.set_to_zero: no update, no decay);
+  the encoder group is clipped first with optax's clip_by_global_norm
+  (scale by max_norm / norm only when norm >= max_norm). Update k (from 0)
+  uses the schedules' value at step k.
 - `make_train_step` builds the step for one (H, W, n_rays) shape. The rays
   are a permutation of the H*W pixels (or, under nerf.train_ray_patches, of
   the (H*W)/8 8-pixel strips) drawn from a torch.Generator on the device,
@@ -37,19 +42,28 @@ def make_schedule(optim_cfg, peak_lr: float, total_steps: int) -> Callable[[int]
     """step -> learning rate (train_step.py:29). OneCycleLR is optax's
     cosine onecycle: pct_start = max(pct_start, 1/max(T, 2)), boundaries
     int(pct_start*T) and T, values peak/div, peak and peak/(div*final_div),
-    cosine interpolation, all in float32 as optax evaluates it."""
+    cosine interpolation; ExponentialLR is optax's exponential decay,
+    peak * gamma ** step; all in float32 as optax evaluates them."""
     sched = optim_cfg.get("sched") if hasattr(optim_cfg, "get") else None
+    f32 = np.float32
     if not sched:
-        return lambda step: float(np.float32(peak_lr))
+        return lambda step: float(f32(peak_lr))
+    if sched["type"] == "ExponentialLR":
+        gamma = f32(float(sched.get("gamma", 1.0)))
+
+        def exponential(step: int) -> float:
+            lr = f32(peak_lr) * gamma ** f32(step)
+            # XLA flushes f32 subnormals to zero
+            return float(lr) if abs(lr) >= np.finfo(f32).tiny else 0.0
+
+        return exponential
     if sched["type"] != "OneCycleLR":
-        raise NotImplementedError(f"scheduler {sched['type']!r}: the port carries "
-                                  "OneCycleLR (and a constant rate)")
+        raise ValueError(f"Unknown scheduler {sched['type']}")
     pct_start = max(float(sched.get("pct_start", 0.3)), 1.0 / max(total_steps, 2))
     div = float(sched.get("div_factor", 25.0))
     final_div = float(sched.get("final_div_factor", 1e4))
     bounds = (0, int(pct_start * total_steps), int(total_steps))
     values = np.cumprod([peak_lr / div, div, 1.0 / (div * final_div)])
-    f32 = np.float32
 
     def schedule(step: int) -> float:
         if step >= bounds[2]:
@@ -64,14 +78,14 @@ def make_schedule(optim_cfg, peak_lr: float, total_steps: int) -> Callable[[int]
 
 
 class TrainOptimizer:
-    """Two-group AdamW with per-group schedules and encoder clipping
-    (train_step.py:52 `build_optimizer`)."""
+    """Two-group AdamW or Adam with per-group schedules and encoder
+    clipping (train_step.py:52 `build_optimizer`)."""
 
     def __init__(self, cfg, model: MatchNeRF, total_steps: int):
         optim_cfg = cfg.optim
-        if optim_cfg.algo.type != "AdamW":
-            raise NotImplementedError(f"optimizer {optim_cfg.algo.type!r}: the port "
-                                      "carries AdamW")
+        algo = optim_cfg.algo.type
+        if algo not in ("AdamW", "Adam"):
+            raise ValueError(f"optimizer {algo!r}: AdamW or Adam")
         wd = float(optim_cfg.algo.get("weight_decay", 0.0))
         clip = optim_cfg.get("clip_enc")
         self.clip_enc = None if clip is None else float(clip)
@@ -85,8 +99,10 @@ class TrainOptimizer:
             self.schedules[name] = make_schedule(optim_cfg, lr, total_steps)
             groups.append({"params": self.params[name], "lr": self.schedules[name](0),
                            "name": name})
-        self.opt = (torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
-                                      weight_decay=wd) if groups else None)
+        # optax.adam has no weight decay
+        opt_cls, decay = (torch.optim.AdamW, wd) if algo == "AdamW" else (torch.optim.Adam, 0.0)
+        self.opt = (opt_cls(groups, betas=(0.9, 0.999), eps=1e-8, weight_decay=decay)
+                    if groups else None)
         self.count = 0
 
     def zero_grad(self):
@@ -106,8 +122,8 @@ class TrainOptimizer:
             g.copy_(torch.where(norm < self.clip_enc, g, g / norm * self.clip_enc))
 
     def state_dict(self) -> Dict:
-        """AdamW's state and the schedules' step count (what a resumed run
-        restores)."""
+        """The optimizer's state (under "adamw", Adam's too) and the
+        schedules' step count (what a resumed run restores)."""
         return {"adamw": None if self.opt is None else self.opt.state_dict(),
                 "count": self.count}
 

@@ -1,4 +1,5 @@
-"""Weight bridge: JAX parameter pytree -> the port's state_dict.
+"""Weight bridge: JAX parameter pytree -> the port's state_dict; and the
+GMFlow-pretrained encoder init (`load_gmflow_pretrained`).
 
 The exact inverse of matchnerf_tpu/import_torch.py::import_matchnerf_checkpoint
 (import_torch.py:190): linear weights [in,out] -> [out,in], convolutions
@@ -7,10 +8,20 @@ key names (`feat_enc.…`, `nerf_dec.…`, `alpha_linear.0`,
 `out_alpha_linear.0/.2`, `mlp.0/.2`, `downsample.0`). Leaves may be numpy
 arrays or anything `np.asarray` accepts (jax arrays included, without
 importing jax here).
+
+`load_gmflow_pretrained` is the port's counterpart of
+import_torch.py:131 `import_gmflow_pretrained` (the reference's
+misc/utils.py:160-180 filtering): a GMFlow flow checkpoint, "module."
+prefixes stripped, without its flow upsampler (`upsampler.*`), its flow
+refinement (`feature_flow_attn.*`) and the transformer layers past the
+model's, loaded into the encoder's backbone and transformer; `featup_net`
+keeps its seeded weights. The port's encoder has the reference's key
+names, so the checkpoint's tensors load as they are.
 """
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, Union
 
 import numpy as np
 import torch
@@ -87,3 +98,29 @@ def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     _encoder(sd, "feat_enc", params["feat_enc"])
     _decoder(sd, "nerf_dec", params["nerf_dec"])
     return sd
+
+
+def load_gmflow_pretrained(encoder: torch.nn.Module, path_or_sd: Union[str, Dict]):
+    """Load a GMFlow checkpoint (a path to a `.pth` whose "model" entry, or
+    whole content, is the state_dict; or the state_dict) into `encoder` (a
+    `models.gmflow.gmflow.GMFlow`), in place: its backbone and its first
+    len(encoder.transformer.layers) transformer layers; `featup_net` stays
+    as it is. Raises KeyError when the checkpoint lacks a tensor of the
+    backbone or of those layers."""
+    sd = path_or_sd
+    if isinstance(sd, str):
+        sd = torch.load(sd, map_location="cpu", weights_only=True)
+    if isinstance(sd.get("model"), dict):
+        sd = sd["model"]
+    n_layers = len(encoder.transformer.layers)
+    layer = re.compile(r"^transformer\.layers\.(\d+)\.")
+    state = {}
+    for key, value in sd.items():
+        key = re.sub(r"^module\.", "", key)
+        m = layer.match(key)
+        if key.startswith("backbone.") or (m and int(m.group(1)) < n_layers):
+            state[key] = torch.as_tensor(value)
+    missing, unexpected = encoder.load_state_dict(state, strict=False)
+    missing = [k for k in missing if not k.startswith("featup_net.")]
+    if missing or unexpected:
+        raise KeyError(f"GMFlow checkpoint: missing {missing}, unexpected {unexpected}")
