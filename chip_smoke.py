@@ -7,7 +7,8 @@ configs/test_video_own.yaml, the training step and the training loop
 configs/train_fast.yaml, the eval entry (`python -m
 matchnerf_tpu_torch.test`) of configs/test.yaml, test_video.yaml and
 test_strict.yaml over DTU, LLFF and Blender test sets, and the training
-entry of configs/train_ibrnet.yaml at 1008x756, on one NVIDIA card,
+entry of configs/train_ibrnet.yaml at 1008x756, and the render server
+(`python -m matchnerf_tpu_torch.serve`) over HTTP, on one NVIDIA card,
 through the hand-written CUDA kernels.
 
     python3 chip_smoke.py [--seed 0] [--profile]
@@ -172,10 +173,28 @@ Phases, any failure ends the run with a non-zero exit:
    step's ms, peak memory and launches with remat_encoder off and on (24
    A launches a step with it); A and A' bf16 at [96,768,128], unmasked and
    shifted, against their plain versions beside SDPA, with their bounds.
+15. the render server: `matchnerf_tpu_torch.serve.serve` with
+   configs/test.yaml as shipped and phase 2's model, max_scenes 2, on a
+   daemon thread, driven over HTTP on 127.0.0.1 in the JSON + base64 wire
+   format: /healthz reports cuda; POST /scenes with phase 2's 3 source
+   views (Kernel A in a torch.profiler trace of the request); POST /render
+   in float32 at phase 2's target and 2 more cameras of the arc, each
+   bit-equal to a direct `Renderer.render_by_slices` on the scene's stored
+   tables, the first >= 50 dB against the all-plain render, C, D and E in a
+   trace of one request and their device ms in another, and uint8 equal
+   to the float32 render quantised;
+   POST /render_path, 9 frames interpolated and 8 of the spiral around the
+   scene's 4 cameras (its stored c2ws_all), bit-equal to direct frames; 4
+   concurrent /render requests bit-equal to the serial ones; DELETE (200,
+   then 404) back to the device memory before the scene; 3 more scenes:
+   the first evicted (404 on /render, its tensors freed), the level before
+   them again once the others are deleted. Prints /scenes seconds, each
+   /render's round trip, render and pose_prep seconds, frames/s of each
+   path, peak memory, with the card's name and power limit.
 Every launch count is reset just before a path (a step, in 10 and 11; a
 training run and a validation image, in 12; each test set's render, in
-13; the training run, each image and the timed steps, in 14) and read
-just after it. With --profile, one more warm render of each eval path
+13; the training run, each image and the timed steps, in 14; each served
+request, in 15) and read just after it. With --profile, one more warm render of each eval path
 (the bf16 decoder path too) and of each video, and one warm step of each
 training recipe run under torch.profiler and print the device time by
 kernel (the A' backward's dq and dkv kernels always by name), the device
@@ -185,6 +204,7 @@ last line is {"ok": true, "device": {...}}.
 """
 import argparse
 import copy
+import gc
 import json
 import math
 import os
@@ -193,6 +213,7 @@ import signal
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 
@@ -315,13 +336,18 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def arc_eye(angle):
+    """A camera centre on the scene's arc (radius 3.7 at height -1) at
+    `angle` radians; the cameras look at synth.make_scene_views's target."""
+    return (3.7 * math.sin(angle), -1.0, -3.7 * math.cos(angle))
+
+
 def make_scene(seed):
     """4 posed 640x512 views of the synthetic scene; the last is the target."""
     from matchnerf_tpu_torch.data import synth
     rng = np.random.default_rng(seed)
-    radius = 3.7
     angles = np.deg2rad([-16.0, 0.0, 16.0, 8.0]) + rng.uniform(-0.02, 0.02, 4)
-    eyes = [(radius * math.sin(a), -1.0, -radius * math.cos(a)) for a in angles]
+    eyes = [arc_eye(a) for a in angles]
     views = synth.make_scene_views(W, H, focal=1.8 * W, eyes=eyes)
     near_fars = np.tile(np.asarray(DTU_NEAR_FAR, np.float32), (4, 1))
     return {"images": views["images"][None],
@@ -2055,6 +2081,296 @@ def ibrnet_phase(torch, F, dev, seed, counters, trees):
     return out
 
 
+SERVE_TARGET_DEG = (-8.0, 4.0)     # /render cameras beside phase 2's target, between its sources
+# frames of each /render_path trajectory: the interpolated path has
+# V * (n // 3) poses and fails for any other count (ROADMAP Queue 3), so 9
+SERVE_FRAMES = {"interpolate": 9, "spiral": 8}
+SERVE_CONCURRENT = 4               # /render requests in flight at once
+MIB = 2 ** 20
+
+
+def arc_w2c(deg):
+    """World-to-camera [4,4] of a camera on the scene's arc at `deg`
+    degrees, made as synth.make_scene_views makes its cameras."""
+    from matchnerf_tpu_torch.data import synth
+    c2w = np.eye(4)
+    c2w[:3] = synth.look_at_opencv(arc_eye(math.radians(deg)), (0.0, 0.1, 0.0))
+    return np.linalg.inv(c2w).astype(np.float32)
+
+
+def wire(port, method, path, obj=None):
+    """One HTTP request to the render server on 127.0.0.1 -> (status, JSON
+    body, round-trip seconds: the request's JSON out, the answer's JSON in)."""
+    import urllib.error
+    import urllib.request
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method, data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.loads(e.read())
+    return code, body, time.perf_counter() - t0
+
+
+def to_u8(rgb):
+    """The server's uint8 quantisation of a float32 image."""
+    return np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def allocated(torch):
+    """Bytes of live device tensors, after a garbage collection (garbage
+    that earlier phases left, freed at some later point, would move the
+    level) and with cuBLAS's per-handle workspaces (which the caching
+    allocator counts, and each new handler thread's handle can add)
+    released."""
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def tree_tensors(x):
+    """The tensors of a nested dict / list of tables."""
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in tree_tensors(v)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in tree_tensors(v)]
+    return [x] if hasattr(x, "element_size") else []
+
+
+def serve_phase(torch, dev, model, batch, counters):
+    """Phase 15: `matchnerf_tpu_torch.serve.serve` with configs/test.yaml as
+    shipped and phase 2's model on the card, max_scenes 2, on a daemon
+    thread, driven over HTTP on 127.0.0.1: /healthz, /scenes (Kernel A in
+    its trace), /render at 3 cameras (bit-equal to direct renders, >= 50 dB
+    against all-plain, C, D and E in a trace, uint8 against float32),
+    /render_path interpolate and spiral (bit-equal to direct frames),
+    concurrent renders against serial ones, LRU eviction and DELETE with
+    the device memory they free. The launches of every served request are
+    counted (set to 0 just before it, read just after); the direct and
+    plain renders they are compared with are not."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from matchnerf_tpu_torch.config import CONFIGS
+    from matchnerf_tpu_torch.serve import decode_array, encode_array, serve
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = CONFIGS["test"]()
+    served = {k: 0 for k in counters}
+    plain_cuda = {k: 0 for k in counters}
+
+    def counted(fn):
+        for c in counters.values():
+            c.reset()
+        result = fn()
+        for k, c in counters.items():
+            served[k] += c.launches
+            plain_cuda[k] += c.plain_on_cuda
+        return result
+
+    def request(method, path, obj=None, want=200):
+        code, body, secs = counted(lambda: wire(port, method, path, obj))
+        if code != want:
+            raise AssertionError(f"serve {method} {path}: {code} {str(body)[:400]} "
+                                 f"(expected {want})")
+        return body, secs
+
+    def has(names, kernel):
+        return any(KERNEL_RES[kernel].search(n) for n in names)
+
+    extr, intr, nfs = (batch[k][0] for k in ("extrinsics", "intrinsics", "near_fars"))
+    c2ws = np.linalg.inv(extr.astype(np.float64)).astype(np.float32)   # all 4 cameras
+    scene = {"images": encode_array(batch["images"][0, :3]),
+             "extrinsics": encode_array(extr[:3]), "intrinsics": encode_array(intr[:3]),
+             "near_fars": encode_array(nfs[:3]), "c2ws_all": encode_array(c2ws)}
+    targets = [extr[3]] + [arc_w2c(a) for a in SERVE_TARGET_DEG]
+
+    httpd = serve(cfg, model, port=0, host="127.0.0.1", max_scenes=2, device=dev)
+    port, svc = httpd.server_address[1], httpd.service
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    out = {"card": card, "img_wh": [W, H], "max_scenes": 2, "renders": []}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        health, _ = request("GET", "/healthz")
+        if health.get("backend") != "cuda":
+            raise AssertionError(f"serve /healthz: {health}")
+
+        def add_drop():
+            sid_ = request("POST", "/scenes", scene)[0]["scene_id"]
+            request("DELETE", f"/scenes/{sid_}")
+        out["scenes_trace"] = kernel_names(torch, add_drop, iters=1)
+        if not has(out["scenes_trace"], "window_attention"):
+            raise AssertionError(f"serve /scenes: no Kernel A in its trace {out['scenes_trace']}")
+        mem0 = allocated(torch)
+        body, out["scenes_s"] = request("POST", "/scenes", scene)
+        sid = body["scene_id"]
+        out["encode_s"] = svc.last_timings["encode_s"]
+        sc = svc.scenes[sid]
+        out["scene_mib"] = nbytes(*tree_tensors(sc["tables"])) / MIB
+        log(f"serve /scenes {sid}: 3 views {W}x{H} float32 over the wire in "
+            f"{out['scenes_s']:.4f} s (upload, encode and tables {out['encode_s']:.4f} s), "
+            f"tables {out['scene_mib']:.1f} MiB on the device; Kernel A in the trace of a "
+            f"/scenes request: {[n for n in out['scenes_trace'] if has([n], 'window_attention')]}"
+            f" ({card})")
+
+        def tgt(e, dtype="float32", scene_id=None):
+            return {"scene_id": scene_id or sid, "extrinsic": encode_array(e),
+                    "intrinsic": encode_array(intr[3]), "near_far": encode_array(nfs[3]),
+                    "out_dtype": dtype}
+
+        def direct(tgt_pose):
+            with svc.device_lock:
+                o = svc.renderer.render_by_slices({"tgt": tgt_pose, "ref": sc["ref"]},
+                                                  sc["tables"], H, W)
+                return (o["rgb"].reshape(H, W, 3).float().cpu().numpy(),
+                        o["depth"].reshape(H, W).float().cpu().numpy())
+
+        serial = []
+        for i, e in enumerate(targets):
+            body, secs = request("POST", "/render", tgt(e))
+            rgb, depth = decode_array(body["rgb"]), decode_array(body["depth"])
+            t, route = dict(svc.last_timings), dict(svc.renderer.last_route)
+            want_rgb, want_depth = direct({"extrinsics": e[None, :3],
+                                           "intrinsics": intr[3][None],
+                                           "near_fars": nfs[3][None]})
+            if rgb.shape != (H, W, 3) or depth.shape != (H, W) or rgb.dtype != np.float32:
+                raise AssertionError(f"serve /render {i}: {rgb.shape} {rgb.dtype} {depth.shape}")
+            if not (np.isfinite(rgb).all() and np.isfinite(depth).all()
+                    and rgb.min() >= -1e-6 and rgb.max() <= 1.0 + 1e-6):
+                raise AssertionError(f"serve /render {i}: non-finite or out of [0,1]")
+            if not (np.array_equal(rgb, want_rgb) and np.array_equal(depth, want_depth)):
+                raise AssertionError(
+                    f"serve /render {i}: not bit-equal to the direct render (max|d| rgb "
+                    f"{np.abs(rgb - want_rgb).max():.3e}, depth "
+                    f"{np.abs(depth - want_depth).max():.3e})")
+            serial.append((rgb, depth))
+            r = {"wire_s": secs, "render_s": t["render_s"], "pose_prep_s": t["pose_prep_s"],
+                 "wire_overhead_s": secs - t["render_s"], "route": route}
+            out["renders"].append(r)
+            log(f"serve /render {i} (float32, {W}x{H}): wire round trip {secs:.4f} s, render "
+                f"{t['render_s']:.4f} s of it (pose_prep {t['pose_prep_s']:.4f} s), the rest "
+                f"{r['wire_overhead_s']:.4f} s; route {route}; bit-equal to the direct render "
+                f"({card})")
+
+        plain = plain_render(cfg, model, dev, dict(batch, img_wh=np.array([[W, H]])))
+        out["agreement_psnr_db"] = psnr(torch.from_numpy(serial[0][0]).reshape(1, -1, 3),
+                                        plain["rgb"].cpu())
+        del plain
+        log(f"serve /render 0 vs the all-plain render: {out['agreement_psnr_db']:.2f} dB "
+            "(need >= 50)")
+        if not out["agreement_psnr_db"] >= 50.0:
+            raise AssertionError(f"serve: agreement PSNR {out['agreement_psnr_db']:.2f} dB < 50")
+        out["render_trace"] = kernel_names(
+            torch, lambda: request("POST", "/render", tgt(targets[0])), iters=1)
+        missing = [k for k in ("cond_nerf_decode", "block_cosine_prior", "supercell_color")
+                   if not has(out["render_trace"], k)]
+        if missing:
+            raise AssertionError(f"serve /render: {missing} not in its trace "
+                                 f"{out['render_trace']}")
+        # where one request's device time goes: the eval kernels' device ms
+        kms = kernel_device_ms(torch, lambda: request("POST", "/render", tgt(targets[0])))
+        out["render_kernel_ms"] = {k: {"ms": ms, "launches": n} for k, (ms, n) in kms.items()}
+        log(f"serve /render 0, device ms and launches by kernel (one request under "
+            f"torch.profiler): {out['render_kernel_ms']} ({card})")
+        body, _ = request("POST", "/render", tgt(targets[0], "uint8"))
+        rgb8 = decode_array(body["rgb"])
+        if rgb8.dtype != np.uint8 or not np.array_equal(rgb8, to_u8(serial[0][0])):
+            raise AssertionError("serve /render uint8: not the float32 render quantised")
+
+        path_pose = {"ref": sc["ref"], "tgt": {"intrinsics": sc["ref"]["intrinsics"][0, :1],
+                                               "near_fars": sc["ref"]["near_fars"][0, :1]}}
+        out["paths"] = {}
+        for mode, vbatch in (("interpolate", None), ("spiral", {"c2ws_all": c2ws[None]})):
+            n = SERVE_FRAMES[mode]
+            body, secs = request("POST", "/render_path", {"scene_id": sid, "n_frames": n,
+                                                          "mode": mode})
+            frames, t = decode_array(body["frames"]), dict(svc.last_timings)
+            want = np.stack([to_u8(direct(fp)[0]) for fp in svc.renderer.get_video_rendering_path(
+                path_pose, mode, n, batch=vbatch)])
+            if frames.shape != want.shape or not np.array_equal(frames, want):
+                raise AssertionError(f"serve /render_path {mode}: {frames.shape} frames not "
+                                     f"bit-equal to the direct frames {want.shape}")
+            out["paths"][mode] = {"frames": n, "wire_s": secs, "frames_per_s": n / secs,
+                                  "render_s": t["render_s"], "pose_prep_s": t["pose_prep_s"]}
+            log(f"serve /render_path {mode}: {n} frames {W}x{H} in {secs:.4f} s, "
+                f"{n / secs:.3f} frames/s over the wire (render {t['render_s']:.4f} s,"
+                f" pose_prep {t['pose_prep_s']:.4f} s of it); bit-equal to the direct frames "
+                f"({card})")
+
+        jobs = [i % len(targets) for i in range(SERVE_CONCURRENT)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=SERVE_CONCURRENT) as ex:
+            results = counted(lambda: [f.result() for f in [
+                ex.submit(wire, port, "POST", "/render", tgt(targets[j])) for j in jobs]])
+        out["concurrent_s"] = time.perf_counter() - t0
+        for j, (code, body, _) in zip(jobs, results):
+            if code != 200 or not (np.array_equal(decode_array(body["rgb"]), serial[j][0]) and
+                                   np.array_equal(decode_array(body["depth"]), serial[j][1])):
+                raise AssertionError(f"serve: a concurrent /render of camera {j} ({code}) is "
+                                     "not bit-equal to its serial render")
+        log(f"serve: {SERVE_CONCURRENT} concurrent /render requests in "
+            f"{out['concurrent_s']:.4f} s, each bit-equal to its serial render ({card})")
+
+        request("DELETE", f"/scenes/{sid}")
+        body, _ = request("DELETE", f"/scenes/{sid}", want=404)
+        del sc
+        out["mem_after_delete_mib"] = (allocated(torch) - mem0) / MIB
+        m0, levels, ids = allocated(torch), [], []
+        for _ in range(3):                                  # max_scenes 2: the first goes
+            ids.append(request("POST", "/scenes", scene)[0]["scene_id"])
+            levels.append(allocated(torch))
+            if len(ids) == 1:
+                first = [weakref.ref(t_) for t_ in tree_tensors(svc.scenes[ids[0]]["tables"])]
+        if ids[0] in svc.scenes or list(svc.scenes) != ids[1:]:
+            raise AssertionError(f"serve LRU: scenes {list(svc.scenes)} after adding {ids}")
+        alive = sum(r() is not None for r in first)
+        if alive:
+            raise AssertionError(f"serve LRU: {alive} of the evicted scene's {len(first)} "
+                                 "device tensors are still referenced")
+        body, _ = request("POST", "/render", tgt(targets[0], scene_id=ids[0]), want=404)
+        if body.get("error") != f"unknown scene '{ids[0]}'":
+            raise AssertionError(f"serve LRU: {body}")
+        for s_ in ids[1:]:
+            request("DELETE", f"/scenes/{s_}")
+        m_end = allocated(torch)
+        out["lru_mib"] = {"scene": (levels[0] - m0) / MIB, "two_scenes": (levels[1] - m0) / MIB,
+                          "after_eviction": (levels[2] - m0) / MIB, "after_delete": (m_end - m0) / MIB}
+        log(f"serve LRU (max_scenes 2): the evicted scene's {len(first)} device tensors "
+            f"freed; device memory over the level before the scenes, MiB: {out['lru_mib']} "
+            "(a level with scenes counts the allocator's blocks, each up to 1 MiB past its "
+            f"tensor); after DELETE of the first scene {out['mem_after_delete_mib']:.3f} MiB "
+            "over its level before it")
+        for name, d in (("after DELETE of the rest", m_end - m0),
+                        ("after DELETE of the first scene", out["mem_after_delete_mib"] * MIB)):
+            if abs(d) > MIB:
+                raise AssertionError(f"serve: device memory {name}: {d / MIB:.3f} MiB (> 1)")
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("serve: the server thread did not stop")
+    out["launches"], out["plain_cuda"] = served, plain_cuda
+    for k in ("window_attention", "cond_nerf_decode", "block_cosine_prior", "supercell_color"):
+        if served[k] <= 0:
+            raise AssertionError(f"serve: kernel {k} was not launched: {served}")
+    if any(plain_cuda.values()):
+        raise AssertionError(f"serve: plain versions ran on CUDA tensors: {plain_cuda}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve: launches of the served requests {served}; peak device memory "
+        f"{out['peak_gib']:.2f} GiB; phase {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2478,6 +2794,10 @@ def main():
     # at its shapes
     ibr = ibrnet_phase(torch, F, dev, args.seed, counters, ibr_trees)
     tree_pool.shutdown()
+    torch.cuda.empty_cache()
+
+    # ---- 15. the render server (configs/test.yaml as shipped) over HTTP
+    served = serve_phase(torch, dev, model, batch, counters)
 
     def per_scale(entries):
         return {"max_abs_err": max(e["max_abs_err"] for e in entries),
@@ -2521,7 +2841,8 @@ def main():
                 **{f"test_entry_{k}": v["launches"][name] for k, v in test_entry["sets"].items()},
                 **{f"test_video_{k}_{ENTRY_FRAMES}_frames": v["launches"][name]
                    for k, v in test_entry["video"].items()},
-                "test_strict_dtu": test_entry["strict"]["launches"][name]}
+                "test_strict_dtu": test_entry["strict"]["launches"][name],
+                "serve": served["launches"][name]}
 
     def by_test_set(name):
         """Device ms per launch and launches per image of one eval kernel
@@ -2623,7 +2944,8 @@ def main():
         "loop": loop,
         "test_entry": test_entry,
         "train_ibrnet": {k: v for k, v in ibr.items()
-                         if k not in ("A", "A_bwd", "B_bwd", "eval_slice")}}}
+                         if k not in ("A", "A_bwd", "B_bwd", "eval_slice")},
+        "serve": served}}
     if args.profile:
         report["profile"] = {"train": train["train"]["profile"],
                              "train_fast": train["train_fast"]["profile"],

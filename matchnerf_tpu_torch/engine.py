@@ -36,7 +36,6 @@ import json
 import logging
 import math
 import os
-import re
 import signal
 import time
 from collections import OrderedDict
@@ -53,7 +52,7 @@ from .models.matchnerf import MatchNeRF, init_matchnerf
 from .ops.block_cosine_prior import takes_f32
 from .renderer import Renderer, extract_poses
 from .train_step import build_optimizer, make_train_step
-from .utils.checkpoint import CheckpointWriter, load_checkpoint
+from .utils.checkpoint import CheckpointWriter, load_checkpoint, load_model_weights
 from .utils.containers import effective_precision
 from .utils.logging import loss_train, update_timer
 from .utils.visualize import save_image, visualize_depth, write_gif, write_video
@@ -437,17 +436,8 @@ class Coach:
         if not path:
             log.info("no checkpoint to load: the weights stay those of the seed")
             return
-        if not os.path.isfile(path):
-            raise FileNotFoundError(f"checkpoint {path} not found (pass --load= to keep "
-                                    "the seeded weights)")
         log.info("loading weights from checkpoint %s", path)
-        ckpt = torch.load(path, map_location="cpu", weights_only=False)
-        sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
-        # DataParallel prefixes, on the model and on its two children
-        # (import_torch.py:193-197)
-        strip = re.compile(r"^(feat_enc\.|nerf_dec\.)?module\.")
-        sd = {strip.sub(r"\1", re.sub(r"^module\.", "", k)): v for k, v in sd.items()}
-        self.model.load_state_dict(sd, strict=True)
+        load_model_weights(self.model, path)
 
     def _out_name(self, batch, b: int, ep=None, it=True) -> str:
         src_ids = "_".join(f"{x:02d}" for x in batch["view_ids"][b][: self.n_src_views])

@@ -9,13 +9,15 @@ Every file is written to `<name>.tmp` and renamed, so a run stopped while
 writing never leaves a torn checkpoint. With `async_write` (the frequent
 mid-epoch saves) the state is serialised on the caller, a consistent
 snapshot whatever the training does next, and only the file writes run on
-the writer's one background thread. Loading a reference `.pth` is
-`engine.Coach.restore_checkpoint_if_needed`'s.
+the writer's one background thread. `load_model_weights` reads the weights
+of `load` (a checkpoint of the port's or a reference `.pth`) for the eval
+entry and the render server.
 """
 from __future__ import annotations
 
 import io
 import os
+import re
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
@@ -71,3 +73,20 @@ class CheckpointWriter:
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """A checkpoint this package wrote, tensors on the CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_model_weights(model: torch.nn.Module, path: str):
+    """The weights of a checkpoint of the port's, or of a reference `.pth`:
+    its "model" entry (or the whole file), "module." prefixes stripped,
+    into `model` with strict key matching, the port's key names being the
+    reference's."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"checkpoint {path} not found (pass --load= to keep "
+                                "the seeded weights)")
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
+    # DataParallel prefixes, on the model and on its two children
+    # (import_torch.py:193-197)
+    strip = re.compile(r"^(feat_enc\.|nerf_dec\.)?module\.")
+    sd = {strip.sub(r"\1", re.sub(r"^module\.", "", k)): v for k, v in sd.items()}
+    model.load_state_dict(sd, strict=True)
