@@ -8,8 +8,9 @@ configs/train_fast.yaml, the eval entry (`python -m
 matchnerf_tpu_torch.test`) of configs/test.yaml, test_video.yaml and
 test_strict.yaml over DTU, LLFF and Blender test sets, and the training
 entry of configs/train_ibrnet.yaml at 1008x756, and the render server
-(`python -m matchnerf_tpu_torch.serve`) over HTTP, on one NVIDIA card,
-through the hand-written CUDA kernels.
+(`python -m matchnerf_tpu_torch.serve`) over HTTP, and the parallel layer
+(process groups of one and two ranks, the training entry as 2 processes),
+on one NVIDIA card, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -191,10 +192,35 @@ Phases, any failure ends the run with a non-zero exit:
    them again once the others are deleted. Prints /scenes seconds, each
    /render's round trip, render and pose_prep seconds, frames/s of each
    path, peak memory, with the card's name and power limit.
+16. the parallel layer (matchnerf_tpu_torch/parallel/) at full width and
+   640x512: (a) a process group of one rank on the card, which the backend
+   rule must give NCCL, and one configs/train.yaml step through the
+   gradient average: the gradients bit-equal before and after it and the
+   parameters bit-equal to AdamW on the gradients without it. (b) two
+   ranks spawned on the one card, which the rule must give gloo: 3 steps
+   each of train.yaml and train_fast.yaml in rays mode with the encoder's
+   streams split (Kernel A / A' at [12,1280,128] in each rank), the ranks'
+   losses and parameter sums equal, every step launching A, A' and B, B'
+   (train.yaml) or D', D' (train_fast.yaml) in each rank as often as a
+   one-process step does, no plain version on CUDA; the first step against
+   the one-process step from the same weights and draws at
+   first_step_check's bf16-policy tolerances (loss, the averaged
+   gradients), and the parameters where AdamW's first update is lr *
+   sign(g) in both (|g| > 1e-4, one sign) within 1e-3 lr + 1e-6 |p|. (c)
+   both ranks render phase 2's target with configs/test.yaml as shipped
+   (4096 of every 8192-ray slice each, gathered): A, C, D and E in each
+   rank, the ranks' images bit-equal, bit-equal to phase 4's render with
+   the eval encoder's streams whole and >= 60 dB with them split. (d)
+   `python -m matchnerf_tpu_torch.train --config train` as 2 processes
+   (MATCHNERF_* set) on phase 12's DTU tree: 4 steps, a validation and the
+   epoch checkpoint; both exit 0, rank 1's output_root stays empty, rank
+   0's scalars hold 4 finite losses and the last is the loss both ranks
+   log. Seconds per step and per render print beside the card's name and
+   power limit; two ranks sharing one card say nothing about scaling.
 Every launch count is reset just before a path (a step, in 10 and 11; a
 training run and a validation image, in 12; each test set's render, in
 13; the training run, each image and the timed steps, in 14; each served
-request, in 15) and read just after it. With --profile, one more warm render of each eval path
+request, in 15; each rank's step and render, in 16) and read just after it. With --profile, one more warm render of each eval path
 (the bf16 decoder path too) and of each video, and one warm step of each
 training recipe run under torch.profiler and print the device time by
 kernel (the A' backward's dq and dkv kernels always by name), the device
@@ -1296,6 +1322,7 @@ def loop_phase(torch, dev, counters):
                       "optimizer_bit_equal": opt_equal}
     del coach
     torch.cuda.empty_cache()
+    out["tree"] = {"work": work, "root": root, "meta": meta}      # phase 16 trains on it
     return out
 
 
@@ -2371,6 +2398,449 @@ def serve_phase(torch, dev, model, batch, counters):
     return out
 
 
+PAR_STEPS = 3                      # training steps per recipe in each rank of phase 16
+
+
+def kernel_counters():
+    """Every kernel's launch counter by name."""
+    from matchnerf_tpu_torch.ops import block_cosine_prior as kd
+    from matchnerf_tpu_torch.ops import cosine_prior as kb
+    from matchnerf_tpu_torch.ops import decoder as kc
+    from matchnerf_tpu_torch.ops import fused_cosine as kf
+    from matchnerf_tpu_torch.ops import supercell_color as ke
+    from matchnerf_tpu_torch.ops import window_attention as ka
+    return {"window_attention": ka.COUNTER, "cosine_prior": kb.COUNTER,
+            "cond_nerf_decode": kc.COUNTER, "block_cosine_prior": kd.COUNTER,
+            "supercell_color": ke.COUNTER, "fused_cosine": kf.COUNTER,
+            "window_attention_bwd": ka.BWD_COUNTER,
+            "cosine_prior_bwd": kb.BWD_COUNTER,
+            "block_cosine_prior_f32": kd.F32_COUNTER,
+            "block_cosine_prior_bwd": kd.BWD_COUNTER}
+
+
+def free_port():
+    from matchnerf_tpu_torch.parallel.distributed import free_port as port
+    return port()
+
+
+def cluster(rank, world, port):
+    return {"parallel": {"coordinator_address": f"127.0.0.1:{port}", "num_processes": world,
+                         "process_id": rank}}
+
+
+def counted(counters, fn):
+    """fn() with every count set to 0 just before and read just after:
+    (result, launches, plain versions on CUDA)."""
+    for c in counters.values():
+        c.reset()
+    out = fn()
+    return (out, {k: c.launches for k, c in counters.items()},
+            {k: c.plain_on_cuda for k, c in counters.items()})
+
+
+PAR_RECIPES = (("train", "cosine_prior_bwd"), ("train_fast", "block_cosine_prior_bwd"))
+
+
+def train_recipe_cfg(label):
+    from matchnerf_tpu_torch.config import dtu_train_config, dtu_train_fast_config
+    return dtu_train_config() if label == "train" else dtu_train_fast_config()
+
+
+def nccl_world_of_one(torch, dev, batch, seed, counters):
+    """Phase 16 (a): a process group of one rank on the card (NCCL by the
+    backend rule) and one configs/train.yaml step through the gradient
+    average; the gradients before and after it, and the parameters after the
+    update against AdamW applied to the gradients without it, from the same
+    weights, both bit for bit."""
+    from matchnerf_tpu_torch.engine import Coach
+    from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+    from matchnerf_tpu_torch.parallel import distributed as dist
+    from matchnerf_tpu_torch.parallel import mesh
+    from matchnerf_tpu_torch.utils.containers import DotDict
+    from matchnerf_tpu_torch.train_step import TrainOptimizer
+    cfg = train_recipe_cfg("train")
+    if not dist.maybe_initialize(DotDict(cluster(0, 1, free_port())), DEVICE):
+        raise AssertionError("parallel (a): no process group came up")
+    try:
+        if dist.backend() != "nccl":
+            raise AssertionError(f"parallel (a): backend {dist.backend()} for one rank, "
+                                 "expected nccl")
+        model = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev)
+        twin = copy.deepcopy(model)
+        coach = Coach(cfg, model, dev)
+        coach.setup_optimizer(1000)
+        seen = {}
+        average = mesh.average_gradients
+
+        def spy(params):
+            params = list(params)
+            seen["before"] = [p.grad.clone() for p in params]
+            average(params)
+            seen["after"] = [p.grad.clone() for p in params]
+
+        mesh.average_gradients = spy
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, launches, plain = counted(counters, lambda: coach.train_iteration(batch))
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        finally:
+            mesh.average_gradients = average
+        reductions = int("after" in seen)
+        grads_equal = all(torch.equal(a, b) for a, b in zip(seen["before"], seen["after"]))
+        opt = TrainOptimizer(cfg, twin, 1000)
+        for p, g in zip(twin.parameters(), seen["before"]):
+            p.grad = g.clone()
+        opt.step()
+        params_equal = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                              twin.parameters()))
+    finally:
+        dist.shutdown()
+    log(f"parallel (a): NCCL, world of 1: one train.yaml step in {step_s:.3f} s through the "
+        f"gradient average ({reductions} all-reduce), loss {float(loss['all']):.7f}; gradients "
+        f"bit-equal before and after it {grads_equal}; parameters bit-equal to AdamW on the "
+        f"gradients without it {params_equal}; launches {launches}")
+    if not (reductions == 1 and grads_equal and params_equal):
+        raise AssertionError("parallel (a): the NCCL world of one changed the step")
+    if any(plain.values()):
+        raise AssertionError(f"parallel (a): plain versions ran on CUDA: {plain}")
+    return {"backend": "nccl", "step_s": step_s, "reductions": reductions,
+            "grads_bit_equal": grads_equal, "params_bit_equal": params_equal,
+            "launches": launches}
+
+
+def parallel_rank(rank, port, seed, out_dir):
+    """A rank of phase 16 (b) and (c), spawned: two ranks on the one card.
+    PAR_STEPS steps of train.yaml and of train_fast.yaml in rays mode with
+    the encoder's streams sharded (rank 0 saves the first step's loss,
+    gradients and parameters), then phase 2's target rendered with
+    configs/test.yaml, the eval encoder's streams whole and sharded."""
+    import torch
+    sys.path.insert(0, REPO)
+    from matchnerf_tpu_torch import kernels
+    from matchnerf_tpu_torch.config import dtu_eval_config
+    from matchnerf_tpu_torch.engine import Coach
+    from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+    from matchnerf_tpu_torch.parallel import distributed as dist
+    from matchnerf_tpu_torch.renderer import Renderer
+    from matchnerf_tpu_torch.utils.containers import DotDict
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from matchnerf_tpu_torch.ops import attention
+    dist.maybe_initialize(DotDict(cluster(rank, 2, port)), DEVICE)
+    kernels.library()
+    counters = kernel_counters()
+    dev = torch.device(DEVICE)
+    batch = make_scene(seed)
+    out = {"rank": rank, "backend": dist.backend(), "train": {}, "eval": {}}
+    shapes = set()                      # Kernel A / A''s [windows, L, C] in this rank
+    window_attention = attention.window_attention
+
+    def spy(q, *args, **kwargs):
+        shapes.add(tuple(q.shape))
+        return window_attention(q, *args, **kwargs)
+
+    attention.window_attention = spy
+    for label, _ in PAR_RECIPES:
+        cfg = train_recipe_cfg(label)
+        model = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev)
+        coach = Coach(cfg, model, dev)
+        coach.setup_optimizer(1000)
+        rec = {"mode": coach.parallel_mode, "losses": [], "launches": [], "plain": [], "s": []}
+        for i in range(PAR_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, launches, plain = counted(counters, lambda: coach.train_iteration(batch))
+            torch.cuda.synchronize()
+            rec["s"].append(time.perf_counter() - t0)
+            rec["losses"].append(float(loss["all"]))
+            rec["launches"].append(launches)
+            rec["plain"].append(plain)
+            if i == 0 and rank == 0:
+                torch.save({"loss": rec["losses"][0],
+                            "grads": {n: p.grad.detach().cpu()
+                                      for n, p in model.named_parameters()},
+                            "params": {n: p.detach().cpu()
+                                       for n, p in model.named_parameters()}},
+                           os.path.join(out_dir, f"{label}_first_step.pt"))
+        rec["route"] = coach.last_route
+        rec["attention_shapes"] = sorted(shapes)
+        shapes.clear()
+        rec["param_sum"] = float(sum(p.detach().double().sum() for p in model.parameters()))
+        out["train"][label] = rec
+        del coach, model
+        torch.cuda.empty_cache()
+    for streams in (False, True):
+        cfg = dtu_eval_config()
+        cfg.parallel.shard_encoder_streams_eval = streams
+        model = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev).eval()
+        renderer = Renderer(cfg, model, dev)
+        renderer.set_ray_sharding(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ret, launches, plain = counted(counters, lambda: renderer.forward(batch, mode="test"))
+        torch.cuda.synchronize()
+        out["eval"]["sharded" if streams else "whole"] = {
+            "s": time.perf_counter() - t0, "launches": launches, "plain": plain,
+            "route": renderer.last_route, "shard_streams": renderer.shard_streams(),
+            "attention_shapes": sorted(shapes),
+            "rgb": ret["rgb"].cpu(), "depth": ret["depth"].cpu()}
+        shapes.clear()
+        del renderer, model
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.shutdown()
+
+
+def step_agreement(torch, start, one, ranks, lrs):
+    """The ranks' first step against the one-process step: per tensor the
+    relative error of the update; and the parameters, on every entry where
+    both gradients have one sign and |g| > 1e-4 (there AdamW's first update
+    is lr * sign(g) - lr * wd * p to 1e-4 of lr), within 1e-3 lr + 1e-6 |p|.
+    Returns (update errors, entries held, entries past the bound, share of
+    entries whose gradient sign differs)."""
+    errs, held, bad, flips, total = {}, 0, 0, 0, 0
+    for n, p0 in start.items():
+        pa, pb = ranks["params"][n].double(), one["params"][n].double()
+        ga, gb = ranks["grads"][n], one["grads"][n]
+        da, db = pa - p0.double(), pb - p0.double()
+        errs[n] = float((da - db).norm()) / max(float(db.norm()), 1e-30)
+        same = (torch.sign(ga) == torch.sign(gb)) & (ga.abs() > 1e-4) & (gb.abs() > 1e-4)
+        lim = 1e-3 * lrs[n] + 1e-6 * pb.abs()
+        held += int(same.sum())
+        bad += int(((pa - pb).abs() > lim)[same].sum())
+        flips += int((torch.sign(ga) != torch.sign(gb)).sum())
+        total += ga.numel()
+    return errs, held, bad, flips / total
+
+
+def parallel_entry(torch, tree, counters):
+    """Phase 16 (d): `python -m matchnerf_tpu_torch.train --config train` as
+    two processes on the card (MATCHNERF_* set), on the loop phase's DTU
+    tree: 4 steps, one validation, the epoch checkpoint; rank 1 gets an
+    output_root of its own, which must stay empty."""
+    runs = os.path.join(tree["work"], "parallel_runs")
+    port = free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        args = loop_args("train", "parallel_entry", os.path.join(runs, f"root{rank}"),
+                         tree["root"], tree["meta"], LOOP_STEPS,
+                         **{"freq.val_it": 1.0, "freq.ckpt_it": -1, "freq.test_ep": -1})
+        env = dict(os.environ, MATCHNERF_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   MATCHNERF_NUM_PROCESSES="2", MATCHNERF_PROCESS_ID=str(rank))
+        path = os.path.join(runs, f"rank{rank}.log")
+        os.makedirs(runs, exist_ok=True)
+        logs.append(open(path, "w"))
+        procs.append(subprocess.Popen([sys.executable, "-m", "matchnerf_tpu_torch.train",
+                                       *args], cwd=REPO, env=env, stdout=logs[-1],
+                                      stderr=subprocess.STDOUT))
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.perf_counter() - t0 > 400:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    texts = []
+    for rank in range(2):
+        with open(os.path.join(runs, f"rank{rank}.log")) as f:
+            texts.append(f.read())
+    codes = [p.returncode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"parallel (d): exit codes {codes}\n" +
+                             "\n".join(t[-3000:] for t in texts))
+    names = [sorted(os.listdir(os.path.join(runs, f"root{r}"))) for r in range(2)]
+    if len(names[0]) != 1 or names[0] != names[1]:
+        raise AssertionError(f"parallel (d): run directories {names}")
+    run0, run1 = (os.path.join(runs, f"root{r}", names[0][0]) for r in range(2))
+    with open(os.path.join(run0, "scalars.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss_render"] for r in recs if r["split"] == "train"]
+    vals = [r for r in recs if r["split"] == "val"]
+    ckpts = sorted(os.listdir(os.path.join(run0, "models")))
+    rank1_files = sorted(os.listdir(run1))
+    epoch_lines = [re.findall(r"\[train\] epoch 1/1.*?loss:(\S+?),", t) for t in texts]
+    backends = [re.findall(r"backend (\w+) \(", t) for t in texts]
+    log(f"parallel (d): the training entry as 2 processes on the card: exit codes {codes} in "
+        f"{wall:.1f} s; rank 0 wrote {sorted(os.listdir(run0))}, checkpoints {ckpts}, train "
+        f"losses {[round(x, 6) for x in losses]}, {len(vals)} validation; rank 1 wrote "
+        f"{rank1_files}; backends {backends}; last loss logged by each rank {epoch_lines}")
+    if not (len(losses) == LOOP_STEPS and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"parallel (d): train losses {losses}")
+    if len(vals) != 1 or ckpts != ["ep1_it%d.ckpt" % LOOP_STEPS, "latest.ckpt"]:
+        raise AssertionError(f"parallel (d): validations {vals}, checkpoints {ckpts}")
+    if not os.path.isfile(os.path.join(run0, "options.json")) or rank1_files:
+        raise AssertionError(f"parallel (d): rank 1 wrote {rank1_files}")
+    if backends != [["gloo"], ["gloo"]]:
+        raise AssertionError(f"parallel (d): backends {backends}")
+    # the scalars hold the global loss: each rank logs the same last loss
+    # (`loss_train`, 3 digits), which is rank 0's last scalar
+    if not (epoch_lines[0] and epoch_lines[0] == epoch_lines[1]
+            and epoch_lines[0][0] == f"{losses[-1]:.3e}"):
+        raise AssertionError(f"parallel (d): last losses {epoch_lines} vs scalars {losses}")
+    return {"wall_s": wall, "losses": losses, "checkpoints": ckpts,
+            "validations": len(vals), "rank1_files": rank1_files}
+
+
+def parallel_phase(torch, dev, batch, seed, block_rgb, tree, counters):
+    """Phase 16: the parallel layer on the one card: (a) an NCCL world of
+    one, (b) and (c) two ranks sharing the card (gloo by the backend rule)
+    training and rendering, (d) the training entry as two processes."""
+    import torch.multiprocessing as mp
+
+    from matchnerf_tpu_torch.engine import Coach
+    from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {"nccl_world_1": nccl_world_of_one(torch, dev, batch, seed, counters)}
+    torch.cuda.empty_cache()
+
+    # (b) and (c): two spawned ranks on this card
+    work = os.path.join(REPO, "build", "chip_smoke_parallel")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(parallel_rank, args=(free_port(), seed, work), nprocs=2, join=True,
+                       start_method="spawn")
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
+        raise AssertionError(f"parallel (b): backends {[r['backend'] for r in ranks]} for "
+                             "two ranks on one card, expected gloo")
+    none = {k: 0 for k in counters}
+    musts = {"train": dict(none, window_attention=12, window_attention_bwd=12, cosine_prior=2,
+                           cosine_prior_bwd=2),
+             "train_fast": dict(none, window_attention=12, window_attention_bwd=12,
+                                block_cosine_prior_f32=2, block_cosine_prior_bwd=2)}
+    launches = {}
+    out["train"] = {}
+    for label, _ in PAR_RECIPES:
+        recs = [r["train"][label] for r in ranks]
+        cfg = train_recipe_cfg(label)
+        model = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev)
+        start = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        coach = Coach(cfg, model, dev)
+        coach.setup_optimizer(1000)
+        loss = float(coach.train_iteration(batch)["all"])
+        one = {"loss": loss, "grads": {n: p.grad.detach().cpu() for n, p in
+                                       model.named_parameters()},
+               "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+        lrs = {n: coach.opt.schedules["enc" if n.startswith("feat_enc") else "dec"](0)
+               for n in start}
+        first = torch.load(os.path.join(work, f"{label}_first_step.pt"), weights_only=False)
+        tol = (1e-2, 0.5, 0.1)                 # first_step_check's, the recipes' bf16 policy
+        loss_rel = abs(first["loss"] - loss) / abs(loss)
+        gerr = {n: float((first["grads"][n].double() - one["grads"][n].double()).norm())
+                for n in start}
+        floor = 1e-3 * max(float(g.double().norm()) for g in one["grads"].values())
+        gerr = {n: e / max(float(one["grads"][n].double().norm()), floor)
+                for n, e in gerr.items()}
+        worst = max(gerr, key=gerr.get)
+        med = float(np.median(list(gerr.values())))
+        uerr, held, bad, flips = step_agreement(torch, start, one, first, lrs)
+        uworst = max(uerr, key=uerr.get)
+        log(f"parallel (b) {label}.yaml: 2 ranks, mode {recs[0]['mode']}, route "
+            f"{recs[0]['route']}; losses rank 0 {[round(x, 6) for x in recs[0]['losses']]}, "
+            f"rank 1 {[round(x, 6) for x in recs[1]['losses']]}; seconds per step rank 0 "
+            f"{[round(x, 3) for x in recs[0]['s']]}, rank 1 {[round(x, 3) for x in recs[1]['s']]}"
+            f" ({card}; two ranks sharing one card say nothing about scaling); Kernel A / A' "
+            f"shapes rank 0 {recs[0]['attention_shapes']}, rank 1 {recs[1]['attention_shapes']}")
+        log(f"parallel (b) {label}.yaml: first step vs one process: loss {first['loss']:.7f} vs "
+            f"{loss:.7f} (rel {loss_rel:.3e}, tol {tol[0]}); averaged gradient error per tensor "
+            f"worst {gerr[worst]:.3e} ({worst}), median {med:.3e} (tol {tol[1]} / {tol[2]}); "
+            f"parameters: {held} entries where AdamW's update is lr*sign(g) in both, {bad} past "
+            f"1e-3 lr + 1e-6 |p|; gradient sign differs on {100 * flips:.4f} % of entries; "
+            f"update error per tensor worst {uerr[uworst]:.3e} ({uworst}), median "
+            f"{float(np.median(list(uerr.values()))):.3e}")
+        if recs[0]["mode"] != "rays" or recs[1]["mode"] != "rays":
+            raise AssertionError(f"parallel (b) {label}: modes {[r['mode'] for r in recs]}")
+        if recs[0]["losses"] != recs[1]["losses"] or recs[0]["param_sum"] != recs[1]["param_sum"]:
+            raise AssertionError(f"parallel (b) {label}: the ranks disagree: losses "
+                                 f"{[r['losses'] for r in recs]}, parameter sums "
+                                 f"{[r['param_sum'] for r in recs]}")
+        if not all(math.isfinite(x) for x in recs[0]["losses"]):
+            raise AssertionError(f"parallel (b) {label}: losses {recs[0]['losses']}")
+        if not (loss_rel <= tol[0] and gerr[worst] <= tol[1] and med <= tol[2] and bad == 0
+                and held > 0):
+            raise AssertionError(f"parallel (b) {label}: the first step disagrees with the "
+                                 "one-process step")
+        for rank, r in enumerate(recs):
+            for i, (l, pc) in enumerate(zip(r["launches"], r["plain"])):
+                for k, want in musts[label].items():
+                    if l[k] != want:
+                        raise AssertionError(f"parallel (b) {label} rank {rank} step {i}: {k} "
+                                             f"launched {l[k]} times, expected {want}")
+                if any(pc.values()):
+                    raise AssertionError(f"parallel (b) {label} rank {rank}: plain versions "
+                                         f"ran on CUDA: {pc}")
+        launches[f"{label}_{PAR_STEPS}_steps"] = [
+            {k: sum(l[k] for l in r["launches"]) for k in counters} for r in recs]
+        out["train"][label] = {
+            "losses": recs[0]["losses"], "step_s": [r["s"] for r in recs],
+            "route": recs[0]["route"],
+            "attention_shapes": [r["attention_shapes"] for r in recs], "first_step": {
+                "loss_rel": loss_rel, "grad_err_worst": gerr[worst],
+                "grad_err_worst_tensor": worst, "grad_err_median": med, "tol": list(tol),
+                "params_held": held, "params_past_bound": bad, "grad_sign_flips": flips,
+                "update_err_worst": uerr[uworst], "update_err_worst_tensor": uworst,
+                "update_err_median": float(np.median(list(uerr.values()))),
+                "one_process_loss": loss}}
+        del coach, model
+        torch.cuda.empty_cache()
+
+    # (c) the ray-sharded eval render against phase 4's
+    ev = [r["eval"] for r in ranks]
+    out["eval"] = {}
+    for key, must_equal in (("whole", True), ("sharded", False)):
+        a, b = ev[0][key], ev[1][key]
+        same = torch.equal(a["rgb"], b["rgb"]) and torch.equal(a["depth"], b["depth"])
+        vs4 = psnr(a["rgb"], block_rgb)
+        equal4 = torch.equal(a["rgb"], block_rgb)
+        log(f"parallel (c) eval, encoder streams {key} (shard_streams {a['shard_streams']}): "
+            f"2 ranks render phase 2's target in {a['s']:.3f} / {b['s']:.3f} s, route "
+            f"{a['route']}; ranks bit-equal {same}; vs phase 4's one-process render: bit-equal "
+            f"{equal4}, {vs4:.2f} dB; Kernel A shapes {a['attention_shapes']} / "
+            f"{b['attention_shapes']}; launches rank 0 {a['launches']}, rank 1 {b['launches']}"
+            f" ({card})")
+        if not same:
+            raise AssertionError(f"parallel (c) {key}: the ranks' images differ")
+        if a["shard_streams"] != (key == "sharded"):
+            raise AssertionError(f"parallel (c) {key}: shard_streams {a['shard_streams']}")
+        if must_equal and not equal4:
+            raise AssertionError("parallel (c): with the eval encoder whole the image must be "
+                                 "bit-equal to phase 4's")
+        if not vs4 >= 60.0:
+            raise AssertionError(f"parallel (c) {key}: {vs4:.2f} dB against phase 4 < 60")
+        if None in a["route"]["block_ut"] or a["route"]["color_ut"] is None:
+            raise AssertionError(f"parallel (c) {key}: route {a['route']}")
+        for rank, e in enumerate((a, b)):
+            for k in ("window_attention", "cond_nerf_decode", "block_cosine_prior",
+                      "supercell_color"):
+                if e["launches"][k] <= 0:
+                    raise AssertionError(f"parallel (c) {key} rank {rank}: {k} not launched")
+            if any(e["plain"].values()):
+                raise AssertionError(f"parallel (c) {key} rank {rank}: plain on CUDA")
+        launches[f"eval_streams_{key}"] = [a["launches"], b["launches"]]
+        out["eval"][key] = {"s": [a["s"], b["s"]], "psnr_vs_phase4_db": vs4,
+                            "bit_equal_phase4": equal4, "route": a["route"],
+                            "attention_shapes": [a["attention_shapes"], b["attention_shapes"]]}
+    out["ranks_s"] = ranks_s
+
+    # (d) the training entry as two processes
+    out["entry"] = parallel_entry(torch, tree, counters)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"parallel phase: {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2616,13 +3086,7 @@ def main():
         del feats, tables, grids
 
     # ---- 4. the block path (configs/test.yaml as shipped), 5. per-ray, 6. fused
-    counters = {"window_attention": ka.COUNTER, "cosine_prior": kb.COUNTER,
-                "cond_nerf_decode": kc.COUNTER, "block_cosine_prior": kd.COUNTER,
-                "supercell_color": ke.COUNTER, "fused_cosine": kf.COUNTER,
-                "window_attention_bwd": ka.BWD_COUNTER,
-                "cosine_prior_bwd": kb.BWD_COUNTER,
-                "block_cosine_prior_f32": kd.F32_COUNTER,
-                "block_cosine_prior_bwd": kd.BWD_COUNTER}
+    counters = kernel_counters()
     n_rays = H * W
 
     def drive(name, r, must_launch):
@@ -2662,6 +3126,7 @@ def main():
                             "supercell_color"])
     if None in renderer.last_route["block_ut"] or renderer.last_route["color_ut"] is None:
         raise AssertionError(f"block path route {renderer.last_route}")
+    block_rgb = out["rgb"].cpu()          # phase 16 (c) holds its ranks' images to it
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     plain_t = {}
     plain_out = plain_renderer.forward(batch, mode="test", timings=plain_t)
@@ -2798,6 +3263,12 @@ def main():
 
     # ---- 15. the render server (configs/test.yaml as shipped) over HTTP
     served = serve_phase(torch, dev, model, batch, counters)
+    torch.cuda.empty_cache()
+
+    # ---- 16. the parallel layer: an NCCL world of one, two ranks on the card
+    # (training and the ray-sharded render), the training entry as 2 processes
+    parallel = parallel_phase(torch, dev, batch, args.seed, block_rgb, loop.pop("tree"),
+                              counters)
 
     def per_scale(entries):
         return {"max_abs_err": max(e["max_abs_err"] for e in entries),
@@ -2870,6 +3341,7 @@ def main():
             f"{k}_image": v["kernel_device_ms"].get(name) for k, v in ibr["images"].items()}}}
 
     a_bwd = res["A_bwd"]
+    par_paths = {"nccl_world_1_train_step": None, **parallel["launches"]}
     report = {"kernels": [
         entry("window_attention", res["A_bfloat16"], block_launches["window_attention"],
               dict(eval_paths("window_attention"), **train_paths("window_attention"),
@@ -2945,7 +3417,16 @@ def main():
         "test_entry": test_entry,
         "train_ibrnet": {k: v for k, v in ibr.items()
                          if k not in ("A", "A_bwd", "B_bwd", "eval_slice")},
-        "serve": served}}
+        "serve": served,
+        "parallel": {k: v for k, v in parallel.items() if k != "launches"}}}
+    # each kernel's launches in each rank of phase 16, per path
+    for e in report["kernels"]:
+        name = e["name"].replace("_bf16", "")
+        if name in counters and not e["name"].endswith("_bf16"):
+            e["launches_by_path"]["parallel"] = {
+                path: (parallel["nccl_world_1"]["launches"][name] if ranks is None
+                       else [r[name] for r in ranks])
+                for path, ranks in par_paths.items()}
     if args.profile:
         report["profile"] = {"train": train["train"]["profile"],
                              "train_fast": train["train_fast"]["profile"],

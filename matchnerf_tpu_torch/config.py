@@ -43,6 +43,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .parallel import distributed as dist
 from .utils.containers import DotDict
 
 log = logging.getLogger(__name__)
@@ -386,12 +387,26 @@ def override_options(cfg: DotDict, over, key_stack=(), warn: bool = True) -> Dot
     return cfg
 
 
+def entry_config(argv: List[str], default: str):
+    """An entry's command line -> (config name, device, the config with its
+    overrides): `--config` names a CONFIGS entry (default `default`),
+    `--cpu` picks the CPU over the card."""
+    opts = parse_arguments(argv)
+    name = opts.pop("config", default)
+    if name not in CONFIGS:
+        raise SystemExit(f"unknown --config {name!r}; the port has {sorted(CONFIGS)}")
+    device = "cpu" if opts.pop("cpu", False) else "cuda"
+    return name, device, override_options(CONFIGS[name](), opts)
+
+
 def process_options(cfg: DotDict) -> DotDict:
     """The run's name and directory (config.py:98): a timestamp when no name
     is given; a name with `_debug` cuts the data to 20 / 1 / 1 samples and
     the run to 2 epochs; seed != 0 adds `_seed{seed}`, no seed a random
-    suffix; python's and numpy's global generators take the seed. Creates
-    `output_path` = <output_root>/<name> and writes the options there as
+    suffix; python's and numpy's global generators take the seed. Under
+    several processes every rank takes rank 0's name (config.py:159-173:
+    the timestamp and the random suffix differ per process). Creates
+    `output_path` = <output_root>/<name>; rank 0 writes the options there as
     options.json (the port reads no YAML) and the command to run.bash."""
     if cfg.get("name") is None:
         cfg.name = time.strftime("%b%d_%H%M%S").lower()
@@ -412,8 +427,12 @@ def process_options(cfg: DotDict) -> DotDict:
     else:
         cfg.name = f"{cfg.name}_" + "".join(random.choice(string.ascii_uppercase)
                                              for _ in range(4))
+    if dist.process_count() > 1:
+        cfg.name = dist.broadcast_str(str(cfg.name))
     cfg.output_path = os.path.join(str(cfg.get("output_root") or "outputs"), str(cfg.name))
     os.makedirs(cfg.output_path, exist_ok=True)
+    if not dist.is_main_process():
+        return cfg
     with open(os.path.join(cfg.output_path, "run.bash"), "a+") as f:
         f.write("python %s\n" % " ".join(sys.argv))
     with open(os.path.join(cfg.output_path, "options.json"), "w") as f:

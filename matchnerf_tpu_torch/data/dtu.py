@@ -120,14 +120,24 @@ class DTUDataset(MVSDatasetBase):
             depth = resize_nearest(depth, self.downSample)
         return depth
 
-    def __getitem__(self, idx):
-        scan, light_idx, target_view, src_views = self.metas[idx]
+    def _view_ids(self, idx):
+        """Sample idx's source views and target (the training split draws
+        its sources from the dataset's generator)."""
+        _, _, target_view, src_views = self.metas[idx]
         if self.permute_train_src and self.split == "train":
             ids = np.sort(self.rng.permutation(
                 self.n_views + self.n_add_train_views)[: self.n_views])
-            view_ids = [src_views[i] for i in ids] + [target_view]
-        else:
-            view_ids = [src_views[i] for i in range(self.n_views)] + [target_view]
+            return [src_views[i] for i in ids] + [target_view]
+        return [src_views[i] for i in range(self.n_views)] + [target_view]
+
+    def skip_sample(self, idx):
+        """The draws of sample idx without loading it (a sharded loader's
+        other shards)."""
+        self._view_ids(idx)
+
+    def __getitem__(self, idx):
+        scan, light_idx, target_view, _ = self.metas[idx]
+        view_ids = self._view_ids(idx)
 
         img_wh = np.round(np.array(self.img_wh) * self.downSample).astype("int")
         imgs = load_images([os.path.join(

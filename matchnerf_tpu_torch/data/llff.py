@@ -163,12 +163,18 @@ class IBRNetDataset(_LLFFBase):
     def get_name(self):
         return "ibrnet"
 
-    def __getitem__(self, idx):
-        scene, target_view, src_views = self.metas[idx]
+    def _view_ids(self, idx):
+        _, target_view, src_views = self.metas[idx]
         if self.split == "train":
             # 3 of the nearest 6, in rank order (ibrnet.py:204-205)
             ids = np.sort(self.rng.permutation(self.n_views + 3)[: self.n_views])
-            view_ids = [src_views[i] for i in ids] + [target_view]
-        else:
-            view_ids = src_views[: self.n_views] + [target_view]
-        return self._assemble(scene, view_ids)
+            return [src_views[i] for i in ids] + [target_view]
+        return src_views[: self.n_views] + [target_view]
+
+    def skip_sample(self, idx):
+        """The draws of sample idx without loading it (a sharded loader's
+        other shards)."""
+        self._view_ids(idx)
+
+    def __getitem__(self, idx):
+        return self._assemble(self.metas[idx][0], self._view_ids(idx))

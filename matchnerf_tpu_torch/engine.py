@@ -29,6 +29,20 @@ renders onto a white background) and `test_model_video` (a trajectory per
 batch, written as video: DTU and Blender interpolate between the source
 cameras, Blender onto white, LLFF takes the spiral, COLMAP its
 `render_path_mode`), with the JAX package's output names.
+
+Several ranks (`parallel/`; engine.py:51-178, :216-269): `parallel_plan`
+picks the mode from the config and the ranks (one card each) by the JAX
+rules: "batch" where the global batch divides over them (the training
+loader then gives each rank its chunk), "rays" where the batch is 1 and
+the rays divide (every rank loads the whole batch), else none.
+`setup_parallel` (in `setup_optimizer`) builds the step for that mode and
+splits the renders' rays; `setup_eval_parallel` (the eval entry) splits
+the renders' rays over every rank. After `restore_checkpoint_if_needed`
+every rank adopts rank 0's weights, optimizer state, epoch and iteration
+(`_sync_state_from_host0`), whether or not it could read the checkpoint.
+Rank 0 alone writes checkpoints, scalars, tensorboard, validation and
+test images, videos and metric files; every rank runs every render, since
+the renders gather across ranks.
 """
 from __future__ import annotations
 
@@ -50,6 +64,7 @@ from .metrics import EvalTools, summarize_metrics
 from .models.gmflow.gmflow import encoder_input_hw
 from .models.matchnerf import MatchNeRF, init_matchnerf
 from .ops.block_cosine_prior import takes_f32
+from .parallel import distributed as dist
 from .renderer import Renderer, extract_poses
 from .train_step import build_optimizer, make_train_step
 from .utils.checkpoint import CheckpointWriter, load_checkpoint, load_model_weights
@@ -59,6 +74,26 @@ from .utils.visualize import save_image, visualize_depth, write_gif, write_video
 from .weights import load_gmflow_pretrained
 
 log = logging.getLogger(__name__)
+
+
+def parallel_plan(cfg, n_ranks: int):
+    """(mode, n) from the config and n_ranks ranks of one card each
+    (engine.py:51 `_parallel_plan`, where devices are ranks x 1 card): mode
+    "batch" (the global batch splits over the ranks), "rays" (batch_size 1
+    recipes: the rays split), or None."""
+    n = int((cfg.get("parallel") or {}).get("data_parallel", -1) or -1)
+    n = n_ranks if n <= 0 else min(n, n_ranks)
+    if n_ranks > 1 and n != n_ranks:
+        log.warning("parallel.data_parallel=%d ignored under %d processes; using all %d "
+                    "devices", n, n_ranks, n_ranks)
+        n = n_ranks
+    bsz = int(cfg.batch_size)
+    n_rays = int((cfg.get("nerf") or {}).get("rand_rays_train") or 0) // max(bsz, 1)
+    if n > 1 and bsz % n == 0 and bsz % n_ranks == 0:
+        return "batch", n
+    if n > 1 and n_rays and n_rays % n == 0:
+        return "rays", n
+    return None, n
 
 
 class Coach:
@@ -91,6 +126,7 @@ class Coach:
         self.iter_start = 0
         self.opt = None
         self.step = None
+        self.parallel_mode: Optional[str] = None
         self.last_route: Optional[tuple] = None
         self._route_cache: Dict[bytes, Optional[tuple]] = {}
         self.train_loader: Optional[DataLoader] = None
@@ -105,10 +141,30 @@ class Coach:
 
     # ------------------------------ training --------------------------------
 
+    def setup_parallel(self):
+        """The parallel mode of the ranks (`parallel_plan`); under a mode the
+        renders split their rays over the ranks too (engine.py:141)."""
+        self.parallel_mode, n = parallel_plan(self.cfg, dist.process_count())
+        self.renderer.set_ray_sharding(self.parallel_mode is not None)
+        if self.parallel_mode is not None:
+            log.info("%s-parallel over %d ranks (backend %s)", self.parallel_mode, n,
+                     dist.backend())
+
+    def setup_eval_parallel(self):
+        """The eval entry's ray sharding over every rank (engine.py:160);
+        nothing with one rank or once training set a mode."""
+        n = dist.process_count()
+        if self.renderer.ray_shards > 1 or n <= 1:
+            return
+        self.renderer.set_ray_sharding(True)
+        log.info("eval ray sharding over %d ranks (backend %s)", n, dist.backend())
+
     def setup_optimizer(self, total_steps: Optional[int] = None):
-        """The optimizer and the step; total_steps defaults to the training
-        loader's length times max_epoch (engine.py:180)."""
+        """The optimizer and the step, for the ranks' parallel mode
+        (`setup_parallel`); total_steps defaults to the training loader's
+        length times max_epoch (engine.py:180)."""
         cfg = self.cfg
+        self.setup_parallel()
         if total_steps is None:
             if self.train_loader is None:
                 raise RuntimeError("load the training data first (or give total_steps)")
@@ -118,7 +174,8 @@ class Coach:
         self.train_hw = (int(H), int(W), n_rays)
         self.opt = build_optimizer(cfg, self.model, total_steps)
         self.step = make_train_step(cfg, self.model, self.opt, int(H), int(W), n_rays,
-                                    kernel=self.kernel, generator=self.generator)
+                                    kernel=self.kernel, generator=self.generator,
+                                    mode=self.parallel_mode)
         log.info("%s optimizer, lr_enc=%s, lr_dec=%s, %d total steps",
                  cfg.optim.algo.type, cfg.optim.lr_enc, cfg.optim.lr_dec, total_steps)
 
@@ -298,7 +355,10 @@ class Coach:
     def save_checkpoint_now(self, ep: int, it: int, backup_ckpt: bool = True,
                             async_write: bool = False):
         """`models/latest.ckpt` (+ `ep{ep}_it{it}.ckpt`, weights only) under
-        the output path (engine.py:235); async_write for the mid-epoch saves."""
+        the output path (engine.py:235); async_write for the mid-epoch saves.
+        Rank 0 alone writes (the ranks hold the same state)."""
+        if not dist.is_main_process():
+            return
         ckpt = {"model": self.model.state_dict()}
         if self.opt is not None:
             ckpt["optim"] = self.opt.state_dict()
@@ -311,8 +371,9 @@ class Coach:
 
     def setup_visualizer(self):
         """A tensorboard writer with cfg.tb where tensorboard is importable
-        (engine.py:251); scalars.jsonl is written either way."""
-        if self.cfg.get("tb"):
+        (engine.py:251); scalars.jsonl is written either way. Rank 0's
+        alone."""
+        if self.cfg.get("tb") and dist.is_main_process():
             try:
                 from torch.utils import tensorboard
             except ImportError:
@@ -322,7 +383,9 @@ class Coach:
 
     def log_scalars(self, loss=None, metric=None, lrates=None, step=0, split="train"):
         """One JSON line per call in scalars.jsonl, and the same scalars to
-        tensorboard (engine.py:260)."""
+        tensorboard (engine.py:260), by rank 0."""
+        if not dist.is_main_process():
+            return
         record = {"step": int(step), "split": split, "time": time.time()}
         for k, v in (loss or {}).items():
             if k != "all":
@@ -357,8 +420,12 @@ class Coach:
 
     def load_dataset(self, splits: List[str]):
         """The loaders of the data_train, data_val and every data_test block
-        (engine.py:81); the training loader shuffles per epoch."""
+        (engine.py:81); the training loader shuffles per epoch, and in
+        "batch" mode gives each rank its chunk of every batch."""
         seed = int(self.cfg.get("seed") or 0)
+        mode, _ = parallel_plan(self.cfg, dist.process_count())
+        shards = ((dist.process_count(), dist.process_index()) if mode == "batch"
+                  else (1, 0))
         for split in splits:
             if not self.cfg.get(f"data_{split}"):
                 continue
@@ -384,8 +451,10 @@ class Coach:
                     eval_mode=data_cfg.get("eval_mode", "mvsnerf"),
                     n_add_train_views=data_cfg.get("n_add_train_views", 2),
                     meta_dir=data_cfg.get("meta_dir"))
-                loader = DataLoader(dataset, int(self.cfg.batch_size),
-                                    shuffle=(split == "train"), seed=seed)
+                train = split == "train"
+                loader = DataLoader(dataset, int(self.cfg.batch_size), shuffle=train,
+                                    seed=seed, num_shards=shards[0] if train else 1,
+                                    shard_id=shards[1] if train else 0)
                 if split == "test":
                     self.test_loaders.append(loader)
                 else:
@@ -419,7 +488,12 @@ class Coach:
         none there: from scratch). Else the weights of `load`: a checkpoint
         of the port's, or a reference `.pth`: its "model" entry (or the
         whole file), "module." prefixes stripped, into the model with strict
-        key matching, the port's key names being the reference's."""
+        key matching, the port's key names being the reference's. Then every
+        rank adopts rank 0's state (`_sync_state_from_host0`)."""
+        self._restore()
+        self._sync_state_from_host0()
+
+    def _restore(self):
         path = self.cfg.get("load")
         if self.cfg.get("resume"):
             ckpt_path = os.path.join(self.output_path, "models", "latest.ckpt")
@@ -439,6 +513,21 @@ class Coach:
         log.info("loading weights from checkpoint %s", path)
         load_model_weights(self.model, path)
 
+    def _sync_state_from_host0(self):
+        """Every rank adopts rank 0's weights, optimizer and schedule state,
+        epoch and iteration (engine.py:216): on clusters without a shared
+        file system only rank 0 may see the checkpoint."""
+        if dist.process_count() == 1:
+            return
+        state = dist.broadcast_tree({
+            "model": self.model.state_dict(),
+            "optim": None if self.opt is None else self.opt.state_dict(),
+            "ep": int(self.epoch_start), "it": int(self.iter_start)})
+        self.model.load_state_dict(state["model"], strict=True)
+        if self.opt is not None:
+            self.opt.load_state_dict(state["optim"])
+        self.epoch_start, self.iter_start = state["ep"], state["it"]
+
     def _out_name(self, batch, b: int, ep=None, it=True) -> str:
         src_ids = "_".join(f"{x:02d}" for x in batch["view_ids"][b][: self.n_src_views])
         name = f"{batch['scene'][b]}_view{batch['view_ids'][b][-1]:02d}_src{src_ids}"
@@ -450,11 +539,14 @@ class Coach:
         """Render every validation view (mode "val"), save depth | pred | gt
         as `validation/{scene}_view{id}_it{iteration}.jpg` (PNG bytes), score
         it (DTU: pixels without depth masked) and log the mean metrics
-        (engine.py:504); returns the per-view metric lists."""
+        (engine.py:504); returns the per-view metric lists. Every rank
+        renders and scores; rank 0 writes."""
         if self.val_loader is None:
             raise RuntimeError("load the validation data first")
+        main = dist.is_main_process()
         out_dir = os.path.join(self.output_path, "validation")
-        os.makedirs(out_dir, exist_ok=True)
+        if main:
+            os.makedirs(out_dir, exist_ok=True)
         eval_tools = EvalTools()
         metrics: Dict[str, list] = {k: [] for k in eval_tools.support_metrics}
         dtu = self.val_loader.dataset.get_name().startswith("dtu")
@@ -473,9 +565,10 @@ class Coach:
                     [visualize_depth(pred_depth[b], minmax),
                      (pred_rgb[b] * 255).astype(np.uint8), (gt_rgb * 255).astype(np.uint8)],
                     axis=1)
-                save_image(os.path.join(out_dir, f"{batch['scene'][b]}_view"
-                                        f"{batch['view_ids'][b][-1]}_it{iteration}.jpg"),
-                           img_vis)
+                if main:
+                    save_image(os.path.join(out_dir, f"{batch['scene'][b]}_view"
+                                            f"{batch['view_ids'][b][-1]}_it{iteration}.jpg"),
+                               img_vis)
                 mask = None
                 if dtu:
                     if "depth" not in batch:
@@ -495,17 +588,18 @@ class Coach:
         image too), write `0results_{dataset}.txt` and log each dataset's
         mean metrics; returns the per-dataset metric lists. Blender's views
         render onto a white background (the renderer's `setbg_opaque`, set
-        for that set only)."""
+        for that set only). Every rank renders and scores; rank 0 writes."""
         cfg = self.cfg
+        main = dist.is_main_process()
         test_outroot = os.path.join(self.output_path, "test")
-        os.makedirs(test_outroot, exist_ok=True)
         eval_tools = EvalTools()
         metrics_dict: Dict[str, OrderedDict] = {}
         for data_loader in self.test_loaders:
             dataname = data_loader.dataset.get_name()
             metrics_dict[dataname] = OrderedDict()
             data_outdir = os.path.join(test_outroot, dataname)
-            os.makedirs(data_outdir, exist_ok=True)
+            if main:
+                os.makedirs(data_outdir, exist_ok=True)
             report_full = bool(((cfg.get("data_test") or {}).get(dataname) or {}).get(
                 "report_full_scores", False))
             self.renderer.setbg_opaque = dataname == "blender"
@@ -522,14 +616,14 @@ class Coach:
                     pred_u8 = (pred_rgb[b] * 255).astype(np.uint8)
                     gt_u8 = (gt_rgb * 255).astype(np.uint8)
                     out_name = self._out_name(batch, b, ep)
-                    if separate_save:
+                    if separate_save and main:
                         save_image(os.path.join(data_outdir, f"{out_name}_pred.png"), pred_u8)
                         save_image(os.path.join(data_outdir, f"{out_name}_gt.png"), gt_u8)
                         for s in range(self.n_src_views):
                             src_u8 = (np.asarray(batch["images"][b, s]) * 255).astype(np.uint8)
                             save_image(os.path.join(data_outdir, f"{out_name}_{s}_src.png"),
                                        src_u8)
-                    elif save_images:
+                    elif save_images and main:
                         if cfg.get("vis_depth"):
                             minmax = np.asarray(batch["near_fars"][b, -1]).tolist()
                             img_vis = np.concatenate(
@@ -543,7 +637,7 @@ class Coach:
                     metrics_dict[dataname][view] = eval_tools.get_metrics(
                         return_full=report_full)
             self.renderer.setbg_opaque = False
-        sum_dict = summarize_metrics(metrics_dict, test_outroot, ep=ep)
+        sum_dict = summarize_metrics(metrics_dict, test_outroot if main else None, ep=ep)
         for dataname, data_metric in sum_dict.items():
             avg = {k: float(np.nanmean(vv)) for k, v in data_metric.items()
                    if not np.all(np.isnan(vv := np.asarray(v, np.float64)))}
@@ -561,15 +655,17 @@ class Coach:
         interpolate between the source cameras, Blender onto white; LLFF
         takes the spiral around the train views; COLMAP the set's
         `render_path_mode`; any other set (T&T) raises. Returns the rendered
-        rgb of every batch element, [n_frames,H,W,3] f32 each."""
+        rgb of every batch element, [n_frames,H,W,3] f32 each. Every rank
+        renders (and returns); rank 0 writes."""
         cfg = self.cfg
+        main = dist.is_main_process()
         out_root = os.path.join(self.output_path, "test_videos")
-        os.makedirs(out_root, exist_ok=True)
         videos = []
         for data_loader in self.test_loaders:
             dataname = data_loader.dataset.get_name()
             data_outdir = os.path.join(out_root, dataname)
-            os.makedirs(data_outdir, exist_ok=True)
+            if main:
+                os.makedirs(data_outdir, exist_ok=True)
             self.renderer.setbg_opaque = dataname == "blender"
             if "dtu" in dataname or dataname == "blender":
                 mode = "interpolate"
@@ -590,6 +686,8 @@ class Coach:
                             .transpose(1, 0, 2, 3, 4))
                 for b in range(B):
                     videos.append(pred_rgb[b])
+                    if not main:
+                        continue
                     frames_u8 = [(pred_rgb[b, f] * 255).astype(np.uint8)
                                  for f in range(n_frames)]
                     out_name = self._out_name(batch, b, ep, it=False)

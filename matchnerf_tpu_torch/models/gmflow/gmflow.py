@@ -10,6 +10,15 @@ upsampled scale) as the JAX package does.
 bf16 policy (gmflow.py:110-114,195-196): with compute_dtype=bfloat16 the
 weights are cast per call (ops/nn.py) and activations run in bf16, norm and
 softmax statistics in f32, and the outputs are cast back to f32.
+
+Stream sharding (gmflow.py:78-150 `stream_sharding`): with shard_streams
+and several ranks, each rank runs the backbone on its share of the B*V view
+streams and the transformer and upsampler on its share of the B*P*2
+pair-side streams (`parallel.mesh.stream_rows`: contiguous, an uneven
+share padded); the features are gathered after the backbone, after every
+transformer block (cross-attention reads each stream's partner) and after
+the upsampler, with a gradient (`parallel.mesh.gather_rows`). The
+math is per stream, so every rank ends with the unsharded features.
 """
 from __future__ import annotations
 
@@ -17,6 +26,8 @@ import torch
 from torch import nn
 
 from ...ops.attention import shift_region_ids
+from ...parallel import distributed as dist
+from ...parallel import mesh
 from ...ops.cosine_prior import pair_index_lists
 from ...ops.posenc import sine_position_embedding_2d
 from ...ops.resize import resize_bilinear_align_corners
@@ -72,11 +83,13 @@ def _add_position(feat: torch.Tensor, attn_splits: int, channels: int):
 
 def extract_pair_features(enc: GMFlow, images: torch.Tensor, attn_splits_list,
                           n_views: int, wo_self_attn: bool = False,
-                          compute_dtype=None, kernel: bool = True, remat: bool = False):
+                          compute_dtype=None, kernel: bool = True, remat: bool = False,
+                          shard_streams: bool = False):
     """images [B,V,H,W,3] in [0,1] -> list over scales of [B,P,2,h,w,C] f32.
 
     kernel=False runs the plain window attention even on CUDA tensors;
-    remat recomputes each transformer layer in the backward."""
+    remat recomputes each transformer layer in the backward; shard_streams
+    splits the streams over the ranks (module docstring)."""
     b, v, img_h, img_w, _ = images.shape
     assert v == n_views
     pairs = pair_index_lists(n_views)
@@ -95,7 +108,12 @@ def extract_pair_features(enc: GMFlow, images: torch.Tensor, attn_splits_list,
     net_in = net_in.permute(0, 3, 1, 2).contiguous()
     if cd is not None:
         net_in = net_in.to(cd)
-    feat = enc.backbone(net_in)                                   # [BV,C,h,w]
+    shard_streams = shard_streams and dist.process_count() > 1
+    if shard_streams:
+        feat = mesh.gather_rows(
+            enc.backbone(net_in[mesh.stream_rows(b * v, net_in.device)]), b * v)
+    else:
+        feat = enc.backbone(net_in)                               # [BV,C,h,w]
     _, _, h, w = feat.shape
     feat = feat.permute(0, 2, 3, 1).reshape(b, v, h, w, C)
 
@@ -109,11 +127,18 @@ def extract_pair_features(enc: GMFlow, images: torch.Tensor, attn_splits_list,
         feat1 = _add_position(feat[:, idx1].reshape(b * n_pairs, h, w, C), attn_splits, C)
         rid = shift_region_ids(h, w, attn_splits, device=feat.device)
         feat0, feat1 = enc.transformer(feat0, feat1, attn_splits, region_ids=rid,
-                                       wo_self_attn=wo_self_attn, kernel=kernel, remat=remat)
+                                       wo_self_attn=wo_self_attn, kernel=kernel, remat=remat,
+                                       shard_streams=shard_streams)
         out_scales.append(torch.stack([feat0, feat1], dim=1)
                           .reshape(b, n_pairs, 2, h, w, C))
         merged = torch.cat([feat0, feat1], dim=0).permute(0, 3, 1, 2)
-        up = enc.featup_net(merged).permute(0, 2, 3, 1)
+        if shard_streams:
+            n = merged.shape[0]
+            up = mesh.gather_rows(
+                enc.featup_net(merged[mesh.stream_rows(n, merged.device)]), n)
+        else:
+            up = enc.featup_net(merged)
+        up = up.permute(0, 2, 3, 1)
         up0, up1 = torch.chunk(up, 2, dim=0)
         uh, uw = up0.shape[1:3]
         out_scales.append(torch.stack([up0, up1], dim=1)

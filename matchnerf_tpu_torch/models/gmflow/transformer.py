@@ -10,6 +10,9 @@ swapped after every block (transformer.py:94-139). With `remat`
 the layer from its inputs (its window attention through A''s forward
 once more) instead of keeping its activations, as the JAX
 package's `jax.checkpoint` of each layer does (transformer.py:122-126).
+With `shard_streams` each rank runs the blocks on its share of the stacked
+streams (`parallel.mesh.stream_rows`) and gathers them after every block,
+where the partner half is swapped.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from ...ops.attention import split_window_attention
 from ...ops.nn import Activation, Linear
 from ...ops.norm import LayerNorm
+from ...parallel import mesh
 
 
 class TransformerLayer(nn.Module):
@@ -73,14 +77,19 @@ class FeatureTransformer(nn.Module):
             [TransformerBlock(d_model, ffn_dim_expansion) for _ in range(num_layers)])
 
     def forward(self, feature0, feature1, num_splits: int, region_ids=None,
-                wo_self_attn: bool = False, kernel: bool = True, remat: bool = False):
+                wo_self_attn: bool = False, kernel: bool = True, remat: bool = False,
+                shard_streams: bool = False):
         """feature0/feature1: [B,h,w,C] paired views -> enhanced pair.
         region_ids: `ops.attention.shift_region_ids(h, w, num_splits)`."""
         b, h, w, c = feature0.shape
         f0 = feature0.reshape(b, h * w, c)
         f1 = feature1.reshape(b, h * w, c)
-        concat0 = torch.cat([f0, f1], dim=0)
+        full = torch.cat([f0, f1], dim=0)
         concat1 = torch.cat([f1, f0], dim=0)
+        rows = mesh.stream_rows(2 * b, full.device) if shard_streams else None
+        concat0 = full
+        if rows is not None:
+            concat0, concat1 = concat0[rows], concat1[rows]
         remat = remat and torch.is_grad_enabled()
 
         def attn(layer, source, target, with_shift):
@@ -95,7 +104,10 @@ class FeatureTransformer(nn.Module):
             if not wo_self_attn:
                 concat0 = attn(layer.self_attn, concat0, concat0, with_shift)
             concat0 = attn(layer.cross_attn_ffn, concat0, concat1, with_shift)
-            half0, half1 = torch.chunk(concat0, 2, dim=0)
+            full = concat0 if rows is None else mesh.gather_rows(concat0, 2 * b)
+            half0, half1 = torch.chunk(full, 2, dim=0)
             concat1 = torch.cat([half1, half0], dim=0)
-        f0, f1 = torch.chunk(concat0, 2, dim=0)
+            if rows is not None:
+                concat1 = concat1[rows]
+        f0, f1 = torch.chunk(full, 2, dim=0)
         return f0.reshape(b, h, w, c), f1.reshape(b, h, w, c)

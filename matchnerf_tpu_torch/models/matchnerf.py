@@ -68,18 +68,20 @@ def _precision_get(cfg, key, default=None):
 
 
 def encode(model: MatchNeRF, cfg, ref_images: torch.Tensor,
-           kernel: bool = True) -> List[torch.Tensor]:
+           kernel: bool = True, shard_streams: bool = False) -> List[torch.Tensor]:
     """ref_images [B,V,H,W,3] in [0,1] -> per-scale [B,P,2,h,w,C] f32
     (matchnerf.py:47); precision.encoder_compute_dtype picks bf16,
     precision.remat_encoder recomputes the transformer layers in the
-    backward."""
+    backward; shard_streams splits the encoder's streams over the ranks
+    (`gmflow.extract_pair_features`; the JAX `stream_sharding`)."""
     cd_name = _precision_get(cfg, "encoder_compute_dtype")
     cd = torch.bfloat16 if str(cd_name) in ("bf16", "bfloat16") else None
     return extract_pair_features(
         model.feat_enc, ref_images, list(cfg.encoder.attn_splits_list),
         n_views=cfg.n_src_views, wo_self_attn=cfg.encoder.wo_self_attn,
         compute_dtype=cd, kernel=kernel,
-        remat=bool(_precision_get(cfg, "remat_encoder", False)))
+        remat=bool(_precision_get(cfg, "remat_encoder", False)),
+        shard_streams=shard_streams)
 
 
 def sample_depth(cfg, near_far: torch.Tensor, batch_size: int, num_rays: int,

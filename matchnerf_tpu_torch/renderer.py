@@ -25,6 +25,17 @@ the pose's route.
 trajectory of `nerf.video_n_frames` target poses (interpolated between the
 source cameras, or an LLFF spiral) from one encode and one table build,
 one `render_by_slices` per frame (renderer.py:689-757).
+
+Several ranks (`set_ray_sharding`; renderer.py:202-247, :596-685): every
+rank encodes (with parallel.shard_encoder_streams_eval, on by default and
+off under precision.strict, each its share of the encoder's streams,
+gathered), builds the tables and measures the pose over the whole image,
+so the route is the same everywhere; each slice's R rays (R rounded up to a
+multiple of the ranks, the last slice padded with the last pixel) are split
+into contiguous R / n shares, each rank renders its share of every slice,
+and the rgb, depth and opacity are gathered so that every rank holds the
+image. The block route needs (R / n) % 8 == 0; where that fails the
+per-ray route takes the pose, with the JAX package's log line.
 """
 from __future__ import annotations
 
@@ -40,6 +51,8 @@ from .models.matchnerf import (MatchNeRF, encode, prepare_sampling_tables,
                                project_to_views, render_rays, sample_depth)
 from .ops.block_cosine_prior import BLOCK_RAYS, block_union_max, bucket_ut
 from .ops.supercell_color import bucket_color_ut, color_union_max
+from .parallel import distributed as dist
+from .parallel import mesh
 from .utils.containers import effective_precision
 
 log = logging.getLogger(__name__)
@@ -124,13 +137,28 @@ class Renderer:
         self.setbg_opaque = False
         self.last_route: Optional[Dict] = None
         self.frame_routes: List[Dict] = []
+        self.ray_shards = 1
+
+    def set_ray_sharding(self, on: bool = True):
+        """Split every render's rays (and, as configured, the encoder's
+        streams) over the ranks of the process group (the JAX `set_mesh`)."""
+        self.ray_shards = dist.process_count() if on else 1
 
     def tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
+    def shard_streams(self) -> bool:
+        """parallel.shard_encoder_streams_eval under ray sharding, never
+        with precision.strict (renderer.py:227-240)."""
+        par = self.cfg.get("parallel") or {}
+        strict = bool(effective_precision(self.cfg).get("strict", False))
+        return (self.ray_shards > 1 and bool(par.get("shard_encoder_streams_eval", False))
+                and not strict)
+
     @torch.no_grad()
     def encode(self, ref_images: torch.Tensor) -> List[torch.Tensor]:
-        return encode(self.model, self.cfg, ref_images, kernel=self.kernel)
+        return encode(self.model, self.cfg, ref_images, kernel=self.kernel,
+                      shard_streams=self.shard_streams())
 
     @torch.no_grad()
     def build_tables(self, ref_images: torch.Tensor, pair_feats) -> dict:
@@ -238,9 +266,13 @@ class Renderer:
                                          img_h, img_w, timings) for b in range(B)]
             return {k: torch.cat([o[k] for o in per], dim=0) for k in per[0]}
         R = self.rays_per_slice(B)
+        n = self.ray_shards
+        if n > 1:
+            R = max(-(-R // n) * n, n)
+        share = R // n
         block_ut = color_ut = None
         if block:
-            if R % BLOCK_RAYS == 0:
+            if share % BLOCK_RAYS == 0:
                 # slices start at multiples of R, so their 8-ray blocks are
                 # the absolute 8-pixel partition that pose_prep measured
                 scale_hws = [(v.shape[2], v.shape[3]) for v in tables["view_feats"]]
@@ -253,6 +285,9 @@ class Renderer:
                                             + time.perf_counter() - t0)
                 log.info("block path route: block_ut %s (None: Kernel B), "
                          "color_ut %s (None: colour gather)", block_ut, color_ut)
+            elif n > 1:
+                log.info("block kernel unavailable (ray shard %d not %d-aligned); falling "
+                         "back to the per-ray banded/direct path", share, BLOCK_RAYS)
             else:
                 log.info("block kernels unavailable (ray slice %d not %d-aligned); "
                          "Kernel B and the colour gather take the pose", R, BLOCK_RAYS)
@@ -261,17 +296,43 @@ class Renderer:
                                  device=self.device)
         tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = self._pose_tensors(poses)
         fused = fused_cosine(cfg)
+        n_pix = img_h * img_w
+        if n > 1:
+            # every slice padded to R rays with the last pixel; this rank's
+            # contiguous share of each
+            n_slices = -(-n_pix // R)
+            idx = torch.clamp_max(torch.arange(n_slices * R, device=self.device), n_pix - 1)
+            rank = dist.process_index()
+            starts = [s * R + rank * share for s in range(n_slices)]
+            pixels = [grid[idx[s0:s0 + share]] for s0 in starts]
+        else:
+            pixels = [grid[s0:s0 + R] for s0 in range(0, n_pix, R)]
         outs: Dict[str, list] = {}
-        for s0 in range(0, img_h * img_w, R):
-            pix = grid[s0:s0 + R][None].expand(B, -1, 2)
-            ret = render_rays(self.model, cfg, pix, tgt_intr, c2w, tgt_nf,
-                              ref_w2c, ref_intr, ref_nf, tables, img_h, img_w,
+        for pix in pixels:
+            ret = render_rays(self.model, cfg, pix[None].expand(B, -1, 2), tgt_intr, c2w,
+                              tgt_nf, ref_w2c, ref_intr, ref_nf, tables, img_h, img_w,
                               kernel=self.kernel, block_ut=block_ut,
                               color_ut=color_ut, fused_cosine=fused,
                               setbg_opaque=self.setbg_opaque)
             for k, v in ret.items():
                 outs.setdefault(k, []).append(v)
-        return {k: torch.cat(v, dim=1) for k, v in outs.items()}
+        if n == 1:
+            return {k: torch.cat(v, dim=1) for k, v in outs.items()}
+        return self._gather_shares(outs, n, len(pixels), share, n_pix)
+
+    @staticmethod
+    def _gather_shares(outs: Dict[str, list], n: int, n_slices: int, share: int,
+                       n_pix: int) -> Dict[str, torch.Tensor]:
+        """Every rank's [B, share, c] outputs of every slice -> [B, n_pix, c]
+        on every rank (one gather of all keys; slice-major, rank order)."""
+        keys = list(outs)
+        widths = [outs[k][0].shape[-1] for k in keys]
+        local = torch.stack([torch.cat([outs[k][s] for k in keys], dim=-1)
+                             for s in range(n_slices)])          # [slices, B, share, c]
+        full = mesh.gather_rows(local[None], n)                  # [n, slices, B, share, c]
+        B, c = local.shape[1], local.shape[-1]
+        full = full.permute(2, 1, 0, 3, 4).reshape(B, n_slices * n * share, c)[:, :n_pix]
+        return {k: v.contiguous() for k, v in zip(keys, torch.split(full, widths, dim=-1))}
 
     def get_video_rendering_path(self, poses, mode: str, n_frames: int,
                                  batch: Optional[Dict] = None) -> List[Dict]:

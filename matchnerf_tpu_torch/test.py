@@ -18,6 +18,8 @@ weights, `--data_test.llff=` leaves a test set out). A set's
 (`Coach.test_model`), under `<output_root>/<name>/`. It runs on the card
 unless given `--cpu`. T&T's images are JPEGs, which only PIL decodes here:
 where PIL is not installed, leave that set out with `--data_test.tnt=`.
+Several processes as `python -m matchnerf_tpu_torch.train` runs them (its
+docstring): each rank renders its share of every slice's rays.
 """
 from __future__ import annotations
 
@@ -27,22 +29,30 @@ from typing import List, Optional
 
 
 def main(argv: Optional[List[str]] = None):
-    from .config import CONFIGS, override_options, parse_arguments
+    """Render. With no cluster configured and parallel.data_parallel asking
+    for several of this host's cards (-1, the default: all), one worker per
+    card is spawned; under several ranks each renders its share of every
+    slice's rays (`Coach.setup_eval_parallel`) and rank 0 writes."""
+    from .config import entry_config
     from .engine import Coach
+    from .parallel import distributed as dist
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
-    opts = parse_arguments(sys.argv[1:] if argv is None else argv)
-    name = opts.pop("config", "demo_own")
-    if name not in CONFIGS:
-        raise SystemExit(f"unknown --config {name!r}; the port has {sorted(CONFIGS)}")
-    device = "cpu" if opts.pop("cpu", False) else "cuda"
-    cfg = override_options(CONFIGS[name](), opts)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    name, device, cfg = entry_config(argv, "demo_own")
+    n = 1 if device == "cpu" else dist.local_workers(cfg)
+    if n > 1:
+        dist.spawn(main, n, argv)
+        return None
+    dist.maybe_initialize(cfg, device)
     coach = Coach(cfg, device=device)
-    logging.getLogger(__name__).info("config %s on %s, output %s", name, device,
-                                     coach.output_path)
+    logging.getLogger(__name__).info("config %s on %s, output %s (rank %d of %d)", name,
+                                     device, coach.output_path, dist.process_index(),
+                                     dist.process_count())
     coach.load_dataset(["test"])
     coach.build_networks()
     coach.restore_checkpoint_if_needed()
+    coach.setup_eval_parallel()
     if cfg.nerf.get("render_video"):
         return coach.test_model_video()
     return coach.test_model(save_images=True, separate_save=bool(cfg.get("separate_save")))

@@ -24,6 +24,21 @@ from the seed). The run writes under
 `ep{E}_it{I}.ckpt` (weights), `validation/`, `test/`, `scalars.jsonl` and
 `options.json`. `--resume` continues the run of that name from its
 `latest.ckpt`. It runs on the card unless given `--cpu`.
+
+Several processes: `parallel.data_parallel` (-1: every visible card) spawns
+one worker per card of this host. A cluster is set by `--parallel.*` or by
+the variables MATCHNERF_COORDINATOR_ADDRESS (host:port of rank 0),
+MATCHNERF_NUM_PROCESSES, MATCHNERF_PROCESS_ID and MATCHNERF_LOCAL_DEVICE_IDS
+(the rank's card), or MATCHNERF_MULTIHOST=1 with torchrun's variables; two
+ranks on the CPU:
+
+    MATCHNERF_COORDINATOR_ADDRESS=127.0.0.1:29500 MATCHNERF_NUM_PROCESSES=2 \
+    MATCHNERF_PROCESS_ID=0 python -m matchnerf_tpu_torch.train --cpu ... &
+    MATCHNERF_COORDINATOR_ADDRESS=127.0.0.1:29500 MATCHNERF_NUM_PROCESSES=2 \
+    MATCHNERF_PROCESS_ID=1 python -m matchnerf_tpu_torch.train --cpu ...
+
+(without --cpu, the same runs two ranks on the card(s)). Rank 0 writes the
+run's files; the ranks share `parallel_plan`'s mode (engine.py).
 """
 from __future__ import annotations
 
@@ -34,21 +49,21 @@ from typing import List, Optional
 
 def build_coach(argv: Optional[List[str]] = None):
     """Everything `main` does before training, in train.py's order: the
-    config with its overrides and run directory, the train, val and test
-    loaders, the model, the optimizer, the checkpoint to resume or load and
-    the visualizer. Returns the `engine.Coach`."""
-    from .config import CONFIGS, override_options, parse_arguments, process_options
+    config with its overrides, the process group where one is configured
+    (`parallel.distributed.maybe_initialize`, before the run is named), the
+    run directory, the train, val and test loaders, the model, the
+    optimizer, the checkpoint to resume or load (every rank then holding
+    rank 0's state) and the visualizer. Returns the `engine.Coach`."""
+    from .config import entry_config, process_options
     from .engine import Coach
+    from .parallel import distributed as dist
 
-    opts = parse_arguments(sys.argv[1:] if argv is None else argv)
-    name = opts.pop("config", "train")
-    if name not in CONFIGS:
-        raise SystemExit(f"unknown --config {name!r}; the port has {sorted(CONFIGS)}")
-    device = "cpu" if opts.pop("cpu", False) else "cuda"
-    cfg = override_options(CONFIGS[name](), opts)
+    name, device, cfg = entry_config(sys.argv[1:] if argv is None else argv, "train")
+    dist.maybe_initialize(cfg, device)
     process_options(cfg)
-    logging.getLogger(__name__).info("config %s on %s, output %s", name, device,
-                                     cfg.output_path)
+    logging.getLogger(__name__).info("config %s on %s, output %s (rank %d of %d)", name,
+                                     device, cfg.output_path, dist.process_index(),
+                                     dist.process_count())
     coach = Coach(cfg, device=device)
     coach.load_dataset(["train", "val", "test"])
     coach.build_networks()
@@ -59,7 +74,19 @@ def build_coach(argv: Optional[List[str]] = None):
 
 
 def main(argv: Optional[List[str]] = None):
+    """Train. With no cluster configured and parallel.data_parallel asking
+    for several of this host's cards (-1, the default: all), one worker per
+    card is spawned, each a rank of a rendezvous on 127.0.0.1."""
+    from .config import entry_config
+    from .parallel import distributed as dist
+
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    _, device, cfg = entry_config(argv, "train")
+    n = 1 if device == "cpu" else dist.local_workers(cfg)
+    if n > 1:
+        dist.spawn(main, n, argv)
+        return None
     coach = build_coach(argv)
     coach.train_model()
     return coach

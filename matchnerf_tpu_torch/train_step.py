@@ -24,6 +24,19 @@ encoder group.
   are a permutation of the H*W pixels (or, under nerf.train_ray_patches, of
   the (H*W)/8 8-pixel strips) drawn from a torch.Generator on the device,
   which also draws the stratified depth jitter.
+
+Several ranks (`parallel/`; train_step.py:89-135): mode "rays" (batch_size
+1, every shipped recipe) gives each rank the whole batch and its contiguous
+n_rays / n share of the rays: every rank draws the global ray indices and
+depth jitter from its identically seeded generator, so the generators stay
+in step, and keeps its share (under train_ray_patches, whole 8-pixel
+strips); with parallel.shard_encoder_streams each rank also runs its share
+of the encoder's streams. Mode "batch" gives each rank its chunk of the
+global batch (the loader's shard); the per-sample jitter of the global
+batch is drawn whole and sliced. Whenever a process group is up, the
+gradients are averaged over the ranks after the backward, before the
+encoder clip and the update (the JAX psum before clip_by_global_norm), and
+the step returns the global loss.
 """
 from __future__ import annotations
 
@@ -34,6 +47,8 @@ import numpy as np
 import torch
 
 from .models.matchnerf import MatchNeRF, encode, prepare_sampling_tables, render_rays
+from .parallel import distributed as dist
+from .parallel import mesh
 
 STRIP = 8                      # pixels per strip under nerf.train_ray_patches
 
@@ -171,12 +186,16 @@ class TrainStep:
     `engine.Coach`); `ray_idx` [n_rays] and `depth_rand` [B,n_rays,S,1]
     replace the generator's draws (tests feed the JAX draws through them).
     kernel=False runs every kernel's plain version (the all-plain
-    reference on the card)."""
+    reference on the card). `mode` is the parallel mode ("rays", "batch"
+    or None; module docstring); the draws fed in are the global ones
+    (ray_idx [n_rays], depth_rand [B * ranks in batch mode, n_rays, S, 1])
+    and the step takes the rank's share of them."""
 
     def __init__(self, cfg, model: MatchNeRF, opt: TrainOptimizer, img_h: int, img_w: int,
                  n_rays: int, kernel: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mode: Optional[str] = None):
         self.cfg, self.model, self.opt = cfg, model, opt
+        self.mode = mode
         self.img_h, self.img_w, self.n_rays = img_h, img_w, n_rays
         self.kernel = kernel
         self.generator = generator
@@ -189,6 +208,16 @@ class TrainStep:
             raise NotImplementedError(f"train_ray_sampler {sampler!r} is not ported")
         if self.patches and n_rays % STRIP:
             raise ValueError(f"patch sampling needs n_rays divisible by {STRIP}")
+        par = cfg.get("parallel") or {}
+        self.shard_streams = mode == "rays" and bool(par.get("shard_encoder_streams", True))
+        if mode == "rays":
+            n = dist.process_count()
+            if n_rays % n:
+                raise ValueError(f"ray-sharded training needs n_rays ({n_rays}) divisible "
+                                 f"by the ranks ({n})")
+            if self.patches and (n_rays // n) % STRIP:
+                raise ValueError(f"a rank's share of {n_rays // n} rays is not whole "
+                                 f"{STRIP}-pixel strips")
 
     def loss(self, batch: Dict[str, torch.Tensor], block_ut: Optional[tuple] = None,
              ray_idx: Optional[torch.Tensor] = None,
@@ -198,11 +227,24 @@ class TrainStep:
         V = cfg.n_src_views
         B = images.shape[0]
         ref_images = images[:, :V]
-        pair_feats = encode(self.model, cfg, ref_images, kernel=self.kernel)
+        pair_feats = encode(self.model, cfg, ref_images, kernel=self.kernel,
+                            shard_streams=self.shard_streams)
         tables = prepare_sampling_tables(cfg, pair_feats, ref_images)
         if ray_idx is None:
             ray_idx = sample_ray_indices(H * W, self.n_rays, self.patches, images.device,
                                          self.generator)
+        if self.mode is not None:
+            n_batch = B * dist.process_count() if self.mode == "batch" else B
+            if depth_rand is None and self.stratified:
+                depth_rand = torch.rand((n_batch, self.n_rays, cfg.nerf.sample_intvs, 1),
+                                        generator=self.generator, dtype=torch.float32,
+                                        device=images.device)
+            if self.mode == "rays":
+                share = mesh.chunk(self.n_rays)
+                ray_idx = ray_idx[share]
+                depth_rand = None if depth_rand is None else depth_rand[:, share]
+            elif depth_rand is not None:
+                depth_rand = depth_rand[mesh.chunk(n_batch)]
         off = 0.0 if cfg.nerf.legacy_coord else 0.5
         pix = torch.stack([(ray_idx % W).float() + off,
                            torch.div(ray_idx, W, rounding_mode="floor").float() + off], -1)
@@ -225,11 +267,17 @@ class TrainStep:
         self.opt.zero_grad()
         loss, mse = self.loss(batch, block_ut, ray_idx, depth_rand)
         loss.backward()
+        parts = torch.stack([mse.detach(), loss.detach()])
+        if dist.is_initialized():
+            mesh.average_gradients(self.model.parameters())
+            if dist.process_count() > 1:
+                mesh.all_reduce_mean(parts)
         self.opt.step()
-        return {"render": mse.detach(), "all": loss.detach()}
+        return {"render": parts[0], "all": parts[1]}
 
 
 def make_train_step(cfg, model: MatchNeRF, opt: TrainOptimizer, img_h: int, img_w: int,
                     n_rays: int, kernel: bool = True,
-                    generator: Optional[torch.Generator] = None) -> TrainStep:
-    return TrainStep(cfg, model, opt, img_h, img_w, n_rays, kernel, generator)
+                    generator: Optional[torch.Generator] = None,
+                    mode: Optional[str] = None) -> TrainStep:
+    return TrainStep(cfg, model, opt, img_h, img_w, n_rays, kernel, generator, mode)

@@ -271,8 +271,8 @@ def test_chip_smoke_config_matches_yaml(variant):
 
 
 def test_port_imports_without_jax_yaml_pil():
-    """Every module of the port (the training step and engine included)
-    imports with jax, yaml, PIL and the JAX package blocked, and
+    """Every module of the port (the training step, engine and parallel
+    layer included) imports with jax, yaml, PIL and the JAX package blocked, and
     chip_smoke.py names no file or module of the JAX package."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -283,7 +283,7 @@ def test_port_imports_without_jax_yaml_pil():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "for m in ('renderer', 'train_step', 'engine', 'score_preds', 'data.llff',\n"
-        "          'data.blender', 'data.tnt'):\n"
+        "          'data.blender', 'data.tnt', 'parallel.distributed', 'parallel.mesh'):\n"
         "    assert 'matchnerf_tpu_torch.' + m in names, m\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'yaml', 'PIL', 'matchnerf_tpu')\n"
