@@ -6,19 +6,22 @@ configs/test_video_own.yaml, the training step and the training loop
 (`python -m matchnerf_tpu_torch.train`) of configs/train.yaml and
 configs/train_fast.yaml, the eval entry (`python -m
 matchnerf_tpu_torch.test`) of configs/test.yaml, test_video.yaml and
-test_strict.yaml over DTU, LLFF and Blender test sets, and the training
-entry of configs/train_ibrnet.yaml at 1008x756, and the render server
-(`python -m matchnerf_tpu_torch.serve`) over HTTP, and the parallel layer
-(process groups of one and two ranks, the training entry as 2 processes),
-on one NVIDIA card, through the hand-written CUDA kernels.
+test_strict.yaml over DTU, LLFF, Blender and T&T test sets, and the
+training entry of configs/train_ibrnet.yaml at 1008x756, and the render
+server (`python -m matchnerf_tpu_torch.serve`) over HTTP, and the parallel
+layer (process groups of one and two ranks, the training entry as 2
+processes), on one NVIDIA card, through the hand-written CUDA kernels; the
+images (the in-repo printer scene's JPEGs, the T&T tree's) decode and
+resize on the host without PIL.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
 Phases, any failure ends the run with a non-zero exit:
 1. device: requires CUDA; prints the card (nvidia-smi name, power limit),
-   torch and CUDA versions; builds the kernels from csrc/ (nvcc) and prints
-   the build time. TF32 is switched off for matmuls and cuDNN, so every f32
-   comparison is full f32.
+   torch and CUDA versions; builds the host library csrc/image_io.cpp (the
+   host C++ compiler: the JPEG decoder and the resampler), then the kernels
+   from csrc/ (nvcc), and prints both build times. TF32 is switched
+   off for matmuls and cuDNN, so every f32 comparison is full f32.
 2. scene: 4 cameras on an arc around the port's numpy raytracer scene
    (matchnerf_tpu_torch/data/synth.py), 640x512 images with DTU-like
    intrinsics and near/far; the model at full width (6 transformer layers,
@@ -75,14 +78,16 @@ Phases, any failure ends the run with a non-zero exit:
    of it and nothing else) and through the plain encoder, features within
    1e-4 (of the largest, at least 1), encode seconds of both.
 7. video, configs/demo_own.yaml with precision.fused_cosine (the IBR
-   decoder variant, S=128) at 256x160 on 3 source cameras of the synthetic
-   scene: `Coach.test_model_video` renders the 24 frames of the interpolate
-   path and writes them under build/chip_smoke/. A, C and F must launch (E
+   decoder variant, S=128) at 256x160 on the in-repo printer scene
+   (docs/demo_data, the COLMAP loader): first each printer JPEG decoded and
+   resized to 256x160 by the port, held to PIL's sha256 of it
+   (PRINTER_SHA256); then `Coach.test_model_video` renders the 24 frames of
+   the interpolate path and writes them under build/chip_smoke/. A, C and F must launch (E
    on the frames whose colour union fits its bucket), B and D not, no plain
    version on CUDA; frames finite with rgb in [0,1]; frame 0 must agree
    with the all-plain frame at >= 50 dB. Prints frames/s and rays/s.
 8. video, configs/test_video_own.yaml (S=256, 5012-ray slices) at 960x640
-   on the synthetic scene (the card cannot decode the printer JPEGs): 3
+   on the printer scene (its JPEGs resized to 960x640 with LANCZOS): 3
    frames; A, B (2 per slice) and C (1 per slice) must launch and nothing
    else, no plain version on CUDA; frames finite with rgb in [0,1]; the
    first 2 slices of frame 0 must agree with all-plain at >= 50 dB.
@@ -134,10 +139,12 @@ Phases, any failure ends the run with a non-zero exit:
    at the epoch's last. Steps per second (outside the hooks), validation
    seconds and peak memory are printed with the card's name and limit.
 13. the eval entry: synthetic DTU (640x512), LLFF (960x640, eval_mode
-   mvsnerf, forward-facing cameras) and Blender (800x800, RGBA with a real
-   alpha) test trees, one target view each, written by data/synth.py with
+   mvsnerf, forward-facing cameras), Blender (800x800, RGBA with a real
+   alpha) and T&T (5 views as 1920x1056 4:2:0 JPEGs of the port's encoder,
+   written by a process started after the kernel build; loaded at 960x640)
+   test trees, one target view each, written by data/synth.py with
    their own meta dirs; then `matchnerf_tpu_torch.test.main(["--config",
-   "test", "--load=", "--data_test.tnt=", ...])` in this process at full
+   "test", "--load=", ...])` in this process at full
    width (6 transformer layers, decoder 128 x 6, S=128, seeded weights):
    per set A, C, D and E must launch (B too where a scale's union
    overflows its bucket, printed with the pose and scale), Kernel C with
@@ -146,14 +153,14 @@ Phases, any failure ends the run with a non-zero exit:
    all-plain render, the JAX package's output files; the render seconds,
    rays/s, route per scale, launches, and each eval kernel's device ms and
    launches in one more (profiled) render of the set (Kernel A's windows
-   are L = 1280, 2400 and 2500 tokens; D's scale-1 tables 160x128,
-   240x160 and 200x200 cells). Then `--config test_video` (3 frames) on
+   are L = 1280, 2400, 2500 and 2400 tokens; D's scale-1 tables 160x128,
+   240x160, 200x200 and 240x160 cells). Then `--config test_video` (3 frames) on
    the LLFF tree (the spiral) and the Blender tree (interpolated, white
    background), frame 0 >= 50 dB against all-plain; then `--config
    test_strict` on the DTU tree: Kernel A's f32 route (12 launches), the
    cond query and decoder in torch ops (their plain versions on CUDA, as
    precision.strict asks), finite, its PSNR against the shipped-config
-   render printed. The T&T set is left out: its JPEGs need PIL.
+   render printed.
 14. configs/train_ibrnet.yaml: a synthetic IBRNet tree (two groups of one
    scene, 8 forward-facing views each, PNGs at 1008x756) and an LLFF tree
    of its second scene, written by a process started after the kernel
@@ -169,7 +176,8 @@ Phases, any failure ends the run with a non-zero exit:
    23552), A 12, C 94, D 188 on bf16 tables (or B where a scale
    overflows), E 94 launches, the first 2 slices >= 50 dB against
    all-plain, each kernel's device ms; C, D and E on one 23552-ray slice
-   and B' on the 96x128 / 192x256 f32 tables against their plain twins;
+   (on the weights before the steps, the same in every run) and B' on the
+   96x128 / 192x256 f32 tables against their plain twins;
    the first step against all-plain (bf16-policy tolerances) and the warm
    step's ms, peak memory and launches with remat_encoder off and on (24
    A launches a step with it); A and A' bf16 at [96,768,128], unmasked and
@@ -189,9 +197,13 @@ Phases, any failure ends the run with a non-zero exit:
    concurrent /render requests bit-equal to the serial ones; DELETE (200,
    then 404) back to the device memory before the scene; 3 more scenes:
    the first evicted (404 on /render, its tensors freed), the level before
-   them again once the others are deleted. Prints /scenes seconds, each
-   /render's round trip, render and pose_prep seconds, frames/s of each
-   path, peak memory, with the card's name and power limit.
+   them again once the others are deleted. Then tools/serve_smoke.py's
+   printer run: the printer scene at 512x384 through the port's COLMAP
+   loader, POST /scenes with its 3 source views (Kernel A), one /render at
+   its target view (Kernel C) bit-equal to the direct render, DELETE.
+   Prints /scenes seconds, each /render's round trip, render and pose_prep
+   seconds, frames/s of each path, peak memory, with the card's name and
+   power limit.
 16. the parallel layer (matchnerf_tpu_torch/parallel/) at full width and
    640x512: (a) a process group of one rank on the card, which the backend
    rule must give NCCL, and one configs/train.yaml step through the
@@ -217,6 +229,12 @@ Phases, any failure ends the run with a non-zero exit:
    0's scalars hold 4 finite losses and the last is the loss both ranks
    log. Seconds per step and per render print beside the card's name and
    power limit; two ranks sharing one card say nothing about scaling.
+17. the host's image I/O (no PIL: data/jpeg.py, data/resample.py): ms per
+   decode of a printer JPEG and of encoder-made JPEGs (`seeded_photo`, 4:2:0,
+   quality 95) at 1920x1056 and 4032x3024, ms per LANCZOS and per BILINEAR
+   resize of each to 960x640 (means of 5 calls), the T&T loader's seconds
+   per sample on phase 13's tree, and the decoded 1920x1056 JPEG held to
+   PIL's sha256 of it (ROUNDTRIP_SHA256), with the card's name and limit.
 Every launch count is reset just before a path (a step, in 10 and 11; a
 training run and a validation image, in 12; each test set's render, in
 13; the training run, each image and the timed steps, in 14; each served
@@ -263,10 +281,44 @@ OWN_PLAIN_SLICES = 2               # slices of its frame 0 held to all-plain
 LOOP_STEPS = 4                     # training steps per recipe in the loop phase
 PREEMPT_STEPS = 8                  # steps of the run that is sent SIGTERM
 PROFILE_PAD_S = 0.005              # idle host seconds at each end of a kernel trace
+# the in-repo demo scene (configs/demo_own.yaml): 3 baseline 4:2:0 JPEGs at
+# 504x378, resized to 256x160 with LANCZOS; sha256 of each decoded uint8
+# image and of it resized, as PIL gives them (tests/test_torch_image_io.py)
+PRINTER_DIR = os.path.join(REPO, "docs", "demo_data", "printer", "images")
+PRINTER_WH = (256, 160)
+PRINTER_SHA256 = {
+    "0.jpeg": ("a0edc9f82a41400d7dfc22eeb8abcc541ebe7e135a704ee01f818be83f73fe5e",
+               "9ec07d8522b795785ca79e2ff3aad5f5be8f937064d95c0279231b54e6863972"),
+    "1.jpeg": ("f705715eff8277e97415a263ef777880acf7d059cd177919629db64f6f744b51",
+               "6063ab3b232b2d4a857e108bd93c1a903348b665ab798f130de94f61520e2146"),
+    "2.jpeg": ("da3ec1825d20314ec21b9e2711ab592c66d04870a53e66966380be5275539d66",
+               "8d2b4bc96ea96bafa528cb66d9d8bbc1b4c3e19bff5be8240a6a45750d3a343d"),
+}
+# decode(encode_jpeg(seeded_photo(1920, 1056), quality 95)), as PIL decodes it
+ROUNDTRIP_WH = (1920, 1056)
+ROUNDTRIP_SHA256 = "1380d86de3744f0826d4e0ca1422b65d1ccadf63aff0c678b6fab6dd50c28549"
+TNT_JPEG_WH = (1920, 1056)         # the T&T tree's JPEGs; configs/test.yaml loads 960x640
+HOST_IO_WH = ((1920, 1056), (4032, 3024))   # encoder-made JPEGs timed in the host phase
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def seeded_photo(w, h, seed=0):
+    """A [h, w, 3] uint8 image in integer arithmetic only (the same bytes on
+    every machine): bilinear between random colours 32 pixels apart, plus
+    uniform noise in [-6, 6], like a photo's smooth areas and grain."""
+    rng = np.random.default_rng(seed)
+    cell = 32
+    low = rng.integers(0, 256, (h // cell + 2, w // cell + 2, 3)).astype(np.int64)
+    y, x = np.arange(h), np.arange(w)
+    y0, fy = y // cell, (y % cell)[:, None, None]
+    x0, fx = x // cell, (x % cell)[None, :, None]
+    top = low[y0][:, x0] * (cell - fx) + low[y0][:, x0 + 1] * fx
+    bottom = low[y0 + 1][:, x0] * (cell - fx) + low[y0 + 1][:, x0 + 1] * fx
+    img = (top * (cell - fy) + bottom * fy + cell * cell // 2) // (cell * cell)
+    return np.clip(img + rng.integers(-6, 7, img.shape), 0, 255).astype(np.uint8)
 
 
 def card_line():
@@ -981,19 +1033,30 @@ def bf16_kernel_phase(torch, cfg, feats, ref_images, grids, block_ut, res):
     torch.cuda.empty_cache()
 
 
-def make_video_sample(seed, img_w, img_h):
-    """The synthetic scene as a COLMAP-style sample: 3 source cameras and a
-    target, near/far by the demo's nf_mode minmax."""
-    from matchnerf_tpu_torch.data import synth
-    from matchnerf_tpu_torch.data.common import make_near_fars
-    rng = np.random.default_rng(seed + 5)
-    eyes = [np.asarray(e) + rng.uniform(-0.02, 0.02, 3) for e in synth.DEFAULT_EYES]
-    views = synth.make_scene_views(img_w, img_h, eyes=eyes)
-    return {"images": views["images"], "extrinsics": views["w2cs"],
-            "intrinsics": views["intrinsics"],
-            "near_fars": make_near_fars(list(views["near_fars"]), 4, "minmax"),
-            "view_ids": np.arange(4), "scene": "synth",
-            "img_wh": np.array([img_w, img_h]), "c2ws_all": views["c2ws"][:3]}
+def printer_check():
+    """The printer JPEGs of the in-repo demo scene decoded and resized to
+    configs/demo_own.yaml's 256x160 by the port (no PIL), each held to its
+    sha256 as PIL gives it (PRINTER_SHA256) -> {file: ms of decode, resize}."""
+    import hashlib
+
+    from matchnerf_tpu_torch.data import jpeg, resample
+    out = {}
+    for name, (want_decoded, want_resized) in sorted(PRINTER_SHA256.items()):
+        t0 = time.perf_counter()
+        img = jpeg.read_jpeg(os.path.join(PRINTER_DIR, name))
+        t1 = time.perf_counter()
+        small = resample.resize(img, PRINTER_WH, "lanczos")
+        t2 = time.perf_counter()
+        got = (hashlib.sha256(img.tobytes()).hexdigest(),
+               hashlib.sha256(small.tobytes()).hexdigest())
+        if img.shape != (378, 504, 3) or got != (want_decoded, want_resized):
+            raise AssertionError(f"printer {name}: decoded {img.shape} sha256 {got}, expected "
+                                 f"{(want_decoded, want_resized)} (PIL's)")
+        out[name] = {"decode_ms": (t1 - t0) * 1e3, "resize_ms": (t2 - t1) * 1e3}
+    log(f"printer scene: {len(out)} JPEGs decoded (504x378, 4:2:0) and resized to "
+        f"{PRINTER_WH[0]}x{PRINTER_WH[1]} (LANCZOS) by the port, each equal to PIL's "
+        f"(sha256); ms {out}")
+    return out
 
 
 def plain_frame0(cfg, model, dev, batch, n_slices=None, mode="interpolate", setbg=False):
@@ -1011,33 +1074,26 @@ def plain_frame0(cfg, model, dev, batch, n_slices=None, mode="interpolate", setb
 
 def video_phase(torch, dev, seed, counters, profile, name, n_frames, plain_slices=None):
     """Phases 7 and 8: `Coach.test_model_video` of configs/<name>.yaml on the
-    synthetic scene (demo_own with the fused cosine); launches counted
-    around it; frame 0 (its first plain_slices ray slices, if given) against
-    the all-plain render."""
+    in-repo printer scene (docs/demo_data, the COLMAP loader; demo_own with
+    the fused cosine), seeded weights; launches counted around it; frame 0
+    (its first plain_slices ray slices, if given) against the all-plain
+    render."""
     from matchnerf_tpu_torch.config import CONFIGS
-    from matchnerf_tpu_torch.data.loader import DataLoader, collate
+    from matchnerf_tpu_torch.data.loader import collate
     from matchnerf_tpu_torch.engine import Coach
     cfg = CONFIGS[name]()
     fused = name == "demo_own"
     cfg.precision.fused_cosine = fused
     cfg.load = None
+    cfg.seed = seed
     cfg.nerf.video_n_frames = n_frames
     cfg.output_root = os.path.join(REPO, "build", "chip_smoke")
+    cfg.data_test.colmap.root_dir = os.path.join(REPO, "docs", "demo_data")
     vw, vh = cfg.data_test.colmap.img_wh
-    sample = make_video_sample(seed, vw, vh)
-
-    class SceneSet:
-        def __len__(self):
-            return 1
-
-        def __getitem__(self, i):
-            return sample
-
-        def get_name(self):
-            return "colmap"
 
     coach = Coach(cfg, device=dev)
-    coach.test_loaders = [DataLoader(SceneSet())]
+    coach.load_dataset(["test"])          # the printer scene through the COLMAP loader
+    sample = coach.test_loaders[0].dataset[0]
     coach.build_networks()
     coach.restore_checkpoint_if_needed()
     for c in counters.values():
@@ -1326,7 +1382,7 @@ def loop_phase(torch, dev, counters):
     return out
 
 
-EVAL_SETS = {"dtu": (640, 512), "llff": (960, 640), "blender": (800, 800)}
+EVAL_SETS = {"dtu": (640, 512), "llff": (960, 640), "blender": (800, 800), "tnt": (960, 640)}
 ENTRY_FRAMES = 3                   # frames of the test_video runs of phase 13
 # the device kernels of the eval path, by the start of their __global__'s name
 KERNEL_NAMES = {"window_attention": "window_attention_fwd", "cosine_prior": "cosine_prior_kernel",
@@ -1353,19 +1409,24 @@ def kernel_device_ms(torch, fn):
     return out
 
 
+def entry_set_args(name, root, meta):
+    return [f"--data_test.{name}.root_dir={root}", f"--data_test.{name}.meta_dir={meta}",
+            f"--data_test.{name}.max_len=1"]
+
+
 def write_eval_trees(work):
     """Synthetic DTU (640x512), LLFF (960x640) and Blender (800x800) test
     trees, one target view each, with their own meta dirs -> the entry's
-    --data_test.<set>.root_dir / meta_dir arguments per set."""
+    --data_test.<set>.root_dir / meta_dir arguments per set (T&T's tree
+    comes from `write_host_jpegs`)."""
     from matchnerf_tpu_torch.data import synth
     writers = {"dtu": synth.write_dtu_scene, "llff": synth.write_llff_tree,
                "blender": synth.write_blender_tree}
     args = {}
-    for name, (w, h) in EVAL_SETS.items():
+    for name, write in writers.items():
         root, meta = os.path.join(work, name), os.path.join(work, f"{name}_meta")
-        writers[name](root, meta, w, h)
-        args[name] = [f"--data_test.{name}.root_dir={root}",
-                      f"--data_test.{name}.meta_dir={meta}", f"--data_test.{name}.max_len=1"]
+        write(root, meta, *EVAL_SETS[name])
+        args[name] = entry_set_args(name, root, meta)
     return args
 
 
@@ -1429,12 +1490,14 @@ def check_entry_record(name, rec, must, label):
                              f"{float(rgb.max())}")
 
 
-def eval_entry_phase(torch, dev, seed):
+def eval_entry_phase(torch, dev, seed, host_jpegs):
     """Phase 13: `python -m matchnerf_tpu_torch.test --config test` (its
-    `main`, in this process, on the card) over synthetic DTU, LLFF and
-    Blender test trees at configs/test.yaml's sizes, full width, seeded
+    `main`, in this process, on the card) over synthetic DTU, LLFF, Blender
+    and T&T test trees, at configs/test.yaml's sizes (T&T's 1920x1056 JPEGs
+    decoded and resized to 960x640 without PIL), full width, seeded
     weights; then `--config test_video` (3 frames) on the LLFF and Blender
-    trees and `--config test_strict` on the DTU tree."""
+    trees and `--config test_strict` on the DTU tree. `host_jpegs` is the
+    future of `write_host_jpegs`."""
     import tempfile
 
     from matchnerf_tpu_torch.ops import block_cosine_prior as kd
@@ -1451,14 +1514,18 @@ def eval_entry_phase(torch, dev, seed):
     work = tempfile.mkdtemp(prefix="chip_smoke_eval_", dir=os.path.join(REPO, "build"))
     t0 = time.perf_counter()
     trees = write_eval_trees(work)
+    tnt_root, tnt_meta, _, jpeg_s = host_jpegs.result()
+    trees["tnt"] = entry_set_args("tnt", tnt_root, tnt_meta)
     log(f"eval entry: synthetic test trees {EVAL_SETS} (one target view each) in "
-        f"{time.perf_counter() - t0:.1f} s under {work}")
+        f"{time.perf_counter() - t0:.1f} s under {work}; T&T's {TNT_JPEG_WH[0]}x"
+        f"{TNT_JPEG_WH[1]} JPEGs (the port's encoder) under {tnt_root}, written in {jpeg_s:.1f} "
+        "s beside the earlier phases")
     runs = os.path.join(work, "runs")
-    common = ["--load=", f"--output_root={runs}", f"--seed={seed}", "--data_test.tnt="]
+    common = ["--load=", f"--output_root={runs}", f"--seed={seed}"]
     card = card_line()
     out = {"sets": {}, "card": card}
 
-    # configs/test.yaml: DTU, LLFF and Blender
+    # configs/test.yaml: DTU, LLFF, Blender and T&T
     argv = ["--config", "test", "--name=test", *common] + sum(trees.values(), [])
     t0 = time.perf_counter()
     sums, records = run_entry(torch, counters, argv)
@@ -1517,13 +1584,15 @@ def eval_entry_phase(torch, dev, seed):
         if not agreement >= 50.0:
             raise AssertionError(f"eval entry {name}: agreement PSNR {agreement:.2f} dB < 50")
     out["wall_s"] = wall
+    out["tnt_tree"] = [tnt_root, tnt_meta]
     dtu_rgb = records[0]["out"]["rgb"]
     del records
     torch.cuda.empty_cache()
 
     # configs/test_video.yaml: the LLFF spiral and Blender's interpolated path
     argv = (["--config", "test_video", "--name=test_video", *common, "--data_test.dtu=",
-             f"--nerf.video_n_frames={ENTRY_FRAMES}"] + trees["llff"] + trees["blender"])
+             "--data_test.tnt=", f"--nerf.video_n_frames={ENTRY_FRAMES}"]
+            + trees["llff"] + trees["blender"])
     videos, records = run_entry(torch, counters, argv)
     out["video"] = {}
     for name, rec, video in zip(("llff", "blender"), records, videos):
@@ -1551,7 +1620,7 @@ def eval_entry_phase(torch, dev, seed):
     # configs/test_strict.yaml on the DTU tree: Kernel A's f32 route, the cond
     # query and the decoder in torch ops (precision.strict)
     argv = (["--config", "test_strict", "--name=test_strict", *common, "--data_test.llff=",
-             "--data_test.blender="] + trees["dtu"])
+             "--data_test.blender=", "--data_test.tnt="] + trees["dtu"])
     _, records = run_entry(torch, counters, argv)
     rec = records[0]
     rgb = rec["out"]["rgb"]
@@ -1605,6 +1674,35 @@ def start_ibrnet_trees():
     work = tempfile.mkdtemp(prefix="chip_smoke_ibrnet_", dir=os.path.join(REPO, "build"))
     pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
     return pool, pool.submit(write_ibrnet_trees, work)
+
+
+def write_host_jpegs(work):
+    """Phase 13's T&T tree (5 views at TNT_JPEG_WH, 4:2:0 JPEGs of the
+    port's encoder, no PIL) and phase 17's encoder-made JPEGs of
+    `seeded_photo` at HOST_IO_WH, under `work` -> (T&T root, its meta dir,
+    {"WxH": JPEG path}, seconds)."""
+    from matchnerf_tpu_torch.data import synth
+    t0 = time.perf_counter()
+    root, meta = os.path.join(work, "tnt"), os.path.join(work, "tnt_meta")
+    synth.write_tnt_tree(root, meta, *TNT_JPEG_WH)
+    photos = {}
+    for w, h in HOST_IO_WH:
+        photos[f"{w}x{h}"] = os.path.join(work, f"photo_{w}x{h}.jpg")
+        with open(photos[f"{w}x{h}"], "wb") as f:
+            f.write(synth.encode_jpeg(seeded_photo(w, h), 95))
+    return root, meta, photos, time.perf_counter() - t0
+
+
+def start_host_jpegs():
+    """`write_host_jpegs` in one spawned process while the phases before 13
+    run -> (the process pool, the future). The caller shuts the pool down."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_jpeg_", dir=os.path.join(REPO, "build"))
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(write_host_jpegs, work)
 
 
 def write_gmflow_checkpoint(torch, cfg, seed, path):
@@ -1881,7 +1979,8 @@ def ibrnet_phase(torch, F, dev, seed, counters, trees):
     eval kernels' device ms; the first-step check with and without remat,
     the warm step's ms and peak memory with and without remat; A and A' at
     [96,768,128], B' at the 96x128 and 192x256 f32 tables, and C, D and E
-    on a 23552-ray slice, each against its plain twin. `trees` is the
+    on a 23552-ray slice, each against its plain twin (C, D and E on the
+    weights before the steps, the same in every run). `trees` is the
     future of `write_ibrnet_trees` (`start_ibrnet_trees`)."""
     t_phase = time.perf_counter()
     from matchnerf_tpu_torch.config import ibrnet_train_config
@@ -1920,6 +2019,11 @@ def ibrnet_phase(torch, F, dev, seed, counters, trees):
         f"from the seed {kept}")
     if not (loaded and kept):
         raise AssertionError("train_ibrnet: the GMFlow encoder init did not load as it should")
+    # C, D and E against their plain twins on the weights before the steps:
+    # these are the same in every run, while the trained ones differ from run
+    # to run through the backward's atomic sums
+    out["eval_slice"] = ibrnet_eval_slice(torch, dev, coach.cfg, coach.renderer,
+                                          next(iter(coach.val_loader)))
 
     # the run: sanity validation and test, the steps, validation, test, checkpoint
     timed = {"validate_s": [], "test_s": []}
@@ -2054,9 +2158,7 @@ def ibrnet_phase(torch, F, dev, seed, counters, trees):
                                              for k, (ms, n) in kms.items()}}
         del renders, rendered, ref
     out["images"] = images
-    val_batch = next(iter(coach.val_loader))
     train_batch = next(iter(coach.train_loader))
-    out["eval_slice"] = ibrnet_eval_slice(torch, dev, coach.cfg, renderer, val_batch)
     out["B_bwd"] = ibrnet_train_tables(torch, dev, coach.cfg, coach.model, train_batch, seed)
     del coach
     torch.cuda.empty_cache()
@@ -2168,6 +2270,65 @@ def tree_tensors(x):
     if isinstance(x, (list, tuple)):
         return [t for v in x for t in tree_tensors(v)]
     return [x] if hasattr(x, "element_size") else []
+
+
+SERVE_PRINTER_WH = (512, 384)      # tools/serve_smoke.py's default --img_wh
+
+
+def serve_printer(request, svc, counters, served):
+    """The port-side twin of tools/serve_smoke.py's printer run: the in-repo
+    printer scene through the port's COLMAP loader at 512x384 (its JPEGs
+    decoded without PIL), POST /scenes with its 3 source views, one POST
+    /render at its target view, bit-equal to a direct render of the stored
+    tables, then DELETE. `request` counts each request's launches into
+    `served`."""
+    from matchnerf_tpu_torch.data.colmap import COLMAPDataset
+    from matchnerf_tpu_torch.serve import decode_array, encode_array
+    pw, ph = SERVE_PRINTER_WH
+    t0 = time.perf_counter()
+    ps = COLMAPDataset(os.path.join(REPO, "docs", "demo_data"), "test", n_views=3,
+                       img_wh=SERVE_PRINTER_WH, scene_list=["printer"])[0]
+    load_s = time.perf_counter() - t0
+    before = dict(served)
+    body, scenes_s = request("POST", "/scenes", {k: encode_array(ps[k][:3]) for k in (
+        "images", "extrinsics", "intrinsics", "near_fars")})
+    sid = body["scene_id"]
+    scene_launches = {k: served[k] - before[k] for k in served}
+    sc = svc.scenes[sid]
+    pose = {k: ps[k][3][None] for k in ("extrinsics", "intrinsics", "near_fars")}
+    before = dict(served)
+    body, render_s = request("POST", "/render", {
+        "scene_id": sid, "extrinsic": encode_array(ps["extrinsics"][3]),
+        "intrinsic": encode_array(ps["intrinsics"][3]),
+        "near_far": encode_array(ps["near_fars"][3]), "out_dtype": "float32"})
+    render_launches = {k: served[k] - before[k] for k in served}
+    rgb, depth = decode_array(body["rgb"]), decode_array(body["depth"])
+    with svc.device_lock:
+        o = svc.renderer.render_by_slices({"tgt": dict(pose, extrinsics=pose["extrinsics"][:, :3]),
+                                           "ref": sc["ref"]}, sc["tables"], ph, pw)
+        want_rgb = o["rgb"].reshape(ph, pw, 3).float().cpu().numpy()
+        want_depth = o["depth"].reshape(ph, pw).float().cpu().numpy()
+    del sc, o
+    request("DELETE", f"/scenes/{sid}")
+    if rgb.shape != (ph, pw, 3) or not (np.isfinite(rgb).all() and np.isfinite(depth).all()):
+        raise AssertionError(f"serve printer /render: {rgb.shape}, finite "
+                             f"{np.isfinite(rgb).all()} {np.isfinite(depth).all()}")
+    if not (np.array_equal(rgb, want_rgb) and np.array_equal(depth, want_depth)):
+        raise AssertionError(f"serve printer /render: not bit-equal to the direct render (max|d| "
+                             f"rgb {np.abs(rgb - want_rgb).max():.3e})")
+    for k, n in (("window_attention", scene_launches["window_attention"]),
+                 ("cond_nerf_decode", render_launches["cond_nerf_decode"])):
+        if n <= 0:
+            raise AssertionError(f"serve printer: kernel {k} was not launched: /scenes "
+                                 f"{scene_launches}, /render {render_launches}")
+    out = {"img_wh": [pw, ph], "load_s": load_s, "scenes_s": scenes_s, "render_s": render_s,
+           "route": dict(svc.renderer.last_route), "scenes_launches": scene_launches,
+           "render_launches": render_launches, "rgb_mean": float(rgb.mean())}
+    log(f"serve printer (docs/demo_data, COLMAP loader, {pw}x{ph}, tools/serve_smoke.py's run): "
+        f"loaded in {load_s:.4f} s, /scenes {scenes_s:.4f} s (launches {scene_launches}), "
+        f"/render at the target view {render_s:.4f} s, route {out['route']}, launches "
+        f"{render_launches}; bit-equal to the direct render, rgb mean {out['rgb_mean']:.4f}")
+    return out
 
 
 def serve_phase(torch, dev, model, batch, counters):
@@ -2379,6 +2540,7 @@ def serve_phase(torch, dev, model, batch, counters):
                         ("after DELETE of the first scene", out["mem_after_delete_mib"] * MIB)):
             if abs(d) > MIB:
                 raise AssertionError(f"serve: device memory {name}: {d / MIB:.3f} MiB (> 1)")
+        out["printer"] = serve_printer(request, svc, counters, served)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     finally:
         httpd.shutdown()
@@ -2395,6 +2557,74 @@ def serve_phase(torch, dev, model, batch, counters):
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"serve: launches of the served requests {served}; peak device memory "
         f"{out['peak_gib']:.2f} GiB; phase {out['phase_s']:.1f} s ({card})")
+    return out
+
+
+HOST_IO_OUT_WH = (960, 640)        # configs/test.yaml's T&T and LLFF img_wh
+HOST_IO_REPEATS = 5                # timed calls per decode or resize
+
+
+def host_io_phase(tnt_tree, photos):
+    """Phase 17: the host's image I/O without PIL (data/jpeg.py,
+    data/resample.py in the host library): ms per decode of a printer JPEG
+    and of the encoder-made JPEGs at HOST_IO_WH, ms per LANCZOS and
+    BILINEAR resize of each to 960x640, the T&T loader's seconds per sample
+    (phase 13's tree: 4 JPEGs decoded and resized), and the decoded
+    1920x1056 JPEG held to PIL's sha256 of it (ROUNDTRIP_SHA256)."""
+    import hashlib
+    import importlib.util
+
+    from matchnerf_tpu_torch.data import jpeg, resample
+    from matchnerf_tpu_torch.data.common import LOAD_THREADS
+    from matchnerf_tpu_torch.data.tnt import TNTDataset
+    card = card_line()
+    out = {"card": card, "pil_installed": importlib.util.find_spec("PIL") is not None,
+           "repeats": HOST_IO_REPEATS, "images": {}}
+
+    def timed(fn):
+        fn()                                         # warm: caches, the thread pool
+        t0 = time.perf_counter()
+        for _ in range(HOST_IO_REPEATS):
+            r = fn()
+        return r, (time.perf_counter() - t0) / HOST_IO_REPEATS * 1e3
+
+    files = {"printer_504x378": os.path.join(PRINTER_DIR, "0.jpeg"),
+             **{f"photo_{k}": v for k, v in photos.items()}}
+    for label, path in files.items():
+        with open(path, "rb") as f:
+            data = f.read()
+        img, decode_ms = timed(lambda: jpeg.decode_jpeg(data, path))
+        _, lanczos_ms = timed(lambda: resample.resize(img, HOST_IO_OUT_WH, "lanczos"))
+        _, bilinear_ms = timed(lambda: resample.resize(img, HOST_IO_OUT_WH, "bilinear"))
+        h, w = img.shape[:2]
+        out["images"][label] = {"wh": [w, h], "bytes": len(data), "decode_ms": decode_ms,
+                                "megapixels_per_s": w * h / decode_ms / 1e3,
+                                "lanczos_to_960x640_ms": lanczos_ms,
+                                "bilinear_to_960x640_ms": bilinear_ms}
+        log(f"host io {label}: {len(data)} bytes, decode {decode_ms:.3f} ms "
+            f"({w * h / decode_ms / 1e3:.1f} Mpixel/s), resize to {HOST_IO_OUT_WH[0]}x"
+            f"{HOST_IO_OUT_WH[1]} LANCZOS {lanczos_ms:.3f} ms, BILINEAR {bilinear_ms:.3f} ms "
+            f"(mean of {HOST_IO_REPEATS}; {card})")
+        if (w, h) == ROUNDTRIP_WH:
+            sha = hashlib.sha256(img.tobytes()).hexdigest()
+            if sha != ROUNDTRIP_SHA256:
+                raise AssertionError(f"host io: decode(encode(seeded_photo)) sha256 {sha}, PIL "
+                                     f"gives {ROUNDTRIP_SHA256}")
+            out["roundtrip_sha256_ok"] = True
+    if not out.get("roundtrip_sha256_ok"):
+        raise AssertionError(f"host io: no {ROUNDTRIP_WH} JPEG among {list(photos)}")
+    root, meta = tnt_tree
+    ds = TNTDataset(root, "test", n_views=3, img_wh=HOST_IO_OUT_WH, meta_dir=meta,
+                    nf_mode="minmax")
+    sample, ms = timed(lambda: ds[0])
+    if sample["images"].shape != (4, HOST_IO_OUT_WH[1], HOST_IO_OUT_WH[0], 3):
+        raise AssertionError(f"host io: T&T sample images {sample['images'].shape}")
+    out["tnt_sample_s"] = ms / 1e3
+    log(f"host io: T&T loader {ms / 1e3:.4f} s per sample (4 JPEGs at {TNT_JPEG_WH[0]}x"
+        f"{TNT_JPEG_WH[1]} decoded and resized to {HOST_IO_OUT_WH[0]}x{HOST_IO_OUT_WH[1]} "
+        f"with LANCZOS in {LOAD_THREADS} threads); decode(encode(seeded_photo"
+        f"{ROUNDTRIP_WH})) equals PIL's (sha256); PIL installed: {out['pil_installed']} "
+        f"(unused); {card}")
     return out
 
 
@@ -2880,11 +3110,17 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     log("tf32: off for matmuls and cuDNN (torch.backends.cuda.matmul.allow_tf32 "
         "= torch.backends.cudnn.allow_tf32 = False)")
+    from matchnerf_tpu_torch import hostio
+    t0 = time.perf_counter()
+    hostio.library()
+    host_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     kernels.library()
     tree_pool, ibr_trees = start_ibrnet_trees()      # phase 14's trees, meanwhile
+    jpeg_pool, host_jpegs = start_host_jpegs()       # phase 13's T&T tree, phase 17's JPEGs
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {' '.join(kernels.NVCC_FLAGS)})")
+        f"(nvcc {' '.join(kernels.NVCC_FLAGS)}); host library (csrc/image_io.cpp, "
+        f"{hostio.compiler()} {' '.join(hostio.CXX_FLAGS)}) built before it in {host_s:.1f} s")
 
     # ---- 2. scene and model
     cfg = dtu_eval_config()
@@ -3200,8 +3436,10 @@ def main():
     del out, ray_out, fused_out, bf_out
     torch.cuda.empty_cache()
 
-    # ---- 7. the video entry: configs/demo_own.yaml (fused cosine), then
-    # 8. configs/test_video_own.yaml (S = 256, 960x640)
+    # ---- 7. the video entry on the printer scene: its JPEGs against PIL's
+    # hashes, configs/demo_own.yaml (fused cosine), then 8.
+    # configs/test_video_own.yaml (S = 256, 960x640)
+    printer = printer_check()
     video = video_phase(torch, dev, args.seed, counters, args.profile, "demo_own", VIDEO_FRAMES)
     torch.cuda.empty_cache()
     video_own = video_phase(torch, dev, args.seed, counters, args.profile, "test_video_own",
@@ -3251,7 +3489,7 @@ def main():
 
     # ---- 13. the eval entry: configs/test.yaml over DTU, LLFF and Blender,
     # test_video.yaml, test_strict.yaml
-    test_entry = eval_entry_phase(torch, dev, args.seed)
+    test_entry = eval_entry_phase(torch, dev, args.seed, host_jpegs)
     torch.cuda.empty_cache()
 
     # ---- 14. configs/train_ibrnet.yaml at 1008x756: the loop, the resume,
@@ -3269,6 +3507,12 @@ def main():
     # (training and the ray-sharded render), the training entry as 2 processes
     parallel = parallel_phase(torch, dev, batch, args.seed, block_rgb, loop.pop("tree"),
                               counters)
+
+    # ---- 17. the host's image I/O: decode and resize timings, the T&T
+    # loader's seconds per sample, decode(encode(seeded image)) against PIL's
+    host_io = host_io_phase(test_entry["tnt_tree"], host_jpegs.result()[2])
+    jpeg_pool.shutdown()
+    host_io["printer"] = printer
 
     def per_scale(entries):
         return {"max_abs_err": max(e["max_abs_err"] for e in entries),
@@ -3418,7 +3662,8 @@ def main():
         "train_ibrnet": {k: v for k, v in ibr.items()
                          if k not in ("A", "A_bwd", "B_bwd", "eval_slice")},
         "serve": served,
-        "parallel": {k: v for k, v in parallel.items() if k != "launches"}}}
+        "parallel": {k: v for k, v in parallel.items() if k != "launches"},
+        "host_io": host_io}}
     # each kernel's launches in each rank of phase 16, per path
     for e in report["kernels"]:
         name = e["name"].replace("_bf16", "")

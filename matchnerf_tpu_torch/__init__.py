@@ -21,7 +21,10 @@ replace every Pallas kernel of the JAX package:
 - `ops/fused_cosine.py`      <- ops/pallas_cond.py::fused_interp_grouped_cosine
 
 Each keeps a plain PyTorch version beside it; a CPU tensor takes the plain
-version, a CUDA tensor the kernel. The package never imports jax, yaml or PIL.
+version, a CUDA tensor the kernel. The package never imports jax, yaml or PIL:
+images decode and resize in a small host library, `csrc/image_io.cpp`
+(built by `hostio.py` with the host C++ compiler; `data/jpeg.py`,
+`data/resample.py`), bit-equal to PIL.
 """
 
 __version__ = "0.1.0"

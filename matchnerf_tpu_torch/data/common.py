@@ -1,10 +1,10 @@
 """Shared host-side data helpers (counterpart of matchnerf_tpu/data/common.py):
 image loading with Blender's alpha blend onto white, the image size, PFM
 and MVSNet camera files, view ranking, LLFF poses_bounds.npy with or
-without re-centring, near/far modes. numpy only: PNGs decode with
-`data/png.py` and their size comes from the header; PIL is imported inside
-`load_images` and `image_size` only for other formats (JPEG) and for
-resizing, which the card's machine (no PIL) cannot do.
+without re-centring, near/far modes. No PIL: PNGs decode with `data/png.py`,
+JPEGs with `data/jpeg.py`, each size comes from the file's header, and
+`data/resample.py` resizes as PIL's LANCZOS and BILINEAR do, all bit-equal
+to PIL.
 
 A sample is a dict of numpy arrays, target view LAST:
 
@@ -21,11 +21,19 @@ from __future__ import annotations
 
 import os
 import re
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .jpeg import is_jpeg, jpeg_size, read_jpeg
 from .png import png_size, read_pngs
+from .resample import resize
+
+LOAD_THREADS = 4                       # JPEG decodes and resizes of one sample at once
+_pool = None
+_pool_lock = threading.Lock()
 
 IMAGE_EXTENSIONS = (".jpg", ".JPG", ".jpeg", ".JPEG", ".png", ".PNG", ".ppm",
                     ".PPM", ".bmp", ".BMP", ".tif", ".TIF", ".tiff", ".TIFF")
@@ -39,40 +47,50 @@ def list_all_images(root_dir: str) -> List[str]:
     return sorted(f for f in os.listdir(root_dir) if f.endswith(IMAGE_EXTENSIONS))
 
 
+def _load_one(path: str, png, wh, resample: str, blend_alpha_white: bool) -> np.ndarray:
+    """One image of `load_images`; `png` holds a PNG's pixels, already decoded."""
+    if png is not None:
+        arr = png
+    elif is_jpeg(path):
+        arr = read_jpeg(path)
+    else:
+        raise ValueError(f"{path}: only PNG and JPEG images are read")
+    if (arr.shape[1], arr.shape[0]) != wh:
+        arr = resize(arr, wh, resample)
+    arr = arr.astype(np.float32) / 255.0
+    if blend_alpha_white and arr.ndim == 3 and arr.shape[-1] == 4:
+        rgb, a = arr[..., :3], arr[..., 3:]
+        arr = rgb * a + (1.0 - a)
+    elif arr.ndim == 2:
+        arr = np.repeat(arr[..., None], 3, axis=-1)
+    return arr[..., :3]
+
+
+def _threads() -> ThreadPoolExecutor:
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = ThreadPoolExecutor(LOAD_THREADS, thread_name_prefix="load_images")
+    return _pool
+
+
 def load_images(paths: Sequence[str], img_wh, resample: str = "lanczos",
                 blend_alpha_white: bool = False) -> List[np.ndarray]:
     """Load images and resize each to img_wh with PIL's LANCZOS or BILINEAR
-    filter -> [H,W,3] float32 in [0,1] each (common.py:40). PNGs decode
-    without PIL (`png.read_pngs`, bit-equal to PIL's decode, those of one
-    shape together) and, when img_wh is their size (PIL's resize then
-    returns a copy), need no PIL at all; any other format, or a PNG to be
-    resized, needs PIL. blend_alpha_white composites an RGBA image onto
-    white after the resize, rgb * a + (1 - a) in f32 (Blender)."""
+    filter -> [H,W,3] float32 in [0,1] each (common.py:40), bit-equal to
+    the JAX loader's PIL path. PNGs decode in `png.read_pngs`' processes;
+    JPEG decodes and the resizes run in LOAD_THREADS threads (the host
+    library releases the interpreter lock). blend_alpha_white composites an
+    RGBA image onto white after the resize, rgb * a + (1 - a) in f32
+    (Blender)."""
     wh = tuple(int(x) for x in img_wh)
     is_png = [p.lower().endswith(".png") for p in paths]
     decoded = iter(read_pngs([p for p, ok in zip(paths, is_png) if ok]))
-    out = []
-    for path, ok in zip(paths, is_png):
-        arr = next(decoded) if ok else None
-        if arr is None or (arr.shape[1], arr.shape[0]) != wh:
-            try:
-                from PIL import Image
-            except ImportError as e:
-                raise RuntimeError(
-                    f"{path}: decoding this format or resizing to {wh} needs PIL, which is "
-                    "not installed (the PNG decoder resizes nothing: give img_wh equal to "
-                    "the image's size)") from e
-            img = Image.open(path) if arr is None else Image.fromarray(arr)
-            filt = {"lanczos": Image.LANCZOS, "bilinear": Image.BILINEAR}[resample]
-            arr = np.asarray(img.resize(wh, filt))
-        arr = arr.astype(np.float32) / 255.0
-        if blend_alpha_white and arr.ndim == 3 and arr.shape[-1] == 4:
-            rgb, a = arr[..., :3], arr[..., 3:]
-            arr = rgb * a + (1.0 - a)
-        elif arr.ndim == 2:
-            arr = np.repeat(arr[..., None], 3, axis=-1)
-        out.append(arr[..., :3])
-    return out
+    pngs = [next(decoded) if ok else None for ok in is_png]
+    jobs = [(p, png, wh, resample, blend_alpha_white) for p, png in zip(paths, pngs)]
+    if len(jobs) <= 1:
+        return [_load_one(*job) for job in jobs]
+    return list(_threads().map(lambda job: _load_one(*job), jobs))
 
 
 def load_image(path: str, img_wh, resample: str = "lanczos",
@@ -82,17 +100,13 @@ def load_image(path: str, img_wh, resample: str = "lanczos",
 
 
 def image_size(path: str):
-    """(width, height) of an image file: a PNG's from its header, any other
-    format's through PIL (tnt.py:87-91 opens the file for it)."""
+    """(width, height) of a PNG or JPEG file, from its header (tnt.py:87-91
+    reads it through PIL)."""
     if path.lower().endswith(".png"):
         return png_size(path)
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise RuntimeError(f"{path}: reading this format's size needs PIL, which is not "
-                           "installed") from e
-    with Image.open(path) as im:
-        return im.size
+    if is_jpeg(path):
+        return jpeg_size(path)
+    raise ValueError(f"{path}: only PNG and JPEG images are read")
 
 
 def read_pfm(filename: str):

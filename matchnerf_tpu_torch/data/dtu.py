@@ -12,8 +12,8 @@ of n_views among the top n_views + n_add_train_views (`permute_train_src`),
 drawn from the dataset's numpy generator in the order the samples are read.
 Val and test samples carry the target's ground-truth depth (1/200 scale,
 the 1200x1600 map halved by nearest sampling and cropped to 512x640) for
-the evaluation mask. A sample's images decode together, without PIL where
-img_wh is their size (`common.load_images`).
+the evaluation mask. A sample's images decode together and, at another img_wh,
+resize with PIL's BILINEAR filter (`common.load_images`, no PIL).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""PNG decoding and encoding with numpy and zlib (no PIL: the card's machine
-has none).
+"""PNG decoding and encoding with numpy and zlib (no PIL: the port never
+imports it; it need not be installed).
 
 `png_size` reads the image size from the header alone. `read_png` decodes 8-bit, non-interlaced greyscale (colour type 0), RGB (2)
 and RGBA (6) images with any of the five row filters, and raises

@@ -9,9 +9,10 @@ views out as a DTU (MVSNet) directory tree with its own meta directory;
 `write_dtu_scene` writes the scene's six-view DTU scan. `write_llff_tree`,
 `write_blender_tree` and `write_tnt_tree` write the scene as an LLFF,
 Blender (NeRF-synthetic) or Tanks-and-Temples test set, each with the
-`pairs.th` of its own meta directory; LLFF and Blender as PNGs (no PIL),
-T&T as the JPEGs its loader names (PIL needed). `write_ibrnet_tree` writes
-IBRNet's two-level training tree of forward-facing scenes (PNGs).
+`pairs.th` of its own meta directory; LLFF and Blender as PNGs, T&T as
+the JPEGs its loader names, written by `encode_jpeg` (a numpy baseline
+encoder; no PIL anywhere). `write_ibrnet_tree` writes IBRNet's two-level
+training tree of forward-facing scenes (PNGs).
 """
 import json
 import math
@@ -26,7 +27,7 @@ from .png import write_png
 
 __all__ = ["look_at_opencv", "render_scene", "make_scene_views", "write_dtu_tree",
            "write_dtu_scene", "DTU_SCENE_VIEW_IDS", "forward_facing_eyes", "write_llff_tree",
-           "write_ibrnet_tree", "write_blender_tree", "write_tnt_tree"]
+           "write_ibrnet_tree", "write_blender_tree", "write_tnt_tree", "encode_jpeg"]
 
 DTU_SCENE_VIEW_IDS = (20, 21, 22, 23, 24, 25)     # the views of `write_dtu_scene`
 
@@ -372,24 +373,309 @@ def write_blender_tree(root: str, meta_dir: str, W: int, H: int, n_train: int = 
     _save_pairs(meta_dir, scene, range(n_train), range(n_train, n))
 
 
+
+# ----------------------------------------------------------------- JPEG writer
+# A small baseline JPEG encoder (SOF0, the standard Huffman tables), numpy
+# only, so that a JPEG tree is written without PIL. Its bytes
+# need not equal another encoder's; PIL and the port's decoder must decode
+# them to the same array.
+
+_ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+                    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+                    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+                    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+# ITU-T T.81 Annex K: tables K.1 and K.2 (natural order)
+_K1_LUMA = np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+                     14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+                     18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+                     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_K2_CHROMA = np.full(64, 99)
+_K2_CHROMA[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = \
+    [17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
+# Annex K.3: (number of codes of each length 1..16, symbols) of the DC
+# luma, DC chroma, AC luma and AC chroma tables
+_HUFF_SPECS = (
+    ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), bytes(range(12))),
+    ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), bytes(range(12))),
+    ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D), bytes.fromhex(
+        "01 02 03 00 04 11 05 12 21 31 41 06 13 51 61 07 22 71 14 32 81 91 a1 08"
+        "23 42 b1 c1 15 52 d1 f0 24 33 62 72 82 09 0a 16 17 18 19 1a 25 26 27 28"
+        "29 2a 34 35 36 37 38 39 3a 43 44 45 46 47 48 49 4a 53 54 55 56 57 58 59"
+        "5a 63 64 65 66 67 68 69 6a 73 74 75 76 77 78 79 7a 83 84 85 86 87 88 89"
+        "8a 92 93 94 95 96 97 98 99 9a a2 a3 a4 a5 a6 a7 a8 a9 aa b2 b3 b4 b5 b6"
+        "b7 b8 b9 ba c2 c3 c4 c5 c6 c7 c8 c9 ca d2 d3 d4 d5 d6 d7 d8 d9 da e1 e2"
+        "e3 e4 e5 e6 e7 e8 e9 ea f1 f2 f3 f4 f5 f6 f7 f8 f9 fa")),
+    ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77), bytes.fromhex(
+        "00 01 02 03 11 04 05 21 31 06 12 41 51 07 61 71 13 22 32 81 08 14 42 91"
+        "a1 b1 c1 09 23 33 52 f0 15 62 72 d1 0a 16 24 34 e1 25 f1 17 18 19 1a 26"
+        "27 28 29 2a 35 36 37 38 39 3a 43 44 45 46 47 48 49 4a 53 54 55 56 57 58"
+        "59 5a 63 64 65 66 67 68 69 6a 73 74 75 76 77 78 79 7a 82 83 84 85 86 87"
+        "88 89 8a 92 93 94 95 96 97 98 99 9a a2 a3 a4 a5 a6 a7 a8 a9 aa b2 b3 b4"
+        "b5 b6 b7 b8 b9 ba c2 c3 c4 c5 c6 c7 c8 c9 ca d2 d3 d4 d5 d6 d7 d8 d9 da"
+        "e2 e3 e4 e5 e6 e7 e8 e9 ea f2 f3 f4 f5 f6 f7 f8 f9 fa")),
+)
+_PACK_TOKENS = 1 << 20                 # tokens turned into bits at a time
+
+
+def quality_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """An Annex K table scaled by quality 1-100 as libjpeg's
+    `jpeg_quality_scaling` and `jpeg_add_quant_table` (baseline: <= 255)."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _huff_codes(bits, vals):
+    """Canonical Huffman (code, length) of each symbol (T.81 Annex C)."""
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, count in enumerate(bits, start=1):
+        for _ in range(count):
+            code_of[vals[k]], len_of[vals[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _magnitude(v):
+    """(size category, the extra bits) of JPEG's value coding."""
+    s = np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)
+    return s, np.where(v < 0, v + (1 << s) - 1, v).astype(np.int64)
+
+
+def _tokens(zz, table, dc_diff):
+    """(value, length) of every Huffman token of the blocks `zz` [N,64]
+    (zig-zag order, coding order), each block coded with table set
+    `table[i]` (0 luma, 1 chroma), in stream order."""
+    n = len(zz)
+    codes = [_huff_codes(*spec) for spec in _HUFF_SPECS]
+    blk = np.arange(n, dtype=np.int64)
+    s, extra = _magnitude(dc_diff)
+    dc_code = np.where(table == 0, codes[0][0][s], codes[1][0][s])
+    dc_len = np.where(table == 0, codes[0][1][s], codes[1][1][s])
+    keys, vals, lens = [blk * 256], [(dc_code << s) | extra], [dc_len + s]
+    last = np.zeros(n, np.int64)
+    b, k = np.nonzero(zz[:, 1:])
+    k = k + 1
+    if len(b):
+        first = np.ones(len(b), bool)
+        first[1:] = b[1:] != b[:-1]
+        prev = np.where(first, 0, np.concatenate([[0], k[:-1]]))
+        run = k - prev - 1
+        s, extra = _magnitude(zz[b, k])
+        sym = ((run % 16) << 4) | s
+        t = table[b]
+        keys.append(b * 256 + 2 * k + 1)
+        vals.append((np.where(t == 0, codes[2][0][sym], codes[3][0][sym]) << s) | extra)
+        lens.append(np.where(t == 0, codes[2][1][sym], codes[3][1][sym]) + s)
+        zrl = np.repeat(np.arange(len(b)), run // 16)         # runs of 16 zeros
+        keys.append(b[zrl] * 256 + 2 * k[zrl])
+        vals.append(np.where(t[zrl] == 0, codes[2][0][0xF0], codes[3][0][0xF0]))
+        lens.append(np.where(t[zrl] == 0, codes[2][1][0xF0], codes[3][1][0xF0]))
+        np.maximum.at(last, b, k)                           # last nonzero per block
+    eob = np.nonzero(last < 63)[0]
+    keys.append(eob * 256 + 255)
+    vals.append(np.where(table[eob] == 0, codes[2][0][0], codes[3][0][0]))
+    lens.append(np.where(table[eob] == 0, codes[2][1][0], codes[3][1][0]))
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    return np.concatenate(vals)[order], np.concatenate(lens)[order]
+
+
+def _pack(vals, lens) -> bytes:
+    """Tokens -> entropy-coded bytes: MSB first, padded with 1 bits, each
+    0xFF byte followed by a stuffed 0x00."""
+    chunks, carry = [], np.zeros(0, np.uint8)
+    for i in range(0, len(vals), _PACK_TOKENS):
+        v, ln = vals[i:i + _PACK_TOKENS], lens[i:i + _PACK_TOKENS]
+        tok = np.repeat(np.arange(len(v)), ln)
+        start = np.cumsum(ln) - ln
+        shift = (ln[tok] - 1 - (np.arange(len(tok)) - start[tok])).astype(np.int64)
+        bits = np.concatenate([carry, ((v[tok] >> shift) & 1).astype(np.uint8)])
+        whole = len(bits) // 8 * 8
+        chunks.append(np.packbits(bits[:whole]))
+        carry = bits[whole:]
+    if len(carry):
+        pad = np.ones(8 - len(carry), np.uint8)
+        chunks.append(np.packbits(np.concatenate([carry, pad])))
+    out = np.concatenate(chunks) if chunks else np.zeros(0, np.uint8)
+    out = np.insert(out, np.nonzero(out == 0xFF)[0] + 1, 0)
+    return out.tobytes()
+
+
+def _segment(marker: int, payload: bytes) -> bytes:
+    return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + payload
+
+
+def _fdct_pass(x, first: bool):
+    """One 1-D pass of libjpeg's integer forward DCT (jfdctint.c
+    jpeg_fdct_islow) along the last axis of int64 `x`; the row pass
+    (first) keeps 2 extra bits, the column pass removes them."""
+    c, p = 13, 2                        # CONST_BITS, PASS1_BITS
+
+    def descale(v, n):
+        return (v + (1 << (n - 1))) >> n
+    d = [x[..., i] for i in range(8)]
+    t0, t7, t1, t6 = d[0] + d[7], d[0] - d[7], d[1] + d[6], d[1] - d[6]
+    t2, t5, t3, t4 = d[2] + d[5], d[2] - d[5], d[3] + d[4], d[3] - d[4]
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+    out = [None] * 8
+    odd = c - p if first else c + p
+    out[0] = (t10 + t11) << p if first else descale(t10 + t11, p)
+    out[4] = (t10 - t11) << p if first else descale(t10 - t11, p)
+    z1 = (t12 + t13) * 4433
+    out[2] = descale(z1 + t13 * 6270, odd)
+    out[6] = descale(z1 - t12 * 15137, odd)
+    z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+    z5 = (z3 + z4) * 9633
+    t4, t5, t6, t7 = t4 * 2446, t5 * 16819, t6 * 25172, t7 * 12299
+    z1, z2, z3, z4 = z1 * -7373, z2 * -20995, z3 * -16069 + z5, z4 * -3196 + z5
+    out[7] = descale(t4 + z1 + z3, odd)
+    out[5] = descale(t5 + z2 + z4, odd)
+    out[3] = descale(t6 + z2 + z3, odd)
+    out[1] = descale(t7 + z1 + z4, odd)
+    return np.stack(out, axis=-1)
+
+
+def _downsample(plane, fy: int, fx: int):
+    """libjpeg's downsampling (jcsample.c) of an int64 plane by (fy, fx):
+    2x2 and 2x1 boxes with the alternating biases 1, 2 and 0, 1 along each
+    row, other boxes by their rounded mean."""
+    h, w = plane.shape[0] // fy, plane.shape[1] // fx
+    box = plane.reshape(h, fy, w, fx).sum(axis=(1, 3))
+    if (fy, fx) == (2, 2):
+        bias = np.where(np.arange(w) % 2 == 0, 1, 2)
+    elif (fy, fx) == (1, 2):
+        bias = np.arange(w) % 2
+    else:
+        bias = np.full(w, (fy * fx) // 2)
+    return (box + bias) // (fy * fx)
+
+
+def _rgb_to_ycc(x):
+    """libjpeg's fixed-point RGB -> YCbCr (jccolor.c rgb_ycc_convert, 16
+    scale bits) of an int64 [H,W,3] image: the Y, Cb and Cr planes."""
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+
+    def fix(v):
+        return int(v * 65536 + 0.5)
+    half, off = 1 << 15, 128 << 16
+    return [(fix(0.299) * r + fix(0.587) * g + fix(0.114) * b + half) >> 16,
+            (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + off + half - 1) >> 16,
+            (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + off + half - 1) >> 16]
+
+
+def _blocks(plane, grid_hw, fy: int, fx: int, qtab):
+    """The quantised DCT blocks [by, bx, 64] (zig-zag order) of one int64
+    component plane, padded to `grid_hw` samples (whole MCUs) by repeating
+    its last row and column and downsampled by (fy, fx)."""
+    pad = ((0, grid_hw[0] - plane.shape[0]), (0, grid_hw[1] - plane.shape[1]))
+    ds = _downsample(np.pad(plane, pad, mode="edge"), fy, fx) - 128
+    by, bx = ds.shape[0] // 8, ds.shape[1] // 8
+    blocks = ds.reshape(by, 8, bx, 8).transpose(0, 2, 1, 3)
+    coef = _fdct_pass(_fdct_pass(blocks, True).swapaxes(-1, -2), False).swapaxes(-1, -2)
+    div = qtab.reshape(8, 8) * 8                    # the DCT's outputs are 8x too large
+    q = np.sign(coef) * ((np.abs(coef) + (div >> 1)) // div)
+    return q.reshape(by, bx, 64)[..., _ZIGZAG]
+
+
+def _mcus(blocks, h: int, v: int):
+    """A component's blocks [by, bx, 64] regrouped per MCU of h x v blocks:
+    [n_mcu, v*h, 64] in the order an interleaved scan codes them."""
+    my, mx = blocks.shape[0] // v, blocks.shape[1] // h
+    return blocks.reshape(my, v, mx, h, 64).transpose(0, 2, 1, 3, 4).reshape(my * mx, v * h, 64)
+
+
+def _entropy_coded(units, tabs, comp_of) -> bytes:
+    """The entropy-coded bytes of `units` [n, k, 64] (zig-zag), coded in
+    order: block j of each unit with table set tabs[j] (0 luma, 1 chroma),
+    its DC predicted from the previous block of component comp_of[j]."""
+    tabs, comp_of = np.asarray(tabs), np.asarray(comp_of)
+    dc = units[..., 0]
+    diff = np.empty_like(dc)
+    for i in np.unique(comp_of):
+        diff[:, comp_of == i] = np.diff(dc[:, comp_of == i].reshape(-1), prepend=0) \
+            .reshape(len(units), -1)
+    vals, lens = _tokens(units.reshape(-1, 64), np.tile(tabs, len(units)), diff.reshape(-1))
+    return _pack(vals, lens)
+
+
+def _headers(app: bytes, qtabs, H: int, W: int, comps) -> bytes:
+    """SOI, the `app` segment(s), DQT and DHT of the table sets the
+    components use, and SOF0 of `comps`: (h, v, table set) per component,
+    with ids 1, 2, ..."""
+    used = sorted({t for _, _, t in comps})
+    out = [b"\xff\xd8", app,
+           _segment(0xDB, b"".join(bytes([t]) + bytes(qtabs[t][_ZIGZAG].astype(np.uint8))
+                                   for t in used))]
+    sof = bytes([8]) + H.to_bytes(2, "big") + W.to_bytes(2, "big") + bytes([len(comps)])
+    for ci, (h, v, t) in enumerate(comps):
+        sof += bytes([ci + 1, (h << 4) | v, t])
+    out.append(_segment(0xC0, sof))
+    for cls, ids in ((0, (0, 1)), (1, (2, 3))):
+        for t in used:
+            bits, vals = _HUFF_SPECS[ids[t]]
+            out.append(_segment(0xC4, bytes([(cls << 4) | t, *bits]) + vals))
+    return b"".join(out)
+
+
+def _sos(members) -> bytes:
+    """The SOS segment of a sequential scan of `members`: (component index,
+    table set) each."""
+    sos = bytes([len(members)])
+    for ci, t in members:
+        sos += bytes([ci + 1, (t << 4) | t])
+    return _segment(0xDA, sos + bytes([0, 63, 0]))
+
+
+JFIF_APP0 = _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """A baseline JFIF JPEG (SOF0) of a uint8 image, [H,W] (grey) or
+    [H,W,3] (RGB, coded as YCbCr 4:2:0 in one interleaved scan): the Annex K
+    quantisation tables scaled by `quality` as libjpeg scales them, the
+    standard Huffman tables, and integer arithmetic throughout (libjpeg's
+    fixed-point RGB -> YCbCr, downsampling, integer DCT and rounding
+    division), so the bytes are the same on every machine."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_jpeg takes uint8 [H,W] or [H,W,3], not {img.dtype} {img.shape}")
+    H, W = img.shape[:2]
+    x = img.astype(np.int64)
+    if img.ndim == 2:
+        planes, comps = [x], [(1, 1, 0)]
+    else:
+        planes, comps = _rgb_to_ycc(x), [(2, 2, 0), (1, 1, 1), (1, 1, 1)]
+    hmax, vmax = comps[0][:2]
+    grid = (-(-H // (8 * vmax)) * 8 * vmax, -(-W // (8 * hmax)) * 8 * hmax)
+    qtabs = [quality_table(_K1_LUMA, quality), quality_table(_K2_CHROMA, quality)]
+    units = np.concatenate([_mcus(_blocks(p, grid, vmax // v, hmax // h, qtabs[t]), h, v)
+                            for p, (h, v, t) in zip(planes, comps)], axis=1)
+    tabs = [t for h, v, t in comps for _ in range(h * v)]
+    comp_of = [i for i, (h, v, _) in enumerate(comps) for _ in range(h * v)]
+    return (_headers(JFIF_APP0, qtabs, H, W, comps)
+            + _sos([(i, t) for i, (_, _, t) in enumerate(comps)])
+            + _entropy_coded(units, tabs, comp_of) + b"\xff\xd9")
+
+
 def write_tnt_tree(root: str, meta_dir: str, W: int, H: int, n_views: int = 5,
                    test_views: Sequence[int] = (2,), scene: str = "Truck",
                    depth_scale: float = 500.0):
     """The scene from `forward_facing_eyes(n_views)` as one Tanks-and-
     Temples scene the T&T loader reads (data/tnt.py): `{scene}/images/
-    {i:08d}.jpg` at W x H (written with PIL, which must be installed) and
+    {i:08d}.jpg` at W x H (4:2:0 JPEGs of `encode_jpeg` at quality 95) and
     `{scene}/cams_1/{i:08d}_cam.txt` with the world-to-camera translation
     and the depth bounds divided by `depth_scale` (the loader multiplies
     them back) and the intrinsics at W x H; meta_dir/pairs.th with
     `test_views` the targets."""
-    from PIL import Image
     views = make_scene_views(W, H, eyes=forward_facing_eyes(n_views))
     images = _u8(views)
     img_dir, cam_dir = (os.path.join(root, scene, d) for d in ("images", "cams_1"))
     for d in (img_dir, cam_dir):
         os.makedirs(d, exist_ok=True)
     for i in range(n_views):
-        Image.fromarray(images[i]).save(os.path.join(img_dir, f"{i:08d}.jpg"), quality=95)
+        with open(os.path.join(img_dir, f"{i:08d}.jpg"), "wb") as f:
+            f.write(encode_jpeg(images[i], 95))
         extr = views["w2cs"][i].astype(np.float64).copy()
         extr[:3, 3] /= depth_scale
         near, far = (float(x) / depth_scale for x in views["near_fars"][i])

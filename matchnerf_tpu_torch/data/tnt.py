@@ -7,8 +7,8 @@ scaled by img_wh over each image file's own size, near/far by `nf_mode`
 (configs/test.yaml: minmax). Eval splits from `pairs.th`
 (`TNT_{scene}_train` / `TNT_{scene}_val`, eval_mode "mvsnerf") or every 8th
 image held out ("gpnr"). Samples carry `c2ws_all`. The images are
-`images/{vid:08d}.jpg`, as the JAX loader names them: decoding them needs
-PIL, so this set loads only where PIL is installed.
+`images/{vid:08d}.jpg`, as the JAX loader names them, decoded by
+`data/jpeg.py` and resized with LANCZOS by `data/resample.py` (no PIL).
 """
 from __future__ import annotations
 
@@ -33,12 +33,6 @@ class TNTDataset(MVSDatasetBase):
             raise ValueError('Only support "test" split for TNT dataset!')
         if eval_mode not in ("mvsnerf", "gpnr"):
             raise ValueError(f"T&T eval_mode {eval_mode!r}: mvsnerf or gpnr")
-        try:
-            import PIL  # noqa: F401
-        except ImportError as e:
-            raise RuntimeError("the T&T test set's images are JPEGs, which need PIL, and PIL "
-                               "is not installed: leave the set out with --data_test.tnt="
-                               ) from e
         self.root_dir = root_dir
         self.n_views = n_views
         self.img_wh = img_wh

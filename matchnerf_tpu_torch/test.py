@@ -16,8 +16,7 @@ weights, `--data_test.llff=` leaves a test set out). A set's
 `nerf.render_video` it renders the trajectory video
 (`Coach.test_model_video`), otherwise the test views with their metrics
 (`Coach.test_model`), under `<output_root>/<name>/`. It runs on the card
-unless given `--cpu`. T&T's images are JPEGs, which only PIL decodes here:
-where PIL is not installed, leave that set out with `--data_test.tnt=`.
+unless given `--cpu`. T&T's images are JPEGs, decoded by `data/jpeg.py`.
 Several processes as `python -m matchnerf_tpu_torch.train` runs them (its
 docstring): each rank renders its share of every slice's rays.
 """

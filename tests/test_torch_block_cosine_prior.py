@@ -28,6 +28,7 @@ from matchnerf_tpu.ops import pallas_block_banded as jbb
 from matchnerf_tpu_torch.ops import block_cosine_prior as kd
 from matchnerf_tpu_torch.ops import cosine_prior as kb
 from matchnerf_tpu_torch.ops.grid_sample import bilinear_taps
+from torch_threads import one_torch_thread  # noqa: F401
 
 V = 3
 

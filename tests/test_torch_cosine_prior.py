@@ -29,6 +29,7 @@ from matchnerf_tpu.ops.pallas_banded import banded_cosine_scale, banded_cosine_s
 from matchnerf_tpu_torch.models.matchnerf import \
     prepare_sampling_tables as torch_prepare_tables
 from matchnerf_tpu_torch.ops import cosine_prior as tcp
+from torch_threads import one_torch_thread  # noqa: F401
 
 V, H, W, C = 3, 24, 32, 16
 R, S, G = 16, 32, 4

@@ -29,6 +29,7 @@ from matchnerf_tpu_torch.models.decoder import cond_nerf as tcn
 from matchnerf_tpu_torch.models.matchnerf import MatchNeRF
 from matchnerf_tpu_torch.ops import decoder as tdec
 from matchnerf_tpu_torch.weights import state_dict_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 VARIANTS = {
     "flagship": {},

@@ -17,6 +17,7 @@ from matchnerf_tpu.models.matchnerf import encode as jax_encode
 from matchnerf_tpu.models.matchnerf import init_matchnerf as jax_init
 from matchnerf_tpu_torch.models.matchnerf import MatchNeRF, encode
 from matchnerf_tpu_torch.weights import state_dict_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_encode_per_scale_matches_jax():

@@ -32,6 +32,7 @@ from matchnerf_tpu_torch.models import matchnerf as pmn
 from matchnerf_tpu_torch.ops.fused_cosine import (fused_interp_grouped_cosine,
                                                   fused_interp_grouped_cosine_plain)
 from matchnerf_tpu_torch.ops.grid_sample import tap_rows_and_weights
+from torch_threads import one_torch_thread  # noqa: F401
 
 PAIRS = [(0, 1), (0, 2), (1, 2)]
 

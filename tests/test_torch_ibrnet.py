@@ -48,6 +48,7 @@ from matchnerf_tpu_torch.models.matchnerf import encode, project_to_views, sampl
 from matchnerf_tpu_torch.ops.block_cosine_prior import block_union_max, bucket_ut
 from matchnerf_tpu_torch.ops.resize import resize_bilinear_align_corners
 from matchnerf_tpu_torch.renderer import Renderer, extract_poses
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _assert_samples_equal(a, b, tag):

@@ -21,6 +21,7 @@ from matchnerf_tpu_torch.data import DATASETS
 from matchnerf_tpu_torch.data.loader import collate
 from matchnerf_tpu_torch.engine import Coach
 from matchnerf_tpu_torch.weights import state_dict_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _step_parity(batch, img_h, img_w, decoder_rel_l2=None):

@@ -39,6 +39,7 @@ from matchnerf_tpu_torch.config import (SLICE_KEYS, dtu_eval_config,
 from matchnerf_tpu_torch.models.matchnerf import MatchNeRF
 from matchnerf_tpu_torch.renderer import Renderer
 from matchnerf_tpu_torch.weights import state_dict_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 32, 32

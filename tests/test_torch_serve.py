@@ -37,6 +37,7 @@ from matchnerf_tpu_torch.config import dtu_eval_config
 from matchnerf_tpu_torch.models.matchnerf import MatchNeRF
 from matchnerf_tpu_torch.serve import build_server, decode_array, encode_array, serve
 from matchnerf_tpu_torch.weights import state_dict_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 32, 32

@@ -22,6 +22,7 @@ import torch
 from matchnerf_tpu.ops import pallas_color as jpc
 from matchnerf_tpu_torch.ops import supercell_color as ke
 from matchnerf_tpu_torch.ops.grid_sample import grid_sample_2d
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _block_grids(rng, V, R, S, lo=-1.1, hi=1.1):

@@ -15,6 +15,7 @@ from tests/test_torch_train_step.py (`run_parity` there).
   gradients within atol 1e-4, the 3-step loss rtol 5e-3.
 """
 from test_torch_train_step import run_parity
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_train_fast_step_f32_matches_jax():

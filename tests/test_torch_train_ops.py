@@ -43,6 +43,7 @@ from matchnerf_tpu.ops.pallas_window_attention import fused_window_attention
 from matchnerf_tpu_torch.ops import attention as tattn
 from matchnerf_tpu_torch.ops import block_cosine_prior as kd
 from matchnerf_tpu_torch.ops import cosine_prior as kb
+from torch_threads import one_torch_thread  # noqa: F401
 
 V = 3
 PAIRS = tuple(pair_index_lists(V))

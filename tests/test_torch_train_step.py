@@ -35,6 +35,7 @@ from matchnerf_tpu_torch.engine import Coach
 from matchnerf_tpu_torch.models.matchnerf import MatchNeRF
 from matchnerf_tpu_torch.train_step import build_optimizer, make_schedule
 from matchnerf_tpu_torch.weights import state_dict_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W, N_RAYS, S, T = 32, 32, 32, 16, 50
 

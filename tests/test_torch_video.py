@@ -42,6 +42,7 @@ from matchnerf_tpu_torch.data.loader import collate
 from matchnerf_tpu_torch.models.matchnerf import MatchNeRF, init_matchnerf
 from matchnerf_tpu_torch.renderer import Renderer
 from matchnerf_tpu_torch.weights import state_dict_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO_ROOT = os.path.join(REPO, "docs", "demo_data")
@@ -227,17 +228,3 @@ def test_video_own_config_matches_yaml():
     assert mine.data_test.colmap.img_wh == [960, 640] and mine.precision.fused_cosine is False
     assert CONFIGS["test_video_own"] is tconfig.test_video_own_config
 
-
-def test_entry_test_video_own(tmp_path):
-    """`python -m matchnerf_tpu_torch.test --config test_video_own --cpu
-    --load=` at a tiny size (S = 256 kept, 64x32): 5012-ray slices are not
-    8-aligned, so the pose takes Kernel B's and the colour gather's plain
-    versions, as on the card."""
-    from matchnerf_tpu_torch.test import main
-    videos = main(["--config", "test_video_own", "--cpu", "--load=",
-                   f"--output_root={tmp_path}", "--data_test.colmap.img_wh=64,32",
-                   "--nerf.video_n_frames=2", "--encoder.num_transformer_layers=1"])
-    assert len(videos) == 1 and videos[0].shape == (2, 32, 64, 3)
-    assert np.isfinite(videos[0]).all() and 0.0 <= videos[0].min() <= videos[0].max() <= 1.0
-    out_dir = os.path.join(tmp_path, "test_video", "colmap_own", "test_videos", "colmap")
-    assert any(f.startswith("printer_view00") for f in os.listdir(out_dir))

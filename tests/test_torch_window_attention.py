@@ -20,6 +20,7 @@ from matchnerf_tpu.ops import attention as jattn
 from matchnerf_tpu.ops.pallas_attention import flash_window_attention
 from matchnerf_tpu_torch.ops import attention as tattn
 from matchnerf_tpu_torch.ops import window_attention as twa
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, W, C, SPLITS = 2, 16, 32, 128, 2
 
