@@ -10,9 +10,10 @@ test_strict.yaml over DTU, LLFF, Blender and T&T test sets, and the
 training entry of configs/train_ibrnet.yaml at 1008x756, and the render
 server (`python -m matchnerf_tpu_torch.serve`) over HTTP, and the parallel
 layer (process groups of one and two ranks, the training entry as 2
-processes), on one NVIDIA card, through the hand-written CUDA kernels; the
-images (the in-repo printer scene's JPEGs, the T&T tree's) decode and
-resize on the host without PIL.
+processes), and two and four source views (`--n_src_views`: the training
+entry at 2, the eval entry at 2 and 4), on one NVIDIA card, through the
+hand-written CUDA kernels; the images (the in-repo printer scene's JPEGs,
+the T&T tree's) decode and resize on the host without PIL.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -235,10 +236,35 @@ Phases, any failure ends the run with a non-zero exit:
    resize of each to 960x640 (means of 5 calls), the T&T loader's seconds
    per sample on phase 13's tree, and the decoded 1920x1056 JPEG held to
    PIL's sha256 of it (ROUNDTRIP_SHA256), with the card's name and limit.
+18. two and four source views (n_src_views), at full width, 640x512, S =
+   128: (a) for V = 2 and 4, a scene of V sources spread over -16..16
+   degrees of phase 2's arc and the target at 8 degrees, its eval tables
+   ([V,64,80,(V-1)128] at G = 2 and [V,128,160,(V-1)128] at G = 8) and the
+   pose's buckets: Kernel B on int8 (20480 rays) and bf16 (4096 rays)
+   tables, Kernel D on both at the pose's buckets, each against its plain
+   twin at 1e-4; on the f32 tables of the bf16 training encoder at 1024
+   rays, B's f32 forward and D''s forward (8-pixel strips, their bucket, or
+   the widest D' takes where it takes none: an overflowed union, against
+   the plain twin at that bucket) at 1e-5, and B' and D' backward at 1e-5
+   of the largest gradient; each timed with CUDA events beside its bound
+   (`prior_flops`, `prior_bwd_flops` at V). (b) `train.build_coach` +
+   `train_model` with `--config train --n_src_views=2` and `--config
+   train_fast --n_src_views=2` on phase 12's DTU tree from a written GMFlow
+   checkpoint, 3 steps each without validation: the first step against the
+   all-plain step (bf16-policy tolerances), B' (train.yaml) or D'
+   (train_fast.yaml) twice a step, no plain version on CUDA, finite losses,
+   `latest.ckpt` written. (c) `matchnerf_tpu_torch.test.main(["--config",
+   "test", "--n_src_views=V", ...])` on the tree's DTU test view, V = 2
+   with train.yaml's checkpoint (`--load`) and V = 4 with seeded weights
+   (`--load=`): A, C, D and E launch, no plain version on CUDA, the image
+   >= 50 dB against the all-plain render; image seconds, rays/s and each
+   eval kernel's device ms per launch. The phase's seconds on a line of
+   their own.
 Every launch count is reset just before a path (a step, in 10 and 11; a
 training run and a validation image, in 12; each test set's render, in
 13; the training run, each image and the timed steps, in 14; each served
-request, in 15; each rank's step and render, in 16) and read just after it. With --profile, one more warm render of each eval path
+request, in 15; each rank's step and render, in 16; each training run and
+image, in 18) and read just after it. With --profile, one more warm render of each eval path
 (the bf16 decoder path too) and of each video, and one warm step of each
 training recipe run under torch.profiler and print the device time by
 kernel (the A' backward's dq and dkv kernels always by name), the device
@@ -402,12 +428,23 @@ def bound(nbytes, flops, dtype="float32", rates=PEAK_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def prior_flops(n_samples, scaled):
-    """Operations of Kernel B / D's function: 7 flops per (sample, view,
-    channel) for the four bilinear taps (4 multiplies, 3 adds), one more to
-    dequantise rows that carry a scale (int8), and 6 per (sample, pair,
-    chunk channel) for the grouped cosine."""
-    return n_samples * (3 * 256 * (7 + bool(scaled)) + 3 * 128 * 6)
+def prior_flops(n_samples, scaled, n_views=3):
+    """Operations of Kernel B / D's function with V = n_views source views:
+    7 flops per (sample, view, channel) of the V (V-1) 128-channel rows for
+    the four bilinear taps (4 multiplies, 3 adds), one more to dequantise
+    rows that carry a scale (int8), and 6 per (sample, pair, chunk channel)
+    of the V (V-1) / 2 pairs for the grouped cosine."""
+    V = n_views
+    return n_samples * (V * (V - 1) * 128 * (7 + bool(scaled)) + V * (V - 1) // 2 * 128 * 6)
+
+
+def prior_bwd_flops(n_samples, n_views=3):
+    """Operations of the B' / D' backward's function with V = n_views: 16
+    flops per (sample, view, channel) (the interpolation again and the
+    scatter of each side's gradient to four taps), 12 per (sample, pair,
+    chunk channel) (the cosine and its gradient)."""
+    V = n_views
+    return n_samples * (V * (V - 1) * 128 * 16 + V * (V - 1) // 2 * 128 * 12)
 
 
 def nbytes(*tensors):
@@ -420,14 +457,17 @@ def arc_eye(angle):
     return (3.7 * math.sin(angle), -1.0, -3.7 * math.cos(angle))
 
 
-def make_scene(seed):
-    """4 posed 640x512 views of the synthetic scene; the last is the target."""
+def make_scene(seed, n_src=3):
+    """n_src + 1 posed 640x512 views of the synthetic scene: the sources
+    spread evenly over -16..16 degrees of the arc, the last view the target
+    at 8 degrees."""
     from matchnerf_tpu_torch.data import synth
     rng = np.random.default_rng(seed)
-    angles = np.deg2rad([-16.0, 0.0, 16.0, 8.0]) + rng.uniform(-0.02, 0.02, 4)
+    angles = (np.deg2rad(list(np.linspace(-16.0, 16.0, n_src)) + [8.0])
+              + rng.uniform(-0.02, 0.02, n_src + 1))
     eyes = [arc_eye(a) for a in angles]
     views = synth.make_scene_views(W, H, focal=1.8 * W, eyes=eyes)
-    near_fars = np.tile(np.asarray(DTU_NEAR_FAR, np.float32), (4, 1))
+    near_fars = np.tile(np.asarray(DTU_NEAR_FAR, np.float32), (n_src + 1, 1))
     return {"images": views["images"][None],
             "extrinsics": views["w2cs"][None],
             "intrinsics": views["intrinsics"][None],
@@ -685,7 +725,7 @@ def train_kernel_phase(torch, F, dev, batch, seed, block_ut, res):
         h, w = table.shape[1:3]
         gcot = torch.randn(R, S, G, generator=gen, device=dev)
         fwd_flops = prior_flops(N, scaled=False)          # f32 tables
-        bwd_flops = N * (3 * 256 * 16 + 3 * 128 * 12)
+        bwd_flops = prior_bwd_flops(N)
         bwd_bound = bound(2 * nbytes(table) + nbytes(grids_ray, gcot), bwd_flops)
 
         def backward_pair(fn_k, fn_p, grids):
@@ -3071,6 +3111,283 @@ def parallel_phase(torch, dev, batch, seed, block_rgb, tree, counters):
     return out
 
 
+VIEW_COUNTS = (2, 4)               # n_src_views of the views phase
+VIEWS_STEPS = 3                    # training steps per recipe at V = 2
+
+
+def prior_case(torch, name, fn, plain, tol, nbytes_, flops, extra=None):
+    """One prior kernel call against its plain twin on the same inputs: max
+    |d| (fails above tol), CUDA-event ms of both, the bound."""
+    got, ref = fn(), plain()
+    torch.cuda.synchronize()
+    err = max_abs(got, ref)
+    b_ms, b_by = bound(nbytes_(got), flops)
+    entry = dict(max_abs_err=err, tol=tol, ms=cuda_ms(torch, fn, 10),
+                 plain_ms=cuda_ms(torch, plain, 1), bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None, **(extra or {}))
+    log(f"views {name}: max|d| {err:.3e} (tol {tol:.3e}), {entry['ms']:.4f} ms vs plain "
+        f"{entry['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})"
+        + "".join(f", {k} {v}" for k, v in (extra or {}).items()))
+    check_close(f"views {name}", err, tol)
+    del got, ref
+    return entry
+
+
+def views_kernels(torch, dev, seed, V, card):
+    """The views phase's kernel checks at V source views: Kernels B (int8,
+    bf16, f32) and D (int8, bf16) on the eval tables of a V-source scene at
+    the pose's buckets, B' and D' forward and backward on its f32 training
+    tables at 1024 rays, each against its plain twin."""
+    from matchnerf_tpu_torch import camera
+    from matchnerf_tpu_torch.config import dtu_eval_config, dtu_train_config
+    from matchnerf_tpu_torch.models.matchnerf import (encode, init_matchnerf,
+                                                      prepare_sampling_tables,
+                                                      project_to_views, sample_depth)
+    from matchnerf_tpu_torch.ops import block_cosine_prior as kd
+    from matchnerf_tpu_torch.ops import cosine_prior as kb
+    from matchnerf_tpu_torch.renderer import Renderer, extract_poses
+    from matchnerf_tpu_torch.train_step import sample_ray_indices
+    grad = torch.autograd.grad
+    cfg = dtu_eval_config()
+    cfg.n_src_views = V
+    model = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev).eval()
+    renderer = Renderer(cfg, model, dev)
+    batch = make_scene(seed, V)
+    poses = extract_poses(batch)
+    ref_images = renderer.tensor(batch["images"][:, :V])
+    out = {"V": V, "card": card}
+    with torch.no_grad():
+        feats = renderer.encode(ref_images)
+        tables = renderer.build_tables(ref_images, feats)
+        bf16 = prepare_sampling_tables(cfg, feats, ref_images, feat_dtype=torch.bfloat16)
+    scale_hws = [(t.shape[2], t.shape[3]) for t in tables["view_feats"]]
+    block_ut, color_ut = renderer.pose_prep(poses, scale_hws, H, W, measure_color=True)
+    log(f"views V={V}: pose_prep block_ut {block_ut}, color_ut {color_ut}")
+    if block_ut is None or None in block_ut:
+        raise AssertionError(f"views V={V}: the pose does not take Kernel D at both scales: "
+                             f"{block_ut}")
+    tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = renderer._pose_tensors(poses)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+
+    def grids_of(pix, depth):
+        center, ray = camera.get_center_and_ray(pix, tgt_intr, c2w)
+        pts = camera.get_3d_points_from_depth(center, ray, depth, multi_samples=True)
+        return (project_to_views(pts, ref_w2c, ref_intr, ref_nf, H, W)[..., :2]
+                * 2.0 - 1.0)[:, 0].contiguous()                     # [V,R,S,2]
+
+    pix = camera.pixel_grid(H, W, legacy=True, device=dev)[:SLICE_RAYS][None]
+    grids = grids_of(pix, sample_depth(cfg, tgt_nf, 1, SLICE_RAYS))
+    S = grids.shape[2]
+    for key in ("B", "D", "B_bf16", "D_bf16", "B_f32", "B_bwd", "D_f32", "D_bwd"):
+        out[key] = []
+    with torch.no_grad():
+        for s, G in enumerate(cfg.encoder.cos_n_group):
+            ut = block_ut[s]
+            for dt, tabs, R in (("int8", tables, SLICE_RAYS), ("bf16", bf16, VAL_RAYS)):
+                table = tabs["view_feats"][s][0]
+                scales = tabs["view_feat_scales"][s][0] if dt == "int8" else None
+                g = grids[:, :R].contiguous()
+                flops = prior_flops(R * S, scaled=dt == "int8", n_views=V)
+                nb = lambda o: nbytes(table, g, o) + (0 if scales is None else nbytes(scales))
+                sfx = "" if dt == "int8" else "_bf16"
+                tag = f"V={V} scale {s} table {list(table.shape)} {dt} G={G} R={R} S={S}"
+                out["B" + sfx].append(dict(scale=s, R=R, **prior_case(
+                    torch, f"B {tag}", lambda: kb.cosine_prior(table, g, scales, G),
+                    lambda: kb.cosine_prior_plain(table, g, scales, G), 1e-4, nb, flops)))
+                cp = kd.channels_per_pass(ut, S, G, False, 2, table.shape[1] * table.shape[2], V)
+                out["D" + sfx].append(dict(scale=s, R=R, **prior_case(
+                    torch, f"D {tag}", lambda: kd.block_cosine_prior(table, g, scales, G, ut),
+                    lambda: kd.block_cosine_prior_plain(table, g, scales, G, ut), 1e-4, nb,
+                    flops, {"ut": ut, "channels_per_pass": cp})))
+                del table, g
+    del tables, bf16, feats, model, renderer
+
+    # B' and D' on the f32 tables of the bf16 training encoder at 1024 rays
+    tcfg = dtu_train_config()
+    tcfg.n_src_views = V
+    tmodel = init_matchnerf(tcfg, torch.Generator().manual_seed(seed)).to(dev)
+    with torch.no_grad():
+        ttables = prepare_sampling_tables(tcfg, encode(tmodel, tcfg, ref_images), ref_images)
+    del tmodel
+
+    def train_grids(patches):
+        idx = sample_ray_indices(H * W, TRAIN_RAYS, patches, dev, gen)
+        tpix = torch.stack([(idx % W).float(), (idx // W).float()], -1)[None]
+        return grids_of(tpix, sample_depth(tcfg, tgt_nf, 1, TRAIN_RAYS, stratified=True,
+                                           generator=gen))
+
+    grids_ray, grids_strip = train_grids(False), train_grids(True)
+    N = TRAIN_RAYS * S
+    for s, G in enumerate(tcfg.encoder.cos_n_group):
+        table = ttables["view_feats"][s][0]
+        h, w = table.shape[1:3]
+        gcot = torch.randn(TRAIN_RAYS, S, G, generator=gen, device=dev)
+        tag = f"V={V} scale {s} table {list(table.shape)} f32 G={G} R={TRAIN_RAYS} S={S}"
+        with torch.no_grad():
+            out["B_f32"].append(dict(scale=s, **prior_case(
+                torch, f"B {tag}", lambda: kb.cosine_prior(table, grids_ray, None, G),
+                lambda: kb.cosine_prior_plain(table, grids_ray, None, G), 1e-5,
+                lambda o: nbytes(table, grids_ray, o), prior_flops(N, False, V))))
+        # D': the strips' own bucket where D' takes it, else the widest bucket
+        # it takes (an overflowed union: the kernel against its plain twin at
+        # that bucket; the training route sends such a scale to B')
+        union = kd.block_union_size_raw(kd.pad_rays(grids_strip), h, w)
+        ut = kd.bucket_ut(union)
+        route = "D'" if ut is not None and kd.takes_f32(ut, S, G, h * w, V) else "B'"
+        if route == "B'":
+            ut = max(u for u in kd.UT_BUCKETS if kd.takes_f32(u, S, G, h * w, V))
+        with torch.no_grad():
+            out["D_f32"].append(dict(scale=s, **prior_case(
+                torch, f"D' forward {tag} (strips)",
+                lambda: kd.block_cosine_prior(table, grids_strip, None, G, ut),
+                lambda: kd.block_cosine_prior_plain(table, grids_strip, None, G, ut), 1e-5,
+                lambda o: nbytes(table, grids_strip, o), prior_flops(N, False, V),
+                {"ut": ut, "train_union_size": union, "training_route": route})))
+        for key, fn_k, fn_p, g_ in (
+                ("B_bwd", lambda t, g_: kb.cosine_prior(t, g_, None, G),
+                 lambda t, g_: kb.cosine_prior_plain(t, g_, None, G), grids_ray),
+                ("D_bwd", lambda t, g_: kd.block_cosine_prior(t, g_, None, G, ut),
+                 lambda t, g_: kd.block_cosine_prior_plain(t, g_, None, G, ut), grids_strip)):
+            tk, tp = table.clone().requires_grad_(), table.clone().requires_grad_()
+            ok, op = fn_k(tk, g_), fn_p(tp, g_)
+            bwd_k = lambda: grad(ok, tk, gcot, retain_graph=True)[0]
+            bwd_p = lambda: grad(op, tp, gcot, retain_graph=True)[0]
+            tol = 1e-5 * float(bwd_p().abs().max())
+            name = "B'" if key == "B_bwd" else "D'"
+            out[key].append(dict(scale=s, **prior_case(
+                torch, f"{name} backward {tag}", bwd_k, bwd_p, tol,
+                lambda o: 2 * nbytes(table) + nbytes(g_, gcot), prior_bwd_flops(N, V),
+                {"ut": ut} if key == "D_bwd" else None)))
+            del tk, tp, ok, op
+        del table
+    del ttables
+    torch.cuda.empty_cache()
+    return out
+
+
+def views_train(torch, dev, seed, tree, counters, ckpt, card):
+    """The views phase's training at V = 2: `python -m
+    matchnerf_tpu_torch.train --config train|train_fast --n_src_views=2`
+    (`build_coach` + `train_model`) on phase 12's DTU tree from the written
+    GMFlow checkpoint, VIEWS_STEPS steps each, no validation; the first step
+    against the all-plain step; B' (train.yaml) or D' (train_fast.yaml)
+    twice a step by the counters; a checkpoint written -> (results, the
+    train.yaml run's latest.ckpt)."""
+    from matchnerf_tpu_torch.train import build_coach
+    runs = os.path.join(tree["work"], "views_runs")
+    out, latest = {}, None
+    for label, bwd in (("train", "cosine_prior_bwd"), ("train_fast", "block_cosine_prior_bwd")):
+        argv = loop_args(label, f"views_{label}_v2", runs, tree["root"], tree["meta"],
+                         VIEWS_STEPS, **{"n_src_views": 2, "encoder.pretrain_weight": ckpt,
+                                         "freq.val_it": -1, "freq.test_ep": -1})
+        coach = build_coach(argv)
+        first = first_step_check(torch, dev, coach.cfg, next(iter(coach.train_loader)), seed,
+                                 f"views {label}.yaml V=2 bf16 policy", (1e-2, 0.5, 0.1))
+        torch.cuda.empty_cache()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coach.train_model()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        plain_cuda = {k: c.plain_on_cuda for k, c in counters.items()}
+        with open(coach.scalars_path) as f:
+            losses = [json.loads(line)["loss_render"] for line in f
+                      if json.loads(line)["split"] == "train"]
+        mdir = os.path.join(coach.output_path, "models")
+        ckpts = sorted(os.listdir(mdir))
+        log(f"views {label}.yaml V=2: {VIEWS_STEPS} steps in {wall:.3f} s "
+            f"({VIEWS_STEPS / wall:.3f} steps/s), route {coach.last_route} (None: B'), losses "
+            f"{[round(x, 6) for x in losses]}, checkpoints {ckpts}, launches {launches}, "
+            f"plain versions on CUDA {plain_cuda}; {card}")
+        if len(losses) != VIEWS_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"views {label} V=2: losses {losses}")
+        if "latest.ckpt" not in ckpts:
+            raise AssertionError(f"views {label} V=2: checkpoints {ckpts}")
+        if any(plain_cuda.values()):
+            raise AssertionError(f"views {label} V=2: plain versions ran on CUDA: {plain_cuda}")
+        if launches[bwd] != 2 * VIEWS_STEPS or launches["window_attention_bwd"] <= 0:
+            raise AssertionError(f"views {label} V=2: {bwd} launched {launches[bwd]} times")
+        out[label] = {"steps": VIEWS_STEPS, "wall_s": wall, "losses": losses,
+                      "route": coach.last_route, "launches": launches, "checkpoints": ckpts,
+                      "first_step": first}
+        if label == "train":
+            latest = os.path.join(mdir, "latest.ckpt")
+        del coach
+        torch.cuda.empty_cache()
+    return out, latest
+
+
+def views_eval(torch, dev, seed, tree, counters, V, load, card):
+    """The views phase's eval: `python -m matchnerf_tpu_torch.test --config
+    test --n_src_views=V --load=...` on phase 12's DTU tree (its test view):
+    A, C, D and E launch, no plain version on CUDA, the image >= 50 dB
+    against the all-plain render; the render's seconds, rays/s and each
+    eval kernel's device ms per launch."""
+    from matchnerf_tpu_torch.renderer import Renderer
+    argv = ["--config", "test", f"--name=views_v{V}", f"--load={load}",
+            f"--output_root={os.path.join(tree['work'], 'views_runs')}", f"--seed={seed}",
+            f"--n_src_views={V}", "--data_test.llff=", "--data_test.blender=",
+            "--data_test.tnt="] + entry_set_args("dtu", tree["root"], tree["meta"])
+    _, records = run_entry(torch, counters, argv)
+    rec = records[0]
+    check_entry_record("dtu", rec, ["window_attention", "cond_nerf_decode",
+                                    "block_cosine_prior", "supercell_color"], f"views V={V}")
+    renderer = rec["renderer"]
+    if renderer.cfg.n_src_views != V:
+        raise AssertionError(f"views V={V}: the entry rendered {renderer.cfg.n_src_views} views")
+    plain_t = {}
+    ref = Renderer(renderer.cfg, renderer.model, dev, kernel=False).forward(
+        rec["batch"], mode="test", timings=plain_t)
+    agreement = psnr(rec["out"]["rgb"], ref["rgb"])
+    del ref
+    kms = kernel_device_ms(torch, lambda: renderer.forward(rec["batch"], mode="test"))
+    t = rec["timings"]
+    n_rays = H * W
+    entry = {"V": V, "load": load or None, "render_s": t["render"], "encode_s": t["encode"],
+             "tables_s": t["tables"], "pose_prep_s": t.get("pose_prep", 0.0),
+             "image_s": rec["seconds"], "rays_per_s_render": n_rays / t["render"],
+             "plain_render_s": plain_t["render"], "psnr_vs_plain_db": agreement,
+             "route": rec["route"], "launches": rec["launches"],
+             "launches_by_route": rec["routes"],
+             "kernel_device_ms": {k: {"ms": ms, "launches": n, "ms_per_launch": ms / n}
+                                  for k, (ms, n) in kms.items()}}
+    log(f"views eval V={V} ({'weights ' + load if load else 'seeded weights'}): image "
+        f"{rec['seconds']:.4f} s, render {t['render']:.4f} s (pose_prep "
+        f"{entry['pose_prep_s']:.4f}), {entry['rays_per_s_render']:.0f} rays/s (render), route "
+        f"{rec['route']}, launches {rec['launches']}; kernels vs all-plain PSNR "
+        f"{agreement:.2f} dB (need >= 50); device ms (launches) "
+        + ", ".join(f"{k} {ms:.3f} ({n})" for k, (ms, n) in sorted(kms.items())) + f"; {card}")
+    if not agreement >= 50.0:
+        raise AssertionError(f"views V={V}: agreement PSNR {agreement:.2f} dB < 50")
+    del records, rec
+    torch.cuda.empty_cache()
+    return entry
+
+
+def views_phase(torch, dev, seed, tree, counters):
+    """Phase 18: two and four source views. The prior kernels at V = 2 and
+    4 against their plain twins, training at V = 2 through the training
+    entry, and the eval entry at V = 2 (the trained weights) and V = 4
+    (seeded weights)."""
+    from matchnerf_tpu_torch.config import dtu_train_config
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {"kernels": {V: views_kernels(torch, dev, seed, V, card) for V in VIEW_COUNTS}}
+    ckpt = os.path.join(tree["work"], "views_gmflow.pth")
+    cfg2 = dtu_train_config()
+    cfg2.n_src_views = 2
+    write_gmflow_checkpoint(torch, cfg2, seed, ckpt)
+    out["train"], latest = views_train(torch, dev, seed, tree, counters, ckpt, card)
+    out["eval"] = {V: views_eval(torch, dev, seed, tree, counters, V, load, card)
+                   for V, load in ((2, latest), (4, ""))}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"views phase: {out['phase_s']:.1f} s; {card}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3505,14 +3822,19 @@ def main():
 
     # ---- 16. the parallel layer: an NCCL world of one, two ranks on the card
     # (training and the ray-sharded render), the training entry as 2 processes
-    parallel = parallel_phase(torch, dev, batch, args.seed, block_rgb, loop.pop("tree"),
-                              counters)
+    tree = loop.pop("tree")               # phase 12's DTU tree, for phases 16 and 18
+    parallel = parallel_phase(torch, dev, batch, args.seed, block_rgb, tree, counters)
 
     # ---- 17. the host's image I/O: decode and resize timings, the T&T
     # loader's seconds per sample, decode(encode(seeded image)) against PIL's
     host_io = host_io_phase(test_entry["tnt_tree"], host_jpegs.result()[2])
     jpeg_pool.shutdown()
     host_io["printer"] = printer
+    torch.cuda.empty_cache()
+
+    # ---- 18. two and four source views: B, B', D and D' at V = 2 and 4,
+    # the training entry at V = 2, the eval entry at V = 2 and 4
+    views = views_phase(torch, dev, args.seed, tree, counters)
 
     def per_scale(entries):
         return {"max_abs_err": max(e["max_abs_err"] for e in entries),
@@ -3583,6 +3905,37 @@ def main():
         1008x756 images."""
         return {"train_ibrnet": {"slice_23552": slice_entry, **{
             f"{k}_image": v["kernel_device_ms"].get(name) for k, v in ibr["images"].items()}}}
+
+    def views_of(name):
+        """The kernel at V = 2 and V = 4 (phase 18): each prior kernel
+        against its plain twin with its bound, its launches in the V-view
+        eval image (B, C, D, E, A) or the V = 2 training run (A', B', D'),
+        and each eval kernel's device ms per launch in the V-view image."""
+        key = {"cosine_prior": "B", "cosine_prior_bwd": "B_bwd", "block_cosine_prior": "D",
+               "block_cosine_prior_f32": "D_f32", "block_cosine_prior_bwd": "D_bwd"}.get(name)
+        run = {"window_attention_bwd": "train", "cosine_prior_bwd": "train",
+               "block_cosine_prior_f32": "train_fast",
+               "block_cosine_prior_bwd": "train_fast"}.get(name)
+        out = {}
+        for V in VIEW_COUNTS:
+            k, ev = views["kernels"][V], views["eval"][V]
+            e = {"name": name, "V": V, "library_ms": None}
+            if key:
+                e.update(per_scale(k[key]))
+            if key in ("B", "D"):
+                e["bfloat16"] = per_scale(k[key + "_bf16"])
+            if key == "B":
+                e["f32_training_shapes"] = per_scale(k["B_f32"])
+            if run:
+                e["launches"] = (views["train"][run]["launches"][name] if V == 2 else None)
+                e["launches_in"] = f"{run}.yaml V=2, {VIEWS_STEPS} steps" if V == 2 else \
+                    "no training run at V=4 (ROADMAP)"
+            else:
+                e["launches"] = ev["launches"][name]
+                e["launches_in"] = f"the eval entry's DTU image at V={V}"
+                e["image_device_ms"] = ev["kernel_device_ms"].get(name)
+            out[f"V{V}"] = e
+        return out
 
     a_bwd = res["A_bwd"]
     par_paths = {"nccl_world_1_train_step": None, **parallel["launches"]}
@@ -3664,6 +4017,11 @@ def main():
         "serve": served,
         "parallel": {k: v for k, v in parallel.items() if k != "launches"},
         "host_io": host_io}}
+    for e in report["kernels"]:
+        if e["name"] != "fused_cosine":              # Kernel F stays at V = 3
+            e["views"] = views_of(e["name"])
+    report["paths"]["views"] = {"train": views["train"], "eval": views["eval"],
+                                "phase_s": views["phase_s"]}
     # each kernel's launches in each rank of phase 16, per path
     for e in report["kernels"]:
         name = e["name"].replace("_bf16", "")

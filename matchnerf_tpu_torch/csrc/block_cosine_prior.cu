@@ -9,18 +9,20 @@
 // matchnerf_tpu_torch/ops/block_cosine_prior.py.
 //
 // Output as Kernel B (csrc/cosine_prior.cu): for each sample n and each of
-// the V = 3 views, the bilinear sample (align corners, border clamp) of the
-// view's unpacked table [V,H,W,2C] (C = 128; int8 with a per-(view,
-// channel) dequantisation scale after the interpolation, bf16 or f32
-// without); for each pair (i, j) in (0,1), (0,2), (1,2) the grouped cosine
-// of view i's chunk j-1 against view j's chunk i (eps 1e-8 on each norm),
-// averaged over the pairs. out[n, g], f32. grids [V,R,S,2] f32; the tail
-// block repeats the last ray (the edge padding of the plain version).
+// the V views (V = 2, 3 or 4, a run-time argument), the bilinear sample
+// (align corners, border clamp) of the view's unpacked table [V,H,W,(V-1)C]
+// (C = 128; int8 with a per-(view, channel) dequantisation scale
+// [V,(V-1)C] after the interpolation, bf16 or f32 without); for each of
+// the P = V(V-1)/2 pairs (i, j) of pair_index_lists(V) (views.cuh) the
+// grouped cosine of view i's chunk j-1 against view j's chunk i (eps 1e-8
+// on each norm), averaged over the pairs. out[n, g], f32. grids [V,R,S,2]
+// f32; the tail block repeats the last ray (the edge padding of the plain
+// version).
 //
 // What bounds it: instruction issue in the sample loops (three quarters of
 // a block's cycles at the eval buckets; the union build and the staging
 // take the rest: python -m matchnerf_tpu_torch.profile_prior --phases).
-// Kernel B gathers 4 taps x 3 views x 256 channels per sample from L2 and,
+// Kernel B gathers 4 taps x V views x (V-1)128 channels per sample from L2 and,
 // on int8 tables, converts each one. Adjacent rays of a block cross nearly
 // the same table rows, so one block of 512 threads owns one 8-ray block and
 // works from the block's union of table rows, where a tap element costs a
@@ -43,7 +45,7 @@
 //    (D''s forward) the union is written to [V*NB, ut] int32, -1 padded,
 //    for D''s backward.
 // 2. Staging, once per pair and pass: the CP channels (128, 64 or 32; the
-//    host picks the widest that fits, ops/block_cosine_prior.py::
+//    host picks the widest that fits at this V, ops/block_cosine_prior.py::
 //    channels_per_pass) of the pair's two chunks of the <= ut union rows go
 //    to shared memory as 16-bit bf16 (int8 and bf16 tables) or f32 (f32
 //    tables). bf16 and f32 rows arrive by cp.async, 16 bytes a copy; int8
@@ -64,14 +66,15 @@
 //    repeats (tap rows, weights, reductions, the norms' reciprocal square
 //    roots) half as often.
 //
-// Shared memory (LayoutFwd), at the eval pose's buckets and S = 128: rows
-// 2 x (ut+1) x CP x 2 B (ut 320, CP 128: 164,352 B; at ut 160 82,432 B),
-// taps [V][8S] uint2 (24,576 B: four 16-bit union rows each), fractions
+// Shared memory (LayoutFwd), at the eval pose's buckets, S = 128 and V = 3:
+// rows 2 x (ut+1) x CP x 2 B (ut 320, CP 128: 164,352 B; at ut 160 82,432
+// B), taps [V][8S] uint2 (24,576 B: four 16-bit union rows each), fractions
 // [V][8S] float2 (24,576 B), the union [V][ut] int32 (3,840 B at ut 320):
 // 217,344 B of the 232,448 a block may have at ut 320, one block per SM.
-// Wider unions stage 64 channels a pass. The union scratch needs
-// (2 V ceil(H*W/32) + 32) x 4 B (15,488 B for a 128 x 160 table) and takes
-// the larger of the two in the rows' place.
+// Wider unions stage 64 channels a pass; so does V = 4 at ut 320 (its taps,
+// fractions and union take 70,656 B). The union scratch needs
+// (2 V ceil(H*W/32) + 32) x 4 B (15,488 B for a 128 x 160 table at V = 3)
+// and takes the larger of the two in the rows' place.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,12 +83,11 @@
 
 #include "cosine_bwd.cuh"
 #include "int8_exact.cuh"
+#include "views.cuh"
 
 namespace {
 
-constexpr int V = 3;
-constexpr int C = 128;          // channels per pair chunk
-constexpr int CC = 2 * C;       // channels per view table row
+constexpr int C = 128;          // channels per pair chunk; a view's row holds V-1
 constexpr int LANES = 8;        // forward: lanes per sample (pair_cosine8)
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
@@ -205,7 +207,7 @@ __device__ __forceinline__ void pair_cosine8(const float* fa, const float* fb,
 // ------------------------------------------------- D and D''s forward
 struct LayoutFwd {        // dynamic shared memory, in bytes from its start
   size_t rows, taps, fracs, unions, total;
-  __host__ __device__ LayoutFwd(int ut, int S, int CP, int esize, int HW) {
+  __host__ __device__ LayoutFwd(int V, int ut, int S, int CP, int esize, int HW) {
     const size_t samples = (size_t)BLOCK_RAYS * S;
     const size_t staged = (size_t)2 * (ut + 1) * CP * esize;   // [2][ut+1][CP]
     const size_t scratch = ((size_t)2 * V * ((HW + 31) / 32) + 32) * sizeof(int);
@@ -254,11 +256,12 @@ __device__ __forceinline__ void scan_popc(const unsigned* bits, int* pre, int M,
 
 // set bits per view, after a scan: min(ut, count) in n[v]; the first ut
 // cells of each view, ascending, into u[v * ut + rank]
-__device__ __forceinline__ void take_first(const unsigned* bits, const int* pre, int nw,
+__device__ __forceinline__ void take_first(const unsigned* bits, const int* pre, int V, int nw,
                                            int ut, int* u, int* n, int tid) {
   const int M = V * nw;
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
+  for (int v = 0; v < MAX_V; ++v) {
+    if (v >= V) break;
     const int end = v + 1 < V ? pre[(v + 1) * nw] : pre[M - 1] + __popc(bits[M - 1]);
     n[v] = min(ut, end - pre[v * nw]);
   }
@@ -277,7 +280,7 @@ __device__ __forceinline__ void take_first(const unsigned* bits, const int* pre,
 
 // n[v] with v known only at run time, without a local-memory array
 __device__ __forceinline__ int of_view(const int* n, int v) {
-  return v == 0 ? n[0] : (v == 1 ? n[1] : n[2]);
+  return v == 0 ? n[0] : (v == 1 ? n[1] : (v == 2 ? n[2] : n[3]));
 }
 
 // the union row of `cell` in view v: its rank among the set bits, or ut
@@ -298,8 +301,8 @@ __device__ __forceinline__ unsigned union_row(const unsigned* bits, const int* p
 __device__ __forceinline__ void build_union(const float* __restrict__ grids,
                                             int* __restrict__ unions_out, unsigned* bits,
                                             int* pre, int* wsum, uint2* taps, float2* fracs,
-                                            int* u_s, int H, int W, int R, int S, int ut,
-                                            int blk, int tid) {
+                                            int* u_s, int V, int H, int W, int R, int S,
+                                            int ut, int blk, int tid) {
   const int samples = BLOCK_RAYS * S;
   const int HW = H * W, nw = (HW + 31) / 32, M = V * nw;
   for (int i = tid; i < M; i += THREADS) bits[i] = 0u;
@@ -316,9 +319,9 @@ __device__ __forceinline__ void build_union(const float* __restrict__ grids,
     atomicOr(bits + v * nw + (cell >> 5), 1u << (cell & 31));
   }
   __syncthreads();
-  int n[V];
+  int n[MAX_V];
   scan_popc(bits, pre, M, wsum, tid);
-  take_first(bits, pre, nw, ut, u_s, n, tid);       // the capped base cells
+  take_first(bits, pre, V, nw, ut, u_s, n, tid);    // the capped base cells
   __syncthreads();
   for (int i = tid; i < M; i += THREADS) bits[i] = 0u;
   __syncthreads();
@@ -334,7 +337,7 @@ __device__ __forceinline__ void build_union(const float* __restrict__ grids,
   }
   __syncthreads();
   scan_popc(bits, pre, M, wsum, tid);
-  take_first(bits, pre, nw, ut, u_s, n, tid);       // the union
+  take_first(bits, pre, V, nw, ut, u_s, n, tid);    // the union
   for (int i = tid; i < V * ut; i += THREADS)
     if (i % ut >= of_view(n, i / ut)) u_s[i] = INT_MAX;
   for (int t = tid; t < V * samples; t += THREADS) {
@@ -367,11 +370,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // step 2 of the header: CP channels (from channel c0 of the chunk) of both
-// sides' union rows; row ut is zero. TG = TS: cp.async, 16 bytes a copy.
+// sides' union rows (CC channels a table row); row ut is zero. TG = TS:
+// cp.async, 16 bytes a copy.
 template <typename TG, typename TS>
 __device__ __forceinline__ void stage_pass(const TG* __restrict__ table, const int* u_s,
-                                           TS* rows, int H, int W, int ut, int CP, int vi,
-                                           int vj, int ca, int cb, int c0, int tid) {
+                                           TS* rows, int H, int W, int CC, int ut, int CP,
+                                           int vi, int vj, int ca, int cb, int c0, int tid) {
   constexpr int EL = 16 / sizeof(TG);              // table elements per 16 bytes
   const int parts = CP / EL;
   const int per_side = (ut + 1) * parts;
@@ -505,13 +509,14 @@ template <typename TG, typename TS, int CP>
 __global__ void __launch_bounds__(THREADS)
 block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict__ grids,
                           const float* __restrict__ scales, int* __restrict__ unions_out,
-                          float* __restrict__ out, int H, int W, int G, int R, int S, int ut) {
+                          float* __restrict__ out, int V, int H, int W, int G, int R, int S,
+                          int ut) {
   constexpr int CPL = CP / LANES;                  // channels per lane: 16, 8 or 4
   constexpr int SW = 16 / (int)sizeof(TS) < CPL ? 16 / (int)sizeof(TS) : CPL;
   constexpr int NS = CPL / SW;
   constexpr bool SCALED = sizeof(TG) == 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  const LayoutFwd L(ut, S, CP, sizeof(TS), H * W);
+  const LayoutFwd L(V, ut, S, CP, sizeof(TS), H * W);
   TS* rows = reinterpret_cast<TS*>(smem + L.rows);
   uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
   float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
@@ -527,20 +532,24 @@ block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict_
   const int grp = tid / LANES;
   const int samples = BLOCK_RAYS * S;
   const int valid = min(BLOCK_RAYS, R - blk * BLOCK_RAYS) * S;
+  const int CC = (V - 1) * C;              // channels per view table row
+  const int P = n_pairs(V);
+  const float inv_p = 1.f / (float)P;      // the mean over the pairs
   const SlotGroups<SW> sg(G);
   PHASE_START;
-  build_union(grids, unions_out, bits, pre, wsum, taps, fracs, u_s, H, W, R, S, ut, blk, tid);
+  build_union(grids, unions_out, bits, pre, wsum, taps, fracs, u_s, V, H, W, R, S, ut, blk,
+              tid);
   PHASE_MARK(0);
   float* ob = out + (size_t)blk * BLOCK_RAYS * S * G;
 
 #pragma unroll 1
-  for (int p = 0; p < 3; ++p) {
-    const int vi = p == 2 ? 1 : 0, vj = p == 0 ? 1 : 2;   // (0,1), (0,2), (1,2)
+  for (int p = 0; p < P; ++p) {
+    const int vi = pair_first(V, p), vj = pair_second(V, p);
     const int ca = vj - 1, cb = vi;        // view i's chunk j-1, view j's chunk i
 #pragma unroll 1
     for (int c0 = 0; c0 < C; c0 += CP) {
       __syncthreads();                     // the union / the previous pass done
-      stage_pass<TG, TS>(table, u_s, rows, H, W, ut, CP, vi, vj, ca, cb, c0, tid);
+      stage_pass<TG, TS>(table, u_s, rows, H, W, CC, ut, CP, vi, vj, ca, cb, c0, tid);
       __syncthreads();
       PHASE_MARK(1);
       float sa[CPL], sb[CPL];             // dequantisation scales (int8 tables)
@@ -589,7 +598,7 @@ block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict_
         for (int k = 0; k < NS; ++k) {
           if (owned[k] >= 0 && nl_raw < valid) {
             const float t = sum[k] + cosv[k];
-            ob[(size_t)nl * G + owned[k]] = p == 2 ? t * (1.f / 3.f) : t;
+            ob[(size_t)nl * G + owned[k]] = p == P - 1 ? t * inv_p : t;
           }
           sum[k] = next[k];
         }
@@ -649,15 +658,16 @@ block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict_
 //    its d_acc entries to d_table and zeroes them while the next pass's rows
 //    arrive by cp.async into the rows the loop has finished with.
 //
-// Shared memory (LayoutPass) at the training pose's buckets and S = 128:
-// ut 160, CP 64 (G = 2): rows 2 x 161 x 64 x 4 B = 82,432 B, d_acc the
-// same, taps and fractions [V][8S] 49,152 B, union 1,920 B: 215,936 B; ut
-// 320, CP 32 (G = 8): 82,176 B twice, 49,152 B, 3,840 B: 217,344 B. One
-// block per SM.
+// Shared memory (LayoutPass) at the training pose's buckets, S = 128 and
+// V = 3: ut 160, CP 64 (G = 2): rows 2 x 161 x 64 x 4 B = 82,432 B, d_acc
+// the same, taps and fractions [V][8S] 49,152 B, union 1,920 B: 215,936 B;
+// ut 320, CP 32 (G = 8): 82,176 B twice, 49,152 B, 3,840 B: 217,344 B. One
+// block per SM. At V = 4 the taps and fractions take 65,536 B, so ut 160 at
+// G = 2 fits no pass (CP 64: 232,960 B) and takes B'.
 
 struct LayoutPass {       // dynamic shared memory, in bytes from its start
   size_t rows, dacc, taps, fracs, unions, total;
-  __host__ __device__ LayoutPass(int ut, int S, int CP) {
+  __host__ __device__ LayoutPass(int V, int ut, int S, int CP) {
     const size_t samples = (size_t)BLOCK_RAYS * S;
     const size_t side = (size_t)(ut + 1) * CP * sizeof(float);
     rows = 0;                                              // [2][ut+1][CP] f32
@@ -677,7 +687,7 @@ struct LayoutPass {       // dynamic shared memory, in bytes from its start
 __device__ __forceinline__ void block_prologue(const float* __restrict__ grids,
                                                const int* __restrict__ unions,
                                                int* u_s, uint2* taps, float2* fracs,
-                                               int H, int W, int S, int NB, int ut,
+                                               int V, int H, int W, int S, int NB, int ut,
                                                int blk, int tid) {
   const int samples = BLOCK_RAYS * S;
   const int Rp = NB * BLOCK_RAYS;
@@ -806,12 +816,14 @@ __device__ __forceinline__ void slot_flush(const float (&acc)[4][CPL], const int
     if (key[s] != ut) slot_add<CPL>(dacc + key[s] * CP + o, acc[s]);
 }
 
-// CP channels (from channel c0 of the chunk) of both sides' f32 union rows
-// by cp.async, 16 bytes a copy, row ut zero; committed, not waited for
+// CP channels (from channel c0 of the chunk) of both sides of pair p's f32
+// union rows by cp.async, 16 bytes a copy, row ut zero; committed, not
+// waited for
 __device__ __forceinline__ void issue_rows(const float* __restrict__ table, const int* u_s,
-                                           float* rows, int H, int W, int ut, int CP, int p,
-                                           int c0, int tid) {
-  const int vi = p == 2 ? 1 : 0, vj = p == 0 ? 1 : 2, ca = vj - 1, cb = vi;
+                                           float* rows, int V, int H, int W, int ut, int CP,
+                                           int p, int c0, int tid) {
+  const int CC = (V - 1) * C;
+  const int vi = pair_first(V, p), vj = pair_second(V, p), ca = vj - 1, cb = vi;
   const int parts = CP / 4;
   const int per_side = (ut + 1) * parts;
   for (int i = tid; i < 2 * per_side; i += THREADS) {
@@ -832,12 +844,12 @@ __global__ void __launch_bounds__(THREADS)
 block_cosine_prior_bwd_kernel(const float* __restrict__ table,
                               const float* __restrict__ grids,
                               const int* __restrict__ unions, const float* __restrict__ gout,
-                              float* __restrict__ d_table, int H, int W, int G, int R,
-                              int S, int NB, int ut) {
+                              float* __restrict__ d_table, int V, int H, int W, int G,
+                              int R, int S, int NB, int ut) {
   constexpr int CP = CPL * BL;
   constexpr int WALKS = THREADS / BL;                   // sample groups, one walk each
   extern __shared__ __align__(16) unsigned char smem[];
-  const LayoutPass L(ut, S, CP);
+  const LayoutPass L(V, ut, S, CP);
   float* rows = reinterpret_cast<float*>(smem + L.rows);
   float* dacc = reinterpret_cast<float*>(smem + L.dacc);
   uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
@@ -860,16 +872,19 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
   const int seg = (S + WALKS - 1) / WALKS;
   const int lo = grp * seg, nd = max(0, min(S, lo + seg) - lo);
   const int rays = min(BLOCK_RAYS, R - blk * BLOCK_RAYS);
-  block_prologue(grids, unions, u_s, taps, fracs, H, W, S, NB, ut, blk, tid);
+  const int CC = (V - 1) * C;
+  const int P = n_pairs(V);
+  const float inv_p = 1.f / (float)P;      // the mean over the pairs
+  block_prologue(grids, unions, u_s, taps, fracs, V, H, W, S, NB, ut, blk, tid);
   for (int i = tid; i < 2 * (ut + 1) * CP / 4; i += THREADS)
     reinterpret_cast<float4*>(dacc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();                         // the union, for the first staging
-  issue_rows(table, u_s, rows, H, W, ut, CP, 0, 0, tid);
+  issue_rows(table, u_s, rows, V, H, W, ut, CP, 0, 0, tid);
   const float* gb = gout + (size_t)blk * BLOCK_RAYS * S * G;
 
 #pragma unroll 1
-  for (int p = 0; p < 3; ++p) {
-    const int vi = p == 2 ? 1 : 0, vj = p == 0 ? 1 : 2;
+  for (int p = 0; p < P; ++p) {
+    const int vi = pair_first(V, p), vj = pair_second(V, p);
     const int ca = vj - 1, cb = vi;
 #pragma unroll 1
     for (int c0 = 0; c0 < C; c0 += CP) {
@@ -912,8 +927,7 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
           nb2 += __shfl_xor_sync(mask, nb2, off);
         }
         float d_dot, d_na2, d_nb2;
-        cosine_bwd(gb[(size_t)nl * G + group] * (1.f / 3.f), dot, na2, nb2, d_dot, d_na2,
-                   d_nb2);
+        cosine_bwd(gb[(size_t)nl * G + group] * inv_p, dot, na2, nb2, d_dot, d_na2, d_nb2);
         float dfa[CPL], dfb[CPL];
 #pragma unroll
         for (int e = 0; e < CPL; ++e) {
@@ -927,7 +941,7 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
       slot_flush<CPL>(acc[1], key[1], dacc_b, CP, o, ut);
       __syncthreads();                     // d_acc complete, rows free
       const int next_p = c0 + CP < C ? p : p + 1, next_c0 = c0 + CP < C ? c0 + CP : 0;
-      if (next_p < 3) issue_rows(table, u_s, rows, H, W, ut, CP, next_p, next_c0, tid);
+      if (next_p < P) issue_rows(table, u_s, rows, V, H, W, ut, CP, next_p, next_c0, tid);
       // flush: every union row of both sides, once, into d_table; zero d_acc
       const int per_side = (ut + 1) * (CP / 4);
       for (int i = tid; i < 2 * per_side; i += THREADS) {
@@ -955,9 +969,9 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
 
 template <int CPL, int BL>
 int launch_bwd(const void* table, const void* grids, const void* unions, const void* g,
-               void* d_table, int H, int W, int G, int R, int S, int NB, int ut,
+               void* d_table, int V, int H, int W, int G, int R, int S, int NB, int ut,
                cudaStream_t stream) {
-  const LayoutPass L(ut, S, CPL * BL);
+  const LayoutPass L(V, ut, S, CPL * BL);
   if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       block_cosine_prior_bwd_kernel<CPL, BL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -967,20 +981,21 @@ int launch_bwd(const void* table, const void* grids, const void* unions, const v
                                            L.total, stream>>>(
       static_cast<const float*>(table), static_cast<const float*>(grids),
       static_cast<const int*>(unions), static_cast<const float*>(g),
-      static_cast<float*>(d_table), H, W, G, R, S, NB, ut);
+      static_cast<float*>(d_table), V, H, W, G, R, S, NB, ut);
   return (int)cudaGetLastError();
 }
 
 bool args_ok(int views, int channels, int H, int W, int R, int S, int ut, int G, int CP) {
-  return views == V && channels == C && H > 0 && W > 0 && R > 0 && S > 0 && ut > 0 &&
+  return views >= MIN_V && views <= MAX_V && channels == C && H > 0 && W > 0 && R > 0 && S > 0 && ut > 0 &&
          ut <= MAX_UT && (G == 1 || G == 2 || G == 4 || G == 8 || G == 16) &&
          (CP == 32 || CP == 64 || CP == 128) && G * CP >= C && G * CP <= 16 * C;
 }
 
 template <typename TG, typename TS, int CP>
 int launch_fwd(const void* table, const void* grids, const void* scales, void* unions_out,
-               void* out, int H, int W, int G, int R, int S, int ut, cudaStream_t stream) {
-  const LayoutFwd L(ut, S, CP, sizeof(TS), H * W);
+               void* out, int V, int H, int W, int G, int R, int S, int ut,
+               cudaStream_t stream) {
+  const LayoutFwd L(V, ut, S, CP, sizeof(TS), H * W);
   if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   auto kernel = block_cosine_prior_kernel<TG, TS, CP>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -989,7 +1004,7 @@ int launch_fwd(const void* table, const void* grids, const void* scales, void* u
   kernel<<<(R + BLOCK_RAYS - 1) / BLOCK_RAYS, THREADS, L.total, stream>>>(
       static_cast<const TG*>(table), static_cast<const float*>(grids),
       static_cast<const float*>(scales), static_cast<int*>(unions_out),
-      static_cast<float*>(out), H, W, G, R, S, ut);
+      static_cast<float*>(out), V, H, W, G, R, S, ut);
   return (int)cudaGetLastError();
 }
 
@@ -1003,19 +1018,21 @@ int dispatch_fwd(const void* table, const void* grids, const void* scales, void*
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (CP == 128)
-    return launch_fwd<TG, TS, 128>(table, grids, scales, unions_out, out, H, W, G, R, S, ut,
-                                   st);
+    return launch_fwd<TG, TS, 128>(table, grids, scales, unions_out, out, views, H, W, G, R,
+                                   S, ut, st);
   if (CP == 64)
-    return launch_fwd<TG, TS, 64>(table, grids, scales, unions_out, out, H, W, G, R, S, ut,
-                                  st);
-  return launch_fwd<TG, TS, 32>(table, grids, scales, unions_out, out, H, W, G, R, S, ut, st);
+    return launch_fwd<TG, TS, 64>(table, grids, scales, unions_out, out, views, H, W, G, R,
+                                  S, ut, st);
+  return launch_fwd<TG, TS, 32>(table, grids, scales, unions_out, out, views, H, W, G, R, S,
+                                ut, st);
 }
 
 }  // namespace
 
-// The forward entries: table [V,H,W,2C], grids [V,R,S,2] f32, scales [V,2C]
-// f32 (int8 tables) or NULL, unions_out [V*ceil(R/8), ut] int32 or NULL,
-// out [R,S,G] f32; CP channels staged per pass.
+// The forward entries: table [V,H,W,(V-1)C] (V = 2, 3 or 4), grids [V,R,S,2]
+// f32, scales [V,(V-1)C] f32 (int8 tables) or NULL, unions_out
+// [V*ceil(R/8), ut] int32 or NULL, out [R,S,G] f32; CP channels staged per
+// pass.
 
 // Kernel D on int8 tables (configs/test.yaml's eval render)
 extern "C" int block_cosine_prior_i8(const void* table, const void* grids, const void* scales,
@@ -1055,8 +1072,8 @@ extern "C" int block_cosine_prior_phases(void* dst) {
 #endif
 
 // D''s backward: grids [V,8*NB,S,2] (edge-padded), the forward's unions
-// [V*NB, ut], g [R,S,G] f32 cotangent; d_table [V,H,W,2C] f32, zeroed by
-// the caller
+// [V*NB, ut], g [R,S,G] f32 cotangent; d_table [V,H,W,(V-1)C] f32, zeroed
+// by the caller
 extern "C" int block_cosine_prior_bwd_f32(const void* table, const void* grids,
                                           const void* unions, const void* g, void* d_table,
                                           int views, int H, int W, int channels, int G,
@@ -1066,8 +1083,10 @@ extern "C" int block_cosine_prior_bwd_f32(const void* table, const void* grids,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (CP == 128)
-    return launch_bwd<8, 16>(table, grids, unions, g, d_table, H, W, G, R, S, NB, ut, st);
+    return launch_bwd<8, 16>(table, grids, unions, g, d_table, views, H, W, G, R, S, NB, ut,
+                             st);
   if (CP == 64)
-    return launch_bwd<4, 16>(table, grids, unions, g, d_table, H, W, G, R, S, NB, ut, st);
-  return launch_bwd<4, 8>(table, grids, unions, g, d_table, H, W, G, R, S, NB, ut, st);
+    return launch_bwd<4, 16>(table, grids, unions, g, d_table, views, H, W, G, R, S, NB, ut,
+                             st);
+  return launch_bwd<4, 8>(table, grids, unions, g, d_table, views, H, W, G, R, S, NB, ut, st);
 }

@@ -7,17 +7,20 @@
 // version, autograd Function and wrappers:
 // matchnerf_tpu_torch/ops/cosine_prior.py.
 //
-// For each sample n and each of the V = 3 views: bilinear sample (align
-// corners, border clamp) of the view's unpacked table [V,H,W,2C] (C = 128,
-// int8, bf16 or f32) at grids[v, n], times the per-(view, channel)
-// dequantisation scale where scales are given (int8 tables; NULL for bf16
-// and f32); then for each pair (i, j) in (0,1), (0,2), (1,2) the grouped
-// cosine of view i's chunk j-1 against view j's chunk i (eps 1e-8 on each
-// norm), averaged over the pairs. out[n, g], f32.
+// For each sample n and each of the V views (V = 2, 3 or 4: n_src_views):
+// bilinear sample (align corners, border clamp) of the view's unpacked
+// table [V,H,W,(V-1)C] (C = 128, int8, bf16 or f32) at grids[v, n], times
+// the per-(view, channel) dequantisation scale [V,(V-1)C] where scales are
+// given (int8 tables; NULL for bf16 and f32); then for each of the
+// P = V(V-1)/2 pairs (i, j) of pair_index_lists(V) ((0,1), (0,2), (1,2) at
+// V = 3; views.cuh) the grouped cosine of view i's chunk j-1 against view
+// j's chunk i (eps 1e-8 on each norm), averaged over the pairs. out[n, g],
+// f32. The forward is compiled once per V.
 //
-// What bounds it: instruction issue. Each sample reads 4 taps x 3 views x
-// 256 channels (3 KB with int8 tables, 6 KB with bf16, 12 KB with f32) for
-// ~10 K flops; both DTU tables (3.9 MB and 15.7 MB in int8 for 3 views) fit
+// What bounds it: instruction issue. Each sample reads 4 taps x V views x
+// (V-1)128 channels (3 KB with int8 tables at V = 3, 6 KB with bf16, 12 KB
+// with f32) for ~10 K flops; both DTU tables (3.9 MB and 15.7 MB in int8 for
+// 3 views) fit
 // in the 50 MB L2 and neighbouring samples of a ray hit neighbouring cells,
 // so the taps come from L1 and L2, and the SMs' issue slots run out first:
 // per tap element a widening and a multiply-add (an int-to-float
@@ -28,7 +31,7 @@
 // per-sample work that every lane repeats is paid 8 times, not 16 (f32 rows
 // keep 16 lanes of 8 channels); a lane reads its channels of a tap row as
 // one 16-byte load (int8), two (bf16, f32), the sample's lanes one
-// contiguous run. int8 taps are converted on the integer pipe, exactly
+// contiguous run. Each view's taps are found once and serve its V-1 pairs. int8 taps are converted on the integer pipe, exactly
 // (int8_exact.cuh: a byte permute and a subtract, no int-to-float
 // instruction); bf16 widen by a shift or a mask. Each (view, chunk) enters
 // exactly one pair, so a pair's two sides are interpolated (f32 weights and
@@ -43,12 +46,11 @@
 
 #include "cosine_bwd.cuh"
 #include "int8_exact.cuh"
+#include "views.cuh"
 
 namespace {
 
-constexpr int V = 3;
-constexpr int C = 128;          // channels per pair chunk
-constexpr int CC = 2 * C;       // channels per view table row
+constexpr int C = 128;          // channels per pair chunk; a view's row holds V-1
 constexpr int THREADS = 256;
 constexpr int LANES = C / 8;    // backward: lanes per sample and pair, 8 channels each
 
@@ -95,13 +97,14 @@ __device__ __forceinline__ void load_run(const float* p, float* f) {
 }
 
 // one view's bilinear taps at one sample: the four rows (element offsets
-// into the table) and their weights, the plain version's rule (clip, floor,
-// border-clamped x1/y1)
+// into the table of CC-channel rows) and their weights, the plain version's
+// rule (clip, floor, border-clamped x1/y1)
 struct Taps {
   size_t row[4];
   float w[4];
 };
 
+template <int CC>
 __device__ __forceinline__ Taps view_taps(const float* __restrict__ grids, int v, int n, int N,
                                           int H, int W) {
   const float gx = grids[((size_t)v * N + n) * 2 + 0];
@@ -151,11 +154,13 @@ __device__ __forceinline__ float cosine(float dot, float na2, float nb2) {
   return dot * rsqrtf(fmaxf(na2, 1e-16f)) * rsqrtf(fmaxf(nb2, 1e-16f));
 }
 
-template <typename T>
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
 cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids,
                     const float* __restrict__ scales, float* __restrict__ out,
                     int H, int W, int G, int N) {
+  constexpr int CC = (V - 1) * C;        // channels per view table row
+  constexpr int P = n_pairs(V);
   constexpr int CPL = lane_channels<T>();
   constexpr int SAMPLE_LANES = C / CPL, SAMPLES = THREADS / SAMPLE_LANES;
   constexpr int HALVES = CPL / 8;        // 8-channel halves: the groups at G = 16
@@ -166,7 +171,7 @@ cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids
   const int o = lane * CPL;
   Taps taps[V];
 #pragma unroll
-  for (int v = 0; v < V; ++v) taps[v] = view_taps(grids, v, n, N, H, W);
+  for (int v = 0; v < V; ++v) taps[v] = view_taps<CC>(grids, v, n, N, H, W);
 
   // G * CPL <= 128: the lanes_per_group lanes of a group reduce by shuffles;
   // G = 16 with 16 channels a lane: each half of a lane's channels is a group
@@ -176,10 +181,9 @@ cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids
 #pragma unroll
   for (int h = 0; h < HALVES; ++h) total[h] = 0.f;
   // pair (i, j): view i's chunk j-1 against view j's chunk i
-  constexpr int PI[3] = {0, 0, 1}, PJ[3] = {1, 2, 2};
 #pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    const int vi = PI[p], vj = PJ[p], ca = vj - 1, cb = vi;
+  for (int p = 0; p < P; ++p) {
+    const int vi = pair_first(V, p), vj = pair_second(V, p), ca = vj - 1, cb = vi;
     float fa[CPL], fb[CPL];
     interp_run<CPL>(table, taps[vi], ca * C + o, scales ? scales + vi * CC : nullptr, fa);
     interp_run<CPL>(table, taps[vj], cb * C + o, scales ? scales + vj * CC : nullptr, fb);
@@ -212,32 +216,44 @@ cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids
   if (n_raw >= N) return;
   if (by_half) {
 #pragma unroll
-    for (int h = 0; h < HALVES; ++h) out[(size_t)n * G + HALVES * lane + h] = total[h] / 3.f;
+    for (int h = 0; h < HALVES; ++h)
+      out[(size_t)n * G + HALVES * lane + h] = total[h] / (float)P;
   } else if (lane % lanes_per_group == 0) {
-    out[(size_t)n * G + lane / lanes_per_group] = total[0] / 3.f;
+    out[(size_t)n * G + lane / lanes_per_group] = total[0] / (float)P;
   }
+}
+
+bool args_ok(int views, int H, int W, int channels, int G, int N) {
+  return views >= MIN_V && views <= MAX_V && channels == C && H > 0 && W > 0 && N >= 0 &&
+         (G == 1 || G == 2 || G == 4 || G == 8 || G == 16);
+}
+
+template <typename T, int V>
+int launch_v(const void* table, const void* grids, const void* scales, void* out, int H,
+             int W, int G, int N, cudaStream_t stream) {
+  constexpr int SAMPLES = THREADS / (C / lane_channels<T>());
+  cosine_prior_kernel<T, V><<<(N + SAMPLES - 1) / SAMPLES, THREADS, 0, stream>>>(
+      static_cast<const T*>(table), static_cast<const float*>(grids),
+      static_cast<const float*>(scales), static_cast<float*>(out), H, W, G, N);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* table, const void* grids, const void* scales, void* out,
            int views, int H, int W, int channels, int G, int N,
            cudaStream_t stream) {
-  if (views != V || channels != C || H <= 0 || W <= 0 || N < 0 ||
-      !(G == 1 || G == 2 || G == 4 || G == 8 || G == 16))
-    return (int)cudaErrorInvalidValue;
+  if (!args_ok(views, H, W, channels, G, N)) return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
-  const int blocks = (N + THREADS / (C / lane_channels<T>()) - 1) /
-                     (THREADS / (C / lane_channels<T>()));
-  cosine_prior_kernel<T><<<blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(table), static_cast<const float*>(grids),
-      static_cast<const float*>(scales), static_cast<float*>(out), H, W, G, N);
-  return (int)cudaGetLastError();
+  if (views == 2) return launch_v<T, 2>(table, grids, scales, out, H, W, G, N, stream);
+  if (views == 3) return launch_v<T, 3>(table, grids, scales, out, H, W, G, N, stream);
+  return launch_v<T, 4>(table, grids, scales, out, H, W, G, N, stream);
 }
 
 // ---------------------------------------------------------------- backward
 //
 // B': d_table of the f32 prior (no dequantisation scales), zeroed by the
-// wrapper. Per sample and pair the same 16 lanes recompute the four-tap
+// wrapper; V is a run-time argument (the pair comes from blockIdx.y). Per
+// sample and pair the same 16 lanes recompute the four-tap
 // interpolation of the pair's two sides (the forward's tap rule: clip,
 // floor, border-clamped x1/y1), run the pair-mean grouped-cosine backward
 // exactly as pallas_banded.py::_grouped_cosine_bwd (no gradient through a
@@ -246,14 +262,14 @@ int launch(const void* table, const void* grids, const void* scales, void* out,
 // pair, so the pairs' gradients touch disjoint columns of d_table.
 //
 // What bounds it: the scatter into d_table. Added one tap at a time it is
-// 3 views x 4 taps x 64 float4 atomics a sample (1.0e8 a launch at 1024
-// rays x 128 samples), and the 16 samples of a block, consecutive samples
+// V views x 4 taps x (V-1)32 float4 atomics a sample (1.0e8 a launch at
+// 1024 rays x 128 samples and V = 3), and the 16 samples of a block, consecutive samples
 // of one ray, hit the same few cells at once. A ray's consecutive samples
 // mostly stay in a cell, so the design sums on chip first, as the JAX VJP's
 // per-ray dedup did with its kt buckets:
 //
-// 1. A block is 8 walks of 16 lanes, all on one pair (blockIdx.y), so a
-//    lane holds 8 channels of each of the pair's two sides. A walk takes
+// 1. A block is 8 walks of 16 lanes, all on one pair (blockIdx.y, one of
+//    V(V-1)/2), so a lane holds 8 channels of each of the pair's two sides. A walk takes
 //    WALK consecutive samples (flat n = ray * S + s: a ray's samples are
 //    contiguous) in order, so the walks in flight at one time lie on
 //    different rays, or far apart on one.
@@ -326,9 +342,9 @@ __device__ __forceinline__ Foot footprint(const float* __restrict__ grids, int v
   return f;
 }
 
-// 8 channels (from channel c0 of the row) of one side, interpolated
-__device__ __forceinline__ void interp8(const float* __restrict__ table, const Foot& f, int c0,
-                                        float* out) {
+// 8 channels (from channel c0 of the CC-channel row) of one side, interpolated
+__device__ __forceinline__ void interp8(const float* __restrict__ table, const Foot& f, int CC,
+                                        int c0, float* out) {
   float r[4][8];
 #pragma unroll
   for (int s = 0; s < 4; ++s) load8(table + (size_t)f.row[s] * CC + c0, r[s]);
@@ -343,7 +359,7 @@ __device__ __forceinline__ void interp8(const float* __restrict__ table, const F
 // branches: the two walks of a warp rarely flush together.
 __device__ __forceinline__ void slot_update(float (&acc)[4][8], int (&key)[4], const Foot& f,
                                             const float* df, float* __restrict__ d_table,
-                                            int c0) {
+                                            int CC, int c0) {
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const bool changed = f.key[s] != key[s];
@@ -357,10 +373,11 @@ __device__ __forceinline__ void slot_update(float (&acc)[4][8], int (&key)[4], c
 __global__ void __launch_bounds__(BWD_THREADS)
 cosine_prior_bwd_kernel(const float* __restrict__ table, const float* __restrict__ grids,
                         const float* __restrict__ g, float* __restrict__ d_table,
-                        int H, int W, int G, int N) {
-  constexpr int PI[3] = {0, 0, 1}, PJ[3] = {1, 2, 2};
+                        int V, int H, int W, int G, int N) {
+  const int CC = (V - 1) * C;
+  const float inv_p = 1.f / (float)n_pairs(V);    // the mean over the pairs
   const int p = blockIdx.y;
-  const int vi = PI[p], vj = PJ[p], ca = (vj - 1) * C, cb = vi * C;
+  const int vi = pair_first(V, p), vj = pair_second(V, p), ca = (vj - 1) * C, cb = vi * C;
   const int lane = threadIdx.x % LANES;
   const int walk = blockIdx.x * BWD_WALKS + threadIdx.x / LANES;
   // the walk's 16 lanes shuffle among themselves only: the two walks of a
@@ -383,8 +400,8 @@ cosine_prior_bwd_kernel(const float* __restrict__ table, const float* __restrict
   for (int n = walk * WALK; n < n_end; ++n) {
     const Foot ta = footprint(grids, vi, n, N, H, W), tb = footprint(grids, vj, n, N, H, W);
     float fa[8], fb[8];
-    interp8(table, ta, ca + o, fa);
-    interp8(table, tb, cb + o, fb);
+    interp8(table, ta, CC, ca + o, fa);
+    interp8(table, tb, CC, cb + o, fb);
     float dot = 0.f, na2 = 0.f, nb2 = 0.f;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -398,15 +415,15 @@ cosine_prior_bwd_kernel(const float* __restrict__ table, const float* __restrict
       nb2 += __shfl_xor_sync(mask, nb2, off);
     }
     float d_dot, d_na2, d_nb2;
-    cosine_bwd(g[(size_t)n * G + group] * (1.f / 3.f), dot, na2, nb2, d_dot, d_na2, d_nb2);
+    cosine_bwd(g[(size_t)n * G + group] * inv_p, dot, na2, nb2, d_dot, d_na2, d_nb2);
     float dfa[8], dfb[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       dfa[e] = d_dot * fb[e] + 2.f * d_na2 * fa[e];
       dfb[e] = d_dot * fa[e] + 2.f * d_nb2 * fb[e];
     }
-    slot_update(acc[0], key[0], ta, dfa, d_table, ca + o);
-    slot_update(acc[1], key[1], tb, dfb, d_table, cb + o);
+    slot_update(acc[0], key[0], ta, dfa, d_table, CC, ca + o);
+    slot_update(acc[1], key[1], tb, dfb, d_table, CC, cb + o);
   }
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
@@ -420,15 +437,13 @@ cosine_prior_bwd_kernel(const float* __restrict__ table, const float* __restrict
 extern "C" int cosine_prior_bwd_f32(const void* table, const void* grids,
                                     const void* g, void* d_table, int views, int H,
                                     int W, int channels, int G, int N, void* stream) {
-  if (views != V || channels != C || H <= 0 || W <= 0 || N < 0 ||
-      !(G == 1 || G == 2 || G == 4 || G == 8 || G == 16))
-    return (int)cudaErrorInvalidValue;
+  if (!args_ok(views, H, W, channels, G, N)) return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
   const int walks = (N + WALK - 1) / WALK;
-  const dim3 blocks((walks + BWD_WALKS - 1) / BWD_WALKS, 3);
+  const dim3 blocks((walks + BWD_WALKS - 1) / BWD_WALKS, n_pairs(views));
   cosine_prior_bwd_kernel<<<blocks, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), static_cast<const float*>(grids),
-      static_cast<const float*>(g), static_cast<float*>(d_table), H, W, G, N);
+      static_cast<const float*>(g), static_cast<float*>(d_table), views, H, W, G, N);
   return (int)cudaGetLastError();
 }
 

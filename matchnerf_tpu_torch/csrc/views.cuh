@@ -1,0 +1,31 @@
+// The source views of the prior kernels (cosine_prior.cu: B and B';
+// block_cosine_prior.cu: D and D'): how many they take, and the pair order.
+#pragma once
+
+constexpr int MIN_V = 2;        // n_src_views the prior kernels take
+constexpr int MAX_V = 4;
+
+__host__ __device__ constexpr int n_pairs(int V) { return V * (V - 1) / 2; }
+
+// pair p of pair_index_lists(V) (matchnerf_tpu/models/gmflow/gmflow.py:28):
+// (0,1), (0,2), ..., (0,V-1), (1,2), ..., (V-2,V-1). In the pair (i, j)
+// view i's chunk j-1 meets view j's chunk i (matchnerf.py:393-402).
+__host__ __device__ constexpr int pair_first(int V, int p) {
+  int i = 0;
+  while (p >= V - 1 - i) {
+    p -= V - 1 - i;
+    ++i;
+  }
+  return i;
+}
+
+__host__ __device__ constexpr int pair_second(int V, int p) {
+  const int i = pair_first(V, p);
+  return p - i * (2 * V - i - 1) / 2 + i + 1;
+}
+
+static_assert(pair_first(3, 2) == 1 && pair_second(3, 2) == 2, "(1,2) is pair 2 of 3 views");
+static_assert(pair_first(4, 2) == 0 && pair_second(4, 2) == 3, "(0,3) is pair 2 of 4 views");
+static_assert(pair_first(4, 4) == 1 && pair_second(4, 4) == 3, "(1,3) is pair 4 of 4 views");
+static_assert(pair_first(4, 5) == 2 && pair_second(4, 5) == 3, "(2,3) is pair 5 of 4 views");
+static_assert(pair_first(2, 0) == 0 && pair_second(2, 0) == 1, "(0,1) is the pair of 2 views");

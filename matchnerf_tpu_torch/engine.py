@@ -219,7 +219,8 @@ class Coach:
                 S = int(cfg.nerf.sample_intvs)
                 groups = cfg.encoder.cos_n_group
                 groups = [groups] * len(scale_hws) if isinstance(groups, int) else list(groups)
-                route = tuple(ut if ut is not None and takes_f32(ut, S, g, h * w) else None
+                route = tuple(ut if ut is not None and takes_f32(ut, S, g, h * w,
+                                                                 self.n_src_views) else None
                               for ut, g, (h, w) in zip(block_ut, groups, scale_hws))
                 if all(u is None for u in route):
                     route = None

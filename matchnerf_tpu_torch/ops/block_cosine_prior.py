@@ -46,7 +46,7 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from .cosine_prior import pair_cosine_mean
+from .cosine_prior import check_table, pair_cosine_mean
 from .grid_sample import bilinear_taps
 
 SOURCE = "matchnerf_tpu_torch/csrc/block_cosine_prior.cu"
@@ -68,49 +68,62 @@ UT_BUCKETS = (64, 96, 128, 160, 192, 256, 320, 384, 512)
 MAX_SMEM = 232448                 # bytes of shared memory a block may have (sm_90)
 
 
-def fwd_smem(ut: int, S: int, cp: int, itemsize: int, hw: int = 0) -> int:
-    """Bytes of the forward kernel's dynamic shared memory (csrc LayoutFwd):
-    the two sides' staged rows, or the union build's bitmaps and prefix
-    counts of an hw-cell table where they are larger, then the taps, the
-    fractions and the union."""
+def per_view_smem(ut: int, S: int, n_views: int) -> int:
+    """Bytes of shared memory that grow with the views, in both kernels'
+    layouts: each (view, sample)'s taps (uint2) and fractions (float2),
+    and each view's union [ut] int32."""
+    return n_views * (BLOCK_RAYS * S * 16 + ut * 4)
+
+
+def fwd_smem(ut: int, S: int, cp: int, itemsize: int, hw: int = 0, n_views: int = 3) -> int:
+    """Bytes of the forward kernel's dynamic shared memory (csrc LayoutFwd)
+    for n_views views: the two sides' staged rows, or the union build's
+    bitmaps and prefix counts of an hw-cell table where they are larger,
+    then the taps, the fractions and the union."""
     staged = 2 * (ut + 1) * cp * itemsize
-    scratch = (2 * 3 * ((hw + 31) // 32) + 32) * 4
-    return -(-max(staged, scratch) // 16) * 16 + 3 * BLOCK_RAYS * S * 16 + 3 * ut * 4
+    scratch = (2 * n_views * ((hw + 31) // 32) + 32) * 4
+    return -(-max(staged, scratch) // 16) * 16 + per_view_smem(ut, S, n_views)
+
+
+def bwd_smem(ut: int, S: int, cp: int, n_views: int = 3) -> int:
+    """Bytes of D''s backward's dynamic shared memory (csrc LayoutPass): the
+    two sides' f32 rows and their gradient rows, then the taps, the
+    fractions and the union."""
+    return 4 * (ut + 1) * cp * 4 + per_view_smem(ut, S, n_views)
 
 
 def channels_per_pass(ut: int, S: int, n_groups: int, backward: bool,
-                      itemsize: int = 4, hw: int = 0) -> Optional[int]:
+                      itemsize: int = 4, hw: int = 0, n_views: int = 3) -> Optional[int]:
     """Channels per staging pass of the forward kernel (itemsize 4: f32
     rows; 2: bf16 rows, which int8 tables stage as too; csrc LayoutFwd,
     whose union build needs room for bitmaps of the table's hw cells) and of
-    D''s backward (f32, csrc LayoutPass, which reads the forward's union):
-    the widest of 128, 64, 32 whose shared memory fits, with each cosine
-    group inside one pass; None when none does."""
+    D''s backward (f32, csrc LayoutPass, which reads the forward's union),
+    for n_views source views: the widest of 128, 64, 32 whose shared memory
+    fits, with each cosine group inside one pass; None when none does."""
     for cp in (128, 64, 32):
         if not 128 <= n_groups * cp <= 2048:
             continue
-        if backward:
-            total = 4 * (ut + 1) * cp * itemsize + 3 * BLOCK_RAYS * S * 16 + 3 * ut * 4
-        else:
-            total = fwd_smem(ut, S, cp, itemsize, hw)
+        total = (bwd_smem(ut, S, cp, n_views) if backward
+                 else fwd_smem(ut, S, cp, itemsize, hw, n_views))
         if total <= MAX_SMEM:
             return cp
     return None
 
 
-def takes_f32(ut: int, S: int, n_groups: int, hw: int = 0) -> bool:
-    """Whether D' (forward and backward) takes f32 tables of hw cells at
-    this bucket."""
-    return (channels_per_pass(ut, S, n_groups, False, hw=hw) is not None
-            and channels_per_pass(ut, S, n_groups, True) is not None)
+def takes_f32(ut: int, S: int, n_groups: int, hw: int = 0, n_views: int = 3) -> bool:
+    """Whether D' (forward and backward) takes f32 tables of hw cells and
+    n_views views at this bucket."""
+    return (channels_per_pass(ut, S, n_groups, False, hw=hw, n_views=n_views) is not None
+            and channels_per_pass(ut, S, n_groups, True, n_views=n_views) is not None)
 
 
-def takes_bf16(ut: int, S: int, n_groups: int, hw: int = 0) -> bool:
+def takes_bf16(ut: int, S: int, n_groups: int, hw: int = 0, n_views: int = 3) -> bool:
     """Whether Kernel D's staging of 16-bit rows (bf16 tables, and int8
     tables, whose rows it stages as bf16) and its union build over hw cells
-    fit at this bucket. At G >= 2 and S = 128 every bucket fits; at G = 1
-    (one 128-channel pass) ut >= 384 does not."""
-    return channels_per_pass(ut, S, n_groups, False, itemsize=2, hw=hw) is not None
+    of n_views views fit at this bucket. At G >= 2, S = 128 and 3 views
+    every bucket fits; at G = 1 (one 128-channel pass) ut >= 384 does not."""
+    return channels_per_pass(ut, S, n_groups, False, itemsize=2, hw=hw,
+                             n_views=n_views) is not None
 
 
 def takes_table(table, scales, ut: int, S: int, n_groups: int) -> bool:
@@ -128,15 +141,18 @@ def takes_table(table, scales, ut: int, S: int, n_groups: int) -> bool:
     row element, an [8S, G] f32 accumulator) fit, except at G = 1 with
     (S = 128, ut 384 and 512) and (S = 256, ut 256 to 384), where the bf16
     staging does not fit and Kernel B runs; every configuration in configs/
-    has G = 2 and 8 (`cos_n_group`)."""
-    hw = table.shape[1] * table.shape[2]
+    has G = 2 and 8 (`cos_n_group`). The views are the table's first
+    dimension: a fourth view's taps, fractions and union narrow the passes
+    (V = 4 at S = 128 and G = 8 stages 64 channels from ut 320, and D' at
+    ut 160 and G = 2 fits no pass)."""
+    V, hw = table.shape[0], table.shape[1] * table.shape[2]
     if table.dtype == torch.int8:
-        return takes_bf16(ut, S, n_groups, hw)
+        return takes_bf16(ut, S, n_groups, hw, V)
     if scales is not None:
         return False
     if table.dtype == torch.bfloat16:
-        return takes_bf16(ut, S, n_groups, hw)
-    return table.dtype == torch.float32 and takes_f32(ut, S, n_groups, hw)
+        return takes_bf16(ut, S, n_groups, hw, V)
+    return table.dtype == torch.float32 and takes_f32(ut, S, n_groups, hw, V)
 
 
 def bucket_ut(n: int) -> Optional[int]:
@@ -274,9 +290,10 @@ def block_cosine_prior_plain(table, grids, scales, n_groups: int, ut: int):
 
 
 def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
-    """The kernel on CUDA tensors (int8 tables [3,h,w,256] with f32 scales
-    and bf16 tables without: Kernel D; f32 tables without scales: D', with
-    its backward when autograd records), the plain version on CPU tensors.
+    """The kernel on CUDA tensors (int8 tables [V,h,w,(V-1)128], V = 2 to
+    4, with f32 scales and bf16 tables without: Kernel D; f32 tables without
+    scales: D', with its backward when autograd records), the plain version
+    on CPU tensors.
     The kernel builds each block's union itself: the wrapper launches
     nothing but the kernel."""
     if table.device.type == "cpu":
@@ -297,9 +314,7 @@ def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
 def _forward(table, grids, scales, n_groups: int, ut: int, with_unions: bool = False):
     """Kernel D (int8, bf16 tables) or D''s forward (f32) -> (out [R,S,G],
     the union [V*ceil(R/8), ut] int32 the kernel built, or None)."""
-    if table.dim() != 4 or table.shape[0] != 3 or table.shape[-1] != 256:
-        raise ValueError(f"block_cosine_prior: table {tuple(table.shape)}, kernel takes "
-                         "[3,h,w,256]")
+    check_table("block_cosine_prior", table)
     V, H, W, Cc = table.shape
     R, S = grids.shape[1:3]
     if n_groups not in (1, 2, 4, 8, 16):
@@ -321,10 +336,11 @@ def _forward(table, grids, scales, n_groups: int, ut: int, with_unions: bool = F
     if table.data_ptr() % 16:
         raise ValueError("block_cosine_prior: the table must be 16-byte aligned")
     itemsize = 4 if table.dtype == torch.float32 else 2      # int8 rows stage as bf16
-    cp = channels_per_pass(ut, S, n_groups, False, itemsize, H * W)
+    cp = channels_per_pass(ut, S, n_groups, False, itemsize, H * W, V)
     if cp is None:
-        raise ValueError(f"block_cosine_prior: {table.dtype} tables of {H}x{W} cells at "
-                         f"ut={ut}, S={S}, G={n_groups} exceed the block's shared memory")
+        raise ValueError(f"block_cosine_prior: {table.dtype} tables of {V} views of {H}x{W} "
+                         f"cells at ut={ut}, S={S}, G={n_groups} exceed the block's shared "
+                         "memory")
     out = torch.empty(R, S, n_groups, dtype=torch.float32, device=table.device)
     NB = -(-R // BLOCK_RAYS)
     unions = (torch.empty(V * NB, ut, dtype=torch.int32, device=table.device)
@@ -361,5 +377,5 @@ class BlockCosinePriorFn(torch.autograd.Function):
                            gp.data_ptr(), unions.data_ptr(), g.data_ptr(),
                            d_table.data_ptr(), V, H, W, Cc // (V - 1), G, R, S,
                            gp.shape[1] // BLOCK_RAYS, ut,
-                           channels_per_pass(ut, S, G, backward=True))
+                           channels_per_pass(ut, S, G, backward=True, n_views=V))
         return d_table, None, None, None

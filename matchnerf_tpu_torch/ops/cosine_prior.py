@@ -33,6 +33,10 @@ from .. import kernels
 from .grid_sample import grid_sample_2d
 
 SOURCE = "matchnerf_tpu_torch/csrc/cosine_prior.cu"
+# the view counts (n_src_views) the kernels take (csrc/views.cuh), and the
+# channels of one pair chunk: a view's table row holds V-1 chunks
+VIEWS = (2, 3, 4)
+CHUNK = 128
 COUNTER = kernels.LaunchCounter(
     "cosine_prior", source=SOURCE, replaces="matchnerf_tpu/ops/pallas_banded.py:267")
 BWD_COUNTER = kernels.LaunchCounter(
@@ -88,10 +92,19 @@ def cosine_prior_plain(table, grids, scales, n_groups: int):
     return pair_cosine_mean(sampled, n_groups)
 
 
+def check_table(name: str, table) -> None:
+    """Raise unless `table` is [V,h,w,(V-1)*128] with V in VIEWS, the
+    tables the prior kernels B, B', D and D' take."""
+    V = table.shape[0] if table.dim() == 4 else None
+    if V not in VIEWS or table.shape[-1] != (V - 1) * CHUNK:
+        raise ValueError(f"{name}: table {tuple(table.shape)} (V={V} views), the kernel takes "
+                         f"V = {VIEWS[0]} to {VIEWS[-1]} views of [V,h,w,(V-1)*{CHUNK}]")
+
+
 def cosine_prior(table, grids, scales, n_groups: int):
-    """The kernel on CUDA tensors (V=3, C=128, int8, bf16 or f32 tables; with
-    the B' backward when autograd records through an f32 table), the plain
-    version on CPU tensors."""
+    """The kernel on CUDA tensors (V = 2 to 4 views, C = 128, int8, bf16 or
+    f32 tables; with the B' backward when autograd records through an f32
+    table), the plain version on CPU tensors."""
     if table.device.type == "cpu":
         return cosine_prior_plain(table, grids, scales, n_groups)
     if not table.is_cuda:
@@ -107,8 +120,7 @@ def cosine_prior(table, grids, scales, n_groups: int):
 def _forward(table, grids, scales, n_groups: int):
     if table.dtype not in ENTRIES:
         raise ValueError(f"cosine_prior: table dtype {table.dtype} (int8, bf16 or f32)")
-    if table.dim() != 4 or table.shape[0] != 3 or table.shape[-1] != 256:
-        raise ValueError(f"cosine_prior: table {tuple(table.shape)}, kernel takes [3,h,w,256]")
+    check_table("cosine_prior", table)
     V, H, W, Cc = table.shape
     C = Cc // (V - 1)
     if n_groups not in (1, 2, 4, 8, 16):

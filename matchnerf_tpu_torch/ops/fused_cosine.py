@@ -61,8 +61,9 @@ def fused_interp_grouped_cosine(rows, weights, n_groups: int, scales=None):
         raise ValueError(f"fused_interp_grouped_cosine: rows dtype {rows.dtype} "
                          "(int8, bf16 or f32)")
     if rows.dim() != 3 or rows.shape[0] != 3 or rows.shape[2] != 1024:
-        raise ValueError(f"fused_interp_grouped_cosine: rows {tuple(rows.shape)}, "
-                         "kernel takes [3,N,1024]")
+        V = rows.shape[0] if rows.dim() == 3 else None
+        raise ValueError(f"fused_interp_grouped_cosine: rows {tuple(rows.shape)} (V={V} "
+                         "views), the kernel takes V = 3 views of [3,N,1024]")
     V, N, C4 = rows.shape
     Cc = C4 // 4
     if n_groups not in (1, 2, 4, 8, 16):

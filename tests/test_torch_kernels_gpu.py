@@ -4,6 +4,9 @@ Marked `gpu`: each test skips (with the reason) where no CUDA device is
 available, as on a CPU-only host. On a GPU machine run them with
 `python -m pytest tests/test_torch_kernels_gpu.py -q`; chip_smoke.py
 covers the same kernels at the full DTU shapes.
+The prior kernels (B, B', D, D') and C and E run at V = 2, 3 and 4 source
+views (n_src_views); B, B', D and D' at V = 5 and F at V = 2 raise a
+ValueError that names V, with no fallback.
 Tolerances: f32 kernels 1e-5 (summation order only), the bf16 window
 attention 2e-2 (the plain version rounds the normalised P to bf16 before
 P.V, the kernel the unnormalised one), both also at the DTU shape
@@ -64,6 +67,7 @@ from matchnerf_tpu_torch.ops.attention import shift_region_ids
 from matchnerf_tpu_torch.ops.grid_sample import grid_sample_2d, tap_rows_and_weights
 
 pytestmark = pytest.mark.gpu
+VIEWS = (2, 3, 4)                  # n_src_views: the prior kernels take 2 to 4
 
 
 @pytest.fixture
@@ -116,24 +120,29 @@ def test_window_attention_forward_lse(dev, dtype, tol, hw):
                                atol=1e-5 if dtype == torch.float32 else 2e-2, rtol=0)
 
 
+@pytest.mark.parametrize("V", VIEWS)
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G", [2, 8])
-def test_cosine_prior_kernel(dev, dtype, G):
+def test_cosine_prior_kernel(dev, dtype, G, V):
     g = torch.Generator(device=dev).manual_seed(1)
+    Cc = (V - 1) * 128
     if dtype == torch.int8:
-        table = torch.randint(-127, 128, (3, 20, 24, 256), generator=g, device=dev,
+        table = torch.randint(-127, 128, (V, 20, 24, Cc), generator=g, device=dev,
                               dtype=torch.int32).to(torch.int8)
     else:
-        table = torch.randn(3, 20, 24, 256, generator=g, device=dev).to(dtype)
-    scales = torch.rand(3, 256, generator=g, device=dev) * 0.02 + 1e-3
-    grids = torch.rand(3, 37, 48, 2, generator=g, device=dev) * 2.4 - 1.2
+        table = torch.randn(V, 20, 24, Cc, generator=g, device=dev).to(dtype)
+    scales = torch.rand(V, Cc, generator=g, device=dev) * 0.02 + 1e-3
+    grids = torch.rand(V, 37, 48, 2, generator=g, device=dev) * 2.4 - 1.2
+    before = kb.COUNTER.launches
     got = kb.cosine_prior(table, grids, scales, G)
+    assert kb.COUNTER.launches == before + 1
     ref = kb.cosine_prior_plain(table, grids, scales, G)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
 
 
-def _decode_args(dev, variant, R, S):
+def _decode_args(dev, variant, R, S, V=3):
     cfg = DotDict(dict(ge._tiny_cfg(n_layers=1, sample_intvs=S)))
+    cfg.n_src_views = V
     if variant == "demo_own":
         cfg.decoder = DotDict({**cfg.decoder, "raytrans_act": "ELU",
                                "density_maskfill": True, "raytrans_posenc": True})
@@ -143,17 +152,19 @@ def _decode_args(dev, variant, R, S):
     rnd = lambda *s: torch.rand(*s, generator=g, device=dev)
     ray = torch.randn(B, R, 3, generator=g, device=dev)
     unit = (ray / ray.norm(dim=-1, keepdim=True))[:, :, None].expand(B, R, S, 3).contiguous()
-    mask = (rnd(B, R, S, 3) > 0.4).float()
+    mask = (rnd(B, R, S, V) > 0.4).float()
     mask[:, :5] = 0.0
-    cond = {"feat_info": rnd(B, R, S, 10) * 2 - 1, "color_info": rnd(B, R, S, 9),
+    cond = {"feat_info": rnd(B, R, S, 10) * 2 - 1, "color_info": rnd(B, R, S, 3 * V),
             "mask_info": mask}
     depth = torch.sort(rnd(B, R, S) * 2.4 + 2.1, dim=-1).values[..., None].contiguous()
     return (model.nerf_dec, cfg, rnd(B, R, S, 3) * 2 - 1, unit, cond, depth, ray)
 
 
+@pytest.mark.parametrize("V", VIEWS)
 @pytest.mark.parametrize("variant", ["flagship", "demo_own"])
-def test_cond_nerf_decode_kernel(dev, variant):
-    args = _decode_args(dev, variant, 50, 48)
+def test_cond_nerf_decode_kernel(dev, variant, V):
+    """Kernel C at conditioning width Gf + 4V = 18, 22 and 26."""
+    args = _decode_args(dev, variant, 50, 48, V)
     with torch.no_grad():
         got = kc.cond_nerf_decode(*args)
         ref = kc.cond_nerf_decode_plain(*args)
@@ -264,27 +275,28 @@ def _block_grids(g, dev, V, R, S, spread):
     return (start[:, :, None] + step[:, :, None] * t).contiguous()
 
 
-def _int8_table(g, dev, h, w):
-    table = torch.randint(-127, 128, (3, h, w, 256), generator=g, device=dev,
+def _int8_table(g, dev, h, w, V=3):
+    table = torch.randint(-127, 128, (V, h, w, (V - 1) * 128), generator=g, device=dev,
                           dtype=torch.int32).to(torch.int8)
-    scales = torch.rand(3, 256, generator=g, device=dev) * 0.02 + 1e-3
+    scales = torch.rand(V, (V - 1) * 128, generator=g, device=dev) * 0.02 + 1e-3
     return table, scales
 
 
+@pytest.mark.parametrize("V", VIEWS)
 @pytest.mark.parametrize("G", [2, 8])
 @pytest.mark.parametrize("case", ["small", "cap_512", "ragged_border"])
-def test_block_cosine_prior_kernel(dev, case, G):
+def test_block_cosine_prior_kernel(dev, case, G, V):
     g = torch.Generator(device=dev).manual_seed(4)
     if case == "small":
-        table, scales = _int8_table(g, dev, 20, 24)
-        grids = _block_grids(g, dev, 3, 40, 48, 0.3)
+        table, scales = _int8_table(g, dev, 20, 24, V)
+        grids = _block_grids(g, dev, V, 40, 48, 0.3)
     elif case == "cap_512":
         # random cells in a wide table: ~4 x 8 x 15 dilated rows per block
-        table, scales = _int8_table(g, dev, 64, 80)
-        grids = torch.rand(3, 16, 15, 2, generator=g, device=dev) * 2 - 1
+        table, scales = _int8_table(g, dev, 64, 80, V)
+        grids = torch.rand(V, 16, 15, 2, generator=g, device=dev) * 2 - 1
     else:
-        table, scales = _int8_table(g, dev, 16, 16)
-        grids = _block_grids(g, dev, 3, 13, 32, 0.5)
+        table, scales = _int8_table(g, dev, 16, 16, V)
+        grids = _block_grids(g, dev, V, 13, 32, 0.5)
         grids[:, :, :4] = torch.clamp(grids[:, :, :4] * 3.0, -1.0, 1.0)
         grids[:, -1, -2:] = 1.0                               # the last cell
     h, w = table.shape[1:3]
@@ -303,25 +315,26 @@ def test_block_cosine_prior_kernel(dev, case, G):
                                    atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("V", VIEWS)
 @pytest.mark.parametrize("G", [2, 8])
 @pytest.mark.parametrize("case", ["small", "cap_512", "ragged_border"])
-def test_block_cosine_prior_bf16_kernel(dev, case, G):
+def test_block_cosine_prior_bf16_kernel(dev, case, G, V):
     """Kernel D on bf16 tables (no scales): the staged-pass kernel at
     CP = 128 or, for ut 512, 64 channels a pass; against its plain version
     and Kernel B's bf16 form."""
     g = torch.Generator(device=dev).manual_seed(5)
     h, w = {"small": (20, 24), "cap_512": (64, 80), "ragged_border": (16, 16)}[case]
-    table = torch.randn(3, h, w, 256, generator=g, device=dev).to(torch.bfloat16)
+    table = torch.randn(V, h, w, (V - 1) * 128, generator=g, device=dev).to(torch.bfloat16)
     if case == "small":
-        grids = _block_grids(g, dev, 3, 40, 48, 0.3)
+        grids = _block_grids(g, dev, V, 40, 48, 0.3)
     elif case == "cap_512":
-        grids = torch.rand(3, 16, 15, 2, generator=g, device=dev) * 2 - 1
+        grids = torch.rand(V, 16, 15, 2, generator=g, device=dev) * 2 - 1
     else:
-        grids = _block_grids(g, dev, 3, 13, 32, 0.5)
+        grids = _block_grids(g, dev, V, 13, 32, 0.5)
         grids[:, :, :4] = torch.clamp(grids[:, :, :4] * 3.0, -1.0, 1.0)
         grids[:, -1, -2:] = 1.0
     ut = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), h, w))
-    assert kd.takes_bf16(ut, grids.shape[2], G)
+    assert kd.takes_bf16(ut, grids.shape[2], G, n_views=V)
     before = kd.COUNTER.by_entry.get("block_cosine_prior_bf16", 0)
     got = kd.block_cosine_prior(table, grids, None, G, ut)
     torch.cuda.synchronize()
@@ -333,10 +346,10 @@ def test_block_cosine_prior_bf16_kernel(dev, case, G):
                                    atol=1e-5, rtol=0)
 
 
-def _d_table(g, dev, dtype, h, w):
+def _d_table(g, dev, dtype, h, w, V=3):
     if dtype == torch.int8:
-        return _int8_table(g, dev, h, w)
-    return torch.randn(3, h, w, 256, generator=g, device=dev).to(dtype), None
+        return _int8_table(g, dev, h, w, V)
+    return torch.randn(V, h, w, (V - 1) * 128, generator=g, device=dev).to(dtype), None
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
@@ -358,18 +371,22 @@ def test_block_cosine_prior_overflowed_union(dev, dtype, G):
     assert float((got - full).abs().max()) > 1e-3       # the overflow dropped taps
 
 
+@pytest.mark.parametrize("V", VIEWS)
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("hw,G,ut", [((64, 80), 2, 160), ((128, 160), 8, 320)])
-def test_block_cosine_prior_eval_buckets(dev, dtype, hw, G, ut):
+def test_block_cosine_prior_eval_buckets(dev, dtype, hw, G, ut, V):
     """Kernel D at the eval pose's buckets and group counts (160 rows at
     G = 2 on the 1/8-scale table, 320 at G = 8 on the 1/4-scale one), S =
     128, on 1003 rays (not a multiple of 8: the tail block repeats the last
-    ray), unions that fill the bucket without overflowing it."""
+    ray), unions that fill the bucket without overflowing it; at V = 4 and
+    ut 320 in 64-channel passes."""
     g = torch.Generator(device=dev).manual_seed(14)
-    table, scales = _d_table(g, dev, dtype, *hw)
+    table, scales = _d_table(g, dev, dtype, *hw, V)
+    assert kd.channels_per_pass(ut, 128, G, False, 2, hw[0] * hw[1], V) == \
+        (64 if (V, ut) == (4, 320) else 128)
     fits = []                          # the widest spread whose union fits
     for spread in (0.1, 0.15, 0.2, 0.3, 0.4, 0.5, 0.7, 0.9, 1.2):
-        cand = _block_grids(g, dev, 3, 1003, 128, spread)
+        cand = _block_grids(g, dev, V, 1003, 128, spread)
         n = kd.block_union_size_raw(kd.pad_rays(cand), *hw)
         if n <= ut:
             fits.append((n, cand))
@@ -453,10 +470,11 @@ def test_cosine_prior_kernel_every_int8(dev, G):
                                rtol=0)
 
 
+@pytest.mark.parametrize("V", VIEWS)
 @pytest.mark.parametrize("case", ["small", "cap_320", "ragged_border", "overflow"])
-def test_supercell_color_kernel(dev, case):
+def test_supercell_color_kernel(dev, case, V):
     g = torch.Generator(device=dev).manual_seed(5)
-    V, img_h, img_w = 3, 50, 66
+    img_h, img_w = 50, 66
     if case == "cap_320":
         img_h, img_w = 200, 240
         grids = torch.rand(V, 16, 40, 2, generator=g, device=dev) * 2 - 1
@@ -574,18 +592,18 @@ def test_window_attention_backward_bf16_deterministic(dev, dtype):
         assert torch.equal(a, b)
 
 
-def _f32_table(g, dev, h, w):
-    return torch.randn(3, h, w, 256, generator=g, device=dev)
+def _f32_table(g, dev, h, w, V=3):
+    return torch.randn(V, h, w, (V - 1) * 128, generator=g, device=dev)
 
 
 def _edge_rays(g, dev, grids):
-    """Overwrite rays 0-6 of grids [3,R,S,2] with the walks' edge cases: 0-1
+    """Overwrite rays 0-6 of grids [V,R,S,2] with the walks' edge cases: 0-1
     inside one cell (the longest run), 2 along the right border, 3 past the
     bottom border, 4 into the bottom-right corner (coincident taps), 5-6 a
     zigzag that leaves a cell and comes back."""
-    S = grids.shape[2]
+    V, S = grids.shape[0], grids.shape[2]
     t = torch.linspace(0, 1, S, device=dev)
-    grids[:, 0:2] = grids[:, 0:2, :1] + torch.rand(3, 2, S, 2, generator=g, device=dev) * 1e-3
+    grids[:, 0:2] = grids[:, 0:2, :1] + torch.rand(V, 2, S, 2, generator=g, device=dev) * 1e-3
     grids[:, 2, :, 0], grids[:, 2, :, 1] = 1.0, t * 1.5 - 0.8
     grids[:, 3, :, 0], grids[:, 3, :, 1] = t * 1.4 - 0.5, 1.3
     grids[:, 4] = (t * 0.4 + 0.8)[:, None]
@@ -594,21 +612,22 @@ def _edge_rays(g, dev, grids):
     return grids.contiguous()
 
 
-def _train_rays(g, dev, R, S, strips):
+def _train_rays(g, dev, R, S, strips, V=3):
     """R training rays of S samples: iid straight segments, or with `strips`
     8-ray blocks that start together, as the 8-pixel strips of
     configs/train_fast.yaml."""
     if strips:
-        return _block_grids(g, dev, 3, R, S, 0.4)
-    start = torch.rand(3, R, 1, 2, generator=g, device=dev) * 2.0 - 1.0
-    step = (torch.rand(3, R, 1, 2, generator=g, device=dev) - 0.5) * 0.8
+        return _block_grids(g, dev, V, R, S, 0.4)
+    start = torch.rand(V, R, 1, 2, generator=g, device=dev) * 2.0 - 1.0
+    step = (torch.rand(V, R, 1, 2, generator=g, device=dev) - 0.5) * 0.8
     return (start + step * torch.linspace(0, 1, S, device=dev)[None, None, :, None]).contiguous()
 
 
+@pytest.mark.parametrize("V", VIEWS)
 @pytest.mark.parametrize("G,case", [(2, "small"), (8, "small"), (1, "edge"), (2, "edge"),
                                     (4, "edge"), (8, "edge"), (16, "edge"),
                                     (2, "train_64x80"), (8, "train_128x160")])
-def test_cosine_prior_backward_kernel(dev, G, case):
+def test_cosine_prior_backward_kernel(dev, G, case, V):
     """B' against autograd through the plain twin, 1e-5 of the largest
     gradient: rays that stay in one cell, run along the borders and revisit
     a cell, 37 x 48 = 1776 samples (not a multiple of a walk or a block),
@@ -617,11 +636,11 @@ def test_cosine_prior_backward_kernel(dev, G, case):
     g = torch.Generator(device=dev).manual_seed(7)
     if case.startswith("train"):
         h, w = (64, 80) if case == "train_64x80" else (128, 160)
-        table = _f32_table(g, dev, h, w)
-        grids = _train_rays(g, dev, 1024, 128, strips=False)
+        table = _f32_table(g, dev, h, w, V)
+        grids = _train_rays(g, dev, 1024, 128, strips=False, V=V)
     else:
-        table = _f32_table(g, dev, 20, 24)
-        grids = _block_grids(g, dev, 3, 37, 48, 0.4)
+        table = _f32_table(g, dev, 20, 24, V)
+        grids = _block_grids(g, dev, V, 37, 48, 0.4)
         grids[:, :3, :4] = torch.clamp(grids[:, :3, :4] * 3.0, -1.0, 1.0)
         if case == "edge":
             grids = _edge_rays(g, dev, grids)
@@ -639,11 +658,12 @@ def test_cosine_prior_backward_kernel(dev, G, case):
     _grad_close(grads[0], grads[1], 1e-5)
 
 
+@pytest.mark.parametrize("V", VIEWS)
 @pytest.mark.parametrize("G,case", [(2, "small"), (8, "small"), (2, "ragged_border"),
                                     (8, "ut_320"), (1, "edge"), (2, "edge"), (4, "edge"),
                                     (8, "edge"), (16, "edge"), (2, "train_64x80"),
                                     (8, "train_128x160"), (2, "overflow"), (8, "overflow")])
-def test_block_cosine_prior_f32_kernels(dev, G, case):
+def test_block_cosine_prior_f32_kernels(dev, G, case, V):
     """D''s forward (1e-5) and backward (1e-5 of the largest gradient)
     against autograd through the plain twin and, where the union holds every
     tap, through Kernels B and B' (the same function): small and ragged
@@ -654,38 +674,44 @@ def test_block_cosine_prior_f32_kernels(dev, G, case):
     g = torch.Generator(device=dev).manual_seed(8)
     if case == "ut_320":
         # wide segments in a 64 x 80 table at S = 128: the widest union D'
-        # stages at G = 8 (bucket 256 or 320, 32-channel backward passes)
-        table = _f32_table(g, dev, 64, 80)
-        for spread in (1.2, 1.0, 0.8, 0.6, 0.5, 0.4):
-            grids = _block_grids(g, dev, 3, 24, 128, spread)
-            if kd.block_union_size_raw(kd.pad_rays(grids), 64, 80) <= 320:
+        # stages at G = 8 (bucket 256 or 320 at V = 2 and 3, 256 at V = 4;
+        # 32-channel backward passes)
+        cap = max(u for u in kd.UT_BUCKETS if kd.takes_f32(u, 128, G, n_views=V))
+        table = _f32_table(g, dev, 64, 80, V)
+        for spread in (1.2, 1.0, 0.8, 0.6, 0.5, 0.4, 0.3):
+            grids = _block_grids(g, dev, V, 24, 128, spread)
+            if kd.block_union_size_raw(kd.pad_rays(grids), 64, 80) <= cap:
                 break
     elif case.startswith("train"):
         h, w = (64, 80) if case == "train_64x80" else (128, 160)
-        table = _f32_table(g, dev, h, w)
-        for spread in (0.4, 0.3, 0.2, 0.1):
-            grids = _block_grids(g, dev, 3, 1024, 128, spread)
+        table = _f32_table(g, dev, h, w, V)
+        for spread in (0.4, 0.3, 0.2, 0.1, 0.05):
+            grids = _block_grids(g, dev, V, 1024, 128, spread)
             ut = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), h, w))
-            if ut is not None and kd.takes_f32(ut, 128, G):
+            if ut is not None and kd.takes_f32(ut, 128, G, n_views=V):
                 break
     elif case in ("small", "overflow"):
-        table = _f32_table(g, dev, 20, 24)
-        grids = _block_grids(g, dev, 3, 40, 48, 0.3 if case == "small" else 1.5)
+        table = _f32_table(g, dev, 20, 24, V)
+        grids = _block_grids(g, dev, V, 40, 48, 0.3 if case == "small" else 1.5)
     elif case == "edge":
         # G = 1 stages 128 channels a pass: a union of <= 96 rows at S = 16
         h, w, S = (16, 16, 16) if G == 1 else (20, 24, 48)
-        table = _f32_table(g, dev, h, w)
-        grids = _edge_rays(g, dev, _block_grids(g, dev, 3, 37, S, 0.2 if G == 1 else 0.4))
+        table = _f32_table(g, dev, h, w, V)
+        for spread in (0.2, 0.1, 0.05) if G == 1 else (0.4, 0.2, 0.1):
+            grids = _edge_rays(g, dev, _block_grids(g, dev, V, 37, S, spread))
+            ut = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), h, w))
+            if ut is not None and kd.takes_f32(ut, S, G, n_views=V):
+                break
     else:
-        table = _f32_table(g, dev, 16, 16)
-        grids = _block_grids(g, dev, 3, 13, 32, 0.5)
+        table = _f32_table(g, dev, 16, 16, V)
+        grids = _block_grids(g, dev, V, 13, 32, 0.5)
         grids[:, :, :4] = torch.clamp(grids[:, :, :4] * 3.0, -1.0, 1.0)
         grids[:, -1, -2:] = 1.0
     h, w = table.shape[1:3]
     R, S = grids.shape[1:3]
     union = kd.block_union_size_raw(kd.pad_rays(grids), h, w)
     ut = 64 if case == "overflow" else kd.bucket_ut(union)
-    assert kd.takes_f32(ut, S, G), (ut, S, G)
+    assert kd.takes_f32(ut, S, G, n_views=V), (ut, S, G, V)
     assert (union > ut) == (case == "overflow"), (union, ut)
     if case == "ut_320":
         assert ut >= 192, ut
@@ -732,3 +758,36 @@ def test_prior_backward_runs_agree(dev, kernel):
         fn(t).backward(gcot)
         runs.append(t.grad)
     _grad_close(runs[0], runs[1], 1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["B", "B'", "D", "D'", "F"])
+def test_prior_kernels_refuse_other_view_counts(dev, kernel):
+    """On CUDA tensors B, B', D and D' at V = 5, and F at V = 2 (it takes 3
+    views only), raise a ValueError that names V; nothing is launched and no
+    plain version runs in their place."""
+    V = 2 if kernel == "F" else 5
+    g = torch.Generator(device=dev).manual_seed(18)
+    grids = torch.rand(V, 16, 32, 2, generator=g, device=dev) * 2 - 1
+    counters = (kb.COUNTER, kb.BWD_COUNTER, kd.COUNTER, kd.F32_COUNTER, kd.BWD_COUNTER,
+                kf.COUNTER)
+    before = [(c.launches, c.plain_on_cuda) for c in counters]
+    with pytest.raises(ValueError, match=f"V={V} views"):
+        if kernel == "F":
+            table = torch.randn(V, 20, 24, (V - 1) * 128, generator=g, device=dev)
+            taps = [tap_rows_and_weights(table[v], grids[v]) for v in range(V)]
+            kf.fused_interp_grouped_cosine(torch.stack([t[0] for t in taps]).contiguous(),
+                                           torch.stack([t[1] for t in taps]).contiguous(), 2)
+        elif kernel in ("B", "D"):
+            table, scales = _int8_table(g, dev, 20, 24, V)
+            if kernel == "B":
+                kb.cosine_prior(table, grids, scales, 2)
+            else:
+                kd.block_cosine_prior(table, grids, scales, 2, 128)
+        else:
+            table = _f32_table(g, dev, 20, 24, V).requires_grad_()
+            if kernel == "B'":
+                kb.cosine_prior(table, grids, None, 2)
+            else:
+                kd.block_cosine_prior(table, grids, None, 2, 128)
+    torch.cuda.synchronize()
+    assert [(c.launches, c.plain_on_cuda) for c in counters] == before

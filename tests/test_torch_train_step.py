@@ -40,8 +40,9 @@ from torch_threads import one_torch_thread  # noqa: F401
 H, W, N_RAYS, S, T = 32, 32, 32, 16, 50
 
 
-def _train_cfg(patches: bool, bf16: bool):
+def _train_cfg(patches: bool, bf16: bool, n_views: int = 3):
     cfg = DotDict(dict(ge._tiny_cfg(n_layers=1, sample_intvs=S)))
+    cfg.n_src_views = n_views
     cfg.encoder = DotDict({**cfg.encoder, "attention_backend": "xla"})
     cfg.nerf = DotDict({**cfg.nerf, "rand_rays_train": N_RAYS,
                         "train_ray_patches": patches})
@@ -71,15 +72,16 @@ def _rel_l2(a, b):
 
 
 def run_parity(patches: bool, bf16: bool, loss_rtol=1e-5, grad_tol=(5e-6, 2e-3),
-               grad_rel_l2=None, steps_rtol=1e-4):
-    """The port's step vs JAX make_train_step: (1) loss and gradients of one
-    step from the same weights and draws, each gradient within atol/rtol
-    `grad_tol`; or, with `grad_rel_l2` = (max, median), each gradient of
-    norm > 1e-3 within relative L2 error `max`, their median within
-    `median`, and the smaller ones within atol 1e-4; (2) the loss of 3
-    AdamW steps, rtol `steps_rtol`."""
-    cfg = _train_cfg(patches, bf16)
-    d = ge._synthetic_inputs(cfg, 1, H, W, R=N_RAYS)
+               grad_rel_l2=None, steps_rtol=1e-4, n_views=3, steps=3, seed=0):
+    """The port's step vs JAX make_train_step with n_views source views on
+    the synthetic scene of `seed` (`_synthetic_inputs`): (1)
+    loss and gradients of one step from the same weights and draws, each
+    gradient within atol/rtol `grad_tol`; or, with `grad_rel_l2` = (max,
+    median), each gradient of norm > 1e-3 within relative L2 error `max`,
+    their median within `median`, and the smaller ones within atol 1e-4;
+    (2) the loss of `steps` AdamW steps, rtol `steps_rtol`."""
+    cfg = _train_cfg(patches, bf16, n_views)
+    d = ge._synthetic_inputs(cfg, 1, H, W, R=N_RAYS, seed=seed)
     batch_np = {"images": d["images"], "extrinsics": d["poses"],
                 "intrinsics": d["intr"], "near_fars": d["near_fars"]}
     batch_j = {"images": jnp.asarray(d["images"]), "extrinsics": jnp.asarray(d["poses"]),
@@ -127,12 +129,14 @@ def run_parity(patches: bool, bf16: bool, loss_rtol=1e-5, grad_tol=(5e-6, 2e-3),
     if grad_rel_l2 is not None:
         assert np.median(rel) <= grad_rel_l2[1], np.median(rel)
 
-    # (2) three optimizer steps on both sides
+    # (2) `steps` optimizer steps on both sides
+    if not steps:
+        return
     tx, _ = jax_build_optimizer(cfg, T)
     jstep = jax_make_train_step(cfg, tx, H, W, N_RAYS)
     jparams, jstate = params, tx.init(params)
     model, coach = port()
-    for i, key in enumerate(jax.random.split(jax.random.PRNGKey(11), 3)):
+    for i, key in enumerate(jax.random.split(jax.random.PRNGKey(11), steps)):
         jparams, jstate, jl = jstep(jparams, jstate, batch_j, key)
         idx, rand = _jax_draws(key, patches)
         got = coach.step(coach.batch_tensors(batch_np), route, idx, rand)
