@@ -11,9 +11,12 @@ training entry of configs/train_ibrnet.yaml at 1008x756, and the render
 server (`python -m matchnerf_tpu_torch.serve`) over HTTP, and the parallel
 layer (process groups of one and two ranks, the training entry as 2
 processes), and two and four source views (`--n_src_views`: the training
-entry at 2, the eval entry at 2 and 4), on one NVIDIA card, through the
-hand-written CUDA kernels; the images (the in-repo printer scene's JPEGs,
-the T&T tree's) decode and resize on the host without PIL.
+entry at 2, the eval entry at 2 and 4), and the variants config keys reach
+(`nerf.view_dep: false`, the local-radius sampler, attention without
+window splits, the fused route at 2 and 4 views; LPIPS and the training
+entry's profile trace), on one NVIDIA card, through the hand-written CUDA
+kernels; the images (the in-repo printer scene's JPEGs, the T&T tree's)
+decode and resize on the host without PIL.
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
@@ -260,11 +263,36 @@ Phases, any failure ends the run with a non-zero exit:
    >= 50 dB against the all-plain render; image seconds, rays/s and each
    eval kernel's device ms per launch. The phase's seconds on a line of
    their own.
+19. the variants config keys reach, at full width, 640x512, S = 128: (a)
+   Kernel F at V = 2 and 4 on the tap rows of one 8192-ray chunk of a
+   V-source scene, gathered from its int8 tables (also against Kernel B)
+   and from bf16 and f32 tables of the same features, against its plain
+   twin at 1e-5, timed beside its bound (the rows' bytes over 3.35 TB/s).
+   (b) `matchnerf_tpu_torch.test.main(["--config", "test", ...])` on phase
+   12's DTU test view with `--nerf.view_dep=false` (seeded weights whose
+   output layer is scaled to 0.01 with a density bias of 1: its outputs are
+   raw), `--encoder.feature_sample_local_radius=1
+   --encoder.feature_sample_local_dilation=2`,
+   `--encoder.attn_splits_list=[1]`, and `--precision.fused_cosine=true` at
+   `--n_src_views=2` and 4 (seeded weights): the kernels each route takes
+   launch and the ones it skips do not (C under view_dep: false; A at one
+   split; B, D and E on the local radius, which builds no table; B and D
+   on the fused route), no plain version on CUDA, finite outputs, the
+   image >= 50 dB against the all-plain render; render seconds, rays/s
+   and the launches of A-F. (c) `train.build_coach` + `train_model` with
+   `--config train` and `--nerf.view_dep=false` (the same weights,
+   `--load`, under `--profile_trace_dir`: the trace must exist and name A's
+   forward and A''s dq and dkv kernels) and with the local radius, 3 steps
+   each: the first step against the all-plain step (bf16-policy
+   tolerances), finite losses, A' every step, B' twice a step (never on
+   the local radius), no plain version on CUDA. (d) LPIPS(VGG) of a
+   256x320 crop of the one-split image against its target on the card and
+   on the CPU, from seeded weights in a temporary npz: within 1e-4.
 Every launch count is reset just before a path (a step, in 10 and 11; a
 training run and a validation image, in 12; each test set's render, in
 13; the training run, each image and the timed steps, in 14; each served
 request, in 15; each rank's step and render, in 16; each training run and
-image, in 18) and read just after it. With --profile, one more warm render of each eval path
+image, in 18 and 19) and read just after it. With --profile, one more warm render of each eval path
 (the bf16 decoder path too) and of each video, and one warm step of each
 training recipe run under torch.profiler and print the device time by
 kernel (the A' backward's dq and dkv kernels always by name), the device
@@ -814,14 +842,16 @@ def train_kernel_phase(torch, F, dev, batch, seed, block_ut, res):
     del tmodel, ttables
 
 
-def first_step_check(torch, dev, cfg, batch, seed, label, tol, img_hw=(H, W)):
+def first_step_check(torch, dev, cfg, batch, seed, label, tol, img_hw=(H, W), model_fn=None):
     """One step's loss and gradients from one set of weights, rays and
     jitter, through the kernels and all-plain, on an img_hw image; tol =
-    (loss rtol, worst and median per-tensor gradient error)."""
+    (loss rtol, worst and median per-tensor gradient error). The weights are
+    seeded, or `model_fn(cfg)`'s (a model on the CPU) where given."""
     from matchnerf_tpu_torch.engine import Coach
     from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
     from matchnerf_tpu_torch.train_step import sample_ray_indices
-    model_k = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    model_k = (model_fn(cfg) if model_fn is not None
+               else init_matchnerf(cfg, torch.Generator().manual_seed(seed))).to(dev)
     model_p = copy.deepcopy(model_k)
     coaches = []
     for m, kern in ((model_k, True), (model_p, False)):
@@ -3388,6 +3418,390 @@ def views_phase(torch, dev, seed, tree, counters):
     return out
 
 
+VARIANT_STEPS = 3                  # training steps of each variant run in phase 19
+VARIANT_LABELS = {"A": "window_attention", "B": "cosine_prior", "C": "cond_nerf_decode",
+                  "D": "block_cosine_prior", "E": "supercell_color", "F": "fused_cosine"}
+# phase 19's eval variants: (name, the entry's extra arguments, kernels that
+# must launch, kernels that must not); `view_dep: false` decodes in torch
+# (no Kernel C), attention without splits runs no Kernel A, the local
+# radius builds no table (no B, D, E), the fused route takes F, not B or D
+EVAL_VARIANTS = (
+    ("view_dep_false", ["--nerf.view_dep=false"], "ADE", "CF"),
+    ("local_radius", ["--encoder.feature_sample_local_radius=1",
+                      "--encoder.feature_sample_local_dilation=2"], "AC", "BDEF"),
+    ("attn_splits_1", ["--encoder.attn_splits_list=[1]"], "CDE", "AF"),
+    ("fused_v2", ["--precision.fused_cosine=true", "--n_src_views=2"], "ACF", "BD"),
+    ("fused_v4", ["--precision.fused_cosine=true", "--n_src_views=4"], "ACF", "BD"),
+)
+LPIPS_CROP = (256, 320)            # the centre crop phase 19 scores with LPIPS
+# phase 19: feat_info off by this much (cosines lie in [-1, 1]) must take
+# the `view_dep: false` image below 50 dB against all-plain
+FEAT_OFFSET = 1e-2
+
+
+def tame_output(torch, model):
+    """Give the `view_dep: false` decoder's raw outputs the view_dep
+    decoder's range (in place): its density has no ReLU, and at seeded
+    weights a negative density makes the composite's transmittance exp(-sum)
+    overflow, where neither an image PSNR nor a loss says anything. The
+    density row of `output_linear` is scaled by 0.01 with a bias of 1; the
+    rgb rows by 1/4 (the sigmoid's largest slope) with their bias moved by
+    0.5, so the image follows the features of Kernels A, D and E as closely
+    as the view_dep image does (`variants_eval` checks that it does)."""
+    lin = model.nerf_dec.output_linear
+    with torch.no_grad():
+        lin.weight.mul_(torch.tensor([0.25, 0.25, 0.25, 0.01])[:, None])
+        lin.bias.mul_(torch.tensor([0.25, 0.25, 0.25, 0.0])).add_(
+            torch.tensor([0.5, 0.5, 0.5, 1.0]))
+    return model
+
+
+def variants_fused_kernel(torch, dev, seed, V, card):
+    """Phase 19 (a): Kernel F at V source views on the tap rows of one
+    fused-route chunk (the first FUSED_CHUNK_RAYS rays of a V-source scene)
+    gathered from its int8 tables (also held against Kernel B) and from bf16
+    and f32 tables of the same features, against the plain twin at 1e-5 (in
+    pieces: the f32 rows of V = 4 are 25.8 GB), timed beside the bound."""
+    from matchnerf_tpu_torch import camera
+    from matchnerf_tpu_torch.config import dtu_eval_config
+    from matchnerf_tpu_torch.models.matchnerf import (FUSED_CHUNK_RAYS, gather_tap_rows,
+                                                      init_matchnerf, prepare_sampling_tables,
+                                                      project_to_views, sample_depth)
+    from matchnerf_tpu_torch.ops import cosine_prior as kb
+    from matchnerf_tpu_torch.ops import fused_cosine as kf
+    from matchnerf_tpu_torch.renderer import Renderer, extract_poses
+    cfg = dtu_eval_config()
+    cfg.n_src_views = V
+    model = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev).eval()
+    renderer = Renderer(cfg, model, dev)
+    batch = make_scene(seed, V)
+    ref_images = renderer.tensor(batch["images"][:, :V])
+    R = FUSED_CHUNK_RAYS
+    with torch.no_grad():
+        feats = renderer.encode(ref_images)
+        tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = renderer._pose_tensors(
+            extract_poses(batch))
+        pix = camera.pixel_grid(H, W, legacy=True, device=dev)[:R][None]
+        center, ray = camera.get_center_and_ray(pix, tgt_intr, c2w)
+        pts = camera.get_3d_points_from_depth(center, ray, sample_depth(cfg, tgt_nf, 1, R),
+                                              multi_samples=True)
+        g = (project_to_views(pts, ref_w2c, ref_intr, ref_nf, H, W)[..., :2]
+             * 2.0 - 1.0)[:, 0].contiguous()                             # [V,R,S,2]
+    del model, renderer
+    S = g.shape[2]
+    N = R * S
+    P = V * (V - 1) // 2
+    out = {"V": V, "card": card}
+    for name, dt in (("int8", torch.int8), ("bfloat16", torch.bfloat16),
+                     ("float32", None)):
+        with torch.no_grad():
+            tabs = prepare_sampling_tables(cfg, feats, ref_images, feat_dtype=dt)
+        out[name] = []
+        for s, G in enumerate(cfg.encoder.cos_n_group):
+            table = tabs["view_feats"][s][0]
+            scales = tabs["view_feat_scales"][s]
+            scales = None if scales is None else scales[0]
+            rows, wts = gather_tap_rows(table, g)
+            fn = lambda: kf.fused_interp_grouped_cosine(rows, wts, G, scales)
+            plain = lambda: kf.fused_interp_grouped_cosine_plain(rows, wts, G, scales,
+                                                                 piece=2 ** 18)
+            got = fn()
+            err = max_abs(got, plain())
+            torch.cuda.synchronize()
+            Cc = table.shape[-1]
+            flops = N * (V * Cc * (9 + (scales is not None)) + P * 128 * 6)
+            b_ms, b_by = bound(nbytes(rows, wts, got, *([scales] if scales is not None
+                                                         else [])), flops)
+            entry = dict(scale=s, G=G, max_abs_err=err, tol=1e-5, ms=cuda_ms(torch, fn, 10),
+                         plain_ms=cuda_ms(torch, plain, 1), bound_ms=b_ms, bound_by=b_by,
+                         rows_gb=nbytes(rows) / 1e9, library_ms=None)
+            extra = ""
+            if name == "int8":
+                entry["max_abs_err_vs_kernel_b"] = max_abs(
+                    got, kb.cosine_prior(table, g, scales, G).reshape(N, G))
+                extra = f", max|d| vs kernel B {entry['max_abs_err_vs_kernel_b']:.3e} (tol 1e-5)"
+            log(f"variants: kernel F fused_cosine V={V} scale {s} {name} rows "
+                f"{list(rows.shape)} ({entry['rows_gb']:.2f} GB) G={G} R={R} S={S}: max|d| "
+                f"{err:.3e} (tol 1e-5){extra}, {entry['ms']:.4f} ms vs plain "
+                f"{entry['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {card}")
+            check_close(f"variants F V={V} {name} scale {s}", err, 1e-5)
+            if name == "int8":
+                check_close(f"variants F vs B V={V} scale {s}",
+                            entry["max_abs_err_vs_kernel_b"], 1e-5)
+            out[name].append(entry)
+            del rows, wts, got
+        del tabs
+        torch.cuda.empty_cache()
+    del feats, ref_images
+    torch.cuda.empty_cache()
+    return out
+
+
+def offset_features_psnr(torch, renderer, batch, ref_rgb, delta):
+    """PSNR against `ref_rgb` of `renderer`'s image with every feat_info
+    value off by `delta` (a pre-hook on the decoder's `pts_bias`, whose input
+    is [feat_info, color_info, mask_info])."""
+    G = renderer.cfg.encoder.cos_n_group
+    G = G if isinstance(G, int) else sum(G)
+
+    def off(module, args):
+        x = args[0].clone()
+        x[..., :G] += delta
+        return (x,)
+    hook = renderer.model.nerf_dec.pts_bias.register_forward_pre_hook(off)
+    try:
+        with torch.no_grad():
+            rgb = renderer.forward(batch, mode="test")["rgb"]
+    finally:
+        hook.remove()
+    return psnr(rgb, ref_rgb)
+
+
+def variants_eval(torch, dev, seed, tree, counters, name, extra, must, zero, load, card):
+    """Phase 19 (b): `python -m matchnerf_tpu_torch.test --config test` with
+    the variant's arguments on phase 12's DTU test view: the kernels of
+    `must` launched and those of `zero` not, no plain version on CUDA,
+    finite outputs (rgb in [0, 1] where the decoder ends in a sigmoid), the
+    image >= 50 dB against the all-plain render of the same weights, and,
+    for `view_dep: false` (tamed output layer), < 50 dB with feat_info off
+    by FEAT_OFFSET; the render's seconds, rays/s and launches."""
+    from matchnerf_tpu_torch.renderer import Renderer
+    argv = ["--config", "test", f"--name=variants_{name}", f"--load={load}",
+            f"--output_root={os.path.join(tree['work'], 'variants_runs')}", f"--seed={seed}",
+            "--data_test.llff=", "--data_test.blender=", "--data_test.tnt="] + extra \
+        + entry_set_args("dtu", tree["root"], tree["meta"])
+    _, records = run_entry(torch, counters, argv)
+    rec = records[0]
+    launches, out = rec["launches"], rec["out"]
+    label = f"variants {name}"
+    for k in must:
+        if launches[VARIANT_LABELS[k]] <= 0:
+            raise AssertionError(f"{label}: Kernel {k} was not launched: {launches}")
+    for k in zero:
+        if launches[VARIANT_LABELS[k]] != 0:
+            raise AssertionError(f"{label}: Kernel {k} launched {launches[VARIANT_LABELS[k]]} "
+                                 f"times, expected none: {launches}")
+    if any(rec["plain_cuda"].values()):
+        raise AssertionError(f"{label}: plain versions ran on CUDA: {rec['plain_cuda']}")
+    for k, v in out.items():
+        if not bool(v.isfinite().all()):
+            raise AssertionError(f"{label}: non-finite {k}")
+    cfg = rec["renderer"].cfg
+    rgb = out["rgb"]
+    if cfg.nerf.view_dep and not (float(rgb.min()) >= -1e-6 and float(rgb.max()) <= 1 + 1e-6):
+        raise AssertionError(f"{label}: rgb outside [0,1]: {float(rgb.min())} "
+                             f"{float(rgb.max())}")
+    plain_t = {}
+    ref = Renderer(cfg, rec["renderer"].model, dev, kernel=False).forward(
+        rec["batch"], mode="test", timings=plain_t)
+    agreement = psnr(rgb, ref["rgb"])
+    depth_err = float((out["depth"] - ref["depth"]).abs().max())
+    off_db = None
+    if not cfg.nerf.view_dep:
+        # the check sees the features: feat_info off by FEAT_OFFSET must fail it
+        off_db = offset_features_psnr(torch, rec["renderer"], rec["batch"], ref["rgb"],
+                                      FEAT_OFFSET)
+    del ref
+    t = rec["timings"]
+    n_rays = H * W
+    entry = {"args": extra, "n_src_views": int(cfg.n_src_views), "load": load or None,
+             "image_s": rec["seconds"], "encode_s": t["encode"], "tables_s": t["tables"],
+             "render_s": t["render"], "rays_per_s_render": n_rays / t["render"],
+             "plain_render_s": plain_t["render"], "psnr_vs_plain_db": agreement,
+             "depth_max_abs_vs_plain": depth_err, "route": rec["route"],
+             "launches": launches, "launches_by_route": rec["routes"],
+             "rgb_range": [float(rgb.min()), float(rgb.max())],
+             "feat_offset": FEAT_OFFSET, "psnr_feat_offset_db": off_db}
+    log(f"{label} ({' '.join(extra)}): image {rec['seconds']:.4f} s, render "
+        f"{t['render']:.4f} s, {entry['rays_per_s_render']:.0f} rays/s (render), all-plain "
+        f"render {plain_t['render']:.4f} s; launches "
+        + ", ".join(f"{k} {launches[v]}" for k, v in VARIANT_LABELS.items())
+        + f"; route {rec['route']}; vs all-plain PSNR {agreement:.2f} dB (need >= 50), "
+        f"max|d| depth {depth_err:.3e}"
+        + ("" if off_db is None else
+           f"; feat_info off by {FEAT_OFFSET:g}: {off_db:.2f} dB (need < 50)")
+        + f"; {card}")
+    if not agreement >= 50.0:
+        raise AssertionError(f"{label}: agreement PSNR {agreement:.2f} dB < 50")
+    if off_db is not None and not off_db < 50.0:
+        raise AssertionError(f"{label}: the image ignores its features: feat_info off by "
+                             f"{FEAT_OFFSET:g} still gives {off_db:.2f} dB")
+    entry["rgb"], entry["gt"] = rgb, rec["batch"]["images"][0, -1]
+    del records, rec
+    torch.cuda.empty_cache()
+    return entry
+
+
+def variants_train(torch, dev, seed, tree, counters, name, over, load, trace_dir, card):
+    """Phase 19 (c): `python -m matchnerf_tpu_torch.train --config train` with
+    the variant's keys on phase 12's DTU tree, VARIANT_STEPS steps without
+    validation: the first step against the all-plain step (bf16-policy
+    tolerances), finite losses, A' every step, B' twice a step where the
+    step builds tables and never on the local radius, no plain version on
+    CUDA; with `trace_dir`, the run's torch.profiler trace must exist and
+    name A's forward and A''s two backward kernels."""
+    from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+    from matchnerf_tpu_torch.train import build_coach
+    from matchnerf_tpu_torch.utils.checkpoint import load_model_weights
+    runs = os.path.join(tree["work"], "variants_runs")
+    keys = dict(over, **{"freq.val_it": -1, "freq.test_ep": -1, "load": load})
+    if trace_dir:
+        keys["profile_trace_dir"] = trace_dir
+    argv = loop_args("train", f"variants_train_{name}", runs, tree["root"], tree["meta"],
+                     VARIANT_STEPS, **keys)
+    coach = build_coach(argv)
+
+    def model_fn(cfg):
+        model = init_matchnerf(cfg, torch.Generator().manual_seed(seed))
+        if load:
+            load_model_weights(model, load)
+        return model
+    first = first_step_check(torch, dev, coach.cfg, next(iter(coach.train_loader)), seed,
+                             f"variants train.yaml {name} bf16 policy", (1e-2, 0.5, 0.1),
+                             model_fn=model_fn)
+    torch.cuda.empty_cache()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coach.train_model()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    plain_cuda = {k: c.plain_on_cuda for k, c in counters.items()}
+    with open(coach.scalars_path) as f:
+        losses = [json.loads(line)["loss_render"] for line in f
+                  if json.loads(line)["split"] == "train"]
+    local = int(coach.cfg.encoder.feature_sample_local_radius) > 0
+    log(f"variants train.yaml {name}: {VARIANT_STEPS} steps in {wall:.3f} s "
+        f"({VARIANT_STEPS / wall:.3f} steps/s{', traced' if trace_dir else ''}), losses "
+        f"{[round(x, 6) for x in losses]}, launches {launches}, plain versions on CUDA "
+        f"{plain_cuda}; {card}")
+    if len(losses) != VARIANT_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"variants train {name}: losses {losses}")
+    if any(plain_cuda.values()):
+        raise AssertionError(f"variants train {name}: plain versions ran on CUDA: {plain_cuda}")
+    want_b = 0 if local else 2 * VARIANT_STEPS
+    if (launches["window_attention_bwd"] <= 0 or launches["cosine_prior_bwd"] != want_b
+            or (local and (launches["cosine_prior"] or launches["block_cosine_prior_f32"]))):
+        raise AssertionError(f"variants train {name}: launches {launches}")
+    out = {"keys": over, "steps": VARIANT_STEPS, "wall_s": wall, "losses": losses,
+           "launches": launches, "first_step": first}
+    if trace_dir:
+        files = sorted(f for f in os.listdir(trace_dir) if f.endswith(".json"))
+        if len(files) != 1:
+            raise AssertionError(f"variants train {name}: trace files {files} in {trace_dir}")
+        path = os.path.join(trace_dir, files[0])
+        with open(path) as f:
+            names = {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+        found = {k: sorted(n[:80] for n in names if k in n)
+                 for k in ("window_attention_fwd", "window_attention_dq",
+                           "window_attention_dkv")}
+        log(f"variants train.yaml {name}: profile trace {path} "
+            f"({os.path.getsize(path) / 2**20:.1f} MiB, {len(names)} event names), A and A' "
+            f"kernels in it {found}")
+        if not all(found.values()):
+            raise AssertionError(f"variants train {name}: the trace lacks A / A' kernels: "
+                                 f"{found}")
+        out["trace"] = {"file": path, "bytes": os.path.getsize(path), "kernels": found}
+    del coach
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_lpips_weights(path, seed):
+    """Seeded VGG16 + LPIPS weights in the layout of
+    configs/lpips_vgg_weights.npz (HWIO convolutions, VGG16's widths)."""
+    rng = np.random.default_rng(seed)
+    arrays, c_in, i = {}, 3, 0
+    for c_out, n in ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3)):
+        for _ in range(n):
+            arrays[f"conv{i}_w"] = rng.normal(0, np.sqrt(2.0 / (9 * c_in)),
+                                              (3, 3, c_in, c_out)).astype(np.float32)
+            arrays[f"conv{i}_b"] = rng.normal(0, 0.05, c_out).astype(np.float32)
+            c_in, i = c_out, i + 1
+    for s, c in enumerate((64, 128, 256, 512, 512)):
+        arrays[f"lin{s}"] = rng.uniform(0, 0.1, c).astype(np.float32)
+    np.savez(path, **arrays)
+
+
+def variants_lpips(torch, dev, seed, work, pred, gt, card):
+    """Phase 19 (d): LPIPS(VGG) of one rendered image against its target (a
+    LPIPS_CROP centre crop) on the card and on the CPU, from seeded weights
+    in a temporary npz that the module is pointed at (never configs/)."""
+    from matchnerf_tpu_torch import lpips
+    path = os.path.join(work, "lpips_seeded_weights.npz")
+    write_lpips_weights(path, seed)
+    h, w = LPIPS_CROP
+    y0, x0 = (H - h) // 2, (W - w) // 2
+    pred = pred.reshape(H, W, 3)[y0:y0 + h, x0:x0 + w].float().cpu().numpy()
+    gt = np.asarray(gt)[y0:y0 + h, x0:x0 + w]
+    saved = lpips._CACHE
+    lpips._CACHE = path
+    lpips._state.clear()
+    try:
+        on_card = lpips.lpips_distance(pred, gt, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = lpips.lpips_distance(pred, gt, dev)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = lpips.lpips_distance(pred, gt, "cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        lpips._CACHE = saved
+        lpips._state.clear()
+    err = abs(on_card - on_cpu)
+    log(f"variants: LPIPS(VGG, seeded weights) of a {h}x{w} crop on the card "
+        f"{on_card:.7f} ({card_s * 1e3:.1f} ms warm), on the CPU {on_cpu:.7f} "
+        f"({cpu_s * 1e3:.1f} ms), |d| {err:.3e} (tol 1e-4); {card}")
+    check_close("variants LPIPS card vs CPU", err, 1e-4)
+    return {"crop": [h, w], "card": on_card, "cpu": on_cpu, "abs_diff": err,
+            "card_ms": card_s * 1e3, "cpu_ms": cpu_s * 1e3}
+
+
+def variants_phase(torch, dev, seed, tree, counters):
+    """Phase 19: the variants that config keys reach. (a) Kernel F at V = 2
+    and 4; (b) the eval entry's DTU image under each of EVAL_VARIANTS
+    against its all-plain render; (c) 3 train.yaml steps through the
+    training entry with `view_dep: false` (traced under profile_trace_dir)
+    and with the local radius; (d) LPIPS on the card against the CPU."""
+    from matchnerf_tpu_torch.config import dtu_train_config
+    from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+    t_phase = time.perf_counter()
+    card = card_line()
+    work = os.path.join(tree["work"], "variants")
+    os.makedirs(work, exist_ok=True)
+    out = {"kernels": {V: variants_fused_kernel(torch, dev, seed, V, card)
+                       for V in VIEW_COUNTS}}
+    # the view_dep: false weights: seeded, the output layer tamed (`tame_output`)
+    cfg = dtu_train_config()
+    cfg.nerf.view_dep = False
+    tamed = os.path.join(work, "view_dep_false.ckpt")
+    torch.save({"model": tame_output(torch, init_matchnerf(
+        cfg, torch.Generator().manual_seed(seed))).state_dict()}, tamed)
+    out["eval"] = {}
+    for name, extra, must, zero in EVAL_VARIANTS:
+        load = tamed if name == "view_dep_false" else ""
+        out["eval"][name] = variants_eval(torch, dev, seed, tree, counters, name, extra, must,
+                                          zero, load, card)
+    out["train"] = {
+        "view_dep_false": variants_train(torch, dev, seed, tree, counters, "view_dep_false",
+                                         {"nerf.view_dep": "false"}, tamed,
+                                         os.path.join(work, "trace"), card),
+        "local_radius": variants_train(torch, dev, seed, tree, counters, "local_radius",
+                                       {"encoder.feature_sample_local_radius": 1,
+                                        "encoder.feature_sample_local_dilation": 2}, "", None,
+                                       card)}
+    shot = out["eval"]["attn_splits_1"]
+    out["lpips"] = variants_lpips(torch, dev, seed, work, shot["rgb"], shot["gt"], card)
+    for e in out["eval"].values():
+        del e["rgb"], e["gt"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"variants phase: {out['phase_s']:.1f} s; {card}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3835,6 +4249,12 @@ def main():
     # ---- 18. two and four source views: B, B', D and D' at V = 2 and 4,
     # the training entry at V = 2, the eval entry at V = 2 and 4
     views = views_phase(torch, dev, args.seed, tree, counters)
+    torch.cuda.empty_cache()
+
+    # ---- 19. the variants config keys reach: Kernel F at V = 2 and 4, the
+    # eval entry's image under each variant, the training entry's steps with
+    # view_dep: false (traced) and the local radius, LPIPS on the card
+    variants = variants_phase(torch, dev, args.seed, tree, counters)
 
     def per_scale(entries):
         return {"max_abs_err": max(e["max_abs_err"] for e in entries),
@@ -3937,6 +4357,19 @@ def main():
             out[f"V{V}"] = e
         return out
 
+    def fused_views():
+        """Kernel F at V = 2 and 4 (phase 19): int8 rows as the entry, bf16
+        and f32 beside them, and its launches in the fused eval image at V."""
+        out = {}
+        for V in VIEW_COUNTS:
+            k = variants["kernels"][V]
+            e = {"name": "fused_cosine", "V": V, "library_ms": None, **per_scale(k["int8"]),
+                 "bfloat16": per_scale(k["bfloat16"]), "float32": per_scale(k["float32"]),
+                 "launches": variants["eval"][f"fused_v{V}"]["launches"]["fused_cosine"],
+                 "launches_in": f"the eval entry's DTU image at V={V}, fused_cosine"}
+            out[f"V{V}"] = e
+        return out
+
     a_bwd = res["A_bwd"]
     par_paths = {"nccl_world_1_train_step": None, **parallel["launches"]}
     report = {"kernels": [
@@ -4018,10 +4451,20 @@ def main():
         "parallel": {k: v for k, v in parallel.items() if k != "launches"},
         "host_io": host_io}}
     for e in report["kernels"]:
-        if e["name"] != "fused_cosine":              # Kernel F stays at V = 3
+        if e["name"] != "fused_cosine":
             e["views"] = views_of(e["name"])
+        else:
+            e["views"] = fused_views()
+        name = e["name"].replace("_bf16", "")
+        if name in counters and not e["name"].endswith("_bf16"):
+            for k, v in variants["eval"].items():
+                e["launches_by_path"][f"variants_{k}"] = v["launches"][name]
+            for k, v in variants["train"].items():
+                e["launches_by_path"][f"variants_train_{k}_{VARIANT_STEPS}_steps"] = \
+                    v["launches"][name]
     report["paths"]["views"] = {"train": views["train"], "eval": views["eval"],
                                 "phase_s": views["phase_s"]}
+    report["paths"]["variants"] = {k: v for k, v in variants.items() if k != "kernels"}
     # each kernel's launches in each rank of phase 16, per path
     for e in report["kernels"]:
         name = e["name"].replace("_bf16", "")

@@ -1,10 +1,11 @@
 """Camera / pose / projection math on torch tensors.
 
 Counterpart of matchnerf_tpu/camera.py (the eval render's subset, and the
-host-side video trajectories in numpy and scipy). Conventions are the same:
-a pose is a [..., 3, 4] world-to-camera [R|t]; `legacy` pixel grids have no
-+0.5 centre offset, and the legacy target-pose inverse is taken host-side
-in float64 (`pose_inverse_legacy_np`).
+host-side video trajectories and `get_novel_view_poses` in numpy and
+scipy). Conventions are the same: a pose is a [..., 3, 4] world-to-camera
+[R|t]; `legacy` pixel grids have no +0.5 centre offset, and the legacy
+target-pose inverse is taken host-side in float64
+(`pose_inverse_legacy_np`).
 """
 from __future__ import annotations
 
@@ -164,3 +165,27 @@ def get_spiral_render_path(c2ws_all, near_far, rads_scale=0.5, n_frames=120):
     tt = c2ws_all[:, :3, 3] - c2w[:3, 3][None]
     rads = np.percentile(np.abs(tt), 70, 0) * rads_scale
     return np.stack(render_path_spiral(c2w, up, rads, focal, zrate=0.5, n_frames=n_frames))
+
+
+def get_novel_view_poses(pose_anchor, N: int = 60, scale: float = 1.0) -> np.ndarray:
+    """N poses [N,3,4] f32 in a small circular oscillation around the [3,4]
+    anchor pose (camera.py:295): a rotation of arcsin(0.05 sin t) about x
+    and arcsin(0.05 cos t) about y, taken about a point 4 * scale ahead
+    (shifted back by 3.8 * scale), composed onto the anchor."""
+    from scipy.spatial.transform import Rotation
+
+    def comp(a, b):
+        Ra, ta = a[:, :3], a[:, 3:]
+        Rb, tb = b[:, :3], b[:, 3:]
+        return np.concatenate([Rb @ Ra, Rb @ ta + tb], axis=-1)
+
+    out = []
+    shift1 = np.concatenate([np.eye(3), np.array([[0], [0], [-4 * scale]])], axis=-1)
+    shift2 = np.concatenate([np.eye(3), np.array([[0], [0], [3.8 * scale]])], axis=-1)
+    for th in np.arange(N) / N * 2 * np.pi:
+        rx = Rotation.from_euler("x", np.arcsin(np.sin(th) * 0.05)).as_matrix()
+        ry = Rotation.from_euler("y", np.arcsin(np.cos(th) * 0.05)).as_matrix()
+        pose_rot = np.concatenate([ry @ rx, np.zeros((3, 1))], axis=-1)
+        oscil = comp(comp(shift1, pose_rot), shift2)
+        out.append(comp(oscil, np.asarray(pose_anchor)))
+    return np.stack(out).astype(np.float32)

@@ -321,10 +321,13 @@ CONFIGS = {"test": dtu_eval_config, "test_strict": strict_eval_config,
 
 def _parse_value(text: Optional[str]):
     """A command-line value as the JAX package's YAML parse reads the common
-    cases: empty -> None, true/false/null, int, float, `a,b,` -> a list
-    (digit items as int), anything else a string."""
+    cases: empty -> None, true/false/null, int, float, a flow list `[a, b]`
+    (each item read so), `a,b,` -> a list (digit items as int), anything
+    else a string."""
     if text is None or text == "":
         return None
+    if text.startswith("[") and text.endswith("]"):
+        return [_parse_value(x.strip()) for x in text[1:-1].split(",") if x.strip()]
     low = text.lower()
     if low in ("true", "yes", "on"):
         return True

@@ -4,37 +4,38 @@
 // the forward-only kernel of `precision.fused_cosine` (eval and video
 // renders). Plain version and wrapper: matchnerf_tpu_torch/ops/fused_cosine.py.
 //
-// Input: rows [V,N,4*2C] (V = 3, C = 128; int8, bf16 or f32), per view and
-// sample the four bilinear taps y0x0, y0x1, y1x0, y1x1 of the view's table
-// row, each 2C channels; weights [V,N,2] f32 (wx, wy); scales [V,2C] f32 or
-// NULL (per-(view, channel) dequantisation, applied after interpolation).
-// Per sample and view: the nested lerp
+// Input: rows [V,N,4*(V-1)C] (V = 2, 3 or 4 views, C = 128; int8, bf16 or
+// f32), per view and sample the four bilinear taps y0x0, y0x1, y1x0, y1x1
+// of the view's table row, each (V-1)C channels; weights [V,N,2] f32
+// (wx, wy); scales [V,(V-1)C] f32 or NULL (per-(view, channel)
+// dequantisation, applied after interpolation). Per sample and view: the
+// nested lerp
 //   (t00 (1-wx) + t01 wx) (1-wy) + (t10 (1-wx) + t11 wx) wy
-// in f32 (pallas_cond.py:54-55), times the scale; then for each pair (i, j)
-// in (0,1), (0,2), (1,2) the grouped cosine of view i's chunk j-1 against
-// view j's chunk i (eps 1e-8 on each norm), averaged over the pairs.
-// Output out[n, g], f32.
+// in f32 (pallas_cond.py:54-55), times the scale; then for each of the
+// P = V(V-1)/2 pairs (i, j), i < j in row-major order (`pair_index_lists`),
+// the grouped cosine of view i's chunk j-1 against view j's chunk i (eps
+// 1e-8 on each norm), summed in that order and divided by P. Output
+// out[n, g], f32. One template instance per V: the chunk count V-1 and the
+// pair list are compile-time, so every loop unrolls and f[][][] stays in
+// registers (V = 4: 96 floats a lane).
 //
-// What bounds it: bytes. Each sample reads 3 views x 1024 row elements (3 KB
-// in int8, 6 KB in bf16, 12 KB in f32) once and does ~10 K flops, so at 1 M
-// samples per slice and scale it needs ~1 ms (int8) to ~4 ms (f32) of
-// device-memory time against ~0.15 ms of f32 arithmetic. Design: one
-// streaming pass, nothing staged. Half a warp (16 lanes) owns one sample,
-// each lane 8 channels of both chunks of every view, so each tap's chunk of
-// a row is read as 16 lanes x 8 elements, coalesced, with streaming loads
-// (the rows are read once). Interpolation and dequantisation are f32 in
-// registers; the per-group dot products and norms reduce with shuffles
-// inside the group's lanes. Only [N, G] f32 is written.
+// What bounds it: bytes. Each sample reads V x 4(V-1)C row elements (at
+// V = 3, 3 KB in int8, 6 KB in bf16, 12 KB in f32) once and does ~10 K
+// flops, so at 1 M samples per slice and scale it needs ~1 ms (int8) to
+// ~4 ms (f32) of device-memory time against ~0.15 ms of f32 arithmetic.
+// Design: one streaming pass, nothing staged. Half a warp (16 lanes) owns
+// one sample, each lane 8 channels of every chunk of every view, so each
+// tap's chunk of a row is read as 16 lanes x 8 elements, coalesced, with
+// streaming loads (the rows are read once). Interpolation and
+// dequantisation are f32 in registers; the per-group dot products and norms
+// reduce with shuffles inside the group's lanes. Only [N, G] f32 is written.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int V = 3;
 constexpr int C = 128;          // channels per pair chunk
-constexpr int CC = 2 * C;       // channels per view
-constexpr int ROW = 4 * CC;     // elements per tap row
 constexpr int LANES = C / 8;    // lanes per sample (8 channels each)
 constexpr int THREADS = 256;
 constexpr int SAMPLES_PER_BLOCK = THREADS / LANES;
@@ -67,18 +68,33 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-template <typename T>
+// the pairs (i, j), i < j, of V views in row-major order
+template <int V>
+struct Pairs {
+  static constexpr int P = V * (V - 1) / 2;
+  int i[P], j[P];
+  constexpr Pairs() : i(), j() {
+    int p = 0;
+    for (int a = 0; a < V - 1; ++a)
+      for (int b = a + 1; b < V; ++b) { i[p] = a; j[p] = b; ++p; }
+  }
+};
+
+template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
 fused_cosine_kernel(const T* __restrict__ rows, const float* __restrict__ weights,
                     const float* __restrict__ scales, float* __restrict__ out,
                     int G, int N) {
+  constexpr int CH = V - 1;       // chunks per view
+  constexpr int CC = CH * C;      // channels per view
+  constexpr int ROW = 4 * CC;     // elements per tap row
   const int lane = threadIdx.x % LANES;
   const int n_raw = blockIdx.x * SAMPLES_PER_BLOCK + threadIdx.x / LANES;
   // out-of-range samples still run (clamped) so every shuffle has all lanes
   const int n = min(n_raw, N - 1);
   const int o = lane * 8;
 
-  float f[V][2][8];   // [view][chunk][channel] interpolated, dequantised
+  float f[V][CH][8];  // [view][chunk][channel] interpolated, dequantised
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     const size_t vn = (size_t)v * N + n;
@@ -87,7 +103,7 @@ fused_cosine_kernel(const T* __restrict__ rows, const float* __restrict__ weight
     const float wx0 = 1.f - wx, wy0 = 1.f - wy;
     const T* r = rows + vn * ROW;
 #pragma unroll
-    for (int ch = 0; ch < 2; ++ch) {
+    for (int ch = 0; ch < CH; ++ch) {
       const int c0 = ch * C + o;
       float a[8], b[8], c[8], d[8];
       load8(r + 0 * CC + c0, a);
@@ -110,11 +126,11 @@ fused_cosine_kernel(const T* __restrict__ rows, const float* __restrict__ weight
   const int lanes_per_group = LANES / G;   // G in {1,2,4,8,16}
   float total = 0.f;
   // pair (i, j): view i's chunk j-1 against view j's chunk i
-  constexpr int PI[3] = {0, 0, 1}, PJ[3] = {1, 2, 2};
+  constexpr Pairs<V> pairs;
 #pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    const float* fa = f[PI[p]][PJ[p] - 1];
-    const float* fb = f[PJ[p]][PI[p]];
+  for (int p = 0; p < Pairs<V>::P; ++p) {
+    const float* fa = f[pairs.i[p]][pairs.j[p] - 1];
+    const float* fb = f[pairs.j[p]][pairs.i[p]];
     float dot = 0.f, na2 = 0.f, nb2 = 0.f;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -130,20 +146,27 @@ fused_cosine_kernel(const T* __restrict__ rows, const float* __restrict__ weight
     total += dot / (fmaxf(sqrtf(na2), 1e-8f) * fmaxf(sqrtf(nb2), 1e-8f));
   }
   if (n_raw < N && lane % lanes_per_group == 0)
-    out[(size_t)n * G + lane / lanes_per_group] = total / 3.f;
+    out[(size_t)n * G + lane / lanes_per_group] = total / (float)Pairs<V>::P;
 }
 
 template <typename T>
 int launch(const void* rows, const void* weights, const void* scales, void* out,
            int views, int channels, int G, int N, cudaStream_t stream) {
-  if (views != V || channels != C || N < 0 ||
+  if (views < 2 || views > 4 || channels != C || N < 0 ||
       !(G == 1 || G == 2 || G == 4 || G == 8 || G == 16))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
   const int blocks = (N + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK;
-  fused_cosine_kernel<T><<<blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(rows), static_cast<const float*>(weights),
-      static_cast<const float*>(scales), static_cast<float*>(out), G, N);
+  const T* r = static_cast<const T*>(rows);
+  const float* w = static_cast<const float*>(weights);
+  const float* s = static_cast<const float*>(scales);
+  float* o = static_cast<float*>(out);
+  if (views == 2)
+    fused_cosine_kernel<T, 2><<<blocks, THREADS, 0, stream>>>(r, w, s, o, G, N);
+  else if (views == 3)
+    fused_cosine_kernel<T, 3><<<blocks, THREADS, 0, stream>>>(r, w, s, o, G, N);
+  else
+    fused_cosine_kernel<T, 4><<<blocks, THREADS, 0, stream>>>(r, w, s, o, G, N);
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,9 @@ Training (engine.py:180-545), the call order of train.py:
 `restore_checkpoint_if_needed` (`resume`: the model, optimizer and schedule
 state, epoch and iteration of `models/latest.ckpt`; `load`: weights only),
 `setup_visualizer` (tensorboard where importable, and always
-`scalars.jsonl`), then `train_model`: epochs of `train_epoch`, which on
+`scalars.jsonl`), then `train_model`: epochs of `train_epoch` (inside a
+`torch.profiler` trace written to `profile_trace_dir` when that key is set,
+`utils.profiling.trace`), which on
 resume skips the batches before the restored iteration, and
 `train_iteration`: one step (the per-pose route of the cond query; a step
 never takes Kernel C), then the hooks every `ceil(freq.x_it * len(loader))`
@@ -46,6 +48,7 @@ the renders gather across ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -62,7 +65,7 @@ from .data import DATASETS
 from .data.loader import DataLoader
 from .metrics import EvalTools, summarize_metrics
 from .models.gmflow.gmflow import encoder_input_hw
-from .models.matchnerf import MatchNeRF, init_matchnerf
+from .models.matchnerf import MatchNeRF, init_matchnerf, local_radius
 from .ops.block_cosine_prior import takes_f32
 from .parallel import distributed as dist
 from .renderer import Renderer, extract_poses
@@ -70,6 +73,7 @@ from .train_step import build_optimizer, make_train_step
 from .utils.checkpoint import CheckpointWriter, load_checkpoint, load_model_weights
 from .utils.containers import effective_precision
 from .utils.logging import loss_train, update_timer
+from .utils.profiling import trace
 from .utils.visualize import save_image, visualize_depth, write_gif, write_video
 from .weights import load_gmflow_pretrained
 
@@ -204,7 +208,7 @@ class Coach:
         get = prec.get if hasattr(prec, "get") else (lambda *_: None)
         patches = bool(cfg.nerf.get("train_ray_patches", False))
         if not (get("banded_kernel") and get("block_kernel") and patches
-                and int(cfg.batch_size) == 1):
+                and int(cfg.batch_size) == 1) or local_radius(cfg) > 0:
             return None
         key = b"".join(np.asarray(batch[k], np.float32).tobytes()
                        for k in ("extrinsics", "intrinsics", "near_fars"))
@@ -293,8 +297,10 @@ class Coach:
                     self.validate_model(iteration=self.it, is_sanity_check=True)
                 if freq.test_ep > 0 and self.test_loaders:
                     self.test_model(ep=0, save_images=False, is_sanity_check=True)
-            for self.ep in range(self.epoch_start, int(cfg.max_epoch)):
-                self.train_epoch()
+            trace_dir = cfg.get("profile_trace_dir")
+            with trace(trace_dir) if trace_dir else contextlib.nullcontext():
+                for self.ep in range(self.epoch_start, int(cfg.max_epoch)):
+                    self.train_epoch()
             if self._tb is not None:
                 self._tb.flush()
             log.info("TRAINING DONE")
@@ -548,7 +554,7 @@ class Coach:
         out_dir = os.path.join(self.output_path, "validation")
         if main:
             os.makedirs(out_dir, exist_ok=True)
-        eval_tools = EvalTools()
+        eval_tools = EvalTools(self.device)
         metrics: Dict[str, list] = {k: [] for k in eval_tools.support_metrics}
         dtu = self.val_loader.dataset.get_name().startswith("dtu")
         for batch_idx, batch in enumerate(self.val_loader):
@@ -593,7 +599,7 @@ class Coach:
         cfg = self.cfg
         main = dist.is_main_process()
         test_outroot = os.path.join(self.output_path, "test")
-        eval_tools = EvalTools()
+        eval_tools = EvalTools(self.device)
         metrics_dict: Dict[str, OrderedDict] = {}
         for data_loader in self.test_loaders:
             dataname = data_loader.dataset.get_name()

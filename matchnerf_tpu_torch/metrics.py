@@ -5,7 +5,9 @@ matchnerf_tpu/metrics.py), numpy and scipy on the host.
 - SSIM: skimage `structural_similarity` defaults (7x7 uniform window, K1
   0.01, K2 0.03, sample covariance) with data_range=2.0: the float default
   skimage infers and the reference inherits, so the published numbers use it.
-- LPIPS: its VGG weights are not in the repository; it reports NaN, with one
+- LPIPS: `lpips.lpips_distance` (VGG16 + the LPIPS heads) on the eval's
+  device, from configs/lpips_vgg_weights.npz where that file exists; the
+  repository does not hold it, and without it LPIPS reports NaN, with one
   warning per process, and the summary skips all-NaN metrics.
 """
 from __future__ import annotations
@@ -65,14 +67,18 @@ def ssim(pred: np.ndarray, gt: np.ndarray, data_range: float = 2.0,
 _lpips_warned = False
 
 
-def lpips_vgg(pred: np.ndarray, gt: np.ndarray) -> Optional[float]:
-    """LPIPS(VGG) needs the VGG weights, which the repository does not hold:
-    None, with one warning."""
+def lpips_vgg(pred: np.ndarray, gt: np.ndarray, device) -> Optional[float]:
+    """LPIPS(VGG) on `device` (metrics.py:84); None, with one warning per
+    process, where the VGG weights cannot be read."""
     global _lpips_warned
-    if not _lpips_warned:
-        log.warning("LPIPS unavailable (no VGG weights); reporting NaN for LPIPS.")
-        _lpips_warned = True
-    return None
+    from .lpips import lpips_distance
+    try:
+        return lpips_distance(pred, gt, device)
+    except (OSError, KeyError, ValueError) as err:
+        if not _lpips_warned:
+            log.warning("LPIPS unavailable (%s); reporting NaN for LPIPS.", err)
+            _lpips_warned = True
+        return None
 
 
 class EvalTools:
@@ -82,6 +88,9 @@ class EvalTools:
     unmasked image as `<metric>_Full`."""
 
     support_metrics = ("PSNR", "SSIM", "LPIPS")
+
+    def __init__(self, device):
+        self.device = device          # where LPIPS runs: "cuda" or "cpu"
 
     def set_inputs(self, pred_img, gt_img, img_mask=None):
         self.full_pred, self.full_gt = pred_img, gt_img
@@ -102,7 +111,7 @@ class EvalTools:
         if metric == "SSIM":
             return ssim(pred, gt)
         if metric == "LPIPS":
-            v = lpips_vgg(pred, gt)
+            v = lpips_vgg(pred, gt, self.device)
             return float("nan") if v is None else v
         raise ValueError(metric)
 

@@ -1,12 +1,14 @@
 """Conditional NeRF decoder and the emission-absorption composite
-(counterpart of matchnerf_tpu/models/decoder/cond_nerf.py, view-dependent
-variant).
+(counterpart of matchnerf_tpu/models/decoder/cond_nerf.py).
 
 `CondNeRF` holds the reference's parameter names (`pts_linears.{i}`,
 `pts_bias`, `views_linears.0`, `alpha_linear.0`, `ray_attention.*`,
 `out_alpha_linear.{0,2}`, `feature_linear`, `rgb_linear`); `apply_cond_nerf`
 and `composite` are the plain forward that Kernel C (ops/decoder.py) is held
-against.
+against. With `nerf.view_dep: false` the density and view branches give way
+to one `output_linear` (W -> 4) whose raw outputs are the rgb and the
+density (cond_nerf.py:58-69, :113-115); that decoder has no kernel (the JAX
+package decodes it in XLA), so it always runs the plain forward.
 """
 from __future__ import annotations
 
@@ -32,8 +34,6 @@ def raytrans_act_name(cfg) -> str:
 class CondNeRF(nn.Module):
     def __init__(self, cfg):
         super().__init__()
-        if not cfg.nerf.view_dep:
-            raise NotImplementedError("the port carries the view_dep CondNeRF only")
         W = cfg.decoder.net_width
         D = cfg.decoder.net_depth
         skip = set(cfg.decoder.skip)
@@ -44,6 +44,9 @@ class CondNeRF(nn.Module):
             [Linear(in_3d, W)]
             + [Linear(W + in_3d if i in skip else W, W) for i in range(D - 1)])
         self.pts_bias = Linear(cond_feat_dim(cfg), W)
+        if not cfg.nerf.view_dep:
+            self.output_linear = Linear(W, 4)
+            return
         self.views_linears = nn.ModuleList([Linear(in_view + W, W // 2)])
         self.alpha_linear = nn.Sequential(Linear(W, 16))
         self.ray_attention = RayAttention()
@@ -77,7 +80,7 @@ def apply_cond_nerf(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info,
     """rgb [B,R,S,3] and density [B,R,S] at the samples (cond_nerf.py:71).
 
     points_3d: [B,R,S,3] view-0 NDC coordinates; ray_unit: [B,R,S,3]
-    reference-frame unit directions; cond_info: feat_info [B,R,S,G],
+    reference-frame unit directions (None without view_dep); cond_info: feat_info [B,R,S,G],
     color_info [B,R,S,3V], mask_info [B,R,S,V].
 
     With matmul_dtype None, precision.decoder_compute_dtype bfloat16 (the
@@ -113,6 +116,11 @@ def apply_cond_nerf(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info,
         h = relu(wide(lin, h) * bias)
         if i in skip:
             h = torch.cat([points_enc, h], dim=-1)
+
+    if not cfg.nerf.view_dep:
+        # a bf16 activation meets f32 weights: widened, as JAX promotes it
+        out = dec.output_linear(h.float())
+        return out[..., :3], out[..., 3]
 
     if posenc and posenc.L_view > 0:
         ray_enc = torch.cat([ray_unit, enc_fn(ray_unit, posenc.L_view)], dim=-1)

@@ -73,7 +73,8 @@ class GMFlow(nn.Module):
 
 
 def _add_position(feat: torch.Tensor, attn_splits: int, channels: int):
-    """Add the DETR sine embedding per attention window ([B,h,w,C])."""
+    """Add the DETR sine embedding per attention window ([B,h,w,C]); at
+    one split the window is the whole map (gmflow.py:55-64)."""
     b, h, w, c = feat.shape
     pos = sine_position_embedding_2d(h // attn_splits, w // attn_splits,
                                      channels // 2, device=feat.device)
@@ -119,13 +120,13 @@ def extract_pair_features(enc: GMFlow, images: torch.Tensor, attn_splits_list,
 
     out_scales = []
     for attn_splits in attn_splits_list:
-        if attn_splits < 2:
-            raise NotImplementedError("attention without window splits is not ported")
         idx0 = [p[0] for p in pairs]
         idx1 = [p[1] for p in pairs]
         feat0 = _add_position(feat[:, idx0].reshape(b * n_pairs, h, w, C), attn_splits, C)
         feat1 = _add_position(feat[:, idx1].reshape(b * n_pairs, h, w, C), attn_splits, C)
-        rid = shift_region_ids(h, w, attn_splits, device=feat.device)
+        # no shift mask at one split (transformer.py:108)
+        rid = (shift_region_ids(h, w, attn_splits, device=feat.device)
+               if attn_splits > 1 else None)
         feat0, feat1 = enc.transformer(feat0, feat1, attn_splits, region_ids=rid,
                                        wo_self_attn=wo_self_attn, kernel=kernel, remat=remat,
                                        shard_streams=shard_streams)

@@ -2,7 +2,8 @@
 matchnerf_tpu/models/gmflow/transformer.py).
 
 Each block runs self-attention then cross-attention + FFN with single-head
-split-window attention, shifted by half a window on odd layers. The two
+split-window attention, shifted by half a window on odd layers (at one
+split, `ops.attention.full_attention` over the whole map). The two
 views of each pair are stacked on the batch axis, and the partner half is
 swapped after every block (transformer.py:94-139). With `remat`
 (precision.remat_encoder) each attention layer runs under
@@ -20,7 +21,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ...ops.attention import split_window_attention
+from ...ops.attention import full_attention, split_window_attention
 from ...ops.nn import Activation, Linear
 from ...ops.norm import LayerNorm
 from ...parallel import mesh
@@ -52,10 +53,15 @@ class TransformerLayer(nn.Module):
         query = self.q_proj(source)
         key = self.k_proj(target)
         value = self.v_proj(target)
-        message = split_window_attention(
-            query.reshape(b, h, w, c), key.reshape(b, h, w, c),
-            value.reshape(b, h, w, c), num_splits, with_shift,
-            region_ids=region_ids, kernel=kernel).reshape(b, L, c)
+        if num_splits > 1:
+            message = split_window_attention(
+                query.reshape(b, h, w, c), key.reshape(b, h, w, c),
+                value.reshape(b, h, w, c), num_splits, with_shift,
+                region_ids=region_ids, kernel=kernel).reshape(b, L, c)
+        else:
+            # one split: attention over the whole map, no shift, no mask
+            # (transformer.py:51-68)
+            message = full_attention(query, key, value)
         message = self.norm1(self.merge(message))
         if self.mlp is not None:
             message = self.norm2(self.mlp(torch.cat([source, message], dim=-1)))

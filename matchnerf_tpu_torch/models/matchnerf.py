@@ -20,6 +20,15 @@ exists, the gather otherwise. With `fused_cosine` (precision.fused_cosine,
 eval and video renders, B == 1) every feature scale takes Kernel F
 (ops/fused_cosine.py) on the gathered tap rows instead, before the block
 and per-ray routes, as matchnerf.py:311-334 does.
+
+With `encoder.feature_sample_local_radius` > 0 no feature table is built
+(matchnerf.py:307-311, renderer.py:743, train_step.py:156): the features are
+sampled from each pair's maps with the local-radius window
+(`ops.grid_sample.sample_features_by_grid`) and the colours from the f32
+source images, so no prior kernel and no colour kernel runs on that route.
+With `nerf.view_dep: false` the decoder is the plain one, with no ray
+directions (matchnerf.py:444-467): Kernel C decodes the view_dep CondNeRF
+only.
 """
 from __future__ import annotations
 
@@ -31,12 +40,13 @@ from torch import nn
 from .. import camera
 from ..ops.block_cosine_prior import (block_cosine_prior, block_cosine_prior_plain,
                                       takes_table)
-from ..ops.cosine_prior import (cosine_prior, cosine_prior_plain,
+from ..ops.cosine_prior import (cosine_prior, cosine_prior_plain, grouped_cosine,
                                 pair_index_lists)
 from ..ops.decoder import cond_nerf_decode, cond_nerf_decode_plain, decoder_matmul_dtype
 from ..ops.fused_cosine import (fused_interp_grouped_cosine,
                                 fused_interp_grouped_cosine_plain)
-from ..ops.grid_sample import grid_sample_2d, in_frustum_mask, tap_rows_and_weights
+from ..ops.grid_sample import (grid_sample_2d, in_frustum_mask, sample_features_by_grid,
+                               tap_rows_and_weights)
 from ..ops.nn import reset_parameters
 from ..ops.supercell_color import (build_supercell_colors, supercell_color_sample,
                                    supercell_color_sample_plain)
@@ -60,6 +70,12 @@ def init_matchnerf(cfg, generator: Optional[torch.Generator] = None) -> MatchNeR
     """A MatchNeRF with weights drawn from `generator` (on the CPU), using
     the JAX package's initialisers."""
     return reset_parameters(MatchNeRF(cfg), generator)
+
+
+def local_radius(cfg) -> int:
+    """encoder.feature_sample_local_radius: > 0 takes the local-radius
+    sampler and builds no feature table."""
+    return int(cfg.encoder.get("feature_sample_local_radius", 0) or 0)
 
 
 def _precision_get(cfg, key, default=None):
@@ -133,7 +149,14 @@ def prepare_sampling_tables(cfg, pair_feats, ref_images, feat_dtype=None,
     Returns {'view_feats': [per scale [B,V,h,w,(V-1)C]],
              'view_feat_scales': [per scale [B,V,(V-1)C] or None],
              'colors': [B,V,H,W,3], 'color_scale': float or None,
-             'colors_sc': [B,V,Hs,Ws,80] uint8 or None}."""
+             'colors_sc': [B,V,Hs,Ws,80] uint8 or None}.
+
+    With the local-radius sampler (`local_radius(cfg)` > 0) there are no
+    tables: 'view_feats' is empty, 'pair_feats' holds the encoder's maps and
+    'colors' the f32 source images, whatever the dtypes asked."""
+    if local_radius(cfg) > 0:
+        return {"view_feats": [], "view_feat_scales": [], "pair_feats": list(pair_feats),
+                "colors": ref_images.contiguous(), "color_scale": None, "colors_sc": None}
     n_views = cfg.n_src_views
     pairs = pair_index_lists(n_views)
     view_feats, view_scales = [], []
@@ -224,9 +247,10 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
     consecutive 8-pixel blocks. fused_cosine: every feature scale takes
     Kernel F when B == 1 (matchnerf.py:311). Returns (cond dict with feat_info
     [B,R,S,sum(G)], color_info [B,R,S,3V], mask_info [B,R,S,V], all
-    contiguous f32) and the view-0 NDC coordinates [B,R,S,3]."""
-    if int(cfg.encoder.feature_sample_local_radius) > 0:
-        raise NotImplementedError("feature_sample_local_radius > 0 is not ported")
+    contiguous f32) and the view-0 NDC coordinates [B,R,S,3]. With the
+    local-radius sampler (`local_radius(cfg)` > 0) `tables` holds
+    'pair_feats' and the features are sampled per pair
+    (matchnerf.py:402-412), whatever the route arguments."""
     B, R, S = pts_3d.shape[:3]
     V = ref_w2c.shape[1]
     cos_n_group = cfg.encoder.cos_n_group
@@ -251,6 +275,12 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
     color_info = color_info.contiguous()
     masks = in_frustum_mask(grids)                                # [V,B,R,S]
     mask_info = masks.permute(1, 2, 3, 0).contiguous()
+
+    if local_radius(cfg) > 0:
+        cond = {"feat_info": local_feature_info(cfg, tables["pair_feats"], grids,
+                                                cos_n_group),
+                "color_info": color_info, "mask_info": mask_info}
+        return cond, ndc_all[0]
 
     # matching prior per scale: Kernel F on the fused route; else Kernel D
     # where the pose's union fits a bucket (int8 tables; bf16 tables and D'
@@ -286,6 +316,26 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
     return cond, ndc_all[0]
 
 
+def local_feature_info(cfg, pair_feats, grids, cos_n_group) -> torch.Tensor:
+    """The matching prior of the local-radius route: for each scale and pair
+    (i, j), the grouped cosine of side 0 sampled on view i's grid against
+    side 1 on view j's, averaged over the pairs (matchnerf.py:402-412).
+    pair_feats: per scale [B,P,2,h,w,C]; grids [V,B,R,S,2] -> [B,R,S,sum(G)]."""
+    r = local_radius(cfg)
+    d = int(cfg.encoder.get("feature_sample_local_dilation", 1) or 1)
+    pairs = pair_index_lists(len(grids))
+    chunks = []
+    for scale_idx, feats in enumerate(pair_feats):
+        per_pair = []
+        for p_idx, (i, j) in enumerate(pairs):
+            fa = sample_features_by_grid(feats[:, p_idx, 0], grids[i], r, d)
+            fb = sample_features_by_grid(feats[:, p_idx, 1], grids[j], r, d)
+            per_pair.append(grouped_cosine(fa, fb, cos_n_group[scale_idx]))
+            del fa, fb
+        chunks.append(torch.stack(per_pair, dim=0).mean(dim=0))
+    return torch.cat(chunks, dim=-1).contiguous()
+
+
 def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
                 ref_w2c, ref_intr, ref_near_far, tables: dict, img_h: int,
                 img_w: int, kernel: bool = True,
@@ -315,13 +365,15 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
                                            ref_near_far, tables, img_h, img_w,
                                            kernel=kernel, block_ut=block_ut,
                                            color_ut=color_ut, fused_cosine=fused_cosine)
-    # reference-frame unit rays, shared by every sample of a ray
-    ray_unit = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
-    R0 = ref_w2c[:, 0, :3, :3]
-    ray_unit_ref = (ray_unit @ R0.transpose(-1, -2))[:, :, None, :] \
-        .expand(*pts_3d.shape[:3], 3).contiguous()
+    ray_unit_ref = None
+    if cfg.nerf.view_dep:
+        # reference-frame unit rays, shared by every sample of a ray
+        ray_unit = ray / torch.linalg.norm(ray, dim=-1, keepdim=True)
+        R0 = ref_w2c[:, 0, :3, :3]
+        ray_unit_ref = (ray_unit @ R0.transpose(-1, -2))[:, :, None, :] \
+            .expand(*pts_3d.shape[:3], 3).contiguous()
 
-    if eval_decoder:
+    if eval_decoder and cfg.nerf.view_dep:
         # Kernel C, or its plain version in the all-plain reference
         decode = cond_nerf_decode if kernel else cond_nerf_decode_plain
         rgb, depth, opacity = decode(model.nerf_dec, cfg, ndc_view0.contiguous(),
@@ -331,7 +383,8 @@ def render_rays(model: MatchNeRF, cfg, pix_xy, tgt_intr, tgt_c2w, tgt_near_far,
     else:
         # the plain decoder: Kernel C is forward-only, so a step that
         # differentiates (training) takes this path whatever the config says,
-        # as the JAX training step does
+        # as the JAX training step does; so does the decoder without view
+        # dependence, which JAX decodes in XLA (matchnerf.py:458-467)
         rgb_s, den_s = apply_cond_nerf(model.nerf_dec, cfg, ndc_view0, ray_unit_ref,
                                        cond_info)
         rgb, depth, opacity, _ = composite(cfg, ray, rgb_s, den_s, depth_samples,

@@ -4,9 +4,14 @@
 Features stay [B,H,W,C] at this module's boundary, as in the JAX package.
 `split_window_attention` does the cyclic roll and the window split in torch,
 then hands the [B*K*K, L, C] windows to `ops.window_attention` (the CUDA
-kernel on the card, its plain version on the CPU).
+kernel on the card, its plain version on the CPU). At one split
+(`attn_splits_list` entry 1) the encoder takes `full_attention` over the
+whole map instead: the JAX package computes it in XLA (attention.py:74),
+not in a Pallas kernel, and so does the port, in torch products.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -67,6 +72,17 @@ def shift_region_ids(h: int, w: int, num_splits: int, device=None) -> torch.Tens
     ws_h, ws_w = h // num_splits, w // num_splits
     m = window_region_ids(h, w, ws_h, ws_w, ws_h // 2, ws_w // 2)
     return torch.from_numpy(m.astype(np.int32)).to(device)
+
+
+def full_attention(q, k, v):
+    """Single-head softmax attention over whole token maps, [B,L,C] ->
+    [B,L,C] (attention.py:74): the scores q.k / sqrt(C) and the softmax in
+    f32 whatever the operands' dtype, the weights cast to v's dtype before
+    the second product."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    attn = torch.softmax(scores, dim=-1).to(v.dtype)
+    del scores
+    return torch.matmul(attn, v)
 
 
 def split_window_attention(q, k, v, num_splits: int, with_shift: bool,

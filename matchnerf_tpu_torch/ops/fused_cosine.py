@@ -2,7 +2,8 @@
 
 Replaces matchnerf_tpu/ops/pallas_cond.py::fused_interp_grouped_cosine, the
 forward-only kernel of `precision.fused_cosine` (the eval and video
-renders). The CUDA source is csrc/fused_cosine.cu;
+renders). The CUDA source is csrc/fused_cosine.cu, one template instance
+per view count V = 2, 3, 4;
 `fused_interp_grouped_cosine_plain` is the same function in plain PyTorch.
 
 rows [V,N,4*(V-1)*C] hold, per view and sample, the four bilinear taps
@@ -34,9 +35,19 @@ _KERNELS = {torch.int8: "fused_cosine_i8", torch.bfloat16: "fused_cosine_bf16",
             torch.float32: "fused_cosine_f32"}
 
 
-def fused_interp_grouped_cosine_plain(rows, weights, n_groups: int, scales=None):
+def fused_interp_grouped_cosine_plain(rows, weights, n_groups: int, scales=None,
+                                      piece: int = None):
     """rows [V,N,4Cc] (any dtype); weights [V,N,2] f32; scales [V,Cc] f32
-    or None -> [N,G] f32."""
+    or None -> [N,G] f32. With `piece`, `piece` samples at a time (the f32
+    rows of V = 4 at an 8192-ray chunk are 25.8 GB: whole, their f32 copies
+    would not fit beside them on the card)."""
+    if piece is not None:
+        N = rows.shape[1]
+        out = torch.empty(N, n_groups, dtype=torch.float32, device=rows.device)
+        for n0 in range(0, N, piece):
+            out[n0:n0 + piece] = fused_interp_grouped_cosine_plain(
+                rows[:, n0:n0 + piece], weights[:, n0:n0 + piece], n_groups, scales)
+        return out
     if rows.is_cuda:
         COUNTER.plain_on_cuda += 1
     V, N, C4 = rows.shape
@@ -50,20 +61,27 @@ def fused_interp_grouped_cosine_plain(rows, weights, n_groups: int, scales=None)
     return pair_cosine_mean(list(interp), n_groups)
 
 
+VIEW_COUNTS = (2, 3, 4)      # the kernel's template instances
+
+
 def fused_interp_grouped_cosine(rows, weights, n_groups: int, scales=None):
-    """The kernel on CUDA tensors (V=3, C=128: rows [3,N,1024] of int8, bf16
-    or f32), the plain version on CPU tensors."""
+    """The kernel on CUDA tensors (V = 2, 3 or 4 views, C = 128: rows
+    [V,N,512(V-1)] of int8, bf16 or f32), the plain version on CPU tensors.
+    Another view count raises a ValueError that names V, before any
+    launch."""
     if rows.device.type == "cpu":
         return fused_interp_grouped_cosine_plain(rows, weights, n_groups, scales)
+    if rows.dim() != 3 or rows.shape[0] not in VIEW_COUNTS \
+            or rows.shape[2] != 512 * (rows.shape[0] - 1):
+        V = rows.shape[0] if rows.dim() == 3 else None
+        raise ValueError(f"fused_interp_grouped_cosine: rows {tuple(rows.shape)} (V={V} "
+                         "views), the kernel takes V = 2, 3 or 4 views of "
+                         "[V,N,512(V-1)]")
     if not rows.is_cuda:
         raise ValueError(f"fused_interp_grouped_cosine: unsupported device {rows.device}")
     if rows.dtype not in _KERNELS:
         raise ValueError(f"fused_interp_grouped_cosine: rows dtype {rows.dtype} "
                          "(int8, bf16 or f32)")
-    if rows.dim() != 3 or rows.shape[0] != 3 or rows.shape[2] != 1024:
-        V = rows.shape[0] if rows.dim() == 3 else None
-        raise ValueError(f"fused_interp_grouped_cosine: rows {tuple(rows.shape)} (V={V} "
-                         "views), the kernel takes V = 3 views of [3,N,1024]")
     V, N, C4 = rows.shape
     Cc = C4 // 4
     if n_groups not in (1, 2, 4, 8, 16):

@@ -8,12 +8,17 @@ bytes for fewer gather indices and is not carried into the port: the fused
 cosine route (Kernel F) gathers the four taps of each sample from the
 unpacked table into the row a packed table would give
 (`tap_rows_and_weights`), for the samples of one slice only.
+
+`sample_features_by_grid` adds the local-radius sampler
+(`encoder.feature_sample_local_radius` > 0; grid_sample.py:192): the mean
+of the (2r+1)^2 window of dilated offsets around each point.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def bilinear_taps(grid: torch.Tensor, H: int, W: int):
@@ -48,6 +53,40 @@ def grid_sample_2d(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
            + tap(y0, x1) * (wy0 * wx1)[..., None]
            + tap(y1, x0) * (wy1 * wx0)[..., None]
            + tap(y1, x1) * (wy1 * wx1)[..., None])
+    return out.reshape(*grid.shape[:-1], C)
+
+
+def sample_features_by_grid(feat: torch.Tensor, grid: torch.Tensor,
+                            local_radius: int = 0, local_dilation: int = 1) -> torch.Tensor:
+    """feat [B,H,W,C]; grid [B,...,2] -> [B,...,C] f32: `grid_sample_2d`, or
+    with local_radius r > 0 the mean over the (2r+1)^2 window of pixel
+    offsets (dx, dy) * local_dilation, rows (dy) outer (grid_sample.py:192).
+    The offset points are renormalised by (W + (2r+1)*dilation - 1)/2 (and
+    likewise in y), not by the map's (W-1)/2: the reference's arithmetic,
+    kept. Each offset is one `F.grid_sample` (bilinear, border,
+    align_corners: the same blend in one pass; the JAX package samples this
+    route in XLA, not in a Pallas kernel); the window is summed one offset
+    at a time (one [N,C] sample live, not K of them), then divided by K."""
+    if local_radius <= 0:
+        return grid_sample_2d(feat, grid)
+    B, H, W, C = feat.shape
+    src = feat.float().permute(0, 3, 1, 2).contiguous()              # [B,C,H,W]
+    dev = grid.device
+    c = torch.tensor([(W - 1) / 2.0, (H - 1) / 2.0], dtype=torch.float32, device=dev)
+    unnorm = grid.reshape(B, -1, 2) * c + c                         # [B,N,2] pixels
+    L = 2 * local_radius + 1
+    c2 = torch.tensor([(W + L * local_dilation - 1) / 2.0,
+                       (H + L * local_dilation - 1) / 2.0], dtype=torch.float32, device=dev)
+    total = None
+    for dy in range(-local_radius, local_radius + 1):
+        for dx in range(-local_radius, local_radius + 1):
+            off = torch.tensor([float(dx) * local_dilation, float(dy) * local_dilation],
+                               dtype=torch.float32, device=dev)
+            pts = ((unnorm + off - c2) / c2)[:, :, None, :]             # [B,N,1,2]
+            vals = F.grid_sample(src, pts, mode="bilinear", padding_mode="border",
+                                 align_corners=True)                   # [B,C,N,1]
+            total = vals if total is None else total + vals
+    out = (total / float(L * L))[..., 0].transpose(1, 2)               # [B,N,C]
     return out.reshape(*grid.shape[:-1], C)
 
 

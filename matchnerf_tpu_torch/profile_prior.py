@@ -1,7 +1,8 @@
-"""Kernels B and D on the card, against another build of their sources.
+"""Kernels B, D and F on the card, against another build of their sources.
 
     python -m matchnerf_tpu_torch.profile_prior [--against DIR] [--sass] [--phases]
     python -m matchnerf_tpu_torch.profile_prior --backward [--against DIR] [--sass]
+    python -m matchnerf_tpu_torch.profile_prior --fused [--against DIR]
 
 Times the cosine prior of both feature scales at the DTU eval render's
 shapes: the first 20480 rays (one render slice) and the first 4096 rays
@@ -48,6 +49,16 @@ redesign, one f32 add per run of a walk and channel after it (a band of
 depths across the block's 8 rays; 4 channels a 128-bit compare-and-swap),
 and its float4 global atomics, one per (block, union row, 4
 channels). `--sass` adds each kernel's atomic instructions by full mnemonic.
+
+With `--fused` it times Kernel F (`fused_interp_grouped_cosine`) instead,
+at V = 2, 3 and 4 source views on random tap rows of one fused-route chunk
+(8192 rays x 128 samples; int8 values in -127..127 with per-(view,
+channel) scales, bf16 and f32 normal values; weights uniform in [0, 1)) at
+G = 2 and 8, each held against its plain twin (max |d|, the twin taken
+2**18 samples at a time). With `--against DIR`, DIR's fused_cosine.cu is
+built and, at each V its launcher takes (it returns an error for the
+others), its output is compared with this tree's bit for bit and both are
+timed in turns. F's bound is chip_smoke.py's (phase 19).
 """
 from __future__ import annotations
 
@@ -69,6 +80,7 @@ from .profile_attention import card_line
 H, W = 512, 640
 DTU_NEAR_FAR = (2.125, 4.525)
 SLICE_RAYS, VAL_RAYS, TRAIN_RAYS = 20480, 4096, 1024
+FUSED_RAYS = 8192             # one fused-route chunk (Kernel F, `--fused`)
 ITERS = 20
 SOURCES = ("cosine_prior.cu", "block_cosine_prior.cu")
 OPCODES = ("I2F", "I2FP", "F2F", "PRMT", "SGXT", "SHF", "LOP3", "IMAD", "FFMA", "FMUL",
@@ -90,7 +102,7 @@ def build_lib(sources, name: str, include: Path, flags=()) -> ctypes.CDLL:
 
 def bind(lib):
     for name, sig in kernels.SIGNATURES.items():
-        if "cosine_prior" in name and hasattr(lib, name):
+        if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = sig
             fn.restype = ctypes.c_int
@@ -394,6 +406,65 @@ def backward(torch, dev, libs, block_ut, result):
         del table, unions, d
 
 
+def fused(torch, dev, against, result):
+    """Kernel F at V = 2, 3, 4 against its plain twin and, with `against`,
+    against that directory's fused_cosine.cu (`--fused`)."""
+    from .ops import fused_cosine as kf
+    other = None
+    if against is not None:
+        other = bind(build_lib([against / "fused_cosine.cu"], "libfused_against", against))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    N, C = FUSED_RAYS * 128, 128
+    result["fused"] = []
+    for V in kf.VIEW_COUNTS:
+        for dt in (torch.int8, torch.bfloat16, torch.float32):
+            shape = (V, N, 4 * (V - 1) * C)
+            if dt == torch.int8:
+                rows = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                     dtype=torch.int32).to(torch.int8)
+                scales = torch.rand(V, (V - 1) * C, generator=gen, device=dev) * 0.02 + 1e-3
+            else:
+                rows = torch.randn(shape, generator=gen, device=dev, dtype=dt)
+                scales = None
+            wts = torch.rand(V, N, 2, generator=gen, device=dev)
+            for G in (2, 8):
+                fns = {"this": lambda: kf.fused_interp_grouped_cosine(rows, wts, G, scales)}
+                out = fns["this"]()
+                err = float((out - kf.fused_interp_grouped_cosine_plain(
+                    rows, wts, G, scales, piece=2 ** 18)).abs().max())
+                case = {"V": V, "dtype": str(dt).replace("torch.", ""), "G": G, "N": N,
+                        "max_abs_err": err}
+                if other is not None:
+                    o_out = torch.empty_like(out)
+
+                    def that():
+                        call(torch, other, kf._KERNELS[dt], rows.data_ptr(), wts.data_ptr(),
+                             kernels.ptr(scales), o_out.data_ptr(), V, C, G, N)
+                        return o_out
+                    try:
+                        that()
+                        torch.cuda.synchronize()
+                        fns["other"] = that
+                        case["bit_equal_to_other"] = bool(torch.equal(o_out, out))
+                    except RuntimeError:
+                        case["bit_equal_to_other"] = None       # the other refuses V
+                order = [k for k in ("other", "this") if k in fns]
+                case["ms"] = {k: [] for k in order}
+                for k in order + order[::-1]:
+                    case["ms"][k].append(events_ms(torch, fns[k]))
+                print(f"F V={V} {case['dtype']} G={G} N={N}: max|d| vs plain {err:.3e}; "
+                      + "; ".join(f"{k} {' / '.join(f'{t:.4f}' for t in ts)} ms"
+                                  for k, ts in case["ms"].items())
+                      + (f"; bit-equal to the other build {case['bit_equal_to_other']}"
+                         if other is not None else ""), flush=True)
+                if not err <= 1e-5:
+                    raise AssertionError(f"F V={V} {case['dtype']} G={G}: max|d| {err}")
+                result["fused"].append(case)
+                del out
+            del rows, wts, scales
+            torch.cuda.empty_cache()
+
+
 def events_ms(torch, fn):
     """Mean milliseconds per call: CUDA events over ITERS calls after two
     warm-up calls."""
@@ -428,6 +499,9 @@ def main(argv=None):
     ap.add_argument("--backward", action="store_true",
                     help="time B' and D''s backward kernels at the training shapes "
                          "instead, with their atomic counts")
+    ap.add_argument("--fused", action="store_true",
+                    help="time Kernel F at V = 2, 3 and 4 instead (--against: DIR's "
+                         "fused_cosine.cu, compared bit for bit)")
     args = ap.parse_args(argv)
     import torch
 
@@ -441,6 +515,11 @@ def main(argv=None):
     print(card, flush=True)
     result = {"card": card}
     this_lib = kernels.library()
+    if args.fused:
+        fused(torch, dev, args.against, result)
+        print(card_line(), flush=True)
+        print(json.dumps(result), flush=True)
+        return 0
     libs = {}
     if args.against is not None:
         libs["other"] = bind(build_lib([args.against / s for s in SOURCES],

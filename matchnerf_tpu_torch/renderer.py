@@ -19,7 +19,9 @@ per-ray `kt` buckets of the JAX package are not carried (Kernel B reads its
 taps directly). With `precision.fused_cosine` (read through
 `effective_precision`, so `strict` turns it off) every feature scale takes
 Kernel F instead (renderer.py:281-291, :337-338); the colours still follow
-the pose's route.
+the pose's route. With `encoder.feature_sample_local_radius` > 0 no table is
+built (renderer.py:743): the slices sample the encoder's maps and the f32
+source images directly, on neither the block nor the fused route.
 
 `forward(batch, render_video=True, render_path_mode=...)` renders a
 trajectory of `nerf.video_n_frames` target poses (interpolated between the
@@ -47,7 +49,7 @@ import numpy as np
 import torch
 
 from . import camera
-from .models.matchnerf import (MatchNeRF, encode, prepare_sampling_tables,
+from .models.matchnerf import (MatchNeRF, encode, local_radius, prepare_sampling_tables,
                                project_to_views, render_rays, sample_depth)
 from .ops.block_cosine_prior import BLOCK_RAYS, block_union_max, bucket_ut
 from .ops.supercell_color import bucket_color_ut, color_union_max
@@ -258,7 +260,8 @@ class Renderer:
         synchronised) are added under "pose_prep"."""
         cfg = self.cfg
         B = tables["colors"].shape[0]
-        block = block_path(cfg)
+        # the local-radius route builds no feature table to take the block path
+        block = block_path(cfg) and local_radius(cfg) == 0
         if B > 1 and block:
             # the block path needs one pose per render: split the batch
             # (renderer.py:582-596); each element renders as a B == 1 call

@@ -1,7 +1,7 @@
 """Offline re-scoring of saved prediction / ground-truth pairs (counterpart
 of matchnerf_tpu/score_preds.py; misc/score_preds.py of the reference).
 
-    python -m matchnerf_tpu_torch.score_preds --pred_folder=DIR [--gt_folder=DIR]
+    python -m matchnerf_tpu_torch.score_preds --pred_folder=DIR [--gt_folder=DIR] [--cpu]
 
 Scans DIR for the `*_pred.png` / `*_gt.png` pairs that the eval entry
 writes with `separate_save` (configs/test_tnt.yaml), scores each pair
@@ -9,6 +9,8 @@ with the 80 % centre crop of `EvalTools` (PSNR, SSIM, LPIPS), writes
 `0scores.json` in the prediction folder under the JAX package's keys
 (scene -> [{"view_idx", "src_idx", "metrics"}]) and prints each metric's
 mean over the finite values. The PNGs decode with `data/png.py` (no PIL).
+LPIPS runs on the card unless given `--cpu`; without a card and without
+`--cpu` the entry exits with an error.
 """
 from __future__ import annotations
 
@@ -54,10 +56,10 @@ def view_ids(pred_path: str):
         return parts[0], -1, []
 
 
-def score_folder(pred_folder: str, gt_folder: str = None):
-    """Score every pair, write `0scores.json` in pred_folder; returns
-    (scores by scene, each metric's values)."""
-    eval_tools = EvalTools()
+def score_folder(pred_folder: str, gt_folder: str = None, device="cuda"):
+    """Score every pair (LPIPS on `device`), write `0scores.json` in
+    pred_folder; returns (scores by scene, each metric's values)."""
+    eval_tools = EvalTools(device)
     scores, values = {}, {}
     for pred_path, gt_path in list_pairs(pred_folder, gt_folder or pred_folder):
         eval_tools.set_inputs(read_rgb(pred_path), read_rgb(gt_path))
@@ -79,8 +81,12 @@ def main(argv=None):
                         help="folder with the *_pred.png images")
     parser.add_argument("--gt_folder", type=str, default=None,
                         help="folder with the *_gt.png images (default: pred_folder)")
+    parser.add_argument("--cpu", action="store_true", help="compute LPIPS on the CPU")
     args = parser.parse_args(argv)
-    _, values = score_folder(args.pred_folder, args.gt_folder)
+    import torch
+    if not args.cpu and not torch.cuda.is_available():
+        raise SystemExit("score_preds: no CUDA device for LPIPS; pass --cpu to score on the CPU")
+    _, values = score_folder(args.pred_folder, args.gt_folder, "cpu" if args.cpu else "cuda")
     print(args.pred_folder)
     for m, vals in values.items():
         finite = [v for v in vals if np.isfinite(v)]

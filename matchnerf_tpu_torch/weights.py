@@ -5,7 +5,8 @@ The exact inverse of matchnerf_tpu/import_torch.py::import_matchnerf_checkpoint
 (import_torch.py:190): linear weights [in,out] -> [out,in], convolutions
 HWIO -> OIHW, LayerNorm scale/bias -> weight/bias, and the reference's
 key names (`feat_enc.…`, `nerf_dec.…`, `alpha_linear.0`,
-`out_alpha_linear.0/.2`, `mlp.0/.2`, `downsample.0`). Leaves may be numpy
+`out_alpha_linear.0/.2`, `mlp.0/.2`, `downsample.0`; `output_linear` for
+the decoder without view dependence). Leaves may be numpy
 arrays or anything `np.asarray` accepts (jax arrays included, without
 importing jax here).
 
@@ -80,6 +81,9 @@ def _decoder(sd, pre, p):
     for i, lp in enumerate(p["pts_linears"]):
         _linear(sd, f"{pre}.pts_linears.{i}", lp)
     _linear(sd, f"{pre}.pts_bias", p["pts_bias"])
+    if "output_linear" in p:         # nerf.view_dep: false (import_torch.py:183)
+        _linear(sd, f"{pre}.output_linear", p["output_linear"])
+        return
     _linear(sd, f"{pre}.views_linears.0", p["views_linears"][0])
     _linear(sd, f"{pre}.alpha_linear.0", p["alpha_linear"])
     ra = p["ray_attention"]

@@ -192,7 +192,7 @@ def test_score_preds_matches_jax(tmp_path):
     with open(tmp_path / "0scores.json") as f:
         want = json.load(f)
     os.remove(tmp_path / "0scores.json")
-    score_preds.main([f"--pred_folder={tmp_path}"])
+    score_preds.main([f"--pred_folder={tmp_path}", "--cpu"])
     with open(tmp_path / "0scores.json") as f:
         got = json.load(f)
     assert sorted(got) == sorted(want) == ["odd", "scan1", "scan2"]
@@ -210,7 +210,7 @@ def test_get_metrics_return_full_matches_jax(masked):
     pred = rng.uniform(0, 1, (40, 50, 3)).astype(np.float32)
     gt = np.clip(pred + rng.normal(0, 0.05, pred.shape), 0, 1).astype(np.float32)
     mask = rng.uniform(0, 1, (40, 50)) < 0.3 if masked else None
-    a, b = metrics.EvalTools(), jmetrics.EvalTools()
+    a, b = metrics.EvalTools("cpu"), jmetrics.EvalTools()
     a.set_inputs(pred, gt, mask)
     b.set_inputs(pred, gt, mask)
     got = a.get_metrics(["PSNR", "SSIM"], return_full=True)

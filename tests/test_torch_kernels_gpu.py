@@ -4,9 +4,9 @@ Marked `gpu`: each test skips (with the reason) where no CUDA device is
 available, as on a CPU-only host. On a GPU machine run them with
 `python -m pytest tests/test_torch_kernels_gpu.py -q`; chip_smoke.py
 covers the same kernels at the full DTU shapes.
-The prior kernels (B, B', D, D') and C and E run at V = 2, 3 and 4 source
-views (n_src_views); B, B', D and D' at V = 5 and F at V = 2 raise a
-ValueError that names V, with no fallback.
+The prior kernels (B, B', D, D'), C, E and F run at V = 2, 3 and 4 source
+views (n_src_views); B, B', D, D' and F at V = 5 raise a ValueError that
+names V, with no fallback.
 Tolerances: f32 kernels 1e-5 (summation order only), the bf16 window
 attention 2e-2 (the plain version rounds the normalised P to bf16 before
 P.V, the kernel the unnormalised one), both also at the DTU shape
@@ -38,9 +38,10 @@ rays left partly transparent) on both routes at the same tolerances; S
 above the kernel's limit raises.
 
 The fused interp + grouped cosine (F) on tap rows of int8, bf16 and f32,
-with and without dequantisation scales, at G = 2 and 8 and a ragged N:
-1e-5 (summation order; on int8 rows gathered from a table also against
-Kernel B, the same function by another route).
+with and without dequantisation scales, at G = 2 and 8 and a ragged N, at
+V = 3 and at V = 2 and 4 (one template instance each): 1e-5 (summation
+order; on int8 rows gathered from a table also against Kernel B, the same
+function by another route, at every V).
 
 The training kernels against autograd through the plain versions: A'
 (window attention backward; f32 1e-4 and bf16 3e-2 of the largest
@@ -260,6 +261,44 @@ def test_fused_cosine_matches_cosine_prior(dev, G):
     weights = torch.stack([t[1] for t in taps])
     got = kf.fused_interp_grouped_cosine(rows, weights, G, scales).reshape(37, 48, G)
     torch.testing.assert_close(got, kb.cosine_prior(table, grids, scales, G), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("V", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_scales", [False, True])
+@pytest.mark.parametrize("G", [2, 8])
+def test_fused_cosine_kernel_views(dev, V, dtype, with_scales, G):
+    """F at V = 2 and 4: rows [V,N,512(V-1)], P = V(V-1)/2 pairs."""
+    g = torch.Generator(device=dev).manual_seed(19 + V)
+    N = 1237
+    width = 512 * (V - 1)
+    if dtype == torch.int8:
+        rows = torch.randint(-127, 128, (V, N, width), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+    else:
+        rows = torch.randn(V, N, width, generator=g, device=dev).to(dtype)
+    weights = torch.rand(V, N, 2, generator=g, device=dev)
+    scales = (torch.rand(V, 128 * (V - 1), generator=g, device=dev) * 0.02 + 1e-3
+              if with_scales else None)
+    before = (kf.COUNTER.launches, kf.COUNTER.plain_on_cuda)
+    got = kf.fused_interp_grouped_cosine(rows, weights, G, scales)
+    torch.cuda.synchronize()
+    assert (kf.COUNTER.launches, kf.COUNTER.plain_on_cuda) == (before[0] + 1, before[1])
+    ref = kf.fused_interp_grouped_cosine_plain(rows, weights, G, scales)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("V", [2, 4])
+def test_fused_cosine_views_match_cosine_prior(dev, V):
+    g = torch.Generator(device=dev).manual_seed(29 + V)
+    table, scales = _int8_table(g, dev, 20, 24, V)
+    grids = torch.rand(V, 37, 48, 2, generator=g, device=dev) * 2.4 - 1.2
+    taps = [tap_rows_and_weights(table[v], grids[v]) for v in range(V)]
+    rows = torch.stack([t[0] for t in taps])
+    weights = torch.stack([t[1] for t in taps])
+    got = kf.fused_interp_grouped_cosine(rows, weights, 8, scales).reshape(37, 48, 8)
+    torch.testing.assert_close(got, kb.cosine_prior(table, grids, scales, 8), atol=1e-5,
                                rtol=0)
 
 
@@ -762,10 +801,10 @@ def test_prior_backward_runs_agree(dev, kernel):
 
 @pytest.mark.parametrize("kernel", ["B", "B'", "D", "D'", "F"])
 def test_prior_kernels_refuse_other_view_counts(dev, kernel):
-    """On CUDA tensors B, B', D and D' at V = 5, and F at V = 2 (it takes 3
-    views only), raise a ValueError that names V; nothing is launched and no
-    plain version runs in their place."""
-    V = 2 if kernel == "F" else 5
+    """On CUDA tensors B, B', D, D' and F at V = 5 (they take 2 to 4 views)
+    raise a ValueError that names V; nothing is launched and no plain
+    version runs in their place."""
+    V = 5
     g = torch.Generator(device=dev).manual_seed(18)
     grids = torch.rand(V, 16, 32, 2, generator=g, device=dev) * 2 - 1
     counters = (kb.COUNTER, kb.BWD_COUNTER, kd.COUNTER, kd.F32_COUNTER, kd.BWD_COUNTER,

@@ -72,15 +72,21 @@ def _rel_l2(a, b):
 
 
 def run_parity(patches: bool, bf16: bool, loss_rtol=1e-5, grad_tol=(5e-6, 2e-3),
-               grad_rel_l2=None, steps_rtol=1e-4, n_views=3, steps=3, seed=0):
+               grad_rel_l2=None, steps_rtol=1e-4, n_views=3, steps=3, seed=0, edit=None,
+               edit_params=None):
     """The port's step vs JAX make_train_step with n_views source views on
-    the synthetic scene of `seed` (`_synthetic_inputs`): (1)
+    the synthetic scene of `seed` (`_synthetic_inputs`), the config first
+    passed to `edit` (a function that changes it in place) and the JAX
+    initial weights to `edit_params` (a function that returns new ones)
+    where given: (1)
     loss and gradients of one step from the same weights and draws, each
     gradient within atol/rtol `grad_tol`; or, with `grad_rel_l2` = (max,
     median), each gradient of norm > 1e-3 within relative L2 error `max`,
     their median within `median`, and the smaller ones within atol 1e-4;
     (2) the loss of `steps` AdamW steps, rtol `steps_rtol`."""
     cfg = _train_cfg(patches, bf16, n_views)
+    if edit is not None:
+        edit(cfg)
     d = ge._synthetic_inputs(cfg, 1, H, W, R=N_RAYS, seed=seed)
     batch_np = {"images": d["images"], "extrinsics": d["poses"],
                 "intrinsics": d["intr"], "near_fars": d["near_fars"]}
@@ -88,6 +94,8 @@ def run_parity(patches: bool, bf16: bool, loss_rtol=1e-5, grad_tol=(5e-6, 2e-3),
                "intrinsics": jnp.asarray(d["intr"]),
                "near_fars": jnp.asarray(d["near_fars"]), "tgt_c2w": jnp.asarray(d["tgt_c2w"])}
     params = jax_init(jax.random.PRNGKey(0), cfg)
+    if edit_params is not None:
+        params = edit_params(params)
 
     def port():
         model = MatchNeRF(cfg)

@@ -197,7 +197,7 @@ def test_metrics_match_jax():
     assert abs(metrics.psnr(pred, gt, mask) - jmetrics.psnr(pred, gt, mask)) <= 1e-6
     assert abs(metrics.ssim(pred, gt) - jmetrics.ssim(pred, gt)) <= 1e-6
     for m in (None, mask):
-        a, b = metrics.EvalTools(), jmetrics.EvalTools()
+        a, b = metrics.EvalTools("cpu"), jmetrics.EvalTools()
         a.set_inputs(pred, gt, m)
         b.set_inputs(pred, gt, m)
         got, want = a.get_metrics(["PSNR", "SSIM"]), b.get_metrics(["PSNR", "SSIM"])
