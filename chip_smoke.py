@@ -10,8 +10,9 @@ test_strict.yaml over DTU, LLFF, Blender and T&T test sets, and the
 training entry of configs/train_ibrnet.yaml at 1008x756, and the render
 server (`python -m matchnerf_tpu_torch.serve`) over HTTP, and the parallel
 layer (process groups of one and two ranks, the training entry as 2
-processes), and two and four source views (`--n_src_views`: the training
-entry at 2, the eval entry at 2 and 4), and the variants config keys reach
+processes), and two to eight source views (`--n_src_views`: the training
+entry at 2 and 8, the eval entry at 2, 4, 5 and 8, the fused route at 8),
+and the variants config keys reach
 (`nerf.view_dep: false`, the local-radius sampler, attention without
 window splits, the fused route at 2 and 4 views; LPIPS and the training
 entry's profile trace), on one NVIDIA card, through the hand-written CUDA
@@ -239,17 +240,21 @@ Phases, any failure ends the run with a non-zero exit:
    resize of each to 960x640 (means of 5 calls), the T&T loader's seconds
    per sample on phase 13's tree, and the decoded 1920x1056 JPEG held to
    PIL's sha256 of it (ROUNDTRIP_SHA256), with the card's name and limit.
-18. two and four source views (n_src_views), at full width, 640x512, S =
-   128: (a) for V = 2 and 4, a scene of V sources spread over -16..16
-   degrees of phase 2's arc and the target at 8 degrees, its eval tables
-   ([V,64,80,(V-1)128] at G = 2 and [V,128,160,(V-1)128] at G = 8) and the
-   pose's buckets: Kernel B on int8 (20480 rays) and bf16 (4096 rays)
-   tables, Kernel D on both at the pose's buckets, each against its plain
-   twin at 1e-4; on the f32 tables of the bf16 training encoder at 1024
-   rays, B's f32 forward and D''s forward (8-pixel strips, their bucket, or
-   the widest D' takes where it takes none: an overflowed union, against
-   the plain twin at that bucket) at 1e-5, and B' and D' backward at 1e-5
-   of the largest gradient; each timed with CUDA events beside its bound
+18. two to eight source views (n_src_views), at full width, 640x512, S =
+   128: (a) for V = 2, 4, 5, 6 and 8, a scene of V sources spread over
+   -16..16 degrees of phase 2's arc and the target at 8 degrees, one encode
+   of it, its eval tables ([V,64,80,(V-1)128] at G = 2 and
+   [V,128,160,(V-1)128] at G = 8) and the pose's buckets: Kernel B on int8
+   (`views_rays(V)` rays: 20480 to V = 4, 12288, 8192 and 4384 at V = 5, 6
+   and 8, so the plain twins' f32 samples stay at their V = 4 size) and
+   bf16 (4096 rays) tables, Kernel D on both at the pose's buckets, each
+   against its plain twin at 1e-4, Kernel E on the supercell table at 1e-5
+   and, past V = 4, Kernel F on one fused-route chunk (`fused_chunk_rays(V)`
+   rays) as in 19 (a); on f32 tables of the same features at 1024 rays, B's
+   f32 forward and D''s forward (8-pixel strips, their bucket, or the
+   widest D' takes where it takes none: an overflowed union, against the
+   plain twin at that bucket) at 1e-5, and B' and D' backward at 1e-5 of
+   the largest gradient; each timed with CUDA events beside its bound
    (`prior_flops`, `prior_bwd_flops` at V). (b) `train.build_coach` +
    `train_model` with `--config train --n_src_views=2` and `--config
    train_fast --n_src_views=2` on phase 12's DTU tree from a written GMFlow
@@ -260,11 +265,19 @@ Phases, any failure ends the run with a non-zero exit:
    "test", "--n_src_views=V", ...])` on the tree's DTU test view, V = 2
    with train.yaml's checkpoint (`--load`) and V = 4 with seeded weights
    (`--load=`): A, C, D and E launch, no plain version on CUDA, the image
-   >= 50 dB against the all-plain render; image seconds, rays/s and each
-   eval kernel's device ms per launch. The phase's seconds on a line of
-   their own.
+   >= 50 dB against the all-plain render; the prior kernel each scale
+   took, image seconds, rays/s and each eval kernel's device ms per launch.
+   (d) on an 11-view synthetic DTU tree (`synth.write_dtu_scene(...,
+   n_views=11)`), the eval entry as in (c) at V = 5 and 8 with seeded
+   weights, and at V = 8 with `--precision.fused_cosine=true` (A, C, E and
+   F launch, B and D do not; held to the V = 8 image's all-plain render,
+   the same weights, view and function); then (b) at V = 8 on that tree, where
+   train_fast.yaml's scales take D' or B' as the route says (two of them a
+   step), with the peak device memory of the steps. The phase's seconds on
+   a line of their own.
 19. the variants config keys reach, at full width, 640x512, S = 128: (a)
-   Kernel F at V = 2 and 4 on the tap rows of one 8192-ray chunk of a
+   Kernel F at V = 2 and 4 on the tap rows of one fused-route chunk (8192
+   and 4096 rays, `fused_chunk_rays(V)`) of a
    V-source scene, gathered from its int8 tables (also against Kernel B)
    and from bf16 and f32 tables of the same features, against its plain
    twin at 1e-5, timed beside its bound (the rows' bytes over 3.35 TB/s).
@@ -3141,19 +3154,49 @@ def parallel_phase(torch, dev, batch, seed, block_rgb, tree, counters):
     return out
 
 
-VIEW_COUNTS = (2, 4)               # n_src_views of the views phase
-VIEWS_STEPS = 3                    # training steps per recipe at V = 2
+VIEW_COUNTS = (2, 4)               # n_src_views of the views phase on phase 12's tree
+MANY_VIEWS = (5, 6, 8)             # and past V = 4: the kernels against their plain twins
+MANY_EVAL = (5, 8)                 # the eval entry's image on the many-view tree
+MANY_TRAIN = 8                     # the training entry's steps on the many-view tree
+MANY_TREE_VIEWS = 11               # its views: V = 8 sources, 2 added candidates, the target
+VIEWS_STEPS = 3                    # training steps per recipe and V
+EVAL_MUST = ("window_attention", "cond_nerf_decode", "block_cosine_prior", "supercell_color")
+
+
+def views_rays(V):
+    """Rays of the views phase's eval-slice checks at V views: the slice
+    (SLICE_RAYS) to V = 4, then fewer, so that the plain twins' f32 samples
+    (R x S x V(V-1) x 128 floats) stay at their V = 4 size: 12288 at V = 5,
+    8192 at V = 6, 4384 at V = 8. The kernel runs the same slices on the
+    entry's path; these are the compared ones."""
+    return min(SLICE_RAYS, 8 * (SLICE_RAYS * 12 // (V * (V - 1)) // 8))
+
+
+def timed_once(torch, fn):
+    """(fn(), its CUDA-event milliseconds): one call, timed; for a plain
+    twin whose single call is long enough to time and which the caller
+    needs the output of anyway."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def prior_case(torch, name, fn, plain, tol, nbytes_, flops, extra=None):
     """One prior kernel call against its plain twin on the same inputs: max
-    |d| (fails above tol), CUDA-event ms of both, the bound."""
-    got, ref = fn(), plain()
-    torch.cuda.synchronize()
+    |d| (fails above tol), CUDA-event ms of both (the kernel's a mean of 10
+    warm calls, the plain twin's its one call after the kernel's first: the
+    twin runs 10-300 ms), the bound."""
+    got = fn()
+    ref, plain_ms = timed_once(torch, plain)
     err = max_abs(got, ref)
     b_ms, b_by = bound(nbytes_(got), flops)
     entry = dict(max_abs_err=err, tol=tol, ms=cuda_ms(torch, fn, 10),
-                 plain_ms=cuda_ms(torch, plain, 1), bound_ms=b_ms, bound_by=b_by,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                  library_ms=None, **(extra or {}))
     log(f"views {name}: max|d| {err:.3e} (tol {tol:.3e}), {entry['ms']:.4f} ms vs plain "
         f"{entry['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})"
@@ -3164,17 +3207,20 @@ def prior_case(torch, name, fn, plain, tol, nbytes_, flops, extra=None):
 
 
 def views_kernels(torch, dev, seed, V, card):
-    """The views phase's kernel checks at V source views: Kernels B (int8,
-    bf16, f32) and D (int8, bf16) on the eval tables of a V-source scene at
-    the pose's buckets, B' and D' forward and backward on its f32 training
-    tables at 1024 rays, each against its plain twin."""
+    """The views phase's kernel checks at V source views, from one encode of
+    a V-source scene: Kernels B (int8, bf16, f32) and D (int8, bf16) on its
+    eval tables at the pose's buckets, E on its supercell table, F (past
+    V = 4; phase 19 holds V = 2 and 4) on one fused-route chunk, B' and D'
+    forward and backward on f32 tables of the same features at 1024
+    training rays, each against its plain twin."""
     from matchnerf_tpu_torch import camera
     from matchnerf_tpu_torch.config import dtu_eval_config, dtu_train_config
-    from matchnerf_tpu_torch.models.matchnerf import (encode, init_matchnerf,
+    from matchnerf_tpu_torch.models.matchnerf import (fused_chunk_rays, init_matchnerf,
                                                       prepare_sampling_tables,
                                                       project_to_views, sample_depth)
     from matchnerf_tpu_torch.ops import block_cosine_prior as kd
     from matchnerf_tpu_torch.ops import cosine_prior as kb
+    from matchnerf_tpu_torch.ops import supercell_color as ke
     from matchnerf_tpu_torch.renderer import Renderer, extract_poses
     from matchnerf_tpu_torch.train_step import sample_ray_indices
     grad = torch.autograd.grad
@@ -3205,15 +3251,17 @@ def views_kernels(torch, dev, seed, V, card):
         return (project_to_views(pts, ref_w2c, ref_intr, ref_nf, H, W)[..., :2]
                 * 2.0 - 1.0)[:, 0].contiguous()                     # [V,R,S,2]
 
-    pix = camera.pixel_grid(H, W, legacy=True, device=dev)[:SLICE_RAYS][None]
-    grids = grids_of(pix, sample_depth(cfg, tgt_nf, 1, SLICE_RAYS))
+    R_eval = views_rays(V)
+    pix = camera.pixel_grid(H, W, legacy=True, device=dev)[:R_eval][None]
+    grids = grids_of(pix, sample_depth(cfg, tgt_nf, 1, R_eval))
     S = grids.shape[2]
     for key in ("B", "D", "B_bf16", "D_bf16", "B_f32", "B_bwd", "D_f32", "D_bwd"):
         out[key] = []
     with torch.no_grad():
         for s, G in enumerate(cfg.encoder.cos_n_group):
             ut = block_ut[s]
-            for dt, tabs, R in (("int8", tables, SLICE_RAYS), ("bf16", bf16, VAL_RAYS)):
+            for dt, tabs, R in (("int8", tables, R_eval),
+                                ("bf16", bf16, min(VAL_RAYS, R_eval))):
                 table = tabs["view_feats"][s][0]
                 scales = tabs["view_feat_scales"][s][0] if dt == "int8" else None
                 g = grids[:, :R].contiguous()
@@ -3230,15 +3278,25 @@ def views_kernels(torch, dev, seed, V, card):
                     lambda: kd.block_cosine_prior_plain(table, g, scales, G, ut), 1e-4, nb,
                     flops, {"ut": ut, "channels_per_pass": cp})))
                 del table, g
-    del tables, bf16, feats, model, renderer
+        # Kernel E on the slice, bit-equal to its plain twin on the 0-255
+        # scale; 9 flops per (sample, view, colour)
+        csc = tables["colors_sc"][0]
+        out["E"] = [dict(R=R_eval, **prior_case(
+            torch, f"E V={V} table {list(csc.shape)} uint8 R={R_eval} S={S}",
+            lambda: ke.supercell_color_sample(csc, grids, H, W),
+            lambda: ke.supercell_color_sample_plain(csc, grids, H, W), 1e-5,
+            lambda o: nbytes(csc, grids, o), R_eval * S * V * 3 * 9, {"color_ut": color_ut}))]
+    if V > 4:
+        out["F"] = fused_cases(torch, cfg, feats, ref_images,
+                               grids[:, :fused_chunk_rays(V)].contiguous(), V, card, "views")
+    del tables, bf16, model, renderer
 
-    # B' and D' on the f32 tables of the bf16 training encoder at 1024 rays
+    # B' and D' on f32 tables of the same features at 1024 training rays
     tcfg = dtu_train_config()
     tcfg.n_src_views = V
-    tmodel = init_matchnerf(tcfg, torch.Generator().manual_seed(seed)).to(dev)
     with torch.no_grad():
-        ttables = prepare_sampling_tables(tcfg, encode(tmodel, tcfg, ref_images), ref_images)
-    del tmodel
+        ttables = prepare_sampling_tables(tcfg, feats, ref_images, feat_dtype=torch.float32)
+    del feats
 
     def train_grids(patches):
         idx = sample_ray_indices(H * W, TRAIN_RAYS, patches, dev, gen)
@@ -3290,37 +3348,40 @@ def views_kernels(torch, dev, seed, V, card):
                 {"ut": ut} if key == "D_bwd" else None)))
             del tk, tp, ok, op
         del table
-    del ttables
+    del ttables, ref_images
     torch.cuda.empty_cache()
     return out
 
 
-def views_train(torch, dev, seed, tree, counters, ckpt, card):
-    """The views phase's training at V = 2: `python -m
-    matchnerf_tpu_torch.train --config train|train_fast --n_src_views=2`
-    (`build_coach` + `train_model`) on phase 12's DTU tree from the written
+def views_train(torch, dev, seed, tree, counters, ckpt, card, V):
+    """The views phase's training at V source views: `python -m
+    matchnerf_tpu_torch.train --config train|train_fast --n_src_views=V`
+    (`build_coach` + `train_model`) on the DTU tree `tree` from the written
     GMFlow checkpoint, VIEWS_STEPS steps each, no validation; the first step
-    against the all-plain step; B' (train.yaml) or D' (train_fast.yaml)
-    twice a step by the counters; a checkpoint written -> (results, the
-    train.yaml run's latest.ckpt)."""
+    against the all-plain step; B' (train.yaml) twice a step, B' or D' at
+    each scale as the route takes it (train_fast.yaml; D' at both at V = 2)
+    by the counters; the peak device memory of the steps; a checkpoint
+    written -> (results, the train.yaml run's latest.ckpt)."""
     from matchnerf_tpu_torch.train import build_coach
     runs = os.path.join(tree["work"], "views_runs")
     out, latest = {}, None
-    for label, bwd in (("train", "cosine_prior_bwd"), ("train_fast", "block_cosine_prior_bwd")):
-        argv = loop_args(label, f"views_{label}_v2", runs, tree["root"], tree["meta"],
-                         VIEWS_STEPS, **{"n_src_views": 2, "encoder.pretrain_weight": ckpt,
+    for label in ("train", "train_fast"):
+        argv = loop_args(label, f"views_{label}_v{V}", runs, tree["root"], tree["meta"],
+                         VIEWS_STEPS, **{"n_src_views": V, "encoder.pretrain_weight": ckpt,
                                          "freq.val_it": -1, "freq.test_ep": -1})
         coach = build_coach(argv)
         first = first_step_check(torch, dev, coach.cfg, next(iter(coach.train_loader)), seed,
-                                 f"views {label}.yaml V=2 bf16 policy", (1e-2, 0.5, 0.1))
+                                 f"views {label}.yaml V={V} bf16 policy", (1e-2, 0.5, 0.1))
         torch.cuda.empty_cache()
         for c in counters.values():
             c.reset()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         coach.train_model()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         launches = {k: c.launches for k, c in counters.items()}
         plain_cuda = {k: c.plain_on_cuda for k, c in counters.items()}
         with open(coach.scalars_path) as f:
@@ -3328,21 +3389,26 @@ def views_train(torch, dev, seed, tree, counters, ckpt, card):
                       if json.loads(line)["split"] == "train"]
         mdir = os.path.join(coach.output_path, "models")
         ckpts = sorted(os.listdir(mdir))
-        log(f"views {label}.yaml V=2: {VIEWS_STEPS} steps in {wall:.3f} s "
-            f"({VIEWS_STEPS / wall:.3f} steps/s), route {coach.last_route} (None: B'), losses "
+        b_, d_ = launches["cosine_prior_bwd"], launches["block_cosine_prior_bwd"]
+        log(f"views {label}.yaml V={V}: {VIEWS_STEPS} steps in {wall:.3f} s "
+            f"({VIEWS_STEPS / wall:.3f} steps/s), peak {peak_gib:.2f} GiB, route "
+            f"{coach.last_route} (None: B'), B' {b_} and D' {d_} launches, losses "
             f"{[round(x, 6) for x in losses]}, checkpoints {ckpts}, launches {launches}, "
             f"plain versions on CUDA {plain_cuda}; {card}")
         if len(losses) != VIEWS_STEPS or not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"views {label} V=2: losses {losses}")
+            raise AssertionError(f"views {label} V={V}: losses {losses}")
         if "latest.ckpt" not in ckpts:
-            raise AssertionError(f"views {label} V=2: checkpoints {ckpts}")
+            raise AssertionError(f"views {label} V={V}: checkpoints {ckpts}")
         if any(plain_cuda.values()):
-            raise AssertionError(f"views {label} V=2: plain versions ran on CUDA: {plain_cuda}")
-        if launches[bwd] != 2 * VIEWS_STEPS or launches["window_attention_bwd"] <= 0:
-            raise AssertionError(f"views {label} V=2: {bwd} launched {launches[bwd]} times")
-        out[label] = {"steps": VIEWS_STEPS, "wall_s": wall, "losses": losses,
+            raise AssertionError(f"views {label} V={V}: plain versions ran on CUDA: {plain_cuda}")
+        want = ((2 * VIEWS_STEPS, 0) if label == "train"
+                else (0, 2 * VIEWS_STEPS) if V == 2 else None)
+        if (b_ + d_ != 2 * VIEWS_STEPS or (want is not None and (b_, d_) != want)
+                or launches["window_attention_bwd"] <= 0):
+            raise AssertionError(f"views {label} V={V}: B' {b_} and D' {d_} launches")
+        out[label] = {"V": V, "steps": VIEWS_STEPS, "wall_s": wall, "losses": losses,
                       "route": coach.last_route, "launches": launches, "checkpoints": ckpts,
-                      "first_step": first}
+                      "first_step": first, "peak_gib": peak_gib}
         if label == "train":
             latest = os.path.join(mdir, "latest.ckpt")
         del coach
@@ -3350,69 +3416,126 @@ def views_train(torch, dev, seed, tree, counters, ckpt, card):
     return out, latest
 
 
-def views_eval(torch, dev, seed, tree, counters, V, load, card):
+def views_eval(torch, dev, seed, tree, counters, V, load, card, extra=(), must=EVAL_MUST,
+               zero=(), name=None, plain=None, profile=True):
     """The views phase's eval: `python -m matchnerf_tpu_torch.test --config
-    test --n_src_views=V --load=...` on phase 12's DTU tree (its test view):
-    A, C, D and E launch, no plain version on CUDA, the image >= 50 dB
-    against the all-plain render; the render's seconds, rays/s and each
-    eval kernel's device ms per launch."""
+    test --n_src_views=V --load=...` (and `extra`) on the DTU tree `tree`
+    (its test view): the kernels of `must` launch and those of `zero` do
+    not, no plain version on CUDA, the image >= 50 dB against the all-plain
+    render (`plain`: the all-plain rgb of another route's entry on the same
+    tree, V and weights, else rendered here); the kernel each feature scale
+    took, the render's seconds, rays/s and, with `profile`, each eval
+    kernel's device ms per launch from one more render under torch.profiler
+    (the fused route's thousands of gather operations make that ~40 s at
+    V = 8). The entry holds the all-plain rgb under "plain_rgb"."""
     from matchnerf_tpu_torch.renderer import Renderer
-    argv = ["--config", "test", f"--name=views_v{V}", f"--load={load}",
+    name = name or f"views_v{V}"
+    argv = ["--config", "test", f"--name={name}", f"--load={load}",
             f"--output_root={os.path.join(tree['work'], 'views_runs')}", f"--seed={seed}",
             f"--n_src_views={V}", "--data_test.llff=", "--data_test.blender=",
-            "--data_test.tnt="] + entry_set_args("dtu", tree["root"], tree["meta"])
+            "--data_test.tnt=", *extra] + entry_set_args("dtu", tree["root"], tree["meta"])
     _, records = run_entry(torch, counters, argv)
     rec = records[0]
-    check_entry_record("dtu", rec, ["window_attention", "cond_nerf_decode",
-                                    "block_cosine_prior", "supercell_color"], f"views V={V}")
+    check_entry_record("dtu", rec, must, f"views {name}")
+    for k in zero:
+        if rec["launches"][k]:
+            raise AssertionError(f"views {name}: kernel {k} launched: {rec['launches']}")
     renderer = rec["renderer"]
     if renderer.cfg.n_src_views != V:
-        raise AssertionError(f"views V={V}: the entry rendered {renderer.cfg.n_src_views} views")
-    plain_t = {}
-    ref = Renderer(renderer.cfg, renderer.model, dev, kernel=False).forward(
-        rec["batch"], mode="test", timings=plain_t)
-    agreement = psnr(rec["out"]["rgb"], ref["rgb"])
-    del ref
-    kms = kernel_device_ms(torch, lambda: renderer.forward(rec["batch"], mode="test"))
+        raise AssertionError(f"views {name}: the entry rendered {renderer.cfg.n_src_views} "
+                             "views")
+    fused = bool(renderer.cfg.precision.get("fused_cosine", False))
+    block_ut = (rec["route"] or {}).get("block_ut")
+    scale_kernels = (["F"] * 2 if fused else
+                     ["B" if block_ut is None or ut is None else "D" for ut in
+                      (block_ut or (None, None))])
+    plain_t = {"render": None}
+    if plain is None:
+        plain = Renderer(renderer.cfg, renderer.model, dev, kernel=False).forward(
+            rec["batch"], mode="test", timings=plain_t)["rgb"]
+    agreement = psnr(rec["out"]["rgb"], plain)
+    kms = (kernel_device_ms(torch, lambda: renderer.forward(rec["batch"], mode="test"))
+           if profile else {})
     t = rec["timings"]
     n_rays = H * W
-    entry = {"V": V, "load": load or None, "render_s": t["render"], "encode_s": t["encode"],
-             "tables_s": t["tables"], "pose_prep_s": t.get("pose_prep", 0.0),
-             "image_s": rec["seconds"], "rays_per_s_render": n_rays / t["render"],
-             "plain_render_s": plain_t["render"], "psnr_vs_plain_db": agreement,
-             "route": rec["route"], "launches": rec["launches"],
+    entry = {"V": V, "load": load or None, "extra": list(extra), "render_s": t["render"],
+             "encode_s": t["encode"], "tables_s": t["tables"],
+             "pose_prep_s": t.get("pose_prep", 0.0), "image_s": rec["seconds"],
+             "rays_per_s_render": n_rays / t["render"], "plain_render_s": plain_t["render"],
+             "psnr_vs_plain_db": agreement, "plain_rgb": plain, "route": rec["route"],
+             "scale_kernels": scale_kernels, "launches": rec["launches"],
              "launches_by_route": rec["routes"],
              "kernel_device_ms": {k: {"ms": ms, "launches": n, "ms_per_launch": ms / n}
                                   for k, (ms, n) in kms.items()}}
-    log(f"views eval V={V} ({'weights ' + load if load else 'seeded weights'}): image "
-        f"{rec['seconds']:.4f} s, render {t['render']:.4f} s (pose_prep "
-        f"{entry['pose_prep_s']:.4f}), {entry['rays_per_s_render']:.0f} rays/s (render), route "
-        f"{rec['route']}, launches {rec['launches']}; kernels vs all-plain PSNR "
-        f"{agreement:.2f} dB (need >= 50); device ms (launches) "
+    log(f"views eval {name} V={V} ({'weights ' + load if load else 'seeded weights'}"
+        f"{', ' + ' '.join(extra) if extra else ''}): image {rec['seconds']:.4f} s, render "
+        f"{t['render']:.4f} s (pose_prep {entry['pose_prep_s']:.4f}), "
+        f"{entry['rays_per_s_render']:.0f} rays/s (render), route {rec['route']}, the "
+        f"scales' prior kernels {scale_kernels}, launches {rec['launches']}; kernels vs "
+        f"all-plain PSNR {agreement:.2f} dB (need >= 50); device ms (launches) "
         + ", ".join(f"{k} {ms:.3f} ({n})" for k, (ms, n) in sorted(kms.items())) + f"; {card}")
     if not agreement >= 50.0:
-        raise AssertionError(f"views V={V}: agreement PSNR {agreement:.2f} dB < 50")
+        raise AssertionError(f"views {name}: agreement PSNR {agreement:.2f} dB < 50")
     del records, rec
     torch.cuda.empty_cache()
     return entry
 
 
 def views_phase(torch, dev, seed, tree, counters):
-    """Phase 18: two and four source views. The prior kernels at V = 2 and
-    4 against their plain twins, training at V = 2 through the training
-    entry, and the eval entry at V = 2 (the trained weights) and V = 4
-    (seeded weights)."""
+    """Phase 18: two to eight source views. The prior kernels (and E, and F
+    past V = 4) at V = 2, 4, 5, 6 and 8 against their plain twins; training
+    at V = 2 through the training entry and the eval entry at V = 2 (the
+    trained weights) and V = 4 (seeded weights) on phase 12's tree; then on
+    an 11-view DTU tree the eval entry at V = 5 and 8 and the fused route at
+    V = 8 (seeded weights; held to the V = 8 image's all-plain render: the
+    same weights, view and function; F's device ms come from (a) at the
+    route's chunk), and 3 steps of each recipe at V = 8.
+    Each part's seconds under "part_s"."""
     from matchnerf_tpu_torch.config import dtu_train_config
+    from matchnerf_tpu_torch.data import synth
     t_phase = time.perf_counter()
     card = card_line()
-    out = {"kernels": {V: views_kernels(torch, dev, seed, V, card) for V in VIEW_COUNTS}}
+    parts = {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        parts[name] = time.perf_counter() - t0
+        log(f"views: {name} in {parts[name]:.1f} s")
+        return res
+
+    out = {"kernels": {V: part(f"kernels_v{V}", lambda: views_kernels(torch, dev, seed, V, card))
+                       for V in VIEW_COUNTS + MANY_VIEWS}}
     ckpt = os.path.join(tree["work"], "views_gmflow.pth")
     cfg2 = dtu_train_config()
     cfg2.n_src_views = 2
     write_gmflow_checkpoint(torch, cfg2, seed, ckpt)
-    out["train"], latest = views_train(torch, dev, seed, tree, counters, ckpt, card)
-    out["eval"] = {V: views_eval(torch, dev, seed, tree, counters, V, load, card)
-                   for V, load in ((2, latest), (4, ""))}
+    out["train"], latest = part("train_v2", lambda: views_train(
+        torch, dev, seed, tree, counters, ckpt, card, 2))
+    out["eval"] = {V: part(f"eval_v{V}", lambda: views_eval(
+        torch, dev, seed, tree, counters, V, load, card)) for V, load in ((2, latest), (4, ""))}
+    many = {"work": tree["work"], "root": os.path.join(tree["work"], "views_dtu"),
+            "meta": os.path.join(tree["work"], "views_dtu_meta")}
+    part("many_tree", lambda: synth.write_dtu_scene(many["root"], many["meta"],
+                                                    n_views=MANY_TREE_VIEWS))
+    out["many_tree"] = {"views": list(synth.dtu_scene_view_ids(MANY_TREE_VIEWS)),
+                        "write_s": parts["many_tree"]}
+    log(f"views: {MANY_TREE_VIEWS}-view DTU tree at {W}x{H}, views "
+        f"{out['many_tree']['views']} (val/test 24)")
+    for V in MANY_EVAL:
+        out["eval"][V] = part(f"eval_v{V}", lambda: views_eval(
+            torch, dev, seed, many, counters, V, "", card))
+    out["eval_fused"] = {MANY_TRAIN: part(f"eval_fused_v{MANY_TRAIN}", lambda: views_eval(
+        torch, dev, seed, many, counters, MANY_TRAIN, "", card,
+        extra=("--precision.fused_cosine=true",),
+        must=("window_attention", "cond_nerf_decode", "supercell_color", "fused_cosine"),
+        zero=("cosine_prior", "block_cosine_prior"), name=f"views_fused_v{MANY_TRAIN}",
+        plain=out["eval"][MANY_TRAIN]["plain_rgb"], profile=False))}
+    for e in list(out["eval"].values()) + list(out["eval_fused"].values()):
+        del e["plain_rgb"]
+    out["train_many"], _ = part(f"train_v{MANY_TRAIN}", lambda: views_train(
+        torch, dev, seed, many, counters, ckpt, card, MANY_TRAIN))
+    out["part_s"] = parts
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"views phase: {out['phase_s']:.1f} s; {card}")
     return out
@@ -3456,39 +3579,16 @@ def tame_output(torch, model):
     return model
 
 
-def variants_fused_kernel(torch, dev, seed, V, card):
-    """Phase 19 (a): Kernel F at V source views on the tap rows of one
-    fused-route chunk (the first FUSED_CHUNK_RAYS rays of a V-source scene)
-    gathered from its int8 tables (also held against Kernel B) and from bf16
-    and f32 tables of the same features, against the plain twin at 1e-5 (in
-    pieces: the f32 rows of V = 4 are 25.8 GB), timed beside the bound."""
-    from matchnerf_tpu_torch import camera
-    from matchnerf_tpu_torch.config import dtu_eval_config
-    from matchnerf_tpu_torch.models.matchnerf import (FUSED_CHUNK_RAYS, gather_tap_rows,
-                                                      init_matchnerf, prepare_sampling_tables,
-                                                      project_to_views, sample_depth)
+def fused_cases(torch, cfg, feats, ref_images, g, V, card, label):
+    """Kernel F at V source views on the tap rows of the grids g [V,R,S,2]
+    (one fused-route chunk) gathered from int8 tables of the encoder's
+    features (also held against Kernel B) and from bf16 and f32 tables of
+    the same features, against the plain twin at 1e-5 (in pieces: the f32
+    rows of a chunk are 12.9 GB at V = 4 to 8), timed beside the bound."""
+    from matchnerf_tpu_torch.models.matchnerf import gather_tap_rows, prepare_sampling_tables
     from matchnerf_tpu_torch.ops import cosine_prior as kb
     from matchnerf_tpu_torch.ops import fused_cosine as kf
-    from matchnerf_tpu_torch.renderer import Renderer, extract_poses
-    cfg = dtu_eval_config()
-    cfg.n_src_views = V
-    model = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev).eval()
-    renderer = Renderer(cfg, model, dev)
-    batch = make_scene(seed, V)
-    ref_images = renderer.tensor(batch["images"][:, :V])
-    R = FUSED_CHUNK_RAYS
-    with torch.no_grad():
-        feats = renderer.encode(ref_images)
-        tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = renderer._pose_tensors(
-            extract_poses(batch))
-        pix = camera.pixel_grid(H, W, legacy=True, device=dev)[:R][None]
-        center, ray = camera.get_center_and_ray(pix, tgt_intr, c2w)
-        pts = camera.get_3d_points_from_depth(center, ray, sample_depth(cfg, tgt_nf, 1, R),
-                                              multi_samples=True)
-        g = (project_to_views(pts, ref_w2c, ref_intr, ref_nf, H, W)[..., :2]
-             * 2.0 - 1.0)[:, 0].contiguous()                             # [V,R,S,2]
-    del model, renderer
-    S = g.shape[2]
+    R, S = g.shape[1:3]
     N = R * S
     P = V * (V - 1) // 2
     out = {"V": V, "card": card}
@@ -3506,32 +3606,65 @@ def variants_fused_kernel(torch, dev, seed, V, card):
             plain = lambda: kf.fused_interp_grouped_cosine_plain(rows, wts, G, scales,
                                                                  piece=2 ** 18)
             got = fn()
-            err = max_abs(got, plain())
-            torch.cuda.synchronize()
+            ref, plain_ms = timed_once(torch, plain)
+            err = max_abs(got, ref)
+            del ref
             Cc = table.shape[-1]
             flops = N * (V * Cc * (9 + (scales is not None)) + P * 128 * 6)
             b_ms, b_by = bound(nbytes(rows, wts, got, *([scales] if scales is not None
                                                          else [])), flops)
-            entry = dict(scale=s, G=G, max_abs_err=err, tol=1e-5, ms=cuda_ms(torch, fn, 10),
-                         plain_ms=cuda_ms(torch, plain, 1), bound_ms=b_ms, bound_by=b_by,
-                         rows_gb=nbytes(rows) / 1e9, library_ms=None)
+            entry = dict(scale=s, G=G, R=R, max_abs_err=err, tol=1e-5,
+                         ms=cuda_ms(torch, fn, 10), plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, rows_gb=nbytes(rows) / 1e9,
+                         library_ms=None)
             extra = ""
             if name == "int8":
                 entry["max_abs_err_vs_kernel_b"] = max_abs(
                     got, kb.cosine_prior(table, g, scales, G).reshape(N, G))
                 extra = f", max|d| vs kernel B {entry['max_abs_err_vs_kernel_b']:.3e} (tol 1e-5)"
-            log(f"variants: kernel F fused_cosine V={V} scale {s} {name} rows "
+            log(f"{label}: kernel F fused_cosine V={V} scale {s} {name} rows "
                 f"{list(rows.shape)} ({entry['rows_gb']:.2f} GB) G={G} R={R} S={S}: max|d| "
                 f"{err:.3e} (tol 1e-5){extra}, {entry['ms']:.4f} ms vs plain "
                 f"{entry['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {card}")
-            check_close(f"variants F V={V} {name} scale {s}", err, 1e-5)
+            check_close(f"{label} F V={V} {name} scale {s}", err, 1e-5)
             if name == "int8":
-                check_close(f"variants F vs B V={V} scale {s}",
+                check_close(f"{label} F vs B V={V} scale {s}",
                             entry["max_abs_err_vs_kernel_b"], 1e-5)
             out[name].append(entry)
             del rows, wts, got
         del tabs
         torch.cuda.empty_cache()
+    return out
+
+
+def variants_fused_kernel(torch, dev, seed, V, card):
+    """Phase 19 (a): Kernel F at V source views on the tap rows of one
+    fused-route chunk (the first `fused_chunk_rays(V)` rays of a V-source
+    scene): `fused_cases`."""
+    from matchnerf_tpu_torch import camera
+    from matchnerf_tpu_torch.config import dtu_eval_config
+    from matchnerf_tpu_torch.models.matchnerf import (fused_chunk_rays, init_matchnerf,
+                                                      project_to_views, sample_depth)
+    from matchnerf_tpu_torch.renderer import Renderer, extract_poses
+    cfg = dtu_eval_config()
+    cfg.n_src_views = V
+    model = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev).eval()
+    renderer = Renderer(cfg, model, dev)
+    batch = make_scene(seed, V)
+    ref_images = renderer.tensor(batch["images"][:, :V])
+    R = fused_chunk_rays(V)
+    with torch.no_grad():
+        feats = renderer.encode(ref_images)
+        tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = renderer._pose_tensors(
+            extract_poses(batch))
+        pix = camera.pixel_grid(H, W, legacy=True, device=dev)[:R][None]
+        center, ray = camera.get_center_and_ray(pix, tgt_intr, c2w)
+        pts = camera.get_3d_points_from_depth(center, ray, sample_depth(cfg, tgt_nf, 1, R),
+                                              multi_samples=True)
+        g = (project_to_views(pts, ref_w2c, ref_intr, ref_nf, H, W)[..., :2]
+             * 2.0 - 1.0)[:, 0].contiguous()                             # [V,R,S,2]
+    del model, renderer
+    out = fused_cases(torch, cfg, feats, ref_images, g, V, card, "variants")
     del feats, ref_images
     torch.cuda.empty_cache()
     return out
@@ -4246,8 +4379,9 @@ def main():
     host_io["printer"] = printer
     torch.cuda.empty_cache()
 
-    # ---- 18. two and four source views: B, B', D and D' at V = 2 and 4,
-    # the training entry at V = 2, the eval entry at V = 2 and 4
+    # ---- 18. two to eight source views: B, B', D, D' and E at V = 2, 4, 5,
+    # 6 and 8, F at 5, 6 and 8, the training entry at V = 2 and 8, the eval
+    # entry at V = 2, 4, 5 and 8, the fused route at V = 8
     views = views_phase(torch, dev, args.seed, tree, counters)
     torch.cuda.empty_cache()
 
@@ -4327,18 +4461,21 @@ def main():
             f"{k}_image": v["kernel_device_ms"].get(name) for k, v in ibr["images"].items()}}}
 
     def views_of(name):
-        """The kernel at V = 2 and V = 4 (phase 18): each prior kernel
-        against its plain twin with its bound, its launches in the V-view
-        eval image (B, C, D, E, A) or the V = 2 training run (A', B', D'),
-        and each eval kernel's device ms per launch in the V-view image."""
+        """The kernel at V = 2, 4, 5, 6 and 8 (phase 18): each prior kernel
+        and E against its plain twin with its bound, its launches in the
+        V-view eval image (B, C, D, E, A; at V = 2, 4, 5 and 8) or the
+        V-view training run (A', B', D'; at V = 2 and 8), and each eval
+        kernel's device ms per launch in the V-view image."""
         key = {"cosine_prior": "B", "cosine_prior_bwd": "B_bwd", "block_cosine_prior": "D",
-               "block_cosine_prior_f32": "D_f32", "block_cosine_prior_bwd": "D_bwd"}.get(name)
+               "block_cosine_prior_f32": "D_f32", "block_cosine_prior_bwd": "D_bwd",
+               "supercell_color": "E"}.get(name)
         run = {"window_attention_bwd": "train", "cosine_prior_bwd": "train",
                "block_cosine_prior_f32": "train_fast",
                "block_cosine_prior_bwd": "train_fast"}.get(name)
+        trains = {2: views["train"], MANY_TRAIN: views["train_many"]}
         out = {}
-        for V in VIEW_COUNTS:
-            k, ev = views["kernels"][V], views["eval"][V]
+        for V in VIEW_COUNTS + MANY_VIEWS:
+            k, ev = views["kernels"][V], views["eval"].get(V)
             e = {"name": name, "V": V, "library_ms": None}
             if key:
                 e.update(per_scale(k[key]))
@@ -4347,26 +4484,37 @@ def main():
             if key == "B":
                 e["f32_training_shapes"] = per_scale(k["B_f32"])
             if run:
-                e["launches"] = (views["train"][run]["launches"][name] if V == 2 else None)
-                e["launches_in"] = f"{run}.yaml V=2, {VIEWS_STEPS} steps" if V == 2 else \
-                    "no training run at V=4 (ROADMAP)"
-            else:
+                if V in trains:
+                    e["launches"] = trains[V][run]["launches"][name]
+                    e["launches_in"] = f"{run}.yaml V={V}, {VIEWS_STEPS} steps"
+                    e["training_route"] = trains[V][run]["route"]
+                else:
+                    e["launches"] = None
+                    e["launches_in"] = f"no training run at V={V}"
+            elif ev is not None:
                 e["launches"] = ev["launches"][name]
                 e["launches_in"] = f"the eval entry's DTU image at V={V}"
                 e["image_device_ms"] = ev["kernel_device_ms"].get(name)
+            else:
+                e["launches"] = None
+                e["launches_in"] = f"no eval image at V={V}"
             out[f"V{V}"] = e
         return out
 
     def fused_views():
-        """Kernel F at V = 2 and 4 (phase 19): int8 rows as the entry, bf16
-        and f32 beside them, and its launches in the fused eval image at V."""
+        """Kernel F at V = 2 and 4 (phase 19) and 5, 6 and 8 (phase 18):
+        int8 rows as the entry, bf16 and f32 beside them, and its launches
+        in the fused eval image at V = 2, 4 and 8."""
         out = {}
-        for V in VIEW_COUNTS:
-            k = variants["kernels"][V]
+        for V in VIEW_COUNTS + MANY_VIEWS:
+            k = variants["kernels"][V] if V in VIEW_COUNTS else views["kernels"][V]["F"]
+            ev = (variants["eval"][f"fused_v{V}"] if V in VIEW_COUNTS
+                  else views["eval_fused"].get(V))
             e = {"name": "fused_cosine", "V": V, "library_ms": None, **per_scale(k["int8"]),
                  "bfloat16": per_scale(k["bfloat16"]), "float32": per_scale(k["float32"]),
-                 "launches": variants["eval"][f"fused_v{V}"]["launches"]["fused_cosine"],
-                 "launches_in": f"the eval entry's DTU image at V={V}, fused_cosine"}
+                 "launches": ev["launches"]["fused_cosine"] if ev else None,
+                 "launches_in": (f"the eval entry's DTU image at V={V}, fused_cosine" if ev
+                                 else f"no fused image at V={V}")}
             out[f"V{V}"] = e
         return out
 
@@ -4462,8 +4610,17 @@ def main():
             for k, v in variants["train"].items():
                 e["launches_by_path"][f"variants_train_{k}_{VARIANT_STEPS}_steps"] = \
                     v["launches"][name]
-    report["paths"]["views"] = {"train": views["train"], "eval": views["eval"],
-                                "phase_s": views["phase_s"]}
+            for V, v in views["eval"].items():
+                e["launches_by_path"][f"views_eval_v{V}"] = v["launches"][name]
+            for V, v in views["eval_fused"].items():
+                e["launches_by_path"][f"views_fused_v{V}"] = v["launches"][name]
+            for V, runs in ((2, views["train"]), (MANY_TRAIN, views["train_many"])):
+                for k, v in runs.items():
+                    e["launches_by_path"][f"views_{k}_v{V}_{VIEWS_STEPS}_steps"] = \
+                        v["launches"][name]
+    report["paths"]["views"] = {k: views[k] for k in ("train", "eval", "many_tree",
+                                                       "eval_fused", "train_many", "part_s",
+                                                       "phase_s")}
     report["paths"]["variants"] = {k: v for k, v in variants.items() if k != "kernels"}
     # each kernel's launches in each rank of phase 16, per path
     for e in report["kernels"]:

@@ -9,7 +9,7 @@
 // matchnerf_tpu_torch/ops/block_cosine_prior.py.
 //
 // Output as Kernel B (csrc/cosine_prior.cu): for each sample n and each of
-// the V views (V = 2, 3 or 4, a run-time argument), the bilinear sample
+// the V views (V = 2 to 8, a run-time argument), the bilinear sample
 // (align corners, border clamp) of the view's unpacked table [V,H,W,(V-1)C]
 // (C = 128; int8 with a per-(view, channel) dequantisation scale
 // [V,(V-1)C] after the interpolation, bf16 or f32 without); for each of
@@ -72,7 +72,8 @@
 // [V][8S] float2 (24,576 B), the union [V][ut] int32 (3,840 B at ut 320):
 // 217,344 B of the 232,448 a block may have at ut 320, one block per SM.
 // Wider unions stage 64 channels a pass; so does V = 4 at ut 320 (its taps,
-// fractions and union take 70,656 B). The union scratch needs
+// fractions and union take 70,656 B), and every V from 4 to 8 at ut 320
+// (V = 8: 141,312 B of them). The union scratch needs
 // (2 V ceil(H*W/32) + 32) x 4 B (15,488 B for a 128 x 160 table at V = 3)
 // and takes the larger of the two in the rows' place.
 
@@ -278,9 +279,13 @@ __device__ __forceinline__ void take_first(const unsigned* bits, const int* pre,
   }
 }
 
-// n[v] with v known only at run time, without a local-memory array
+// n[v] with v known only at run time, without a local-memory array: a
+// chain of selects over the MAX_V registers
 __device__ __forceinline__ int of_view(const int* n, int v) {
-  return v == 0 ? n[0] : (v == 1 ? n[1] : (v == 2 ? n[2] : n[3]));
+  int r = n[0];
+#pragma unroll
+  for (int k = 1; k < MAX_V; ++k) r = v == k ? n[k] : r;
+  return r;
 }
 
 // the union row of `cell` in view v: its rank among the set bits, or ut
@@ -319,7 +324,7 @@ __device__ __forceinline__ void build_union(const float* __restrict__ grids,
     atomicOr(bits + v * nw + (cell >> 5), 1u << (cell & 31));
   }
   __syncthreads();
-  int n[MAX_V];
+  int n[MAX_V] = {};
   scan_popc(bits, pre, M, wsum, tid);
   take_first(bits, pre, V, nw, ut, u_s, n, tid);    // the capped base cells
   __syncthreads();
@@ -663,7 +668,8 @@ block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict_
 // the same, taps and fractions [V][8S] 49,152 B, union 1,920 B: 215,936 B;
 // ut 320, CP 32 (G = 8): 82,176 B twice, 49,152 B, 3,840 B: 217,344 B. One
 // block per SM. At V = 4 the taps and fractions take 65,536 B, so ut 160 at
-// G = 2 fits no pass (CP 64: 232,960 B) and takes B'.
+// G = 2 fits no pass (CP 64: 232,960 B) and takes B'; at V = 8 131,072 B,
+// and G = 2 fits ut 64 alone (CP 64), G = 8 up to ut 160 (CP 32).
 
 struct LayoutPass {       // dynamic shared memory, in bytes from its start
   size_t rows, dacc, taps, fracs, unions, total;
@@ -1029,7 +1035,7 @@ int dispatch_fwd(const void* table, const void* grids, const void* scales, void*
 
 }  // namespace
 
-// The forward entries: table [V,H,W,(V-1)C] (V = 2, 3 or 4), grids [V,R,S,2]
+// The forward entries: table [V,H,W,(V-1)C] (V = 2 to 8), grids [V,R,S,2]
 // f32, scales [V,(V-1)C] f32 (int8 tables) or NULL, unions_out
 // [V*ceil(R/8), ut] int32 or NULL, out [R,S,G] f32; CP channels staged per
 // pass.

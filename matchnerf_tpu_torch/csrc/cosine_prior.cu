@@ -7,7 +7,7 @@
 // version, autograd Function and wrappers:
 // matchnerf_tpu_torch/ops/cosine_prior.py.
 //
-// For each sample n and each of the V views (V = 2, 3 or 4: n_src_views):
+// For each sample n and each of the V views (V = 2 to 8: n_src_views):
 // bilinear sample (align corners, border clamp) of the view's unpacked
 // table [V,H,W,(V-1)C] (C = 128, int8, bf16 or f32) at grids[v, n], times
 // the per-(view, channel) dequantisation scale [V,(V-1)C] where scales are
@@ -31,14 +31,16 @@
 // per-sample work that every lane repeats is paid 8 times, not 16 (f32 rows
 // keep 16 lanes of 8 channels); a lane reads its channels of a tap row as
 // one 16-byte load (int8), two (bf16, f32), the sample's lanes one
-// contiguous run. Each view's taps are found once and serve its V-1 pairs. int8 taps are converted on the integer pipe, exactly
-// (int8_exact.cuh: a byte permute and a subtract, no int-to-float
-// instruction); bf16 widen by a shift or a mask. Each (view, chunk) enters
-// exactly one pair, so a pair's two sides are interpolated (f32 weights and
-// sums, as the plain version), dequantised, reduced and dropped before the
-// next pair; the pair sum stays in registers. Group sums reduce with
-// shuffles inside the group's lanes (on 16 channels a lane at G = 16, each
-// 8-channel half is a group). Only [N, G] f32 is written.
+// contiguous run. Each view's taps are found once and serve its V-1 pairs
+// (to V = 4; past it once a pair, see the kernel). int8 taps are converted
+// on the integer pipe, exactly (int8_exact.cuh: a byte permute and a
+// subtract, no int-to-float instruction); bf16 widen by a shift or a mask.
+// Each (view, chunk) enters exactly one pair, so a pair's two sides are
+// interpolated (f32 weights and sums, as the plain version), dequantised,
+// reduced and dropped before the next pair; the pair sum stays in
+// registers. Group sums reduce with shuffles inside the group's lanes (on
+// 16 channels a lane at G = 16, each 8-channel half is a group). Only
+// [N, G] f32 is written.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -169,9 +171,21 @@ cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids
   // out-of-range samples still run (clamped) so every shuffle has all lanes
   const int n = min(n_raw, N - 1);
   const int o = lane * CPL;
-  Taps taps[V];
+  // up to V = 4 each view's taps are found once and kept for its V-1 pairs,
+  // and the pairs unroll; past that a view's taps are found again for each
+  // pair it enters, one pair at a time: 56-80 registers a thread at V = 5
+  // to 8, where kept taps (12 registers a view) took 128-255 and one block
+  // an SM, 2.4x the time at V = 6 and 8
+  constexpr bool KEEP = V <= 4;
+  Taps kept[KEEP ? V : 1];
+  if constexpr (KEEP) {
 #pragma unroll
-  for (int v = 0; v < V; ++v) taps[v] = view_taps<CC>(grids, v, n, N, H, W);
+    for (int v = 0; v < V; ++v) kept[v] = view_taps<CC>(grids, v, n, N, H, W);
+  }
+  auto taps_of = [&](int v) -> Taps {
+    if constexpr (KEEP) return kept[v];
+    else return view_taps<CC>(grids, v, n, N, H, W);
+  };
 
   // G * CPL <= 128: the lanes_per_group lanes of a group reduce by shuffles;
   // G = 16 with 16 channels a lane: each half of a lane's channels is a group
@@ -181,12 +195,11 @@ cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids
 #pragma unroll
   for (int h = 0; h < HALVES; ++h) total[h] = 0.f;
   // pair (i, j): view i's chunk j-1 against view j's chunk i
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
+  auto pair = [&](int p) {
     const int vi = pair_first(V, p), vj = pair_second(V, p), ca = vj - 1, cb = vi;
     float fa[CPL], fb[CPL];
-    interp_run<CPL>(table, taps[vi], ca * C + o, scales ? scales + vi * CC : nullptr, fa);
-    interp_run<CPL>(table, taps[vj], cb * C + o, scales ? scales + vj * CC : nullptr, fb);
+    interp_run<CPL>(table, taps_of(vi), ca * C + o, scales ? scales + vi * CC : nullptr, fa);
+    interp_run<CPL>(table, taps_of(vj), cb * C + o, scales ? scales + vj * CC : nullptr, fb);
     float dot[HALVES], na2[HALVES], nb2[HALVES];
 #pragma unroll
     for (int h = 0; h < HALVES; ++h) {
@@ -212,6 +225,15 @@ cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids
       }
       total[0] += cosine(d, a, b);
     }
+  };
+  // past V = 4 one pair at a time: unrolled, the compiler would keep a
+  // view's taps live across the pairs it enters, as the kept taps did
+  if constexpr (KEEP) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) pair(p);
+  } else {
+#pragma unroll 1
+    for (int p = 0; p < P; ++p) pair(p);
   }
   if (n_raw >= N) return;
   if (by_half) {
@@ -244,9 +266,15 @@ int launch(const void* table, const void* grids, const void* scales, void* out,
            cudaStream_t stream) {
   if (!args_ok(views, H, W, channels, G, N)) return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
-  if (views == 2) return launch_v<T, 2>(table, grids, scales, out, H, W, G, N, stream);
-  if (views == 3) return launch_v<T, 3>(table, grids, scales, out, H, W, G, N, stream);
-  return launch_v<T, 4>(table, grids, scales, out, H, W, G, N, stream);
+  switch (views) {
+    case 2: return launch_v<T, 2>(table, grids, scales, out, H, W, G, N, stream);
+    case 3: return launch_v<T, 3>(table, grids, scales, out, H, W, G, N, stream);
+    case 4: return launch_v<T, 4>(table, grids, scales, out, H, W, G, N, stream);
+    case 5: return launch_v<T, 5>(table, grids, scales, out, H, W, G, N, stream);
+    case 6: return launch_v<T, 6>(table, grids, scales, out, H, W, G, N, stream);
+    case 7: return launch_v<T, 7>(table, grids, scales, out, H, W, G, N, stream);
+    default: return launch_v<T, 8>(table, grids, scales, out, H, W, G, N, stream);
+  }
 }
 
 // ---------------------------------------------------------------- backward

@@ -4,10 +4,10 @@
 // the forward-only kernel of `precision.fused_cosine` (eval and video
 // renders). Plain version and wrapper: matchnerf_tpu_torch/ops/fused_cosine.py.
 //
-// Input: rows [V,N,4*(V-1)C] (V = 2, 3 or 4 views, C = 128; int8, bf16 or
-// f32), per view and sample the four bilinear taps y0x0, y0x1, y1x0, y1x1
-// of the view's table row, each (V-1)C channels; weights [V,N,2] f32
-// (wx, wy); scales [V,(V-1)C] f32 or NULL (per-(view, channel)
+// Input: rows [V,N,4*(V-1)C] (V = 2 to 8 views, views.cuh; C = 128; int8,
+// bf16 or f32), per view and sample the four bilinear taps y0x0, y0x1,
+// y1x0, y1x1 of the view's table row, each (V-1)C channels; weights
+// [V,N,2] f32 (wx, wy); scales [V,(V-1)C] f32 or NULL (per-(view, channel)
 // dequantisation, applied after interpolation). Per sample and view: the
 // nested lerp
 //   (t00 (1-wx) + t01 wx) (1-wy) + (t10 (1-wx) + t11 wx) wy
@@ -15,9 +15,8 @@
 // P = V(V-1)/2 pairs (i, j), i < j in row-major order (`pair_index_lists`),
 // the grouped cosine of view i's chunk j-1 against view j's chunk i (eps
 // 1e-8 on each norm), summed in that order and divided by P. Output
-// out[n, g], f32. One template instance per V: the chunk count V-1 and the
-// pair list are compile-time, so every loop unrolls and f[][][] stays in
-// registers (V = 4: 96 floats a lane).
+// out[n, g], f32. One template instance per V: the pair list is
+// compile-time, so every loop unrolls.
 //
 // What bounds it: bytes. Each sample reads V x 4(V-1)C row elements (at
 // V = 3, 3 KB in int8, 6 KB in bf16, 12 KB in f32) once and does ~10 K
@@ -26,12 +25,22 @@
 // Design: one streaming pass, nothing staged. Half a warp (16 lanes) owns
 // one sample, each lane 8 channels of every chunk of every view, so each
 // tap's chunk of a row is read as 16 lanes x 8 elements, coalesced, with
-// streaming loads (the rows are read once). Interpolation and
-// dequantisation are f32 in registers; the per-group dot products and norms
-// reduce with shuffles inside the group's lanes. Only [N, G] f32 is written.
+// streaming loads (the rows are read once). The sample's pairs are walked
+// in order, as Kernel B walks them (csrc/cosine_prior.cu): each (view,
+// chunk) enters exactly one pair, so for pair (i, j) a lane interpolates
+// and dequantises view i's chunk j-1 and view j's chunk i from their four
+// tap rows, reduces them and adds the cosine to the pair sum, then drops
+// both: 16 interpolated floats a lane are live at every V, where
+// interpolating every (view, chunk) first would hold 8V(V-1) (96 at V = 4,
+// 448 at V = 8). Interpolation and
+// dequantisation are f32 in registers; the per-group dot products and
+// norms reduce with shuffles inside the group's lanes. Only [N, G] f32 is
+// written.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "views.cuh"
 
 namespace {
 
@@ -68,69 +77,57 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// the pairs (i, j), i < j, of V views in row-major order
-template <int V>
-struct Pairs {
-  static constexpr int P = V * (V - 1) / 2;
-  int i[P], j[P];
-  constexpr Pairs() : i(), j() {
-    int p = 0;
-    for (int a = 0; a < V - 1; ++a)
-      for (int b = a + 1; b < V; ++b) { i[p] = a; j[p] = b; ++p; }
+// this lane's 8 channels (from channel c0 of the view's row) of view v at
+// sample n: the nested lerp of the four tap rows, times the scale
+template <typename T, int V>
+__device__ __forceinline__ void interp8(const T* __restrict__ rows,
+                                        const float* __restrict__ weights,
+                                        const float* __restrict__ scales, int v, int c0,
+                                        int n, int N, float* f) {
+  constexpr int CC = (V - 1) * C;   // channels per view
+  constexpr int ROW = 4 * CC;       // elements per tap row
+  const size_t vn = (size_t)v * N + n;
+  const float wx = weights[vn * 2 + 0];
+  const float wy = weights[vn * 2 + 1];
+  const float wx0 = 1.f - wx, wy0 = 1.f - wy;
+  const T* r = rows + vn * ROW;
+  float a[8], b[8], c[8], d[8];
+  load8(r + 0 * CC + c0, a);
+  load8(r + 1 * CC + c0, b);
+  load8(r + 2 * CC + c0, c);
+  load8(r + 3 * CC + c0, d);
+  float sc[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+  if (scales != nullptr) {
+    const float4 s0 = *reinterpret_cast<const float4*>(scales + v * CC + c0);
+    const float4 s1 = *reinterpret_cast<const float4*>(scales + v * CC + c0 + 4);
+    sc[0] = s0.x; sc[1] = s0.y; sc[2] = s0.z; sc[3] = s0.w;
+    sc[4] = s1.x; sc[5] = s1.y; sc[6] = s1.z; sc[7] = s1.w;
   }
-};
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    f[e] = ((a[e] * wx0 + b[e] * wx) * wy0 + (c[e] * wx0 + d[e] * wx) * wy) * sc[e];
+}
 
 template <typename T, int V>
 __global__ void __launch_bounds__(THREADS)
 fused_cosine_kernel(const T* __restrict__ rows, const float* __restrict__ weights,
                     const float* __restrict__ scales, float* __restrict__ out,
                     int G, int N) {
-  constexpr int CH = V - 1;       // chunks per view
-  constexpr int CC = CH * C;      // channels per view
-  constexpr int ROW = 4 * CC;     // elements per tap row
+  constexpr int P = n_pairs(V);
   const int lane = threadIdx.x % LANES;
   const int n_raw = blockIdx.x * SAMPLES_PER_BLOCK + threadIdx.x / LANES;
   // out-of-range samples still run (clamped) so every shuffle has all lanes
   const int n = min(n_raw, N - 1);
   const int o = lane * 8;
-
-  float f[V][CH][8];  // [view][chunk][channel] interpolated, dequantised
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const size_t vn = (size_t)v * N + n;
-    const float wx = weights[vn * 2 + 0];
-    const float wy = weights[vn * 2 + 1];
-    const float wx0 = 1.f - wx, wy0 = 1.f - wy;
-    const T* r = rows + vn * ROW;
-#pragma unroll
-    for (int ch = 0; ch < CH; ++ch) {
-      const int c0 = ch * C + o;
-      float a[8], b[8], c[8], d[8];
-      load8(r + 0 * CC + c0, a);
-      load8(r + 1 * CC + c0, b);
-      load8(r + 2 * CC + c0, c);
-      load8(r + 3 * CC + c0, d);
-      float sc[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
-      if (scales != nullptr) {
-        const float4 s0 = *reinterpret_cast<const float4*>(scales + v * CC + c0);
-        const float4 s1 = *reinterpret_cast<const float4*>(scales + v * CC + c0 + 4);
-        sc[0] = s0.x; sc[1] = s0.y; sc[2] = s0.z; sc[3] = s0.w;
-        sc[4] = s1.x; sc[5] = s1.y; sc[6] = s1.z; sc[7] = s1.w;
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        f[v][ch][e] = ((a[e] * wx0 + b[e] * wx) * wy0 + (c[e] * wx0 + d[e] * wx) * wy) * sc[e];
-    }
-  }
-
   const int lanes_per_group = LANES / G;   // G in {1,2,4,8,16}
   float total = 0.f;
   // pair (i, j): view i's chunk j-1 against view j's chunk i
-  constexpr Pairs<V> pairs;
 #pragma unroll
-  for (int p = 0; p < Pairs<V>::P; ++p) {
-    const float* fa = f[pairs.i[p]][pairs.j[p] - 1];
-    const float* fb = f[pairs.j[p]][pairs.i[p]];
+  for (int p = 0; p < P; ++p) {
+    const int vi = pair_first(V, p), vj = pair_second(V, p);
+    float fa[8], fb[8];
+    interp8<T, V>(rows, weights, scales, vi, (vj - 1) * C + o, n, N, fa);
+    interp8<T, V>(rows, weights, scales, vj, vi * C + o, n, N, fb);
     float dot = 0.f, na2 = 0.f, nb2 = 0.f;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -146,27 +143,36 @@ fused_cosine_kernel(const T* __restrict__ rows, const float* __restrict__ weight
     total += dot / (fmaxf(sqrtf(na2), 1e-8f) * fmaxf(sqrtf(nb2), 1e-8f));
   }
   if (n_raw < N && lane % lanes_per_group == 0)
-    out[(size_t)n * G + lane / lanes_per_group] = total / (float)Pairs<V>::P;
+    out[(size_t)n * G + lane / lanes_per_group] = total / (float)P;
+}
+
+template <typename T, int V>
+void launch_v(const T* r, const float* w, const float* s, float* o, int G, int N,
+              cudaStream_t stream) {
+  const int blocks = (N + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK;
+  fused_cosine_kernel<T, V><<<blocks, THREADS, 0, stream>>>(r, w, s, o, G, N);
 }
 
 template <typename T>
 int launch(const void* rows, const void* weights, const void* scales, void* out,
            int views, int channels, int G, int N, cudaStream_t stream) {
-  if (views < 2 || views > 4 || channels != C || N < 0 ||
+  if (views < MIN_V || views > MAX_V || channels != C || N < 0 ||
       !(G == 1 || G == 2 || G == 4 || G == 8 || G == 16))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
-  const int blocks = (N + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK;
   const T* r = static_cast<const T*>(rows);
   const float* w = static_cast<const float*>(weights);
   const float* s = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
-  if (views == 2)
-    fused_cosine_kernel<T, 2><<<blocks, THREADS, 0, stream>>>(r, w, s, o, G, N);
-  else if (views == 3)
-    fused_cosine_kernel<T, 3><<<blocks, THREADS, 0, stream>>>(r, w, s, o, G, N);
-  else
-    fused_cosine_kernel<T, 4><<<blocks, THREADS, 0, stream>>>(r, w, s, o, G, N);
+  switch (views) {
+    case 2: launch_v<T, 2>(r, w, s, o, G, N, stream); break;
+    case 3: launch_v<T, 3>(r, w, s, o, G, N, stream); break;
+    case 4: launch_v<T, 4>(r, w, s, o, G, N, stream); break;
+    case 5: launch_v<T, 5>(r, w, s, o, G, N, stream); break;
+    case 6: launch_v<T, 6>(r, w, s, o, G, N, stream); break;
+    case 7: launch_v<T, 7>(r, w, s, o, G, N, stream); break;
+    default: launch_v<T, 8>(r, w, s, o, G, N, stream); break;
+  }
   return (int)cudaGetLastError();
 }
 

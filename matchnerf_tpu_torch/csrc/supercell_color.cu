@@ -26,19 +26,21 @@
 // each view's float2 grid load is coalesced across the warp; the two window
 // rows ty, ty+1 are two 16-byte __ldg loads from L2 (through L1, where the
 // neighbouring samples of a ray mostly hit the same supercell); the block's
-// 256 x 3V colours are staged in shared memory and leave as coalesced
-// 16-byte stores. All arithmetic uses round-to-nearest intrinsics (no FMA
-// contraction), so the kernel equals the plain version bit for bit.
+// 256 x 3V colours are staged in dynamic shared memory (3 KB a view: 24 KB
+// at V = 8, MAX_V of views.cuh) and leave as coalesced 16-byte stores. All
+// arithmetic uses round-to-nearest intrinsics (no FMA contraction), so the
+// kernel equals the plain version bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "views.cuh"
 
 namespace {
 
 constexpr int SC = 4;
 constexpr int ROW_CH = 80;
 constexpr int THREADS = 256;
-constexpr int MAX_V = 4;
 
 // byte j (0..15) of a 16-byte window row
 __device__ __forceinline__ float byte_at(const uint4& r, int j) {
@@ -50,7 +52,7 @@ __global__ void __launch_bounds__(THREADS)
 supercell_color_kernel(const uint8_t* __restrict__ colors_sc,
                        const float2* __restrict__ grids, float* __restrict__ out,
                        int V, int Hs, int Ws, int img_h, int img_w, int N) {
-  __shared__ __align__(16) float stage[THREADS * 3 * MAX_V];
+  extern __shared__ __align__(16) float stage[];     // [THREADS][3V]
   const int n0 = blockIdx.x * THREADS;
   const int n = n0 + threadIdx.x;
   const int cols = 3 * V;
@@ -92,7 +94,8 @@ supercell_color_kernel(const uint8_t* __restrict__ colors_sc,
 
 }  // namespace
 
-// colors_sc [V,Hs,Ws,80] uint8, grids [V,N,2] f32, out [N,3V] f32 (16-byte aligned)
+// colors_sc [V,Hs,Ws,80] uint8 (V = 1 to MAX_V), grids [V,N,2] f32, out [N,3V] f32
+// (16-byte aligned)
 extern "C" int supercell_color_u8(const void* colors_sc, const void* grids, void* out,
                                   int V, int Hs, int Ws, int img_h, int img_w, int N,
                                   void* stream) {
@@ -102,7 +105,8 @@ extern "C" int supercell_color_u8(const void* colors_sc, const void* grids, void
       reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorInvalidValue;
   const int blocks = (N + THREADS - 1) / THREADS;
-  supercell_color_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = (size_t)THREADS * 3 * V * sizeof(float);
+  supercell_color_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(colors_sc), static_cast<const float2*>(grids),
       static_cast<float*>(out), V, Hs, Ws, img_h, img_w, N);
   return (int)cudaGetLastError();

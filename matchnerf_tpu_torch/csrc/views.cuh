@@ -1,9 +1,10 @@
-// The source views of the prior kernels (cosine_prior.cu: B and B';
-// block_cosine_prior.cu: D and D'): how many they take, and the pair order.
+// The source views of the cond-query kernels (cosine_prior.cu: B and B';
+// block_cosine_prior.cu: D and D'; fused_cosine.cu: F; supercell_color.cu:
+// E, which also takes one view): how many they take, and the pair order.
 #pragma once
 
 constexpr int MIN_V = 2;        // n_src_views the prior kernels take
-constexpr int MAX_V = 4;
+constexpr int MAX_V = 8;
 
 __host__ __device__ constexpr int n_pairs(int V) { return V * (V - 1) / 2; }
 
@@ -29,3 +30,9 @@ static_assert(pair_first(4, 2) == 0 && pair_second(4, 2) == 3, "(0,3) is pair 2 
 static_assert(pair_first(4, 4) == 1 && pair_second(4, 4) == 3, "(1,3) is pair 4 of 4 views");
 static_assert(pair_first(4, 5) == 2 && pair_second(4, 5) == 3, "(2,3) is pair 5 of 4 views");
 static_assert(pair_first(2, 0) == 0 && pair_second(2, 0) == 1, "(0,1) is the pair of 2 views");
+static_assert(pair_first(8, 6) == 0 && pair_second(8, 6) == 7, "(0,7) is pair 6 of 8 views");
+static_assert(pair_first(8, 7) == 1 && pair_second(8, 7) == 2, "(1,2) is pair 7 of 8 views");
+static_assert(pair_first(8, 26) == 5 && pair_second(8, 26) == 7, "(5,7) is pair 26 of 8 views");
+static_assert(pair_first(8, 27) == 6 && pair_second(8, 27) == 7, "(6,7) is pair 27 of 8 views");
+static_assert(pair_first(5, 9) == 3 && pair_second(5, 9) == 4, "(3,4) is pair 9 of 5 views");
+static_assert(n_pairs(MAX_V) == 28, "8 views make 28 pairs");

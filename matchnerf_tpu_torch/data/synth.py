@@ -6,12 +6,12 @@ intrinsics). It produces geometrically consistent multi-view scenes
 (spheres + box + checker plane + sky) with OpenCV-convention cameras;
 chip_smoke.py renders its scene from them. `write_dtu_tree` lays such
 views out as a DTU (MVSNet) directory tree with its own meta directory;
-`write_dtu_scene` writes the scene's six-view DTU scan. `write_llff_tree`,
-`write_blender_tree` and `write_tnt_tree` write the scene as an LLFF,
-Blender (NeRF-synthetic) or Tanks-and-Temples test set, each with the
-`pairs.th` of its own meta directory; LLFF and Blender as PNGs, T&T as
-the JPEGs its loader names, written by `encode_jpeg` (a numpy baseline
-encoder; no PIL anywhere). `write_ibrnet_tree` writes IBRNet's two-level
+`write_dtu_scene` writes the scene's DTU scan (six views, or up to
+twelve). `write_llff_tree`, `write_blender_tree` and `write_tnt_tree`
+write the scene as an LLFF, Blender (NeRF-synthetic) or Tanks-and-Temples
+test set, each with the `pairs.th` of its own meta directory; LLFF and
+Blender as PNGs, T&T as the JPEGs its loader names, written by
+`encode_jpeg` (a numpy baseline encoder; no PIL anywhere). `write_ibrnet_tree` writes IBRNet's two-level
 training tree of forward-facing scenes (PNGs).
 """
 import json
@@ -26,8 +26,9 @@ from .common import BLENDER2OPENCV
 from .png import write_png
 
 __all__ = ["look_at_opencv", "render_scene", "make_scene_views", "write_dtu_tree",
-           "write_dtu_scene", "DTU_SCENE_VIEW_IDS", "forward_facing_eyes", "write_llff_tree",
-           "write_ibrnet_tree", "write_blender_tree", "write_tnt_tree", "encode_jpeg"]
+           "write_dtu_scene", "DTU_SCENE_VIEW_IDS", "dtu_scene_view_ids", "forward_facing_eyes",
+           "write_llff_tree", "write_ibrnet_tree", "write_blender_tree", "write_tnt_tree",
+           "encode_jpeg"]
 
 DTU_SCENE_VIEW_IDS = (20, 21, 22, 23, 24, 25)     # the views of `write_dtu_scene`
 
@@ -247,19 +248,38 @@ def write_dtu_tree(root: str, meta_dir: str, images: np.ndarray, w2cs: np.ndarra
                 "dtu_test": [int(val_view)]}, os.path.join(meta_dir, "pairs.th"))
 
 
-def write_dtu_scene(root: str, meta_dir: str, W: int = 640, H: int = 512):
-    """Six views of the scene at 640x512 (or W x H) on an arc, as scan1 of
-    a DTU tree (DTU view ids 20-25; 24, in the middle, is the validation
-    and test target; 20, the first reference view of the training metas,
-    is next to it) with depth_min 425 and interval 2.5 (near / far 2.125 /
-    4.525), its own meta dir and depth maps (0 on the sky)."""
+# the arc angles (degrees) of `write_dtu_scene`'s views: DTU_SCENE_VIEW_IDS'
+# six, then the views it adds beyond six (ids 19, 18, ..., 14), alternating
+# sides further out
+_DTU_SCENE_ANGLES = (-4.0, -12.0, 4.0, 12.0, 0.0, -20.0, 20.0, -28.0, 28.0, -36.0, 36.0, -44.0)
+
+
+def dtu_scene_view_ids(n_views: int = 6) -> Tuple[int, ...]:
+    """The DTU view ids of `write_dtu_scene(..., n_views)`, in its order:
+    20-25, then 19 down to 26 - n_views."""
+    if not len(DTU_SCENE_VIEW_IDS) <= n_views <= len(_DTU_SCENE_ANGLES):
+        raise ValueError(f"write_dtu_scene: n_views={n_views}, it writes "
+                         f"{len(DTU_SCENE_VIEW_IDS)} to {len(_DTU_SCENE_ANGLES)} views")
+    return DTU_SCENE_VIEW_IDS + tuple(range(19, 25 - n_views, -1))
+
+
+def write_dtu_scene(root: str, meta_dir: str, W: int = 640, H: int = 512, n_views: int = 6):
+    """n_views (6 to 12) views of the scene at 640x512 (or W x H) on an
+    arc, as scan1 of a DTU tree (DTU view ids 20-25, then 19, 18, ...,
+    `dtu_scene_view_ids`; 24, in the middle, is the validation and test
+    target; 20, the first reference view of the training metas, is next to
+    it) with depth_min 425 and interval 2.5 (near / far 2.125 / 4.525), its
+    own meta dir and depth maps (0 on the sky). The six views of the default
+    are the first six of every larger tree; training at n_src_views V with
+    the loader's 2 added candidates needs V + 3 views (11 at V = 8)."""
+    view_ids = dtu_scene_view_ids(n_views)
     radius = 3.7
-    angles = np.deg2rad([-4.0, -12.0, 4.0, 12.0, 0.0, -20.0])
+    angles = np.deg2rad(_DTU_SCENE_ANGLES[:n_views])
     eyes = [(radius * math.sin(a), -1.0, -radius * math.cos(a)) for a in angles]
     views = make_scene_views(W, H, focal=1.8 * W, eyes=eyes)
     images = np.round(views["images"] * 255.0).astype(np.uint8)
     write_dtu_tree(root, meta_dir, images, views["w2cs"], views["intrinsics"],
-                   DTU_SCENE_VIEW_IDS, val_view=24, depths=views["depths"])
+                   view_ids, val_view=24, depths=views["depths"])
 
 
 def forward_facing_eyes(n: int, spread: float = 0.9):

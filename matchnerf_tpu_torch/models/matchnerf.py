@@ -205,7 +205,16 @@ def project_to_views(pts_3d, ref_w2c, ref_intr, ref_near_far, img_h: int,
                         for v in range(V)], dim=0)
 
 
-FUSED_CHUNK_RAYS = 8192    # rays per row gather of the fused route
+FUSED_CHUNK_RAYS = 8192    # rays per row gather of the fused route at V <= 3
+
+
+def fused_chunk_rays(n_views: int) -> int:
+    """Rays per row gather of the fused route at n_views views: a chunk's
+    rows, V x 4(V-1) table rows a sample, stay at or under their size at
+    V = 3 (24 rows a sample: 3.2 GB of int8 rows at S = 128), in multiples
+    of 8 rays: 8192 at V <= 3, 4096 at V = 4, 872 at V = 8."""
+    rows = n_views * (n_views - 1)
+    return FUSED_CHUNK_RAYS if rows <= 6 else max(1, FUSED_CHUNK_RAYS * 6 // rows // 8 * 8)
 
 
 def gather_tap_rows(table, grids):
@@ -222,13 +231,14 @@ def gather_tap_rows(table, grids):
 def fused_cosine_scale(table, grids, scales, n_groups: int, kernel: bool = True):
     """The fused route of one scale: table [V,h,w,Cc]; grids [V,R,S,2];
     scales [V,Cc] or None -> [R,S,G] f32. The tap rows are gathered for at
-    most FUSED_CHUNK_RAYS rays at a time (3.2 GB of int8 rows at S = 128),
-    then reduced by Kernel F (or its plain version)."""
+    most `fused_chunk_rays(V)` rays at a time (3.2 GB of int8 rows at
+    S = 128 and every V), then reduced by Kernel F (or its plain version)."""
     fn = fused_interp_grouped_cosine if kernel else fused_interp_grouped_cosine_plain
     S = grids.shape[2]
+    chunk = fused_chunk_rays(grids.shape[0])
     outs = []
-    for r0 in range(0, grids.shape[1], FUSED_CHUNK_RAYS):
-        rows, weights = gather_tap_rows(table, grids[:, r0:r0 + FUSED_CHUNK_RAYS])
+    for r0 in range(0, grids.shape[1], chunk):
+        rows, weights = gather_tap_rows(table, grids[:, r0:r0 + chunk])
         outs.append(fn(rows, weights, n_groups, scales).reshape(-1, S, n_groups))
         del rows
     return torch.cat(outs, dim=0)

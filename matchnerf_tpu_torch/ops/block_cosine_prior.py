@@ -291,7 +291,7 @@ def block_cosine_prior_plain(table, grids, scales, n_groups: int, ut: int):
 
 def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
     """The kernel on CUDA tensors (int8 tables [V,h,w,(V-1)128], V = 2 to
-    4, with f32 scales and bf16 tables without: Kernel D; f32 tables without
+    8, with f32 scales and bf16 tables without: Kernel D; f32 tables without
     scales: D', with its backward when autograd records), the plain version
     on CPU tensors.
     The kernel builds each block's union itself: the wrapper launches

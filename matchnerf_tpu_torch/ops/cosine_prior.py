@@ -35,7 +35,7 @@ from .grid_sample import grid_sample_2d
 SOURCE = "matchnerf_tpu_torch/csrc/cosine_prior.cu"
 # the view counts (n_src_views) the kernels take (csrc/views.cuh), and the
 # channels of one pair chunk: a view's table row holds V-1 chunks
-VIEWS = (2, 3, 4)
+VIEWS = tuple(range(2, 9))
 CHUNK = 128
 COUNTER = kernels.LaunchCounter(
     "cosine_prior", source=SOURCE, replaces="matchnerf_tpu/ops/pallas_banded.py:267")
@@ -102,7 +102,7 @@ def check_table(name: str, table) -> None:
 
 
 def cosine_prior(table, grids, scales, n_groups: int):
-    """The kernel on CUDA tensors (V = 2 to 4 views, C = 128, int8, bf16 or
+    """The kernel on CUDA tensors (V = 2 to 8 views, C = 128, int8, bf16 or
     f32 tables; with the B' backward when autograd records through an f32
     table), the plain version on CPU tensors."""
     if table.device.type == "cpu":

@@ -3,7 +3,7 @@
 Replaces matchnerf_tpu/ops/pallas_cond.py::fused_interp_grouped_cosine, the
 forward-only kernel of `precision.fused_cosine` (the eval and video
 renders). The CUDA source is csrc/fused_cosine.cu, one template instance
-per view count V = 2, 3, 4;
+per view count V = 2 to 8, walking each sample's pairs in order;
 `fused_interp_grouped_cosine_plain` is the same function in plain PyTorch.
 
 rows [V,N,4*(V-1)*C] hold, per view and sample, the four bilinear taps
@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .cosine_prior import pair_cosine_mean
+from .cosine_prior import VIEWS, pair_cosine_mean
 
 SOURCE = "matchnerf_tpu_torch/csrc/fused_cosine.cu"
 COUNTER = kernels.LaunchCounter(
@@ -39,7 +39,7 @@ def fused_interp_grouped_cosine_plain(rows, weights, n_groups: int, scales=None,
                                       piece: int = None):
     """rows [V,N,4Cc] (any dtype); weights [V,N,2] f32; scales [V,Cc] f32
     or None -> [N,G] f32. With `piece`, `piece` samples at a time (the f32
-    rows of V = 4 at an 8192-ray chunk are 25.8 GB: whole, their f32 copies
+    rows of a 4096-ray chunk at V = 4 are 12.9 GB: whole, their f32 copies
     would not fit beside them on the card)."""
     if piece is not None:
         N = rows.shape[1]
@@ -61,22 +61,19 @@ def fused_interp_grouped_cosine_plain(rows, weights, n_groups: int, scales=None,
     return pair_cosine_mean(list(interp), n_groups)
 
 
-VIEW_COUNTS = (2, 3, 4)      # the kernel's template instances
-
-
 def fused_interp_grouped_cosine(rows, weights, n_groups: int, scales=None):
-    """The kernel on CUDA tensors (V = 2, 3 or 4 views, C = 128: rows
+    """The kernel on CUDA tensors (V = 2 to 8 views, C = 128: rows
     [V,N,512(V-1)] of int8, bf16 or f32), the plain version on CPU tensors.
     Another view count raises a ValueError that names V, before any
     launch."""
     if rows.device.type == "cpu":
         return fused_interp_grouped_cosine_plain(rows, weights, n_groups, scales)
-    if rows.dim() != 3 or rows.shape[0] not in VIEW_COUNTS \
+    if rows.dim() != 3 or rows.shape[0] not in VIEWS \
             or rows.shape[2] != 512 * (rows.shape[0] - 1):
         V = rows.shape[0] if rows.dim() == 3 else None
         raise ValueError(f"fused_interp_grouped_cosine: rows {tuple(rows.shape)} (V={V} "
-                         "views), the kernel takes V = 2, 3 or 4 views of "
-                         "[V,N,512(V-1)]")
+                         f"views), the kernel takes V = {VIEWS[0]} to {VIEWS[-1]} "
+                         "views of [V,N,512(V-1)]")
     if not rows.is_cuda:
         raise ValueError(f"fused_interp_grouped_cosine: unsupported device {rows.device}")
     if rows.dtype not in _KERNELS:

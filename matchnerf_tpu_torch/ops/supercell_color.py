@@ -33,6 +33,7 @@ import torch
 
 from .. import kernels
 from .block_cosine_prior import BLOCK_RAYS, first_of_runs
+from .cosine_prior import VIEWS
 from .grid_sample import bilinear_taps
 
 COUNTER = kernels.LaunchCounter(
@@ -43,6 +44,7 @@ SC = 4                                   # supercell edge, in pixels
 WIN = SC + 1                             # window edge (covers +1 taps)
 ROW_CH = 16 * WIN                        # padded channels per table row
 COLOR_UT_BUCKETS = (48, 64, 96, 128, 160, 192, 256, 320)
+MAX_VIEWS = VIEWS[-1]                    # views the kernel takes: 1 to 8 (csrc/views.cuh)
 
 
 def bucket_color_ut(n: int) -> Optional[int]:
@@ -131,19 +133,23 @@ def supercell_color_sample_plain(colors_sc, grids, img_h: int, img_w: int):
 
 
 def supercell_color_sample(colors_sc, grids, img_h: int, img_w: int):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The kernel on CUDA tensors (V = 1 to 8 views), the plain version on
+    CPU tensors. Another view count raises a ValueError that names V,
+    before any launch."""
     if colors_sc.device.type == "cpu":
         return supercell_color_sample_plain(colors_sc, grids, img_h, img_w)
+    V = colors_sc.shape[0] if colors_sc.dim() == 4 else None
+    if V is None or not 1 <= V <= MAX_VIEWS:
+        raise ValueError(f"supercell_color_sample: colors_sc {tuple(colors_sc.shape)} "
+                         f"(V={V} views), the kernel takes V = 1 to {MAX_VIEWS} views")
     if not colors_sc.is_cuda:
         raise ValueError(f"supercell_color_sample: unsupported device {colors_sc.device}")
-    V, Hs, Ws = colors_sc.shape[:3]
-    if (colors_sc.dtype != torch.uint8 or colors_sc.dim() != 4
-            or colors_sc.shape[-1] != ROW_CH
-            or (Hs, Ws) != supercell_grid(img_h, img_w) or not 1 <= V <= 4
-            or not colors_sc.is_contiguous()):
+    Hs, Ws = colors_sc.shape[1:3]
+    if (colors_sc.dtype != torch.uint8 or colors_sc.shape[-1] != ROW_CH
+            or (Hs, Ws) != supercell_grid(img_h, img_w) or not colors_sc.is_contiguous()):
         raise ValueError(f"supercell_color_sample: colors_sc {tuple(colors_sc.shape)} "
                          f"{colors_sc.dtype}, kernel takes contiguous uint8 "
-                         f"[1..4,{supercell_grid(img_h, img_w)},{ROW_CH}]")
+                         f"[V,{supercell_grid(img_h, img_w)},{ROW_CH}]")
     if (grids.dtype != torch.float32 or grids.dim() != 4 or grids.shape[0] != V
             or grids.shape[-1] != 2 or grids.device != colors_sc.device
             or not grids.is_contiguous()):

@@ -51,8 +51,9 @@ and its float4 global atomics, one per (block, union row, 4
 channels). `--sass` adds each kernel's atomic instructions by full mnemonic.
 
 With `--fused` it times Kernel F (`fused_interp_grouped_cosine`) instead,
-at V = 2, 3 and 4 source views on random tap rows of one fused-route chunk
-(8192 rays x 128 samples; int8 values in -127..127 with per-(view,
+at V = 2 to 8 source views on random tap rows of 8192 rays x 128 samples
+at V <= 4 and of one fused-route chunk beyond (`fused_chunk_rays(V)` rays:
+2456 at V = 5, 872 at V = 8; int8 values in -127..127 with per-(view,
 channel) scales, bf16 and f32 normal values; weights uniform in [0, 1)) at
 G = 2 and 8, each held against its plain twin (max |d|, the twin taken
 2**18 samples at a time). With `--against DIR`, DIR's fused_cosine.cu is
@@ -80,7 +81,7 @@ from .profile_attention import card_line
 H, W = 512, 640
 DTU_NEAR_FAR = (2.125, 4.525)
 SLICE_RAYS, VAL_RAYS, TRAIN_RAYS = 20480, 4096, 1024
-FUSED_RAYS = 8192             # one fused-route chunk (Kernel F, `--fused`)
+FUSED_RAYS = 8192             # Kernel F's rays at V <= 4 (`--fused`)
 ITERS = 20
 SOURCES = ("cosine_prior.cu", "block_cosine_prior.cu")
 OPCODES = ("I2F", "I2FP", "F2F", "PRMT", "SGXT", "SHF", "LOP3", "IMAD", "FFMA", "FMUL",
@@ -407,16 +408,19 @@ def backward(torch, dev, libs, block_ut, result):
 
 
 def fused(torch, dev, against, result):
-    """Kernel F at V = 2, 3, 4 against its plain twin and, with `against`,
+    """Kernel F at V = 2 to 8 against its plain twin and, with `against`,
     against that directory's fused_cosine.cu (`--fused`)."""
+    from .models.matchnerf import fused_chunk_rays
     from .ops import fused_cosine as kf
+    from .ops.cosine_prior import VIEWS
     other = None
     if against is not None:
         other = bind(build_lib([against / "fused_cosine.cu"], "libfused_against", against))
     gen = torch.Generator(device=dev).manual_seed(0)
-    N, C = FUSED_RAYS * 128, 128
+    C = 128
     result["fused"] = []
-    for V in kf.VIEW_COUNTS:
+    for V in VIEWS:
+        N = (FUSED_RAYS if V <= 4 else fused_chunk_rays(V)) * 128
         for dt in (torch.int8, torch.bfloat16, torch.float32):
             shape = (V, N, 4 * (V - 1) * C)
             if dt == torch.int8:
@@ -500,7 +504,7 @@ def main(argv=None):
                     help="time B' and D''s backward kernels at the training shapes "
                          "instead, with their atomic counts")
     ap.add_argument("--fused", action="store_true",
-                    help="time Kernel F at V = 2, 3 and 4 instead (--against: DIR's "
+                    help="time Kernel F at V = 2 to 8 instead (--against: DIR's "
                          "fused_cosine.cu, compared bit for bit)")
     args = ap.parse_args(argv)
     import torch

@@ -1,7 +1,7 @@
 """Two and four source views (`n_src_views`): the port against the JAX
 package on the CPU, at V = 2 and V = 4.
 
-The prior kernels B, B', D and D' take V = 2 to 4 (csrc/views.cuh); their
+The prior kernels B, B', D and D' take V = 2 to 8 (csrc/views.cuh); their
 plain versions, which the CPU runs and the card holds each kernel to, are
 held here to the JAX kernels (Pallas in interpret mode) and custom VJPs:
 
@@ -255,11 +255,12 @@ def test_takes_table_reads_the_views(V):
                                         ut, 128, G_, True) is not None))
 
 
-@pytest.mark.parametrize("V", [1, 5])
+@pytest.mark.parametrize("V", [1, 9])
 def test_prior_kernels_refuse_other_view_counts(V):
     """The wrappers of B, B', D and D' raise a ValueError that names V before
-    any launch at a view count the kernels do not take (the check runs
-    ahead of the device's; its CPU tensors here stand for the card's)."""
+    any launch at a view count the kernels do not take (they take 2 to 8;
+    the check runs ahead of the device's; its CPU tensors here stand for the
+    card's)."""
     table = torch.zeros(V, 8, 8, max(V - 1, 1) * 128)
     grids = torch.zeros(V, 8, 4, 2)
     before = (kb.COUNTER.launches, kd.COUNTER.launches, kd.F32_COUNTER.launches)
@@ -269,6 +270,27 @@ def test_prior_kernels_refuse_other_view_counts(V):
         with pytest.raises(ValueError, match=f"V={V} views"):
             kd._forward(table.to(dt), grids, None, 2, 64)
     assert (kb.COUNTER.launches, kd.COUNTER.launches, kd.F32_COUNTER.launches) == before
+
+
+@pytest.mark.parametrize("kernel,V", [("E", 0), ("E", 9), ("F", 1), ("F", 9)])
+def test_color_and_fused_kernels_refuse_other_view_counts(kernel, V):
+    """The wrappers of E (1 to 8 views) and F (2 to 8) raise a ValueError
+    that names V before any launch at a view count their kernels do not
+    take; tensors on the meta device stand for the card's (a CPU tensor
+    takes the plain version, which takes any V)."""
+    from matchnerf_tpu_torch.ops import fused_cosine as kf
+    from matchnerf_tpu_torch.ops import supercell_color as ke
+    before = (ke.COUNTER.launches, kf.COUNTER.launches)
+    with pytest.raises(ValueError, match=f"V={V} views"):
+        if kernel == "E":
+            ke.supercell_color_sample(torch.empty(V, 5, 6, ke.ROW_CH, dtype=torch.uint8,
+                                                  device="meta"),
+                                      torch.empty(V, 8, 4, 2, device="meta"), 20, 24)
+        else:
+            kf.fused_interp_grouped_cosine(
+                torch.empty(V, 32, 512 * max(V - 1, 1), device="meta"),
+                torch.empty(V, 32, 2, device="meta"), 2)
+    assert (ke.COUNTER.launches, kf.COUNTER.launches) == before
 
 
 IMG = 32
