@@ -583,11 +583,12 @@ def decoder_flops(dec, S):
             2 * sum(m.weight.numel() for m in rest) + 4 * S * 16 + 60)
 
 
-def decoder_bound(nbytes_, dec, N, S, route):
-    """Kernel C's bound on one route for N samples on rays of S: the wide
-    products over the route's tensor-core rate plus the remainder over the
-    f32 CUDA-core rate, against the bytes over the memory rate."""
-    wide, rest = decoder_flops(dec, S)
+def decoder_bound(nbytes_, flops, N, route):
+    """A decoder kernel's bound on one route for N samples, `flops` its
+    (wide, remainder) operations per sample: the wide products over the
+    route's tensor-core rate plus the remainder over the f32 CUDA-core rate,
+    against the bytes over the memory rate."""
+    wide, rest = flops
     t_ops = (N * wide / TC_FLOPS[route] + N * rest / PEAK_FLOPS["float32"]) * 1e3
     t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -625,7 +626,7 @@ def decoder_case(torch, kc, dev, args, label):
             plain_ms = cuda_ms(torch, lambda: kc.cond_nerf_decode_plain(*args, matmul_dtype=md), 3)
             small, frag = kc.kernel_weights(dec, md, dev)
             wide, rest = decoder_flops(dec, S)
-            b_ms, b_by = decoder_bound(nbytes(*ins, *got, small, frag), dec, N, S, route)
+            b_ms, b_by = decoder_bound(nbytes(*ins, *got, small, frag), (wide, rest), N, route)
             log(f"kernel C cond_nerf_decode {label} R={R} S={S} {route} route: max|d| rgb "
                 f"{errs[0]:.3e} depth {errs[1]:.3e} opacity {errs[2]:.3e} (tol {tols}), {n_over} "
                 f"of {diffs.numel()} above 1e-3, mean|d| {mean_err:.3e} (f32 vs bf16 twins "
@@ -1470,6 +1471,7 @@ ENTRY_FRAMES = 3                   # frames of the test_video runs of phase 13
 # the device kernels of the eval path, by the start of their __global__'s name
 KERNEL_NAMES = {"window_attention": "window_attention_fwd", "cosine_prior": "cosine_prior_kernel",
                 "cond_nerf_decode": "cond_nerf_decode_kernel",
+                "cond_nerf_decode_any": "cond_nerf_decode_any_kernel",
                 "block_cosine_prior": "block_cosine_prior_kernel",
                 "supercell_color": "supercell_color_kernel"}
 KERNEL_RES = {k: re.compile(r"\b" + v) for k, v in KERNEL_NAMES.items()}
@@ -1560,6 +1562,8 @@ def check_entry_record(name, rec, must, label):
             raise AssertionError(f"{label} {name}: kernel {k} was not launched: {launches}")
     if any(rec["plain_cuda"].values()):
         raise AssertionError(f"{label} {name}: plain versions ran on CUDA: {rec['plain_cuda']}")
+    if launches["cond_nerf_decode_any"]:
+        raise AssertionError(f"{label} {name}: the shipped decoder took Kernel Cg: {launches}")
     want_bg = launches["cond_nerf_decode"] if name == "blender" else 0
     if rec["setbg"] != (name == "blender") or rec["setbg_launches"] != want_bg:
         raise AssertionError(f"{label} {name}: setbg {rec['setbg']}, {rec['setbg_launches']} "
@@ -1591,8 +1595,9 @@ def eval_entry_phase(torch, dev, seed, host_jpegs):
     from matchnerf_tpu_torch.ops import window_attention as ka
     from matchnerf_tpu_torch.renderer import Renderer
     counters = {"window_attention": ka.COUNTER, "cosine_prior": kb.COUNTER,
-                "cond_nerf_decode": kc.COUNTER, "block_cosine_prior": kd.COUNTER,
-                "supercell_color": ke.COUNTER, "fused_cosine": kf.COUNTER}
+                "cond_nerf_decode": kc.COUNTER, "cond_nerf_decode_any": kc.COUNTER_ANY,
+                "block_cosine_prior": kd.COUNTER, "supercell_color": ke.COUNTER,
+                "fused_cosine": kf.COUNTER}
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_eval_", dir=os.path.join(REPO, "build"))
     t0 = time.perf_counter()
@@ -2723,7 +2728,8 @@ def kernel_counters():
     from matchnerf_tpu_torch.ops import supercell_color as ke
     from matchnerf_tpu_torch.ops import window_attention as ka
     return {"window_attention": ka.COUNTER, "cosine_prior": kb.COUNTER,
-            "cond_nerf_decode": kc.COUNTER, "block_cosine_prior": kd.COUNTER,
+            "cond_nerf_decode": kc.COUNTER, "cond_nerf_decode_any": kc.COUNTER_ANY,
+            "block_cosine_prior": kd.COUNTER,
             "supercell_color": ke.COUNTER, "fused_cosine": kf.COUNTER,
             "window_attention_bwd": ka.BWD_COUNTER,
             "cosine_prior_bwd": kb.BWD_COUNTER,
@@ -3935,6 +3941,404 @@ def variants_phase(torch, dev, seed, tree, counters):
     return out
 
 
+# ---- phase 20: Kernel Cg, every decoder the TPU kernel takes -------------
+
+CG_RAYS = 8192                     # rays of each kernel-level slice at S = 128
+# rays of the S = 512 slice: the plain twin's [R, 4, S, S] attention scores
+# take 4.3 GB at 2048 rays and would take 34 GB (twice, with the softmax) at 8192
+CG_LONG_RAYS = 2048
+# phase 20's kernel-level decoders: (label, config keys, S, setbg)
+NERF_MLP = {"decoder.net_width": 256, "decoder.net_depth": 8, "decoder.posenc.L_view": 4}
+CG_DECODERS = (
+    ("nerf_mlp_256x8_lview4", NERF_MLP, 128, False),
+    ("w64_d4_skip2", {"decoder.net_width": 64, "decoder.net_depth": 4, "decoder.skip": [2]},
+     128, False),
+    ("standard_coord_gelu", {"nerf.legacy_coord": False, "decoder.raytrans_act": "GELU"},
+     128, False),
+    ("cond_72", {"encoder.cos_n_group": [30, 30]}, 128, False),
+    ("nerf_mlp_s512_setbg_intervals", dict(NERF_MLP, **{"nerf.wo_render_interval": False}),
+     512, True),
+)
+# the eval entry's DTU image under phase 20's decoders: (name, arguments,
+# the floor of its PSNR against all-plain, whether to render it once more
+# with Kernel A's plain twin in the encoder). The seeded NeRF MLP's image
+# with the shipped bf16 encoder measured 46.65 dB against all-plain, and so
+# did the render through the same kernels with the plain decoder: it is
+# held to 45 dB, and its render with A's twin shows which kernel sets the
+# gap; with the f32 encoder, and with the weights after 3 training steps,
+# the image is held to 50 dB
+CG_NERF_MLP_ARGS = ["--decoder.net_width=256", "--decoder.net_depth=8",
+                    "--decoder.posenc.L_view=4"]
+CG_EVAL = (
+    ("nerf_mlp", CG_NERF_MLP_ARGS, 45.0, True),
+    ("nerf_mlp_f32_encoder", CG_NERF_MLP_ARGS + ["--precision.encoder_compute_dtype=float32"],
+     50.0, False),
+    ("standard_coord_gelu", ["--nerf.legacy_coord=false", "--decoder.raytrans_act=GELU"], 50.0,
+     False),
+)
+CG_TRAIN_STEPS = 3
+
+
+def set_keys(cfg, keys):
+    """cfg with each dotted key of `keys` set (in place)."""
+    for key, value in keys.items():
+        sub = cfg
+        *path, last = key.split(".")
+        for k in path:
+            sub = sub[k]
+        sub[last] = value
+    return cfg
+
+
+def seeded_decoder(torch, cfg, seed, dev):
+    """A CondNeRF of `cfg` from a seeded generator, every bias moved off
+    zero (0.05 x a normal draw) so that each bias path shows."""
+    from matchnerf_tpu_torch.models.decoder.cond_nerf import CondNeRF
+    from matchnerf_tpu_torch.ops.nn import reset_parameters
+    g = torch.Generator().manual_seed(seed)
+    dec = reset_parameters(CondNeRF(cfg), g)
+    with torch.no_grad():
+        for p in dec.parameters():
+            if p.dim() == 1:
+                p.add_(0.05 * torch.randn(p.shape, generator=g))
+    return dec.to(dev).eval()
+
+
+def decoder_inputs(torch, cfg, R, S, seed, dev):
+    """The decoder's inputs for R rays of S samples, drawn on the card: NDC
+    points in [-1, 1], one unit direction a ray, cosines in [-1, 1], colours
+    in [0, 1], masks with samples that 0, 1, 2 and 3 views see (no view:
+    maskfill; one view: the masked-query attention), sorted depths."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    V = int(cfg.n_src_views)
+    Gf = int(sum(cfg.encoder.cos_n_group))
+    rnd = lambda *s: torch.rand(*s, generator=g, device=dev)
+    ray = torch.randn(1, R, 3, generator=g, device=dev)
+    unit = (ray / ray.norm(dim=-1, keepdim=True))[:, :, None].expand(1, R, S, 3)
+    cond = {"feat_info": rnd(1, R, S, Gf) * 2 - 1, "color_info": rnd(1, R, S, 3 * V),
+            "mask_info": (rnd(1, R, S, V) > 0.4).float()}
+    depth = torch.sort(rnd(1, R, S) * 2.4 + 2.1, dim=-1).values[..., None]
+    return (rnd(1, R, S, 3) * 2 - 1, unit.contiguous(), cond, depth.contiguous(), ray)
+
+
+def cg_flops(dec, cfg, S):
+    """Kernel Cg's operations per sample, as `decoder_flops` splits them:
+    (2 per weight of the wide layers: pts_bias, the pts_linears,
+    alpha_linear, feature_linear, views_linears.0, rgb_linear; 2 per weight
+    of the 16-wide ray tail, the attention's QK and PV over S samples and
+    the 6 (L_3D + L_view) sines and cosines)."""
+    from matchnerf_tpu_torch.ops.decoder import _posenc_freqs
+    wide, rest = decoder_flops(dec, S)
+    L3, Lv = _posenc_freqs(cfg)
+    return wide, rest - 60 + 6 * (L3 + Lv)
+
+
+def cg_case(torch, dev, cfg, dec, R, S, setbg, label, seed, card):
+    """Kernel Cg on both operand routes against its plain twins on one slice
+    of R rays (Kernel C's tolerances and its bf16 mean check, as
+    `decoder_case`), launched through the wrapper's route (Cg, never C);
+    CUDA-event times beside the bound, reckoned as Kernel C's
+    (`decoder_bound`): the wide products at the route's tensor-core rate
+    (split TF32 for f32, bf16), the rest on the f32 CUDA cores."""
+    from matchnerf_tpu_torch.ops import decoder as kc
+    args = (dec, cfg, *decoder_inputs(torch, cfg, R, S, seed, dev))
+    if kc.decoder_route(dec, cfg, S) != "Cg":
+        raise AssertionError(f"Cg {label}: the wrapper routes it to "
+                             f"{kc.decoder_route(dec, cfg, S)}")
+    ins = [args[2], args[3], *args[4].values(), args[5], args[6]]
+    N = R * S
+    out = {"R": R, "S": S, "setbg": setbg, "decoder": list(kc.decoder_shape(dec)),
+           "card": card}
+    with torch.no_grad():
+        twins = {r: kc.cond_nerf_decode_plain(*args, setbg, matmul_dtype=getattr(torch, r))
+                 for r in ("float32", "bfloat16")}
+        gap = float(torch.cat([(a - b).abs().flatten() for a, b in
+                               zip(twins["float32"], twins["bfloat16"])]).mean())
+        for route, tols in (("float32", (1e-4, 1e-3, 1e-4)), ("bfloat16", (1e-2, 1e-2, 1e-3))):
+            md = getattr(torch, route)
+            c_before, g_before = kc.COUNTER.launches, kc.COUNTER_ANY.launches
+            fn = lambda: kc.cond_nerf_decode(*args, setbg, matmul_dtype=md)
+            got = fn()
+            torch.cuda.synchronize()
+            if kc.COUNTER.launches != c_before or kc.COUNTER_ANY.launches != g_before + 1:
+                raise AssertionError(f"Cg {label} {route}: C {kc.COUNTER.launches - c_before} "
+                                     f"and Cg {kc.COUNTER_ANY.launches - g_before} launches")
+            ref = twins[route]
+            errs = [max_abs(a, b) for a, b in zip(got, ref)]
+            diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(got, ref)])
+            mean_err = float(diffs.mean())
+            finite = all(bool(t.isfinite().all()) for t in got)
+            ms = cuda_ms(torch, fn, 5)
+            plain_ms = cuda_ms(torch, lambda: kc.cond_nerf_decode_plain(
+                *args, setbg, matmul_dtype=md), 2)
+            small, wts = kc.kernel_weights(dec, md, dev, "Cg")
+            wide, rest = cg_flops(dec, cfg, S)
+            flops = N * (wide + rest)
+            b_ms, b_by = decoder_bound(nbytes(*ins, *got, small, wts), (wide, rest), N, route)
+            log(f"kernel Cg cond_nerf_decode_any {label} R={R} S={S} setbg={setbg} {route} "
+                f"route: max|d| rgb {errs[0]:.3e} depth {errs[1]:.3e} opacity {errs[2]:.3e} "
+                f"(tol {tols}), mean|d| {mean_err:.3e} (f32 vs bf16 twins {gap:.3e}), "
+                f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
+                f"{N * wide / 1e12:.3f} TFLOP of wide products at "
+                f"{TC_FLOPS[route] / 1e12:.0f} TFLOP/s + {N * rest / 1e12:.4f} TFLOP at 67, "
+                f"{flops / ms / 1e9:.1f} TFLOP/s reached); {card}")
+            if not finite:
+                raise AssertionError(f"Cg {label} {route}: non-finite output")
+            for name, err, tol in zip(("rgb", "depth", "opacity"), errs, tols):
+                check_close(f"cond_nerf_decode_any {label} {route} {name}", err, tol)
+            if route == "bfloat16" and not mean_err < 0.1 * gap:
+                raise AssertionError(f"Cg {label} bf16: mean|d| {mean_err} is not under a "
+                                     f"tenth of the f32-bf16 gap {gap}")
+            out[route] = dict(max_abs_err=max(errs), max_abs_err_rgb_depth_opacity=errs,
+                              tol=list(tols), mean_abs_err=mean_err, twin_gap_mean=gap, ms=ms,
+                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              tflops=flops / 1e12, library_ms=None)
+            del got
+    del args, twins
+    torch.cuda.empty_cache()
+    return out
+
+
+def cg_kernel_cases(torch, dev, seed, card):
+    """Phase 20 (a): Kernel Cg against its plain twin on CG_DECODERS, both
+    routes, on seeded weights with non-zero biases."""
+    from matchnerf_tpu_torch.config import dtu_eval_config
+    out = {}
+    for label, keys, S, setbg in CG_DECODERS:
+        cfg = set_keys(dtu_eval_config(), keys)
+        dec = seeded_decoder(torch, cfg, seed, dev)
+        R = CG_RAYS if S == 128 else CG_LONG_RAYS
+        out[label] = dict(cg_case(torch, dev, cfg, dec, R, S, setbg, label, seed + 1, card),
+                          keys=keys)
+        del dec
+    return out
+
+
+def offset_features_kernel_rgb(torch, renderer, batch, delta):
+    """`renderer`'s rgb with every feat_info value off by `delta` on its way
+    into the eval decoder's kernel (the kernel reads its packed weights, so
+    a hook on `pts_bias` would not reach it: the render's
+    `cond_nerf_decode` is wrapped instead)."""
+    from matchnerf_tpu_torch.models import matchnerf as mn
+    decode = mn.cond_nerf_decode
+
+    def off(dec, cfg, pts, unit, cond, *a, **k):
+        cond = dict(cond, feat_info=(cond["feat_info"] + delta).contiguous())
+        return decode(dec, cfg, pts, unit, cond, *a, **k)
+    mn.cond_nerf_decode = off
+    try:
+        with torch.no_grad():
+            rgb = renderer.forward(batch, mode="test")["rgb"]
+    finally:
+        mn.cond_nerf_decode = decode
+    return rgb
+
+
+def plain_encoder_psnr(torch, dev, renderer, batch, ref_rgb, counters, kernel, slices, label):
+    """PSNR against `ref_rgb` of `renderer`'s image with Kernel A's plain
+    twin in the encoder and every other kernel (D, E and the decoder's) as
+    the entry runs them: no A launch, `slices` of `kernel`."""
+    from matchnerf_tpu_torch.models import matchnerf as mn
+    from matchnerf_tpu_torch.renderer import Renderer
+    r = Renderer(renderer.cfg, renderer.model, dev)
+    r.encode = lambda ref_images: mn.encode(r.model, r.cfg, ref_images, kernel=False)
+    names = ("window_attention", kernel, "block_cosine_prior", "supercell_color")
+    before = {k: counters[k].launches for k in names}
+    with torch.no_grad():
+        rgb = r.forward(batch, mode="test")["rgb"]
+    torch.cuda.synchronize()
+    moved = {k: counters[k].launches - before[k] for k in names}
+    if (moved["window_attention"] or moved[kernel] != slices
+            or not moved["block_cosine_prior"] or not moved["supercell_color"]):
+        raise AssertionError(f"{label}: the render with A's plain twin launched {moved}")
+    return psnr(rgb, ref_rgb)
+
+
+def cg_eval(torch, dev, seed, tree, counters, name, extra, load, card, kernel, offset,
+            plain_floor, isolate=False):
+    """Phase 20 (b): `python -m matchnerf_tpu_torch.test --config test` with
+    `extra` on phase 12's DTU test view: one launch of `kernel` (Cg, or C for
+    the shipped decoder) per 8192-ray slice and none of the other, no plain
+    version on CUDA, finite rgb in [0, 1]. The image against two renders of
+    the same weights: the same kernels with the plain decoder in place of
+    the decoder kernel (the decoder alone: >= 50 dB), and all-plain (>=
+    `plain_floor` dB); with `offset`, feat_info off by FEAT_OFFSET on its way
+    into the kernel must fall below 50 dB against the first and below
+    `plain_floor` against all-plain; with `isolate`, the PSNR against
+    all-plain of the render with A's plain twin and every other kernel. The
+    image's seconds and the kernel's device ms per launch (torch.profiler,
+    one more render)."""
+    from matchnerf_tpu_torch.models import matchnerf as mn
+    from matchnerf_tpu_torch.ops.decoder import cond_nerf_decode_plain, decoder_shape
+    from matchnerf_tpu_torch.renderer import Renderer
+    argv = ["--config", "test", f"--name=cg_{name}", f"--load={load}",
+            f"--output_root={os.path.join(tree['work'], 'cg_runs')}", f"--seed={seed}",
+            "--data_test.llff=", "--data_test.blender=", "--data_test.tnt="] + extra \
+        + entry_set_args("dtu", tree["root"], tree["meta"])
+    _, records = run_entry(torch, counters, argv)
+    rec = records[0]
+    launches, out, label = rec["launches"], rec["out"], f"Cg eval {name}"
+    other = "cond_nerf_decode" if kernel == "cond_nerf_decode_any" else "cond_nerf_decode_any"
+    slices = -(-H * W // 8192)
+    if launches[kernel] != slices or launches[other] != 0:
+        raise AssertionError(f"{label}: {kernel} {launches[kernel]} launches (want {slices}), "
+                             f"{other} {launches[other]} (want 0): {launches}")
+    if any(rec["plain_cuda"].values()):
+        raise AssertionError(f"{label}: plain versions ran on CUDA: {rec['plain_cuda']}")
+    rgb = out["rgb"]
+    if not (all(bool(v.isfinite().all()) for v in out.values())
+            and float(rgb.min()) >= -1e-6 and float(rgb.max()) <= 1 + 1e-6):
+        raise AssertionError(f"{label}: rgb not finite in [0, 1]")
+    renderer, batch = rec["renderer"], rec["batch"]
+    ms, n = kernel_device_ms(torch, lambda: renderer.forward(batch, mode="test")).get(
+        kernel, (float("nan"), 0))
+    decode = mn.cond_nerf_decode
+    mn.cond_nerf_decode = cond_nerf_decode_plain
+    try:
+        with torch.no_grad():
+            iso = renderer.forward(batch, mode="test")
+    finally:
+        mn.cond_nerf_decode = decode
+    plain_t = {}
+    ref = Renderer(renderer.cfg, renderer.model, dev, kernel=False).forward(
+        batch, mode="test", timings=plain_t)
+    vs_iso, vs_plain = psnr(rgb, iso["rgb"]), psnr(rgb, ref["rgb"])
+    iso_vs_plain = psnr(iso["rgb"], ref["rgb"])
+    depth_err = float((out["depth"] - iso["depth"]).abs().max())
+    off_db = off_plain_db = None
+    if offset:
+        off_rgb = offset_features_kernel_rgb(torch, renderer, batch, FEAT_OFFSET)
+        off_db, off_plain_db = psnr(off_rgb, iso["rgb"]), psnr(off_rgb, ref["rgb"])
+        del off_rgb
+    a_plain_db = (plain_encoder_psnr(torch, dev, renderer, batch, ref["rgb"], counters, kernel,
+                                     slices, label) if isolate else None)
+    entry = {"args": extra, "load": load or None, "kernel": kernel, "launches": launches,
+             "launches_by_route": rec["routes"], "image_s": rec["seconds"],
+             "render_s": rec["timings"]["render"], "plain_render_s": plain_t["render"],
+             "kernel_device_ms_per_launch": ms / max(n, 1), "profiled_launches": n,
+             "psnr_vs_plain_decoder_db": vs_iso, "depth_max_abs_vs_plain_decoder": depth_err,
+             "psnr_vs_plain_db": vs_plain, "psnr_plain_decoder_vs_plain_db": iso_vs_plain,
+             "plain_floor_db": plain_floor,
+             "feat_offset": FEAT_OFFSET if offset else None, "psnr_feat_offset_db": off_db,
+             "psnr_feat_offset_vs_plain_db": off_plain_db,
+             "psnr_plain_window_attention_vs_plain_db": a_plain_db,
+             "opacity_mean": float(out["opacity"].mean()),
+             "decoder": list(decoder_shape(renderer.model.nerf_dec)), "card": card}
+    log(f"{label} ({' '.join(extra) or 'as shipped'}{', load ' + load if load else ''}): "
+        f"image {rec['seconds']:.4f} s (render {rec['timings']['render']:.4f} s, all-plain "
+        f"render {plain_t['render']:.4f} s); {kernel} {launches[kernel]} launches, "
+        f"{ms / max(n, 1):.3f} device ms per launch ({n} profiled); PSNR vs the same "
+        f"kernels with the plain decoder {vs_iso:.2f} dB (need >= 50, max|d| depth "
+        f"{depth_err:.3e}), vs all-plain {vs_plain:.2f} dB (need >= {plain_floor:g}; the "
+        f"plain-decoder render vs all-plain {iso_vs_plain:.2f} dB), opacity mean "
+        f"{entry['opacity_mean']:.4f}"
+        + ("" if off_db is None else
+           f"; feat_info off by {FEAT_OFFSET:g} into the kernel: {off_db:.2f} dB (need < 50), "
+           f"{off_plain_db:.2f} vs all-plain (need < {plain_floor:g})")
+        + ("" if a_plain_db is None else
+           f"; with A's plain twin and every other kernel: {a_plain_db:.2f} dB vs all-plain")
+        + f"; {card}")
+    if not vs_iso >= 50.0:
+        raise AssertionError(f"{label}: PSNR {vs_iso:.2f} dB < 50 against the plain decoder")
+    if not vs_plain >= plain_floor:
+        raise AssertionError(f"{label}: agreement PSNR {vs_plain:.2f} dB < {plain_floor:g}")
+    if off_db is not None and not (off_db < 50.0 and off_plain_db < plain_floor):
+        raise AssertionError(f"{label}: the image ignores its features: feat_info off by "
+                             f"{FEAT_OFFSET:g} still gives {off_db:.2f} dB, {off_plain_db:.2f} "
+                             f"against all-plain")
+    del records, rec, ref, out, iso
+    torch.cuda.empty_cache()
+    return entry
+
+
+def cg_train(torch, dev, seed, tree, counters, card):
+    """Phase 20 (c): CG_TRAIN_STEPS steps of `python -m
+    matchnerf_tpu_torch.train --config train` with the NeRF MLP decoder
+    (256x8, L_view 4) on phase 12's DTU tree, no validation: the first step
+    against the all-plain step (bf16-policy tolerances), finite losses, the
+    plain decoder (no C or Cg launch), A' every step and B' twice a step,
+    the peak device memory -> (results, the run's latest.ckpt)."""
+    from matchnerf_tpu_torch.train import build_coach
+    keys = {k: v for k, v in NERF_MLP.items()}
+    argv = loop_args("train", "cg_train_nerf_mlp", os.path.join(tree["work"], "cg_runs"),
+                     tree["root"], tree["meta"], CG_TRAIN_STEPS,
+                     **dict(keys, **{"freq.val_it": -1, "freq.test_ep": -1}))
+    coach = build_coach(argv)
+    first = first_step_check(torch, dev, coach.cfg, next(iter(coach.train_loader)), seed,
+                             "Cg train.yaml nerf_mlp bf16 policy", (1e-2, 0.5, 0.1))
+    torch.cuda.empty_cache()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    coach.train_model()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: c.launches for k, c in counters.items()}
+    plain_cuda = {k: c.plain_on_cuda for k, c in counters.items()}
+    with open(coach.scalars_path) as f:
+        losses = [json.loads(line)["loss_render"] for line in f
+                  if json.loads(line)["split"] == "train"]
+    latest = os.path.join(coach.output_path, "models", "latest.ckpt")
+    log(f"Cg train.yaml nerf_mlp: {CG_TRAIN_STEPS} steps in {wall:.3f} s "
+        f"({CG_TRAIN_STEPS / wall:.3f} steps/s), peak {peak_gib:.2f} GiB, losses "
+        f"{[round(x, 6) for x in losses]}, launches {launches}, plain versions on CUDA "
+        f"{plain_cuda}, checkpoint {os.path.exists(latest)}; {card}")
+    if len(losses) != CG_TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"Cg train: losses {losses}")
+    if any(plain_cuda.values()) or not os.path.exists(latest):
+        raise AssertionError(f"Cg train: plain versions on CUDA {plain_cuda}, {latest}")
+    if (launches["window_attention_bwd"] <= 0
+            or launches["cosine_prior_bwd"] != 2 * CG_TRAIN_STEPS
+            or launches["cond_nerf_decode"] or launches["cond_nerf_decode_any"]):
+        raise AssertionError(f"Cg train: launches {launches}")
+    out = {"keys": keys, "steps": CG_TRAIN_STEPS, "wall_s": wall, "losses": losses,
+           "launches": launches, "first_step": first, "peak_gib": peak_gib, "card": card}
+    del coach
+    torch.cuda.empty_cache()
+    return out, latest
+
+
+def cg_phase(torch, dev, seed, tree, counters):
+    """Phase 20: Kernel Cg. (a) against its plain twin on CG_DECODERS, both
+    routes; (b) the eval entry's DTU image with each decoder of CG_EVAL
+    through Cg (40 launches, no C), at or above its CG_EVAL floor against
+    all-plain, and below it with feat_info offset; (c) 3 train.yaml steps with the NeRF MLP
+    decoder, then (d) its checkpoint through the eval entry and Cg; (e)
+    `--config test` as shipped still decodes with C, no Cg."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    parts = {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        parts[name] = time.perf_counter() - t0
+        log(f"Cg: {name} in {parts[name]:.1f} s")
+        return result
+    out = {"kernels": part("kernel cases", lambda: cg_kernel_cases(torch, dev, seed, card))}
+    out["eval"] = {}
+    for name, extra, floor, isolate in CG_EVAL:
+        out["eval"][name] = part(f"eval {name}", lambda: cg_eval(
+            torch, dev, seed, tree, counters, name, extra, "", card, "cond_nerf_decode_any",
+            True, floor, isolate))
+    out["train"], latest = part("train", lambda: cg_train(torch, dev, seed, tree, counters,
+                                                          card))
+    out["eval"]["nerf_mlp_trained"] = part("eval trained", lambda: cg_eval(
+        torch, dev, seed, tree, counters, "nerf_mlp_trained", CG_NERF_MLP_ARGS, latest, card,
+        "cond_nerf_decode_any", False, 50.0))
+    out["eval"]["shipped"] = part("eval shipped", lambda: cg_eval(
+        torch, dev, seed, tree, counters, "shipped", [], "", card, "cond_nerf_decode", False,
+        50.0))
+    out["part_s"] = parts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"Cg phase: {out['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in parts.items())}"
+        f"); {card}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4389,6 +4793,13 @@ def main():
     # eval entry's image under each variant, the training entry's steps with
     # view_dep: false (traced) and the local radius, LPIPS on the card
     variants = variants_phase(torch, dev, args.seed, tree, counters)
+    torch.cuda.empty_cache()
+
+    # ---- 20. Kernel Cg, every decoder the TPU kernel takes: against its
+    # plain twin on five decoders, the eval entry's image with the NeRF MLP
+    # and with standard coordinates + GELU, 3 training steps and the render
+    # of their checkpoint, and the shipped decoder still on Kernel C
+    cg = cg_phase(torch, dev, args.seed, tree, counters)
 
     def per_scale(entries):
         return {"max_abs_err": max(e["max_abs_err"] for e in entries),
@@ -4545,6 +4956,17 @@ def main():
                "setbg_launches_blender": test_entry["sets"]["blender"]["setbg_launches"],
                **by_test_set("cond_nerf_decode"),
                **ibr_eval("cond_nerf_decode", ibr["eval_slice"]["C"])}),
+        entry("cond_nerf_decode_any", cg["kernels"][CG_DECODERS[0][0]]["float32"],
+              cg["eval"]["nerf_mlp"]["launches"]["cond_nerf_decode_any"],
+              dict(eval_paths("cond_nerf_decode_any"),
+                   **{f"cg_eval_{k}": v["launches"]["cond_nerf_decode_any"]
+                      for k, v in cg["eval"].items()},
+                   **{f"cg_train_{CG_TRAIN_STEPS}_steps":
+                      cg["train"]["launches"]["cond_nerf_decode_any"]}),
+              {"decoders": cg["kernels"],
+               "image_device_ms_per_launch": {
+                   k: v["kernel_device_ms_per_launch"] for k, v in cg["eval"].items()
+                   if v["kernel"] == "cond_nerf_decode_any"}}),
         entry("block_cosine_prior", res["D"], block_launches["block_cosine_prior"],
               dict(eval_paths("block_cosine_prior"), **ibr_paths("block_cosine_prior")),
               {"plain_union_ms": sum(s["plain_union_ms"] for s in res["D"]),
@@ -4622,6 +5044,7 @@ def main():
                                                        "eval_fused", "train_many", "part_s",
                                                        "phase_s")}
     report["paths"]["variants"] = {k: v for k, v in variants.items() if k != "kernels"}
+    report["paths"]["decoder_any"] = {k: v for k, v in cg.items() if k != "kernels"}
     # each kernel's launches in each rank of phase 16, per path
     for e in report["kernels"]:
         name = e["name"].replace("_bf16", "")

@@ -56,6 +56,12 @@ SIGNATURES = {
     # wo_render_interval, setbg, stream
     "cond_nerf_decode_f32": [_P] * 11 + [_I] * 9 + [_P],
     "cond_nerf_decode_bf16": [_P] * 11 + [_I] * 9 + [_P],
+    # pts, ray_unit, feat, color, mask, depth, ray, small, weights, postab
+    # (or NULL), out, n_small, n_weights, N, S, Gf, V, net_width, net_depth,
+    # skip_mask, L_3D, L_view, legacy, act, maskfill, wo_render_interval,
+    # setbg, stream
+    "cond_nerf_decode_any_f32": [_P] * 11 + [_I] * 16 + [_P],
+    "cond_nerf_decode_any_bf16": [_P] * 11 + [_I] * 16 + [_P],
     # table, grids, scales (or NULL), unions_out (or NULL), out, V, H, W, C,
     # G, R, S, ut, CP, stream
     "block_cosine_prior_i8": [_P] * 5 + [_I] * 9 + [_P],

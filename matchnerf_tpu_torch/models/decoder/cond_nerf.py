@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.nn import ACTIVATIONS, Activation, Linear, relu
+from ...ops.nn import DECODER_ACTIVATIONS, Activation, Linear, relu
 from ...ops.posenc import nerf_posenc, nerf_posenc_legacy, ray_sinusoid_table
 from ...utils.containers import effective_precision
 from .ray_transformer import RayAttention
@@ -51,7 +51,8 @@ class CondNeRF(nn.Module):
         self.alpha_linear = nn.Sequential(Linear(W, 16))
         self.ray_attention = RayAttention()
         self.out_alpha_linear = nn.Sequential(
-            Linear(16, 16), Activation(raytrans_act_name(cfg)), Linear(16, 1))
+            Linear(16, 16), Activation(raytrans_act_name(cfg), DECODER_ACTIVATIONS),
+            Linear(16, 1))
         self.feature_linear = Linear(W, W)
         self.rgb_linear = Linear(W // 2, 3)
 
@@ -127,7 +128,7 @@ def apply_cond_nerf(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info,
     else:
         ray_enc = ray_unit
 
-    act = ACTIVATIONS[raytrans_act_name(cfg)]
+    act = DECODER_ACTIVATIONS[raytrans_act_name(cfg)]
     B, R, S = h.shape[:3]
     raw_alpha = act(wide(dec.alpha_linear[0], h.float()))          # [B,R,S,16]
     if cfg.decoder.raytrans_posenc:

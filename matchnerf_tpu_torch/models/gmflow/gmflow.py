@@ -5,7 +5,10 @@ ImageNet normalisation, the shared CNN backbone over all views, the
 C(V,2) ordered-pair expansion, per-window sine position embedding, the
 feature transformer and the two-branch upsampler. `extract_pair_features`
 returns per-scale [B,P,2,h,w,C] stacks (raw 1/8 scale first, then the
-upsampled scale) as the JAX package does.
+upsampled scale) as the JAX package does. With `num_scales` 2 to 4 the
+backbone's trident branches give one map per scale (gmflow.py:38-44, 81,
+146-151), taken low to high resolution, one per entry of attn_splits_list
+(a longer list repeats the last); MatchNeRF's encoder has one scale.
 
 bf16 policy (gmflow.py:110-114,195-196): with compute_dtype=bfloat16 the
 weights are cast per call (ops/nn.py) and activations run in bf16, norm and
@@ -59,10 +62,10 @@ def encoder_input_hw(img_h: int, img_w: int):
 class GMFlow(nn.Module):
     def __init__(self, feature_channels: int = 128, num_transformer_layers: int = 6,
                  ffn_dim_expansion: int = 4, feature_upsampler: str = "network",
-                 upsample_factor: int = 2):
+                 upsample_factor: int = 2, num_scales: int = 1):
         super().__init__()
         self.feature_channels = feature_channels
-        self.backbone = CNNEncoder(output_dim=feature_channels)
+        self.backbone = CNNEncoder(output_dim=feature_channels, num_output_scales=num_scales)
         self.transformer = FeatureTransformer(num_layers=num_transformer_layers,
                                               d_model=feature_channels,
                                               ffn_dim_expansion=ffn_dim_expansion)
@@ -111,17 +114,26 @@ def extract_pair_features(enc: GMFlow, images: torch.Tensor, attn_splits_list,
         net_in = net_in.to(cd)
     shard_streams = shard_streams and dist.process_count() > 1
     if shard_streams:
-        feat = mesh.gather_rows(
-            enc.backbone(net_in[mesh.stream_rows(b * v, net_in.device)]), b * v)
+        rows = mesh.stream_rows(b * v, net_in.device)
+        feats = [mesh.gather_rows(f, b * v) for f in enc.backbone(net_in[rows])]
     else:
-        feat = enc.backbone(net_in)                               # [BV,C,h,w]
-    _, _, h, w = feat.shape
-    feat = feat.permute(0, 2, 3, 1).reshape(b, v, h, w, C)
+        feats = enc.backbone(net_in)                              # [BV,C,h,w] per scale
+    # low to high resolution (gmflow.py:146-151); a list of attention splits
+    # longer than the scales repeats the last scale, a shorter one leaves a
+    # scale without its splits
+    if len(attn_splits_list) < len(feats):
+        raise ValueError(f"extract_pair_features: attn_splits_list {list(attn_splits_list)} "
+                         f"names fewer than the backbone's {len(feats)} scales")
+    feats = [f.permute(0, 2, 3, 1) for f in feats[::-1]]
+    scales = list(range(len(feats)))
+    scales += [scales[-1]] * (len(attn_splits_list) - len(scales))
 
     out_scales = []
-    for attn_splits in attn_splits_list:
-        idx0 = [p[0] for p in pairs]
-        idx1 = [p[1] for p in pairs]
+    idx0 = [p[0] for p in pairs]
+    idx1 = [p[1] for p in pairs]
+    for attn_splits, scale in zip(attn_splits_list, scales):
+        _, h, w, _ = feats[scale].shape
+        feat = feats[scale].reshape(b, v, h, w, C)
         feat0 = _add_position(feat[:, idx0].reshape(b * n_pairs, h, w, C), attn_splits, C)
         feat1 = _add_position(feat[:, idx1].reshape(b * n_pairs, h, w, C), attn_splits, C)
         # no shift mask at one split (transformer.py:108)

@@ -32,14 +32,24 @@ def gelu(x):
         x / torch.tensor(math.sqrt(2.0), dtype=x.dtype, device=x.device)))
 
 
+def gelu_tanh(x):
+    """GELU in its tanh form, as jax.nn.gelu's default (approximate=True)
+    computes it: x * 0.5 (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))."""
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+
+
 ACTIVATIONS = {"ReLU": relu, "ELU": F.elu, "GELU": gelu}
+# the decoder's raytrans_act: JAX's CondNeRF maps GELU to jax.nn.gelu, whose
+# default is the tanh form (the encoder's GELU above is the erf form)
+DECODER_ACTIVATIONS = {"ReLU": relu, "ELU": F.elu, "GELU": gelu_tanh}
 
 
 class Activation(nn.Module):
-    def __init__(self, name: str = "ReLU"):
+    def __init__(self, name: str = "ReLU", table=None):
         super().__init__()
         self.name = name or "ReLU"
-        self.fn = ACTIVATIONS[self.name]
+        self.fn = (ACTIVATIONS if table is None else table)[self.name]
 
     def forward(self, x):
         return self.fn(x)

@@ -1,6 +1,8 @@
-"""Where Kernel C's time goes, phase by phase, on the card.
+"""Where Kernel C's time goes, phase by phase, on the card; and Kernel Cg's
+time at a named decoder beside C's.
 
     python -m matchnerf_tpu_torch.profile_decoder [--seed 0]
+    python -m matchnerf_tpu_torch.profile_decoder --cg nerf_mlp [--rays 8192 --samples 128]
 
 Builds csrc/cond_nerf_decode.cu once more with -DKERNEL_C_PHASES (clock64
 marks kept by threads 0 and 128 of every block; the kernel the port runs
@@ -12,6 +14,13 @@ layers 0-5, the heads (alpha, feature, views, rgb), the wait before the ray
 tail, q/k/v with the next ray's L2 prefetch, the attention, fc/LayerNorm/
 density, the composite, and the waits on the weight ring. The CUDA-event
 time beside them includes the marks' own cost.
+
+With --cg NAME it builds nothing extra: on random inputs at R rays x S
+samples it times Kernel Cg (csrc/cond_nerf_decode_any.cu) at the decoder
+CG_SHAPES[NAME] and Kernel C at the shipped decoder on the same inputs, both
+operand routes, with CUDA events in turns (C, Cg, Cg, C), and prints each
+kernel's milliseconds per launch, its TFLOP/s (2 per weight of the wide
+layers a sample) and the card's name.
 """
 from __future__ import annotations
 
@@ -45,9 +54,85 @@ def build():
     return lib
 
 
+# decoders --cg can name: config keys on top of configs/test.yaml's
+CG_SHAPES = {
+    "nerf_mlp": {"net_width": 256, "net_depth": 8, "posenc": {"L_3D": 10, "L_view": 4}},
+    "w64_d4": {"net_width": 64, "net_depth": 4, "skip": [2]},
+    "standard_gelu": {"raytrans_act": "GELU", "legacy_coord": False},
+    "w512_d8": {"net_width": 512, "net_depth": 8, "posenc": {"L_3D": 10, "L_view": 4}},
+}
+
+
+def _events_ms(torch, fn, iters=5):
+    fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def time_cg(name: str, R: int, S: int, seed: int):
+    """Kernel Cg at CG_SHAPES[name] beside Kernel C at the shipped decoder,
+    on the same random inputs: {kernel: {route: ms per launch}}."""
+    import torch
+
+    from .config import dtu_eval_config, override_options
+    from .models.decoder.cond_nerf import CondNeRF
+    from .ops import decoder as kc
+    from .ops.nn import reset_parameters
+
+    dev = torch.device("cuda")
+    cfgs = {"C": dtu_eval_config(), "Cg": dtu_eval_config()}
+    keys = dict(CG_SHAPES[name])
+    cfgs["Cg"].nerf.legacy_coord = keys.pop("legacy_coord", True)
+    override_options(cfgs["Cg"], {"decoder": keys}, warn=False)
+    decs = {k: reset_parameters(CondNeRF(c), torch.Generator().manual_seed(seed)).to(dev).eval()
+            for k, c in cfgs.items()}
+    for k, dec in decs.items():
+        if kc.decoder_route(dec, cfgs[k], S) != k:
+            raise SystemExit(f"profile_decoder: {name} does not take Kernel {k}")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    rnd = lambda *s: torch.rand(*s, generator=g, device=dev)
+    ray = torch.randn(1, R, 3, generator=g, device=dev)
+    unit = (ray / ray.norm(dim=-1, keepdim=True))[:, :, None].expand(1, R, S, 3).contiguous()
+    cond = {"feat_info": rnd(1, R, S, 10) * 2 - 1, "color_info": rnd(1, R, S, 9),
+            "mask_info": (rnd(1, R, S, 3) > 0.4).float()}
+    depth = torch.sort(rnd(1, R, S) * 2.4 + 2.1, dim=-1).values[..., None].contiguous()
+    pts = rnd(1, R, S, 3) * 2 - 1
+    out = {"C": {}, "Cg": {}}
+    with torch.no_grad():
+        for md in (torch.float32, torch.bfloat16):
+            route = str(md).replace("torch.", "")
+            times = {"C": [], "Cg": []}
+            for k in ("C", "Cg", "Cg", "C"):
+                times[k].append(_events_ms(torch, lambda: kc.cond_nerf_decode(
+                    decs[k], cfgs[k], pts, unit, cond, depth, ray, matmul_dtype=md)))
+            for k, t in times.items():
+                wide = 2 * sum(m.weight.numel() for m in (
+                    decs[k].pts_bias, *decs[k].pts_linears, decs[k].alpha_linear[0],
+                    decs[k].feature_linear, decs[k].views_linears[0], decs[k].rgb_linear))
+                ms = sum(t) / len(t)
+                out[k][route] = ms
+                print(f"Kernel {k} ({'shipped' if k == 'C' else name}, "
+                      f"{list(kc.decoder_shape(decs[k]))}) R={R} S={S} {route}: "
+                      f"{ms:.3f} ms per launch ({[round(x, 3) for x in t]}), "
+                      f"{R * S * wide / ms / 1e9:.1f} TFLOP/s of wide products")
+    print(torch.cuda.get_device_name(0))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cg", choices=sorted(CG_SHAPES), default=None,
+                    help="time Kernel Cg at this decoder beside Kernel C")
+    ap.add_argument("--rays", type=int, default=8192)
+    ap.add_argument("--samples", type=int, default=128)
     args = ap.parse_args(argv)
     import torch
 
@@ -57,6 +142,9 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_decoder: needs a CUDA device")
+    if args.cg:
+        time_cg(args.cg, args.rays, args.samples, args.seed)
+        return
     dev = torch.device("cuda")
     lib = build()
     saved, kernels._lib = kernels._lib, lib

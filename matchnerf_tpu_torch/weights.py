@@ -6,7 +6,9 @@ The exact inverse of matchnerf_tpu/import_torch.py::import_matchnerf_checkpoint
 HWIO -> OIHW, LayerNorm scale/bias -> weight/bias, and the reference's
 key names (`feat_enc.…`, `nerf_dec.…`, `alpha_linear.0`,
 `out_alpha_linear.0/.2`, `mlp.0/.2`, `downsample.0`; `output_linear` for
-the decoder without view dependence). Leaves may be numpy
+the decoder without view dependence, `trident_conv` for a backbone of
+several output scales; `mlp_feat.{i}` / `mlp_rgb.{i}` of the generic NeRF,
+`nerf_state_dict_from_jax`). The decoders take any width and depth. Leaves may be numpy
 arrays or anything `np.asarray` accepts (jax arrays included, without
 importing jax here).
 
@@ -49,17 +51,22 @@ def _norm(sd, prefix, p):
     sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
-def _encoder(sd, pre, p):
-    bb = p["backbone"]
-    _conv(sd, f"{pre}.backbone.conv1", bb["conv1"])
-    _conv(sd, f"{pre}.backbone.conv2", bb["conv2"])
+def _backbone(sd, pre, bb):
+    _conv(sd, f"{pre}.conv1", bb["conv1"])
+    _conv(sd, f"{pre}.conv2", bb["conv2"])
     for L in (1, 2, 3):
         for i, blk in enumerate(bb[f"layer{L}"]):
-            bp = f"{pre}.backbone.layer{L}.{i}"
+            bp = f"{pre}.layer{L}.{i}"
             _conv(sd, f"{bp}.conv1", blk["conv1"])
             _conv(sd, f"{bp}.conv2", blk["conv2"])
             if "downsample" in blk:
                 _conv(sd, f"{bp}.downsample.0", blk["downsample"])
+    if "trident_conv" in bb:         # num_output_scales > 1 (backbone.py:66-81)
+        _conv(sd, f"{pre}.trident_conv", bb["trident_conv"])
+
+
+def _encoder(sd, pre, p):
+    _backbone(sd, f"{pre}.backbone", p["backbone"])
     for i, layer in enumerate(p["transformer"]["layers"]):
         for name in ("self_attn", "cross_attn_ffn"):
             lp = layer[name]
@@ -101,6 +108,32 @@ def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     _encoder(sd, "feat_enc", params["feat_enc"])
     _decoder(sd, "nerf_dec", params["nerf_dec"])
+    return sd
+
+
+def backbone_state_dict_from_jax(bb) -> Dict[str, torch.Tensor]:
+    """JAX `init_cnn_encoder` parameters -> `CNNEncoder` state_dict (with
+    `trident_conv.weight` when the backbone has several output scales)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _backbone(sd, "", bb)
+    return {k[1:]: v for k, v in sd.items()}
+
+
+def gmflow_state_dict_from_jax(p) -> Dict[str, torch.Tensor]:
+    """JAX `init_gmflow` parameters -> `GMFlow` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _encoder(sd, "", p)
+    return {k[1:]: v for k, v in sd.items()}
+
+
+def nerf_state_dict_from_jax(p) -> Dict[str, torch.Tensor]:
+    """JAX `init_nerf` parameters ({'mlp_feat': [...], 'mlp_rgb': [...]}) ->
+    the generic `NeRF`'s state_dict (`mlp_feat.{i}`, `mlp_rgb.{i}`, the
+    reference's names)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("mlp_feat", "mlp_rgb"):
+        for i, lp in enumerate(p[name]):
+            _linear(sd, f"{name}.{i}", lp)
     return sd
 
 

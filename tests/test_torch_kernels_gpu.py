@@ -37,6 +37,15 @@ an activation now and then); with the opaque white background (setbg, on
 rays left partly transparent) on both routes at the same tolerances; S
 above the kernel's limit raises.
 
+The decoder at other shapes (Cg) on both operand routes at S = 48 and 200
+on 149 rays, for the NeRF MLP (256x8, L_view 4), 64x4 skip [2], 64x7 skips
+[2, 5], standard coordinates with GELU, a conditioning width of 72, width 34
+(padded to 40, its views layer 17 to 24), width 512 (32-sample tiles), and
+no encoding (L_3D = L_view = 0); at V = 2 to 8 on the NeRF MLP; with setbg
+and render intervals; at the tolerances of C's cases (f32 1e-5 / 1e-4 /
+1e-5; bf16 1e-3 / 1e-2 / 1e-3 with the mean check). The wrapper routes each
+to Cg (its counter, not C's) and raises beyond Cg's limits before a launch.
+
 The fused interp + grouped cosine (F) on tap rows of int8, bf16 and f32,
 with and without dequantisation scales, at G = 2 and 8 and a ragged N, at
 V = 3 and at V = 2 and 4 (one template instance each): 1e-5 (summation
@@ -227,6 +236,116 @@ def test_cond_nerf_decode_kernel_sample_limit(dev):
     args = _decode_args(dev, "flagship", 3, kc.S_MAX + 1)
     with torch.no_grad(), pytest.raises(ValueError, match=f"S <= {kc.S_MAX}"):
         kc.cond_nerf_decode(*args)
+
+
+CG_DECODERS = {
+    "nerf_mlp": {"net_width": 256, "net_depth": 8, "posenc": {"L_3D": 10, "L_view": 4}},
+    "w64_d4_skip2": {"net_width": 64, "net_depth": 4, "skip": [2]},
+    "w64_d7_skips_2_5": {"net_width": 64, "net_depth": 7, "skip": [2, 5]},
+    "standard_gelu": {"raytrans_act": "GELU", "legacy_coord": False},
+    "cond_72": {"cos_n_group": [30, 30]},
+    "w34": {"net_width": 34, "net_depth": 3, "skip": [0]},
+    "w512_d2": {"net_width": 512, "net_depth": 2, "skip": []},
+    "no_encoding": {"posenc": {"L_3D": 0, "L_view": 0}, "raytrans_posenc": True,
+                    "density_maskfill": True},
+}
+
+
+def _cg_args(dev, keys, R, S, V=3, seed=2):
+    """A seeded CondNeRF of the tiny config with `keys` (decoder keys; also
+    legacy_coord and cos_n_group), its biases moved off zero, and the
+    decoder's inputs as _decode_args draws them."""
+    from matchnerf_tpu_torch.models.decoder.cond_nerf import CondNeRF
+    from matchnerf_tpu_torch.ops.nn import reset_parameters
+    cfg = DotDict(dict(ge._tiny_cfg(n_layers=1, sample_intvs=S)))
+    cfg.n_src_views = V
+    keys = dict(keys)
+    cfg.nerf = DotDict({**cfg.nerf, "legacy_coord": keys.pop("legacy_coord", True)})
+    cfg.encoder = DotDict({**cfg.encoder,
+                           "cos_n_group": keys.pop("cos_n_group", [2, 8])})
+    cfg.decoder = DotDict({**cfg.decoder, **keys})
+    g = torch.Generator().manual_seed(seed)
+    dec = reset_parameters(CondNeRF(cfg), g)
+    with torch.no_grad():
+        for p in dec.parameters():
+            if p.dim() == 1:
+                p.add_(0.05 * torch.randn(p.shape, generator=g))
+    args = _decode_args(dev, "flagship", R, S, V)
+    Gf = int(sum(cfg.encoder.cos_n_group))
+    cond = dict(args[4])
+    gd = torch.Generator(device=dev).manual_seed(seed + 1)
+    cond["feat_info"] = torch.rand(1, R, S, Gf, generator=gd, device=dev) * 2 - 1
+    return (dec.to(dev).eval(), cfg, args[2], args[3], cond, args[5], args[6])
+
+
+def _check_cg(args, md, setbg=False):
+    c0, g0 = kc.COUNTER.launches, kc.COUNTER_ANY.launches
+    with torch.no_grad():
+        got = kc.cond_nerf_decode(*args, setbg_opaque=setbg, matmul_dtype=md)
+        ref = kc.cond_nerf_decode_plain(*args, setbg_opaque=setbg, matmul_dtype=md)
+        other = kc.cond_nerf_decode_plain(
+            *args, setbg_opaque=setbg,
+            matmul_dtype=torch.float32 if md == torch.bfloat16 else torch.bfloat16)
+    assert (kc.COUNTER.launches - c0, kc.COUNTER_ANY.launches - g0) == (0, 1)
+    tols = (1e-5, 1e-4, 1e-5) if md == torch.float32 else (1e-3, 1e-2, 1e-3)
+    for a, b, tol in zip(got, ref, tols):
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+    if md == torch.bfloat16:
+        d = torch.cat([(a - b).abs().flatten() for a, b in zip(got, ref)]).mean()
+        gap = torch.cat([(a - b).abs().flatten() for a, b in zip(other, ref)]).mean()
+        assert float(d) < 0.1 * float(gap), (float(d), float(gap))
+    return got, ref
+
+
+@pytest.mark.parametrize("route", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [48, 200])
+@pytest.mark.parametrize("name", list(CG_DECODERS))
+def test_cond_nerf_decode_any_kernel(dev, name, S, route):
+    """Kernel Cg against its plain twin on each decoder and route."""
+    args = _cg_args(dev, CG_DECODERS[name], 149, S)
+    assert kc.decoder_route(args[0], args[1], S) == "Cg"
+    _check_cg(args, getattr(torch, route))
+
+
+@pytest.mark.parametrize("V", VIEWS)
+def test_cond_nerf_decode_any_kernel_views(dev, V):
+    """Kernel Cg on the NeRF MLP at V = 2 to 8 (Gf + 4V = 18 to 42)."""
+    _check_cg(_cg_args(dev, CG_DECODERS["nerf_mlp"], 50, 48, V), torch.float32)
+
+
+@pytest.mark.parametrize("route", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["setbg", "intervals"])
+def test_cond_nerf_decode_any_kernel_composite(dev, case, route):
+    """At S = 512 (the kernel's limit): setbg on rays left partly
+    transparent (the background shows; counted under by_variant), and the
+    render intervals (wo_render_interval false: density x interval x |ray|,
+    the last interval 1e10)."""
+    args = _cg_args(dev, CG_DECODERS["nerf_mlp"], 40, 512)
+    setbg = case == "setbg"
+    if setbg:
+        head = args[0].out_alpha_linear[2]
+        with torch.no_grad():
+            head.weight.mul_(0.001)
+            head.bias.fill_(0.002)
+    else:
+        args[1].nerf = DotDict({**args[1].nerf, "wo_render_interval": False})
+    before = kc.COUNTER_ANY.by_variant.get("setbg", 0)
+    got, ref = _check_cg(args, getattr(torch, route), setbg=setbg)
+    assert kc.COUNTER_ANY.by_variant.get("setbg", 0) == before + setbg
+    if setbg:
+        assert float((1.0 - ref[2]).mean()) > 0.1
+
+
+def test_cond_nerf_decode_any_limits(dev):
+    """Beyond Cg's limits the wrapper raises before any launch."""
+    for keys, S, match in (({"net_width": 514}, 16, "net_width"), ({"net_width": 64}, 513,
+                                                                     "S <= 512"),
+                           ({"cos_n_group": [60, 60]}, 16, "Gf \\+ 4V <= 128")):
+        args = _cg_args(dev, keys, 3, S)
+        c0, g0 = kc.COUNTER.launches, kc.COUNTER_ANY.launches
+        with torch.no_grad(), pytest.raises(ValueError, match=match):
+            kc.cond_nerf_decode(*args)
+        assert (kc.COUNTER.launches, kc.COUNTER_ANY.launches) == (c0, g0)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
