@@ -301,11 +301,25 @@ Phases, any failure ends the run with a non-zero exit:
    the local radius), no plain version on CUDA. (d) LPIPS(VGG) of a
    256x320 crop of the one-split image against its target on the card and
    on the CPU, from seeded weights in a temporary npz: within 1e-4.
+20. Kernel Cg, the decoder at every other shape (`cg_phase`): (a) against
+   its plain twin on CG_DECODERS (8192 rays x 128, 2048 x 512 at S = 512,
+   both routes, Kernel C's tolerances), its CUDA-event time beside its
+   bound and their ratio; (b) the eval entry's DTU image with the NeRF MLP
+   and with standard coordinates + GELU through Cg, held to the same
+   kernels with the plain decoder and to its CG_EVAL floor against
+   all-plain; (c) 3 train.yaml steps with the NeRF MLP and (d) their
+   checkpoint's image; (e) the shipped decoder still on Kernel C.
+21. training repeats itself (`determinism_phase`): two same-seed runs of
+   DET_STEPS steps each of train.yaml and train_fast.yaml at V = 3 on phase
+   12's tree and of train.yaml at V = 8 on phase 18's 11-view tree, through
+   `train.build_coach` + `train_model`: equal losses, 0 as the largest
+   difference of any parameter and of any AdamW moment, and each run's
+   checkpoint rendered by the eval entry, the two images bit-equal.
 Every launch count is reset just before a path (a step, in 10 and 11; a
 training run and a validation image, in 12; each test set's render, in
 13; the training run, each image and the timed steps, in 14; each served
 request, in 15; each rank's step and render, in 16; each training run and
-image, in 18 and 19) and read just after it. With --profile, one more warm render of each eval path
+image, in 18 to 21) and read just after it. With --profile, one more warm render of each eval path
 (the bf16 decoder path too) and of each video, and one warm step of each
 training recipe run under torch.profiler and print the device time by
 kernel (the A' backward's dq and dkv kernels always by name), the device
@@ -4078,7 +4092,8 @@ def cg_case(torch, dev, cfg, dec, R, S, setbg, label, seed, card):
             log(f"kernel Cg cond_nerf_decode_any {label} R={R} S={S} setbg={setbg} {route} "
                 f"route: max|d| rgb {errs[0]:.3e} depth {errs[1]:.3e} opacity {errs[2]:.3e} "
                 f"(tol {tols}), mean|d| {mean_err:.3e} (f32 vs bf16 twins {gap:.3e}), "
-                f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
+                f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+                f"{ms / b_ms:.2f}x the bound: "
                 f"{N * wide / 1e12:.3f} TFLOP of wide products at "
                 f"{TC_FLOPS[route] / 1e12:.0f} TFLOP/s + {N * rest / 1e12:.4f} TFLOP at 67, "
                 f"{flops / ms / 1e9:.1f} TFLOP/s reached); {card}")
@@ -4092,7 +4107,7 @@ def cg_case(torch, dev, cfg, dec, R, S, setbg, label, seed, card):
             out[route] = dict(max_abs_err=max(errs), max_abs_err_rgb_depth_opacity=errs,
                               tol=list(tols), mean_abs_err=mean_err, twin_gap_mean=gap, ms=ms,
                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                              tflops=flops / 1e12, library_ms=None)
+                              ratio_to_bound=ms / b_ms, tflops=flops / 1e12, library_ms=None)
             del got
     del args, twins
     torch.cuda.empty_cache()
@@ -4336,6 +4351,104 @@ def cg_phase(torch, dev, seed, tree, counters):
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"Cg phase: {out['phase_s']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in parts.items())}"
         f"); {card}")
+    return out
+
+
+DET_STEPS = 3                      # steps of each run in phase 21
+# phase 21's runs: (recipe, n_src_views, the tree: phase 12's or phase 18's
+# 11-view one)
+DET_RUNS = (("train", 3, "dtu"), ("train_fast", 3, "dtu"), ("train", 8, "many"))
+
+
+def determinism_run(torch, counters, label, V, t, rep, runs):
+    """One of phase 21's runs: DET_STEPS steps of `python -m
+    matchnerf_tpu_torch.train --config label --n_src_views=V` (build_coach +
+    train_model, seeded weights, no validation) on the DTU tree t, then its
+    latest.ckpt through the eval entry on the tree's test view -> (losses,
+    parameters, AdamW moments, image, launches, seconds)."""
+    from matchnerf_tpu_torch.train import build_coach
+    t0 = time.perf_counter()
+    argv = loop_args(label, f"det_{label}_v{V}_{rep}", runs, t["root"], t["meta"], DET_STEPS,
+                     **{"n_src_views": V, "freq.val_it": -1, "freq.test_ep": -1})
+    coach = build_coach(argv)
+    for c in counters.values():
+        c.reset()
+    coach.train_model()
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    plain_cuda = {k: c.plain_on_cuda for k, c in counters.items()}
+    with open(coach.scalars_path) as f:
+        losses = [json.loads(line)["loss_render"] for line in f
+                  if json.loads(line)["split"] == "train"]
+    names = {id(p): n for n, p in coach.model.named_parameters()}
+    params = {n: p.detach().clone() for n, p in coach.model.named_parameters()}
+    moments = {(names[id(p)], k): v.detach().clone()
+               for p, st in coach.opt.opt.state.items() for k, v in st.items()
+               if k in ("exp_avg", "exp_avg_sq")}
+    latest = os.path.join(coach.output_path, "models", "latest.ckpt")
+    route = coach.last_route
+    del coach
+    torch.cuda.empty_cache()
+    if any(plain_cuda.values()) or len(losses) != DET_STEPS:
+        raise AssertionError(f"determinism {label} V={V}: losses {losses}, plain versions on "
+                             f"CUDA {plain_cuda}")
+    bwd = launches["cosine_prior_bwd"] + launches["block_cosine_prior_bwd"]
+    if bwd != 2 * DET_STEPS or launches["window_attention_bwd"] <= 0:
+        raise AssertionError(f"determinism {label} V={V}: launches {launches}")
+    argv = ["--config", "test", f"--name=det_{label}_v{V}_{rep}_eval", f"--load={latest}",
+            f"--output_root={runs}", f"--n_src_views={V}", "--data_test.llff=",
+            "--data_test.blender=", "--data_test.tnt="] + entry_set_args("dtu", t["root"],
+                                                                         t["meta"])
+    _, records = run_entry(torch, counters, argv)
+    image = records[0]["out"]["rgb"].detach().clone()
+    del records
+    torch.cuda.empty_cache()
+    return {"losses": losses, "params": params, "moments": moments, "image": image,
+            "launches": launches, "route": route, "s": time.perf_counter() - t0}
+
+
+def determinism_phase(torch, dev, seed, tree, counters):
+    """Phase 21: training repeats itself on the card. For each of DET_RUNS
+    (train.yaml and train_fast.yaml at V = 3 on phase 12's tree, train.yaml
+    at V = 8 on phase 18's 11-view tree) two runs of `determinism_run`: the
+    losses equal, the largest difference of any parameter and of any AdamW
+    moment 0, and the two checkpoints' images bit-equal; B' and D''s
+    launches beside them (two a step)."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    many = {"root": os.path.join(tree["work"], "views_dtu"),
+            "meta": os.path.join(tree["work"], "views_dtu_meta")}
+    runs = os.path.join(tree["work"], "det_runs")
+    out = {}
+    for label, V, which in DET_RUNS:
+        t = tree if which == "dtu" else many
+        a, b = (determinism_run(torch, counters, label, V, t, rep, runs) for rep in (0, 1))
+        d_param = max(float((a["params"][n] - b["params"][n]).abs().max()) for n in a["params"])
+        d_moment = max(float((a["moments"][k] - b["moments"][k]).abs().max())
+                       for k in a["moments"])
+        same_image = bool(torch.equal(a["image"], b["image"]))
+        key = f"{label}_v{V}"
+        out[key] = {"V": V, "steps": DET_STEPS, "losses": [a["losses"], b["losses"]],
+                    "max_abs_param_diff": d_param, "max_abs_moment_diff": d_moment,
+                    "moments": len(a["moments"]), "parameters": len(a["params"]),
+                    "images_bit_equal": same_image,
+                    "image_psnr_db": psnr(a["image"], b["image"]) if not same_image else None,
+                    "route": a["route"],
+                    "launches": {k: a["launches"][k] for k in (
+                        "window_attention_bwd", "cosine_prior_bwd", "block_cosine_prior_bwd")},
+                    "s": [a["s"], b["s"]], "card": card}
+        log(f"determinism {label}.yaml V={V}: two runs of {DET_STEPS} steps, losses "
+            f"{a['losses']} / {b['losses']}, route {a['route']} (None: B'), launches "
+            f"{out[key]['launches']}; largest difference of any parameter {d_param:g} "
+            f"({len(a['params'])} tensors) and of any AdamW moment {d_moment:g} "
+            f"({len(a['moments'])} tensors) (need 0); checkpoint images bit-equal "
+            f"{same_image}; {a['s']:.1f} + {b['s']:.1f} s; {card}")
+        if a["losses"] != b["losses"] or d_param != 0 or d_moment != 0 or not same_image:
+            raise AssertionError(f"determinism {label} V={V}: the two runs differ")
+        del a, b
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"determinism phase: {out['phase_s']:.1f} s; {card}")
     return out
 
 
@@ -4800,6 +4913,11 @@ def main():
     # and with standard coordinates + GELU, 3 training steps and the render
     # of their checkpoint, and the shipped decoder still on Kernel C
     cg = cg_phase(torch, dev, args.seed, tree, counters)
+    torch.cuda.empty_cache()
+
+    # ---- 21. training repeats itself: two same-seed runs of train.yaml and
+    # train_fast.yaml at V = 3 and of train.yaml at V = 8, bit for bit
+    determinism = determinism_phase(torch, dev, args.seed, tree, counters)
 
     def per_scale(entries):
         return {"max_abs_err": max(e["max_abs_err"] for e in entries),
@@ -5040,11 +5158,16 @@ def main():
                 for k, v in runs.items():
                     e["launches_by_path"][f"views_{k}_v{V}_{VIEWS_STEPS}_steps"] = \
                         v["launches"][name]
+            for k, v in determinism.items():
+                if k != "phase_s" and name in v["launches"]:
+                    e["launches_by_path"][f"determinism_{k}_{DET_STEPS}_steps"] = \
+                        v["launches"][name]
     report["paths"]["views"] = {k: views[k] for k in ("train", "eval", "many_tree",
                                                        "eval_fused", "train_many", "part_s",
                                                        "phase_s")}
     report["paths"]["variants"] = {k: v for k, v in variants.items() if k != "kernels"}
     report["paths"]["decoder_any"] = {k: v for k, v in cg.items() if k != "kernels"}
+    report["paths"]["determinism"] = determinism
     # each kernel's launches in each rank of phase 16, per path
     for e in report["kernels"]:
         name = e["name"].replace("_bf16", "")

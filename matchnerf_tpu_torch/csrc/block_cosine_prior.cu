@@ -620,22 +620,17 @@ block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict_
 //
 // Per pair and pass of CP channels (ops/block_cosine_prior.py::
 // channels_per_pass with backward=True) the block stages the f32 union rows
-// of the union its forward wrote, plus an f32 gradient row of the same
-// width per union row (d_acc), recomputes each sample's interpolation and
-// group sums, forms the grouped-cosine backward (pallas_banded.py::
+// of the union its forward wrote, recomputes each sample's interpolation
+// and group sums, forms the grouped-cosine backward (pallas_banded.py::
 // _grouped_cosine_bwd, no gradient through a norm clamped at eps), and sums
-// the gradient times each bilinear weight into the tap's union row: the
-// counterpart of the TPU kernel's per-block d_acc. Each union row then goes
-// to d_table once per block with float4 global atomics. Each (view, chunk)
-// is one side of exactly one pair, so every row and channel is flushed once
-// per block. A tap missing from an overflowed union (the zero row ut) adds
-// nothing. grids here are [V,8*NB,S,2], the tail rays edge-padded; padded
-// rays carry no cotangent.
+// the gradient times each bilinear weight per union row: the counterpart of
+// the TPU kernel's per-block d_acc. Each (view, chunk) is one side of
+// exactly one pair. A tap missing from an overflowed union (the zero row
+// ut) adds nothing. grids here are [V,8*NB,S,2], the tail rays
+// edge-padded; padded rays carry no cotangent.
 //
-// What bounds it: the sums into d_acc. sm_90 has no shared-memory f32 add:
-// atomicAdd on shared memory is a compare-and-swap loop (ATOMS.CAST.SPIN,
-// profile_prior --sass), and one per (sample, side, tap, channel), 3,072 a
-// sample, paced the earlier design at one block per SM. So:
+// What bounds it: the sums per union row. One add per (sample, side, tap,
+// channel), 3,072 a sample, paced the first design at one block per SM. So:
 //
 // 1. Walks. The block's 8 rays are adjacent pixels of a strip: at one depth
 //    they sit in the same cell or the next. A sample group of BL lanes (16
@@ -643,44 +638,60 @@ block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict_
 //    of ceil(S / (512 / BL)) consecutive depths across all 8 rays,
 //    serpentine (depth d over rays 0..7, depth d+1 over rays 7..0), so
 //    consecutive samples of a walk are neighbouring pixels or neighbouring
-//    depths, and the 32 or 64 groups in flight sit at different depths.
+//    depths.
 // 2. Parity slots, as in B' (csrc/cosine_prior.cu): a 2x2 footprint holds
 //    one cell of each (row parity, column parity), so slot 2*py + px of a
 //    side holds the tap of those parities; the prologue stores each
 //    sample's four union rows in slot order (16 bits each, the rows' parity
 //    bits in bit 15 of the first two), rows past the border (weight 0) and
 //    missing rows as the zero row ut. A lane sums each slot's CPL channels
-//    in registers while its row stays the same and adds them to d_acc only
-//    when the row changes and at the end of the walk; the zero row is never
-//    added. The walks' runs cut the shared adds 6-10x at the training pose
-//    (profile_prior --backward).
-// 3. Each add is one 128-bit compare-and-swap loop per 4 channels
-//    (atom.shared.cas.b128), cheaper than two 64-bit ones, so CPL is at
-//    least 4: at CP 32 a group is 8 lanes, not 16 with 2 channels each
-//    (fewer lane compare-and-swaps, and fewer lanes repeating each sample's
-//    tap decode and cosine, for 15 % more run ends).
-// 4. Overlap: d_acc is zeroed once; after a pass's loop each thread adds
-//    its d_acc entries to d_table and zeroes them while the next pass's rows
-//    arrive by cp.async into the rows the loop has finished with.
+//    in registers while its row stays the same and ends the run when the
+//    row changes and at the end of the walk; the zero row makes no run.
+// 3. The same sums on every run (training repeats itself, as the JAX step
+//    does): no walk adds into a shared d_acc, and no block into d_table,
+//    where the order of the adds changes from run to run. As in B', a count
+//    pass (block_cosine_prior_bwd_count: the prologue, then each walk's runs
+//    per view) gives each (block, walk, view) its number of runs and the
+//    wrapper's exclusive scan its first record; the walk writes each run
+//    as a record at the position fixed by (block, walk, view, run ordinal):
+//    its CPL channels of the run's (V-1)C-channel table row (every pass
+//    fills its columns: the runs of a walk over a view are the same in every
+//    pass), and its cell. The wrapper sorts the cells, stably, and
+//    cosine_prior.cu's prior_bwd_reduce_f32 sums each cell's records in the
+//    order of their positions into its d_table row.
+// 4. Overlap: the rows of the next pass arrive by cp.async into the second
+//    row buffer while the walks run on the first.
 //
 // Shared memory (LayoutPass) at the training pose's buckets, S = 128 and
-// V = 3: ut 160, CP 64 (G = 2): rows 2 x 161 x 64 x 4 B = 82,432 B, d_acc
-// the same, taps and fractions [V][8S] 49,152 B, union 1,920 B: 215,936 B;
-// ut 320, CP 32 (G = 8): 82,176 B twice, 49,152 B, 3,840 B: 217,344 B. One
-// block per SM. At V = 4 the taps and fractions take 65,536 B, so ut 160 at
-// G = 2 fits no pass (CP 64: 232,960 B) and takes B'; at V = 8 131,072 B,
-// and G = 2 fits ut 64 alone (CP 64), G = 8 up to ut 160 (CP 32).
+// V = 3: ut 160, CP 64 (G = 2): two buffers of both sides' rows 2 x 2 x
+// 161 x 64 x 4 B = 164,864 B, taps and fractions [V][8S] 49,152 B, union
+// 1,920 B: 215,936 B; ut 320, CP 32 (G = 8): 164,352 B, 49,152 B, 3,840 B:
+// 217,344 B. One block per SM. At V = 4 the taps and fractions take 65,536
+// B, so ut 160 at G = 2 fits no pass (CP 64: 232,960 B) and takes B'; at
+// V = 8 131,072 B, and G = 2 fits ut 64 alone (CP 64), G = 8 up to ut 160
+// (CP 32).
 
 struct LayoutPass {       // dynamic shared memory, in bytes from its start
-  size_t rows, dacc, taps, fracs, unions, total;
+  size_t rows, taps, fracs, unions, total;
   __host__ __device__ LayoutPass(int V, int ut, int S, int CP) {
     const size_t samples = (size_t)BLOCK_RAYS * S;
-    const size_t side = (size_t)(ut + 1) * CP * sizeof(float);
-    rows = 0;                                              // [2][ut+1][CP] f32
-    dacc = rows + 2 * side;                                // [2][ut+1][CP] f32
-    taps = dacc + 2 * side;                                // [V][8S] uint2
+    const size_t buffer = 2 * (size_t)(ut + 1) * CP * sizeof(float);
+    rows = 0;                                              // [2][2][ut+1][CP] f32
+    taps = rows + 2 * buffer;                              // [V][8S] uint2
     fracs = taps + (size_t)V * samples * sizeof(uint2);    // [V][8S] float2
     unions = fracs + (size_t)V * samples * sizeof(float2); // [V][ut] int
+    total = unions + (size_t)V * ut * sizeof(int);
+  }
+};
+
+// the count pass's shared memory: LayoutPass without the rows
+struct LayoutCount {
+  size_t taps, fracs, unions, total;
+  __host__ __device__ LayoutCount(int V, int ut, int S) {
+    const size_t samples = (size_t)BLOCK_RAYS * S;
+    taps = 0;
+    fracs = taps + (size_t)V * samples * sizeof(uint2);
+    unions = fracs + (size_t)V * samples * sizeof(float2);
     total = unions + (size_t)V * ut * sizeof(int);
   }
 };
@@ -758,56 +769,38 @@ __device__ __forceinline__ void interp_rows(const float* rows, int CP, const Slo
     f[e] = r[0][e] * st.w[0] + r[1][e] * st.w[1] + r[2][e] * st.w[2] + r[3][e] * st.w[3];
 }
 
-// four adjacent shared-memory floats (16-byte aligned) += v in one 128-bit
-// compare-and-swap loop (atom.shared.cas.b128, sm_90): sm_90 has no shared
-// f32 add, and atomicAdd(float*) there is a 32-bit compare-and-swap loop per
-// float
-__device__ __forceinline__ void shared_add4(float* p, float4 v) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  ulonglong2 seen = *reinterpret_cast<const ulonglong2*>(p);
-  while (true) {
-    const unsigned long long lo =
-        (unsigned long long)__float_as_uint(__uint_as_float((unsigned)seen.x) + v.x) |
-        ((unsigned long long)__float_as_uint(__uint_as_float((unsigned)(seen.x >> 32)) + v.y)
-         << 32);
-    const unsigned long long hi =
-        (unsigned long long)__float_as_uint(__uint_as_float((unsigned)seen.y) + v.z) |
-        ((unsigned long long)__float_as_uint(__uint_as_float((unsigned)(seen.y >> 32)) + v.w)
-         << 32);
-    unsigned long long olo, ohi;
-    asm volatile(
-        "{\n\t.reg .b128 cmp, val, old;\n\t"
-        "mov.b128 cmp, {%2, %3};\n\t"
-        "mov.b128 val, {%4, %5};\n\t"
-        "atom.shared.cas.b128 old, [%6], cmp, val;\n\t"
-        "mov.b128 {%0, %1}, old;\n\t}"
-        : "=l"(olo), "=l"(ohi)
-        : "l"(seen.x), "l"(seen.y), "l"(lo), "l"(hi), "r"(addr)
-        : "memory");
-    if (olo == seen.x && ohi == seen.y) return;
-    seen = make_ulonglong2(olo, ohi);
-  }
-}
-
-// a slot's CPL channels (a multiple of 4) into its d_acc row
-template <int CPL>
-__device__ __forceinline__ void slot_add(float* dst, const float (&v)[CPL]) {
+// where one side of a walk writes its runs in one pass: record `pos` (the
+// next one of its (block, walk, view)) holds the run's CPL channels from
+// column col of its (V-1)C-channel row; in the pass that stages channel 0
+// of chunk 0 the lane 0 of each walk also writes the run's cell
+struct Records {
+  float* rec;
+  int* keys;
+  const int* u;          // the side's union cells
+  int pos, CC, col, cell0;
+  bool key_writer;
+  template <int CPL>
+  __device__ __forceinline__ void put(int row, const float (&v)[CPL]) {
+    float* dst = rec + (size_t)pos * CC + col;
 #pragma unroll
-  for (int e = 0; e < CPL; e += 4)
-    shared_add4(dst + e, make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]));
-}
+    for (int e = 0; e < CPL; e += 4)
+      *reinterpret_cast<float4*>(dst + e) = make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
+    if (key_writer) keys[pos] = cell0 + u[row];
+    ++pos;
+  }
+};
 
 // one side's slots after one more sample of a walk (B''s slot_update on
-// union rows): a slot whose row changed adds its sum to d_acc, unless it
-// held the zero row, and restarts; only the add branches
+// union rows): a slot whose row changed writes its run, unless it held the
+// zero row, and restarts; only the write branches
 template <int CPL>
 __device__ __forceinline__ void slot_update(float (&acc)[4][CPL], int (&key)[4],
-                                            const SlotTaps& st, const float* df, float* dacc,
-                                            int CP, int o, int ut) {
+                                            const SlotTaps& st, const float* df, Records& out,
+                                            int ut) {
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const bool changed = st.row[s] != key[s];
-    if (changed && key[s] != ut) slot_add<CPL>(dacc + key[s] * CP + o, acc[s]);
+    if (changed && key[s] != ut) out.put<CPL>(key[s], acc[s]);
     key[s] = st.row[s];
 #pragma unroll
     for (int e = 0; e < CPL; ++e) acc[s][e] = fmaf(st.w[s], df[e], changed ? 0.f : acc[s][e]);
@@ -816,10 +809,10 @@ __device__ __forceinline__ void slot_update(float (&acc)[4][CPL], int (&key)[4],
 
 template <int CPL>
 __device__ __forceinline__ void slot_flush(const float (&acc)[4][CPL], const int (&key)[4],
-                                           float* dacc, int CP, int o, int ut) {
+                                           Records& out, int ut) {
 #pragma unroll
   for (int s = 0; s < 4; ++s)
-    if (key[s] != ut) slot_add<CPL>(dacc + key[s] * CP + o, acc[s]);
+    if (key[s] != ut) out.put<CPL>(key[s], acc[s]);
 }
 
 // CP channels (from channel c0 of the chunk) of both sides of pair p's f32
@@ -845,19 +838,77 @@ __device__ __forceinline__ void issue_rows(const float* __restrict__ table, cons
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// the walk of sample group grp (item 1 of the header): depths lo .. lo +
+// nd - 1 of the block's rays that are not padding, visited as step i ->
+// (ray, depth), or ray -1 for a padded ray
+struct Walk {
+  int lo, nd, rays;
+  __device__ __forceinline__ Walk(int grp, int walks, int S, int R, int blk) {
+    const int seg = (S + walks - 1) / walks;
+    lo = grp * seg;
+    nd = max(0, min(S, lo + seg) - lo);
+    rays = min(BLOCK_RAYS, R - blk * BLOCK_RAYS);
+  }
+  __device__ __forceinline__ int sample(int i, int S) const {
+    const int d = i / BLOCK_RAYS, j = i % BLOCK_RAYS;
+    const int ray = d & 1 ? BLOCK_RAYS - 1 - j : j;       // serpentine
+    return ray < rays ? ray * S + lo + d : -1;
+  }
+};
+
+// D''s count pass: the prologue, then per (walk, view) the runs of item 3
+// in the header, in the order the records follow
+template <int BL>
+__global__ void __launch_bounds__(THREADS)
+block_cosine_prior_bwd_count_kernel(const float* __restrict__ grids,
+                                    const int* __restrict__ unions, int* __restrict__ counts,
+                                    int V, int H, int W, int R, int S, int NB, int ut) {
+  constexpr int WALKS = THREADS / BL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const LayoutCount L(V, ut, S);
+  uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
+  float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
+  int* u_s = reinterpret_cast<int*>(smem + L.unions);
+  const int blk = blockIdx.x, tid = threadIdx.x;
+  const int samples = BLOCK_RAYS * S;
+  block_prologue(grids, unions, u_s, taps, fracs, V, H, W, S, NB, ut, blk, tid);
+  __syncthreads();
+  for (int t = tid; t < WALKS * V; t += THREADS) {
+    const int grp = t / V, v = t - grp * V;
+    const Walk walk(grp, WALKS, S, R, blk);
+    int key[4] = {ut, ut, ut, ut}, runs = 0;
+#pragma unroll 1
+    for (int i = 0; i < walk.nd * BLOCK_RAYS; ++i) {
+      const int nl = walk.sample(i, S);
+      if (nl < 0) continue;
+      const SlotTaps st = slot_taps(taps[v * samples + nl], fracs[v * samples + nl]);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (st.row[s] != key[s]) {
+          runs += key[s] != ut;
+          key[s] = st.row[s];
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) runs += key[s] != ut;
+    counts[((size_t)blk * WALKS + grp) * V + v] = runs;
+  }
+}
+
 template <int CPL, int BL>
 __global__ void __launch_bounds__(THREADS)
 block_cosine_prior_bwd_kernel(const float* __restrict__ table,
                               const float* __restrict__ grids,
                               const int* __restrict__ unions, const float* __restrict__ gout,
-                              float* __restrict__ d_table, int V, int H, int W, int G,
-                              int R, int S, int NB, int ut) {
+                              const int* __restrict__ starts, float* __restrict__ rec,
+                              int* __restrict__ keys, int V, int H, int W, int G, int R, int S,
+                              int NB, int ut) {
   constexpr int CP = CPL * BL;
   constexpr int WALKS = THREADS / BL;                   // sample groups, one walk each
   extern __shared__ __align__(16) unsigned char smem[];
   const LayoutPass L(V, ut, S, CP);
   float* rows = reinterpret_cast<float*>(smem + L.rows);
-  float* dacc = reinterpret_cast<float*>(smem + L.dacc);
   uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
   float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
   int* u_s = reinterpret_cast<int*>(smem + L.unions);
@@ -867,127 +918,119 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
   const int lane = tid % BL;
   const int grp = tid / BL;
   // a group's BL lanes shuffle among themselves only: the walks of a warp
-  // branch apart at their flushes and ends
+  // branch apart at their run ends and ends
   const unsigned mask = ((1u << BL) - 1u) << (tid & (32 - BL));
   const int o = lane * CPL;
   const int samples = BLOCK_RAYS * S;
   const int gsize = C / G;
   const int lanes_per_group = gsize / CPL;
-  // this group's walk (item 1 of the header): depths lo .. lo + nd - 1 of
-  // the block's rays that are not padding
-  const int seg = (S + WALKS - 1) / WALKS;
-  const int lo = grp * seg, nd = max(0, min(S, lo + seg) - lo);
-  const int rays = min(BLOCK_RAYS, R - blk * BLOCK_RAYS);
+  const Walk walk(grp, WALKS, S, R, blk);
   const int CC = (V - 1) * C;
   const int P = n_pairs(V);
   const float inv_p = 1.f / (float)P;      // the mean over the pairs
+  const size_t buffer = 2 * (size_t)(ut + 1) * CP;      // floats of one row buffer
+  const int* first = starts + ((size_t)blk * WALKS + grp) * V;
   block_prologue(grids, unions, u_s, taps, fracs, V, H, W, S, NB, ut, blk, tid);
-  for (int i = tid; i < 2 * (ut + 1) * CP / 4; i += THREADS)
-    reinterpret_cast<float4*>(dacc)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();                         // the union, for the first staging
   issue_rows(table, u_s, rows, V, H, W, ut, CP, 0, 0, tid);
   const float* gb = gout + (size_t)blk * BLOCK_RAYS * S * G;
+  const int per_pair = C / CP, passes = P * per_pair;
 
 #pragma unroll 1
-  for (int p = 0; p < P; ++p) {
+  for (int k = 0; k < passes; ++k) {
+    const int p = k / per_pair, c0 = (k % per_pair) * CP;
     const int vi = pair_first(V, p), vj = pair_second(V, p);
     const int ca = vj - 1, cb = vi;
-#pragma unroll 1
-    for (int c0 = 0; c0 < C; c0 += CP) {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      __syncthreads();                     // rows staged, d_acc zero
-      const float* rows_a = rows;
-      const float* rows_b = rows + (size_t)(ut + 1) * CP;
-      float* dacc_a = dacc;
-      float* dacc_b = dacc + (size_t)(ut + 1) * CP;
-      const int group = (c0 + o) / gsize;
-      float acc[2][4][CPL];
-      int key[2][4];
+    __syncthreads();                       // every walk is done with pass k - 1's buffer
+    if (k + 1 < passes)
+      issue_rows(table, u_s, rows + ((k + 1) & 1) * buffer, V, H, W, ut, CP,
+                 (k + 1) / per_pair, ((k + 1) % per_pair) * CP, tid);
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();                       // pass k's rows staged
+    const float* rows_a = rows + (k & 1) * buffer;
+    const float* rows_b = rows_a + (size_t)(ut + 1) * CP;
+    const int group = (c0 + o) / gsize;
+    Records out[2] = {{rec, keys, u_s + vi * ut, first[vi], CC, ca * C + c0 + o,
+                       vi * H * W, lane == 0 && ca == 0 && c0 == 0},
+                      {rec, keys, u_s + vj * ut, first[vj], CC, cb * C + c0 + o,
+                       vj * H * W, lane == 0 && cb == 0 && c0 == 0}};
+    float acc[2][4][CPL];
+    int key[2][4];
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        key[0][s] = key[1][s] = ut;
+    for (int s = 0; s < 4; ++s) {
+      key[0][s] = key[1][s] = ut;
 #pragma unroll
-        for (int e = 0; e < CPL; ++e) acc[0][s][e] = acc[1][s][e] = 0.f;
-      }
-#pragma unroll 1
-      for (int i = 0; i < nd * BLOCK_RAYS; ++i) {
-        const int d = i / BLOCK_RAYS, j = i % BLOCK_RAYS;
-        const int ray = d & 1 ? BLOCK_RAYS - 1 - j : j;       // serpentine
-        if (ray >= rays) continue;
-        const int nl = ray * S + lo + d;
-        const SlotTaps ta = slot_taps(taps[vi * samples + nl], fracs[vi * samples + nl]);
-        const SlotTaps tb = slot_taps(taps[vj * samples + nl], fracs[vj * samples + nl]);
-        float fa[CPL], fb[CPL];
-        interp_rows<CPL>(rows_a, CP, ta, o, fa);
-        interp_rows<CPL>(rows_b, CP, tb, o, fb);
-        float dot = 0.f, na2 = 0.f, nb2 = 0.f;
-#pragma unroll
-        for (int e = 0; e < CPL; ++e) {
-          dot = fmaf(fa[e], fb[e], dot);
-          na2 = fmaf(fa[e], fa[e], na2);
-          nb2 = fmaf(fb[e], fb[e], nb2);
-        }
-        for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
-          dot += __shfl_xor_sync(mask, dot, off);
-          na2 += __shfl_xor_sync(mask, na2, off);
-          nb2 += __shfl_xor_sync(mask, nb2, off);
-        }
-        float d_dot, d_na2, d_nb2;
-        cosine_bwd(gb[(size_t)nl * G + group] * inv_p, dot, na2, nb2, d_dot, d_na2, d_nb2);
-        float dfa[CPL], dfb[CPL];
-#pragma unroll
-        for (int e = 0; e < CPL; ++e) {
-          dfa[e] = d_dot * fb[e] + 2.f * d_na2 * fa[e];
-          dfb[e] = d_dot * fa[e] + 2.f * d_nb2 * fb[e];
-        }
-        slot_update<CPL>(acc[0], key[0], ta, dfa, dacc_a, CP, o, ut);
-        slot_update<CPL>(acc[1], key[1], tb, dfb, dacc_b, CP, o, ut);
-      }
-      slot_flush<CPL>(acc[0], key[0], dacc_a, CP, o, ut);
-      slot_flush<CPL>(acc[1], key[1], dacc_b, CP, o, ut);
-      __syncthreads();                     // d_acc complete, rows free
-      const int next_p = c0 + CP < C ? p : p + 1, next_c0 = c0 + CP < C ? c0 + CP : 0;
-      if (next_p < P) issue_rows(table, u_s, rows, V, H, W, ut, CP, next_p, next_c0, tid);
-      // flush: every union row of both sides, once, into d_table; zero d_acc
-      const int per_side = (ut + 1) * (CP / 4);
-      for (int i = tid; i < 2 * per_side; i += THREADS) {
-        const int side = i / per_side, rem = i % per_side;
-        const int r = rem / (CP / 4), part = rem % (CP / 4);
-        float4* src = reinterpret_cast<float4*>(dacc + ((size_t)side * (ut + 1) + r) * CP +
-                                                part * 4);
-        const float4 val = *src;
-        *src = make_float4(0.f, 0.f, 0.f, 0.f);
-        const int cell = r < ut ? u_s[(side ? vj : vi) * ut + r] : INT_MAX;
-        if (cell == INT_MAX) continue;
-        float* dst = d_table + ((size_t)(side ? vj : vi) * H * W + cell) * CC +
-                     (side ? cb : ca) * C + c0 + part * 4;
-#if (__CUDACC_VER_MAJOR__ > 12) || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 4)
-        atomicAdd(reinterpret_cast<float4*>(dst), val);
-#else
-        atomicAdd(dst, val.x); atomicAdd(dst + 1, val.y);
-        atomicAdd(dst + 2, val.z); atomicAdd(dst + 3, val.w);
-#endif
-      }
+      for (int e = 0; e < CPL; ++e) acc[0][s][e] = acc[1][s][e] = 0.f;
     }
+#pragma unroll 1
+    for (int i = 0; i < walk.nd * BLOCK_RAYS; ++i) {
+      const int nl = walk.sample(i, S);
+      if (nl < 0) continue;
+      const SlotTaps ta = slot_taps(taps[vi * samples + nl], fracs[vi * samples + nl]);
+      const SlotTaps tb = slot_taps(taps[vj * samples + nl], fracs[vj * samples + nl]);
+      float fa[CPL], fb[CPL];
+      interp_rows<CPL>(rows_a, CP, ta, o, fa);
+      interp_rows<CPL>(rows_b, CP, tb, o, fb);
+      float dot = 0.f, na2 = 0.f, nb2 = 0.f;
+#pragma unroll
+      for (int e = 0; e < CPL; ++e) {
+        dot = fmaf(fa[e], fb[e], dot);
+        na2 = fmaf(fa[e], fa[e], na2);
+        nb2 = fmaf(fb[e], fb[e], nb2);
+      }
+      for (int off = lanes_per_group / 2; off > 0; off >>= 1) {
+        dot += __shfl_xor_sync(mask, dot, off);
+        na2 += __shfl_xor_sync(mask, na2, off);
+        nb2 += __shfl_xor_sync(mask, nb2, off);
+      }
+      float d_dot, d_na2, d_nb2;
+      cosine_bwd(gb[(size_t)nl * G + group] * inv_p, dot, na2, nb2, d_dot, d_na2, d_nb2);
+      float dfa[CPL], dfb[CPL];
+#pragma unroll
+      for (int e = 0; e < CPL; ++e) {
+        dfa[e] = d_dot * fb[e] + 2.f * d_na2 * fa[e];
+        dfb[e] = d_dot * fa[e] + 2.f * d_nb2 * fb[e];
+      }
+      slot_update<CPL>(acc[0], key[0], ta, dfa, out[0], ut);
+      slot_update<CPL>(acc[1], key[1], tb, dfb, out[1], ut);
+    }
+    slot_flush<CPL>(acc[0], key[0], out[0], ut);
+    slot_flush<CPL>(acc[1], key[1], out[1], ut);
   }
 }
 
+template <int BL>
+int launch_bwd_count(const void* grids, const void* unions, void* counts, int V, int H, int W,
+                     int R, int S, int NB, int ut, cudaStream_t stream) {
+  const LayoutCount L(V, ut, S);
+  if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      block_cosine_prior_bwd_count_kernel<BL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  block_cosine_prior_bwd_count_kernel<BL><<<NB, THREADS, L.total, stream>>>(
+      static_cast<const float*>(grids), static_cast<const int*>(unions),
+      static_cast<int*>(counts), V, H, W, R, S, NB, ut);
+  return (int)cudaGetLastError();
+}
 
 template <int CPL, int BL>
 int launch_bwd(const void* table, const void* grids, const void* unions, const void* g,
-               void* d_table, int V, int H, int W, int G, int R, int S, int NB, int ut,
-               cudaStream_t stream) {
+               const void* starts, void* rec, void* keys, int V, int H, int W, int G, int R,
+               int S, int NB, int ut, cudaStream_t stream) {
   const LayoutPass L(V, ut, S, CPL * BL);
   if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       block_cosine_prior_bwd_kernel<CPL, BL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L.total);
   if (err != cudaSuccess) return (int)err;
-  block_cosine_prior_bwd_kernel<CPL, BL><<<(R + BLOCK_RAYS - 1) / BLOCK_RAYS, THREADS,
-                                           L.total, stream>>>(
+  block_cosine_prior_bwd_kernel<CPL, BL><<<NB, THREADS, L.total, stream>>>(
       static_cast<const float*>(table), static_cast<const float*>(grids),
       static_cast<const int*>(unions), static_cast<const float*>(g),
-      static_cast<float*>(d_table), V, H, W, G, R, S, NB, ut);
+      static_cast<const int*>(starts), static_cast<float*>(rec), static_cast<int*>(keys), V, H,
+      W, G, R, S, NB, ut);
   return (int)cudaGetLastError();
 }
 
@@ -1077,22 +1120,38 @@ extern "C" int block_cosine_prior_phases(void* dst) {
 }
 #endif
 
-// D''s backward: grids [V,8*NB,S,2] (edge-padded), the forward's unions
-// [V*NB, ut], g [R,S,G] f32 cotangent; d_table [V,H,W,(V-1)C] f32, zeroed
-// by the caller
+// D''s count pass: grids [V,8*NB,S,2] (edge-padded), the forward's unions
+// [V*NB, ut]; counts [NB * (512 / BL) * V] int32, the runs of each (block,
+// walk, view), with BL = 16 at CP 64 and 128, 8 at CP 32
+extern "C" int block_cosine_prior_bwd_count(const void* grids, const void* unions, void* counts,
+                                            int views, int H, int W, int R, int S, int NB,
+                                            int ut, int CP, void* stream) {
+  if (!args_ok(views, C, H, W, R, S, ut, 8, CP) || NB * BLOCK_RAYS < R)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (CP == 32)
+    return launch_bwd_count<8>(grids, unions, counts, views, H, W, R, S, NB, ut, st);
+  return launch_bwd_count<16>(grids, unions, counts, views, H, W, R, S, NB, ut, st);
+}
+
+// D''s records: as the count pass, with the table, g [R,S,G] f32
+// cotangent, starts (the exclusive scan of the counts), rec [n_records,
+// (V-1)C] f32 and keys [n_records] int32 (each run's table row), every
+// entry written
 extern "C" int block_cosine_prior_bwd_f32(const void* table, const void* grids,
-                                          const void* unions, const void* g, void* d_table,
-                                          int views, int H, int W, int channels, int G,
-                                          int R, int S, int NB, int ut, int CP,
-                                          void* stream) {
+                                          const void* unions, const void* g, const void* starts,
+                                          void* rec, void* keys, int views, int H, int W,
+                                          int channels, int G, int R, int S, int NB, int ut,
+                                          int CP, void* stream) {
   if (!args_ok(views, channels, H, W, R, S, ut, G, CP) || NB * BLOCK_RAYS < R)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (CP == 128)
-    return launch_bwd<8, 16>(table, grids, unions, g, d_table, views, H, W, G, R, S, NB, ut,
-                             st);
+    return launch_bwd<8, 16>(table, grids, unions, g, starts, rec, keys, views, H, W, G, R, S,
+                             NB, ut, st);
   if (CP == 64)
-    return launch_bwd<4, 16>(table, grids, unions, g, d_table, views, H, W, G, R, S, NB, ut,
-                             st);
-  return launch_bwd<4, 8>(table, grids, unions, g, d_table, views, H, W, G, R, S, NB, ut, st);
+    return launch_bwd<4, 16>(table, grids, unions, g, starts, rec, keys, views, H, W, G, R, S,
+                             NB, ut, st);
+  return launch_bwd<4, 8>(table, grids, unions, g, starts, rec, keys, views, H, W, G, R, S, NB,
+                          ut, st);
 }

@@ -10,7 +10,7 @@
 // (tanh form, as jax.nn.gelu), a conditioning width Gf + 4V up to 128 and
 // 1 <= S <= 512 samples per ray. Plain version and wrapper:
 // matchnerf_tpu_torch/ops/decoder.py (`cond_nerf_decode_plain`,
-// `pack_any`).
+// `pack_any`, `any_fragments`).
 //
 // Per ray of S samples:
 //   enc  = [p, posenc(p)]                          (E = 3 + 6 L_3D wide)
@@ -25,58 +25,87 @@
 //          [d, posenc(d)]]))))
 //   then the composite: rgb, depth and opacity of the ray.
 //
-// Both operand routes run every product as f32 fused multiply-adds on the
-// CUDA cores: the f32 route multiplies the f32 values (true f32 products);
-// the bf16 route (precision.decoder_matmul_dtype: bf16) reads weights the
-// host rounded to bf16 and rounds every activation that enters a wide
-// product (pts_bias, pts_linears, alpha_linear, feature_linear,
-// views_linears.0, rgb_linear) to bf16 as it is written to shared memory;
-// a product of two bf16 values is exact in f32, so the sums are those of
-// bf16 operands with f32 accumulation.
+// The wide products (pts_bias, pts_linears, alpha_linear, feature_linear,
+// views_linears.0, rgb_linear) run on the tensor cores (mma.sync) with f32
+// accumulation, on both operand routes, as Kernel C's:
+// - f32 (the default): split TF32. Each operand is a = a_hi + a_lo with
+//   a_hi = tf32(a); the product takes hi*hi + hi*lo + lo*hi (m16n8k8).
+//   Activations and weights are split as they enter each product (the
+//   weights stream as f32: half the bytes of a split kept in memory). The
+//   tensor core truncates as it accumulates, so each k8 step sums into a
+//   zeroed tile that one f32 add puts into the accumulator: the truncation
+//   spans one step.
+// - bf16 (precision.decoder_matmul_dtype: bf16): the host rounds the
+//   weights to bf16, every activation that enters a wide product is
+//   rounded to bf16 as it is written to shared memory, and each k8 half of
+//   a k16 step (m16n8k8 of bf16 operands) goes into a zeroed tile, then
+//   into the f32 accumulator.
+// Everything else is f32 on the CUDA cores: the bias multiply and the
+// activations, and the ray tail (ray_tail.cuh, Kernel C's: the 16-wide
+// w_qs/w_ks/w_vs/fc, the ray attention and its softmax, the LayerNorm,
+// out_alpha_linear, the composite).
 //
-// What bounds it: arithmetic. At the NeRF MLP (256x8, L_view 4) the wide
-// products are 1.2 MFLOP a sample, all on the f32 CUDA cores (67 TFLOP/s).
-// Design (simple on purpose; the shipped shape keeps Kernel C):
-// - One persistent block of 256 threads per SM walks over rays; a ray's
-//   samples go through the MLP in tiles of T samples: 128, 64 or 32, the
-//   most whose micro-tiles the threads cover and whose buffers fit (128 up
-//   to width 128 at S = 128, 64 up to width 256, 32 up to 512), no more
-//   than the ray needs. The activations live in shared memory transposed ([channel]
-//   [T]): the tile's h (or its conditioning, before pts_bias), pts_bias's
-//   output, the point and direction encodings.
-// - Every wide layer is one tiled product: each thread owns a micro-tile of
-//   8 samples x 8 outputs (at most 256 of them),
-//   reading per input channel two float4 of activations (a broadcast across
-//   the warp) and two float4 of weights, for 64 fused multiply-adds. The
-//   weights stream from L2 through shared memory in chunks
-//   of 8 input rows, double-buffered with cp.async. A layer's outputs stay
-//   in registers until its last chunk is read, then overwrite h in place.
+// What bounds it: the product loops. At the NeRF MLP (256x8, L_view 4)
+// the wide products are 1.2 MFLOP a sample (3x that in split TF32), and
+// every tile of T samples reads all the layers' weights from L2 again (2.5
+// MB in f32, 1.2 MB in bf16). Beside each round of products a warp issues
+// the operand splits and the zeroed tiles' adds, and its chains of
+// dependent products wait with the register file full: the tensor cores
+// run well below mma.sync's rate (python -m
+// matchnerf_tpu_torch.profile_decoder prints the TFLOP/s). Design
+// (mma.sync, as Kernel C: its fragment layouts and split-TF32 route are
+// proven on this card; wgmma's 64-row warpgroup tiles with asynchronous
+// accumulators are the way past it, a redesign of their own):
+// - One persistent block of 8 warps per SM walks over rays; a ray's samples
+//   go through the MLP in tiles of T samples (128, 64, 32 or 16: the most
+//   whose outputs the warps' registers hold, 64 accumulators a thread, and
+//   whose buffers fit, no more than the ray needs). A warp owns 16 MR rows
+//   (samples; MR = 2, 1 at T = 16) and a band of 8 / MR n16 pairs of the
+//   layer's output columns, so a B fragment (and its split) feeds MR
+//   products; the f32 route issues each of a pair's three product rounds
+//   for all its 2 MR tiles before the next (independent chains). A layer's
+//   products are one piece of code (`layer_mma`), its epilogue apart.
+// - The activations live in shared memory sample-major ([T][stride], the
+//   stride 8 past a multiple of 32 floats: a warp's A fragment and its
+//   epilogue's float2 stores are conflict-free): the tile's h (or its
+//   conditioning, before pts_bias) and the point and direction encodings.
+//   A layer keeps its outputs in registers until every warp has read its
+//   last input, then its epilogue overwrites h in place. pts_bias's output
+//   stays in each warp's registers for the pts_linears' epilogues (every
+//   one of these layers gives a warp the same outputs).
+// - The weights (`any_fragments`: each layer's [K, np] matrix padded to k8
+//   steps (f32) or k16 steps (bf16) and n16 pairs with zeros, per k-step
+//   and pair 32 lanes x 16 bytes in the B-fragment order of mma.sync's
+//   m16n8k8 (f32) or m16n8k16 (bf16)) stream from L2 through a ring of
+//   `stages` slots, kg k-steps a slot (up to 64 KB of a layer's rows):
+//   bulk copies (cp.async.bulk) that complete on an mbarrier, issued by one
+//   thread stages - 1 groups ahead across layers, tiles and rays (through
+//   the ray tail too); one block barrier a group frees a slot.
 // - Padding makes every width a multiple of 8 with zero weights and biases,
-//   so padded channels stay exactly 0 through the layers.
+//   so padded channels stay exactly 0 through the layers; the k16 step past
+//   a bf16 layer's last 8 rows reads zeros.
 // - Only what the ray's attention and composite need outlives a tile: the
 //   16-wide token, rgb, the number of views that see the sample and its
-//   depth (92 bytes per sample). The ray tail is a copy of Kernel C's
-//   (cond_nerf_decode.cu stays as it is, the shipped decoder's kernel): q, k, v on two
-//   threads a sample; attention one head of two samples per thread with an
-//   online base-2 softmax; fc/LayerNorm/density on two lanes a sample; the
-//   composite as a warp scan; the 16-wide weights read through L1.
-// Shared memory: ((max(W8, CD8) + W8 + E8 + Ev8) T + 16 W8 (the weight
-// chunks), at least 48 Sp) + 23 Sp floats, W8 = W rounded up to 8 and Sp =
-// S rounded up to 4: 227,328 bytes at W = 256 or 512 with S = 512 (T = 64
-// and 32).
+//   depth (92 bytes per sample); q, k, v overlay the activations.
+// Shared memory: the ring (stages x kg k-steps of the widest layer), the
+// three activation buffers (at least 48 Sp floats) and 23 Sp floats, Sp =
+// S rounded up to 4: at the NeRF MLP and S = 128, T = 64, 3 stages of 4
+// k-steps (32 KB on either route) and 3 x 64 rows: 206,400 bytes.
 //
-// Parameter buffers (the layout `pack_any` writes):
-// - small (f32): w_qs, w_ks, w_vs, fc as [in][out], the LayerNorm weight and
-//   bias, out_alpha_linear.0 [in][out] and bias, out_alpha_linear.2 [16] and
-//   bias (SM_* offsets), then from SM_BIAS the biases of pts_bias [W8], the D
-//   pts_linears [W8 each], alpha_linear [16], feature_linear [W8],
-//   views_linears.0 [H8 = W/2 rounded up to 8] and rgb_linear [8].
-// - weights (f32, bf16 values on the bf16 route): each wide layer as a
-//   row-major [K][Np] matrix (input rows, padded output columns), in the
-//   order pts_bias (K = CD8), pts_linears 0 .. D-1 (layer 0: E8; a layer
-//   after a skip: E8 encoding rows then W8 h rows; else W8), alpha_linear
-//   (W8 x 16), feature_linear (W8 x W8), views_linears.0 (W8 feature rows
-//   then Ev8 direction rows, x H8), rgb_linear (H8 x 8).
+// Parameter buffers (the layout `pack_any` and `any_fragments` write):
+// - small (f32): the ray tail's weights (ray_tail.cuh TW_*), then from
+//   SM_BIAS the biases of pts_bias [W8], the D pts_linears [W8 each],
+//   alpha_linear [16], feature_linear [W8], views_linears.0 [H8 = W/2
+//   rounded up to 8] and rgb_linear [8].
+// - fragments (16-byte units): each wide layer in the order pts_bias (K =
+//   CD8), pts_linears 0 .. D-1 (layer 0: E8; a layer after a skip: E8
+//   encoding rows then W8 h rows; else W8), alpha_linear (W8 x 16),
+//   feature_linear (W8 x W8), views_linears.0 (W8 feature rows then Ev8
+//   direction rows, x H8), rgb_linear (H8 x 8); per k-step (8 rows f32, 16
+//   rows bf16) and n16 pair of ceil16(np) columns, lane 4g + t holds f32
+//   {W[2t][n], W[2t+1][n], W[2t][n+8], W[2t+1][n+8]} (n = 16 pair + g; the
+//   k8 step's rows permuted so that slot t takes row 2t, slot t + 4 row
+//   2t + 1) or 8 bf16 {W[2t..2t+1][n], W[2t+8..2t+9][n], the same at n+8}.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,15 +115,26 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int KC = 8;                   // weight rows per staged chunk
+constexpr int WARPS = THREADS / 32;
 constexpr int S_MAX = 512;
 constexpr int W_MIN = 32, W_MAX = 512, D_MAX = 16, L_MAX = 10, CD_MAX = 128;
 constexpr int MAX_LAYERS = D_MAX + 5;
+// a warp's outputs: MR m16 row tiles x pairs<MR>() n16 column pairs, 64
+// accumulators a thread
+template <int MR>
+__host__ __device__ constexpr int pairs_of() { return 8 / MR; }
+// the m16 tiles a warp takes at a tile of T samples
+__host__ __device__ constexpr int tile_mr(int T) { return T >= 32 ? 2 : 1; }
+constexpr int MAX_STAGES = 3;
+constexpr int BAR_BYTES = 64;           // the ring's mbarriers (keeps what follows 16-byte aligned)
 constexpr int RAY_FLOATS_PER_SAMPLE = 16 + 4 + 3;   // tok, rgb, nv/depth/alpha
 
-// small-parameter offsets (floats)
-constexpr int SM_WQ = 0, SM_WK = 256, SM_WV = 512, SM_FC = 768, SM_LN_W = 1024, SM_LN_B = 1040,
-              SM_O0_W = 1056, SM_O0_B = 1312, SM_O1_W = 1328, SM_O1_B = 1344, SM_BIAS = 1348;
+#include "ray_tail.cuh"
+
+// the wide layers' biases in the small buffer, after the ray tail's weights
+constexpr int SM_BIAS = 1348;
+static_assert(SM_BIAS >= TW_FLOATS && SM_BIAS % 4 == 0, "the biases follow the tail");
+static_assert(BAR_BYTES >= 8 * MAX_STAGES && BAR_BYTES % 16 == 0, "the mbarriers' region");
 
 // what a layer's epilogue does with its sums
 enum Kind { K_BIAS, K_PTS, K_ALPHA, K_FEATURE, K_VIEWS, K_RGB };
@@ -102,24 +142,31 @@ enum Kind { K_BIAS, K_PTS, K_ALPHA, K_FEATURE, K_VIEWS, K_RGB };
 enum Src { B_H, B_E, B_R };
 
 struct Layer {
-  int k1, k2;       // input rows from src1, then from src2 (multiples of KC)
+  int k1, k2;       // input rows from src1, then from src2 (multiples of 8)
   int src1, src2;
-  int np;           // padded outputs (a multiple of 8)
-  int kind;
-  int woff, boff;   // offsets (floats) of the [k1 + k2][np] matrix and of the bias
+  int np;           // outputs, padded to 8: the columns the epilogue writes
+  int nt;           // n8 tiles of its fragments (np rounded up to 16, / 8)
+  int ks;           // k-steps: K / 8 (f32) or ceil(K / 16) (bf16)
+  int units;        // 16-byte units of one k-step (32 lanes x one unit a n16 pair)
+  int kind, boff;   // the epilogue, and the bias's offset in the small buffer
+  int foff;         // the layer's first unit in the fragment buffer
 };
 
 struct Plan {
   int W8, H8, E8, Ev8, CD8, HR;
-  int n_layers, n_wts, n_small;
+  int n_layers, n_units, n_small, max_units, max_nt;
   Layer layer[MAX_LAYERS];
 };
 
 __host__ __device__ inline int ceil8(int x) { return (x + 7) & ~7; }
+__host__ __device__ inline int ceil16(int x) { return (x + 15) & ~15; }
+// a sample-major row stride (floats): 8 past a multiple of 32
+__host__ __device__ inline int row_stride(int x) { return ((x + 31) & ~31) + 8; }
 
-// The layers in stream order and the two buffers' sizes, from the decoder's
-// shape; skip_mask bit l: pts_linears[l] reads [enc, h] (l - 1 is in skip).
-inline Plan make_plan(int W, int D, int skip_mask, int E, int Ev, int CD) {
+// The layers in stream order and their fragments' sizes, from the decoder's
+// shape and the route; skip_mask bit l: pts_linears[l] reads [enc, h] (l - 1
+// is in skip).
+inline Plan make_plan(int W, int D, int skip_mask, int E, int Ev, int CD, bool bf16) {
   Plan p;
   p.W8 = ceil8(W);
   p.H8 = ceil8(W / 2);
@@ -127,13 +174,20 @@ inline Plan make_plan(int W, int D, int skip_mask, int E, int Ev, int CD) {
   p.Ev8 = ceil8(Ev);
   p.CD8 = ceil8(CD);
   p.HR = p.W8 > p.CD8 ? p.W8 : p.CD8;
-  int n = 0, woff = 0, boff = SM_BIAS;
+  p.max_units = p.max_nt = 0;
+  int n = 0, foff = 0, boff = SM_BIAS;
   auto add = [&](int k1, int src1, int k2, int src2, int np, int kind) {
     Layer& l = p.layer[n++];
     l.k1 = k1; l.src1 = src1; l.k2 = k2; l.src2 = src2;
-    l.np = np; l.kind = kind; l.woff = woff; l.boff = boff;
-    woff += (k1 + k2) * np;
+    l.np = np; l.kind = kind; l.boff = boff;
+    l.nt = ceil16(np) / 8;
+    l.ks = bf16 ? (k1 + k2 + 15) / 16 : (k1 + k2) / 8;
+    l.units = l.nt / 2 * 32;
+    l.foff = foff;
+    foff += l.ks * l.units;
     boff += np;
+    if (l.units > p.max_units) p.max_units = l.units;
+    if (l.nt > p.max_nt) p.max_nt = l.nt;
   };
   add(p.CD8, B_H, 0, B_H, p.W8, K_BIAS);
   for (int l = 0; l < D; ++l) {
@@ -146,119 +200,332 @@ inline Plan make_plan(int W, int D, int skip_mask, int E, int Ev, int CD) {
   add(p.W8, B_H, p.Ev8, B_R, p.H8, K_VIEWS);
   add(p.H8, B_H, 0, B_H, 8, K_RGB);
   p.n_layers = n;
-  p.n_wts = woff;
+  p.n_units = foff;
   p.n_small = boff;
   return p;
 }
 
 struct Args {
   const float *pts, *ray_unit, *feat, *color, *mask, *depth, *ray;
-  const float *small, *wts;
+  const float* small;
+  const uint4* frag;
   const float* postab;
   float* out;
-  int N, S, Gf, V, L3, Lv, legacy, act, maskfill, wo_interval, setbg, T;
+  int N, S, Gf, V, L3, Lv, legacy, act, maskfill, wo_interval, setbg, T, stages, kg;
   Plan p;
 };
-
-__device__ __forceinline__ float activate(float x, int act) {
-  if (act == 1) return x > 0.f ? x : expm1f(x);
-  if (act == 2) {                       // jax.nn.gelu (approximate=True)
-    const float cdf = 0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * (x * x * x))));
-    return x * cdf;
-  }
-  return fmaxf(x, 0.f);
-}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// ---- the weight ring: bulk copies completing on mbarriers ------------------
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// one contiguous run of global memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-struct Smem {
-  float *H, *B, *E, *R, *wbuf;
-  float *tok, *rgb, *nv, *dep, *alpha;
-  int T, W8;
-  __device__ __forceinline__ const float* buf(int id) const {
-    return id == B_E ? E : (id == B_R ? R : H);
+// The groups of kg k-steps of every layer of every tile the block decodes
+// (a layer's last group may hold fewer), in order, through `stages` slots.
+// Every thread keeps the same counters; thread 0 issues the copies. A
+// group's slot is reissued only after the block barrier that follows the
+// group's products.
+struct Ring {
+  uint4* slots;
+  uint64_t* full;
+  const uint4* src;
+  const Plan* p;
+  int stages, slot_units, kg, total, issued, consumed, il, is;
+
+  __device__ __forceinline__ void issue() {
+    if (issued >= total) return;
+    const Layer& L = p->layer[il];
+    const int n = min(kg, L.ks - is);
+    if (threadIdx.x == 0) {
+      const int slot = issued % stages;
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bulk_copy(slots + (size_t)slot * slot_units, src + L.foff + (size_t)is * L.units,
+                16 * n * L.units, full + slot);
+    }
+    ++issued;
+    is += n;
+    if (is == L.ks) {
+      is = 0;
+      if (++il == p->n_layers) il = 0;
+    }
+  }
+  // the next group's weights, once they have landed (call after the
+  // barrier that frees the slot issue() refills)
+  __device__ __forceinline__ const uint4* next() {
+    issue();
+    const int slot = consumed % stages;
+    mbar_wait(full + slot, (consumed / stages) & 1);
+    ++consumed;
+    return slots + (size_t)slot * slot_units;
   }
 };
 
-// One wide layer over the tile: sums[t][n] = sum_k x[k][t] w[k][n] for the
-// T samples t and np outputs n, with x the rows of src1 then src2. A thread
-// owns a micro-tile of 8 samples (8 rg ..) x 8 outputs: 4 from the first
-// half of the columns (c0 = 4 cg ..) and 4 from the second (c1 = np/2 +
-// 4 cg ..), so that the warp's weight reads are consecutive float4 (no bank
-// conflict) and its activation reads broadcasts; (T / 8) (np / 8) <= 256
-// micro-tiles. Then epi(rg, c0, c1, sums), after every thread has read its
-// last input, so the epilogue may overwrite the input in place.
-template <class Epi>
-__device__ __forceinline__ void run_layer(const Args& a, const Smem& m, const Layer& L, Epi epi) {
-  const int tid = threadIdx.x, T = m.T, np = L.np, cgn = np >> 3;
-  const bool active = tid < (T >> 3) * cgn;
-  const int rg = active ? tid / cgn : 0, cg = active ? tid % cgn : 0;
-  const int c0 = 4 * cg, c1 = (np >> 1) + 4 * cg;
-  const float* s1 = m.buf(L.src1);
-  const float* s2 = m.buf(L.src2);
-  float acc[8][8];
+// ---- tensor-core operand routes (Kernel C's) -------------------------------
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], uint32_t a0, uint32_t a1,
+                                            uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+struct Smem {
+  float *H, *E, *R;
+  float *tok, *rgb, *nv, *dep, *alpha;
+  int T, SH, SE, SR;
+  __device__ __forceinline__ const float* buf(int id) const {
+    return id == B_E ? E : (id == B_R ? R : H);
+  }
+  __device__ __forceinline__ int stride(int id) const {
+    return id == B_E ? SE : (id == B_R ? SR : SH);
+  }
+};
+
+// the 8 input columns k0 .. k0 + 7 of a layer (k0 a multiple of 8): their
+// buffer and stride, or nullptr past the layer's last row
+struct Cols {
+  const float* x;
+  int stride;
+};
+__device__ __forceinline__ Cols cols_of(const Smem& m, const Layer& L, int k0) {
+  if (k0 < L.k1) return {m.buf(L.src1) + k0, m.stride(L.src1)};
+  if (k0 < L.k1 + L.k2) return {m.buf(L.src2) + (k0 - L.k1), m.stride(L.src2)};
+  return {nullptr, 0};
+}
+
+__device__ __forceinline__ float2 cols2(const Cols& c, int row, int t) {
+  return c.x ? *reinterpret_cast<const float2*>(c.x + row * c.stride + 2 * t)
+             : make_float2(0.f, 0.f);
+}
+
+template <int MR>
+using Tiles = float[MR][2 * pairs_of<MR>()][4];
+
+// A warp's share of one layer's outputs: rows r0 .. r0 + 16 MR - 1 and the
+// npw n16 pairs from pair p0 (none where the layer has fewer columns than
+// the warps' bands).
+struct Band {
+  int r0, p0, npw;
+  template <int MR>
+  __device__ __forceinline__ static Band of(int T, const Layer& L) {
+    const int warp = threadIdx.x >> 5;
+    const int RG = T / (16 * MR), CG = WARPS / RG;
+    const int rg = warp / CG, cg = warp - rg * CG;
+    const int pairs = L.nt >> 1, ppw = (pairs + CG - 1) / CG;
+    Band b;
+    b.r0 = rg * 16 * MR;
+    b.p0 = cg * ppw;
+    b.npw = max(0, min(pairs, b.p0 + ppw) - b.p0);
+    return b;
+  }
+};
+
+// One k-step of a layer for a warp: its MR m16 tiles against its band's
+// n16 pairs of the step's fragments wc, into acc.
+template <bool BF16, int MR>
+__device__ __forceinline__ void step_mma(Tiles<MR>& acc, const Smem& m, const Layer& L,
+                                         int step, const uint4* wc, const Band& bd, int lane) {
+  constexpr int NP = pairs_of<MR>();
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (BF16) {
+    const Cols c0 = cols_of(m, L, 16 * step), c1 = cols_of(m, L, 16 * step + 8);
+    uint32_t a[MR][4];
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[r][q] = 0.f;
-  const int nc = (L.k1 + L.k2) / KC;
-  const int units = KC * np / 4;                    // 16-byte units per chunk
-  const int stage = KC * m.W8;
-  const float* wl = a.wts + L.woff;
-  auto issue = [&](int c) {
-    float* dst = m.wbuf + (c & 1) * stage;
-    const float* src = wl + (size_t)c * KC * np;
-    for (int u = tid; u < units; u += THREADS) cp_async16(dst + 4 * u, src + 4 * u);
-    cp_async_commit();
-  };
-  issue(0);
-#pragma unroll 1
-  for (int c = 0; c < nc; ++c) {
-    if (c + 1 < nc) {
-      issue(c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int mt = 0; mt < MR; ++mt) {
+      const int r = bd.r0 + 16 * mt + g;
+      const float2 x0 = cols2(c0, r, t), x1 = cols2(c0, r + 8, t);
+      const float2 x2 = cols2(c1, r, t), x3 = cols2(c1, r + 8, t);
+      a[mt][0] = pack_bf16(x0.x, x0.y);
+      a[mt][1] = pack_bf16(x1.x, x1.y);
+      a[mt][2] = pack_bf16(x2.x, x2.y);
+      a[mt][3] = pack_bf16(x3.x, x3.y);
     }
-    __syncthreads();
-    if (active) {
-      const float* wc = m.wbuf + (c & 1) * stage;
-      const int k0 = c * KC;
-      const float* x = (k0 < L.k1 ? s1 + k0 * T : s2 + (k0 - L.k1) * T) + 8 * rg;
 #pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 x0 = *reinterpret_cast<const float4*>(x + kk * T);
-        const float4 x1 = *reinterpret_cast<const float4*>(x + kk * T + 4);
-        const float4 w0 = *reinterpret_cast<const float4*>(wc + kk * np + c0);
-        const float4 w1 = *reinterpret_cast<const float4*>(wc + kk * np + c1);
-        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    for (int pp = 0; pp < NP; ++pp) {
+      if (pp < bd.npw) {
+        const uint4 b = wc[(bd.p0 + pp) * 32 + lane];
+        const uint32_t bb[2][2] = {{b.x, b.y}, {b.z, b.w}};
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
+        for (int mt = 0; mt < MR; ++mt)
 #pragma unroll
-          for (int q = 0; q < 8; ++q) acc[r][q] = fmaf(xv[r], wv[q], acc[r][q]);
+          for (int u = 0; u < 2; ++u) {
+            // each k8 half (m16n8k8) into a zeroed tile, then one f32 add:
+            // the tensor core truncates as it sums, and a k16 product sums
+            // enough products at once to move its output past the plain
+            // twin's own rounding, which flips bf16 roundings downstream
+            // (the NeRF MLP's GPU test case went 1.5e-3 from its twin)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float tt[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_bf16_k8(tt, a[mt][2 * h], a[mt][2 * h + 1], bb[u][h]);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[mt][2 * pp + u][i] += tt[i];
+            }
+          }
       }
     }
-    __syncthreads();
+  } else {
+    const Cols c = cols_of(m, L, 8 * step);
+    uint32_t hi[MR][4], lo[MR][4];
+#pragma unroll
+    for (int mt = 0; mt < MR; ++mt) {
+      const int r = bd.r0 + 16 * mt + g;
+      const float2 p = cols2(c, r, t), q = cols2(c, r + 8, t);
+      // slot t <-> column 2t, slot t + 4 <-> column 2t + 1 (the host's row
+      // permutation of each k8 step)
+      const float v[4] = {p.x, q.x, p.y, q.y};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hi[mt][i] = tf32(v[i]);
+        lo[mt][i] = tf32(v[i] - __uint_as_float(hi[mt][i]));
+      }
+    }
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp) {
+      if (pp < bd.npw) {
+        // the pair's raw f32 weights {W[2t][n], W[2t+1][n]} of its two n8
+        // tiles, split here as the activations are
+        const float4 b = *reinterpret_cast<const float4*>(wc + (bd.p0 + pp) * 32 + lane);
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float w0 = u ? b.z : b.x, w1 = u ? b.w : b.y;
+          bh[u][0] = tf32(w0);
+          bh[u][1] = tf32(w1);
+          bl[u][0] = tf32(w0 - __uint_as_float(bh[u][0]));
+          bl[u][1] = tf32(w1 - __uint_as_float(bh[u][1]));
+        }
+        // the pair's 2 MR tiles as independent chains, each product round
+        // issued for all of them before the next
+        float tile[2][MR][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int mt = 0; mt < MR; ++mt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) tile[u][mt][i] = 0.f;
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int mt = 0; mt < MR; ++mt) mma_tf32(tile[u][mt], lo[mt], bh[u][0], bh[u][1]);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int mt = 0; mt < MR; ++mt) mma_tf32(tile[u][mt], hi[mt], bl[u][0], bl[u][1]);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int mt = 0; mt < MR; ++mt) mma_tf32(tile[u][mt], hi[mt], bh[u][0], bh[u][1]);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int mt = 0; mt < MR; ++mt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][2 * pp + u][i] += tile[u][mt][i];
+      }
+    }
   }
-  if (active) epi(rg, c0, c1, acc);
+}
+
+// One wide layer's products over the tile into the warps' accumulators, a
+// ring group at a time; returns after every warp has read its last input,
+// so the epilogue may overwrite h in place. One call site, so the products'
+// code exists once per kernel.
+template <bool BF16, int MR>
+__device__ __forceinline__ void layer_mma(Tiles<MR>& acc, const Smem& m, Ring& ring,
+                                          const Layer& L, const Band& bd) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mt = 0; mt < MR; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2 * pairs_of<MR>(); ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+#pragma unroll 1
+  for (int k0 = 0; k0 < L.ks; k0 += ring.kg) {
+    __syncthreads();                    // the previous group's slot and inputs are free
+    const uint4* wc = ring.next();
+    if (bd.npw > 0) {
+      const int n = min(ring.kg, L.ks - k0);
+#pragma unroll 1
+      for (int s = 0; s < n; ++s)
+        step_mma<BF16, MR>(acc, m, L, k0 + s, wc + s * L.units, bd, lane);
+    }
+  }
+  __syncthreads();                      // every warp has read its inputs
+}
+
+// epi(row, column, value at column, value at column + 1, the two pts_bias
+// registers of those outputs) for the warp's outputs below np columns
+template <int MR, class Epi>
+__device__ __forceinline__ void each_output(Tiles<MR>& acc, Tiles<MR>& bias, const Band& bd,
+                                            int np, Epi epi) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MR; ++mt)
+#pragma unroll
+    for (int pp = 0; pp < pairs_of<MR>(); ++pp)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int c = 16 * (bd.p0 + pp) + 8 * u + 2 * t;
+        if (pp < bd.npw && c < np) {
+          const int r = bd.r0 + 16 * mt + g;
+          float* o = acc[mt][2 * pp + u];
+          float* b = bias[mt][2 * pp + u];
+          epi(r, c, o[0], o[1], b[0], b[1]);
+          epi(r + 8, c, o[2], o[3], b[2], b[3]);
+        }
+      }
 }
 
 // Encoding row j (0 .. E8 - 1) of the point or direction x at L frequencies:
@@ -290,8 +557,8 @@ __device__ __forceinline__ float encode(const float (&x)[3], int j, int L, int l
 
 // The MLP over one tile of ray n's samples row0 .. row0 + T - 1: writes tok,
 // rgb, nv and depth of the tile's samples.
-template <bool BF16>
-__device__ void mlp_tile(const Args& a, const Smem& m, int n, int row0) {
+template <bool BF16, int MR>
+__device__ void mlp_tile(const Args& a, const Smem& m, Ring& ring, int n, int row0) {
   const int tid = threadIdx.x, T = m.T, S = a.S, Gf = a.Gf, V = a.V, CD = Gf + 4 * V;
   const Plan& p = a.p;
   const int nrows = min(T, S - row0);
@@ -299,8 +566,8 @@ __device__ void mlp_tile(const Args& a, const Smem& m, int n, int row0) {
   auto st = [](float v) { return BF16 ? bf16_round(v) : v; };
 
   __syncthreads();                      // the previous tile's readers are done
-  // conditioning [feat, color, mask] into H (rows CD .. CD8 - 1 and samples
-  // past the ray's end zero), nv and depth of the samples
+  // conditioning [feat, color, mask] into H (columns CD .. CD8 - 1 and
+  // samples past the ray's end zero), nv and depth of the samples
   for (int i = tid; i < p.CD8 * T; i += THREADS) {
     const int t = i / p.CD8, j = i - t * p.CD8;
     float v = 0.f;
@@ -310,20 +577,21 @@ __device__ void mlp_tile(const Args& a, const Smem& m, int n, int row0) {
                  : (j < Gf + 3 * V ? __ldg(a.color + s * 3 * V + j - Gf)
                                    : __ldg(a.mask + s * V + j - Gf - 3 * V));
     }
-    m.H[j * T + t] = st(v);
+    m.H[t * m.SH + j] = st(v);
   }
   // the point and direction encodings into E and R
   for (int i = tid; i < (p.E8 + p.Ev8) * T; i += THREADS) {
     const bool pt = i < p.E8 * T;
-    const int ii = pt ? i : i - p.E8 * T;
-    const int j = ii / T, t = ii - j * T;
+    const int ii = pt ? i : i - p.E8 * T, width = pt ? p.E8 : p.Ev8;
+    const int t = ii / width, j = ii - t * width;
     float v = 0.f;
     if (t < nrows) {
       const float* src = (pt ? a.pts : a.ray_unit) + (base + t) * 3;
       const float x[3] = {__ldg(src), __ldg(src + 1), __ldg(src + 2)};
       v = encode(x, j, pt ? a.L3 : a.Lv, a.legacy);
     }
-    (pt ? m.E : m.R)[j * T + t] = st(v);
+    if (pt) m.E[t * m.SE + j] = st(v);
+    else m.R[t * m.SR + j] = st(v);
   }
   for (int t = tid; t < nrows; t += THREADS) {
     const size_t s = base + t;
@@ -334,81 +602,65 @@ __device__ void mlp_tile(const Args& a, const Smem& m, int n, int row0) {
   }
 
   const float* sp = a.small;
+  Tiles<MR> pb;                         // pts_bias(cond) of the warp's outputs
   for (int li = 0; li < p.n_layers; ++li) {
     const Layer& L = p.layer[li];
     const float* b = sp + L.boff;
+    const Band bd = Band::of<MR>(T, L);
+    Tiles<MR> acc;
+    layer_mma<BF16, MR>(acc, m, ring, L, bd);
     switch (L.kind) {
       case K_BIAS:
-        run_layer(a, m, L, [&](int rg, int c0, int c1, float (&acc)[8][8]) {
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int c = q < 4 ? c0 + q : c1 + q - 4;
-            const float bb = __ldg(b + c);
-#pragma unroll
-            for (int r = 0; r < 8; ++r) m.B[c * T + 8 * rg + r] = acc[r][q] + bb;
-          }
+        each_output<MR>(acc, pb, bd, L.np, [&](int, int c, float v0, float v1, float& b0,
+                                               float& b1) {
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(b + c));
+          b0 = v0 + bb.x;
+          b1 = v1 + bb.y;
         });
         break;
       case K_PTS:
-        run_layer(a, m, L, [&](int rg, int c0, int c1, float (&acc)[8][8]) {
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int c = q < 4 ? c0 + q : c1 + q - 4;
-            const float bb = __ldg(b + c);
-#pragma unroll
-            for (int r = 0; r < 8; ++r) {
-              const int i = c * T + 8 * rg + r;
-              m.H[i] = st(fmaxf((acc[r][q] + bb) * m.B[i], 0.f));
-            }
-          }
+        each_output<MR>(acc, pb, bd, L.np, [&](int r, int c, float v0, float v1, float& b0,
+                                               float& b1) {
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(b + c));
+          *reinterpret_cast<float2*>(m.H + r * m.SH + c) =
+              make_float2(st(fmaxf((v0 + bb.x) * b0, 0.f)), st(fmaxf((v1 + bb.y) * b1, 0.f)));
         });
         break;
       case K_ALPHA:
-        run_layer(a, m, L, [&](int rg, int c0, int c1, float (&acc)[8][8]) {
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int c = q < 4 ? c0 + q : c1 + q - 4;
-            const float bb = __ldg(b + c);
-#pragma unroll
-            for (int r = 0; r < 8; ++r) {
-              const int t = 8 * rg + r;
-              if (t < nrows) {
-                const int s = row0 + t;
-                float v = activate(acc[r][q] + bb, a.act);
-                if (a.postab != nullptr) v += __ldg(a.postab + s * 16 + c);
-                m.tok[s * 16 + c] = v;
-              }
+        each_output<MR>(acc, pb, bd, L.np, [&](int r, int c, float v0, float v1, float&,
+                                               float&) {
+          if (r < nrows) {
+            const int s = row0 + r;
+            float x0 = activate(v0 + __ldg(b + c), a.act);
+            float x1 = activate(v1 + __ldg(b + c + 1), a.act);
+            if (a.postab != nullptr) {
+              x0 += __ldg(a.postab + s * 16 + c);
+              x1 += __ldg(a.postab + s * 16 + c + 1);
             }
+            m.tok[s * 16 + c] = x0;
+            m.tok[s * 16 + c + 1] = x1;
           }
         });
         break;
       case K_FEATURE:
       case K_VIEWS: {
         const bool relu = L.kind == K_VIEWS;
-        run_layer(a, m, L, [&](int rg, int c0, int c1, float (&acc)[8][8]) {
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int c = q < 4 ? c0 + q : c1 + q - 4;
-            const float bb = __ldg(b + c);
-#pragma unroll
-            for (int r = 0; r < 8; ++r) {
-              const float v = acc[r][q] + bb;
-              m.H[c * T + 8 * rg + r] = st(relu ? fmaxf(v, 0.f) : v);
-            }
-          }
+        each_output<MR>(acc, pb, bd, L.np, [&](int r, int c, float v0, float v1, float&,
+                                               float&) {
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(b + c));
+          const float x0 = v0 + bb.x, x1 = v1 + bb.y;
+          *reinterpret_cast<float2*>(m.H + r * m.SH + c) =
+              make_float2(st(relu ? fmaxf(x0, 0.f) : x0), st(relu ? fmaxf(x1, 0.f) : x1));
         });
         break;
       }
       default:                          // K_RGB
-        run_layer(a, m, L, [&](int rg, int c0, int c1, float (&acc)[8][8]) {
-#pragma unroll
-          for (int q = 0; q < 3; ++q) {
-            const float bb = __ldg(b + q);
-#pragma unroll
-            for (int r = 0; r < 8; ++r) {
-              const int t = 8 * rg + r;
-              if (t < nrows) m.rgb[(row0 + t) * 4 + q] = 1.f / (1.f + expf(-(acc[r][q] + bb)));
-            }
+        each_output<MR>(acc, pb, bd, L.np, [&](int r, int c, float v0, float v1, float&,
+                                               float&) {
+          if (r < nrows && c < 3) {
+            const int s = row0 + r;
+            m.rgb[s * 4 + c] = 1.f / (1.f + expf(-(v0 + __ldg(b + c))));
+            if (c + 1 < 3) m.rgb[s * 4 + c + 1] = 1.f / (1.f + expf(-(v1 + __ldg(b + c + 1))));
           }
         });
         break;
@@ -416,340 +668,136 @@ __device__ void mlp_tile(const Args& a, const Smem& m, int n, int row0) {
   }
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
-}
-
-// Online softmax of one query over base-2 scores: rescale() takes a block
-// of scores (raising the running max), add() one key's weight and value.
-struct Softmax4 {
-  float mx = -INFINITY, sum = 0.f;
-  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-  template <int U>
-  __device__ __forceinline__ void rescale(float (&x)[U]) {
-    float cm = x[0];
-#pragma unroll
-    for (int u = 1; u < U; ++u) cm = fmaxf(cm, x[u]);
-    const float mn = fmaxf(mx, cm), c = ex2(mx - mn);
-    sum *= c;
-    o.x *= c; o.y *= c; o.z *= c; o.w *= c;
-    mx = mn;
-  }
-  __device__ __forceinline__ void add(float x, float4 v) {
-    const float e = ex2(x - mx);
-    sum += e;
-    o.x = fmaf(e, v.x, o.x); o.y = fmaf(e, v.y, o.y);
-    o.z = fmaf(e, v.z, o.z); o.w = fmaf(e, v.w, o.w);
-  }
-  __device__ __forceinline__ float4 out() const {
-    const float r = 1.f / sum;
-    return make_float4(o.x * r, o.y * r, o.z * r, o.w * r);
+// the shared-memory plan of a tile of T samples: the activation buffers'
+// strides and floats, the ring's bytes, the whole block's bytes
+struct SmemPlan {
+  int SH, SE, SR, act_floats, overlay_floats, ring_bytes;
+  size_t total;
+  __host__ __device__ SmemPlan(const Plan& p, int T, int stages, int kg, int S) {
+    const int Sp = (S + 3) & ~3;
+    SH = row_stride(p.HR);
+    SE = row_stride(p.E8);
+    SR = row_stride(p.Ev8);
+    act_floats = (SH + SE + SR) * T;
+    overlay_floats = act_floats > 48 * Sp ? act_floats : 48 * Sp;
+    ring_bytes = stages * kg * p.max_units * 16;
+    total = (size_t)ring_bytes + BAR_BYTES +
+            ((size_t)overlay_floats + (size_t)RAY_FLOATS_PER_SAMPLE * Sp) * sizeof(float);
   }
 };
 
-// 8 consecutive floats from 16-byte aligned memory
-__device__ __forceinline__ void load8(const float* p, float (&r)[8]) {
-  const float4 x = *reinterpret_cast<const float4*>(p), y = *reinterpret_cast<const float4*>(p + 4);
-  r[0] = x.x; r[1] = x.y; r[2] = x.z; r[3] = x.w;
-  r[4] = y.x; r[5] = y.y; r[6] = y.z; r[7] = y.w;
-}
-
-// The ray transformer, the density head and the composite of ray n (Kernel
-// C's ray tail; the 16-wide weights are read from the small buffer).
-__device__ void ray_tail(const Args& a, const Smem& m, float* qb, int n, int Sp) {
-  const int tid = threadIdx.x, S = a.S;
-  const float* w = a.small;
-  float* kb = qb + Sp * 16;
-  float* vb = kb + Sp * 16;
-
-  // ---- q, k, v: two threads per sample, 8 outputs each. A query that fewer
-  // than 2 views see is zero: its scores are all 0 and its attention is
-  // uniform, the plain version's fill of the query row.
-  for (int i = tid; i < 2 * S; i += THREADS) {
-    const int s = i >> 1, o0 = (i & 1) * 8;
-    float t[16], q[8], k[8], v[8];
-#pragma unroll
-    for (int d = 0; d < 16; d += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(m.tok + s * 16 + d);
-      t[d] = x.x; t[d + 1] = x.y; t[d + 2] = x.z; t[d + 3] = x.w;
-    }
-#pragma unroll
-    for (int o = 0; o < 8; ++o) q[o] = k[o] = v[o] = 0.f;
-#pragma unroll
-    for (int d = 0; d < 16; ++d) {
-      float wq[8], wk[8], wv[8];
-      load8(w + SM_WQ + d * 16 + o0, wq);
-      load8(w + SM_WK + d * 16 + o0, wk);
-      load8(w + SM_WV + d * 16 + o0, wv);
-#pragma unroll
-      for (int o = 0; o < 8; ++o) {
-        q[o] = fmaf(t[d], wq[o], q[o]);
-        k[o] = fmaf(t[d], wk[o], k[o]);
-        v[o] = fmaf(t[d], wv[o], v[o]);
-      }
-    }
-    // scores q.k / sqrt(d_k) in base 2: softmax by exp2
-    const float qs = m.nv[s] > 1.f ? 0.5f * 1.4426950408889634f : 0.f;
-#pragma unroll
-    for (int o = 0; o < 8; o += 4) {
-      *reinterpret_cast<float4*>(qb + s * 16 + o0 + o) =
-          make_float4(q[o] * qs, q[o + 1] * qs, q[o + 2] * qs, q[o + 3] * qs);
-      *reinterpret_cast<float4*>(kb + s * 16 + o0 + o) =
-          make_float4(k[o], k[o + 1], k[o + 2], k[o + 3]);
-      *reinterpret_cast<float4*>(vb + s * 16 + o0 + o) =
-          make_float4(v[o], v[o + 1], v[o + 2], v[o + 3]);
-    }
-  }
-  __syncthreads();
-
-  // ---- attention: a lane takes one head of two samples (s and s + 32), an
-  // online softmax over blocks of 8 keys; the output replaces q.
-  const int S8 = S & ~7;
-  for (int task = tid; task < 128 * ((S + 63) / 64); task += THREADS) {
-    const int c = task >> 5, hd = (c & 3) * 4, s0 = (c >> 2) * 64 + (task & 31), s1 = s0 + 32;
-    if (s0 >= S) continue;
-    const bool has1 = s1 < S;
-    const float4 q0 = *reinterpret_cast<const float4*>(qb + s0 * 16 + hd);
-    const float4 q1 = has1 ? *reinterpret_cast<const float4*>(qb + s1 * 16 + hd)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-    Softmax4 a0, a1;
-    const float* kp = kb + hd;
-    const float* vp = vb + hd;
-    for (int j0 = 0; j0 < S8; j0 += 8) {
-      float x0[8], x1[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float4 k = *reinterpret_cast<const float4*>(kp + (j0 + u) * 16);
-        x0[u] = dot4(q0, k);
-        x1[u] = dot4(q1, k);
-      }
-      a0.rescale(x0);
-      a1.rescale(x1);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float4 v = *reinterpret_cast<const float4*>(vp + (j0 + u) * 16);
-        a0.add(x0[u], v);
-        a1.add(x1[u], v);
-      }
-    }
-    for (int j = S8; j < S; ++j) {        // the last S % 8 keys
-      const float4 k = *reinterpret_cast<const float4*>(kp + j * 16);
-      const float4 v = *reinterpret_cast<const float4*>(vp + j * 16);
-      float x0[1] = {dot4(q0, k)}, x1[1] = {dot4(q1, k)};
-      a0.rescale(x0);
-      a1.rescale(x1);
-      a0.add(x0[0], v);
-      a1.add(x1[0], v);
-    }
-    *reinterpret_cast<float4*>(qb + s0 * 16 + hd) = a0.out();
-    if (has1) *reinterpret_cast<float4*>(qb + s1 * 16 + hd) = a1.out();
-  }
-  __syncthreads();
-
-  // ---- fc + residual, LayerNorm, density head: two lanes per sample, 8
-  // channels each, joined by shuffles
-  for (int i0 = 0; i0 < 2 * S; i0 += THREADS) {
-    const int i = i0 + tid, s = min(i >> 1, S - 1), c0 = (i & 1) * 8;
-    float at[16], y[8];
-#pragma unroll
-    for (int d = 0; d < 16; d += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(qb + s * 16 + d);
-      at[d] = x.x; at[d + 1] = x.y; at[d + 2] = x.z; at[d + 3] = x.w;
-    }
-    float z[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, wr[8];
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      load8(w + SM_FC + k * 16 + c0, wr);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) z[c] = fmaf(at[k], wr[c], z[c]);
-    }
-    float mu = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      y[c] = z[c] + m.tok[s * 16 + c0 + c];
-      mu += y[c];
-    }
-    mu = (mu + __shfl_xor_sync(0xffffffffu, mu, 1)) / 16.f;
-    float var = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) var += (y[c] - mu) * (y[c] - mu);
-    var = (var + __shfl_xor_sync(0xffffffffu, var, 1)) / 16.f;
-    const float sd = sqrtf(var + 1e-6f);
-    float yn[16], lw[8], lb[8];   // the pair swaps halves
-    load8(w + SM_LN_W + c0, lw);
-    load8(w + SM_LN_B + c0, lb);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float mine = (y[c] - mu) / sd * lw[c] + lb[c];
-      const float other = __shfl_xor_sync(0xffffffffu, mine, 1);
-      yn[c] = c0 == 0 ? mine : other;
-      yn[8 + c] = c0 == 0 ? other : mine;
-    }
-#pragma unroll
-    for (int c = 0; c < 8; ++c) z[c] = 0.f;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      load8(w + SM_O0_W + k * 16 + c0, wr);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) z[c] = fmaf(yn[k], wr[c], z[c]);
-    }
-    float ob[8], o1[8], al = 0.f;
-    load8(w + SM_O0_B + c0, ob);
-    load8(w + SM_O1_W + c0, o1);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) al = fmaf(activate(z[c] + ob[c], a.act), o1[c], al);
-    al += __shfl_xor_sync(0xffffffffu, al, 1);
-    al = fmaxf(al + w[SM_O1_B], 0.f);
-    if (a.maskfill && m.nv[s] < 1.f) al = 0.f;
-    if (i < 2 * S && c0 == 0) m.alpha[s] = al;
-  }
-  __syncthreads();
-
-  // ---- composite: exclusive transmittance scan, one warp, 32 samples a step
-  if (tid < 32) {
-    const int lane = tid;
-    float rl = 1.f;
-    if (!a.wo_interval) {
-      const float* rr = a.ray + (size_t)n * 3;
-      rl = sqrtf(rr[0] * rr[0] + rr[1] * rr[1] + rr[2] * rr[2]);
-    }
-    float carry = 0.f, cr = 0.f, cgr = 0.f, cb = 0.f, cd = 0.f, co = 0.f;
-    for (int c0 = 0; c0 < S; c0 += 32) {
-      const int s = c0 + lane;
-      float sdelta = 0.f;
-      if (s < S) {
-        sdelta = m.alpha[s];
-        if (!a.wo_interval) {
-          const float intv = (s + 1 < S) ? m.dep[s + 1] - m.dep[s] : 1e10f;
-          sdelta = m.alpha[s] * (intv * rl);
-        }
-      }
-      float incl = sdelta;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float y = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += y;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = 0.f;
-      if (s < S) {
-        const float prob = expf(-(carry + excl)) * (1.f - expf(-sdelta));
-        cr = fmaf(m.rgb[s * 4 + 0], prob, cr);
-        cgr = fmaf(m.rgb[s * 4 + 1], prob, cgr);
-        cb = fmaf(m.rgb[s * 4 + 2], prob, cb);
-        cd = fmaf(m.dep[s], prob, cd);
-        co += prob;
-      }
-      carry += __shfl_sync(0xffffffffu, incl, 31);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      cr += __shfl_xor_sync(0xffffffffu, cr, off);
-      cgr += __shfl_xor_sync(0xffffffffu, cgr, off);
-      cb += __shfl_xor_sync(0xffffffffu, cb, off);
-      cd += __shfl_xor_sync(0xffffffffu, cd, off);
-      co += __shfl_xor_sync(0xffffffffu, co, off);
-    }
-    if (lane == 0) {
-      if (a.setbg) { cr += 1.f - co; cgr += 1.f - co; cb += 1.f - co; }
-      float* o = a.out + (size_t)n * 5;
-      o[0] = cr; o[1] = cgr; o[2] = cb; o[3] = cd; o[4] = co;
-    }
-  }
-}
-
-// floats of the tile buffers (H, B, E, R, the two weight chunks) and of the
-// region they share with the ray tail's q, k, v
-__host__ __device__ inline int tile_floats(const Plan& p, int T) {
-  return (p.HR + p.W8 + p.E8 + p.Ev8) * T + 2 * KC * p.W8;
-}
-__host__ __device__ inline int overlay_floats(const Plan& p, int T, int Sp) {
-  const int t = tile_floats(p, T);
-  return t > 48 * Sp ? t : 48 * Sp;
-}
-
-template <bool BF16>
+template <bool BF16, int MR>
 __global__ void __launch_bounds__(THREADS, 1) cond_nerf_decode_any_kernel(const Args a) {
-  extern __shared__ __align__(16) float sm[];
+  extern __shared__ __align__(128) unsigned char smem[];
   const Plan& p = a.p;
   const int S = a.S, Sp = (S + 3) & ~3, T = a.T;
+  const SmemPlan sp(p, T, a.stages, a.kg, S);
+  uint4* slots = reinterpret_cast<uint4*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + sp.ring_bytes);
+  float* act = reinterpret_cast<float*>(smem + sp.ring_bytes + BAR_BYTES);
   Smem m;
   m.T = T;
-  m.W8 = p.W8;
-  m.H = sm;
-  m.B = m.H + p.HR * T;
-  m.E = m.B + p.W8 * T;
-  m.R = m.E + p.E8 * T;
-  m.wbuf = m.R + p.Ev8 * T;
-  m.tok = sm + overlay_floats(p, T, Sp);
+  m.SH = sp.SH; m.SE = sp.SE; m.SR = sp.SR;
+  m.H = act;
+  m.E = m.H + m.SH * T;
+  m.R = m.E + m.SE * T;
+  m.tok = act + sp.overlay_floats;
   m.rgb = m.tok + Sp * 16;
   m.nv = m.rgb + Sp * 4;
   m.dep = m.nv + Sp;
   m.alpha = m.dep + Sp;
 
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.stages; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int groups = 0;                       // ring groups a tile
+  for (int li = 0; li < p.n_layers; ++li) groups += (p.layer[li].ks + a.kg - 1) / a.kg;
+  const int ntiles = (S + T - 1) / T;
+  const int my_rays = (a.N - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  Ring ring;
+  ring.slots = slots;
+  ring.full = full;
+  ring.src = a.frag;
+  ring.p = &a.p;
+  ring.stages = a.stages;
+  ring.slot_units = a.kg * p.max_units;
+  ring.kg = a.kg;
+  ring.total = my_rays * ntiles * groups;
+  ring.issued = ring.consumed = ring.il = ring.is = 0;
+  for (int i = 0; i + 1 < a.stages; ++i) ring.issue();
+
   for (int n = blockIdx.x; n < a.N; n += gridDim.x) {
-    for (int row0 = 0; row0 < S; row0 += T) mlp_tile<BF16>(a, m, n, row0);
+    for (int row0 = 0; row0 < S; row0 += T) mlp_tile<BF16, MR>(a, m, ring, n, row0);
     __syncthreads();
-    ray_tail(a, m, sm, n, Sp);
+    ray_tail(a, TailBuffers{a.small, act, m.tok, m.rgb, m.nv, m.dep, m.alpha}, n, Sp);
     __syncthreads();                    // the tail is done before the next ray's staging
   }
 }
 
+template <bool BF16, int MR>
+int launch_mr(const Args& a, size_t smem, cudaStream_t stream) {
+  auto kernel = cond_nerf_decode_any_kernel<BF16, MR>;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = a.N < sms * per_sm ? a.N : sms * per_sm;
+  kernel<<<grid, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <bool BF16>
-int launch(Args a, int n_small, int n_wts, int W, int D, int skip_mask, cudaStream_t stream) {
+int launch(Args a, int n_small, int n_units, int W, int D, int skip_mask, cudaStream_t stream) {
   const int CD = a.Gf + 4 * a.V;
   if (a.N < 0 || a.S < 1 || a.S > S_MAX || a.Gf < 0 || a.V < 1 || CD > CD_MAX || W < W_MIN ||
       W > W_MAX || (W & 1) || D < 1 || D > D_MAX || a.L3 < 0 || a.L3 > L_MAX || a.Lv < 0 ||
       a.Lv > L_MAX || a.act < 0 || a.act > 2 || (skip_mask & 1) || skip_mask >> D)
     return (int)cudaErrorInvalidValue;
-  a.p = make_plan(W, D, skip_mask, 3 + 6 * a.L3, 3 + 6 * a.Lv, CD);
-  if (a.p.n_small != n_small || a.p.n_wts != n_wts) return (int)cudaErrorInvalidValue;
+  a.p = make_plan(W, D, skip_mask, 3 + 6 * a.L3, 3 + 6 * a.Lv, CD, BF16);
+  if (a.p.n_small != n_small || a.p.n_units != n_units) return (int)cudaErrorInvalidValue;
   if (a.N == 0) return (int)cudaGetLastError();
   cudaError_t err;
-  int dev = 0, sms = 0, per_sm = 0, optin = 0;
+  int dev = 0, optin = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
       cudaSuccess)
     return (int)err;
-  // the tile: the most samples whose micro-tiles the 256 threads cover
-  // ((T / 8) (W8 / 8) <= 256) and whose buffers fit the shared memory, but
-  // no larger than the ray needs (32 at least)
-  const int Sp = (a.S + 3) & ~3;
-  auto smem_of = [&](int T) {
-    return ((size_t)overlay_floats(a.p, T, Sp) + (size_t)RAY_FLOATS_PER_SAMPLE * Sp) *
-           sizeof(float);
-  };
-  a.T = 0;
-  for (int T = 128; T >= 32 && a.T == 0; T >>= 1)
-    if ((T >> 3) * (a.p.W8 >> 3) <= THREADS && smem_of(T) <= (size_t)optin &&
-        (T == 32 || T / 2 < a.S))
-      a.T = T;
+  // the tile: the most samples whose outputs the warps hold (8 / MR n16
+  // pairs of MR m16 tiles a warp across WARPS / (T / 16 MR) column bands)
+  // and whose buffers fit, but no larger than the ray needs; then the ring:
+  // the most k-steps a group (fewer barriers, more bytes in flight) with 3
+  // stages, else 2
+  const int plans[][2] = {{4, 3}, {2, 3}, {4, 2}, {2, 2}, {1, 3}, {1, 2}};   // kg, stages
+  a.T = a.stages = a.kg = 0;
+  for (int T = 128; T >= 16 && a.T == 0; T >>= 1) {
+    const int MR = tile_mr(T), CG = WARPS / (T / (16 * MR));
+    if (a.p.max_nt / 2 > 8 / MR * CG || !(T == 16 || T / 2 < a.S)) continue;
+    for (const auto& kp : plans)
+      if (a.T == 0 && SmemPlan(a.p, T, kp[1], kp[0], a.S).total <= (size_t)optin) {
+        a.T = T;
+        a.kg = kp[0];
+        a.stages = kp[1];
+      }
+  }
   if (a.T == 0) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = smem_of(a.T);
-  if ((err = cudaFuncSetAttribute(cond_nerf_decode_any_kernel<BF16>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-      cudaSuccess)
-    return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, cond_nerf_decode_any_kernel<BF16>, THREADS, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = a.N < sms * per_sm ? a.N : sms * per_sm;
-  cond_nerf_decode_any_kernel<BF16><<<grid, THREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  const size_t smem = SmemPlan(a.p, a.T, a.stages, a.kg, a.S).total;
+  return tile_mr(a.T) == 2 ? launch_mr<BF16, 2>(a, smem, stream)
+                           : launch_mr<BF16, 1>(a, smem, stream);
 }
 
 Args make_args(const void* pts, const void* ray_unit, const void* feat, const void* color,
                const void* mask, const void* depth, const void* ray, const void* small,
-               const void* wts, const void* postab, void* out, int N, int S, int Gf, int V,
+               const void* frag, const void* postab, void* out, int N, int S, int Gf, int V,
                int L3, int Lv, int legacy, int act, int maskfill, int wo_interval, int setbg) {
   Args a;
   a.pts = static_cast<const float*>(pts);
@@ -760,33 +808,34 @@ Args make_args(const void* pts, const void* ray_unit, const void* feat, const vo
   a.depth = static_cast<const float*>(depth);
   a.ray = static_cast<const float*>(ray);
   a.small = static_cast<const float*>(small);
-  a.wts = static_cast<const float*>(wts);
+  a.frag = static_cast<const uint4*>(frag);
   a.postab = static_cast<const float*>(postab);
   a.out = static_cast<float*>(out);
   a.N = N; a.S = S; a.Gf = Gf; a.V = V; a.L3 = L3; a.Lv = Lv; a.legacy = legacy;
   a.act = act; a.maskfill = maskfill; a.wo_interval = wo_interval; a.setbg = setbg;
-  a.T = 0;
+  a.T = a.stages = a.kg = 0;
   return a;
 }
 
 }  // namespace
 
-// pts, ray_unit, feat, color, mask, depth, ray, small (n_small f32), weights
-// (n_wts f32), postab [S][16] or NULL, out [N][5]; n_small, n_wts, N, S, Gf,
-// V, net_width, net_depth, skip_mask (bit l: pts_linears[l] reads [enc, h]),
-// L_3D, L_view, legacy, act (0 ReLU, 1 ELU, 2 GELU tanh), maskfill,
-// wo_render_interval, setbg; returns cudaGetLastError().
+// pts, ray_unit, feat, color, mask, depth, ray, small (n_small f32),
+// fragments (n_units 16-byte units of the route), postab [S][16] or NULL,
+// out [N][5]; n_small, n_units, N, S, Gf, V, net_width, net_depth,
+// skip_mask (bit l: pts_linears[l] reads [enc, h]), L_3D, L_view, legacy,
+// act (0 ReLU, 1 ELU, 2 GELU tanh), maskfill, wo_render_interval, setbg;
+// returns cudaGetLastError().
 #define COND_NERF_DECODE_ANY_ENTRY(NAME, BF16)                                                   \
   extern "C" int NAME(const void* pts, const void* ray_unit, const void* feat,                  \
                       const void* color, const void* mask, const void* depth, const void* ray,  \
-                      const void* small, const void* wts, const void* postab, void* out,        \
-                      int n_small, int n_wts, int N, int S, int Gf, int V, int W, int D,        \
+                      const void* small, const void* frag, const void* postab, void* out,       \
+                      int n_small, int n_units, int N, int S, int Gf, int V, int W, int D,      \
                       int skip_mask, int L3, int Lv, int legacy, int act, int maskfill,         \
                       int wo_interval, int setbg, void* stream) {                               \
-    return launch<BF16>(make_args(pts, ray_unit, feat, color, mask, depth, ray, small, wts,     \
+    return launch<BF16>(make_args(pts, ray_unit, feat, color, mask, depth, ray, small, frag,    \
                                   postab, out, N, S, Gf, V, L3, Lv, legacy, act, maskfill,      \
                                   wo_interval, setbg),                                          \
-                        n_small, n_wts, W, D, skip_mask, static_cast<cudaStream_t>(stream));    \
+                        n_small, n_units, W, D, skip_mask, static_cast<cudaStream_t>(stream));  \
   }
 
 COND_NERF_DECODE_ANY_ENTRY(cond_nerf_decode_any_f32, false)

@@ -279,45 +279,56 @@ int launch(const void* table, const void* grids, const void* scales, void* out,
 
 // ---------------------------------------------------------------- backward
 //
-// B': d_table of the f32 prior (no dequantisation scales), zeroed by the
-// wrapper; V is a run-time argument (the pair comes from blockIdx.y). Per
-// sample and pair the same 16 lanes recompute the four-tap
-// interpolation of the pair's two sides (the forward's tap rule: clip,
-// floor, border-clamped x1/y1), run the pair-mean grouped-cosine backward
-// exactly as pallas_banded.py::_grouped_cosine_bwd (no gradient through a
-// norm clamped at eps) and owe each side's gradient times each bilinear
-// weight to its four tap rows. Each (view, chunk) is one side of exactly one
-// pair, so the pairs' gradients touch disjoint columns of d_table.
+// B': d_table of the f32 prior (no dequantisation scales); V is a run-time
+// argument (the pair comes from blockIdx.y). Per sample and pair the same
+// 16 lanes recompute the four-tap interpolation of the pair's two sides
+// (the forward's tap rule: clip, floor, border-clamped x1/y1), run the
+// pair-mean grouped-cosine backward exactly as pallas_banded.py::
+// _grouped_cosine_bwd (no gradient through a norm clamped at eps) and owe
+// each side's gradient times each bilinear weight to its four tap rows.
+// Each (view, chunk) is one side of exactly one pair, so the pairs'
+// gradients touch disjoint columns of d_table.
 //
 // What bounds it: the scatter into d_table. Added one tap at a time it is
-// V views x 4 taps x (V-1)32 float4 atomics a sample (1.0e8 a launch at
-// 1024 rays x 128 samples and V = 3), and the 16 samples of a block, consecutive samples
-// of one ray, hit the same few cells at once. A ray's consecutive samples
-// mostly stay in a cell, so the design sums on chip first, as the JAX VJP's
-// per-ray dedup did with its kt buckets:
+// V views x 4 taps x (V-1)32 float4 adds a sample (1.0e8 a launch at 1024
+// rays x 128 samples and V = 3), and the 16 samples of a block, consecutive
+// samples of one ray, hit the same few cells at once. A ray's consecutive
+// samples mostly stay in a cell, so the design sums on chip first, as the
+// JAX VJP's per-ray dedup did with its kt buckets:
 //
 // 1. A block is 8 walks of 16 lanes, all on one pair (blockIdx.y, one of
-//    V(V-1)/2), so a lane holds 8 channels of each of the pair's two sides. A walk takes
-//    WALK consecutive samples (flat n = ray * S + s: a ray's samples are
-//    contiguous) in order, so the walks in flight at one time lie on
-//    different rays, or far apart on one.
+//    V(V-1)/2), so a lane holds 8 channels of each of the pair's two sides.
+//    A walk takes WALK consecutive samples (flat n = ray * S + s: a ray's
+//    samples are contiguous) in order.
 // 2. Parity slots: a 2x2 footprint holds exactly one cell of each (row
 //    parity, column parity), so slot 2*py + px of a side holds the cell of
 //    parities (py, px) and a cell that stays in the footprint stays in its
 //    slot. A lane keeps each slot's 8-channel sum in registers while the
-//    slot's cell stays the same from sample to sample, and adds it to
-//    d_table, two float4 atomics, when the cell changes and at the end of
-//    the walk: one atomic per (run, cell, 4 channels), not per (sample,
-//    tap). No rule assumes monotone rays: a cell that leaves and comes back
-//    opens a new run, and any jump flushes every slot.
+//    slot's cell stays the same from sample to sample, and ends the run when
+//    the cell changes and at the end of the walk: one record per (run,
+//    cell), not one add per (sample, tap). No rule assumes monotone rays: a
+//    cell that leaves and comes back opens a new run, and any jump ends
+//    every slot's run.
 // 3. Borders: where x0 = W-1 the tap x1 is clamped onto x0 with weight
 //    wx1 = x - x0 = 0 exactly (likewise y), so the slot of the cell past
-//    the border (x = W) reads the clamped row with weight 0 and is never
-//    flushed (key -1); the other slot holds x0 with its full weight.
+//    the border (x = W) reads the clamped row with weight 0 and never makes
+//    a record (key -1); the other slot holds x0 with its full weight.
+// 4. The same sums on every run (training repeats itself, as the JAX step
+//    does): a run's sum is not added to d_table with an atomic, whose order
+//    changes from run to run. The runs of a (walk, view) depend on the
+//    grids alone, so a count pass (cosine_prior_bwd_count) gives each
+//    (walk, view) its number of runs and the wrapper's exclusive scan its
+//    first record. The walk writes each run as a record at a position fixed
+//    by (walk, view, run ordinal): the run's (V-1)C-channel table row, each
+//    pair filling its chunk's columns, and its cell. The wrapper sorts the
+//    cells, stably, and prior_bwd_reduce_f32 sums each cell's records in
+//    that order, the order of their positions, into its d_table row. The
+//    records add ~(V-1)C x 4 bytes written and read per run (~0.33 GB each
+//    way at scale 1 of configs/train.yaml).
 //
 // f32 throughout; the result differs from the plain twin only in the order
 // of summation. python -m matchnerf_tpu_torch.profile_prior --backward
-// counts the atomics for the training grids.
+// counts the runs for the training grids.
 
 constexpr int BWD_THREADS = 128;
 constexpr int BWD_WALKS = BWD_THREADS / LANES;    // walks per block
@@ -329,16 +340,6 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
   f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-__device__ __forceinline__ void atomic_add8(float* p, const float* v) {
-#if (__CUDACC_VER_MAJOR__ > 12) || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 4)
-  atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  atomicAdd(reinterpret_cast<float4*>(p + 4), make_float4(v[4], v[5], v[6], v[7]));
-#else
-#pragma unroll
-  for (int e = 0; e < 8; ++e) atomicAdd(p + e, v[e]);
-#endif
 }
 
 // one view's footprint at one sample in parity slots (item 2 above): the
@@ -381,17 +382,59 @@ __device__ __forceinline__ void interp8(const float* __restrict__ table, const F
     out[e] = r[0][e] * f.w[0] + r[1][e] * f.w[1] + r[2][e] * f.w[2] + r[3][e] * f.w[3];
 }
 
-// one side's slots after one more sample: a slot whose cell changed adds its
-// sum to d_table (at column c0 of its row) and restarts with this sample's
-// weight times df; a slot that keeps its cell accumulates. Only the add
-// branches: the two walks of a warp rarely flush together.
+// the runs of one walk over one view (item 4 above): the count pass's rule,
+// which the records follow in the same order (per sample slots 0..3, then
+// the walk's last runs)
+__global__ void cosine_prior_bwd_count_kernel(const float* __restrict__ grids,
+                                              int* __restrict__ counts, int V, int H, int W,
+                                              int N, int walks) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= walks * V) return;
+  const int walk = i / V, v = i - walk * V;
+  int key[4] = {-1, -1, -1, -1}, runs = 0;
+  const int n_end = min(N, (walk + 1) * WALK);
+#pragma unroll 1
+  for (int n = walk * WALK; n < n_end; ++n) {
+    const Foot f = footprint(grids, v, n, N, H, W);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (f.key[s] != key[s]) {
+        runs += key[s] >= 0;
+        key[s] = f.key[s];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 4; ++s) runs += key[s] >= 0;
+  counts[i] = runs;
+}
+
+// where one side of a walk writes its runs: record `pos` (the next one of
+// its (walk, view)) holds the run's sum in columns col .. col + 7 of its
+// (V-1)C-channel row; the side whose chunk is 0 also writes the cell
+struct Records {
+  float* rec;
+  int* keys;
+  int pos, CC, col;
+  bool key_writer;
+  __device__ __forceinline__ void put(int key, const float (&v)[8]) {
+    float* dst = rec + (size_t)pos * CC + col;
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    if (key_writer) keys[pos] = key;
+    ++pos;
+  }
+};
+
+// one side's slots after one more sample: a slot whose cell changed writes
+// its run and restarts with this sample's weight times df; a slot that
+// keeps its cell accumulates
 __device__ __forceinline__ void slot_update(float (&acc)[4][8], int (&key)[4], const Foot& f,
-                                            const float* df, float* __restrict__ d_table,
-                                            int CC, int c0) {
+                                            const float* df, Records& out) {
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const bool changed = f.key[s] != key[s];
-    if (changed && key[s] >= 0) atomic_add8(d_table + (size_t)key[s] * CC + c0, acc[s]);
+    if (changed && key[s] >= 0) out.put(key[s], acc[s]);
     key[s] = f.key[s];
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[s][e] = fmaf(f.w[s], df[e], changed ? 0.f : acc[s][e]);
@@ -400,20 +443,24 @@ __device__ __forceinline__ void slot_update(float (&acc)[4][8], int (&key)[4], c
 
 __global__ void __launch_bounds__(BWD_THREADS)
 cosine_prior_bwd_kernel(const float* __restrict__ table, const float* __restrict__ grids,
-                        const float* __restrict__ g, float* __restrict__ d_table,
-                        int V, int H, int W, int G, int N) {
+                        const float* __restrict__ g, const int* __restrict__ starts,
+                        float* __restrict__ rec, int* __restrict__ keys, int V, int H, int W,
+                        int G, int N, int walks) {
   const int CC = (V - 1) * C;
   const float inv_p = 1.f / (float)n_pairs(V);    // the mean over the pairs
   const int p = blockIdx.y;
   const int vi = pair_first(V, p), vj = pair_second(V, p), ca = (vj - 1) * C, cb = vi * C;
   const int lane = threadIdx.x % LANES;
   const int walk = blockIdx.x * BWD_WALKS + threadIdx.x / LANES;
+  if (walk >= walks) return;              // the whole walk: its 16 lanes leave together
   // the walk's 16 lanes shuffle among themselves only: the two walks of a
-  // warp branch apart at their flushes and ends
+  // warp branch apart at their run ends and ends
   const unsigned mask = 0xffffu << (threadIdx.x & 16);
   const int o = lane * 8;
   const int lanes_per_group = LANES / G;
   const int group = lane / lanes_per_group;
+  Records out[2] = {{rec, keys, starts[walk * V + vi], CC, ca + o, lane == 0 && ca == 0},
+                    {rec, keys, starts[walk * V + vj], CC, cb + o, lane == 0 && cb == 0}};
 
   float acc[2][4][8];
   int key[2][4];
@@ -450,28 +497,87 @@ cosine_prior_bwd_kernel(const float* __restrict__ table, const float* __restrict
       dfa[e] = d_dot * fb[e] + 2.f * d_na2 * fa[e];
       dfb[e] = d_dot * fa[e] + 2.f * d_nb2 * fb[e];
     }
-    slot_update(acc[0], key[0], ta, dfa, d_table, CC, ca + o);
-    slot_update(acc[1], key[1], tb, dfb, d_table, CC, cb + o);
+    slot_update(acc[0], key[0], ta, dfa, out[0]);
+    slot_update(acc[1], key[1], tb, dfb, out[1]);
   }
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
-    if (key[0][s] >= 0) atomic_add8(d_table + (size_t)key[0][s] * CC + ca + o, acc[0][s]);
-    if (key[1][s] >= 0) atomic_add8(d_table + (size_t)key[1][s] * CC + cb + o, acc[1][s]);
+    if (key[0][s] >= 0) out[0].put(key[0][s], acc[0][s]);
+    if (key[1][s] >= 0) out[1].put(key[1][s], acc[1][s]);
+  }
+}
+
+// B' and D''s last pass: one warp per cell of the stably sorted record
+// cells, at the first of its records (the others leave); it sums the
+// cell's records in their sorted order, which is the order of their
+// positions, and writes the sum into the cell's d_table row (rows that no
+// record names stay as the caller zeroed them).
+__global__ void prior_bwd_reduce_kernel(const int* __restrict__ sorted_keys,
+                                        const int64_t* __restrict__ order,
+                                        const float* __restrict__ rec,
+                                        float* __restrict__ d_table, int R, int CC) {
+  const int i = (int)(((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= R) return;
+  const int key = sorted_keys[i];
+  if (i > 0 && sorted_keys[i - 1] == key) return;
+  int end = i + 1;
+  while (end < R && sorted_keys[end] == key) ++end;
+  for (int c = 4 * lane; c < CC; c += 128) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = i; j < end; ++j) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(rec + (size_t)order[j] * CC + c));
+      s.x += x.x; s.y += x.y; s.z += x.z; s.w += x.w;
+    }
+    *reinterpret_cast<float4*>(d_table + (size_t)key * CC + c) = s;
   }
 }
 
 }  // namespace
 
-extern "C" int cosine_prior_bwd_f32(const void* table, const void* grids,
-                                    const void* g, void* d_table, int views, int H,
-                                    int W, int channels, int G, int N, void* stream) {
+// B''s count pass: counts [walks * V] int32, the runs of each (walk, view),
+// walks = ceil(N / 64)
+extern "C" int cosine_prior_bwd_count(const void* grids, void* counts, int views, int H, int W,
+                                      int N, void* stream) {
+  if (views < MIN_V || views > MAX_V || H <= 0 || W <= 0 || N < 0)
+    return (int)cudaErrorInvalidValue;
+  const int walks = (N + WALK - 1) / WALK;
+  if (walks == 0) return (int)cudaGetLastError();
+  cosine_prior_bwd_count_kernel<<<(walks * views + 255) / 256, 256, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(grids), static_cast<int*>(counts), views, H, W, N, walks);
+  return (int)cudaGetLastError();
+}
+
+// B''s records: starts [walks * V] int32, the first record of each (walk,
+// view) (the exclusive scan of the counts); rec [n_records, (V-1)C] f32 and
+// keys [n_records] int32 (each run's table row), every entry written
+extern "C" int cosine_prior_bwd_f32(const void* table, const void* grids, const void* g,
+                                    const void* starts, void* rec, void* keys, int views,
+                                    int H, int W, int channels, int G, int N, void* stream) {
   if (!args_ok(views, H, W, channels, G, N)) return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
   const int walks = (N + WALK - 1) / WALK;
   const dim3 blocks((walks + BWD_WALKS - 1) / BWD_WALKS, n_pairs(views));
   cosine_prior_bwd_kernel<<<blocks, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), static_cast<const float*>(grids),
-      static_cast<const float*>(g), static_cast<float*>(d_table), views, H, W, G, N);
+      static_cast<const float*>(g), static_cast<const int*>(starts), static_cast<float*>(rec),
+      static_cast<int*>(keys), views, H, W, G, N, walks);
+  return (int)cudaGetLastError();
+}
+
+// B' and D''s sum of the records into d_table [*, CC] f32: sorted_keys
+// [R] int32 (the records' table rows, stably sorted) and order [R] int64
+// (each one's record)
+extern "C" int prior_bwd_reduce_f32(const void* sorted_keys, const void* order, const void* rec,
+                                    void* d_table, int R, int CC, void* stream) {
+  if (R < 0 || CC <= 0 || CC % 4) return (int)cudaErrorInvalidValue;
+  if (R == 0) return (int)cudaGetLastError();
+  const size_t threads = (size_t)R * 32;
+  prior_bwd_reduce_kernel<<<(unsigned)((threads + 255) / 256), 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(sorted_keys), static_cast<const int64_t*>(order),
+      static_cast<const float*>(rec), static_cast<float*>(d_table), R, CC);
   return (int)cudaGetLastError();
 }
 

@@ -49,17 +49,21 @@ SIGNATURES = {
     "cosine_prior_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cosine_prior_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cosine_prior_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # table, grids, g, d_table, V, H, W, C, G, N, stream
-    "cosine_prior_bwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # grids, counts, V, H, W, N, stream
+    "cosine_prior_bwd_count": [_P, _P, _I, _I, _I, _I, _P],
+    # table, grids, g, starts, rec, keys, V, H, W, C, G, N, stream
+    "cosine_prior_bwd_f32": [_P] * 6 + [_I] * 6 + [_P],
+    # sorted_keys, order, rec, d_table, R, CC, stream
+    "prior_bwd_reduce_f32": [_P] * 4 + [_I, _I, _P],
     # pts, ray_unit, feat, color, mask, depth, ray, small, fragments, postab
     # (or NULL), out, fragment 16-byte units, N, S, Gf, V, act, maskfill,
     # wo_render_interval, setbg, stream
     "cond_nerf_decode_f32": [_P] * 11 + [_I] * 9 + [_P],
     "cond_nerf_decode_bf16": [_P] * 11 + [_I] * 9 + [_P],
-    # pts, ray_unit, feat, color, mask, depth, ray, small, weights, postab
-    # (or NULL), out, n_small, n_weights, N, S, Gf, V, net_width, net_depth,
-    # skip_mask, L_3D, L_view, legacy, act, maskfill, wo_render_interval,
-    # setbg, stream
+    # pts, ray_unit, feat, color, mask, depth, ray, small, fragments, postab
+    # (or NULL), out, n_small, fragment 16-byte units, N, S, Gf, V,
+    # net_width, net_depth, skip_mask, L_3D, L_view, legacy, act, maskfill,
+    # wo_render_interval, setbg, stream
     "cond_nerf_decode_any_f32": [_P] * 11 + [_I] * 16 + [_P],
     "cond_nerf_decode_any_bf16": [_P] * 11 + [_I] * 16 + [_P],
     # table, grids, scales (or NULL), unions_out (or NULL), out, V, H, W, C,
@@ -67,8 +71,11 @@ SIGNATURES = {
     "block_cosine_prior_i8": [_P] * 5 + [_I] * 9 + [_P],
     "block_cosine_prior_f32": [_P] * 5 + [_I] * 9 + [_P],
     "block_cosine_prior_bf16": [_P] * 5 + [_I] * 9 + [_P],
-    # table, grids, unions, g, d_table, V, H, W, C, G, R, S, NB, ut, CP, stream
-    "block_cosine_prior_bwd_f32": [_P] * 5 + [_I] * 10 + [_P],
+    # grids, unions, counts, V, H, W, R, S, NB, ut, CP, stream
+    "block_cosine_prior_bwd_count": [_P] * 3 + [_I] * 8 + [_P],
+    # table, grids, unions, g, starts, rec, keys, V, H, W, C, G, R, S, NB,
+    # ut, CP, stream
+    "block_cosine_prior_bwd_f32": [_P] * 7 + [_I] * 10 + [_P],
     # colors_sc, grids, out, V, Hs, Ws, img_h, img_w, N (= R*S), stream
     "supercell_color_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # rows, weights, scales (or NULL), out, V, C, G, N, stream
@@ -169,16 +176,22 @@ def library() -> ctypes.CDLL:
         return lib
 
 
-def launch(counter: LaunchCounter, fn_name: str, *args, variant: str = "") -> None:
-    """Call one launcher on the current stream; raise on a CUDA error.
-    A non-empty `variant` is counted under `counter.by_variant` too."""
+def call(fn_name: str, *args) -> None:
+    """Call one launcher on the current stream, uncounted (a kernel's
+    helper pass, such as B' and D''s count and sum passes); raise on a
+    CUDA error."""
     import torch
     fn = getattr(library(), fn_name)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, stream)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} "
                            f"({torch.cuda.get_device_name()})")
+
+
+def launch(counter: LaunchCounter, fn_name: str, *args, variant: str = "") -> None:
+    """Call one launcher on the current stream; raise on a CUDA error.
+    A non-empty `variant` is counted under `counter.by_variant` too."""
+    call(fn_name, *args)
     counter.launches += 1
     counter.by_entry[fn_name] = counter.by_entry.get(fn_name, 0) + 1
     if variant:

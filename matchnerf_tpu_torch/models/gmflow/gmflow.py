@@ -134,8 +134,14 @@ def extract_pair_features(enc: GMFlow, images: torch.Tensor, attn_splits_list,
     for attn_splits, scale in zip(attn_splits_list, scales):
         _, h, w, _ = feats[scale].shape
         feat = feats[scale].reshape(b, v, h, w, C)
-        feat0 = _add_position(feat[:, idx0].reshape(b * n_pairs, h, w, C), attn_splits, C)
-        feat1 = _add_position(feat[:, idx1].reshape(b * n_pairs, h, w, C), attn_splits, C)
+        # the pairs' views stacked from slices, not gathered by a list index:
+        # the gradient of a view then sums its pairs' slices in a fixed
+        # order (the backward of advanced indexing adds in an order that
+        # changes with the CPU's threads)
+        feat0 = _add_position(torch.stack([feat[:, i] for i in idx0], 1).reshape(
+            b * n_pairs, h, w, C), attn_splits, C)
+        feat1 = _add_position(torch.stack([feat[:, i] for i in idx1], 1).reshape(
+            b * n_pairs, h, w, C), attn_splits, C)
         # no shift mask at one split (transformer.py:108)
         rid = (shift_region_ids(h, w, attn_splits, device=feat.device)
                if attn_splits > 1 else None)

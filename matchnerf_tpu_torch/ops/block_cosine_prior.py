@@ -5,10 +5,11 @@ Replaces matchnerf_tpu/ops/pallas_block_banded.py::block_banded_cosine_scale
 (the eval render's block-banded Pallas kernel: Kernel D, on int8 tables
 with scales and on bf16 tables without) and
 ::block_banded_cosine_scale_trainable (its custom VJP on f32 tables: D', an
-f32 forward and a backward that sums each union row's gradient over the
-block in shared memory, each walk's consecutive samples (a band of depths
-across the block's 8 rays) merged in registers first, before one global
-add per row; the JAX package
+f32 forward and a backward that sums each union row's gradient over each
+walk's consecutive samples (a band of depths across the block's 8 rays) in
+registers, writes each run as a record at a position fixed by the input
+and sums a cell's records in that order (`table_grad`), so two runs give
+the same bits, as the JAX step does; the JAX package
 also reaches it on bf16 eval tables, whose forward is Kernel D's). The
 CUDA source is csrc/block_cosine_prior.cu; `block_cosine_prior_plain` is
 the same function in plain PyTorch, along the same union route, and its
@@ -46,8 +47,9 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from .cosine_prior import check_table, pair_cosine_mean
-from .grid_sample import bilinear_taps
+from .cosine_prior import (RecordCount, check_table, pair_cosine_mean,
+                           table_grad_from_records)
+from .grid_sample import bilinear_taps, take_rows
 
 SOURCE = "matchnerf_tpu_torch/csrc/block_cosine_prior.cu"
 # the forward's C launcher per table dtype
@@ -64,6 +66,7 @@ BWD_COUNTER = kernels.LaunchCounter(
     replaces="matchnerf_tpu/ops/pallas_block_banded.py:311")
 
 BLOCK_RAYS = 8
+BWD_THREADS = 512                 # D''s backward: threads a block, one walk per sample group
 UT_BUCKETS = (64, 96, 128, 160, 192, 256, 320, 384, 512)
 MAX_SMEM = 232448                 # bytes of shared memory a block may have (sm_90)
 
@@ -86,9 +89,9 @@ def fwd_smem(ut: int, S: int, cp: int, itemsize: int, hw: int = 0, n_views: int 
 
 
 def bwd_smem(ut: int, S: int, cp: int, n_views: int = 3) -> int:
-    """Bytes of D''s backward's dynamic shared memory (csrc LayoutPass): the
-    two sides' f32 rows and their gradient rows, then the taps, the
-    fractions and the union."""
+    """Bytes of D''s backward's dynamic shared memory (csrc LayoutPass): two
+    buffers of the two sides' f32 rows (this pass's and the next one's),
+    then the taps, the fractions and the union."""
     return 4 * (ut + 1) * cp * 4 + per_view_smem(ut, S, n_views)
 
 
@@ -272,7 +275,8 @@ def block_cosine_prior_plain(table, grids, scales, n_groups: int, ut: int):
     blocks = torch.arange(NB, device=table.device)[:, None]
     sampled = []
     for v in range(V):
-        rows = table[v].reshape(H * W, Cc)[torch.clamp_min(unions[v], 0).long()]
+        rows = take_rows(table[v].reshape(H * W, Cc),
+                         torch.clamp_min(unions[v], 0).long().reshape(-1))  # [NB*ut,Cc]
         (y0, x0, y1, x1), (wy0, wx0, wy1, wx1) = bilinear_taps(gp[v], H, W)
         acc = None
         for yi, xi, w in ((y0, x0, wy0 * wx0), (y0, x1, wy0 * wx1),
@@ -280,7 +284,8 @@ def block_cosine_prior_plain(table, grids, scales, n_groups: int, ut: int):
             cells = (yi * W + xi).reshape(NB, BLOCK_RAYS * S)
             pos, found = union_positions(unions[v], cells, H * W)
             w = torch.where(found, w.reshape(NB, -1), 0.0)
-            tap = rows[blocks, pos].float() * w[..., None]          # [NB,8S,Cc]
+            tap = take_rows(rows, (blocks * ut + pos).reshape(-1)).reshape(
+                NB, -1, Cc).float() * w[..., None]                      # [NB,8S,Cc]
             acc = tap if acc is None else acc + tap
         acc = acc.reshape(NB * BLOCK_RAYS, S, Cc)[:R]
         if scales is not None:
@@ -355,27 +360,59 @@ def _forward(table, grids, scales, n_groups: int, ut: int, with_unions: bool = F
 
 class BlockCosinePriorFn(torch.autograd.Function):
     """D' forward and backward on a CUDA f32 table; saves the table, the
-    grids and the union the forward kernel built."""
+    grids and the union the forward kernel built, and runs the backward's
+    count pass after the forward."""
 
     @staticmethod
     def forward(ctx, table, grids, n_groups: int, ut: int):
         out, unions = _forward(table, grids, None, n_groups, ut, with_unions=True)
         ctx.save_for_backward(table, grids, unions)
         ctx.shape = (grids.shape[1], grids.shape[2], n_groups, ut)
+        ctx.runs = count_runs(table, grids, unions, n_groups, ut) if grids.shape[1] else None
         return out
 
     @staticmethod
     def backward(ctx, g):
         table, grids, unions = ctx.saved_tensors
-        R, S, G, ut = ctx.shape
-        V, H, W, Cc = table.shape
-        g = g.contiguous()
-        d_table = torch.zeros_like(table)
-        if R > 0:
-            gp = pad_rays(grids)
-            kernels.launch(BWD_COUNTER, "block_cosine_prior_bwd_f32", table.data_ptr(),
-                           gp.data_ptr(), unions.data_ptr(), g.data_ptr(),
-                           d_table.data_ptr(), V, H, W, Cc // (V - 1), G, R, S,
-                           gp.shape[1] // BLOCK_RAYS, ut,
-                           channels_per_pass(ut, S, G, backward=True, n_views=V))
-        return d_table, None, None, None
+        _, _, G, ut = ctx.shape
+        return (table_grad(table, grids, unions, g.contiguous(), G, ut, ctx.runs), None, None,
+                None)
+
+
+def count_runs(table, grids, unions, n_groups: int, ut: int) -> RecordCount:
+    """D''s count pass over the (edge-padded) grids and the forward's
+    unions; the walks are those of the backward's pass width."""
+    V, H, W, _ = table.shape
+    R, S = grids.shape[1:3]
+    gp = pad_rays(grids)
+    NB = gp.shape[1] // BLOCK_RAYS
+    cp = channels_per_pass(ut, S, n_groups, backward=True, n_views=V)
+    walks = BWD_THREADS // (8 if cp == 32 else 16)
+    counts = torch.empty(NB * walks * V, dtype=torch.int32, device=table.device)
+    kernels.call("block_cosine_prior_bwd_count", gp.data_ptr(), unions.data_ptr(),
+                 counts.data_ptr(), V, H, W, R, S, NB, ut, cp)
+    return RecordCount(counts)
+
+
+def table_grad(table, grids, unions, g, n_groups: int, ut: int, runs: RecordCount = None):
+    """D''s backward: d_table of the f32 prior for the cotangent g [R,S,G]
+    over the forward's unions, the same bits on every run (the count pass,
+    unless `runs` holds it, the records, their sum per cell in a fixed
+    order: cosine_prior.table_grad_from_records)."""
+    V, H, W, Cc = table.shape
+    R, S = grids.shape[1:3]
+    d_table = torch.zeros_like(table)
+    if R == 0:
+        return d_table
+    gp = pad_rays(grids)
+    NB = gp.shape[1] // BLOCK_RAYS
+    cp = channels_per_pass(ut, S, n_groups, backward=True, n_views=V)
+    runs = runs or count_runs(table, grids, unions, n_groups, ut)
+    n = runs.n()
+    rec = torch.empty(n, Cc, dtype=torch.float32, device=table.device)
+    keys = torch.empty(n, dtype=torch.int32, device=table.device)
+    kernels.launch(BWD_COUNTER, "block_cosine_prior_bwd_f32", table.data_ptr(), gp.data_ptr(),
+                   unions.data_ptr(), g.data_ptr(), runs.starts.data_ptr(), rec.data_ptr(),
+                   keys.data_ptr(), V, H, W, Cc // (V - 1), n_groups, R, S, NB, ut, cp)
+    table_grad_from_records(keys, rec, d_table)
+    return d_table

@@ -8,10 +8,12 @@ function in plain PyTorch (the JAX direct path: `grid_sample` on each view,
 then `_grouped_cosine`, matchnerf.py:389-402), and its autograd is the
 plain backward. On a CUDA f32 table that requires grad, `cosine_prior`
 goes through `CosinePriorFn`: Kernel B forward, then the B' backward
-kernel, which walks each ray's consecutive samples in order and adds a
-tap cell's summed gradient to the table gradient once per run of samples
-that keep the cell (float4 atomics; the JAX VJP's per-ray dedup, done in
-the kernel); the sample grids get no gradient (the JAX VJP returns zeros
+kernel, which walks each ray's consecutive samples in order and sums a
+tap cell's gradient over each run of samples that keep the cell (the JAX
+VJP's per-ray dedup, done in the kernel); each run is a record at a
+position fixed by the input, and the records of a cell are summed in that
+order (`table_grad_from_records`), so two runs give the same bits, as the
+JAX step does. The sample grids get no gradient (the JAX VJP returns zeros
 for them). On bf16 tables (the
 eval renders of configs/train.yaml) the JAX package reaches the
 `_trainable` wrapper too, whose forward is the same kernel: here Kernel B's
@@ -45,6 +47,7 @@ BWD_COUNTER = kernels.LaunchCounter(
 # configs/train.yaml) come without scales, as the TPU kernel takes them
 ENTRIES = {torch.int8: "cosine_prior_i8", torch.bfloat16: "cosine_prior_bf16",
            torch.float32: "cosine_prior_f32"}
+WALK = 64                         # B''s consecutive samples per walk (csrc WALK)
 
 
 def pair_index_lists(n_views: int):
@@ -144,24 +147,87 @@ def _forward(table, grids, scales, n_groups: int):
     return out
 
 
+class RecordCount:
+    """The runs of B' or D''s backward from its count pass (`counts`, per
+    unit): each unit's first record (the exclusive scan, int32 on the
+    device) and the number of records, copied to pinned host memory behind
+    an event. The wrappers count in the forward, so the backward's read of
+    the number (it sizes the records' buffer) finds it long copied and
+    does not wait for the device."""
+
+    def __init__(self, counts):
+        ends = torch.cumsum(counts, 0, dtype=torch.int32)
+        self.starts = ends - counts
+        self.total = torch.zeros((), dtype=torch.int32, pin_memory=True)
+        if ends.numel():
+            self.total.copy_(ends[-1], non_blocking=True)
+        self.ready = torch.cuda.Event()
+        self.ready.record()
+
+    def n(self) -> int:
+        self.ready.synchronize()
+        return int(self.total)
+
+
+def table_grad_from_records(keys, rec, d_table) -> None:
+    """B' and D''s last pass: sort the records' table rows `keys` [n]
+    int32, stably, and sum each row's records rec [n, (V-1)C] f32 in that
+    order (their positions) into d_table (zeroed by the caller)."""
+    n, CC = rec.shape
+    if n == 0:
+        return
+    sorted_keys, order = torch.sort(keys, stable=True)
+    kernels.call("prior_bwd_reduce_f32", sorted_keys.data_ptr(), order.data_ptr(),
+                 rec.data_ptr(), d_table.data_ptr(), n, CC)
+
+
+def count_runs(table, grids) -> RecordCount:
+    """B''s count pass over the grids [V,R,S,2] of a table [V,h,w,(V-1)C]."""
+    V, H, W, _ = table.shape
+    N = grids.shape[1] * grids.shape[2]
+    counts = torch.empty(-(-N // WALK) * V, dtype=torch.int32, device=table.device)
+    if N:
+        kernels.call("cosine_prior_bwd_count", grids.data_ptr(), counts.data_ptr(), V, H, W,
+                     N)
+    return RecordCount(counts)
+
+
+def table_grad(table, grids, g, n_groups: int, runs: RecordCount = None):
+    """The B' backward: d_table of the f32 prior [V,h,w,(V-1)C] for the
+    cotangent g [R,S,G], the same bits on every run (the count pass, unless
+    `runs` holds it, the records, their sum per cell in a fixed order)."""
+    V, H, W, Cc = table.shape
+    R, S = grids.shape[1:3]
+    N = R * S
+    d_table = torch.zeros_like(table)
+    if N == 0:
+        return d_table
+    runs = runs or count_runs(table, grids)
+    n = runs.n()
+    rec = torch.empty(n, Cc, dtype=torch.float32, device=table.device)
+    keys = torch.empty(n, dtype=torch.int32, device=table.device)
+    kernels.launch(BWD_COUNTER, "cosine_prior_bwd_f32", table.data_ptr(), grids.data_ptr(),
+                   g.data_ptr(), runs.starts.data_ptr(), rec.data_ptr(), keys.data_ptr(), V,
+                   H, W, Cc // (V - 1), n_groups, N)
+    table_grad_from_records(keys, rec, d_table)
+    return d_table
+
+
 class CosinePriorFn(torch.autograd.Function):
     """Kernel B forward and the B' backward on a CUDA f32 table; saves the
-    table and the grids."""
+    table and the grids, and runs the backward's count pass after the
+    forward."""
 
     @staticmethod
     def forward(ctx, table, grids, n_groups: int):
         ctx.save_for_backward(table, grids)
         ctx.n_groups = n_groups
-        return _forward(table, grids, None, n_groups)
+        out = _forward(table, grids, None, n_groups)
+        ctx.runs = count_runs(table, grids)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         table, grids = ctx.saved_tensors
-        V, H, W, Cc = table.shape
-        R, S = grids.shape[1:3]
-        g = g.contiguous()
-        d_table = torch.zeros_like(table)
-        kernels.launch(BWD_COUNTER, "cosine_prior_bwd_f32", table.data_ptr(),
-                       grids.data_ptr(), g.data_ptr(), d_table.data_ptr(), V, H, W,
-                       Cc // (V - 1), ctx.n_groups, R * S)
-        return d_table, None, None
+        return (table_grad(table, grids, g.contiguous(), ctx.n_groups, ctx.runs), None,
+                None)

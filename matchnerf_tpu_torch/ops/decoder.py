@@ -24,8 +24,8 @@ coordinates, ReLU, ELU or GELU (tanh form), Gf + 4V <= 128. Both take
 1 <= S <= S_MAX samples per ray.
 
 Routes (`matmul_dtype`, from precision.decoder_matmul_dtype): float32, the
-default, is f32 throughout (Kernel C takes its wide products in split TF32,
-Kernel Cg in f32 on the CUDA cores); bfloat16 rounds the operands of the
+default, is f32 throughout (Kernels C and Cg take their wide products in
+split TF32 on the tensor cores); bfloat16 rounds the operands of the
 wide products (pts_bias, the pts_linears, alpha_linear, feature_linear,
 views_linears.0, rgb_linear) to bf16 and accumulates in f32, as the JAX
 kernel's matmul_dtype=bfloat16 does; everything else stays f32.
@@ -185,7 +185,7 @@ def _stamp(dec: CondNeRF):
 
 def kernel_weights(dec: CondNeRF, matmul_dtype: torch.dtype, device, kernel: str = "C"):
     """Kernel C's (small, fragments) or, with kernel "Cg", Kernel Cg's
-    (small, weights) of the route on `device`, packed once per module,
+    (small, `any_fragments`) of the route on `device`, packed once per module,
     kernel, route and device and packed again when a parameter changes: an
     in-place update (optimizer step, load_state_dict) bumps its version, a
     move or replacement its storage. A write through `.data` is not seen."""
@@ -198,7 +198,9 @@ def kernel_weights(dec: CondNeRF, matmul_dtype: torch.dtype, device, kernel: str
             if kernel == "C":
                 packed = pack_small(dec), pack_fragments(dec, matmul_dtype)
             else:
-                packed = pack_any(dec, matmul_dtype)
+                small, wts = pack_any(dec, matmul_dtype)
+                packed = small, any_fragments(wts, any_plan(*decoder_shape(dec))[0],
+                                              matmul_dtype)
             hit = (stamp, *(t.to(device) for t in packed))
         per[key] = hit
     return hit[1], hit[2]
@@ -315,6 +317,35 @@ def pack_any(dec: CondNeRF, matmul_dtype: torch.dtype):
     return small, wts
 
 
+def pair_fragments_f32(w: torch.Tensor) -> torch.Tensor:
+    """One padded [K, N] f32 layer (K % 8 == 0, N % 16 == 0) in Kernel Cg's
+    f32 B-fragment order, as bytes: per (k8 step j, n16 pair p, lane 4g +
+    t) the 16 bytes W[8j+2t, n], W[8j+2t+1, n], W[8j+2t, n+8], W[8j+2t+1,
+    n+8] with n = 16p + g (the kernel splits them into TF32 hi and lo)."""
+    K, N = w.shape
+    x = w.reshape(K // 8, 4, 2, N // 16, 2, 8).permute(0, 3, 5, 1, 4, 2)
+    return x.reshape(K // 8, N // 16, 32, 4).contiguous().view(torch.uint8).reshape(-1)
+
+
+def any_fragments(wts, layers, matmul_dtype: torch.dtype) -> torch.Tensor:
+    """Kernel Cg's weight buffer (uint8, 16-byte units) from `pack_any`'s
+    row-major blocks: each layer's [K, np] block padded with zeros to
+    ceil16(np) columns and, on the bfloat16 route, to ceil16(K) rows, in
+    the route's B-fragment order (f32: `pair_fragments_f32`; bf16: Kernel
+    C's `fragments`, per k16 step and n16 pair), layer after layer (csrc
+    make_plan's foff)."""
+    parts = []
+    for lay in layers:
+        K, np_ = sum(p[1] for p in lay["parts"]), lay["np"]
+        block = wts[lay["woff"]:lay["woff"] + K * np_].reshape(K, np_)
+        bf16 = matmul_dtype == torch.bfloat16
+        padded = torch.zeros(_ceil16(K) if bf16 else K, _ceil16(np_), dtype=torch.float32,
+                             device=wts.device)
+        padded[:K, :np_] = block
+        parts.append(fragments(padded, matmul_dtype) if bf16 else pair_fragments_f32(padded))
+    return torch.cat(parts)
+
+
 def _posenc_freqs(cfg):
     posenc = cfg.decoder.posenc
     return (int(posenc.L_3D), int(posenc.L_view)) if posenc else (0, 0)
@@ -424,7 +455,7 @@ def cond_nerf_decode(dec: CondNeRF, cfg, points_3d, ray_unit, cond_info,
         W, D, skips, _, _, _ = decoder_shape(dec)
         L3, Lv = _posenc_freqs(cfg)
         kernels.launch(COUNTER_ANY, ROUTES_ANY[matmul_dtype], *ptrs, small.numel(),
-                       wts.numel(), N, S, Gf, V, W, D, sum(1 << l for l in skips), L3, Lv,
+                       wts.numel() // 16, N, S, Gf, V, W, D, sum(1 << l for l in skips), L3, Lv,
                        int(bool(cfg.nerf.legacy_coord)), *flags, variant=variant)
     out = out.reshape(B, R, 5)
     return out[..., 0:3], out[..., 3:4], out[..., 4:5]

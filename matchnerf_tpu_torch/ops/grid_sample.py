@@ -18,7 +18,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 
 def bilinear_taps(grid: torch.Tensor, H: int, W: int):
@@ -37,17 +36,28 @@ def bilinear_taps(grid: torch.Tensor, H: int, W: int):
     return (y0i, x0i, y1i, x1i), (1.0 - wy1, 1.0 - wx1, wy1, wx1)
 
 
+def take_rows(flat: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """flat[rows] of a [M, C] tensor at int64 rows [K], in the form whose
+    backward sums each row's gradients in an order fixed by the input on the
+    tensor's device, so a training step repeats itself: advanced indexing on
+    CUDA (its backward sorts the rows), index_select on the CPU (its
+    backward adds in order; those of advanced indexing on the CPU and of
+    index_select on CUDA add in an order that changes from run to run)."""
+    return flat[rows] if flat.is_cuda else flat.index_select(0, rows)
+
+
 def grid_sample_2d(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Sample `feat` [B,H,W,C] (any dtype) at `grid` [B,...,2] -> [B,...,C]
     f32, in the tap order and weight form of grid_sample.py:26."""
     B, H, W, C = feat.shape
     g = grid.reshape(B, -1, 2)
     (y0, x0, y1, x1), (wy0, wx0, wy1, wx1) = bilinear_taps(g, H, W)
-    flat = feat.reshape(B, H * W, C)
-    bidx = torch.arange(B, device=feat.device)[:, None]
+    flat = feat.reshape(B * H * W, C)
+    base = torch.arange(B, device=feat.device)[:, None] * (H * W)
 
     def tap(yi, xi):
-        return flat[bidx, yi * W + xi].float()                      # [B,N,C]
+        rows = (base + yi * W + xi).reshape(-1)
+        return take_rows(flat, rows).reshape(B, -1, C).float()      # [B,N,C]
 
     out = (tap(y0, x0) * (wy0 * wx0)[..., None]
            + tap(y0, x1) * (wy0 * wx1)[..., None]
@@ -63,14 +73,14 @@ def sample_features_by_grid(feat: torch.Tensor, grid: torch.Tensor,
     offsets (dx, dy) * local_dilation, rows (dy) outer (grid_sample.py:192).
     The offset points are renormalised by (W + (2r+1)*dilation - 1)/2 (and
     likewise in y), not by the map's (W-1)/2: the reference's arithmetic,
-    kept. Each offset is one `F.grid_sample` (bilinear, border,
-    align_corners: the same blend in one pass; the JAX package samples this
-    route in XLA, not in a Pallas kernel); the window is summed one offset
-    at a time (one [N,C] sample live, not K of them), then divided by K."""
+    kept. Each offset is one `grid_sample_2d` (bilinear, border,
+    align_corners; the JAX package samples this route in XLA, not in a
+    Pallas kernel; F.grid_sample's backward on CUDA adds with atomics, whose
+    order changes from run to run); the window is summed one offset at a
+    time (one [N,C] sample live, not K of them), then divided by K."""
     if local_radius <= 0:
         return grid_sample_2d(feat, grid)
     B, H, W, C = feat.shape
-    src = feat.float().permute(0, 3, 1, 2).contiguous()              # [B,C,H,W]
     dev = grid.device
     c = torch.tensor([(W - 1) / 2.0, (H - 1) / 2.0], dtype=torch.float32, device=dev)
     unnorm = grid.reshape(B, -1, 2) * c + c                         # [B,N,2] pixels
@@ -82,12 +92,9 @@ def sample_features_by_grid(feat: torch.Tensor, grid: torch.Tensor,
         for dx in range(-local_radius, local_radius + 1):
             off = torch.tensor([float(dx) * local_dilation, float(dy) * local_dilation],
                                dtype=torch.float32, device=dev)
-            pts = ((unnorm + off - c2) / c2)[:, :, None, :]             # [B,N,1,2]
-            vals = F.grid_sample(src, pts, mode="bilinear", padding_mode="border",
-                                 align_corners=True)                   # [B,C,N,1]
+            vals = grid_sample_2d(feat, (unnorm + off - c2) / c2)      # [B,N,C]
             total = vals if total is None else total + vals
-    out = (total / float(L * L))[..., 0].transpose(1, 2)               # [B,N,C]
-    return out.reshape(*grid.shape[:-1], C)
+    return (total / float(L * L)).reshape(*grid.shape[:-1], C)
 
 
 def tap_rows_and_weights(table: torch.Tensor, grid: torch.Tensor,

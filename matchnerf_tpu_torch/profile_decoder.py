@@ -3,6 +3,8 @@ time at a named decoder beside C's.
 
     python -m matchnerf_tpu_torch.profile_decoder [--seed 0]
     python -m matchnerf_tpu_torch.profile_decoder --cg nerf_mlp [--rays 8192 --samples 128]
+    python -m matchnerf_tpu_torch.profile_decoder --against DIR [--cg NAME ...]
+    python -m matchnerf_tpu_torch.profile_decoder --sass
 
 Builds csrc/cond_nerf_decode.cu once more with -DKERNEL_C_PHASES (clock64
 marks kept by threads 0 and 128 of every block; the kernel the port runs
@@ -21,6 +23,21 @@ CG_SHAPES[NAME] and Kernel C at the shipped decoder on the same inputs, both
 operand routes, with CUDA events in turns (C, Cg, Cg, C), and prints each
 kernel's milliseconds per launch, its TFLOP/s (2 per weight of the wide
 layers a sample) and the card's name.
+
+With --against DIR (another tree's csrc, e.g. from `git archive REV
+matchnerf_tpu_torch/csrc`), DIR's cond_nerf_decode.cu and
+cond_nerf_decode_any.cu are built into build/kernels/ with the same flags.
+Kernel C runs on both builds at the eval slice and at test_video_own's,
+both routes, on the same inputs: the outputs must be equal bit for bit, and
+both are timed in turns (other, this, this, other). Each --cg NAME (it may
+repeat) then times Kernel Cg of both builds in turns at that decoder, and
+prints their max |d| and each one's against the plain twin; DIR's Cg takes
+the weights as its source packs them (row-major f32 blocks, `pack_any`,
+before `any_fragments`; its weight count names the layout).
+
+With --sass, `cuobjdump -sass` counts the decoder kernels' instructions by
+opcode: HMMA (tensor-core products) against FFMA (CUDA-core fused
+multiply-adds), per kernel function.
 """
 from __future__ import annotations
 
@@ -126,13 +143,173 @@ def time_cg(name: str, R: int, S: int, seed: int):
     return out
 
 
+SASS_OPCODES = ("HMMA", "FFMA", "FMUL", "FADD", "LDS", "STS", "LDG", "BAR", "SYNCS", "UBLKCP")
+
+
+def sass_counts(lib_path: str) -> dict:
+    """{decoder kernel function: {opcode: static count}} of a built library."""
+    import collections
+    import re
+    from pathlib import Path
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed:\n{proc.stderr[-4000:]}")
+    counts, fn = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "cond_nerf_decode" in m.group(1) else None
+            if fn:
+                counts[fn] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if fn and m:
+            counts[fn][m.group(1)] += 1
+            counts[fn]["total"] += 1
+    return {k: {op: v[op] for op in (*SASS_OPCODES, "total")} for k, v in counts.items()}
+
+
+def _decode_inputs(torch, dev, R, S, seed):
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    rnd = lambda *s: torch.rand(*s, generator=g, device=dev)
+    ray = torch.randn(1, R, 3, generator=g, device=dev)
+    unit = (ray / ray.norm(dim=-1, keepdim=True))[:, :, None].expand(1, R, S, 3).contiguous()
+    cond = {"feat_info": rnd(1, R, S, 10) * 2 - 1, "color_info": rnd(1, R, S, 9),
+            "mask_info": (rnd(1, R, S, 3) > 0.3).float()}
+    depth = torch.sort(rnd(1, R, S) * 2.4 + 2.1, dim=-1).values[..., None].contiguous()
+    return rnd(1, R, S, 3) * 2 - 1, unit, cond, depth, ray
+
+
+def against(dir_, names, R, S, seed):
+    """Kernel C of this tree and of DIR bit for bit and in turns; Kernel Cg
+    of both in turns at each decoder of `names` (see the docstring)."""
+    import torch
+
+    from .config import dtu_eval_config, override_options, test_video_own_config
+    from .models.decoder.cond_nerf import CondNeRF
+    from .models.matchnerf import init_matchnerf
+    from .ops import decoder as kc
+    from .ops.nn import reset_parameters
+    from .profile_prior import bind, build_lib
+
+    dev = torch.device("cuda")
+    other = bind(build_lib([dir_ / "cond_nerf_decode.cu", dir_ / "cond_nerf_decode_any.cu"],
+                           "libdecode_against", dir_))
+    this = kernels.library()
+    # DIR's Cg before its fragments took the weights as pack_any's f32 blocks
+    old_cg = "n_units" not in (dir_ / "cond_nerf_decode_any.cu").read_text()
+
+    def with_lib(lib, fn):
+        saved = kernels._lib
+        kernels._lib = lib
+        try:
+            return fn()
+        finally:
+            kernels._lib = saved
+
+    def old_cg_call(dec, cfg, md, pts, unit, cond, depth, ray):
+        """DIR's Cg on pack_any's blocks, called as its wrapper called it."""
+        B, R_, S_, _ = pts.shape
+        small, wts = (t.to(dev) for t in kc.pack_any(dec, md))
+        W, D, skips, _, _, _ = kc.decoder_shape(dec)
+        L3, Lv = kc._posenc_freqs(cfg)
+        out = torch.empty(B * R_, 5, device=dev)
+        fn = getattr(other, kc.ROUTES_ANY[md])
+        err = fn(pts.data_ptr(), unit.data_ptr(), cond["feat_info"].data_ptr(),
+                 cond["color_info"].data_ptr(), cond["mask_info"].data_ptr(),
+                 depth.data_ptr(), ray.data_ptr(), small.data_ptr(), wts.data_ptr(),
+                 kernels.ptr(kc.postab_table(S_, dev) if cfg.decoder.raytrans_posenc else None),
+                 out.data_ptr(), small.numel(), wts.numel(), B * R_, S_,
+                 cond["feat_info"].shape[-1], int(cfg.n_src_views), W, D,
+                 sum(1 << l for l in skips), L3, Lv, int(bool(cfg.nerf.legacy_coord)),
+                 kc._ACT_IDS[kc.raytrans_act_name(cfg)],
+                 int(bool(cfg.decoder.density_maskfill)),
+                 int(bool(cfg.nerf.wo_render_interval)), 0,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"DIR's Cg: CUDA error {err}")
+        out = out.reshape(B, R_, 5)
+        return out[..., 0:3], out[..., 3:4], out[..., 4:5]
+
+    result = {"C": [], "Cg": []}
+    with torch.no_grad():
+        for label, R_, S_ in (("eval slice", 20480, 128), ("test_video_own slice", 5012, 256)):
+            cfg = dtu_eval_config()
+            if S_ == 256:
+                own = test_video_own_config()
+                for k in ("raytrans_posenc", "density_maskfill", "raytrans_act"):
+                    cfg.decoder[k] = own.decoder[k]
+            model = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev).eval()
+            pts, unit, cond, depth, ray = _decode_inputs(torch, dev, R_, S_, seed)
+            for md in (torch.float32, torch.bfloat16):
+                route = str(md).replace("torch.", "")
+                run = lambda: kc.cond_nerf_decode(model.nerf_dec, cfg, pts, unit, cond, depth,
+                                                  ray, matmul_dtype=md)
+                outs = {k: with_lib(lib, run) for k, lib in (("other", other), ("this", this))}
+                equal = all(torch.equal(a, b) for a, b in zip(outs["other"], outs["this"]))
+                times = {"other": [], "this": []}
+                for k in ("other", "this", "this", "other"):
+                    lib = other if k == "other" else this
+                    times[k].append(with_lib(lib, lambda: _events_ms(torch, run)))
+                print(f"Kernel C {label} R={R_} S={S_} {route}: bit-equal to DIR's build: "
+                      f"{equal}; ms other {[round(t, 4) for t in times['other']]}, this "
+                      f"{[round(t, 4) for t in times['this']]}", flush=True)
+                result["C"].append({"slice": label, "route": route, "bit_equal": equal,
+                                    "ms": times})
+                if not equal:
+                    raise AssertionError(f"Kernel C {label} {route}: not bit-equal to DIR's")
+        for name in names:
+            cfg = dtu_eval_config()
+            keys = dict(CG_SHAPES[name])
+            cfg.nerf.legacy_coord = keys.pop("legacy_coord", True)
+            override_options(cfg, {"decoder": keys}, warn=False)
+            dec = reset_parameters(CondNeRF(cfg), torch.Generator().manual_seed(seed)).to(dev)
+            dec = dec.eval()
+            pts, unit, cond, depth, ray = _decode_inputs(torch, dev, R, S, seed)
+            for md in (torch.float32, torch.bfloat16):
+                route = str(md).replace("torch.", "")
+                runs = {"this": lambda: kc.cond_nerf_decode(dec, cfg, pts, unit, cond, depth,
+                                                            ray, matmul_dtype=md)}
+                runs["other"] = ((lambda: old_cg_call(dec, cfg, md, pts, unit, cond, depth,
+                                                      ray)) if old_cg
+                                 else (lambda: with_lib(other, runs["this"])))
+                outs = {k: runs[k]() for k in ("other", "this")}
+                plain = kc.cond_nerf_decode_plain(dec, cfg, pts, unit, cond, depth, ray,
+                                                  matmul_dtype=md)
+                err = lambda a, b: max(float((x - y).abs().max()) for x, y in zip(a, b))
+                times = {"other": [], "this": []}
+                for k in ("other", "this", "this", "other"):
+                    times[k].append(_events_ms(torch, runs[k]))
+                entry = {"decoder": name, "route": route, "R": R, "S": S, "ms": times,
+                         "max_abs_this_vs_other": err(outs["this"], outs["other"]),
+                         "max_abs_vs_plain": {k: err(o, plain) for k, o in outs.items()}}
+                print(f"Kernel Cg {name} R={R} S={S} {route}: ms other "
+                      f"{[round(t, 3) for t in times['other']]}, this "
+                      f"{[round(t, 3) for t in times['this']]}; max|d| this vs other "
+                      f"{entry['max_abs_this_vs_other']:.3e}, vs the plain twin "
+                      f"{ {k: f'{v:.3e}' for k, v in entry['max_abs_vs_plain'].items()} }",
+                      flush=True)
+                result["Cg"].append(entry)
+    print(torch.cuda.get_device_name(0))
+    return result
+
+
 def main(argv=None):
+    import json
+    from pathlib import Path
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cg", choices=sorted(CG_SHAPES), default=None,
-                    help="time Kernel Cg at this decoder beside Kernel C")
+    ap.add_argument("--cg", choices=sorted(CG_SHAPES), action="append", default=None,
+                    help="time Kernel Cg at this decoder beside Kernel C (with --against: "
+                         "beside DIR's Cg); may repeat")
     ap.add_argument("--rays", type=int, default=8192)
     ap.add_argument("--samples", type=int, default=128)
+    ap.add_argument("--against", type=Path, default=None,
+                    help="a directory holding another cond_nerf_decode.cu and "
+                         "cond_nerf_decode_any.cu (and their headers)")
+    ap.add_argument("--sass", action="store_true",
+                    help="count the decoder kernels' SASS opcodes (HMMA against FFMA)")
     args = ap.parse_args(argv)
     import torch
 
@@ -142,8 +319,18 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_decoder: needs a CUDA device")
+    if args.sass:
+        for fn, c in sass_counts(kernels.library()._name).items():
+            print(f"sass {fn}: " + ", ".join(f"{op} {n}" for op, n in c.items()), flush=True)
+    if args.against is not None:
+        print(json.dumps(against(args.against, args.cg or [], args.rays, args.samples,
+                                 args.seed)))
+        return
     if args.cg:
-        time_cg(args.cg, args.rays, args.samples, args.seed)
+        for name in args.cg:
+            time_cg(name, args.rays, args.samples, args.seed)
+        return
+    if args.sass:
         return
     dev = torch.device("cuda")
     lib = build()

@@ -30,25 +30,32 @@ none) and prints the mean cycles per block of its union build, its staging
 passes and its sample loops at the 20480-ray slice. Prints the card's name
 and power limit and, as its last line, one JSON object with every number.
 
-With `--backward` it times the training prior's table gradient instead:
-the B' kernel (`cosine_prior_bwd_f32`) on 1024 iid rays of the pose
-(configs/train.yaml) and D''s backward (`block_cosine_prior_bwd_f32`) on 128
-strips of 8 pixels (configs/train_fast.yaml), S = 128 with stratified
-depths, on random f32 tables of the training shapes ([3,64,80,256] at G = 2,
-[3,128,160,256] at G = 8) at the pose's union buckets. Each kernel is called
-alone on a zeroed gradient and held to autograd through its plain twin
-(max |d| against 1e-5 of the largest gradient), then timed with CUDA events
-over 20 launches (the gradient accumulates: the zeroing is not timed), in
-turns with `--against`. Beside the times it counts, on the host, the
-atomics each design issues for these grids: B''s float4 global atomics, one
-per (sample, view, tap, 4 channels) before its redesign, one per run of
-consecutive samples of a walk that keep a cell after it, for walks of 32,
-64 and 128 consecutive samples (the reuse factor is the quotient); D''s
-shared-memory f32 atomics, one per (sample, side, tap, channel) before its
-redesign, one f32 add per run of a walk and channel after it (a band of
-depths across the block's 8 rays; 4 channels a 128-bit compare-and-swap),
-and its float4 global atomics, one per (block, union row, 4
-channels). `--sass` adds each kernel's atomic instructions by full mnemonic.
+With `--backward` it times the training prior's table gradient instead,
+at V = 3 and V = 8 source views (the pose's cameras spread over the same
+arc): the B' backward (`ops.cosine_prior.table_grad`: the count pass, the
+records kernel `cosine_prior_bwd_f32`, the sort and the sum) on 1024 iid
+rays of the pose (configs/train.yaml) and D''s backward
+(`ops.block_cosine_prior.table_grad`) on 128 strips of 8 pixels
+(configs/train_fast.yaml), S = 128 with stratified depths, on random f32
+tables of the training shapes ([V,64,80,(V-1)128] at G = 2,
+[V,128,160,(V-1)128] at G = 8), D' at the pose's union buckets at V = 3 and
+at the strips' own bucket at V = 8 (where D' does not take it, training
+takes B' and D' is not timed). Each is the whole backward call on a fresh
+zeroed gradient, held to autograd through its plain twin (max |d| against
+1e-5 of the largest gradient) and to its own second call (bit for bit),
+then timed with CUDA events over 20 calls, in turns with `--against`. DIR
+may hold the earlier atomic build (one launch that adds into a zeroed
+gradient with float4 atomics, `ATOMIC_SIGNATURES`): it is called as it
+was, its zeroing timed with it. Beside the times it counts, on the host,
+what each design issues for these grids: one float4 add per (sample, view,
+tap, 4 channels) without runs; B''s runs for walks of 32, 64 and 128
+consecutive samples (the reuse factor is the quotient; at 64, its records:
+one (V-1)128-channel row each, written and read once, in place of the
+atomic build's (V-1)32 float4 atomics); D''s runs (a band of depths across
+the block's 8 rays: its records now, one 128-bit compare-and-swap per 4
+channels in the atomic build's shared d_acc), and the atomic build's float4
+global atomics, one per (block, union row, 4 channels). `--sass` adds each
+kernel's atomic instructions by full mnemonic.
 
 With `--fused` it times Kernel F (`fused_interp_grouped_cosine`) instead,
 at V = 2 to 8 source views on random tap rows of 8192 rays x 128 samples
@@ -172,11 +179,13 @@ def d_phases(torch, kd, cases, block_ut) -> list:
     return rows
 
 
-def scene_poses():
-    """chip_smoke.py's cameras (seed 0): 3 source views and the target."""
+def scene_poses(n_views: int = 3):
+    """chip_smoke.py's cameras (seed 0): 3 source views and the target; with
+    n_views, that many sources spread over the same arc."""
     from .data.synth import look_at_opencv
     rng = np.random.default_rng(0)
-    angles = np.deg2rad([-16.0, 0.0, 16.0, 8.0]) + rng.uniform(-0.02, 0.02, 4)
+    angles = (np.deg2rad(list(np.linspace(-16.0, 16.0, n_views)) + [8.0])
+              + rng.uniform(-0.02, 0.02, n_views + 1))
     w2cs = []
     for a in angles:
         c2w = np.eye(4)
@@ -186,8 +195,8 @@ def scene_poses():
     w2cs = np.stack(w2cs)[None]
     focal = 1.8 * W
     K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]], np.float32)
-    intr = np.tile(K, (1, 4, 1, 1))
-    nf = np.tile(np.asarray(DTU_NEAR_FAR, np.float32), (1, 4, 1))
+    intr = np.tile(K, (1, n_views + 1, 1, 1))
+    nf = np.tile(np.asarray(DTU_NEAR_FAR, np.float32), (1, n_views + 1, 1))
     return {"tgt": {"extrinsics": w2cs[:, -1, :3], "intrinsics": intr[:, -1],
                     "near_fars": nf[:, -1]},
             "ref": {"extrinsics": w2cs[:, :-1, :3], "intrinsics": intr[:, :-1],
@@ -221,11 +230,11 @@ def scene_grids(torch, dev):
     return grids_at(pix[:SLICE_RAYS]), grids_at(train_pix), block_ut
 
 
-def train_grids(torch, dev, patches: bool, seed: int):
-    """Grids [3,1024,128,2] of configs/train.yaml's training rays at the pose
-    of `scene_grids` (its cameras, 640x512): 1024 iid pixels, or with
-    `patches` 128 strips of 8 pixels (train_fast.yaml); stratified depths
-    as `TrainStep` draws them."""
+def train_grids(torch, dev, patches: bool, seed: int, n_views: int = 3):
+    """Grids [V,1024,128,2] of configs/train.yaml's training rays at the pose
+    of `scene_grids` (its cameras, 640x512; `scene_poses(n_views)`): 1024
+    iid pixels, or with `patches` 128 strips of 8 pixels (train_fast.yaml);
+    stratified depths as `TrainStep` draws them."""
     from . import camera
     from .config import dtu_train_config
     from .models.matchnerf import project_to_views, sample_depth
@@ -233,7 +242,7 @@ def train_grids(torch, dev, patches: bool, seed: int):
     from .train_step import sample_ray_indices
     cfg = dtu_train_config()
     r = Renderer(cfg, None, dev)
-    tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = r._pose_tensors(scene_poses())
+    tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = r._pose_tensors(scene_poses(n_views))
     gen = torch.Generator(device=dev).manual_seed(seed)
     idx = sample_ray_indices(H * W, TRAIN_RAYS, patches, dev, gen)
     pix = torch.stack([(idx % W).float(), (idx // W).float()], -1)[None]
@@ -311,13 +320,16 @@ def atomic_counts(torch, dev, grids_ray, grids_strip, h: int, w: int, ut: int,
     from .ops import block_cosine_prior as kd
     V, R, S = grids_ray.shape[:3]
     N = R * S
+    q = (V - 1) * 32                     # float4 units of a view's table row
     keys, real, _ = slot_cells(torch, grids_ray, h, w)
-    out = {"b_float4_per_tap": N * V * 4 * 64}
+    out = {"b_float4_per_tap": N * V * 4 * q}
     for walk in (32, 64, 128):
         n = torch.arange(N, device=dev)
-        out[f"b_float4_walk{walk}"] = sum(
-            run_starts(torch, keys[v].reshape(N, 4), real[v].reshape(N, 4), n, n % walk == 0)
-            for v in range(V)) * 64
+        runs = sum(run_starts(torch, keys[v].reshape(N, 4), real[v].reshape(N, 4), n,
+                              n % walk == 0) for v in range(V))
+        out[f"b_float4_walk{walk}"] = runs * q
+        if walk == 64:
+            out["b_records"] = runs
     out["b_reuse"] = {k: out["b_float4_per_tap"] / v for k, v in out.items()
                       if k.startswith("b_float4_walk")}
     gp = kd.pad_rays(grids_strip)
@@ -331,80 +343,123 @@ def atomic_counts(torch, dev, grids_ray, grids_strip, h: int, w: int, ut: int,
         _, found = kd.union_positions(unions[v], cells[v].reshape(Rp // 8, 8 * S * 4), h * w)
         live = real[v] & found.reshape(Rp, S, 4) & ray_ok
         shared += run_starts(torch, keys[v].reshape(-1, 4), live.reshape(-1, 4), order, first)
-    out["d_shared_f32_per_tap"] = N * 3 * 2 * 4 * 128
-    out["d_shared_f32_walks"] = shared * 256
+    out["d_shared_f32_per_tap"] = N * V * 4 * (V - 1) * 128
+    out["d_shared_f32_walks"] = shared * (V - 1) * 128
     out["d_reuse"] = out["d_shared_f32_per_tap"] / out["d_shared_f32_walks"]
-    out["d_shared_cas128"] = shared * 64
-    out["d_global_float4"] = int((unions >= 0).sum()) * 64
+    out["d_records"] = shared
+    out["d_shared_cas128"] = shared * q
+    out["d_global_float4"] = int((unions >= 0).sum()) * q
     return out
 
 
+# the backward entries of the earlier atomic build, as DIR may hold them
+ATOMIC_SIGNATURES = {
+    # table, grids, g, d_table, V, H, W, C, G, N, stream
+    "cosine_prior_bwd_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    # table, grids, unions, g, d_table, V, H, W, C, G, R, S, NB, ut, CP, stream
+    "block_cosine_prior_bwd_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+    + [ctypes.c_void_p]}
+
+
+def bind_atomic(lib):
+    """`lib` with its backward entries bound as the atomic build's, where it
+    is one (it has no count pass); None otherwise."""
+    if hasattr(lib, "cosine_prior_bwd_count"):
+        return None
+    for name, sig in ATOMIC_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = sig
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def backward(torch, dev, libs, block_ut, result):
-    """The B' and D' backward kernels alone at the training shapes (see the
-    module's docstring), this tree's and `libs`' in turns."""
+    """The B' and D' backward at the training shapes (see the module's
+    docstring), this tree's and `libs`' (the atomic build) in turns, at V =
+    3 and 8."""
     from .ops import block_cosine_prior as kd
     from .ops import cosine_prior as kb
-    this = kernels.library()
-    grids_ray = train_grids(torch, dev, False, 3)
-    grids_strip = train_grids(torch, dev, True, 4)
-    R, S = grids_ray.shape[1:3]
-    N = R * S
-    gen = torch.Generator(device=dev).manual_seed(5)
+    others = {k: bind_atomic(lib) for k, lib in libs.items()}
+    others = {k: lib for k, lib in others.items() if lib is not None}
     result["backward"] = []
-    for s, (h, w, G) in enumerate(((H // 8, W // 8, 2), (H // 4, W // 4, 8))):
-        ut = block_ut[s]
-        table = torch.randn(3, h, w, 256, generator=gen, device=dev)
-        gcot = torch.randn(R, S, G, generator=gen, device=dev)
-        cp = kd.channels_per_pass(ut, S, G, backward=True)
-        counts = atomic_counts(torch, dev, grids_ray, grids_strip, h, w, ut, cp)
-        print(f"scale {s} {h}x{w} G={G} ut={ut} atomics: " + ", ".join(
-            f"{k} {v}" if not isinstance(v, float) else f"{k} {v:.3f}"
-            for k, v in counts.items()), flush=True)
+    for V in (3, 8):
+        grids_ray = train_grids(torch, dev, False, 3, V)
+        grids_strip = train_grids(torch, dev, True, 4, V)
+        R, S = grids_ray.shape[1:3]
+        N = R * S
+        gen = torch.Generator(device=dev).manual_seed(5)
+        for s, (h, w, G) in enumerate(((H // 8, W // 8, 2), (H // 4, W // 4, 8))):
+            table = torch.randn(V, h, w, (V - 1) * 128, generator=gen, device=dev)
+            gcot = torch.randn(R, S, G, generator=gen, device=dev)
+            gp = kd.pad_rays(grids_strip)
+            ut = (block_ut[s] if V == 3
+                  else kd.bucket_ut(kd.block_union_size_raw(gp, h, w)))
+            d_taken = ut is not None and kd.takes_f32(ut, S, G, h * w, V)
+            cp = kd.channels_per_pass(ut, S, G, backward=True, n_views=V) if d_taken else 32
+            counts = atomic_counts(torch, dev, grids_ray, grids_strip, h, w,
+                                   ut if d_taken else 64, cp)
+            print(f"V={V} scale {s} {h}x{w} G={G} ut={ut} (D' {'takes' if d_taken else 'does not take'} it) "
+                  "runs and atomics: " + ", ".join(
+                      f"{k} {v}" if not isinstance(v, float) else f"{k} {v:.3f}"
+                      for k, v in counts.items()), flush=True)
 
-        def plain_grad(fn, grids):
-            t = table.clone().requires_grad_()
-            fn(t, grids).backward(gcot)
-            return t.grad
+            def plain_grad(fn, grids):
+                t = table.clone().requires_grad_()
+                fn(t, grids).backward(gcot)
+                return t.grad
 
-        _, unions = kd._forward(table, grids_strip, None, G, ut, with_unions=True)
-        gp = kd.pad_rays(grids_strip)
-        args = {
-            "B'": ("cosine_prior_bwd_f32", grids_ray,
-                   lambda d: (table.data_ptr(), grids_ray.data_ptr(), gcot.data_ptr(),
-                              d.data_ptr(), 3, h, w, 128, G, N),
-                   plain_grad(lambda t, g: kb.cosine_prior_plain(t, g, None, G), grids_ray)),
-            "D'": ("block_cosine_prior_bwd_f32", grids_strip,
-                   lambda d: (table.data_ptr(), gp.data_ptr(), unions.data_ptr(),
-                              gcot.data_ptr(), d.data_ptr(), 3, h, w, 128, G, R, S,
-                              gp.shape[1] // 8, ut, cp),
-                   plain_grad(lambda t, g: kd.block_cosine_prior_plain(t, g, None, G, ut),
-                              grids_strip))}
-        for kernel, (entry, _, kargs, ref) in args.items():
-            d = torch.zeros_like(table)
-            fns, errs = {}, {}
-            for key, lib in (("this", this), *libs.items()):
-                d.zero_()
-                call(torch, lib, entry, *kargs(d))
-                torch.cuda.synchronize()
-                errs[key] = float((d - ref).abs().max())
-                fns[key] = lambda lib=lib: call(torch, lib, entry, *kargs(d))
-            order = [k for k in ("other", "this") if k in fns]
-            times = {k: [] for k in order}
-            for k in order + order[::-1]:
-                times[k].append(events_ms(torch, fns[k]))
-            tol = 1e-5 * float(ref.abs().max())
-            line = f"{kernel} backward scale {s} R={R} S={S} G={G}"
-            line += f" ut={ut} CP={cp}: " if kernel == "D'" else ": "
-            print(line + "; ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in ts)
-                                   + f" ms (max|d| {errs[k]:.2e}, tol {tol:.2e})"
-                                   for k, ts in times.items()), flush=True)
-            result["backward"].append({"kernel": kernel, "scale": s, "R": R, "S": S, "G": G,
-                                       "ut": ut, "cp": cp, "ms": times, "max_abs_err": errs,
-                                       "tol": tol, "atomics": counts})
-            if errs["this"] > tol:
-                raise AssertionError(f"{kernel} scale {s}: max|d| {errs['this']:.2e} over "
-                                     f"{tol:.2e}")
-        del table, unions, d
+            cases = {"B'": (grids_ray,
+                            lambda: kb.table_grad(table, grids_ray, gcot, G),
+                            "cosine_prior_bwd_f32",
+                            lambda d: (table.data_ptr(), grids_ray.data_ptr(), gcot.data_ptr(),
+                                       d.data_ptr(), V, h, w, 128, G, N),
+                            plain_grad(lambda t, g: kb.cosine_prior_plain(t, g, None, G),
+                                       grids_ray))}
+            if d_taken:
+                _, unions = kd._forward(table, grids_strip, None, G, ut, with_unions=True)
+                cases["D'"] = (grids_strip,
+                               lambda: kd.table_grad(table, grids_strip, unions, gcot, G, ut),
+                               "block_cosine_prior_bwd_f32",
+                               lambda d: (table.data_ptr(), gp.data_ptr(), unions.data_ptr(),
+                                          gcot.data_ptr(), d.data_ptr(), V, h, w, 128, G, R,
+                                          S, gp.shape[1] // 8, ut, cp),
+                               plain_grad(lambda t, g: kd.block_cosine_prior_plain(
+                                   t, g, None, G, ut), grids_strip))
+            for kernel, (_, this_fn, entry, kargs, ref) in cases.items():
+                fns = {"this": this_fn}
+                for key, lib in others.items():
+                    def atomic(lib=lib):
+                        d = torch.zeros_like(table)
+                        call(torch, lib, entry, *kargs(d))
+                        return d
+                    fns[key] = atomic
+                errs, repeat = {}, {}
+                for key, fn in fns.items():
+                    first, second = fn(), fn()
+                    torch.cuda.synchronize()
+                    errs[key] = float((first - ref).abs().max())
+                    repeat[key] = bool(torch.equal(first, second))
+                    del first, second
+                order = [k for k in ("other", "this") if k in fns]
+                times = {k: [] for k in order}
+                for k in order + order[::-1]:
+                    times[k].append(events_ms(torch, fns[k]))
+                tol = 1e-5 * float(ref.abs().max())
+                line = f"{kernel} backward V={V} scale {s} R={R} S={S} G={G}"
+                line += f" ut={ut} CP={cp}: " if kernel == "D'" else ": "
+                print(line + "; ".join(
+                    f"{k} " + " / ".join(f"{t:.4f}" for t in ts)
+                    + f" ms (max|d| {errs[k]:.2e}, tol {tol:.2e}, two calls "
+                    + ("bit-equal" if repeat[k] else "differ") + ")"
+                    for k, ts in times.items()), flush=True)
+                result["backward"].append({"kernel": kernel, "V": V, "scale": s, "R": R,
+                                           "S": S, "G": G, "ut": ut, "cp": cp, "ms": times,
+                                           "max_abs_err": errs, "tol": tol,
+                                           "bit_equal_twice": repeat, "counts": counts})
+                if errs["this"] > tol or not repeat["this"]:
+                    raise AssertionError(f"{kernel} V={V} scale {s}: max|d| {errs['this']:.2e} "
+                                         f"over {tol:.2e}, or two calls differ")
+            del table, cases
 
 
 def fused(torch, dev, against, result):

@@ -23,7 +23,10 @@ encoder group.
 - `make_train_step` builds the step for one (H, W, n_rays) shape. The rays
   are a permutation of the H*W pixels (or, under nerf.train_ray_patches, of
   the (H*W)/8 8-pixel strips) drawn from a torch.Generator on the device,
-  which also draws the stratified depth jitter.
+  which also draws the stratified depth jitter. Two runs of the same seed
+  give the same losses and parameters bit for bit, on the CPU and on the
+  card (cuDNN in its deterministic mode; every backward the port writes
+  sums in a fixed order).
 
 Several ranks (`parallel/`; train_step.py:89-135): mode "rays" (batch_size
 1, every shipped recipe) gives each rank the whole batch and its contiguous
@@ -196,6 +199,11 @@ class TrainStep:
                  generator: Optional[torch.Generator] = None, mode: Optional[str] = None):
         self.cfg, self.model, self.opt = cfg, model, opt
         self.mode = mode
+        # one seed, one trajectory, as the JAX step: cuDNN's convolution
+        # backward on the card may otherwise pick algorithms that add with
+        # atomics (the prior kernels' and the upsampler's backward sum in a
+        # fixed order themselves)
+        torch.backends.cudnn.deterministic = True
         self.img_h, self.img_w, self.n_rays = img_h, img_w, n_rays
         self.kernel = kernel
         self.generator = generator

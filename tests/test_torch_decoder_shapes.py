@@ -254,6 +254,62 @@ def test_cg_weight_pack_layout():
     assert torch.equal(block[64:], w[63:])
 
 
+def _unfragment(buf, K, N, md):
+    """[K, N] f32 from one layer of Kernel Cg's fragment buffer (the inverse
+    of its B-fragment order: f32 per (k8 step, n16 pair, lane 4g + t) the
+    rows 2t and 2t + 1 of columns n and n + 8, n = 16 pair + g; bf16 per
+    (k16 step, n16 pair, lane) rows 2t + (0, 1, 8, 9) of the same)."""
+    j, p, g = torch.arange(K // (8 if md == torch.float32 else 16)), torch.arange(N // 16), \
+        torch.arange(8)
+    w = torch.zeros(K, N)
+    if md == torch.float32:
+        x = buf.view(torch.float32).reshape(K // 8, N // 16, 8, 4, 2, 2)
+        for t in range(4):
+            for u in range(2):
+                for i in range(2):
+                    w[(j * 8 + 2 * t + i)[:, None, None],
+                      (p * 16 + 8 * u)[None, :, None] + g] = x[:, :, :, t, u, i]
+        return w
+    x = buf.view(torch.bfloat16).reshape(K // 16, N // 16, 8, 4, 2, 2, 2).float()
+    for t in range(4):
+        for u in range(2):
+            for r in range(2):
+                for i in range(2):
+                    w[(j * 16 + 8 * r + 2 * t + i)[:, None, None],
+                      (p * 16 + 8 * u)[None, :, None] + g] = x[:, :, :, t, u, r, i]
+    return w
+
+
+@pytest.mark.parametrize("md", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["nerf_mlp", "w64_d7_skips_2_5", "w34"])
+def test_cg_fragments_layout(name, md):
+    """`any_fragments`, Kernel Cg's weight buffer: per layer the block of
+    `pack_any` in the route's B-fragment order, its rows padded to k-steps
+    (8 f32, 16 bf16) and its columns to n16 pairs with zeros, layer after
+    layer; its size the kernel's plan (csrc make_plan: 32 units of 16 bytes
+    per k-step and n16 pair)."""
+    keys = {"w34": {"decoder.net_width": 34, "decoder.net_depth": 3, "decoder.skip": [1]}}
+    cfg = _cfg(keys.get(name) or DECODERS[name])
+    _, model, _ = _setup(cfg, seed=6)
+    dec = model.nerf_dec
+    layers, _, _ = tdec.any_plan(*tdec.decoder_shape(dec))
+    _, wts = tdec.pack_any(dec, md)
+    frag = tdec.any_fragments(wts, layers, md)
+    step_rows = 8 if md == torch.float32 else 16
+    off, units = 0, 0
+    for lay in layers:
+        K, np_ = sum(p[1] for p in lay["parts"]), lay["np"]
+        Kp, Np = -(-K // step_rows) * step_rows, -(-np_ // 16) * 16
+        units += Kp // step_rows * Np // 16 * 32
+        n = Kp * Np * (4 if md == torch.float32 else 2)
+        got = _unfragment(frag[off:off + n], Kp, Np, md)
+        block = wts[lay["woff"]:lay["woff"] + K * np_].reshape(K, np_)
+        assert torch.equal(got[:K, :np_], block), lay["name"]
+        assert not got[K:].any() and not got[:, np_:].any(), lay["name"]
+        off += n
+    assert off == frag.numel() == 16 * units
+
+
 def _encode_rows(x, L, legacy, rows):
     """The kernel's `encode`: row j of [x, posenc(x)] for every j < rows,
     from its index arithmetic (zero past 3 + 6L) -> [rows, n]."""

@@ -901,8 +901,8 @@ def test_block_cosine_prior_f32_kernels(dev, G, case, V):
 @pytest.mark.parametrize("kernel", ["B'", "D'"])
 def test_prior_backward_runs_agree(dev, kernel):
     """Two runs of B' and of D''s backward at the training shape of scale 1
-    (1024 rays x 128, 128x160 table, G = 8) agree within 1e-5 of the largest
-    gradient: their float atomics add in another order each run."""
+    (1024 rays x 128, 128x160 table, G = 8) give the same bits: each cell's
+    runs are summed in an order fixed by the input."""
     g = torch.Generator(device=dev).manual_seed(16)
     table = _f32_table(g, dev, 128, 160)
     grids = _train_rays(g, dev, 1024, 128, strips=kernel == "D'")
@@ -918,7 +918,82 @@ def test_prior_backward_runs_agree(dev, kernel):
         t = table.clone().requires_grad_()
         fn(t).backward(gcot)
         runs.append(t.grad)
-    _grad_close(runs[0], runs[1], 1e-5)
+    assert torch.equal(runs[0], runs[1])
+
+
+def _strip_grids_taken(g, dev, V, R, S, G, h, w):
+    """8-ray strips whose union bucket D' takes at V views (the spread
+    narrowed until it fits) -> (grids, ut)."""
+    for spread in (0.4, 0.3, 0.2, 0.1, 0.05, 0.02, 0.01):
+        grids = _block_grids(g, dev, V, R, S, spread)
+        ut = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), h, w))
+        if ut is not None and kd.takes_f32(ut, S, G, n_views=V):
+            return grids, ut
+    raise AssertionError(f"no strips D' takes at V={V} G={G}")
+
+
+@pytest.mark.parametrize("V", [2, 3, 8])
+@pytest.mark.parametrize("case", ["train_64x80", "train_128x160", "edge"])
+@pytest.mark.parametrize("kernel", ["B'", "D'"])
+def test_prior_backward_bit_equal(dev, kernel, case, V):
+    """B' and D''s backward launched twice on the same inputs give
+    torch.equal gradients: the training shapes of both scales (1024 rays x
+    128 at G = 2 on 64x80 tables and G = 8 on 128x160; iid rays for B',
+    8-pixel strips for D') and the walks' edge cases of `_edge_rays` (37
+    rays x 48 on a 20x24 table, G = 2), each also within 1e-5 of the
+    largest gradient of the plain twin."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    if case == "edge":
+        (h, w), R, S, G = (20, 24), 37, 48, 2
+    else:
+        (h, w), R, S, G = ((64, 80), 1024, 128, 2) if case == "train_64x80" else \
+            ((128, 160), 1024, 128, 8)
+    table = _f32_table(g, dev, h, w, V)
+    if kernel == "B'":
+        grids = (_edge_rays(g, dev, _block_grids(g, dev, V, R, S, 0.4)) if case == "edge"
+                 else _train_rays(g, dev, R, S, strips=False, V=V))
+        fn = lambda t: kb.cosine_prior(t, grids, None, G)
+        plain = lambda t: kb.cosine_prior_plain(t, grids, None, G)
+    else:
+        grids, ut = _strip_grids_taken(g, dev, V, R, S, G, h, w)
+        if case == "edge":
+            grids = _edge_rays(g, dev, grids)
+            ut = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), h, w))
+            assert ut is not None and kd.takes_f32(ut, S, G, n_views=V), ut
+        fn = lambda t: kd.block_cosine_prior(t, grids, None, G, ut)
+        plain = lambda t: kd.block_cosine_prior_plain(t, grids, None, G, ut)
+    gcot = torch.randn(R, S, G, generator=g, device=dev)
+    counter = kb.BWD_COUNTER if kernel == "B'" else kd.BWD_COUNTER
+    runs = []
+    for f in (fn, fn, plain):
+        t = table.clone().requires_grad_()
+        before = counter.launches
+        f(t).backward(gcot)
+        torch.cuda.synchronize()
+        assert counter.launches == before + (f is fn)
+        runs.append(t.grad)
+    assert torch.equal(runs[0], runs[1])
+    _grad_close(runs[0], runs[2], 1e-5)
+
+
+@pytest.mark.parametrize("patches,bf16,local", [(False, True, False), (True, True, False),
+                                                (False, False, False), (False, True, True)],
+                         ids=["train_bf16", "train_fast_bf16", "train_f32",
+                              "train_local_radius"])
+def test_training_repeats_itself_on_the_card(dev, patches, bf16, local):
+    """3 steps of the configs/train.yaml (B') and train_fast.yaml (D')
+    recipes at a tiny shape (tests/test_torch_determinism.py's `run_steps`),
+    and of train.yaml with the local-radius sampler (no prior kernel: the
+    features gathered by `grid_sample_2d`), run twice on the card: equal
+    losses, bit-equal parameters and AdamW moments; the kernels' backward
+    ran (no plain version)."""
+    from test_torch_determinism import assert_same_trajectory, run_steps
+    counter = kd.BWD_COUNTER if patches else kb.BWD_COUNTER
+    before = (counter.launches, kb.COUNTER.plain_on_cuda, kd.COUNTER.plain_on_cuda)
+    first = run_steps(dev, patches, bf16, local_radius=local)
+    assert counter.launches == before[0] + (0 if local else 2 * len(first[0]))
+    assert (kb.COUNTER.plain_on_cuda, kd.COUNTER.plain_on_cuda) == before[1:]
+    assert_same_trajectory(first, run_steps(dev, patches, bf16, local_radius=local))
 
 
 @pytest.mark.parametrize("kernel", ["B", "B'", "D", "D'", "E", "F"])

@@ -203,6 +203,7 @@ def test_prior_backward_raises_without_fallback(monkeypatch, kernel, failure):
     table = torch.zeros(3, 8, 8, 256)
     grids = torch.zeros(3, 8, 4, 2)
     ctx = type("Ctx", (), {})()
+    ctx.runs = None                       # no forward ran: the backward counts itself
     if kernel == "B'":
         ctx.saved_tensors, ctx.n_groups = (table, grids), 2
         fn, counter = kb.CosinePriorFn, kb.BWD_COUNTER
