@@ -11,7 +11,9 @@ training entry of configs/train_ibrnet.yaml at 1008x756, and the render
 server (`python -m matchnerf_tpu_torch.serve`) over HTTP, and the parallel
 layer (process groups of one and two ranks, the training entry as 2
 processes), and two to eight source views (`--n_src_views`: the training
-entry at 2 and 8, the eval entry at 2, 4, 5 and 8, the fused route at 8),
+entry at 2, 4, 6 and 8, the eval entry at 2, 4, 5 and 8, the fused route
+at 8), and the convergence run (the training recipes learn a small scene
+and, at full width, phase 12's DTU scan, held to their all-plain twins),
 and the variants config keys reach
 (`nerf.view_dep: false`, the local-radius sampler, attention without
 window splits, the fused route at 2 and 4 views; LPIPS and the training
@@ -271,10 +273,15 @@ Phases, any failure ends the run with a non-zero exit:
    n_views=11)`), the eval entry as in (c) at V = 5 and 8 with seeded
    weights, and at V = 8 with `--precision.fused_cosine=true` (A, C, E and
    F launch, B and D do not; held to the V = 8 image's all-plain render,
-   the same weights, view and function); then (b) at V = 8 on that tree, where
-   train_fast.yaml's scales take D' or B' as the route says (two of them a
-   step), with the peak device memory of the steps. The phase's seconds on
-   a line of their own.
+   the same weights, view and function); then (b) at V = 8 on that tree,
+   and at V = 4 and 6 on a 9-view tree whose views lie half as far apart
+   (`spread=MID_TREE_SPREAD`; phase 12's six views hold the V + 3 a
+   training sample draws from only to V = 3, and on the 11-view tree every
+   union at V = 4 and 6 overflows D''s buckets), where train_fast.yaml's
+   scales take D' or B' as the route says (two of them a step, checked step
+   by step, each step's scales logged; D' at one scale at least on the
+   narrow tree), with the peak device memory of the steps. The phase's
+   seconds on a line of their own.
 19. the variants config keys reach, at full width, 640x512, S = 128: (a)
    Kernel F at V = 2 and 4 on the tap rows of one fused-route chunk (8192
    and 4096 rays, `fused_chunk_rays(V)`) of a
@@ -315,11 +322,31 @@ Phases, any failure ends the run with a non-zero exit:
    `train.build_coach` + `train_model`: equal losses, 0 as the largest
    difference of any parameter and of any AdamW moment, and each run's
    checkpoint rendered by the eval entry, the two images bit-equal.
+22. the convergence run (`convergence_phase`): (a) `python -m
+   matchnerf_tpu_torch.convergence` at its defaults (32x48, 2 transformer
+   layers, 128 features, decoder 128x6, S = 32, 256 rays, CONV_STEPS
+   steps) for the tiny, train and train_fast recipes, each on the kernels
+   and all-plain from one seed: the losses at 1 / 50 / 100 / 150 / 200,
+   the target view's PSNR (each kernel run >= CONV_FLOOR_DB and within
+   CONV_TWIN_DB of its twin; the tiny run beside the JAX tool's CPU figure,
+   CONV_JAX_CPU_DB, not a bar), A' every step, B' every train step, B' or
+   D' at each scale as `Coach.train_route` names it every train_fast step,
+   no plain version on CUDA in the train and train_fast runs (the tiny
+   recipe sets no banded or block kernel, so its matching prior takes the
+   plain direct path, as in the JAX package); (b) `train.build_coach` +
+   `train_model` with `--config train` and `--config train_fast` at full
+   width on phase 12's tree from a written GMFlow checkpoint,
+   CONV_FULL_STEPS steps, validation of view 24 before the first step and
+   after the last and no other hook, on the kernels and again all-plain
+   (`build_coach(kernel=False)`) from the same seed: each kernel run's
+   validation PSNR up by CONV_FULL_GAIN_DB and within CONV_TWIN_DB of the
+   all-plain run's, the mean loss of its last 20 steps at most half that
+   of its first 20, the launches as in (a) step by step.
 Every launch count is reset just before a path (a step, in 10 and 11; a
 training run and a validation image, in 12; each test set's render, in
 13; the training run, each image and the timed steps, in 14; each served
 request, in 15; each rank's step and render, in 16; each training run and
-image, in 18 to 21) and read just after it. With --profile, one more warm render of each eval path
+image, in 18 to 21; each step and render in 22) and read just after it. With --profile, one more warm render of each eval path
 (the bf16 decoder path too) and of each video, and one warm step of each
 training recipe run under torch.profiler and print the device time by
 kernel (the A' backward's dq and dkv kernels always by name), the device
@@ -2733,24 +2760,6 @@ def host_io_phase(tnt_tree, photos):
 PAR_STEPS = 3                      # training steps per recipe in each rank of phase 16
 
 
-def kernel_counters():
-    """Every kernel's launch counter by name."""
-    from matchnerf_tpu_torch.ops import block_cosine_prior as kd
-    from matchnerf_tpu_torch.ops import cosine_prior as kb
-    from matchnerf_tpu_torch.ops import decoder as kc
-    from matchnerf_tpu_torch.ops import fused_cosine as kf
-    from matchnerf_tpu_torch.ops import supercell_color as ke
-    from matchnerf_tpu_torch.ops import window_attention as ka
-    return {"window_attention": ka.COUNTER, "cosine_prior": kb.COUNTER,
-            "cond_nerf_decode": kc.COUNTER, "cond_nerf_decode_any": kc.COUNTER_ANY,
-            "block_cosine_prior": kd.COUNTER,
-            "supercell_color": ke.COUNTER, "fused_cosine": kf.COUNTER,
-            "window_attention_bwd": ka.BWD_COUNTER,
-            "cosine_prior_bwd": kb.BWD_COUNTER,
-            "block_cosine_prior_f32": kd.F32_COUNTER,
-            "block_cosine_prior_bwd": kd.BWD_COUNTER}
-
-
 def free_port():
     from matchnerf_tpu_torch.parallel.distributed import free_port as port
     return port()
@@ -2863,7 +2872,7 @@ def parallel_rank(rank, port, seed, out_dir):
     from matchnerf_tpu_torch.ops import attention
     dist.maybe_initialize(DotDict(cluster(rank, 2, port)), DEVICE)
     kernels.library()
-    counters = kernel_counters()
+    counters = kernels.counters()
     dev = torch.device(DEVICE)
     batch = make_scene(seed)
     out = {"rank": rank, "backend": dist.backend(), "train": {}, "eval": {}}
@@ -3179,6 +3188,9 @@ MANY_VIEWS = (5, 6, 8)             # and past V = 4: the kernels against their p
 MANY_EVAL = (5, 8)                 # the eval entry's image on the many-view tree
 MANY_TRAIN = 8                     # the training entry's steps on the many-view tree
 MANY_TREE_VIEWS = 11               # its views: V = 8 sources, 2 added candidates, the target
+MID_TRAIN = (4, 6)                 # the training entry's steps on the narrow tree
+MID_TREE_VIEWS = 9                 # its views: V = 6 sources, 2 added candidates, the target
+MID_TREE_SPREAD = 0.5              # its arc's angles over the default's: 4 degrees apart
 VIEWS_STEPS = 3                    # training steps per recipe and V
 EVAL_MUST = ("window_attention", "cond_nerf_decode", "block_cosine_prior", "supercell_color")
 
@@ -3380,8 +3392,10 @@ def views_train(torch, dev, seed, tree, counters, ckpt, card, V):
     GMFlow checkpoint, VIEWS_STEPS steps each, no validation; the first step
     against the all-plain step; B' (train.yaml) twice a step, B' or D' at
     each scale as the route takes it (train_fast.yaml; D' at both at V = 2)
-    by the counters; the peak device memory of the steps; a checkpoint
-    written -> (results, the train.yaml run's latest.ckpt)."""
+    by the counters, step by step, and which scales went to each; the peak
+    device memory of the steps; a checkpoint written -> (results, the
+    train.yaml run's latest.ckpt)."""
+    from matchnerf_tpu_torch import kernels
     from matchnerf_tpu_torch.train import build_coach
     runs = os.path.join(tree["work"], "views_runs")
     out, latest = {}, None
@@ -3390,6 +3404,7 @@ def views_train(torch, dev, seed, tree, counters, ckpt, card, V):
                          VIEWS_STEPS, **{"n_src_views": V, "encoder.pretrain_weight": ckpt,
                                          "freq.val_it": -1, "freq.test_ep": -1})
         coach = build_coach(argv)
+        steps = kernels.record_steps(coach)
         first = first_step_check(torch, dev, coach.cfg, next(iter(coach.train_loader)), seed,
                                  f"views {label}.yaml V={V} bf16 policy", (1e-2, 0.5, 0.1))
         torch.cuda.empty_cache()
@@ -3410,9 +3425,12 @@ def views_train(torch, dev, seed, tree, counters, ckpt, card, V):
         mdir = os.path.join(coach.output_path, "models")
         ckpts = sorted(os.listdir(mdir))
         b_, d_ = launches["cosine_prior_bwd"], launches["block_cosine_prior_bwd"]
+        scales = [route_scales(st["route"]) if label == "train_fast" else ["B'", "B'"]
+                  for st in steps]
         log(f"views {label}.yaml V={V}: {VIEWS_STEPS} steps in {wall:.3f} s "
             f"({VIEWS_STEPS / wall:.3f} steps/s), peak {peak_gib:.2f} GiB, route "
-            f"{coach.last_route} (None: B'), B' {b_} and D' {d_} launches, losses "
+            f"{coach.last_route} (None: B'), the scales' backward kernels by step "
+            f"{scales}, B' {b_} and D' {d_} launches, losses "
             f"{[round(x, 6) for x in losses]}, checkpoints {ckpts}, launches {launches}, "
             f"plain versions on CUDA {plain_cuda}; {card}")
         if len(losses) != VIEWS_STEPS or not all(math.isfinite(x) for x in losses):
@@ -3426,8 +3444,10 @@ def views_train(torch, dev, seed, tree, counters, ckpt, card, V):
         if (b_ + d_ != 2 * VIEWS_STEPS or (want is not None and (b_, d_) != want)
                 or launches["window_attention_bwd"] <= 0):
             raise AssertionError(f"views {label} V={V}: B' {b_} and D' {d_} launches")
+        check_train_steps(f"views {label}.yaml V={V}", steps, label)
         out[label] = {"V": V, "steps": VIEWS_STEPS, "wall_s": wall, "losses": losses,
-                      "route": coach.last_route, "launches": launches, "checkpoints": ckpts,
+                      "route": coach.last_route, "scale_kernels": scales,
+                      "launches": launches, "checkpoints": ckpts,
                       "first_step": first, "peak_gib": peak_gib}
         if label == "train":
             latest = os.path.join(mdir, "latest.ckpt")
@@ -3509,13 +3529,27 @@ def views_phase(torch, dev, seed, tree, counters):
     an 11-view DTU tree the eval entry at V = 5 and 8 and the fused route at
     V = 8 (seeded weights; held to the V = 8 image's all-plain render: the
     same weights, view and function; F's device ms come from (a) at the
-    route's chunk), and 3 steps of each recipe at V = 8.
-    Each part's seconds under "part_s"."""
+    route's chunk), and 3 steps of each recipe at V = 8; then 3 steps of
+    each recipe at V = 4 and 6 on a 9-view tree at half the arc's angles.
+    The two trees are written by spawned processes while the kernel parts
+    run. Each part's seconds under "part_s" (a tree's: the wait for it)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     from matchnerf_tpu_torch.config import dtu_train_config
     from matchnerf_tpu_torch.data import synth
     t_phase = time.perf_counter()
     card = card_line()
     parts = {}
+    many = {"work": tree["work"], "root": os.path.join(tree["work"], "views_dtu"),
+            "meta": os.path.join(tree["work"], "views_dtu_meta")}
+    mid = {"work": tree["work"], "root": os.path.join(tree["work"], "views_dtu_mid"),
+           "meta": os.path.join(tree["work"], "views_dtu_mid_meta")}
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    writes = {"many": pool.submit(synth.write_dtu_scene, many["root"], many["meta"],
+                                  n_views=MANY_TREE_VIEWS),
+              "mid": pool.submit(synth.write_dtu_scene, mid["root"], mid["meta"],
+                                 n_views=MID_TREE_VIEWS, spread=MID_TREE_SPREAD)}
 
     def part(name, fn):
         t0 = time.perf_counter()
@@ -3534,12 +3568,9 @@ def views_phase(torch, dev, seed, tree, counters):
         torch, dev, seed, tree, counters, ckpt, card, 2))
     out["eval"] = {V: part(f"eval_v{V}", lambda: views_eval(
         torch, dev, seed, tree, counters, V, load, card)) for V, load in ((2, latest), (4, ""))}
-    many = {"work": tree["work"], "root": os.path.join(tree["work"], "views_dtu"),
-            "meta": os.path.join(tree["work"], "views_dtu_meta")}
-    part("many_tree", lambda: synth.write_dtu_scene(many["root"], many["meta"],
-                                                    n_views=MANY_TREE_VIEWS))
+    part("many_tree", writes["many"].result)
     out["many_tree"] = {"views": list(synth.dtu_scene_view_ids(MANY_TREE_VIEWS)),
-                        "write_s": parts["many_tree"]}
+                        "wait_s": parts["many_tree"]}
     log(f"views: {MANY_TREE_VIEWS}-view DTU tree at {W}x{H}, views "
         f"{out['many_tree']['views']} (val/test 24)")
     for V in MANY_EVAL:
@@ -3555,6 +3586,15 @@ def views_phase(torch, dev, seed, tree, counters):
         del e["plain_rgb"]
     out["train_many"], _ = part(f"train_v{MANY_TRAIN}", lambda: views_train(
         torch, dev, seed, many, counters, ckpt, card, MANY_TRAIN))
+    part("mid_tree", writes["mid"].result)
+    pool.shutdown()
+    out["train_mid"] = {V: part(f"train_v{V}", lambda: views_train(
+        torch, dev, seed, mid, counters, ckpt, card, V))[0] for V in MID_TRAIN}
+    for V, runs in out["train_mid"].items():
+        if runs["train_fast"]["launches"]["block_cosine_prior_bwd"] <= 0:
+            raise AssertionError(f"views train_fast.yaml V={V} on the {MID_TREE_VIEWS}-view "
+                                 f"tree at spread {MID_TREE_SPREAD}: no D' launch (routes "
+                                 f"{runs['train_fast']['scale_kernels']})")
     out["part_s"] = parts
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"views phase: {out['phase_s']:.1f} s; {card}")
@@ -4452,6 +4492,225 @@ def determinism_phase(torch, dev, seed, tree, counters):
     return out
 
 
+# ---- phase 22: the convergence run ----------------------------------------
+
+CONV_STEPS = 200                   # steps of each small-shape run (tools/convergence_tpu.py)
+CONV_LOG_AT = (1, 50, 100, 150, 200)
+CONV_FLOOR_DB = 22.0               # each kernel run's target view, at least
+CONV_TWIN_DB = 1.0                 # and within this of its all-plain twin
+CONV_JAX_CPU_DB = 25.52            # the JAX tool on the CPU at 200 steps, S = 32 (not a bar)
+# steps of each full-width run through the training entry: 200 took 202 s
+# for (b) alone (4 runs, 8 validations) on an H100 80GB HBM3 at 700 W, and
+# 100 took 133 s in a whole run whose phase 22 took 254 s: cut to keep the
+# phase within 240 s and the script inside its limit
+CONV_FULL_STEPS = 50
+CONV_FULL_EPOCH = 42               # the most steps an epoch (phase 12's tree: 6 views x 7 lights)
+CONV_FULL_GAIN_DB = 3.0            # the validation image's rise over its step-0 image
+CONV_LOSS_WINDOW = 20              # steps averaged at each end of a full-width run
+
+
+def route_scales(route):
+    """The prior kernel each feature scale's backward takes under a
+    training route: D' where the route gives a bucket, else B'."""
+    return ["D'" if route is not None and ut is not None else "B'" for ut in
+            (route if route is not None else (None, None))]
+
+
+def check_train_steps(label, steps, recipe, plain_ok=()):
+    """Each step launched A' and, per feature scale, B' or D' as its route
+    names (B' at both under train.yaml), and no plain version ran on CUDA
+    but those of `plain_ok`."""
+    for i, st in enumerate(steps):
+        l, pc = st["launches"], st["plain_on_cuda"]
+        scales = route_scales(st["route"]) if recipe == "train_fast" else ["B'", "B'"]
+        want_d = scales.count("D'")
+        if l["window_attention_bwd"] <= 0:
+            raise AssertionError(f"{label} step {i + 1}: no A' launch: {l}")
+        if recipe != "tiny" and (l["block_cosine_prior_bwd"], l["cosine_prior_bwd"]) != (
+                want_d, 2 - want_d):
+            raise AssertionError(f"{label} step {i + 1}: route {st['route']} wants "
+                                 f"{scales}, launched D' {l['block_cosine_prior_bwd']} and "
+                                 f"B' {l['cosine_prior_bwd']}")
+        bad = {k: v for k, v in pc.items() if v and k not in plain_ok}
+        if bad:
+            raise AssertionError(f"{label} step {i + 1}: plain versions ran on CUDA: {bad}")
+
+
+def convergence_small(torch, dev, seed, card):
+    """Phase 22 (a): `matchnerf_tpu_torch.convergence` at its defaults (32x48,
+    2 layers, S = 32, 256 rays, CONV_STEPS steps) for each recipe, on the
+    kernels and all-plain from one seed: the losses at CONV_LOG_AT, the
+    target view's PSNR (>= CONV_FLOOR_DB and within CONV_TWIN_DB of the
+    all-plain twin), A' every step, B' every train.yaml step, B' or D' at
+    each scale as the train_fast route names it, and no plain version on
+    CUDA but the tiny recipe's direct matching prior (no banded or block
+    kernel in its config, as in the JAX package)."""
+    from matchnerf_tpu_torch import convergence
+    out = {}
+    for recipe in convergence.RECIPES:
+        res = {}
+        for route in ("kernel", "plain"):
+            cfg = convergence.recipe_config(recipe)
+            r = convergence.run(cfg, CONV_STEPS, dev, kernel=route == "kernel", seed=seed,
+                                log=None)
+            torch.cuda.synchronize()
+            res[route] = r
+        k, p = res["kernel"], res["plain"]
+        label = f"convergence {recipe}"
+        routes = sorted({str(st["route"]) for st in k["per_step"]})
+        scales = sorted({" ".join(route_scales(st["route"])) for st in k["per_step"]})
+        render_plain = {n: v for n, v in k["render"]["plain_on_cuda"].items() if v}
+        gap = k["psnr"] - p["psnr"]
+        out[recipe] = {
+            route: {"losses_at": {n: r["losses"][n - 1] for n in CONV_LOG_AT},
+                    "psnr_db": r["psnr"], "wall_s": r["wall_s"],
+                    "steps_per_s": CONV_STEPS / r["wall_s"], "launches": r["launches"],
+                    "plain_on_cuda": r["plain_on_cuda"],
+                    "render_launches": r["render"]["launches"],
+                    "render_route": r["render_route"]}
+            for route, r in res.items()}
+        out[recipe].update({"routes": routes, "scale_kernels": scales, "psnr_gap_db": gap,
+                            "card": card})
+        for route, r in res.items():
+            log(f"{label} ({route}): losses " + ", ".join(
+                f"{n}: {r['losses'][n - 1]:.5f}" for n in CONV_LOG_AT)
+                + f"; target view {r['psnr']:.2f} dB; {CONV_STEPS} steps in {r['wall_s']:.1f}"
+                f" s ({CONV_STEPS / r['wall_s']:.2f} steps/s); launches in the steps "
+                + str({n: v for n, v in r["launches"].items() if v}) + ", in the render "
+                + str({n: v for n, v in r["render"]["launches"].items() if v})
+                + f", plain versions on CUDA {({n: v for n, v in r['plain_on_cuda'].items() if v})}")
+        log(f"{label}: kernels {k['psnr']:.2f} dB vs all-plain {p['psnr']:.2f} dB (gap "
+            f"{gap:+.2f}, need >= {CONV_FLOOR_DB} and within {CONV_TWIN_DB}); routes {routes}, "
+            f"the scales' backward kernels {scales}"
+            + ("; tiny: A' is the only kernel of a step, the matching prior takes its plain "
+               "direct path (no banded or block kernel), as in the JAX package, and JAX's "
+               f"CPU run reaches {CONV_JAX_CPU_DB} dB (not a bar)" if recipe == "tiny" else "")
+            + f"; {card}")
+        check_train_steps(label, k["per_step"], recipe,
+                          plain_ok=("cosine_prior",) if recipe == "tiny" else ())
+        if recipe != "tiny" and render_plain:
+            raise AssertionError(f"{label}: plain versions ran on CUDA in the render: "
+                                 f"{render_plain}")
+        if not (k["psnr"] >= CONV_FLOOR_DB and abs(gap) <= CONV_TWIN_DB):
+            raise AssertionError(f"{label}: {k['psnr']:.2f} dB, all-plain {p['psnr']:.2f}")
+        del res, k, p
+        torch.cuda.empty_cache()
+    return out
+
+
+def convergence_full(torch, seed, tree, counters, ckpt, card, steps=CONV_FULL_STEPS):
+    """Phase 22 (b): `python -m matchnerf_tpu_torch.train --config train|
+    train_fast` (`build_coach` + `train_model`) at full width on phase 12's
+    DTU tree from the written GMFlow checkpoint, `steps` steps, the
+    validation image (view 24) rendered before the first step and after
+    the last and no other hook; on the kernels and again all-plain
+    (`build_coach(kernel=False)`) from the same seed. Held: each kernel
+    run's validation PSNR rises by CONV_FULL_GAIN_DB and ends within
+    CONV_TWIN_DB of the all-plain run's; the mean loss of its last
+    CONV_LOSS_WINDOW steps is at most half that of its first; A' and B'
+    (train.yaml) or B' / D' as the route names (train_fast.yaml) on every
+    step, no plain version on CUDA."""
+    from matchnerf_tpu_torch import kernels
+    from matchnerf_tpu_torch.train import build_coach
+    runs_dir = os.path.join(tree["work"], "conv_runs")
+    epochs = next(e for e in range(-(-steps // CONV_FULL_EPOCH), steps + 1) if steps % e == 0)
+    out = {}
+    for label in ("train", "train_fast"):
+        res = {}
+        for route in ("kernel", "plain"):
+            argv = loop_args(label, f"conv_{label}_{route}", runs_dir, tree["root"],
+                             tree["meta"], steps // epochs,
+                             **{"encoder.pretrain_weight": ckpt, "seed": seed,
+                                "max_epoch": epochs, "freq.val_it": -1, "freq.test_ep": -1,
+                                "freq.ckpt_it": -1, "freq.ckpt_ep": -1})
+            coach = build_coach(argv, kernel=route == "kernel")
+            steps_rec = kernels.record_steps(coach)
+            psnrs, val_s = [], []
+            for c in counters.values():
+                c.reset()
+            for when in ("before", "train", "after"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if when == "train":
+                    coach.train_model()
+                else:
+                    psnrs.append(float(np.mean(coach.validate_model(iteration=coach.it)["PSNR"])))
+                torch.cuda.synchronize()
+                if when == "train":
+                    wall = time.perf_counter() - t0
+                else:
+                    val_s.append(time.perf_counter() - t0)
+            with open(coach.scalars_path) as f:
+                losses = [json.loads(line)["loss_render"] for line in f
+                          if json.loads(line)["split"] == "train"]
+            first = float(np.mean(losses[:CONV_LOSS_WINDOW]))
+            last = float(np.mean(losses[-CONV_LOSS_WINDOW:]))
+            by_step = [" ".join(route_scales(st["route"])) for st in steps_rec]
+            scales = sorted(set(by_step))
+            shares = {k: by_step.count(k) for k in scales}
+            totals = {n: sum(st["launches"][n] for st in steps_rec) for n in counters}
+            res[route] = {"steps": len(losses), "epochs": epochs, "psnr_db": psnrs,
+                          "gain_db": psnrs[1] - psnrs[0], "loss_first": first,
+                          "loss_last": last, "loss_ratio": last / first,
+                          "losses_at": {n: losses[n - 1] for n in (1, steps // 4, steps // 2,
+                                                                   3 * steps // 4, steps)},
+                          "wall_s": wall, "steps_per_s": len(losses) / wall,
+                          "validation_s": val_s, "scale_kernels": scales,
+                          "scale_steps": shares,
+                          "launches": totals, "card": card}
+            log(f"convergence {label}.yaml full width ({route}): {len(losses)} steps in "
+                f"{wall:.1f} s ({len(losses) / wall:.2f} steps/s, {epochs} epochs), validation "
+                f"view 24 {psnrs[0]:.2f} -> {psnrs[1]:.2f} dB ({psnrs[1] - psnrs[0]:+.2f}; "
+                f"{val_s[0]:.1f} / {val_s[1]:.1f} s), mean loss of the first / last "
+                f"{CONV_LOSS_WINDOW} steps {first:.5f} / {last:.5f} (x{last / first:.3f}), the "
+                f"scales' backward kernels {scales} (steps at each: {shares}), launches in "
+                "the steps "
+                + str({n: v for n, v in totals.items() if v}) + f"; {card}")
+            if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"convergence {label} ({route}): losses {losses}")
+            if route == "kernel":
+                check_train_steps(f"convergence {label}.yaml full width", steps_rec, label)
+            del coach
+            torch.cuda.empty_cache()
+        k, p = res["kernel"], res["plain"]
+        gap = k["psnr_db"][1] - p["psnr_db"][1]
+        res["psnr_gap_db"] = gap
+        log(f"convergence {label}.yaml full width: kernels {k['psnr_db'][1]:.2f} dB vs "
+            f"all-plain {p['psnr_db'][1]:.2f} (gap {gap:+.2f}, need within {CONV_TWIN_DB}); "
+            f"rise {k['gain_db']:+.2f} dB (all-plain {p['gain_db']:+.2f}; need >= "
+            f"{CONV_FULL_GAIN_DB}); loss x{k['loss_ratio']:.3f} (all-plain "
+            f"x{p['loss_ratio']:.3f}; need <= 0.5)")
+        if not (k["gain_db"] >= CONV_FULL_GAIN_DB and abs(gap) <= CONV_TWIN_DB
+                and k["loss_ratio"] <= 0.5):
+            raise AssertionError(f"convergence {label}.yaml full width: {res}")
+        out[label] = res
+    return out
+
+
+def convergence_phase(torch, dev, seed, tree, counters):
+    """Phase 22: the training recipe learns. (a) `convergence_small`; (b)
+    `convergence_full` on phase 12's tree. Each part's seconds under
+    "part_s"."""
+    from matchnerf_tpu_torch.config import dtu_train_config
+    t_phase = time.perf_counter()
+    card = card_line()
+    out, parts = {}, {}
+    t0 = time.perf_counter()
+    out["small"] = convergence_small(torch, dev, seed, card)
+    parts["small"] = time.perf_counter() - t0
+    log(f"convergence: (a) in {parts['small']:.1f} s")
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tree["work"], "conv_gmflow.pth")
+    write_gmflow_checkpoint(torch, dtu_train_config(), seed, ckpt)
+    out["full"] = convergence_full(torch, seed, tree, counters, ckpt, card)
+    parts["full"] = time.perf_counter() - t0
+    log(f"convergence: (b) in {parts['full']:.1f} s")
+    out["part_s"] = parts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"convergence phase: {out['phase_s']:.1f} s; {card}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4703,7 +4962,7 @@ def main():
         del feats, tables, grids
 
     # ---- 4. the block path (configs/test.yaml as shipped), 5. per-ray, 6. fused
-    counters = kernel_counters()
+    counters = kernels.counters()
     n_rays = H * W
 
     def drive(name, r, must_launch):
@@ -4918,6 +5177,12 @@ def main():
     # ---- 21. training repeats itself: two same-seed runs of train.yaml and
     # train_fast.yaml at V = 3 and of train.yaml at V = 8, bit for bit
     determinism = determinism_phase(torch, dev, args.seed, tree, counters)
+    torch.cuda.empty_cache()
+
+    # ---- 22. the convergence run: the small shape's three recipes on the
+    # kernels and all-plain, then train.yaml and train_fast.yaml at full
+    # width through the training entry
+    conv = convergence_phase(torch, dev, args.seed, tree, counters)
 
     def per_scale(entries):
         return {"max_abs_err": max(e["max_abs_err"] for e in entries),
@@ -5154,7 +5419,8 @@ def main():
                 e["launches_by_path"][f"views_eval_v{V}"] = v["launches"][name]
             for V, v in views["eval_fused"].items():
                 e["launches_by_path"][f"views_fused_v{V}"] = v["launches"][name]
-            for V, runs in ((2, views["train"]), (MANY_TRAIN, views["train_many"])):
+            for V, runs in ((2, views["train"]), (MANY_TRAIN, views["train_many"]),
+                            *views["train_mid"].items()):
                 for k, v in runs.items():
                     e["launches_by_path"][f"views_{k}_v{V}_{VIEWS_STEPS}_steps"] = \
                         v["launches"][name]
@@ -5162,12 +5428,19 @@ def main():
                 if k != "phase_s" and name in v["launches"]:
                     e["launches_by_path"][f"determinism_{k}_{DET_STEPS}_steps"] = \
                         v["launches"][name]
+            for k, v in conv["small"].items():
+                e["launches_by_path"][f"convergence_{k}_{CONV_STEPS}_steps"] = \
+                    v["kernel"]["launches"][name]
+            for k, v in conv["full"].items():
+                e["launches_by_path"][f"convergence_{k}_full_{v['kernel']['steps']}_steps"] = \
+                    v["kernel"]["launches"][name]
     report["paths"]["views"] = {k: views[k] for k in ("train", "eval", "many_tree",
-                                                       "eval_fused", "train_many", "part_s",
-                                                       "phase_s")}
+                                                       "eval_fused", "train_many", "train_mid",
+                                                       "part_s", "phase_s")}
     report["paths"]["variants"] = {k: v for k, v in variants.items() if k != "kernels"}
     report["paths"]["decoder_any"] = {k: v for k, v in cg.items() if k != "kernels"}
     report["paths"]["determinism"] = determinism
+    report["paths"]["convergence"] = conv
     # each kernel's launches in each rank of phase 16, per path
     for e in report["kernels"]:
         name = e["name"].replace("_bf16", "")

@@ -263,9 +263,11 @@ def dtu_scene_view_ids(n_views: int = 6) -> Tuple[int, ...]:
     return DTU_SCENE_VIEW_IDS + tuple(range(19, 25 - n_views, -1))
 
 
-def write_dtu_scene(root: str, meta_dir: str, W: int = 640, H: int = 512, n_views: int = 6):
+def write_dtu_scene(root: str, meta_dir: str, W: int = 640, H: int = 512, n_views: int = 6,
+                    spread: float = 1.0):
     """n_views (6 to 12) views of the scene at 640x512 (or W x H) on an
-    arc, as scan1 of a DTU tree (DTU view ids 20-25, then 19, 18, ...,
+    arc, their angles `spread` times the default ones (8 degrees apart at
+    1.0), as scan1 of a DTU tree (DTU view ids 20-25, then 19, 18, ...,
     `dtu_scene_view_ids`; 24, in the middle, is the validation and test
     target; 20, the first reference view of the training metas, is next to
     it) with depth_min 425 and interval 2.5 (near / far 2.125 / 4.525), its
@@ -274,7 +276,7 @@ def write_dtu_scene(root: str, meta_dir: str, W: int = 640, H: int = 512, n_view
     the loader's 2 added candidates needs V + 3 views (11 at V = 8)."""
     view_ids = dtu_scene_view_ids(n_views)
     radius = 3.7
-    angles = np.deg2rad(_DTU_SCENE_ANGLES[:n_views])
+    angles = np.deg2rad(np.asarray(_DTU_SCENE_ANGLES[:n_views]) * spread)
     eyes = [(radius * math.sin(a), -1.0, -radius * math.cos(a)) for a in angles]
     views = make_scene_views(W, H, focal=1.8 * W, eyes=eyes)
     images = np.round(views["images"] * 255.0).astype(np.uint8)

@@ -109,7 +109,8 @@ class Coach:
     the step for the recipe's shape (data_train.img_wh, nerf.rand_rays_train);
     `train_iteration(batch)` takes one step on a numpy batch (images
     [1,V+1,H,W,3], extrinsics, intrinsics, near_fars as `Renderer.forward`
-    takes them) and returns {'render', 'all'}: device scalars, or floats
+    takes them; `ray_idx` and `depth_rand` replace the step's draws, as
+    `TrainStep` takes them) and returns {'render', 'all'}: device scalars, or floats
     (checked finite) on every `freq.scalar`-th iteration or with
     sync_loss_every_step. Its hooks run once `train_model` has set their
     periods; called alone it only steps."""
@@ -233,7 +234,8 @@ class Coach:
             self._route_cache[key] = route
         return self._route_cache[key]
 
-    def train_iteration(self, batch: Dict) -> Dict:
+    def train_iteration(self, batch: Dict, ray_idx: Optional[torch.Tensor] = None,
+                        depth_rand: Optional[torch.Tensor] = None) -> Dict:
         if self.step is None:
             raise RuntimeError("call setup_optimizer first")
         if self.timer is not None:
@@ -242,7 +244,7 @@ class Coach:
         self.last_route = route
         self._in_step = True          # a stop signal waits for the step to finish
         try:
-            loss = self.step(self.batch_tensors(batch), block_ut=route)
+            loss = self.step(self.batch_tensors(batch), route, ray_idx, depth_rand)
             self.it += 1
         finally:
             self._in_step = False

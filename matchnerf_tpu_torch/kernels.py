@@ -198,6 +198,53 @@ def launch(counter: LaunchCounter, fn_name: str, *args, variant: str = "") -> No
         counter.by_variant[variant] = counter.by_variant.get(variant, 0) + 1
 
 
+def counters() -> dict:
+    """Every kernel's `LaunchCounter` by name: the forward counters of A, B,
+    C, Cg, D, E and F, and the training ones (A', B', D' and D''s f32
+    forward)."""
+    from .ops import block_cosine_prior as kd
+    from .ops import cosine_prior as kb
+    from .ops import decoder as kc
+    from .ops import fused_cosine as kf
+    from .ops import supercell_color as ke
+    from .ops import window_attention as ka
+    return {"window_attention": ka.COUNTER, "cosine_prior": kb.COUNTER,
+            "cond_nerf_decode": kc.COUNTER, "cond_nerf_decode_any": kc.COUNTER_ANY,
+            "block_cosine_prior": kd.COUNTER,
+            "supercell_color": ke.COUNTER, "fused_cosine": kf.COUNTER,
+            "window_attention_bwd": ka.BWD_COUNTER,
+            "cosine_prior_bwd": kb.BWD_COUNTER,
+            "block_cosine_prior_f32": kd.F32_COUNTER,
+            "block_cosine_prior_bwd": kd.BWD_COUNTER}
+
+
+def read(by_name: dict) -> dict:
+    """{"launches": {name: n}, "plain_on_cuda": {name: n}} of the counters
+    `by_name` (as `counters()` gives them) now."""
+    return {"launches": {k: c.launches for k, c in by_name.items()},
+            "plain_on_cuda": {k: c.plain_on_cuda for k, c in by_name.items()}}
+
+
+def record_steps(coach) -> list:
+    """Wrap `coach.train_iteration` (an `engine.Coach`) so that each step
+    appends to the returned list what every counter counted in it,
+    {"launches", "plain_on_cuda"} as `read` gives them, and the step's
+    route (`coach.last_route`)."""
+    by_name, steps, inner = counters(), [], coach.train_iteration
+
+    def step(*args, **kwargs):
+        before = read(by_name)
+        out = inner(*args, **kwargs)
+        after = read(by_name)
+        steps.append({key: {k: n - before[key][k] for k, n in after[key].items()}
+                      for key in after})
+        steps[-1]["route"] = coach.last_route
+        return out
+
+    coach.train_iteration = step
+    return steps
+
+
 def ptr(t) -> int:
     """Device pointer of a tensor, or NULL for None."""
     return None if t is None else t.data_ptr()

@@ -47,13 +47,15 @@ import sys
 from typing import List, Optional
 
 
-def build_coach(argv: Optional[List[str]] = None):
+def build_coach(argv: Optional[List[str]] = None, kernel: bool = True):
     """Everything `main` does before training, in train.py's order: the
     config with its overrides, the process group where one is configured
     (`parallel.distributed.maybe_initialize`, before the run is named), the
     run directory, the train, val and test loaders, the model, the
     optimizer, the checkpoint to resume or load (every rank then holding
-    rank 0's state) and the visualizer. Returns the `engine.Coach`."""
+    rank 0's state) and the visualizer. Returns the `engine.Coach`;
+    kernel=False gives it every kernel's plain version (the all-plain
+    reference run on the card)."""
     from .config import entry_config, process_options
     from .engine import Coach
     from .parallel import distributed as dist
@@ -64,7 +66,7 @@ def build_coach(argv: Optional[List[str]] = None):
     logging.getLogger(__name__).info("config %s on %s, output %s (rank %d of %d)", name,
                                      device, cfg.output_path, dist.process_index(),
                                      dist.process_count())
-    coach = Coach(cfg, device=device)
+    coach = Coach(cfg, device=device, kernel=kernel)
     coach.load_dataset(["train", "val", "test"])
     coach.build_networks()
     coach.setup_optimizer()

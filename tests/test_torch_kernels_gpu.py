@@ -60,6 +60,9 @@ ragged L = 100 and with fewer region rows than windows, and bit-equal
 from run to run), B' (cosine-prior table gradient, atomics in any order:
 1e-5 of the largest gradient) and D' (f32 block forward 1e-5, and its table
 gradient 1e-5 of the largest, also against B', the same function).
+The convergence run's train recipe (`matchnerf_tpu_torch.convergence`) for
+30 steps on the kernels and all-plain: the mean loss of steps 21-30 within
+10 % of the all-plain run's.
 """
 import pytest
 import torch
@@ -1031,3 +1034,22 @@ def test_prior_kernels_refuse_other_view_counts(dev, kernel):
                 kd.block_cosine_prior(table, grids, None, 2, 128)
     torch.cuda.synchronize()
     assert [(c.launches, c.plain_on_cuda) for c in counters] == before
+
+
+def test_convergence_train_recipe_follows_all_plain(dev):
+    """30 steps of `matchnerf_tpu_torch.convergence`'s train recipe (the
+    small shape: 32x48, 2 layers, S = 32; A' and B' every step) on the
+    kernels and all-plain from one seed: the mean loss of steps 21-30
+    within 10 % of the all-plain run's, both below step 1's loss."""
+    from matchnerf_tpu_torch import convergence
+    runs = {}
+    for kernel in (True, False):
+        cfg = convergence.recipe_config("train")
+        runs[kernel] = convergence.run(cfg, 30, dev, kernel=kernel, seed=0, log=None)
+    k, p = runs[True], runs[False]
+    assert all(s["launches"]["window_attention_bwd"] > 0
+               and s["launches"]["cosine_prior_bwd"] == 2 for s in k["per_step"])
+    assert not any(k["plain_on_cuda"].values()), k["plain_on_cuda"]
+    mean_k, mean_p = (sum(r["losses"][20:]) / 10 for r in (k, p))
+    assert abs(mean_k - mean_p) <= 0.1 * mean_p, (mean_k, mean_p)
+    assert mean_k < k["losses"][0] and mean_p < p["losses"][0], (k["losses"], p["losses"])

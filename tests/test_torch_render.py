@@ -272,22 +272,25 @@ def test_chip_smoke_config_matches_yaml(variant):
 
 
 def test_port_imports_without_jax_yaml_pil():
-    """Every module of the port (the training step, engine and parallel
-    layer included) imports with jax, yaml, PIL and the JAX package blocked, and
-    chip_smoke.py names no file or module of the JAX package."""
+    """Every module of the port (the training step, engine, parallel layer
+    and convergence run included) imports with jax, yaml, PIL, the JAX
+    package and __graft_entry__ blocked, and chip_smoke.py names no file or
+    module of the JAX package."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'yaml', 'PIL', 'matchnerf_tpu'):\n"
+        "for m in ('jax', 'yaml', 'PIL', 'matchnerf_tpu', '__graft_entry__'):\n"
         "    sys.modules[m] = None\n"
         "import matchnerf_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "for m in ('renderer', 'train_step', 'engine', 'score_preds', 'data.llff',\n"
-        "          'data.blender', 'data.tnt', 'parallel.distributed', 'parallel.mesh'):\n"
+        "          'data.blender', 'data.tnt', 'parallel.distributed', 'parallel.mesh',\n"
+        "          'convergence'):\n"
         "    assert 'matchnerf_tpu_torch.' + m in names, m\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'yaml', 'PIL', 'matchnerf_tpu')\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'yaml', 'PIL', 'matchnerf_tpu',\n"
+        "                              '__graft_entry__')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -153,6 +153,27 @@ def test_sample_features_by_grid_local_radius(radius, dilation):
         jnp.asarray(feat), jnp.asarray(grid))), atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("dilation", [1, 2])
+def test_sample_features_by_grid_local_radius_without_autograd(radius, dilation):
+    """Where autograd is not recording (the eval renders) the window takes
+    F.grid_sample, one pass an offset: the same values as the recording
+    path's grid_sample_2d (1e-6) and as JAX (1e-5)."""
+    rng = np.random.default_rng(radius * 10 + dilation + 5)
+    feat = rng.normal(0, 1, (2, 9, 13, 8)).astype(np.float32)
+    grid = rng.uniform(-1.2, 1.2, (2, 5, 7, 2)).astype(np.float32)
+    grid[0, 0, :, 0] = 1.0
+    grid[1, 1, :, 1] = -1.0
+    recorded = sample_features_by_grid(torch.tensor(feat), torch.tensor(grid), radius,
+                                       dilation)
+    with torch.no_grad():
+        got = sample_features_by_grid(torch.tensor(feat), torch.tensor(grid), radius, dilation)
+    want = jax_sample(jnp.asarray(feat), jnp.asarray(grid), local_radius=radius,
+                      local_dilation=dilation)
+    np.testing.assert_allclose(got.numpy(), recorded.detach().numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_full_attention_matches_jax(dtype):
     rng = np.random.default_rng(4)
