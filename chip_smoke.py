@@ -241,7 +241,14 @@ Phases, any failure ends the run with a non-zero exit:
    quality 95) at 1920x1056 and 4032x3024, ms per LANCZOS and per BILINEAR
    resize of each to 960x640 (means of 5 calls), the T&T loader's seconds
    per sample on phase 13's tree, and the decoded 1920x1056 JPEG held to
-   PIL's sha256 of it (ROUNDTRIP_SHA256), with the card's name and limit.
+   PIL's sha256 of it (ROUNDTRIP_SHA256), with the card's name and limit;
+   progressive JPEGs (SOF2): the committed fixtures (tests/data/
+   jpeg_progressive/, PIL-written) each decoded and held to PIL's sha256
+   (PROGRESSIVE_SHA256), the progressive printer (504x378) and photo
+   (1920x1056) timed as the baseline files are, and the printer scene
+   re-saved progressive as a COLMAP tree under build/, loaded by
+   COLMAPDataset at 256x160 with each image held to PIL's decode and
+   LANCZOS (PROGRESSIVE_TREE_SHA256); the phase's seconds.
 18. two to eight source views (n_src_views), at full width, 640x512, S =
    128: (a) for V = 2, 4, 5, 6 and 8, a scene of V sources spread over
    -16..16 degrees of phase 2's arc and the target at 8 degrees, one encode
@@ -401,6 +408,34 @@ PRINTER_SHA256 = {
                "6063ab3b232b2d4a857e108bd93c1a903348b665ab798f130de94f61520e2146"),
     "2.jpeg": ("da3ec1825d20314ec21b9e2711ab592c66d04870a53e66966380be5275539d66",
                "8d2b4bc96ea96bafa528cb66d9d8bbc1b4c3e19bff5be8240a6a45750d3a343d"),
+}
+# progressive JPEGs (SOF2) written with PIL (tests/test_torch_image_io_progressive.py
+# `write_fixtures`): the sha256 of each decoded uint8 image as PIL gives it,
+# and of the printer ones resized to PRINTER_WH with LANCZOS, as the COLMAP
+# loader gives them from the printer scene re-saved progressive
+PROGRESSIVE_DIR = os.path.join(REPO, "tests", "data", "jpeg_progressive")
+PROGRESSIVE_SHA256 = {
+    "grey.jpg":
+        "3f1f51026d6f91494914937ed9fdcfe1a679edeae8514726284f57e674af6092",
+    "photo_1920x1056.jpg":
+        "2a9a1682281d458663c0e38d1d9856125ff44621838010ff7333b856939566d0",
+    "printer_0.jpg":
+        "53ccb218e54b7b2689f8c76bffb3ab9ed1d548e0aa267373a60443bd89332577",
+    "printer_0_dc_only.jpg":
+        "9b829d1258c11dc0477e36c465c4dccb68e16b4ea9b2b96f537ae04e4b65a7fe",
+    "printer_0_no_refine.jpg":
+        "071ea4362436cb3d3375ffb1eb2217c8a9062e8bf34ac1fa6c9e5880eb5d6192",
+    "printer_1.jpg":
+        "544631cc272f33ca00b58d99d610546fe16ce96faf95b6ff3ac1197c2f879762",
+    "printer_2.jpg":
+        "1e30c197fc640fc40ed9ee3edd9c0a9b069aa7bd2cb72622dcf491c7ec97fee6",
+    "restart_444.jpg":
+        "29b39bab80762df8c6135634f1bed28c4f1cce5078205fca8a054f8009c2538d",
+}
+PROGRESSIVE_TREE_SHA256 = {
+    "printer_0.jpg": "c30253e732531885fea22d108d144d946ea759ebb167a947749a4b1d2078f7a3",
+    "printer_1.jpg": "b890c3df6a27595c85b08092067ac2af876314dad8c8f6a22d22ea55b59caa1a",
+    "printer_2.jpg": "77f43c03dd78c9c985290cbf3318b3ed0269876485352d98965bdde58abd67f3",
 }
 # decode(encode_jpeg(seeded_photo(1920, 1056), quality 95)), as PIL decodes it
 ROUNDTRIP_WH = (1920, 1056)
@@ -1182,6 +1217,64 @@ def printer_check():
         f"{PRINTER_WH[0]}x{PRINTER_WH[1]} (LANCZOS) by the port, each equal to PIL's "
         f"(sha256); ms {out}")
     return out
+
+
+def progressive_check():
+    """Each progressive fixture (PROGRESSIVE_DIR) decoded by the port (no
+    PIL), held to PIL's sha256 of it (PROGRESSIVE_SHA256) -> {"decoded": n,
+    "ms": {file: ms of one decode}}."""
+    import hashlib
+
+    from matchnerf_tpu_torch.data import jpeg
+    out = {"ms": {}}
+    for name, want in sorted(PROGRESSIVE_SHA256.items()):
+        t0 = time.perf_counter()
+        img = jpeg.read_jpeg(os.path.join(PROGRESSIVE_DIR, name))
+        out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        got = hashlib.sha256(img.tobytes()).hexdigest()
+        if got != want:
+            raise AssertionError(f"progressive {name}: decoded {img.shape} sha256 {got}, PIL "
+                                 f"gives {want}")
+    out["decoded"] = len(out["ms"])
+    return out
+
+
+def write_progressive_colmap_tree(work):
+    """The printer scene with its images re-saved progressive: the scene's
+    poses_bounds.npy and the fixtures printer_{i}.jpg as images/{i}.jpeg
+    under work/printer -> the tree's root (`work`)."""
+    import shutil
+    scene = os.path.join(work, "printer")
+    os.makedirs(os.path.join(scene, "images"), exist_ok=True)
+    shutil.copy(os.path.join(os.path.dirname(PRINTER_DIR), "poses_bounds.npy"), scene)
+    for name in PRINTER_SHA256:
+        shutil.copy(os.path.join(PROGRESSIVE_DIR, f"printer_{name.split('.')[0]}.jpg"),
+                    os.path.join(scene, "images", name))
+    return work
+
+
+def progressive_tree_check(root):
+    """COLMAPDataset (configs/demo_own.yaml's loader) on the progressive
+    printer tree at PRINTER_WH: each of the sample's images held to PIL's
+    decode-and-LANCZOS sha256 of its fixture (PROGRESSIVE_TREE_SHA256) ->
+    {"images": n, "sample_s": seconds to build the sample}."""
+    import hashlib
+
+    from matchnerf_tpu_torch.data.colmap import COLMAPDataset
+    t0 = time.perf_counter()
+    sample = COLMAPDataset(root, "test", n_views=3, img_wh=PRINTER_WH, scene_list=["printer"],
+                           test_views_method="fixed", nf_mode="minmax")[0]
+    sample_s = time.perf_counter() - t0
+    for img, vid in zip(sample["images"], sample["view_ids"]):
+        u8 = np.rint(img * 255).astype(np.uint8)
+        if not np.array_equal(u8.astype(np.float32) / 255.0, img):
+            raise AssertionError(f"progressive tree: view {vid} is not a uint8 image / 255")
+        name = f"printer_{int(vid)}.jpg"
+        got = hashlib.sha256(u8.tobytes()).hexdigest()
+        if got != PROGRESSIVE_TREE_SHA256[name]:
+            raise AssertionError(f"progressive tree: {name} at {PRINTER_WH} sha256 {got}, PIL "
+                                 f"gives {PROGRESSIVE_TREE_SHA256[name]}")
+    return {"images": len(sample["images"]), "sample_s": sample_s}
 
 
 def plain_frame0(cfg, model, dev, batch, n_slices=None, mode="interpolate", setbg=False):
@@ -2699,13 +2792,20 @@ def host_io_phase(tnt_tree, photos):
     and of the encoder-made JPEGs at HOST_IO_WH, ms per LANCZOS and
     BILINEAR resize of each to 960x640, the T&T loader's seconds per sample
     (phase 13's tree: 4 JPEGs decoded and resized), and the decoded
-    1920x1056 JPEG held to PIL's sha256 of it (ROUNDTRIP_SHA256)."""
+    1920x1056 JPEG held to PIL's sha256 of it (ROUNDTRIP_SHA256); then the
+    progressive JPEGs: every fixture held to PIL's sha256
+    (`progressive_check`), the progressive printer and photo timed as the
+    baseline files, and the COLMAP loader on the progressive printer tree
+    (`progressive_tree_check`)."""
     import hashlib
     import importlib.util
+    import shutil
+    import tempfile
 
     from matchnerf_tpu_torch.data import jpeg, resample
     from matchnerf_tpu_torch.data.common import LOAD_THREADS
     from matchnerf_tpu_torch.data.tnt import TNTDataset
+    t_phase = time.perf_counter()
     card = card_line()
     out = {"card": card, "pil_installed": importlib.util.find_spec("PIL") is not None,
            "repeats": HOST_IO_REPEATS, "images": {}}
@@ -2717,8 +2817,12 @@ def host_io_phase(tnt_tree, photos):
             r = fn()
         return r, (time.perf_counter() - t0) / HOST_IO_REPEATS * 1e3
 
+    rw, rh = ROUNDTRIP_WH
     files = {"printer_504x378": os.path.join(PRINTER_DIR, "0.jpeg"),
-             **{f"photo_{k}": v for k, v in photos.items()}}
+             **{f"photo_{k}": v for k, v in photos.items()},
+             "progressive_printer_504x378": os.path.join(PROGRESSIVE_DIR, "printer_0.jpg"),
+             f"progressive_photo_{rw}x{rh}": os.path.join(PROGRESSIVE_DIR,
+                                                          f"photo_{rw}x{rh}.jpg")}
     for label, path in files.items():
         with open(path, "rb") as f:
             data = f.read()
@@ -2733,8 +2837,8 @@ def host_io_phase(tnt_tree, photos):
         log(f"host io {label}: {len(data)} bytes, decode {decode_ms:.3f} ms "
             f"({w * h / decode_ms / 1e3:.1f} Mpixel/s), resize to {HOST_IO_OUT_WH[0]}x"
             f"{HOST_IO_OUT_WH[1]} LANCZOS {lanczos_ms:.3f} ms, BILINEAR {bilinear_ms:.3f} ms "
-            f"(mean of {HOST_IO_REPEATS}; {card})")
-        if (w, h) == ROUNDTRIP_WH:
+            f"(host CPU, mean of {HOST_IO_REPEATS}; {card})")
+        if label == f"photo_{rw}x{rh}":
             sha = hashlib.sha256(img.tobytes()).hexdigest()
             if sha != ROUNDTRIP_SHA256:
                 raise AssertionError(f"host io: decode(encode(seeded_photo)) sha256 {sha}, PIL "
@@ -2754,6 +2858,19 @@ def host_io_phase(tnt_tree, photos):
         f"with LANCZOS in {LOAD_THREADS} threads); decode(encode(seeded_photo"
         f"{ROUNDTRIP_WH})) equals PIL's (sha256); PIL installed: {out['pil_installed']} "
         f"(unused); {card}")
+    out["progressive"] = progressive_check()
+    tree = write_progressive_colmap_tree(tempfile.mkdtemp(prefix="chip_smoke_progressive_",
+                                                          dir=os.path.join(REPO, "build")))
+    out["progressive_tree"] = progressive_tree_check(tree)
+    shutil.rmtree(tree)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"host io: {out['progressive']['decoded']} progressive JPEGs (SOF2, tests/data/"
+        f"jpeg_progressive) each equal to PIL's decode (sha256), ms of one decode "
+        f"{ {k: round(v, 3) for k, v in out['progressive']['ms'].items()} }; the printer "
+        f"scene re-saved progressive through COLMAPDataset at {PRINTER_WH[0]}x{PRINTER_WH[1]}: "
+        f"{out['progressive_tree']['images']} images equal to PIL's decode and LANCZOS "
+        f"(sha256), the sample in {out['progressive_tree']['sample_s']:.3f} s; phase "
+        f"{out['phase_s']:.1f} s (host CPU; {card})")
     return out
 
 
@@ -5149,7 +5266,8 @@ def main():
     parallel = parallel_phase(torch, dev, batch, args.seed, block_rgb, tree, counters)
 
     # ---- 17. the host's image I/O: decode and resize timings, the T&T
-    # loader's seconds per sample, decode(encode(seeded image)) against PIL's
+    # loader's seconds per sample, decode(encode(seeded image)) against PIL's,
+    # progressive JPEGs against PIL's and through the COLMAP loader
     host_io = host_io_phase(test_entry["tnt_tree"], host_jpegs.result()[2])
     jpeg_pool.shutdown()
     host_io["printer"] = printer

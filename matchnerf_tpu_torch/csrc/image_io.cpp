@@ -1,27 +1,40 @@
-// Host-side image I/O of the port: a baseline/extended sequential JPEG
-// decoder and Pillow's LANCZOS / BILINEAR resampler, with a plain C
-// interface for ctypes (built by hostio.py with the host C++ compiler).
+// Host-side image I/O of the port: a baseline, extended sequential and
+// progressive JPEG decoder and Pillow's LANCZOS / BILINEAR resampler, with
+// a plain C interface for ctypes (built by hostio.py with the host C++
+// compiler).
 //
 // The decoder follows libjpeg-turbo's default decompression path, which is
 // what PIL uses, so that its output equals np.asarray(Image.open(path)) bit
 // for bit:
 //   - Huffman decoding of sequential scans (jdhuff.c), interleaved or not,
-//     with restart intervals; a marker inside the entropy data supplies
-//     zero bits, as libjpeg does;
-//   - the ISLOW integer IDCT (jidctint.c), its descale and its range-limit
-//     table (jdmaster.c prepare_range_limit_table);
+//     with restart intervals; damaged data as libjpeg takes it: a unit that
+//     reads past its segment's data reads zero bits, the units after it up
+//     to the next restart stay zero (mid-grey), a wrong RSTn resyncs as
+//     jpeg_resync_to_restart does, a code past 16 bits is symbol 0;
+//   - progressive Huffman scans (SOF2, jdphuff.c): DC first and refinement
+//     scans, interleaved or not, AC first and refinement scans over a band
+//     Ss..Se with EOB runs, into a whole-image coefficient array per
+//     component; scan parameters checked as libjpeg checks them; damaged
+//     data as above, the units left as they were; after the last scan,
+//     libjpeg-turbo 3.1's block smoothing (jdcoefct.c
+//     decompress_smooth_data, on by default) where coefficients were left
+//     unrefined, with the Al from before the last scan in the iMCU rows
+//     after the one where that scan ran out of data;
+//   - the ISLOW integer IDCT (jidctint.c) with the 16-bit arithmetic of
+//     libjpeg-turbo's x86 SIMD version, which PIL runs;
 //   - fancy upsampling (jdsample.c: h2v1, h2v2 and h1v2 with their edge
 //     rules and biases; plain replication where the component is 2 samples
 //     wide or less); never the merged upsampler;
 //   - fixed-point YCbCr -> RGB with 16 scale bits (jdcolor.c).
-// Progressive, lossless, hierarchical and arithmetic-coded frames, 12-bit
-// samples and 2- or 4-component (CMYK) images are refused with a message
-// that names the marker.
+// Lossless, hierarchical and arithmetic-coded frames, 12-bit samples and 2-
+// or 4-component (CMYK) images are refused with a message that names the
+// marker.
 //
 // The resampler is Pillow's Resample.c: per output pixel, coefficients in
 // double, normalised, then fixed point with PRECISION_BITS = 32 - 8 - 2;
 // the horizontal pass over only the rows the vertical pass reads, then the
 // vertical pass; each result rounded and clipped to 8 bits.
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -49,6 +62,7 @@ struct JpegError {
 
 struct HuffTable {
   bool defined = false;
+  bool dc_ok = false;  // every symbol <= 15, as a DC table's must be
   int maxcode[18];
   int valoffset[18];
   uint8_t vals[256];
@@ -84,6 +98,7 @@ void build_huff(HuffTable& t, const uint8_t* bits, const uint8_t* vals, int nval
   t.maxcode[17] = 0x7FFFFFFF;
   std::memset(t.vals, 0, sizeof(t.vals));
   std::memcpy(t.vals, vals, nvals);
+  t.dc_ok = std::all_of(vals, vals + nvals, [](uint8_t v) { return v <= 15; });
   std::memset(t.look, 0, sizeof(t.look));
   p = 0;
   for (int l = 1; l <= 9; l++) {
@@ -103,17 +118,24 @@ struct BitReader {
   uint64_t acc = 0;
   int cnt = 0;
   bool hit_marker = false;
+  // zero bits appended past the data (saturating: cnt < pad exactly when
+  // some of them were consumed, libjpeg's insufficient_data)
+  int pad = 0;
 
   void reset_at(size_t p) {
     pos = p;
     acc = 0;
     cnt = 0;
     hit_marker = false;
+    pad = 0;
   }
+  bool past_end() const { return cnt < pad; }
   void fill() {
     while (cnt <= 56) {
       uint32_t c = 0;
-      if (!hit_marker && pos < n) {
+      if (hit_marker || pos >= n) {
+        pad = std::min(pad + 8, 128);
+      } else {
         c = d[pos];
         if (c == 0xFF) {
           size_t q = pos + 1;
@@ -123,6 +145,7 @@ struct BitReader {
           } else {
             hit_marker = true;  // pos stays at the marker's first 0xFF
             c = 0;
+            pad += 8;
           }
         } else {
           pos++;
@@ -159,8 +182,9 @@ struct BitReader {
       l++;
       code = (int)(acc >> (64 - l));
     }
-    if (l > 16) {  // corrupt data: libjpeg returns symbol 0
-      skip(16);
+    if (l > 16) {  // corrupt data: libjpeg returns symbol 0, past the 17th bit
+      if (cnt < 17) fill();
+      skip(17);
       return 0;
     }
     skip(l);
@@ -170,134 +194,94 @@ struct BitReader {
 
 inline int extend(int r, int s) { return r < (1 << (s - 1)) ? r - (1 << s) + 1 : r; }
 
-// jidctint.c jpeg_idct_islow
-const int CONST_BITS = 13, PASS1_BITS = 2;
-const int64_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 4433,
-              FIX_0_765366865 = 6270, FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
-              FIX_1_501321110 = 12299, FIX_1_847759065 = 15137, FIX_1_961570560 = 16069,
-              FIX_2_053119869 = 16819, FIX_2_562915447 = 20995, FIX_3_072711026 = 25172;
-
-inline int64_t descale(int64_t x, int n) { return (x + ((int64_t)1 << (n - 1))) >> n; }
-
+// jdmaster.c prepare_range_limit_table's simple table: table[x + 256]
+// clamps x in -256..511 to 0..255 (the colour conversion's range)
 struct RangeLimit {
-  uint8_t table[5 * 256 + 128];
-  const uint8_t* idct;  // post-IDCT table, indexed by (x & 1023)
+  uint8_t table[768];
   RangeLimit() {
-    uint8_t* t = table + 256;  // simple table: limit[x] = clamp(x)
-    std::memset(table, 0, 256);
-    for (int i = 0; i <= 255; i++) t[i] = (uint8_t)i;
-    t += 128;
-    for (int i = 128; i < 512; i++) t[i] = 255;
-    std::memset(t + 512, 0, 512 - 128);
-    std::memcpy(t + 1024 - 128, table + 256, 128);
-    idct = t;
+    for (int i = 0; i < 768; i++) table[i] = (uint8_t)std::min(std::max(i - 256, 0), 255);
   }
 };
 const RangeLimit kRange;
 
-void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride) {
-  int ws[64];
-  const uint8_t* range = kRange.idct;
+// The ISLOW integer IDCT (jidctint.c) as libjpeg-turbo's x86 SIMD version
+// computes it (jidctint-sse2.asm / -avx2.asm; what PIL runs): coefficients
+// dequantised to their low 16 bits, a column pass and a row pass on 16-bit
+// values, where in0 +- in4, in7 + in3 and in5 + in1 wrap at 16 bits,
+// products and their sums are 32-bit, and each pass's descaled outputs
+// saturate to 16 bits; a block whose rows 1-7 are all zero takes the
+// column pass's shortcut (the DC << 2, wrapped); samples saturate to
+// 0..255. On any data a valid file holds this is jidctint.c's result.
+const int CONST_BITS = 13, PASS1_BITS = 2;
+const int32_t F_0_298 = 2446, F_0_390 = 3196, F_0_541 = 4433, F_0_765 = 6270, F_0_899 = 7373,
+              F_1_175 = 9633, F_1_501 = 12299, F_1_847 = 15137, F_1_961 = 16069,
+              F_2_053 = 16819, F_2_562 = 20995, F_3_072 = 25172;
+
+inline int32_t add32(int32_t a, int32_t b) { return (int32_t)((uint32_t)a + (uint32_t)b); }
+inline int32_t sub32(int32_t a, int32_t b) { return (int32_t)((uint32_t)a - (uint32_t)b); }
+// vpaddd of the rounding constant, vpsrad, vpackssdw
+template <int N>
+inline int32_t descale_sat16(int32_t x) {
+  return std::min(std::max(add32(x, 1 << (N - 1)) >> N, -32768), 32767);
+}
+
+// one 1-D pass of the 8 lanes in[k][0..7], k = 0..7, into out[k][..],
+// descaled by N bits and saturated to 16 bits (element-wise over the lanes,
+// 16-bit operands, so that the compiler vectorises it)
+template <int N>
+inline void idct_lanes(const int16_t (*__restrict in)[8], int16_t (*__restrict out)[8]) {
   for (int c = 0; c < 8; c++) {
-    const int16_t* in = coef + c;
-    const uint16_t* qq = q + c;
-    int* w = ws + c;
-    if (in[8] == 0 && in[16] == 0 && in[24] == 0 && in[32] == 0 && in[40] == 0 &&
-        in[48] == 0 && in[56] == 0) {
-      int dc = (int)((int64_t)in[0] * qq[0]) << PASS1_BITS;
-      for (int r = 0; r < 8; r++) w[8 * r] = dc;
-      continue;
-    }
-    int64_t z2 = (int64_t)in[16] * qq[16], z3 = (int64_t)in[48] * qq[48];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = (int64_t)in[0] * qq[0];
-    z3 = (int64_t)in[32] * qq[32];
-    int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
-    int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = (int64_t)in[56] * qq[56];
-    tmp1 = (int64_t)in[40] * qq[40];
-    tmp2 = (int64_t)in[24] * qq[24];
-    tmp3 = (int64_t)in[8] * qq[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = CONST_BITS - PASS1_BITS;
-    w[0] = (int)descale(tmp10 + tmp3, sh);
-    w[56] = (int)descale(tmp10 - tmp3, sh);
-    w[8] = (int)descale(tmp11 + tmp2, sh);
-    w[48] = (int)descale(tmp11 - tmp2, sh);
-    w[16] = (int)descale(tmp12 + tmp1, sh);
-    w[40] = (int)descale(tmp12 - tmp1, sh);
-    w[24] = (int)descale(tmp13 + tmp0, sh);
-    w[32] = (int)descale(tmp13 - tmp0, sh);
+    const int16_t z2 = in[2][c], z3 = in[6][c];
+    const int32_t tmp3 = z2 * (F_0_541 + F_0_765) + z3 * F_0_541;
+    const int32_t tmp2 = z2 * F_0_541 + z3 * (F_0_541 - F_1_847);
+    const int32_t tmp0 = (int32_t)(int16_t)(in[0][c] + in[4][c]) * (1 << CONST_BITS);
+    const int32_t tmp1 = (int32_t)(int16_t)(in[0][c] - in[4][c]) * (1 << CONST_BITS);
+    const int32_t tmp10 = add32(tmp0, tmp3), tmp13 = sub32(tmp0, tmp3);
+    const int32_t tmp11 = add32(tmp1, tmp2), tmp12 = sub32(tmp1, tmp2);
+    const int16_t i7 = in[7][c], i5 = in[5][c], i3 = in[3][c], i1 = in[1][c];
+    const int16_t z3s = (int16_t)(i7 + i3), z4s = (int16_t)(i5 + i1);
+    const int32_t zz3 = z3s * (F_1_175 - F_1_961) + z4s * F_1_175;
+    const int32_t zz4 = z3s * F_1_175 + z4s * (F_1_175 - F_0_390);
+    const int32_t o0 = add32(i7 * (F_0_298 - F_0_899) + i1 * -F_0_899, zz3);
+    const int32_t o1 = add32(i5 * (F_2_053 - F_2_562) + i3 * -F_2_562, zz4);
+    const int32_t o2 = add32(i5 * -F_2_562 + i3 * (F_3_072 - F_2_562), zz3);
+    const int32_t o3 = add32(i7 * -F_0_899 + i1 * (F_1_501 - F_0_899), zz4);
+    out[0][c] = (int16_t)descale_sat16<N>(add32(tmp10, o3));
+    out[7][c] = (int16_t)descale_sat16<N>(sub32(tmp10, o3));
+    out[1][c] = (int16_t)descale_sat16<N>(add32(tmp11, o2));
+    out[6][c] = (int16_t)descale_sat16<N>(sub32(tmp11, o2));
+    out[2][c] = (int16_t)descale_sat16<N>(add32(tmp12, o1));
+    out[5][c] = (int16_t)descale_sat16<N>(sub32(tmp12, o1));
+    out[3][c] = (int16_t)descale_sat16<N>(add32(tmp13, o0));
+    out[4][c] = (int16_t)descale_sat16<N>(sub32(tmp13, o0));
   }
-  const int sh = CONST_BITS + PASS1_BITS + 3;
+}
+
+inline uint8_t to_sample(int x) { return (uint8_t)(std::min(std::max(x, -128), 127) + 128); }
+
+void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride) {
+  alignas(32) int16_t in[8][8], ws[8][8], wt[8][8], px[8][8];
+  int16_t ac = 0;
+  for (int i = 8; i < 64; i++) ac |= coef[i];
+  if (!(ac | coef[1] | coef[2] | coef[3] | coef[4] | coef[5] | coef[6] | coef[7])) {
+    // the DC alone: both passes give one value, (DC << 2 wrapped + 16) >> 5
+    const int v = ((int16_t)((int16_t)(coef[0] * q[0]) * 4) + 16) >> 5;
+    for (int r = 0; r < 8; r++) std::memset(out + (size_t)r * stride, to_sample(v), 8);
+    return;
+  }
+  for (int i = 0; i < 64; i++) in[i / 8][i % 8] = (int16_t)(coef[i] * q[i]);  // vpmullw
+  if (ac) {
+    idct_lanes<CONST_BITS - PASS1_BITS>(in, ws);     // the columns
+  } else {  // rows 1-7 all zero: the DC << 2, wrapped, down each column
+    for (int r = 0; r < 8; r++)
+      for (int c = 0; c < 8; c++) ws[r][c] = (int16_t)(in[0][c] * 4);
+  }
+  for (int r = 0; r < 8; r++)
+    for (int c = 0; c < 8; c++) wt[c][r] = ws[r][c];
+  idct_lanes<CONST_BITS + PASS1_BITS + 3>(wt, px);  // the rows, one per lane
   for (int r = 0; r < 8; r++) {
-    const int* w = ws + 8 * r;
     uint8_t* o = out + (size_t)r * stride;
-    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 && w[6] == 0 &&
-        w[7] == 0) {
-      uint8_t v = range[(int)descale(w[0], PASS1_BITS + 3) & 1023];
-      for (int c = 0; c < 8; c++) o[c] = v;
-      continue;
-    }
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    int64_t tmp0 = ((int64_t)w[0] + w[4]) * (1 << CONST_BITS);
-    int64_t tmp1 = ((int64_t)w[0] - w[4]) * (1 << CONST_BITS);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    o[0] = range[(int)descale(tmp10 + tmp3, sh) & 1023];
-    o[7] = range[(int)descale(tmp10 - tmp3, sh) & 1023];
-    o[1] = range[(int)descale(tmp11 + tmp2, sh) & 1023];
-    o[6] = range[(int)descale(tmp11 - tmp2, sh) & 1023];
-    o[2] = range[(int)descale(tmp12 + tmp1, sh) & 1023];
-    o[5] = range[(int)descale(tmp12 - tmp1, sh) & 1023];
-    o[3] = range[(int)descale(tmp13 + tmp0, sh) & 1023];
-    o[4] = range[(int)descale(tmp13 - tmp0, sh) & 1023];
+    for (int c = 0; c < 8; c++) o[c] = to_sample(px[c][r]);
   }
 }
 
@@ -309,6 +293,14 @@ struct Component {
   uint16_t q[64];            // quant table latched at the component's scan
   bool seen = false;
   std::vector<uint8_t> plane;
+  // progressive only: the coefficients of every block, natural order, in
+  // the MCU-padded grid (cbw x cbh blocks, as jdcoefct.c's whole_image),
+  // the Al of the last scan of each zigzag coefficient (-1: none yet), and
+  // those Al as they stood before the component's last scan
+  int cbw = 0, cbh = 0;
+  std::vector<int16_t> coef;
+  int coef_bits[64], prev_bits[64];
+  int16_t* block(int by, int bx) { return coef.data() + ((size_t)by * cbw + bx) * 64; }
 };
 
 struct Decoder {
@@ -322,6 +314,11 @@ struct Decoder {
   bool qt_defined[4] = {false, false, false, false};
   HuffTable dc[4], ac[4];
   int restart_interval = 0;
+  bool progressive = false;
+  int scans = 0;
+  // the last iMCU row the latest scan finished with data to spare
+  // (libjpeg's last_good_iMCU_row); smoothing below it uses prev_bits
+  int last_good_row = 0;
   bool jfif = false, adobe = false;
   int adobe_transform = 0;
 
@@ -341,7 +338,9 @@ struct Decoder {
     for (;;) {
       while (pos < n && d[pos] != 0xFF) pos++;
       while (pos < n && d[pos] == 0xFF) pos++;
-      if (pos >= n) fail("unexpected end of file (no EOI)");
+      if (pos >= n)
+        fail(scans ? "truncated file: no EOI after scan " + std::to_string(scans)
+                   : std::string("unexpected end of file (no EOI)"));
       int c = d[pos++];
       if (c != 0) return c;
     }
@@ -396,6 +395,13 @@ struct Decoder {
       c.bh = (c.ds_h + 7) / 8;
       c.pw = mcux * c.h * 8;
       c.ph = mcuy * c.v * 8;
+      if (progressive) {
+        c.cbw = mcux * c.h;
+        c.cbh = mcuy * c.v;
+        c.coef.assign((size_t)c.cbw * c.cbh * 64, 0);
+        std::fill(c.coef_bits, c.coef_bits + 64, -1);
+        std::fill(c.prev_bits, c.prev_bits + 64, 0);
+      }
     }
   }
 
@@ -477,21 +483,45 @@ struct Decoder {
     idct_islow(blk, c.q, c.plane.data() + (size_t)by * 8 * c.pw + (size_t)bx * 8, c.pw);
   }
 
-  // after an interval: find the RSTn marker and restart the bit reader
-  void restart(BitReader& br, int& expected) {
-    size_t p = br.pos;
-    for (;;) {
-      while (p < n && d[p] != 0xFF) p++;
-      while (p < n && d[p] == 0xFF) p++;
-      if (p >= n) fail("missing restart marker");
-      int c = d[p++];
-      if (c == 0) continue;
-      if (c != 0xD0 + expected)
-        fail("expected RST" + std::to_string(expected) + ", found " + marker_name(c));
-      break;
+  // after an interval: read the RSTn marker, or resync as libjpeg's
+  // jpeg_resync_to_restart does where another marker stands there, and
+  // restart the bit reader. False where the reader is left at a marker: the
+  // segment after it is empty and keeps the data run out.
+  bool restart(BitReader& br, int& expected) {
+    size_t p = br.pos, at = p;
+    auto next = [&]() {  // jdmarker.c next_marker: `at` its first 0xFF, p past it
+      for (;;) {
+        while (p < n && d[p] != 0xFF) p++;
+        at = p;
+        while (p < n && d[p] == 0xFF) p++;
+        if (p >= n) fail("truncated file: no restart marker after scan " + std::to_string(scans));
+        int c = d[p++];
+        if (c != 0) return c;
+      }
+    };
+    const auto rst = [&](int k) { return 0xD0 + (k & 7); };
+    bool consumed = true;
+    for (int m = next(); m != rst(expected);) {
+      if (m < 0xC0 || m == rst(expected - 1) || m == rst(expected - 2)) {
+        m = next();  // junk or an earlier restart: on to the next marker
+      } else if ((m < 0xD0 || m > 0xD7) || m == rst(expected + 1) || m == rst(expected + 2)) {
+        p = at;  // another marker, or one of the next two restarts: left for later
+        consumed = false;
+        break;
+      } else {
+        break;  // a restart too far away: taken in place of this one
+      }
     }
     expected = (expected + 1) & 7;
     br.reset_at(p);
+    return consumed;
+  }
+
+  // a block of a unit left unread once the data has run out: libjpeg's
+  // zeroed coefficients, a flat mid-grey block
+  void mid_grey(Component& c, int by, int bx) {
+    for (int r = 0; r < 8; r++)
+      std::memset(c.plane.data() + ((size_t)by * 8 + r) * c.pw + (size_t)bx * 8, 128, 8);
   }
 
   void sos() {
@@ -512,11 +542,14 @@ struct Decoder {
       if (td[i] > 3 || ta[i] > 3) fail("bad SOS table index");
     }
     int ss = u8(), se = u8(), ahal = u8();
-    if (ss != 0 || se != 63 || ahal != 0) fail("spectral selection in a sequential scan");
     pos = end;
+    scans++;
+    if (progressive) return progressive_scan(idx, td, ta, ss, se, ahal >> 4, ahal & 15);
+    if (ss != 0 || se != 63 || ahal != 0) fail("spectral selection in a sequential scan");
     for (int i = 0; i < ns; i++) {
       Component& c = comps[idx[i]];
       if (!dc[td[i]].defined || !ac[ta[i]].defined) fail("scan uses an undefined Huffman table");
+      if (!dc[td[i]].dc_ok) fail("scan uses a DC Huffman table with a symbol above 15");
       if (!qt_defined[c.tq]) fail("component uses an undefined quantization table");
       std::memcpy(c.q, qt[c.tq], sizeof(c.q));
       if (c.plane.empty()) c.plane.assign((size_t)c.pw * c.ph, 0);
@@ -525,11 +558,15 @@ struct Decoder {
     BitReader br{d, n, pos};
     std::vector<int> pred(ns, 0);
     int expected_rst = 0;
+    // once a unit reads past the segment's data, libjpeg leaves the units
+    // after it zeroed until the next restart
+    bool insufficient = false;
     long mcus_left = restart_interval;
     auto maybe_restart = [&](bool more) {
+      insufficient = insufficient || br.past_end();
       if (!restart_interval) return;
       if (--mcus_left == 0 && more) {
-        restart(br, expected_rst);
+        if (restart(br, expected_rst)) insufficient = false;
         std::fill(pred.begin(), pred.end(), 0);
         mcus_left = restart_interval;
       }
@@ -540,7 +577,8 @@ struct Decoder {
       long total = (long)c.bw * c.bh, k = 0;
       for (int by = 0; by < c.bh; by++)
         for (int bx = 0; bx < c.bw; bx++) {
-          decode_block(br, c, pred[0], dct, act, by, bx);
+          if (insufficient) mid_grey(c, by, bx);
+          else decode_block(br, c, pred[0], dct, act, by, bx);
           maybe_restart(++k < total);
         }
     } else {
@@ -550,13 +588,299 @@ struct Decoder {
           for (int i = 0; i < ns; i++) {
             Component& c = comps[idx[i]];
             for (int v = 0; v < c.v; v++)
-              for (int h = 0; h < c.h; h++)
-                decode_block(br, c, pred[i], dc[td[i]], ac[ta[i]], my * c.v + v, mx * c.h + h);
+              for (int h = 0; h < c.h; h++) {
+                const int by = my * c.v + v, bx = mx * c.h + h;
+                if (insufficient) mid_grey(c, by, bx);
+                else decode_block(br, c, pred[i], dc[td[i]], ac[ta[i]], by, bx);
+              }
           }
           maybe_restart(++k < total);
         }
     }
     pos = br.pos;  // next_marker() skips whatever is left before the marker
+  }
+
+  // ---- progressive scans (jdphuff.c)
+
+  std::string scan_name() const { return "scan " + std::to_string(scans); }
+
+  void progressive_scan(const std::vector<int>& idx, const std::vector<int>& td,
+                        const std::vector<int>& ta, int ss, int se, int ah, int al) {
+    const int ns = (int)idx.size();
+    const bool dc_band = ss == 0;
+    // start_pass_phuff_decoder's checks: each is fatal in libjpeg (PIL raises)
+    const char* bad = nullptr;
+    if (dc_band) {
+      if (se != 0) bad = "a DC scan with Se != 0";
+    } else if (ss > se) {
+      bad = "Ss > Se";
+    } else if (se > 63) {
+      bad = "Se > 63";
+    } else if (ns != 1) {
+      bad = "an AC scan names more than one component";
+    }
+    if (!bad && ah != 0 && al != ah - 1) bad = "a refinement scan with Al != Ah - 1";
+    if (!bad && al > 13) bad = "Al > 13";
+    if (bad)
+      fail(scan_name() + " (Ss " + std::to_string(ss) + ", Se " + std::to_string(se) + ", Ah " +
+           std::to_string(ah) + ", Al " + std::to_string(al) + "): bad progression: " + bad);
+    for (int i = 0; i < ns; i++) {
+      Component& c = comps[idx[i]];
+      if (dc_band ? ah == 0 && !dc[td[i]].defined : !ac[ta[i]].defined)
+        fail(scan_name() + " uses an undefined Huffman table");
+      if (dc_band && ah == 0 && !dc[td[i]].dc_ok)
+        fail(scan_name() + " uses a DC Huffman table with a symbol above 15");
+      if (!c.seen) {  // latched at the component's first scan (jdinput.c latch_quant_tables)
+        if (!qt_defined[c.tq]) fail("component uses an undefined quantization table");
+        std::memcpy(c.q, qt[c.tq], sizeof(c.q));
+      }
+      c.seen = true;
+      // a bogus progression (a band refined twice, AC before DC) only warns
+      for (int k = std::min(ss, 1); k <= std::max(se, 9); k++)
+        c.prev_bits[k] = scans > 1 ? c.coef_bits[k] : 0;
+      for (int k = ss; k <= se; k++) c.coef_bits[k] = al;
+    }
+    BitReader br{d, n, pos};
+    long long pred[4] = {0, 0, 0, 0};
+    int eobrun = 0, expected_rst = 0;
+    // once a unit reads past the segment's data, libjpeg leaves the units
+    // after it untouched until the next restart
+    bool insufficient = false;
+    long mcus_left = restart_interval;
+    // before each unit of iMCU row `row`: the row is good while the data
+    // has not run out before the unit
+    auto unit_start = [&](int row) {
+      if (!insufficient) last_good_row = row;
+    };
+    auto unit_done = [&](bool more) {
+      insufficient = insufficient || br.past_end();
+      if (!restart_interval) return;
+      if (--mcus_left == 0 && more) {
+        if (restart(br, expected_rst)) insufficient = false;
+        std::fill(pred, pred + 4, 0);
+        eobrun = 0;
+        mcus_left = restart_interval;
+      }
+    };
+    auto dc_unit = [&](int i, int16_t* b) {
+      if (ah) {  // decode_mcu_DC_refine: one raw bit
+        if (br.get(1)) b[0] = (int16_t)(b[0] | (1 << al));
+        return;
+      }
+      int s = br.decode(dc[td[i]]);
+      if (s) {
+        int r = br.get(s);
+        s = extend(r, s);
+      }
+      pred[i] += s;
+      if (pred[i] > INT32_MAX || pred[i] < INT32_MIN) fail(scan_name() + ": DC out of range");
+      b[0] = (int16_t)(uint16_t)((uint32_t)pred[i] << al);
+    };
+    if (dc_band && ns > 1) {  // interleaved: every block of each MCU, padding included
+      long total = (long)mcux * mcuy, k = 0;
+      for (int my = 0; my < mcuy; my++)
+        for (int mx = 0; mx < mcux; mx++) {
+          unit_start(my);
+          for (int i = 0; i < ns && !insufficient; i++) {
+            Component& c = comps[idx[i]];
+            for (int v = 0; v < c.v; v++)
+              for (int h = 0; h < c.h; h++) dc_unit(i, c.block(my * c.v + v, mx * c.h + h));
+          }
+          unit_done(++k < total);
+        }
+    } else {  // one component: the blocks it covers, as the ns == 1 sequential scan
+      Component& c = comps[idx[0]];
+      const HuffTable& t = ac[ta[0]];
+      long total = (long)c.bw * c.bh, k = 0;
+      for (int by = 0; by < c.bh; by++)
+        for (int bx = 0; bx < c.bw; bx++) {
+          int16_t* b = c.block(by, bx);
+          unit_start(by / c.v);
+          if (!insufficient) {
+            if (dc_band) dc_unit(0, b);
+            else if (ah == 0) ac_first(br, t, b, ss, se, al, eobrun);
+            else ac_refine(br, t, b, ss, se, al, eobrun);
+          }
+          unit_done(++k < total);
+        }
+    }
+    pos = br.pos;
+  }
+
+  // decode_mcu_AC_first
+  static void ac_first(BitReader& br, const HuffTable& t, int16_t* b, int ss, int se, int al,
+                       int& eobrun) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    for (int k = ss; k <= se; k++) {
+      int s = br.decode(t);
+      int r = s >> 4;
+      s &= 15;
+      if (s) {
+        k += r;
+        r = br.get(s);
+        b[kNatural[k]] = (int16_t)(uint16_t)((uint32_t)extend(r, s) << al);
+      } else if (r == 15) {
+        k += 15;  // ZRL
+      } else {  // EOBr: a run of 2^r + r appended bits blocks, this one included
+        eobrun = (1 << r) + br.get(r) - 1;
+        break;
+      }
+    }
+  }
+
+  // decode_mcu_AC_refine: correction bits for the nonzero history, new
+  // coefficients of +-1 << Al, and EOB runs that still refine the band
+  static void ac_refine(BitReader& br, const HuffTable& t, int16_t* b, int ss, int se, int al,
+                        int& eobrun) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto correct = [&](int16_t& coef) {
+      if (br.get(1) && (coef & p1) == 0) coef = (int16_t)(coef + (coef >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        int s = br.decode(t);
+        int r = s >> 4;
+        s &= 15;
+        if (s) {  // a size other than 1 only warns
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = (1 << r) + br.get(r);
+          break;
+        }
+        do {
+          int16_t& coef = b[kNatural[k]];
+          if (coef != 0) correct(coef);
+          else if (--r < 0) break;  // the target zero coefficient
+          k++;
+        } while (k <= se);
+        if (s) b[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t& coef = b[kNatural[k]];
+        if (coef != 0) correct(coef);
+      }
+      eobrun--;
+    }
+  }
+
+  // ---- progressive output: block smoothing (jdcoefct.c), then the IDCT
+
+  // smoothing_ok: every component's DC partly known, the DC and first nine
+  // AC quantisers nonzero, and some of those AC coefficients not exact
+  bool smoothing_ok() const {
+    bool useful = false;
+    for (const Component& c : comps) {
+      for (int k = 0; k < 10; k++)
+        if (c.q[kNatural[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; k++)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
+  }
+
+  // decompress_smooth_data for one block: dc holds the DC values of the 5x5
+  // neighbourhood (DC01..DC25 row by row), w the block, changed in place
+  static void smooth_block(const Component& c, const int* bits, const int* dc, int16_t* w) {
+    const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 && bits[4] == -1 &&
+                           bits[5] == -1 && bits[6] == -1 && bits[7] == -1 &&
+                           bits[8] == -1 && bits[9] == -1;
+    const int64_t Q00 = c.q[0];
+    auto D = [&](int i) { return (int64_t)dc[i - 1]; };
+    // an estimate applies only where the coefficient is still zero and not exact
+    auto estimate = [&](int zz, int64_t num) {
+      const int pos = kNatural[zz], al = bits[zz];
+      if (al == 0 || w[pos] != 0) return;
+      const int64_t q = c.q[pos];
+      int pred = (int)(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      w[pos] = (int16_t)(num >= 0 ? pred : -pred);
+    };
+    if (change_dc) {  // DC interpolation: a Gaussian-like kernel over the 5x5 DCs
+      estimate(1, Q00 * (-D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) - 13 * D(9) +
+                         3 * D(10) - 3 * D(11) + 38 * D(12) - 38 * D(14) + 3 * D(15) -
+                         3 * D(16) + 13 * D(17) - 13 * D(19) + 3 * D(20) - D(21) - D(22) +
+                         D(24) + D(25)));
+      estimate(2, Q00 * (-D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) - D(6) + 13 * D(7) +
+                         38 * D(8) + 13 * D(9) - D(10) + D(16) - 13 * D(17) - 38 * D(18) -
+                         13 * D(19) + D(20) + D(21) + 3 * D(22) + 3 * D(23) + 3 * D(24) +
+                         D(25)));
+      estimate(3, Q00 * (D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) - 5 * D(12) - 14 * D(13) -
+                         5 * D(14) + 2 * D(17) + 7 * D(18) + 2 * D(19) + D(23)));
+      estimate(4, Q00 * (-D(1) + D(5) + 9 * D(7) - 9 * D(9) - 9 * D(17) + 9 * D(19) + D(21) -
+                         D(25)));
+      estimate(5, Q00 * (2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) + 7 * D(12) - 14 * D(13) +
+                         7 * D(14) + D(15) + 2 * D(17) - 5 * D(18) + 2 * D(19)));
+      estimate(6, Q00 * (D(7) - D(9) + 2 * D(12) - 2 * D(14) + D(17) - D(19)));
+      estimate(7, Q00 * (D(7) - 3 * D(8) + D(9) - D(17) + 3 * D(18) - D(19)));
+      estimate(8, Q00 * (D(7) - D(9) - 3 * D(12) + 3 * D(14) + D(17) - D(19)));
+      estimate(9, Q00 * (D(7) + 2 * D(8) + D(9) - D(17) - 2 * D(18) - D(19)));
+      const int64_t num =
+          Q00 * (-2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) - 2 * D(5) - 6 * D(6) + 6 * D(7) +
+                 42 * D(8) + 6 * D(9) - 6 * D(10) - 8 * D(11) + 42 * D(12) + 152 * D(13) +
+                 42 * D(14) - 8 * D(15) - 6 * D(16) + 6 * D(17) + 42 * D(18) + 6 * D(19) -
+                 6 * D(20) - 2 * D(21) - 6 * D(22) - 8 * D(23) - 6 * D(24) - 2 * D(25));
+      const int pred = (int)(((Q00 << 7) + (num >= 0 ? num : -num)) / (Q00 << 8));
+      w[0] = (int16_t)(num >= 0 ? pred : -pred);
+    } else {  // T.81 K.8's AC prediction over a 5x5 window
+      estimate(1, Q00 * (-7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15)));
+      estimate(2, Q00 * (-7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23)));
+      estimate(3, Q00 * (-D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) - D(23)));
+      estimate(4, Q00 * (D(10) + D(16) - 10 * D(17) + 10 * D(19) - D(2) - D(20) + D(22) -
+                         D(24) + D(4) - D(6) + 10 * D(7) - 10 * D(9)));
+      estimate(5, Q00 * (-D(11) + 13 * D(12) - 24 * D(13) + 13 * D(14) - D(15)));
+    }
+  }
+
+  // every block the output reads (the bw x bh the component covers),
+  // smoothed when smoothing_ok, dequantised and transformed into the plane
+  void finish_progressive() {
+    for (const Component& c : comps)
+      if (!c.seen) fail("a component has no scan");
+    const bool smooth = smoothing_ok();
+    for (Component& c : comps) {
+      c.plane.assign((size_t)c.pw * c.ph, 0);
+      const int T = mcuy, last = c.bw - 1;
+      // the rows after the latest scan ran out of data smooth with the
+      // Al before that scan (none at all after a single scan)
+      int prev[10];
+      for (int k = 0; k < 10; k++) prev[k] = scans > 1 ? c.prev_bits[k] : -1;
+      for (int R = 0; R < T; R++) {
+        const int* bits = R > last_good_row ? prev : c.coef_bits;
+        // decompress_smooth_data's rows: an iMCU row's real block rows, and
+        // the neighbours it picks by its own row count (image_block_rows)
+        int block_rows = c.v;
+        if (R == T - 1 && c.bh % c.v) block_rows = c.bh % c.v;
+        const int image_rows = block_rows * T;
+        for (int b = 0; b < block_rows; b++) {
+          const int row = R * c.v + b, ib = R * block_rows + b;
+          int rows[5];
+          rows[2] = row;
+          rows[1] = ib > 0 ? row - 1 : row;
+          rows[0] = ib > 1 ? row - 2 : rows[1];
+          rows[3] = ib < image_rows - 1 ? row + 1 : row;
+          rows[4] = ib < image_rows - 2 ? row + 2 : rows[3];
+          for (int bx = 0; bx < c.bw; bx++) {
+            int16_t w[64];
+            std::memcpy(w, c.block(row, bx), sizeof(w));
+            if (smooth) {
+              int dcs[25];
+              for (int i = 0; i < 5; i++)
+                for (int j = 0; j < 5; j++)
+                  dcs[i * 5 + j] = c.block(rows[i], std::min(std::max(bx + j - 2, 0), last))[0];
+              smooth_block(c, bits, dcs, w);
+            }
+            idct_islow(w, c.q, c.plane.data() + (size_t)row * 8 * c.pw + (size_t)bx * 8, c.pw);
+          }
+        }
+      }
+    }
   }
 
   // width, height and components from the first SOFn segment, without
@@ -585,22 +909,25 @@ struct Decoder {
     pos = 2;
     for (;;) {
       int m = next_marker();
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         if (frame) fail("second frame header");
+        progressive = m == 0xC2;
         sof(m);
-      } else if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE) {
-        fail("SOF" + std::to_string(m - 0xC0) + " (" + marker_name(m) +
-             ", progressive) is not supported: only baseline and extended sequential "
-             "Huffman JPEGs (SOF0, SOF1) are");
-      } else if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF) {
-        fail("SOF" + std::to_string(m - 0xC0) + " (" + marker_name(m) +
-             ", lossless) is not supported: only baseline and extended sequential "
-             "Huffman JPEGs (SOF0, SOF1) are");
-      } else if (m == 0xC5 || m == 0xC9 || m == 0xCD) {
-        fail("SOF" + std::to_string(m - 0xC0) + " (" + marker_name(m) +
-             (m == 0xC5 ? ", hierarchical" : ", arithmetic-coded") +
-             ") is not supported: only baseline and extended sequential Huffman JPEGs "
-             "(SOF0, SOF1) are");
+      } else if (m == 0xC3 || m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xC9 || m == 0xCA ||
+                 m == 0xCB || m == 0xCD || m == 0xCE || m == 0xCF) {
+        const char* kind = m == 0xC3 ? "lossless"
+                           : m == 0xC5 ? "hierarchical"
+                           : m == 0xC6 ? "progressive, hierarchical"
+                           : m == 0xC7 ? "lossless, hierarchical"
+                           : m == 0xC9 ? "arithmetic-coded"
+                           : m == 0xCA ? "progressive, arithmetic-coded"
+                           : m == 0xCB ? "lossless, arithmetic-coded"
+                           : m == 0xCD ? "hierarchical, arithmetic-coded"
+                           : m == 0xCE ? "progressive, hierarchical, arithmetic-coded"
+                                       : "lossless, hierarchical, arithmetic-coded";
+        fail("SOF" + std::to_string(m - 0xC0) + " (" + marker_name(m) + ", " + kind +
+             ") is not supported: only baseline, extended sequential and progressive "
+             "Huffman JPEGs (SOF0, SOF1, SOF2) are");
       } else if (m == 0xCC) {
         fail("DAC (0xFFCC, arithmetic coding) is not supported: only Huffman-coded JPEGs are");
       } else if (m == 0xC4) {
@@ -683,6 +1010,7 @@ struct Decoder {
   }
 
   void output(uint8_t* out) {
+    if (progressive) finish_progressive();
     for (const Component& c : comps)
       if (!c.seen) fail("a component has no scan");
     if (ncomp == 1) {

@@ -5,16 +5,25 @@ installed).
 [H,W,3], or L uint8 [H,W] for a one-component file. The decoder is C++ in
 the port's host library (`csrc/image_io.cpp`, built by `hostio.py`):
 Huffman decoding is serial, seconds per 1080p image in Python. It takes
-baseline and extended sequential Huffman frames (SOF0, SOF1) with 8-bit
-samples, 1 or 3 components with sampling factors up to 2x2 (4:4:4, 4:2:2,
-4:2:0, 4:4:0), interleaved and non-interleaved scans, restart intervals,
-optimised Huffman tables, 8- and 16-bit quantisation tables, and skips APPn
-and COM segments; Adobe APP14's transform flag (or JFIF, or the component
-ids) decides between YCbCr and RGB as libjpeg decides. It computes what
-libjpeg-turbo computes with the defaults PIL leaves it: the ISLOW integer
-IDCT, fancy upsampling, fixed-point YCbCr -> RGB. Progressive, lossless,
-hierarchical and arithmetic-coded files, 12-bit samples and CMYK raise a
-`ValueError` that names the file and the marker.
+baseline, extended sequential and progressive Huffman frames (SOF0, SOF1,
+SOF2) with 8-bit samples, 1 or 3 components with sampling factors up to
+2x2 (4:4:4, 4:2:2, 4:2:0, 4:4:0), interleaved and non-interleaved scans,
+restart intervals, optimised Huffman tables, 8- and 16-bit quantisation
+tables, and skips APPn and COM segments; Adobe APP14's transform flag (or
+JFIF, or the component ids) decides between YCbCr and RGB as libjpeg
+decides. Progressive files may use spectral selection, successive
+approximation and EOB runs, in any order libjpeg accepts (a bogus
+progression, such as a refinement scan repeated, decodes as libjpeg
+decodes it). It computes what libjpeg-turbo computes with the defaults PIL
+leaves it: the ISLOW integer IDCT with the 16-bit arithmetic of its x86
+SIMD version, fancy upsampling, fixed-point YCbCr -> RGB, and, for a
+progressive file whose scans leave some of the first AC coefficients
+unrefined, libjpeg-turbo 3.1's block smoothing; damaged scan data (cut,
+misnumbered restart markers) decodes as libjpeg decodes it. Lossless,
+hierarchical and arithmetic-coded files, 12-bit samples, CMYK, malformed
+progressive scans (Ss > Se, an AC scan of several components, ...) and
+truncated files raise a `ValueError` that names the file and the marker or
+the scan.
 
 `jpeg_size(path)` reads (width, height) from the frame header alone.
 """

@@ -12,21 +12,29 @@ JAX loaders, on the CPU. Every check is bit-equality (`np.array_equal`).
   the port's own encoder (`synth.encode_jpeg`: 4:2:0 and greyscale) and,
   for the files PIL does not write, `_encode_variant` built from its
   pieces: 4:2:0, 4:2:2, 4:4:0 and 4:4:4, interleaved and not, with restart
-  intervals, greyscale and Adobe RGB (transform 0). Progressive, CMYK,
-  12-bit and arithmetic-coded files raise a ValueError naming the file and
-  the marker. `jpeg_size` and `common.image_size` against PIL's size.
+  intervals, greyscale and Adobe RGB (transform 0). CMYK, 12-bit
+  (baseline and progressive) and arithmetic-coded (sequential and
+  progressive) files raise a ValueError naming the file and the marker;
+  progressive files decode (tests/test_torch_image_io_progressive.py).
+  `jpeg_size` and `common.image_size` against PIL's size.
 - `resample.resize` against `Image.resize` for modes L, RGB and RGBA
   (through premultiplied RGBa), LANCZOS and BILINEAR, shrinking and
   enlarging, odd ratios and 1-pixel sides; the same size returns a copy.
 - The port's T&T (JPEGs larger than img_wh), LLFF (JPEGs resized), DTU
   (another img_wh: BILINEAR) and COLMAP (the printer scene) loaders against
   the JAX loaders, every key of every sample.
+- Coefficients far past a photo's, with 8- and 16-bit quantisation
+  tables: the IDCT's 16-bit arithmetic as PIL's libjpeg-turbo has it.
+  Damaged scans (cut, ending early, RSTn dropped, repeated or misnumbered,
+  a flipped bit, junk bytes) decode as PIL decodes them; a DC table with a
+  symbol above 15 raises.
 - The sha256 constants that chip_smoke.py checks on the card: the printer
   images decoded and resized to configs/demo_own.yaml's 256x160, and
   decode(encode(seeded image)), each against PIL here.
-- The port imports and loads the printer scene and a T&T tree with PIL
-  blocked (`sys.modules["PIL"] = None`), in a subprocess; a host library
-  that does not build raises.
+- The port imports and loads the printer scene, a T&T tree and the
+  printer scene re-saved progressive (chip_smoke's tree and fixture checks)
+  with PIL blocked (`sys.modules["PIL"] = None`), in a subprocess; a host
+  library that does not build raises.
 """
 import hashlib
 import io
@@ -76,14 +84,11 @@ def _ceil(a, b):
     return -(-a // b)
 
 
-def _encode_variant(img, quality, sampling=(2, 2), restart_interval=0, interleaved=True,
-                    adobe_rgb=False) -> bytes:
-    """A baseline JPEG of a kind the decoder takes and PIL does not write,
-    from the pieces of `synth.encode_jpeg`: luma at `sampling` = (h, v) per
-    chroma sample ((1, 2) is 4:4:0); DRI and an RSTn marker every
-    `restart_interval` MCUs (blocks, in a one-component scan); each
-    component in a scan of its own unless `interleaved`; with `adobe_rgb`,
-    R, G and B coded as they are under Adobe APP14 transform 0."""
+def _variant_parts(img, quality, sampling=(2, 2), adobe_rgb=False):
+    """What `_encode_variant` codes: the components ((h, v, table set)
+    each), the two quantisation tables, each component's quantised blocks
+    [by, bx, 64] (zig-zag) over whole MCUs, and the APPn segment (JFIF, or
+    Adobe APP14 with transform 0 under `adobe_rgb`)."""
     H, W = img.shape[:2]
     x = img.astype(np.int64)
     if img.ndim == 2:
@@ -100,6 +105,20 @@ def _encode_variant(img, quality, sampling=(2, 2), restart_interval=0, interleav
               for p, (h, v, t) in zip(planes, comps)]
     app = (synth._segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0])) if adobe_rgb
            else synth.JFIF_APP0)
+    return comps, qtabs, blocks, app
+
+
+def _encode_variant(img, quality, sampling=(2, 2), restart_interval=0, interleaved=True,
+                    adobe_rgb=False) -> bytes:
+    """A baseline JPEG of a kind the decoder takes and PIL does not write,
+    from the pieces of `synth.encode_jpeg`: luma at `sampling` = (h, v) per
+    chroma sample ((1, 2) is 4:4:0); DRI and an RSTn marker every
+    `restart_interval` MCUs (blocks, in a one-component scan); each
+    component in a scan of its own unless `interleaved`; with `adobe_rgb`,
+    R, G and B coded as they are under Adobe APP14 transform 0."""
+    H, W = img.shape[:2]
+    comps, qtabs, blocks, app = _variant_parts(img, quality, sampling, adobe_rgb)
+    hmax, vmax = comps[0][:2]
     out = [synth._headers(app, qtabs, H, W, comps)]
     if restart_interval > 0:
         out.append(synth._segment(0xDD, restart_interval.to_bytes(2, "big")))
@@ -198,6 +217,37 @@ def test_fill_bytes_before_markers():
         _assert_decodes_as_pil(data, f"fill bytes ss{subsampling}")
 
 
+def _coefficient_file(blocks, qtab, H, W) -> bytes:
+    """A greyscale baseline JPEG of the given quantised blocks [n, 64]
+    (zig-zag, raster order over W x H) under the quantisation table `qtab`
+    (natural order; a 16-bit DQT where a value passes 255)."""
+    head = synth._headers(synth.JFIF_APP0, [np.ones(64, np.int64)] * 2, H, W, [(1, 1, 0)])
+    dqt = head.index(b"\xff\xdb")
+    end = dqt + 2 + int.from_bytes(head[dqt + 2:dqt + 4], "big")
+    wide = int(qtab.max()) > 255
+    table = b"".join(int(v).to_bytes(2 if wide else 1, "big") for v in qtab[synth._ZIGZAG])
+    head = head[:dqt] + synth._segment(0xDB, bytes([0x10 if wide else 0]) + table) + head[end:]
+    return (head + synth._sos([(0, 0)])
+            + synth._entropy_coded(blocks.reshape(-1, 1, 64), [0], [0]) + b"\xff\xd9")
+
+
+def test_extreme_coefficients_decode_as_pil():
+    """Coefficients far past what a photo gives (AC up to +-1023 with 8-
+    and 16-bit quantisation tables up to 65535): libjpeg-turbo's x86 SIMD
+    IDCT, which PIL runs, dequantises to 16 bits, wraps and saturates its
+    16-bit sums where jidctint.c's C arithmetic does not, and saturates
+    samples where the C range-limit table wraps; the decoder gives PIL's."""
+    rng = np.random.default_rng(5)
+    for trial in range(120):
+        scale = int(rng.choice([4, 64, 1023]))
+        blocks = rng.integers(-scale, scale + 1, (4, 64))
+        blocks[:, 0] = rng.integers(-1024, 1024, 4)
+        blocks[:, 1:] *= rng.random((4, 63)) < rng.choice([0.0, 0.05, 0.3, 1.0])
+        qtab = rng.integers(1, int(rng.choice([2, 100, 256, 4096, 65536])), 64)
+        _assert_decodes_as_pil(_coefficient_file(blocks, qtab, 16, 16),
+                               f"trial {trial}: |coef| <= {scale}, q <= {qtab.max()}")
+
+
 def test_port_encoder_scans_equal_libjpeg():
     """On whole MCUs the encoder's entropy-coded data equals PIL's encoder
     (libjpeg's integer DCT, colour conversion and downsampling); only the
@@ -216,8 +266,13 @@ def test_unsupported_jpegs_raise():
     Image.fromarray(img).convert("CMYK").save(buf, "JPEG")
     base = _pil_jpeg(img, quality=90)
     sof = base.index(b"\xff\xc0")
+    prog = _pil_jpeg(img, progressive=True)     # progressive decodes; its 12-bit and
+    sof2 = prog.index(b"\xff\xc2")              # arithmetic-coded kinds raise
     cases = {                           # file -> (bytes, what the message names)
-        "progressive.jpg": (_pil_jpeg(img, progressive=True), "SOF2 (0xFFC2, progressive)"),
+        "progressive_12bit.jpg": (prog[:sof2 + 4] + b"\x0c" + prog[sof2 + 5:],
+                                  "SOF2 (0xFFC2) with 12-bit samples"),
+        "progressive_arith.jpg": (prog[:sof2] + b"\xff\xca" + prog[sof2 + 2:],
+                                  "SOF10 (0xFFCA, progressive, arithmetic-coded)"),
         "cmyk.jpg": (buf.getvalue(), "CMYK"),
         "arith.jpg": (base[:sof] + b"\xff\xc9" + base[sof + 2:],
                       "SOF9 (0xFFC9, arithmetic-coded)"),
@@ -227,6 +282,88 @@ def test_unsupported_jpegs_raise():
         with pytest.raises(ValueError) as e:
             jpeg.decode_jpeg(data, name)
         assert str(e.value).startswith(f"{name}: ") and what in str(e.value), str(e.value)
+
+
+def _split(data: bytes):
+    """A JPEG file as a list of (marker, bytes): every marker segment, and
+    each scan as its SOS segment with its entropy-coded data (RSTn
+    included)."""
+    out, pos = [(0xD8, data[:2])], 2
+    while pos < len(data):
+        m = data[pos + 1]
+        if m == 0xD9:
+            out.append((m, data[pos:pos + 2]))
+            break
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if m == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] not in (0x00, *range(0xD0, 0xD8))):
+                end += 1
+        out.append((m, data[pos:end]))
+        pos = end
+    return out
+
+
+def _corrupted(data: bytes, scan: int):
+    """{what: file} with scan `scan`'s data damaged as a bad copy or a bad
+    encoder damages it: cut in the middle, ending early (the file goes on),
+    an RSTn dropped, repeated, or numbered as an earlier, the next or a far
+    restart, a flipped bit, junk bytes before the next marker."""
+    segs = _split(data)
+    at = [i for i, (m, _) in enumerate(segs) if m == 0xDA][scan]
+    sos = segs[at][1]
+    hdr = 2 + int.from_bytes(sos[2:4], "big")
+    head = b"".join(seg for _, seg in segs[:at]) + sos[:hdr]
+    body, tail = sos[hdr:], b"".join(seg for _, seg in segs[at + 1:])
+    n = len(body)
+    out = {"cut": body[:n // 3] + body[2 * n // 3:], "early end": body[:n // 2],
+           "junk": body + b"\x12\x34\x00"}
+    mid = n // 2
+    while mid < n and (body[mid] == 0xFF or body[mid - 1] == 0xFF):
+        mid += 1
+    if mid < n:
+        out["flipped bit"] = body[:mid] + bytes([body[mid] ^ 0x10]) + body[mid + 1:]
+    rst = [i for i in range(n - 1) if body[i] == 0xFF and 0xD0 <= body[i + 1] <= 0xD7]
+    if len(rst) >= 3:
+        i, j, k = rst[:3]
+        out["RST dropped"] = body[:i] + body[i + 2:]
+        out["RST repeated"] = body[:j] + body[j:j + 2] + body[j:]
+        for name, step in (("earlier", -1), ("next", 1), ("far", 4)):
+            m = 0xD0 + (body[k + 1] - 0xD0 + step) % 8
+            out[f"RST as {name}"] = body[:k + 1] + bytes([m]) + body[k + 2:]
+    return {what: head + b + tail for what, b in out.items()}
+
+
+@pytest.mark.parametrize("restart", [0, 2], ids=["no_restart", "restart2"])
+def test_corrupt_scans_decode_as_pil(restart):
+    """libjpeg only warns about damaged entropy data, and PIL returns its
+    image: once a unit reads past the data, the units after it up to the
+    next restart stay zero (mid-grey); a wrong RSTn resyncs as
+    jpeg_resync_to_restart does."""
+    img = _seeded((40, 56, 3), 8)
+    kw = {"restart_marker_blocks": restart} if restart else {}
+    for tag, data in (("444", _pil_jpeg(img, quality=80, subsampling=0, **kw)),
+                      ("420", _pil_jpeg(img, quality=80, subsampling=2, **kw)),
+                      ("grey", _pil_jpeg(img[..., 0], quality=80, **kw))):
+        for what, bad in _corrupted(data, 0).items():
+            _assert_decodes_as_pil(bad, f"{tag} restart {restart}: {what}")
+
+
+def test_dc_table_symbol_above_15_raises():
+    """A DC Huffman table whose symbol passes 15 (a size category that
+    reads more bits than a coefficient has) raises when a scan uses it, as
+    libjpeg's table build does, in a baseline and a progressive file."""
+    img = _seeded((24, 40, 3), 4)
+    for name, data in (("baseline.jpg", _pil_jpeg(img, quality=90)),
+                       ("progressive.jpg", _pil_jpeg(img, quality=90, progressive=True))):
+        dht = data.index(b"\xff\xc4")
+        assert data[dht + 4] >> 4 == 0                     # the first table is a DC table
+        vals = dht + 5 + 16
+        bad = data[:vals] + bytes([0x60]) + data[vals + 1:]  # its first symbol: 96
+        with pytest.raises(OSError):
+            Image.open(io.BytesIO(bad)).load()
+        with pytest.raises(ValueError) as e:
+            jpeg.decode_jpeg(bad, name)
+        assert str(e.value).startswith(f"{name}: ") and "symbol above 15" in str(e.value)
 
 
 def test_jpeg_size_and_image_size_match_pil(tmp_path):
@@ -365,6 +502,10 @@ def test_port_loads_images_with_pil_blocked(tmp_path):
         f"p = DATASETS['colmap']({os.path.join(REPO, 'docs', 'demo_data')!r}, 'test', "
         "n_views=3, img_wh=(256, 160), scene_list=['printer'])[0]\n"
         "assert p['images'].shape == (4, 160, 256, 3)\n"
+        "import chip_smoke\n"                    # the printer scene re-saved progressive
+        f"root = chip_smoke.write_progressive_colmap_tree({str(tmp_path / 'prog')!r})\n"
+        "assert chip_smoke.progressive_tree_check(root)['images'] == 4\n"
+        "assert chip_smoke.progressive_check()['decoded'] == len(chip_smoke.PROGRESSIVE_SHA256)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'PIL' and sys.modules[m]]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
