@@ -64,7 +64,11 @@ Phases, any failure ends the run with a non-zero exit:
    features, with the row gather timed apart; Kernels B and D on bf16
    tables built from the same features (configs/train.yaml's validation
    and test renders), at the eval slice and at the 4096-ray validation
-   slice, against their plain twins at 1e-4 and D against B.
+   slice, against their plain twins at 1e-4 and D against B; Kernel B's
+   int4 form on the int4 tables `prepare_sampling_tables` builds from the
+   same features (precision.cond_sample_dtype int4) at the eval slice,
+   against its plain twin at 1e-4, timed beside its bound (int8's
+   operations, half its table bytes) and its plain twin.
 4. block path, configs/test.yaml as shipped: `Renderer.forward(batch,
    mode="test")` renders the full 640x512 target at S=128. The pose must
    take Kernel D at both scales and Kernel E for the colours; A, C, D and E
@@ -300,13 +304,20 @@ Phases, any failure ends the run with a non-zero exit:
    output layer is scaled to 0.01 with a density bias of 1: its outputs are
    raw), `--encoder.feature_sample_local_radius=1
    --encoder.feature_sample_local_dilation=2`,
-   `--encoder.attn_splits_list=[1]`, and `--precision.fused_cosine=true` at
-   `--n_src_views=2` and 4 (seeded weights): the kernels each route takes
-   launch and the ones it skips do not (C under view_dep: false; A at one
-   split; B, D and E on the local radius, which builds no table; B and D
-   on the fused route), no plain version on CUDA, finite outputs, the
-   image >= 50 dB against the all-plain render; render seconds, rays/s
-   and the launches of A-F. (c) `train.build_coach` + `train_model` with
+   `--encoder.attn_splits_list=[1]`, `--precision.fused_cosine=true` at
+   `--n_src_views=2` and 4, and int4 tables: `--precision.
+   cond_sample_dtype=int4` (both scales on Kernel B's int4 form),
+   `=[int8,int4]` (scale 0 on D, scale 1 on B's int4 form) and, with
+   `--precision.fused_cosine=true`, `=[int8,int4p99.9]` (scale 0 on F,
+   scale 1 on B's int4 form) (seeded weights): the kernels each route
+   takes launch and the ones it skips do not (C under view_dep: false; A
+   at one split; B, D and E on the local radius, which builds no table; B
+   and D on the fused route; D and F on int4, D on the fused int4 route,
+   F on [int8, int4]; B's int4 entry on every int4 route), no plain
+   version on CUDA, finite outputs, the image >= 50 dB against the
+   all-plain render; render seconds, rays/s and the launches of A-F; each
+   int4 image's PSNR against the same route on int8 tables (the quality
+   cost at seeded weights, no threshold). (c) `train.build_coach` + `train_model` with
    `--config train` and `--nerf.view_dep=false` (the same weights,
    `--load`, under `--profile_trace_dir`: the trace must exist and name A's
    forward and A''s dq and dkv kernels) and with the local radius, 3 steps
@@ -1190,6 +1201,53 @@ def bf16_kernel_phase(torch, cfg, feats, ref_images, grids, block_ut, res):
                 del got
             del out_b
     del tables
+    torch.cuda.empty_cache()
+
+
+def int4_kernel_phase(torch, cfg, feats, plain_feats, ref_images, grids, res):
+    """Phase 3, Kernel B's int4 form (precision.cond_sample_dtype int4,
+    eval only) on the int4 tables `prepare_sampling_tables` builds from the
+    same features: each scale at the eval slice against its plain twin
+    (1e-4, as on int8 tables), with its bound (int8's operations: the
+    dequantisation after interpolation; half int8's table bytes). Then the
+    share of int4 codes that differ between those tables and the tables of
+    the plain encoder's features `plain_feats` (Kernel A's plain twin): the
+    encoder's rounding, in whole code steps, that keeps phase 19's int4
+    images INT4_WHOLE_DB (not 50) from their all-plain renders."""
+    from matchnerf_tpu_torch.models.matchnerf import prepare_sampling_tables
+    from matchnerf_tpu_torch.ops import cosine_prior as kb
+    tables = prepare_sampling_tables(cfg, feats, ref_images, feat_dtype="int4")
+    res["B_int4"] = []
+    R, S = grids.shape[1:3]
+    for s, G in enumerate(cfg.encoder.cos_n_group):
+        table = tables["view_feats"][s][0]
+        scales = tables["view_feat_scales"][s][0]
+        fn = lambda: kb.cosine_prior(table, grids, scales, G)
+        plain = lambda: kb.cosine_prior_plain(table, grids, scales, G)
+        got = fn()
+        err = max_abs(got, plain())
+        torch.cuda.synchronize()
+        b_ms, b_by = bound(nbytes(table, grids, scales, got), prior_flops(R * S, scaled=True))
+        entry = dict(scale=s, max_abs_err=err, ms=cuda_ms(torch, fn, 10),
+                     plain_ms=cuda_ms(torch, plain, 3), bound_ms=b_ms, bound_by=b_by,
+                     table_bytes=nbytes(table))
+        log(f"kernel B cosine_prior int4 scale {s} table {list(table.shape)} uint8 G={G} "
+            f"R={R} S={S}: max|d| {err:.3e} (tol 1e-4), {entry['ms']:.4f} ms vs plain "
+            f"{entry['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        check_close(f"B int4 scale {s}", err, 1e-4)
+        res["B_int4"].append(entry)
+        del got
+    ptables = prepare_sampling_tables(cfg, plain_feats, ref_images, feat_dtype="int4")
+    for s, entry in enumerate(res["B_int4"]):
+        a = kb.unpack_int4(tables["view_feats"][s])
+        b = kb.unpack_int4(ptables["view_feats"][s])
+        entry["codes_differ_vs_plain_encoder"] = float((a != b).float().mean())
+        entry["max_code_step_vs_plain_encoder"] = float((a - b).abs().max())
+        log(f"int4 tables scale {s}, Kernel A's features against its plain twin's: "
+            f"{entry['codes_differ_vs_plain_encoder']:.5f} of the codes differ, by at most "
+            f"{entry['max_code_step_vs_plain_encoder']:.0f} step")
+        del a, b
+    del tables, ptables
     torch.cuda.empty_cache()
 
 
@@ -3724,7 +3782,8 @@ VARIANT_LABELS = {"A": "window_attention", "B": "cosine_prior", "C": "cond_nerf_
 # phase 19's eval variants: (name, the entry's extra arguments, kernels that
 # must launch, kernels that must not); `view_dep: false` decodes in torch
 # (no Kernel C), attention without splits runs no Kernel A, the local
-# radius builds no table (no B, D, E), the fused route takes F, not B or D
+# radius builds no table (no B, D, E), the fused route takes F, not B or D;
+# an int4 scale takes Kernel B's int4 form, never D or F
 EVAL_VARIANTS = (
     ("view_dep_false", ["--nerf.view_dep=false"], "ADE", "CF"),
     ("local_radius", ["--encoder.feature_sample_local_radius=1",
@@ -3732,7 +3791,16 @@ EVAL_VARIANTS = (
     ("attn_splits_1", ["--encoder.attn_splits_list=[1]"], "CDE", "AF"),
     ("fused_v2", ["--precision.fused_cosine=true", "--n_src_views=2"], "ACF", "BD"),
     ("fused_v4", ["--precision.fused_cosine=true", "--n_src_views=4"], "ACF", "BD"),
+    ("int4", ["--precision.cond_sample_dtype=int4"], "ABCE", "DF"),
+    ("int8_int4", ["--precision.cond_sample_dtype=[int8,int4]"], "ABCDE", "F"),
+    ("fused_int8_int4p", ["--precision.fused_cosine=true",
+                          "--precision.cond_sample_dtype=[int8,int4p99.9]"], "ABCEF", "D"),
 )
+INT4_ENTRY = "cosine_prior_i4"     # Kernel B's int4 launcher (ops/cosine_prior.py ENTRIES)
+# an int4 image against its whole all-plain render: its codes, in steps of
+# amax / 7, make whole steps of Kernel A's bf16 rounding (PR 20's CG_EVAL
+# floor for the same cause); held at 50 dB on the all-plain render's features
+INT4_WHOLE_DB = 45.0
 LPIPS_CROP = (256, 320)            # the centre crop phase 19 scores with LPIPS
 # phase 19: feat_info off by this much (cosines lie in [-1, 1]) must take
 # the `view_dep: false` image below 50 dB against all-plain
@@ -3902,10 +3970,29 @@ def variants_eval(torch, dev, seed, tree, counters, name, extra, must, zero, loa
         raise AssertionError(f"{label}: rgb outside [0,1]: {float(rgb.min())} "
                              f"{float(rgb.max())}")
     plain_t = {}
-    ref = Renderer(cfg, rec["renderer"].model, dev, kernel=False).forward(
-        rec["batch"], mode="test", timings=plain_t)
+    plain = Renderer(cfg, rec["renderer"].model, dev, kernel=False)
+    ref = plain.forward(rec["batch"], mode="test", timings=plain_t)
     agreement = psnr(rgb, ref["rgb"])
     depth_err = float((out["depth"] - ref["depth"]).abs().max())
+    int4_launches = rec["routes"].get("cosine_prior", {}).get(INT4_ENTRY, 0)
+    int4 = any("cond_sample_dtype" in a for a in extra)
+    int8_db = shared_db = None
+    if int4:
+        if not int4_launches > 0:
+            raise AssertionError(f"{label}: Kernel B's int4 form was not launched: "
+                                 f"{rec['routes']}")
+        # int4 codes (steps of amax / 7) turn the encoder's rounding (Kernel A's
+        # bf16 forward against its plain twin) into whole code steps: the
+        # route's kernels are held on the all-plain render's own features
+        shared = Renderer(cfg, rec["renderer"].model, dev)
+        shared.encode = plain.encode
+        shared_db = psnr(shared.forward(rec["batch"], mode="test")["rgb"], ref["rgb"])
+        # the quality cost of int4 at seeded weights: the same route on int8 tables
+        icfg = copy.deepcopy(cfg)
+        icfg.precision.cond_sample_dtype = "int8"
+        int8_db = psnr(rgb, Renderer(icfg, rec["renderer"].model, dev).forward(
+            rec["batch"], mode="test")["rgb"])
+    whole_db = INT4_WHOLE_DB if int4 else 50.0
     off_db = None
     if not cfg.nerf.view_dep:
         # the check sees the features: feat_info off by FEAT_OFFSET must fail it
@@ -3921,18 +4008,27 @@ def variants_eval(torch, dev, seed, tree, counters, name, extra, must, zero, loa
              "depth_max_abs_vs_plain": depth_err, "route": rec["route"],
              "launches": launches, "launches_by_route": rec["routes"],
              "rgb_range": [float(rgb.min()), float(rgb.max())],
-             "feat_offset": FEAT_OFFSET, "psnr_feat_offset_db": off_db}
+             "feat_offset": FEAT_OFFSET, "psnr_feat_offset_db": off_db,
+             "int4_launches": int4_launches, "psnr_vs_int8_db": int8_db,
+             "psnr_plain_encoder_vs_plain_db": shared_db}
     log(f"{label} ({' '.join(extra)}): image {rec['seconds']:.4f} s, render "
         f"{t['render']:.4f} s, {entry['rays_per_s_render']:.0f} rays/s (render), all-plain "
         f"render {plain_t['render']:.4f} s; launches "
         + ", ".join(f"{k} {launches[v]}" for k, v in VARIANT_LABELS.items())
-        + f"; route {rec['route']}; vs all-plain PSNR {agreement:.2f} dB (need >= 50), "
-        f"max|d| depth {depth_err:.3e}"
+        + f"; route {rec['route']}; vs all-plain PSNR {agreement:.2f} dB (need >= "
+        f"{whole_db:g}), max|d| depth {depth_err:.3e}"
         + ("" if off_db is None else
            f"; feat_info off by {FEAT_OFFSET:g}: {off_db:.2f} dB (need < 50)")
+        + ("" if int8_db is None else
+           f"; B's int4 form {int4_launches} launches; with the plain encoder's "
+           f"features (A's plain twin) vs all-plain {shared_db:.2f} dB (need >= 50); vs "
+           f"the int8-table image {int8_db:.2f} dB (no threshold)")
         + f"; {card}")
-    if not agreement >= 50.0:
-        raise AssertionError(f"{label}: agreement PSNR {agreement:.2f} dB < 50")
+    if not agreement >= whole_db:
+        raise AssertionError(f"{label}: agreement PSNR {agreement:.2f} dB < {whole_db:g}")
+    if shared_db is not None and not shared_db >= 50.0:
+        raise AssertionError(f"{label}: on the all-plain render's features {shared_db:.2f} "
+                             "dB < 50")
     if off_db is not None and not off_db < 50.0:
         raise AssertionError(f"{label}: the image ignores its features: feat_info off by "
                              f"{FEAT_OFFSET:g} still gives {off_db:.2f} dB")
@@ -5075,6 +5171,8 @@ def main():
                                                       vcond, vdepth, vray), "test_video_own")
         del vcond, vpts, vndc0, vref, vdec
         fused_kernel_phase(torch, cfg, feats, ref_images, tables, grids, res)
+        int4_kernel_phase(torch, cfg, feats, plain_renderer.encode(ref_images), ref_images,
+                          grids, res)
         bf16_kernel_phase(torch, cfg, feats, ref_images, grids, block_ut, res)
         del feats, tables, grids
 
@@ -5552,6 +5650,16 @@ def main():
             for k, v in conv["full"].items():
                 e["launches_by_path"][f"convergence_{k}_full_{v['kernel']['steps']}_steps"] = \
                     v["kernel"]["launches"][name]
+    # Kernel B's int4 form: its own launcher in the wrapper of B; its
+    # launches are those of the int4 entry in phase 19's int4 images
+    int4_by_path = {f"variants_{k}": v["int4_launches"] for k, v in variants["eval"].items()
+                    if v["int4_launches"]}
+    report["kernels"].append(dict(
+        per_scale(res["B_int4"]), name="cosine_prior_int4", route="cuda",
+        source=counters["cosine_prior"].source,
+        replaces=kb.INT4_REPLACES, launches=int4_by_path["variants_int4"],
+        launches_in="phase 19's int4 DTU entry image (both scales)",
+        launches_by_path=int4_by_path, library_ms=None))
     report["paths"]["views"] = {k: views[k] for k in ("train", "eval", "many_tree",
                                                        "eval_fused", "train_many", "train_mid",
                                                        "part_s", "phase_s")}

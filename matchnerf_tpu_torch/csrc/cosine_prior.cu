@@ -9,9 +9,11 @@
 //
 // For each sample n and each of the V views (V = 2 to 8: n_src_views):
 // bilinear sample (align corners, border clamp) of the view's unpacked
-// table [V,H,W,(V-1)C] (C = 128, int8, bf16 or f32) at grids[v, n], times
-// the per-(view, channel) dequantisation scale [V,(V-1)C] where scales are
-// given (int8 tables; NULL for bf16 and f32); then for each of the
+// table [V,H,W,(V-1)C] (C = 128, int8, bf16 or f32; or int4: uint8
+// [V,H,W,(V-1)C/2], two codes + 8 a byte, channel 2k in byte k's low
+// nibble and 2k + 1 in its high one) at grids[v, n], times the
+// per-(view, channel) dequantisation scale [V,(V-1)C] where scales are
+// given (int8 and int4 tables; NULL for bf16 and f32); then for each of the
 // P = V(V-1)/2 pairs (i, j) of pair_index_lists(V) ((0,1), (0,2), (1,2) at
 // V = 3; views.cuh) the grouped cosine of view i's chunk j-1 against view
 // j's chunk i (eps 1e-8 on each norm), averaged over the pairs. out[n, g],
@@ -30,11 +32,15 @@
 // sample, each 16 consecutive channels of every (view, chunk), so the
 // per-sample work that every lane repeats is paid 8 times, not 16 (f32 rows
 // keep 16 lanes of 8 channels); a lane reads its channels of a tap row as
-// one 16-byte load (int8), two (bf16, f32), the sample's lanes one
-// contiguous run. Each view's taps are found once and serve its V-1 pairs
-// (to V = 4; past it once a pair, see the kernel). int8 taps are converted
-// on the integer pipe, exactly (int8_exact.cuh: a byte permute and a
-// subtract, no int-to-float instruction); bf16 widen by a shift or a mask.
+// one 16-byte load (int8), two (bf16, f32), one 8-byte load (int4), the
+// sample's lanes one contiguous run. Each view's taps are found once and
+// serve its V-1 pairs (to V = 4; past it once a pair, see the kernel).
+// int8 taps are converted on the integer pipe, exactly (int8_exact.cuh: a
+// byte permute and a subtract, no int-to-float instruction); int4 nibbles
+// alike (masked, permuted into 2^23's mantissa, 2^23 + 8 subtracted: the
+// code - 8, exactly); bf16 widen by a shift or a mask. The int4 form is
+// int8's design on half the bytes, and as issue-bound: at the DTU slice it
+// takes the int8 form's time to within 2 % (chip_smoke.py phase 3).
 // Each (view, chunk) enters exactly one pair, so a pair's two sides are
 // interpolated (f32 weights and sums, as the plain version), dequantised,
 // reduced and dropped before the next pair; the pair sum stays in
@@ -62,6 +68,18 @@ constexpr int LANES = C / 8;    // backward: lanes per sample and pair, 8 channe
 template <typename T>
 __host__ __device__ constexpr int lane_channels() { return sizeof(T) == 4 ? 8 : 16; }
 
+// int4 table rows: one byte holds two channels (see the header)
+struct int4x2 {
+  uint8_t b;
+};
+
+// channels per stored element: a row of CC channels is CC / pack<T>()
+// elements, and channel c lives in element c / pack<T>()
+template <typename T>
+__host__ __device__ constexpr int pack() { return 1; }
+template <>
+__host__ __device__ constexpr int pack<int4x2>() { return 2; }
+
 // N consecutive table elements as f32
 template <int N>
 __device__ __forceinline__ void load_run(const int8_t* p, float* f) {
@@ -71,6 +89,28 @@ __device__ __forceinline__ void load_run(const int8_t* p, float* f) {
   int8x4_to_f32(raw.y, f + 4);
   int8x4_to_f32(raw.z, f + 8);
   int8x4_to_f32(raw.w, f + 12);
+}
+
+// 16 channels of int4 rows, 8 bytes: each nibble goes into the low byte of
+// 0x4B000000 (8388608.0f, whose last mantissa bit is worth 1.0) by one
+// byte permute, which makes the float 8388608 + code + 8; subtracting
+// 8388616.0f leaves the code, for all 16 values
+template <int N>
+__device__ __forceinline__ void load_run(const int4x2* p, float* f) {
+  static_assert(N == 16, "int4 runs are 16 elements");
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  const unsigned int w[2] = {raw.x, raw.y};
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const unsigned int lo = w[q] & 0x0f0f0f0fu, hi = (w[q] >> 4) & 0x0f0f0f0fu;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      f[8 * q + 2 * b] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7650u + b)) -
+                         8388616.f;
+      f[8 * q + 2 * b + 1] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7650u + b)) -
+                             8388616.f;
+    }
+  }
 }
 
 // bf16 stored as its 16 bits (uint16_t): the f32 with the same upper half,
@@ -128,16 +168,18 @@ __device__ __forceinline__ Taps view_taps(const float* __restrict__ grids, int v
   return t;
 }
 
-// this lane's N channels (from channel c0 of the row) of one view at one
-// sample, interpolated and, with scales, dequantised
+// this lane's N channels (from channel c0 of the row; t's rows are element
+// offsets) of one view at one sample, interpolated and, with scales,
+// dequantised
 template <int N, typename T>
 __device__ __forceinline__ void interp_run(const T* __restrict__ table, const Taps& t, int c0,
                                            const float* __restrict__ scale, float* f) {
   float a[N], b[N], c[N], d[N];
-  load_run<N>(table + t.row[0] + c0, a);
-  load_run<N>(table + t.row[1] + c0, b);
-  load_run<N>(table + t.row[2] + c0, c);
-  load_run<N>(table + t.row[3] + c0, d);
+  const int e0 = c0 / pack<T>();
+  load_run<N>(table + t.row[0] + e0, a);
+  load_run<N>(table + t.row[1] + e0, b);
+  load_run<N>(table + t.row[2] + e0, c);
+  load_run<N>(table + t.row[3] + e0, d);
 #pragma unroll
   for (int k = 0; k < N; ++k) f[k] = a[k] * t.w[0] + b[k] * t.w[1] + c[k] * t.w[2] + d[k] * t.w[3];
   if (scale) {
@@ -162,6 +204,7 @@ cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids
                     const float* __restrict__ scales, float* __restrict__ out,
                     int H, int W, int G, int N) {
   constexpr int CC = (V - 1) * C;        // channels per view table row
+  constexpr int RE = CC / pack<T>();      // its stored elements
   constexpr int P = n_pairs(V);
   constexpr int CPL = lane_channels<T>();
   constexpr int SAMPLE_LANES = C / CPL, SAMPLES = THREADS / SAMPLE_LANES;
@@ -180,11 +223,11 @@ cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids
   Taps kept[KEEP ? V : 1];
   if constexpr (KEEP) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) kept[v] = view_taps<CC>(grids, v, n, N, H, W);
+    for (int v = 0; v < V; ++v) kept[v] = view_taps<RE>(grids, v, n, N, H, W);
   }
   auto taps_of = [&](int v) -> Taps {
     if constexpr (KEEP) return kept[v];
-    else return view_taps<CC>(grids, v, n, N, H, W);
+    else return view_taps<RE>(grids, v, n, N, H, W);
   };
 
   // G * CPL <= 128: the lanes_per_group lanes of a group reduce by shuffles;
@@ -595,6 +638,16 @@ extern "C" int cosine_prior_bf16(const void* table, const void* grids,
                                  int W, int channels, int G, int N, void* stream) {
   return launch<uint16_t>(table, grids, scales, out, views, H, W, channels, G, N,
                           static_cast<cudaStream_t>(stream));
+}
+
+// int4 tables (precision.cond_sample_dtype int4 / int4pXX.X), eval only:
+// table uint8 [V,H,W,(V-1)C/2], channels = C (128), scales required
+extern "C" int cosine_prior_i4(const void* table, const void* grids,
+                               const void* scales, void* out, int views, int H,
+                               int W, int channels, int G, int N, void* stream) {
+  if (scales == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<int4x2>(table, grids, scales, out, views, H, W, channels, G, N,
+                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cosine_prior_f32(const void* table, const void* grids,

@@ -49,6 +49,7 @@ SIGNATURES = {
     "cosine_prior_i8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cosine_prior_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cosine_prior_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "cosine_prior_i4": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # grids, counts, V, H, W, N, stream
     "cosine_prior_bwd_count": [_P, _P, _I, _I, _I, _I, _P],
     # table, grids, g, starts, rec, keys, V, H, W, C, G, N, stream

@@ -19,7 +19,9 @@ E (ops/supercell_color.py) when `color_ut` is set and the supercell table
 exists, the gather otherwise. With `fused_cosine` (precision.fused_cosine,
 eval and video renders, B == 1) every feature scale takes Kernel F
 (ops/fused_cosine.py) on the gathered tap rows instead, before the block
-and per-ray routes, as matchnerf.py:311-334 does.
+and per-ray routes, as matchnerf.py:311-334 does. A scale with int4 tables
+(uint8, eval only) takes Kernel B's int4 form on every route, or the plain
+twin with banded_kernel and block_kernel off (matchnerf.py:319-388).
 
 With `encoder.feature_sample_local_radius` > 0 no feature table is built
 (matchnerf.py:307-311, renderer.py:743, train_step.py:156): the features are
@@ -129,6 +131,65 @@ def sample_depth(cfg, near_far: torch.Tensor, batch_size: int, num_rays: int,
     return depth
 
 
+def is_int4(dtype) -> bool:
+    """Whether a table dtype of `prepare_sampling_tables` names int4 tables
+    ("int4", "int4pXX.X")."""
+    return isinstance(dtype, str) and dtype.startswith("int4")
+
+
+def abs_percentile(x, pct: float):
+    """x [B,V,h,w,C] -> [B,V,C] f32: the pct percentile of |x| over the h*w
+    cells of each (view, channel), as jnp.percentile's default linear
+    method (jax reductions.py `_quantile`: position pct / 100 * (n - 1),
+    the order statistics at its floor and ceil weighted by 1 - frac and
+    frac) runs once XLA has compiled it on the CPU, in f32: the position as
+    pct * (f32(1/100) * (n - 1)) (the division by a constant becomes a
+    multiply by its reciprocal, and the two constants fold), the two terms
+    summed in one multiply-add, low * (1 - frac) + (high * frac) rounded
+    once (`fma_f32`). The order statistics come from torch.kthvalue, which
+    takes any size: torch.quantile interpolates in its own order and
+    refuses a flattened input past 2^24 elements (a V = 4 DTU scale-1 map
+    holds 21 M)."""
+    B, V, h, w, C = x.shape
+    n = h * w
+    a = x.abs().reshape(B, V, n, C)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    pos = f32(pct) * ((f32(1.0) / 100) * f32(n - 1))
+    low, high = torch.floor(pos), torch.ceil(pos)
+    w_high = pos - low
+    w_low = 1 - w_high
+    lo = min(max(int(low), 0), n - 1)
+    hi = min(max(int(high), 0), n - 1)
+    v_lo = torch.kthvalue(a, lo + 1, dim=2).values
+    v_hi = v_lo if hi == lo else torch.kthvalue(a, hi + 1, dim=2).values
+    return fma_f32(v_lo, w_low.to(a.device), v_hi * w_high.to(a.device))
+
+
+def fma_f32(a, b, c):
+    """a * b + c for f32 tensors, rounded once to f32 (a fused multiply-add
+    on any device): the product is exact in f64, the f64 sum is rounded to
+    odd (its error from TwoSum), and a value rounded to odd with 29 spare
+    bits rounds to f32 as the exact sum would."""
+    p = a.double() * b.double()
+    r = c.double()
+    s = p + r
+    z = s - p
+    err = (p - (s - z)) + (r - z)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s.dtype)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
+
+
+def pack_int4(codes):
+    """int4 codes [..., C] in [-8, 7] -> [..., C/2] uint8, two a byte with
+    bias +8: byte k holds channel 2k in its low nibble and 2k + 1 in its
+    high one, so 16 consecutive channels are 8 consecutive bytes (Kernel
+    B's lane reads them as one 8-byte load). The JAX package pairs channel
+    k with k + C/2 (grid_sample.py:136-146); the codes are the same."""
+    b = (codes + 8).to(torch.uint8)
+    return (b[..., 0::2] | (b[..., 1::2] << 4)).contiguous()
+
+
 def prepare_sampling_tables(cfg, pair_feats, ref_images, feat_dtype=None,
                             color_dtype=None):
     """Per-view feature tables and the colour table, built once per image set
@@ -138,8 +199,14 @@ def prepare_sampling_tables(cfg, pair_feats, ref_images, feat_dtype=None,
     View v's table concatenates, in pair order, the pair-side features it
     contributes: [B,V,h,w,(V-1)C]. feat_dtype=torch.int8 quantises per
     (view, channel): abs-max / 127, round half to even, clip at +-127; the
-    scale is applied after interpolation. With neither dtype (training),
-    the tables are f32 and differentiable. color_dtype=torch.uint8 stores
+    scale is applied after interpolation. feat_dtype "int4" or "int4pXX.X"
+    quantises per (view, channel) to the codes clip(round(x / scale), -8,
+    7) with scale = abs-max / 7, or with "int4pXX.X" the XX.X percentile of
+    |x| over the h*w cells / 7 (`abs_percentile`), and packs two codes + 8
+    a byte (`pack_int4`): [B,V,h,w,(V-1)C/2] uint8, the int4 marker
+    downstream (matchnerf.py:140-160). feat_dtype may be a per-scale list
+    ([torch.int8, "int4"]). With no dtype (training), the tables are f32
+    and differentiable. color_dtype=torch.uint8 stores
     round(clip(img,0,1)*255) and the sampled colours are multiplied by 1/255.
     On the block path (`precision.block_kernel`) it also builds the
     supercell colour table of Kernel E when the colours are uint8,
@@ -160,21 +227,32 @@ def prepare_sampling_tables(cfg, pair_feats, ref_images, feat_dtype=None,
     n_views = cfg.n_src_views
     pairs = pair_index_lists(n_views)
     view_feats, view_scales = [], []
-    for feats in pair_feats:
+    per_scale = (list(feat_dtype) if isinstance(feat_dtype, (list, tuple))
+                 else [feat_dtype] * len(pair_feats))
+    for feats, dtype in zip(pair_feats, per_scale):
         per_view = []
         for v in range(n_views):
             chunks = [feats[:, p_idx, 0 if v == a else 1]
                       for p_idx, (a, b) in enumerate(pairs) if v in (a, b)]
             per_view.append(torch.cat(chunks, dim=-1))
         stacked = torch.stack(per_view, dim=1)                    # [B,V,h,w,(V-1)C]
-        if feat_dtype == torch.int8:
+        if is_int4(dtype):
+            if dtype.startswith("int4p"):
+                amax = abs_percentile(stacked, float(dtype[len("int4p"):]))[:, :, None, None]
+            else:
+                amax = stacked.abs().amax(dim=(2, 3), keepdim=True)
+            scale = torch.clamp_min(amax, 1e-12) / 7.0
+            codes = torch.clamp(torch.round(stacked / scale), -8, 7).to(torch.int32)
+            stacked = pack_int4(codes)
+            view_scales.append(scale[:, :, 0, 0].contiguous())
+        elif dtype == torch.int8:
             amax = stacked.abs().amax(dim=(2, 3), keepdim=True)
             scale = torch.clamp_min(amax, 1e-12) / 127.0
             stacked = torch.clamp(torch.round(stacked / scale), -127, 127).to(torch.int8)
             view_scales.append(scale[:, :, 0, 0].contiguous())
         else:
-            if feat_dtype is not None:
-                stacked = stacked.to(feat_dtype)
+            if dtype is not None:
+                stacked = stacked.to(dtype)
             view_scales.append(None)
         view_feats.append(stacked.contiguous())
     color_scale = None
@@ -254,8 +332,8 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
     block-union buckets (None, or None at a scale, for Kernel B); color_ut:
     the supercell-union bucket (None for the colour gather); both from
     `Renderer.pose_prep` for this pose, and only for B == 1 with the rays of
-    consecutive 8-pixel blocks. fused_cosine: every feature scale takes
-    Kernel F when B == 1 (matchnerf.py:311). Returns (cond dict with feat_info
+    consecutive 8-pixel blocks. fused_cosine: every feature scale but an
+    int4 one takes Kernel F when B == 1 (matchnerf.py:311). Returns (cond dict with feat_info
     [B,R,S,sum(G)], color_info [B,R,S,3V], mask_info [B,R,S,V], all
     contiguous f32) and the view-0 NDC coordinates [B,R,S,3]. With the
     local-radius sampler (`local_radius(cfg)` > 0) `tables` holds
@@ -296,7 +374,9 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
     # where the pose's union fits a bucket (int8 tables; bf16 tables and D'
     # on f32 tables where their staging fits: `takes_table`), else Kernel B
     # when precision.banded_kernel or block_kernel is on, else the plain
-    # direct path
+    # direct path. An int4 scale (uint8 table) takes neither F nor D, as in
+    # JAX (matchnerf.py:174-177, :321): Kernel B's int4 form, or the plain
+    # twin with both kernel keys off (JAX's XLA route, :383-388)
     fused = bool(fused_cosine) and B == 1
     use_kernel = kernel and (bool(_precision_get(cfg, "banded_kernel", False))
                              or bool(_precision_get(cfg, "block_kernel", False)))
@@ -307,7 +387,7 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
         G = cos_n_group[scale_idx]
         scales = tables["view_feat_scales"][scale_idx]
         ut = block_ut[scale_idx] if block_ut is not None else None
-        if fused:
+        if fused and vfeats.dtype != torch.uint8:
             feat_chunks.append(fused_cosine_scale(
                 vfeats[0], grids[:, 0], None if scales is None else scales[0], G,
                 kernel)[None])

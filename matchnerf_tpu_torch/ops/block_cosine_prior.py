@@ -149,6 +149,8 @@ def takes_table(table, scales, ut: int, S: int, n_groups: int) -> bool:
     (V = 4 at S = 128 and G = 8 stages 64 channels from ut 320, and D' at
     ut 160 and G = 2 fits no pass)."""
     V, hw = table.shape[0], table.shape[1] * table.shape[2]
+    if table.dtype == torch.uint8:
+        return False          # int4: Kernel B (JAX keeps no unpacked int4 table, :174-177)
     if table.dtype == torch.int8:
         return takes_bf16(ut, S, n_groups, hw, V)
     if scales is not None:

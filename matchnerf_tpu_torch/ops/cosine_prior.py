@@ -26,6 +26,14 @@ pair (i, j) of `pair_index_lists` takes the grouped cosine of view i's chunk
 j-1 against view j's chunk i (eps 1e-8 on each norm) and averages over the
 pairs. Output [R,S,G] f32. The JAX package's `kt` buckets and 2x2
 packing only existed to save TPU gathers and are not carried.
+
+int4 tables (eval only, as in JAX) are uint8 [V,h,w,(V-1)*C/2], two codes
+a byte with bias +8 (models/matchnerf.py::pack_int4: byte k holds channel
+2k low, 2k + 1 high), with scales. Kernel B decodes the nibbles exactly
+and interpolates them in f32 with f32 weights, as the JAX XLA route
+`grid_sample_2d_packed_int4` does; the JAX Pallas int4 branch
+(pallas_banded.py:140-162) rounds its tap weights to bf16, which the port
+does not copy (tests/test_torch_int4_tables.py states the gap).
 """
 from __future__ import annotations
 
@@ -41,12 +49,15 @@ VIEWS = tuple(range(2, 9))
 CHUNK = 128
 COUNTER = kernels.LaunchCounter(
     "cosine_prior", source=SOURCE, replaces="matchnerf_tpu/ops/pallas_banded.py:267")
+# Kernel B's int4 form (its own launcher, counted under `COUNTER`) replaces
+# the int4 branch of the TPU kernel
+INT4_REPLACES = "matchnerf_tpu/ops/pallas_banded.py:140"
 BWD_COUNTER = kernels.LaunchCounter(
     "cosine_prior_bwd", source=SOURCE, replaces="matchnerf_tpu/ops/pallas_banded.py:484")
 # the forward's C launcher per table dtype; bf16 tables (the eval renders of
 # configs/train.yaml) come without scales, as the TPU kernel takes them
 ENTRIES = {torch.int8: "cosine_prior_i8", torch.bfloat16: "cosine_prior_bf16",
-           torch.float32: "cosine_prior_f32"}
+           torch.float32: "cosine_prior_f32", torch.uint8: "cosine_prior_i4"}
 WALK = 64                         # B''s consecutive samples per walk (csrc WALK)
 
 
@@ -81,11 +92,25 @@ def pair_cosine_mean(sampled, n_groups: int):
     return total / len(pairs)
 
 
+def unpack_int4(table):
+    """uint8 int4 table [..., Cc/2] -> the codes [..., Cc] f32 in [-8, 7]
+    (byte k: channel 2k in the low nibble, 2k + 1 in the high one)."""
+    t = table.to(torch.int16)
+    codes = torch.stack([(t & 15) - 8, (t >> 4) - 8], dim=-1)
+    return codes.reshape(*table.shape[:-1], 2 * table.shape[-1]).float()
+
+
 def cosine_prior_plain(table, grids, scales, n_groups: int):
-    """table [V,h,w,(V-1)C] (int8/f32/bf16); grids [V,R,S,2] f32; scales
-    [V,(V-1)C] f32 or None -> [R,S,G] f32."""
+    """table [V,h,w,(V-1)C] (int8/f32/bf16), or uint8 int4 [V,h,w,(V-1)C/2]
+    with scales; grids [V,R,S,2] f32; scales [V,(V-1)C] f32 or None ->
+    [R,S,G] f32. int4 codes are interpolated in f32 and scaled after, the
+    JAX route grid_sample_2d_packed_int4 times the scales."""
     if table.is_cuda:
         COUNTER.plain_on_cuda += 1
+    if table.dtype == torch.uint8:
+        if scales is None:
+            raise ValueError("cosine_prior: int4 tables come with dequantisation scales")
+        table = unpack_int4(table)
     sampled = []
     for v in range(table.shape[0]):
         s = grid_sample_2d(table[v:v + 1], grids[v:v + 1])[0]       # [R,S,(V-1)C]
@@ -97,17 +122,20 @@ def cosine_prior_plain(table, grids, scales, n_groups: int):
 
 def check_table(name: str, table) -> None:
     """Raise unless `table` is [V,h,w,(V-1)*128] with V in VIEWS, the
-    tables the prior kernels B, B', D and D' take."""
+    tables the prior kernels B, B', D and D' take, or a uint8 int4 table
+    [V,h,w,(V-1)*64] (two channels a byte; Kernel B only)."""
     V = table.shape[0] if table.dim() == 4 else None
-    if V not in VIEWS or table.shape[-1] != (V - 1) * CHUNK:
-        raise ValueError(f"{name}: table {tuple(table.shape)} (V={V} views), the kernel takes "
-                         f"V = {VIEWS[0]} to {VIEWS[-1]} views of [V,h,w,(V-1)*{CHUNK}]")
+    row = CHUNK // 2 if table.dtype == torch.uint8 else CHUNK
+    if V not in VIEWS or table.shape[-1] != (V - 1) * row:
+        raise ValueError(f"{name}: table {tuple(table.shape)} {table.dtype} (V={V} views), "
+                         f"the kernel takes V = {VIEWS[0]} to {VIEWS[-1]} views of "
+                         f"[V,h,w,(V-1)*{row}]")
 
 
 def cosine_prior(table, grids, scales, n_groups: int):
-    """The kernel on CUDA tensors (V = 2 to 8 views, C = 128, int8, bf16 or
-    f32 tables; with the B' backward when autograd records through an f32
-    table), the plain version on CPU tensors."""
+    """The kernel on CUDA tensors (V = 2 to 8 views, C = 128, int8, bf16,
+    f32 or uint8 int4 tables; with the B' backward when autograd records
+    through an f32 table), the plain version on CPU tensors."""
     if table.device.type == "cpu":
         return cosine_prior_plain(table, grids, scales, n_groups)
     if not table.is_cuda:
@@ -122,9 +150,14 @@ def cosine_prior(table, grids, scales, n_groups: int):
 
 def _forward(table, grids, scales, n_groups: int):
     if table.dtype not in ENTRIES:
-        raise ValueError(f"cosine_prior: table dtype {table.dtype} (int8, bf16 or f32)")
+        raise ValueError(f"cosine_prior: table dtype {table.dtype} (int8, bf16, f32 or "
+                         "uint8 int4)")
     check_table("cosine_prior", table)
+    if table.dtype == torch.uint8 and scales is None:
+        raise ValueError("cosine_prior: int4 tables come with dequantisation scales")
     V, H, W, Cc = table.shape
+    if table.dtype == torch.uint8:
+        Cc *= 2                   # channels: two a byte
     C = Cc // (V - 1)
     if n_groups not in (1, 2, 4, 8, 16):
         raise ValueError(f"cosine_prior: n_groups={n_groups}, kernel takes 1, 2, 4, 8 or 16")

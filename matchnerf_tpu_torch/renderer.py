@@ -63,15 +63,27 @@ POSE_PREP_CHUNK = 8192        # rays per measurement chunk (renderer.py:505)
 
 
 def cond_sample_dtype(cfg):
-    """Feature-table dtype from precision.cond_sample_dtype (int8, bf16, f32)."""
-    name = str(effective_precision(cfg).get("cond_sample_dtype", "bfloat16"))
-    if name in ("bf16", "bfloat16"):
-        return torch.bfloat16
-    if name == "int8":
-        return torch.int8
-    if name.startswith("int4"):
-        raise NotImplementedError("int4 sampling tables are not ported")
-    return torch.float32
+    """Feature-table dtype from precision.cond_sample_dtype, one name or a
+    per-scale list (renderer.py:30-47): torch.int8, torch.bfloat16,
+    torch.float32, or the int4 name itself ("int4", "int4pXX.X": nibble
+    tables, `prepare_sampling_tables`); a list gives one entry per scale.
+    A name the JAX function does not know maps to f32, as there."""
+    prec = effective_precision(cfg)
+    name = prec.get("cond_sample_dtype", "bfloat16") if hasattr(prec, "get") else "bfloat16"
+
+    def one(n):
+        n = str(n)
+        if n in ("bf16", "bfloat16"):
+            return torch.bfloat16
+        if n == "int8":
+            return torch.int8
+        if n.startswith("int4"):
+            return n
+        return torch.float32
+
+    if isinstance(name, (list, tuple)):
+        return [one(n) for n in name]
+    return one(name)
 
 
 def color_sample_dtype(cfg):
@@ -201,9 +213,11 @@ class Renderer:
 
         block_ut is None when the pose is not z-safe (a depth endpoint at or
         behind a source camera) or no scale's union fits a bucket; else a
-        tuple with, per scale of `scale_hws` ((h, w) per feature scale), the
+        tuple with, per scale of `scale_hws` ((h, w) per feature scale, or
+        None for a scale that cannot take Kernel D: int4 tables), the
         bucket of the exact largest dilated 8-ray block union, or None
-        where it overflows (that scale takes Kernel B). color_ut is the
+        where it overflows or was not measured (that scale takes Kernel
+        B). color_ut is the
         bucket of the largest supercell union (None: overflow, not z-safe,
         or not measured). The 8-ray blocks are the absolute 8-pixel
         partition of the image, measured in chunks of 8192 rays with the
@@ -231,8 +245,9 @@ class Renderer:
 
         # per chunk: the exact largest unions, kept on the device (one host
         # sync per pose)
+        hws = [hw for hw in scale_hws if hw is not None]
         sizes = None
-        for c in range(n_chunks):
+        for c in range(n_chunks if hws or measure_color else 0):
             pix = pix_all[c * R:(c + 1) * R][None]
             center, ray = camera.get_center_and_ray(pix, tgt_intr, c2w)
             pts = camera.get_3d_points_from_depth(center, ray,
@@ -240,16 +255,17 @@ class Renderer:
                                                   multi_samples=True)
             grids = (project_to_views(pts, ref_w2c, ref_intr, ref_nf, img_h, img_w)
                      [:, 0, ..., :2] * 2.0 - 1.0)                     # [V,R,S,2]
-            now = [block_union_max(grids, h, w) for (h, w) in scale_hws]
+            now = [block_union_max(grids, h, w) for (h, w) in hws]
             if measure_color:
                 now.append(color_union_max(grids, img_h, img_w))
             now = torch.stack(now)
             sizes = now if sizes is None else torch.maximum(sizes, now)
-        sizes = sizes.tolist()
+        sizes = [] if sizes is None else sizes.tolist()
         if not float(zmin) > 1e-6:
             return None, None
         color_ut = bucket_color_ut(sizes[-1]) if measure_color else None
-        uts = tuple(bucket_ut(n) for n in sizes[:len(scale_hws)])
+        measured = iter(sizes[:len(hws)])
+        uts = tuple(None if hw is None else bucket_ut(next(measured)) for hw in scale_hws)
         return (None if all(u is None for u in uts) else uts), color_ut
 
     @torch.no_grad()
@@ -278,7 +294,9 @@ class Renderer:
             if share % BLOCK_RAYS == 0:
                 # slices start at multiples of R, so their 8-ray blocks are
                 # the absolute 8-pixel partition that pose_prep measured
-                scale_hws = [(v.shape[2], v.shape[3]) for v in tables["view_feats"]]
+                # an int4 scale never takes Kernel D: its union is not measured
+                scale_hws = [None if v.dtype == torch.uint8 else (v.shape[2], v.shape[3])
+                             for v in tables["view_feats"]]
                 t0 = time.perf_counter()
                 block_ut, color_ut = self.pose_prep(
                     poses, scale_hws, img_h, img_w,

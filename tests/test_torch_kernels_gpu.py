@@ -20,8 +20,10 @@ also at the eval pose's buckets (160 rows at G = 2, 320 at G = 8, S = 128)
 on 1003 rays, and with a bucket below the true unions (the union it builds
 overflows: against the plain version at the same ut); the union the kernel
 builds equals the plain version's torch build cell for cell. The cosine
-prior (B) on int8, bf16 and f32 tables, and on int8 rows that hold every
-value -128..127 (its integer-pipe conversion). The supercell colour sample (E) reads
+prior (B) on int8, bf16, f32 and int4 tables (random codes 0-15 two a
+byte) at G = 1 to 16 and V = 2 to 8, each launch counted under its entry,
+and on int8 rows that hold every value -128..127 (its integer-pipe
+conversion). The supercell colour sample (E) reads
 no union: it runs at small shapes, on a 320-supercell union, with a ragged
 R and samples on the border, and on grids spread over the whole image whose
 union overflows every bucket, where it is also held to the direct gather
@@ -134,21 +136,28 @@ def test_window_attention_forward_lse(dev, dtype, tol, hw):
 
 
 @pytest.mark.parametrize("V", VIEWS)
-@pytest.mark.parametrize("dtype", [torch.int8, torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G", [2, 8])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32, torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
 def test_cosine_prior_kernel(dev, dtype, G, V):
+    """Kernel B against its plain twin on every table type (uint8: int4
+    tables, random codes 0-15 two a byte) at every V and G."""
     g = torch.Generator(device=dev).manual_seed(1)
     Cc = (V - 1) * 128
     if dtype == torch.int8:
         table = torch.randint(-127, 128, (V, 20, 24, Cc), generator=g, device=dev,
                               dtype=torch.int32).to(torch.int8)
+    elif dtype == torch.uint8:
+        table = torch.randint(0, 256, (V, 20, 24, Cc // 2), generator=g, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
     else:
         table = torch.randn(V, 20, 24, Cc, generator=g, device=dev).to(dtype)
     scales = torch.rand(V, Cc, generator=g, device=dev) * 0.02 + 1e-3
     grids = torch.rand(V, 37, 48, 2, generator=g, device=dev) * 2.4 - 1.2
     before = kb.COUNTER.launches
+    entry = kb.COUNTER.by_entry.get(kb.ENTRIES[dtype], 0)
     got = kb.cosine_prior(table, grids, scales, G)
     assert kb.COUNTER.launches == before + 1
+    assert kb.COUNTER.by_entry[kb.ENTRIES[dtype]] == entry + 1
     ref = kb.cosine_prior_plain(table, grids, scales, G)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
 
