@@ -10,11 +10,11 @@ test_strict.yaml over DTU, LLFF, Blender and T&T test sets, and the
 training entry of configs/train_ibrnet.yaml at 1008x756, and the render
 server (`python -m matchnerf_tpu_torch.serve`) over HTTP, and the parallel
 layer (process groups of one and two ranks, the training entry as 2
-processes), and two to eight source views (`--n_src_views`: the training
-entry at 2, 4, 6 and 8, the eval entry at 2, 4, 5 and 8, the fused route
-at 8), and the convergence run (the training recipes learn a small scene
-and, at full width, phase 12's DTU scan, held to their all-plain twins),
-and the variants config keys reach
+processes), and two to sixteen source views (`--n_src_views`: the
+training entry at 2, 4, 6, 8 and 10, the eval entry at 2, 4, 8, 10 and
+16, the fused route at 8 and 10), and the convergence run (the training
+recipes learn a small scene and, at full width, phase 12's DTU scan, held
+to their all-plain twins), and the variants config keys reach
 (`nerf.view_dep: false`, the local-radius sampler, attention without
 window splits, the fused route at 2 and 4 views; LPIPS and the training
 entry's profile trace), on one NVIDIA card, through the hand-written CUDA
@@ -253,7 +253,7 @@ Phases, any failure ends the run with a non-zero exit:
    re-saved progressive as a COLMAP tree under build/, loaded by
    COLMAPDataset at 256x160 with each image held to PIL's decode and
    LANCZOS (PROGRESSIVE_TREE_SHA256); the phase's seconds.
-18. two to eight source views (n_src_views), at full width, 640x512, S =
+18. two to sixteen source views (n_src_views), at full width, 640x512, S =
    128: (a) for V = 2, 4, 5, 6 and 8, a scene of V sources spread over
    -16..16 degrees of phase 2's arc and the target at 8 degrees, one encode
    of it, its eval tables ([V,64,80,(V-1)128] at G = 2 and
@@ -281,18 +281,32 @@ Phases, any failure ends the run with a non-zero exit:
    >= 50 dB against the all-plain render; the prior kernel each scale
    took, image seconds, rays/s and each eval kernel's device ms per launch.
    (d) on an 11-view synthetic DTU tree (`synth.write_dtu_scene(...,
-   n_views=11)`), the eval entry as in (c) at V = 5 and 8 with seeded
-   weights, and at V = 8 with `--precision.fused_cosine=true` (A, C, E and
-   F launch, B and D do not; held to the V = 8 image's all-plain render,
-   the same weights, view and function); then (b) at V = 8 on that tree,
+   n_views=11)`), the eval entry as in (c) at V = 8 with seeded weights
+   (V = 5's image gave way to V = 10 and 16, for time), and at V = 8
+   with `--precision.fused_cosine=true` (A, C, E and F launch, B and D do
+   not; held to the V = 8 image's all-plain render, the same weights, view
+   and function); then (b) at V = 8 on that tree,
    and at V = 4 and 6 on a 9-view tree whose views lie half as far apart
    (`spread=MID_TREE_SPREAD`; phase 12's six views hold the V + 3 a
    training sample draws from only to V = 3, and on the 11-view tree every
    union at V = 4 and 6 overflows D''s buckets), where train_fast.yaml's
    scales take D' or B' as the route says (two of them a step, checked step
    by step, each step's scales logged; D' at one scale at least on the
-   narrow tree), with the peak device memory of the steps. The phase's
-   seconds on a line of their own.
+   narrow tree), with the peak device memory of the steps. (e) past eight
+   views (the run-time-V forms of B, B', D, D', F and E to 16): (a) at
+   V = 10, 12 and 16 (`views_rays(V)`: 2728, 1856 and 1024 rays, B' and
+   D' at `views_train_rays(V)`: 1024, 696, 384), Kernel D and D' where
+   their shared memory takes no bucket at S = 128 on every other depth (S
+   = 64: `wide_d_grids`); then on a 17-view 320x256 tree at half the
+   arc's angles (`WIDE_TREE_*`, `WIDE_EVAL_WH`) the eval entry at V = 10
+   (A, C, E, and D or B per scale as `takes_table` routes it) and V = 16
+   (A, Kernel Cg for the shipped decoder, C not launched, E, B), each
+   held to its all-plain render (slices of `plain_slice_rays(V)` rays),
+   the fused image at V = 10 (held to the V = 10 all-plain render), and
+   (b) at V = 10 on a 13-view 640x512 tree at the same angles with peak
+   memory (`views_wide`; seeded weights whose density head is kept live,
+   `live_density`, through `--load`). Each part's seconds under
+   "part_s"; the phase's seconds on a line of their own.
 19. the variants config keys reach, at full width, 640x512, S = 128: (a)
    Kernel F at V = 2 and 4 on the tap rows of one fused-route chunk (8192
    and 4096 rays, `fused_chunk_rays(V)`) of a
@@ -943,20 +957,28 @@ def train_kernel_phase(torch, F, dev, batch, seed, block_ut, res):
     del tmodel, ttables
 
 
-def first_step_check(torch, dev, cfg, batch, seed, label, tol, img_hw=(H, W), model_fn=None):
+def first_step_check(torch, dev, cfg, batch, seed, label, tol, img_hw=(H, W), model_fn=None,
+                     plain_remat=False):
     """One step's loss and gradients from one set of weights, rays and
     jitter, through the kernels and all-plain, on an img_hw image; tol =
     (loss rtol, worst and median per-tensor gradient error). The weights are
-    seeded, or `model_fn(cfg)`'s (a model on the CPU) where given."""
+    seeded, or `model_fn(cfg)`'s (a model on the CPU) where given. With
+    `plain_remat` the all-plain step recomputes each transformer layer in
+    its backward (precision.remat_encoder; the same function): past eight
+    views the plain attention's saved scores of every layer outgrow the
+    card (10 views: 90 pair streams, 4.7 GB of f32 scores a layer)."""
     from matchnerf_tpu_torch.engine import Coach
     from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
     from matchnerf_tpu_torch.train_step import sample_ray_indices
     model_k = (model_fn(cfg) if model_fn is not None
                else init_matchnerf(cfg, torch.Generator().manual_seed(seed))).to(dev)
     model_p = copy.deepcopy(model_k)
+    cfg_p = copy.deepcopy(cfg)
+    if plain_remat:
+        cfg_p.precision.remat_encoder = True
     coaches = []
-    for m, kern in ((model_k, True), (model_p, False)):
-        c = Coach(cfg, m, dev, kernel=kern)
+    for m, kern, cfg_ in ((model_k, True, cfg), (model_p, False, cfg_p)):
+        c = Coach(cfg_, m, dev, kernel=kern)
         c.setup_optimizer(TRAIN_STEPS)
         coaches.append(c)
     route = coaches[0].train_route(batch)
@@ -1744,18 +1766,21 @@ def run_entry(torch, counters, argv):
     return result, records
 
 
-def check_entry_record(name, rec, must, label):
+def check_entry_record(name, rec, must, label, decoder="cond_nerf_decode"):
     """The checks every set's render passes: the kernels of `must` launched,
-    none of the plain versions on CUDA, Kernel C with setbg on Blender (every
-    launch) and nowhere else, rgb finite in [0, 1]."""
+    none of the plain versions on CUDA, the shipped decoder on `decoder`
+    alone (Kernel C; Kernel Cg past its width, from V = 14), Kernel C with
+    setbg on Blender (every launch) and nowhere else, rgb finite in [0, 1]."""
     launches, out = rec["launches"], rec["out"]
     for k in must:
         if launches[k] <= 0:
             raise AssertionError(f"{label} {name}: kernel {k} was not launched: {launches}")
     if any(rec["plain_cuda"].values()):
         raise AssertionError(f"{label} {name}: plain versions ran on CUDA: {rec['plain_cuda']}")
-    if launches["cond_nerf_decode_any"]:
-        raise AssertionError(f"{label} {name}: the shipped decoder took Kernel Cg: {launches}")
+    other = ({"cond_nerf_decode", "cond_nerf_decode_any"} - {decoder}).pop()
+    if launches[other] or launches[decoder] <= 0:
+        raise AssertionError(f"{label} {name}: the shipped decoder took {other}, not "
+                             f"{decoder}: {launches}")
     want_bg = launches["cond_nerf_decode"] if name == "blender" else 0
     if rec["setbg"] != (name == "blender") or rec["setbg_launches"] != want_bg:
         raise AssertionError(f"{label} {name}: setbg {rec['setbg']}, {rec['setbg_launches']} "
@@ -3360,12 +3385,25 @@ def parallel_phase(torch, dev, batch, seed, block_rgb, tree, counters):
 
 VIEW_COUNTS = (2, 4)               # n_src_views of the views phase on phase 12's tree
 MANY_VIEWS = (5, 6, 8)             # and past V = 4: the kernels against their plain twins
-MANY_EVAL = (5, 8)                 # the eval entry's image on the many-view tree
+MANY_EVAL = (8,)                   # the eval entry's image on the many-view tree (V = 5's
+                                   # was dropped for time when V = 10 and 16 came in)
 MANY_TRAIN = 8                     # the training entry's steps on the many-view tree
 MANY_TREE_VIEWS = 11               # its views: V = 8 sources, 2 added candidates, the target
 MID_TRAIN = (4, 6)                 # the training entry's steps on the narrow tree
 MID_TREE_VIEWS = 9                 # its views: V = 6 sources, 2 added candidates, the target
 MID_TREE_SPREAD = 0.5              # its arc's angles over the default's: 4 degrees apart
+WIDE_VIEWS = (10, 12, 16)          # past V = 8 (the run-time-V forms): the kernels vs their twins
+WIDE_EVAL = (10, 16)               # the eval entry's image on the wide tree
+WIDE_FUSED = 10                    # the fused image on the wide tree
+WIDE_TRAIN = 10                    # the training entry's steps on the wide tree
+WIDE_TREE_VIEWS = 17               # its views: V = 16 sources and the target
+WIDE_TRAIN_TREE_VIEWS = 13         # the 640x512 training tree's: V = 10, 2 added, the target
+WIDE_TREE_SPREAD = 0.5             # both arcs' angles over the default's: 4 degrees apart
+# the wide images' size, their tree's: a quarter of the DTU view's rays, so
+# that the all-plain references (54 s at V = 10 and 141 s at V = 16 at
+# 640x512, the plain B and D over V(V-1) chunk rows) keep the script in
+# its time (the DTU loader's depth mask is its tree's size)
+WIDE_EVAL_WH = (320, 256)
 VIEWS_STEPS = 3                    # training steps per recipe and V
 EVAL_MUST = ("window_attention", "cond_nerf_decode", "block_cosine_prior", "supercell_color")
 
@@ -3374,9 +3412,44 @@ def views_rays(V):
     """Rays of the views phase's eval-slice checks at V views: the slice
     (SLICE_RAYS) to V = 4, then fewer, so that the plain twins' f32 samples
     (R x S x V(V-1) x 128 floats) stay at their V = 4 size: 12288 at V = 5,
-    8192 at V = 6, 4384 at V = 8. The kernel runs the same slices on the
-    entry's path; these are the compared ones."""
+    8192 at V = 6, 4384 at V = 8, 2728 at V = 10, 1856 at V = 12, 1024 at
+    V = 16. The kernel runs the same slices on the entry's path; these are
+    the compared ones."""
     return min(SLICE_RAYS, 8 * (SLICE_RAYS * 12 // (V * (V - 1)) // 8))
+
+
+def views_train_rays(V):
+    """Rays of the views phase's B' and D' checks at V views: TRAIN_RAYS to
+    V = 10, then fewer, so that the plain twins' f32 samples and their
+    gradients stay at their V = 10 size: 696 at V = 12, 384 at V = 16."""
+    return min(TRAIN_RAYS, 8 * (TRAIN_RAYS * 90 // (V * (V - 1)) // 8))
+
+
+def plain_slice_rays(V):
+    """Rays a slice of the all-plain reference render at V views (the
+    renderer's max_rays_per_slice): 8192 to V = 8, then fewer, so that the
+    plain B's f32 samples of a slice stay at their V = 8 size: 5096 at V =
+    10, 1904 at V = 16 (multiples of 8: the same 8-ray blocks)."""
+    return min(8192, 8 * (8192 * 56 // (V * (V - 1)) // 8))
+
+
+def wide_d_grids(kd, table, grids, ut, takes):
+    """Where Kernel D (D') takes no bucket at the views phase's S = 128 and
+    V views (from V = 12: its taps and fractions, 16 bytes a (view, sample),
+    outgrow the block's shared memory), its check runs on every other depth
+    of the same rays (S = 64) at their own bucket, if `takes` holds it, or
+    at the widest bucket it takes at S = 64 (an overflowed union, against
+    the plain twin at that bucket) -> (grids, ut, on_path): on_path True
+    where the route takes the pose's bucket at S = 128."""
+    S = grids.shape[2]
+    if ut is not None and takes(ut, S):
+        return grids, ut, True
+    half = grids[:, :, ::2].contiguous()
+    h, w = table.shape[1:3]
+    u = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(half), h, w))
+    if u is None or not takes(u, half.shape[2]):
+        u = max(b for b in kd.UT_BUCKETS if takes(b, half.shape[2]))
+    return half, u, False
 
 
 def timed_once(torch, fn):
@@ -3413,13 +3486,16 @@ def prior_case(torch, name, fn, plain, tol, nbytes_, flops, extra=None):
     return entry
 
 
-def views_kernels(torch, dev, seed, V, card):
+def views_kernels(torch, dev, seed, V, card, batch=None):
     """The views phase's kernel checks at V source views, from one encode of
     a V-source scene: Kernels B (int8, bf16, f32) and D (int8, bf16) on its
-    eval tables at the pose's buckets, E on its supercell table, F (past
-    V = 4; phase 19 holds V = 2 and 4) on one fused-route chunk, B' and D'
-    forward and backward on f32 tables of the same features at 1024
-    training rays, each against its plain twin."""
+    eval tables at the pose's buckets (past V = 8, where D's shared memory
+    does not take the bucket, D on every other depth: `wide_d_grids`), E on
+    its supercell table, F (past V = 4; phase 19 holds V = 2 and 4) on one
+    fused-route chunk, B' and D' forward and backward on f32 tables of the
+    same features at `views_train_rays(V)` training rays, each against its
+    plain twin. `batch`: the scene, `make_scene(seed, V)` (raytraced here
+    where not given)."""
     from matchnerf_tpu_torch import camera
     from matchnerf_tpu_torch.config import dtu_eval_config, dtu_train_config
     from matchnerf_tpu_torch.models.matchnerf import (fused_chunk_rays, init_matchnerf,
@@ -3435,7 +3511,7 @@ def views_kernels(torch, dev, seed, V, card):
     cfg.n_src_views = V
     model = init_matchnerf(cfg, torch.Generator().manual_seed(seed)).to(dev).eval()
     renderer = Renderer(cfg, model, dev)
-    batch = make_scene(seed, V)
+    batch = batch if batch is not None else make_scene(seed, V)
     poses = extract_poses(batch)
     ref_images = renderer.tensor(batch["images"][:, :V])
     out = {"V": V, "card": card}
@@ -3446,9 +3522,10 @@ def views_kernels(torch, dev, seed, V, card):
     scale_hws = [(t.shape[2], t.shape[3]) for t in tables["view_feats"]]
     block_ut, color_ut = renderer.pose_prep(poses, scale_hws, H, W, measure_color=True)
     log(f"views V={V}: pose_prep block_ut {block_ut}, color_ut {color_ut}")
-    if block_ut is None or None in block_ut:
+    if V <= 8 and (block_ut is None or None in block_ut):
         raise AssertionError(f"views V={V}: the pose does not take Kernel D at both scales: "
                              f"{block_ut}")
+    block_ut = block_ut or (None, None)
     tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = renderer._pose_tensors(poses)
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
 
@@ -3479,12 +3556,20 @@ def views_kernels(torch, dev, seed, V, card):
                 out["B" + sfx].append(dict(scale=s, R=R, **prior_case(
                     torch, f"B {tag}", lambda: kb.cosine_prior(table, g, scales, G),
                     lambda: kb.cosine_prior_plain(table, g, scales, G), 1e-4, nb, flops)))
-                cp = kd.channels_per_pass(ut, S, G, False, 2, table.shape[1] * table.shape[2], V)
+                hw = table.shape[1] * table.shape[2]
+                gd, ud, on_path = wide_d_grids(
+                    kd, table, g, ut,
+                    lambda u, S_: kd.channels_per_pass(u, S_, G, False, 2, hw, V) is not None)
+                cp = kd.channels_per_pass(ud, gd.shape[2], G, False, 2, hw, V)
+                nbd = lambda o: nbytes(table, gd, o) + (0 if scales is None else nbytes(scales))
                 out["D" + sfx].append(dict(scale=s, R=R, **prior_case(
-                    torch, f"D {tag}", lambda: kd.block_cosine_prior(table, g, scales, G, ut),
-                    lambda: kd.block_cosine_prior_plain(table, g, scales, G, ut), 1e-4, nb,
-                    flops, {"ut": ut, "channels_per_pass": cp})))
-                del table, g
+                    torch, f"D {tag}" + ("" if on_path else f" (not the route's: S={gd.shape[2]})"),
+                    lambda: kd.block_cosine_prior(table, gd, scales, G, ud),
+                    lambda: kd.block_cosine_prior_plain(table, gd, scales, G, ud), 1e-4, nbd,
+                    prior_flops(R * gd.shape[2], scaled=dt == "int8", n_views=V),
+                    {"ut": ud, "channels_per_pass": cp, "S": gd.shape[2], "on_path": on_path,
+                     "pose_ut": ut})))
+                del table, g, gd
         # Kernel E on the slice, bit-equal to its plain twin on the 0-255
         # scale; 9 flops per (sample, view, colour)
         csc = tables["colors_sc"][0]
@@ -3505,19 +3590,21 @@ def views_kernels(torch, dev, seed, V, card):
         ttables = prepare_sampling_tables(tcfg, feats, ref_images, feat_dtype=torch.float32)
     del feats
 
+    R_train = views_train_rays(V)
+
     def train_grids(patches):
-        idx = sample_ray_indices(H * W, TRAIN_RAYS, patches, dev, gen)
+        idx = sample_ray_indices(H * W, R_train, patches, dev, gen)
         tpix = torch.stack([(idx % W).float(), (idx // W).float()], -1)[None]
-        return grids_of(tpix, sample_depth(tcfg, tgt_nf, 1, TRAIN_RAYS, stratified=True,
+        return grids_of(tpix, sample_depth(tcfg, tgt_nf, 1, R_train, stratified=True,
                                            generator=gen))
 
     grids_ray, grids_strip = train_grids(False), train_grids(True)
-    N = TRAIN_RAYS * S
+    N = R_train * S
     for s, G in enumerate(tcfg.encoder.cos_n_group):
         table = ttables["view_feats"][s][0]
         h, w = table.shape[1:3]
-        gcot = torch.randn(TRAIN_RAYS, S, G, generator=gen, device=dev)
-        tag = f"V={V} scale {s} table {list(table.shape)} f32 G={G} R={TRAIN_RAYS} S={S}"
+        gcot = torch.randn(R_train, S, G, generator=gen, device=dev)
+        tag = f"V={V} scale {s} table {list(table.shape)} f32 G={G} R={R_train} S={S}"
         with torch.no_grad():
             out["B_f32"].append(dict(scale=s, **prior_case(
                 torch, f"B {tag}", lambda: kb.cosine_prior(table, grids_ray, None, G),
@@ -3529,30 +3616,41 @@ def views_kernels(torch, dev, seed, V, card):
         union = kd.block_union_size_raw(kd.pad_rays(grids_strip), h, w)
         ut = kd.bucket_ut(union)
         route = "D'" if ut is not None and kd.takes_f32(ut, S, G, h * w, V) else "B'"
-        if route == "B'":
-            ut = max(u for u in kd.UT_BUCKETS if kd.takes_f32(u, S, G, h * w, V))
+        takes_f32 = lambda u, S_: kd.takes_f32(u, S_, G, h * w, V)
+        if route == "D'" or any(takes_f32(u, S) for u in kd.UT_BUCKETS):
+            gs = grids_strip
+            if route == "B'":
+                ut = max(u for u in kd.UT_BUCKETS if takes_f32(u, S))
+        else:                          # no bucket at S = 128: every other depth
+            gs, ut, _ = wide_d_grids(kd, table, grids_strip, None, takes_f32)
+        Nd = R_train * gs.shape[2]
         with torch.no_grad():
             out["D_f32"].append(dict(scale=s, **prior_case(
-                torch, f"D' forward {tag} (strips)",
-                lambda: kd.block_cosine_prior(table, grids_strip, None, G, ut),
-                lambda: kd.block_cosine_prior_plain(table, grids_strip, None, G, ut), 1e-5,
-                lambda o: nbytes(table, grids_strip, o), prior_flops(N, False, V),
-                {"ut": ut, "train_union_size": union, "training_route": route})))
+                torch, f"D' forward {tag} (strips" + (
+                    ")" if gs is grids_strip else f", S={gs.shape[2]})"),
+                lambda: kd.block_cosine_prior(table, gs, None, G, ut),
+                lambda: kd.block_cosine_prior_plain(table, gs, None, G, ut), 1e-5,
+                lambda o: nbytes(table, gs, o), prior_flops(Nd, False, V),
+                {"ut": ut, "train_union_size": union, "training_route": route,
+                 "S": gs.shape[2]})))
         for key, fn_k, fn_p, g_ in (
                 ("B_bwd", lambda t, g_: kb.cosine_prior(t, g_, None, G),
                  lambda t, g_: kb.cosine_prior_plain(t, g_, None, G), grids_ray),
                 ("D_bwd", lambda t, g_: kd.block_cosine_prior(t, g_, None, G, ut),
-                 lambda t, g_: kd.block_cosine_prior_plain(t, g_, None, G, ut), grids_strip)):
+                 lambda t, g_: kd.block_cosine_prior_plain(t, g_, None, G, ut), gs)):
             tk, tp = table.clone().requires_grad_(), table.clone().requires_grad_()
             ok, op = fn_k(tk, g_), fn_p(tp, g_)
-            bwd_k = lambda: grad(ok, tk, gcot, retain_graph=True)[0]
-            bwd_p = lambda: grad(op, tp, gcot, retain_graph=True)[0]
+            gc = gcot[:, :g_.shape[2]].contiguous()
+            bwd_k = lambda: grad(ok, tk, gc, retain_graph=True)[0]
+            bwd_p = lambda: grad(op, tp, gc, retain_graph=True)[0]
             tol = 1e-5 * float(bwd_p().abs().max())
             name = "B'" if key == "B_bwd" else "D'"
             out[key].append(dict(scale=s, **prior_case(
-                torch, f"{name} backward {tag}", bwd_k, bwd_p, tol,
-                lambda o: 2 * nbytes(table) + nbytes(g_, gcot), prior_bwd_flops(N, V),
-                {"ut": ut} if key == "D_bwd" else None)))
+                torch, f"{name} backward {tag}" + (
+                    f" (S={g_.shape[2]})" if g_.shape[2] != S else ""), bwd_k, bwd_p, tol,
+                lambda o: 2 * nbytes(table) + nbytes(g_, gc),
+                prior_bwd_flops(R_train * g_.shape[2], V),
+                {"ut": ut, "S": g_.shape[2]} if key == "D_bwd" else None)))
             del tk, tp, ok, op
         del table
     del ttables, ref_images
@@ -3560,7 +3658,7 @@ def views_kernels(torch, dev, seed, V, card):
     return out
 
 
-def views_train(torch, dev, seed, tree, counters, ckpt, card, V):
+def views_train(torch, dev, seed, tree, counters, ckpt, card, V, load=None):
     """The views phase's training at V source views: `python -m
     matchnerf_tpu_torch.train --config train|train_fast --n_src_views=V`
     (`build_coach` + `train_model`) on the DTU tree `tree` from the written
@@ -3569,7 +3667,8 @@ def views_train(torch, dev, seed, tree, counters, ckpt, card, V):
     each scale as the route takes it (train_fast.yaml; D' at both at V = 2)
     by the counters, step by step, and which scales went to each; the peak
     device memory of the steps; a checkpoint written -> (results, the
-    train.yaml run's latest.ckpt)."""
+    train.yaml run's latest.ckpt). With `load`, every weight from that
+    file (`--load`; the GMFlow checkpoint is then not read)."""
     from matchnerf_tpu_torch import kernels
     from matchnerf_tpu_torch.train import build_coach
     runs = os.path.join(tree["work"], "views_runs")
@@ -3577,11 +3676,14 @@ def views_train(torch, dev, seed, tree, counters, ckpt, card, V):
     for label in ("train", "train_fast"):
         argv = loop_args(label, f"views_{label}_v{V}", runs, tree["root"], tree["meta"],
                          VIEWS_STEPS, **{"n_src_views": V, "encoder.pretrain_weight": ckpt,
-                                         "freq.val_it": -1, "freq.test_ep": -1})
+                                         "freq.val_it": -1, "freq.test_ep": -1,
+                                         **({"load": load} if load else {})})
         coach = build_coach(argv)
         steps = kernels.record_steps(coach)
         first = first_step_check(torch, dev, coach.cfg, next(iter(coach.train_loader)), seed,
-                                 f"views {label}.yaml V={V} bf16 policy", (1e-2, 0.5, 0.1))
+                                 f"views {label}.yaml V={V} bf16 policy", (1e-2, 0.5, 0.1),
+                                 model_fn=load and (lambda c: loaded_model(torch, c, load)),
+                                 plain_remat=V > 8)
         torch.cuda.empty_cache()
         for c in counters.values():
             c.reset()
@@ -3643,6 +3745,7 @@ def views_eval(torch, dev, seed, tree, counters, V, load, card, extra=(), must=E
     kernel's device ms per launch from one more render under torch.profiler
     (the fused route's thousands of gather operations make that ~40 s at
     V = 8). The entry holds the all-plain rgb under "plain_rgb"."""
+    from matchnerf_tpu_torch.ops import block_cosine_prior as kd
     from matchnerf_tpu_torch.renderer import Renderer
     name = name or f"views_v{V}"
     argv = ["--config", "test", f"--name={name}", f"--load={load}",
@@ -3651,7 +3754,8 @@ def views_eval(torch, dev, seed, tree, counters, V, load, card, extra=(), must=E
             "--data_test.tnt=", *extra] + entry_set_args("dtu", tree["root"], tree["meta"])
     _, records = run_entry(torch, counters, argv)
     rec = records[0]
-    check_entry_record("dtu", rec, must, f"views {name}")
+    decoder = shipped_decoder_kernel(V)
+    check_entry_record("dtu", rec, must + (decoder,), f"views {name}", decoder)
     for k in zero:
         if rec["launches"][k]:
             raise AssertionError(f"views {name}: kernel {k} launched: {rec['launches']}")
@@ -3661,19 +3765,33 @@ def views_eval(torch, dev, seed, tree, counters, V, load, card, extra=(), must=E
                              "views")
     fused = bool(renderer.cfg.precision.get("fused_cosine", False))
     block_ut = (rec["route"] or {}).get("block_ut")
+    # the route of query_cond_info: D where the pose's bucket fits D's shared
+    # memory for the int8 tables of test.yaml (`takes_table`), else B
+    S = int(renderer.cfg.nerf.sample_intvs)
+    img_h, img_w = np.asarray(rec["batch"]["images"]).shape[2:4]
+    hws = ((img_h // 8) * (img_w // 8), (img_h // 4) * (img_w // 4))
     scale_kernels = (["F"] * 2 if fused else
-                     ["B" if block_ut is None or ut is None else "D" for ut in
-                      (block_ut or (None, None))])
+                     ["D" if ut is not None and kd.takes_bf16(ut, S, G, hw, V) else "B"
+                      for ut, G, hw in zip(block_ut or (None, None),
+                                           renderer.cfg.encoder.cos_n_group, hws)])
+    if not fused:
+        for k, label in (("block_cosine_prior", "D"), ("cosine_prior", "B")):
+            if (rec["launches"][k] > 0) != (label in scale_kernels):
+                raise AssertionError(f"views {name}: the scales' route {scale_kernels}, "
+                                     f"launches {rec['launches']}")
     plain_t = {"render": None}
     if plain is None:
-        plain = Renderer(renderer.cfg, renderer.model, dev, kernel=False).forward(
+        pcfg = copy.deepcopy(renderer.cfg)
+        pcfg.nerf.max_rays_per_slice = plain_slice_rays(V)
+        plain = Renderer(pcfg, renderer.model, dev, kernel=False).forward(
             rec["batch"], mode="test", timings=plain_t)["rgb"]
     agreement = psnr(rec["out"]["rgb"], plain)
     kms = (kernel_device_ms(torch, lambda: renderer.forward(rec["batch"], mode="test"))
            if profile else {})
     t = rec["timings"]
-    n_rays = H * W
-    entry = {"V": V, "load": load or None, "extra": list(extra), "render_s": t["render"],
+    n_rays = img_h * img_w
+    entry = {"V": V, "image_hw": [int(img_h), int(img_w)], "load": load or None,
+             "extra": list(extra), "render_s": t["render"],
              "encode_s": t["encode"], "tables_s": t["tables"],
              "pose_prep_s": t.get("pose_prep", 0.0), "image_s": rec["seconds"],
              "rays_per_s_render": n_rays / t["render"], "plain_render_s": plain_t["render"],
@@ -3687,7 +3805,8 @@ def views_eval(torch, dev, seed, tree, counters, V, load, card, extra=(), must=E
         f"{t['render']:.4f} s (pose_prep {entry['pose_prep_s']:.4f}), "
         f"{entry['rays_per_s_render']:.0f} rays/s (render), route {rec['route']}, the "
         f"scales' prior kernels {scale_kernels}, launches {rec['launches']}; kernels vs "
-        f"all-plain PSNR {agreement:.2f} dB (need >= 50); device ms (launches) "
+        f"all-plain PSNR {agreement:.2f} dB (need >= 50; all-plain render "
+        f"{plain_t['render'] or 0.0:.2f} s); device ms (launches) "
         + ", ".join(f"{k} {ms:.3f} ({n})" for k, (ms, n) in sorted(kms.items())) + f"; {card}")
     if not agreement >= 50.0:
         raise AssertionError(f"views {name}: agreement PSNR {agreement:.2f} dB < 50")
@@ -3696,18 +3815,62 @@ def views_eval(torch, dev, seed, tree, counters, V, load, card, extra=(), must=E
     return entry
 
 
+def live_density(torch, model):
+    """Make the seeded decoder's density head non-negative (in place): its
+    last layer (`out_alpha_linear[-1]`, bias 0) takes the ReLU outputs of
+    the ray attention's 16 channels, so with weights of one sign every
+    density is >= 0 and none is held at 0 by the final ReLU. Seeded at
+    V = 10, seed 0 leaves every density of phase 18's training rays at 0
+    (the head's weights sum the ReLU outputs to -4.4 .. -0.1): no gradient
+    flows, and the first step's check and the image compare zeros."""
+    with torch.no_grad():
+        model.nerf_dec.out_alpha_linear[-1].weight.abs_()
+    return model
+
+
+def write_live_checkpoint(torch, cfg, seed, path):
+    """The seeded model of `cfg` (init_matchnerf, the entries' own seeding)
+    with `live_density`, saved as a `.pth` with a "model" entry, the file
+    `--load` reads -> path."""
+    from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+    model = live_density(torch, init_matchnerf(cfg, torch.Generator().manual_seed(seed)))
+    torch.save({"model": model.state_dict()}, path)
+    return path
+
+
+def loaded_model(torch, cfg, path):
+    """A model of `cfg` on the CPU with the weights of `path`."""
+    from matchnerf_tpu_torch.models.matchnerf import init_matchnerf
+    from matchnerf_tpu_torch.utils.checkpoint import load_model_weights
+    model = init_matchnerf(cfg, torch.Generator().manual_seed(0))
+    load_model_weights(model, path)
+    return model
+
+
+def shipped_decoder_kernel(V):
+    """The shipped decoder's kernel at V views (ops/decoder.py::
+    decoder_route): Kernel C while its conditioning width Gf + 4V (Gf = 10)
+    is at most 64 (V <= 13), Kernel Cg from V = 14."""
+    return "cond_nerf_decode" if 10 + 4 * V <= 64 else "cond_nerf_decode_any"
+
+
 def views_phase(torch, dev, seed, tree, counters):
-    """Phase 18: two to eight source views. The prior kernels (and E, and F
-    past V = 4) at V = 2, 4, 5, 6 and 8 against their plain twins; training
+    """Phase 18: two to sixteen source views. The prior kernels (and E, and
+    F past V = 4) at V = 2, 4, 5, 6, 8, 10, 12 and 16 against their plain
+    twins; training
     at V = 2 through the training entry and the eval entry at V = 2 (the
     trained weights) and V = 4 (seeded weights) on phase 12's tree; then on
-    an 11-view DTU tree the eval entry at V = 5 and 8 and the fused route at
+    an 11-view DTU tree the eval entry at V = 8 and the fused route at
     V = 8 (seeded weights; held to the V = 8 image's all-plain render: the
     same weights, view and function; F's device ms come from (a) at the
     route's chunk), and 3 steps of each recipe at V = 8; then 3 steps of
-    each recipe at V = 4 and 6 on a 9-view tree at half the arc's angles.
-    The two trees are written by spawned processes while the kernel parts
-    run. Each part's seconds under "part_s" (a tree's: the wait for it)."""
+    each recipe at V = 4 and 6 on a 9-view tree at half the arc's angles;
+    then `views_wide` on a 17-view (320x256) and a 13-view (640x512) tree
+    at half the arc's angles (V = 10 and 16). The kernel parts' scenes and
+    the four trees are raytraced by
+    spawned processes while the card works. Each part's seconds under
+    "part_s" (a tree's: the wait for it; a kernel part's: with the wait for
+    its scene)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -3720,11 +3883,24 @@ def views_phase(torch, dev, seed, tree, counters):
             "meta": os.path.join(tree["work"], "views_dtu_meta")}
     mid = {"work": tree["work"], "root": os.path.join(tree["work"], "views_dtu_mid"),
            "meta": os.path.join(tree["work"], "views_dtu_mid_meta")}
-    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    wide = {name: {"work": tree["work"], "root": os.path.join(tree["work"], f"views_{name}"),
+                   "meta": os.path.join(tree["work"], f"views_{name}_meta")}
+            for name in ("wide", "wide_train")}
+    pool = ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn"))
+    # the kernel parts' scenes first (raytraced on the host: ~1 s a view),
+    # then the trees, all while the card works
+    scenes = {V: pool.submit(make_scene, seed, V)
+              for V in VIEW_COUNTS + MANY_VIEWS + WIDE_VIEWS}
     writes = {"many": pool.submit(synth.write_dtu_scene, many["root"], many["meta"],
                                   n_views=MANY_TREE_VIEWS),
               "mid": pool.submit(synth.write_dtu_scene, mid["root"], mid["meta"],
-                                 n_views=MID_TREE_VIEWS, spread=MID_TREE_SPREAD)}
+                                 n_views=MID_TREE_VIEWS, spread=MID_TREE_SPREAD),
+              "wide": pool.submit(synth.write_dtu_scene, wide["wide"]["root"],
+                                  wide["wide"]["meta"], *WIDE_EVAL_WH, n_views=WIDE_TREE_VIEWS,
+                                  spread=WIDE_TREE_SPREAD),
+              "wide_train": pool.submit(synth.write_dtu_scene, wide["wide_train"]["root"],
+                                        wide["wide_train"]["meta"],
+                                        n_views=WIDE_TRAIN_TREE_VIEWS, spread=WIDE_TREE_SPREAD)}
 
     def part(name, fn):
         t0 = time.perf_counter()
@@ -3733,8 +3909,9 @@ def views_phase(torch, dev, seed, tree, counters):
         log(f"views: {name} in {parts[name]:.1f} s")
         return res
 
-    out = {"kernels": {V: part(f"kernels_v{V}", lambda: views_kernels(torch, dev, seed, V, card))
-                       for V in VIEW_COUNTS + MANY_VIEWS}}
+    out = {"kernels": {V: part(f"kernels_v{V}", lambda: views_kernels(
+        torch, dev, seed, V, card, scenes.pop(V).result()))
+        for V in VIEW_COUNTS + MANY_VIEWS + WIDE_VIEWS}}
     ckpt = os.path.join(tree["work"], "views_gmflow.pth")
     cfg2 = dtu_train_config()
     cfg2.n_src_views = 2
@@ -3762,7 +3939,6 @@ def views_phase(torch, dev, seed, tree, counters):
     out["train_many"], _ = part(f"train_v{MANY_TRAIN}", lambda: views_train(
         torch, dev, seed, many, counters, ckpt, card, MANY_TRAIN))
     part("mid_tree", writes["mid"].result)
-    pool.shutdown()
     out["train_mid"] = {V: part(f"train_v{V}", lambda: views_train(
         torch, dev, seed, mid, counters, ckpt, card, V))[0] for V in MID_TRAIN}
     for V, runs in out["train_mid"].items():
@@ -3770,10 +3946,63 @@ def views_phase(torch, dev, seed, tree, counters):
             raise AssertionError(f"views train_fast.yaml V={V} on the {MID_TREE_VIEWS}-view "
                                  f"tree at spread {MID_TREE_SPREAD}: no D' launch (routes "
                                  f"{runs['train_fast']['scale_kernels']})")
+    views_wide(torch, dev, seed, wide, counters, ckpt, card, out, part,
+               {k: writes[k].result for k in wide})
+    pool.shutdown()
     out["part_s"] = parts
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"views phase: {out['phase_s']:.1f} s; {card}")
     return out
+
+
+def views_wide(torch, dev, seed, trees, counters, ckpt, card, out, part, written):
+    """Phase 18 past eight views, on two DTU trees at WIDE_TREE_SPREAD of
+    the arc's angles (`trees`; `written[name]` waits for each): on "wide"
+    (WIDE_TREE_VIEWS views at WIDE_EVAL_WH) the eval entry's DTU image at
+    V = 10 (A, C, E and D or B per scale as the route says)
+    and 16 (A, Cg, E and B: D's shared memory takes no bucket at S = 128),
+    each held to its all-plain render; the fused route at V = 10 (F), held
+    to the V = 10 image's all-plain render; 3 steps of each recipe at
+    V = 10 on "wide_train" (WIDE_TRAIN_TREE_VIEWS views at 640x512), their
+    first step against the all-plain step, with peak memory. The weights
+    are the seed's with a live density head (`live_density`, through
+    `--load`). Into `out`: "wide_tree", "eval" and "eval_fused" entries,
+    "train_wide"."""
+    from matchnerf_tpu_torch.config import dtu_eval_config, dtu_train_config
+    from matchnerf_tpu_torch.data import synth
+    live = {}
+    for V in sorted(set(WIDE_EVAL) | {WIDE_TRAIN}):
+        for kind, make in (("eval", dtu_eval_config), ("train", dtu_train_config)):
+            cfg = make()
+            cfg.n_src_views = V
+            live[kind, V] = write_live_checkpoint(
+                torch, cfg, seed, os.path.join(trees["wide"]["work"],
+                                               f"views_live_{kind}_v{V}.pth"))
+    part("wide_tree", written["wide"])
+    wide = trees["wide"]
+    out["wide_tree"] = {"views": list(synth.dtu_scene_view_ids(WIDE_TREE_VIEWS)),
+                        "spread": WIDE_TREE_SPREAD, "wh": list(WIDE_EVAL_WH)}
+    log(f"views: {WIDE_TREE_VIEWS}-view DTU tree at {WIDE_EVAL_WH[0]}x{WIDE_EVAL_WH[1]} at "
+        f"{WIDE_TREE_SPREAD} of the arc's angles, views {out['wide_tree']['views']} "
+        "(val/test 24)")
+    size = "--data_test.dtu.img_wh={},{}".format(*WIDE_EVAL_WH)
+    for V in WIDE_EVAL:
+        out["eval"][V] = part(f"eval_v{V}", lambda: views_eval(
+            torch, dev, seed, wide, counters, V, live["eval", V], card, extra=(size,),
+            must=("window_attention", "supercell_color")))
+    out["eval_fused"][WIDE_FUSED] = part(f"eval_fused_v{WIDE_FUSED}", lambda: views_eval(
+        torch, dev, seed, wide, counters, WIDE_FUSED, live["eval", WIDE_FUSED], card,
+        extra=(size, "--precision.fused_cosine=true"),
+        must=("window_attention", "supercell_color", "fused_cosine"),
+        zero=("cosine_prior", "block_cosine_prior"), name=f"views_fused_v{WIDE_FUSED}",
+        plain=out["eval"][WIDE_FUSED]["plain_rgb"], profile=False))
+    for V in WIDE_EVAL:
+        del out["eval"][V]["plain_rgb"]
+    del out["eval_fused"][WIDE_FUSED]["plain_rgb"]
+    part("wide_train_tree", written["wide_train"])
+    out["train_wide"], _ = part(f"train_v{WIDE_TRAIN}", lambda: views_train(
+        torch, dev, seed, trees["wide_train"], counters, ckpt, card, WIDE_TRAIN,
+        live["train", WIDE_TRAIN]))
 
 
 VARIANT_STEPS = 3                  # training steps of each variant run in phase 19
@@ -5371,9 +5600,10 @@ def main():
     host_io["printer"] = printer
     torch.cuda.empty_cache()
 
-    # ---- 18. two to eight source views: B, B', D, D' and E at V = 2, 4, 5,
-    # 6 and 8, F at 5, 6 and 8, the training entry at V = 2 and 8, the eval
-    # entry at V = 2, 4, 5 and 8, the fused route at V = 8
+    # ---- 18. two to sixteen source views: B, B', D, D' and E at V = 2, 4,
+    # 5, 6, 8, 10, 12 and 16, F at 5 to 16, the training entry at V = 2, 4,
+    # 6, 8 and 10, the eval entry at V = 2, 4, 5, 8, 10 and 16, the fused
+    # route at V = 8 and 10
     views = views_phase(torch, dev, args.seed, tree, counters)
     torch.cuda.empty_cache()
 
@@ -5471,20 +5701,22 @@ def main():
             f"{k}_image": v["kernel_device_ms"].get(name) for k, v in ibr["images"].items()}}}
 
     def views_of(name):
-        """The kernel at V = 2, 4, 5, 6 and 8 (phase 18): each prior kernel
-        and E against its plain twin with its bound, its launches in the
-        V-view eval image (B, C, D, E, A; at V = 2, 4, 5 and 8) or the
-        V-view training run (A', B', D'; at V = 2 and 8), and each eval
-        kernel's device ms per launch in the V-view image."""
+        """The kernel at V = 2, 4, 5, 6, 8, 10, 12 and 16 (phase 18): each
+        prior kernel and E against its plain twin with its bound, its
+        launches in the V-view eval image (B, C, Cg, D, E, A; at V = 2, 4,
+        5, 8, 10 and 16) or the V-view training run (A', B', D'; at V = 2, 8
+        and 10), and each eval kernel's device ms per launch in the V-view
+        image."""
         key = {"cosine_prior": "B", "cosine_prior_bwd": "B_bwd", "block_cosine_prior": "D",
                "block_cosine_prior_f32": "D_f32", "block_cosine_prior_bwd": "D_bwd",
                "supercell_color": "E"}.get(name)
         run = {"window_attention_bwd": "train", "cosine_prior_bwd": "train",
                "block_cosine_prior_f32": "train_fast",
                "block_cosine_prior_bwd": "train_fast"}.get(name)
-        trains = {2: views["train"], MANY_TRAIN: views["train_many"]}
+        trains = {2: views["train"], MANY_TRAIN: views["train_many"],
+                  WIDE_TRAIN: views["train_wide"]}
         out = {}
-        for V in VIEW_COUNTS + MANY_VIEWS:
+        for V in VIEW_COUNTS + MANY_VIEWS + WIDE_VIEWS:
             k, ev = views["kernels"][V], views["eval"].get(V)
             e = {"name": name, "V": V, "library_ms": None}
             if key:
@@ -5512,11 +5744,11 @@ def main():
         return out
 
     def fused_views():
-        """Kernel F at V = 2 and 4 (phase 19) and 5, 6 and 8 (phase 18):
-        int8 rows as the entry, bf16 and f32 beside them, and its launches
-        in the fused eval image at V = 2, 4 and 8."""
+        """Kernel F at V = 2 and 4 (phase 19) and 5, 6, 8, 10, 12 and 16
+        (phase 18): int8 rows as the entry, bf16 and f32 beside them, and
+        its launches in the fused eval image at V = 2, 4, 8 and 10."""
         out = {}
-        for V in VIEW_COUNTS + MANY_VIEWS:
+        for V in VIEW_COUNTS + MANY_VIEWS + WIDE_VIEWS:
             k = variants["kernels"][V] if V in VIEW_COUNTS else views["kernels"][V]["F"]
             ev = (variants["eval"][f"fused_v{V}"] if V in VIEW_COUNTS
                   else views["eval_fused"].get(V))
@@ -5636,7 +5868,7 @@ def main():
             for V, v in views["eval_fused"].items():
                 e["launches_by_path"][f"views_fused_v{V}"] = v["launches"][name]
             for V, runs in ((2, views["train"]), (MANY_TRAIN, views["train_many"]),
-                            *views["train_mid"].items()):
+                            *views["train_mid"].items(), (WIDE_TRAIN, views["train_wide"])):
                 for k, v in runs.items():
                     e["launches_by_path"][f"views_{k}_v{V}_{VIEWS_STEPS}_steps"] = \
                         v["launches"][name]
@@ -5662,7 +5894,8 @@ def main():
         launches_by_path=int4_by_path, library_ms=None))
     report["paths"]["views"] = {k: views[k] for k in ("train", "eval", "many_tree",
                                                        "eval_fused", "train_many", "train_mid",
-                                                       "part_s", "phase_s")}
+                                                       "wide_tree", "train_wide", "part_s",
+                                                       "phase_s")}
     report["paths"]["variants"] = {k: v for k, v in variants.items() if k != "kernels"}
     report["paths"]["decoder_any"] = {k: v for k, v in cg.items() if k != "kernels"}
     report["paths"]["determinism"] = determinism

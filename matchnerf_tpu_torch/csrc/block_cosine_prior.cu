@@ -9,7 +9,7 @@
 // matchnerf_tpu_torch/ops/block_cosine_prior.py.
 //
 // Output as Kernel B (csrc/cosine_prior.cu): for each sample n and each of
-// the V views (V = 2 to 8, a run-time argument), the bilinear sample
+// the V views (V = 2 to 16, a run-time argument), the bilinear sample
 // (align corners, border clamp) of the view's unpacked table [V,H,W,(V-1)C]
 // (C = 128; int8 with a per-(view, channel) dequantisation scale
 // [V,(V-1)C] after the interpolation, bf16 or f32 without); for each of
@@ -76,6 +76,15 @@
 // (V = 8: 141,312 B of them). The union scratch needs
 // (2 V ceil(H*W/32) + 32) x 4 B (15,488 B for a 128 x 160 table at V = 3)
 // and takes the larger of the two in the rows' place.
+//
+// V = 9 to 16 (MAX_V_WIDE) run the same kernel with one change (WIDE): the
+// union build's per-view counts, which V <= 8 keeps in MAX_V registers read
+// through a chain of selects, live in shared memory, in the 16 words of the
+// scan's 32 that it does not use. The layout is the same, 16 B a (view,
+// sample) for the taps and fractions: at S = 128 they take 163,840 B at
+// V = 10 and 196,608 B at V = 12, so only narrow buckets fit (32 channels a
+// pass), and from V = 14 none (229,376 B); ops/block_cosine_prior.py::
+// channels_per_pass sends what does not fit to Kernel B.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -96,6 +105,7 @@ constexpr int GROUPS = THREADS / LANES;           // samples in flight per block
 constexpr int BLOCK_RAYS = 8;
 constexpr int MAX_UT = 512;
 constexpr int MAX_SMEM = 232448;          // 227 KB, the sm_90 per-block limit
+static_assert(WARPS + MAX_V_WIDE <= 32, "the wide union build's counts share the scan's words");
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
@@ -255,16 +265,25 @@ __device__ __forceinline__ void scan_popc(const unsigned* bits, int* pre, int M,
   __syncthreads();
 }
 
-// set bits per view, after a scan: min(ut, count) in n[v]; the first ut
-// cells of each view, ascending, into u[v * ut + rank]
+// set bits per view, after a scan: min(ut, count) in n[v] (registers of
+// every thread; WIDE: shared memory, written by the first V threads); the
+// first ut cells of each view, ascending, into u[v * ut + rank]
+template <bool WIDE>
 __device__ __forceinline__ void take_first(const unsigned* bits, const int* pre, int V, int nw,
                                            int ut, int* u, int* n, int tid) {
   const int M = V * nw;
+  if constexpr (WIDE) {
+    if (tid < V) {
+      const int end = tid + 1 < V ? pre[(tid + 1) * nw] : pre[M - 1] + __popc(bits[M - 1]);
+      n[tid] = min(ut, end - pre[tid * nw]);
+    }
+  } else {
 #pragma unroll
-  for (int v = 0; v < MAX_V; ++v) {
-    if (v >= V) break;
-    const int end = v + 1 < V ? pre[(v + 1) * nw] : pre[M - 1] + __popc(bits[M - 1]);
-    n[v] = min(ut, end - pre[v * nw]);
+    for (int v = 0; v < MAX_V; ++v) {
+      if (v >= V) break;
+      const int end = v + 1 < V ? pre[(v + 1) * nw] : pre[M - 1] + __popc(bits[M - 1]);
+      n[v] = min(ut, end - pre[v * nw]);
+    }
   }
   for (int i = tid; i < M; i += THREADS) {
     unsigned word = bits[i];
@@ -280,8 +299,10 @@ __device__ __forceinline__ void take_first(const unsigned* bits, const int* pre,
 }
 
 // n[v] with v known only at run time, without a local-memory array: a
-// chain of selects over the MAX_V registers
+// chain of selects over the MAX_V registers (WIDE: a shared-memory load)
+template <bool WIDE>
 __device__ __forceinline__ int of_view(const int* n, int v) {
+  if constexpr (WIDE) return n[v];
   int r = n[0];
 #pragma unroll
   for (int k = 1; k < MAX_V; ++k) r = v == k ? n[k] : r;
@@ -303,6 +324,7 @@ __device__ __forceinline__ unsigned union_row(const unsigned* bits, const int* p
 // padded) and, with unions_out, to global memory; each (view, sample)'s four
 // union rows (16 bits each) into taps and its fractions into fracs. Every
 // thread calls it; it ends synchronised.
+template <bool WIDE>
 __device__ __forceinline__ void build_union(const float* __restrict__ grids,
                                             int* __restrict__ unions_out, unsigned* bits,
                                             int* pre, int* wsum, uint2* taps, float2* fracs,
@@ -324,15 +346,16 @@ __device__ __forceinline__ void build_union(const float* __restrict__ grids,
     atomicOr(bits + v * nw + (cell >> 5), 1u << (cell & 31));
   }
   __syncthreads();
-  int n[MAX_V] = {};
+  int n_reg[MAX_V] = {};
+  int* n = WIDE ? wsum + WARPS : n_reg;           // WIDE: words the scan leaves alone
   scan_popc(bits, pre, M, wsum, tid);
-  take_first(bits, pre, V, nw, ut, u_s, n, tid);    // the capped base cells
+  take_first<WIDE>(bits, pre, V, nw, ut, u_s, n, tid);    // the capped base cells
   __syncthreads();
   for (int i = tid; i < M; i += THREADS) bits[i] = 0u;
   __syncthreads();
   for (int i = tid; i < V * ut; i += THREADS) {
     const int v = i / ut;
-    if (i - v * ut >= of_view(n, v)) continue;
+    if (i - v * ut >= of_view<WIDE>(n, v)) continue;
     const int c = u_s[i];
     unsigned* b = bits + v * nw;
     atomicOr(b + (c >> 5), 1u << (c & 31));
@@ -342,9 +365,10 @@ __device__ __forceinline__ void build_union(const float* __restrict__ grids,
   }
   __syncthreads();
   scan_popc(bits, pre, M, wsum, tid);
-  take_first(bits, pre, V, nw, ut, u_s, n, tid);    // the union
+  take_first<WIDE>(bits, pre, V, nw, ut, u_s, n, tid);    // the union
+  if constexpr (WIDE) __syncthreads();            // the counts in shared memory
   for (int i = tid; i < V * ut; i += THREADS)
-    if (i % ut >= of_view(n, i / ut)) u_s[i] = INT_MAX;
+    if (i % ut >= of_view<WIDE>(n, i / ut)) u_s[i] = INT_MAX;
   for (int t = tid; t < V * samples; t += THREADS) {
     const int v = t / samples, cell = (int)taps[t].x;
     const int y0 = cell / W, x0 = cell - y0 * W;
@@ -509,8 +533,9 @@ __device__ unsigned long long g_phases[4];
 #endif
 
 // TG: the table's element (int8_t, uint16_t for bf16, float); TS: the
-// staged element (uint16_t bf16 bits for int8 and bf16 tables, float)
-template <typename TG, typename TS, int CP>
+// staged element (uint16_t bf16 bits for int8 and bf16 tables, float);
+// WIDE: V = 9 to 16 (the union build's counts in shared memory)
+template <typename TG, typename TS, int CP, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict__ grids,
                           const float* __restrict__ scales, int* __restrict__ unions_out,
@@ -542,8 +567,8 @@ block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict_
   const float inv_p = 1.f / (float)P;      // the mean over the pairs
   const SlotGroups<SW> sg(G);
   PHASE_START;
-  build_union(grids, unions_out, bits, pre, wsum, taps, fracs, u_s, V, H, W, R, S, ut, blk,
-              tid);
+  build_union<WIDE>(grids, unions_out, bits, pre, wsum, taps, fracs, u_s, V, H, W, R, S, ut,
+                    blk, tid);
   PHASE_MARK(0);
   float* ob = out + (size_t)blk * BLOCK_RAYS * S * G;
 
@@ -1035,7 +1060,7 @@ int launch_bwd(const void* table, const void* grids, const void* unions, const v
 }
 
 bool args_ok(int views, int channels, int H, int W, int R, int S, int ut, int G, int CP) {
-  return views >= MIN_V && views <= MAX_V && channels == C && H > 0 && W > 0 && R > 0 && S > 0 && ut > 0 &&
+  return views >= MIN_V && views <= MAX_V_WIDE && channels == C && H > 0 && W > 0 && R > 0 && S > 0 && ut > 0 &&
          ut <= MAX_UT && (G == 1 || G == 2 || G == 4 || G == 8 || G == 16) &&
          (CP == 32 || CP == 64 || CP == 128) && G * CP >= C && G * CP <= 16 * C;
 }
@@ -1046,7 +1071,8 @@ int launch_fwd(const void* table, const void* grids, const void* scales, void* u
                cudaStream_t stream) {
   const LayoutFwd L(V, ut, S, CP, sizeof(TS), H * W);
   if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kernel = block_cosine_prior_kernel<TG, TS, CP>;
+  auto kernel = V > MAX_V ? block_cosine_prior_kernel<TG, TS, CP, true>
+                          : block_cosine_prior_kernel<TG, TS, CP, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
@@ -1078,7 +1104,7 @@ int dispatch_fwd(const void* table, const void* grids, const void* scales, void*
 
 }  // namespace
 
-// The forward entries: table [V,H,W,(V-1)C] (V = 2 to 8), grids [V,R,S,2]
+// The forward entries: table [V,H,W,(V-1)C] (V = 2 to 16), grids [V,R,S,2]
 // f32, scales [V,(V-1)C] f32 (int8 tables) or NULL, unions_out
 // [V*ceil(R/8), ut] int32 or NULL, out [R,S,G] f32; CP channels staged per
 // pass.

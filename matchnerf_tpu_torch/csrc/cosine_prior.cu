@@ -7,7 +7,7 @@
 // version, autograd Function and wrappers:
 // matchnerf_tpu_torch/ops/cosine_prior.py.
 //
-// For each sample n and each of the V views (V = 2 to 8: n_src_views):
+// For each sample n and each of the V views (V = 2 to 16: n_src_views):
 // bilinear sample (align corners, border clamp) of the view's unpacked
 // table [V,H,W,(V-1)C] (C = 128, int8, bf16 or f32; or int4: uint8
 // [V,H,W,(V-1)C/2], two codes + 8 a byte, channel 2k in byte k's low
@@ -17,7 +17,10 @@
 // P = V(V-1)/2 pairs (i, j) of pair_index_lists(V) ((0,1), (0,2), (1,2) at
 // V = 3; views.cuh) the grouped cosine of view i's chunk j-1 against view
 // j's chunk i (eps 1e-8 on each norm), averaged over the pairs. out[n, g],
-// f32. The forward is compiled once per V.
+// f32. The forward is compiled once per V to V = 8 (MAX_V, views.cuh); V = 9
+// to 16 (MAX_V_WIDE) share one instance per table type that takes V at run
+// time (VT = 0 below): the V = 5 to 8 pair loop with the pair, the row width
+// and the pair count found at run time.
 //
 // What bounds it: instruction issue. Each sample reads 4 taps x V views x
 // (V-1)128 channels (3 KB with int8 tables at V = 3, 6 KB with bf16, 12 KB
@@ -146,9 +149,8 @@ struct Taps {
   float w[4];
 };
 
-template <int CC>
 __device__ __forceinline__ Taps view_taps(const float* __restrict__ grids, int v, int n, int N,
-                                          int H, int W) {
+                                          int H, int W, int CC) {
   const float gx = grids[((size_t)v * N + n) * 2 + 0];
   const float gy = grids[((size_t)v * N + n) * 2 + 1];
   const float x = fminf(fmaxf((gx + 1.f) * 0.5f * (float)(W - 1), 0.f), (float)(W - 1));
@@ -198,14 +200,17 @@ __device__ __forceinline__ float cosine(float dot, float na2, float nb2) {
   return dot * rsqrtf(fmaxf(na2, 1e-16f)) * rsqrtf(fmaxf(nb2, 1e-16f));
 }
 
-template <typename T, int V>
+// VT: the compiled view count (2 to MAX_V), or 0 for V = v_rt at run time
+// (MAX_V + 1 to MAX_V_WIDE)
+template <typename T, int VT>
 __global__ void __launch_bounds__(THREADS)
 cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids,
                     const float* __restrict__ scales, float* __restrict__ out,
-                    int H, int W, int G, int N) {
-  constexpr int CC = (V - 1) * C;        // channels per view table row
-  constexpr int RE = CC / pack<T>();      // its stored elements
-  constexpr int P = n_pairs(V);
+                    int H, int W, int G, int N, int v_rt) {
+  const int V = VT ? VT : v_rt;
+  const int CC = (V - 1) * C;            // channels per view table row
+  const int RE = CC / pack<T>();          // its stored elements
+  const int P = n_pairs(V);
   constexpr int CPL = lane_channels<T>();
   constexpr int SAMPLE_LANES = C / CPL, SAMPLES = THREADS / SAMPLE_LANES;
   constexpr int HALVES = CPL / 8;        // 8-channel halves: the groups at G = 16
@@ -219,15 +224,15 @@ cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids
   // pair it enters, one pair at a time: 56-80 registers a thread at V = 5
   // to 8, where kept taps (12 registers a view) took 128-255 and one block
   // an SM, 2.4x the time at V = 6 and 8
-  constexpr bool KEEP = V <= 4;
-  Taps kept[KEEP ? V : 1];
+  constexpr bool KEEP = VT != 0 && VT <= 4;
+  Taps kept[KEEP ? VT : 1];
   if constexpr (KEEP) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) kept[v] = view_taps<RE>(grids, v, n, N, H, W);
+    for (int v = 0; v < VT; ++v) kept[v] = view_taps(grids, v, n, N, H, W, RE);
   }
   auto taps_of = [&](int v) -> Taps {
     if constexpr (KEEP) return kept[v];
-    else return view_taps<RE>(grids, v, n, N, H, W);
+    else return view_taps(grids, v, n, N, H, W, RE);
   };
 
   // G * CPL <= 128: the lanes_per_group lanes of a group reduce by shuffles;
@@ -273,7 +278,7 @@ cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids
   // view's taps live across the pairs it enters, as the kept taps did
   if constexpr (KEEP) {
 #pragma unroll
-    for (int p = 0; p < P; ++p) pair(p);
+    for (int p = 0; p < n_pairs(VT); ++p) pair(p);
   } else {
 #pragma unroll 1
     for (int p = 0; p < P; ++p) pair(p);
@@ -289,17 +294,18 @@ cosine_prior_kernel(const T* __restrict__ table, const float* __restrict__ grids
 }
 
 bool args_ok(int views, int H, int W, int channels, int G, int N) {
-  return views >= MIN_V && views <= MAX_V && channels == C && H > 0 && W > 0 && N >= 0 &&
+  return views >= MIN_V && views <= MAX_V_WIDE && channels == C && H > 0 && W > 0 && N >= 0 &&
          (G == 1 || G == 2 || G == 4 || G == 8 || G == 16);
 }
 
-template <typename T, int V>
+// VT = 0: the run-time-V instance, at V = views
+template <typename T, int VT>
 int launch_v(const void* table, const void* grids, const void* scales, void* out, int H,
-             int W, int G, int N, cudaStream_t stream) {
+             int W, int G, int N, int views, cudaStream_t stream) {
   constexpr int SAMPLES = THREADS / (C / lane_channels<T>());
-  cosine_prior_kernel<T, V><<<(N + SAMPLES - 1) / SAMPLES, THREADS, 0, stream>>>(
+  cosine_prior_kernel<T, VT><<<(N + SAMPLES - 1) / SAMPLES, THREADS, 0, stream>>>(
       static_cast<const T*>(table), static_cast<const float*>(grids),
-      static_cast<const float*>(scales), static_cast<float*>(out), H, W, G, N);
+      static_cast<const float*>(scales), static_cast<float*>(out), H, W, G, N, views);
   return (int)cudaGetLastError();
 }
 
@@ -310,20 +316,21 @@ int launch(const void* table, const void* grids, const void* scales, void* out,
   if (!args_ok(views, H, W, channels, G, N)) return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
   switch (views) {
-    case 2: return launch_v<T, 2>(table, grids, scales, out, H, W, G, N, stream);
-    case 3: return launch_v<T, 3>(table, grids, scales, out, H, W, G, N, stream);
-    case 4: return launch_v<T, 4>(table, grids, scales, out, H, W, G, N, stream);
-    case 5: return launch_v<T, 5>(table, grids, scales, out, H, W, G, N, stream);
-    case 6: return launch_v<T, 6>(table, grids, scales, out, H, W, G, N, stream);
-    case 7: return launch_v<T, 7>(table, grids, scales, out, H, W, G, N, stream);
-    default: return launch_v<T, 8>(table, grids, scales, out, H, W, G, N, stream);
+    case 2: return launch_v<T, 2>(table, grids, scales, out, H, W, G, N, views, stream);
+    case 3: return launch_v<T, 3>(table, grids, scales, out, H, W, G, N, views, stream);
+    case 4: return launch_v<T, 4>(table, grids, scales, out, H, W, G, N, views, stream);
+    case 5: return launch_v<T, 5>(table, grids, scales, out, H, W, G, N, views, stream);
+    case 6: return launch_v<T, 6>(table, grids, scales, out, H, W, G, N, views, stream);
+    case 7: return launch_v<T, 7>(table, grids, scales, out, H, W, G, N, views, stream);
+    case 8: return launch_v<T, 8>(table, grids, scales, out, H, W, G, N, views, stream);
+    default: return launch_v<T, 0>(table, grids, scales, out, H, W, G, N, views, stream);
   }
 }
 
 // ---------------------------------------------------------------- backward
 //
-// B': d_table of the f32 prior (no dequantisation scales); V is a run-time
-// argument (the pair comes from blockIdx.y). Per sample and pair the same
+// B': d_table of the f32 prior (no dequantisation scales); V (2 to 16) is a
+// run-time argument (the pair comes from blockIdx.y). Per sample and pair the same
 // 16 lanes recompute the four-tap interpolation of the pair's two sides
 // (the forward's tap rule: clip, floor, border-clamped x1/y1), run the
 // pair-mean grouped-cosine backward exactly as pallas_banded.py::
@@ -582,7 +589,7 @@ __global__ void prior_bwd_reduce_kernel(const int* __restrict__ sorted_keys,
 // walks = ceil(N / 64)
 extern "C" int cosine_prior_bwd_count(const void* grids, void* counts, int views, int H, int W,
                                       int N, void* stream) {
-  if (views < MIN_V || views > MAX_V || H <= 0 || W <= 0 || N < 0)
+  if (views < MIN_V || views > MAX_V_WIDE || H <= 0 || W <= 0 || N < 0)
     return (int)cudaErrorInvalidValue;
   const int walks = (N + WALK - 1) / WALK;
   if (walks == 0) return (int)cudaGetLastError();

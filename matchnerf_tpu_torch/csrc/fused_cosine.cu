@@ -4,7 +4,7 @@
 // the forward-only kernel of `precision.fused_cosine` (eval and video
 // renders). Plain version and wrapper: matchnerf_tpu_torch/ops/fused_cosine.py.
 //
-// Input: rows [V,N,4*(V-1)C] (V = 2 to 8 views, views.cuh; C = 128; int8,
+// Input: rows [V,N,4*(V-1)C] (V = 2 to 16 views, views.cuh; C = 128; int8,
 // bf16 or f32), per view and sample the four bilinear taps y0x0, y0x1,
 // y1x0, y1x1 of the view's table row, each (V-1)C channels; weights
 // [V,N,2] f32 (wx, wy); scales [V,(V-1)C] f32 or NULL (per-(view, channel)
@@ -15,8 +15,11 @@
 // P = V(V-1)/2 pairs (i, j), i < j in row-major order (`pair_index_lists`),
 // the grouped cosine of view i's chunk j-1 against view j's chunk i (eps
 // 1e-8 on each norm), summed in that order and divided by P. Output
-// out[n, g], f32. One template instance per V: the pair list is
-// compile-time, so every loop unrolls.
+// out[n, g], f32. One template instance per V to V = 8 (MAX_V): the pair
+// list is compile-time, so every loop unrolls. V = 9 to 16 (MAX_V_WIDE)
+// share one instance per row type (VT = 0) that walks the same pairs in the
+// same order in a loop, each pair's views and the row width found at run
+// time: the same arithmetic, 16 live interpolated floats a lane.
 //
 // What bounds it: bytes. Each sample reads V x 4(V-1)C row elements (at
 // V = 3, 3 KB in int8, 6 KB in bf16, 12 KB in f32) once and does ~10 K
@@ -78,14 +81,14 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
 }
 
 // this lane's 8 channels (from channel c0 of the view's row) of view v at
-// sample n: the nested lerp of the four tap rows, times the scale
-template <typename T, int V>
+// sample n: the nested lerp of the four tap rows, times the scale; V views
+template <typename T>
 __device__ __forceinline__ void interp8(const T* __restrict__ rows,
                                         const float* __restrict__ weights,
-                                        const float* __restrict__ scales, int v, int c0,
-                                        int n, int N, float* f) {
-  constexpr int CC = (V - 1) * C;   // channels per view
-  constexpr int ROW = 4 * CC;       // elements per tap row
+                                        const float* __restrict__ scales, int V, int v,
+                                        int c0, int n, int N, float* f) {
+  const int CC = (V - 1) * C;       // channels per view
+  const int ROW = 4 * CC;           // elements per tap row
   const size_t vn = (size_t)v * N + n;
   const float wx = weights[vn * 2 + 0];
   const float wy = weights[vn * 2 + 1];
@@ -108,12 +111,15 @@ __device__ __forceinline__ void interp8(const T* __restrict__ rows,
     f[e] = ((a[e] * wx0 + b[e] * wx) * wy0 + (c[e] * wx0 + d[e] * wx) * wy) * sc[e];
 }
 
-template <typename T, int V>
+// VT: the compiled view count (2 to MAX_V), or 0 for V = v_rt at run time
+// (MAX_V + 1 to MAX_V_WIDE)
+template <typename T, int VT>
 __global__ void __launch_bounds__(THREADS)
 fused_cosine_kernel(const T* __restrict__ rows, const float* __restrict__ weights,
                     const float* __restrict__ scales, float* __restrict__ out,
-                    int G, int N) {
-  constexpr int P = n_pairs(V);
+                    int G, int N, int v_rt) {
+  const int V = VT ? VT : v_rt;
+  const int P = n_pairs(V);
   const int lane = threadIdx.x % LANES;
   const int n_raw = blockIdx.x * SAMPLES_PER_BLOCK + threadIdx.x / LANES;
   // out-of-range samples still run (clamped) so every shuffle has all lanes
@@ -122,12 +128,11 @@ fused_cosine_kernel(const T* __restrict__ rows, const float* __restrict__ weight
   const int lanes_per_group = LANES / G;   // G in {1,2,4,8,16}
   float total = 0.f;
   // pair (i, j): view i's chunk j-1 against view j's chunk i
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
+  auto pair = [&](int p) {
     const int vi = pair_first(V, p), vj = pair_second(V, p);
     float fa[8], fb[8];
-    interp8<T, V>(rows, weights, scales, vi, (vj - 1) * C + o, n, N, fa);
-    interp8<T, V>(rows, weights, scales, vj, vi * C + o, n, N, fb);
+    interp8<T>(rows, weights, scales, V, vi, (vj - 1) * C + o, n, N, fa);
+    interp8<T>(rows, weights, scales, V, vj, vi * C + o, n, N, fb);
     float dot = 0.f, na2 = 0.f, nb2 = 0.f;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -141,22 +146,30 @@ fused_cosine_kernel(const T* __restrict__ rows, const float* __restrict__ weight
       nb2 += __shfl_xor_sync(0xffffffffu, nb2, off);
     }
     total += dot / (fmaxf(sqrtf(na2), 1e-8f) * fmaxf(sqrtf(nb2), 1e-8f));
+  };
+  if constexpr (VT != 0) {
+#pragma unroll
+    for (int p = 0; p < n_pairs(VT); ++p) pair(p);
+  } else {
+#pragma unroll 1
+    for (int p = 0; p < P; ++p) pair(p);
   }
   if (n_raw < N && lane % lanes_per_group == 0)
     out[(size_t)n * G + lane / lanes_per_group] = total / (float)P;
 }
 
-template <typename T, int V>
-void launch_v(const T* r, const float* w, const float* s, float* o, int G, int N,
+// VT = 0: the run-time-V instance, at V = views
+template <typename T, int VT>
+void launch_v(const T* r, const float* w, const float* s, float* o, int G, int N, int views,
               cudaStream_t stream) {
   const int blocks = (N + SAMPLES_PER_BLOCK - 1) / SAMPLES_PER_BLOCK;
-  fused_cosine_kernel<T, V><<<blocks, THREADS, 0, stream>>>(r, w, s, o, G, N);
+  fused_cosine_kernel<T, VT><<<blocks, THREADS, 0, stream>>>(r, w, s, o, G, N, views);
 }
 
 template <typename T>
 int launch(const void* rows, const void* weights, const void* scales, void* out,
            int views, int channels, int G, int N, cudaStream_t stream) {
-  if (views < MIN_V || views > MAX_V || channels != C || N < 0 ||
+  if (views < MIN_V || views > MAX_V_WIDE || channels != C || N < 0 ||
       !(G == 1 || G == 2 || G == 4 || G == 8 || G == 16))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
@@ -165,13 +178,14 @@ int launch(const void* rows, const void* weights, const void* scales, void* out,
   const float* s = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
   switch (views) {
-    case 2: launch_v<T, 2>(r, w, s, o, G, N, stream); break;
-    case 3: launch_v<T, 3>(r, w, s, o, G, N, stream); break;
-    case 4: launch_v<T, 4>(r, w, s, o, G, N, stream); break;
-    case 5: launch_v<T, 5>(r, w, s, o, G, N, stream); break;
-    case 6: launch_v<T, 6>(r, w, s, o, G, N, stream); break;
-    case 7: launch_v<T, 7>(r, w, s, o, G, N, stream); break;
-    default: launch_v<T, 8>(r, w, s, o, G, N, stream); break;
+    case 2: launch_v<T, 2>(r, w, s, o, G, N, views, stream); break;
+    case 3: launch_v<T, 3>(r, w, s, o, G, N, views, stream); break;
+    case 4: launch_v<T, 4>(r, w, s, o, G, N, views, stream); break;
+    case 5: launch_v<T, 5>(r, w, s, o, G, N, views, stream); break;
+    case 6: launch_v<T, 6>(r, w, s, o, G, N, views, stream); break;
+    case 7: launch_v<T, 7>(r, w, s, o, G, N, views, stream); break;
+    case 8: launch_v<T, 8>(r, w, s, o, G, N, views, stream); break;
+    default: launch_v<T, 0>(r, w, s, o, G, N, views, stream); break;
   }
   return (int)cudaGetLastError();
 }

@@ -26,8 +26,9 @@
 // each view's float2 grid load is coalesced across the warp; the two window
 // rows ty, ty+1 are two 16-byte __ldg loads from L2 (through L1, where the
 // neighbouring samples of a ray mostly hit the same supercell); the block's
-// 256 x 3V colours are staged in dynamic shared memory (3 KB a view: 24 KB
-// at V = 8, MAX_V of views.cuh) and leave as coalesced 16-byte stores. All
+// 256 x 3V colours are staged in dynamic shared memory (3 KB a view: 48 KB
+// at V = 16, MAX_V_WIDE of views.cuh, the most a block has without opting
+// in) and leave as coalesced 16-byte stores. All
 // arithmetic uses round-to-nearest intrinsics (no FMA contraction), so the
 // kernel equals the plain version bit for bit.
 
@@ -41,6 +42,8 @@ namespace {
 constexpr int SC = 4;
 constexpr int ROW_CH = 80;
 constexpr int THREADS = 256;
+static_assert(THREADS * 3 * MAX_V_WIDE * sizeof(float) <= 48 * 1024,
+              "the stage fits the default dynamic shared memory at every V");
 
 // byte j (0..15) of a 16-byte window row
 __device__ __forceinline__ float byte_at(const uint4& r, int j) {
@@ -94,12 +97,12 @@ supercell_color_kernel(const uint8_t* __restrict__ colors_sc,
 
 }  // namespace
 
-// colors_sc [V,Hs,Ws,80] uint8 (V = 1 to MAX_V), grids [V,N,2] f32, out [N,3V] f32
+// colors_sc [V,Hs,Ws,80] uint8 (V = 1 to MAX_V_WIDE), grids [V,N,2] f32, out [N,3V] f32
 // (16-byte aligned)
 extern "C" int supercell_color_u8(const void* colors_sc, const void* grids, void* out,
                                   int V, int Hs, int Ws, int img_h, int img_w, int N,
                                   void* stream) {
-  if (V < 1 || V > MAX_V || Hs != (img_h + SC - 1) / SC ||
+  if (V < 1 || V > MAX_V_WIDE || Hs != (img_h + SC - 1) / SC ||
       Ws != (img_w + SC - 1) / SC || img_h <= 0 || img_w <= 0 || N <= 0 ||
       reinterpret_cast<uintptr_t>(colors_sc) % 16 || reinterpret_cast<uintptr_t>(grids) % 8 ||
       reinterpret_cast<uintptr_t>(out) % 16)

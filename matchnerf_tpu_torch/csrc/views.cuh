@@ -4,7 +4,8 @@
 #pragma once
 
 constexpr int MIN_V = 2;        // n_src_views the prior kernels take
-constexpr int MAX_V = 8;
+constexpr int MAX_V = 8;        // the last V with compiled instances (B, F) and registers (D)
+constexpr int MAX_V_WIDE = 16;  // the last V the run-time-V forms take (MAX_V + 1 onwards)
 
 __host__ __device__ constexpr int n_pairs(int V) { return V * (V - 1) / 2; }
 
@@ -36,3 +37,10 @@ static_assert(pair_first(8, 26) == 5 && pair_second(8, 26) == 7, "(5,7) is pair 
 static_assert(pair_first(8, 27) == 6 && pair_second(8, 27) == 7, "(6,7) is pair 27 of 8 views");
 static_assert(pair_first(5, 9) == 3 && pair_second(5, 9) == 4, "(3,4) is pair 9 of 5 views");
 static_assert(n_pairs(MAX_V) == 28, "8 views make 28 pairs");
+static_assert(pair_first(10, 44) == 8 && pair_second(10, 44) == 9, "(8,9) is pair 44 of 10 views");
+static_assert(pair_first(16, 14) == 0 && pair_second(16, 14) == 15, "(0,15) is pair 14 of 16 views");
+static_assert(pair_first(16, 15) == 1 && pair_second(16, 15) == 2, "(1,2) is pair 15 of 16 views");
+static_assert(pair_first(16, 60) == 4 && pair_second(16, 60) == 11, "(4,11) is pair 60 of 16 views");
+static_assert(pair_first(16, 119) == 14 && pair_second(16, 119) == 15,
+              "(14,15) is pair 119 of 16 views");
+static_assert(n_pairs(MAX_V_WIDE) == 120, "16 views make 120 pairs");

@@ -249,9 +249,10 @@ def write_dtu_tree(root: str, meta_dir: str, images: np.ndarray, w2cs: np.ndarra
 
 
 # the arc angles (degrees) of `write_dtu_scene`'s views: DTU_SCENE_VIEW_IDS'
-# six, then the views it adds beyond six (ids 19, 18, ..., 14), alternating
-# sides further out
-_DTU_SCENE_ANGLES = (-4.0, -12.0, 4.0, 12.0, 0.0, -20.0, 20.0, -28.0, 28.0, -36.0, 36.0, -44.0)
+# six, then the views it adds beyond six (ids 19, 18, ..., 6), alternating
+# sides further out, 8 degrees apart
+_DTU_SCENE_ANGLES = (-4.0, -12.0, 4.0, 12.0, 0.0, -20.0, 20.0, -28.0, 28.0, -36.0, 36.0, -44.0,
+                     44.0, -52.0, 52.0, -60.0, 60.0, -68.0, 68.0, -76.0)
 
 
 def dtu_scene_view_ids(n_views: int = 6) -> Tuple[int, ...]:
@@ -265,7 +266,7 @@ def dtu_scene_view_ids(n_views: int = 6) -> Tuple[int, ...]:
 
 def write_dtu_scene(root: str, meta_dir: str, W: int = 640, H: int = 512, n_views: int = 6,
                     spread: float = 1.0):
-    """n_views (6 to 12) views of the scene at 640x512 (or W x H) on an
+    """n_views (6 to 20) views of the scene at 640x512 (or W x H) on an
     arc, their angles `spread` times the default ones (8 degrees apart at
     1.0), as scan1 of a DTU tree (DTU view ids 20-25, then 19, 18, ...,
     `dtu_scene_view_ids`; 24, in the middle, is the validation and test
@@ -273,7 +274,8 @@ def write_dtu_scene(root: str, meta_dir: str, W: int = 640, H: int = 512, n_view
     it) with depth_min 425 and interval 2.5 (near / far 2.125 / 4.525), its
     own meta dir and depth maps (0 on the sky). The six views of the default
     are the first six of every larger tree; training at n_src_views V with
-    the loader's 2 added candidates needs V + 3 views (11 at V = 8)."""
+    the loader's 2 added candidates needs V + 3 views (11 at V = 8, 13 at
+    V = 10); evaluation at V needs V + 1 (17 at V = 16)."""
     view_ids = dtu_scene_view_ids(n_views)
     radius = 3.7
     angles = np.deg2rad(np.asarray(_DTU_SCENE_ANGLES[:n_views]) * spread)

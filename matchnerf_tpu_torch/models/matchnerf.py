@@ -392,7 +392,7 @@ def query_cond_info(cfg, pts_3d, ref_w2c, ref_intr, ref_near_far, tables: dict,
                 vfeats[0], grids[:, 0], None if scales is None else scales[0], G,
                 kernel)[None])
             continue
-        if ut is not None and B == 1 and takes_table(vfeats, scales, ut, S, G):
+        if ut is not None and B == 1 and takes_table(vfeats[0], scales, ut, S, G):
             feat_chunks.append(block_prior(vfeats[0], grids[:, 0].contiguous(),
                                            None if scales is None else scales[0],
                                            G, ut)[None])

@@ -148,6 +148,8 @@ def takes_table(table, scales, ut: int, S: int, n_groups: int) -> bool:
     dimension: a fourth view's taps, fractions and union narrow the passes
     (V = 4 at S = 128 and G = 8 stages 64 channels from ut 320, and D' at
     ut 160 and G = 2 fits no pass)."""
+    if table.dim() != 4:
+        raise ValueError(f"takes_table: table {tuple(table.shape)}, one image's [V,h,w,Cc]")
     V, hw = table.shape[0], table.shape[1] * table.shape[2]
     if table.dtype == torch.uint8:
         return False          # int4: Kernel B (JAX keeps no unpacked int4 table, :174-177)
@@ -298,7 +300,7 @@ def block_cosine_prior_plain(table, grids, scales, n_groups: int, ut: int):
 
 def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
     """The kernel on CUDA tensors (int8 tables [V,h,w,(V-1)128], V = 2 to
-    8, with f32 scales and bf16 tables without: Kernel D; f32 tables without
+    16, with f32 scales and bf16 tables without: Kernel D; f32 tables without
     scales: D', with its backward when autograd records), the plain version
     on CPU tensors.
     The kernel builds each block's union itself: the wrapper launches

@@ -43,9 +43,11 @@ from .. import kernels
 from .grid_sample import grid_sample_2d
 
 SOURCE = "matchnerf_tpu_torch/csrc/cosine_prior.cu"
-# the view counts (n_src_views) the kernels take (csrc/views.cuh), and the
-# channels of one pair chunk: a view's table row holds V-1 chunks
-VIEWS = tuple(range(2, 9))
+# the view counts (n_src_views) the kernels take (csrc/views.cuh: compiled
+# instances to MAX_V, the run-time-V forms to MAX_V_WIDE), and the channels
+# of one pair chunk: a view's table row holds V-1 chunks
+MAX_V, MAX_V_WIDE = 8, 16
+VIEWS = tuple(range(2, MAX_V_WIDE + 1))
 CHUNK = 128
 COUNTER = kernels.LaunchCounter(
     "cosine_prior", source=SOURCE, replaces="matchnerf_tpu/ops/pallas_banded.py:267")
@@ -133,7 +135,7 @@ def check_table(name: str, table) -> None:
 
 
 def cosine_prior(table, grids, scales, n_groups: int):
-    """The kernel on CUDA tensors (V = 2 to 8 views, C = 128, int8, bf16,
+    """The kernel on CUDA tensors (V = 2 to 16 views, C = 128, int8, bf16,
     f32 or uint8 int4 tables; with the B' backward when autograd records
     through an f32 table), the plain version on CPU tensors."""
     if table.device.type == "cpu":

@@ -3,7 +3,8 @@
 Replaces matchnerf_tpu/ops/pallas_cond.py::fused_interp_grouped_cosine, the
 forward-only kernel of `precision.fused_cosine` (the eval and video
 renders). The CUDA source is csrc/fused_cosine.cu, one template instance
-per view count V = 2 to 8, walking each sample's pairs in order;
+per view count V = 2 to 8 and one for V = 9 to 16 that takes V at run
+time, walking each sample's pairs in order;
 `fused_interp_grouped_cosine_plain` is the same function in plain PyTorch.
 
 rows [V,N,4*(V-1)*C] hold, per view and sample, the four bilinear taps
@@ -62,7 +63,7 @@ def fused_interp_grouped_cosine_plain(rows, weights, n_groups: int, scales=None,
 
 
 def fused_interp_grouped_cosine(rows, weights, n_groups: int, scales=None):
-    """The kernel on CUDA tensors (V = 2 to 8 views, C = 128: rows
+    """The kernel on CUDA tensors (V = 2 to 16 views, C = 128: rows
     [V,N,512(V-1)] of int8, bf16 or f32), the plain version on CPU tensors.
     Another view count raises a ValueError that names V, before any
     launch."""

@@ -44,7 +44,7 @@ SC = 4                                   # supercell edge, in pixels
 WIN = SC + 1                             # window edge (covers +1 taps)
 ROW_CH = 16 * WIN                        # padded channels per table row
 COLOR_UT_BUCKETS = (48, 64, 96, 128, 160, 192, 256, 320)
-MAX_VIEWS = VIEWS[-1]                    # views the kernel takes: 1 to 8 (csrc/views.cuh)
+MAX_VIEWS = VIEWS[-1]                    # views the kernel takes: 1 to 16 (csrc/views.cuh)
 
 
 def bucket_color_ut(n: int) -> Optional[int]:
@@ -133,7 +133,7 @@ def supercell_color_sample_plain(colors_sc, grids, img_h: int, img_w: int):
 
 
 def supercell_color_sample(colors_sc, grids, img_h: int, img_w: int):
-    """The kernel on CUDA tensors (V = 1 to 8 views), the plain version on
+    """The kernel on CUDA tensors (V = 1 to 16 views), the plain version on
     CPU tensors. Another view count raises a ValueError that names V,
     before any launch."""
     if colors_sc.device.type == "cpu":

@@ -1,6 +1,7 @@
 """Kernels B, D and F on the card, against another build of their sources.
 
     python -m matchnerf_tpu_torch.profile_prior [--against DIR] [--sass] [--phases]
+        [--views 3,8,10,16]
     python -m matchnerf_tpu_torch.profile_prior --backward [--against DIR] [--sass]
     python -m matchnerf_tpu_torch.profile_prior --fused [--against DIR]
 
@@ -27,7 +28,14 @@ the same process, in turns (other, this, this, other). With `--sass`,
 and chunk, as in Kernel B, a count is per sample and lane). With `--phases`, Kernel D is built once more with
 -DKERNEL_D_PHASES (clock64 marks of thread 0; the kernel the port runs has
 none) and prints the mean cycles per block of its union build, its staging
-passes and its sample loops at the 20480-ray slice. Prints the card's name
+passes and its sample loops at the 20480-ray slice. With `--views`, the
+same cases at each of those source-view counts (default 3): the pose's
+sources spread over the same arc (`scene_poses(V)`), tables
+[V,h,w,(V-1)128], and past V = 4 fewer rays (`view_rays`: the plain twins'
+f32 samples at their V = 4 size; 4384 at V = 8, 1024 at V = 16); Kernel D
+only at a bucket its shared memory takes at V (`takes_table`), and each
+case's output compared bit for bit with DIR's build where it takes V (a
+build of V = 2 to 8 refuses 9 to 16). Prints the card's name
 and power limit and, as its last line, one JSON object with every number.
 
 With `--backward` it times the training prior's table gradient instead,
@@ -58,9 +66,10 @@ global atomics, one per (block, union row, 4 channels). `--sass` adds each
 kernel's atomic instructions by full mnemonic.
 
 With `--fused` it times Kernel F (`fused_interp_grouped_cosine`) instead,
-at V = 2 to 8 source views on random tap rows of 8192 rays x 128 samples
-at V <= 4 and of one fused-route chunk beyond (`fused_chunk_rays(V)` rays:
-2456 at V = 5, 872 at V = 8; int8 values in -127..127 with per-(view,
+at V = 2 to 8, 10 and 16 source views (`FUSED_VIEWS`) on random tap rows
+of 8192 rays x 128 samples at V <= 4 and of one fused-route chunk beyond
+(`fused_chunk_rays(V)` rays: 2456 at V = 5, 872 at V = 8, 544 at V = 10,
+200 at V = 16; int8 values in -127..127 with per-(view,
 channel) scales, bf16 and f32 normal values; weights uniform in [0, 1)) at
 G = 2 and 8, each held against its plain twin (max |d|, the twin taken
 2**18 samples at a time). With `--against DIR`, DIR's fused_cosine.cu is
@@ -89,6 +98,7 @@ H, W = 512, 640
 DTU_NEAR_FAR = (2.125, 4.525)
 SLICE_RAYS, VAL_RAYS, TRAIN_RAYS = 20480, 4096, 1024
 FUSED_RAYS = 8192             # Kernel F's rays at V <= 4 (`--fused`)
+FUSED_VIEWS = (2, 3, 4, 5, 6, 7, 8, 10, 16)    # `--fused`: the compiled V and two past them
 ITERS = 20
 SOURCES = ("cosine_prior.cu", "block_cosine_prior.cu")
 OPCODES = ("I2F", "I2FP", "F2F", "PRMT", "SGXT", "SHF", "LOP3", "IMAD", "FFMA", "FMUL",
@@ -203,16 +213,25 @@ def scene_poses(n_views: int = 3):
                     "near_fars": nf[:, :-1]}}
 
 
-def scene_grids(torch, dev):
-    """The target pose of chip_smoke.py's scene: its eval grids [V,R,S,2]
-    for the first SLICE_RAYS rays, grids at TRAIN_RAYS random pixels, and
-    the pose's union buckets per feature scale."""
+def view_rays(R: int, V: int) -> int:
+    """R rays to V = 4, then fewer in multiples of 8, so that the plain
+    twins' f32 samples (R x S x V(V-1) x 128 floats) stay at their V = 4
+    size (chip_smoke.py's `views_rays` for the 20480-ray slice)."""
+    return min(R, 8 * (R * 12 // (V * (V - 1)) // 8))
+
+
+def scene_grids(torch, dev, n_views: int = 3):
+    """The target pose of chip_smoke.py's scene (`scene_poses(n_views)`):
+    its eval grids [V,R,S,2] for the first SLICE_RAYS rays, grids at
+    TRAIN_RAYS random pixels, and the pose's union buckets per feature
+    scale."""
     from . import camera
     from .config import dtu_eval_config
     from .models.matchnerf import project_to_views, sample_depth
     from .renderer import Renderer
-    poses = scene_poses()
+    poses = scene_poses(n_views)
     cfg = dtu_eval_config()
+    cfg.n_src_views = n_views
     r = Renderer(cfg, None, dev)
     block_ut, _ = r.pose_prep(poses, [(H // 8, W // 8), (H // 4, W // 4)], H, W)
     tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = r._pose_tensors(poses)
@@ -463,18 +482,17 @@ def backward(torch, dev, libs, block_ut, result):
 
 
 def fused(torch, dev, against, result):
-    """Kernel F at V = 2 to 8 against its plain twin and, with `against`,
+    """Kernel F at FUSED_VIEWS against its plain twin and, with `against`,
     against that directory's fused_cosine.cu (`--fused`)."""
     from .models.matchnerf import fused_chunk_rays
     from .ops import fused_cosine as kf
-    from .ops.cosine_prior import VIEWS
     other = None
     if against is not None:
         other = bind(build_lib([against / "fused_cosine.cu"], "libfused_against", against))
     gen = torch.Generator(device=dev).manual_seed(0)
     C = 128
     result["fused"] = []
-    for V in VIEWS:
+    for V in FUSED_VIEWS:
         N = (FUSED_RAYS if V <= 4 else fused_chunk_rays(V)) * 128
         for dt in (torch.int8, torch.bfloat16, torch.float32):
             shape = (V, N, 4 * (V - 1) * C)
@@ -559,8 +577,10 @@ def main(argv=None):
                     help="time B' and D''s backward kernels at the training shapes "
                          "instead, with their atomic counts")
     ap.add_argument("--fused", action="store_true",
-                    help="time Kernel F at V = 2 to 8 instead (--against: DIR's "
-                         "fused_cosine.cu, compared bit for bit)")
+                    help="time Kernel F at V = 2 to 8, 10 and 16 instead (--against: "
+                         "DIR's fused_cosine.cu, compared bit for bit)")
+    ap.add_argument("--views", default="3",
+                    help="source-view counts of the B and D cases, comma-separated")
     args = ap.parse_args(argv)
     import torch
 
@@ -604,69 +624,99 @@ def main(argv=None):
         """Another source's Kernel D, called as its wrapper calls it."""
         V, h, w, _ = table.shape
         R, S = grids.shape[1:3]
-        cp = kd.channels_per_pass(ut, S, G, False, 2, h * w)   # rows staged as bf16
+        cp = kd.channels_per_pass(ut, S, G, False, 2, h * w, V)   # rows staged as bf16
         out = torch.empty(R, S, G, device=dev)
         call(torch, lib, kd.ENTRIES[table.dtype], table.data_ptr(), grids.data_ptr(),
              kernels.ptr(scales), None, out.data_ptr(), V, h, w, 128, G, R, S, ut, cp)
         return out
 
-    grids_all, grids_train, block_ut = scene_grids(torch, dev)
-    print(f"pose buckets {block_ut}", flush=True)
-    result["block_ut"] = list(block_ut)
+    views = [int(v) for v in args.views.split(",")]
     if args.backward:
+        _, _, block_ut = scene_grids(torch, dev)
+        print(f"pose buckets {block_ut}", flush=True)
+        result["block_ut"] = list(block_ut)
         backward(torch, dev, libs, block_ut, result)
         print(card_line(), flush=True)
         print(json.dumps(result), flush=True)
         return 0
     gen = torch.Generator(device=dev).manual_seed(2)
-    cases = []
-    for s, (h, w, G) in enumerate(((H // 8, W // 8, 2), (H // 4, W // 4, 8))):
-        q = torch.randint(-127, 128, (3, h, w, 256), generator=gen, device=dev,
-                          dtype=torch.int32).to(torch.int8)
-        scales = torch.rand(3, 256, generator=gen, device=dev) * 0.02 + 1e-3
-        fb = torch.randn(3, h, w, 256, generator=gen, device=dev)
-        for R in (SLICE_RAYS, VAL_RAYS):
-            g = grids_all[:, :R].contiguous()
-            cases.append(("B", "int8", s, R, q, g, scales, G))
-            cases.append(("D", "int8", s, R, q, g, scales, G))
-            cases.append(("B", "bf16", s, R, fb.to(torch.bfloat16), g, None, G))
-            cases.append(("D", "bf16", s, R, fb.to(torch.bfloat16), g, None, G))
-        cases.append(("B", "f32", s, TRAIN_RAYS, fb, grids_train, None, G))
-    result["cases"] = []
+    result["cases"], result["block_ut"] = [], {}
     fmt = lambda xs: " / ".join(f"{x:.4f}" for x in xs)
-    for kernel, dt, s, R, table, g, scales, G in cases:
-        ut = block_ut[s]
-        h, w = table.shape[1:3]
-        if kernel == "B":
-            fns = {"this": lambda: kb.cosine_prior(table, g, scales, G)}
-            fns.update({k: (lambda lib=lib: b_lib(lib, table, g, scales, G))
-                        for k, lib in libs.items()})
-            ref = kb.cosine_prior_plain(table, g, scales, G)
-        else:
-            fns = {"this": lambda: kd.block_cosine_prior(table, g, scales, G, ut)}
-            if "other" in libs:
-                fns["other"] = lambda: d_lib(libs["other"], table, g, scales, G, ut)
-            ref = kd.block_cosine_prior_plain(table, g, scales, G, ut)
-        errs = {k: float((fn() - ref).abs().max()) for k, fn in fns.items()}
-        order = [k for k in ("other", "this") if k in fns]
-        times = {k: [] for k in order}
-        for k in order + order[::-1]:
-            times[k].append(events_ms(torch, fns[k]))
-        entry = {"kernel": kernel, "dtype": dt, "scale": s, "R": R, "G": G, "ms": times,
-                 "max_abs_err": errs}
-        line = f"{kernel} {dt} scale {s} R={R} G={G}"
-        if kernel == "D":
-            gp = kd.pad_rays(g)
-            entry["ut"] = ut
-            entry["union_build_ms"] = events_ms(torch, lambda: kd.block_unions(gp, h, w, ut))
-            line += f" ut={ut}, the plain twin's union build {entry['union_build_ms']:.4f} ms"
-        print(line + ": " + "; ".join(f"{k} {fmt(t)} ms (max|d| {errs[k]:.2e})"
-                                      for k, t in times.items()), flush=True)
-        result["cases"].append(entry)
-        del ref
-    if args.phases:
-        result["phases"] = d_phases(torch, kd, [c for c in cases if c[0] == "D"
-                                                and c[3] == SLICE_RAYS], block_ut)
+    phase_cases = []
+    for V in views:
+        grids_all, grids_train, block_ut = scene_grids(torch, dev, V)
+        print(f"V={V} pose buckets {block_ut}", flush=True)
+        result["block_ut"][V] = list(block_ut)
+        cases = []
+        Cc = (V - 1) * 128
+        for s, (h, w, G) in enumerate(((H // 8, W // 8, 2), (H // 4, W // 4, 8))):
+            q = torch.randint(-127, 128, (V, h, w, Cc), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+            scales = torch.rand(V, Cc, generator=gen, device=dev) * 0.02 + 1e-3
+            fb = torch.randn(V, h, w, Cc, generator=gen, device=dev)
+            for R in sorted({view_rays(SLICE_RAYS, V), view_rays(VAL_RAYS, V)}, reverse=True):
+                g = grids_all[:, :R].contiguous()
+                cases.append(("B", "int8", s, R, q, g, scales, G))
+                cases.append(("D", "int8", s, R, q, g, scales, G))
+                cases.append(("B", "bf16", s, R, fb.to(torch.bfloat16), g, None, G))
+                cases.append(("D", "bf16", s, R, fb.to(torch.bfloat16), g, None, G))
+            cases.append(("B", "f32", s, TRAIN_RAYS, fb, grids_train, None, G))
+        for kernel, dt, s, R, table, g, scales, G in cases:
+            ut = block_ut[s]
+            h, w = table.shape[1:3]
+            line = f"{kernel} V={V} {dt} scale {s} R={R} G={G}"
+            if kernel == "D" and (ut is None
+                                  or not kd.takes_table(table, scales, ut, g.shape[2], G)):
+                print(f"{line}: ut={ut}, Kernel D does not take it at V={V} (the route: "
+                      "Kernel B)", flush=True)
+                continue
+            if kernel == "B":
+                fns = {"this": lambda: kb.cosine_prior(table, g, scales, G)}
+                fns.update({k: (lambda lib=lib: b_lib(lib, table, g, scales, G))
+                            for k, lib in libs.items()})
+                ref = kb.cosine_prior_plain(table, g, scales, G)
+            else:
+                fns = {"this": lambda: kd.block_cosine_prior(table, g, scales, G, ut)}
+                if "other" in libs:
+                    fns["other"] = lambda: d_lib(libs["other"], table, g, scales, G, ut)
+                ref = kd.block_cosine_prior_plain(table, g, scales, G, ut)
+            entry = {"kernel": kernel, "V": V, "dtype": dt, "scale": s, "R": R, "G": G}
+            mine = fns["this"]()
+            errs = {"this": float((mine - ref).abs().max())}
+            if "other" in fns:
+                try:
+                    theirs = fns["other"]()
+                    torch.cuda.synchronize()
+                    errs["other"] = float((theirs - ref).abs().max())
+                    entry["bit_equal_to_other"] = bool(torch.equal(mine, theirs))
+                except RuntimeError:
+                    del fns["other"]                  # the other build refuses V
+                    entry["bit_equal_to_other"] = None
+            order = [k for k in ("other", "this") if k in fns]
+            times = {k: [] for k in order}
+            for k in order + order[::-1]:
+                times[k].append(events_ms(torch, fns[k]))
+            entry.update(ms=times, max_abs_err=errs)
+            if kernel == "D":
+                gp = kd.pad_rays(g)
+                entry["ut"] = ut
+                entry["union_build_ms"] = events_ms(torch,
+                                                    lambda: kd.block_unions(gp, h, w, ut))
+                line += (f" ut={ut}, the plain twin's union build "
+                         f"{entry['union_build_ms']:.4f} ms")
+            print(line + ": " + "; ".join(f"{k} {fmt(t)} ms (max|d| {errs[k]:.2e})"
+                                          for k, t in times.items())
+                  + (f"; bit-equal to the other build {entry['bit_equal_to_other']}"
+                     if "bit_equal_to_other" in entry else ""), flush=True)
+            result["cases"].append(entry)
+            del ref, mine
+        if V == 3:
+            phase_cases = [(c, block_ut) for c in cases if c[0] == "D" and c[3] == SLICE_RAYS]
+        del cases
+        torch.cuda.empty_cache()
+    if args.phases and phase_cases:
+        result["phases"] = d_phases(torch, kd, [c for c, _ in phase_cases],
+                                    phase_cases[0][1])
     print(card_line(), flush=True)
     print(json.dumps(result), flush=True)
 

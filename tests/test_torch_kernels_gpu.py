@@ -4,9 +4,11 @@ Marked `gpu`: each test skips (with the reason) where no CUDA device is
 available, as on a CPU-only host. On a GPU machine run them with
 `python -m pytest tests/test_torch_kernels_gpu.py -q`; chip_smoke.py
 covers the same kernels at the full DTU shapes.
-The prior kernels (B, B', D, D'), C, E and F run at V = 2, 3 and 4 source
-views (n_src_views); B, B', D, D' and F at V = 5 raise a ValueError that
-names V, with no fallback.
+The prior kernels (B, B', D, D'), C, E and F run at V = 2 to 8 source
+views (n_src_views), and B (four table types), B', D, D', E and F at V =
+9, 10, 12 and 16 (`WIDE_VIEWS`: their run-time-V forms, at small shapes
+and on buckets the route gives them); at V = 17 they raise a ValueError
+that names V, with no fallback.
 Tolerances: f32 kernels 1e-5 (summation order only), the bf16 window
 attention 2e-2 (the plain version rounds the normalised P to bf16 before
 P.V, the kernel the unnormalised one), both also at the DTU shape
@@ -82,7 +84,8 @@ from matchnerf_tpu_torch.ops.attention import shift_region_ids
 from matchnerf_tpu_torch.ops.grid_sample import grid_sample_2d, tap_rows_and_weights
 
 pytestmark = pytest.mark.gpu
-VIEWS = tuple(range(2, 9))         # n_src_views: the cond-query kernels take 2 to 8
+VIEWS = tuple(range(2, 9))         # n_src_views of the compiled instances: 2 to 8
+WIDE_VIEWS = (9, 10, 12, 16)       # and of the run-time-V forms (to 16)
 
 
 @pytest.fixture
@@ -135,12 +138,13 @@ def test_window_attention_forward_lse(dev, dtype, tol, hw):
                                atol=1e-5 if dtype == torch.float32 else 2e-2, rtol=0)
 
 
-@pytest.mark.parametrize("V", VIEWS)
+@pytest.mark.parametrize("V", VIEWS + WIDE_VIEWS)
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float32, torch.bfloat16, torch.uint8])
 @pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
 def test_cosine_prior_kernel(dev, dtype, G, V):
     """Kernel B against its plain twin on every table type (uint8: int4
-    tables, random codes 0-15 two a byte) at every V and G."""
+    tables, random codes 0-15 two a byte) at every V and G (past V = 8 its
+    run-time-V form)."""
     g = torch.Generator(device=dev).manual_seed(1)
     Cc = (V - 1) * 128
     if dtype == torch.int8:
@@ -395,12 +399,13 @@ def test_fused_cosine_matches_cosine_prior(dev, G):
                                rtol=0)
 
 
-@pytest.mark.parametrize("V", [2, 4, 5, 6, 8])
+@pytest.mark.parametrize("V", [2, 4, 5, 6, 8] + list(WIDE_VIEWS))
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("with_scales", [False, True])
 @pytest.mark.parametrize("G", [2, 8])
 def test_fused_cosine_kernel_views(dev, V, dtype, with_scales, G):
-    """F at V = 2 to 8: rows [V,N,512(V-1)], P = V(V-1)/2 pairs."""
+    """F at V = 2 to 16 (past 8 its run-time-V form): rows [V,N,512(V-1)],
+    P = V(V-1)/2 pairs."""
     g = torch.Generator(device=dev).manual_seed(19 + V)
     N = 1237
     width = 512 * (V - 1)
@@ -420,7 +425,7 @@ def test_fused_cosine_kernel_views(dev, V, dtype, with_scales, G):
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("V", [2, 4, 5, 8])
+@pytest.mark.parametrize("V", [2, 4, 5, 8] + list(WIDE_VIEWS))
 def test_fused_cosine_views_match_cosine_prior(dev, V):
     g = torch.Generator(device=dev).manual_seed(29 + V)
     table, scales = _int8_table(g, dev, 20, 24, V)
@@ -640,7 +645,7 @@ def test_cosine_prior_kernel_every_int8(dev, G):
                                rtol=0)
 
 
-@pytest.mark.parametrize("V", VIEWS)
+@pytest.mark.parametrize("V", VIEWS + WIDE_VIEWS)
 @pytest.mark.parametrize("case", ["small", "cap_320", "ragged_border", "overflow"])
 def test_supercell_color_kernel(dev, case, V):
     g = torch.Generator(device=dev).manual_seed(5)
@@ -1010,10 +1015,10 @@ def test_training_repeats_itself_on_the_card(dev, patches, bf16, local):
 
 @pytest.mark.parametrize("kernel", ["B", "B'", "D", "D'", "E", "F"])
 def test_prior_kernels_refuse_other_view_counts(dev, kernel):
-    """On CUDA tensors B, B', D, D', E and F at V = 9 (they take up to 8
+    """On CUDA tensors B, B', D, D', E and F at V = 17 (they take up to 16
     views) raise a ValueError that names V; nothing is launched and no plain
     version runs in their place."""
-    V = 9
+    V = 17
     g = torch.Generator(device=dev).manual_seed(18)
     grids = torch.rand(V, 16, 32, 2, generator=g, device=dev) * 2 - 1
     counters = (kb.COUNTER, kb.BWD_COUNTER, kd.COUNTER, kd.F32_COUNTER, kd.BWD_COUNTER,
@@ -1043,6 +1048,112 @@ def test_prior_kernels_refuse_other_view_counts(dev, kernel):
                 kd.block_cosine_prior(table, grids, None, 2, 128)
     torch.cuda.synchronize()
     assert [(c.launches, c.plain_on_cuda) for c in counters] == before
+
+
+@pytest.mark.parametrize("V", WIDE_VIEWS)
+@pytest.mark.parametrize("G,case", [(2, "small"), (8, "edge"), (2, "train_64x80")])
+def test_cosine_prior_backward_kernel_wide(dev, G, case, V):
+    """B' at V = 9 to 16 against autograd through the plain twin, 1e-5 of
+    the largest gradient: a ragged block, the walks' edge cases and 256 iid
+    training rays x 128 on a 64x80 table."""
+    g = torch.Generator(device=dev).manual_seed(31 + V)
+    if case == "train_64x80":
+        table = _f32_table(g, dev, 64, 80, V)
+        grids = _train_rays(g, dev, 256, 128, strips=False, V=V)
+    else:
+        table = _f32_table(g, dev, 20, 24, V)
+        grids = _block_grids(g, dev, V, 37, 48, 0.4)
+        if case == "edge":
+            grids = _edge_rays(g, dev, grids)
+    R, S = grids.shape[1:3]
+    gcot = torch.randn(R, S, G, generator=g, device=dev)
+    grads = []
+    for fn in (kb.cosine_prior, kb.cosine_prior, kb.cosine_prior_plain):
+        t = table.clone().requires_grad_()
+        before = kb.BWD_COUNTER.launches
+        fn(t, grids, None, G).backward(gcot)
+        torch.cuda.synchronize()
+        assert kb.BWD_COUNTER.launches == before + (fn is kb.cosine_prior)
+        grads.append(t.grad)
+    assert torch.equal(grads[0], grads[1])
+    _grad_close(grads[0], grads[2], 1e-5)
+
+
+def _wide_d_case(g, dev, V, h, w, R, S, G, taken):
+    """Grids of R rays in 8-ray blocks whose union bucket `taken(ut)` holds
+    at V views (the spread narrowed until it does) -> (grids, ut)."""
+    for spread in (0.4, 0.3, 0.2, 0.1, 0.05, 0.02, 0.01):
+        grids = _block_grids(g, dev, V, R, S, spread)
+        ut = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), h, w))
+        if ut is not None and taken(ut):
+            return grids, ut
+    raise AssertionError(f"no grids Kernel D takes at V={V} G={G} S={S}")
+
+
+@pytest.mark.parametrize("V", WIDE_VIEWS)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("G,hw,S", [(2, (20, 24), 48), (8, (20, 24), 48), (2, (64, 80), 64),
+                                    (8, (128, 160), 64), (8, (64, 80), 128)])
+def test_block_cosine_prior_kernel_wide(dev, dtype, G, hw, S, V):
+    """Kernel D at V = 9 to 16 (the union build's counts in shared memory)
+    on int8 and bf16 tables at buckets `takes_table` gives it, against its
+    plain twin and Kernel B (1e-5); at V = 16, S = 128 D takes no bucket
+    and the route is B (asserted)."""
+    g = torch.Generator(device=dev).manual_seed(41 + V)
+    table, scales = _d_table(g, dev, dtype, *hw, V)
+    take = lambda ut: kd.takes_table(table, scales, ut, S, G)
+    if not any(take(u) for u in kd.UT_BUCKETS):
+        assert V >= 12 and S == 128, (V, S, G)
+        return
+    grids, ut = _wide_d_case(g, dev, V, *hw, 37, S, G, take)
+    before = kd.COUNTER.by_entry.get(kd.ENTRIES[dtype], 0)
+    got = kd.block_cosine_prior(table, grids, scales, G, ut)
+    torch.cuda.synchronize()
+    assert kd.COUNTER.by_entry[kd.ENTRIES[dtype]] == before + 1
+    torch.testing.assert_close(got, kd.block_cosine_prior_plain(table, grids, scales, G, ut),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(got, kb.cosine_prior(table, grids, scales, G), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("V", WIDE_VIEWS)
+@pytest.mark.parametrize("G,hw,S", [(2, (20, 24), 48), (8, (20, 24), 48), (2, (64, 80), 64),
+                                    (8, (64, 80), 128)])
+def test_block_cosine_prior_f32_kernels_wide(dev, G, hw, S, V):
+    """D' at V = 9 to 16 at buckets `takes_f32` gives it: the union its
+    forward builds equals the plain version's cell for cell; the forward
+    (1e-5) and the table gradient (1e-5 of the largest, bit-equal on a
+    second run) against autograd through the plain twin and through Kernels
+    B and B'."""
+    g = torch.Generator(device=dev).manual_seed(51 + V)
+    table = _f32_table(g, dev, *hw, V)
+    take = lambda ut: kd.takes_f32(ut, S, G, hw[0] * hw[1], V)
+    if not any(take(u) for u in kd.UT_BUCKETS):
+        assert S == 128 and V >= 12, (V, S, G)
+        return
+    grids, ut = _wide_d_case(g, dev, V, *hw, 29, S, G, take)
+    _, unions = kd._forward(table, grids, None, G, ut, with_unions=True)
+    torch.testing.assert_close(unions, kd.block_unions(kd.pad_rays(grids), *hw, ut), atol=0,
+                               rtol=0)
+    R = grids.shape[1]
+    gcot = torch.randn(R, S, G, generator=g, device=dev)
+    outs, grads = [], []
+    for fn in (kd.block_cosine_prior, kd.block_cosine_prior, kd.block_cosine_prior_plain,
+               lambda t, gr, sc, G_, ut_: kb.cosine_prior(t, gr, sc, G_)):
+        t = table.clone().requires_grad_()
+        before = (kd.F32_COUNTER.launches, kd.BWD_COUNTER.launches)
+        out = fn(t, grids, None, G, ut)
+        out.backward(gcot)
+        torch.cuda.synchronize()
+        k = fn is kd.block_cosine_prior
+        assert (kd.F32_COUNTER.launches, kd.BWD_COUNTER.launches) == \
+            (before[0] + k, before[1] + k)
+        outs.append(out.detach())
+        grads.append(t.grad)
+    assert torch.equal(grads[0], grads[1])
+    for i in (2, 3):
+        torch.testing.assert_close(outs[0], outs[i], atol=1e-5, rtol=0)
+        _grad_close(grads[0], grads[i], 1e-5)
 
 
 def test_convergence_train_recipe_follows_all_plain(dev):

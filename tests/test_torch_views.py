@@ -1,7 +1,7 @@
 """Two and four source views (`n_src_views`): the port against the JAX
 package on the CPU, at V = 2 and V = 4.
 
-The prior kernels B, B', D and D' take V = 2 to 8 (csrc/views.cuh); their
+The prior kernels B, B', D and D' take V = 2 to 16 (csrc/views.cuh); their
 plain versions, which the CPU runs and the card holds each kernel to, are
 held here to the JAX kernels (Pallas in interpret mode) and custom VJPs:
 
@@ -255,10 +255,10 @@ def test_takes_table_reads_the_views(V):
                                         ut, 128, G_, True) is not None))
 
 
-@pytest.mark.parametrize("V", [1, 9])
+@pytest.mark.parametrize("V", [1, 17])
 def test_prior_kernels_refuse_other_view_counts(V):
     """The wrappers of B, B', D and D' raise a ValueError that names V before
-    any launch at a view count the kernels do not take (they take 2 to 8;
+    any launch at a view count the kernels do not take (they take 2 to 16;
     the check runs ahead of the device's; its CPU tensors here stand for the
     card's)."""
     table = torch.zeros(V, 8, 8, max(V - 1, 1) * 128)
@@ -272,9 +272,9 @@ def test_prior_kernels_refuse_other_view_counts(V):
     assert (kb.COUNTER.launches, kd.COUNTER.launches, kd.F32_COUNTER.launches) == before
 
 
-@pytest.mark.parametrize("kernel,V", [("E", 0), ("E", 9), ("F", 1), ("F", 9)])
+@pytest.mark.parametrize("kernel,V", [("E", 0), ("E", 17), ("F", 1), ("F", 17)])
 def test_color_and_fused_kernels_refuse_other_view_counts(kernel, V):
-    """The wrappers of E (1 to 8 views) and F (2 to 8) raise a ValueError
+    """The wrappers of E (1 to 16 views) and F (2 to 16) raise a ValueError
     that names V before any launch at a view count their kernels do not
     take; tensors on the meta device stand for the card's (a CPU tensor
     takes the plain version, which takes any V)."""
