@@ -295,12 +295,14 @@ Phases, any failure ends the run with a non-zero exit:
    narrow tree), with the peak device memory of the steps. (e) past eight
    views (the run-time-V forms of B, B', D, D', F and E to 16): (a) at
    V = 10, 12 and 16 (`views_rays(V)`: 2728, 1856 and 1024 rays, B' and
-   D' at `views_train_rays(V)`: 1024, 696, 384), Kernel D and D' where
-   their shared memory takes no bucket at S = 128 on every other depth (S
-   = 64: `wide_d_grids`); then on a 17-view 320x256 tree at half the
+   D' at `views_train_rays(V)`: 1024, 696, 384), Kernel D and D' at S =
+   128 at the pose's buckets (the pair layout where every view's taps do
+   not fit), and at V = 16 D and B at S = 256 on one slice of scale 1
+   (`S256_RAYS`); then on a 17-view 320x256 tree at half the
    arc's angles (`WIDE_TREE_*`, `WIDE_EVAL_WH`) the eval entry at V = 10
    (A, C, E, and D or B per scale as `takes_table` routes it) and V = 16
-   (A, Kernel Cg for the shipped decoder, C not launched, E, B), each
+   (A, Kernel Cg for the shipped decoder, C not launched, E, D at both
+   scales, B not launched), each
    held to its all-plain render (slices of `plain_slice_rays(V)` rays),
    the fused image at V = 10 (held to the V = 10 all-plain render), and
    (b) at V = 10 on a 13-view 640x512 tree at the same angles with peak
@@ -323,7 +325,11 @@ Phases, any failure ends the run with a non-zero exit:
    cond_sample_dtype=int4` (both scales on Kernel B's int4 form),
    `=[int8,int4]` (scale 0 on D, scale 1 on B's int4 form) and, with
    `--precision.fused_cosine=true`, `=[int8,int4p99.9]` (scale 0 on F,
-   scale 1 on B's int4 form) (seeded weights): the kernels each route
+   scale 1 on B's int4 form), and `--encoder.feature_upsampler=none`
+   (both tables the transformer's 1/8 scale, A, C, D, E; held as the int4
+   images: >= 50 dB on the plain encoder's features, >= INT4_WHOLE_DB
+   whole, A's bf16 rounding reaching the cosines unsmoothed) (seeded
+   weights): the kernels each route
    takes launch and the ones it skips do not (C under view_dep: false; A
    at one split; B, D and E on the local radius, which builds no table; B
    and D on the fused route; D and F on int4, D on the fused int4 route,
@@ -3404,6 +3410,7 @@ WIDE_TREE_SPREAD = 0.5             # both arcs' angles over the default's: 4 deg
 # 640x512, the plain B and D over V(V-1) chunk rows) keep the script in
 # its time (the DTU loader's depth mask is its tree's size)
 WIDE_EVAL_WH = (320, 256)
+S256_RAYS = 512                    # the V = 16 kernel part's S = 256 slice (views_rays(16) / 2)
 VIEWS_STEPS = 3                    # training steps per recipe and V
 EVAL_MUST = ("window_attention", "cond_nerf_decode", "block_cosine_prior", "supercell_color")
 
@@ -3431,25 +3438,6 @@ def plain_slice_rays(V):
     plain B's f32 samples of a slice stay at their V = 8 size: 5096 at V =
     10, 1904 at V = 16 (multiples of 8: the same 8-ray blocks)."""
     return min(8192, 8 * (8192 * 56 // (V * (V - 1)) // 8))
-
-
-def wide_d_grids(kd, table, grids, ut, takes):
-    """Where Kernel D (D') takes no bucket at the views phase's S = 128 and
-    V views (from V = 12: its taps and fractions, 16 bytes a (view, sample),
-    outgrow the block's shared memory), its check runs on every other depth
-    of the same rays (S = 64) at their own bucket, if `takes` holds it, or
-    at the widest bucket it takes at S = 64 (an overflowed union, against
-    the plain twin at that bucket) -> (grids, ut, on_path): on_path True
-    where the route takes the pose's bucket at S = 128."""
-    S = grids.shape[2]
-    if ut is not None and takes(ut, S):
-        return grids, ut, True
-    half = grids[:, :, ::2].contiguous()
-    h, w = table.shape[1:3]
-    u = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(half), h, w))
-    if u is None or not takes(u, half.shape[2]):
-        u = max(b for b in kd.UT_BUCKETS if takes(b, half.shape[2]))
-    return half, u, False
 
 
 def timed_once(torch, fn):
@@ -3489,13 +3477,15 @@ def prior_case(torch, name, fn, plain, tol, nbytes_, flops, extra=None):
 def views_kernels(torch, dev, seed, V, card, batch=None):
     """The views phase's kernel checks at V source views, from one encode of
     a V-source scene: Kernels B (int8, bf16, f32) and D (int8, bf16) on its
-    eval tables at the pose's buckets (past V = 8, where D's shared memory
-    does not take the bucket, D on every other depth: `wide_d_grids`), E on
-    its supercell table, F (past V = 4; phase 19 holds V = 2 and 4) on one
-    fused-route chunk, B' and D' forward and backward on f32 tables of the
-    same features at `views_train_rays(V)` training rays, each against its
-    plain twin. `batch`: the scene, `make_scene(seed, V)` (raytraced here
-    where not given)."""
+    eval tables at the pose's buckets, S = 128 (D in the layout the route
+    takes: the pair layout where every view's taps do not fit; where the
+    pose's union is past 512 cells, at bucket 512, an overflowed union), at
+    V = 16 also D and B at S = 256 on one slice of scale 1 (`S256_RAYS`),
+    E on its supercell table, F (past V = 4; phase 19 holds V = 2 and 4) on
+    one fused-route chunk, B' and D' forward and backward on f32 tables of
+    the same features at `views_train_rays(V)` training rays, each against
+    its plain twin. `batch`: the scene, `make_scene(seed, V)` (raytraced
+    here where not given)."""
     from matchnerf_tpu_torch import camera
     from matchnerf_tpu_torch.config import dtu_eval_config, dtu_train_config
     from matchnerf_tpu_torch.models.matchnerf import (fused_chunk_rays, init_matchnerf,
@@ -3539,7 +3529,8 @@ def views_kernels(torch, dev, seed, V, card, batch=None):
     pix = camera.pixel_grid(H, W, legacy=True, device=dev)[:R_eval][None]
     grids = grids_of(pix, sample_depth(cfg, tgt_nf, 1, R_eval))
     S = grids.shape[2]
-    for key in ("B", "D", "B_bf16", "D_bf16", "B_f32", "B_bwd", "D_f32", "D_bwd"):
+    for key in ("B", "D", "B_bf16", "D_bf16", "B_f32", "B_bwd", "D_f32", "D_bwd", "B_s256",
+                "D_s256"):
         out[key] = []
     with torch.no_grad():
         for s, G in enumerate(cfg.encoder.cos_n_group):
@@ -3557,19 +3548,41 @@ def views_kernels(torch, dev, seed, V, card, batch=None):
                     torch, f"B {tag}", lambda: kb.cosine_prior(table, g, scales, G),
                     lambda: kb.cosine_prior_plain(table, g, scales, G), 1e-4, nb, flops)))
                 hw = table.shape[1] * table.shape[2]
-                gd, ud, on_path = wide_d_grids(
-                    kd, table, g, ut,
-                    lambda u, S_: kd.channels_per_pass(u, S_, G, False, 2, hw, V) is not None)
-                cp = kd.channels_per_pass(ud, gd.shape[2], G, False, 2, hw, V)
-                nbd = lambda o: nbytes(table, gd, o) + (0 if scales is None else nbytes(scales))
+                ud = ut if ut is not None else max(kd.UT_BUCKETS)
+                how = kd.plan(ud, S, G, False, 2, hw, V)
                 out["D" + sfx].append(dict(scale=s, R=R, **prior_case(
-                    torch, f"D {tag}" + ("" if on_path else f" (not the route's: S={gd.shape[2]})"),
-                    lambda: kd.block_cosine_prior(table, gd, scales, G, ud),
-                    lambda: kd.block_cosine_prior_plain(table, gd, scales, G, ud), 1e-4, nbd,
-                    prior_flops(R * gd.shape[2], scaled=dt == "int8", n_views=V),
-                    {"ut": ud, "channels_per_pass": cp, "S": gd.shape[2], "on_path": on_path,
-                     "pose_ut": ut})))
-                del table, g, gd
+                    torch, f"D {tag}" + ("" if ut is not None else
+                                         " (the pose's union past 512: the route takes B)"),
+                    lambda: kd.block_cosine_prior(table, g, scales, G, ud),
+                    lambda: kd.block_cosine_prior_plain(table, g, scales, G, ud), 1e-4, nb,
+                    flops, {"ut": ud, "channels_per_pass": how.cp,
+                            "layout": "pair" if how.pair else "views", "S": S,
+                            "on_path": ut is not None, "pose_ut": ut})))
+                del table, g
+        if V == max(WIDE_VIEWS):
+            # D and B at S = 256 (configs/test_video_own.yaml's samples) on
+            # one slice of scale 1's int8 table, at that slice's own bucket
+            c256 = copy.deepcopy(cfg)
+            c256.nerf.sample_intvs = 256
+            g256 = grids_of(pix[:, :S256_RAYS], sample_depth(c256, tgt_nf, 1, S256_RAYS))
+            table = tables["view_feats"][1][0]
+            scales = tables["view_feat_scales"][1][0]
+            G = cfg.encoder.cos_n_group[1]
+            h, w = table.shape[1:3]
+            u256 = kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(g256), h, w)) or 512
+            how = kd.plan(u256, 256, G, False, 2, h * w, V)
+            tag = f"V={V} scale 1 table {list(table.shape)} int8 G={G} R={S256_RAYS} S=256"
+            flops = prior_flops(S256_RAYS * 256, scaled=True, n_views=V)
+            nb = lambda o: nbytes(table, g256, o) + nbytes(scales)
+            out["B_s256"].append(dict(scale=1, R=S256_RAYS, **prior_case(
+                torch, f"B {tag}", lambda: kb.cosine_prior(table, g256, scales, G),
+                lambda: kb.cosine_prior_plain(table, g256, scales, G), 1e-4, nb, flops)))
+            out["D_s256"].append(dict(scale=1, R=S256_RAYS, **prior_case(
+                torch, f"D {tag}", lambda: kd.block_cosine_prior(table, g256, scales, G, u256),
+                lambda: kd.block_cosine_prior_plain(table, g256, scales, G, u256), 1e-4, nb,
+                flops, {"ut": u256, "channels_per_pass": how.cp,
+                        "layout": "pair" if how.pair else "views", "S": 256})))
+            del table, g256
         # Kernel E on the slice, bit-equal to its plain twin on the 0-255
         # scale; 9 flops per (sample, view, colour)
         csc = tables["colors_sc"][0]
@@ -3616,23 +3629,20 @@ def views_kernels(torch, dev, seed, V, card, batch=None):
         union = kd.block_union_size_raw(kd.pad_rays(grids_strip), h, w)
         ut = kd.bucket_ut(union)
         route = "D'" if ut is not None and kd.takes_f32(ut, S, G, h * w, V) else "B'"
-        takes_f32 = lambda u, S_: kd.takes_f32(u, S_, G, h * w, V)
-        if route == "D'" or any(takes_f32(u, S) for u in kd.UT_BUCKETS):
-            gs = grids_strip
-            if route == "B'":
-                ut = max(u for u in kd.UT_BUCKETS if takes_f32(u, S))
-        else:                          # no bucket at S = 128: every other depth
-            gs, ut, _ = wide_d_grids(kd, table, grids_strip, None, takes_f32)
-        Nd = R_train * gs.shape[2]
+        if route == "B'":
+            ut = max(u for u in kd.UT_BUCKETS if kd.takes_f32(u, S, G, h * w, V))
+        gs = grids_strip
+        layouts = {k: ("pair" if how.pair else "views") for k, how in (
+            ("forward", kd.plan(ut, S, G, False, 4, h * w, V)),
+            ("backward", kd.plan(ut, S, G, True, n_views=V)))}
         with torch.no_grad():
             out["D_f32"].append(dict(scale=s, **prior_case(
-                torch, f"D' forward {tag} (strips" + (
-                    ")" if gs is grids_strip else f", S={gs.shape[2]})"),
+                torch, f"D' forward {tag} (strips)",
                 lambda: kd.block_cosine_prior(table, gs, None, G, ut),
                 lambda: kd.block_cosine_prior_plain(table, gs, None, G, ut), 1e-5,
-                lambda o: nbytes(table, gs, o), prior_flops(Nd, False, V),
+                lambda o: nbytes(table, gs, o), prior_flops(N, False, V),
                 {"ut": ut, "train_union_size": union, "training_route": route,
-                 "S": gs.shape[2]})))
+                 "S": S, "layout": layouts["forward"]})))
         for key, fn_k, fn_p, g_ in (
                 ("B_bwd", lambda t, g_: kb.cosine_prior(t, g_, None, G),
                  lambda t, g_: kb.cosine_prior_plain(t, g_, None, G), grids_ray),
@@ -3650,7 +3660,8 @@ def views_kernels(torch, dev, seed, V, card, batch=None):
                     f" (S={g_.shape[2]})" if g_.shape[2] != S else ""), bwd_k, bwd_p, tol,
                 lambda o: 2 * nbytes(table) + nbytes(g_, gc),
                 prior_bwd_flops(R_train * g_.shape[2], V),
-                {"ut": ut, "S": g_.shape[2]} if key == "D_bwd" else None)))
+                {"ut": ut, "S": g_.shape[2], "layout": layouts["backward"]}
+                if key == "D_bwd" else None)))
             del tk, tp, ok, op
         del table
     del ttables, ref_images
@@ -3960,8 +3971,8 @@ def views_wide(torch, dev, seed, trees, counters, ckpt, card, out, part, written
     the arc's angles (`trees`; `written[name]` waits for each): on "wide"
     (WIDE_TREE_VIEWS views at WIDE_EVAL_WH) the eval entry's DTU image at
     V = 10 (A, C, E and D or B per scale as the route says)
-    and 16 (A, Cg, E and B: D's shared memory takes no bucket at S = 128),
-    each held to its all-plain render; the fused route at V = 10 (F), held
+    and 16 (A, Cg, E and D at both scales, the pair layout; no B), each
+    held to its all-plain render; the fused route at V = 10 (F), held
     to the V = 10 image's all-plain render; 3 steps of each recipe at
     V = 10 on "wide_train" (WIDE_TRAIN_TREE_VIEWS views at 640x512), their
     first step against the all-plain step, with peak memory. The weights
@@ -3989,7 +4000,9 @@ def views_wide(torch, dev, seed, trees, counters, ckpt, card, out, part, written
     for V in WIDE_EVAL:
         out["eval"][V] = part(f"eval_v{V}", lambda: views_eval(
             torch, dev, seed, wide, counters, V, live["eval", V], card, extra=(size,),
-            must=("window_attention", "supercell_color")))
+            must=("window_attention", "supercell_color")
+            + (("block_cosine_prior",) if V == max(WIDE_EVAL) else ()),
+            zero=("cosine_prior",) if V == max(WIDE_EVAL) else ()))
     out["eval_fused"][WIDE_FUSED] = part(f"eval_fused_v{WIDE_FUSED}", lambda: views_eval(
         torch, dev, seed, wide, counters, WIDE_FUSED, live["eval", WIDE_FUSED], card,
         extra=(size, "--precision.fused_cosine=true"),
@@ -4012,7 +4025,8 @@ VARIANT_LABELS = {"A": "window_attention", "B": "cosine_prior", "C": "cond_nerf_
 # must launch, kernels that must not); `view_dep: false` decodes in torch
 # (no Kernel C), attention without splits runs no Kernel A, the local
 # radius builds no table (no B, D, E), the fused route takes F, not B or D;
-# an int4 scale takes Kernel B's int4 form, never D or F
+# an int4 scale takes Kernel B's int4 form, never D or F; without the
+# upsampler both tables are the transformer's 1/8 scale
 EVAL_VARIANTS = (
     ("view_dep_false", ["--nerf.view_dep=false"], "ADE", "CF"),
     ("local_radius", ["--encoder.feature_sample_local_radius=1",
@@ -4024,12 +4038,17 @@ EVAL_VARIANTS = (
     ("int8_int4", ["--precision.cond_sample_dtype=[int8,int4]"], "ABCDE", "F"),
     ("fused_int8_int4p", ["--precision.fused_cosine=true",
                           "--precision.cond_sample_dtype=[int8,int4p99.9]"], "ABCEF", "D"),
+    ("upsampler_none", ["--encoder.feature_upsampler=none"], "ACDE", "F"),
 )
 INT4_ENTRY = "cosine_prior_i4"     # Kernel B's int4 launcher (ops/cosine_prior.py ENTRIES)
 # an int4 image against its whole all-plain render: its codes, in steps of
 # amax / 7, make whole steps of Kernel A's bf16 rounding (PR 20's CG_EVAL
 # floor for the same cause); held at 50 dB on the all-plain render's features
 INT4_WHOLE_DB = 45.0
+# variants held so too: without the upsampler the cosines read the
+# transformer's features directly, and A's bf16 rounding reaches the image
+# unsmoothed (48.28 dB whole on the card)
+ENCODER_ROUNDING = ("upsampler_none",)
 LPIPS_CROP = (256, 320)            # the centre crop phase 19 scores with LPIPS
 # phase 19: feat_info off by this much (cosines lie in [-1, 1]) must take
 # the `view_dep: false` image below 50 dB against all-plain
@@ -4205,23 +4224,26 @@ def variants_eval(torch, dev, seed, tree, counters, name, extra, must, zero, loa
     depth_err = float((out["depth"] - ref["depth"]).abs().max())
     int4_launches = rec["routes"].get("cosine_prior", {}).get(INT4_ENTRY, 0)
     int4 = any("cond_sample_dtype" in a for a in extra)
+    rounding = int4 or name in ENCODER_ROUNDING
     int8_db = shared_db = None
+    if rounding:
+        # int4 codes (steps of amax / 7) turn the encoder's rounding (Kernel A's
+        # bf16 forward against its plain twin) into whole code steps, and
+        # without the upsampler that rounding reaches the cosines unsmoothed:
+        # the route's kernels are held on the all-plain render's own features
+        shared = Renderer(cfg, rec["renderer"].model, dev)
+        shared.encode = plain.encode
+        shared_db = psnr(shared.forward(rec["batch"], mode="test")["rgb"], ref["rgb"])
     if int4:
         if not int4_launches > 0:
             raise AssertionError(f"{label}: Kernel B's int4 form was not launched: "
                                  f"{rec['routes']}")
-        # int4 codes (steps of amax / 7) turn the encoder's rounding (Kernel A's
-        # bf16 forward against its plain twin) into whole code steps: the
-        # route's kernels are held on the all-plain render's own features
-        shared = Renderer(cfg, rec["renderer"].model, dev)
-        shared.encode = plain.encode
-        shared_db = psnr(shared.forward(rec["batch"], mode="test")["rgb"], ref["rgb"])
         # the quality cost of int4 at seeded weights: the same route on int8 tables
         icfg = copy.deepcopy(cfg)
         icfg.precision.cond_sample_dtype = "int8"
         int8_db = psnr(rgb, Renderer(icfg, rec["renderer"].model, dev).forward(
             rec["batch"], mode="test")["rgb"])
-    whole_db = INT4_WHOLE_DB if int4 else 50.0
+    whole_db = INT4_WHOLE_DB if rounding else 50.0
     off_db = None
     if not cfg.nerf.view_dep:
         # the check sees the features: feat_info off by FEAT_OFFSET must fail it
@@ -4248,10 +4270,12 @@ def variants_eval(torch, dev, seed, tree, counters, name, extra, must, zero, loa
         f"{whole_db:g}), max|d| depth {depth_err:.3e}"
         + ("" if off_db is None else
            f"; feat_info off by {FEAT_OFFSET:g}: {off_db:.2f} dB (need < 50)")
+        + ("" if shared_db is None else
+           f"; with the plain encoder's features (A's plain twin) vs all-plain "
+           f"{shared_db:.2f} dB (need >= 50)")
         + ("" if int8_db is None else
-           f"; B's int4 form {int4_launches} launches; with the plain encoder's "
-           f"features (A's plain twin) vs all-plain {shared_db:.2f} dB (need >= 50); vs "
-           f"the int8-table image {int8_db:.2f} dB (no threshold)")
+           f"; B's int4 form {int4_launches} launches; vs the int8-table image "
+           f"{int8_db:.2f} dB (no threshold)")
         + f"; {card}")
     if not agreement >= whole_db:
         raise AssertionError(f"{label}: agreement PSNR {agreement:.2f} dB < {whole_db:g}")

@@ -83,8 +83,27 @@
 // scan's 32 that it does not use. The layout is the same, 16 B a (view,
 // sample) for the taps and fractions: at S = 128 they take 163,840 B at
 // V = 10 and 196,608 B at V = 12, so only narrow buckets fit (32 channels a
-// pass), and from V = 14 none (229,376 B); ops/block_cosine_prior.py::
-// channels_per_pass sends what does not fit to Kernel B.
+// pass), and from V = 14 none (229,376 B).
+//
+// The pair layout (PAIR; the `_pair` entries), where that one does not fit
+// (ops/block_cosine_prior.py::plan): the block keeps every view's union
+// [V][ut] int32 but the taps and fractions of the current pair's two views
+// only, [2][8S] uint2 and float2 (32,768 B at S = 128, 65,536 B at S = 256,
+// whatever V). The union is built one view at a time, by the same bitmaps
+// and ranks, so its scratch (2 ceil(H*W/32) + 32) x 4 B does not grow with V
+// (5,248 B for a 128 x 160 table). A view's four union rows per sample come
+// from a binary search of its sorted union (9 probes at ut 512; one search a
+// tap row, the right tap's row is the next one wherever it is in the union):
+// the index of a cell in the first ut set bits is its bitmap rank, so the
+// rows, and every bit of the output, are those of the layout above. The pairs run by first
+// view (views.cuh), so slot 0 keeps view i for its V - 1 - i partners and
+// only slot 1 is searched again each pair (P + V - 1 views' searches in all,
+// against V ranks), while the pair's first staging copies are in flight.
+// At V = 16 and ut 512 the unions take 32,768 B: with S = 256, G = 2 and 64
+// bf16 channels a pass (rows 131,328 B) the block holds 229,632 B of 232,448
+// (196,864 B at S = 128). Whatever neither layout fits (G = 1 at wide
+// buckets: 128 bf16 channels of both sides at ut 512 are 262,656 B) takes
+// Kernel B.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -118,6 +137,17 @@ __device__ __forceinline__ int find_row(const int* u, int ut, int key) {
     if (u[mid] < key) lo = mid + 1; else hi = mid;
   }
   return (lo < ut && u[lo] == key) ? lo : ut;
+}
+
+// the union rows of cell c and, where `right`, of c + 1 (else ut): c + 1
+// is the row after c's wherever both are in the union (it is sorted and
+// holds no cell between them), so the second search runs only where it is
+// not
+__device__ __forceinline__ int2 row_and_next(const int* u, int ut, int c, bool right) {
+  const int r0 = find_row(u, ut, c);
+  int r1 = ut;
+  if (right) r1 = r0 + 1 < ut && u[r0 + 1] == c + 1 ? r0 + 1 : find_row(u, ut, c + 1);
+  return make_int2(r0, r1);
 }
 
 // a sample's pixel coordinates, clip then floor as
@@ -216,16 +246,22 @@ __device__ __forceinline__ void pair_cosine8(const float* fa, const float* fb,
 }
 
 // ------------------------------------------------- D and D''s forward
+// The views whose taps and fractions a layout holds: all V, or (PAIR) the
+// current pair's two
+__host__ __device__ constexpr int held_views(int V, bool pair) { return pair ? 2 : V; }
+
 struct LayoutFwd {        // dynamic shared memory, in bytes from its start
   size_t rows, taps, fracs, unions, total;
-  __host__ __device__ LayoutFwd(int V, int ut, int S, int CP, int esize, int HW) {
+  __host__ __device__ LayoutFwd(int V, int ut, int S, int CP, int esize, int HW, bool pair) {
     const size_t samples = (size_t)BLOCK_RAYS * S;
+    const size_t held = held_views(V, pair);
+    const size_t built = pair ? 1 : V;                     // views the union build holds
     const size_t staged = (size_t)2 * (ut + 1) * CP * esize;   // [2][ut+1][CP]
-    const size_t scratch = ((size_t)2 * V * ((HW + 31) / 32) + 32) * sizeof(int);
+    const size_t scratch = ((size_t)2 * built * ((HW + 31) / 32) + 32) * sizeof(int);
     rows = 0;
-    taps = align16(staged > scratch ? staged : scratch);   // [V][8S] uint2
-    fracs = taps + (size_t)V * samples * sizeof(uint2);    // [V][8S] float2
-    unions = fracs + (size_t)V * samples * sizeof(float2); // [V][ut] int
+    taps = align16(staged > scratch ? staged : scratch);   // [held][8S] uint2
+    fracs = taps + held * samples * sizeof(uint2);         // [held][8S] float2
+    unions = fracs + held * samples * sizeof(float2);      // [V][ut] int
     total = unions + (size_t)V * ut * sizeof(int);
   }
 };
@@ -321,10 +357,11 @@ __device__ __forceinline__ unsigned union_row(const unsigned* bits, const int* p
 }
 
 // step 1 of the header: the block's union per view into u_s (INT_MAX
-// padded) and, with unions_out, to global memory; each (view, sample)'s four
-// union rows (16 bits each) into taps and its fractions into fracs. Every
-// thread calls it; it ends synchronised.
-template <bool WIDE>
+// padded) and, with unions_out, to global memory; with TAPS each (view,
+// sample)'s four union rows (16 bits each) into taps and its fractions into
+// fracs (the pair layout calls it once per view, V = 1, without them).
+// Every thread calls it; it ends synchronised.
+template <bool WIDE, bool TAPS>
 __device__ __forceinline__ void build_union(const float* __restrict__ grids,
                                             int* __restrict__ unions_out, unsigned* bits,
                                             int* pre, int* wsum, uint2* taps, float2* fracs,
@@ -341,8 +378,10 @@ __device__ __forceinline__ void build_union(const float* __restrict__ grids,
     sample_xy(grids, (((size_t)v * R + ray) * S + nl % S) * 2, H, W, x, y);
     const float x0f = floorf(x), y0f = floorf(y);
     const int cell = (int)y0f * W + (int)x0f;
-    taps[t] = make_uint2((unsigned)cell, 0u);
-    fracs[t] = make_float2(__fsub_rn(x, x0f), __fsub_rn(y, y0f));
+    if constexpr (TAPS) {
+      taps[t] = make_uint2((unsigned)cell, 0u);
+      fracs[t] = make_float2(__fsub_rn(x, x0f), __fsub_rn(y, y0f));
+    }
     atomicOr(bits + v * nw + (cell >> 5), 1u << (cell & 31));
   }
   __syncthreads();
@@ -369,14 +408,16 @@ __device__ __forceinline__ void build_union(const float* __restrict__ grids,
   if constexpr (WIDE) __syncthreads();            // the counts in shared memory
   for (int i = tid; i < V * ut; i += THREADS)
     if (i % ut >= of_view<WIDE>(n, i / ut)) u_s[i] = INT_MAX;
-  for (int t = tid; t < V * samples; t += THREADS) {
-    const int v = t / samples, cell = (int)taps[t].x;
-    const int y0 = cell / W, x0 = cell - y0 * W;
-    const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
-    taps[t] = make_uint2(union_row(bits, pre, nw, v, cell, ut) |
-                             (union_row(bits, pre, nw, v, y0 * W + x1, ut) << 16),
-                         union_row(bits, pre, nw, v, y1 * W + x0, ut) |
-                             (union_row(bits, pre, nw, v, y1 * W + x1, ut) << 16));
+  if constexpr (TAPS) {
+    for (int t = tid; t < V * samples; t += THREADS) {
+      const int v = t / samples, cell = (int)taps[t].x;
+      const int y0 = cell / W, x0 = cell - y0 * W;
+      const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
+      taps[t] = make_uint2(union_row(bits, pre, nw, v, cell, ut) |
+                               (union_row(bits, pre, nw, v, y0 * W + x1, ut) << 16),
+                           union_row(bits, pre, nw, v, y1 * W + x0, ut) |
+                               (union_row(bits, pre, nw, v, y1 * W + x1, ut) << 16));
+    }
   }
   __syncthreads();
   if (unions_out) {
@@ -385,6 +426,29 @@ __device__ __forceinline__ void build_union(const float* __restrict__ grids,
       const int v = i / ut, c = u_s[i];
       unions_out[((size_t)v * NB + blk) * ut + i % ut] = c == INT_MAX ? -1 : c;
     }
+  }
+}
+
+// the pair layout's taps of view v: each sample's four union rows (16 bits
+// each, found by binary search in the view's sorted union u, INT_MAX
+// padded, row_and_next: the rank union_row gives) into taps [8S] and its
+// fractions into fracs [8S]; every thread calls it
+__device__ __forceinline__ void view_taps(const float* __restrict__ grids, const int* u,
+                                          uint2* taps, float2* fracs, int v, int H, int W,
+                                          int R, int S, int ut, int blk, int tid) {
+  const int samples = BLOCK_RAYS * S;
+  for (int nl = tid; nl < samples; nl += THREADS) {
+    const int ray = min(blk * BLOCK_RAYS + nl / S, R - 1);
+    float x, y;
+    sample_xy(grids, (((size_t)v * R + ray) * S + nl % S) * 2, H, W, x, y);
+    const float x0f = floorf(x), y0f = floorf(y);
+    const int x0 = (int)x0f, y0 = (int)y0f;
+    const bool right = x0 + 1 < W;                 // else x1 = x0 (clamped)
+    const int2 top = row_and_next(u, ut, y0 * W + x0, right);
+    const int2 bot = y0 + 1 < H ? row_and_next(u, ut, (y0 + 1) * W + x0, right) : top;
+    taps[nl] = make_uint2((unsigned)top.x | ((unsigned)(right ? top.y : top.x) << 16),
+                          (unsigned)bot.x | ((unsigned)(right ? bot.y : bot.x) << 16));
+    fracs[nl] = make_float2(__fsub_rn(x, x0f), __fsub_rn(y, y0f));
   }
 }
 
@@ -400,7 +464,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // step 2 of the header: CP channels (from channel c0 of the chunk) of both
 // sides' union rows (CC channels a table row); row ut is zero. TG = TS:
-// cp.async, 16 bytes a copy.
+// cp.async, 16 bytes a copy, left in flight (the caller waits).
 template <typename TG, typename TS>
 __device__ __forceinline__ void stage_pass(const TG* __restrict__ table, const int* u_s,
                                            TS* rows, int H, int W, int CC, int ut, int CP,
@@ -419,7 +483,6 @@ __device__ __forceinline__ void stage_pass(const TG* __restrict__ table, const i
                       (side ? cb : ca) * C + c0 + part * EL;
       cp_async16(rows + ((size_t)side * (ut + 1) + r) * CP + part * EL, src, valid);
     }
-    cp_async_wait_all();
   } else {
     // int8 rows: 16 bytes in, 32 bytes of bf16 out, four loads in flight
     constexpr int BATCH = 4;
@@ -534,8 +597,9 @@ __device__ unsigned long long g_phases[4];
 
 // TG: the table's element (int8_t, uint16_t for bf16, float); TS: the
 // staged element (uint16_t bf16 bits for int8 and bf16 tables, float);
-// WIDE: V = 9 to 16 (the union build's counts in shared memory)
-template <typename TG, typename TS, int CP, bool WIDE>
+// WIDE: V = 9 to 16 (the union build's counts in shared memory); PAIR: the
+// pair layout (the union built view by view, the pair's taps searched)
+template <typename TG, typename TS, int CP, bool WIDE, bool PAIR>
 __global__ void __launch_bounds__(THREADS)
 block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict__ grids,
                           const float* __restrict__ scales, int* __restrict__ unions_out,
@@ -546,15 +610,15 @@ block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict_
   constexpr int NS = CPL / SW;
   constexpr bool SCALED = sizeof(TG) == 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  const LayoutFwd L(V, ut, S, CP, sizeof(TS), H * W);
+  const LayoutFwd L(V, ut, S, CP, sizeof(TS), H * W, PAIR);
   TS* rows = reinterpret_cast<TS*>(smem + L.rows);
   uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
   float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
   int* u_s = reinterpret_cast<int*>(smem + L.unions);
   const int nw = (H * W + 31) / 32;
   unsigned* bits = reinterpret_cast<unsigned*>(smem + L.rows);   // until the first pass
-  int* pre = reinterpret_cast<int*>(bits + V * nw);
-  int* wsum = pre + V * nw;
+  int* pre = reinterpret_cast<int*>(bits + (PAIR ? 1 : V) * nw);
+  int* wsum = pre + (PAIR ? 1 : V) * nw;
 
   const int blk = blockIdx.x;
   const int tid = threadIdx.x;
@@ -567,19 +631,41 @@ block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict_
   const float inv_p = 1.f / (float)P;      // the mean over the pairs
   const SlotGroups<SW> sg(G);
   PHASE_START;
-  build_union<WIDE>(grids, unions_out, bits, pre, wsum, taps, fracs, u_s, V, H, W, R, S, ut,
-                    blk, tid);
+  if constexpr (PAIR) {
+    const size_t NB = gridDim.x;
+#pragma unroll 1
+    for (int v = 0; v < V; ++v)
+      build_union<false, false>(grids + (size_t)v * R * S * 2,
+                                unions_out ? unions_out + v * NB * ut : nullptr, bits, pre,
+                                wsum, nullptr, nullptr, u_s + v * ut, 1, H, W, R, S, ut, blk,
+                                tid);
+  } else {
+    build_union<WIDE, true>(grids, unions_out, bits, pre, wsum, taps, fracs, u_s, V, H, W, R,
+                            S, ut, blk, tid);
+  }
   PHASE_MARK(0);
   float* ob = out + (size_t)blk * BLOCK_RAYS * S * G;
+  int held = -1;                           // PAIR: the view whose taps slot 0 holds
 
 #pragma unroll 1
   for (int p = 0; p < P; ++p) {
     const int vi = pair_first(V, p), vj = pair_second(V, p);
     const int ca = vj - 1, cb = vi;        // view i's chunk j-1, view j's chunk i
+    const int si = PAIR ? 0 : vi, sj = PAIR ? 1 : vj;     // their taps' slots
 #pragma unroll 1
     for (int c0 = 0; c0 < C; c0 += CP) {
       __syncthreads();                     // the union / the previous pass done
       stage_pass<TG, TS>(table, u_s, rows, H, W, CC, ut, CP, vi, vj, ca, cb, c0, tid);
+      if constexpr (PAIR) {
+        if (c0 == 0) {                     // while the pass's copies are in flight
+          if (vi != held)
+            view_taps(grids, u_s + vi * ut, taps, fracs, vi, H, W, R, S, ut, blk, tid);
+          view_taps(grids, u_s + vj * ut, taps + samples, fracs + samples, vj, H, W, R, S, ut,
+                    blk, tid);
+          held = vi;
+        }
+      }
+      cp_async_wait_all();
       __syncthreads();
       PHASE_MARK(1);
       float sa[CPL], sb[CPL];             // dequantisation scales (int8 tables)
@@ -612,10 +698,10 @@ block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict_
         const int nl = nl_raw < samples ? nl_raw : samples - 1;   // all lanes shuffle
         fetch(nl_raw + GROUPS, next);
         float fa[CPL], fb[CPL], cosv[NS];
-        interp_slots<TS, NS, SW>(rows_a, CP, taps[vi * samples + nl],
-                                 fracs[vi * samples + nl], lane, fa);
-        interp_slots<TS, NS, SW>(rows_b, CP, taps[vj * samples + nl],
-                                 fracs[vj * samples + nl], lane, fb);
+        interp_slots<TS, NS, SW>(rows_a, CP, taps[si * samples + nl],
+                                 fracs[si * samples + nl], lane, fa);
+        interp_slots<TS, NS, SW>(rows_b, CP, taps[sj * samples + nl],
+                                 fracs[sj * samples + nl], lane, fb);
         if constexpr (SCALED) {
 #pragma unroll
           for (int e = 0; e < CPL; ++e) {
@@ -692,72 +778,118 @@ block_cosine_prior_kernel(const TG* __restrict__ table, const float* __restrict_
 // 161 x 64 x 4 B = 164,864 B, taps and fractions [V][8S] 49,152 B, union
 // 1,920 B: 215,936 B; ut 320, CP 32 (G = 8): 164,352 B, 49,152 B, 3,840 B:
 // 217,344 B. One block per SM. At V = 4 the taps and fractions take 65,536
-// B, so ut 160 at G = 2 fits no pass (CP 64: 232,960 B) and takes B'; at
-// V = 8 131,072 B, and G = 2 fits ut 64 alone (CP 64), G = 8 up to ut 160
-// (CP 32).
+// B, so ut 160 at G = 2 fits no pass (CP 64: 232,960 B); at V = 8 131,072
+// B, and G = 2 fits ut 64 alone (CP 64), G = 8 up to ut 160 (CP 32).
+//
+// Where that does not fit, the pair layout of the forward's header (PAIR):
+// the taps and fractions of the pair's two views [2][8S] (32,768 B at S =
+// 128), searched in their unions at the pair's first pass, and every view's
+// union. At V = 16, S = 128: ut 160 at G = 2 (CP 64) 164,864 + 32,768 +
+// 10,240 = 207,872 B; ut 320 at G = 8 (CP 32) 164,352 + 32,768 + 20,480 =
+// 217,600 B. Where two row buffers do not fit, one does (pass_buffers): the
+// next pass's rows are copied after the walks of this one, not during them
+// (G = 8: ut 512 at S = 128, 131,328 + 32,768 + 32,768 = 196,864 B at V =
+// 16; G = 2: up to ut 320). The count pass of the pair layout holds the
+// unions alone: each walk searches its samples' rows as it reaches them,
+// each sample once, as the prologue does.
 
 struct LayoutPass {       // dynamic shared memory, in bytes from its start
   size_t rows, taps, fracs, unions, total;
-  __host__ __device__ LayoutPass(int V, int ut, int S, int CP) {
+  // bufs: row buffers, 2 (the next pass's rows arrive during this one's
+  // walks) or 1 (the pair layout where two do not fit: after them)
+  __host__ __device__ LayoutPass(int V, int ut, int S, int CP, bool pair, int bufs) {
     const size_t samples = (size_t)BLOCK_RAYS * S;
+    const size_t held = held_views(V, pair);
     const size_t buffer = 2 * (size_t)(ut + 1) * CP * sizeof(float);
-    rows = 0;                                              // [2][2][ut+1][CP] f32
-    taps = rows + 2 * buffer;                              // [V][8S] uint2
-    fracs = taps + (size_t)V * samples * sizeof(uint2);    // [V][8S] float2
-    unions = fracs + (size_t)V * samples * sizeof(float2); // [V][ut] int
+    rows = 0;                                              // [bufs][2][ut+1][CP] f32
+    taps = rows + bufs * buffer;                           // [held][8S] uint2
+    fracs = taps + held * samples * sizeof(uint2);         // [held][8S] float2
+    unions = fracs + held * samples * sizeof(float2);      // [V][ut] int
     total = unions + (size_t)V * ut * sizeof(int);
   }
 };
 
-// the count pass's shared memory: LayoutPass without the rows
+// the pair layout's row buffers: two where they fit, else one
+__host__ __device__ inline int pass_buffers(int V, int ut, int S, int CP) {
+  return LayoutPass(V, ut, S, CP, true, 2).total <= (size_t)MAX_SMEM ? 2 : 1;
+}
+
+// the count pass's shared memory: LayoutPass without the rows; the pair
+// layout's count pass holds the unions alone (each walk searches its own
+// samples' rows as it goes)
 struct LayoutCount {
   size_t taps, fracs, unions, total;
-  __host__ __device__ LayoutCount(int V, int ut, int S) {
+  __host__ __device__ LayoutCount(int V, int ut, int S, bool pair) {
     const size_t samples = (size_t)BLOCK_RAYS * S;
+    const size_t held = pair ? 0 : V;
     taps = 0;
-    fracs = taps + (size_t)V * samples * sizeof(uint2);
-    unions = fracs + (size_t)V * samples * sizeof(float2);
+    fracs = taps + held * samples * sizeof(uint2);
+    unions = fracs + held * samples * sizeof(float2);
     total = unions + (size_t)V * ut * sizeof(int);
   }
 };
 
-// the backward's prologue: the unions its forward wrote, into shared memory
-// (INT_MAX padded), and each (view, sample)'s four union rows in parity-slot
-// order (binary search; ut for a cell past the border or missing), with
-// the base cell's row and column parities in bit 15 of rows 0 and 1, and
-// its two fractions
-__device__ __forceinline__ void block_prologue(const float* __restrict__ grids,
-                                               const int* __restrict__ unions,
-                                               int* u_s, uint2* taps, float2* fracs,
-                                               int V, int H, int W, int S, int NB, int ut,
-                                               int blk, int tid) {
-  const int samples = BLOCK_RAYS * S;
-  const int Rp = NB * BLOCK_RAYS;
+// the unions the forward wrote, into shared memory (INT_MAX padded)
+__device__ __forceinline__ void load_unions(const int* __restrict__ unions, int* u_s, int V,
+                                            int NB, int ut, int blk, int tid) {
   for (int i = tid; i < V * ut; i += THREADS) {
     const int v = i / ut, r = i % ut;
     const int c = unions[((size_t)v * NB + blk) * ut + r];
     u_s[i] = c < 0 ? INT_MAX : c;
   }
-  __syncthreads();
-  for (int t = tid; t < V * samples; t += THREADS) {
-    const int v = t / samples, nl = t % samples;
-    const size_t g = (((size_t)v * Rp + blk * BLOCK_RAYS + nl / S) * S + nl % S) * 2;
-    float x, y;
-    sample_xy(grids, g, H, W, x, y);
-    const float x0f = floorf(x), y0f = floorf(y);
-    const int x0 = (int)x0f, y0 = (int)y0f;
-    const int* u = u_s + v * ut;
-    unsigned row[4];
+}
+
+// sample nl of view v in block blk: its four union rows in parity-slot
+// order (binary search in the view's union u, row_and_next; ut for a cell
+// past the border or missing), with the base cell's row and column parities in bit 15 of
+// rows 0 and 1, and its two fractions
+__device__ __forceinline__ void slot_tap(const float* __restrict__ grids, const int* u, int v,
+                                         int nl, int H, int W, int S, int NB, int ut, int blk,
+                                         uint2& tap, float2& fr) {
+  const size_t g = (((size_t)v * NB * BLOCK_RAYS + blk * BLOCK_RAYS + nl / S) * S + nl % S) * 2;
+  float x, y;
+  sample_xy(grids, g, H, W, x, y);
+  const float x0f = floorf(x), y0f = floorf(y);
+  const int x0 = (int)x0f, y0 = (int)y0f;
+  const bool right = x0 + 1 < W;
+  const int2 rows[2] = {row_and_next(u, ut, y0 * W + x0, right),
+                        y0 + 1 < H ? row_and_next(u, ut, (y0 + 1) * W + x0, right)
+                                   : make_int2(ut, ut)};
+  unsigned row[4];
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int yy = y0 + ((s >> 1) ^ (y0 & 1)), xx = x0 + ((s & 1) ^ (x0 & 1));
-      row[s] = yy < H && xx < W ? (unsigned)find_row(u, ut, yy * W + xx) : (unsigned)ut;
-    }
-    taps[t] = make_uint2(row[0] | ((unsigned)(y0 & 1) << 15) | (row[1] << 16) |
-                             ((unsigned)(x0 & 1) << 31),
-                         row[2] | (row[3] << 16));
-    fracs[t] = make_float2(__fsub_rn(x, x0f), __fsub_rn(y, y0f));
+  for (int s = 0; s < 4; ++s) {             // slot (py, px): tap (py ^ oy, px ^ ox)
+    const int2 r = rows[(s >> 1) ^ (y0 & 1)];
+    row[s] = (unsigned)((s & 1) ^ (x0 & 1) ? r.y : r.x);
   }
+  tap = make_uint2(row[0] | ((unsigned)(y0 & 1) << 15) | (row[1] << 16) |
+                       ((unsigned)(x0 & 1) << 31),
+                   row[2] | (row[3] << 16));
+  fr = make_float2(__fsub_rn(x, x0f), __fsub_rn(y, y0f));
+}
+
+// the slot taps of `views` views from view v0 on, into taps / fracs
+// [views][8S]; every thread calls it
+__device__ __forceinline__ void slot_taps_of(const float* __restrict__ grids, const int* u_s,
+                                             uint2* taps, float2* fracs, int v0, int views,
+                                             int H, int W, int S, int NB, int ut, int blk,
+                                             int tid) {
+  const int samples = BLOCK_RAYS * S;
+  for (int t = tid; t < views * samples; t += THREADS) {
+    const int v = v0 + t / samples, nl = t % samples;
+    slot_tap(grids, u_s + v * ut, v, nl, H, W, S, NB, ut, blk, taps[t], fracs[t]);
+  }
+}
+
+// the backward's prologue (the layout that holds every view): the unions
+// and every (view, sample)'s slot taps
+__device__ __forceinline__ void block_prologue(const float* __restrict__ grids,
+                                               const int* __restrict__ unions,
+                                               int* u_s, uint2* taps, float2* fracs,
+                                               int V, int H, int W, int S, int NB, int ut,
+                                               int blk, int tid) {
+  load_unions(unions, u_s, V, NB, ut, blk, tid);
+  __syncthreads();
+  slot_taps_of(grids, u_s, taps, fracs, 0, V, H, W, S, NB, ut, blk, tid);
 }
 
 // a sample's four slot rows (decoded from the prologue's taps) and weights
@@ -881,22 +1013,25 @@ struct Walk {
   }
 };
 
-// D''s count pass: the prologue, then per (walk, view) the runs of item 3
-// in the header, in the order the records follow
-template <int BL>
+// D''s count pass: the prologue (PAIR: the unions alone), then per (walk,
+// view) the runs of item 3 in the header, in the order the records follow
+template <int BL, bool PAIR>
 __global__ void __launch_bounds__(THREADS)
 block_cosine_prior_bwd_count_kernel(const float* __restrict__ grids,
                                     const int* __restrict__ unions, int* __restrict__ counts,
                                     int V, int H, int W, int R, int S, int NB, int ut) {
   constexpr int WALKS = THREADS / BL;
   extern __shared__ __align__(16) unsigned char smem[];
-  const LayoutCount L(V, ut, S);
+  const LayoutCount L(V, ut, S, PAIR);
   uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
   float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
   int* u_s = reinterpret_cast<int*>(smem + L.unions);
   const int blk = blockIdx.x, tid = threadIdx.x;
   const int samples = BLOCK_RAYS * S;
-  block_prologue(grids, unions, u_s, taps, fracs, V, H, W, S, NB, ut, blk, tid);
+  if constexpr (PAIR)
+    load_unions(unions, u_s, V, NB, ut, blk, tid);
+  else
+    block_prologue(grids, unions, u_s, taps, fracs, V, H, W, S, NB, ut, blk, tid);
   __syncthreads();
   for (int t = tid; t < WALKS * V; t += THREADS) {
     const int grp = t / V, v = t - grp * V;
@@ -906,7 +1041,15 @@ block_cosine_prior_bwd_count_kernel(const float* __restrict__ grids,
     for (int i = 0; i < walk.nd * BLOCK_RAYS; ++i) {
       const int nl = walk.sample(i, S);
       if (nl < 0) continue;
-      const SlotTaps st = slot_taps(taps[v * samples + nl], fracs[v * samples + nl]);
+      uint2 tap;
+      float2 fr;
+      if constexpr (PAIR) {
+        slot_tap(grids, u_s + v * ut, v, nl, H, W, S, NB, ut, blk, tap, fr);
+      } else {
+        tap = taps[v * samples + nl];
+        fr = fracs[v * samples + nl];
+      }
+      const SlotTaps st = slot_taps(tap, fr);
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
         if (st.row[s] != key[s]) {
@@ -921,18 +1064,19 @@ block_cosine_prior_bwd_count_kernel(const float* __restrict__ grids,
   }
 }
 
-template <int CPL, int BL>
+// bufs: the row buffers (LayoutPass); PAIR: the pair layout
+template <int CPL, int BL, bool PAIR>
 __global__ void __launch_bounds__(THREADS)
 block_cosine_prior_bwd_kernel(const float* __restrict__ table,
                               const float* __restrict__ grids,
                               const int* __restrict__ unions, const float* __restrict__ gout,
                               const int* __restrict__ starts, float* __restrict__ rec,
                               int* __restrict__ keys, int V, int H, int W, int G, int R, int S,
-                              int NB, int ut) {
+                              int NB, int ut, int bufs) {
   constexpr int CP = CPL * BL;
   constexpr int WALKS = THREADS / BL;                   // sample groups, one walk each
   extern __shared__ __align__(16) unsigned char smem[];
-  const LayoutPass L(V, ut, S, CP);
+  const LayoutPass L(V, ut, S, CP, PAIR, bufs);
   float* rows = reinterpret_cast<float*>(smem + L.rows);
   uint2* taps = reinterpret_cast<uint2*>(smem + L.taps);
   float2* fracs = reinterpret_cast<float2*>(smem + L.fracs);
@@ -955,26 +1099,44 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
   const float inv_p = 1.f / (float)P;      // the mean over the pairs
   const size_t buffer = 2 * (size_t)(ut + 1) * CP;      // floats of one row buffer
   const int* first = starts + ((size_t)blk * WALKS + grp) * V;
-  block_prologue(grids, unions, u_s, taps, fracs, V, H, W, S, NB, ut, blk, tid);
+  if constexpr (PAIR)
+    load_unions(unions, u_s, V, NB, ut, blk, tid);
+  else
+    block_prologue(grids, unions, u_s, taps, fracs, V, H, W, S, NB, ut, blk, tid);
   __syncthreads();                         // the union, for the first staging
   issue_rows(table, u_s, rows, V, H, W, ut, CP, 0, 0, tid);
   const float* gb = gout + (size_t)blk * BLOCK_RAYS * S * G;
   const int per_pair = C / CP, passes = P * per_pair;
+  int held = -1;                           // PAIR: the view whose taps slot 0 holds
 
 #pragma unroll 1
   for (int k = 0; k < passes; ++k) {
     const int p = k / per_pair, c0 = (k % per_pair) * CP;
     const int vi = pair_first(V, p), vj = pair_second(V, p);
     const int ca = vj - 1, cb = vi;
+    const int si = PAIR ? 0 : vi, sj = PAIR ? 1 : vj;     // their taps' slots
     __syncthreads();                       // every walk is done with pass k - 1's buffer
-    if (k + 1 < passes)
-      issue_rows(table, u_s, rows + ((k + 1) & 1) * buffer, V, H, W, ut, CP,
-                 (k + 1) / per_pair, ((k + 1) % per_pair) * CP, tid);
+    const int next = bufs == 2 ? k + 1 : k;               // the pass whose rows go now
+    if (next > 0 && next < passes)
+      issue_rows(table, u_s, rows + (next % bufs) * buffer, V, H, W, ut, CP, next / per_pair,
+                 (next % per_pair) * CP, tid);
     else
       asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    if constexpr (PAIR) {
+      if (c0 == 0) {                       // while rows are in flight
+        if (vi != held)
+          slot_taps_of(grids, u_s, taps, fracs, vi, 1, H, W, S, NB, ut, blk, tid);
+        slot_taps_of(grids, u_s, taps + samples, fracs + samples, vj, 1, H, W, S, NB, ut, blk,
+                     tid);
+        held = vi;
+      }
+    }
+    if (bufs == 2)
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    else
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();                       // pass k's rows staged
-    const float* rows_a = rows + (k & 1) * buffer;
+    const float* rows_a = rows + (k % bufs) * buffer;
     const float* rows_b = rows_a + (size_t)(ut + 1) * CP;
     const int group = (c0 + o) / gsize;
     Records out[2] = {{rec, keys, u_s + vi * ut, first[vi], CC, ca * C + c0 + o,
@@ -993,8 +1155,8 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
     for (int i = 0; i < walk.nd * BLOCK_RAYS; ++i) {
       const int nl = walk.sample(i, S);
       if (nl < 0) continue;
-      const SlotTaps ta = slot_taps(taps[vi * samples + nl], fracs[vi * samples + nl]);
-      const SlotTaps tb = slot_taps(taps[vj * samples + nl], fracs[vj * samples + nl]);
+      const SlotTaps ta = slot_taps(taps[si * samples + nl], fracs[si * samples + nl]);
+      const SlotTaps tb = slot_taps(taps[sj * samples + nl], fracs[sj * samples + nl]);
       float fa[CPL], fb[CPL];
       interp_rows<CPL>(rows_a, CP, ta, o, fa);
       interp_rows<CPL>(rows_b, CP, tb, o, fb);
@@ -1026,36 +1188,37 @@ block_cosine_prior_bwd_kernel(const float* __restrict__ table,
   }
 }
 
-template <int BL>
+template <int BL, bool PAIR>
 int launch_bwd_count(const void* grids, const void* unions, void* counts, int V, int H, int W,
                      int R, int S, int NB, int ut, cudaStream_t stream) {
-  const LayoutCount L(V, ut, S);
+  const LayoutCount L(V, ut, S, PAIR);
   if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      block_cosine_prior_bwd_count_kernel<BL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
+      block_cosine_prior_bwd_count_kernel<BL, PAIR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
-  block_cosine_prior_bwd_count_kernel<BL><<<NB, THREADS, L.total, stream>>>(
+  block_cosine_prior_bwd_count_kernel<BL, PAIR><<<NB, THREADS, L.total, stream>>>(
       static_cast<const float*>(grids), static_cast<const int*>(unions),
       static_cast<int*>(counts), V, H, W, R, S, NB, ut);
   return (int)cudaGetLastError();
 }
 
-template <int CPL, int BL>
+template <int CPL, int BL, bool PAIR>
 int launch_bwd(const void* table, const void* grids, const void* unions, const void* g,
                const void* starts, void* rec, void* keys, int V, int H, int W, int G, int R,
                int S, int NB, int ut, cudaStream_t stream) {
-  const LayoutPass L(V, ut, S, CPL * BL);
+  const int bufs = PAIR ? pass_buffers(V, ut, S, CPL * BL) : 2;
+  const LayoutPass L(V, ut, S, CPL * BL, PAIR, bufs);
   if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      block_cosine_prior_bwd_kernel<CPL, BL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
+      block_cosine_prior_bwd_kernel<CPL, BL, PAIR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
-  block_cosine_prior_bwd_kernel<CPL, BL><<<NB, THREADS, L.total, stream>>>(
+  block_cosine_prior_bwd_kernel<CPL, BL, PAIR><<<NB, THREADS, L.total, stream>>>(
       static_cast<const float*>(table), static_cast<const float*>(grids),
       static_cast<const int*>(unions), static_cast<const float*>(g),
       static_cast<const int*>(starts), static_cast<float*>(rec), static_cast<int*>(keys), V, H,
-      W, G, R, S, NB, ut);
+      W, G, R, S, NB, ut, bufs);
   return (int)cudaGetLastError();
 }
 
@@ -1065,14 +1228,15 @@ bool args_ok(int views, int channels, int H, int W, int R, int S, int ut, int G,
          (CP == 32 || CP == 64 || CP == 128) && G * CP >= C && G * CP <= 16 * C;
 }
 
-template <typename TG, typename TS, int CP>
+template <typename TG, typename TS, int CP, bool PAIR>
 int launch_fwd(const void* table, const void* grids, const void* scales, void* unions_out,
                void* out, int V, int H, int W, int G, int R, int S, int ut,
                cudaStream_t stream) {
-  const LayoutFwd L(V, ut, S, CP, sizeof(TS), H * W);
+  const LayoutFwd L(V, ut, S, CP, sizeof(TS), H * W, PAIR);
   if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kernel = V > MAX_V ? block_cosine_prior_kernel<TG, TS, CP, true>
-                          : block_cosine_prior_kernel<TG, TS, CP, false>;
+  auto kernel = PAIR ? block_cosine_prior_kernel<TG, TS, CP, false, true>
+                : V > MAX_V ? block_cosine_prior_kernel<TG, TS, CP, true, false>
+                            : block_cosine_prior_kernel<TG, TS, CP, false, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
@@ -1083,8 +1247,9 @@ int launch_fwd(const void* table, const void* grids, const void* scales, void* u
   return (int)cudaGetLastError();
 }
 
-// TG: the table's element type, TS: the staged one; scales only with int8
-template <typename TG, typename TS>
+// TG: the table's element type, TS: the staged one; scales only with int8;
+// PAIR: the pair layout
+template <typename TG, typename TS, bool PAIR>
 int dispatch_fwd(const void* table, const void* grids, const void* scales, void* unions_out,
                  void* out, int views, int H, int W, int channels, int G, int R, int S,
                  int ut, int CP, void* stream) {
@@ -1093,13 +1258,46 @@ int dispatch_fwd(const void* table, const void* grids, const void* scales, void*
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (CP == 128)
-    return launch_fwd<TG, TS, 128>(table, grids, scales, unions_out, out, views, H, W, G, R,
-                                   S, ut, st);
+    return launch_fwd<TG, TS, 128, PAIR>(table, grids, scales, unions_out, out, views, H, W,
+                                         G, R, S, ut, st);
   if (CP == 64)
-    return launch_fwd<TG, TS, 64>(table, grids, scales, unions_out, out, views, H, W, G, R,
-                                  S, ut, st);
-  return launch_fwd<TG, TS, 32>(table, grids, scales, unions_out, out, views, H, W, G, R, S,
-                                ut, st);
+    return launch_fwd<TG, TS, 64, PAIR>(table, grids, scales, unions_out, out, views, H, W,
+                                        G, R, S, ut, st);
+  return launch_fwd<TG, TS, 32, PAIR>(table, grids, scales, unions_out, out, views, H, W, G,
+                                      R, S, ut, st);
+}
+
+int dispatch_bwd_count(const void* grids, const void* unions, void* counts, int views, int H,
+                       int W, int R, int S, int NB, int ut, int CP, bool pair, void* stream) {
+  if (!args_ok(views, C, H, W, R, S, ut, 8, CP) || NB * BLOCK_RAYS < R)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pair)
+    return CP == 32 ? launch_bwd_count<8, true>(grids, unions, counts, views, H, W, R, S, NB,
+                                                ut, st)
+                    : launch_bwd_count<16, true>(grids, unions, counts, views, H, W, R, S, NB,
+                                                 ut, st);
+  return CP == 32 ? launch_bwd_count<8, false>(grids, unions, counts, views, H, W, R, S, NB,
+                                               ut, st)
+                  : launch_bwd_count<16, false>(grids, unions, counts, views, H, W, R, S, NB,
+                                                ut, st);
+}
+
+template <bool PAIR>
+int dispatch_bwd(const void* table, const void* grids, const void* unions, const void* g,
+                 const void* starts, void* rec, void* keys, int views, int H, int W,
+                 int channels, int G, int R, int S, int NB, int ut, int CP, void* stream) {
+  if (!args_ok(views, channels, H, W, R, S, ut, G, CP) || NB * BLOCK_RAYS < R)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (CP == 128)
+    return launch_bwd<8, 16, PAIR>(table, grids, unions, g, starts, rec, keys, views, H, W, G,
+                                   R, S, NB, ut, st);
+  if (CP == 64)
+    return launch_bwd<4, 16, PAIR>(table, grids, unions, g, starts, rec, keys, views, H, W, G,
+                                   R, S, NB, ut, st);
+  return launch_bwd<4, 8, PAIR>(table, grids, unions, g, starts, rec, keys, views, H, W, G, R,
+                                S, NB, ut, st);
 }
 
 }  // namespace
@@ -1107,15 +1305,15 @@ int dispatch_fwd(const void* table, const void* grids, const void* scales, void*
 // The forward entries: table [V,H,W,(V-1)C] (V = 2 to 16), grids [V,R,S,2]
 // f32, scales [V,(V-1)C] f32 (int8 tables) or NULL, unions_out
 // [V*ceil(R/8), ut] int32 or NULL, out [R,S,G] f32; CP channels staged per
-// pass.
+// pass. The `_pair` entries take the same arguments and run the pair layout.
 
 // Kernel D on int8 tables (configs/test.yaml's eval render)
 extern "C" int block_cosine_prior_i8(const void* table, const void* grids, const void* scales,
                                      void* unions_out, void* out, int views, int H, int W,
                                      int channels, int G, int R, int S, int ut, int CP,
                                      void* stream) {
-  return dispatch_fwd<int8_t, uint16_t>(table, grids, scales, unions_out, out, views, H, W,
-                                        channels, G, R, S, ut, CP, stream);
+  return dispatch_fwd<int8_t, uint16_t, false>(table, grids, scales, unions_out, out, views,
+                                               H, W, channels, G, R, S, ut, CP, stream);
 }
 
 // Kernel D on bf16 tables (the eval renders of configs/train.yaml)
@@ -1123,8 +1321,8 @@ extern "C" int block_cosine_prior_bf16(const void* table, const void* grids,
                                        const void* scales, void* unions_out, void* out,
                                        int views, int H, int W, int channels, int G, int R,
                                        int S, int ut, int CP, void* stream) {
-  return dispatch_fwd<uint16_t, uint16_t>(table, grids, scales, unions_out, out, views, H, W,
-                                          channels, G, R, S, ut, CP, stream);
+  return dispatch_fwd<uint16_t, uint16_t, false>(table, grids, scales, unions_out, out, views,
+                                                 H, W, channels, G, R, S, ut, CP, stream);
 }
 
 // D''s forward on f32 tables, with the union for its backward
@@ -1132,8 +1330,32 @@ extern "C" int block_cosine_prior_f32(const void* table, const void* grids,
                                       const void* scales, void* unions_out, void* out,
                                       int views, int H, int W, int channels, int G, int R,
                                       int S, int ut, int CP, void* stream) {
-  return dispatch_fwd<float, float>(table, grids, scales, unions_out, out, views, H, W,
-                                    channels, G, R, S, ut, CP, stream);
+  return dispatch_fwd<float, float, false>(table, grids, scales, unions_out, out, views, H, W,
+                                           channels, G, R, S, ut, CP, stream);
+}
+
+extern "C" int block_cosine_prior_pair_i8(const void* table, const void* grids,
+                                          const void* scales, void* unions_out, void* out,
+                                          int views, int H, int W, int channels, int G, int R,
+                                          int S, int ut, int CP, void* stream) {
+  return dispatch_fwd<int8_t, uint16_t, true>(table, grids, scales, unions_out, out, views, H,
+                                              W, channels, G, R, S, ut, CP, stream);
+}
+
+extern "C" int block_cosine_prior_pair_bf16(const void* table, const void* grids,
+                                            const void* scales, void* unions_out, void* out,
+                                            int views, int H, int W, int channels, int G,
+                                            int R, int S, int ut, int CP, void* stream) {
+  return dispatch_fwd<uint16_t, uint16_t, true>(table, grids, scales, unions_out, out, views,
+                                                H, W, channels, G, R, S, ut, CP, stream);
+}
+
+extern "C" int block_cosine_prior_pair_f32(const void* table, const void* grids,
+                                           const void* scales, void* unions_out, void* out,
+                                           int views, int H, int W, int channels, int G, int R,
+                                           int S, int ut, int CP, void* stream) {
+  return dispatch_fwd<float, float, true>(table, grids, scales, unions_out, out, views, H, W,
+                                          channels, G, R, S, ut, CP, stream);
 }
 
 #ifdef KERNEL_D_PHASES
@@ -1152,12 +1374,15 @@ extern "C" int block_cosine_prior_phases(void* dst) {
 extern "C" int block_cosine_prior_bwd_count(const void* grids, const void* unions, void* counts,
                                             int views, int H, int W, int R, int S, int NB,
                                             int ut, int CP, void* stream) {
-  if (!args_ok(views, C, H, W, R, S, ut, 8, CP) || NB * BLOCK_RAYS < R)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (CP == 32)
-    return launch_bwd_count<8>(grids, unions, counts, views, H, W, R, S, NB, ut, st);
-  return launch_bwd_count<16>(grids, unions, counts, views, H, W, R, S, NB, ut, st);
+  return dispatch_bwd_count(grids, unions, counts, views, H, W, R, S, NB, ut, CP, false,
+                            stream);
+}
+
+extern "C" int block_cosine_prior_bwd_count_pair(const void* grids, const void* unions,
+                                                 void* counts, int views, int H, int W, int R,
+                                                 int S, int NB, int ut, int CP, void* stream) {
+  return dispatch_bwd_count(grids, unions, counts, views, H, W, R, S, NB, ut, CP, true,
+                            stream);
 }
 
 // D''s records: as the count pass, with the table, g [R,S,G] f32
@@ -1169,15 +1394,16 @@ extern "C" int block_cosine_prior_bwd_f32(const void* table, const void* grids,
                                           void* rec, void* keys, int views, int H, int W,
                                           int channels, int G, int R, int S, int NB, int ut,
                                           int CP, void* stream) {
-  if (!args_ok(views, channels, H, W, R, S, ut, G, CP) || NB * BLOCK_RAYS < R)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (CP == 128)
-    return launch_bwd<8, 16>(table, grids, unions, g, starts, rec, keys, views, H, W, G, R, S,
-                             NB, ut, st);
-  if (CP == 64)
-    return launch_bwd<4, 16>(table, grids, unions, g, starts, rec, keys, views, H, W, G, R, S,
-                             NB, ut, st);
-  return launch_bwd<4, 8>(table, grids, unions, g, starts, rec, keys, views, H, W, G, R, S, NB,
-                          ut, st);
+  return dispatch_bwd<false>(table, grids, unions, g, starts, rec, keys, views, H, W, channels,
+                             G, R, S, NB, ut, CP, stream);
+}
+
+extern "C" int block_cosine_prior_bwd_f32_pair(const void* table, const void* grids,
+                                               const void* unions, const void* g,
+                                               const void* starts, void* rec, void* keys,
+                                               int views, int H, int W, int channels, int G,
+                                               int R, int S, int NB, int ut, int CP,
+                                               void* stream) {
+  return dispatch_bwd<true>(table, grids, unions, g, starts, rec, keys, views, H, W, channels,
+                            G, R, S, NB, ut, CP, stream);
 }

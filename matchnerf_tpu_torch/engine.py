@@ -215,7 +215,10 @@ class Coach:
                        for k in ("extrinsics", "intrinsics", "near_fars"))
         if key not in self._route_cache:
             H, W, _ = self.train_hw
-            up = int(cfg.encoder.upsample_factor)
+            # the second table's scale: the upsampler's, or the transformer's
+            # own with feature_upsampler: none
+            up = (int(cfg.encoder.upsample_factor)
+                  if cfg.encoder.get("feature_upsampler", "network") == "network" else 1)
             enc_h, enc_w = encoder_input_hw(H, W)
             scale_hws = [(enc_h // 8, enc_w // 8), (enc_h // 8 * up, enc_w // 8 * up)]
             block_ut, _ = self.renderer.pose_prep(extract_poses(batch), scale_hws, H, W)

@@ -72,11 +72,16 @@ SIGNATURES = {
     "block_cosine_prior_i8": [_P] * 5 + [_I] * 9 + [_P],
     "block_cosine_prior_f32": [_P] * 5 + [_I] * 9 + [_P],
     "block_cosine_prior_bf16": [_P] * 5 + [_I] * 9 + [_P],
+    "block_cosine_prior_pair_i8": [_P] * 5 + [_I] * 9 + [_P],     # the pair layout's
+    "block_cosine_prior_pair_f32": [_P] * 5 + [_I] * 9 + [_P],
+    "block_cosine_prior_pair_bf16": [_P] * 5 + [_I] * 9 + [_P],
     # grids, unions, counts, V, H, W, R, S, NB, ut, CP, stream
     "block_cosine_prior_bwd_count": [_P] * 3 + [_I] * 8 + [_P],
+    "block_cosine_prior_bwd_count_pair": [_P] * 3 + [_I] * 8 + [_P],
     # table, grids, unions, g, starts, rec, keys, V, H, W, C, G, R, S, NB,
     # ut, CP, stream
     "block_cosine_prior_bwd_f32": [_P] * 7 + [_I] * 10 + [_P],
+    "block_cosine_prior_bwd_f32_pair": [_P] * 7 + [_I] * 10 + [_P],
     # colors_sc, grids, out, V, Hs, Ws, img_h, img_w, N (= R*S), stream
     "supercell_color_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # rows, weights, scales (or NULL), out, V, C, G, N, stream

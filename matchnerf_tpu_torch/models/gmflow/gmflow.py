@@ -5,10 +5,13 @@ ImageNet normalisation, the shared CNN backbone over all views, the
 C(V,2) ordered-pair expansion, per-window sine position embedding, the
 feature transformer and the two-branch upsampler. `extract_pair_features`
 returns per-scale [B,P,2,h,w,C] stacks (raw 1/8 scale first, then the
-upsampled scale) as the JAX package does. With `num_scales` 2 to 4 the
-backbone's trident branches give one map per scale (gmflow.py:38-44, 81,
-146-151), taken low to high resolution, one per entry of attn_splits_list
-(a longer list repeats the last); MatchNeRF's encoder has one scale.
+upsampled scale) as the JAX package does; with `feature_upsampler` other
+than "network" (configs' `none`) the encoder has no `featup_net` and the
+second stack is the transformer's features again (gmflow.py:49,
+:184-193). With `num_scales` 2 to 4 the backbone's trident branches give
+one map per scale (gmflow.py:38-44, 81, 146-151), taken low to high
+resolution, one per entry of attn_splits_list (a longer list repeats the
+last); MatchNeRF's encoder has one scale.
 
 bf16 policy (gmflow.py:110-114,195-196): with compute_dtype=bfloat16 the
 weights are cast per call (ops/nn.py) and activations run in bf16, norm and
@@ -69,10 +72,9 @@ class GMFlow(nn.Module):
         self.transformer = FeatureTransformer(num_layers=num_transformer_layers,
                                               d_model=feature_channels,
                                               ffn_dim_expansion=ffn_dim_expansion)
-        if feature_upsampler != "network":
-            raise NotImplementedError(f"feature_upsampler {feature_upsampler!r}")
-        self.featup_net = UpSampler(n_feat=feature_channels,
-                                    upsample_factor=upsample_factor)
+        if feature_upsampler == "network":
+            self.featup_net = UpSampler(n_feat=feature_channels,
+                                        upsample_factor=upsample_factor)
 
 
 def _add_position(feat: torch.Tensor, attn_splits: int, channels: int):
@@ -150,6 +152,9 @@ def extract_pair_features(enc: GMFlow, images: torch.Tensor, attn_splits_list,
                                        shard_streams=shard_streams)
         out_scales.append(torch.stack([feat0, feat1], dim=1)
                           .reshape(b, n_pairs, 2, h, w, C))
+        if not hasattr(enc, "featup_net"):          # feature_upsampler: none
+            out_scales.append(out_scales[-1])
+            continue
         merged = torch.cat([feat0, feat1], dim=0).permute(0, 3, 1, 2)
         if shard_streams:
             n = merged.shape[0]

@@ -14,8 +14,13 @@ also reaches it on bf16 eval tables, whose forward is Kernel D's). The
 CUDA source is csrc/block_cosine_prior.cu; `block_cosine_prior_plain` is
 the same function in plain PyTorch, along the same union route, and its
 autograd is the plain backward. Union rows are staged in passes of
-`channels_per_pass` channels (int8 rows as bf16); a (ut, G) that no pass
-width fits (`takes_bf16` / `takes_f32` False) takes Kernel B (B') instead.
+`channels_per_pass` channels (int8 rows as bf16). The kernels have two
+shared-memory layouts (`plan`): one holds every view's taps and fractions
+for the whole block, the pair layout only the current pair's two views'
+(searched in the views' unions again as the pair changes), so its bytes do
+not grow with the views but by the unions; the route takes the first where
+it fits. A (ut, G) that neither fits (`takes_bf16` / `takes_f32` False)
+takes Kernel B (B') instead.
 
 It computes what Kernel B (ops/cosine_prior.py) computes: for every sample
 the bilinear sample (align corners, border clamp) of each view's unpacked
@@ -42,7 +47,7 @@ measurement (`Renderer.pose_prep`).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -52,9 +57,12 @@ from .cosine_prior import (RecordCount, check_table, pair_cosine_mean,
 from .grid_sample import bilinear_taps, take_rows
 
 SOURCE = "matchnerf_tpu_torch/csrc/block_cosine_prior.cu"
-# the forward's C launcher per table dtype
+# the forward's C launcher per table dtype, and the pair layout's
 ENTRIES = {torch.int8: "block_cosine_prior_i8", torch.bfloat16: "block_cosine_prior_bf16",
            torch.float32: "block_cosine_prior_f32"}
+PAIR_ENTRIES = {torch.int8: "block_cosine_prior_pair_i8",
+                torch.bfloat16: "block_cosine_prior_pair_bf16",
+                torch.float32: "block_cosine_prior_pair_f32"}
 COUNTER = kernels.LaunchCounter(
     "block_cosine_prior", source=SOURCE,
     replaces="matchnerf_tpu/ops/pallas_block_banded.py:413")
@@ -71,62 +79,103 @@ UT_BUCKETS = (64, 96, 128, 160, 192, 256, 320, 384, 512)
 MAX_SMEM = 232448                 # bytes of shared memory a block may have (sm_90)
 
 
-def per_view_smem(ut: int, S: int, n_views: int) -> int:
-    """Bytes of shared memory that grow with the views, in both kernels'
-    layouts: each (view, sample)'s taps (uint2) and fractions (float2),
-    and each view's union [ut] int32."""
-    return n_views * (BLOCK_RAYS * S * 16 + ut * 4)
+def per_view_smem(ut: int, S: int, n_views: int, pair: bool = False) -> int:
+    """Bytes of shared memory that the views take in both kernels' layouts:
+    the taps (uint2) and fractions (float2) of each (view, sample), of the
+    current pair's two views only in the pair layout, and each view's union
+    [ut] int32."""
+    return (2 if pair else n_views) * BLOCK_RAYS * S * 16 + n_views * ut * 4
 
 
-def fwd_smem(ut: int, S: int, cp: int, itemsize: int, hw: int = 0, n_views: int = 3) -> int:
+def fwd_smem(ut: int, S: int, cp: int, itemsize: int, hw: int = 0, n_views: int = 3,
+             pair: bool = False) -> int:
     """Bytes of the forward kernel's dynamic shared memory (csrc LayoutFwd)
     for n_views views: the two sides' staged rows, or the union build's
-    bitmaps and prefix counts of an hw-cell table where they are larger,
-    then the taps, the fractions and the union."""
+    bitmaps and prefix counts of an hw-cell table where they are larger (of
+    every view at once; of one view in the pair layout, which builds the
+    unions view by view), then the taps, the fractions and the unions."""
     staged = 2 * (ut + 1) * cp * itemsize
-    scratch = (2 * n_views * ((hw + 31) // 32) + 32) * 4
-    return -(-max(staged, scratch) // 16) * 16 + per_view_smem(ut, S, n_views)
+    scratch = (2 * (1 if pair else n_views) * ((hw + 31) // 32) + 32) * 4
+    return -(-max(staged, scratch) // 16) * 16 + per_view_smem(ut, S, n_views, pair)
 
 
-def bwd_smem(ut: int, S: int, cp: int, n_views: int = 3) -> int:
-    """Bytes of D''s backward's dynamic shared memory (csrc LayoutPass): two
-    buffers of the two sides' f32 rows (this pass's and the next one's),
-    then the taps, the fractions and the union."""
-    return 4 * (ut + 1) * cp * 4 + per_view_smem(ut, S, n_views)
+def bwd_smem(ut: int, S: int, cp: int, n_views: int = 3, pair: bool = False,
+             bufs: int = 2) -> int:
+    """Bytes of D''s backward's dynamic shared memory (csrc LayoutPass):
+    `bufs` buffers of the two sides' f32 rows (two: this pass's and the next
+    one's), then the taps, the fractions and the unions."""
+    return 2 * bufs * (ut + 1) * cp * 4 + per_view_smem(ut, S, n_views, pair)
+
+
+def pass_buffers(ut: int, S: int, cp: int, n_views: int) -> int:
+    """The pair layout's row buffers in D''s backward (csrc pass_buffers):
+    two where they fit, else one."""
+    return 2 if bwd_smem(ut, S, cp, n_views, True, 2) <= MAX_SMEM else 1
 
 
 def channels_per_pass(ut: int, S: int, n_groups: int, backward: bool,
-                      itemsize: int = 4, hw: int = 0, n_views: int = 3) -> Optional[int]:
+                      itemsize: int = 4, hw: int = 0, n_views: int = 3,
+                      pair: bool = False) -> Optional[int]:
     """Channels per staging pass of the forward kernel (itemsize 4: f32
     rows; 2: bf16 rows, which int8 tables stage as too; csrc LayoutFwd,
     whose union build needs room for bitmaps of the table's hw cells) and of
     D''s backward (f32, csrc LayoutPass, which reads the forward's union),
-    for n_views source views: the widest of 128, 64, 32 whose shared memory
-    fits, with each cosine group inside one pass; None when none does."""
-    for cp in (128, 64, 32):
-        if not 128 <= n_groups * cp <= 2048:
-            continue
-        total = (bwd_smem(ut, S, cp, n_views) if backward
-                 else fwd_smem(ut, S, cp, itemsize, hw, n_views))
-        if total <= MAX_SMEM:
-            return cp
+    for n_views source views in one layout (`pair`: the pair layout): the
+    widest of 128, 64, 32 whose shared memory fits, with each cosine group
+    inside one pass; None when none does. The pair layout's backward takes
+    one row buffer where two fit at no width (then `pass_buffers` is 1)."""
+    for bufs in (2, 1) if backward and pair else (2,):
+        for cp in (128, 64, 32):
+            if _fits(ut, S, n_groups, backward, itemsize, hw, n_views, cp, pair, bufs):
+                return cp
+    return None
+
+
+def _fits(ut: int, S: int, n_groups: int, backward: bool, itemsize: int, hw: int,
+          n_views: int, cp: int, pair: bool, bufs: int) -> bool:
+    """Whether a pass of cp channels holds each cosine group and fits the
+    block's shared memory in this layout."""
+    if not 128 <= n_groups * cp <= 2048:
+        return False
+    return (bwd_smem(ut, S, cp, n_views, pair, bufs) if backward
+            else fwd_smem(ut, S, cp, itemsize, hw, n_views, pair)) <= MAX_SMEM
+
+
+class Plan(NamedTuple):
+    """How one kernel call runs: `cp` channels a staging pass, the `pair`
+    layout or the one that holds every view's taps, and (D''s backward)
+    `bufs` row buffers."""
+    cp: int
+    pair: bool
+    bufs: int = 2
+
+
+def plan(ut: int, S: int, n_groups: int, backward: bool, itemsize: int = 4, hw: int = 0,
+         n_views: int = 3) -> Optional[Plan]:
+    """The route's layout for one call, decided from the bytes before any
+    launch: the layout that holds every view's taps wherever it fits (the
+    bits of earlier builds), else the pair layout; None when neither fits."""
+    for p in (False, True):
+        cp = channels_per_pass(ut, S, n_groups, backward, itemsize, hw, n_views, p)
+        if cp is not None:
+            return Plan(cp, p, pass_buffers(ut, S, cp, n_views) if backward and p else 2)
     return None
 
 
 def takes_f32(ut: int, S: int, n_groups: int, hw: int = 0, n_views: int = 3) -> bool:
     """Whether D' (forward and backward) takes f32 tables of hw cells and
-    n_views views at this bucket."""
-    return (channels_per_pass(ut, S, n_groups, False, hw=hw, n_views=n_views) is not None
-            and channels_per_pass(ut, S, n_groups, True, n_views=n_views) is not None)
+    n_views views at this bucket, in either layout."""
+    return (plan(ut, S, n_groups, False, hw=hw, n_views=n_views) is not None
+            and plan(ut, S, n_groups, True, n_views=n_views) is not None)
 
 
 def takes_bf16(ut: int, S: int, n_groups: int, hw: int = 0, n_views: int = 3) -> bool:
     """Whether Kernel D's staging of 16-bit rows (bf16 tables, and int8
     tables, whose rows it stages as bf16) and its union build over hw cells
-    of n_views views fit at this bucket. At G >= 2, S = 128 and 3 views
-    every bucket fits; at G = 1 (one 128-channel pass) ut >= 384 does not."""
-    return channels_per_pass(ut, S, n_groups, False, itemsize=2, hw=hw,
-                             n_views=n_views) is not None
+    of n_views views fit at this bucket, in either layout. At G >= 2, S =
+    64 to 256 and V = 2 to 16 every bucket of a DTU table fits; at G = 1
+    (one 128-channel pass) ut >= 384 at S = 128 does not."""
+    return plan(ut, S, n_groups, False, itemsize=2, hw=hw, n_views=n_views) is not None
 
 
 def takes_table(table, scales, ut: int, S: int, n_groups: int) -> bool:
@@ -135,19 +184,16 @@ def takes_table(table, scales, ut: int, S: int, n_groups: int) -> bool:
     its block kernel at every bucket (matchnerf.py:336-376: int8 tables with
     scales through `block_banded_cosine_scale`, f32 and bf16 tables without
     through `block_banded_cosine_scale_trainable`); here each table type
-    takes it where the kernel's shared memory holds its staging and the
-    union build's bitmaps of the table's h*w cells (int8 and bf16:
-    `takes_bf16`; f32: `takes_f32`), Kernel B elsewhere. The bitmaps bound
-    the table to about 236k cells at S = 128 and 170k at S = 256 (ut 512).
+    takes it where one of the kernel's layouts (`plan`) holds its staging
+    and the union build's bitmaps of the table's h*w cells in shared memory
+    (int8 and bf16: `takes_bf16`; f32: `takes_f32`), Kernel B elsewhere.
 
-    int8 tables take Kernel D wherever its earlier int8 staging (one byte a
-    row element, an [8S, G] f32 accumulator) fit, except at G = 1 with
-    (S = 128, ut 384 and 512) and (S = 256, ut 256 to 384), where the bf16
-    staging does not fit and Kernel B runs; every configuration in configs/
-    has G = 2 and 8 (`cos_n_group`). The views are the table's first
-    dimension: a fourth view's taps, fractions and union narrow the passes
-    (V = 4 at S = 128 and G = 8 stages 64 channels from ut 320, and D' at
-    ut 160 and G = 2 fits no pass)."""
+    At G = 2 and 8 (every configuration in configs/: `cos_n_group`) int8
+    and bf16 tables take Kernel D at every bucket for S = 64 to 256 and V =
+    2 to 16; f32 tables take D' at S = 128 up to ut 320 at G = 2 and 512 at
+    G = 8 (the pair layout's single row buffer). At G = 1 wide buckets take
+    Kernel B (128 bf16 channels of both sides at ut 512 are 262,656 B). The
+    views are the table's first dimension."""
     if table.dim() != 4:
         raise ValueError(f"takes_table: table {tuple(table.shape)}, one image's [V,h,w,Cc]")
     V, hw = table.shape[0], table.shape[1] * table.shape[2]
@@ -304,7 +350,7 @@ def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
     scales: D', with its backward when autograd records), the plain version
     on CPU tensors.
     The kernel builds each block's union itself: the wrapper launches
-    nothing but the kernel."""
+    nothing but the kernel, in the route's layout (`plan`)."""
     if table.device.type == "cpu":
         return block_cosine_prior_plain(table, grids, scales, n_groups, ut)
     if not table.is_cuda:
@@ -320,9 +366,12 @@ def block_cosine_prior(table, grids, scales, n_groups: int, ut: int):
                      "tables with scales or f32 and bf16 tables without")
 
 
-def _forward(table, grids, scales, n_groups: int, ut: int, with_unions: bool = False):
+def _forward(table, grids, scales, n_groups: int, ut: int, with_unions: bool = False,
+             layout: Optional[Plan] = None):
     """Kernel D (int8, bf16 tables) or D''s forward (f32) -> (out [R,S,G],
-    the union [V*ceil(R/8), ut] int32 the kernel built, or None)."""
+    the union [V*ceil(R/8), ut] int32 the kernel built, or None), in the
+    route's layout (`plan`) or in `layout` (both layouts give the same bits
+    at the same pass width)."""
     check_table("block_cosine_prior", table)
     V, H, W, Cc = table.shape
     R, S = grids.shape[1:3]
@@ -345,21 +394,43 @@ def _forward(table, grids, scales, n_groups: int, ut: int, with_unions: bool = F
     if table.data_ptr() % 16:
         raise ValueError("block_cosine_prior: the table must be 16-byte aligned")
     itemsize = 4 if table.dtype == torch.float32 else 2      # int8 rows stage as bf16
-    cp = channels_per_pass(ut, S, n_groups, False, itemsize, H * W, V)
-    if cp is None:
+    how = _checked(layout, ut, S, n_groups, False, itemsize, H * W, V)
+    if how is None:
         raise ValueError(f"block_cosine_prior: {table.dtype} tables of {V} views of {H}x{W} "
                          f"cells at ut={ut}, S={S}, G={n_groups} exceed the block's shared "
-                         "memory")
+                         "memory" + ("" if layout is None else f" in {layout}"))
     out = torch.empty(R, S, n_groups, dtype=torch.float32, device=table.device)
     NB = -(-R // BLOCK_RAYS)
     unions = (torch.empty(V * NB, ut, dtype=torch.int32, device=table.device)
               if with_unions else None)
     if R > 0:
         counter = F32_COUNTER if table.dtype == torch.float32 else COUNTER
-        kernels.launch(counter, ENTRIES[table.dtype], table.data_ptr(), grids.data_ptr(),
-                       kernels.ptr(scales), kernels.ptr(unions), out.data_ptr(), V, H, W,
-                       Cc // (V - 1), n_groups, R, S, ut, cp)
+        kernels.launch(counter, (PAIR_ENTRIES if how.pair else ENTRIES)[table.dtype],
+                       table.data_ptr(), grids.data_ptr(), kernels.ptr(scales),
+                       kernels.ptr(unions), out.data_ptr(), V, H, W, Cc // (V - 1), n_groups,
+                       R, S, ut, how.cp)
     return out, unions
+
+
+def _checked(layout: Optional[Plan], ut: int, S: int, n_groups: int, backward: bool,
+             itemsize: int, hw: int, V: int) -> Optional[Plan]:
+    """`plan`'s layout, or `layout`'s pass width and layout where they fit
+    (None where not; the backward's row buffers as the kernel picks them)."""
+    if layout is None:
+        return plan(ut, S, n_groups, backward, itemsize, hw, V)
+    bufs = pass_buffers(ut, S, layout.cp, V) if backward and layout.pair else 2
+    if not _fits(ut, S, n_groups, backward, itemsize, hw, V, layout.cp, layout.pair, bufs):
+        return None
+    return Plan(layout.cp, layout.pair, bufs)
+
+
+def _bwd_plan(V: int, S: int, n_groups: int, ut: int, layout: Optional[Plan]) -> Plan:
+    how = _checked(layout, ut, S, n_groups, True, 4, 0, V)
+    if how is None:
+        raise ValueError(f"block_cosine_prior: D''s backward of {V} views at ut={ut}, S={S}, "
+                         f"G={n_groups} exceeds the block's shared memory"
+                         + ("" if layout is None else f" in {layout}"))
+    return how
 
 
 class BlockCosinePriorFn(torch.autograd.Function):
@@ -383,26 +454,31 @@ class BlockCosinePriorFn(torch.autograd.Function):
                 None)
 
 
-def count_runs(table, grids, unions, n_groups: int, ut: int) -> RecordCount:
+def count_runs(table, grids, unions, n_groups: int, ut: int,
+               layout: Optional[Plan] = None) -> RecordCount:
     """D''s count pass over the (edge-padded) grids and the forward's
-    unions; the walks are those of the backward's pass width."""
+    unions, in the backward's layout; the walks are those of its pass
+    width."""
     V, H, W, _ = table.shape
     R, S = grids.shape[1:3]
     gp = pad_rays(grids)
     NB = gp.shape[1] // BLOCK_RAYS
-    cp = channels_per_pass(ut, S, n_groups, backward=True, n_views=V)
-    walks = BWD_THREADS // (8 if cp == 32 else 16)
+    how = _bwd_plan(V, S, n_groups, ut, layout)
+    walks = BWD_THREADS // (8 if how.cp == 32 else 16)
     counts = torch.empty(NB * walks * V, dtype=torch.int32, device=table.device)
-    kernels.call("block_cosine_prior_bwd_count", gp.data_ptr(), unions.data_ptr(),
-                 counts.data_ptr(), V, H, W, R, S, NB, ut, cp)
+    kernels.call("block_cosine_prior_bwd_count_pair" if how.pair
+                 else "block_cosine_prior_bwd_count", gp.data_ptr(), unions.data_ptr(),
+                 counts.data_ptr(), V, H, W, R, S, NB, ut, how.cp)
     return RecordCount(counts)
 
 
-def table_grad(table, grids, unions, g, n_groups: int, ut: int, runs: RecordCount = None):
+def table_grad(table, grids, unions, g, n_groups: int, ut: int, runs: RecordCount = None,
+               layout: Optional[Plan] = None):
     """D''s backward: d_table of the f32 prior for the cotangent g [R,S,G]
     over the forward's unions, the same bits on every run (the count pass,
     unless `runs` holds it, the records, their sum per cell in a fixed
-    order: cosine_prior.table_grad_from_records)."""
+    order: cosine_prior.table_grad_from_records), in the route's layout or
+    in `layout` (the same bits at the same pass width)."""
     V, H, W, Cc = table.shape
     R, S = grids.shape[1:3]
     d_table = torch.zeros_like(table)
@@ -410,13 +486,14 @@ def table_grad(table, grids, unions, g, n_groups: int, ut: int, runs: RecordCoun
         return d_table
     gp = pad_rays(grids)
     NB = gp.shape[1] // BLOCK_RAYS
-    cp = channels_per_pass(ut, S, n_groups, backward=True, n_views=V)
-    runs = runs or count_runs(table, grids, unions, n_groups, ut)
+    how = _bwd_plan(V, S, n_groups, ut, layout)
+    runs = runs or count_runs(table, grids, unions, n_groups, ut, layout)
     n = runs.n()
     rec = torch.empty(n, Cc, dtype=torch.float32, device=table.device)
     keys = torch.empty(n, dtype=torch.int32, device=table.device)
-    kernels.launch(BWD_COUNTER, "block_cosine_prior_bwd_f32", table.data_ptr(), gp.data_ptr(),
+    kernels.launch(BWD_COUNTER, "block_cosine_prior_bwd_f32_pair" if how.pair
+                   else "block_cosine_prior_bwd_f32", table.data_ptr(), gp.data_ptr(),
                    unions.data_ptr(), g.data_ptr(), runs.starts.data_ptr(), rec.data_ptr(),
-                   keys.data_ptr(), V, H, W, Cc // (V - 1), n_groups, R, S, NB, ut, cp)
+                   keys.data_ptr(), V, H, W, Cc // (V - 1), n_groups, R, S, NB, ut, how.cp)
     table_grad_from_records(keys, rec, d_table)
     return d_table

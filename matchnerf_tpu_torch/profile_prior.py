@@ -1,8 +1,9 @@
 """Kernels B, D and F on the card, against another build of their sources.
 
     python -m matchnerf_tpu_torch.profile_prior [--against DIR] [--sass] [--phases]
-        [--views 3,8,10,16]
+        [--views 3,8,10,16] [--ptxas]
     python -m matchnerf_tpu_torch.profile_prior --backward [--against DIR] [--sass]
+        [--views 3,8,10,12,16]
     python -m matchnerf_tpu_torch.profile_prior --fused [--against DIR]
 
 Times the cosine prior of both feature scales at the DTU eval render's
@@ -35,26 +36,37 @@ sources spread over the same arc (`scene_poses(V)`), tables
 f32 samples at their V = 4 size; 4384 at V = 8, 1024 at V = 16); Kernel D
 only at a bucket its shared memory takes at V (`takes_table`), and each
 case's output compared bit for bit with DIR's build where it takes V (a
-build of V = 2 to 8 refuses 9 to 16). Prints the card's name
-and power limit and, as its last line, one JSON object with every number.
+build of V = 2 to 8 refuses 9 to 16; DIR's D is called in the layout that
+holds every view's taps, and refuses a bucket that layout does not fit).
+Where the route runs that layout, Kernel D in the pair layout at the same
+pass width is timed beside it ("pair") and compared bit for bit; where the
+route runs the pair layout, "this" is the pair layout. With `--ptxas`,
+nvcc's registers and spills for every kernel of block_cosine_prior.cu
+first. Prints the card's name and power limit and, as its last line, one
+JSON object with every number.
 
 With `--backward` it times the training prior's table gradient instead,
-at V = 3 and V = 8 source views (the pose's cameras spread over the same
-arc): the B' backward (`ops.cosine_prior.table_grad`: the count pass, the
+at V = 3 and V = 8 source views (`--views`: others; past V = 10 on fewer
+rays, `train_rays`) (the pose's cameras spread over the same arc): the B'
+backward (`ops.cosine_prior.table_grad`: the count pass, the
 records kernel `cosine_prior_bwd_f32`, the sort and the sum) on 1024 iid
 rays of the pose (configs/train.yaml) and D''s backward
 (`ops.block_cosine_prior.table_grad`) on 128 strips of 8 pixels
 (configs/train_fast.yaml), S = 128 with stratified depths, on random f32
 tables of the training shapes ([V,64,80,(V-1)128] at G = 2,
 [V,128,160,(V-1)128] at G = 8), D' at the pose's union buckets at V = 3 and
-at the strips' own bucket at V = 8 (where D' does not take it, training
+at the strips' own bucket past V = 3 (where D' does not take it, training
 takes B' and D' is not timed). Each is the whole backward call on a fresh
 zeroed gradient, held to autograd through its plain twin (max |d| against
 1e-5 of the largest gradient) and to its own second call (bit for bit),
 then timed with CUDA events over 20 calls, in turns with `--against`. DIR
 may hold the earlier atomic build (one launch that adds into a zeroed
 gradient with float4 atomics, `ATOMIC_SIGNATURES`): it is called as it
-was, its zeroing timed with it. Beside the times it counts, on the host,
+was, its zeroing timed with it. A records build (one with the
+count pass) is called through this tree's wrappers on its library, in the
+layout that holds every view's taps, where that fits, and compared bit
+for bit; where the route runs that layout, D''s backward in the pair layout
+at the same pass width is timed and compared beside it ("pair"). Beside the times it counts, on the host,
 what each design issues for these grids: one float4 add per (sample, view,
 tap, 4 channels) without runs; B''s runs for walks of 32, 64 and 128
 consecutive samples (the reuse factor is the quotient; at 64, its records:
@@ -125,6 +137,35 @@ def bind(lib):
             fn.argtypes = sig
             fn.restype = ctypes.c_int
     return lib
+
+
+def ptxas_report() -> list:
+    """(kernel with its template arguments, registers, spill stores, spill
+    loads) per kernel of this tree's block_cosine_prior.cu. The arguments
+    as mangled: I a = int8, t = bf16 bits, f = f32 table; Li64 CP 64 (the
+    backward: CPL, BL); Lb1 the flags (forward: WIDE, PAIR; backward and
+    count pass: PAIR)."""
+    obj = kernels.BUILD_DIR / "block_cosine_prior_ptxas.o"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+           str(kernels.CSRC_DIR / SOURCES[1])]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{proc.stderr[-8000:]}")
+    rows, name, spill = [], None, (0, 0)
+    for line in proc.stderr.splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?\d(block_cosine_prior\w*?_kernel)(I\w*?E)Ev",
+                      line)
+        if m:
+            name = m.group(1) + m.group(2)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spill))
+            name = None
+    return rows
 
 
 def sass_counts(lib_path: str) -> dict:
@@ -249,11 +290,11 @@ def scene_grids(torch, dev, n_views: int = 3):
     return grids_at(pix[:SLICE_RAYS]), grids_at(train_pix), block_ut
 
 
-def train_grids(torch, dev, patches: bool, seed: int, n_views: int = 3):
-    """Grids [V,1024,128,2] of configs/train.yaml's training rays at the pose
-    of `scene_grids` (its cameras, 640x512; `scene_poses(n_views)`): 1024
-    iid pixels, or with `patches` 128 strips of 8 pixels (train_fast.yaml);
-    stratified depths as `TrainStep` draws them."""
+def train_grids(torch, dev, patches: bool, seed: int, n_views: int = 3, R: int = TRAIN_RAYS):
+    """Grids [V,R,128,2] of configs/train.yaml's training rays at the pose
+    of `scene_grids` (its cameras, 640x512; `scene_poses(n_views)`): R
+    (1024) iid pixels, or with `patches` R/8 strips of 8 pixels
+    (train_fast.yaml); stratified depths as `TrainStep` draws them."""
     from . import camera
     from .config import dtu_train_config
     from .models.matchnerf import project_to_views, sample_depth
@@ -263,10 +304,10 @@ def train_grids(torch, dev, patches: bool, seed: int, n_views: int = 3):
     r = Renderer(cfg, None, dev)
     tgt_intr, c2w, tgt_nf, ref_w2c, ref_intr, ref_nf = r._pose_tensors(scene_poses(n_views))
     gen = torch.Generator(device=dev).manual_seed(seed)
-    idx = sample_ray_indices(H * W, TRAIN_RAYS, patches, dev, gen)
+    idx = sample_ray_indices(H * W, R, patches, dev, gen)
     pix = torch.stack([(idx % W).float(), (idx // W).float()], -1)[None]
     center, ray = camera.get_center_and_ray(pix, tgt_intr, c2w)
-    depth = sample_depth(cfg, tgt_nf, 1, TRAIN_RAYS, stratified=True, generator=gen)
+    depth = sample_depth(cfg, tgt_nf, 1, R, stratified=True, generator=gen)
     pts = camera.get_3d_points_from_depth(center, ray, depth, multi_samples=True)
     return (project_to_views(pts, ref_w2c, ref_intr, ref_nf, H, W)[..., :2]
             * 2.0 - 1.0)[:, 0].contiguous()
@@ -392,19 +433,38 @@ def bind_atomic(lib):
     return lib
 
 
-def backward(torch, dev, libs, block_ut, result):
+def train_rays(V: int) -> int:
+    """Rays of the backward cases at V views: TRAIN_RAYS to V = 10, then
+    fewer (multiples of 8), so that the plain twins' f32 samples and their
+    gradients stay at their V = 10 size (chip_smoke.py's
+    `views_train_rays`: 696 at V = 12, 384 at V = 16)."""
+    return min(TRAIN_RAYS, 8 * (TRAIN_RAYS * 90 // (V * (V - 1)) // 8))
+
+
+def with_library(lib, fn):
+    """fn() with `lib` as the port's kernel library (another build of its
+    sources, called through this tree's wrappers)."""
+    saved, kernels._lib = kernels._lib, lib
+    try:
+        return fn()
+    finally:
+        kernels._lib = saved
+
+
+def backward(torch, dev, libs, block_ut, result, views=(3, 8)):
     """The B' and D' backward at the training shapes (see the module's
-    docstring), this tree's and `libs`' (the atomic build) in turns, at V =
-    3 and 8."""
+    docstring), this tree's and `libs`' in turns, at each of `views`."""
     from .ops import block_cosine_prior as kd
     from .ops import cosine_prior as kb
-    others = {k: bind_atomic(lib) for k, lib in libs.items()}
-    others = {k: lib for k, lib in others.items() if lib is not None}
+    atomic = {k: bind_atomic(lib) for k, lib in libs.items()}
+    atomic = {k: lib for k, lib in atomic.items() if lib is not None}
+    records = {k: lib for k, lib in libs.items() if k not in atomic}
     result["backward"] = []
-    for V in (3, 8):
-        grids_ray = train_grids(torch, dev, False, 3, V)
-        grids_strip = train_grids(torch, dev, True, 4, V)
-        R, S = grids_ray.shape[1:3]
+    for V in views:
+        R = train_rays(V)
+        grids_ray = train_grids(torch, dev, False, 3, V, R)
+        grids_strip = train_grids(torch, dev, True, 4, V, R)
+        S = grids_ray.shape[2]
         N = R * S
         gen = torch.Generator(device=dev).manual_seed(5)
         for s, (h, w, G) in enumerate(((H // 8, W // 8, 2), (H // 4, W // 4, 8))):
@@ -414,11 +474,12 @@ def backward(torch, dev, libs, block_ut, result):
             ut = (block_ut[s] if V == 3
                   else kd.bucket_ut(kd.block_union_size_raw(gp, h, w)))
             d_taken = ut is not None and kd.takes_f32(ut, S, G, h * w, V)
-            cp = kd.channels_per_pass(ut, S, G, backward=True, n_views=V) if d_taken else 32
+            how = kd.plan(ut, S, G, True, n_views=V) if d_taken else None
+            cp = how.cp if d_taken else 32
             counts = atomic_counts(torch, dev, grids_ray, grids_strip, h, w,
                                    ut if d_taken else 64, cp)
-            print(f"V={V} scale {s} {h}x{w} G={G} ut={ut} (D' {'takes' if d_taken else 'does not take'} it) "
-                  "runs and atomics: " + ", ".join(
+            print(f"V={V} scale {s} {h}x{w} G={G} ut={ut} (D' {'takes' if d_taken else 'does not take'} it"
+                  f"{', ' + str(how) if d_taken else ''}) runs and atomics: " + ", ".join(
                       f"{k} {v}" if not isinstance(v, float) else f"{k} {v:.3f}"
                       for k, v in counts.items()), flush=True)
 
@@ -427,57 +488,78 @@ def backward(torch, dev, libs, block_ut, result):
                 fn(t, grids).backward(gcot)
                 return t.grad
 
-            cases = {"B'": (grids_ray,
-                            lambda: kb.table_grad(table, grids_ray, gcot, G),
+            cases = {"B'": (lambda: kb.table_grad(table, grids_ray, gcot, G),
                             "cosine_prior_bwd_f32",
                             lambda d: (table.data_ptr(), grids_ray.data_ptr(), gcot.data_ptr(),
                                        d.data_ptr(), V, h, w, 128, G, N),
                             plain_grad(lambda t, g: kb.cosine_prior_plain(t, g, None, G),
-                                       grids_ray))}
+                                       grids_ray), {})}
             if d_taken:
                 _, unions = kd._forward(table, grids_strip, None, G, ut, with_unions=True)
-                cases["D'"] = (grids_strip,
-                               lambda: kd.table_grad(table, grids_strip, unions, gcot, G, ut),
-                               "block_cosine_prior_bwd_f32",
+                grad = lambda layout=None: kd.table_grad(table, grids_strip, unions, gcot, G,
+                                                         ut, layout=layout)
+                extra = {}
+                if not how.pair:              # the pair layout beside the route's
+                    extra["pair"] = lambda: grad(kd.Plan(cp, True))
+                held = kd.channels_per_pass(ut, S, G, True, n_views=V)
+                for key, lib in records.items():
+                    if held is not None:      # the layout a records build has
+                        extra[key] = (lambda lib=lib: with_library(
+                            lib, lambda: grad(kd.Plan(held, False))))
+                cases["D'"] = (grad, "block_cosine_prior_bwd_f32",
                                lambda d: (table.data_ptr(), gp.data_ptr(), unions.data_ptr(),
                                           gcot.data_ptr(), d.data_ptr(), V, h, w, 128, G, R,
                                           S, gp.shape[1] // 8, ut, cp),
                                plain_grad(lambda t, g: kd.block_cosine_prior_plain(
-                                   t, g, None, G, ut), grids_strip))
-            for kernel, (_, this_fn, entry, kargs, ref) in cases.items():
-                fns = {"this": this_fn}
-                for key, lib in others.items():
-                    def atomic(lib=lib):
+                                   t, g, None, G, ut), grids_strip), extra)
+            for kernel, (this_fn, entry, kargs, ref, extra) in cases.items():
+                fns = {"this": this_fn, **({} if kernel == "B'" else extra)}
+                if kernel == "B'":
+                    fns.update({k: (lambda lib=lib: with_library(
+                        lib, lambda: kb.table_grad(table, grids_ray, gcot, G)))
+                        for k, lib in records.items()})
+                for key, lib in atomic.items():
+                    def atomic_call(lib=lib):
                         d = torch.zeros_like(table)
                         call(torch, lib, entry, *kargs(d))
                         return d
-                    fns[key] = atomic
-                errs, repeat = {}, {}
+                    fns[key] = atomic_call
+                errs, repeat, firsts = {}, {}, {}
                 for key, fn in fns.items():
                     first, second = fn(), fn()
                     torch.cuda.synchronize()
                     errs[key] = float((first - ref).abs().max())
                     repeat[key] = bool(torch.equal(first, second))
-                    del first, second
-                order = [k for k in ("other", "this") if k in fns]
+                    firsts[key] = first
+                    del second
+                same = {k: bool(torch.equal(firsts[k], firsts["this"]))
+                        for k in firsts if k != "this"}
+                del firsts
+                order = [k for k in fns if k != "this"] + ["this"]
                 times = {k: [] for k in order}
                 for k in order + order[::-1]:
                     times[k].append(events_ms(torch, fns[k]))
                 tol = 1e-5 * float(ref.abs().max())
                 line = f"{kernel} backward V={V} scale {s} R={R} S={S} G={G}"
-                line += f" ut={ut} CP={cp}: " if kernel == "D'" else ": "
+                line += f" ut={ut} {how}: " if kernel == "D'" else ": "
                 print(line + "; ".join(
                     f"{k} " + " / ".join(f"{t:.4f}" for t in ts)
                     + f" ms (max|d| {errs[k]:.2e}, tol {tol:.2e}, two calls "
-                    + ("bit-equal" if repeat[k] else "differ") + ")"
+                    + ("bit-equal" if repeat[k] else "differ")
+                    + ("" if k == "this" else f", bit-equal to this {same[k]}") + ")"
                     for k, ts in times.items()), flush=True)
                 result["backward"].append({"kernel": kernel, "V": V, "scale": s, "R": R,
-                                           "S": S, "G": G, "ut": ut, "cp": cp, "ms": times,
-                                           "max_abs_err": errs, "tol": tol,
-                                           "bit_equal_twice": repeat, "counts": counts})
+                                           "S": S, "G": G, "ut": ut, "cp": cp,
+                                           "layout": list(how) if kernel == "D'" else None,
+                                           "ms": times, "max_abs_err": errs, "tol": tol,
+                                           "bit_equal_twice": repeat,
+                                           "bit_equal_to_this": same, "counts": counts})
                 if errs["this"] > tol or not repeat["this"]:
                     raise AssertionError(f"{kernel} V={V} scale {s}: max|d| {errs['this']:.2e} "
                                          f"over {tol:.2e}, or two calls differ")
+                if not all(v for k, v in same.items() if k not in atomic):
+                    raise AssertionError(f"{kernel} V={V} scale {s}: another layout or build "
+                                         f"gives other bits: {same}")
             del table, cases
 
 
@@ -579,8 +661,11 @@ def main(argv=None):
     ap.add_argument("--fused", action="store_true",
                     help="time Kernel F at V = 2 to 8, 10 and 16 instead (--against: "
                          "DIR's fused_cosine.cu, compared bit for bit)")
-    ap.add_argument("--views", default="3",
-                    help="source-view counts of the B and D cases, comma-separated")
+    ap.add_argument("--views", default=None,
+                    help="source-view counts of the B and D cases, comma-separated "
+                         "(default 3; with --backward 3,8)")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="nvcc's registers and spills for block_cosine_prior.cu's kernels")
     args = ap.parse_args(argv)
     import torch
 
@@ -621,21 +706,29 @@ def main(argv=None):
         return out
 
     def d_lib(lib, table, grids, scales, G, ut):
-        """Another source's Kernel D, called as its wrapper calls it."""
+        """Another source's Kernel D, called as its wrapper calls it, in the
+        layout that holds every view's taps (RuntimeError where that does
+        not fit)."""
         V, h, w, _ = table.shape
         R, S = grids.shape[1:3]
         cp = kd.channels_per_pass(ut, S, G, False, 2, h * w, V)   # rows staged as bf16
+        if cp is None:
+            raise RuntimeError("the layout that holds every view's taps does not fit")
         out = torch.empty(R, S, G, device=dev)
         call(torch, lib, kd.ENTRIES[table.dtype], table.data_ptr(), grids.data_ptr(),
              kernels.ptr(scales), None, out.data_ptr(), V, h, w, 128, G, R, S, ut, cp)
         return out
 
-    views = [int(v) for v in args.views.split(",")]
+    if args.ptxas:
+        result["ptxas"] = ptxas_report()
+        for row in result["ptxas"]:
+            print("ptxas %-58s %3d registers, spill stores %d B, loads %d B" % row, flush=True)
+    views = [int(v) for v in (args.views or ("3,8" if args.backward else "3")).split(",")]
     if args.backward:
         _, _, block_ut = scene_grids(torch, dev)
         print(f"pose buckets {block_ut}", flush=True)
         result["block_ut"] = list(block_ut)
-        backward(torch, dev, libs, block_ut, result)
+        backward(torch, dev, libs, block_ut, result, views)
         print(card_line(), flush=True)
         print(json.dumps(result), flush=True)
         return 0
@@ -676,23 +769,29 @@ def main(argv=None):
                             for k, lib in libs.items()})
                 ref = kb.cosine_prior_plain(table, g, scales, G)
             else:
+                how = kd.plan(ut, g.shape[2], G, False, 2, h * w, V)
                 fns = {"this": lambda: kd.block_cosine_prior(table, g, scales, G, ut)}
                 if "other" in libs:
                     fns["other"] = lambda: d_lib(libs["other"], table, g, scales, G, ut)
+                if not how.pair:          # the pair layout at the route's pass width
+                    fns["pair"] = lambda: kd._forward(table, g, scales, G, ut,
+                                                      layout=kd.Plan(how.cp, True))[0]
                 ref = kd.block_cosine_prior_plain(table, g, scales, G, ut)
             entry = {"kernel": kernel, "V": V, "dtype": dt, "scale": s, "R": R, "G": G}
+            if kernel == "D":
+                entry["layout"] = list(how)
             mine = fns["this"]()
             errs = {"this": float((mine - ref).abs().max())}
-            if "other" in fns:
+            for key in [k for k in ("other", "pair") if k in fns]:
                 try:
-                    theirs = fns["other"]()
+                    theirs = fns[key]()
                     torch.cuda.synchronize()
-                    errs["other"] = float((theirs - ref).abs().max())
-                    entry["bit_equal_to_other"] = bool(torch.equal(mine, theirs))
+                    errs[key] = float((theirs - ref).abs().max())
+                    entry[f"bit_equal_to_{key}"] = bool(torch.equal(mine, theirs))
                 except RuntimeError:
-                    del fns["other"]                  # the other build refuses V
-                    entry["bit_equal_to_other"] = None
-            order = [k for k in ("other", "this") if k in fns]
+                    del fns[key]                      # the other build refuses V
+                    entry[f"bit_equal_to_{key}"] = None
+            order = [k for k in ("other", "pair", "this") if k in fns]
             times = {k: [] for k in order}
             for k in order + order[::-1]:
                 times[k].append(events_ms(torch, fns[k]))
@@ -702,12 +801,15 @@ def main(argv=None):
                 entry["ut"] = ut
                 entry["union_build_ms"] = events_ms(torch,
                                                     lambda: kd.block_unions(gp, h, w, ut))
-                line += (f" ut={ut}, the plain twin's union build "
+                line += (f" ut={ut} {how}, the plain twin's union build "
                          f"{entry['union_build_ms']:.4f} ms")
             print(line + ": " + "; ".join(f"{k} {fmt(t)} ms (max|d| {errs[k]:.2e})"
                                           for k, t in times.items())
-                  + (f"; bit-equal to the other build {entry['bit_equal_to_other']}"
-                     if "bit_equal_to_other" in entry else ""), flush=True)
+                  + "".join(f"; bit-equal to {k} {entry['bit_equal_to_' + k]}"
+                            for k in ("other", "pair") if "bit_equal_to_" + k in entry),
+                  flush=True)
+            if entry.get("bit_equal_to_pair") is False:
+                raise AssertionError(f"{line}: the pair layout gives other bits")
             result["cases"].append(entry)
             del ref, mine
         if V == 3:

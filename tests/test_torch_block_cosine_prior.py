@@ -168,9 +168,10 @@ def _largest_rows(fits, W):
 @pytest.mark.parametrize("S", [128, 256])
 def test_block_route_table_size(S):
     """The kernel's union build holds two bitmaps of the table's h*w cells
-    in shared memory, so `takes_table` sends a table too large for them to
-    Kernel B (B'): True at the largest h (W = 1024) that fits, False one row
-    past it, for every table type. The DTU eval tables are far inside."""
+    in shared memory (of one view at a time in the pair layout), so
+    `takes_table` sends a table too large for them to Kernel B (B'): True
+    at the largest h (W = 1024) that fits, False one row past it, for every
+    table type. The DTU eval tables are far inside."""
     W = 1024
     for G in (2, 8):
         for ut in kd.UT_BUCKETS:
@@ -188,13 +189,15 @@ def test_block_route_table_size(S):
                 assert kd.takes_table(tables[0], scales, ut, S, G), (dt, ut, G)
                 assert not kd.takes_table(tables[1], scales, ut, S, G), (dt, ut, G)
                 itemsize = 4 if dt == torch.float32 else 2
-                cp = kd.channels_per_pass(ut, S, G, False, itemsize)
-                assert kd.fwd_smem(ut, S, cp, itemsize, (h + 1) * W) > kd.MAX_SMEM
+                cp, pair, _ = kd.plan(ut, S, G, False, itemsize)
+                assert kd.fwd_smem(ut, S, cp, itemsize, (h + 1) * W, 3, pair) > kd.MAX_SMEM
                 for hw in ((64, 80), (128, 160)):
                     assert kd.takes_table(torch.empty(3, *hw, 256, dtype=dt, device="meta"),
                                           scales, ut, S, G)
     hmax = _largest_rows(lambda hw: kd.takes_bf16(512, S, 8, hw), W)
-    assert (hmax * W) // 1000 == {128: 235, 256: 169}[S]
+    # the layout that holds every view built the V = 3 unions at once:
+    # 235k cells at S = 128 and 169k at S = 256; one view at a time
+    assert (hmax * W) // 1000 == {128: 773, 256: 642}[S]
 
 
 def _earlier_int8_smem(ut, S, G):
@@ -209,9 +212,10 @@ def _earlier_int8_smem(ut, S, G):
 def test_int8_block_route_against_earlier_kernel():
     """int8 tables took Kernel D at every bucket (raising where its int8
     staging passed the block's shared memory); now they take it where the
-    bf16 staging fits. Every configuration has G = 2 and 8 (base.yaml
-    `cos_n_group`), where the route is unchanged wherever the earlier
-    kernel launched; at G = 1 five (S, ut) went to Kernel B."""
+    bf16 staging fits in either layout. Every configuration has G = 2 and 8
+    (base.yaml `cos_n_group`), where the route is unchanged wherever the
+    earlier kernel launched; at G = 1 four (S, ut) go to Kernel B (five
+    before the pair layout took S = 256, ut 256)."""
     scales = torch.ones(3, 256)
     lost, gained = set(), set()
     for S in (128, 256):
@@ -224,9 +228,9 @@ def test_int8_block_route_against_earlier_kernel():
                     lost.add((S, G, ut))
                 if now and not earlier:
                     gained.add((S, G, ut))
-    assert lost == {(128, 1, 384), (128, 1, 512), (256, 1, 256), (256, 1, 320),
-                    (256, 1, 384)}
-    assert all(G in (4, 8, 16) for _, G, _ in gained) and (256, 8, 512) in gained
+    assert lost == {(128, 1, 384), (128, 1, 512), (256, 1, 320), (256, 1, 384)}
+    assert all(G in (2, 4, 8, 16) for _, G, _ in gained) and (256, 8, 512) in gained
+    assert (256, 2, 512) in gained
 
 
 def test_plain_kernel_d_f32_matches_jax():
@@ -266,12 +270,14 @@ def kernel_union(cells, ut, H, W):
     """numpy emulation of csrc/block_cosine_prior.cu's union build for one
     8-ray block: cells [V, L] base cells per view -> (unions [V, ut] -1
     padded, row(v, cell) -> the union row of a tap, ut when it is missing).
-    One bitmap word array for the V views; an exclusive scan of the words'
+    One bitmap word array for the V views (the pair layout calls it once
+    per view, V = 1); an exclusive scan of the words'
     popcounts ranks each set bit (prefix minus the view's first prefix plus
     the popcount below it); the first ut set bits, ascending, are the capped
     cells; those dilated by {c, c+1, c+W, c+W+1} below H*W fill a fresh
     bitmap, and its first ut set bits are the union."""
     nw = (H * W + 31) // 32
+    V = len(cells)
 
     def bitmap(per_view):
         words = np.zeros(V * nw, np.uint32)
@@ -353,6 +359,247 @@ def test_kernel_union_build_matches_sorts(case, cap):
             want_rows = torch.where(found, pos, ut)[0].numpy()
             np.testing.assert_array_equal(
                 [row(v, int(c)) for c in taps.reshape(-1)], want_rows)
+
+
+INT_MAX = 2 ** 31 - 1
+
+
+def find_row(u, ut, key):
+    """find_row of csrc/block_cosine_prior.cu: the lower bound of key in the
+    ascending union u[0..ut) (INT_MAX padded), or ut where key is missing."""
+    lo, hi = 0, ut
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if u[mid] < key:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo if lo < ut and u[lo] == key else ut
+
+
+def row_and_next(u, ut, c, right):
+    """row_and_next of csrc/block_cosine_prior.cu: the rows of cell c and,
+    where `right`, of c + 1 (else ut), the second the row after c's where
+    the union holds c + 1 there, else searched."""
+    r0 = find_row(u, ut, c)
+    if not right:
+        return r0, ut
+    return r0, r0 + 1 if r0 + 1 < ut and u[r0 + 1] == c + 1 else find_row(u, ut, c + 1)
+
+
+@pytest.mark.parametrize("case,cap", [("coherent", None), ("coherent", 32),
+                                      ("ragged_border", None), ("wide", 96)])
+def test_pair_layout_rows_match_the_bitmap_ranks(case, cap):
+    """The pair layout builds each view's union on its own (the bitmap build
+    of one view) and finds a sample's union rows by binary search in it
+    (`find_row`, `row_and_next`: one search for (y, x0) and the next row
+    for (y, x0 + 1) where the union holds it there): the same unions as the
+    build of every view at once, and for every tap of the forward ((y0,
+    x0), (y0, x1), (y1, x0), (y1, x1), the far ones clamped to the table)
+    and every parity slot of the backward the row the bitmap rank gives,
+    the zero row ut where a cell is missing or ranks past ut (at a cap
+    below the union too)."""
+    rng = np.random.default_rng(16)
+    H, W, R, S = (16, 16, 11, 16) if case == "ragged_border" else (24, 32, 24, 32)
+    grids = (_coherent_grids(rng, R, S, spread=1.2) if case == "wide"
+             else _coherent_grids(rng, R, S) if case == "coherent" else _border_grids(rng, R, S))
+    gp = _pad_np(grids)
+    n = kd.block_union_size_raw(torch.tensor(gp), H, W)
+    ut = cap or kd.bucket_ut(n)
+    assert (n > ut) == (cap is not None), (n, ut)
+    cells = kd.base_cells(torch.tensor(gp), H, W)                   # [V, Rp, S]
+    (y0, x0, y1, x1), _ = bilinear_taps(torch.tensor(gp), H, W)
+    missing = 0
+    for blk in range(gp.shape[1] // 8):
+        blk_cells = cells[:, blk * 8:(blk + 1) * 8].reshape(V, -1).numpy()
+        unions, row = kernel_union(blk_cells, ut, H, W)
+        for v in range(V):
+            one, _ = kernel_union(blk_cells[v:v + 1], ut, H, W)
+            np.testing.assert_array_equal(one[0], unions[v])
+            u = np.where(unions[v] < 0, INT_MAX, unions[v])
+            sl = (v, slice(blk * 8, (blk + 1) * 8))
+            yy0, xx0, yy1, xx1 = (t[sl].reshape(-1).numpy() for t in (y0, x0, y1, x1))
+            for a, b, c, d in zip(yy0, xx0, yy1, xx1):
+                for cell in (a * W + b, a * W + d, c * W + b, c * W + d):
+                    assert find_row(u, ut, cell) == row(v, int(cell))
+                    missing += find_row(u, ut, cell) == ut
+                # the kernels' two searches a sample: rows (y, x0) and (y, x0 + 1)
+                for y in (a, a + 1):
+                    if y >= H:
+                        continue
+                    r0, r1 = row_and_next(u, ut, y * W + b, b + 1 < W)
+                    assert r0 == row(v, int(y * W + b))
+                    assert r1 == (row(v, int(y * W + b + 1)) if b + 1 < W else ut)
+                for sl_ in range(4):
+                    ys = a + ((sl_ >> 1) ^ (a & 1))
+                    xs = b + ((sl_ & 1) ^ (b & 1))
+                    want = row(v, int(ys * W + xs)) if ys < H and xs < W else ut
+                    got = find_row(u, ut, ys * W + xs) if ys < H and xs < W else ut
+                    assert got == want
+    assert (missing > 0) == (cap is not None), missing
+
+
+def pair_slot_searches(n_views):
+    """The pair layout's taps slots over the pairs of csrc/views.cuh
+    (`held` in the kernels): per pair (i, j) the views searched before its
+    first pass, i into slot 0 where slot 0 held another view, j into slot
+    1 -> [((i, j), searched)]."""
+    held, out = -1, []
+    for i, j in pair_index_lists(n_views):
+        out.append(((i, j), ([i] if i != held else []) + [j]))
+        held = i
+    return out
+
+
+@pytest.mark.parametrize("n_views", [2, 3, 8, 10, 16])
+def test_pair_layout_keeps_the_first_view(n_views):
+    """The pairs run by first view, so slot 0 keeps view i for its
+    V - 1 - i partners: the pair layout searches P + V - 1 views' taps in
+    all (P for slot 1, one per first view for slot 0), where the layout
+    that holds every view finds V views' once, and every pair's slots hold
+    its own two views."""
+    P = n_views * (n_views - 1) // 2
+    walk = pair_slot_searches(n_views)
+    assert sum(len(searched) for _, searched in walk) == P + n_views - 1
+    slots = [None, None]
+    for (i, j), searched in walk:
+        if i in searched[:-1]:
+            slots[0] = i
+        slots[1] = searched[-1]
+        assert slots == [i, j], (i, j, slots)
+
+
+# the route before the pair layout, frozen (its arithmetic as it was): every
+# view's taps and fractions, 16 B a (view, sample), and every view's
+# bitmaps at once in the union build
+def _fwd_smem_views(ut, S, cp, itemsize, hw, n_views):
+    staged = 2 * (ut + 1) * cp * itemsize
+    scratch = (2 * n_views * ((hw + 31) // 32) + 32) * 4
+    return -(-max(staged, scratch) // 16) * 16 + n_views * (8 * S * 16 + ut * 4)
+
+
+def _bwd_smem_views(ut, S, cp, n_views):
+    return 4 * (ut + 1) * cp * 4 + n_views * (8 * S * 16 + ut * 4)
+
+
+# the pair layout as the header reckons it: the taps and fractions of two
+# views, one view's bitmaps, every view's union; the backward's rows in
+# `bufs` buffers
+def _fwd_smem_pair(ut, S, cp, itemsize, hw, n_views):
+    staged = 2 * (ut + 1) * cp * itemsize
+    scratch = (2 * ((hw + 31) // 32) + 32) * 4
+    return -(-max(staged, scratch) // 16) * 16 + 2 * 8 * S * 16 + n_views * ut * 4
+
+
+def _bwd_smem_pair(ut, S, cp, n_views, bufs):
+    return 2 * bufs * (ut + 1) * cp * 4 + 2 * 8 * S * 16 + n_views * ut * 4
+
+
+def _widths(G):
+    return [cp for cp in (128, 64, 32) if 128 <= G * cp <= 2048]
+
+
+def _earlier_takes(dt, ut, S, G, hw, n_views):
+    """The route before the pair layout (frozen)."""
+    itemsize = 4 if dt == torch.float32 else 2
+    fwd = any(_fwd_smem_views(ut, S, cp, itemsize, hw, n_views) <= kd.MAX_SMEM
+              for cp in _widths(G))
+    if dt != torch.float32:
+        return fwd
+    return fwd and any(_bwd_smem_views(ut, S, cp, n_views) <= kd.MAX_SMEM for cp in _widths(G))
+
+
+def _pair_takes(dt, ut, S, G, hw, n_views):
+    """Whether the pair layout alone takes the bucket."""
+    itemsize = 4 if dt == torch.float32 else 2
+    fwd = any(_fwd_smem_pair(ut, S, cp, itemsize, hw, n_views) <= kd.MAX_SMEM
+              for cp in _widths(G))
+    if dt != torch.float32:
+        return fwd
+    return fwd and any(_bwd_smem_pair(ut, S, cp, n_views, bufs) <= kd.MAX_SMEM
+                       for cp in _widths(G) for bufs in (2, 1))
+
+
+# (scale 0, scale 1) tables: DTU 640x512, LLFF 960x640, Blender 800x800
+ROUTE_TABLES = {"dtu": ((64, 80), (128, 160)), "llff": ((80, 120), (160, 240)),
+                "blender": ((100, 100), (200, 200))}
+
+
+@pytest.mark.parametrize("S", [64, 128, 256])
+def test_route_takes_the_pair_layouts_domain(S):
+    """For V = 2 to 16, every bucket, G = 1, 2 and 8 and the DTU, LLFF and
+    Blender tables of both scales: `takes_table` takes exactly what the
+    layout that holds every view took (its arithmetic frozen) or the
+    pair layout takes, so it loses nothing, and `plan` keeps the earlier
+    layout wherever it fits. On the DTU tables at G = 2 and 8 int8 and bf16
+    tables take Kernel D at every bucket, and f32 tables take D' at least
+    wherever three views took it (S = 128: ut <= 160 at G = 2, <= 320 at
+    G = 8; S = 64: <= 192, <= 384)."""
+    least = {(128, 2): 160, (128, 8): 320, (64, 2): 192, (64, 8): 384}
+    gained = 0
+    for name, hws in ROUTE_TABLES.items():
+        for h, w in hws:
+            for V in range(2, 17):
+                scales = torch.ones(V, (V - 1) * 128)
+                for G in (1, 2, 8):
+                    for ut in kd.UT_BUCKETS:
+                        for dt in (torch.int8, torch.bfloat16, torch.float32):
+                            table = torch.empty(V, h, w, (V - 1) * 128, dtype=dt, device="meta")
+                            now = kd.takes_table(table, scales if dt == torch.int8 else None,
+                                                 ut, S, G)
+                            before = _earlier_takes(dt, ut, S, G, h * w, V)
+                            assert now == (before or _pair_takes(dt, ut, S, G, h * w, V)), \
+                                (name, h, w, V, G, ut, dt)
+                            gained += now and not before
+                            itemsize = 4 if dt == torch.float32 else 2
+                            how = kd.plan(ut, S, G, False, itemsize, h * w, V)
+                            fwd_before = any(_fwd_smem_views(ut, S, cp, itemsize, h * w, V)
+                                             <= kd.MAX_SMEM for cp in _widths(G))
+                            assert (how is not None and not how.pair) == fwd_before
+                            if name != "dtu" or G == 1:
+                                continue
+                            if dt != torch.float32:
+                                assert now, (h, w, V, G, ut)
+                            elif ut <= least.get((S, G), 0):
+                                assert now, (h, w, V, G, ut)
+    assert gained > 0
+
+
+def test_pair_layout_bytes_mirror_the_header():
+    """`fwd_smem` / `bwd_smem` with pair=True are csrc LayoutFwd /
+    LayoutPass of the pair layout region by region (`pass_buffers` picks
+    the backward's row buffers as csrc pass_buffers does), and the byte
+    counts block_cosine_prior.cu's header gives for it are theirs."""
+    for S in (64, 128, 256):
+        for ut in kd.UT_BUCKETS:
+            for cp in (32, 64, 128):
+                for V in (2, 3, 9, 16):
+                    for hw in (0, 64 * 80, 160 * 240, 240 * 1024):
+                        for itemsize in (2, 4):
+                            assert kd.fwd_smem(ut, S, cp, itemsize, hw, V, True) == \
+                                _fwd_smem_pair(ut, S, cp, itemsize, hw, V)
+                            assert kd.fwd_smem(ut, S, cp, itemsize, hw, V) == \
+                                _fwd_smem_views(ut, S, cp, itemsize, hw, V)
+                    for bufs in (1, 2):
+                        assert kd.bwd_smem(ut, S, cp, V, True, bufs) == \
+                            _bwd_smem_pair(ut, S, cp, V, bufs)
+                    assert kd.pass_buffers(ut, S, cp, V) == (
+                        2 if _bwd_smem_pair(ut, S, cp, V, 2) <= kd.MAX_SMEM else 1)
+    with open(kd.kernels.CSRC_DIR / "block_cosine_prior.cu") as f:
+        header = " ".join(line.lstrip("/ ").rstrip() for line in f)
+    dtu = 128 * 160
+    stated = {229632: kd.fwd_smem(512, 256, 64, 2, dtu, 16, True),
+              196864: kd.fwd_smem(512, 128, 64, 2, dtu, 16, True),
+              207872: kd.bwd_smem(160, 128, 64, 16, True, 2),
+              217600: kd.bwd_smem(320, 128, 32, 16, True, 2),
+              5248: (2 * ((dtu + 31) // 32) + 32) * 4,
+              262656: 2 * 513 * 128 * 2}
+    for value, reckoned in stated.items():
+        assert value == reckoned and f"{value:,}" in header, value
+    assert kd.bwd_smem(512, 128, 32, 16, True, 1) == 196864
+    assert (kd.pass_buffers(160, 128, 64, 16), kd.pass_buffers(512, 128, 32, 16)) == (2, 1)
+    assert kd.plan(512, 256, 2, False, 2, dtu, 16) == kd.Plan(64, True)
+    assert kd.plan(512, 128, 8, True, n_views=16) == kd.Plan(32, True, 1)
 
 
 def pair_cosine8(a, b, c0, SW, G):

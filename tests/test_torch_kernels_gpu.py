@@ -1090,26 +1090,32 @@ def _wide_d_case(g, dev, V, h, w, R, S, G, taken):
     raise AssertionError(f"no grids Kernel D takes at V={V} G={G} S={S}")
 
 
+def _d_entry(table, ut, S, G):
+    """The forward entry the route launches for this table and bucket."""
+    how = kd.plan(ut, S, G, False, 4 if table.dtype == torch.float32 else 2,
+                  table.shape[1] * table.shape[2], table.shape[0])
+    return (kd.PAIR_ENTRIES if how.pair else kd.ENTRIES)[table.dtype]
+
+
 @pytest.mark.parametrize("V", WIDE_VIEWS)
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("G,hw,S", [(2, (20, 24), 48), (8, (20, 24), 48), (2, (64, 80), 64),
                                     (8, (128, 160), 64), (8, (64, 80), 128)])
 def test_block_cosine_prior_kernel_wide(dev, dtype, G, hw, S, V):
-    """Kernel D at V = 9 to 16 (the union build's counts in shared memory)
-    on int8 and bf16 tables at buckets `takes_table` gives it, against its
-    plain twin and Kernel B (1e-5); at V = 16, S = 128 D takes no bucket
-    and the route is B (asserted)."""
+    """Kernel D at V = 9 to 16 on int8 and bf16 tables at buckets
+    `takes_table` gives it (the union build's counts in shared memory where
+    every view's taps fit, else the pair layout), against its plain twin
+    and Kernel B (1e-5); every case takes D."""
     g = torch.Generator(device=dev).manual_seed(41 + V)
     table, scales = _d_table(g, dev, dtype, *hw, V)
     take = lambda ut: kd.takes_table(table, scales, ut, S, G)
-    if not any(take(u) for u in kd.UT_BUCKETS):
-        assert V >= 12 and S == 128, (V, S, G)
-        return
+    assert all(take(u) for u in kd.UT_BUCKETS), (V, S, G)
     grids, ut = _wide_d_case(g, dev, V, *hw, 37, S, G, take)
-    before = kd.COUNTER.by_entry.get(kd.ENTRIES[dtype], 0)
+    entry = _d_entry(table, ut, S, G)
+    before = kd.COUNTER.by_entry.get(entry, 0)
     got = kd.block_cosine_prior(table, grids, scales, G, ut)
     torch.cuda.synchronize()
-    assert kd.COUNTER.by_entry[kd.ENTRIES[dtype]] == before + 1
+    assert kd.COUNTER.by_entry[entry] == before + 1
     torch.testing.assert_close(got, kd.block_cosine_prior_plain(table, grids, scales, G, ut),
                                atol=1e-5, rtol=0)
     torch.testing.assert_close(got, kb.cosine_prior(table, grids, scales, G), atol=1e-5,
@@ -1120,17 +1126,15 @@ def test_block_cosine_prior_kernel_wide(dev, dtype, G, hw, S, V):
 @pytest.mark.parametrize("G,hw,S", [(2, (20, 24), 48), (8, (20, 24), 48), (2, (64, 80), 64),
                                     (8, (64, 80), 128)])
 def test_block_cosine_prior_f32_kernels_wide(dev, G, hw, S, V):
-    """D' at V = 9 to 16 at buckets `takes_f32` gives it: the union its
-    forward builds equals the plain version's cell for cell; the forward
-    (1e-5) and the table gradient (1e-5 of the largest, bit-equal on a
-    second run) against autograd through the plain twin and through Kernels
-    B and B'."""
+    """D' at V = 9 to 16 at buckets `takes_f32` gives it (every case takes
+    one): the union its forward builds equals the plain version's cell for
+    cell; the forward (1e-5) and the table gradient (1e-5 of the largest,
+    bit-equal on a second run) against autograd through the plain twin and
+    through Kernels B and B'."""
     g = torch.Generator(device=dev).manual_seed(51 + V)
     table = _f32_table(g, dev, *hw, V)
     take = lambda ut: kd.takes_f32(ut, S, G, hw[0] * hw[1], V)
-    if not any(take(u) for u in kd.UT_BUCKETS):
-        assert S == 128 and V >= 12, (V, S, G)
-        return
+    assert any(take(u) for u in kd.UT_BUCKETS), (V, S, G)
     grids, ut = _wide_d_case(g, dev, V, *hw, 29, S, G, take)
     _, unions = kd._forward(table, grids, None, G, ut, with_unions=True)
     torch.testing.assert_close(unions, kd.block_unions(kd.pad_rays(grids), *hw, ut), atol=0,
@@ -1154,6 +1158,140 @@ def test_block_cosine_prior_f32_kernels_wide(dev, G, hw, S, V):
     for i in (2, 3):
         torch.testing.assert_close(outs[0], outs[i], atol=1e-5, rtol=0)
         _grad_close(grads[0], grads[i], 1e-5)
+
+
+PAIR_VIEWS = (4, 8, 10, 12, 16)     # the pair layout's views in the tests below
+
+
+def _pair_case(g, dev, V, h, w, R, S, ut):
+    """Grids of R rays in 8-ray blocks whose union bucket is `ut` (the
+    spread narrowed until it is), or where no spread gives it, the widest
+    spread's (unions past ut, capped at ut as the plain twin caps them)."""
+    widest = None
+    for spread in (2.0, 1.5, 1.2, 1.0, 0.8, 0.6, 0.5, 0.4, 0.3, 0.2, 0.1, 0.05):
+        grids = _block_grids(g, dev, V, R, S, spread)
+        widest = grids if widest is None else widest
+        if kd.bucket_ut(kd.block_union_size_raw(kd.pad_rays(grids), h, w)) == ut:
+            return grids
+    return widest
+
+
+def _earlier_takes(ut, S, G, hw, V, itemsize, backward=False):
+    """Whether the layout that holds every view's taps (the route before the
+    pair layout) takes this bucket."""
+    return kd.channels_per_pass(ut, S, G, backward, itemsize, hw, V) is not None
+
+
+@pytest.mark.parametrize("V", PAIR_VIEWS)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("hw,G", [((64, 80), 2), ((128, 160), 8)])
+def test_block_cosine_prior_pair_layout(dev, dtype, hw, G, V):
+    """Kernel D at S = 128 at the widest bucket the route takes (512) and at
+    the narrowest one the layout that holds every view's taps refused (where
+    there is one), on int8 and bf16 tables of the DTU scales, against its
+    plain twin (1e-5); the launch goes to the entry of the route's layout."""
+    g = torch.Generator(device=dev).manual_seed(61 + V)
+    table, scales = _d_table(g, dev, dtype, *hw, V)
+    S, n = 128, hw[0] * hw[1]
+    assert all(kd.takes_table(table, scales, u, S, G) for u in kd.UT_BUCKETS)
+    refused = [u for u in kd.UT_BUCKETS if not _earlier_takes(u, S, G, n, V, 2)]
+    for ut in sorted({512, *refused[:1]}):
+        grids = _pair_case(g, dev, V, *hw, 29, S, ut)
+        entry = _d_entry(table, ut, S, G)
+        assert (entry == kd.PAIR_ENTRIES[dtype]) == (ut in refused), (ut, entry)
+        before = kd.COUNTER.by_entry.get(entry, 0)
+        got = kd.block_cosine_prior(table, grids, scales, G, ut)
+        torch.cuda.synchronize()
+        assert kd.COUNTER.by_entry[entry] == before + 1
+        torch.testing.assert_close(
+            got, kd.block_cosine_prior_plain(table, grids, scales, G, ut), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("V", PAIR_VIEWS)
+@pytest.mark.parametrize("hw,G", [((64, 80), 2), ((128, 160), 8)])
+def test_block_cosine_prior_f32_pair_layout(dev, hw, G, V):
+    """D' at S = 128 at the widest bucket the route takes (320 at G = 2,
+    512 at G = 8: one row buffer in the backward) and at the narrowest one
+    the layout that holds every view's taps refused: the forward (1e-5) and the
+    table gradient (1e-5 of the largest) against autograd through the plain
+    twin; the backward's launch goes to the entry of the route's layout."""
+    g = torch.Generator(device=dev).manual_seed(71 + V)
+    table = _f32_table(g, dev, *hw, V)
+    S, n = 128, hw[0] * hw[1]
+    taken = [u for u in kd.UT_BUCKETS if kd.takes_f32(u, S, G, n, V)]
+    assert taken[-1] == (320 if G == 2 else 512), taken
+    refused = [u for u in taken if not (_earlier_takes(u, S, G, n, V, 4)
+                                        and _earlier_takes(u, S, G, n, V, 4, True))]
+    assert refused, taken
+    for ut in sorted({taken[-1], refused[0]}):
+        grids = _pair_case(g, dev, V, *hw, 29, S, ut)
+        gcot = torch.randn(grids.shape[1], S, G, generator=g, device=dev)
+        pair = kd.plan(ut, S, G, True, n_views=V).pair
+        entry = "block_cosine_prior_bwd_f32_pair" if pair else "block_cosine_prior_bwd_f32"
+        outs, grads = [], []
+        for fn in (kd.block_cosine_prior, kd.block_cosine_prior_plain):
+            t = table.clone().requires_grad_()
+            before = kd.BWD_COUNTER.by_entry.get(entry, 0)
+            out = fn(t, grids, None, G, ut)
+            out.backward(gcot)
+            torch.cuda.synchronize()
+            if fn is kd.block_cosine_prior:
+                assert kd.BWD_COUNTER.by_entry[entry] == before + 1, entry
+            outs.append(out.detach())
+            grads.append(t.grad)
+        torch.testing.assert_close(outs[0], outs[1], atol=1e-5, rtol=0)
+        _grad_close(grads[0], grads[1], 1e-5)
+
+
+def test_block_cosine_prior_f32_pair_deterministic(dev):
+    """D''s backward in the pair layout at V = 10 (the training strips of
+    scale 1, 128x160, G = 8, at the widest bucket it takes) launched twice
+    gives torch.equal gradients."""
+    V, (h, w), G, S = 10, (128, 160), 8, 128
+    g = torch.Generator(device=dev).manual_seed(81)
+    table = _f32_table(g, dev, h, w, V)
+    grids = _pair_case(g, dev, V, h, w, 256, S, 512)
+    assert kd.plan(512, S, G, True, n_views=V).pair
+    gcot = torch.randn(256, S, G, generator=g, device=dev)
+    runs = []
+    for _ in range(2):
+        t = table.clone().requires_grad_()
+        kd.block_cosine_prior(t, grids, None, G, 512).backward(gcot)
+        runs.append(t.grad)
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("V", [3, 8])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+def test_pair_layout_bit_equal_to_every_view_layout(dev, dtype, V):
+    """Where both layouts take a bucket, the pair layout at the same pass
+    width gives the same bits as the layout that holds every view's taps:
+    D's forward on int8, bf16 and f32 tables (and the union it writes),
+    and D''s backward, at S = 128 on the DTU scales at each bucket both
+    take."""
+    g = torch.Generator(device=dev).manual_seed(91 + V)
+    S = 128
+    for hw, G in (((64, 80), 2), ((128, 160), 8)):
+        n = hw[0] * hw[1]
+        itemsize = 4 if dtype == torch.float32 else 2
+        table, scales = ((_f32_table(g, dev, *hw, V), None) if dtype == torch.float32
+                         else _d_table(g, dev, dtype, *hw, V))
+        for ut in (160, 320, 512):
+            cp = kd.channels_per_pass(ut, S, G, False, itemsize, n, V)
+            if cp is None:
+                continue
+            grids = _pair_case(g, dev, V, *hw, 29, S, ut)
+            outs = [kd._forward(table, grids, scales, G, ut, with_unions=True,
+                                layout=kd.Plan(cp, pair)) for pair in (False, True)]
+            assert torch.equal(outs[0][0], outs[1][0]), (hw, ut)
+            assert torch.equal(outs[0][1], outs[1][1]), (hw, ut)
+            bcp = kd.channels_per_pass(ut, S, G, True, n_views=V)
+            if dtype != torch.float32 or bcp is None:
+                continue
+            gcot = torch.randn(grids.shape[1], S, G, generator=g, device=dev)
+            grads = [kd.table_grad(table, grids, outs[0][1], gcot, G, ut,
+                                   layout=kd.Plan(bcp, pair)) for pair in (False, True)]
+            assert torch.equal(grads[0], grads[1]), (hw, ut)
 
 
 def test_convergence_train_recipe_follows_all_plain(dev):

@@ -170,13 +170,18 @@ def test_block_cosine_prior_table_grad_matches_jax(R):
 
 def test_f32_block_staging_fits_the_training_buckets():
     """D' takes the buckets of the DTU training pose (160 rows at G=2, 320 at
-    G=8, S=128) and declines what no staging pass width fits."""
+    G=8, S=128) and declines what no staging pass width fits in either
+    layout: up to ut 320 at G = 2 and 512 at G = 8 the pair layout's
+    backward takes one row buffer (before it, 320 at G = 2 and 512 at G = 8
+    were declined)."""
     assert kd.channels_per_pass(160, 128, 2, backward=False) == 128
     assert kd.channels_per_pass(160, 128, 2, backward=True) == 64
     assert kd.channels_per_pass(320, 128, 8, backward=False) == 64
     assert kd.channels_per_pass(320, 128, 8, backward=True) == 32
     assert kd.takes_f32(160, 128, 2) and kd.takes_f32(320, 128, 8)
-    assert not kd.takes_f32(320, 128, 2) and not kd.takes_f32(512, 128, 8)
+    assert kd.takes_f32(320, 128, 2) and kd.takes_f32(512, 128, 8)
+    assert kd.plan(320, 128, 2, True) == kd.Plan(64, True, 1)
+    assert not kd.takes_f32(384, 128, 2)
 
 
 @pytest.mark.parametrize("failure", ["launch", "build"])

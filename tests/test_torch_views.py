@@ -197,9 +197,11 @@ def _layout_pass(V, ut, S, CP):
 
 
 def test_route_sums_take_the_views():
-    """At V = 3 the route sums give exactly what they gave before they took
-    the views; at V = 2, 3 and 4 `fwd_smem` and the backward's sum are the
-    CUDA layouts' bytes; the DTU buckets' widths at V = 4 are pinned."""
+    """At V = 3 the route sums of the layout that holds every view's taps
+    give exactly what they gave before they took the views, and `takes_bf16`
+    takes that or what the pair layout fits; at V = 2, 3 and 4 `fwd_smem`
+    and the backward's sum are the CUDA layouts' bytes; the DTU buckets'
+    widths at V = 4 are pinned."""
     hws = (0, 64 * 80, 128 * 160, 240 * 1024)
     for S_ in (128, 256):
         for ut in kd.UT_BUCKETS:
@@ -208,8 +210,10 @@ def test_route_sums_take_the_views():
                     for itemsize in (2, 4):
                         assert kd.channels_per_pass(ut, S_, G_, False, itemsize, hw) == \
                             _cpp_before(ut, S_, G_, False, itemsize, hw)
-                    assert kd.takes_bf16(ut, S_, G_, hw) == \
-                        (_cpp_before(ut, S_, G_, False, 2, hw) is not None)
+                    before = _cpp_before(ut, S_, G_, False, 2, hw) is not None
+                    assert kd.takes_bf16(ut, S_, G_, hw) == (before or kd.channels_per_pass(
+                        ut, S_, G_, False, 2, hw, pair=True) is not None)
+                    assert kd.takes_bf16(ut, S_, G_, hw) or not before
                 assert kd.channels_per_pass(ut, S_, G_, True) == _cpp_before(ut, S_, G_, True)
             for cp in (32, 64, 128):
                 for hw in hws:
@@ -236,23 +240,21 @@ def test_route_sums_take_the_views():
 
 @pytest.mark.parametrize("V", [2, 3, 4])
 def test_takes_table_reads_the_views(V):
-    """`takes_table` reads V from the table and routes as the sums say; at
-    V = 3 as before."""
+    """`takes_table` reads V from the table and routes as the sums say (in
+    either layout: `plan`); at V = 3 it takes everything it took before."""
     for dt, itemsize in ((torch.int8, 2), (torch.bfloat16, 2), (torch.float32, 4)):
         table = torch.empty(V, 128, 160, (V - 1) * 128, dtype=dt, device="meta")
         scales = torch.ones(V, (V - 1) * 128) if dt == torch.int8 else None
         for ut in kd.UT_BUCKETS:
             for G_ in (2, 8):
-                want = kd.channels_per_pass(ut, 128, G_, False, itemsize, 128 * 160,
-                                            V) is not None
+                want = kd.plan(ut, 128, G_, False, itemsize, 128 * 160, V) is not None
                 if dt == torch.float32:
-                    want = want and kd.channels_per_pass(ut, 128, G_, True,
-                                                         n_views=V) is not None
+                    want = want and kd.plan(ut, 128, G_, True, n_views=V) is not None
                 assert kd.takes_table(table, scales, ut, 128, G_) == want, (dt, ut, G_)
                 if V == 3:
-                    assert want == (_cpp_before(ut, 128, G_, False, itemsize, 128 * 160)
-                                    is not None and (dt != torch.float32 or _cpp_before(
-                                        ut, 128, G_, True) is not None))
+                    assert want or not (_cpp_before(ut, 128, G_, False, itemsize, 128 * 160)
+                                        is not None and (dt != torch.float32 or _cpp_before(
+                                            ut, 128, G_, True) is not None))
 
 
 @pytest.mark.parametrize("V", [1, 17])

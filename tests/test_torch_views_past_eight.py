@@ -175,16 +175,17 @@ def test_view_bounds_mirror_the_header():
 def test_route_reads_one_images_table(monkeypatch):
     """`takes_table` takes one image's table [V,h,w,Cc]: at S = 128 an int8
     table of 10 views of 64x80 cells takes Kernel D at bucket 192 (G = 2),
-    one of 16 views does not (its taps and fractions outgrow the block's
-    shared memory), and a batched [B,V,h,w,Cc] table raises (read as V = 1
+    and one of 16 views too, at every bucket (the pair layout: before it
+    the taps and fractions of 16 views outgrew the block's shared memory
+    and D took none), and a batched [B,V,h,w,Cc] table raises (read as V = 1
     views of B*V x h cells, it once sent such a scale to D, whose wrapper
     refused it); `query_cond_info` asks it about each scale's [V,h,w,Cc]."""
     meta = lambda V: torch.empty(V, 64, 80, (V - 1) * 128, dtype=torch.int8, device="meta")
     ones = torch.ones(1)
     assert kd.takes_table(meta(10), ones, 192, 128, 2)
-    assert not kd.takes_table(meta(16), ones, 192, 128, 2)
-    assert not any(kd.takes_table(meta(16), ones, u, 128, G_)
-                   for u in kd.UT_BUCKETS for G_ in (2, 8))
+    assert kd.takes_table(meta(16), ones, 192, 128, 2)
+    assert all(kd.takes_table(meta(16), ones, u, 128, G_)
+               for u in kd.UT_BUCKETS for G_ in (2, 8))
     with pytest.raises(ValueError, match="one image's"):
         kd.takes_table(meta(16)[None], ones, 192, 128, 2)
 
